@@ -1,0 +1,237 @@
+"""BERT-family transformer encoder in PyTorch -- the port of
+``nbest_asr_tpu/models/encoder.py``.
+
+Parameters keep the JAX layout so that ``params_bridge`` is a dict walk:
+GEMM kernels are (in, out), and every per-layer leaf is stacked on a
+leading ``num_layers`` axis.  The layer loop is a Python loop over that
+axis.  Params are f32 masters; the forward casts the four GEMM kernels to
+the compute dtype, which is free when the caller (the Predictor) already
+holds compute copies.
+
+Routing per layer, as the JAX encoder routes (``encoder.py:322-443``,
+without the TPU's VMEM budget):
+
+- the attention block goes to ``ops.fused_attention`` when
+  ``use_fused_attn`` and ``use_fused_attn_eval`` are set, hidden is a
+  multiple of 128, the head dim a multiple of 64 and seq <= 512;
+- the FFN block goes to ``ops.fused_ffn`` when ``use_fused_ffn`` is set
+  and hidden and intermediate are multiples of 128;
+- otherwise the plain path runs, exactly as the JAX XLA path does.
+
+Only the deterministic (serving) forward exists here; dropout and the
+training routes land with the training slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ..ops.attention import multi_head_attention
+from ..ops.layers import dense, gelu, layer_norm
+
+GEMM_KERNELS = ("qkv_kernel", "attn_out_kernel", "ffn_in_kernel",
+                "ffn_out_kernel")
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Same fields and defaults as the JAX ``EncoderConfig``.  The port
+    reads the sizes, ``compute_dtype`` and the three routing flags
+    ``use_fused_attn``, ``use_fused_attn_eval`` and ``use_fused_ffn``;
+    the other flags steer TPU-only or training-only paths and are kept so
+    one configuration describes both packages."""
+
+    vocab_size: int
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position: int = 512
+    type_vocab_size: int = 2
+    hidden_dropout: float = 0.1
+    attn_dropout: float = 0.1
+    layer_norm_eps: float = 1e-12
+    position_offset: int = 0
+    initializer_range: float = 0.02
+    compute_dtype: str = "float32"
+    use_flash_attention: bool = False
+    flash_min_seq: int = 160
+    use_fused_ln: bool = False
+    use_fused_gelu: bool = False
+    use_fused_embedding: bool = False
+    use_fused_ffn: bool = False
+    use_fused_attn: bool = False
+    use_int8_train: bool = False
+    use_int8_train_bwd: bool = False
+    use_int8_train_attn: bool = False
+    use_fused_attn_eval: bool = False
+    remat: bool = False
+    scan_unroll: int = 1
+
+    @property
+    def head_dim(self) -> int:
+        if self.hidden_size % self.num_heads:
+            raise ValueError(f"hidden {self.hidden_size} is not a multiple "
+                             f"of num_heads {self.num_heads}")
+        return self.hidden_size // self.num_heads
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float64": torch.float64}[self.compute_dtype]
+
+    @staticmethod
+    def bert_base(vocab_size: int = 30522, **kw) -> "EncoderConfig":
+        return EncoderConfig(vocab_size=vocab_size, **kw)
+
+    @staticmethod
+    def xlmr_base(**kw) -> "EncoderConfig":
+        kw.setdefault("type_vocab_size", 1)
+        return EncoderConfig(vocab_size=250002, max_position=514,
+                             position_offset=2, layer_norm_eps=1e-5, **kw)
+
+    @staticmethod
+    def tiny(vocab_size: int, **kw) -> "EncoderConfig":
+        """Test-size config."""
+        kw.setdefault("hidden_size", 64)
+        kw.setdefault("num_layers", 2)
+        kw.setdefault("num_heads", 4)
+        kw.setdefault("intermediate_size", 128)
+        kw.setdefault("max_position", 320)
+        return EncoderConfig(vocab_size=vocab_size, **kw)
+
+
+def init_encoder_params(gen: torch.Generator, cfg: EncoderConfig) -> dict:
+    """Truncated normal (+-2 sigma) times ``initializer_range`` for tables
+    and kernels, zero biases, unit LN scales -- the JAX init's
+    distribution (torch draws other numbers from a seed).  f32, on the
+    generator's device."""
+    h, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    dev = gen.device
+
+    def tn(*shape):
+        t = torch.empty(shape, dtype=torch.float32, device=dev)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return t.mul_(cfg.initializer_range)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    emb = {
+        "word": tn(cfg.vocab_size, h),
+        "position": tn(cfg.max_position, h),
+        "type": tn(max(cfg.type_vocab_size, 1), h),
+        "ln_scale": ones(h),
+        "ln_bias": zeros(h),
+    }
+    layers = {
+        "qkv_kernel": tn(L, h, 3 * h),
+        "qkv_bias": zeros(L, 3 * h),
+        "attn_out_kernel": tn(L, h, h),
+        "attn_out_bias": zeros(L, h),
+        "attn_ln_scale": ones(L, h),
+        "attn_ln_bias": zeros(L, h),
+        "ffn_in_kernel": tn(L, h, i),
+        "ffn_in_bias": zeros(L, i),
+        "ffn_out_kernel": tn(L, i, h),
+        "ffn_out_bias": zeros(L, h),
+        "ffn_ln_scale": ones(L, h),
+        "ffn_ln_bias": zeros(L, h),
+    }
+    return {"embeddings": emb, "layers": layers}
+
+
+def _embed(params: dict, input_ids: torch.Tensor,
+           token_type_ids: Optional[torch.Tensor], cfg: EncoderConfig,
+           position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Word + position + token-type embeddings, LayerNorm, cast to the
+    compute dtype.  ``position_ids`` (b, s) overrides the iota positions
+    (example packing restarts them per segment)."""
+    emb = params["embeddings"]
+    s = input_ids.shape[1]
+    ids = input_ids.long()
+    x = emb["word"][ids]
+    if position_ids is None:
+        pos = torch.arange(s, device=ids.device) + cfg.position_offset
+        x = x + emb["position"][pos][None, :, :]
+    else:
+        x = x + emb["position"][position_ids.long() + cfg.position_offset]
+    if token_type_ids is not None and cfg.type_vocab_size > 0:
+        x = x + emb["type"][token_type_ids.long()]
+    else:
+        x = x + emb["type"][0][None, None, :]
+    x = layer_norm(x, emb["ln_scale"], emb["ln_bias"], cfg.layer_norm_eps)
+    return x.to(cfg.cdtype)
+
+
+def attn_kernel_routes(cfg: EncoderConfig, seq: int) -> bool:
+    from ..ops.fused_attention import FAB_MAX_SEQ
+
+    return (cfg.use_fused_attn and cfg.use_fused_attn_eval
+            and cfg.hidden_size % 128 == 0 and cfg.head_dim % 64 == 0
+            and seq <= FAB_MAX_SEQ)
+
+
+def ffn_kernel_routes(cfg: EncoderConfig) -> bool:
+    return (cfg.use_fused_ffn and cfg.hidden_size % 128 == 0
+            and cfg.intermediate_size % 128 == 0)
+
+
+def encoder_forward(params: dict, input_ids: torch.Tensor,
+                    attn_mask: torch.Tensor,
+                    token_type_ids: Optional[torch.Tensor],
+                    cfg: EncoderConfig, *,
+                    position_ids: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Deterministic forward; returns the final hidden states (b, s, h)
+    in the compute dtype.  ``attn_mask`` has SEGMENT semantics (see
+    ``ops/attention.py``)."""
+    x = _embed(params, input_ids, token_type_ids, cfg,
+               position_ids=position_ids)
+    b, s, h = x.shape
+    nh, hd = cfg.num_heads, cfg.head_dim
+    cdt = cfg.cdtype
+    lp = params["layers"]
+    attn_kernel = attn_kernel_routes(cfg, s)
+    ffn_kernel = ffn_kernel_routes(cfg)
+    if attn_kernel:
+        from ..ops.fused_attention import fused_attention_block
+    if ffn_kernel:
+        from ..ops.fused_ffn import fused_ffn_block
+
+    for layer in range(cfg.num_layers):
+        p = {k: v[layer] for k, v in lp.items()}
+        wqkv, wo = p["qkv_kernel"].to(cdt), p["attn_out_kernel"].to(cdt)
+        w1, w2 = p["ffn_in_kernel"].to(cdt), p["ffn_out_kernel"].to(cdt)
+
+        if attn_kernel:
+            x = fused_attention_block(
+                x, wqkv, p["qkv_bias"], wo, p["attn_out_bias"],
+                p["attn_ln_scale"], p["attn_ln_bias"], attn_mask,
+                n_heads=nh, eps=cfg.layer_norm_eps)
+        else:
+            qkv = dense(x, wqkv, p["qkv_bias"])
+            q, k, v = qkv.split(h, dim=-1)
+            ctx = multi_head_attention(
+                q.reshape(b, s, nh, hd), k.reshape(b, s, nh, hd),
+                v.reshape(b, s, nh, hd), attn_mask).reshape(b, s, h)
+            ctx = dense(ctx, wo, p["attn_out_bias"])
+            x = layer_norm(x + ctx, p["attn_ln_scale"], p["attn_ln_bias"],
+                           cfg.layer_norm_eps)
+
+        if ffn_kernel:
+            x = fused_ffn_block(
+                x, w1, p["ffn_in_bias"], w2, p["ffn_out_bias"],
+                p["ffn_ln_scale"], p["ffn_ln_bias"], eps=cfg.layer_norm_eps)
+        else:
+            y = gelu(dense(x, w1, p["ffn_in_bias"]))
+            y = dense(y, w2, p["ffn_out_bias"])
+            x = layer_norm(x + y, p["ffn_ln_scale"], p["ffn_ln_bias"],
+                           cfg.layer_norm_eps)
+    return x

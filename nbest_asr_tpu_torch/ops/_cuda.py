@@ -1,0 +1,113 @@
+"""Build and load the port's hand-written CUDA kernels; launch counters.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a`` into ONE
+shared library with a plain C interface, loaded with ctypes.  The library
+name carries a hash of the sources and flags, so an edit rebuilds and an
+unchanged checkout reuses the library in ``build/nbest_asr_tpu_torch/``
+(git-ignored).  The build runs on first use -- never at import -- and a
+failure raises with nvcc's stderr.
+
+``launch_counts`` counts, per kernel, the launches made by the wrappers
+in ``ops/kernels.py`` (plain integers, incremented only where a kernel is
+launched), so a run can show that its path really went through the
+kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "nbest_asr_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+KERNELS = ("gemm_bias_act", "gemm_bias_residual", "layer_norm",
+           "seg_attention")
+launch_counts = {name: 0 for name in KERNELS}
+
+_lib = None
+build_seconds = None      # wall time of the nvcc build this process ran
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels cannot be built")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libnbest_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless a library for these sources exists."""
+    global build_seconds
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, so)
+    build_seconds = time.perf_counter() - t0
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is not None:
+        return _lib
+    L = ctypes.CDLL(str(build()))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    L.nbk_gemm_bias_act.argtypes = [p, p, p, p, i, i, i, i, p]
+    L.nbk_gemm_bias_residual.argtypes = [p, p, p, p, p, i, i, i, p]
+    L.nbk_layer_norm.argtypes = [p, p, p, p, i, i, f, p]
+    L.nbk_seg_attention.argtypes = [p, p, p, i, i, i, i, f, p]
+    for fn in (L.nbk_gemm_bias_act, L.nbk_gemm_bias_residual,
+               L.nbk_layer_norm, L.nbk_seg_attention):
+        fn.restype = ctypes.c_int
+    L.nbk_error_string.argtypes = [i]
+    L.nbk_error_string.restype = ctypes.c_char_p
+    _lib = L
+    return L
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error (refused launches never run
+    and a later synchronize would not report them)."""
+    if rc != 0:
+        msg = lib().nbk_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

@@ -1,0 +1,207 @@
+"""Wrappers of the hand-written CUDA kernels, each beside its plain
+PyTorch version.
+
+The two TPU megakernels of the serving path become a chain of four
+kernels (sources in ``csrc/``):
+
+- ``gemm_bias_act``      -- ``act(bf16(a @ w + bias))``; QKV and FFN-in
+- ``gemm_bias_residual`` -- ``f32(bf16(a @ w + bias)) + f32(resid)``;
+                            out-proj and FFN-out
+- ``layer_norm``         -- row LayerNorm of that f32 sum, bf16 out
+- ``seg_attention``      -- segment-masked softmax attention from the
+                            (n, 3h) QKV buffer to ctx (n, h)
+
+A wrapper given CPU tensors runs the plain version (``*_reference``).
+Given CUDA tensors it checks dtype, shape and contiguity, raises on what
+the kernel does not take, allocates the output with ``torch.empty``,
+launches on the current stream, raises on a launch error and counts the
+launch in ``_cuda.launch_counts``.  There is no fallback from the kernel
+to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from .layers import acc_dtype, gelu, layer_norm
+
+# fill for masked-out scores, as the TPU kernels use
+# (nbest_asr_tpu/ops/flash_attention.py:MASK_VALUE)
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+MAX_SEQ = 512                 # one-block ceiling, fused_attention.FAB_MAX_SEQ
+
+
+def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises on a mix or
+    on any other device."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"{name}: tensors on {sorted(kinds)}; expected all on "
+                     "the CPU (plain version) or all on one CUDA device")
+
+
+def _expect(name: str, arg: str, t: torch.Tensor, dtype, shape) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {arg} is {t.dtype}, the kernel takes "
+                        f"{dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _gemm_dims(name: str, a: torch.Tensor, w: torch.Tensor):
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
+        raise ValueError(f"{name}: shapes {tuple(a.shape)} @ "
+                         f"{tuple(w.shape)} do not chain")
+    (M, K), N = a.shape, w.shape[1]
+    if N % 128 or K % 32:
+        raise ValueError(f"{name}: the kernel needs N % 128 == 0 and "
+                         f"K % 32 == 0, got N={N}, K={K}")
+    return M, N, K
+
+
+# --------------------------------------------------------------------- #
+# plain versions
+# --------------------------------------------------------------------- #
+
+def gemm_bias_act_reference(a, w, bias, act: str = "none"):
+    acc = acc_dtype(a.dtype)
+    y = (a.to(acc) @ w.to(acc) + bias.to(acc)).to(a.dtype)
+    if act == "gelu":
+        y = gelu(y.to(acc)).to(a.dtype)
+    return y
+
+
+def gemm_bias_residual_reference(a, w, bias, resid):
+    acc = acc_dtype(a.dtype)
+    y = (a.to(acc) @ w.to(acc) + bias.to(acc)).to(a.dtype)
+    return y.to(acc) + resid.to(acc)
+
+
+def layer_norm_reference(s, scale, bias, eps: float, out_dtype):
+    return layer_norm(s, scale, bias, eps).to(out_dtype)
+
+
+def seg_attention_reference(qkv, mask, n_heads: int):
+    n, h3 = qkv.shape
+    h = h3 // 3
+    b, s = mask.shape
+    d = h // n_heads
+    acc = acc_dtype(qkv.dtype)
+    q, k, v = qkv.reshape(b, s, 3, n_heads, d).unbind(2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) \
+        * (1.0 / float(d) ** 0.5)
+    m = mask.to(acc)
+    same = m[:, None, :, None] == m[:, None, None, :]
+    sc = torch.where(same, sc, torch.tensor(MASK_VALUE, dtype=acc))
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", p.to(qkv.dtype).to(acc),
+                       v.to(acc))
+    return ctx.to(qkv.dtype).reshape(n, h)
+
+
+# --------------------------------------------------------------------- #
+# kernel wrappers
+# --------------------------------------------------------------------- #
+
+def gemm_bias_act(a, w, bias, act: str = "none"):
+    """(M, K) @ (K, N) + bias, rounded to bf16, then ``act`` ("none" or
+    exact-erf "gelu") in f32 and rounded again.  Output (M, N) bf16."""
+    if act not in ("none", "gelu"):
+        raise ValueError(f"gemm_bias_act: act must be 'none' or 'gelu', "
+                         f"got {act!r}")
+    if not _on_cuda("gemm_bias_act", a, w, bias):
+        return gemm_bias_act_reference(a, w, bias, act)
+    M, N, K = _gemm_dims("gemm_bias_act", a, w)
+    _expect("gemm_bias_act", "a", a, torch.bfloat16, (M, K))
+    _expect("gemm_bias_act", "w", w, torch.bfloat16, (K, N))
+    _expect("gemm_bias_act", "bias", bias, torch.float32, (N,))
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    rc = _cuda.lib().nbk_gemm_bias_act(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), M, N,
+        K, 1 if act == "gelu" else 0, _stream(a))
+    _cuda.check(rc, "gemm_bias_act")
+    _cuda.launch_counts["gemm_bias_act"] += 1
+    return out
+
+
+def gemm_bias_residual(a, w, bias, resid):
+    """f32(bf16(a @ w + bias)) + f32(resid): the residual sum, in f32,
+    that ``layer_norm`` normalises.  Output (M, N) f32."""
+    if not _on_cuda("gemm_bias_residual", a, w, bias, resid):
+        return gemm_bias_residual_reference(a, w, bias, resid)
+    M, N, K = _gemm_dims("gemm_bias_residual", a, w)
+    _expect("gemm_bias_residual", "a", a, torch.bfloat16, (M, K))
+    _expect("gemm_bias_residual", "w", w, torch.bfloat16, (K, N))
+    _expect("gemm_bias_residual", "bias", bias, torch.float32, (N,))
+    _expect("gemm_bias_residual", "resid", resid, torch.bfloat16, (M, N))
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    rc = _cuda.lib().nbk_gemm_bias_residual(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), resid.data_ptr(),
+        out.data_ptr(), M, N, K, _stream(a))
+    _cuda.check(rc, "gemm_bias_residual")
+    _cuda.launch_counts["gemm_bias_residual"] += 1
+    return out
+
+
+def layer_norm_rows(s, scale, bias, eps: float, out_dtype=torch.bfloat16):
+    """Row LayerNorm of the (M, N) f32 residual sum; f32 statistics,
+    output ``out_dtype`` (bf16 on the kernel)."""
+    if not _on_cuda("layer_norm", s, scale, bias):
+        return layer_norm_reference(s, scale, bias, eps, out_dtype)
+    if s.dim() != 2:
+        raise ValueError(f"layer_norm: expected (M, N), got "
+                         f"{tuple(s.shape)}")
+    M, N = s.shape
+    if N % 128 or N > 1024:
+        raise ValueError(f"layer_norm: the kernel needs N % 128 == 0 and "
+                         f"N <= 1024, got N={N}")
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"layer_norm: the kernel writes bf16, not "
+                        f"{out_dtype}")
+    _expect("layer_norm", "s", s, torch.float32, (M, N))
+    _expect("layer_norm", "scale", scale, torch.float32, (N,))
+    _expect("layer_norm", "bias", bias, torch.float32, (N,))
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=s.device)
+    rc = _cuda.lib().nbk_layer_norm(
+        s.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), M,
+        N, float(eps), _stream(s))
+    _cuda.check(rc, "layer_norm")
+    _cuda.launch_counts["layer_norm"] += 1
+    return out
+
+
+def seg_attention(qkv, mask, n_heads: int):
+    """(b*s, 3h) QKV + (b, s) segment mask -> ctx (b*s, h)."""
+    if not _on_cuda("seg_attention", qkv, mask):
+        return seg_attention_reference(qkv, mask, n_heads)
+    if qkv.dim() != 2 or mask.dim() != 2 or qkv.shape[1] % 3:
+        raise ValueError(f"seg_attention: qkv {tuple(qkv.shape)}, mask "
+                         f"{tuple(mask.shape)}")
+    b, s = mask.shape
+    h = qkv.shape[1] // 3
+    if h % n_heads or h // n_heads not in (64, 128):
+        raise ValueError(f"seg_attention: the kernel takes head dims 64 "
+                         f"and 128, got {h}/{n_heads}")
+    if s > MAX_SEQ:
+        raise ValueError(f"seg_attention: seq {s} > {MAX_SEQ}")
+    _expect("seg_attention", "qkv", qkv, torch.bfloat16, (b * s, 3 * h))
+    _expect("seg_attention", "mask", mask, torch.float32, (b, s))
+    out = torch.empty((b * s, h), dtype=torch.bfloat16, device=qkv.device)
+    rc = _cuda.lib().nbk_seg_attention(
+        qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), b, s, h,
+        int(n_heads), 1.0 / float(h // n_heads) ** 0.5, _stream(qkv))
+    _cuda.check(rc, "seg_attention")
+    _cuda.launch_counts["seg_attention"] += 1
+    return out
