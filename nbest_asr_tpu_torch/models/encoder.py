@@ -6,20 +6,28 @@ GEMM kernels are (in, out), and every per-layer leaf is stacked on a
 leading ``num_layers`` axis.  The layer loop is a Python loop over that
 axis.  Params are f32 masters; the forward casts the four GEMM kernels to
 the compute dtype, which is free when the caller (the Predictor) already
-holds compute copies.
+holds compute copies.  A GEMM kernel may instead be an int8-quantized
+``{"q", "scale"}`` leaf (``ops/quant.py:quantize_encoder_params``).
 
 Routing per layer, as the JAX encoder routes (``encoder.py:322-443``,
-without the TPU's VMEM budget):
+without the TPU's VMEM budget), with "lanes" meaning hidden a multiple
+of 128 and a head dim of 64 or 128 (what ``seg_attention`` takes):
 
-- the attention block goes to ``ops.fused_attention`` when
-  ``use_fused_attn`` and ``use_fused_attn_eval`` are set, hidden is a
-  multiple of 128, the head dim a multiple of 64 and seq <= 512;
-- the FFN block goes to ``ops.fused_ffn`` when ``use_fused_ffn`` is set
-  and hidden and intermediate are multiples of 128;
-- otherwise the plain path runs, exactly as the JAX XLA path does.
+- a quantized QKV kernel sends the attention block to
+  ``ops.int8_serving.int8_attention_block`` when ``use_fused_attn`` is
+  set, the lanes hold and seq <= 512 (``use_fused_attn_eval`` is not
+  needed, as in JAX); a tensor one to ``ops.fused_attention`` when
+  ``use_fused_attn`` and ``use_fused_attn_eval`` are set, the lanes hold
+  and seq <= 512;
+- the FFN block goes to ``ops.int8_serving.int8_ffn_block`` (quantized
+  leaves) or ``ops.fused_ffn`` (tensor leaves) when ``use_fused_ffn`` is
+  set and hidden and intermediate are multiples of 128;
+- otherwise the plain path runs, exactly as the JAX XLA path does, with
+  ``qdense`` taking either kind of leaf.
 
-Only the deterministic (serving) forward exists here; dropout and the
-training routes land with the training slice.
+Only the deterministic (serving) forward exists here -- the int8 routes
+are serving-only in JAX too; dropout and the training routes land with
+the training slice.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 
 from ..ops.attention import multi_head_attention
 from ..ops.layers import dense, gelu, layer_norm
+from ..ops.quant import dense_int8, is_quantized
 
 GEMM_KERNELS = ("qkv_kernel", "attn_out_kernel", "ffn_in_kernel",
                 "ffn_out_kernel")
@@ -170,17 +179,43 @@ def _embed(params: dict, input_ids: torch.Tensor,
     return x.to(cfg.cdtype)
 
 
+def attn_lanes_ok(cfg: EncoderConfig) -> bool:
+    return cfg.hidden_size % 128 == 0 and cfg.head_dim in (64, 128)
+
+
 def attn_kernel_routes(cfg: EncoderConfig, seq: int) -> bool:
+    """The bf16 attention-block kernel chain takes this layer."""
     from ..ops.fused_attention import FAB_MAX_SEQ
 
     return (cfg.use_fused_attn and cfg.use_fused_attn_eval
-            and cfg.hidden_size % 128 == 0 and cfg.head_dim % 64 == 0
-            and seq <= FAB_MAX_SEQ)
+            and attn_lanes_ok(cfg) and seq <= FAB_MAX_SEQ)
+
+
+def int8_attn_kernel_routes(cfg: EncoderConfig, seq: int) -> bool:
+    """The int8 attention-block kernel chain takes a quantized layer."""
+    from ..ops.int8_serving import I8_MAX_SEQ
+
+    return cfg.use_fused_attn and attn_lanes_ok(cfg) and seq <= I8_MAX_SEQ
 
 
 def ffn_kernel_routes(cfg: EncoderConfig) -> bool:
     return (cfg.use_fused_ffn and cfg.hidden_size % 128 == 0
             and cfg.intermediate_size % 128 == 0)
+
+
+def _qdense(x: torch.Tensor, kernel, bias: torch.Tensor,
+            cdt: torch.dtype) -> torch.Tensor:
+    """dense() that also takes an int8-quantized {"q", "scale"} leaf
+    (``encoder.py:303-310``)."""
+    if is_quantized(kernel):
+        return dense_int8(x, kernel["q"], kernel["scale"], bias)
+    return dense(x, kernel.to(cdt), bias)
+
+
+def _layer_slice(leaf, layer: int):
+    if is_quantized(leaf):
+        return {k: v[layer] for k, v in leaf.items()}
+    return leaf[layer]
 
 
 def encoder_forward(params: dict, input_ids: torch.Tensor,
@@ -198,40 +233,60 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
     nh, hd = cfg.num_heads, cfg.head_dim
     cdt = cfg.cdtype
     lp = params["layers"]
-    attn_kernel = attn_kernel_routes(cfg, s)
-    ffn_kernel = ffn_kernel_routes(cfg)
-    if attn_kernel:
+    if is_quantized(lp["qkv_kernel"]):
+        attn_route = "int8" if int8_attn_kernel_routes(cfg, s) else None
+    else:
+        attn_route = "bf16" if attn_kernel_routes(cfg, s) else None
+    ffn_route = None
+    if ffn_kernel_routes(cfg):
+        ffn_route = "int8" if is_quantized(lp["ffn_in_kernel"]) else "bf16"
+    if attn_route == "bf16":
         from ..ops.fused_attention import fused_attention_block
-    if ffn_kernel:
+    if ffn_route == "bf16":
         from ..ops.fused_ffn import fused_ffn_block
+    if "int8" in (attn_route, ffn_route):
+        from ..ops.int8_serving import int8_attention_block, int8_ffn_block
 
     for layer in range(cfg.num_layers):
-        p = {k: v[layer] for k, v in lp.items()}
-        wqkv, wo = p["qkv_kernel"].to(cdt), p["attn_out_kernel"].to(cdt)
-        w1, w2 = p["ffn_in_kernel"].to(cdt), p["ffn_out_kernel"].to(cdt)
+        p = {k: _layer_slice(v, layer) for k, v in lp.items()}
 
-        if attn_kernel:
+        if attn_route == "int8":
+            wqkv, wo = p["qkv_kernel"], p["attn_out_kernel"]
+            x = int8_attention_block(
+                x, wqkv["q"], wqkv["scale"], p["qkv_bias"], wo["q"],
+                wo["scale"], p["attn_out_bias"], p["attn_ln_scale"],
+                p["attn_ln_bias"], attn_mask, n_heads=nh,
+                eps=cfg.layer_norm_eps)
+        elif attn_route == "bf16":
             x = fused_attention_block(
-                x, wqkv, p["qkv_bias"], wo, p["attn_out_bias"],
+                x, p["qkv_kernel"].to(cdt), p["qkv_bias"],
+                p["attn_out_kernel"].to(cdt), p["attn_out_bias"],
                 p["attn_ln_scale"], p["attn_ln_bias"], attn_mask,
                 n_heads=nh, eps=cfg.layer_norm_eps)
         else:
-            qkv = dense(x, wqkv, p["qkv_bias"])
+            qkv = _qdense(x, p["qkv_kernel"], p["qkv_bias"], cdt)
             q, k, v = qkv.split(h, dim=-1)
             ctx = multi_head_attention(
                 q.reshape(b, s, nh, hd), k.reshape(b, s, nh, hd),
                 v.reshape(b, s, nh, hd), attn_mask).reshape(b, s, h)
-            ctx = dense(ctx, wo, p["attn_out_bias"])
+            ctx = _qdense(ctx, p["attn_out_kernel"], p["attn_out_bias"], cdt)
             x = layer_norm(x + ctx, p["attn_ln_scale"], p["attn_ln_bias"],
                            cfg.layer_norm_eps)
 
-        if ffn_kernel:
+        if ffn_route == "int8":
+            w1, w2 = p["ffn_in_kernel"], p["ffn_out_kernel"]
+            x = int8_ffn_block(
+                x, w1["q"], w1["scale"], p["ffn_in_bias"], w2["q"],
+                w2["scale"], p["ffn_out_bias"], p["ffn_ln_scale"],
+                p["ffn_ln_bias"], eps=cfg.layer_norm_eps)
+        elif ffn_route == "bf16":
             x = fused_ffn_block(
-                x, w1, p["ffn_in_bias"], w2, p["ffn_out_bias"],
+                x, p["ffn_in_kernel"].to(cdt), p["ffn_in_bias"],
+                p["ffn_out_kernel"].to(cdt), p["ffn_out_bias"],
                 p["ffn_ln_scale"], p["ffn_ln_bias"], eps=cfg.layer_norm_eps)
         else:
-            y = gelu(dense(x, w1, p["ffn_in_bias"]))
-            y = dense(y, w2, p["ffn_out_bias"])
+            y = gelu(_qdense(x, p["ffn_in_kernel"], p["ffn_in_bias"], cdt))
+            y = _qdense(y, p["ffn_out_kernel"], p["ffn_out_bias"], cdt)
             x = layer_norm(x + y, p["ffn_ln_scale"], p["ffn_ln_bias"],
                            cfg.layer_norm_eps)
     return x

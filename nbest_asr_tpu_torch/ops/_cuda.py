@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels; launch counters.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ctypes.  The library
-name carries a hash of the sources and flags, so an edit rebuilds and an
-unchanged checkout reuses the library in ``build/nbest_asr_tpu_torch/``
-(git-ignored).  The build runs on first use -- never at import -- and a
-failure raises with nvcc's stderr.
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects link into ONE shared library with
+a plain C interface, loaded with ctypes.  The library name carries a hash
+of the sources and flags, so an edit rebuilds and an unchanged checkout
+reuses the library in ``build/nbest_asr_tpu_torch/`` (git-ignored).  The
+build runs on first use -- never at import -- and a failure raises with
+nvcc's stderr.
 
 ``launch_counts`` counts, per kernel, the launches made by the wrappers
 in ``ops/kernels.py`` (plain integers, incremented only where a kernel is
@@ -27,10 +28,11 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "nbest_asr_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("gemm_bias_act", "gemm_bias_residual", "layer_norm",
-           "seg_attention")
+           "seg_attention", "quantize_rows", "gemm_i8_bias_act",
+           "gemm_i8_bias_residual")
 launch_counts = {name: 0 for name in KERNELS}
 
 _lib = None
@@ -74,16 +76,32 @@ def build() -> pathlib.Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
+    _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+          for s, o in zip(srcs, objs)])
+    _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
     return so
+
+
+def _run(cmds) -> None:
+    """Run the commands in parallel; wait for all, then raise with the
+    stderr of each that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [(c, p.communicate()[1], p.returncode)
+            for c, p in zip(cmds, procs)]
+    bad = [f"nvcc failed ({rc}):\n{' '.join(c)}\n{err}"
+           for c, err, rc in errs if rc != 0]
+    if bad:
+        raise RuntimeError("\n".join(bad))
 
 
 def lib() -> ctypes.CDLL:
@@ -96,9 +114,11 @@ def lib() -> ctypes.CDLL:
     L.nbk_gemm_bias_residual.argtypes = [p, p, p, p, p, i, i, i, p]
     L.nbk_layer_norm.argtypes = [p, p, p, p, i, i, f, p]
     L.nbk_seg_attention.argtypes = [p, p, p, i, i, i, i, f, p]
-    for fn in (L.nbk_gemm_bias_act, L.nbk_gemm_bias_residual,
-               L.nbk_layer_norm, L.nbk_seg_attention):
-        fn.restype = ctypes.c_int
+    L.nbk_quantize_rows.argtypes = [p, p, p, i, i, i, p]
+    L.nbk_gemm_i8_bias_act.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    L.nbk_gemm_i8_bias_residual.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    for name in KERNELS:
+        getattr(L, f"nbk_{name}").restype = ctypes.c_int
     L.nbk_error_string.argtypes = [i]
     L.nbk_error_string.restype = ctypes.c_char_p
     _lib = L

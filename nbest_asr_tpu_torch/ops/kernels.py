@@ -1,7 +1,7 @@
 """Wrappers of the hand-written CUDA kernels, each beside its plain
 PyTorch version.
 
-The two TPU megakernels of the serving path become a chain of four
+The two bf16 TPU megakernels of the serving path become a chain of four
 kernels (sources in ``csrc/``):
 
 - ``gemm_bias_act``      -- ``act(bf16(a @ w + bias))``; QKV and FFN-in
@@ -10,6 +10,18 @@ kernels (sources in ``csrc/``):
 - ``layer_norm``         -- row LayerNorm of that f32 sum, bf16 out
 - ``seg_attention``      -- segment-masked softmax attention from the
                             (n, 3h) QKV buffer to ctx (n, h)
+
+The two int8 serving megakernels reuse ``seg_attention`` and
+``layer_norm`` and add three:
+
+- ``quantize_rows``         -- per-token symmetric int8 of (n, K) rows
+- ``gemm_i8_bias_act``      -- ``act(bf16(dequant(xq . wq) + bias))``
+- ``gemm_i8_bias_residual`` -- ``f32(bf16(dequant(xq . wq) + bias)) +
+                               f32(resid)``
+
+where ``dequant(acc) = (f32(acc) * x_scale) * w_scale``, the int8 weight
+``wq`` (K, N) is stored column-major (``quant.kernel_layout``) and its
+per-output-channel scale ``ws`` is (N,) f32.
 
 A wrapper given CPU tensors runs the plain version (``*_reference``).
 Given CUDA tensors it checks dtype, shape and contiguity, raises on what
@@ -25,6 +37,7 @@ import torch
 
 from . import _cuda
 from .layers import acc_dtype, gelu, layer_norm
+from .quant import dequant, int_dot, quantize_rows_reference
 
 # fill for masked-out scores, as the TPU kernels use
 # (nbest_asr_tpu/ops/flash_attention.py:MASK_VALUE)
@@ -59,14 +72,28 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _gemm_dims(name: str, a: torch.Tensor, w: torch.Tensor):
+def _gemm_dims(name: str, a: torch.Tensor, w: torch.Tensor,
+               k_mult: int = 32):
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
         raise ValueError(f"{name}: shapes {tuple(a.shape)} @ "
                          f"{tuple(w.shape)} do not chain")
     (M, K), N = a.shape, w.shape[1]
-    if N % 128 or K % 32:
+    if N % 128 or K % k_mult:
         raise ValueError(f"{name}: the kernel needs N % 128 == 0 and "
-                         f"K % 32 == 0, got N={N}, K={K}")
+                         f"K % {k_mult} == 0, got N={N}, K={K}")
+    return M, N, K
+
+
+def _i8_operands(name: str, xq, xs, wq, ws, bias):
+    """Check the int8 GEMM operands; returns (M, N, K)."""
+    M, N, K = _gemm_dims(name, xq, wq, k_mult=64)
+    _expect(name, "xq", xq, torch.int8, (M, K))
+    _expect(name, "x_scale", xs, torch.float32, (M,))
+    # the kernel reads each output column's weights K-contiguous
+    _expect(name, "wq.t() (wq must be column-major, see "
+            "quant.kernel_layout)", wq.t(), torch.int8, (N, K))
+    _expect(name, "w_scale", ws, torch.float32, (N,))
+    _expect(name, "bias", bias, torch.float32, (N,))
     return M, N, K
 
 
@@ -85,6 +112,20 @@ def gemm_bias_act_reference(a, w, bias, act: str = "none"):
 def gemm_bias_residual_reference(a, w, bias, resid):
     acc = acc_dtype(a.dtype)
     y = (a.to(acc) @ w.to(acc) + bias.to(acc)).to(a.dtype)
+    return y.to(acc) + resid.to(acc)
+
+
+def gemm_i8_bias_act_reference(xq, xs, wq, ws, bias, act: str = "none",
+                               out_dtype=torch.bfloat16):
+    y = dequant(int_dot(xq, wq), xs[:, None], ws, bias).to(out_dtype)
+    if act == "gelu":
+        y = gelu(y)
+    return y
+
+
+def gemm_i8_bias_residual_reference(xq, xs, wq, ws, bias, resid):
+    y = dequant(int_dot(xq, wq), xs[:, None], ws, bias).to(resid.dtype)
+    acc = acc_dtype(resid.dtype)
     return y.to(acc) + resid.to(acc)
 
 
@@ -204,4 +245,70 @@ def seg_attention(qkv, mask, n_heads: int):
         int(n_heads), 1.0 / float(h // n_heads) ** 0.5, _stream(qkv))
     _cuda.check(rc, "seg_attention")
     _cuda.launch_counts["seg_attention"] += 1
+    return out
+
+
+def quantize_rows(x):
+    """Per-token symmetric int8 of (M, K) bf16/f32 rows -> (q (M, K)
+    int8, scale (M,) f32)."""
+    if not _on_cuda("quantize_rows", x):
+        return quantize_rows_reference(x)
+    if x.dim() != 2 or x.shape[1] % 8:
+        raise ValueError(f"quantize_rows: the kernel takes (M, K) with "
+                         f"K % 8 == 0, got {tuple(x.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"quantize_rows: x is {x.dtype}, the kernel takes "
+                        "bf16 or f32")
+    M, K = x.shape
+    _expect("quantize_rows", "x", x, x.dtype, (M, K))
+    q = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    scale = torch.empty((M,), dtype=torch.float32, device=x.device)
+    rc = _cuda.lib().nbk_quantize_rows(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), M, K,
+        int(x.dtype == torch.float32), _stream(x))
+    _cuda.check(rc, "quantize_rows")
+    _cuda.launch_counts["quantize_rows"] += 1
+    return q, scale
+
+
+def gemm_i8_bias_act(xq, xs, wq, ws, bias, act: str = "none",
+                     out_dtype=torch.bfloat16):
+    """dequant(xq (M, K) int8 . wq (K, N) int8) + bias, rounded to
+    ``out_dtype``, then ``act`` ("none" or exact-erf "gelu") in f32 and
+    rounded again.  The kernel writes bf16."""
+    if act not in ("none", "gelu"):
+        raise ValueError(f"gemm_i8_bias_act: act must be 'none' or 'gelu', "
+                         f"got {act!r}")
+    if not _on_cuda("gemm_i8_bias_act", xq, xs, wq, ws, bias):
+        return gemm_i8_bias_act_reference(xq, xs, wq, ws, bias, act,
+                                          out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"gemm_i8_bias_act: the kernel writes bf16, not "
+                        f"{out_dtype}")
+    M, N, K = _i8_operands("gemm_i8_bias_act", xq, xs, wq, ws, bias)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
+    rc = _cuda.lib().nbk_gemm_i8_bias_act(
+        xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), M, N, K, 1 if act == "gelu" else 0,
+        _stream(xq))
+    _cuda.check(rc, "gemm_i8_bias_act")
+    _cuda.launch_counts["gemm_i8_bias_act"] += 1
+    return out
+
+
+def gemm_i8_bias_residual(xq, xs, wq, ws, bias, resid):
+    """f32(round(dequant(xq . wq) + bias)) + f32(resid), rounded to
+    resid's dtype first: the residual sum, in f32, that ``layer_norm``
+    normalises.  The kernel takes a bf16 residual."""
+    if not _on_cuda("gemm_i8_bias_residual", xq, xs, wq, ws, bias, resid):
+        return gemm_i8_bias_residual_reference(xq, xs, wq, ws, bias, resid)
+    M, N, K = _i8_operands("gemm_i8_bias_residual", xq, xs, wq, ws, bias)
+    _expect("gemm_i8_bias_residual", "resid", resid, torch.bfloat16, (M, N))
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    rc = _cuda.lib().nbk_gemm_i8_bias_residual(
+        xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+        bias.data_ptr(), resid.data_ptr(), out.data_ptr(), M, N, K,
+        _stream(xq))
+    _cuda.check(rc, "gemm_i8_bias_residual")
+    _cuda.launch_counts["gemm_i8_bias_residual"] += 1
     return out

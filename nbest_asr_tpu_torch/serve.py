@@ -1,5 +1,6 @@
 """Batch inference API in PyTorch -- the port of
-``nbest_asr_tpu/serve.py``'s ``Predictor`` in bf16 (``quantize="none"``).
+``nbest_asr_tpu/serve.py``'s ``Predictor``, in bf16 (``quantize="none"``)
+or with int8 encoder GEMMs (``quantize="int8"``).
 
 A fixed-shape, single-stream forward (no transcript pass, no loss) from
 raw serialized utterances (``[CLS] [SYS] <sys words> [USR] <hyp1> [SEP]
@@ -11,6 +12,12 @@ before any result is read: its (b, n_bottom) output is copied
 device->host into a pinned buffer with a non-blocking copy on the current
 stream, and an event marks when the bytes have landed, so
 ``predict_async(...).result()`` overlaps the device with host work.
+
+``quantize="int8"`` quantizes the f32 masters' four encoder GEMM kernels
+once at construction (``ops/quant.py``: per-output-channel int8, stored
+in the layout the CUDA int8 GEMM reads) and routes every layer through
+the int8 kernel chains (``ops/int8_serving.py``) where the config takes
+them.  ``quantize=None`` resolves as ``resolve_quantize`` says.
 
 ``load_predictor`` (restoring a Trainer checkpoint) waits for the
 trainer's checkpoint format.
@@ -31,9 +38,11 @@ from nbest_asr_tpu.data.native_loader import (NativePacker, native_available,
 from nbest_asr_tpu.data.tokenizer import BaseTokenizer
 from nbest_asr_tpu.data.vocab import Memory
 
-from .models.encoder import GEMM_KERNELS
+from .models.encoder import GEMM_KERNELS, attn_lanes_ok, ffn_kernel_routes
 from .models.heads import hierarchy_device_arrays
 from .models.model import ModelConfig, model_forward
+from .ops import _cuda
+from .ops.quant import is_quantized, kernel_layout, quantize_encoder_params
 from .train.decode import decode_multihot
 from .train.metrics import multihot_to_labels
 
@@ -68,6 +77,36 @@ def _gather(futures, n: int, width: int, dtype) -> np.ndarray:
     return out
 
 
+# Whether int8 serving beat bf16 on the card in every length bucket:
+# ``predict`` utt/s of Predictor(quantize="int8") against
+# quantize="none", BERT-base, batch 64, requests of 256 utterances.  It
+# did not (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the int8 layer's
+# kernels take 13% less time at seq 256 and int8 serves up to 18% more
+# utt/s at seq 96-256 in most runs, but at seq 64 the forward is bound by
+# host launch overhead, where the int8 chain's four extra launches per
+# layer cost 1.9-2.8 ms of host time per forward, and int8 served 2-26%
+# fewer utt/s there in most runs.
+INT8_FASTER_ON_CUDA = False
+
+
+def resolve_quantize(quantize, cfg: ModelConfig, device: torch.device) -> str:
+    """The serving mode for ``quantize``.  An explicit "int8" or "none"
+    wins.  None resolves to "int8" only on CUDA, where the int8 kernel
+    chains take every layer (``use_fused_attn`` and ``use_fused_ffn`` set,
+    the lane rules hold) and int8 measured faster than bf16
+    (``INT8_FASTER_ON_CUDA``); to "none" otherwise, always on the CPU."""
+    if quantize not in (None, "none", "int8"):
+        raise ValueError(f"quantize: expected None, 'none' or 'int8', "
+                         f"got {quantize!r}")
+    if quantize is not None:
+        return quantize
+    enc = cfg.encoder
+    kernels_take_it = (enc.use_fused_attn and attn_lanes_ok(enc)
+                       and ffn_kernel_routes(enc))
+    return "int8" if (device.type == "cuda" and kernels_take_it
+                      and INT8_FASTER_ON_CUDA) else "none"
+
+
 class Predictor:
     def __init__(self, params: dict, cfg: ModelConfig, memory: Memory,
                  tokenizer: BaseTokenizer, *, device="cpu",
@@ -76,14 +115,8 @@ class Predictor:
                  bucket_lens: tuple = (64, 96, 160, 256),
                  quantize: "str | None" = None,
                  fused_attn_eval: "bool | None" = None):
-        if quantize == "int8":
-            raise NotImplementedError(
-                "quantize='int8': the int8 serving kernels are still to "
-                "port (ROADMAP queue 2); use quantize='none'")
-        if quantize not in (None, "none"):
-            raise ValueError(f"quantize: expected None, 'none' or 'int8', "
-                             f"got {quantize!r}")
         self.device = torch.device(device)
+        quantize = resolve_quantize(quantize, cfg, self.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Predictor(device={device!r}): CUDA is not "
                                "available")
@@ -96,7 +129,7 @@ class Predictor:
         if fused_attn_eval and not cfg.encoder.use_fused_attn_eval:
             cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
                 cfg.encoder, use_fused_attn_eval=True))
-        self.quantize = "none"
+        self.quantize = quantize            # resolved serving mode
         self.cfg = cfg
         self.memory = memory
         self.tokenizer = tokenizer
@@ -107,19 +140,21 @@ class Predictor:
         self.bucket_lens = sorted(
             {min(b, max_len) for b in bucket_lens} | {max_len})
         self.hier = hierarchy_device_arrays(memory.arrays(), self.device)
-        # f32 masters on the device, plus compute-dtype copies of the
-        # four GEMM kernels made once here (not cast per call)
+        # f32 masters on the device, plus forward copies of the four GEMM
+        # kernels made once here (not per call): int8 in the kernels'
+        # layout, or the compute dtype.  A tree that arrives quantized
+        # (e.g. the JAX package's, bridged) keeps its int8 values.
         self.params = _tree_to(params, self.device)
-        cdt = cfg.encoder.cdtype
-        enc = self.params["encoder"]
-        self._fwd_params = {
-            "encoder": {
-                "embeddings": enc["embeddings"],
-                "layers": {k: (v.to(cdt) if k in GEMM_KERNELS else v)
-                           for k, v in enc["layers"].items()},
-            },
-            "head": self.params["head"],
-        }
+        fwd = self.params
+        if quantize == "int8" and not is_quantized(
+                fwd["encoder"]["layers"]["qkv_kernel"]):
+            fwd = quantize_encoder_params(fwd)
+        self._fwd_params = dict(fwd, encoder=dict(fwd["encoder"], layers={
+            k: _forward_copy(v, cfg.encoder.cdtype) if k in GEMM_KERNELS
+            else v for k, v in fwd["encoder"]["layers"].items()}))
+        if self.device.type == "cuda" and (cfg.encoder.use_fused_attn
+                                           or cfg.encoder.use_fused_ffn):
+            _cuda.lib()         # build now: raises if nvcc or a build fails
         # native (C++) packer when the tokenizer is covered and g++ built
         # it; the Python packer otherwise
         self._native = None
@@ -217,6 +252,15 @@ class Predictor:
         fixed-shape batch loop as ``predict``."""
         futures, n = self._dispatch(utterances, want="final")
         return _gather(futures, n, self.memory.n_bottom, np.float32)
+
+
+def _forward_copy(kernel, cdt: torch.dtype):
+    """A GEMM leaf as the forward reads it: an int8 leaf in the CUDA int8
+    GEMM's layout (a no-op for ``quantize_encoder_params``' own output), a
+    tensor in the compute dtype."""
+    if is_quantized(kernel):
+        return {"q": kernel_layout(kernel["q"]), "scale": kernel["scale"]}
+    return kernel.to(cdt)
 
 
 def _tree_to(tree, device):

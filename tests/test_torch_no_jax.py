@@ -13,7 +13,8 @@ import sys
 import nbest_asr_tpu_torch
 from nbest_asr_tpu_torch import serve, params_bridge
 from nbest_asr_tpu_torch.ops import (_cuda, attention, fused_attention,
-                                     fused_ffn, kernels, layers)
+                                     fused_ffn, int8_serving, kernels,
+                                     layers, quant)
 from nbest_asr_tpu_torch.models import encoder, heads, model
 from nbest_asr_tpu_torch.train import decode, metrics
 assert nbest_asr_tpu_torch.Predictor is serve.Predictor

@@ -1,7 +1,9 @@
 """The port's Predictor on the CPU against the JAX Predictor in bf16
 serving mode (``quantize="none"``) on the same weights: identical label
 lists, scores at atol 1e-4 (f32 on both sides; see test_torch_model.py),
-invariance to batching, the same bucket choice, and the refusals."""
+invariance to batching, the same bucket choice, the refusals, and the
+serving-mode defaults.  The int8 mode's parity with JAX is in
+test_torch_int8_serving.py."""
 
 import jax
 import numpy as np
@@ -93,8 +95,6 @@ def test_bucket_choice_matches_jax(setup, max_words):
 def test_refusals(setup, monkeypatch):
     memory, tok, _, tcfg, params = setup
     tparams = from_jax_numpy(params)
-    with pytest.raises(NotImplementedError, match="int8"):
-        Predictor(tparams, tcfg, memory, tok, quantize="int8")
     with pytest.raises(ValueError, match="quantize"):
         Predictor(tparams, tcfg, memory, tok, quantize="fp8")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -102,10 +102,29 @@ def test_refusals(setup, monkeypatch):
         Predictor(tparams, tcfg, memory, tok, device="cuda")
 
 
+def test_int8_accepted_on_cpu(setup):
+    """quantize="int8" builds the quantized tree once and serves through
+    the plain int8 dense on the CPU."""
+    memory, tok, _, tcfg, params = setup
+    tp = Predictor(from_jax_numpy(params), tcfg, memory, tok,
+                   quantize="int8", batch_size=4)
+    assert tp.quantize == "int8"
+    layers = tp._fwd_params["encoder"]["layers"]
+    assert layers["qkv_kernel"]["q"].dtype == torch.int8
+    assert tp.params["encoder"]["layers"]["qkv_kernel"].dtype == torch.float32
+    utts = _utterances(4, 5, 6)
+    sc = tp.scores(utts)
+    assert sc.shape == (5, memory.n_bottom) and np.isfinite(sc).all()
+    assert len(tp.predict(utts)) == 5
+
+
 def test_fused_attn_eval_default_scoped_to_cuda(setup):
     """Auto-on only where the kernels run (CUDA); explicit wins; the
-    caller's config is never mutated."""
+    caller's config is never mutated.  quantize=None resolves to "none"
+    on the CPU even where the int8 kernels would take every layer."""
     import dataclasses
+
+    from nbest_asr_tpu_torch import serve
 
     memory, tok, _, tcfg, params = setup
     kcfg = dataclasses.replace(tcfg, encoder=dataclasses.replace(
@@ -113,6 +132,17 @@ def test_fused_attn_eval_default_scoped_to_cuda(setup):
     tparams = from_jax_numpy(params)
     auto = Predictor(tparams, kcfg, memory, tok)
     assert not auto.cfg.encoder.use_fused_attn_eval
+    assert auto.quantize == "none"
     on = Predictor(tparams, kcfg, memory, tok, fused_attn_eval=True)
     assert on.cfg.encoder.use_fused_attn_eval
     assert not kcfg.encoder.use_fused_attn_eval
+    lanes = dataclasses.replace(tcfg, encoder=dataclasses.replace(
+        tcfg.encoder, hidden_size=128, num_heads=2, intermediate_size=256,
+        use_fused_attn=True, use_fused_ffn=True))
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert serve.resolve_quantize(None, lanes, cpu) == "none"
+    assert serve.resolve_quantize("int8", lanes, cpu) == "int8"
+    assert serve.resolve_quantize("none", lanes, cuda) == "none"
+    assert serve.resolve_quantize(None, tcfg, cuda) == "none"   # no lanes
+    assert serve.resolve_quantize(None, lanes, cuda) == (
+        "int8" if serve.INT8_FASTER_ON_CUDA else "none")
