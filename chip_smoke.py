@@ -33,9 +33,35 @@ Phases, each fatal on failure:
 4. Times: ms per batch of 64 for the kernel and the plain forward per
    bucket (CUDA events, after warm-up) and ``predict`` utt/s, bf16 and
    int8 side by side (int8 and bf16 ``predict`` alternate, ABBA).
+5. Training kernels against their plain versions with the same Philox
+   bits, at BERT-base widths for n in {60, 7680, 8192} rows: the
+   dropout epilogues of ``gemm_bias_act`` and ``gemm_bias_residual``
+   (with h and y2d saved), ``layer_norm``'s statistics, the backward row
+   pass ``ffn_bwd_rows`` and both ``gemm_dgrad`` epilogues -- elementwise
+   results within one bf16 ulp of the plain version on the kernel's own
+   inputs, dropped elements exactly 0, the backward's regenerated gd
+   equal to the forward's bit for bit -- and the whole FFN block, forward
+   and all seven gradients, against torch autograd through the plain
+   block.  Per training layer: kernel, plain and library ms.
+6. The training slice: ``make_train_step`` on seed-0 BERT-base weights
+   (bf16 compute, f32 masters, dropout 0.1, ``use_fused_ffn=True``,
+   ``use_fused_attn=False``) over the synthetic hierarchy, n_accum 2,
+   three steps per bucket at the token-budget micro sizes (128, 80, 48,
+   32 rows at seq 64, 96, 160, 256).  The FFN kernels' counters must
+   rise by exactly layers x micros x ``PER_LAYER_TRAIN``; every loss part
+   must be finite; at dropout 0 one kernel step and one plain step from
+   the same weights must agree (loss parts within 1e-2 relative,
+   parameter deltas within 5e-2 of each leaf's largest delta); 30 steps
+   on one fixed micro at seq 64, lr 1e-4 (warmup-linear), dropout on,
+   must halve the total loss (the plain path's curve is printed beside).  Prints step ms per bucket (CUDA events), train utt/s,
+   the FFN block's and the plain attention block's fwd + bwd ms and
+   their share of the step, and the peak memory.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the kernels' JSON record (with each kernel's bound:
+the larger of its bytes over HBM's 3.35 TB/s and its operations over the
+H100's dense peak for their type; and the time of a PyTorch call that
+computes the same function, where there is one), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -62,16 +88,21 @@ KERNEL_SOURCES = {
     "quantize_rows": "nbest_asr_tpu_torch/csrc/quant_rows.cu",
     "gemm_i8_bias_act": "nbest_asr_tpu_torch/csrc/gemm_i8.cu",
     "gemm_i8_bias_residual": "nbest_asr_tpu_torch/csrc/gemm_i8.cu",
+    "ffn_bwd_rows": "nbest_asr_tpu_torch/csrc/ffn_bwd.cu",
+    "gemm_dgrad": "nbest_asr_tpu_torch/csrc/gemm.cu",
 }
 FAB = "nbest_asr_tpu/ops/fused_attention.py:152"
 FFN = "nbest_asr_tpu/ops/fused_ffn.py:166"
 I8A = "nbest_asr_tpu/ops/int8_serving.py:157"
 I8F = "nbest_asr_tpu/ops/int8_serving.py:90"
+FFB = "nbest_asr_tpu/ops/fused_ffn.py:224"
 KERNEL_REPLACES = {
-    "gemm_bias_act": f"{FAB} (QKV GEMM) + {FFN} (W1 GEMM + GELU)",
-    "gemm_bias_residual": f"{FAB} (out-proj) + {FFN} (W2 GEMM), "
-                          "+ residual",
-    "layer_norm": f"{FAB} + {FFN} + {I8A} + {I8F} (LayerNorm tails)",
+    "gemm_bias_act": f"{FAB} (QKV GEMM) + {FFN} (W1 GEMM + GELU + "
+                     "dropout, _gelu_slice :153)",
+    "gemm_bias_residual": f"{FAB} (out-proj) + {FFN} (W2 GEMM + dropout, "
+                          ":181-191), + residual",
+    "layer_norm": f"{FAB} + {FFN} + {I8A} + {I8F} (LayerNorm tails, "
+                  "statistics)",
     "seg_attention": f"{FAB} (head loop, _head_probs :103) + {I8A} "
                      "(head loop :169-189)",
     "quantize_rows": f"{I8A} + {I8F} (_quant_rows :57)",
@@ -79,6 +110,9 @@ KERNEL_REPLACES = {
                         "GELU)",
     "gemm_i8_bias_residual": f"{I8A} (out-proj _dense_i8) + {I8F} (W2 "
                              "_dense_i8), + residual",
+    "ffn_bwd_rows": f"{FFB} (_row_grads :203-221, dy2 / xhat :259-260)",
+    "gemm_dgrad": f"{FFB} (dy2 @ w2^T, drop, gelu' :245-253; ds + dh @ "
+                  "w1^T :239, :251, :258)",
 }
 # launches of each kernel per encoder layer on the routed bf16 and int8
 # paths (ops/fused_*.py, ops/int8_serving.py); every other kernel 0
@@ -87,6 +121,18 @@ PER_LAYER = {"gemm_bias_act": 2, "gemm_bias_residual": 2, "layer_norm": 2,
 PER_LAYER_I8 = {"quantize_rows": 4, "gemm_i8_bias_act": 2,
                 "gemm_i8_bias_residual": 2, "layer_norm": 2,
                 "seg_attention": 1}
+# launches per encoder layer per micro of the training step: the FFN
+# block's forward and backward chains (ops/fused_ffn.py); the attention
+# block runs the plain path
+PER_LAYER_TRAIN = {"gemm_bias_act": 1, "gemm_bias_residual": 1,
+                   "layer_norm": 1, "ffn_bwd_rows": 1, "gemm_dgrad": 2}
+# training micro rows per bucket under the 8192-token budget
+# (nbest_asr_tpu/train/loop.py:430)
+TRAIN_MICRO = {64: 128, 96: 80, 160: 48, 256: 32}
+N_ACCUM, TRAIN_STEPS, DROPOUT = 2, 3, 0.1
+# the H100 SXM's published dense peaks (NVIDIA H100 datasheet)
+PEAK = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}
+HBM = 3.35e12
 
 
 def log(*a):
@@ -98,6 +144,29 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def bound(ops: float, nbytes: float, kind: str):
+    """(ms, "bytes" | "operations"): the least time the H100 could take
+    to move ``nbytes`` through HBM and do ``ops`` at its ``kind`` peak."""
+    t_ops, t_bytes = ops / PEAK[kind] * 1e3, nbytes / HBM * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_sum(parts):
+    """The bound of several launches: their sum, labelled by the kind
+    that bounds most of it."""
+    ms = sum(b[0] for b in parts)
+    by = max(("bytes", "operations"),
+             key=lambda k: sum(b[0] for b in parts if b[1] == k))
+    return ms, by
+
+
+def gemm_bound(M, N, K, extra_bytes: float, kind: str = "bf16"):
+    """A GEMM's bound: A (M, K), W (K, N) read once, plus ``extra_bytes``
+    (bias, residual, outputs) -- 2 bytes a value in bf16, 1 in s8."""
+    w = 2 if kind == "bf16" else 1
+    return bound(2.0 * M * N * K, w * (M * K + K * N) + extra_bytes, kind)
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -140,6 +209,18 @@ class Checker:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  "version")
         self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), mx)
+
+    def rel(self, name, kernel, got, want, tol: float):
+        """max |got - want| <= tol * max |want| (f32 row reductions in
+        another order)."""
+        d = (got.float() - want.float()).abs().max().item()
+        lim = tol * want.float().abs().max().item()
+        ok = d <= lim and bool(torch.isfinite(got.float()).all())
+        log(f"  {'ok ' if ok else 'BAD'} {name}: max {d:.3e} (<= {lim:.3e})")
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 "version")
+        self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), d)
 
     def exact(self, name, kernel, got, want, bf16_ulps: int = 0):
         """Bit-equality, or at most ``bf16_ulps`` bf16 ulps of ``want``
@@ -376,26 +457,88 @@ def phase_kernels(dev, card: str):
                 lambda: int8_ffn_block(*i8_ffn),
                 lambda: int8_ffn_block_reference(*i8_ffn)),
         }
+        lib = serving_library_calls(p, q8, x, x2, qkv, pad, ctx, g, sres,
+                                    xq, cq, gq)
+        bounds = serving_bounds(b * s, b, s)
         for name, (fk, fp) in t.items():
-            times[(name, s)] = (cuda_ms(fk), cuda_ms(fp, iters=3))
-        # cuBLAS bf16 products of the same shapes, for scale only (not a
-        # port of anything): QKV + W1 and out-proj + W2
-        cub = cuda_ms(lambda: (x2 @ p["wqkv"], x2 @ p["w1"],
-                               ctx @ p["wo"], g @ p["w2"]))
+            times[(name, s)] = (cuda_ms(fk), cuda_ms(fp, iters=3),
+                                cuda_ms(lib[name]) if name in lib else None)
         for name in t:
-            k_ms, p_ms = times[(name, s)]
+            k_ms, p_ms, l_ms = times[(name, s)]
+            lib_s = "" if l_ms is None else f", library {l_ms:.4f} ms"
+            if name in bounds:
+                lib_s += (f", bound {bounds[name][0]:.4f} ms "
+                          f"({bounds[name][1]})")
             log(f"  time {name:<18} b{b} s{s}: kernel {k_ms:.4f} ms, plain "
-                f"{p_ms:.4f} ms [{card}]")
-        log(f"  time cublas_bf16_4gemm  b{b} s{s}: {cub:.4f} ms "
-            f"(torch.matmul bf16, same four products, for scale) [{card}]")
+                f"{p_ms:.4f} ms{lib_s} [{card}]")
     return check.max_err, times
+
+
+def serving_library_calls(p, q8, x, x2, qkv, pad, ctx, g, sres, xq, cq, gq):
+    """One PyTorch call per kernel launch of a serving layer that
+    computes the same function where PyTorch has one, timed as the
+    kernels' yardstick and used nowhere in the port: ``torch.addmm`` for
+    each bf16 GEMM (its bias in bf16, no epilogue), ``torch._int_mm`` for
+    each int8 GEMM (the integer product only), ``F.layer_norm`` (f32 out)
+    and ``F.scaled_dot_product_attention`` with the boolean segment
+    mask."""
+    F = torch.nn.functional
+    bf = {k: p[k].to(torch.bfloat16) for k in ("bqkv", "bo", "b1", "b2")}
+    b, s = pad.shape
+    q, k, v = qkv.view(b, s, 3, NH, H // NH).permute(2, 0, 3, 1, 4)
+    same = (pad[:, None, :, None] == pad[:, None, None, :])
+    return {
+        "gemm_bias_act": lambda: (torch.addmm(bf["bqkv"], x2, p["wqkv"]),
+                                  torch.addmm(bf["b1"], x2, p["w1"])),
+        "gemm_bias_residual": lambda: (torch.addmm(bf["bo"], ctx, p["wo"]),
+                                       torch.addmm(bf["b2"], g, p["w2"])),
+        "layer_norm": lambda: [F.layer_norm(sres, (H,), p["ls"], p["lb"],
+                                            1e-12) for _ in range(2)],
+        "seg_attention": lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=same),
+        "gemm_i8_bias_act": lambda: (torch._int_mm(xq[0], q8["wqkv"][0]),
+                                     torch._int_mm(xq[0], q8["w1"][0])),
+        "gemm_i8_bias_residual": lambda: (
+            torch._int_mm(cq[0], q8["wo"][0]),
+            torch._int_mm(gq[0], q8["w2"][0])),
+    }
+
+
+def serving_bounds(M: int, b: int, s: int):
+    """Per serving layer at M = b * s rows: each kernel's bound over all
+    its launches, from the shapes (bytes: each input read once, each
+    output written once)."""
+    h3, i = 3 * H, INTER
+    gb = lambda m, n, k, extra, kind="bf16": gemm_bound(m, n, k, extra,
+                                                        kind)
+    ln = bound(8.0 * M * H, M * H * 4 + 2 * H * 4 + M * H * 2, "f32")
+    quant = [bound(3.0 * M * k, M * k * 2 + M * k + M * 4, "f32")
+             for k in (H, H, H, i)]
+    return {
+        "gemm_bias_act": bound_sum([
+            gb(M, h3, H, h3 * 4 + M * h3 * 2),
+            gb(M, i, H, i * 4 + M * i * 2)]),
+        "gemm_bias_residual": bound_sum([
+            gb(M, H, H, H * 4 + M * H * 2 + M * H * 4),
+            gb(M, H, i, H * 4 + M * H * 2 + M * H * 4)]),
+        "layer_norm": bound_sum([ln, ln]),
+        "seg_attention": bound(4.0 * b * NH * s * s * (H // NH),
+                               M * h3 * 2 + b * s * 4 + M * H * 2, "bf16"),
+        "quantize_rows": bound_sum(quant),
+        "gemm_i8_bias_act": bound_sum([
+            gb(M, h3, H, M * 4 + h3 * 8 + M * h3 * 2, "s8"),
+            gb(M, i, H, M * 4 + i * 8 + M * i * 2, "s8")]),
+        "gemm_i8_bias_residual": bound_sum([
+            gb(M, H, H, M * 4 + H * 8 + M * H * 6, "s8"),
+            gb(M, H, i, M * 4 + H * 8 + M * H * 6, "s8")]),
+    }
 
 
 def dstc2_like_memory():
     """A synthetic label hierarchy shaped like DSTC2's: value-bearing
     inform/confirm/deny groups (with their NONE labels), request-slot and
     bare-act singletons, and a word vocabulary of ~900 words."""
-    from nbest_asr_tpu.data.etl import build_memory
+    from nbest_asr_tpu_torch.data.etl import build_memory
 
     values = {"food": ["chinese", "indian", "italian", "thai", "french",
                        "korean", "british", "european", "spanish"],
@@ -455,7 +598,7 @@ def head_outputs(predictor, req):
     with torch.inference_mode():
         for start in range(0, len(req), BATCH):
             ids = torch.from_numpy(pk.input_ids[start:start + BATCH])
-            top, prob, _, _ = model_forward(
+            top, prob, _, _, _ = model_forward(
                 predictor._fwd_params, predictor.cfg, predictor.hier,
                 ids.to(predictor.device),
                 torch.from_numpy(pk.attn_mask[start:start + BATCH]).to(
@@ -569,7 +712,7 @@ def hold_to_plain(name, kp, pp, fp, reqs, k_labels, k_scores, arrays,
 def phase_slice(dev):
     import dataclasses
 
-    from nbest_asr_tpu.data.tokenizer import WordVocabTokenizer
+    from nbest_asr_tpu_torch.data.tokenizer import WordVocabTokenizer
     from nbest_asr_tpu_torch.models.encoder import EncoderConfig
     from nbest_asr_tpu_torch.models.model import (ModelConfig,
                                                   init_model_params)
@@ -665,6 +808,454 @@ def phase_slice(dev):
     return counts
 
 
+# --------------------------------------------------------------------- #
+# training: the FFN kernels' training chains and the train step
+# --------------------------------------------------------------------- #
+
+def ffn_weights(dev, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen) * std).to(dev, dtype)
+
+    return {"w1": rn(H, INTER, std=0.02),
+            "b1": rn(INTER, std=0.02, dtype=torch.float32),
+            "w2": rn(INTER, H, std=0.02),
+            "b2": rn(H, std=0.02, dtype=torch.float32),
+            "ls": 1.0 + rn(H, std=0.1, dtype=torch.float32),
+            "lb": rn(H, std=0.1, dtype=torch.float32)}, rn
+
+
+def check_ffn_train_chain(K, p, x2, dy, seed, check):
+    """Each training kernel of the FFN block against its plain version
+    with the same Philox bits, on the kernels' own intermediates; returns
+    them for the timings."""
+    from nbest_asr_tpu_torch.ops.layers import gelu
+    from nbest_asr_tpu_torch.ops.philox import keep_mask, site
+
+    n = x2.shape[0]
+    d1, d2 = site(seed, DROPOUT, 1), site(seed, DROPOUT, 2)
+    k1 = keep_mask(seed, 1, 0, n, INTER, DROPOUT, x2.device)
+    k2 = keep_mask(seed, 2, 0, n, H, DROPOUT, x2.device)
+    tag = f"n {n}"
+    h, gd = K.gemm_bias_act(x2, p["w1"], p["b1"], "gelu", drop=d1,
+                            save_h=True)
+    torch.cuda.synchronize()
+    rh, _ = K.gemm_bias_act_reference(x2, p["w1"], p["b1"], "gelu", d1,
+                                      True)
+    check(f"train gemm_bias_act h {tag}", "gemm_bias_act", h, rh, False)
+    check.exact(f"train gemm_bias_act gd = drop1(gelu(h)) {tag}",
+                "gemm_bias_act", gd,
+                d1.apply(gelu(h.float())).to(torch.bfloat16), bf16_ulps=1)
+    s, y2d = K.gemm_bias_residual(gd, p["w2"], p["b2"], x2, drop=d2,
+                                  save_y2d=True)
+    torch.cuda.synchronize()
+    rs, ry2d = K.gemm_bias_residual_reference(gd, p["w2"], p["b2"], x2, d2,
+                                              True)
+    check(f"train gemm_bias_residual sum {tag}", "gemm_bias_residual", s,
+          rs, False)
+    check(f"train gemm_bias_residual y2d {tag}", "gemm_bias_residual", y2d,
+          ry2d, False)
+    if not (bool((y2d[~k2] == 0).all())
+            and torch.equal(s[~k2], x2.float()[~k2])):
+        raise AssertionError("gemm_bias_residual: a dropped element "
+                             "survived")
+    y, mean, rstd = K.layer_norm_rows(s, p["ls"], p["lb"], 1e-12,
+                                      stats=True)
+    torch.cuda.synchronize()
+    ry, rmean, rrstd = K.layer_norm_reference(s, p["ls"], p["lb"], 1e-12,
+                                              torch.bfloat16, stats=True)
+    check(f"train layer_norm {tag}", "layer_norm", y, ry, True)
+    check.rel(f"train layer_norm mean {tag}", "layer_norm", mean, rmean,
+              1e-5)
+    check.rel(f"train layer_norm rstd {tag}", "layer_norm", rstd, rrstd,
+              1e-5)
+    dy2, xhat, ds = K.ffn_bwd_rows(x2, y2d, dy, p["ls"], mean, rstd,
+                                   drop=d2)
+    torch.cuda.synchronize()
+    rdy2, rxhat, rds = K.ffn_bwd_rows_reference(x2, y2d, dy, p["ls"], mean,
+                                                rstd, d2)
+    check.rel(f"ffn_bwd_rows ds {tag}", "ffn_bwd_rows", ds, rds, 1e-5)
+    check.exact(f"ffn_bwd_rows xhat {tag}", "ffn_bwd_rows", xhat, rxhat,
+                bf16_ulps=1)
+    check(f"ffn_bwd_rows dy2 {tag}", "ffn_bwd_rows", dy2, rdy2, False)
+    check.exact(f"ffn_bwd_rows dy2 = drop2(ds) {tag}", "ffn_bwd_rows", dy2,
+                d2.apply(ds).to(torch.bfloat16), bf16_ulps=0)
+    dh, gd_b = K.gemm_dgrad(dy2, p["w2"], "dgelu", h=h, drop=d1)
+    torch.cuda.synchronize()
+    rdh, _ = K.gemm_dgrad_reference(dy2, p["w2"], "dgelu", h=h, drop=d1)
+    check(f"gemm_dgrad dgelu dh {tag}", "gemm_dgrad", dh, rdh, False)
+    check.exact(f"gemm_dgrad regenerated gd == forward gd {tag}",
+                "gemm_dgrad", gd_b, gd, bf16_ulps=0)
+    if not bool((gd[~k1] == 0).all()):
+        raise AssertionError("gemm_bias_act: a dropped element survived")
+    dx = K.gemm_dgrad(dh, p["w1"], "residual", ds=ds)
+    torch.cuda.synchronize()
+    check(f"gemm_dgrad residual dx {tag}", "gemm_dgrad", dx,
+          K.gemm_dgrad_reference(dh, p["w1"], "residual", ds=ds), False)
+    return dict(h=h, gd=gd, s=s, y2d=y2d, mean=mean, rstd=rstd, dy2=dy2,
+                ds=ds, dh=dh, d1=d1, d2=d2)
+
+
+def ffn_block_grads(fn, x, p, dy, f32: bool):
+    args = [(a.float() if f32 else a).clone().requires_grad_(True)
+            for a in (x, p["w1"], p["b1"], p["w2"], p["b2"], p["ls"],
+                      p["lb"])]
+    y = fn(*args, dropout_rate=DROPOUT, seed=77)
+    y.backward(dy.float() if f32 else dy)
+    return [y.detach()] + [a.grad for a in args]
+
+
+def train_layer_bounds(M: int):
+    """Per training layer at M rows: the bound of each FFN training
+    kernel's launches (bytes: each input read once, each output written
+    once) and of the whole block forward + backward."""
+    i = INTER
+    per = {
+        "gemm_bias_act": gemm_bound(M, i, H, i * 4 + 2 * M * i * 2),
+        "gemm_bias_residual": gemm_bound(
+            M, H, i, H * 4 + M * H * 2 + M * H * 4 + M * H * 2),
+        "layer_norm": bound(8.0 * M * H,
+                            M * H * 4 + 2 * H * 4 + M * H * 2 + M * 8,
+                            "f32"),
+        "ffn_bwd_rows": bound(16.0 * M * H, 3 * M * H * 2 + H * 4 + M * 8
+                              + 2 * M * H * 2 + M * H * 4, "f32"),
+        "gemm_dgrad": bound_sum([
+            gemm_bound(M, i, H, 3 * M * i * 2),
+            gemm_bound(M, H, i, M * H * 4 + M * H * 2)]),
+    }
+    return per
+
+
+def phase_train_kernels(dev, card: str):
+    """Training kernels against their plain versions; per training layer
+    kernel / plain / library ms at every bucket's micro shape."""
+    from nbest_asr_tpu_torch.ops import kernels as K
+    from nbest_asr_tpu_torch.ops.fused_ffn import (fused_ffn_block,
+                                                   fused_ffn_block_reference)
+
+    F = torch.nn.functional
+    p, rn = ffn_weights(dev, 2)
+    check = Checker()
+    times = {}
+    for n in (60, 7680, 8192):
+        log(f"[train-kernels] n {n} rows, dropout {DROPOUT}")
+        x2, dy = rn(n, H), rn(n, H)
+        o = check_ffn_train_chain(K, p, x2, dy, seed=1000 + n, check=check)
+        if n != 8192:
+            continue
+        # the whole block, forward and all gradients, against torch
+        # autograd through the plain block on f32 copies, same masks
+        got = ffn_block_grads(fused_ffn_block, x2, p, dy, False)
+        want = ffn_block_grads(fused_ffn_block_reference, x2, p, dy, True)
+        for name, g, w in zip(("y", "dx", "dw1", "db1", "dw2", "db2",
+                               "dls", "dlb"), got, want):
+            d = (g.float() - w).abs()
+            mx, mean = d.max().item(), d.mean().item()
+            lim_mx = 2e-2 * w.abs().max().item()
+            lim_mean = 1e-2 * w.abs().mean().item()
+            ok = mx <= lim_mx and mean <= lim_mean
+            log(f"  {'ok ' if ok else 'BAD'} ffn block train {name}: max "
+                f"{mx:.3e} (<= {lim_mx:.3e}) mean {mean:.3e} (<= "
+                f"{lim_mean:.3e})")
+            if not ok:
+                raise AssertionError(f"ffn block {name}: kernels disagree "
+                                     "with autograd through the plain "
+                                     "block")
+        bfb = {k: p[k].to(torch.bfloat16) for k in ("b1", "b2")}
+        t = {
+            "gemm_bias_act": (
+                lambda: K.gemm_bias_act(x2, p["w1"], p["b1"], "gelu",
+                                        drop=o["d1"], save_h=True),
+                lambda: K.gemm_bias_act_reference(x2, p["w1"], p["b1"],
+                                                  "gelu", o["d1"], True),
+                lambda: torch.addmm(bfb["b1"], x2, p["w1"])),
+            "gemm_bias_residual": (
+                lambda: K.gemm_bias_residual(o["gd"], p["w2"], p["b2"], x2,
+                                             drop=o["d2"], save_y2d=True),
+                lambda: K.gemm_bias_residual_reference(
+                    o["gd"], p["w2"], p["b2"], x2, o["d2"], True),
+                lambda: torch.addmm(bfb["b2"], o["gd"], p["w2"])),
+            "layer_norm": (
+                lambda: K.layer_norm_rows(o["s"], p["ls"], p["lb"], 1e-12,
+                                          stats=True),
+                lambda: K.layer_norm_reference(o["s"], p["ls"], p["lb"],
+                                               1e-12, torch.bfloat16, True),
+                lambda: F.layer_norm(o["s"], (H,), p["ls"], p["lb"],
+                                     1e-12)),
+            "ffn_bwd_rows": (
+                lambda: K.ffn_bwd_rows(x2, o["y2d"], dy, p["ls"], o["mean"],
+                                       o["rstd"], drop=o["d2"]),
+                lambda: K.ffn_bwd_rows_reference(
+                    x2, o["y2d"], dy, p["ls"], o["mean"], o["rstd"],
+                    o["d2"]),
+                None),
+            "gemm_dgrad": (
+                lambda: (K.gemm_dgrad(o["dy2"], p["w2"], "dgelu", h=o["h"],
+                                      drop=o["d1"]),
+                         K.gemm_dgrad(o["dh"], p["w1"], "residual",
+                                      ds=o["ds"])),
+                lambda: (K.gemm_dgrad_reference(o["dy2"], p["w2"], "dgelu",
+                                                h=o["h"], drop=o["d1"]),
+                         K.gemm_dgrad_reference(o["dh"], p["w1"],
+                                                "residual", ds=o["ds"])),
+                lambda: (torch.matmul(o["dy2"], p["w2"].t()),
+                         torch.matmul(o["dh"], p["w1"].t()))),
+        }
+        for name, (fk, fp, fl) in t.items():
+            times[name] = (cuda_ms(fk), cuda_ms(fp, iters=3),
+                           None if fl is None else cuda_ms(fl))
+    bounds = train_layer_bounds(8192)
+    for name, (k_ms, p_ms, l_ms) in times.items():
+        lib_s = "" if l_ms is None else f", library {l_ms:.4f} ms"
+        log(f"  time train {name:<18} n 8192: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms{lib_s}, bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]}) [{card}]")
+    # the FFN block forward + backward per layer at each bucket's micro
+    for s, b in TRAIN_MICRO.items():
+        x, dyb = rn(b, s, H), rn(b, s, H)
+
+        def step(fn, x=x, dyb=dyb):
+            ffn_block_grads(fn, x, p, dyb, False)
+
+        k_ms = cuda_ms(lambda: step(fused_ffn_block))
+        p_ms = cuda_ms(lambda: step(fused_ffn_block_reference), iters=3)
+        times[("ffn_block_train", s)] = (k_ms, p_ms)
+        log(f"  time train ffn_block fwd+bwd b{b} s{s}: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]")
+    return check.max_err, times, bounds
+
+
+def train_split(memory, tok, reqs, dev, seed: int):
+    """Per bucket, the request's utterances as a training split on the
+    device: DSTC2-shaped rows with 0-3 gold labels, one per top group."""
+    from nbest_asr_tpu_torch.data.dataset import RawSplit
+    from nbest_asr_tpu_torch.data.input_builder import pack_split
+
+    rng = np.random.RandomState(seed)
+    groups = [sorted(m) for t, m in memory.top2bottom.items() if t > 1]
+    out = {}
+    for bucket, req in zip(BUCKETS, reqs):
+        seqs = [u.split() for u in req]
+        labels = []
+        for _ in seqs:
+            pick = rng.choice(len(groups), size=rng.randint(0, 4),
+                              replace=False)
+            labels.append([memory.idx2label[groups[g][rng.randint(
+                len(groups[g]))]] for g in pick])
+        pk = pack_split(RawSplit(seqs, seqs, labels), tok, memory,
+                        max_len=bucket)
+        out[bucket] = {k: torch.from_numpy(getattr(pk, k)).to(dev)
+                       for k in ("input_ids", "segment_ids", "attn_mask",
+                                 "trans_input_ids", "trans_segment_ids",
+                                 "trans_attn_mask", "labels")}
+    return out
+
+
+def attention_block_ms(params, cfg, b, s, dev):
+    """One encoder layer's attention block on the plain training path
+    (encoder.py: QKV dense, segment attention with prob dropout,
+    out-proj, hidden dropout, residual LN), forward + backward ms."""
+    from nbest_asr_tpu_torch.ops.attention import multi_head_attention
+    from nbest_asr_tpu_torch.ops.layers import dense, dropout, layer_norm
+    from nbest_asr_tpu_torch.ops.philox import generator
+
+    lp = {k: v[0] for k, v in params["encoder"]["layers"].items()}
+    w = {k: lp[k].to(torch.bfloat16).requires_grad_(True)
+         for k in ("qkv_kernel", "attn_out_kernel")}
+    h, nh = cfg.encoder.hidden_size, cfg.encoder.num_heads
+    x = torch.randn(b, s, h, device=dev).to(torch.bfloat16) \
+        .requires_grad_(True)
+    mask = torch.ones(b, s, device=dev)
+    dyb = torch.randn(b, s, h, device=dev).to(torch.bfloat16)
+    hd = h // nh
+
+    def run():
+        qkv = dense(x, w["qkv_kernel"], lp["qkv_bias"])
+        q, k, v = qkv.split(h, dim=-1)
+        ctx = multi_head_attention(
+            q.reshape(b, s, nh, hd), k.reshape(b, s, nh, hd),
+            v.reshape(b, s, nh, hd), mask, dropout_rate=DROPOUT,
+            gen=generator(1, dev), deterministic=False).reshape(b, s, h)
+        ctx = dropout(dense(ctx, w["attn_out_kernel"], lp["attn_out_bias"]),
+                      DROPOUT, generator(2, dev))
+        layer_norm(x + ctx, lp["attn_ln_scale"], lp["attn_ln_bias"],
+                   1e-12).backward(dyb)
+
+    return cuda_ms(run, iters=5)
+
+
+def phase_train(dev, card: str, ffn_block_ms):
+    """The training slice through ``make_train_step``; returns the
+    launch counts of its main-path run."""
+    import dataclasses
+
+    from nbest_asr_tpu_torch.data.tokenizer import WordVocabTokenizer
+    from nbest_asr_tpu_torch.models.encoder import EncoderConfig
+    from nbest_asr_tpu_torch.models.heads import hierarchy_device_arrays
+    from nbest_asr_tpu_torch.models.model import (ModelConfig,
+                                                  init_model_params)
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
+                                                         make_train_step)
+    from nbest_asr_tpu_torch.train.losses import LossConfig
+    from nbest_asr_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                     make_optimizer,
+                                                     tree_map)
+
+    memory = dstc2_like_memory()
+    tok = WordVocabTokenizer(memory)
+    enc = EncoderConfig.bert_base(vocab_size=VOCAB,
+                                  compute_dtype="bfloat16",
+                                  use_fused_ffn=True, use_fused_attn=False,
+                                  hidden_dropout=DROPOUT,
+                                  attn_dropout=DROPOUT)
+    cfg = ModelConfig(encoder=enc, n_top=memory.n_top,
+                      n_bottom=memory.n_bottom)
+    params = tree_map(lambda a: a.to(dev), init_model_params(
+        torch.Generator().manual_seed(0), cfg))
+    hier = hierarchy_device_arrays(memory.arrays(), dev)
+    data = train_split(memory, tok, requests(memory, seed=1), dev, seed=2)
+    gen = torch.Generator().manual_seed(3)
+    rng = np.random.RandomState(4)
+
+    def indices(bucket):
+        n_rows = data[bucket]["input_ids"].shape[0]
+        return rng.randint(0, n_rows, (N_ACCUM, TRAIN_MICRO[bucket]))
+
+    def new_state(c, **okw):
+        opt = make_optimizer(OptimizerConfig(**okw), params)
+        return (make_train_step(c, LossConfig(), opt, hier,
+                                n_accum=N_ACCUM, dual_stream=False),
+                TrainState(params, opt.init(params), 0))
+
+    okw = dict(lr=5e-4, bert_lr=1e-4, warmup_proportion=0.1, t_total=100)
+    step, state0 = new_state(cfg, **okw)
+    for bucket in BUCKETS:                      # warm-up, not counted
+        step(state0, data[bucket], indices(bucket), gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- main path: 3 steps per bucket, counted and timed -------------- #
+    _cuda.reset_launch_counts()
+    step_ms = {}
+    for bucket in BUCKETS:
+        state, ms = state0, []
+        for _ in range(TRAIN_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, stats = step(state, data[bucket], indices(bucket), gen)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            parts = {k: float(v) for k, v in stats["loss"].items()}
+            if not all(np.isfinite(v) for v in parts.values()):
+                raise AssertionError(f"bucket {bucket}: loss {parts}")
+        step_ms[bucket] = ms
+        log(f"[train] bucket {bucket} (micro {TRAIN_MICRO[bucket]} x "
+            f"{N_ACCUM}): loss {parts}, counts "
+            f"{ {k: float(v) for k, v in stats['counts'].items()} }")
+    torch.cuda.synchronize()
+    counts = dict(_cuda.launch_counts)
+    micros = len(BUCKETS) * TRAIN_STEPS * N_ACCUM
+    want = {k: PER_LAYER_TRAIN.get(k, 0) * LAYERS * micros for k in counts}
+    log(f"[train] launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError("training launch counts differ from layers x "
+                             "micros x launches per layer")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for bucket in BUCKETS:
+        ms = step_ms[bucket]
+        mean = sum(ms) / len(ms)
+        utt = N_ACCUM * TRAIN_MICRO[bucket] / (mean / 1e3)
+        b = TRAIN_MICRO[bucket]
+        ffn = ffn_block_ms[("ffn_block_train", bucket)]
+        attn = attention_block_ms(params, cfg, b, bucket, dev)
+        per_step = LAYERS * N_ACCUM
+        log(f"[train] bucket {bucket}: step ms {', '.join(f'{m:.2f}' for m in ms)}"
+            f" (mean {mean:.2f}); {utt:.1f} utt/s; per layer fwd+bwd: FFN "
+            f"block kernels {ffn[0]:.3f} ms (plain {ffn[1]:.3f}), attention "
+            f"plain path {attn:.3f} ms; share of the step: FFN "
+            f"{per_step * ffn[0] / mean:.3f}, attention "
+            f"{per_step * attn / mean:.3f} [{card}]")
+    log(f"[train] peak memory {peak:.2f} GiB over the main-path steps "
+        f"[{card}]")
+
+    # ---- dropout 0: one kernel step and one plain step agree ------------ #
+    # eps = 1 makes BertAdam's first update linear in the gradient (with
+    # the default 1e-6 it is m / sqrt(v) = +-3.16 for every element,
+    # whatever its size, and near-zero gradients would flip with bf16
+    # noise); a constant schedule makes step 0 move the weights, and no
+    # weight decay leaves the deltas to the gradients alone
+    no_drop = dataclasses.replace(enc, hidden_dropout=0.0, attn_dropout=0.0)
+    plain = dataclasses.replace(no_drop, use_fused_ffn=False)
+    cmp_kw = dict(lr=1e-3, bert_lr=1e-3, schedule="none", eps=1.0,
+                  weight_decay=0.0)
+    idx = indices(64)
+    outs = []
+    for c in (no_drop, plain):
+        st, s0 = new_state(dataclasses.replace(cfg, encoder=c), **cmp_kw)
+        s1, stats = st(s0, data[64], idx, torch.Generator().manual_seed(0))
+        outs.append((s1.params, {k: float(v)
+                                 for k, v in stats["loss"].items()}))
+    (kp, kl), (pp, pl) = outs
+    for k in kl:
+        rel = abs(kl[k] - pl[k]) / max(abs(pl[k]), 1e-30)
+        log(f"  dropout 0 loss {k}: kernel {kl[k]:.6f} plain {pl[k]:.6f} "
+            f"(rel {rel:.2e} <= 1e-2)")
+        if rel > 1e-2:
+            raise AssertionError(f"kernel and plain steps disagree on {k}")
+    worst = 0.0
+
+    def walk(a, b, c, path=""):
+        nonlocal worst
+        if isinstance(a, dict):
+            for key in a:
+                walk(a[key], b[key], c[key], f"{path}/{key}")
+            return
+        dk, dp = (b - a).double(), (c - a).double()
+        scale = dp.abs().max().item()
+        r = (dk - dp).abs().max().item() / max(scale, 1e-30)
+        worst = max(worst, r)
+        if r > 5e-2 or scale == 0:
+            raise AssertionError(f"{path}: kernel-step delta off the plain "
+                                 f"step's by {r:.3e} of its max {scale:.3e}")
+
+    walk(params, kp, pp)
+    log(f"  dropout 0 parameter deltas: worst leaf {worst:.3e} of its "
+        f"largest delta (<= 5e-2)")
+
+    # ---- 30 steps on one fixed micro, dropout on: the loss halves ------ #
+    # lr 1e-4 under the trainer's warmup-linear schedule over the 30 steps;
+    # the plain path's curve (its own dropout masks) is printed beside
+    fix_kw = dict(lr=1e-4, bert_lr=1e-4, t_total=30)
+    fixed = rng.randint(0, data[64]["input_ids"].shape[0],
+                        (1, TRAIN_MICRO[64]))
+    curves = {}
+    for name, c in (("kernels", enc),
+                    ("plain", dataclasses.replace(enc, use_fused_ffn=False))):
+        opt = make_optimizer(OptimizerConfig(**fix_kw), params)
+        st = make_train_step(dataclasses.replace(cfg, encoder=c),
+                             LossConfig(), opt, hier, n_accum=1,
+                             dual_stream=False)
+        state = TrainState(params, opt.init(params), 0)
+        g = torch.Generator().manual_seed(5)
+        curves[name] = []
+        for _ in range(30):
+            state, stats = st(state, data[64], fixed, g)
+            curves[name].append(float(stats["loss"]["total"]))
+        log(f"[train] fixed micro, seq 64, lr 1e-4 warmup-linear, dropout "
+            f"{DROPOUT}, {name}: total loss "
+            f"{', '.join(f'{v:.1f}' for v in curves[name])}")
+    losses = curves["kernels"]
+    if not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError(f"loss {losses[0]:.2f} -> {losses[-1]:.2f}: "
+                             "not halved in 30 steps")
+    return counts, step_ms, peak
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: chip_smoke.py runs the "
@@ -687,17 +1278,35 @@ def main() -> int:
 
     max_err, times = phase_kernels(dev, card)
     counts = phase_slice(dev)
+    t_err, t_times, t_bounds = phase_train_kernels(dev, card)
+    t_counts, _, _ = phase_train(dev, card, t_times)
 
-    record = {"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
-         "replaces": KERNEL_REPLACES[name], "launches": counts[name],
-         "max_abs_err": max_err[name],
-         "ms": times[(name, BUCKETS[-1])][0],
-         "plain_ms": times[(name, BUCKETS[-1])][1]}
-        for name in _cuda.KERNELS]}
-    log("[record] launches: the bf16 and the int8 main-path runs "
-        "together; ms/plain_ms: one encoder layer's launches of the kernel "
-        f"at batch {BATCH} x seq {BUCKETS[-1]}, BERT-base, bf16 activations")
+    s_bounds = serving_bounds(BATCH * BUCKETS[-1], BATCH, BUCKETS[-1])
+    rows = []
+    for name in _cuda.KERNELS:
+        if name in s_bounds:        # a serving layer's launches
+            k_ms, p_ms, l_ms = times[(name, BUCKETS[-1])]
+            b_ms, b_by = s_bounds[name]
+        else:                       # a training layer's launches
+            k_ms, p_ms, l_ms = t_times[name]
+            b_ms, b_by = t_bounds[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
+            "replaces": KERNEL_REPLACES[name],
+            "launches": counts[name] + t_counts[name],
+            "max_abs_err": max(max_err.get(name, 0.0),
+                               t_err.get(name, 0.0)),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": l_ms})
+    record = {"kernels": rows}
+    log("[record] launches: the bf16 serving, int8 serving and training "
+        "main-path runs together; ms / plain_ms / library_ms / bound_ms: "
+        "one encoder layer's launches of the kernel -- serving at batch "
+        f"{BATCH} x seq {BUCKETS[-1]} for the kernels the serving path "
+        "runs, training at 8192 rows (batch 32 x seq 256) for ffn_bwd_rows "
+        "and gemm_dgrad; BERT-base, bf16 activations; library_ms: the "
+        "PyTorch call for each launch (serving_library_calls), null where "
+        "PyTorch has none")
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """nbest_asr_tpu_torch -- the PyTorch + CUDA port of ``nbest_asr_tpu``.
 
 The JAX package beside it is the reference.  This package mirrors its
-module paths, imports ``torch`` and never ``jax``, reuses the JAX
-package's framework-free host code (``nbest_asr_tpu.data`` and
-``nbest_asr_tpu.constants``), and replaces every Pallas kernel on its
+module paths, imports ``torch`` and never ``jax`` or ``nbest_asr_tpu``
+(it keeps its own copies of the framework-free host code it needs:
+``constants.py`` and ``data/``), and replaces every Pallas kernel on its
 path with a kernel written by hand for Hopper (``csrc/``, built with
-nvcc on first use).  The first slice is the bf16 serving forward:
-``Predictor`` over the encoder and the hierarchical head.
+nvcc on first use).  Slices so far: the bf16 and int8 serving forwards
+(``Predictor``) and the bf16 fine-tune train step
+(``parallel.train_step.make_train_step``).
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,14 @@
 // Row LayerNorm over the f32 residual sums that gemm_bias_residual
 // (gemm.cu) writes: y = (s - mean) * rsqrt(var + eps) * scale + bias,
-// statistics in f32, output bf16.
+// statistics in f32, output bf16; for training it also writes each row's
+// mean and rstd (f32, (M,)), the residuals the FFN backward's row pass
+// (ffn_bwd.cu) reads.
 //
 // Replaces the LN tails of two TPU megakernels:
 //   nbest_asr_tpu/ops/fused_attention.py:_fab_fwd_kernel (:188-194)
-//   nbest_asr_tpu/ops/fused_ffn.py:_fwd_kernel (:191-198)
+//   nbest_asr_tpu/ops/fused_ffn.py:_fwd_kernel (:191-200; the TPU writes
+//   the statistics lane-broadcast to (n, 128), which is blocking, not
+//   contract)
 // On the TPU the LN runs on the VMEM-resident output tile of the second
 // GEMM.  On the H100 a 128x128 GEMM tile does not span the 768-wide row
 // the statistics need, so the GEMM epilogue writes the f32 residual sum
@@ -26,7 +30,9 @@ __global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
     layer_norm_kernel(const float* __restrict__ s,
                       const float* __restrict__ scale,
                       const float* __restrict__ bias, bf16* __restrict__ y,
-                      int M, int N, float eps) {
+                      float* __restrict__ mean_out,
+                      float* __restrict__ rstd_out, int M, int N,
+                      float eps) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   if (row >= M) return;
@@ -53,6 +59,10 @@ __global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
     }
   }
   const float rstd = rsqrtf(warp_sum(sq) / N + eps);
+  if (lane == 0 && mean_out != nullptr) {
+    mean_out[row] = mean;
+    rstd_out[row] = rstd;
+  }
 
   const float4* g4 = reinterpret_cast<const float4*>(scale);
   const float4* b4 = reinterpret_cast<const float4*>(bias);
@@ -77,13 +87,15 @@ __global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
 extern "C" {
 
 // y (M, N) bf16 = LayerNorm(s (M, N) f32) * scale + bias; N % 128 == 0,
-// N <= 1024.
+// N <= 1024.  mean_out and rstd_out (M,) f32 receive the row statistics
+// unless null.
 int nbk_layer_norm(const float* s, const float* scale, const float* bias,
-                   void* y, int M, int N, float eps, void* stream) {
+                   void* y, float* mean_out, float* rstd_out, int M, int N,
+                   float eps, void* stream) {
   const int blocks = (M + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
   layer_norm_kernel<<<blocks, ROWS_PER_BLOCK * 32, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      s, scale, bias, static_cast<bf16*>(y), M, N, eps);
+      s, scale, bias, static_cast<bf16*>(y), mean_out, rstd_out, M, N, eps);
   return (int)cudaGetLastError();
 }
 

@@ -25,9 +25,18 @@ of 128 and a head dim of 64 or 128 (what ``seg_attention`` takes):
 - otherwise the plain path runs, exactly as the JAX XLA path does, with
   ``qdense`` taking either kind of leaf.
 
-Only the deterministic (serving) forward exists here -- the int8 routes
-are serving-only in JAX too; dropout and the training routes land with
-the training slice.
+Training (``deterministic=False``) needs an explicit ``seed``; every
+dropout site takes its own seed from it with ``philox.fold_in`` (per
+layer, then per site: 1 attention probs, 2 attention hidden, 3 FFN, and
+0xE the embeddings -- the JAX ``fold_in`` structure, ``encoder.py:201,
+315, 366-441``).  The FFN block routes to ``ops.fused_ffn`` (the kernel
+chains, Philox masks) when ``use_fused_ffn`` and the lanes hold, and
+otherwise runs the plain FFN with ``layers.dropout``.  Attention runs the
+plain path with probability and hidden dropout.  Where JAX would train
+through a kernel the port does not have yet -- the attention megakernel
+(``use_fused_attn``), flash attention, the int8 training GEMMs, the
+fused LN / GELU / embedding kernels -- the forward raises
+``NotImplementedError`` rather than run the plain path quietly.
 """
 
 from __future__ import annotations
@@ -38,7 +47,8 @@ from typing import Optional
 import torch
 
 from ..ops.attention import multi_head_attention
-from ..ops.layers import dense, gelu, layer_norm
+from ..ops.layers import dense, dropout, gelu, layer_norm
+from ..ops.philox import fold_in, generator
 from ..ops.quant import dense_int8, is_quantized
 
 GEMM_KERNELS = ("qkv_kernel", "attn_out_kernel", "ffn_in_kernel",
@@ -48,10 +58,12 @@ GEMM_KERNELS = ("qkv_kernel", "attn_out_kernel", "ffn_in_kernel",
 @dataclass(frozen=True)
 class EncoderConfig:
     """Same fields and defaults as the JAX ``EncoderConfig``.  The port
-    reads the sizes, ``compute_dtype`` and the three routing flags
-    ``use_fused_attn``, ``use_fused_attn_eval`` and ``use_fused_ffn``;
-    the other flags steer TPU-only or training-only paths and are kept so
-    one configuration describes both packages."""
+    reads the sizes, dropout rates, ``compute_dtype`` and the three
+    routing flags ``use_fused_attn``, ``use_fused_attn_eval`` and
+    ``use_fused_ffn``; in training the flags of kernels it has not ported
+    raise (module docstring); ``remat`` and ``scan_unroll`` steer the
+    TPU's scan and are kept so one configuration describes both
+    packages."""
 
     vocab_size: int
     hidden_size: int = 768
@@ -158,10 +170,12 @@ def init_encoder_params(gen: torch.Generator, cfg: EncoderConfig) -> dict:
 
 def _embed(params: dict, input_ids: torch.Tensor,
            token_type_ids: Optional[torch.Tensor], cfg: EncoderConfig,
-           position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Word + position + token-type embeddings, LayerNorm, cast to the
-    compute dtype.  ``position_ids`` (b, s) overrides the iota positions
-    (example packing restarts them per segment)."""
+           position_ids: Optional[torch.Tensor] = None,
+           seed: Optional[int] = None) -> torch.Tensor:
+    """Word + position + token-type embeddings, LayerNorm, dropout in
+    training (``seed`` set), cast to the compute dtype.  ``position_ids``
+    (b, s) overrides the iota positions (example packing restarts them
+    per segment)."""
     emb = params["embeddings"]
     s = input_ids.shape[1]
     ids = input_ids.long()
@@ -176,6 +190,9 @@ def _embed(params: dict, input_ids: torch.Tensor,
     else:
         x = x + emb["type"][0][None, None, :]
     x = layer_norm(x, emb["ln_scale"], emb["ln_bias"], cfg.layer_norm_eps)
+    if seed is not None:
+        x = dropout(x, cfg.hidden_dropout,
+                    generator(fold_in(seed, 0xE), x.device))
     return x.to(cfg.cdtype)
 
 
@@ -203,6 +220,35 @@ def ffn_kernel_routes(cfg: EncoderConfig) -> bool:
             and cfg.intermediate_size % 128 == 0)
 
 
+def _refuse_unported_training(cfg: EncoderConfig, seq: int) -> None:
+    """Raise where JAX would train through a kernel the port lacks."""
+    from ..ops.fused_attention import FAB_MAX_SEQ
+
+    where = "(ROADMAP.md, queue 2)"
+    if (cfg.use_fused_attn and cfg.hidden_size % 128 == 0
+            and cfg.head_dim % 64 == 0 and seq <= FAB_MAX_SEQ):
+        raise NotImplementedError(
+            "training with use_fused_attn: the attention-block megakernel's "
+            "dropout forward and backward (fused_attention.py:152, :204) are "
+            f"not ported yet {where}; set use_fused_attn=False to train the "
+            "plain attention path")
+    if cfg.use_flash_attention and seq >= cfg.flash_min_seq:
+        raise NotImplementedError(
+            f"training with use_flash_attention at seq {seq} >= "
+            f"flash_min_seq {cfg.flash_min_seq}: the flash kernels are not "
+            f"ported yet {where}")
+    if ffn_kernel_routes(cfg) and (cfg.use_int8_train
+                                   or cfg.use_int8_train_bwd):
+        raise NotImplementedError(
+            f"training with use_int8_train: the int8 FFN training kernels "
+            f"(fused_ffn.py:404, :533) are not ported yet {where}")
+    for flag in ("use_fused_ln", "use_fused_gelu", "use_fused_embedding"):
+        if getattr(cfg, flag):
+            raise NotImplementedError(
+                f"training with {flag}: that Pallas kernel is not ported "
+                f"yet {where}")
+
+
 def _qdense(x: torch.Tensor, kernel, bias: torch.Tensor,
             cdt: torch.dtype) -> torch.Tensor:
     """dense() that also takes an int8-quantized {"q", "scale"} leaf
@@ -221,25 +267,36 @@ def _layer_slice(leaf, layer: int):
 def encoder_forward(params: dict, input_ids: torch.Tensor,
                     attn_mask: torch.Tensor,
                     token_type_ids: Optional[torch.Tensor],
-                    cfg: EncoderConfig, *,
+                    cfg: EncoderConfig, *, deterministic: bool = True,
+                    seed: Optional[int] = None,
                     position_ids: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """Deterministic forward; returns the final hidden states (b, s, h)
-    in the compute dtype.  ``attn_mask`` has SEGMENT semantics (see
-    ``ops/attention.py``)."""
+    """Returns the final hidden states (b, s, h) in the compute dtype.
+    ``attn_mask`` has SEGMENT semantics (see ``ops/attention.py``).
+    ``deterministic=False`` trains: dropout on, keyed on ``seed``."""
+    train = not deterministic
+    if train:
+        if seed is None:
+            raise ValueError("encoder_forward: deterministic=False requires "
+                             "a seed")
+        _refuse_unported_training(cfg, input_ids.shape[1])
     x = _embed(params, input_ids, token_type_ids, cfg,
-               position_ids=position_ids)
+               position_ids=position_ids, seed=seed if train else None)
     b, s, h = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     cdt = cfg.cdtype
     lp = params["layers"]
-    if is_quantized(lp["qkv_kernel"]):
+    if train:
+        attn_route = None
+    elif is_quantized(lp["qkv_kernel"]):
         attn_route = "int8" if int8_attn_kernel_routes(cfg, s) else None
     else:
         attn_route = "bf16" if attn_kernel_routes(cfg, s) else None
     ffn_route = None
     if ffn_kernel_routes(cfg):
         ffn_route = "int8" if is_quantized(lp["ffn_in_kernel"]) else "bf16"
+        if train and ffn_route == "int8":
+            ffn_route = None            # serving-only kernels, as in JAX
     if attn_route == "bf16":
         from ..ops.fused_attention import fused_attention_block
     if ffn_route == "bf16":
@@ -247,8 +304,13 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
     if "int8" in (attn_route, ffn_route):
         from ..ops.int8_serving import int8_attention_block, int8_ffn_block
 
+    def gen(lseed: int, site: int):
+        return generator(fold_in(lseed, site), x.device)
+
+    hidden_rate = cfg.hidden_dropout if train else 0.0
     for layer in range(cfg.num_layers):
         p = {k: _layer_slice(v, layer) for k, v in lp.items()}
+        lseed = fold_in(seed, layer) if train else None
 
         if attn_route == "int8":
             wqkv, wo = p["qkv_kernel"], p["attn_out_kernel"]
@@ -268,8 +330,13 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
             q, k, v = qkv.split(h, dim=-1)
             ctx = multi_head_attention(
                 q.reshape(b, s, nh, hd), k.reshape(b, s, nh, hd),
-                v.reshape(b, s, nh, hd), attn_mask).reshape(b, s, h)
+                v.reshape(b, s, nh, hd), attn_mask,
+                dropout_rate=cfg.attn_dropout,
+                gen=gen(lseed, 1) if train else None,
+                deterministic=deterministic).reshape(b, s, h)
             ctx = _qdense(ctx, p["attn_out_kernel"], p["attn_out_bias"], cdt)
+            if train:
+                ctx = dropout(ctx, hidden_rate, gen(lseed, 2))
             x = layer_norm(x + ctx, p["attn_ln_scale"], p["attn_ln_bias"],
                            cfg.layer_norm_eps)
 
@@ -283,10 +350,15 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
             x = fused_ffn_block(
                 x, p["ffn_in_kernel"].to(cdt), p["ffn_in_bias"],
                 p["ffn_out_kernel"].to(cdt), p["ffn_out_bias"],
-                p["ffn_ln_scale"], p["ffn_ln_bias"], eps=cfg.layer_norm_eps)
+                p["ffn_ln_scale"], p["ffn_ln_bias"],
+                dropout_rate=hidden_rate,
+                seed=fold_in(lseed, 3) if train else None,
+                eps=cfg.layer_norm_eps)
         else:
             y = gelu(_qdense(x, p["ffn_in_kernel"], p["ffn_in_bias"], cdt))
             y = _qdense(y, p["ffn_out_kernel"], p["ffn_out_bias"], cdt)
+            if train:
+                y = dropout(y, hidden_rate, gen(lseed, 3))
             x = layer_norm(x + y, p["ffn_ln_scale"], p["ffn_ln_bias"],
                            cfg.layer_norm_eps)
     return x

@@ -10,20 +10,22 @@ membership matrix of the label hierarchy:
 - final[b, j] = top[b, g(j)] * softmax_j   for multi-member groups
                 top[b, g(j)]               for singleton groups
 
-Only the deterministic head exists here; the per-group head dropout
-lands with the training slice.
+In training (``deterministic=False`` with a ``seed``) the head drops the
+CLS features once for the top head and with an independent (b, h) mask
+per top group for the bottom projection, as ``heads.py:91-126`` does
+(the reference calls its dropout afresh for every group head).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from nbest_asr_tpu.data.vocab import HierarchyArrays
-
-from ..ops.layers import acc_dtype
+from ..data.vocab import HierarchyArrays
+from ..ops.layers import acc_dtype, dropout
+from ..ops.philox import fold_in, generator
 
 
 def init_head_params(gen: torch.Generator, hidden: int, n_top: int,
@@ -57,13 +59,37 @@ def group_softmax(logits: torch.Tensor, membership: torch.Tensor,
 
 
 def hierarchical_head(params: dict, features: torch.Tensor,
-                      hier: Dict[str, torch.Tensor]
+                      hier: Dict[str, torch.Tensor], *,
+                      dropout_rate: float = 0.0, seed: Optional[int] = None,
+                      deterministic: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """features (b, h) -> (top_scores (b, n_top), bottom_probs
     (b, n_bottom), final_scores (b, n_bottom))."""
     f = features.to(acc_dtype(features.dtype))
-    top = torch.sigmoid(f @ params["top_kernel"] + params["top_bias"])
-    bottom_logits = f @ params["bottom_kernel"] + params["bottom_bias"]
+    f_top, bottom_logits = f, None
+    if not deterministic and dropout_rate > 0.0:
+        if seed is None:
+            raise ValueError("hierarchical_head: dropout needs a seed")
+        f_top = dropout(f, dropout_rate,
+                        generator(fold_in(seed, 1), f.device))
+        n_top = params["top_kernel"].shape[1]
+        n_bottom = params["bottom_kernel"].shape[1]
+        keep = 1.0 - dropout_rate
+        masks = torch.rand((n_top,) + tuple(f.shape), device=f.device,
+                           generator=generator(fold_in(seed, 2),
+                                               f.device)) < keep
+        dropped = torch.where(masks, f[None] / keep,
+                              torch.zeros((), dtype=f.dtype,
+                                          device=f.device))
+        logits_all = (torch.einsum("gbh,hn->gbn", dropped,
+                                   params["bottom_kernel"])
+                      + params["bottom_bias"])          # (g, b, n_bottom)
+        bottom_logits = logits_all[
+            hier["bottom2top"], :,
+            torch.arange(n_bottom, device=f.device)].T
+    top = torch.sigmoid(f_top @ params["top_kernel"] + params["top_bias"])
+    if bottom_logits is None:
+        bottom_logits = f @ params["bottom_kernel"] + params["bottom_bias"]
     probs = group_softmax(bottom_logits, hier["membership"],
                           hier["bottom2top"])
     top_per_bottom = top[:, hier["bottom2top"]]

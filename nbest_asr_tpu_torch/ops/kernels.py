@@ -23,6 +23,17 @@ where ``dequant(acc) = (f32(acc) * x_scale) * w_scale``, the int8 weight
 ``wq`` (K, N) is stored column-major (``quant.kernel_layout``) and its
 per-output-channel scale ``ws`` is (N,) f32.
 
+The FFN block's training chain (``ops/fused_ffn.py``) gives
+``gemm_bias_act`` and ``gemm_bias_residual`` a Philox dropout site
+(``drop``, an ``ops.philox.Dropout``) and saved residuals (the pre-GELU
+``h``, the dropped second-GEMM output ``y2d``), ``layer_norm`` its row
+statistics, and adds two kernels for the backward:
+
+- ``ffn_bwd_rows`` -- the LayerNorm-backward row pass: dy2, xhat, ds
+- ``gemm_dgrad``   -- ``a @ w.T`` (w the forward's (N, K) weight) with
+                      the "dgelu" epilogue (dh and the regenerated gd)
+                      or the "residual" one (dx = bf16(ds + a @ w.T))
+
 A wrapper given CPU tensors runs the plain version (``*_reference``).
 Given CUDA tensors it checks dtype, shape and contiguity, raises on what
 the kernel does not take, allocates the output with ``torch.empty``,
@@ -36,7 +47,8 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .layers import acc_dtype, gelu, layer_norm
+from .layers import acc_dtype, gelu, gelu_grad, layer_norm_stats
+from .philox import Dropout, threshold
 from .quant import dequant, int_dot, quantize_rows_reference
 
 # fill for masked-out scores, as the TPU kernels use
@@ -72,6 +84,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _drop_args(drop: "Dropout | None"):
+    """The C interface's five dropout scalars (csrc/philox.cuh)."""
+    if drop is None:
+        return 0, 0, 0, 0.0, 0
+    return drop.seed, drop.stream, threshold(drop.rate), drop.inv_keep, 1
+
+
+def _ptr(t) -> "int | None":
+    return None if t is None else t.data_ptr()
+
+
 def _gemm_dims(name: str, a: torch.Tensor, w: torch.Tensor,
                k_mult: int = 32):
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
@@ -101,18 +124,53 @@ def _i8_operands(name: str, xq, xs, wq, ws, bias):
 # plain versions
 # --------------------------------------------------------------------- #
 
-def gemm_bias_act_reference(a, w, bias, act: str = "none"):
+def gemm_bias_act_reference(a, w, bias, act: str = "none", drop=None,
+                            save_h: bool = False):
     acc = acc_dtype(a.dtype)
-    y = (a.to(acc) @ w.to(acc) + bias.to(acc)).to(a.dtype)
+    h = (a.to(acc) @ w.to(acc) + bias.to(acc)).to(a.dtype)
+    y = h
     if act == "gelu":
-        y = gelu(y.to(acc)).to(a.dtype)
-    return y
+        g = gelu(h.to(acc))
+        if drop is not None:
+            g = drop.apply(g)
+        y = g.to(a.dtype)
+    return (h, y) if save_h else y
 
 
-def gemm_bias_residual_reference(a, w, bias, resid):
+def gemm_bias_residual_reference(a, w, bias, resid, drop=None,
+                                 save_y2d: bool = False):
     acc = acc_dtype(a.dtype)
-    y = (a.to(acc) @ w.to(acc) + bias.to(acc)).to(a.dtype)
-    return y.to(acc) + resid.to(acc)
+    y2 = (a.to(acc) @ w.to(acc) + bias.to(acc)).to(a.dtype).to(acc)
+    if drop is not None:
+        y2 = drop.apply(y2)
+    s = y2 + resid.to(acc)
+    return (s, y2.to(a.dtype)) if save_y2d else s
+
+
+def gemm_dgrad_reference(a, w, epilogue: str, h=None, ds=None, drop=None):
+    acc = acc_dtype(a.dtype)
+    d = a.to(acc) @ w.to(acc).t()
+    if epilogue == "residual":
+        return (ds.to(acc) + d).to(a.dtype)
+    if drop is not None:
+        d = drop.apply(d)
+    h32 = h.to(acc)
+    g = gelu(h32)
+    if drop is not None:
+        g = drop.apply(g)
+    return (d * gelu_grad(h32)).to(a.dtype), g.to(a.dtype)
+
+
+def ffn_bwd_rows_reference(x, y2d, dy, ls, mean, rstd, drop=None):
+    acc = acc_dtype(x.dtype)
+    s = y2d.to(acc) + x.to(acc)
+    xhat = (s - mean[:, None]) * rstd[:, None]
+    gl = dy.to(acc) * ls.to(acc)
+    m1 = gl.mean(dim=1, keepdim=True)
+    m2 = (gl * xhat).mean(dim=1, keepdim=True)
+    ds = (gl - m1 - xhat * m2) * rstd[:, None]
+    dy2 = ds if drop is None else drop.apply(ds)
+    return dy2.to(x.dtype), xhat.to(x.dtype), ds
 
 
 def gemm_i8_bias_act_reference(xq, xs, wq, ws, bias, act: str = "none",
@@ -129,8 +187,11 @@ def gemm_i8_bias_residual_reference(xq, xs, wq, ws, bias, resid):
     return y.to(acc) + resid.to(acc)
 
 
-def layer_norm_reference(s, scale, bias, eps: float, out_dtype):
-    return layer_norm(s, scale, bias, eps).to(out_dtype)
+def layer_norm_reference(s, scale, bias, eps: float, out_dtype,
+                         stats: bool = False):
+    y, mean, rstd = layer_norm_stats(s, scale, bias, eps)
+    y = y.to(s.dtype).to(out_dtype)
+    return (y, mean[:, 0], rstd[:, 0]) if stats else y
 
 
 def seg_attention_reference(qkv, mask, n_heads: int):
@@ -156,51 +217,131 @@ def seg_attention_reference(qkv, mask, n_heads: int):
 # kernel wrappers
 # --------------------------------------------------------------------- #
 
-def gemm_bias_act(a, w, bias, act: str = "none"):
-    """(M, K) @ (K, N) + bias, rounded to bf16, then ``act`` ("none" or
-    exact-erf "gelu") in f32 and rounded again.  Output (M, N) bf16."""
+def gemm_bias_act(a, w, bias, act: str = "none", drop=None,
+                  save_h: bool = False):
+    """(M, K) @ (K, N) + bias, rounded to bf16 (``h``), then ``act``
+    ("none" or exact-erf "gelu") in f32, the Philox dropout ``drop``
+    (gelu only) and a second rounding.  Output (M, N) bf16, or ``(h,
+    out)`` with ``save_h``."""
     if act not in ("none", "gelu"):
         raise ValueError(f"gemm_bias_act: act must be 'none' or 'gelu', "
                          f"got {act!r}")
+    if drop is not None and act != "gelu":
+        raise ValueError("gemm_bias_act: dropout follows the GELU only")
     if not _on_cuda("gemm_bias_act", a, w, bias):
-        return gemm_bias_act_reference(a, w, bias, act)
+        return gemm_bias_act_reference(a, w, bias, act, drop, save_h)
     M, N, K = _gemm_dims("gemm_bias_act", a, w)
     _expect("gemm_bias_act", "a", a, torch.bfloat16, (M, K))
     _expect("gemm_bias_act", "w", w, torch.bfloat16, (K, N))
     _expect("gemm_bias_act", "bias", bias, torch.float32, (N,))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    h = torch.empty_like(out) if save_h else None
     rc = _cuda.lib().nbk_gemm_bias_act(
-        a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), M, N,
-        K, 1 if act == "gelu" else 0, _stream(a))
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        _ptr(h), M, N, K, 1 if act == "gelu" else 0, *_drop_args(drop),
+        _stream(a))
     _cuda.check(rc, "gemm_bias_act")
     _cuda.launch_counts["gemm_bias_act"] += 1
-    return out
+    return (h, out) if save_h else out
 
 
-def gemm_bias_residual(a, w, bias, resid):
-    """f32(bf16(a @ w + bias)) + f32(resid): the residual sum, in f32,
-    that ``layer_norm`` normalises.  Output (M, N) f32."""
+def gemm_bias_residual(a, w, bias, resid, drop=None,
+                       save_y2d: bool = False):
+    """y2 = drop(f32(bf16(a @ w + bias))); y2 + f32(resid): the residual
+    sum, in f32, that ``layer_norm`` normalises.  Output (M, N) f32, or
+    ``(sum, y2d)`` with ``save_y2d`` (y2d = bf16(y2))."""
     if not _on_cuda("gemm_bias_residual", a, w, bias, resid):
-        return gemm_bias_residual_reference(a, w, bias, resid)
+        return gemm_bias_residual_reference(a, w, bias, resid, drop,
+                                            save_y2d)
     M, N, K = _gemm_dims("gemm_bias_residual", a, w)
     _expect("gemm_bias_residual", "a", a, torch.bfloat16, (M, K))
     _expect("gemm_bias_residual", "w", w, torch.bfloat16, (K, N))
     _expect("gemm_bias_residual", "bias", bias, torch.float32, (N,))
     _expect("gemm_bias_residual", "resid", resid, torch.bfloat16, (M, N))
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    y2d = torch.empty((M, N), dtype=torch.bfloat16, device=a.device) \
+        if save_y2d else None
     rc = _cuda.lib().nbk_gemm_bias_residual(
         a.data_ptr(), w.data_ptr(), bias.data_ptr(), resid.data_ptr(),
-        out.data_ptr(), M, N, K, _stream(a))
+        out.data_ptr(), _ptr(y2d), M, N, K, *_drop_args(drop), _stream(a))
     _cuda.check(rc, "gemm_bias_residual")
     _cuda.launch_counts["gemm_bias_residual"] += 1
-    return out
+    return (out, y2d) if save_y2d else out
 
 
-def layer_norm_rows(s, scale, bias, eps: float, out_dtype=torch.bfloat16):
+def gemm_dgrad(a, w, epilogue: str, h=None, ds=None, drop=None):
+    """``a (M, K) @ w.T`` for the forward's weight ``w`` (N, K), with the
+    FFN backward's epilogues:
+
+    - "dgelu": ``(dh, gd)``, dh = bf16(drop(a @ w.T) * gelu'(f32 h)) and
+      gd = bf16(drop(gelu(f32 h))), for h (M, N) bf16;
+    - "residual": dx = bf16(ds + a @ w.T), for ds (M, N) f32."""
+    if epilogue not in ("dgelu", "residual"):
+        raise ValueError(f"gemm_dgrad: epilogue must be 'dgelu' or "
+                         f"'residual', got {epilogue!r}")
+    operand = h if epilogue == "dgelu" else ds
+    if operand is None:
+        raise ValueError(f"gemm_dgrad: the {epilogue!r} epilogue needs "
+                         f"{'h' if epilogue == 'dgelu' else 'ds'}")
+    if epilogue == "residual" and drop is not None:
+        raise ValueError("gemm_dgrad: the residual epilogue has no dropout")
+    if not _on_cuda("gemm_dgrad", a, w, operand):
+        return gemm_dgrad_reference(a, w, epilogue, h, ds, drop)
+    M, N, K = _gemm_dims("gemm_dgrad", a, w.t())
+    _expect("gemm_dgrad", "a", a, torch.bfloat16, (M, K))
+    _expect("gemm_dgrad", "w", w, torch.bfloat16, (N, K))
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    gd = None
+    if epilogue == "dgelu":
+        _expect("gemm_dgrad", "h", h, torch.bfloat16, (M, N))
+        gd = torch.empty_like(out)
+    else:
+        _expect("gemm_dgrad", "ds", ds, torch.float32, (M, N))
+    rc = _cuda.lib().nbk_gemm_dgrad(
+        a.data_ptr(), w.data_ptr(), out.data_ptr(), _ptr(h), _ptr(gd),
+        _ptr(ds), M, N, K, 0 if epilogue == "dgelu" else 1,
+        *_drop_args(drop), _stream(a))
+    _cuda.check(rc, "gemm_dgrad")
+    _cuda.launch_counts["gemm_dgrad"] += 1
+    return (out, gd) if epilogue == "dgelu" else out
+
+
+def ffn_bwd_rows(x, y2d, dy, ls, mean, rstd, drop=None):
+    """The FFN backward's row pass over (M, N) rows: ``(dy2, xhat, ds)``
+    with dy2 = bf16(drop(ds)), xhat bf16, ds f32 (see csrc/ffn_bwd.cu)."""
+    if not _on_cuda("ffn_bwd_rows", x, y2d, dy, ls, mean, rstd):
+        return ffn_bwd_rows_reference(x, y2d, dy, ls, mean, rstd, drop)
+    if x.dim() != 2:
+        raise ValueError(f"ffn_bwd_rows: expected (M, N), got "
+                         f"{tuple(x.shape)}")
+    M, N = x.shape
+    if N % 128 or N > 1024:
+        raise ValueError(f"ffn_bwd_rows: the kernel needs N % 128 == 0 and "
+                         f"N <= 1024, got N={N}")
+    for name, t in (("x", x), ("y2d", y2d), ("dy", dy)):
+        _expect("ffn_bwd_rows", name, t, torch.bfloat16, (M, N))
+    _expect("ffn_bwd_rows", "ls", ls, torch.float32, (N,))
+    _expect("ffn_bwd_rows", "mean", mean, torch.float32, (M,))
+    _expect("ffn_bwd_rows", "rstd", rstd, torch.float32, (M,))
+    dy2 = torch.empty_like(x)
+    xhat = torch.empty_like(x)
+    ds = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    rc = _cuda.lib().nbk_ffn_bwd_rows(
+        x.data_ptr(), y2d.data_ptr(), dy.data_ptr(), ls.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), dy2.data_ptr(), xhat.data_ptr(),
+        ds.data_ptr(), M, N, *_drop_args(drop), _stream(x))
+    _cuda.check(rc, "ffn_bwd_rows")
+    _cuda.launch_counts["ffn_bwd_rows"] += 1
+    return dy2, xhat, ds
+
+
+def layer_norm_rows(s, scale, bias, eps: float, out_dtype=torch.bfloat16,
+                    stats: bool = False):
     """Row LayerNorm of the (M, N) f32 residual sum; f32 statistics,
-    output ``out_dtype`` (bf16 on the kernel)."""
+    output ``out_dtype`` (bf16 on the kernel); with ``stats`` also the
+    row mean and rstd, (M,) f32 each."""
     if not _on_cuda("layer_norm", s, scale, bias):
-        return layer_norm_reference(s, scale, bias, eps, out_dtype)
+        return layer_norm_reference(s, scale, bias, eps, out_dtype, stats)
     if s.dim() != 2:
         raise ValueError(f"layer_norm: expected (M, N), got "
                          f"{tuple(s.shape)}")
@@ -215,12 +356,16 @@ def layer_norm_rows(s, scale, bias, eps: float, out_dtype=torch.bfloat16):
     _expect("layer_norm", "scale", scale, torch.float32, (N,))
     _expect("layer_norm", "bias", bias, torch.float32, (N,))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=s.device)
+    mean = rstd = None
+    if stats:
+        mean = torch.empty((M,), dtype=torch.float32, device=s.device)
+        rstd = torch.empty_like(mean)
     rc = _cuda.lib().nbk_layer_norm(
-        s.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), M,
-        N, float(eps), _stream(s))
+        s.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        _ptr(mean), _ptr(rstd), M, N, float(eps), _stream(s))
     _cuda.check(rc, "layer_norm")
     _cuda.launch_counts["layer_norm"] += 1
-    return out
+    return (out, mean, rstd) if stats else out
 
 
 def seg_attention(qkv, mask, n_heads: int):

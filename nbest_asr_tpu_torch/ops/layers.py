@@ -1,15 +1,20 @@
 """Elementary encoder ops in plain PyTorch -- counterparts of
 ``nbest_asr_tpu/ops/layers.py`` and the port's oracles for its kernels.
 
-Dropout waits for the training slice: the serving forward is
-deterministic.
+``dropout`` draws its mask from an explicit ``torch.Generator`` (the JAX
+package draws it from a key); the kernels' dropout is the Philox scheme
+of ``ops/philox.py``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+
+INV_SQRT2 = 1.0 / math.sqrt(2.0)
+INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -31,17 +36,47 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, computed in the input dtype's accumulation type."""
     acc = acc_dtype(x.dtype)
     x32 = x.to(acc)
-    return (x32 * 0.5 * (1.0 + torch.erf(x32 * (1.0 / math.sqrt(2.0))))
-            ).to(x.dtype)
+    return (x32 * 0.5 * (1.0 + torch.erf(x32 * INV_SQRT2))).to(x.dtype)
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-12) -> torch.Tensor:
-    """LayerNorm over the last axis with (at least) f32 statistics."""
+def gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """d gelu_erf / dx = cdf + x * pdf, in x's dtype, in the order of
+    ``nbest_asr_tpu/ops/fused_ffn.py:_gelu_grad_f32``."""
+    cdf = 0.5 * (1.0 + torch.erf(x * INV_SQRT2))
+    pdf = torch.exp(-0.5 * x * x) * INV_SQRT2PI
+    return cdf + x * pdf
+
+
+def layer_norm_stats(x: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, eps: float = 1e-12):
+    """LayerNorm over the last axis in (at least) f32 -> (y in the
+    accumulation dtype, mean, rstd), the statistics with a kept last
+    axis of 1."""
     acc = acc_dtype(x.dtype)
     x32 = x.to(acc)
     mean = x32.mean(dim=-1, keepdim=True)
     c = x32 - mean
     var = (c * c).mean(dim=-1, keepdim=True)
-    y = c * torch.rsqrt(var + eps)
-    return (y * scale.to(acc) + bias.to(acc)).to(x.dtype)
+    rstd = torch.rsqrt(var + eps)
+    return c * rstd * scale.to(acc) + bias.to(acc), mean, rstd
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-12) -> torch.Tensor:
+    """LayerNorm over the last axis with (at least) f32 statistics."""
+    return layer_norm_stats(x, scale, bias, eps)[0].to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+            deterministic: bool = False) -> torch.Tensor:
+    """Inverted dropout with its mask drawn from ``gen``: kept values are
+    divided by keep = 1 - rate, as ``nbest_asr_tpu/ops/layers.py:56``
+    does (the kernels multiply by 1 / keep instead, as the TPU kernels
+    do)."""
+    if deterministic or rate == 0.0:
+        return x
+    if gen is None:
+        raise ValueError("dropout: rate > 0 needs a generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -6,14 +6,21 @@ model.py:init_model_params``): a nested dict with GEMM kernels laid out
 axis.  The bridge is therefore a dict walk with no transposes, and the
 round trip is exact.  It takes and returns numpy arrays, so neither side
 needs the other's framework (``jax.device_get(params)`` gives the input).
+
+The BertAdam state crosses the same way (``opt_state_from_numpy``,
+``opt_state_to_numpy``): its step count and the ``m`` and ``v`` trees,
+which share the parameter layout, so a multi-step trajectory can start
+from one state on both sides.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+
+from .train.optimizer import BertAdamState
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
@@ -50,3 +57,19 @@ def to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     return _leaf_to_numpy(tree)
+
+
+def opt_state_from_numpy(step, m: Dict[str, Any], v: Dict[str, Any],
+                         device="cpu") -> BertAdamState:
+    """A BertAdam state (JAX ``BertAdamState(step, m, v)`` after
+    ``jax.device_get``) -> the port's ``BertAdamState``."""
+    return BertAdamState(step=int(np.asarray(step)),
+                         m=from_jax_numpy(m, device),
+                         v=from_jax_numpy(v, device))
+
+
+def opt_state_to_numpy(state: BertAdamState
+                       ) -> Tuple[np.ndarray, Dict[str, Any], Dict[str, Any]]:
+    """The port's ``BertAdamState`` -> (step as int32, m, v) numpy."""
+    return (np.asarray(state.step, np.int32), to_numpy(state.m),
+            to_numpy(state.v))

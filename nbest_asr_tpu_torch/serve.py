@@ -19,6 +19,8 @@ in the layout the CUDA int8 GEMM reads) and routes every layer through
 the int8 kernel chains (``ops/int8_serving.py``) where the config takes
 them.  ``quantize=None`` resolves as ``resolve_quantize`` says.
 
+The Predictor runs on the card (``device="cuda"``) unless the caller asks
+for the CPU (``device="cpu"``), where the kernels' plain versions run.
 ``load_predictor`` (restoring a Trainer checkpoint) waits for the
 trainer's checkpoint format.
 """
@@ -31,13 +33,12 @@ from typing import List, Sequence, Union
 import numpy as np
 import torch
 
-from nbest_asr_tpu.data.dataset import RawSplit
-from nbest_asr_tpu.data.input_builder import pack_split
-from nbest_asr_tpu.data.native_loader import (NativePacker, native_available,
-                                              native_supported)
-from nbest_asr_tpu.data.tokenizer import BaseTokenizer
-from nbest_asr_tpu.data.vocab import Memory
-
+from .data.dataset import RawSplit
+from .data.input_builder import pack_split
+from .data.native_loader import (NativePacker, native_available,
+                                 native_supported)
+from .data.tokenizer import BaseTokenizer
+from .data.vocab import Memory
 from .models.encoder import GEMM_KERNELS, attn_lanes_ok, ffn_kernel_routes
 from .models.heads import hierarchy_device_arrays
 from .models.model import ModelConfig, model_forward
@@ -109,7 +110,7 @@ def resolve_quantize(quantize, cfg: ModelConfig, device: torch.device) -> str:
 
 class Predictor:
     def __init__(self, params: dict, cfg: ModelConfig, memory: Memory,
-                 tokenizer: BaseTokenizer, *, device="cpu",
+                 tokenizer: BaseTokenizer, *, device="cuda",
                  layout: str = "default", use_segments: bool = False,
                  batch_size: int = 16, max_len: int = 256,
                  bucket_lens: tuple = (64, 96, 160, 256),
@@ -196,7 +197,7 @@ class Predictor:
     @torch.inference_mode()
     def _forward(self, ids: torch.Tensor, mask: torch.Tensor,
                  segs: torch.Tensor):
-        top, probs, final, _ = model_forward(self._fwd_params, self.cfg,
+        top, probs, final, _, _ = model_forward(self._fwd_params, self.cfg,
                                              self.hier, ids, mask, segs)
         return decode_multihot(top, probs, self.hier), final
 

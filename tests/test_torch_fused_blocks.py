@@ -120,6 +120,8 @@ def test_dropout_rate_raises():
         fused_attention_block(x, pa["wqkv"], pa["bqkv"], pa["wo"],
                               pa["bo"], pa["ls"], pa["lb"], mask,
                               n_heads=NH, hidden_dropout=0.1)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    # the FFN block trains with Philox dropout (test_torch_ffn_train.py);
+    # a rate without its seed is refused
+    with pytest.raises(ValueError, match="dropout"):
         fused_ffn_block(x, pf["w1"], pf["b1"], pf["w2"], pf["b2"],
                         pf["ls"], pf["lb"], dropout_rate=0.1)

@@ -260,7 +260,7 @@ def test_int8_predictor_matches_jax(tiny_memory, which, monkeypatch):
     assert (calls["n"] > 0) == (which == "routable")
     # batching invariance
     p3 = Predictor(from_jax_numpy(params), tcfg, memory, tok,
-                   batch_size=3, quantize="int8")
+                   batch_size=3, quantize="int8", device="cpu")
     np.testing.assert_allclose(p3.scores(utts), tp.scores(utts), atol=1e-5)
     assert p3.predict(utts) == tp.predict(utts)
 
@@ -273,7 +273,7 @@ def test_int8_parity_is_red_capable(tiny_memory):
     utts = _utterances(0, 13, 8)
     _, j_scores = _jax_int8(params, jcfg, memory, tok, utts)
     tp = Predictor(from_jax_numpy(params), tcfg, memory, tok, batch_size=8,
-                   quantize="int8")
+                   quantize="int8", device="cpu")
     np.testing.assert_allclose(tp.scores(utts), j_scores, atol=1e-4)
     tp._fwd_params["encoder"]["layers"]["ffn_out_kernel"]["scale"][0] *= 7.3
     assert np.abs(tp.scores(utts) - j_scores).max() > 1e-2
@@ -288,12 +288,12 @@ def test_predictor_takes_a_quantized_tree(tiny_memory):
     tok, jcfg, tcfg, params = _predictor_setup(memory, "routable")
     utts = _utterances(5, 9, 8)
     own = Predictor(from_jax_numpy(params), tcfg, memory, tok, batch_size=8,
-                    quantize="int8").scores(utts)
+                    quantize="int8", device="cpu").scores(utts)
     bridged = from_jax_numpy(jax.device_get(
         jq.quantize_encoder_params(params)))
     for mode in ("int8", "none"):
         tp = Predictor(bridged, tcfg, memory, tok, batch_size=8,
-                       quantize=mode)
+                       quantize=mode, device="cpu")
         q = tp._fwd_params["encoder"]["layers"]["ffn_in_kernel"]["q"]
         assert q.transpose(-1, -2).is_contiguous()    # the kernels' layout
         np.testing.assert_array_equal(tp.scores(utts), own)

@@ -224,3 +224,204 @@ def test_i8_wrappers_refuse_and_count(dev):
     assert {k: v for k, v in _cuda.launch_counts.items() if v} == {
         "quantize_rows": 1, "gemm_i8_bias_act": 1,
         "gemm_i8_bias_residual": 1}
+
+
+# --------------------------------------------------------------------- #
+# FFN training kernels: Philox dropout epilogues, LN statistics, the
+# backward row pass and the two dgrad epilogues.  Where the outputs are
+# pure elementwise functions of the same inputs they are held bit for bit
+# (or to one bf16 ulp where erff / expf meet torch.erf / torch.exp);
+# GEMM and row-reduction outputs to the tolerance above.
+# --------------------------------------------------------------------- #
+
+def _drop(rate, stream, seed=1234):
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    return site(seed, rate, stream)
+
+
+def _keep_rate_ok(mask, rate):
+    n = mask.numel()
+    keep = mask.float().mean().item()
+    assert abs(keep - (1 - rate)) <= 4 * ((rate * (1 - rate) / n) ** 0.5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+def test_dropout_epilogues(dev, rate):
+    from nbest_asr_tpu_torch.ops.philox import keep_mask
+
+    m = 300
+    x = _rand(dev, m, 256, seed=40)
+    w1 = _rand(dev, 256, 512, std=0.05, seed=41)
+    b1 = _rand(dev, 512, std=0.1, dtype=torch.float32, seed=42)
+    w2 = _rand(dev, 512, 256, std=0.05, seed=43)
+    b2 = _rand(dev, 256, std=0.1, dtype=torch.float32, seed=44)
+    d1, d2 = _drop(rate, 1), _drop(rate, 2)
+    h, gd = K.gemm_bias_act(x, w1, b1, "gelu", drop=d1, save_h=True)
+    s, y2d = K.gemm_bias_residual(gd, w2, b2, x, drop=d2, save_y2d=True)
+    torch.cuda.synchronize()
+    rh, rgd = K.gemm_bias_act_reference(x, w1, b1, "gelu", d1, True)
+    rs, ry2d = K.gemm_bias_residual_reference(gd, w2, b2, x, d2, True)
+    _close(h, rh)
+    _close(gd, rgd)
+    _close(s, rs)
+    _close(y2d, ry2d)
+    if rate > 0:
+        k1 = keep_mask(1234, 1, 0, m, 512, rate, dev)
+        k2 = keep_mask(1234, 2, 0, m, 256, rate, dev)
+        assert (gd[~k1] == 0).all() and (y2d[~k2] == 0).all()
+        _keep_rate_ok(k1, rate)
+        _keep_rate_ok(k2, rate)
+        # the dropped sum is the residual alone
+        assert torch.equal(s[~k2], x.float()[~k2])
+
+
+def test_layer_norm_stats(dev):
+    s = _rand(dev, 300, 768, dtype=torch.float32, seed=45)
+    g = 1 + _rand(dev, 768, std=0.1, dtype=torch.float32, seed=46)
+    b = _rand(dev, 768, std=0.1, dtype=torch.float32, seed=47)
+    y, mean, rstd = K.layer_norm_rows(s, g, b, 1e-12, stats=True)
+    torch.cuda.synchronize()
+    ry, rmean, rrstd = K.layer_norm_reference(s, g, b, 1e-12,
+                                              torch.bfloat16, stats=True)
+    assert mean.shape == rstd.shape == (300,)
+    torch.testing.assert_close(mean, rmean, rtol=0, atol=1e-6)
+    torch.testing.assert_close(rstd, rrstd, rtol=1e-5, atol=0)
+    _close(y, ry)
+    assert torch.equal(K.layer_norm_rows(s, g, b, 1e-12), y)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m", [1, 60, 300])
+def test_ffn_bwd_rows(dev, m, rate):
+    from nbest_asr_tpu_torch.ops.philox import keep_mask
+
+    x = _rand(dev, m, 768, seed=50)
+    y2d = _rand(dev, m, 768, seed=51)
+    dy = _rand(dev, m, 768, seed=52)
+    ls = 1 + _rand(dev, 768, std=0.1, dtype=torch.float32, seed=53)
+    s = x.float() + y2d.float()
+    mean = s.mean(1)
+    rstd = torch.rsqrt(((s - mean[:, None]) ** 2).mean(1) + 1e-12)
+    d2 = _drop(rate, 2)
+    dy2, xhat, ds = K.ffn_bwd_rows(x, y2d, dy, ls, mean, rstd, drop=d2)
+    torch.cuda.synchronize()
+    rdy2, rxhat, rds = K.ffn_bwd_rows_reference(x, y2d, dy, ls, mean, rstd,
+                                                d2)
+    assert ds.dtype == torch.float32 and dy2.dtype == torch.bfloat16
+    torch.testing.assert_close(ds, rds, rtol=0,
+                               atol=1e-5 * rds.abs().max().item())
+    assert _ulps(xhat, rxhat) <= 1.0
+    _close(dy2, rdy2)
+    if rate > 0:
+        keep = keep_mask(1234, 2, 0, m, 768, rate, dev)
+        assert (dy2[~keep] == 0).all()
+
+
+@pytest.mark.parametrize("epilogue", ["dgelu", "residual"])
+@pytest.mark.parametrize("m", [1, 60, 300, 8192])
+def test_gemm_dgrad(dev, m, epilogue):
+    n_in, n_out = 768, 3072
+    d1 = _drop(0.1, 1)
+    if epilogue == "dgelu":
+        a = _rand(dev, m, n_in, seed=60)                   # dy2
+        w = _rand(dev, n_out, n_in, std=0.05, seed=61)     # w2 (3072, 768)
+        h = _rand(dev, m, n_out, seed=62)
+        dh, gd = K.gemm_dgrad(a, w, "dgelu", h=h, drop=d1)
+        torch.cuda.synchronize()
+        rdh, rgd = K.gemm_dgrad_reference(a, w, "dgelu", h=h, drop=d1)
+        _close(dh, rdh)
+        assert torch.equal(gd == 0, rgd == 0)
+        nz = rgd != 0
+        assert _ulps(gd[nz], rgd[nz]) <= 1.0
+    else:
+        a = _rand(dev, m, n_out, seed=63)                  # dh
+        w = _rand(dev, n_in, n_out, std=0.05, seed=64)     # w1 (768, 3072)
+        ds = _rand(dev, m, n_in, dtype=torch.float32, seed=65)
+        dx = K.gemm_dgrad(a, w, "residual", ds=ds)
+        torch.cuda.synchronize()
+        _close(dx, K.gemm_dgrad_reference(a, w, "residual", ds=ds))
+
+
+def test_backward_regenerates_forward_masks(dev):
+    """The dgelu epilogue's gd (regenerated from h and the stream-1 mask)
+    equals the forward GEMM's gd bit for bit."""
+    x = _rand(dev, 200, 768, seed=70)
+    w1 = _rand(dev, 768, 3072, std=0.05, seed=71)
+    b1 = _rand(dev, 3072, std=0.1, dtype=torch.float32, seed=72)
+    w2 = _rand(dev, 3072, 768, std=0.05, seed=73)
+    d1 = _drop(0.1, 1, seed=99)
+    h, gd = K.gemm_bias_act(x, w1, b1, "gelu", drop=d1, save_h=True)
+    _, gd2 = K.gemm_dgrad(_rand(dev, 200, 768, seed=74), w2, "dgelu", h=h,
+                          drop=d1)
+    torch.cuda.synchronize()
+    assert torch.equal(gd, gd2)
+
+
+def test_ffn_block_training_matches_autograd(dev):
+    """The FFN autograd Function (five kernels, bf16) against torch
+    autograd through the plain block on f32 copies of the same inputs,
+    same Philox masks.  bf16 rounding of the activations moves outputs
+    and gradients by < 0.5% of their largest (mean < 0.4% of their mean
+    magnitude); a wrong mask or epilogue moves them by > 10%."""
+    from nbest_asr_tpu_torch.ops.fused_ffn import (fused_ffn_block,
+                                                   fused_ffn_block_reference)
+
+    x = _rand(dev, 4, 50, 768, seed=80)
+    ps = [_rand(dev, 768, 3072, std=0.02, seed=81),
+          _rand(dev, 3072, std=0.02, dtype=torch.float32, seed=82),
+          _rand(dev, 3072, 768, std=0.02, seed=83),
+          _rand(dev, 768, std=0.02, dtype=torch.float32, seed=84),
+          1 + _rand(dev, 768, std=0.1, dtype=torch.float32, seed=85),
+          _rand(dev, 768, std=0.1, dtype=torch.float32, seed=86)]
+    dy = _rand(dev, 4, 50, 768, seed=87)
+    outs = []
+    for fn, f32 in ((fused_ffn_block, False),
+                    (fused_ffn_block_reference, True)):
+        args = [(t.float() if f32 else t).clone().requires_grad_(True)
+                for t in [x] + ps]
+        y = fn(*args, dropout_rate=0.1, seed=5)
+        y.backward(dy.float() if f32 else dy)
+        outs.append([y.detach()] + [a.grad for a in args])
+    for got, want in zip(*outs):
+        assert got.dtype == (torch.float32 if want.dim() == 1
+                             else torch.bfloat16)
+        d = (got.float() - want).abs()
+        assert d.max().item() <= 2e-2 * want.abs().max().item()
+        assert d.mean().item() <= 1e-2 * want.abs().mean().item()
+
+
+def test_train_wrappers_refuse_and_count(dev):
+    a = _rand(dev, 64, 768)
+    w2 = _rand(dev, 3072, 768)
+    h = _rand(dev, 64, 3072)
+    with pytest.raises(TypeError):
+        K.gemm_dgrad(a.float(), w2, "dgelu", h=h)
+    with pytest.raises(ValueError, match="needs h"):
+        K.gemm_dgrad(a, w2, "dgelu")
+    with pytest.raises(ValueError, match="shape"):
+        K.gemm_dgrad(a, w2, "dgelu", h=h[:, :1024].contiguous())
+    with pytest.raises(ValueError, match="epilogue"):
+        K.gemm_dgrad(a, w2, "gelu", h=h)
+    with pytest.raises(TypeError):
+        K.gemm_dgrad(h, _rand(dev, 768, 3072), "residual",
+                     ds=a.contiguous())
+    with pytest.raises(ValueError, match="N % 128"):
+        K.ffn_bwd_rows(*(a[:, :96].contiguous(),) * 3,
+                       torch.ones(96, device=dev),
+                       torch.zeros(64, device=dev),
+                       torch.ones(64, device=dev))
+    with pytest.raises(TypeError):
+        K.ffn_bwd_rows(a, a, a.float(), torch.ones(768, device=dev),
+                       torch.zeros(64, device=dev),
+                       torch.ones(64, device=dev))
+    with pytest.raises(ValueError, match="GELU"):
+        K.gemm_bias_act(a, w2.t().contiguous(), torch.zeros(3072,
+                                                            device=dev),
+                        drop=_drop(0.1, 1))
+    _cuda.reset_launch_counts()
+    K.gemm_dgrad(a, w2, "dgelu", h=h)
+    K.ffn_bwd_rows(a, a, a, torch.ones(768, device=dev),
+                   torch.zeros(64, device=dev), torch.ones(64, device=dev))
+    assert {k: v for k, v in _cuda.launch_counts.items() if v} == {
+        "gemm_dgrad": 1, "ffn_bwd_rows": 1}

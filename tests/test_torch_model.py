@@ -113,7 +113,7 @@ def _compare_model(jm, tm, params, memory, args, kw):
             params, jm, jh, *(jnp.asarray(a) for a in args),
             deterministic=True, **{k: jnp.asarray(v) for k, v in kw.items()})
         j_pred = np.asarray(j_decode(j_top, j_probs, jh))
-    t_top, t_probs, t_final, _ = tmodel.model_forward(
+    t_top, t_probs, t_final, _, _ = tmodel.model_forward(
         from_jax_numpy(params), tm, th, *(_t(a) for a in args),
         **{k: _t(v) for k, v in kw.items()})
     np.testing.assert_allclose(t_top.numpy(), np.asarray(j_top), atol=ATOL)

@@ -1,6 +1,8 @@
-"""The port never imports JAX: its package and serving module load in a
-fresh interpreter with ``jax`` absent from ``sys.modules``, as they must
-on a machine that has no JAX at all."""
+"""The port never imports JAX or the JAX package: every module of the
+port, and what ``chip_smoke.py`` imports, loads in a fresh interpreter
+with neither ``jax`` nor any ``nbest_asr_tpu`` module (as distinct from
+``nbest_asr_tpu_torch``) in ``sys.modules``, as they must on a machine
+that has no JAX at all."""
 
 import pathlib
 import subprocess
@@ -9,17 +11,22 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 PROBE = """
-import sys
+import importlib, pathlib, sys
 import nbest_asr_tpu_torch
-from nbest_asr_tpu_torch import serve, params_bridge
-from nbest_asr_tpu_torch.ops import (_cuda, attention, fused_attention,
-                                     fused_ffn, int8_serving, kernels,
-                                     layers, quant)
-from nbest_asr_tpu_torch.models import encoder, heads, model
-from nbest_asr_tpu_torch.train import decode, metrics
+pkg = pathlib.Path(nbest_asr_tpu_torch.__file__).parent
+mods = sorted(
+    "nbest_asr_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
+    for p in pkg.rglob("*.py") if p.name != "__init__.py")
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+chip_smoke.dstc2_like_memory()
+from nbest_asr_tpu_torch import serve
 assert nbest_asr_tpu_torch.Predictor is serve.Predictor
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print("JAX_MODULES=" + ",".join(bad))
+print("MODULES=" + str(len(mods)))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "nbest_asr_tpu"))
+print("FORBIDDEN=" + ",".join(bad))
 """
 
 
@@ -27,4 +34,6 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "JAX_MODULES=\n" in proc.stdout, proc.stdout
+    assert "FORBIDDEN=\n" in proc.stdout, proc.stdout
+    n = int(proc.stdout.split("MODULES=")[1].split()[0])
+    assert n >= 28, proc.stdout

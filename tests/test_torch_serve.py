@@ -68,9 +68,10 @@ def test_predictor_matches_jax(setup):
 def test_batching_invariance(setup):
     memory, tok, _, tcfg, params = setup
     utts = _utterances(2, 11, 10)
-    p4 = Predictor(from_jax_numpy(params), tcfg, memory, tok, batch_size=4)
+    p4 = Predictor(from_jax_numpy(params), tcfg, memory, tok, batch_size=4,
+                   device="cpu")
     p16 = Predictor(from_jax_numpy(params), tcfg, memory, tok,
-                    batch_size=16)
+                    batch_size=16, device="cpu")
     np.testing.assert_allclose(p4.scores(utts), p16.scores(utts),
                                atol=1e-5)
     assert p4.predict(utts) == p16.predict(utts)
@@ -84,7 +85,7 @@ def test_bucket_choice_matches_jax(setup, max_words):
     jp = JPredictor(params, jcfg, memory, tok, batch_size=8, max_len=256,
                     quantize="none")
     tp = Predictor(from_jax_numpy(params), tcfg, memory, tok, batch_size=8,
-                   max_len=256)
+                   max_len=256, device="cpu")
     got, want = tp._pack(seqs), jp._pack(seqs)
     assert got.max_len == want.max_len and got.max_len in tp.bucket_lens
     np.testing.assert_array_equal(got.input_ids, want.input_ids)
@@ -96,10 +97,19 @@ def test_refusals(setup, monkeypatch):
     memory, tok, _, tcfg, params = setup
     tparams = from_jax_numpy(params)
     with pytest.raises(ValueError, match="quantize"):
-        Predictor(tparams, tcfg, memory, tok, quantize="fp8")
+        Predictor(tparams, tcfg, memory, tok, quantize="fp8", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Predictor(tparams, tcfg, memory, tok, device="cuda")
+
+
+def test_default_device_is_the_card(setup, monkeypatch):
+    """Predictor(...) without a device runs on the card: it raises where
+    there is no CUDA instead of serving on the CPU."""
+    memory, tok, _, tcfg, params = setup
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(from_jax_numpy(params), tcfg, memory, tok)
 
 
 def test_int8_accepted_on_cpu(setup):
@@ -107,7 +117,7 @@ def test_int8_accepted_on_cpu(setup):
     the plain int8 dense on the CPU."""
     memory, tok, _, tcfg, params = setup
     tp = Predictor(from_jax_numpy(params), tcfg, memory, tok,
-                   quantize="int8", batch_size=4)
+                   quantize="int8", batch_size=4, device="cpu")
     assert tp.quantize == "int8"
     layers = tp._fwd_params["encoder"]["layers"]
     assert layers["qkv_kernel"]["q"].dtype == torch.int8
@@ -130,10 +140,11 @@ def test_fused_attn_eval_default_scoped_to_cuda(setup):
     kcfg = dataclasses.replace(tcfg, encoder=dataclasses.replace(
         tcfg.encoder, use_fused_attn=True))
     tparams = from_jax_numpy(params)
-    auto = Predictor(tparams, kcfg, memory, tok)
+    auto = Predictor(tparams, kcfg, memory, tok, device="cpu")
     assert not auto.cfg.encoder.use_fused_attn_eval
     assert auto.quantize == "none"
-    on = Predictor(tparams, kcfg, memory, tok, fused_attn_eval=True)
+    on = Predictor(tparams, kcfg, memory, tok, fused_attn_eval=True,
+                   device="cpu")
     assert on.cfg.encoder.use_fused_attn_eval
     assert not kcfg.encoder.use_fused_attn_eval
     lanes = dataclasses.replace(tcfg, encoder=dataclasses.replace(
