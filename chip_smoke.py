@@ -34,28 +34,39 @@ Phases, each fatal on failure:
    bucket (CUDA events, after warm-up) and ``predict`` utt/s, bf16 and
    int8 side by side (int8 and bf16 ``predict`` alternate, ABBA).
 5. Training kernels against their plain versions with the same Philox
-   bits, at BERT-base widths for n in {60, 7680, 8192} rows: the
-   dropout epilogues of ``gemm_bias_act`` and ``gemm_bias_residual``
-   (with h and y2d saved), ``layer_norm``'s statistics, the backward row
-   pass ``ffn_bwd_rows`` and both ``gemm_dgrad`` epilogues -- elementwise
-   results within one bf16 ulp of the plain version on the kernel's own
-   inputs, dropped elements exactly 0, the backward's regenerated gd
-   equal to the forward's bit for bit -- and the whole FFN block, forward
-   and all seven gradients, against torch autograd through the plain
-   block.  Per training layer: kernel, plain and library ms.
+   bits, at BERT-base widths for n in {60 (3 x 20), 7680 (80 x 96), 8192
+   (32 x 256)} rows, padded and packed masks: the FFN block's chain (the
+   dropout epilogues of ``gemm_bias_act`` and ``gemm_bias_residual`` with
+   h and y2d saved, ``layer_norm``'s statistics, ``ffn_bwd_rows``, the
+   "dgelu" and "residual" ``gemm_dgrad``) and the attention block's
+   (``seg_attention`` with prob dropout and row statistics, the out-proj
+   epilogue with hidden dropout and od saved, ``ffn_bwd_rows`` on od,
+   the "none" and "residual" ``gemm_dgrad``, ``seg_attention_bwd``) --
+   elementwise results within one bf16 ulp of the plain version on the
+   kernel's own inputs, dropped elements exactly 0, the backward's
+   regenerated gd equal to the forward's bit for bit, GEMM and attention
+   outputs within two bf16 ulps of the tensor's largest value; a one-hot
+   probe shows the forward, the dQ kernel and the dK/dV kernel dropping
+   exactly the stream-3 probs -- and each whole block, forward and all
+   seven gradients, against torch autograd through the plain block.
+   Per training layer: kernel, plain, library and bound ms; each block's
+   forward + backward per bucket.
 6. The training slice: ``make_train_step`` on seed-0 BERT-base weights
    (bf16 compute, f32 masters, dropout 0.1, ``use_fused_ffn=True``,
-   ``use_fused_attn=False``) over the synthetic hierarchy, n_accum 2,
+   ``use_fused_attn=True``) over the synthetic hierarchy, n_accum 2,
    three steps per bucket at the token-budget micro sizes (128, 80, 48,
-   32 rows at seq 64, 96, 160, 256).  The FFN kernels' counters must
-   rise by exactly layers x micros x ``PER_LAYER_TRAIN``; every loss part
-   must be finite; at dropout 0 one kernel step and one plain step from
-   the same weights must agree (loss parts within 1e-2 relative,
-   parameter deltas within 5e-2 of each leaf's largest delta); 30 steps
-   on one fixed micro at seq 64, lr 1e-4 (warmup-linear), dropout on,
-   must halve the total loss (the plain path's curve is printed beside).  Prints step ms per bucket (CUDA events), train utt/s,
-   the FFN block's and the plain attention block's fwd + bwd ms and
-   their share of the step, and the peak memory.
+   32 rows at seq 64, 96, 160, 256).  The kernels' counters must rise by
+   exactly layers x micros x ``PER_LAYER_TRAIN``, and one step of the
+   FFN-only route (``use_fused_attn=False``) at seq 64 by layers x micros
+   x ``PER_LAYER_TRAIN_FFN``; every loss part must be finite; at dropout
+   0 one kernel step and one plain step (all kernel flags off) from the
+   same weights must agree (loss parts within 1e-2 relative, parameter
+   deltas within 5e-2 of each leaf's largest delta); 30 steps on one
+   fixed micro at seq 64, lr 1e-4 (warmup-linear), dropout on, must
+   halve the total loss (the plain path's curve is printed beside).
+   Prints step ms per bucket (CUDA events), train utt/s, both blocks'
+   fwd + bwd ms and their share of the step, the plain attention path's
+   ms, and the peak memory.
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
@@ -90,12 +101,14 @@ KERNEL_SOURCES = {
     "gemm_i8_bias_residual": "nbest_asr_tpu_torch/csrc/gemm_i8.cu",
     "ffn_bwd_rows": "nbest_asr_tpu_torch/csrc/ffn_bwd.cu",
     "gemm_dgrad": "nbest_asr_tpu_torch/csrc/gemm.cu",
+    "seg_attention_bwd": "nbest_asr_tpu_torch/csrc/seg_attention_bwd.cu",
 }
 FAB = "nbest_asr_tpu/ops/fused_attention.py:152"
 FFN = "nbest_asr_tpu/ops/fused_ffn.py:166"
 I8A = "nbest_asr_tpu/ops/int8_serving.py:157"
 I8F = "nbest_asr_tpu/ops/int8_serving.py:90"
 FFB = "nbest_asr_tpu/ops/fused_ffn.py:224"
+FAB_B = "nbest_asr_tpu/ops/fused_attention.py:204"
 KERNEL_REPLACES = {
     "gemm_bias_act": f"{FAB} (QKV GEMM) + {FFN} (W1 GEMM + GELU + "
                      "dropout, _gelu_slice :153)",
@@ -103,16 +116,20 @@ KERNEL_REPLACES = {
                           ":181-191), + residual",
     "layer_norm": f"{FAB} + {FFN} + {I8A} + {I8F} (LayerNorm tails, "
                   "statistics)",
-    "seg_attention": f"{FAB} (head loop, _head_probs :103) + {I8A} "
-                     "(head loop :169-189)",
+    "seg_attention": f"{FAB} (head loop, _head_probs :103, prob dropout "
+                     f":175-178) + {I8A} (head loop :169-189)",
     "quantize_rows": f"{I8A} + {I8F} (_quant_rows :57)",
     "gemm_i8_bias_act": f"{I8A} (QKV _dense_i8) + {I8F} (W1 _dense_i8 + "
                         "GELU)",
     "gemm_i8_bias_residual": f"{I8A} (out-proj _dense_i8) + {I8F} (W2 "
                              "_dense_i8), + residual",
-    "ffn_bwd_rows": f"{FFB} (_row_grads :203-221, dy2 / xhat :259-260)",
+    "ffn_bwd_rows": f"{FFB} (_row_grads :203-221, dy2 / xhat :259-260) "
+                    f"+ {FAB_B} (LN backward, hidden drop :216-231)",
     "gemm_dgrad": f"{FFB} (dy2 @ w2^T, drop, gelu' :245-253; ds + dh @ "
-                  "w1^T :239, :251, :258)",
+                  f"w1^T :239, :251, :258) + {FAB_B} (dout @ wo^T :232; "
+                  "ds + dqkv @ wqkv^T :268-269)",
+    "seg_attention_bwd": f"{FAB_B} (head loop: probs, dp, dv, di, ds, dq, "
+                         "dk :235-266)",
 }
 # launches of each kernel per encoder layer on the routed bf16 and int8
 # paths (ops/fused_*.py, ops/int8_serving.py); every other kernel 0
@@ -121,11 +138,14 @@ PER_LAYER = {"gemm_bias_act": 2, "gemm_bias_residual": 2, "layer_norm": 2,
 PER_LAYER_I8 = {"quantize_rows": 4, "gemm_i8_bias_act": 2,
                 "gemm_i8_bias_residual": 2, "layer_norm": 2,
                 "seg_attention": 1}
-# launches per encoder layer per micro of the training step: the FFN
-# block's forward and backward chains (ops/fused_ffn.py); the attention
-# block runs the plain path
-PER_LAYER_TRAIN = {"gemm_bias_act": 1, "gemm_bias_residual": 1,
-                   "layer_norm": 1, "ffn_bwd_rows": 1, "gemm_dgrad": 2}
+# launches per encoder layer per micro of the training step: both blocks'
+# forward and backward chains (ops/fused_attention.py, ops/fused_ffn.py);
+# with use_fused_attn=False the FFN block's alone
+PER_LAYER_TRAIN = {"gemm_bias_act": 2, "gemm_bias_residual": 2,
+                   "layer_norm": 2, "ffn_bwd_rows": 2, "gemm_dgrad": 4,
+                   "seg_attention": 1, "seg_attention_bwd": 1}
+PER_LAYER_TRAIN_FFN = {"gemm_bias_act": 1, "gemm_bias_residual": 1,
+                       "layer_norm": 1, "ffn_bwd_rows": 1, "gemm_dgrad": 2}
 # training micro rows per bucket under the 8192-token budget
 # (nbest_asr_tpu/train/loop.py:430)
 TRAIN_MICRO = {64: 128, 96: 80, 160: 48, 256: 32}
@@ -221,6 +241,24 @@ class Checker:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  "version")
         self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), d)
+
+    def sums(self, name, kernel, got, want):
+        """Sums of bf16-rounded products that both sides round in other
+        places (the attention backward's ds and p_v): max |d| <= 2**-6 *
+        max |want| and mean |d| <= 2**-6 * mean |want|."""
+        d = (got.float() - want.float()).abs()
+        w = want.float().abs()
+        mx, mean = d.max().item(), d.mean().item()
+        lim_max, lim_mean = 2.0 ** -6 * w.max().item(), \
+            2.0 ** -6 * w.mean().item()
+        ok = (mx <= lim_max and mean <= lim_mean
+              and bool(torch.isfinite(got.float()).all()))
+        log(f"  {'ok ' if ok else 'BAD'} {name}: max {mx:.3e} (<= "
+            f"{lim_max:.3e}) mean {mean:.3e} (<= {lim_mean:.3e})")
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 "version")
+        self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), mx)
 
     def exact(self, name, kernel, got, want, bf16_ulps: int = 0):
         """Bit-equality, or at most ``bf16_ulps`` bf16 ulps of ``want``
@@ -809,21 +847,28 @@ def phase_slice(dev):
 
 
 # --------------------------------------------------------------------- #
-# training: the FFN kernels' training chains and the train step
+# training: both blocks' training chains and the train step
 # --------------------------------------------------------------------- #
 
-def ffn_weights(dev, seed: int):
+def train_weights(dev, seed: int):
+    """One encoder layer's random weights at BERT-base widths: bf16
+    kernels, f32 biases and LN params."""
     gen = torch.Generator().manual_seed(seed)
 
     def rn(*shape, std=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=gen) * std).to(dev, dtype)
 
+    f32 = torch.float32
     return {"w1": rn(H, INTER, std=0.02),
-            "b1": rn(INTER, std=0.02, dtype=torch.float32),
+            "b1": rn(INTER, std=0.02, dtype=f32),
             "w2": rn(INTER, H, std=0.02),
-            "b2": rn(H, std=0.02, dtype=torch.float32),
-            "ls": 1.0 + rn(H, std=0.1, dtype=torch.float32),
-            "lb": rn(H, std=0.1, dtype=torch.float32)}, rn
+            "b2": rn(H, std=0.02, dtype=f32),
+            "wqkv": rn(H, 3 * H, std=0.02),
+            "bqkv": rn(3 * H, std=0.02, dtype=f32),
+            "wo": rn(H, H, std=0.02),
+            "bo": rn(H, std=0.02, dtype=f32),
+            "ls": 1.0 + rn(H, std=0.1, dtype=f32),
+            "lb": rn(H, std=0.1, dtype=f32)}, rn
 
 
 def check_ffn_train_chain(K, p, x2, dy, seed, check):
@@ -897,132 +942,360 @@ def check_ffn_train_chain(K, p, x2, dy, seed, check):
                 ds=ds, dh=dh, d1=d1, d2=d2)
 
 
-def ffn_block_grads(fn, x, p, dy, f32: bool):
+def check_attn_train_chain(K, p, x, mask_list, dy, seed, check):
+    """Each training kernel of the attention block against its plain
+    version with the same Philox bits (streams 3 and 4), on the kernels'
+    own intermediates, for each (name, mask); returns the first mask's
+    intermediates for the timings."""
+    from nbest_asr_tpu_torch.ops.philox import keep_mask, site
+
+    b, s, _ = x.shape
+    n = b * s
+    x2 = x.reshape(n, H)
+    da, dh = site(seed, DROPOUT, 3), site(seed, DROPOUT, 4)
+    k4 = keep_mask(seed, 4, 0, n, H, DROPOUT, x.device)
+    qkv = K.gemm_bias_act(x2, p["wqkv"], p["bqkv"])
+    torch.cuda.synchronize()
+    check(f"train gemm_bias_act qkv n {n}", "gemm_bias_act", qkv,
+          K.gemm_bias_act_reference(x2, p["wqkv"], p["bqkv"]), False)
+    out = None
+    for mname, m in mask_list:
+        tag = f"n {n} ({b} x {s}) {mname}"
+        ctx, st = K.seg_attention(qkv, m, NH, drop=da, stats=True)
+        torch.cuda.synchronize()
+        rctx, rst = K.seg_attention_reference(qkv, m, NH, da, stats=True)
+        check(f"train seg_attention ctx {tag}", "seg_attention", ctx, rctx,
+              False)
+        check.rel(f"train seg_attention row max {tag}", "seg_attention",
+                  st[0], rst[0], 1e-5)
+        check.rel(f"train seg_attention row sum {tag}", "seg_attention",
+                  st[1], rst[1], 1e-5)
+        sres, od = K.gemm_bias_residual(ctx, p["wo"], p["bo"], x2, drop=dh,
+                                        save_y2d=True)
+        torch.cuda.synchronize()
+        rs, rod = K.gemm_bias_residual_reference(ctx, p["wo"], p["bo"], x2,
+                                                 dh, True)
+        check(f"train gemm_bias_residual out-proj sum {tag}",
+              "gemm_bias_residual", sres, rs, False)
+        check(f"train gemm_bias_residual od {tag}", "gemm_bias_residual",
+              od, rod, False)
+        if not (bool((od[~k4] == 0).all())
+                and torch.equal(sres[~k4], x2.float()[~k4])):
+            raise AssertionError("gemm_bias_residual: a dropped out-proj "
+                                 "element survived")
+        _, mean, rstd = K.layer_norm_rows(sres, p["ls"], p["lb"], 1e-12,
+                                          stats=True)
+        dout, _, ds = K.ffn_bwd_rows(x2, od, dy, p["ls"], mean, rstd,
+                                     drop=dh)
+        torch.cuda.synchronize()
+        check.exact(f"ffn_bwd_rows dout = drop_h(ds) {tag}", "ffn_bwd_rows",
+                    dout, dh.apply(ds).to(torch.bfloat16), bf16_ulps=0)
+        dctx = K.gemm_dgrad(dout, p["wo"], "none")
+        torch.cuda.synchronize()
+        check(f"gemm_dgrad none dctx {tag}", "gemm_dgrad", dctx,
+              K.gemm_dgrad_reference(dout, p["wo"], "none"), False)
+        dqkv = K.seg_attention_bwd(qkv, dctx, m, st, NH, drop=da)
+        torch.cuda.synchronize()
+        rdqkv = K.seg_attention_bwd_reference(qkv, dctx, m, st, NH, da)
+        for i, part in enumerate("qkv"):
+            cols = slice(i * H, (i + 1) * H)
+            check.sums(f"seg_attention_bwd d{part} {tag}",
+                       "seg_attention_bwd", dqkv[:, cols], rdqkv[:, cols])
+        dx = K.gemm_dgrad(dqkv, p["wqkv"], "residual", ds=ds)
+        torch.cuda.synchronize()
+        check(f"gemm_dgrad residual dx {tag}", "gemm_dgrad", dx,
+              K.gemm_dgrad_reference(dqkv, p["wqkv"], "residual", ds=ds),
+              False)
+        if out is None:
+            out = dict(qkv=qkv, ctx=ctx, st=st, s=sres, od=od, mean=mean,
+                       rstd=rstd, dout=dout, ds=ds, dctx=dctx, dqkv=dqkv,
+                       mask=m, da=da, dh=dh)
+    return out
+
+
+def check_prob_mask_probe(K, dev):
+    """The backward regenerates the forward's prob mask bit for bit.
+    With one-hot K and V (row k = e_k; s = 64 = head dim) the forward's
+    ctx is the dropped probs, the dK/dV kernel's dV for one-hot dO their
+    transpose, and the dQ kernel's dq for dO = 1 is negative exactly where
+    a prob was dropped (a kept prob's ds is p * inv_keep * (1 - kept
+    mass) >= 0, about 1e-10 where a whole row is kept; a dropped one's
+    -p * inv_keep * kept mass): each must equal the stream-3 keep bits."""
+    from nbest_asr_tpu_torch.ops.philox import keep_mask, site
+
+    b, s, d, seed = 4, 64, H // NH, 4321
+    gen = torch.Generator().manual_seed(5)
+    qkv = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
+        dev, torch.bfloat16)
+    eye = torch.eye(s, device=dev, dtype=torch.bfloat16)
+    for hd in range(NH):
+        for part in (1, 2):
+            qkv[:, part * H + hd * d:part * H + (hd + 1) * d] = \
+                eye.repeat(b, 1)
+    mask = torch.ones(b, s, device=dev)
+    drop = site(seed, DROPOUT, 3)
+    keep = keep_mask(seed, 3, 0, b * NH * s, s, DROPOUT, dev).reshape(
+        b, NH, s, s)
+    ctx, st = K.seg_attention(qkv, mask, NH, drop=drop, stats=True)
+    d_v = K.seg_attention_bwd(qkv, eye.repeat(b, NH).contiguous(), mask, st,
+                              NH, drop=drop)
+    d_q = K.seg_attention_bwd(qkv, torch.ones_like(ctx), mask, st, NH,
+                              drop=drop)
+    torch.cuda.synchronize()
+    seen = {
+        "forward (ctx)": ctx.reshape(b, s, NH, d).permute(0, 2, 1, 3) != 0,
+        "dK/dV kernel (dV)": d_v[:, 2 * H:].reshape(b, s, NH, d).permute(
+            0, 2, 3, 1) != 0,
+        "dQ kernel (dq)": d_q[:, :H].reshape(b, s, NH, d).permute(
+            0, 2, 1, 3).float() > -1e-6}
+    for name, m in seen.items():
+        n_diff = int((m != keep).sum())
+        log(f"  {'ok ' if n_diff == 0 else 'BAD'} prob mask of the {name} "
+            f"vs the stream-3 keep bits: {n_diff} of {keep.numel()} differ")
+        if n_diff:
+            raise AssertionError(f"the {name} does not regenerate the "
+                                 "forward's prob mask")
+
+
+def block_grads(fn, names, x, p, dy, f32: bool, *extra, **kw):
+    """Output and gradients of a block ``fn`` over x and the weights
+    ``names`` of ``p`` (f32 copies with ``f32``); ``extra`` and ``kw``
+    are passed on."""
     args = [(a.float() if f32 else a).clone().requires_grad_(True)
-            for a in (x, p["w1"], p["b1"], p["w2"], p["b2"], p["ls"],
-                      p["lb"])]
-    y = fn(*args, dropout_rate=DROPOUT, seed=77)
+            for a in [x] + [p[k] for k in names]]
+    y = fn(*args, *extra, seed=77, **kw)
     y.backward(dy.float() if f32 else dy)
     return [y.detach()] + [a.grad for a in args]
 
 
-def train_layer_bounds(M: int):
-    """Per training layer at M rows: the bound of each FFN training
-    kernel's launches (bytes: each input read once, each output written
-    once) and of the whole block forward + backward."""
-    i = INTER
-    per = {
-        "gemm_bias_act": gemm_bound(M, i, H, i * 4 + 2 * M * i * 2),
-        "gemm_bias_residual": gemm_bound(
-            M, H, i, H * 4 + M * H * 2 + M * H * 4 + M * H * 2),
-        "layer_norm": bound(8.0 * M * H,
-                            M * H * 4 + 2 * H * 4 + M * H * 2 + M * 8,
-                            "f32"),
-        "ffn_bwd_rows": bound(16.0 * M * H, 3 * M * H * 2 + H * 4 + M * 8
-                              + 2 * M * H * 2 + M * H * 4, "f32"),
+FFN_NAMES = ("w1", "b1", "w2", "b2", "ls", "lb")
+ATTN_NAMES = ("wqkv", "bqkv", "wo", "bo", "ls", "lb")
+FFN_KW = dict(dropout_rate=DROPOUT)
+ATTN_KW = dict(n_heads=NH, attn_dropout=DROPOUT, hidden_dropout=DROPOUT)
+
+
+def hold_block(name, got, want, grads):
+    """A block's output and gradients against autograd through the plain
+    block in f32: max within 2% of the tensor's largest value, mean within
+    1% of its mean magnitude."""
+    for g_name, g, w in zip(("y",) + grads, got, want):
+        d = (g.float() - w).abs()
+        mx, mean = d.max().item(), d.mean().item()
+        lim_mx = 2e-2 * w.abs().max().item()
+        lim_mean = 1e-2 * w.abs().mean().item()
+        ok = mx <= lim_mx and mean <= lim_mean
+        log(f"  {'ok ' if ok else 'BAD'} {name} train {g_name}: max "
+            f"{mx:.3e} (<= {lim_mx:.3e}) mean {mean:.3e} (<= "
+            f"{lim_mean:.3e})")
+        if not ok:
+            raise AssertionError(f"{name} {g_name}: kernels disagree with "
+                                 "autograd through the plain block")
+
+
+def train_layer_bounds(M: int, b: int, s: int):
+    """Per training layer at M = b * s rows: the bound of each training
+    kernel's launches in both blocks (bytes: each input read once, each
+    output written once; operations from the shapes)."""
+    i, h3, d = INTER, 3 * H, H // NH
+    stats = 2 * b * NH * s * 4
+    ln = bound(8.0 * M * H, M * H * 4 + 2 * H * 4 + M * H * 2 + M * 8,
+               "f32")
+    rows = bound(16.0 * M * H, 3 * M * H * 2 + H * 4 + M * 8
+                 + 2 * M * H * 2 + M * H * 4, "f32")
+    res = H * 4 + M * H * 2 + M * H * 4 + M * H * 2
+    return {
+        "gemm_bias_act": bound_sum([
+            gemm_bound(M, i, H, i * 4 + 2 * M * i * 2),
+            gemm_bound(M, h3, H, h3 * 4 + M * h3 * 2)]),
+        "gemm_bias_residual": bound_sum([gemm_bound(M, H, i, res),
+                                         gemm_bound(M, H, H, res)]),
+        "layer_norm": bound_sum([ln, ln]),
+        "ffn_bwd_rows": bound_sum([rows, rows]),
         "gemm_dgrad": bound_sum([
             gemm_bound(M, i, H, 3 * M * i * 2),
-            gemm_bound(M, H, i, M * H * 4 + M * H * 2)]),
+            gemm_bound(M, H, i, M * H * 4 + M * H * 2),
+            gemm_bound(M, H, H, M * H * 2),
+            gemm_bound(M, H, h3, M * H * 4 + M * H * 2)]),
+        "seg_attention": bound(4.0 * b * NH * s * s * d,
+                               M * h3 * 2 + b * s * 4 + M * H * 2 + stats,
+                               "bf16"),
+        # QK^T, dO V^T, dV, dQ, dK: five s x s x d products a head
+        "seg_attention_bwd": bound(10.0 * b * NH * s * s * d,
+                                   M * h3 * 2 + M * H * 2 + b * s * 4
+                                   + stats + M * h3 * 2, "bf16"),
     }
-    return per
+
+
+def attention_library_calls(a, b, s):
+    """F.scaled_dot_product_attention with the boolean segment mask and
+    prob dropout: forward (seg_attention's yardstick) and forward +
+    backward (seg_attention_bwd's); timed, used nowhere in the port."""
+    F = torch.nn.functional
+    d = H // NH
+    q, k, v = a["qkv"].view(b, s, 3, NH, d).permute(2, 0, 3, 1, 4)
+    m = a["mask"]
+    same = m[:, None, :, None] == m[:, None, None, :]
+    go = a["dctx"].view(b, s, NH, d).transpose(1, 2)
+
+    def fwd_bwd():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        F.scaled_dot_product_attention(qq, kk, vv, attn_mask=same,
+                                       dropout_p=DROPOUT).backward(go)
+
+    return (lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=same, dropout_p=DROPOUT)), fwd_bwd
 
 
 def phase_train_kernels(dev, card: str):
     """Training kernels against their plain versions; per training layer
-    kernel / plain / library ms at every bucket's micro shape."""
+    kernel / plain / library ms at 8192 rows, and each block's forward +
+    backward at every bucket's micro shape."""
     from nbest_asr_tpu_torch.ops import kernels as K
+    from nbest_asr_tpu_torch.ops.fused_attention import (
+        fused_attention_block, fused_attention_block_reference)
     from nbest_asr_tpu_torch.ops.fused_ffn import (fused_ffn_block,
                                                    fused_ffn_block_reference)
 
     F = torch.nn.functional
-    p, rn = ffn_weights(dev, 2)
+    p, rn = train_weights(dev, 2)
+    gen = torch.Generator().manual_seed(6)
     check = Checker()
     times = {}
-    for n in (60, 7680, 8192):
-        log(f"[train-kernels] n {n} rows, dropout {DROPOUT}")
-        x2, dy = rn(n, H), rn(n, H)
-        o = check_ffn_train_chain(K, p, x2, dy, seed=1000 + n, check=check)
+    log("[train-kernels] the backward's prob mask, one-hot probe")
+    check_prob_mask_probe(K, dev)
+    for b, s in ((3, 20), (80, 96), (32, 256)):
+        n = b * s
+        log(f"[train-kernels] n {n} rows ({b} x {s}), dropout {DROPOUT}")
+        x, dy = rn(b, s, H), rn(b, s, H)
+        x2, dy2 = x.reshape(n, H), dy.reshape(n, H)
+        pad, packed = masks(b, s, gen, dev)
+        o = check_ffn_train_chain(K, p, x2, dy2, seed=1000 + n, check=check)
+        a = check_attn_train_chain(K, p, x, (("padded", pad),
+                                             ("packed", packed)),
+                                   dy2, seed=2000 + n, check=check)
         if n != 8192:
             continue
-        # the whole block, forward and all gradients, against torch
+        # each whole block, forward and all gradients, against torch
         # autograd through the plain block on f32 copies, same masks
-        got = ffn_block_grads(fused_ffn_block, x2, p, dy, False)
-        want = ffn_block_grads(fused_ffn_block_reference, x2, p, dy, True)
-        for name, g, w in zip(("y", "dx", "dw1", "db1", "dw2", "db2",
-                               "dls", "dlb"), got, want):
-            d = (g.float() - w).abs()
-            mx, mean = d.max().item(), d.mean().item()
-            lim_mx = 2e-2 * w.abs().max().item()
-            lim_mean = 1e-2 * w.abs().mean().item()
-            ok = mx <= lim_mx and mean <= lim_mean
-            log(f"  {'ok ' if ok else 'BAD'} ffn block train {name}: max "
-                f"{mx:.3e} (<= {lim_mx:.3e}) mean {mean:.3e} (<= "
-                f"{lim_mean:.3e})")
-            if not ok:
-                raise AssertionError(f"ffn block {name}: kernels disagree "
-                                     "with autograd through the plain "
-                                     "block")
-        bfb = {k: p[k].to(torch.bfloat16) for k in ("b1", "b2")}
+        hold_block("ffn block", *(
+            block_grads(fn, FFN_NAMES, x2, p, dy2, f32, **FFN_KW)
+            for fn, f32 in ((fused_ffn_block, False),
+                            (fused_ffn_block_reference, True))),
+            ("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb"))
+        for mname, m in (("padded", pad), ("packed", packed)):
+            hold_block(f"attention block {mname}", *(
+                block_grads(fn, ATTN_NAMES, x, p, dy, f32, m, **ATTN_KW)
+                for fn, f32 in ((fused_attention_block, False),
+                                (fused_attention_block_reference, True))),
+                ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dls", "dlb"))
+        bfb = {k: p[k].to(torch.bfloat16) for k in ("b1", "b2", "bqkv", "bo")}
+        sdpa_fwd, sdpa_fwd_bwd = attention_library_calls(a, b, s)
+        # per training layer: every launch of the kernel in both blocks
         t = {
             "gemm_bias_act": (
-                lambda: K.gemm_bias_act(x2, p["w1"], p["b1"], "gelu",
-                                        drop=o["d1"], save_h=True),
-                lambda: K.gemm_bias_act_reference(x2, p["w1"], p["b1"],
-                                                  "gelu", o["d1"], True),
-                lambda: torch.addmm(bfb["b1"], x2, p["w1"])),
+                lambda: (K.gemm_bias_act(x2, p["w1"], p["b1"], "gelu",
+                                         drop=o["d1"], save_h=True),
+                         K.gemm_bias_act(x2, p["wqkv"], p["bqkv"])),
+                lambda: (K.gemm_bias_act_reference(x2, p["w1"], p["b1"],
+                                                   "gelu", o["d1"], True),
+                         K.gemm_bias_act_reference(x2, p["wqkv"],
+                                                   p["bqkv"])),
+                lambda: (torch.addmm(bfb["b1"], x2, p["w1"]),
+                         torch.addmm(bfb["bqkv"], x2, p["wqkv"]))),
             "gemm_bias_residual": (
-                lambda: K.gemm_bias_residual(o["gd"], p["w2"], p["b2"], x2,
-                                             drop=o["d2"], save_y2d=True),
-                lambda: K.gemm_bias_residual_reference(
+                lambda: (K.gemm_bias_residual(o["gd"], p["w2"], p["b2"], x2,
+                                              drop=o["d2"], save_y2d=True),
+                         K.gemm_bias_residual(a["ctx"], p["wo"], p["bo"], x2,
+                                              drop=a["dh"], save_y2d=True)),
+                lambda: (K.gemm_bias_residual_reference(
                     o["gd"], p["w2"], p["b2"], x2, o["d2"], True),
-                lambda: torch.addmm(bfb["b2"], o["gd"], p["w2"])),
+                         K.gemm_bias_residual_reference(
+                             a["ctx"], p["wo"], p["bo"], x2, a["dh"], True)),
+                lambda: (torch.addmm(bfb["b2"], o["gd"], p["w2"]),
+                         torch.addmm(bfb["bo"], a["ctx"], p["wo"]))),
             "layer_norm": (
-                lambda: K.layer_norm_rows(o["s"], p["ls"], p["lb"], 1e-12,
-                                          stats=True),
-                lambda: K.layer_norm_reference(o["s"], p["ls"], p["lb"],
-                                               1e-12, torch.bfloat16, True),
-                lambda: F.layer_norm(o["s"], (H,), p["ls"], p["lb"],
-                                     1e-12)),
+                lambda: [K.layer_norm_rows(r, p["ls"], p["lb"], 1e-12,
+                                           stats=True)
+                         for r in (o["s"], a["s"])],
+                lambda: [K.layer_norm_reference(r, p["ls"], p["lb"], 1e-12,
+                                                torch.bfloat16, True)
+                         for r in (o["s"], a["s"])],
+                lambda: [F.layer_norm(r, (H,), p["ls"], p["lb"], 1e-12)
+                         for r in (o["s"], a["s"])]),
             "ffn_bwd_rows": (
-                lambda: K.ffn_bwd_rows(x2, o["y2d"], dy, p["ls"], o["mean"],
-                                       o["rstd"], drop=o["d2"]),
-                lambda: K.ffn_bwd_rows_reference(
-                    x2, o["y2d"], dy, p["ls"], o["mean"], o["rstd"],
+                lambda: (K.ffn_bwd_rows(x2, o["y2d"], dy2, p["ls"],
+                                        o["mean"], o["rstd"], drop=o["d2"]),
+                         K.ffn_bwd_rows(x2, a["od"], dy2, p["ls"], a["mean"],
+                                        a["rstd"], drop=a["dh"])),
+                lambda: (K.ffn_bwd_rows_reference(
+                    x2, o["y2d"], dy2, p["ls"], o["mean"], o["rstd"],
                     o["d2"]),
+                         K.ffn_bwd_rows_reference(
+                             x2, a["od"], dy2, p["ls"], a["mean"],
+                             a["rstd"], a["dh"])),
                 None),
             "gemm_dgrad": (
                 lambda: (K.gemm_dgrad(o["dy2"], p["w2"], "dgelu", h=o["h"],
                                       drop=o["d1"]),
                          K.gemm_dgrad(o["dh"], p["w1"], "residual",
-                                      ds=o["ds"])),
+                                      ds=o["ds"]),
+                         K.gemm_dgrad(a["dout"], p["wo"], "none"),
+                         K.gemm_dgrad(a["dqkv"], p["wqkv"], "residual",
+                                      ds=a["ds"])),
                 lambda: (K.gemm_dgrad_reference(o["dy2"], p["w2"], "dgelu",
                                                 h=o["h"], drop=o["d1"]),
                          K.gemm_dgrad_reference(o["dh"], p["w1"],
-                                                "residual", ds=o["ds"])),
+                                                "residual", ds=o["ds"]),
+                         K.gemm_dgrad_reference(a["dout"], p["wo"], "none"),
+                         K.gemm_dgrad_reference(a["dqkv"], p["wqkv"],
+                                                "residual", ds=a["ds"])),
                 lambda: (torch.matmul(o["dy2"], p["w2"].t()),
-                         torch.matmul(o["dh"], p["w1"].t()))),
+                         torch.matmul(o["dh"], p["w1"].t()),
+                         torch.matmul(a["dout"], p["wo"].t()),
+                         torch.matmul(a["dqkv"], p["wqkv"].t()))),
+            "seg_attention": (
+                lambda: K.seg_attention(a["qkv"], a["mask"], NH,
+                                        drop=a["da"], stats=True),
+                lambda: K.seg_attention_reference(a["qkv"], a["mask"], NH,
+                                                  a["da"], True),
+                sdpa_fwd),
+            "seg_attention_bwd": (
+                lambda: K.seg_attention_bwd(a["qkv"], a["dctx"], a["mask"],
+                                            a["st"], NH, drop=a["da"]),
+                lambda: K.seg_attention_bwd_reference(
+                    a["qkv"], a["dctx"], a["mask"], a["st"], NH, a["da"]),
+                sdpa_fwd_bwd),
         }
         for name, (fk, fp, fl) in t.items():
             times[name] = (cuda_ms(fk), cuda_ms(fp, iters=3),
                            None if fl is None else cuda_ms(fl))
-    bounds = train_layer_bounds(8192)
+    bounds = train_layer_bounds(8192, 32, 256)
     for name, (k_ms, p_ms, l_ms) in times.items():
         lib_s = "" if l_ms is None else f", library {l_ms:.4f} ms"
         log(f"  time train {name:<18} n 8192: kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms{lib_s}, bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]}) [{card}]")
-    # the FFN block forward + backward per layer at each bucket's micro
+    # each block's forward + backward per layer at each bucket's micro
     for s, b in TRAIN_MICRO.items():
         x, dyb = rn(b, s, H), rn(b, s, H)
-
-        def step(fn, x=x, dyb=dyb):
-            ffn_block_grads(fn, x, p, dyb, False)
-
-        k_ms = cuda_ms(lambda: step(fused_ffn_block))
-        p_ms = cuda_ms(lambda: step(fused_ffn_block_reference), iters=3)
-        times[("ffn_block_train", s)] = (k_ms, p_ms)
-        log(f"  time train ffn_block fwd+bwd b{b} s{s}: kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]")
+        m = masks(b, s, gen, dev)[0]
+        blocks = {
+            "ffn_block_train": (
+                lambda fn: block_grads(fn, FFN_NAMES, x, p, dyb, False,
+                                       **FFN_KW),
+                fused_ffn_block, fused_ffn_block_reference),
+            "attn_block_train": (
+                lambda fn: block_grads(fn, ATTN_NAMES, x, p, dyb, False, m,
+                                       **ATTN_KW),
+                fused_attention_block, fused_attention_block_reference)}
+        for key, (run, fk, fp) in blocks.items():
+            times[(key, s)] = (cuda_ms(lambda: run(fk)),
+                               cuda_ms(lambda: run(fp), iters=3))
+        log(f"  time train block fwd+bwd b{b} s{s}: FFN kernels "
+            f"{times[('ffn_block_train', s)][0]:.4f} ms (plain "
+            f"{times[('ffn_block_train', s)][1]:.4f}), attention kernels "
+            f"{times[('attn_block_train', s)][0]:.4f} ms (plain "
+            f"{times[('attn_block_train', s)][1]:.4f}) [{card}]")
     return check.max_err, times, bounds
 
 
@@ -1052,17 +1325,20 @@ def train_split(memory, tok, reqs, dev, seed: int):
     return out
 
 
-def attention_block_ms(params, cfg, b, s, dev):
+def plain_attention_ms(params, cfg, b, s, dev):
     """One encoder layer's attention block on the plain training path
     (encoder.py: QKV dense, segment attention with prob dropout,
-    out-proj, hidden dropout, residual LN), forward + backward ms."""
+    out-proj, hidden dropout, residual LN), forward + backward ms, every
+    input and weight with a gradient."""
     from nbest_asr_tpu_torch.ops.attention import multi_head_attention
     from nbest_asr_tpu_torch.ops.layers import dense, dropout, layer_norm
     from nbest_asr_tpu_torch.ops.philox import generator
 
     lp = {k: v[0] for k, v in params["encoder"]["layers"].items()}
-    w = {k: lp[k].to(torch.bfloat16).requires_grad_(True)
-         for k in ("qkv_kernel", "attn_out_kernel")}
+    w = {k: (lp[k].to(torch.bfloat16) if "kernel" in k else lp[k].clone())
+         .requires_grad_(True)
+         for k in ("qkv_kernel", "qkv_bias", "attn_out_kernel",
+                   "attn_out_bias", "attn_ln_scale", "attn_ln_bias")}
     h, nh = cfg.encoder.hidden_size, cfg.encoder.num_heads
     x = torch.randn(b, s, h, device=dev).to(torch.bfloat16) \
         .requires_grad_(True)
@@ -1071,23 +1347,24 @@ def attention_block_ms(params, cfg, b, s, dev):
     hd = h // nh
 
     def run():
-        qkv = dense(x, w["qkv_kernel"], lp["qkv_bias"])
+        qkv = dense(x, w["qkv_kernel"], w["qkv_bias"])
         q, k, v = qkv.split(h, dim=-1)
         ctx = multi_head_attention(
             q.reshape(b, s, nh, hd), k.reshape(b, s, nh, hd),
             v.reshape(b, s, nh, hd), mask, dropout_rate=DROPOUT,
             gen=generator(1, dev), deterministic=False).reshape(b, s, h)
-        ctx = dropout(dense(ctx, w["attn_out_kernel"], lp["attn_out_bias"]),
+        ctx = dropout(dense(ctx, w["attn_out_kernel"], w["attn_out_bias"]),
                       DROPOUT, generator(2, dev))
-        layer_norm(x + ctx, lp["attn_ln_scale"], lp["attn_ln_bias"],
+        layer_norm(x + ctx, w["attn_ln_scale"], w["attn_ln_bias"],
                    1e-12).backward(dyb)
 
     return cuda_ms(run, iters=5)
 
 
-def phase_train(dev, card: str, ffn_block_ms):
+def phase_train(dev, card: str, block_ms):
     """The training slice through ``make_train_step``; returns the
-    launch counts of its main-path run."""
+    launch counts of its main-path runs (both blocks on their kernels,
+    then one step of the FFN-only route)."""
     import dataclasses
 
     from nbest_asr_tpu_torch.data.tokenizer import WordVocabTokenizer
@@ -1107,11 +1384,13 @@ def phase_train(dev, card: str, ffn_block_ms):
     tok = WordVocabTokenizer(memory)
     enc = EncoderConfig.bert_base(vocab_size=VOCAB,
                                   compute_dtype="bfloat16",
-                                  use_fused_ffn=True, use_fused_attn=False,
+                                  use_fused_ffn=True, use_fused_attn=True,
                                   hidden_dropout=DROPOUT,
                                   attn_dropout=DROPOUT)
     cfg = ModelConfig(encoder=enc, n_top=memory.n_top,
                       n_bottom=memory.n_bottom)
+    plain_enc = dataclasses.replace(enc, use_fused_ffn=False,
+                                    use_fused_attn=False)
     params = tree_map(lambda a: a.to(dev), init_model_params(
         torch.Generator().manual_seed(0), cfg))
     hier = hierarchy_device_arrays(memory.arrays(), dev)
@@ -1128,6 +1407,13 @@ def phase_train(dev, card: str, ffn_block_ms):
         return (make_train_step(c, LossConfig(), opt, hier,
                                 n_accum=N_ACCUM, dual_stream=False),
                 TrainState(params, opt.init(params), 0))
+
+    def expect(counts, per_layer, micros, what):
+        want = {k: per_layer.get(k, 0) * LAYERS * micros for k in counts}
+        log(f"[train] {what}: launches {counts}, expected {want}")
+        if counts != want:
+            raise AssertionError(f"{what}: launch counts differ from layers "
+                                 "x micros x launches per layer")
 
     okw = dict(lr=5e-4, bert_lr=1e-4, warmup_proportion=0.1, t_total=100)
     step, state0 = new_state(cfg, **okw)
@@ -1158,28 +1444,43 @@ def phase_train(dev, card: str, ffn_block_ms):
             f"{ {k: float(v) for k, v in stats['counts'].items()} }")
     torch.cuda.synchronize()
     counts = dict(_cuda.launch_counts)
-    micros = len(BUCKETS) * TRAIN_STEPS * N_ACCUM
-    want = {k: PER_LAYER_TRAIN.get(k, 0) * LAYERS * micros for k in counts}
-    log(f"[train] launches {counts}, expected {want}")
-    if counts != want:
-        raise AssertionError("training launch counts differ from layers x "
-                             "micros x launches per layer")
+    expect(counts, PER_LAYER_TRAIN, len(BUCKETS) * TRAIN_STEPS * N_ACCUM,
+           "both blocks on their kernels")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
+    # ---- the FFN-only route (use_fused_attn=False): one counted step --- #
+    ffn_only = dataclasses.replace(enc, use_fused_attn=False)
+    ffn_step, _ = new_state(dataclasses.replace(cfg, encoder=ffn_only),
+                            **okw)
+    ffn_step(state0, data[64], indices(64), gen)         # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    _, stats = ffn_step(state0, data[64], indices(64), gen)
+    torch.cuda.synchronize()
+    ffn_counts = dict(_cuda.launch_counts)
+    expect(ffn_counts, PER_LAYER_TRAIN_FFN, N_ACCUM,
+           "FFN-only route, one step at seq 64")
+    if not all(np.isfinite(float(v)) for v in stats["loss"].values()):
+        raise AssertionError(f"FFN-only route: loss {stats['loss']}")
+    counts = {k: counts[k] + ffn_counts[k] for k in counts}
+
+    per_step = LAYERS * N_ACCUM
     for bucket in BUCKETS:
         ms = step_ms[bucket]
         mean = sum(ms) / len(ms)
         utt = N_ACCUM * TRAIN_MICRO[bucket] / (mean / 1e3)
-        b = TRAIN_MICRO[bucket]
-        ffn = ffn_block_ms[("ffn_block_train", bucket)]
-        attn = attention_block_ms(params, cfg, b, bucket, dev)
-        per_step = LAYERS * N_ACCUM
-        log(f"[train] bucket {bucket}: step ms {', '.join(f'{m:.2f}' for m in ms)}"
-            f" (mean {mean:.2f}); {utt:.1f} utt/s; per layer fwd+bwd: FFN "
-            f"block kernels {ffn[0]:.3f} ms (plain {ffn[1]:.3f}), attention "
-            f"plain path {attn:.3f} ms; share of the step: FFN "
-            f"{per_step * ffn[0] / mean:.3f}, attention "
-            f"{per_step * attn / mean:.3f} [{card}]")
+        ffn = block_ms[("ffn_block_train", bucket)]
+        attn = block_ms[("attn_block_train", bucket)]
+        plain_attn = plain_attention_ms(params, cfg, TRAIN_MICRO[bucket],
+                                        bucket, dev)
+        log(f"[train] bucket {bucket}: step ms "
+            f"{', '.join(f'{m:.2f}' for m in ms)} (mean {mean:.2f}); "
+            f"{utt:.1f} utt/s; per layer fwd+bwd: attention block kernels "
+            f"{attn[0]:.3f} ms (plain version {attn[1]:.3f}, plain "
+            f"training path {plain_attn:.3f}), FFN block kernels "
+            f"{ffn[0]:.3f} ms (plain {ffn[1]:.3f}); share of the step: "
+            f"attention {per_step * attn[0] / mean:.3f}, FFN "
+            f"{per_step * ffn[0] / mean:.3f} [{card}]")
     log(f"[train] peak memory {peak:.2f} GiB over the main-path steps "
         f"[{card}]")
 
@@ -1190,7 +1491,8 @@ def phase_train(dev, card: str, ffn_block_ms):
     # noise); a constant schedule makes step 0 move the weights, and no
     # weight decay leaves the deltas to the gradients alone
     no_drop = dataclasses.replace(enc, hidden_dropout=0.0, attn_dropout=0.0)
-    plain = dataclasses.replace(no_drop, use_fused_ffn=False)
+    plain = dataclasses.replace(plain_enc, hidden_dropout=0.0,
+                                attn_dropout=0.0)
     cmp_kw = dict(lr=1e-3, bert_lr=1e-3, schedule="none", eps=1.0,
                   weight_decay=0.0)
     idx = indices(64)
@@ -1234,8 +1536,7 @@ def phase_train(dev, card: str, ffn_block_ms):
     fixed = rng.randint(0, data[64]["input_ids"].shape[0],
                         (1, TRAIN_MICRO[64]))
     curves = {}
-    for name, c in (("kernels", enc),
-                    ("plain", dataclasses.replace(enc, use_fused_ffn=False))):
+    for name, c in (("kernels", enc), ("plain", plain_enc)):
         opt = make_optimizer(OptimizerConfig(**fix_kw), params)
         st = make_train_step(dataclasses.replace(cfg, encoder=c),
                              LossConfig(), opt, hier, n_accum=1,
@@ -1299,14 +1600,18 @@ def main() -> int:
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": l_ms})
     record = {"kernels": rows}
-    log("[record] launches: the bf16 serving, int8 serving and training "
-        "main-path runs together; ms / plain_ms / library_ms / bound_ms: "
-        "one encoder layer's launches of the kernel -- serving at batch "
-        f"{BATCH} x seq {BUCKETS[-1]} for the kernels the serving path "
-        "runs, training at 8192 rows (batch 32 x seq 256) for ffn_bwd_rows "
-        "and gemm_dgrad; BERT-base, bf16 activations; library_ms: the "
-        "PyTorch call for each launch (serving_library_calls), null where "
-        "PyTorch has none")
+    log("[record] launches: the bf16 serving, int8 serving, training "
+        "(both blocks on kernels) and FFN-only training main-path runs "
+        "together; ms / plain_ms / library_ms / bound_ms: one encoder "
+        f"layer's launches of the kernel -- serving at batch {BATCH} x seq "
+        f"{BUCKETS[-1]} for the kernels the serving path runs, training at "
+        "8192 rows (batch 32 x seq 256, both blocks) for ffn_bwd_rows, "
+        "gemm_dgrad and seg_attention_bwd; BERT-base, bf16 activations; "
+        "library_ms: the PyTorch call for each launch "
+        "(serving_library_calls; torch.matmul for the dgrads; "
+        "F.scaled_dot_product_attention forward + backward with the "
+        "boolean segment mask and dropout for seg_attention_bwd), null "
+        "where PyTorch has none")
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,150 @@
+// Device pieces shared by the attention kernels (seg_attention.cu,
+// seg_attention_bwd.cu): 64-row q / k / v tiles read by column offset
+// from the (n, 3h) QKV buffer, the 16-column chunk products of the
+// mma.sync fragments, and the Philox keep-bit tables of the stream-3
+// prob dropout.
+//
+// Chunk products (g = lane / 4, t = lane % 4, as in common.cuh): a warp
+// owns 16 rows of the left operand; a chunk c[j][e], j in {0, 1}, is the
+// C fragment of the 16 x 16 product's columns 8 j .. 8 j + 7, element
+// (row g + 8 (e >= 2), column 8 j + 2 t + (e & 1)).
+//
+// Keep-bit tables: the prob dropout of element (query q, key k) of one
+// (batch element, head) is Philox word (k & 3) of counter (k >> 2, row0 +
+// q, 3, 0) (ops/philox.py).  A block draws the bits of the (rows x 32
+// words) slab it needs once, one Philox call per four keys, into shared
+// memory, and every pass reads them from there in whatever fragment
+// layout it has -- so the forward, the dQ kernel and the dK/dV kernel
+// (which holds keys as rows) regenerate the same mask bit for bit.
+#pragma once
+
+#include <math.h>
+
+#include "common.cuh"
+#include "philox.cuh"
+
+namespace nbk {
+namespace attn {
+
+constexpr int ROWS = 64;      // rows of a q, k, v or dO tile
+constexpr int THREADS = 128;  // 4 warps, 16 rows each
+constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
+
+template <int D>
+struct Tile {
+  static constexpr int LD = D + 8;  // padded rows: ldmatrix conflict-free
+  static constexpr int ELEMS = ROWS * LD;
+};
+
+// rows [r0, r0 + 64) of one head's columns (src points at row 0, column
+// head * D of a row-major matrix with leading dimension ld) -> shared
+// tile; rows past S are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
+                                          int S, int ld) {
+  constexpr int CPR = D / 8;
+  for (int c = threadIdx.x; c < ROWS * CPR; c += THREADS) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const int row = r0 + r;
+    const bool ok = row < S;
+    cp_async_16(dst + r * Tile<D>::LD + col,
+                src + (size_t)(ok ? row : 0) * ld + col, ok);
+  }
+}
+
+// A fragments of 16 rows (x points at the first) of a shared tile.
+template <int D>
+__device__ __forceinline__ void load_a(unsigned (&af)[D / 16][4],
+                                       const bf16* x, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(af[kk], x + (lane & 15) * Tile<D>::LD + kk * 16 +
+                            (lane >> 4) * 8);
+}
+
+// c = A (16 x D) . X^T for X the 16 rows at x of a (rows, D) shared
+// tile: the 16 x 16 chunk of, e.g., the scores of 16 queries against 16
+// keys.  Accumulates over D in order, so equal inputs give equal bits.
+template <int D>
+__device__ __forceinline__ void dot_nt16(float (*c)[4],
+                                         const unsigned (&af)[D / 16][4],
+                                         const bf16* x, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // X is (n, d) row-major = B^T: plain 8x8 loads give B fragments;
+    // matrices = (n 0-7, d 0-7), (n 0-7, d 8-15), (n 8-15, d 0-7),
+    // (n 8-15, d 8-15)
+    unsigned f[4];
+    const int r = (lane & 7) + ((lane >> 4) << 3);
+    const int col = kk * 16 + ((lane >> 3) & 1) * 8;
+    ldmatrix_x4(f, x + r * Tile<D>::LD + col);
+    mma_bf16(c[0], af[kk], f[0], f[1]);
+    mma_bf16(c[1], af[kk], f[2], f[3]);
+  }
+}
+
+// acc (16 x D) += bf16(P) (16 x 16, a chunk) . X for X the 16 rows at x
+// of a (rows, D) shared tile: the C fragments of P are the A fragment of
+// the next product, rounded to bf16 on the way.
+template <int D>
+__device__ __forceinline__ void mma_chunk(float (&acc)[D / 8][4],
+                                          float (*p)[4],
+                                          const bf16* x, int lane) {
+  unsigned pa[4];
+  pa[0] = pack_bf16x2(p[0][0], p[0][1]);
+  pa[1] = pack_bf16x2(p[0][2], p[0][3]);
+  pa[2] = pack_bf16x2(p[1][0], p[1][1]);
+  pa[3] = pack_bf16x2(p[1][2], p[1][3]);
+#pragma unroll
+  for (int dp = 0; dp < D / 16; ++dp) {
+    // X is (k, d) row-major = B: transposed 8x8 loads; matrices =
+    // (k 0-7, d 0-7), (k 8-15, d 0-7), (k 0-7, d 8-15), (k 8-15, d 8-15)
+    unsigned f[4];
+    const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int col = dp * 16 + (lane >> 4) * 8;
+    ldmatrix_x4_trans(f, x + r * Tile<D>::LD + col);
+    mma_bf16(acc[2 * dp], pa, f[0], f[1]);
+    mma_bf16(acc[2 * dp + 1], pa, f[2], f[3]);
+  }
+}
+
+// Keep bits of rows row0 .. row0 + rows - 1 (Philox rows of the prob
+// mask), key columns col0 .. col0 + 32 words - 1, into tab[r * stride +
+// w] (bit b of word w = key col0 + 32 w + b).  All threads of the block
+// take part; the caller synchronises before reading.
+__device__ __forceinline__ void build_keep(unsigned* tab, int rows, int words,
+                                           int stride, const DropParams& d,
+                                           int row0, int col0) {
+  for (int i = threadIdx.x; i < rows * words; i += THREADS) {
+    const int r = i / words, w = i % words;
+    unsigned bits = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint4 v = philox_group(d, row0 + r, col0 + w * 32 + j * 4);
+      bits |= (unsigned)(v.x >= d.thresh) << (4 * j);
+      bits |= (unsigned)(v.y >= d.thresh) << (4 * j + 1);
+      bits |= (unsigned)(v.z >= d.thresh) << (4 * j + 2);
+      bits |= (unsigned)(v.w >= d.thresh) << (4 * j + 3);
+    }
+    tab[r * stride + w] = bits;
+  }
+}
+
+// Keep bit of table row r, key column c (c below the table's 32 * words).
+__device__ __forceinline__ bool kept(const unsigned* tab, int stride, int r,
+                                     int c) {
+  return (tab[r * stride + (c >> 5)] >> (c & 31)) & 1u;
+}
+
+// Words per row of a forward / dQ table over S keys; odd, so that the 8
+// rows a fragment column reads fall in 8 banks.
+__host__ __device__ __forceinline__ int keep_stride(int S) {
+  return ((S + 31) / 32) | 1;
+}
+
+}  // namespace attn
+}  // namespace nbk

@@ -1,6 +1,6 @@
 // Tensor-core GEMMs with fused epilogues: the weight products of an
 // encoder layer's forward (QKV, attention out-projection, FFN-in,
-// FFN-out) and the two dgrad products of the FFN block's backward.
+// FFN-out) and the dgrad products of the two blocks' backwards.
 //
 // Replaces the in-kernel GEMMs of the TPU megakernels:
 //   nbest_asr_tpu/ops/fused_attention.py:_fab_fwd_kernel (:152)
@@ -14,6 +14,9 @@
 //   nbest_asr_tpu/ops/fused_ffn.py:_bwd_kernel (:224)
 //     - `dy2 @ w2^T`, drop 1, * gelu'(h) (:245-253) -> gemm_dgrad dgelu
 //     - `ds + dh @ w1^T` (:239, :251, :258)          -> gemm_dgrad residual
+//   nbest_asr_tpu/ops/fused_attention.py:_fab_bwd_kernel (:204)
+//     - dctx = `dout @ wo^T` (:232, bf16 per head :243) -> gemm_dgrad none
+//     - `ds + dqkv @ wqkv^T` (:268-269)                 -> gemm_dgrad residual
 // The TPU kernels hold both weight matrices resident in VMEM (9.4 MB for
 // the FFN pair); an SM has 227 KB of shared memory, so here each GEMM
 // streams 128x32 / 32x128 bf16 tiles of A and W through a 3-stage
@@ -44,6 +47,7 @@
 //   dgelu     : d = drop1(acc); dh = bf16(d * gelu'(f32 h)); [gd =
 //               bf16(drop1(gelu(f32 h))) regenerated and saved for dW2]
 //   dx        : bf16(ds + acc), ds the f32 residual-branch gradient
+//   dnone     : bf16(acc)
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -65,7 +69,7 @@ struct BTile {
 };
 
 enum { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_DGELU = 3,
-       EPI_DX = 4 };
+       EPI_DX = 4, EPI_DNONE = 5 };
 
 struct Epi {
   const float* bias;  // (N,) f32; null for the dgrads
@@ -138,7 +142,10 @@ __device__ __forceinline__ void epilogue_pair(const Epi& e, int row, int col,
     bits0 = (col & 2) ? w.z : w.x;
     bits1 = (col & 2) ? w.w : w.y;
   }
-  if (EPI == EPI_DX) {
+  if (EPI == EPI_DNONE) {
+    *reinterpret_cast<unsigned*>(static_cast<bf16*>(e.out) + off) =
+        pack_bf16x2(a0, a1);
+  } else if (EPI == EPI_DX) {
     const float2 r = *reinterpret_cast<const float2*>(e.addf + off);
     *reinterpret_cast<unsigned*>(static_cast<bf16*>(e.out) + off) =
         pack_bf16x2(__fadd_rn(r.x, a0), __fadd_rn(r.y, a1));
@@ -353,12 +360,13 @@ int nbk_gemm_bias_residual(const void* a, const void* w, const float* bias,
                                      static_cast<cudaStream_t>(cuda_stream));
 }
 
-// The FFN backward's dgrads, a (M, K) @ w^T with w (N, K) row-major:
+// The backwards' dgrads, a (M, K) @ w^T with w (N, K) row-major:
 // epi 0 (dgelu): out = dh (M, N) bf16 = bf16(drop(a @ w^T) * gelu'(h)),
 //   h (M, N) bf16; gd_out (M, N) bf16, if not null, receives
 //   bf16(drop(gelu(h))).
 // epi 1 (residual): out = dx (M, N) bf16 = bf16(ds + a @ w^T), ds (M, N)
 //   f32.
+// epi 2 (none): out (M, N) bf16 = bf16(a @ w^T).
 int nbk_gemm_dgrad(const void* a, const void* w, void* out, const void* h,
                    void* gd_out, const float* ds, int M, int N, int K,
                    int epi, unsigned long long seed, int stream,
@@ -372,7 +380,9 @@ int nbk_gemm_dgrad(const void* a, const void* w, void* out, const void* h,
   e.out = out;
   e.drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
   if (epi == 0) return launch<EPI_DGELU, true>(a, w, e, M, N, K, s);
-  return launch<EPI_DX, true>(a, w, e, M, N, K, s);
+  if (epi == 1) return launch<EPI_DX, true>(a, w, e, M, N, K, s);
+  if (epi == 2) return launch<EPI_DNONE, true>(a, w, e, M, N, K, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* nbk_error_string(int code) {

@@ -1,66 +1,54 @@
 // Segment-masked softmax attention per (element, head, 64-query tile),
 // reading q, k and v by column offset straight from the (n, 3h) QKV
-// buffer and writing ctx (n, h) -- no head transposes.
+// buffer and writing ctx (n, h) -- no head transposes.  Training adds the
+// Philox prob dropout and each row's softmax statistics.
 //
 // Replaces the head loop of the TPU attention-block megakernel:
 //   nbest_asr_tpu/ops/fused_attention.py:_fab_fwd_kernel (:167-180),
-//   through `_head_probs` (:103-126), at dropout rate 0.
+//   through `_head_probs` (:103-126), with its prob dropout (:175-178);
+// and the int8 serving megakernel's head loop
+//   nbest_asr_tpu/ops/int8_serving.py:_attn_i8_kernel (:169-189).
 // Contract kept: SEGMENT-mask semantics (a query attends exactly the
 // keys carrying its own mask value; pads attend pads), masked scores
 // filled with MASK_VALUE (-0.7 * FLT_MAX), a PLAIN softmax in f32 over
-// the whole row (p = exp(s - max) / sum, seq <= 512), probs rounded to
-// bf16 before P.V, f32 accumulation, ctx rounded to bf16.  Keys past the
-// sequence end are excluded outright, which is what the TPU wrapper's
-// -1 mask padding achieves (fused_attention.py:791-797).
+// the whole row (p = exp(s - max) / sum, seq <= 512), then p = keep ? p *
+// f32(1 / (1 - rate)) : 0 in f32, probs rounded to bf16 before P.V, f32
+// accumulation, ctx rounded to bf16.  Keys past the sequence end are
+// excluded outright, which is what the TPU wrapper's -1 mask padding
+// achieves (fused_attention.py:791-797).  The keep bits are Philox
+// stream 3 at row (elem * n_heads + head) * S + q, column k
+// (attention.cuh), so the backward kernels regenerate them.
 //
 // Design: the TPU kernel holds the whole (s, s) score matrix in VMEM.
 // Here a warp owns 16 query rows and the row statistics live in
 // registers: pass 1 sweeps the key tiles for the row max and sum (the
 // sum rescaled as the max grows), pass 2 recomputes the same scores
-// bit for bit, normalises them exactly, rounds to bf16 and feeds them
-// from registers straight into the P.V tensor-core MMA (the C fragment
-// of S is the A fragment of P).  Recomputing QK^T costs one extra
-// s*s*d MMA per head -- small beside the layer's GEMMs -- and keeps
-// shared memory at three 64-row tiles, so many blocks fit on an SM.
+// bit for bit, normalises them exactly, drops them, rounds to bf16 and
+// feeds them from registers straight into the P.V tensor-core MMA (the C
+// fragment of S is the A fragment of P).  Recomputing QK^T costs one
+// extra s*s*d MMA per head -- small beside the layer's GEMMs -- and keeps
+// shared memory at three 64-row tiles plus the block's keep bits (64 x S
+// bits), so many blocks fit on an SM.  The max and sum it writes (8
+// bytes a row) let the backward rebuild p without pass 1.
 //
 // What bounds it on the H100: at s <= 512 the per-head work is a few
 // MFLOP on 2*s*d*2 bytes of K and V, so latency of the small tiles and
-// the serial tile loop bound it, not HBM or tensor-core rate.
-#include <math.h>
-
-#include "common.cuh"
+// the serial tile loop bound it, not HBM or tensor-core rate; the keep
+// bits add one 10-round Philox call per four probs, drawn once per block.
+#include "attention.cuh"
 
 namespace {
 
 using namespace nbk;
+using namespace nbk::attn;
 
-constexpr int QT = 64;        // query rows per block (16 per warp)
-constexpr int KT = 64;        // keys per tile
-constexpr int THREADS = 128;  // 4 warps
-constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
+constexpr int KT = 64;  // keys per tile
 
 template <int D>
-struct Smem {
-  static constexpr int LD = D + 8;  // padded rows: ldmatrix conflict-free
-  static constexpr int TILE = QT * LD;
-  static size_t bytes(int S) {
-    return (size_t)3 * TILE * sizeof(bf16) + (size_t)S * sizeof(float);
-  }
-};
-
-// rows [r0, r0 + 64) of one head's q, k or v columns -> shared tile;
-// rows past S are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
-                                          int S, int ld) {
-  constexpr int CPR = D / 8;
-  for (int c = threadIdx.x; c < QT * CPR; c += THREADS) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const int row = r0 + r;
-    const bool ok = row < S;
-    cp_async_16(dst + r * Smem<D>::LD + col,
-                src + (size_t)(ok ? row : 0) * ld + col, ok);
-  }
+size_t smem_bytes(int S) {
+  return (size_t)3 * Tile<D>::ELEMS * sizeof(bf16) +
+         (size_t)S * sizeof(float) +
+         (size_t)ROWS * keep_stride(S) * sizeof(unsigned);
 }
 
 // Scaled, masked scores of this warp's 16 query rows against the 64 keys
@@ -73,18 +61,18 @@ __device__ __forceinline__ void tile_scores(float (&sc)[8][4],
                                             int k0, int S, float qma,
                                             float qmb, float sm_scale,
                                             int lane) {
-  constexpr int LD = Smem<D>::LD;
+  constexpr int LD = Tile<D>::LD;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
     for (int c = 0; c < 4; ++c) sc[nt][c] = 0.f;
+  // dot_nt16's products with the d-chunk loop outermost (fewer live
+  // registers); each score still accumulates over d in order, so the
+  // bits equal dot_nt16's
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
-      // K is (key, d) row-major = B^T: plain 8x8 loads give B fragments;
-      // matrices = (keys 0-7, d 0-7), (keys 0-7, d 8-15),
-      // (keys 8-15, d 0-7), (keys 8-15, d 8-15)
       unsigned kf[4];
       const int r = np * 16 + (lane & 7) + ((lane >> 4) << 3);
       const int c = kk * 16 + ((lane >> 3) & 1) * 8;
@@ -106,22 +94,30 @@ __device__ __forceinline__ void tile_scores(float (&sc)[8][4],
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+// Blocks per SM each instance is built for (registers <= 65536 / (128 x
+// blocks)): the d = 64 instances at 4 (128 registers; the serving one
+// needs 130 unbounded, which cost 20% at seq 256 on the H100), the d =
+// 128 ones where they fall unbounded.
+template <int D, bool DROP>
+__global__ void __launch_bounds__(THREADS, D == 64 ? 4 : (DROP ? 2 : 3))
     seg_attention_kernel(const bf16* __restrict__ qkv,
                          const float* __restrict__ mask,
-                         bf16* __restrict__ ctx, int S, int H,
-                         float sm_scale) {
-  constexpr int LD = Smem<D>::LD;
+                         bf16* __restrict__ ctx, float* __restrict__ stats,
+                         int S, int H, float sm_scale, DropParams drop) {
+  constexpr int LD = Tile<D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + Smem<D>::TILE;
-  bf16* sV = sK + Smem<D>::TILE;
-  float* sM = reinterpret_cast<float*>(sV + Smem<D>::TILE);
+  bf16* sK = sQ + Tile<D>::ELEMS;
+  bf16* sV = sK + Tile<D>::ELEMS;
+  float* sM = reinterpret_cast<float*>(sV + Tile<D>::ELEMS);
+  unsigned* sKeep = reinterpret_cast<unsigned*>(sM + S);
+  const int kstride = keep_stride(S);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * QT, head = blockIdx.y, elem = blockIdx.z;
+  const int q0 = blockIdx.x * ROWS, head = blockIdx.y, elem = blockIdx.z;
+  const int n_heads = gridDim.y;
   const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * n_heads + head) * S;  // Philox row of query 0
   const int ld = 3 * H;
   const bf16* q_src = qkv + row0 * ld + head * D;
   const bf16* k_src = q_src + H;
@@ -130,14 +126,13 @@ __global__ void __launch_bounds__(THREADS)
   for (int j = threadIdx.x; j < S; j += THREADS) sM[j] = mask[row0 + j];
   load_tile<D>(sQ, q_src, q0, S, ld);
   cp_async_commit();
+  if (DROP)
+    build_keep(sKeep, ROWS, (S + 31) / 32, kstride, drop, prow0 + q0, 0);
   cp_async_wait<0>();
   __syncthreads();
 
   unsigned qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qf[kk],
-                sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+  load_a<D>(qf, sQ + warp * 16 * LD, lane);
 
   const int g = lane >> 2, t4 = lane & 3;
   const int qa = q0 + warp * 16 + g, qb = qa + 8;
@@ -185,13 +180,25 @@ __global__ void __launch_bounds__(THREADS)
     la += __shfl_xor_sync(0xffffffffu, la, o);
     lb += __shfl_xor_sync(0xffffffffu, lb, o);
   }
+  if (stats != nullptr && t4 == 0) {
+    const size_t bhs = (size_t)gridDim.z * n_heads * S;
+    if (qa < S) {
+      stats[prow0 + qa] = ma;
+      stats[bhs + prow0 + qa] = la;
+    }
+    if (qb < S) {
+      stats[prow0 + qb] = mb;
+      stats[bhs + prow0 + qb] = lb;
+    }
+  }
 
-  // pass 2: the same scores, normalised, rounded to bf16, times V
+  // pass 2: the same scores, normalised, dropped, rounded to bf16, times V
   float acc[D / 8][4];
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
+  const int ra = warp * 16 + g;  // this thread's rows in the keep table
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
     load_tile<D>(sK, k_src, kt * KT, S, ld);
@@ -203,27 +210,24 @@ __global__ void __launch_bounds__(THREADS)
     tile_scores<D>(sc, qf, sK, sM, kt * KT, S, qma, qmb, sm_scale, lane);
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
-      unsigned pa[4];
-      pa[0] = pack_bf16x2(expf(sc[2 * ks][0] - ma) / la,
-                          expf(sc[2 * ks][1] - ma) / la);
-      pa[1] = pack_bf16x2(expf(sc[2 * ks][2] - mb) / lb,
-                          expf(sc[2 * ks][3] - mb) / lb);
-      pa[2] = pack_bf16x2(expf(sc[2 * ks + 1][0] - ma) / la,
-                          expf(sc[2 * ks + 1][1] - ma) / la);
-      pa[3] = pack_bf16x2(expf(sc[2 * ks + 1][2] - mb) / lb,
-                          expf(sc[2 * ks + 1][3] - mb) / lb);
+      float p[2][4];
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        // V is (key, d) row-major = B: transposed 8x8 loads;
-        // matrices = (keys 0-7, d 0-7), (keys 8-15, d 0-7),
-        // (keys 0-7, d 8-15), (keys 8-15, d 8-15)
-        unsigned vf[4];
-        const int r = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = dp * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(vf, sV + r * LD + c);
-        mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int nt = 2 * ks + j;
+          p[j][c] = c < 2 ? expf(sc[nt][c] - ma) / la
+                          : expf(sc[nt][c] - mb) / lb;
+          if (DROP) {
+            const int k = kt * KT + nt * 8 + 2 * t4 + (c & 1);
+            // the table holds keys < S; p is 0 past S anyway
+            p[j][c] = k < S && kept(sKeep, kstride, ra + (c >> 1) * 8, k)
+                          ? __fmul_rn(p[j][c], drop.inv_keep)
+                          : 0.f;
+          }
+        }
       }
+      mma_chunk<D>(acc, p, sV + ks * 16 * LD, lane);
     }
   }
 
@@ -239,19 +243,32 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int D>
-int launch(const void* qkv, const float* mask, void* ctx, int B, int S, int H,
-           int n_heads, float sm_scale, cudaStream_t stream) {
-  const size_t smem = Smem<D>::bytes(S);
+template <int D, bool DROP>
+int launch_kernel(const void* qkv, const float* mask, void* ctx, float* stats,
+                  int B, int S, int H, int n_heads, float sm_scale,
+                  const DropParams& drop, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D>(S);
   cudaError_t e = cudaFuncSetAttribute(
-      seg_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      seg_attention_kernel<D, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((S + QT - 1) / QT, n_heads, B);
-  seg_attention_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(qkv), mask, static_cast<bf16*>(ctx), S, H,
-      sm_scale);
+  dim3 grid((S + ROWS - 1) / ROWS, n_heads, B);
+  seg_attention_kernel<D, DROP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(qkv), mask, static_cast<bf16*>(ctx), stats, S,
+      H, sm_scale, drop);
   return (int)cudaGetLastError();
+}
+
+// the serving forward (no dropout) compiles without the keep-bit code
+template <int D>
+int launch(const void* qkv, const float* mask, void* ctx, float* stats,
+           int B, int S, int H, int n_heads, float sm_scale,
+           const DropParams& drop, cudaStream_t stream) {
+  if (drop.on)
+    return launch_kernel<D, true>(qkv, mask, ctx, stats, B, S, H, n_heads,
+                                  sm_scale, drop, stream);
+  return launch_kernel<D, false>(qkv, mask, ctx, stats, B, S, H, n_heads,
+                                 sm_scale, drop, stream);
 }
 
 }  // namespace
@@ -260,15 +277,23 @@ extern "C" {
 
 // qkv (B*S, 3H) bf16 with q | k | v on the column axis, mask (B, S) f32
 // segment ids -> ctx (B*S, H) bf16.  Head dim H / n_heads in {64, 128},
-// S <= 512.
-int nbk_seg_attention(const void* qkv, const float* mask, void* ctx, int B,
-                      int S, int H, int n_heads, float sm_scale,
-                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// S <= 512.  stats, if not null, is (2, B, n_heads, S) f32 and receives
+// each row's max and sum of exp.  Prob dropout when drop_on (seed, stream,
+// thresh, inv_keep as in philox.cuh).
+int nbk_seg_attention(const void* qkv, const float* mask, void* ctx,
+                      float* stats, int B, int S, int H, int n_heads,
+                      float sm_scale, unsigned long long seed, int stream,
+                      unsigned thresh, float inv_keep, int drop_on,
+                      void* cuda_stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  const DropParams drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
   const int d = H / n_heads;
-  if (d == 64) return launch<64>(qkv, mask, ctx, B, S, H, n_heads, sm_scale, s);
+  if (d == 64)
+    return launch<64>(qkv, mask, ctx, stats, B, S, H, n_heads, sm_scale, drop,
+                      s);
   if (d == 128)
-    return launch<128>(qkv, mask, ctx, B, S, H, n_heads, sm_scale, s);
+    return launch<128>(qkv, mask, ctx, stats, B, S, H, n_heads, sm_scale,
+                       drop, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,15 +10,18 @@ holds compute copies.  A GEMM kernel may instead be an int8-quantized
 ``{"q", "scale"}`` leaf (``ops/quant.py:quantize_encoder_params``).
 
 Routing per layer, as the JAX encoder routes (``encoder.py:322-443``,
-without the TPU's VMEM budget), with "lanes" meaning hidden a multiple
-of 128 and a head dim of 64 or 128 (what ``seg_attention`` takes):
+without the TPU's VMEM budget), with "lanes" meaning JAX's rule, hidden
+a multiple of 128 and a head dim a multiple of 64 (``attn_lanes_ok``),
+and "the kernels take the head dim" meaning 64 or 128
+(``attn_kernels_take``):
 
 - a quantized QKV kernel sends the attention block to
   ``ops.int8_serving.int8_attention_block`` when ``use_fused_attn`` is
-  set, the lanes hold and seq <= 512 (``use_fused_attn_eval`` is not
-  needed, as in JAX); a tensor one to ``ops.fused_attention`` when
-  ``use_fused_attn`` and ``use_fused_attn_eval`` are set, the lanes hold
-  and seq <= 512;
+  set, the lanes hold, the kernels take the head dim and seq <= 512
+  (``use_fused_attn_eval`` is not needed, as in JAX); a tensor one to
+  ``ops.fused_attention`` when ``use_fused_attn`` and
+  ``use_fused_attn_eval`` are set, the lanes hold, the kernels take the
+  head dim and seq <= 512;
 - the FFN block goes to ``ops.int8_serving.int8_ffn_block`` (quantized
   leaves) or ``ops.fused_ffn`` (tensor leaves) when ``use_fused_ffn`` is
   set and hidden and intermediate are multiples of 128;
@@ -29,14 +32,19 @@ Training (``deterministic=False``) needs an explicit ``seed``; every
 dropout site takes its own seed from it with ``philox.fold_in`` (per
 layer, then per site: 1 attention probs, 2 attention hidden, 3 FFN, and
 0xE the embeddings -- the JAX ``fold_in`` structure, ``encoder.py:201,
-315, 366-441``).  The FFN block routes to ``ops.fused_ffn`` (the kernel
-chains, Philox masks) when ``use_fused_ffn`` and the lanes hold, and
-otherwise runs the plain FFN with ``layers.dropout``.  Attention runs the
-plain path with probability and hidden dropout.  Where JAX would train
-through a kernel the port does not have yet -- the attention megakernel
-(``use_fused_attn``), flash attention, the int8 training GEMMs, the
-fused LN / GELU / embedding kernels -- the forward raises
-``NotImplementedError`` rather than run the plain path quietly.
+315, 366-441``).  The attention block routes to ``ops.fused_attention``
+(the kernel chains, Philox streams 3 and 4 under the one site-1 seed, as
+JAX's ``fold_in(lrng, 1)`` covers the whole block) where JAX routes it
+to its megakernel: ``use_fused_attn``, the lanes and seq <= 512
+(``attn_train_routes``); otherwise it runs the plain path with
+probability and hidden dropout.  The FFN block routes to
+``ops.fused_ffn`` (the kernel chains, Philox masks) when
+``use_fused_ffn`` and the lanes hold, and otherwise runs the plain FFN
+with ``layers.dropout``.  Where JAX would train through a kernel the
+port does not have -- the attention megakernel at a head dim its kernels
+do not take, flash attention, the int8 training GEMMs, the fused LN /
+GELU / embedding kernels -- the forward raises ``NotImplementedError``
+rather than run the plain path quietly.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from typing import Optional
 import torch
 
 from ..ops.attention import multi_head_attention
+from ..ops.kernels import HEAD_DIMS
 from ..ops.layers import dense, dropout, gelu, layer_norm
 from ..ops.philox import fold_in, generator
 from ..ops.quant import dense_int8, is_quantized
@@ -197,22 +206,36 @@ def _embed(params: dict, input_ids: torch.Tensor,
 
 
 def attn_lanes_ok(cfg: EncoderConfig) -> bool:
-    return cfg.hidden_size % 128 == 0 and cfg.head_dim in (64, 128)
+    """JAX's lane rule for the attention megakernels
+    (``encoder.py:322-323``)."""
+    return cfg.hidden_size % 128 == 0 and cfg.head_dim % 64 == 0
+
+
+def attn_kernels_take(cfg: EncoderConfig) -> bool:
+    """The lanes hold and the port's attention kernels take the head
+    dim."""
+    return attn_lanes_ok(cfg) and cfg.head_dim in HEAD_DIMS
+
+
+def attn_train_routes(cfg: EncoderConfig, seq: int) -> bool:
+    """JAX trains this layer's attention block through its megakernel."""
+    from ..ops.fused_attention import FAB_MAX_SEQ
+
+    return cfg.use_fused_attn and attn_lanes_ok(cfg) and seq <= FAB_MAX_SEQ
 
 
 def attn_kernel_routes(cfg: EncoderConfig, seq: int) -> bool:
-    """The bf16 attention-block kernel chain takes this layer."""
-    from ..ops.fused_attention import FAB_MAX_SEQ
-
-    return (cfg.use_fused_attn and cfg.use_fused_attn_eval
-            and attn_lanes_ok(cfg) and seq <= FAB_MAX_SEQ)
+    """The bf16 attention-block kernel chain takes this eval layer."""
+    return (cfg.use_fused_attn_eval and attn_train_routes(cfg, seq)
+            and attn_kernels_take(cfg))
 
 
 def int8_attn_kernel_routes(cfg: EncoderConfig, seq: int) -> bool:
     """The int8 attention-block kernel chain takes a quantized layer."""
     from ..ops.int8_serving import I8_MAX_SEQ
 
-    return cfg.use_fused_attn and attn_lanes_ok(cfg) and seq <= I8_MAX_SEQ
+    return (cfg.use_fused_attn and attn_kernels_take(cfg)
+            and seq <= I8_MAX_SEQ)
 
 
 def ffn_kernel_routes(cfg: EncoderConfig) -> bool:
@@ -222,17 +245,21 @@ def ffn_kernel_routes(cfg: EncoderConfig) -> bool:
 
 def _refuse_unported_training(cfg: EncoderConfig, seq: int) -> None:
     """Raise where JAX would train through a kernel the port lacks."""
-    from ..ops.fused_attention import FAB_MAX_SEQ
-
     where = "(ROADMAP.md, queue 2)"
-    if (cfg.use_fused_attn and cfg.hidden_size % 128 == 0
-            and cfg.head_dim % 64 == 0 and seq <= FAB_MAX_SEQ):
+    attn_routes = attn_train_routes(cfg, seq)
+    if attn_routes and not attn_kernels_take(cfg):
         raise NotImplementedError(
-            "training with use_fused_attn: the attention-block megakernel's "
-            "dropout forward and backward (fused_attention.py:152, :204) are "
-            f"not ported yet {where}; set use_fused_attn=False to train the "
-            "plain attention path")
-    if cfg.use_flash_attention and seq >= cfg.flash_min_seq:
+            f"training with use_fused_attn at head dim {cfg.head_dim}: JAX "
+            "routes it to the attention megakernel, whose port takes head "
+            f"dims {HEAD_DIMS} {where}; set use_fused_attn=False to train "
+            "the plain attention path")
+    if attn_routes and cfg.use_int8_train_attn:
+        raise NotImplementedError(
+            "training with use_int8_train_attn: the int8 attention training "
+            f"kernels (fused_attention.py:436, :565) are not ported yet "
+            f"{where}")
+    if (not attn_routes and cfg.use_flash_attention
+            and seq >= cfg.flash_min_seq):
         raise NotImplementedError(
             f"training with use_flash_attention at seq {seq} >= "
             f"flash_min_seq {cfg.flash_min_seq}: the flash kernels are not "
@@ -287,7 +314,7 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
     cdt = cfg.cdtype
     lp = params["layers"]
     if train:
-        attn_route = None
+        attn_route = "bf16" if attn_train_routes(cfg, s) else None
     elif is_quantized(lp["qkv_kernel"]):
         attn_route = "int8" if int8_attn_kernel_routes(cfg, s) else None
     else:
@@ -324,7 +351,10 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
                 x, p["qkv_kernel"].to(cdt), p["qkv_bias"],
                 p["attn_out_kernel"].to(cdt), p["attn_out_bias"],
                 p["attn_ln_scale"], p["attn_ln_bias"], attn_mask,
-                n_heads=nh, eps=cfg.layer_norm_eps)
+                n_heads=nh, attn_dropout=cfg.attn_dropout if train else 0.0,
+                hidden_dropout=hidden_rate,
+                seed=fold_in(lseed, 1) if train else None,
+                eps=cfg.layer_norm_eps)
         else:
             qkv = _qdense(x, p["qkv_kernel"], p["qkv_bias"], cdt)
             q, k, v = qkv.split(h, dim=-1)

@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("gemm_bias_act", "gemm_bias_residual", "layer_norm",
            "seg_attention", "quantize_rows", "gemm_i8_bias_act",
-           "gemm_i8_bias_residual", "ffn_bwd_rows", "gemm_dgrad")
+           "gemm_i8_bias_residual", "ffn_bwd_rows", "gemm_dgrad",
+           "seg_attention_bwd")
 launch_counts = {name: 0 for name in KERNELS}
 
 _lib = None
@@ -118,7 +119,8 @@ def lib() -> ctypes.CDLL:
     L.nbk_gemm_dgrad.argtypes = [p, p, p, p, p, p, i, i, i, i, *drop, p]
     L.nbk_layer_norm.argtypes = [p, p, p, p, p, p, i, i, f, p]
     L.nbk_ffn_bwd_rows.argtypes = [p] * 9 + [i, i, *drop, p]
-    L.nbk_seg_attention.argtypes = [p, p, p, i, i, i, i, f, p]
+    L.nbk_seg_attention.argtypes = [p, p, p, p, i, i, i, i, f, *drop, p]
+    L.nbk_seg_attention_bwd.argtypes = [p] * 6 + [i, i, i, i, f, *drop, p]
     L.nbk_quantize_rows.argtypes = [p, p, p, i, i, i, p]
     L.nbk_gemm_i8_bias_act.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     L.nbk_gemm_i8_bias_residual.argtypes = [p, p, p, p, p, p, p, i, i, i, p]

@@ -34,6 +34,15 @@ statistics, and adds two kernels for the backward:
                       the "dgelu" epilogue (dh and the regenerated gd)
                       or the "residual" one (dx = bf16(ds + a @ w.T))
 
+The attention block's training chain (``ops/fused_attention.py``) gives
+``seg_attention`` a Philox prob-dropout site and its row statistics,
+``gemm_dgrad`` a plain "none" epilogue (dctx = bf16(dout @ wo.T)), reuses
+``ffn_bwd_rows`` for its LayerNorm-backward rows, and adds one kernel:
+
+- ``seg_attention_bwd`` -- dqkv (n, 3h) from QKV, dctx, the mask and the
+                           forward's row statistics (a dQ kernel, then a
+                           dK/dV kernel)
+
 A wrapper given CPU tensors runs the plain version (``*_reference``).
 Given CUDA tensors it checks dtype, shape and contiguity, raises on what
 the kernel does not take, allocates the output with ``torch.empty``,
@@ -55,6 +64,7 @@ from .quant import dequant, int_dot, quantize_rows_reference
 # (nbest_asr_tpu/ops/flash_attention.py:MASK_VALUE)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_SEQ = 512                 # one-block ceiling, fused_attention.FAB_MAX_SEQ
+HEAD_DIMS = (64, 128)         # head dims the attention kernels take
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
@@ -150,6 +160,8 @@ def gemm_bias_residual_reference(a, w, bias, resid, drop=None,
 def gemm_dgrad_reference(a, w, epilogue: str, h=None, ds=None, drop=None):
     acc = acc_dtype(a.dtype)
     d = a.to(acc) @ w.to(acc).t()
+    if epilogue == "none":
+        return d.to(a.dtype)
     if epilogue == "residual":
         return (ds.to(acc) + d).to(a.dtype)
     if drop is not None:
@@ -194,23 +206,72 @@ def layer_norm_reference(s, scale, bias, eps: float, out_dtype,
     return (y, mean[:, 0], rstd[:, 0]) if stats else y
 
 
-def seg_attention_reference(qkv, mask, n_heads: int):
-    n, h3 = qkv.shape
-    h = h3 // 3
+def _scores(qkv, mask, n_heads: int):
+    """-> (q, k, v as (b, s, n_heads, d) in the accumulation dtype, the
+    scaled segment-masked scores (b, n_heads, s, s), sm_scale)."""
     b, s = mask.shape
-    d = h // n_heads
+    d = qkv.shape[1] // 3 // n_heads
     acc = acc_dtype(qkv.dtype)
-    q, k, v = qkv.reshape(b, s, 3, n_heads, d).unbind(2)
-    sc = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) \
-        * (1.0 / float(d) ** 0.5)
+    q, k, v = (t.to(acc) for t in
+               qkv.reshape(b, s, 3, n_heads, d).unbind(2))
+    sm_scale = 1.0 / float(d) ** 0.5
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm_scale
     m = mask.to(acc)
     same = m[:, None, :, None] == m[:, None, None, :]
-    sc = torch.where(same, sc, torch.tensor(MASK_VALUE, dtype=acc))
-    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", p.to(qkv.dtype).to(acc),
-                       v.to(acc))
-    return ctx.to(qkv.dtype).reshape(n, h)
+    sc = torch.where(same, sc, torch.tensor(MASK_VALUE, dtype=acc,
+                                            device=sc.device))
+    return q, k, v, sc, sm_scale
+
+
+def _drop_probs(drop, p):
+    """The stream-3 prob dropout of (b, n_heads, s, s) probs: Philox row
+    (elem * n_heads + head) * s + q, column k."""
+    return drop.apply(p.reshape(-1, p.shape[-1])).reshape(p.shape)
+
+
+def seg_attention_reference(qkv, mask, n_heads: int, drop=None,
+                            stats: bool = False):
+    """ctx = bf16(drop(softmax(scores)) rounded to bf16 @ v); with
+    ``stats`` also the row max and sum of exp, (2, b, n_heads, s)."""
+    n, h3 = qkv.shape
+    _, _, v, sc, _ = _scores(qkv, mask, n_heads)
+    mx = sc.amax(dim=-1, keepdim=True)
+    e = torch.exp(sc - mx)
+    sm = e.sum(dim=-1, keepdim=True)
+    p = e / sm
+    if drop is not None:
+        p = _drop_probs(drop, p)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", p.to(qkv.dtype).to(p.dtype), v)
+    ctx = ctx.to(qkv.dtype).reshape(n, h3 // 3)
+    if stats:
+        return ctx, torch.stack([mx[..., 0], sm[..., 0]])
+    return ctx
+
+
+def seg_attention_bwd_reference(qkv, dctx, mask, stats, n_heads: int,
+                                drop=None):
+    """dqkv (n, 3h), q | k | v columns, line by line as
+    ``nbest_asr_tpu/ops/fused_attention.py:_fab_bwd_kernel`` (:240-266),
+    with the probs rebuilt from the forward's row statistics."""
+    n, h3 = qkv.shape
+    b, s = mask.shape
+    q, k, v, sc, sm_scale = _scores(qkv, mask, n_heads)
+    acc = sc.dtype
+    p = torch.exp(sc - stats[0][..., None].to(acc)) \
+        / stats[1][..., None].to(acc)
+    do = dctx.reshape(b, s, n_heads, -1).to(acc)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    p_v = p
+    if drop is not None:
+        p_v, dp = _drop_probs(drop, p), _drop_probs(drop, dp)
+    p_vc = p_v.to(qkv.dtype).to(acc)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_vc, do)
+    di = torch.sum(dp * p, dim=-1, keepdim=True)
+    ds_a = (p * (dp - di) * sm_scale).to(qkv.dtype).to(acc)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds_a, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds_a, q)
+    dqkv = torch.stack([dq, dk, dv], dim=2).to(qkv.dtype)
+    return dqkv.reshape(n, h3)
 
 
 # --------------------------------------------------------------------- #
@@ -269,22 +330,27 @@ def gemm_bias_residual(a, w, bias, resid, drop=None,
     return (out, y2d) if save_y2d else out
 
 
+DGRAD_EPILOGUES = {"dgelu": 0, "residual": 1, "none": 2}   # nbk_gemm_dgrad
+
+
 def gemm_dgrad(a, w, epilogue: str, h=None, ds=None, drop=None):
     """``a (M, K) @ w.T`` for the forward's weight ``w`` (N, K), with the
-    FFN backward's epilogues:
+    backward's epilogues:
 
     - "dgelu": ``(dh, gd)``, dh = bf16(drop(a @ w.T) * gelu'(f32 h)) and
       gd = bf16(drop(gelu(f32 h))), for h (M, N) bf16;
-    - "residual": dx = bf16(ds + a @ w.T), for ds (M, N) f32."""
-    if epilogue not in ("dgelu", "residual"):
-        raise ValueError(f"gemm_dgrad: epilogue must be 'dgelu' or "
-                         f"'residual', got {epilogue!r}")
-    operand = h if epilogue == "dgelu" else ds
+    - "residual": dx = bf16(ds + a @ w.T), for ds (M, N) f32;
+    - "none": bf16(a @ w.T) (the attention block's dctx)."""
+    if epilogue not in DGRAD_EPILOGUES:
+        raise ValueError(f"gemm_dgrad: epilogue must be one of "
+                         f"{sorted(DGRAD_EPILOGUES)}, got {epilogue!r}")
+    operand = {"dgelu": h, "residual": ds, "none": a}[epilogue]
     if operand is None:
         raise ValueError(f"gemm_dgrad: the {epilogue!r} epilogue needs "
                          f"{'h' if epilogue == 'dgelu' else 'ds'}")
-    if epilogue == "residual" and drop is not None:
-        raise ValueError("gemm_dgrad: the residual epilogue has no dropout")
+    if epilogue != "dgelu" and drop is not None:
+        raise ValueError(f"gemm_dgrad: the {epilogue} epilogue has no "
+                         "dropout")
     if not _on_cuda("gemm_dgrad", a, w, operand):
         return gemm_dgrad_reference(a, w, epilogue, h, ds, drop)
     M, N, K = _gemm_dims("gemm_dgrad", a, w.t())
@@ -295,11 +361,11 @@ def gemm_dgrad(a, w, epilogue: str, h=None, ds=None, drop=None):
     if epilogue == "dgelu":
         _expect("gemm_dgrad", "h", h, torch.bfloat16, (M, N))
         gd = torch.empty_like(out)
-    else:
+    elif epilogue == "residual":
         _expect("gemm_dgrad", "ds", ds, torch.float32, (M, N))
     rc = _cuda.lib().nbk_gemm_dgrad(
         a.data_ptr(), w.data_ptr(), out.data_ptr(), _ptr(h), _ptr(gd),
-        _ptr(ds), M, N, K, 0 if epilogue == "dgelu" else 1,
+        _ptr(ds), M, N, K, DGRAD_EPILOGUES[epilogue],
         *_drop_args(drop), _stream(a))
     _cuda.check(rc, "gemm_dgrad")
     _cuda.launch_counts["gemm_dgrad"] += 1
@@ -307,8 +373,10 @@ def gemm_dgrad(a, w, epilogue: str, h=None, ds=None, drop=None):
 
 
 def ffn_bwd_rows(x, y2d, dy, ls, mean, rstd, drop=None):
-    """The FFN backward's row pass over (M, N) rows: ``(dy2, xhat, ds)``
-    with dy2 = bf16(drop(ds)), xhat bf16, ds f32 (see csrc/ffn_bwd.cu)."""
+    """The LayerNorm-backward row pass over (M, N) rows: ``(dy2, xhat,
+    ds)`` with dy2 = bf16(drop(ds)), xhat bf16, ds f32 (see
+    csrc/ffn_bwd.cu).  The FFN block runs it on its y2d; the attention
+    block on its od (dy2 is then dout, the out-proj output's gradient)."""
     if not _on_cuda("ffn_bwd_rows", x, y2d, dy, ls, mean, rstd):
         return ffn_bwd_rows_reference(x, y2d, dy, ls, mean, rstd, drop)
     if x.dim() != 2:
@@ -368,29 +436,66 @@ def layer_norm_rows(s, scale, bias, eps: float, out_dtype=torch.bfloat16,
     return (out, mean, rstd) if stats else out
 
 
-def seg_attention(qkv, mask, n_heads: int):
-    """(b*s, 3h) QKV + (b, s) segment mask -> ctx (b*s, h)."""
-    if not _on_cuda("seg_attention", qkv, mask):
-        return seg_attention_reference(qkv, mask, n_heads)
+def _attn_dims(name: str, qkv, mask, n_heads: int):
+    """Check the attention kernels' QKV and mask; returns (b, s, h)."""
     if qkv.dim() != 2 or mask.dim() != 2 or qkv.shape[1] % 3:
-        raise ValueError(f"seg_attention: qkv {tuple(qkv.shape)}, mask "
+        raise ValueError(f"{name}: qkv {tuple(qkv.shape)}, mask "
                          f"{tuple(mask.shape)}")
     b, s = mask.shape
     h = qkv.shape[1] // 3
-    if h % n_heads or h // n_heads not in (64, 128):
-        raise ValueError(f"seg_attention: the kernel takes head dims 64 "
-                         f"and 128, got {h}/{n_heads}")
+    if h % n_heads or h // n_heads not in HEAD_DIMS:
+        raise ValueError(f"{name}: the kernel takes head dims 64 and 128, "
+                         f"got {h}/{n_heads}")
     if s > MAX_SEQ:
-        raise ValueError(f"seg_attention: seq {s} > {MAX_SEQ}")
-    _expect("seg_attention", "qkv", qkv, torch.bfloat16, (b * s, 3 * h))
-    _expect("seg_attention", "mask", mask, torch.float32, (b, s))
+        raise ValueError(f"{name}: seq {s} > {MAX_SEQ}")
+    _expect(name, "qkv", qkv, torch.bfloat16, (b * s, 3 * h))
+    _expect(name, "mask", mask, torch.float32, (b, s))
+    return b, s, h
+
+
+def seg_attention(qkv, mask, n_heads: int, drop=None, stats: bool = False):
+    """(b*s, 3h) QKV + (b, s) segment mask -> ctx (b*s, h), with the
+    Philox prob dropout ``drop`` (stream 3) applied to the normalised f32
+    probs before their bf16 rounding; with ``stats`` also ``(ctx,
+    stats)``, stats (2, b, n_heads, s) f32 = each row's max and sum of
+    exp, from which ``seg_attention_bwd`` rebuilds the probs."""
+    if not _on_cuda("seg_attention", qkv, mask):
+        return seg_attention_reference(qkv, mask, n_heads, drop, stats)
+    b, s, h = _attn_dims("seg_attention", qkv, mask, n_heads)
     out = torch.empty((b * s, h), dtype=torch.bfloat16, device=qkv.device)
+    st = torch.empty((2, b, n_heads, s), dtype=torch.float32,
+                     device=qkv.device) if stats else None
     rc = _cuda.lib().nbk_seg_attention(
-        qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), b, s, h,
-        int(n_heads), 1.0 / float(h // n_heads) ** 0.5, _stream(qkv))
+        qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), _ptr(st), b, s, h,
+        int(n_heads), 1.0 / float(h // n_heads) ** 0.5, *_drop_args(drop),
+        _stream(qkv))
     _cuda.check(rc, "seg_attention")
     _cuda.launch_counts["seg_attention"] += 1
-    return out
+    return (out, st) if stats else out
+
+
+def seg_attention_bwd(qkv, dctx, mask, stats, n_heads: int, drop=None):
+    """The attention backward from the (b*s, 3h) QKV, the (b*s, h) bf16
+    ctx gradient, the mask and ``seg_attention``'s row statistics ->
+    dqkv (b*s, 3h) bf16, regenerating the forward's stream-3 mask (see
+    csrc/seg_attention_bwd.cu)."""
+    if not _on_cuda("seg_attention_bwd", qkv, dctx, mask, stats):
+        return seg_attention_bwd_reference(qkv, dctx, mask, stats, n_heads,
+                                           drop)
+    b, s, h = _attn_dims("seg_attention_bwd", qkv, mask, n_heads)
+    _expect("seg_attention_bwd", "dctx", dctx, torch.bfloat16, (b * s, h))
+    _expect("seg_attention_bwd", "stats", stats, torch.float32,
+            (2, b, n_heads, s))
+    dqkv = torch.empty_like(qkv)
+    di = torch.empty((b, n_heads, s), dtype=torch.float32,
+                     device=qkv.device)
+    rc = _cuda.lib().nbk_seg_attention_bwd(
+        qkv.data_ptr(), dctx.data_ptr(), mask.data_ptr(), stats.data_ptr(),
+        di.data_ptr(), dqkv.data_ptr(), b, s, h, int(n_heads),
+        1.0 / float(h // n_heads) ** 0.5, *_drop_args(drop), _stream(qkv))
+    _cuda.check(rc, "seg_attention_bwd")
+    _cuda.launch_counts["seg_attention_bwd"] += 1
+    return dqkv
 
 
 def quantize_rows(x):

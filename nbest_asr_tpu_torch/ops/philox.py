@@ -15,8 +15,18 @@ on (seed, stream, absolute row, column) instead:
 Nothing depends on how a kernel tiles its rows or columns, so a forward
 GEMM, a backward GEMM and a row pass that tile the same (n, c) matrix
 differently regenerate the same mask, and no mask is ever stored.  The
-FFN block uses stream 1 for its (n, intermediate) mask and stream 2 for
-its (n, hidden) mask.
+streams:
+
+- 1: the FFN block's (n, intermediate) mask;
+- 2: the FFN block's (n, hidden) mask;
+- 3: the attention block's prob mask, element (q, k) of head ``head`` of
+  batch element ``elem`` at row ``(elem * n_heads + head) * s + q`` and
+  column ``k`` -- the (b, n_heads, s, s) probs flattened to rows;
+- 4: the attention block's (n, hidden) out-proj mask.
+
+``elem`` and ``s`` are those of the unpadded (b, s) input.  The
+attention forward, its dQ kernel and its dK/dV kernel regenerate the
+same stream-3 mask.
 
 Philox needs the high 32 bits of a 32 x 32-bit product.  PyTorch has no
 uint32 arithmetic, and on int64 that product overflows the sign bit, so
@@ -43,6 +53,8 @@ MASK64 = 0xFFFFFFFFFFFFFFFF
 
 STREAM_INTER = 1      # the FFN's (n, intermediate) dropout
 STREAM_HIDDEN = 2     # the FFN's (n, hidden) dropout
+STREAM_ATTN_PROB = 3  # the attention probs, (b * n_heads * s, s)
+STREAM_ATTN_HIDDEN = 4  # the attention out-proj output, (n, hidden)
 
 
 def _mulhilo(a: torch.Tensor, m: int):

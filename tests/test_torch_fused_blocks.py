@@ -112,16 +112,16 @@ def test_dropout_rate_raises():
     pa = {k: _t(v) for k, v in _attn_params(rng, H).items()}
     pf = {k: _t(v) for k, v in _ffn_params(rng, H, INTER).items()}
     mask = torch.ones(2, 16)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    # both blocks train with Philox dropout (test_torch_attn_train.py,
+    # test_torch_ffn_train.py); a rate without its seed is refused
+    with pytest.raises(ValueError, match="dropout"):
         fused_attention_block(x, pa["wqkv"], pa["bqkv"], pa["wo"],
                               pa["bo"], pa["ls"], pa["lb"], mask,
                               n_heads=NH, attn_dropout=0.1)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout"):
         fused_attention_block(x, pa["wqkv"], pa["bqkv"], pa["wo"],
                               pa["bo"], pa["ls"], pa["lb"], mask,
                               n_heads=NH, hidden_dropout=0.1)
-    # the FFN block trains with Philox dropout (test_torch_ffn_train.py);
-    # a rate without its seed is refused
     with pytest.raises(ValueError, match="dropout"):
         fused_ffn_block(x, pf["w1"], pf["b1"], pf["w2"], pf["b2"],
                         pf["ls"], pf["lb"], dropout_rate=0.1)

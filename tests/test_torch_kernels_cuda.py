@@ -425,3 +425,175 @@ def test_train_wrappers_refuse_and_count(dev):
                    torch.zeros(64, device=dev), torch.ones(64, device=dev))
     assert {k: v for k, v in _cuda.launch_counts.items() if v} == {
         "gemm_dgrad": 1, "ffn_bwd_rows": 1}
+
+
+# --------------------------------------------------------------------- #
+# attention training kernels: seg_attention's prob dropout and row
+# statistics, seg_attention_bwd, the "none" dgrad epilogue.  The
+# backward's outputs are sums of bf16-rounded products of probs that the
+# kernel and the plain version compute in other orders, so they are held
+# to two bf16 ulps of the largest value and, on average, to 1/64 of the
+# mean magnitude.
+# --------------------------------------------------------------------- #
+
+def _close_rel(got, want):
+    d = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    assert d.max().item() <= 2.0 ** -6 * w.max().item()
+    assert d.mean().item() <= 2.0 ** -6 * w.mean().item()
+
+
+def _attn_mask(dev, b, s, packed):
+    mask = torch.ones(b, s)
+    if packed:
+        mask[:, s // 3: 2 * s // 3], mask[:, 2 * s // 3:] = 2.0, 0.0
+    else:
+        mask[0, s - s // 4:] = 0.0
+    return mask.to(dev)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,s,h,nh", [(3, 20, 256, 4), (2, 130, 256, 2),
+                                      (2, 512, 768, 12)])
+def test_seg_attention_dropout_and_stats(dev, b, s, h, nh, rate):
+    qkv = _rand(dev, b * s, 3 * h, std=0.5, seed=s)
+    mask = _attn_mask(dev, b, s, packed=True)
+    drop = _drop(rate, 3)
+    ctx, st = K.seg_attention(qkv, mask, nh, drop=drop, stats=True)
+    torch.cuda.synchronize()
+    rctx, rst = K.seg_attention_reference(qkv, mask, nh, drop, stats=True)
+    _close(ctx, rctx)
+    assert st.shape == (2, b, nh, s)
+    torch.testing.assert_close(st, rst, rtol=1e-5, atol=1e-6)
+    assert torch.equal(K.seg_attention(qkv, mask, nh, drop=drop), ctx)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [20, 64, 256, 512])
+def test_seg_attention_bwd(dev, s, d, packed):
+    b, nh = 2, 4
+    h = nh * d
+    qkv = _rand(dev, b * s, 3 * h, std=0.5, seed=s + d)
+    dctx = _rand(dev, b * s, h, std=0.1, seed=s + d + 1)
+    mask = _attn_mask(dev, b, s, packed)
+    drop = _drop(0.1, 3)
+    _, st = K.seg_attention(qkv, mask, nh, drop=drop, stats=True)
+    got = K.seg_attention_bwd(qkv, dctx, mask, st, nh, drop=drop)
+    torch.cuda.synchronize()
+    want = K.seg_attention_bwd_reference(qkv, dctx, mask, st, nh, drop)
+    for part in range(3):                          # dq, dk, dv
+        cols = slice(part * h, (part + 1) * h)
+        _close_rel(got[:, cols], want[:, cols])
+
+
+def test_attention_backward_regenerates_the_forward_prob_mask(dev):
+    """With one-hot V and K (row k = e_k, s = d = 64) the forward's ctx is
+    the dropped probs, the dK/dV kernel's dV (for one-hot dO) their
+    transpose, and the dQ kernel's dq (for dO = 1) is negative exactly
+    where a prob was dropped: all three equal the stream-3 keep mask."""
+    from nbest_asr_tpu_torch.ops.philox import keep_mask
+
+    b, s, nh, d = 2, 64, 2, 64
+    h = nh * d
+    qkv = _rand(dev, b * s, 3 * h, std=0.5, seed=90)
+    eye = torch.eye(s, device=dev, dtype=torch.bfloat16)
+    for hd in range(nh):
+        for part in (1, 2):
+            c0 = part * h + hd * d
+            qkv[:, c0:c0 + d] = eye.repeat(b, 1)
+    mask = torch.ones(b, s, device=dev)
+    drop = _drop(0.1, 3, seed=4321)
+    keep = keep_mask(4321, 3, 0, b * nh * s, s, 0.1, dev).reshape(b, nh, s,
+                                                                    s)
+    ctx, st = K.seg_attention(qkv, mask, nh, drop=drop, stats=True)
+    d_v = K.seg_attention_bwd(qkv, eye.repeat(b, nh).contiguous(), mask, st,
+                              nh, drop=drop)
+    d_q = K.seg_attention_bwd(qkv, torch.ones_like(ctx), mask, st, nh,
+                              drop=drop)
+    torch.cuda.synchronize()
+    fwd = ctx.reshape(b, s, nh, d).permute(0, 2, 1, 3) != 0
+    dkv = d_v[:, 2 * h:].reshape(b, s, nh, d).permute(0, 2, 3, 1) != 0
+    # a kept prob's ds is p * inv_keep * (1 - kept mass) >= 0 (~1e-10 where
+    # the whole row is kept), a dropped one's -p * inv_keep * kept mass
+    dq = d_q[:, :h].reshape(b, s, nh, d).permute(0, 2, 1, 3) > -1e-6
+    assert torch.equal(fwd, keep)
+    assert torch.equal(dkv, keep)
+    assert torch.equal(dq, keep)
+
+
+@pytest.mark.parametrize("m", [60, 8192])
+def test_gemm_dgrad_none(dev, m):
+    a = _rand(dev, m, 768, seed=95)
+    w = _rand(dev, 768, 768, std=0.05, seed=96)
+    out = K.gemm_dgrad(a, w, "none")
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (m, 768)
+    _close(out, K.gemm_dgrad_reference(a, w, "none"))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_attention_block_training_matches_autograd(dev, packed):
+    """The attention autograd Function (kernels, bf16) against torch
+    autograd through the plain block on f32 copies of the same inputs,
+    same Philox masks: the output and all seven gradients within 2% of
+    their largest value, mean within 1% of their mean magnitude."""
+    from nbest_asr_tpu_torch.ops.fused_attention import (
+        fused_attention_block, fused_attention_block_reference)
+
+    b, s = 4, 50
+    x = _rand(dev, b, s, 768, seed=100)
+    ps = [_rand(dev, 768, 3 * 768, std=0.02, seed=101),
+          _rand(dev, 3 * 768, std=0.02, dtype=torch.float32, seed=102),
+          _rand(dev, 768, 768, std=0.02, seed=103),
+          _rand(dev, 768, std=0.02, dtype=torch.float32, seed=104),
+          1 + _rand(dev, 768, std=0.1, dtype=torch.float32, seed=105),
+          _rand(dev, 768, std=0.1, dtype=torch.float32, seed=106)]
+    mask = _attn_mask(dev, b, s, packed)
+    dy = _rand(dev, b, s, 768, seed=107)
+    outs = []
+    for fn, f32 in ((fused_attention_block, False),
+                    (fused_attention_block_reference, True)):
+        args = [(t.float() if f32 else t).clone().requires_grad_(True)
+                for t in [x] + ps]
+        y = fn(*args, mask, n_heads=12, attn_dropout=0.1,
+               hidden_dropout=0.1, seed=5)
+        y.backward(dy.float() if f32 else dy)
+        outs.append([y.detach()] + [a.grad for a in args])
+    for got, want in zip(*outs):
+        assert got.dtype == (torch.float32 if want.dim() == 1
+                             else torch.bfloat16)
+        d = (got.float() - want).abs()
+        assert d.max().item() <= 2e-2 * want.abs().max().item()
+        assert d.mean().item() <= 1e-2 * want.abs().mean().item()
+
+
+def test_attention_train_wrappers_refuse_and_count(dev):
+    from nbest_asr_tpu_torch.ops.fused_attention import fused_attention_block
+
+    qkv = _rand(dev, 64, 3 * 256)
+    mask = torch.ones(2, 32, device=dev)
+    _, st = K.seg_attention(qkv, mask, 4, stats=True)
+    with pytest.raises(TypeError):
+        K.seg_attention_bwd(qkv, qkv[:, :256].float().contiguous(), mask,
+                            st, 4)
+    with pytest.raises(ValueError, match="shape"):
+        K.seg_attention_bwd(qkv, qkv[:, :256].contiguous(), mask, st[:, :1],
+                            4)
+    with pytest.raises(ValueError, match="head dims"):
+        K.seg_attention_bwd(qkv, qkv[:, :256].contiguous(), mask, st, 8)
+    with pytest.raises(ValueError, match="no dropout"):
+        K.gemm_dgrad(qkv[:, :256].contiguous(), _rand(dev, 256, 256), "none",
+                     drop=_drop(0.1, 4))
+    x = _rand(dev, 2, 32, 256).requires_grad_(True)
+    w = [_rand(dev, 256, 768), torch.zeros(768, device=dev),
+         _rand(dev, 256, 256), torch.zeros(256, device=dev),
+         torch.ones(256, device=dev), torch.zeros(256, device=dev)]
+    _cuda.reset_launch_counts()
+    y = fused_attention_block(x, *w, mask, n_heads=4, attn_dropout=0.1,
+                              hidden_dropout=0.1, seed=3)
+    y.backward(torch.ones_like(y))
+    assert {k: v for k, v in _cuda.launch_counts.items() if v} == {
+        "gemm_bias_act": 1, "seg_attention": 1, "gemm_bias_residual": 1,
+        "layer_norm": 1, "ffn_bwd_rows": 1, "gemm_dgrad": 2,
+        "seg_attention_bwd": 1}

@@ -2,11 +2,14 @@
 the same bridged parameters, batch and BertAdam settings at dropout 0,
 three steps (step 0 trains at lr 0 under the warmup-linear schedule, so
 one step would compare zero deltas), two accumulated micros per step,
-one with a padding-sentinel row.  Two configurations: a hidden-64 model
-on the plain route, and a hidden-128 model whose FFN blocks take the
+one with a padding-sentinel row.  Three configurations: a hidden-64
+model on the plain route, a hidden-128 model whose FFN blocks take the
 fused route (``use_fused_ffn=True, use_fused_attn=False``; JAX runs its
 Pallas FFN in interpret mode, the port its kernels' plain versions and
-the FFN autograd Function), plus a packed-micro case.
+the FFN autograd Function), and the same model with both blocks fused
+(``use_fused_attn=True`` as well: JAX's attention megakernel against the
+port's attention Function), each fused configuration also on packed
+micros.
 
 Tolerances, f32 on both sides: loss parts 1e-5 relative and per-leaf
 parameter deltas 1e-3 of the leaf's largest delta (summation order and
@@ -53,6 +56,8 @@ CONFIGS = {
     "plain": dict(hidden_size=64, num_heads=4, intermediate_size=128),
     "fused_ffn": dict(hidden_size=128, num_heads=2, intermediate_size=256,
                       use_fused_ffn=True, use_fused_attn=False),
+    "fused_attn": dict(hidden_size=128, num_heads=2, intermediate_size=256,
+                       use_fused_ffn=True, use_fused_attn=True),
 }
 
 
@@ -173,18 +178,26 @@ def test_three_steps_match_jax(name, tiny_memory):
     _compare(params, jparams, jstats, tstate, tstats)
 
 
-def test_packed_micros_match_jax(tiny_memory):
-    jcfg, tcfg = _configs(tiny_memory, "fused_ffn")
+def _packed_micros_match_jax(memory, name):
+    jcfg, tcfg = _configs(memory, name)
     params = jax.device_get(j_init(jax.random.PRNGKey(4), jcfg))
-    host = _host_data(tiny_memory, 30, seed=2)
+    host = _host_data(memory, 30, seed=2)
     for k in ("attn_mask", "trans_attn_mask"):
         host[k][:, SEQ // 2:] = 0.0            # short rows pack well
     packed, _ = pack_train_data(host, capacity=SEQ, max_segs=3)
     n = packed["input_ids"].shape[0]
     idx = _step_indices(n)
-    jparams, jstats = _run_jax(jcfg, tiny_memory, params, packed, idx)
-    tstate, tstats = _run_port(tcfg, tiny_memory, params, packed, idx)
+    jparams, jstats = _run_jax(jcfg, memory, params, packed, idx)
+    tstate, tstats = _run_port(tcfg, memory, params, packed, idx)
     _compare(params, jparams, jstats, tstate, tstats)
+
+
+def test_packed_micros_match_jax(tiny_memory):
+    _packed_micros_match_jax(tiny_memory, "fused_ffn")
+
+
+def test_packed_micros_fused_attn_match_jax(tiny_memory):
+    _packed_micros_match_jax(tiny_memory, "fused_attn")
 
 
 def test_dropout_step_is_seeded(tiny_memory):
@@ -221,9 +234,14 @@ def test_eval_step_and_training_refusals(tiny_memory):
     opt = make_optimizer(OptimizerConfig(**OPT), params)
     state = TrainState(params, opt.init(params), 0)
     gen = torch.Generator().manual_seed(0)
-    for flag in ("use_fused_attn", "use_flash_attention", "use_int8_train"):
+    refused = [dict(use_flash_attention=True), dict(use_int8_train=True),
+               dict(use_fused_attn=True, use_int8_train_attn=True),
+               # JAX routes head dim 192 to its megakernel; the port's
+               # attention kernels take 64 and 128
+               dict(use_fused_attn=True, hidden_size=384)]
+    for flags in refused:
         cfg = dataclasses.replace(tcfg, encoder=dataclasses.replace(
-            tcfg.encoder, flash_min_seq=16, **{flag: True}))
+            tcfg.encoder, flash_min_seq=16, **flags))
         step = make_train_step(cfg, LossConfig(), opt, hier, n_accum=1,
                                dual_stream=False)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
