@@ -50,7 +50,16 @@ Phases, each fatal on failure:
    exactly the stream-3 probs -- and each whole block, forward and all
    seven gradients, against torch autograd through the plain block.
    Per training layer: kernel, plain, library and bound ms; each block's
-   forward + backward per bucket.
+   forward + backward per bucket.  The int8 training chains likewise, on
+   the same Philox bits and weights quantized as a training step
+   quantizes them: ``quantize_rows``, the dropout / saved-residual
+   epilogues of ``gemm_i8_bias_act`` and ``gemm_i8_bias_residual``,
+   ``quantize_grad_rows`` and the three ``gemm_i8_dgrad`` epilogues bit for
+   bit (the GELU / gelu' epilogues within one bf16 ulp, the f32 dh within
+   1e-6 of its largest value), the backward's regenerated gd equal to the
+   forward's; each int8 block on both backwards, forward and seven
+   gradients, against the same Function on the kernels' plain versions;
+   the d = 192 and 256 attention instances against their plain versions.
 6. The training slice: ``make_train_step`` on seed-0 BERT-base weights
    (bf16 compute, f32 masters, dropout 0.1, ``use_fused_ffn=True``,
    ``use_fused_attn=True``) over the synthetic hierarchy, n_accum 2,
@@ -67,6 +76,15 @@ Phases, each fatal on failure:
    Prints step ms per bucket (CUDA events), train utt/s, both blocks'
    fwd + bwd ms and their share of the step, the plain attention path's
    ms, and the peak memory.
+7. The int8 training slice: the same, on JAX's shipped int8 training
+   configuration (``NBEST_BENCH_INT8=2``: ``use_int8_train``,
+   ``use_int8_train_attn``, ``use_int8_train_bwd`` as well), counters by
+   ``PER_LAYER_TRAIN_I8``, and one counted step without
+   ``use_int8_train_bwd`` (``NBEST_BENCH_INT8=1``) by
+   ``PER_LAYER_TRAIN_I8_FWD``; at dropout 0 one kernel step against the
+   same step with both int8 blocks on their kernels' plain versions; the
+   30-step loss halving; step ms, utt/s, int8 block ms and peak memory
+   beside the bf16 step's, and the per-step weight quantization's ms.
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
@@ -102,6 +120,8 @@ KERNEL_SOURCES = {
     "ffn_bwd_rows": "nbest_asr_tpu_torch/csrc/ffn_bwd.cu",
     "gemm_dgrad": "nbest_asr_tpu_torch/csrc/gemm.cu",
     "seg_attention_bwd": "nbest_asr_tpu_torch/csrc/seg_attention_bwd.cu",
+    "quantize_grad_rows": "nbest_asr_tpu_torch/csrc/quant_rows.cu",
+    "gemm_i8_dgrad": "nbest_asr_tpu_torch/csrc/gemm_i8.cu",
 }
 FAB = "nbest_asr_tpu/ops/fused_attention.py:152"
 FFN = "nbest_asr_tpu/ops/fused_ffn.py:166"
@@ -109,6 +129,10 @@ I8A = "nbest_asr_tpu/ops/int8_serving.py:157"
 I8F = "nbest_asr_tpu/ops/int8_serving.py:90"
 FFB = "nbest_asr_tpu/ops/fused_ffn.py:224"
 FAB_B = "nbest_asr_tpu/ops/fused_attention.py:204"
+FFI8 = "nbest_asr_tpu/ops/fused_ffn.py:404"
+FFI8_B = "nbest_asr_tpu/ops/fused_ffn.py:533"
+FAI8 = "nbest_asr_tpu/ops/fused_attention.py:436"
+FAI8_B = "nbest_asr_tpu/ops/fused_attention.py:565"
 KERNEL_REPLACES = {
     "gemm_bias_act": f"{FAB} (QKV GEMM) + {FFN} (W1 GEMM + GELU + "
                      "dropout, _gelu_slice :153)",
@@ -129,8 +153,22 @@ KERNEL_REPLACES = {
                   f"w1^T :239, :251, :258) + {FAB_B} (dout @ wo^T :232; "
                   "ds + dqkv @ wqkv^T :268-269)",
     "seg_attention_bwd": f"{FAB_B} (head loop: probs, dp, dv, di, ds, dq, "
-                         "dk :235-266)",
+                         f"dk :235-266) + {FAI8_B} (head loop :601-631)",
+    "quantize_grad_rows": f"{FFI8_B} (_dgrad_rows_i8 :523-527 on drop2(ds) "
+                          f"and dh) + {FAI8_B} (on drop_h(ds) :597, dqkv "
+                          ":633)",
+    "gemm_i8_dgrad": f"{FFI8_B} (dy2 @ W2^T, drop, gelu' :562-566; ds + dh "
+                     f"@ W1^T :568) + {FAI8_B} (dout @ Wo^T :597; ds + dqkv "
+                     "@ Wqkv^T :633-635)",
 }
+KERNEL_REPLACES["quantize_rows"] += (f" + {FFI8} (_quant_rows_f32 on x, gd "
+                                     f":417, :424) + {FAI8} (on x, ctx :454, "
+                                     ":471)")
+KERNEL_REPLACES["gemm_i8_bias_act"] += (f" + {FFI8} (W1, GELU, drop1 "
+                                        f":417-422) + {FAI8} (QKV :454)")
+KERNEL_REPLACES["gemm_i8_bias_residual"] += (f" + {FFI8} (W2, drop2, y2d "
+                                             f":424-431) + {FAI8} (out-proj, "
+                                             "hidden drop, od :471-478)")
 # launches of each kernel per encoder layer on the routed bf16 and int8
 # paths (ops/fused_*.py, ops/int8_serving.py); every other kernel 0
 PER_LAYER = {"gemm_bias_act": 2, "gemm_bias_residual": 2, "layer_norm": 2,
@@ -146,6 +184,19 @@ PER_LAYER_TRAIN = {"gemm_bias_act": 2, "gemm_bias_residual": 2,
                    "seg_attention": 1, "seg_attention_bwd": 1}
 PER_LAYER_TRAIN_FFN = {"gemm_bias_act": 1, "gemm_bias_residual": 1,
                        "layer_norm": 1, "ffn_bwd_rows": 1, "gemm_dgrad": 2}
+# ... on the int8 training routes: with the int8 backwards (JAX's shipped
+# NBEST_BENCH_INT8=2) and with the bf16 backwards (NBEST_BENCH_INT8=1,
+# which recompute h, qkv and the attention in bf16)
+PER_LAYER_TRAIN_I8 = {"quantize_rows": 4, "gemm_i8_bias_act": 2,
+                      "gemm_i8_bias_residual": 2, "layer_norm": 2,
+                      "seg_attention": 1, "ffn_bwd_rows": 2,
+                      "quantize_grad_rows": 4, "gemm_i8_dgrad": 4,
+                      "seg_attention_bwd": 1}
+PER_LAYER_TRAIN_I8_FWD = {"quantize_rows": 4, "gemm_i8_bias_act": 2,
+                          "gemm_i8_bias_residual": 2, "layer_norm": 2,
+                          "seg_attention": 2, "ffn_bwd_rows": 2,
+                          "gemm_bias_act": 2, "gemm_dgrad": 4,
+                          "seg_attention_bwd": 1}
 # training micro rows per bucket under the 8192-token budget
 # (nbest_asr_tpu/train/loop.py:430)
 TRAIN_MICRO = {64: 128, 96: 80, 160: 48, 256: 32}
@@ -1057,6 +1108,166 @@ def check_prob_mask_probe(K, dev):
                                  "forward's prob mask")
 
 
+def train_int8_weights(p):
+    """The four GEMM weights quantized as an int8 training step quantizes
+    them (quant.quantize_train_weight): (q column-major, q row-major,
+    scale (out,))."""
+    from nbest_asr_tpu_torch.ops.quant import quantize_train_weight
+
+    return {k: quantize_train_weight(p[k]) for k in ("w1", "w2", "wqkv",
+                                                     "wo")}
+
+
+def check_int8_train_chain(K, p, q8, x, mask_list, dy2, seed, check):
+    """Each int8 training kernel and epilogue of both blocks against its
+    plain version with the same Philox bits, on the kernels' own
+    intermediates; returns them (first mask) for the timings."""
+    from nbest_asr_tpu_torch.ops.philox import keep_mask, site
+
+    b, s, _ = x.shape
+    n = b * s
+    x2 = x.reshape(n, H)
+    tag = f"n {n}"
+    d1, d2 = site(seed, DROPOUT, 1), site(seed, DROPOUT, 2)
+    da, dh = site(seed, DROPOUT, 3), site(seed, DROPOUT, 4)
+    (w1q, w1r, w1s), (w2q, w2r, w2s) = q8["w1"], q8["w2"]
+    (aq, ar, a_s), (oq, orr, o_s) = q8["wqkv"], q8["wo"]
+    k1 = keep_mask(seed, 1, 0, n, INTER, DROPOUT, x.device)
+    k4 = keep_mask(seed, 4, 0, n, H, DROPOUT, x.device)
+
+    def quant(name, kernel, got, want):
+        torch.cuda.synchronize()
+        check.exact(f"{kernel} {name} q {tag}", kernel, got[0], want[0])
+        check.exact(f"{kernel} {name} scale {tag}", kernel, got[1], want[1])
+        return got
+
+    # FFN forward and int8 backward
+    xq = quant("x", "quantize_rows", K.quantize_rows(x2),
+               K.quantize_rows_reference(x2))
+    h, gd = K.gemm_i8_bias_act(*xq, w1q, w1s, p["b1"], "gelu", drop=d1,
+                               save_h=True)
+    torch.cuda.synchronize()
+    rh, rgd = K.gemm_i8_bias_act_reference(*xq, w1q, w1s, p["b1"], "gelu",
+                                           torch.bfloat16, d1, True)
+    check.exact(f"train gemm_i8_bias_act h {tag}", "gemm_i8_bias_act", h, rh)
+    check.exact(f"train gemm_i8_bias_act gd = drop1(gelu(h)) {tag}",
+                "gemm_i8_bias_act", gd, rgd, bf16_ulps=1)
+    if not bool((gd[~k1] == 0).all()):
+        raise AssertionError("gemm_i8_bias_act: a dropped element survived")
+    gq = quant("gd", "quantize_rows", K.quantize_rows(gd),
+               K.quantize_rows_reference(gd))
+    sres, y2d = K.gemm_i8_bias_residual(*gq, w2q, w2s, p["b2"], x2, drop=d2,
+                                        save_y2d=True)
+    torch.cuda.synchronize()
+    rs, ry2d = K.gemm_i8_bias_residual_reference(*gq, w2q, w2s, p["b2"], x2,
+                                                 d2, True)
+    check.exact(f"train gemm_i8_bias_residual sum {tag}",
+                "gemm_i8_bias_residual", sres, rs)
+    check.exact(f"train gemm_i8_bias_residual y2d {tag}",
+                "gemm_i8_bias_residual", y2d, ry2d)
+    _, mean, rstd = K.layer_norm_rows(sres, p["ls"], p["lb"], 1e-12,
+                                      stats=True)
+    _, _, ds = K.ffn_bwd_rows(x2, y2d, dy2, p["ls"], mean, rstd, drop=d2)
+    g1 = quant("drop2(ds) * w2 scale", "quantize_grad_rows",
+               K.quantize_grad_rows(ds, w2s, d2),
+               K.quantize_grad_rows_reference(ds, w2s, d2))
+    dhb, dh32, gd_b = K.gemm_i8_dgrad(*g1, w2r, "dgelu", h=h, drop=d1)
+    torch.cuda.synchronize()
+    rdh, rdh32, _ = K.gemm_i8_dgrad_reference(*g1, w2r, "dgelu", h=h,
+                                              drop=d1)
+    check.exact(f"gemm_i8_dgrad dgelu dh {tag}", "gemm_i8_dgrad", dhb, rdh,
+                bf16_ulps=1)
+    check.rel(f"gemm_i8_dgrad dgelu f32 dh {tag}", "gemm_i8_dgrad", dh32,
+              rdh32, 1e-6)
+    check.exact(f"gemm_i8_dgrad regenerated gd == forward gd {tag}",
+                "gemm_i8_dgrad", gd_b, gd)
+    g2 = quant("dh * w1 scale", "quantize_grad_rows",
+               K.quantize_grad_rows(dh32, w1s),
+               K.quantize_grad_rows_reference(dh32, w1s))
+    dx = K.gemm_i8_dgrad(*g2, w1r, "residual", ds=ds)
+    torch.cuda.synchronize()
+    check.exact(f"gemm_i8_dgrad residual dx {tag}", "gemm_i8_dgrad", dx,
+                K.gemm_i8_dgrad_reference(*g2, w1r, "residual", ds=ds))
+    out = dict(xq=xq, h=h, gd=gd, gq=gq, ds_f=ds, g1=g1, dh32=dh32, g2=g2,
+               d1=d1, d2=d2)
+    # attention forward and int8 backward, per mask
+    qkv = K.gemm_i8_bias_act(*xq, aq, a_s, p["bqkv"])
+    torch.cuda.synchronize()
+    check.exact(f"train gemm_i8_bias_act qkv {tag}", "gemm_i8_bias_act", qkv,
+                K.gemm_i8_bias_act_reference(*xq, aq, a_s, p["bqkv"]))
+    for mname, m in mask_list:
+        mtag = f"{tag} {mname}"
+        ctx, st = K.seg_attention(qkv, m, NH, drop=da, stats=True)
+        cq = quant(f"ctx {mname}", "quantize_rows", K.quantize_rows(ctx),
+                   K.quantize_rows_reference(ctx))
+        sres, od = K.gemm_i8_bias_residual(*cq, oq, o_s, p["bo"], x2,
+                                           drop=dh, save_y2d=True)
+        torch.cuda.synchronize()
+        rs, rod = K.gemm_i8_bias_residual_reference(*cq, oq, o_s, p["bo"],
+                                                    x2, dh, True)
+        check.exact(f"train gemm_i8_bias_residual out-proj sum {mtag}",
+                    "gemm_i8_bias_residual", sres, rs)
+        check.exact(f"train gemm_i8_bias_residual od {mtag}",
+                    "gemm_i8_bias_residual", od, rod)
+        _, mean, rstd = K.layer_norm_rows(sres, p["ls"], p["lb"], 1e-12,
+                                          stats=True)
+        _, _, ds = K.ffn_bwd_rows(x2, od, dy2, p["ls"], mean, rstd, drop=dh)
+        g3 = quant(f"drop_h(ds) * wo scale {mname}", "quantize_grad_rows",
+                   K.quantize_grad_rows(ds, o_s, dh),
+                   K.quantize_grad_rows_reference(ds, o_s, dh))
+        if not bool((g3[0][~k4] == 0).all()):
+            raise AssertionError("quantize_grad_rows: a dropped element "
+                                 "survived")
+        dctx = K.gemm_i8_dgrad(*g3, orr, "none")
+        torch.cuda.synchronize()
+        check.exact(f"gemm_i8_dgrad none dctx {mtag}", "gemm_i8_dgrad", dctx,
+                    K.gemm_i8_dgrad_reference(*g3, orr, "none"))
+        dqkv = K.seg_attention_bwd(qkv, dctx, m, st, NH, drop=da)
+        g4 = quant(f"dqkv * wqkv scale {mname}", "quantize_grad_rows",
+                   K.quantize_grad_rows(dqkv, a_s),
+                   K.quantize_grad_rows_reference(dqkv, a_s))
+        dxa = K.gemm_i8_dgrad(*g4, ar, "residual", ds=ds)
+        torch.cuda.synchronize()
+        check.exact(f"gemm_i8_dgrad residual dx {mtag}", "gemm_i8_dgrad",
+                    dxa, K.gemm_i8_dgrad_reference(*g4, ar, "residual",
+                                                   ds=ds))
+        if "ctx" not in out:
+            out.update(ctx=ctx, cq=cq, ds_a=ds, g3=g3, dqkv=dqkv, g4=g4,
+                       dh_site=dh)
+    return out
+
+
+def check_wide_heads(K, dev, check):
+    """The attention kernels' d = 192 and 256 instances (head dims JAX
+    sends to its megakernels, e.g. hidden 384 with 2 heads) against their
+    plain versions: forward with prob dropout and statistics, and the
+    backward."""
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    gen = torch.Generator().manual_seed(8)
+    b, s, nh = 8, 160, 2
+    for d in (192, 256):
+        h = nh * d
+        qkv = (torch.randn(b * s, 3 * h, generator=gen) * 0.5).to(
+            dev, torch.bfloat16)
+        dctx = (torch.randn(b * s, h, generator=gen) * 0.1).to(
+            dev, torch.bfloat16)
+        mask = masks(b, s, gen, dev)[1]
+        drop = site(99, DROPOUT, 3)
+        ctx, st = K.seg_attention(qkv, mask, nh, drop=drop, stats=True)
+        dqkv = K.seg_attention_bwd(qkv, dctx, mask, st, nh, drop=drop)
+        torch.cuda.synchronize()
+        rctx, rst = K.seg_attention_reference(qkv, mask, nh, drop, True)
+        check(f"seg_attention d {d}", "seg_attention", ctx, rctx, False)
+        check.rel(f"seg_attention d {d} row sum", "seg_attention", st[1],
+                  rst[1], 1e-5)
+        rdqkv = K.seg_attention_bwd_reference(qkv, dctx, mask, st, nh, drop)
+        for i, part in enumerate("qkv"):
+            cols = slice(i * h, (i + 1) * h)
+            check.sums(f"seg_attention_bwd d {d} d{part}",
+                       "seg_attention_bwd", dqkv[:, cols], rdqkv[:, cols])
+
+
 def block_grads(fn, names, x, p, dy, f32: bool, *extra, **kw):
     """Output and gradients of a block ``fn`` over x and the weights
     ``names`` of ``p`` (f32 copies with ``f32``); ``extra`` and ``kw``
@@ -1126,6 +1337,36 @@ def train_layer_bounds(M: int, b: int, s: int):
     }
 
 
+def train_int8_layer_bounds(M: int):
+    """Per int8 training layer at M rows (route 2: int8 forwards and
+    backwards): each new kernel's bound over all its launches in both
+    blocks, from the shapes."""
+    i, h3 = INTER, 3 * H
+    quant = [bound(3.0 * M * k, M * k * w + M * k + M * 4, "f32")
+             for k, w in ((H, 2), (H, 2), (H, 2), (i, 2))]
+    gquant = [bound(5.0 * M * k, M * k * w + k * 4 + M * k + M * 4, "f32")
+              for k, w in ((H, 4), (i, 4), (H, 4), (h3, 2))]
+
+    def gb(m, n, k, extra):
+        return gemm_bound(m, n, k, extra, "s8")
+
+    return {
+        "quantize_rows [train]": bound_sum(quant),
+        "quantize_grad_rows": bound_sum(gquant),
+        "gemm_i8_bias_act [train]": bound_sum([
+            gb(M, i, H, M * 4 + i * 8 + 2 * M * i * 2),
+            gb(M, h3, H, M * 4 + h3 * 8 + M * h3 * 2)]),
+        "gemm_i8_bias_residual [train]": bound_sum([
+            gb(M, H, i, M * 4 + H * 8 + M * H * 8),
+            gb(M, H, H, M * 4 + H * 8 + M * H * 8)]),
+        "gemm_i8_dgrad": bound_sum([
+            gb(M, i, H, M * 4 + M * i * 10),
+            gb(M, H, i, M * 4 + M * H * 6),
+            gb(M, H, H, M * 4 + M * H * 2),
+            gb(M, H, h3, M * 4 + M * H * 6)]),
+    }
+
+
 def attention_library_calls(a, b, s):
     """F.scaled_dot_product_attention with the boolean segment mask and
     prob dropout: forward (seg_attention's yardstick) and forward +
@@ -1153,16 +1394,24 @@ def phase_train_kernels(dev, card: str):
     from nbest_asr_tpu_torch.ops import kernels as K
     from nbest_asr_tpu_torch.ops.fused_attention import (
         fused_attention_block, fused_attention_block_reference)
-    from nbest_asr_tpu_torch.ops.fused_ffn import (fused_ffn_block,
-                                                   fused_ffn_block_reference)
+    from nbest_asr_tpu_torch.ops.fused_ffn import (
+        fused_ffn_block, fused_ffn_block_int8_train,
+        fused_ffn_block_int8_train_reference, fused_ffn_block_reference)
+    from nbest_asr_tpu_torch.ops.fused_attention import (
+        fused_attention_block_int8_train,
+        fused_attention_block_int8_train_reference)
+    from nbest_asr_tpu_torch.ops.quant import quantize_train_weight
 
     F = torch.nn.functional
     p, rn = train_weights(dev, 2)
+    q8 = train_int8_weights(p)
     gen = torch.Generator().manual_seed(6)
     check = Checker()
     times = {}
     log("[train-kernels] the backward's prob mask, one-hot probe")
     check_prob_mask_probe(K, dev)
+    log("[train-kernels] attention kernels at head dims 192 and 256")
+    check_wide_heads(K, dev, check)
     for b, s in ((3, 20), (80, 96), (32, 256)):
         n = b * s
         log(f"[train-kernels] n {n} rows ({b} x {s}), dropout {DROPOUT}")
@@ -1173,8 +1422,104 @@ def phase_train_kernels(dev, card: str):
         a = check_attn_train_chain(K, p, x, (("padded", pad),
                                              ("packed", packed)),
                                    dy2, seed=2000 + n, check=check)
+        log(f"[train-kernels] int8 training chains, n {n}")
+        q = check_int8_train_chain(K, p, q8, x, (("padded", pad),
+                                                 ("packed", packed)),
+                                   dy2, seed=3000 + n, check=check)
         if n != 8192:
             continue
+        # each int8 block, both backwards, forward and all gradients,
+        # against the same Function on the kernels' plain versions
+        for int8_bwd in (False, True):
+            route = "int8 bwd" if int8_bwd else "bf16 bwd"
+            hold_block(f"int8 ffn block ({route})", *(
+                block_grads(fn, FFN_NAMES, x2, p, dy2, False,
+                            int8_bwd=int8_bwd, **FFN_KW)
+                for fn in (fused_ffn_block_int8_train,
+                           fused_ffn_block_int8_train_reference)),
+                ("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb"))
+            for mname, m in (("padded", pad), ("packed", packed)):
+                hold_block(f"int8 attention block ({route}) {mname}", *(
+                    block_grads(fn, ATTN_NAMES, x, p, dy, False, m,
+                                int8_bwd=int8_bwd, **ATTN_KW)
+                    for fn in (fused_attention_block_int8_train,
+                               fused_attention_block_int8_train_reference)),
+                    ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dls", "dlb"))
+        (w1q, w1r, w1s), (w2q, w2r, w2s) = q8["w1"], q8["w2"]
+        (aq, ar, a_s), (oq, orr, o_s) = q8["wqkv"], q8["wo"]
+        # per int8 training layer (route 2): every launch of each new
+        # kernel or epilogue in both blocks; library: torch._int_mm (the
+        # integer product alone)
+        ti8 = {
+            "quantize_rows [train]": (
+                lambda: [K.quantize_rows(t) for t in (x2, q["ctx"], x2,
+                                                      q["gd"])],
+                lambda: [K.quantize_rows_reference(t)
+                         for t in (x2, q["ctx"], x2, q["gd"])], None),
+            "quantize_grad_rows": (
+                lambda: (K.quantize_grad_rows(q["ds_f"], w2s, q["d2"]),
+                         K.quantize_grad_rows(q["dh32"], w1s),
+                         K.quantize_grad_rows(q["ds_a"], o_s, q["dh_site"]),
+                         K.quantize_grad_rows(q["dqkv"], a_s)),
+                lambda: (K.quantize_grad_rows_reference(q["ds_f"], w2s,
+                                                        q["d2"]),
+                         K.quantize_grad_rows_reference(q["dh32"], w1s),
+                         K.quantize_grad_rows_reference(q["ds_a"], o_s,
+                                                        q["dh_site"]),
+                         K.quantize_grad_rows_reference(q["dqkv"], a_s)),
+                None),
+            "gemm_i8_bias_act [train]": (
+                lambda: (K.gemm_i8_bias_act(*q["xq"], w1q, w1s, p["b1"],
+                                            "gelu", drop=q["d1"],
+                                            save_h=True),
+                         K.gemm_i8_bias_act(*q["xq"], aq, a_s, p["bqkv"])),
+                lambda: (K.gemm_i8_bias_act_reference(
+                    *q["xq"], w1q, w1s, p["b1"], "gelu", torch.bfloat16,
+                    q["d1"], True),
+                         K.gemm_i8_bias_act_reference(*q["xq"], aq, a_s,
+                                                      p["bqkv"])),
+                lambda: (torch._int_mm(q["xq"][0], w1q),
+                         torch._int_mm(q["xq"][0], aq))),
+            "gemm_i8_bias_residual [train]": (
+                lambda: (K.gemm_i8_bias_residual(*q["gq"], w2q, w2s, p["b2"],
+                                                 x2, drop=q["d2"],
+                                                 save_y2d=True),
+                         K.gemm_i8_bias_residual(*q["cq"], oq, o_s, p["bo"],
+                                                 x2, drop=q["dh_site"],
+                                                 save_y2d=True)),
+                lambda: (K.gemm_i8_bias_residual_reference(
+                    *q["gq"], w2q, w2s, p["b2"], x2, q["d2"], True),
+                         K.gemm_i8_bias_residual_reference(
+                             *q["cq"], oq, o_s, p["bo"], x2, q["dh_site"],
+                             True)),
+                lambda: (torch._int_mm(q["gq"][0], w2q),
+                         torch._int_mm(q["cq"][0], oq))),
+            "gemm_i8_dgrad": (
+                lambda: (K.gemm_i8_dgrad(*q["g1"], w2r, "dgelu", h=q["h"],
+                                         drop=q["d1"]),
+                         K.gemm_i8_dgrad(*q["g2"], w1r, "residual",
+                                         ds=q["ds_f"]),
+                         K.gemm_i8_dgrad(*q["g3"], orr, "none"),
+                         K.gemm_i8_dgrad(*q["g4"], ar, "residual",
+                                         ds=q["ds_a"])),
+                lambda: (K.gemm_i8_dgrad_reference(*q["g1"], w2r, "dgelu",
+                                                   h=q["h"], drop=q["d1"]),
+                         K.gemm_i8_dgrad_reference(*q["g2"], w1r, "residual",
+                                                   ds=q["ds_f"]),
+                         K.gemm_i8_dgrad_reference(*q["g3"], orr, "none"),
+                         K.gemm_i8_dgrad_reference(*q["g4"], ar, "residual",
+                                                   ds=q["ds_a"])),
+                lambda: (torch._int_mm(q["g1"][0], w2r.t()),
+                         torch._int_mm(q["g2"][0], w1r.t()),
+                         torch._int_mm(q["g3"][0], orr.t()),
+                         torch._int_mm(q["g4"][0], ar.t()))),
+        }
+        for name, (fk, fp, fl) in ti8.items():
+            times[name] = (cuda_ms(fk), cuda_ms(fp, iters=3),
+                           None if fl is None else cuda_ms(fl))
+        times["weight quantization"] = cuda_ms(
+            lambda: [quantize_train_weight(p[k]) for k in ("wqkv", "wo",
+                                                           "w1", "w2")])
         # each whole block, forward and all gradients, against torch
         # autograd through the plain block on f32 copies, same masks
         hold_block("ffn block", *(
@@ -1270,6 +1615,10 @@ def phase_train_kernels(dev, card: str):
             times[name] = (cuda_ms(fk), cuda_ms(fp, iters=3),
                            None if fl is None else cuda_ms(fl))
     bounds = train_layer_bounds(8192, 32, 256)
+    bounds.update(train_int8_layer_bounds(8192))
+    wq_ms = times.pop("weight quantization")
+    log(f"  time train weight quantization (4 weights of a layer, q in both "
+        f"layouts): {wq_ms:.4f} ms per layer [{card}]")
     for name, (k_ms, p_ms, l_ms) in times.items():
         lib_s = "" if l_ms is None else f", library {l_ms:.4f} ms"
         log(f"  time train {name:<18} n 8192: kernel {k_ms:.4f} ms, plain "
@@ -1288,14 +1637,27 @@ def phase_train_kernels(dev, card: str):
                 lambda fn: block_grads(fn, ATTN_NAMES, x, p, dyb, False, m,
                                        **ATTN_KW),
                 fused_attention_block, fused_attention_block_reference)}
+        for int8_bwd in (False, True):
+            tag = "i8b" if int8_bwd else "i8"
+            blocks[f"ffn_block_train_{tag}"] = (
+                lambda fn, ib=int8_bwd: block_grads(
+                    fn, FFN_NAMES, x, p, dyb, False, int8_bwd=ib, **FFN_KW),
+                fused_ffn_block_int8_train,
+                fused_ffn_block_int8_train_reference)
+            blocks[f"attn_block_train_{tag}"] = (
+                lambda fn, ib=int8_bwd: block_grads(
+                    fn, ATTN_NAMES, x, p, dyb, False, m, int8_bwd=ib,
+                    **ATTN_KW),
+                fused_attention_block_int8_train,
+                fused_attention_block_int8_train_reference)
         for key, (run, fk, fp) in blocks.items():
             times[(key, s)] = (cuda_ms(lambda: run(fk)),
                                cuda_ms(lambda: run(fp), iters=3))
-        log(f"  time train block fwd+bwd b{b} s{s}: FFN kernels "
-            f"{times[('ffn_block_train', s)][0]:.4f} ms (plain "
-            f"{times[('ffn_block_train', s)][1]:.4f}), attention kernels "
-            f"{times[('attn_block_train', s)][0]:.4f} ms (plain "
-            f"{times[('attn_block_train', s)][1]:.4f}) [{card}]")
+        log(f"  time train block fwd+bwd b{b} s{s}, kernels (plain): " +
+            "; ".join(f"{key} {times[(key, s)][0]:.4f} ms "
+                      f"({times[(key, s)][1]:.4f})" for key in blocks) +
+            f" [{card}]")
+    times["weight_quant_ms"] = wq_ms
     return check.max_err, times, bounds
 
 
@@ -1361,42 +1723,101 @@ def plain_attention_ms(params, cfg, b, s, dev):
     return cuda_ms(run, iters=5)
 
 
-def phase_train(dev, card: str, block_ms):
-    """The training slice through ``make_train_step``; returns the
-    launch counts of its main-path runs (both blocks on their kernels,
-    then one step of the FFN-only route)."""
-    import dataclasses
+# the training phases' routes: the encoder flags of the main path, its
+# launches per layer, a second route taken for one counted step, and the
+# block timings (phase 5) of the main path's blocks
+TRAIN_ROUTES = {
+    "bf16": dict(
+        flags=dict(use_fused_ffn=True, use_fused_attn=True),
+        per_layer=PER_LAYER_TRAIN,
+        second=("FFN-only route", dict(use_fused_attn=False),
+                PER_LAYER_TRAIN_FFN),
+        blocks=("attn_block_train", "ffn_block_train")),
+    "int8": dict(
+        flags=dict(use_fused_ffn=True, use_fused_attn=True,
+                   use_int8_train=True, use_int8_train_attn=True,
+                   use_int8_train_bwd=True),
+        per_layer=PER_LAYER_TRAIN_I8,
+        second=("int8 forwards, bf16 backwards (NBEST_BENCH_INT8=1)",
+                dict(use_int8_train_bwd=False), PER_LAYER_TRAIN_I8_FWD),
+        blocks=("attn_block_train_i8b", "ffn_block_train_i8b")),
+}
 
+
+def train_rig(dev):
+    """What both training phases share: the synthetic hierarchy, seed-0
+    BERT-base weights (f32 masters on the card), the per-bucket training
+    splits, the base encoder config (bf16 compute, dropout 0.1, no kernel
+    flags) and the generators."""
     from nbest_asr_tpu_torch.data.tokenizer import WordVocabTokenizer
     from nbest_asr_tpu_torch.models.encoder import EncoderConfig
     from nbest_asr_tpu_torch.models.heads import hierarchy_device_arrays
     from nbest_asr_tpu_torch.models.model import (ModelConfig,
                                                   init_model_params)
-    from nbest_asr_tpu_torch.ops import _cuda
-    from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
-                                                         make_train_step)
-    from nbest_asr_tpu_torch.train.losses import LossConfig
-    from nbest_asr_tpu_torch.train.optimizer import (OptimizerConfig,
-                                                     make_optimizer,
-                                                     tree_map)
+    from nbest_asr_tpu_torch.train.optimizer import tree_map
 
     memory = dstc2_like_memory()
     tok = WordVocabTokenizer(memory)
     enc = EncoderConfig.bert_base(vocab_size=VOCAB,
                                   compute_dtype="bfloat16",
-                                  use_fused_ffn=True, use_fused_attn=True,
                                   hidden_dropout=DROPOUT,
                                   attn_dropout=DROPOUT)
     cfg = ModelConfig(encoder=enc, n_top=memory.n_top,
                       n_bottom=memory.n_bottom)
-    plain_enc = dataclasses.replace(enc, use_fused_ffn=False,
-                                    use_fused_attn=False)
     params = tree_map(lambda a: a.to(dev), init_model_params(
         torch.Generator().manual_seed(0), cfg))
-    hier = hierarchy_device_arrays(memory.arrays(), dev)
-    data = train_split(memory, tok, requests(memory, seed=1), dev, seed=2)
-    gen = torch.Generator().manual_seed(3)
-    rng = np.random.RandomState(4)
+    return dict(cfg=cfg, params=params,
+                hier=hierarchy_device_arrays(memory.arrays(), dev),
+                data=train_split(memory, tok, requests(memory, seed=1), dev,
+                                 seed=2),
+                gen=torch.Generator().manual_seed(3),
+                rng=np.random.RandomState(4))
+
+
+class int8_blocks_on_plain_versions:
+    """Within the block, the encoder's int8 training blocks run on their
+    kernels' plain versions (the encoder imports them at each call)."""
+
+    def __enter__(self):
+        from nbest_asr_tpu_torch.ops import fused_attention as fa
+        from nbest_asr_tpu_torch.ops import fused_ffn as ff
+
+        self.saved = (ff.fused_ffn_block_int8_train,
+                      fa.fused_attention_block_int8_train)
+        ff.fused_ffn_block_int8_train = ff.fused_ffn_block_int8_train_reference
+        fa.fused_attention_block_int8_train = \
+            fa.fused_attention_block_int8_train_reference
+
+    def __exit__(self, *exc):
+        from nbest_asr_tpu_torch.ops import fused_attention as fa
+        from nbest_asr_tpu_torch.ops import fused_ffn as ff
+
+        ff.fused_ffn_block_int8_train, \
+            fa.fused_attention_block_int8_train = self.saved
+
+
+def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
+    """The training slice through ``make_train_step`` on ``route``'s
+    configuration (TRAIN_ROUTES); returns the launch counts of its
+    main-path runs (the main path, then one step of the second route),
+    its step ms per bucket and its peak memory.  ``beside``: another
+    route's step ms per bucket, printed next to this one's."""
+    import dataclasses
+
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
+                                                         make_train_step)
+    from nbest_asr_tpu_torch.train.losses import LossConfig
+    from nbest_asr_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                     make_optimizer)
+
+    r = TRAIN_ROUTES[route]
+    base, params, data, hier = (rig["cfg"], rig["params"], rig["data"],
+                                rig["hier"])
+    gen, rng = rig["gen"], rig["rng"]
+    enc = dataclasses.replace(base.encoder, **r["flags"])
+    cfg = dataclasses.replace(base, encoder=enc)
+    plain_enc = base.encoder           # every kernel flag off
 
     def indices(bucket):
         n_rows = data[bucket]["input_ids"].shape[0]
@@ -1410,7 +1831,7 @@ def phase_train(dev, card: str, block_ms):
 
     def expect(counts, per_layer, micros, what):
         want = {k: per_layer.get(k, 0) * LAYERS * micros for k in counts}
-        log(f"[train] {what}: launches {counts}, expected {want}")
+        log(f"[train {route}] {what}: launches {counts}, expected {want}")
         if counts != want:
             raise AssertionError(f"{what}: launch counts differ from layers "
                                  "x micros x launches per layer")
@@ -1439,67 +1860,95 @@ def phase_train(dev, card: str, block_ms):
             if not all(np.isfinite(v) for v in parts.values()):
                 raise AssertionError(f"bucket {bucket}: loss {parts}")
         step_ms[bucket] = ms
-        log(f"[train] bucket {bucket} (micro {TRAIN_MICRO[bucket]} x "
-            f"{N_ACCUM}): loss {parts}, counts "
+        log(f"[train {route}] bucket {bucket} (micro {TRAIN_MICRO[bucket]} "
+            f"x {N_ACCUM}): loss {parts}, counts "
             f"{ {k: float(v) for k, v in stats['counts'].items()} }")
     torch.cuda.synchronize()
     counts = dict(_cuda.launch_counts)
-    expect(counts, PER_LAYER_TRAIN, len(BUCKETS) * TRAIN_STEPS * N_ACCUM,
-           "both blocks on their kernels")
+    expect(counts, r["per_layer"], len(BUCKETS) * TRAIN_STEPS * N_ACCUM,
+           f"main path ({', '.join(k for k, v in r['flags'].items() if v)})")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    # ---- the FFN-only route (use_fused_attn=False): one counted step --- #
-    ffn_only = dataclasses.replace(enc, use_fused_attn=False)
-    ffn_step, _ = new_state(dataclasses.replace(cfg, encoder=ffn_only),
-                            **okw)
-    ffn_step(state0, data[64], indices(64), gen)         # warm-up
+    # ---- the second route: one counted step at seq 64 ------------------ #
+    what, flags, per_layer = r["second"]
+    second, _ = new_state(dataclasses.replace(
+        cfg, encoder=dataclasses.replace(enc, **flags)), **okw)
+    second(state0, data[64], indices(64), gen)         # warm-up
     torch.cuda.synchronize()
     _cuda.reset_launch_counts()
-    _, stats = ffn_step(state0, data[64], indices(64), gen)
+    _, stats = second(state0, data[64], indices(64), gen)
     torch.cuda.synchronize()
-    ffn_counts = dict(_cuda.launch_counts)
-    expect(ffn_counts, PER_LAYER_TRAIN_FFN, N_ACCUM,
-           "FFN-only route, one step at seq 64")
+    second_counts = dict(_cuda.launch_counts)
+    expect(second_counts, per_layer, N_ACCUM, f"{what}, one step at seq 64")
     if not all(np.isfinite(float(v)) for v in stats["loss"].values()):
-        raise AssertionError(f"FFN-only route: loss {stats['loss']}")
-    counts = {k: counts[k] + ffn_counts[k] for k in counts}
+        raise AssertionError(f"{what}: loss {stats['loss']}")
+    counts = {k: counts[k] + second_counts[k] for k in counts}
 
     per_step = LAYERS * N_ACCUM
+    attn_key, ffn_key = r["blocks"]
     for bucket in BUCKETS:
         ms = step_ms[bucket]
         mean = sum(ms) / len(ms)
         utt = N_ACCUM * TRAIN_MICRO[bucket] / (mean / 1e3)
-        ffn = block_ms[("ffn_block_train", bucket)]
-        attn = block_ms[("attn_block_train", bucket)]
-        plain_attn = plain_attention_ms(params, cfg, TRAIN_MICRO[bucket],
-                                        bucket, dev)
-        log(f"[train] bucket {bucket}: step ms "
+        ffn = block_ms[(ffn_key, bucket)]
+        attn = block_ms[(attn_key, bucket)]
+        extra = ""
+        if route == "bf16":
+            extra = (f", plain training path "
+                     f"{plain_attention_ms(params, cfg, TRAIN_MICRO[bucket], bucket, dev):.3f}")
+        else:
+            extra = (f"; bf16 bwd route {block_ms[('attn_block_train_i8', bucket)][0]:.3f}"
+                     f" / {block_ms[('ffn_block_train_i8', bucket)][0]:.3f} ms, "
+                     f"bf16 blocks {block_ms[('attn_block_train', bucket)][0]:.3f}"
+                     f" / {block_ms[('ffn_block_train', bucket)][0]:.3f} ms")
+        beside_s = "" if beside is None else (
+            f"; bf16 step mean {sum(beside[bucket]) / len(beside[bucket]):.2f}"
+            " ms (phase 6)")
+        log(f"[train {route}] bucket {bucket}: step ms "
             f"{', '.join(f'{m:.2f}' for m in ms)} (mean {mean:.2f}); "
             f"{utt:.1f} utt/s; per layer fwd+bwd: attention block kernels "
-            f"{attn[0]:.3f} ms (plain version {attn[1]:.3f}, plain "
-            f"training path {plain_attn:.3f}), FFN block kernels "
-            f"{ffn[0]:.3f} ms (plain {ffn[1]:.3f}); share of the step: "
-            f"attention {per_step * attn[0] / mean:.3f}, FFN "
-            f"{per_step * ffn[0] / mean:.3f} [{card}]")
-    log(f"[train] peak memory {peak:.2f} GiB over the main-path steps "
-        f"[{card}]")
+            f"{attn[0]:.3f} ms (plain version {attn[1]:.3f}{extra}), FFN "
+            f"block kernels {ffn[0]:.3f} ms (plain {ffn[1]:.3f}); share of "
+            f"the step: attention {per_step * attn[0] / mean:.3f}, FFN "
+            f"{per_step * ffn[0] / mean:.3f}{beside_s} [{card}]")
+    log(f"[train {route}] peak memory {peak:.2f} GiB over the main-path "
+        f"steps [{card}]")
+    if route == "int8":
+        wq = block_ms["weight_quant_ms"]
+        log(f"[train int8] weight quantization {wq:.4f} ms per layer, "
+            f"{per_step * wq:.2f} ms per step (each micro's block calls "
+            f"quantize their weights) [{card}]")
 
     # ---- dropout 0: one kernel step and one plain step agree ------------ #
     # eps = 1 makes BertAdam's first update linear in the gradient (with
     # the default 1e-6 it is m / sqrt(v) = +-3.16 for every element,
     # whatever its size, and near-zero gradients would flip with bf16
     # noise); a constant schedule makes step 0 move the weights, and no
-    # weight decay leaves the deltas to the gradients alone
+    # weight decay leaves the deltas to the gradients alone.  bf16: the
+    # plain step is the plain encoder path (all kernel flags off); int8:
+    # the same int8 step with both blocks on their kernels' plain versions
     no_drop = dataclasses.replace(enc, hidden_dropout=0.0, attn_dropout=0.0)
-    plain = dataclasses.replace(plain_enc, hidden_dropout=0.0,
-                                attn_dropout=0.0)
     cmp_kw = dict(lr=1e-3, bert_lr=1e-3, schedule="none", eps=1.0,
                   weight_decay=0.0)
     idx = indices(64)
     outs = []
-    for c in (no_drop, plain):
+    for which in ("kernel", "plain"):
+        c = no_drop
+        if which == "plain" and route == "bf16":
+            c = dataclasses.replace(plain_enc, hidden_dropout=0.0,
+                                    attn_dropout=0.0)
         st, s0 = new_state(dataclasses.replace(cfg, encoder=c), **cmp_kw)
-        s1, stats = st(s0, data[64], idx, torch.Generator().manual_seed(0))
+        _cuda.reset_launch_counts()
+        if which == "plain" and route == "int8":
+            with int8_blocks_on_plain_versions():
+                s1, stats = st(s0, data[64], idx,
+                               torch.Generator().manual_seed(0))
+            if any(_cuda.launch_counts.values()):
+                raise AssertionError("the plain-version step launched "
+                                     f"kernels: {_cuda.launch_counts}")
+        else:
+            s1, stats = st(s0, data[64], idx,
+                           torch.Generator().manual_seed(0))
         outs.append((s1.params, {k: float(v)
                                  for k, v in stats["loss"].items()}))
     (kp, kl), (pp, pl) = outs
@@ -1519,11 +1968,11 @@ def phase_train(dev, card: str, block_ms):
             return
         dk, dp = (b - a).double(), (c - a).double()
         scale = dp.abs().max().item()
-        r = (dk - dp).abs().max().item() / max(scale, 1e-30)
-        worst = max(worst, r)
-        if r > 5e-2 or scale == 0:
+        rr = (dk - dp).abs().max().item() / max(scale, 1e-30)
+        worst = max(worst, rr)
+        if rr > 5e-2 or scale == 0:
             raise AssertionError(f"{path}: kernel-step delta off the plain "
-                                 f"step's by {r:.3e} of its max {scale:.3e}")
+                                 f"step's by {rr:.3e} of its max {scale:.3e}")
 
     walk(params, kp, pp)
     log(f"  dropout 0 parameter deltas: worst leaf {worst:.3e} of its "
@@ -1531,12 +1980,14 @@ def phase_train(dev, card: str, block_ms):
 
     # ---- 30 steps on one fixed micro, dropout on: the loss halves ------ #
     # lr 1e-4 under the trainer's warmup-linear schedule over the 30 steps;
-    # the plain path's curve (its own dropout masks) is printed beside
+    # bf16: the plain path's curve (its own dropout masks) is printed beside
     fix_kw = dict(lr=1e-4, bert_lr=1e-4, t_total=30)
     fixed = rng.randint(0, data[64]["input_ids"].shape[0],
                         (1, TRAIN_MICRO[64]))
     curves = {}
-    for name, c in (("kernels", enc), ("plain", plain_enc)):
+    runs = [("kernels", enc)] + ([("plain", plain_enc)]
+                                 if route == "bf16" else [])
+    for name, c in runs:
         opt = make_optimizer(OptimizerConfig(**fix_kw), params)
         st = make_train_step(dataclasses.replace(cfg, encoder=c),
                              LossConfig(), opt, hier, n_accum=1,
@@ -1547,14 +1998,50 @@ def phase_train(dev, card: str, block_ms):
         for _ in range(30):
             state, stats = st(state, data[64], fixed, g)
             curves[name].append(float(stats["loss"]["total"]))
-        log(f"[train] fixed micro, seq 64, lr 1e-4 warmup-linear, dropout "
-            f"{DROPOUT}, {name}: total loss "
+        log(f"[train {route}] fixed micro, seq 64, lr 1e-4 warmup-linear, "
+            f"dropout {DROPOUT}, {name}: total loss "
             f"{', '.join(f'{v:.1f}' for v in curves[name])}")
     losses = curves["kernels"]
     if not losses[-1] < 0.5 * losses[0]:
         raise AssertionError(f"loss {losses[0]:.2f} -> {losses[-1]:.2f}: "
                              "not halved in 30 steps")
     return counts, step_ms, peak
+
+
+def ptxas_summary(report):
+    """One line per kernel instance of this process's nvcc build: source,
+    demangled-ish name, registers, spill stores / loads."""
+    import re
+
+    out, entry, spill = [], None, ""
+    for line in report:
+        src, _, text = line.partition(": ")
+        m = re.search(r"Compiling entry function '(\w+)'", text)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      text)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers", text)
+        if m and entry:
+            # the kernel's name and template arguments, mangled:
+            # gemm_i8_kernel ILi3E = <3>, seg_attention_kernel ILi64ELb1E =
+            # <64, true>, quant_rows_kernel IfLb1E = <float, true>
+            # (a length prefix may follow hash digits: try each suffix)
+            name = entry
+            for k in re.finditer(r"\d+", entry):
+                for j in range(len(k.group())):
+                    cand = entry[k.end():k.end() + int(k.group()[j:])]
+                    if cand.endswith("_kernel"):
+                        tail = re.match(r"I\w*?EE",
+                                        entry[k.end() + len(cand):])
+                        name = cand + (tail.group() if tail else "")
+            out.append(f"{src} {name}: {m.group(1)} registers, {spill}")
+            entry, spill = None, ""
+    return out
 
 
 def main() -> int:
@@ -1577,41 +2064,58 @@ def main() -> int:
         f"{_cuda.build_seconds if _cuda.build_seconds is not None else 0:.2f}"
         f" s) -> {_cuda.library_path().name}")
 
+    for line in ptxas_summary(_cuda.build_report):
+        log(f"[device] ptxas {line}")
+
     max_err, times = phase_kernels(dev, card)
     counts = phase_slice(dev)
     t_err, t_times, t_bounds = phase_train_kernels(dev, card)
-    t_counts, _, _ = phase_train(dev, card, t_times)
+    rig = train_rig(dev)
+    t_counts, bf16_ms, _ = phase_train(dev, card, t_times, rig, "bf16")
+    i_counts, _, _ = phase_train(dev, card, t_times, rig, "int8",
+                                 beside=bf16_ms)
 
     s_bounds = serving_bounds(BATCH * BUCKETS[-1], BATCH, BUCKETS[-1])
     rows = []
-    for name in _cuda.KERNELS:
-        if name in s_bounds:        # a serving layer's launches
-            k_ms, p_ms, l_ms = times[(name, BUCKETS[-1])]
-            b_ms, b_by = s_bounds[name]
-        else:                       # a training layer's launches
-            k_ms, p_ms, l_ms = t_times[name]
-            b_ms, b_by = t_bounds[name]
+
+    def row(name, kernel, launches, k_ms, p_ms, l_ms, b_ms, b_by):
         rows.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
-            "replaces": KERNEL_REPLACES[name],
-            "launches": counts[name] + t_counts[name],
-            "max_abs_err": max(max_err.get(name, 0.0),
-                               t_err.get(name, 0.0)),
+            "name": name, "route": "cuda", "source": KERNEL_SOURCES[kernel],
+            "replaces": KERNEL_REPLACES[kernel], "launches": launches,
+            "max_abs_err": max(max_err.get(kernel, 0.0),
+                               t_err.get(kernel, 0.0)),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": l_ms})
+
+    for name in _cuda.KERNELS:
+        launches = counts[name] + t_counts[name] + i_counts[name]
+        if name in s_bounds:        # a serving layer's launches
+            row(name, name, launches, *times[(name, BUCKETS[-1])],
+                *s_bounds[name])
+        else:                       # a training layer's launches
+            row(name, name, launches, *t_times[name], *t_bounds[name])
+    # the int8 training epilogues of the int8 serving kernels, timed in an
+    # int8 training layer; launches: the int8 training runs alone
+    for kernel in ("quantize_rows", "gemm_i8_bias_act",
+                   "gemm_i8_bias_residual"):
+        name = f"{kernel} [train]"
+        row(name, kernel, i_counts[kernel], *t_times[name], *t_bounds[name])
     record = {"kernels": rows}
-    log("[record] launches: the bf16 serving, int8 serving, training "
-        "(both blocks on kernels) and FFN-only training main-path runs "
-        "together; ms / plain_ms / library_ms / bound_ms: one encoder "
-        f"layer's launches of the kernel -- serving at batch {BATCH} x seq "
+    log("[record] launches: the bf16 serving, int8 serving, bf16 training "
+        "(both blocks on kernels, then one FFN-only step) and int8 training "
+        "(NBEST_BENCH_INT8=2, then one NBEST_BENCH_INT8=1 step) main-path "
+        "runs together, the [train] rows the int8 training runs alone; "
+        "ms / plain_ms / library_ms / bound_ms: one encoder layer's "
+        f"launches of the kernel -- serving at batch {BATCH} x seq "
         f"{BUCKETS[-1]} for the kernels the serving path runs, training at "
         "8192 rows (batch 32 x seq 256, both blocks) for ffn_bwd_rows, "
-        "gemm_dgrad and seg_attention_bwd; BERT-base, bf16 activations; "
-        "library_ms: the PyTorch call for each launch "
-        "(serving_library_calls; torch.matmul for the dgrads; "
-        "F.scaled_dot_product_attention forward + backward with the "
-        "boolean segment mask and dropout for seg_attention_bwd), null "
-        "where PyTorch has none")
+        "gemm_dgrad, seg_attention_bwd, quantize_grad_rows, gemm_i8_dgrad "
+        "and the [train] rows (int8 forwards and backwards); BERT-base, "
+        "bf16 activations; library_ms: the PyTorch call for each launch "
+        "(serving_library_calls; torch.matmul for the dgrads; torch._int_mm "
+        "for the int8 GEMMs and dgrads; F.scaled_dot_product_attention "
+        "forward + backward with the boolean segment mask and dropout for "
+        "seg_attention_bwd), null where PyTorch has none")
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {

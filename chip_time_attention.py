@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels of one checkout on one NVIDIA GPU,
-so that two commits can be compared on the same card:
+"""Time the port's attention kernels (and its int8 serving GEMMs) of one
+checkout on one NVIDIA GPU, so that two commits can be compared on the
+same card:
 
     python3 chip_time_attention.py [--root CHECKOUT] [--iters N]
 
@@ -11,8 +12,11 @@ its kernels are built into its own ``build/``.  BERT-base widths (hidden
 line: ``seg_attention`` ms per call at batch 64 x seq {64, 96, 160, 256}
 (the serving forward), and, where the checkout has the training kernels,
 ``seg_attention`` with prob dropout and row statistics and
-``seg_attention_bwd`` at 8192 rows (32 x 256), with the card's name and
-power limit.  CUDA events over ``--iters`` calls after two warm-up calls.
+``seg_attention_bwd`` at 8192 rows (32 x 256); and, where it has them,
+``quantize_rows`` of a (64 x 256, 768) bf16 block input and the four
+int8 serving GEMM launches of a layer at 64 x 256 rows
+(``gemm_i8_bias_act`` QKV and W1 + GELU, ``gemm_i8_bias_residual``
+out-proj and W2); with the card's name and power limit.  CUDA events over ``--iters`` calls after two warm-up calls.
 Run two checkouts alternately (A B B A) in one call to compare them.
 """
 
@@ -81,6 +85,36 @@ def main() -> int:
         out["train_bwd_ms"] = cuda_ms(
             lambda: K.seg_attention_bwd(qkv, dctx, mask, st, NH, drop=drop),
             args.iters)
+    if hasattr(K, "gemm_i8_bias_act"):
+        from nbest_asr_tpu_torch.ops.quant import (kernel_layout,
+                                                   quantize_weight)
+
+        def rows(k):
+            return K.quantize_rows((torch.randn(64 * 256, k, generator=gen)
+                                    * 0.5).to(dev, torch.bfloat16))
+
+        def weight(k, n):
+            q, sc = quantize_weight((torch.randn(k, n, generator=gen)
+                                     * 0.02).to(dev))
+            return kernel_layout(q), sc.reshape(-1), torch.zeros(n,
+                                                                 device=dev)
+
+        x, g = rows(H), rows(4 * H)
+        r = torch.randn(64 * 256, H, generator=gen).to(dev, torch.bfloat16)
+        wqkv, w1, wo, w2 = (weight(H, 3 * H), weight(H, 4 * H),
+                            weight(H, H), weight(4 * H, H))
+        xb = (torch.randn(64 * 256, H, generator=gen) * 0.5).to(
+            dev, torch.bfloat16)
+        out["serving_i8_ms"] = {
+            "quantize_rows": cuda_ms(lambda: K.quantize_rows(xb), args.iters),
+            "act_qkv": cuda_ms(lambda: K.gemm_i8_bias_act(*x, *wqkv),
+                               args.iters),
+            "act_w1_gelu": cuda_ms(
+                lambda: K.gemm_i8_bias_act(*x, *w1, "gelu"), args.iters),
+            "residual_wo": cuda_ms(
+                lambda: K.gemm_i8_bias_residual(*x, *wo, r), args.iters),
+            "residual_w2": cuda_ms(
+                lambda: K.gemm_i8_bias_residual(*g, *w2, r), args.iters)}
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

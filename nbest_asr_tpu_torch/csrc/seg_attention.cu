@@ -97,9 +97,12 @@ __device__ __forceinline__ void tile_scores(float (&sc)[8][4],
 // Blocks per SM each instance is built for (registers <= 65536 / (128 x
 // blocks)): the d = 64 instances at 4 (128 registers; the serving one
 // needs 130 unbounded, which cost 20% at seq 256 on the H100), the d =
-// 128 ones where they fall unbounded.
+// 128 ones where they fall unbounded, the d = 192 and 256 ones at 1 (their
+// q fragments and accumulators alone take 144 and 192 registers).
 template <int D, bool DROP>
-__global__ void __launch_bounds__(THREADS, D == 64 ? 4 : (DROP ? 2 : 3))
+__global__ void __launch_bounds__(THREADS, D == 64    ? 4
+                                           : D == 128 ? (DROP ? 2 : 3)
+                                                      : 1)
     seg_attention_kernel(const bf16* __restrict__ qkv,
                          const float* __restrict__ mask,
                          bf16* __restrict__ ctx, float* __restrict__ stats,
@@ -276,10 +279,10 @@ int launch(const void* qkv, const float* mask, void* ctx, float* stats,
 extern "C" {
 
 // qkv (B*S, 3H) bf16 with q | k | v on the column axis, mask (B, S) f32
-// segment ids -> ctx (B*S, H) bf16.  Head dim H / n_heads in {64, 128},
-// S <= 512.  stats, if not null, is (2, B, n_heads, S) f32 and receives
-// each row's max and sum of exp.  Prob dropout when drop_on (seed, stream,
-// thresh, inv_keep as in philox.cuh).
+// segment ids -> ctx (B*S, H) bf16.  Head dim H / n_heads in {64, 128,
+// 192, 256}, S <= 512.  stats, if not null, is (2, B, n_heads, S) f32 and
+// receives each row's max and sum of exp.  Prob dropout when drop_on (seed,
+// stream, thresh, inv_keep as in philox.cuh).
 int nbk_seg_attention(const void* qkv, const float* mask, void* ctx,
                       float* stats, int B, int S, int H, int n_heads,
                       float sm_scale, unsigned long long seed, int stream,
@@ -293,6 +296,12 @@ int nbk_seg_attention(const void* qkv, const float* mask, void* ctx,
                       s);
   if (d == 128)
     return launch<128>(qkv, mask, ctx, stats, B, S, H, n_heads, sm_scale,
+                       drop, s);
+  if (d == 192)
+    return launch<192>(qkv, mask, ctx, stats, B, S, H, n_heads, sm_scale,
+                       drop, s);
+  if (d == 256)
+    return launch<256>(qkv, mask, ctx, stats, B, S, H, n_heads, sm_scale,
                        drop, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -104,7 +104,8 @@ __device__ __forceinline__ void chunk_probs(float (*sc)[4], float (*dp)[4],
 
 // Both kernels are built for 4 blocks per SM at d = 64 (128 registers;
 // unbounded they take 161 and 169, and the bounded pair, spills and all,
-// ran 18% faster at 32 x 256 on the H100).
+// ran 18% faster at 32 x 256 on the H100); the d = 192 and 256 instances
+// spill their fragments and accumulators to local memory.
 template <int D>
 __global__ void __launch_bounds__(THREADS, D == 64 ? 4 : 1)
     dq_kernel(const Args a) {
@@ -383,7 +384,8 @@ extern "C" {
 // qkv (B*S, 3H) bf16, dctx (B*S, H) bf16, mask (B, S) f32, stats (2, B,
 // n_heads, S) f32 from nbk_seg_attention -> dqkv (B*S, 3H) bf16 (q | k | v
 // columns); di (B, n_heads, S) f32 is scratch (rowsum(dp * p)).  Head dim
-// H / n_heads in {64, 128}, S <= 512; the prob dropout as in the forward.
+// H / n_heads in {64, 128, 192, 256}, S <= 512; the prob dropout as in the
+// forward.
 int nbk_seg_attention_bwd(const void* qkv, const void* dctx,
                           const float* mask, const float* stats, float* di,
                           void* dqkv, int B, int S, int H, int n_heads,
@@ -405,6 +407,8 @@ int nbk_seg_attention_bwd(const void* qkv, const void* dctx,
   const int d = H / n_heads;
   if (d == 64) return launch<64>(a, B, n_heads, s);
   if (d == 128) return launch<128>(a, B, n_heads, s);
+  if (d == 192) return launch<192>(a, B, n_heads, s);
+  if (d == 256) return launch<256>(a, B, n_heads, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,17 +11,14 @@ holds compute copies.  A GEMM kernel may instead be an int8-quantized
 
 Routing per layer, as the JAX encoder routes (``encoder.py:322-443``,
 without the TPU's VMEM budget), with "lanes" meaning JAX's rule, hidden
-a multiple of 128 and a head dim a multiple of 64 (``attn_lanes_ok``),
-and "the kernels take the head dim" meaning 64 or 128
-(``attn_kernels_take``):
+a multiple of 128 and a head dim a multiple of 64 (``attn_lanes_ok``):
 
 - a quantized QKV kernel sends the attention block to
   ``ops.int8_serving.int8_attention_block`` when ``use_fused_attn`` is
-  set, the lanes hold, the kernels take the head dim and seq <= 512
-  (``use_fused_attn_eval`` is not needed, as in JAX); a tensor one to
-  ``ops.fused_attention`` when ``use_fused_attn`` and
-  ``use_fused_attn_eval`` are set, the lanes hold, the kernels take the
-  head dim and seq <= 512;
+  set, the lanes hold and seq <= 512 (``use_fused_attn_eval`` is not
+  needed, as in JAX); a tensor one to ``ops.fused_attention`` when
+  ``use_fused_attn`` and ``use_fused_attn_eval`` are set, the lanes hold
+  and seq <= 512;
 - the FFN block goes to ``ops.int8_serving.int8_ffn_block`` (quantized
   leaves) or ``ops.fused_ffn`` (tensor leaves) when ``use_fused_ffn`` is
   set and hidden and intermediate are multiples of 128;
@@ -36,19 +33,28 @@ layer, then per site: 1 attention probs, 2 attention hidden, 3 FFN, and
 (the kernel chains, Philox streams 3 and 4 under the one site-1 seed, as
 JAX's ``fold_in(lrng, 1)`` covers the whole block) where JAX routes it
 to its megakernel: ``use_fused_attn``, the lanes and seq <= 512
-(``attn_train_routes``); otherwise it runs the plain path with
-probability and hidden dropout.  The FFN block routes to
-``ops.fused_ffn`` (the kernel chains, Philox masks) when
-``use_fused_ffn`` and the lanes hold, and otherwise runs the plain FFN
-with ``layers.dropout``.  Where JAX would train through a kernel the
-port does not have -- the attention megakernel at a head dim its kernels
-do not take, flash attention, the int8 training GEMMs, the fused LN /
-GELU / embedding kernels -- the forward raises ``NotImplementedError``
-rather than run the plain path quietly.
+(``attn_train_routes``) -- through ``fused_attention_block_int8_train``
+when ``use_int8_train_attn`` is set (``encoder.py:354-368``), else
+``fused_attention_block``; otherwise it runs the plain path with
+probability and hidden dropout.  The FFN block routes to ``ops.fused_ffn``
+when ``use_fused_ffn`` and the lanes hold -- through
+``fused_ffn_block_int8_train`` when ``use_int8_train`` is set
+(``encoder.py:420-432``), else ``fused_ffn_block`` -- and otherwise runs
+the plain FFN with ``layers.dropout``.  ``use_int8_train_bwd`` selects the
+int8-dgrad backward of whichever block took its int8 route, and does
+nothing elsewhere, as in JAX.
+
+Where JAX would run a kernel the port does not have, the forward raises
+``NotImplementedError`` rather than run the plain path quietly: the
+attention megakernel at a head dim the port's attention kernels do not
+take (``HEAD_DIMS``; eval and training, ``_refuse_head_dim``), and in
+training flash attention, the fused LN and GELU kernels on the plain
+paths and the fused embedding lookup (``_refuse_unported_training``).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -67,12 +73,14 @@ GEMM_KERNELS = ("qkv_kernel", "attn_out_kernel", "ffn_in_kernel",
 @dataclass(frozen=True)
 class EncoderConfig:
     """Same fields and defaults as the JAX ``EncoderConfig``.  The port
-    reads the sizes, dropout rates, ``compute_dtype`` and the three
-    routing flags ``use_fused_attn``, ``use_fused_attn_eval`` and
-    ``use_fused_ffn``; in training the flags of kernels it has not ported
-    raise (module docstring); ``remat`` and ``scan_unroll`` steer the
-    TPU's scan and are kept so one configuration describes both
-    packages."""
+    reads the sizes, dropout rates, ``compute_dtype``, the routing flags
+    ``use_fused_attn``, ``use_fused_attn_eval`` and ``use_fused_ffn``, and
+    in training the int8 flags ``use_int8_train``, ``use_int8_train_attn``
+    and ``use_int8_train_bwd``; ``use_flash_attention`` with
+    ``flash_min_seq``, ``use_fused_ln``, ``use_fused_gelu`` and
+    ``use_fused_embedding`` raise where JAX would run those kernels
+    (module docstring); ``remat`` and ``scan_unroll`` steer the TPU's scan
+    and are kept so one configuration describes both packages."""
 
     vocab_size: int
     hidden_size: int = 768
@@ -225,17 +233,16 @@ def attn_train_routes(cfg: EncoderConfig, seq: int) -> bool:
 
 
 def attn_kernel_routes(cfg: EncoderConfig, seq: int) -> bool:
-    """The bf16 attention-block kernel chain takes this eval layer."""
-    return (cfg.use_fused_attn_eval and attn_train_routes(cfg, seq)
-            and attn_kernels_take(cfg))
+    """JAX runs this eval layer's attention block on its bf16 megakernel."""
+    return cfg.use_fused_attn_eval and attn_train_routes(cfg, seq)
 
 
 def int8_attn_kernel_routes(cfg: EncoderConfig, seq: int) -> bool:
-    """The int8 attention-block kernel chain takes a quantized layer."""
+    """JAX runs this quantized layer's attention block on its int8
+    serving megakernel."""
     from ..ops.int8_serving import I8_MAX_SEQ
 
-    return (cfg.use_fused_attn and attn_kernels_take(cfg)
-            and seq <= I8_MAX_SEQ)
+    return cfg.use_fused_attn and attn_lanes_ok(cfg) and seq <= I8_MAX_SEQ
 
 
 def ffn_kernel_routes(cfg: EncoderConfig) -> bool:
@@ -243,37 +250,72 @@ def ffn_kernel_routes(cfg: EncoderConfig) -> bool:
             and cfg.intermediate_size % 128 == 0)
 
 
-def _refuse_unported_training(cfg: EncoderConfig, seq: int) -> None:
-    """Raise where JAX would train through a kernel the port lacks."""
-    where = "(ROADMAP.md, queue 2)"
+# JAX's flash routing (nbest_asr_tpu/ops/attention.py:40-76, :138-140):
+# the flash kernels take a training layer at seq >= the effective
+# flash_min_seq (NBEST_FLASH_MIN_SEQ wins when set), always up to the
+# single-block ceiling of 512, and above it only where the plain path's
+# ~3 (b, heads, s, s) backward buffers would pass 2 GiB
+FLASH_SB_MAX_SEQ = 512
+FLASH_RESIDENCY_BUDGET = 2 * 2 ** 30
+
+
+def effective_flash_min_seq(cfg_value: int) -> int:
+    env = os.environ.get("NBEST_FLASH_MIN_SEQ")
+    return int(env) if env is not None else int(cfg_value)
+
+
+def flash_train_routes(cfg: EncoderConfig, batch: int, seq: int) -> bool:
+    """JAX's ``multi_head_attention`` takes the flash kernels for this
+    training layer on its plain attention path."""
+    itemsize = torch.finfo(cfg.cdtype).bits // 8
+    preferred = (seq <= FLASH_SB_MAX_SEQ or 3 * batch * cfg.num_heads * seq
+                 * seq * itemsize > FLASH_RESIDENCY_BUDGET)
+    return (cfg.use_flash_attention
+            and seq >= effective_flash_min_seq(cfg.flash_min_seq)
+            and preferred)
+
+
+_WHERE = "(ROADMAP.md, queue 2)"
+
+
+def _refuse_head_dim(cfg: EncoderConfig) -> None:
+    """Raise if the port's attention kernels lack the head dim of a layer
+    that JAX sends to an attention megakernel."""
+    if cfg.head_dim not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"use_fused_attn at head dim {cfg.head_dim}: JAX routes it to "
+            "an attention megakernel, whose port takes head dims "
+            f"{HEAD_DIMS} {_WHERE}; set use_fused_attn=False for the plain "
+            "attention path")
+
+
+def _refuse_unported_training(cfg: EncoderConfig, batch: int, seq: int,
+                              position_ids) -> None:
+    """Raise exactly where JAX would train through a kernel the port
+    lacks: its routing predicate (``encoder.py:176, 292-301, 322-458``,
+    ``ops/attention.py:138-140``), case by case; the attention
+    megakernel's head dims are ``_refuse_head_dim``'s, eval and training
+    alike."""
     attn_routes = attn_train_routes(cfg, seq)
-    if attn_routes and not attn_kernels_take(cfg):
+    ffn_routes = ffn_kernel_routes(cfg)
+    if not attn_routes and flash_train_routes(cfg, batch, seq):
         raise NotImplementedError(
-            f"training with use_fused_attn at head dim {cfg.head_dim}: JAX "
-            "routes it to the attention megakernel, whose port takes head "
-            f"dims {HEAD_DIMS} {where}; set use_fused_attn=False to train "
-            "the plain attention path")
-    if attn_routes and cfg.use_int8_train_attn:
+            f"training with use_flash_attention at batch {batch} x seq "
+            f"{seq}: JAX routes it to the flash kernels, which are not "
+            f"ported yet {_WHERE}")
+    if cfg.use_fused_ln and not (attn_routes and ffn_routes):
         raise NotImplementedError(
-            "training with use_int8_train_attn: the int8 attention training "
-            f"kernels (fused_attention.py:436, :565) are not ported yet "
-            f"{where}")
-    if (not attn_routes and cfg.use_flash_attention
-            and seq >= cfg.flash_min_seq):
+            "training with use_fused_ln: JAX runs the fused LayerNorm kernel "
+            "on the plain attention and FFN paths, and it is not ported yet "
+            f"{_WHERE}")
+    if cfg.use_fused_gelu and not ffn_routes:
         raise NotImplementedError(
-            f"training with use_flash_attention at seq {seq} >= "
-            f"flash_min_seq {cfg.flash_min_seq}: the flash kernels are not "
-            f"ported yet {where}")
-    if ffn_kernel_routes(cfg) and (cfg.use_int8_train
-                                   or cfg.use_int8_train_bwd):
+            "training with use_fused_gelu: JAX runs the fused GELU kernel on "
+            f"the plain FFN path, and it is not ported yet {_WHERE}")
+    if cfg.use_fused_embedding and position_ids is None:
         raise NotImplementedError(
-            f"training with use_int8_train: the int8 FFN training kernels "
-            f"(fused_ffn.py:404, :533) are not ported yet {where}")
-    for flag in ("use_fused_ln", "use_fused_gelu", "use_fused_embedding"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"training with {flag}: that Pallas kernel is not ported "
-                f"yet {where}")
+            "training with use_fused_embedding: JAX runs the fused embedding "
+            f"kernel without position_ids, and it is not ported yet {_WHERE}")
 
 
 def _qdense(x: torch.Tensor, kernel, bias: torch.Tensor,
@@ -306,7 +348,7 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
         if seed is None:
             raise ValueError("encoder_forward: deterministic=False requires "
                              "a seed")
-        _refuse_unported_training(cfg, input_ids.shape[1])
+        _refuse_unported_training(cfg, *input_ids.shape, position_ids)
     x = _embed(params, input_ids, token_type_ids, cfg,
                position_ids=position_ids, seed=seed if train else None)
     b, s, h = x.shape
@@ -314,20 +356,31 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
     cdt = cfg.cdtype
     lp = params["layers"]
     if train:
-        attn_route = "bf16" if attn_train_routes(cfg, s) else None
+        attn_route = None
+        if attn_train_routes(cfg, s):
+            attn_route = "int8_train" if cfg.use_int8_train_attn else "bf16"
     elif is_quantized(lp["qkv_kernel"]):
         attn_route = "int8" if int8_attn_kernel_routes(cfg, s) else None
     else:
         attn_route = "bf16" if attn_kernel_routes(cfg, s) else None
+    if attn_route is not None:
+        _refuse_head_dim(cfg)
     ffn_route = None
     if ffn_kernel_routes(cfg):
-        ffn_route = "int8" if is_quantized(lp["ffn_in_kernel"]) else "bf16"
-        if train and ffn_route == "int8":
-            ffn_route = None            # serving-only kernels, as in JAX
+        if is_quantized(lp["ffn_in_kernel"]):
+            # serving-only kernels, as in JAX
+            ffn_route = None if train else "int8"
+        else:
+            ffn_route = "int8_train" if train and cfg.use_int8_train \
+                else "bf16"
     if attn_route == "bf16":
         from ..ops.fused_attention import fused_attention_block
+    if attn_route == "int8_train":
+        from ..ops.fused_attention import fused_attention_block_int8_train
     if ffn_route == "bf16":
         from ..ops.fused_ffn import fused_ffn_block
+    if ffn_route == "int8_train":
+        from ..ops.fused_ffn import fused_ffn_block_int8_train
     if "int8" in (attn_route, ffn_route):
         from ..ops.int8_serving import int8_attention_block, int8_ffn_block
 
@@ -346,6 +399,14 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
                 wo["scale"], p["attn_out_bias"], p["attn_ln_scale"],
                 p["attn_ln_bias"], attn_mask, n_heads=nh,
                 eps=cfg.layer_norm_eps)
+        elif attn_route == "int8_train":
+            x = fused_attention_block_int8_train(
+                x, p["qkv_kernel"].to(cdt), p["qkv_bias"],
+                p["attn_out_kernel"].to(cdt), p["attn_out_bias"],
+                p["attn_ln_scale"], p["attn_ln_bias"], attn_mask,
+                n_heads=nh, attn_dropout=cfg.attn_dropout,
+                hidden_dropout=hidden_rate, seed=fold_in(lseed, 1),
+                eps=cfg.layer_norm_eps, int8_bwd=cfg.use_int8_train_bwd)
         elif attn_route == "bf16":
             x = fused_attention_block(
                 x, p["qkv_kernel"].to(cdt), p["qkv_bias"],
@@ -376,6 +437,13 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
                 x, w1["q"], w1["scale"], p["ffn_in_bias"], w2["q"],
                 w2["scale"], p["ffn_out_bias"], p["ffn_ln_scale"],
                 p["ffn_ln_bias"], eps=cfg.layer_norm_eps)
+        elif ffn_route == "int8_train":
+            x = fused_ffn_block_int8_train(
+                x, p["ffn_in_kernel"].to(cdt), p["ffn_in_bias"],
+                p["ffn_out_kernel"].to(cdt), p["ffn_out_bias"],
+                p["ffn_ln_scale"], p["ffn_ln_bias"],
+                dropout_rate=hidden_rate, seed=fold_in(lseed, 3),
+                eps=cfg.layer_norm_eps, int8_bwd=cfg.use_int8_train_bwd)
         elif ffn_route == "bf16":
             x = fused_ffn_block(
                 x, p["ffn_in_kernel"].to(cdt), p["ffn_in_bias"],

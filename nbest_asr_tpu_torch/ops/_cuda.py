@@ -6,7 +6,8 @@ a plain C interface, loaded with ctypes.  The library name carries a hash
 of the sources and flags, so an edit rebuilds and an unchanged checkout
 reuses the library in ``build/nbest_asr_tpu_torch/`` (git-ignored).  The
 build runs on first use -- never at import -- and a failure raises with
-nvcc's stderr.
+nvcc's stderr.  ``-Xptxas -v`` makes ptxas report each kernel instance's
+registers, shared memory and spills; ``build_report`` keeps those lines.
 
 ``launch_counts`` counts, per kernel, the launches made by the wrappers
 in ``ops/kernels.py`` (plain integers, incremented only where a kernel is
@@ -28,16 +29,17 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "nbest_asr_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("gemm_bias_act", "gemm_bias_residual", "layer_norm",
            "seg_attention", "quantize_rows", "gemm_i8_bias_act",
            "gemm_i8_bias_residual", "ffn_bwd_rows", "gemm_dgrad",
-           "seg_attention_bwd")
+           "seg_attention_bwd", "quantize_grad_rows", "gemm_i8_dgrad")
 launch_counts = {name: 0 for name in KERNELS}
 
 _lib = None
 build_seconds = None      # wall time of the nvcc build this process ran
+build_report = []         # ptxas resource lines of that build, per source
 
 
 def reset_launch_counts() -> None:
@@ -81,8 +83,12 @@ def build() -> pathlib.Path:
     t0 = time.perf_counter()
     srcs = sorted(CSRC.glob("*.cu"))
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
-    _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
-          for s, o in zip(srcs, objs)])
+    logs = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                 for s, o in zip(srcs, objs)])
+    build_report[:] = [f"{src.name}: {line.strip()}"
+                       for src, log in zip(srcs, logs)
+                       for line in log.splitlines()
+                       if "ptxas info" in line or "spill" in line]
     _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     for obj in objs:
         obj.unlink()
@@ -91,9 +97,9 @@ def build() -> pathlib.Path:
     return so
 
 
-def _run(cmds) -> None:
+def _run(cmds) -> list:
     """Run the commands in parallel; wait for all, then raise with the
-    stderr of each that failed."""
+    stderr of each that failed; returns each command's stderr."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
@@ -103,6 +109,7 @@ def _run(cmds) -> None:
            for c, err, rc in errs if rc != 0]
     if bad:
         raise RuntimeError("\n".join(bad))
+    return [err for _, err, _ in errs]
 
 
 def lib() -> ctypes.CDLL:
@@ -122,8 +129,10 @@ def lib() -> ctypes.CDLL:
     L.nbk_seg_attention.argtypes = [p, p, p, p, i, i, i, i, f, *drop, p]
     L.nbk_seg_attention_bwd.argtypes = [p] * 6 + [i, i, i, i, f, *drop, p]
     L.nbk_quantize_rows.argtypes = [p, p, p, i, i, i, p]
-    L.nbk_gemm_i8_bias_act.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-    L.nbk_gemm_i8_bias_residual.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    L.nbk_quantize_grad_rows.argtypes = [p, p, p, p, i, i, i, *drop, p]
+    L.nbk_gemm_i8_bias_act.argtypes = [p] * 7 + [i, i, i, i, *drop, p]
+    L.nbk_gemm_i8_bias_residual.argtypes = [p] * 8 + [i, i, i, *drop, p]
+    L.nbk_gemm_i8_dgrad.argtypes = [p] * 8 + [i, i, i, i, *drop, p]
     for name in KERNELS:
         getattr(L, f"nbk_{name}").restype = ctypes.c_int
     L.nbk_error_string.argtypes = [i]

@@ -43,6 +43,18 @@ The attention block's training chain (``ops/fused_attention.py``) gives
                            forward's row statistics (a dQ kernel, then a
                            dK/dV kernel)
 
+The int8 training blocks (``ops/fused_ffn.py``, ``ops/fused_attention.py``,
+``*_int8_train``) give ``gemm_i8_bias_act`` and ``gemm_i8_bias_residual``
+the same Philox dropout sites and saved residuals, and add two kernels for
+their int8 backwards:
+
+- ``quantize_grad_rows`` -- per-token int8 of ``drop(g) * ws``, a gradient
+                            with the weight's per-output scales folded in
+- ``gemm_i8_dgrad``      -- ``f32(gq . wq^T) * g_scale`` for the quantized
+                            (in, out) weight row-major, with the "dgelu"
+                            (dh in bf16 and f32, the regenerated gd),
+                            "residual" and "none" epilogues
+
 A wrapper given CPU tensors runs the plain version (``*_reference``).
 Given CUDA tensors it checks dtype, shape and contiguity, raises on what
 the kernel does not take, allocates the output with ``torch.empty``,
@@ -53,18 +65,20 @@ to the plain version.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from . import _cuda
 from .layers import acc_dtype, gelu, gelu_grad, layer_norm_stats
 from .philox import Dropout, threshold
-from .quant import dequant, int_dot, quantize_rows_reference
+from .quant import dequant, int_dot, quantize_rows_reference, symmetric_int8
 
 # fill for masked-out scores, as the TPU kernels use
 # (nbest_asr_tpu/ops/flash_attention.py:MASK_VALUE)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_SEQ = 512                 # one-block ceiling, fused_attention.FAB_MAX_SEQ
-HEAD_DIMS = (64, 128)         # head dims the attention kernels take
+HEAD_DIMS = (64, 128, 192, 256)   # head dims the attention kernels take
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
@@ -186,17 +200,56 @@ def ffn_bwd_rows_reference(x, y2d, dy, ls, mean, rstd, drop=None):
 
 
 def gemm_i8_bias_act_reference(xq, xs, wq, ws, bias, act: str = "none",
-                               out_dtype=torch.bfloat16):
-    y = dequant(int_dot(xq, wq), xs[:, None], ws, bias).to(out_dtype)
+                               out_dtype=torch.bfloat16, drop=None,
+                               save_h: bool = False):
+    h = dequant(int_dot(xq, wq), xs[:, None], ws, bias).to(out_dtype)
+    y = h
     if act == "gelu":
-        y = gelu(y)
-    return y
+        g = gelu(h.to(acc_dtype(out_dtype)))
+        if drop is not None:
+            g = drop.apply(g)
+        y = g.to(out_dtype)
+    return (h, y) if save_h else y
 
 
-def gemm_i8_bias_residual_reference(xq, xs, wq, ws, bias, resid):
-    y = dequant(int_dot(xq, wq), xs[:, None], ws, bias).to(resid.dtype)
+def gemm_i8_bias_residual_reference(xq, xs, wq, ws, bias, resid, drop=None,
+                                    save_y2d: bool = False):
     acc = acc_dtype(resid.dtype)
-    return y.to(acc) + resid.to(acc)
+    y2 = dequant(int_dot(xq, wq), xs[:, None], ws, bias).to(
+        resid.dtype).to(acc)
+    if drop is not None:
+        y2 = drop.apply(y2)
+    s = y2 + resid.to(acc)
+    return (s, y2.to(resid.dtype)) if save_y2d else s
+
+
+def quantize_grad_rows_reference(g, ws, drop=None):
+    """``quant_rows.cu``'s gradient variant: per-row int8 of ``drop(g) *
+    ws`` in f32 (``nbest_asr_tpu/ops/fused_ffn.py:_dgrad_rows_i8``)."""
+    g32 = g.to(torch.float32)
+    if drop is not None:
+        g32 = drop.apply(g32)
+    q, scale = symmetric_int8(g32 * ws.to(torch.float32), -1)
+    return q, scale.squeeze(-1)
+
+
+def gemm_i8_dgrad_reference(gq, gs, wq, epilogue: str, h=None, ds=None,
+                            drop=None, out_dtype=torch.bfloat16):
+    """d = f32(gq . wq^T) * gs for wq (N, K), then the epilogue (see
+    ``gemm_i8_dgrad``)."""
+    d = int_dot(gq, wq.t()).to(torch.float32) * gs[:, None]
+    if epilogue == "none":
+        return d.to(out_dtype)
+    if epilogue == "residual":
+        return (ds.to(torch.float32) + d).to(out_dtype)
+    if drop is not None:
+        d = drop.apply(d)
+    h32 = h.to(acc_dtype(h.dtype))
+    dh = d * gelu_grad(h32)
+    g = gelu(h32)
+    if drop is not None:
+        g = drop.apply(g)
+    return dh.to(h.dtype), dh, g.to(h.dtype)
 
 
 def layer_norm_reference(s, scale, bias, eps: float, out_dtype,
@@ -444,7 +497,7 @@ def _attn_dims(name: str, qkv, mask, n_heads: int):
     b, s = mask.shape
     h = qkv.shape[1] // 3
     if h % n_heads or h // n_heads not in HEAD_DIMS:
-        raise ValueError(f"{name}: the kernel takes head dims 64 and 128, "
+        raise ValueError(f"{name}: the kernel takes head dims {HEAD_DIMS}, "
                          f"got {h}/{n_heads}")
     if s > MAX_SEQ:
         raise ValueError(f"{name}: seq {s} > {MAX_SEQ}")
@@ -522,43 +575,145 @@ def quantize_rows(x):
 
 
 def gemm_i8_bias_act(xq, xs, wq, ws, bias, act: str = "none",
-                     out_dtype=torch.bfloat16):
+                     out_dtype=torch.bfloat16, drop=None,
+                     save_h: bool = False):
     """dequant(xq (M, K) int8 . wq (K, N) int8) + bias, rounded to
-    ``out_dtype``, then ``act`` ("none" or exact-erf "gelu") in f32 and
-    rounded again.  The kernel writes bf16."""
+    ``out_dtype`` (``h``), then ``act`` ("none" or exact-erf "gelu") in
+    f32, the Philox dropout ``drop`` (gelu only) and a second rounding.
+    The kernel writes bf16; ``(h, out)`` with ``save_h``."""
     if act not in ("none", "gelu"):
         raise ValueError(f"gemm_i8_bias_act: act must be 'none' or 'gelu', "
                          f"got {act!r}")
+    if drop is not None and act != "gelu":
+        raise ValueError("gemm_i8_bias_act: dropout follows the GELU only")
     if not _on_cuda("gemm_i8_bias_act", xq, xs, wq, ws, bias):
         return gemm_i8_bias_act_reference(xq, xs, wq, ws, bias, act,
-                                          out_dtype)
+                                          out_dtype, drop, save_h)
     if out_dtype != torch.bfloat16:
         raise TypeError(f"gemm_i8_bias_act: the kernel writes bf16, not "
                         f"{out_dtype}")
     M, N, K = _i8_operands("gemm_i8_bias_act", xq, xs, wq, ws, bias)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
+    h = torch.empty_like(out) if save_h else None
     rc = _cuda.lib().nbk_gemm_i8_bias_act(
         xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), M, N, K, 1 if act == "gelu" else 0,
-        _stream(xq))
+        bias.data_ptr(), out.data_ptr(), _ptr(h), M, N, K,
+        1 if act == "gelu" else 0, *_drop_args(drop), _stream(xq))
     _cuda.check(rc, "gemm_i8_bias_act")
     _cuda.launch_counts["gemm_i8_bias_act"] += 1
-    return out
+    return (h, out) if save_h else out
 
 
-def gemm_i8_bias_residual(xq, xs, wq, ws, bias, resid):
-    """f32(round(dequant(xq . wq) + bias)) + f32(resid), rounded to
-    resid's dtype first: the residual sum, in f32, that ``layer_norm``
-    normalises.  The kernel takes a bf16 residual."""
+def gemm_i8_bias_residual(xq, xs, wq, ws, bias, resid, drop=None,
+                          save_y2d: bool = False):
+    """y2 = drop(f32(round(dequant(xq . wq) + bias))), rounded to resid's
+    dtype first; y2 + f32(resid): the residual sum, in f32, that
+    ``layer_norm`` normalises; ``(sum, y2d)`` with ``save_y2d`` (y2d =
+    y2 in resid's dtype).  The kernel takes a bf16 residual."""
     if not _on_cuda("gemm_i8_bias_residual", xq, xs, wq, ws, bias, resid):
-        return gemm_i8_bias_residual_reference(xq, xs, wq, ws, bias, resid)
+        return gemm_i8_bias_residual_reference(xq, xs, wq, ws, bias, resid,
+                                               drop, save_y2d)
     M, N, K = _i8_operands("gemm_i8_bias_residual", xq, xs, wq, ws, bias)
     _expect("gemm_i8_bias_residual", "resid", resid, torch.bfloat16, (M, N))
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    y2d = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device) \
+        if save_y2d else None
     rc = _cuda.lib().nbk_gemm_i8_bias_residual(
         xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-        bias.data_ptr(), resid.data_ptr(), out.data_ptr(), M, N, K,
-        _stream(xq))
+        bias.data_ptr(), resid.data_ptr(), out.data_ptr(), _ptr(y2d), M, N,
+        K, *_drop_args(drop), _stream(xq))
     _cuda.check(rc, "gemm_i8_bias_residual")
     _cuda.launch_counts["gemm_i8_bias_residual"] += 1
-    return out
+    return (out, y2d) if save_y2d else out
+
+
+def quantize_grad_rows(g, ws, drop=None):
+    """Per-token symmetric int8 of ``drop(g) * ws`` for a gradient g (M, K)
+    bf16/f32 and the (K,) f32 per-output-channel scales of the weight the
+    next dgrad contracts over -> (q (M, K) int8, scale (M,) f32)."""
+    if not _on_cuda("quantize_grad_rows", g, ws):
+        return quantize_grad_rows_reference(g, ws, drop)
+    if g.dim() != 2 or g.shape[1] % 8:
+        raise ValueError(f"quantize_grad_rows: the kernel takes (M, K) with "
+                         f"K % 8 == 0, got {tuple(g.shape)}")
+    if g.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"quantize_grad_rows: g is {g.dtype}, the kernel "
+                        "takes bf16 or f32")
+    M, K = g.shape
+    _expect("quantize_grad_rows", "g", g, g.dtype, (M, K))
+    _expect("quantize_grad_rows", "ws", ws, torch.float32, (K,))
+    if ws.data_ptr() % 16:
+        raise ValueError("quantize_grad_rows: ws must be 16-byte aligned")
+    q = torch.empty((M, K), dtype=torch.int8, device=g.device)
+    scale = torch.empty((M,), dtype=torch.float32, device=g.device)
+    rc = _cuda.lib().nbk_quantize_grad_rows(
+        g.data_ptr(), ws.data_ptr(), q.data_ptr(), scale.data_ptr(), M, K,
+        int(g.dtype == torch.float32), *_drop_args(drop), _stream(g))
+    _cuda.check(rc, "quantize_grad_rows")
+    _cuda.launch_counts["quantize_grad_rows"] += 1
+    return q, scale
+
+
+def gemm_i8_dgrad(gq, gs, wq, epilogue: str, h=None, ds=None, drop=None,
+                  out_dtype=torch.bfloat16):
+    """The int8 dgrad ``d = f32(gq (M, K) . wq^T) * gs`` of a gradient
+    quantized by ``quantize_grad_rows``, for ``wq`` (N, K) the forward's
+    quantized (in, out) weight in its row-major layout, with the
+    backwards' epilogues:
+
+    - "dgelu": ``(dh, dh32, gd)``, dh32 = drop(d) * gelu'(f32 h) in f32,
+      dh its bf16 rounding and gd = bf16(drop(gelu(f32 h))), for h (M, N)
+      bf16;
+    - "residual": dx = bf16(ds + d), for ds (M, N) f32;
+    - "none": bf16(d) (the attention block's dctx)."""
+    if epilogue not in DGRAD_EPILOGUES:
+        raise ValueError(f"gemm_i8_dgrad: epilogue must be one of "
+                         f"{sorted(DGRAD_EPILOGUES)}, got {epilogue!r}")
+    operand = {"dgelu": h, "residual": ds, "none": gs}[epilogue]
+    if operand is None:
+        raise ValueError(f"gemm_i8_dgrad: the {epilogue!r} epilogue needs "
+                         f"{'h' if epilogue == 'dgelu' else 'ds'}")
+    if epilogue != "dgelu" and drop is not None:
+        raise ValueError(f"gemm_i8_dgrad: the {epilogue} epilogue has no "
+                         "dropout")
+    if not _on_cuda("gemm_i8_dgrad", gq, gs, wq, operand):
+        return gemm_i8_dgrad_reference(gq, gs, wq, epilogue, h, ds, drop,
+                                       out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"gemm_i8_dgrad: the kernel writes bf16, not "
+                        f"{out_dtype}")
+    M, N, K = _gemm_dims("gemm_i8_dgrad", gq, wq.t(), k_mult=64)
+    _expect("gemm_i8_dgrad", "gq", gq, torch.int8, (M, K))
+    _expect("gemm_i8_dgrad", "g_scale", gs, torch.float32, (M,))
+    _expect("gemm_i8_dgrad", "wq", wq, torch.int8, (N, K))
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=gq.device)
+    dh32 = gd = None
+    if epilogue == "dgelu":
+        _expect("gemm_i8_dgrad", "h", h, torch.bfloat16, (M, N))
+        dh32 = torch.empty((M, N), dtype=torch.float32, device=gq.device)
+        gd = torch.empty_like(out)
+    elif epilogue == "residual":
+        _expect("gemm_i8_dgrad", "ds", ds, torch.float32, (M, N))
+    rc = _cuda.lib().nbk_gemm_i8_dgrad(
+        gq.data_ptr(), gs.data_ptr(), wq.data_ptr(), out.data_ptr(),
+        _ptr(dh32), _ptr(h), _ptr(gd), _ptr(ds), M, N, K,
+        DGRAD_EPILOGUES[epilogue], *_drop_args(drop), _stream(gq))
+    _cuda.check(rc, "gemm_i8_dgrad")
+    _cuda.launch_counts["gemm_i8_dgrad"] += 1
+    return (out, dh32, gd) if epilogue == "dgelu" else out
+
+
+def chain_ops(plain: bool) -> SimpleNamespace:
+    """The block chains' operations by the wrappers' names: the wrappers
+    (kernels on CUDA tensors), or with ``plain`` their plain versions on
+    any device -- so one autograd Function runs either chain, and the
+    card can hold a whole block to its plain version."""
+    names = ("quantize_rows", "quantize_grad_rows", "gemm_bias_act",
+             "gemm_bias_residual", "gemm_dgrad", "gemm_i8_bias_act",
+             "gemm_i8_bias_residual", "gemm_i8_dgrad", "ffn_bwd_rows",
+             "seg_attention", "seg_attention_bwd")
+    g = globals()
+    ops = {n: g[f"{n}_reference" if plain else n] for n in names}
+    ops["layer_norm_rows"] = layer_norm_reference if plain else \
+        layer_norm_rows
+    return SimpleNamespace(**ops)

@@ -597,3 +597,223 @@ def test_attention_train_wrappers_refuse_and_count(dev):
         "gemm_bias_act": 1, "seg_attention": 1, "gemm_bias_residual": 1,
         "layer_norm": 1, "ffn_bwd_rows": 1, "gemm_dgrad": 2,
         "seg_attention_bwd": 1}
+
+
+# --------------------------------------------------------------------- #
+# int8 training kernels: the dropout / saved-residual epilogues of the two
+# int8 forward GEMMs, the gradient quant and the three int8 dgrad
+# epilogues -- bit for bit where the integer dot and the same f32
+# operations decide (one bf16 ulp, or 1e-6 relative in f32, where erff /
+# expf meet torch.erf / torch.exp) -- and both int8 blocks, both
+# backwards, against the same Function on the kernels' plain versions.
+# The attention kernels' d = 192 and 256 instances against their plain
+# versions.
+# --------------------------------------------------------------------- #
+
+def _i8_train_weight(dev, k, n, seed):
+    """(q column-major, q row-major, scale) of a bf16 weight, as the int8
+    training blocks quantize it."""
+    from nbest_asr_tpu_torch.ops.quant import quantize_train_weight
+
+    return quantize_train_weight(_rand(dev, k, n, std=0.05, seed=seed))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m", [1, 60, 300])
+def test_gemm_i8_train_epilogues(dev, m, rate):
+    from nbest_asr_tpu_torch.ops.philox import keep_mask
+
+    xq, xs = K.quantize_rows(_rand(dev, m, 768, seed=m + 110))
+    w1q, _, w1s = _i8_train_weight(dev, 768, 3072, m + 111)
+    b1 = _rand(dev, 3072, std=0.1, dtype=torch.float32, seed=m + 112)
+    d1, d2 = _drop(rate, 1), _drop(rate, 2)
+    h, gd = K.gemm_i8_bias_act(xq, xs, w1q, w1s, b1, "gelu", drop=d1,
+                               save_h=True)
+    torch.cuda.synchronize()
+    rh, rgd = K.gemm_i8_bias_act_reference(xq, xs, w1q, w1s, b1, "gelu",
+                                           torch.bfloat16, d1, True)
+    assert torch.equal(h, rh)
+    assert torch.equal(gd == 0, rgd == 0)
+    assert _ulps(gd[rgd != 0], rgd[rgd != 0]) <= 1.0
+    gq, gs = K.quantize_rows(gd)
+    w2q, _, w2s = _i8_train_weight(dev, 3072, 768, m + 113)
+    b2 = _rand(dev, 768, std=0.1, dtype=torch.float32, seed=m + 114)
+    x = _rand(dev, m, 768, seed=m + 115)
+    s, y2d = K.gemm_i8_bias_residual(gq, gs, w2q, w2s, b2, x, drop=d2,
+                                     save_y2d=True)
+    torch.cuda.synchronize()
+    rs, ry2d = K.gemm_i8_bias_residual_reference(gq, gs, w2q, w2s, b2, x,
+                                                 d2, True)
+    assert torch.equal(s, rs) and torch.equal(y2d, ry2d)
+    if rate > 0:
+        assert (gd[~keep_mask(1234, 1, 0, m, 3072, rate, dev)] == 0).all()
+        assert (y2d[~keep_mask(1234, 2, 0, m, 768, rate, dev)] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m,k", [(1, 768), (60, 3072), (300, 2304)])
+def test_quantize_grad_rows(dev, m, k, rate, dtype):
+    from nbest_asr_tpu_torch.ops.philox import keep_mask
+
+    g = _rand(dev, m, k, std=1e-3, dtype=dtype, seed=m + 120)
+    ws = _rand(dev, k, std=1e-3, dtype=torch.float32, seed=m + 121).abs()
+    drop = _drop(rate, 4)
+    q, s = K.quantize_grad_rows(g, ws, drop)
+    torch.cuda.synchronize()
+    rq, rs = K.quantize_grad_rows_reference(g, ws, drop)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    if rate > 0:
+        assert (q[~keep_mask(1234, 4, 0, m, k, rate, dev)] == 0).all()
+
+
+@pytest.mark.parametrize("epilogue", ["dgelu", "residual", "none"])
+@pytest.mark.parametrize("m", [1, 60, 300, 8192])
+def test_gemm_i8_dgrad(dev, m, epilogue):
+    n_in, n_out = {"dgelu": (3072, 768), "residual": (768, 3072),
+                   "none": (768, 768)}[epilogue]
+    _, wr, ws = _i8_train_weight(dev, n_in, n_out, m + 130)
+    gq, gs = K.quantize_grad_rows(_rand(dev, m, n_out, std=1e-3,
+                                        dtype=torch.float32, seed=m + 131),
+                                  ws)
+    if epilogue == "dgelu":
+        h = _rand(dev, m, n_in, seed=m + 132)
+        d1 = _drop(0.1, 1)
+        dh, dh32, gd = K.gemm_i8_dgrad(gq, gs, wr, "dgelu", h=h, drop=d1)
+        torch.cuda.synchronize()
+        rdh, rdh32, rgd = K.gemm_i8_dgrad_reference(gq, gs, wr, "dgelu", h=h,
+                                                    drop=d1)
+        assert torch.equal(dh32 == 0, rdh32 == 0)
+        # gelu'(h) cancels near h = -0.75, so the f32 dh is held to the
+        # scale of the tensor: erff / expf against torch.erf / torch.exp
+        torch.testing.assert_close(dh32, rdh32, rtol=0,
+                                   atol=1e-6 * rdh32.abs().max().item())
+        assert _ulps(dh[rdh != 0], rdh[rdh != 0]) <= 1.0
+        assert torch.equal(gd == 0, rgd == 0)
+        assert _ulps(gd[rgd != 0], rgd[rgd != 0]) <= 1.0
+    elif epilogue == "residual":
+        ds = _rand(dev, m, n_in, dtype=torch.float32, seed=m + 133)
+        dx = K.gemm_i8_dgrad(gq, gs, wr, "residual", ds=ds)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, K.gemm_i8_dgrad_reference(gq, gs, wr,
+                                                         "residual", ds=ds))
+    else:
+        out = K.gemm_i8_dgrad(gq, gs, wr, "none")
+        torch.cuda.synchronize()
+        assert torch.equal(out, K.gemm_i8_dgrad_reference(gq, gs, wr,
+                                                          "none"))
+
+
+def _hold_blocks(outs):
+    """Kernel chain's output and gradients against the plain chain's on
+    the same bf16 inputs: an int8 rounding that a one-ulp GELU difference
+    flips moves a few values, so 2% of the largest value and 1% of the
+    mean magnitude, as the bf16 blocks are held."""
+    for got, want in zip(*outs):
+        assert got.dtype == want.dtype
+        d = (got.float() - want.float()).abs()
+        assert d.max().item() <= 2e-2 * want.float().abs().max().item()
+        assert d.mean().item() <= 1e-2 * want.float().abs().mean().item()
+
+
+def _block_outs(fn, tensors, dy, *extra, **kw):
+    args = [t.clone().requires_grad_(True) for t in tensors]
+    y = fn(*args, *extra, **kw)
+    y.backward(dy)
+    return [y.detach()] + [a.grad for a in args]
+
+
+@pytest.mark.parametrize("int8_bwd", [False, True])
+def test_int8_train_blocks_match_their_plain_chains(dev, int8_bwd):
+    from nbest_asr_tpu_torch.ops.fused_attention import (
+        fused_attention_block_int8_train,
+        fused_attention_block_int8_train_reference)
+    from nbest_asr_tpu_torch.ops.fused_ffn import (
+        fused_ffn_block_int8_train, fused_ffn_block_int8_train_reference)
+
+    b, s = 4, 50
+    x = _rand(dev, b, s, 768, seed=140)
+    dy = _rand(dev, b, s, 768, seed=141)
+    ln = [1 + _rand(dev, 768, std=0.1, dtype=torch.float32, seed=142),
+          _rand(dev, 768, std=0.1, dtype=torch.float32, seed=143)]
+    ffn = [x, _rand(dev, 768, 3072, std=0.02, seed=144),
+           _rand(dev, 3072, std=0.02, dtype=torch.float32, seed=145),
+           _rand(dev, 3072, 768, std=0.02, seed=146),
+           _rand(dev, 768, std=0.02, dtype=torch.float32, seed=147), *ln]
+    kw = dict(dropout_rate=0.1, seed=5, int8_bwd=int8_bwd)
+    _hold_blocks([_block_outs(fn, ffn, dy, **kw) for fn in (
+        fused_ffn_block_int8_train, fused_ffn_block_int8_train_reference)])
+    attn = [x, _rand(dev, 768, 3 * 768, std=0.02, seed=148),
+            _rand(dev, 3 * 768, std=0.02, dtype=torch.float32, seed=149),
+            _rand(dev, 768, 768, std=0.02, seed=150),
+            _rand(dev, 768, std=0.02, dtype=torch.float32, seed=151), *ln]
+    mask = _attn_mask(dev, b, s, packed=True)
+    kw = dict(n_heads=12, attn_dropout=0.1, hidden_dropout=0.1, seed=5,
+              int8_bwd=int8_bwd)
+    _hold_blocks([_block_outs(fn, attn, dy, mask, **kw) for fn in (
+        fused_attention_block_int8_train,
+        fused_attention_block_int8_train_reference)])
+
+
+def test_int8_train_wrappers_refuse_and_count(dev):
+    from nbest_asr_tpu_torch.ops.fused_ffn import fused_ffn_block_int8_train
+
+    g = _rand(dev, 64, 768, dtype=torch.float32)
+    _, wr, ws = _i8_train_weight(dev, 3072, 768, 160)
+    gq, gs = K.quantize_grad_rows(g, ws)
+    with pytest.raises(TypeError):
+        K.quantize_grad_rows(g.half(), ws)
+    with pytest.raises(ValueError, match="shape"):
+        K.quantize_grad_rows(g, ws[:512])
+    with pytest.raises(ValueError, match="needs h"):
+        K.gemm_i8_dgrad(gq, gs, wr, "dgelu")
+    with pytest.raises(ValueError, match="no dropout"):
+        K.gemm_i8_dgrad(gq, gs, wr, "none", drop=_drop(0.1, 1))
+    with pytest.raises(ValueError, match="shape"):
+        K.gemm_i8_dgrad(gq, gs, wr.t().contiguous(), "none")
+    with pytest.raises(TypeError, match="bf16"):
+        K.gemm_i8_dgrad(gq, gs, wr, "none", out_dtype=torch.float32)
+    x = _rand(dev, 2, 32, 768).requires_grad_(True)
+    w = [_rand(dev, 768, 3072, std=0.02), torch.zeros(3072, device=dev),
+         _rand(dev, 3072, 768, std=0.02), torch.zeros(768, device=dev),
+         torch.ones(768, device=dev), torch.zeros(768, device=dev)]
+    for int8_bwd, want in (
+            (True, {"quantize_rows": 2, "gemm_i8_bias_act": 1,
+                    "gemm_i8_bias_residual": 1, "layer_norm": 1,
+                    "ffn_bwd_rows": 1, "quantize_grad_rows": 2,
+                    "gemm_i8_dgrad": 2}),
+            (False, {"quantize_rows": 2, "gemm_i8_bias_act": 1,
+                     "gemm_i8_bias_residual": 1, "layer_norm": 1,
+                     "ffn_bwd_rows": 1, "gemm_bias_act": 1,
+                     "gemm_dgrad": 2})):
+        _cuda.reset_launch_counts()
+        y = fused_ffn_block_int8_train(x, *w, dropout_rate=0.1, seed=3,
+                                       int8_bwd=int8_bwd)
+        y.backward(torch.ones_like(y))
+        assert {k: v for k, v in _cuda.launch_counts.items() if v} == want
+
+
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("s", [20, 130])
+def test_seg_attention_wide_heads(dev, s, d):
+    """The d = 192 and 256 instances (head dims JAX sends to its
+    megakernels, e.g. hidden 384 with 2 heads) against their plain
+    versions, forward with dropout and statistics, and backward."""
+    b, nh = 2, 2
+    h = nh * d
+    qkv = _rand(dev, b * s, 3 * h, std=0.5, seed=s + d + 170)
+    dctx = _rand(dev, b * s, h, std=0.1, seed=s + d + 171)
+    mask = _attn_mask(dev, b, s, packed=True)
+    drop = _drop(0.1, 3)
+    ctx, st = K.seg_attention(qkv, mask, nh, drop=drop, stats=True)
+    got = K.seg_attention_bwd(qkv, dctx, mask, st, nh, drop=drop)
+    torch.cuda.synchronize()
+    rctx, rst = K.seg_attention_reference(qkv, mask, nh, drop, stats=True)
+    _close(ctx, rctx)
+    torch.testing.assert_close(st, rst, rtol=1e-5, atol=1e-6)
+    want = K.seg_attention_bwd_reference(qkv, dctx, mask, st, nh, drop)
+    for part in range(3):
+        cols = slice(part * h, (part + 1) * h)
+        _close_rel(got[:, cols], want[:, cols])
+    _close(K.seg_attention(qkv, mask, nh), K.seg_attention_reference(
+        qkv, mask, nh))

@@ -94,6 +94,33 @@ def test_routing_matches_jax_rules():
     assert not tenc.ffn_kernel_routes(tiny)
 
 
+def test_head_dim_192_eval_routes_to_the_attention_kernels(monkeypatch):
+    """Head dim 192 (hidden 384, 2 heads): JAX's eval forward runs its
+    attention megakernel (``attn_lanes_ok``), and so does the port -- the
+    layer goes to ``fused_attention_block`` (whose kernels now take d =
+    192), not to the plain path -- with the same result."""
+    from nbest_asr_tpu_torch.ops import fused_attention as tfa
+
+    kw = dict(ROUTABLE, hidden_size=384, num_layers=1, use_fused_ffn=False)
+    jcfg, tcfg = _configs(**kw)
+    assert tcfg.head_dim == 192 and tenc.attn_kernel_routes(tcfg, 24)
+    params = jax.device_get(jenc.init_encoder_params(
+        jax.random.PRNGKey(4), jcfg))
+    ids, mask, segs = _inputs(5)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jenc.encoder_forward(
+            params, jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(segs),
+            jcfg, deterministic=True))
+    calls = []
+    block = tfa.fused_attention_block
+    monkeypatch.setattr(tfa, "fused_attention_block",
+                        lambda *a, **k: calls.append(1) or block(*a, **k))
+    got = tenc.encoder_forward(from_jax_numpy(params), _t(ids), _t(mask),
+                               _t(segs), tcfg).numpy()
+    assert len(calls) == 1
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
 def _model_pair(which, memory):
     jcfg, tcfg = _configs(**(TINY if which == "tiny" else ROUTABLE))
     jm = jmodel.ModelConfig(encoder=jcfg, n_top=memory.n_top,

@@ -58,6 +58,15 @@ CONFIGS = {
                       use_fused_ffn=True, use_fused_attn=False),
     "fused_attn": dict(hidden_size=128, num_heads=2, intermediate_size=256,
                        use_fused_ffn=True, use_fused_attn=True),
+    "fused_attn_int8": dict(hidden_size=128, num_heads=2,
+                            intermediate_size=256, use_fused_ffn=True,
+                            use_fused_attn=True, use_int8_train=True,
+                            use_int8_train_attn=True),
+    "fused_attn_int8_bwd": dict(hidden_size=128, num_heads=2,
+                                intermediate_size=256, use_fused_ffn=True,
+                                use_fused_attn=True, use_int8_train=True,
+                                use_int8_train_attn=True,
+                                use_int8_train_bwd=True),
 }
 
 
@@ -220,7 +229,35 @@ def test_dropout_step_is_seeded(tiny_memory):
                            c.params["encoder"]["layers"]["ffn_in_kernel"])
 
 
+def _one_step(tiny_memory, seed, **flags):
+    """One port train step on the fused-FFN configuration with ``flags``
+    (packed micros if ``packed``); returns its loss parts."""
+    flags = dict(flags)
+    packed = flags.pop("packed", False)
+    jcfg, tcfg = _configs(tiny_memory, "fused_ffn")
+    params = from_jax_numpy(jax.device_get(j_init(jax.random.PRNGKey(seed),
+                                                  jcfg)))
+    host = _host_data(tiny_memory, 9, seed=seed)
+    if packed:
+        host, _ = pack_train_data(host, capacity=SEQ, max_segs=3)
+        assert "position_ids" in host
+    data = {k: torch.from_numpy(v) for k, v in host.items()}
+    cfg = dataclasses.replace(tcfg, encoder=dataclasses.replace(
+        tcfg.encoder, **flags))
+    opt = make_optimizer(OptimizerConfig(**OPT), params)
+    step = make_train_step(cfg, LossConfig(), opt,
+                           hierarchy_device_arrays(tiny_memory.arrays()),
+                           n_accum=1, dual_stream=False)
+    state = TrainState(params, opt.init(params), 0)
+    return step(state, data, np.arange(4)[None],
+                torch.Generator().manual_seed(0))[1]["loss"]
+
+
 def test_eval_step_and_training_refusals(tiny_memory):
+    """The eval step runs; training raises exactly where JAX would run a
+    kernel the port lacks (each remaining case of
+    ``encoder._refuse_unported_training``), and eval where JAX would run
+    an attention megakernel at a head dim the port's kernels lack."""
     jcfg, tcfg = _configs(tiny_memory, "fused_ffn")
     params = from_jax_numpy(jax.device_get(j_init(jax.random.PRNGKey(6),
                                                   jcfg)))
@@ -231,18 +268,39 @@ def test_eval_step_and_training_refusals(tiny_memory):
                                                   np.arange(10))
     assert ev["pred"].shape == (10, tiny_memory.n_bottom)
     assert float(ev["counts"]["total"]) == 9.0
-    opt = make_optimizer(OptimizerConfig(**OPT), params)
-    state = TrainState(params, opt.init(params), 0)
-    gen = torch.Generator().manual_seed(0)
-    refused = [dict(use_flash_attention=True), dict(use_int8_train=True),
-               dict(use_fused_attn=True, use_int8_train_attn=True),
-               # JAX routes head dim 192 to its megakernel; the port's
-               # attention kernels take 64 and 128
-               dict(use_fused_attn=True, hidden_size=384)]
+    # JAX routes head dim 320 to its megakernels; the port's attention
+    # kernels take 64, 128, 192 and 256
+    d320 = dict(use_fused_attn=True, hidden_size=640, num_heads=2)
+    ecfg = dataclasses.replace(tcfg, encoder=dataclasses.replace(
+        tcfg.encoder, use_fused_attn_eval=True, **d320))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_eval_step(ecfg, LossConfig(), hier)(params, data, np.arange(10))
+    refused = [dict(use_flash_attention=True, flash_min_seq=16),
+               # the attention block takes the plain path here
+               dict(use_fused_ln=True),
+               dict(use_fused_gelu=True, use_fused_ffn=False),
+               # unpacked rows carry no position_ids
+               dict(use_fused_embedding=True),
+               d320]
     for flags in refused:
-        cfg = dataclasses.replace(tcfg, encoder=dataclasses.replace(
-            tcfg.encoder, flash_min_seq=16, **flags))
-        step = make_train_step(cfg, LossConfig(), opt, hier, n_accum=1,
-                               dual_stream=False)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            step(state, data, np.arange(4)[None], gen)
+            _one_step(tiny_memory, 6, **flags)
+
+
+@pytest.mark.parametrize("flags", [
+    # seq 24 < flash_min_seq 160: JAX's plain XLA attention
+    dict(use_flash_attention=True),
+    # both megakernels take every layer: JAX never reads the flags
+    dict(use_fused_attn=True, use_fused_ln=True, use_fused_gelu=True),
+    # packed rows carry position_ids: JAX's plain embedding
+    dict(use_fused_embedding=True, packed=True),
+    # the bf16 FFN route ignores the int8 backward flag, as in JAX
+    dict(use_int8_train_bwd=True),
+    dict(use_int8_train=True),
+    dict(use_fused_attn=True, use_int8_train_attn=True),
+], ids=["flash_below_min_seq", "fused_ln_gelu_under_megakernels",
+        "fused_embedding_packed", "int8_bwd_alone", "int8_ffn",
+        "int8_attn"])
+def test_training_steps_where_jax_has_no_unported_kernel(tiny_memory, flags):
+    loss = _one_step(tiny_memory, 7, **flags)
+    assert all(np.isfinite(float(v)) for v in loss.values())
