@@ -85,6 +85,32 @@ Phases, each fatal on failure:
    same step with both int8 blocks on their kernels' plain versions; the
    30-step loss halving; step ms, utt/s, int8 block ms and peak memory
    beside the bf16 step's, and the per-step weight quantization's ms.
+8. The flash route's kernels against their plain versions with the same
+   Philox bits: the widened single-block pair (``seg_attention`` /
+   ``seg_attention_bwd`` on (b, s, heads, d) operands, QKV views at d =
+   64 and standalone tensors at d = 32 and 128, 32 x 256 and 48 x 160)
+   and the tiled ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` (32 x
+   1024 and 8 x 2048, d = 64 and 128), padded and packed masks, dropout 0
+   and 0.1, checking o, the statistics (row sum, lse, di), dq, dk, dv;
+   the tiled route forced at s = 256 drops exactly the single-block
+   route's probs (a one-hot probe against the stream-3 keep bits) and
+   agrees with it in value.  Kernel / plain / library / bound ms of the
+   tiled kernels at route B's layer, and flash attention forward +
+   backward against the plain attention path at every training shape.
+9. Route A, JAX's ``--no_fused_attn``: ``make_train_step`` with
+   ``use_flash_attention, use_fused_ffn`` (``use_fused_attn=False``), 3
+   steps per bucket: counters by ``PER_LAYER_TRAIN_FLASH_SB`` at 160 and
+   256 and ``PER_LAYER_TRAIN_FFN`` at 64 and 96 (flash_min_seq 160); step
+   ms, utt/s and peak memory per bucket; at dropout 0 one kernel step at
+   seq 256 against the plain encoder path; 30 steps on a fixed micro at
+   seq 160 halve the loss.
+10. Route B, the JAX trainer's TPU defaults at seq 1024: BERT-base with
+   ``max_position=1024``, ``use_flash_attention, use_fused_attn,
+   use_fused_ffn``, one micro of 32 rows; a padded step (lengths
+   768-1024) and a packed step (position_ids), counters by
+   ``PER_LAYER_TRAIN_TILED`` (the tiled kernels 12 x per micro); at
+   dropout 0 one kernel step against the same step with flash and the
+   FFN block on their plain versions.
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
@@ -122,6 +148,9 @@ KERNEL_SOURCES = {
     "seg_attention_bwd": "nbest_asr_tpu_torch/csrc/seg_attention_bwd.cu",
     "quantize_grad_rows": "nbest_asr_tpu_torch/csrc/quant_rows.cu",
     "gemm_i8_dgrad": "nbest_asr_tpu_torch/csrc/gemm_i8.cu",
+    "flash_fwd": "nbest_asr_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dq": "nbest_asr_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_bwd_dkv": "nbest_asr_tpu_torch/csrc/flash_attention_bwd.cu",
 }
 FAB = "nbest_asr_tpu/ops/fused_attention.py:152"
 FFN = "nbest_asr_tpu/ops/fused_ffn.py:166"
@@ -133,6 +162,7 @@ FFI8 = "nbest_asr_tpu/ops/fused_ffn.py:404"
 FFI8_B = "nbest_asr_tpu/ops/fused_ffn.py:533"
 FAI8 = "nbest_asr_tpu/ops/fused_attention.py:436"
 FAI8_B = "nbest_asr_tpu/ops/fused_attention.py:565"
+FLASH = "nbest_asr_tpu/ops/flash_attention.py"
 KERNEL_REPLACES = {
     "gemm_bias_act": f"{FAB} (QKV GEMM) + {FFN} (W1 GEMM + GELU + "
                      "dropout, _gelu_slice :153)",
@@ -161,6 +191,14 @@ KERNEL_REPLACES = {
                      f"@ W1^T :568) + {FAI8_B} (dout @ Wo^T :597; ds + dqkv "
                      "@ Wqkv^T :633-635)",
 }
+KERNEL_REPLACES["seg_attention"] += f" + {FLASH}:364 (_sb_fwd_kernel)"
+KERNEL_REPLACES["seg_attention_bwd"] += f" + {FLASH}:380 (_sb_bwd_kernel)"
+KERNEL_REPLACES.update({
+    "flash_fwd": f"{FLASH}:99 (_fwd_kernel: online softmax, prob dropout; "
+                 "the wrapper's transposes and padding :644-672)",
+    "flash_bwd_dq": f"{FLASH}:276 (_bwd_dq_kernel) + di = sum(do * o) "
+                    f"(_flash_core_bwd :499)",
+    "flash_bwd_dkv": f"{FLASH}:226 (_bwd_dkv_kernel)"})
 KERNEL_REPLACES["quantize_rows"] += (f" + {FFI8} (_quant_rows_f32 on x, gd "
                                      f":417, :424) + {FAI8} (on x, ctx :454, "
                                      ":471)")
@@ -197,6 +235,22 @@ PER_LAYER_TRAIN_I8_FWD = {"quantize_rows": 4, "gemm_i8_bias_act": 2,
                           "seg_attention": 2, "ffn_bwd_rows": 2,
                           "gemm_bias_act": 2, "gemm_dgrad": 4,
                           "seg_attention_bwd": 1}
+# ... on the flash route (JAX's --no_fused_attn: use_flash_attention, the
+# FFN block fused): the single-block kernels at seq >= flash_min_seq 160,
+# plain attention below; and the long-sequence route (seq 1024 > 512) on
+# the tiled kernels
+PER_LAYER_TRAIN_FLASH_SB = dict(PER_LAYER_TRAIN_FFN, seg_attention=1,
+                                seg_attention_bwd=1)
+PER_LAYER_TRAIN_TILED = dict(PER_LAYER_TRAIN_FFN, flash_fwd=1,
+                             flash_bwd_dq=1, flash_bwd_dkv=1)
+LONG_BATCH, LONG_SEQ = 32, 1024
+# the flash kernels' checks: single-block (b, s, heads, d, QKV views) and
+# tiled (b, s, heads, d) shapes
+FLASH_SB_SHAPES = ((32, 256, NH, 64, True), (48, 160, NH, 64, True),
+                   (48, 160, NH, 32, False), (48, 160, NH // 2, 128, False))
+FLASH_TILED_SHAPES = ((LONG_BATCH, LONG_SEQ, NH, 64), (8, 2048, NH, 64),
+                      (LONG_BATCH, LONG_SEQ, NH // 2, 128),
+                      (8, 2048, NH // 2, 128))
 # training micro rows per bucket under the 8192-token budget
 # (nbest_asr_tpu/train/loop.py:430)
 TRAIN_MICRO = {64: 128, 96: 80, 160: 48, 256: 32}
@@ -1661,6 +1715,245 @@ def phase_train_kernels(dev, card: str):
     return check.max_err, times, bounds
 
 
+# --------------------------------------------------------------------- #
+# the flash route: single-block and tiled kernels
+# --------------------------------------------------------------------- #
+
+def flash_operands(gen, dev, b, s, nh, d, views: bool):
+    """q, k, v (b, s, nh, d) bf16 -- split views of one (b*s, 3 nh d)
+    buffer, as the encoder passes them, or standalone tensors -- and dO."""
+    def rn(*shape, std):
+        return (torch.randn(*shape, generator=gen) * std).to(dev,
+                                                             torch.bfloat16)
+
+    if views:
+        q, k, v = rn(b * s, 3 * nh * d, std=0.5).view(b, s, 3, nh,
+                                                       d).unbind(2)
+    else:
+        q, k, v = (rn(b, s, nh, d, std=0.5) for _ in range(3))
+    return q, k, v, rn(b, s, nh, d, std=0.1)
+
+
+def flash_bounds(b: int, s: int, nh: int, d: int):
+    """Each tiled kernel's bound at (b, s, nh, d): its inputs read once
+    and outputs written once (bf16 operands, f32 mask, lse and di), and
+    the tensor-core products it does on them: QK^T and PV in the forward;
+    QK^T, dO V^T and dS K in the dQ kernel; K Q^T, V dO^T, dV and dK in
+    the dK/dV kernel (2 b nh s^2 d operations each)."""
+    x, st, m = b * s * nh * d * 2, b * nh * s * 4, b * s * 4
+    prod = 2.0 * b * nh * s * s * d
+    return {"flash_fwd": bound(2 * prod, 3 * x + m + x + st, "bf16"),
+            "flash_bwd_dq": bound(3 * prod, 5 * x + m + st + x + st,
+                                  "bf16"),
+            "flash_bwd_dkv": bound(4 * prod, 4 * x + m + 2 * st + 2 * x,
+                                   "bf16")}
+
+
+def flash_library_calls(q, k, v, do, mask):
+    """F.scaled_dot_product_attention with the boolean segment mask and
+    prob dropout on the same (b, s, nh, d) operands: forward (flash_fwd's
+    yardstick), forward + backward (the backward kernels'); timed, used
+    nowhere in the port."""
+    F = torch.nn.functional
+    same = mask[:, None, :, None] == mask[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    go = do.transpose(1, 2)
+
+    def fwd_bwd():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        F.scaled_dot_product_attention(qq, kk, vv, attn_mask=same,
+                                       dropout_p=DROPOUT).backward(go)
+
+    return (lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=same, dropout_p=DROPOUT)), fwd_bwd
+
+
+def check_flash_mask_shared(dev):
+    """At s = 256 the tiled kernels (forced by a block size) draw the
+    single-block kernels' prob mask: with four packed segments of 64 and
+    one-hot v within a segment (v[k] = e_{k mod 64}), o[q, c] is the
+    dropped prob of key 64 seg(q) + c, so o != 0 must equal the stream-3
+    keep bits on the diagonal blocks on both routes; with random operands
+    the routes' outputs and gradients agree within the kernels'
+    tolerance.  Returns the max differences."""
+    from nbest_asr_tpu_torch.ops.flash_attention import flash_attention
+    from nbest_asr_tpu_torch.ops.philox import keep_mask
+
+    b, s, d, seed = 32, 256, H // NH, 2468
+    gen = torch.Generator().manual_seed(12)
+    mask = (torch.arange(s, device=dev) // 64 + 1).float()[None].repeat(b,
+                                                                       1)
+    keep = keep_mask(seed, 3, 0, b * NH * s, s, DROPOUT, dev).reshape(
+        b, NH, s, s)
+    seg = torch.arange(s, device=dev) // 64
+    cols = seg[:, None] * 64 + torch.arange(64, device=dev)[None]
+    want = torch.gather(keep, 3, cols[None, None].expand(b, NH, s, 64))
+    q, k, _, do = flash_operands(gen, dev, b, s, NH, d, True)
+    eye = torch.eye(64, device=dev, dtype=torch.bfloat16)
+    v1 = eye.repeat(4, 1)[None, :, None, :].expand(b, s, NH, d).contiguous()
+    for route, kw in (("single-block", {}),
+                      ("tiled", dict(block_q=128, block_k=128))):
+        o = flash_attention(q, k, v1, mask, dropout_rate=DROPOUT, seed=seed,
+                            **kw)
+        torch.cuda.synchronize()
+        n_diff = int(((o.permute(0, 2, 1, 3) != 0) != want).sum())
+        log(f"  {'ok ' if n_diff == 0 else 'BAD'} flash {route} route, s "
+            f"{s}: dropped probs vs the stream-3 keep bits: {n_diff} of "
+            f"{want.numel()} differ")
+        if n_diff:
+            raise AssertionError(f"the {route} flash route does not draw "
+                                 "the stream-3 prob mask")
+    q, k, v, do = flash_operands(gen, dev, b, s, NH, d, True)
+    outs = []
+    for kw in ({}, dict(block_q=128, block_k=128)):
+        qq, kk, vv = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        o = flash_attention(qq, kk, vv, mask, dropout_rate=DROPOUT,
+                            seed=seed, **kw)
+        o.backward(do)
+        outs.append((o.detach(), qq.grad, kk.grad, vv.grad))
+    torch.cuda.synchronize()
+    for name, a, w in zip(("o", "dq", "dk", "dv"), *outs):
+        dmax = (a.float() - w.float()).abs().max().item()
+        lim = 2.0 ** -6 * w.float().abs().max().item()
+        ok = dmax <= lim
+        log(f"  {'ok ' if ok else 'BAD'} flash tiled vs single-block {name}"
+            f", s {s}, same seed: max {dmax:.3e} (<= {lim:.3e})")
+        if not ok:
+            raise AssertionError(f"flash routes disagree on {name}")
+
+
+def phase_flash_kernels(dev, card: str):
+    """The flash route's kernels against their plain versions at the
+    shapes the training routes give them: the widened single-block pair
+    on (b, s, heads, d) operands (QKV views at d = 64, standalone tensors
+    at d = 32 and 128), the tiled kernels at 32 x 1024 and 8 x 2048, d =
+    64 and 128, padded and packed masks, dropout 0 and 0.1; the forced
+    tiled route against the single-block one; per-kernel kernel / plain /
+    library / bound ms at 32 x 1024 (route B's layer), and flash attention
+    forward + backward against the plain attention at every training
+    shape.  Returns (max errors, times, bounds)."""
+    from nbest_asr_tpu_torch.ops import kernels as K
+    from nbest_asr_tpu_torch.ops.attention import multi_head_attention
+    from nbest_asr_tpu_torch.ops.flash_attention import flash_attention
+    from nbest_asr_tpu_torch.ops.philox import generator, site
+
+    gen = torch.Generator().manual_seed(11)
+    check = Checker()
+    times = {}
+    log("[flash-kernels] single-block kernels on (b, s, heads, d) operands")
+    for b, s, nh, d, views in FLASH_SB_SHAPES:
+        q, k, v, do = flash_operands(gen, dev, b, s, nh, d, views)
+        sc = 1.0 / d ** 0.5
+        for mname, m in zip(("padded", "packed"), masks(b, s, gen, dev)):
+            for rate in (0.0, DROPOUT):
+                tag = f"{b} x {s} d {d} {mname} rate {rate}"
+                drop = site(100 + s, rate, 3)
+                o, st = K.sb_attention(q, k, v, m, sc, drop, True)
+                grads = K.sb_attention_bwd(q, k, v, do, m, st, sc, drop)
+                torch.cuda.synchronize()
+                ro, rst = K.sb_attention_reference(q, k, v, m, sc, drop,
+                                                   True)
+                check(f"flash sb o {tag}", "seg_attention", o, ro, False)
+                check.rel(f"flash sb row sum {tag}", "seg_attention", st[1],
+                          rst[1], 1e-5)
+                for part, g, r in zip("qkv", grads,
+                                      K.sb_attention_bwd_reference(
+                                          q, k, v, do, m, st, sc, drop)):
+                    check.sums(f"flash sb d{part} {tag}",
+                               "seg_attention_bwd", g, r)
+    log("[flash-kernels] tiled kernels")
+    for b, s, nh, d in FLASH_TILED_SHAPES:
+        q, k, v, do = flash_operands(gen, dev, b, s, nh, d, True)
+        sc = 1.0 / d ** 0.5
+        for mname, m in zip(("padded", "packed"), masks(b, s, gen, dev)):
+            for rate in (0.0, DROPOUT):
+                tag = f"{b} x {s} d {d} {mname} rate {rate}"
+                drop = site(200 + s, rate, 3)
+                o, lse = K.flash_fwd(q, k, v, m, sc, drop)
+                dq, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop)
+                dk, dv = K.flash_bwd_dkv(q, k, v, m, lse, di, do, sc, drop)
+                torch.cuda.synchronize()
+                ro, rlse = K.flash_fwd_reference(q, k, v, m, sc, drop)
+                check(f"flash_fwd o {tag}", "flash_fwd", o, ro, False)
+                check.rel(f"flash_fwd lse {tag}", "flash_fwd", lse, rlse,
+                          1e-5)
+                del ro, rlse
+                rdq, rdi = K.flash_bwd_dq_reference(q, k, v, m, o, lse, do,
+                                                    sc, drop)
+                check.rel(f"flash_bwd_dq di {tag}", "flash_bwd_dq", di, rdi,
+                          1e-4)
+                check.sums(f"flash_bwd_dq dq {tag}", "flash_bwd_dq", dq,
+                           rdq)
+                del rdq, rdi
+                for part, g, r in zip("kv", (dk, dv),
+                                      K.flash_bwd_dkv_reference(
+                                          q, k, v, m, lse, di, do, sc,
+                                          drop)):
+                    check.sums(f"flash_bwd_dkv d{part} {tag}",
+                               "flash_bwd_dkv", g, r)
+    log("[flash-kernels] forced tiled route against the single-block one")
+    check_flash_mask_shared(dev)
+
+    # per route-B layer (32 x 1024, d 64), padded mask, dropout 0.1
+    b, s, d = LONG_BATCH, LONG_SEQ, H // NH
+    q, k, v, do = flash_operands(gen, dev, b, s, NH, d, True)
+    m = masks(b, s, gen, dev)[0]
+    sc, drop = 1.0 / d ** 0.5, site(300, DROPOUT, 3)
+    o, lse = K.flash_fwd(q, k, v, m, sc, drop)
+    _, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop)
+    sdpa_fwd, sdpa_fwd_bwd = flash_library_calls(q, k, v, do, m)
+    t = {"flash_fwd": (
+             lambda: K.flash_fwd(q, k, v, m, sc, drop),
+             lambda: K.flash_fwd_reference(q, k, v, m, sc, drop), sdpa_fwd),
+         "flash_bwd_dq": (
+             lambda: K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop),
+             lambda: K.flash_bwd_dq_reference(q, k, v, m, o, lse, do, sc,
+                                              drop), sdpa_fwd_bwd),
+         "flash_bwd_dkv": (
+             lambda: K.flash_bwd_dkv(q, k, v, m, lse, di, do, sc, drop),
+             lambda: K.flash_bwd_dkv_reference(q, k, v, m, lse, di, do, sc,
+                                               drop), sdpa_fwd_bwd)}
+    for name, (fk, fp, fl) in t.items():
+        times[name] = (cuda_ms(fk), cuda_ms(fp, iters=1, warmup=1),
+                       cuda_ms(fl))
+    bounds = flash_bounds(b, s, NH, d)
+    for name, (k_ms, p_ms, l_ms) in times.items():
+        log(f"  time {name:<14} {b} x {s} d {d}: kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound "
+            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
+    del o, lse, di
+
+    # flash attention forward + backward per layer (q, k, v views of the
+    # QKV buffer, prob dropout) against the plain path's attention at the
+    # training shapes: each bucket's micro (route A) and 32 x 1024 (B)
+    for s, b in list(TRAIN_MICRO.items()) + [(LONG_SEQ, LONG_BATCH)]:
+        q, k, v, do = flash_operands(gen, dev, b, s, NH, d, True)
+        m = masks(b, s, gen, dev)[0]
+
+        def run(fn):
+            qq, kk, vv = (t.detach().requires_grad_(True)
+                          for t in (q, k, v))
+            fn(qq, kk, vv).backward(do)
+
+        times[("flash_attn_train", s)] = (
+            cuda_ms(lambda: run(lambda a, b_, c: flash_attention(
+                a, b_, c, m, dropout_rate=DROPOUT, seed=7))),
+            cuda_ms(lambda: run(lambda a, b_, c: multi_head_attention(
+                a, b_, c, m, dropout_rate=DROPOUT, gen=generator(7, dev),
+                deterministic=False)), iters=3, warmup=1))
+        k_ms, p_ms = times[("flash_attn_train", s)]
+        # autograd's backward of the encoder's qkv split concatenates the
+        # separate dq, dk, dv into one (b, s, 3h) gradient
+        g = do.reshape(b, s, H)
+        cat_ms = cuda_ms(lambda: torch.cat((g, g, g), dim=-1))
+        route = "tiled" if s > 512 else "single-block"
+        log(f"  time flash attention fwd+bwd ({route}) {b} x {s}: kernels "
+            f"{k_ms:.4f} ms, plain attention path {p_ms:.4f} ms; the qkv "
+            f"split's gradient concatenation {cat_ms:.4f} ms [{card}]")
+    return check.max_err, times, bounds
+
+
 def train_split(memory, tok, reqs, dev, seed: int):
     """Per bucket, the request's utterances as a training split on the
     device: DSTC2-shaped rows with 0-3 gold labels, one per top group."""
@@ -1724,8 +2017,10 @@ def plain_attention_ms(params, cfg, b, s, dev):
 
 
 # the training phases' routes: the encoder flags of the main path, its
-# launches per layer, a second route taken for one counted step, and the
-# block timings (phase 5) of the main path's blocks
+# launches per layer (per bucket where they differ), a second route taken
+# for one counted step, the per-layer timings (phase 5 / 8) of the main
+# path's attention and FFN, and the buckets of the dropout-0 gate and of
+# the 30-step loss halving (buckets where the route's kernels run)
 TRAIN_ROUTES = {
     "bf16": dict(
         flags=dict(use_fused_ffn=True, use_fused_attn=True),
@@ -1741,6 +2036,15 @@ TRAIN_ROUTES = {
         second=("int8 forwards, bf16 backwards (NBEST_BENCH_INT8=1)",
                 dict(use_int8_train_bwd=False), PER_LAYER_TRAIN_I8_FWD),
         blocks=("attn_block_train_i8b", "ffn_block_train_i8b")),
+    # route A: JAX's --no_fused_attn (flash_min_seq 160)
+    "flash": dict(
+        flags=dict(use_fused_ffn=True, use_fused_attn=False,
+                   use_flash_attention=True),
+        per_layer=lambda bucket: (PER_LAYER_TRAIN_FLASH_SB if bucket >= 160
+                                  else PER_LAYER_TRAIN_FFN),
+        second=None,
+        blocks=("flash_attn_train", "ffn_block_train"),
+        gate_bucket=256, fixed_bucket=160),
 }
 
 
@@ -1796,6 +2100,48 @@ class int8_blocks_on_plain_versions:
             fa.fused_attention_block_int8_train = self.saved
 
 
+# the dropout-0 gate's optimizer: eps = 1 makes BertAdam's first update
+# linear in the gradient (with the default 1e-6 it is m / sqrt(v) = +-3.16
+# for every element, whatever its size, and near-zero gradients would
+# flip with bf16 noise); a constant schedule makes step 0 move the
+# weights, and no weight decay leaves the deltas to the gradients alone
+GATE_OPT = dict(lr=1e-3, bert_lr=1e-3, schedule="none", eps=1.0,
+                weight_decay=0.0)
+
+
+def hold_step(params, outs):
+    """One kernel step against one plain step from the same ``params``
+    (``outs``: [(new params, loss parts)] for kernel, then plain): loss
+    parts within 1e-2 relative, every leaf's delta within 5e-2 of the
+    plain step's largest delta for that leaf (PERF.md section 2)."""
+    (kp, kl), (pp, pl) = outs
+    for k in kl:
+        rel = abs(kl[k] - pl[k]) / max(abs(pl[k]), 1e-30)
+        log(f"  dropout 0 loss {k}: kernel {kl[k]:.6f} plain {pl[k]:.6f} "
+            f"(rel {rel:.2e} <= 1e-2)")
+        if rel > 1e-2:
+            raise AssertionError(f"kernel and plain steps disagree on {k}")
+    worst = 0.0
+
+    def walk(a, b, c, path=""):
+        nonlocal worst
+        if isinstance(a, dict):
+            for key in a:
+                walk(a[key], b[key], c[key], f"{path}/{key}")
+            return
+        dk, dp = (b - a).double(), (c - a).double()
+        scale = dp.abs().max().item()
+        rr = (dk - dp).abs().max().item() / max(scale, 1e-30)
+        worst = max(worst, rr)
+        if rr > 5e-2 or scale == 0:
+            raise AssertionError(f"{path}: kernel-step delta off the plain "
+                                 f"step's by {rr:.3e} of its max {scale:.3e}")
+
+    walk(params, kp, pp)
+    log(f"  dropout 0 parameter deltas: worst leaf {worst:.3e} of its "
+        f"largest delta (<= 5e-2)")
+
+
 def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
     """The training slice through ``make_train_step`` on ``route``'s
     configuration (TRAIN_ROUTES); returns the launch counts of its
@@ -1829,8 +2175,12 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
                                 n_accum=N_ACCUM, dual_stream=False),
                 TrainState(params, opt.init(params), 0))
 
-    def expect(counts, per_layer, micros, what):
-        want = {k: per_layer.get(k, 0) * LAYERS * micros for k in counts}
+    def expect(counts, per_layer, micros_at, what):
+        """per_layer: launches per layer, or a function of the bucket
+        giving them; micros_at: {bucket: micros run there}."""
+        at = per_layer if callable(per_layer) else lambda _: per_layer
+        want = {k: sum(at(b).get(k, 0) * LAYERS * n
+                       for b, n in micros_at.items()) for k in counts}
         log(f"[train {route}] {what}: launches {counts}, expected {want}")
         if counts != want:
             raise AssertionError(f"{what}: launch counts differ from layers "
@@ -1841,12 +2191,12 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
     for bucket in BUCKETS:                      # warm-up, not counted
         step(state0, data[bucket], indices(bucket), gen)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
 
     # ---- main path: 3 steps per bucket, counted and timed -------------- #
     _cuda.reset_launch_counts()
-    step_ms = {}
+    step_ms, peaks = {}, {}
     for bucket in BUCKETS:
+        torch.cuda.reset_peak_memory_stats()
         state, ms = state0, []
         for _ in range(TRAIN_STEPS):
             e0 = torch.cuda.Event(enable_timing=True)
@@ -1860,29 +2210,35 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
             if not all(np.isfinite(v) for v in parts.values()):
                 raise AssertionError(f"bucket {bucket}: loss {parts}")
         step_ms[bucket] = ms
+        torch.cuda.synchronize()
+        peaks[bucket] = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"[train {route}] bucket {bucket} (micro {TRAIN_MICRO[bucket]} "
             f"x {N_ACCUM}): loss {parts}, counts "
             f"{ {k: float(v) for k, v in stats['counts'].items()} }")
     torch.cuda.synchronize()
     counts = dict(_cuda.launch_counts)
-    expect(counts, r["per_layer"], len(BUCKETS) * TRAIN_STEPS * N_ACCUM,
-           f"main path ({', '.join(k for k, v in r['flags'].items() if v)})")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flags_on = ", ".join(k for k, v in r["flags"].items() if v)
+    expect(counts, r["per_layer"],
+           {b: TRAIN_STEPS * N_ACCUM for b in BUCKETS},
+           f"main path ({flags_on})")
+    peak = max(peaks.values())
 
     # ---- the second route: one counted step at seq 64 ------------------ #
-    what, flags, per_layer = r["second"]
-    second, _ = new_state(dataclasses.replace(
-        cfg, encoder=dataclasses.replace(enc, **flags)), **okw)
-    second(state0, data[64], indices(64), gen)         # warm-up
-    torch.cuda.synchronize()
-    _cuda.reset_launch_counts()
-    _, stats = second(state0, data[64], indices(64), gen)
-    torch.cuda.synchronize()
-    second_counts = dict(_cuda.launch_counts)
-    expect(second_counts, per_layer, N_ACCUM, f"{what}, one step at seq 64")
-    if not all(np.isfinite(float(v)) for v in stats["loss"].values()):
-        raise AssertionError(f"{what}: loss {stats['loss']}")
-    counts = {k: counts[k] + second_counts[k] for k in counts}
+    if r["second"] is not None:
+        what, flags, second_per_layer = r["second"]
+        second, _ = new_state(dataclasses.replace(
+            cfg, encoder=dataclasses.replace(enc, **flags)), **okw)
+        second(state0, data[64], indices(64), gen)         # warm-up
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        _, stats = second(state0, data[64], indices(64), gen)
+        torch.cuda.synchronize()
+        second_counts = dict(_cuda.launch_counts)
+        expect(second_counts, second_per_layer, {64: N_ACCUM},
+               f"{what}, one step at seq 64")
+        if not all(np.isfinite(float(v)) for v in stats["loss"].values()):
+            raise AssertionError(f"{what}: loss {stats['loss']}")
+        counts = {k: counts[k] + second_counts[k] for k in counts}
 
     per_step = LAYERS * N_ACCUM
     attn_key, ffn_key = r["blocks"]
@@ -1896,6 +2252,10 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
         if route == "bf16":
             extra = (f", plain training path "
                      f"{plain_attention_ms(params, cfg, TRAIN_MICRO[bucket], bucket, dev):.3f}")
+        elif route == "flash":
+            extra = ("; this bucket's attention takes the "
+                     + ("single-block flash kernels" if bucket >= 160
+                        else "plain path"))
         else:
             extra = (f"; bf16 bwd route {block_ms[('attn_block_train_i8', bucket)][0]:.3f}"
                      f" / {block_ms[('ffn_block_train_i8', bucket)][0]:.3f} ms, "
@@ -1904,12 +2264,15 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
         beside_s = "" if beside is None else (
             f"; bf16 step mean {sum(beside[bucket]) / len(beside[bucket]):.2f}"
             " ms (phase 6)")
+        what_attn = ("flash attention (q, k, v to ctx)" if route == "flash"
+                     else "attention block")
         log(f"[train {route}] bucket {bucket}: step ms "
             f"{', '.join(f'{m:.2f}' for m in ms)} (mean {mean:.2f}); "
-            f"{utt:.1f} utt/s; per layer fwd+bwd: attention block kernels "
-            f"{attn[0]:.3f} ms (plain version {attn[1]:.3f}{extra}), FFN "
-            f"block kernels {ffn[0]:.3f} ms (plain {ffn[1]:.3f}); share of "
-            f"the step: attention {per_step * attn[0] / mean:.3f}, FFN "
+            f"{utt:.1f} utt/s; peak memory {peaks[bucket]:.2f} GiB; per "
+            f"layer fwd+bwd: {what_attn} kernels {attn[0]:.3f} ms (plain "
+            f"version {attn[1]:.3f}{extra}), FFN block kernels "
+            f"{ffn[0]:.3f} ms (plain {ffn[1]:.3f}); share of the step: "
+            f"attention {per_step * attn[0] / mean:.3f}, FFN "
             f"{per_step * ffn[0] / mean:.3f}{beside_s} [{card}]")
     log(f"[train {route}] peak memory {peak:.2f} GiB over the main-path "
         f"steps [{card}]")
@@ -1920,70 +2283,47 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
             f"quantize their weights) [{card}]")
 
     # ---- dropout 0: one kernel step and one plain step agree ------------ #
-    # eps = 1 makes BertAdam's first update linear in the gradient (with
-    # the default 1e-6 it is m / sqrt(v) = +-3.16 for every element,
-    # whatever its size, and near-zero gradients would flip with bf16
-    # noise); a constant schedule makes step 0 move the weights, and no
-    # weight decay leaves the deltas to the gradients alone.  bf16: the
-    # plain step is the plain encoder path (all kernel flags off); int8:
-    # the same int8 step with both blocks on their kernels' plain versions
+    # (GATE_OPT) bf16 and flash: the plain step is the plain encoder path
+    # (all kernel flags off); int8: the same int8 step with both blocks on
+    # their kernels' plain versions
     no_drop = dataclasses.replace(enc, hidden_dropout=0.0, attn_dropout=0.0)
-    cmp_kw = dict(lr=1e-3, bert_lr=1e-3, schedule="none", eps=1.0,
-                  weight_decay=0.0)
-    idx = indices(64)
+    gate_bucket = r.get("gate_bucket", 64)
+    idx = indices(gate_bucket)
     outs = []
     for which in ("kernel", "plain"):
         c = no_drop
-        if which == "plain" and route == "bf16":
+        if which == "plain" and route in ("bf16", "flash"):
             c = dataclasses.replace(plain_enc, hidden_dropout=0.0,
                                     attn_dropout=0.0)
-        st, s0 = new_state(dataclasses.replace(cfg, encoder=c), **cmp_kw)
+        st, s0 = new_state(dataclasses.replace(cfg, encoder=c), **GATE_OPT)
         _cuda.reset_launch_counts()
         if which == "plain" and route == "int8":
             with int8_blocks_on_plain_versions():
-                s1, stats = st(s0, data[64], idx,
+                s1, stats = st(s0, data[gate_bucket], idx,
                                torch.Generator().manual_seed(0))
             if any(_cuda.launch_counts.values()):
                 raise AssertionError("the plain-version step launched "
                                      f"kernels: {_cuda.launch_counts}")
         else:
-            s1, stats = st(s0, data[64], idx,
+            s1, stats = st(s0, data[gate_bucket], idx,
                            torch.Generator().manual_seed(0))
+        if which == "kernel" and route == "flash" and \
+                _cuda.launch_counts["seg_attention_bwd"] != LAYERS * N_ACCUM:
+            raise AssertionError("the flash route's gate step did not train "
+                                 f"through flash: {_cuda.launch_counts}")
         outs.append((s1.params, {k: float(v)
                                  for k, v in stats["loss"].items()}))
-    (kp, kl), (pp, pl) = outs
-    for k in kl:
-        rel = abs(kl[k] - pl[k]) / max(abs(pl[k]), 1e-30)
-        log(f"  dropout 0 loss {k}: kernel {kl[k]:.6f} plain {pl[k]:.6f} "
-            f"(rel {rel:.2e} <= 1e-2)")
-        if rel > 1e-2:
-            raise AssertionError(f"kernel and plain steps disagree on {k}")
-    worst = 0.0
-
-    def walk(a, b, c, path=""):
-        nonlocal worst
-        if isinstance(a, dict):
-            for key in a:
-                walk(a[key], b[key], c[key], f"{path}/{key}")
-            return
-        dk, dp = (b - a).double(), (c - a).double()
-        scale = dp.abs().max().item()
-        rr = (dk - dp).abs().max().item() / max(scale, 1e-30)
-        worst = max(worst, rr)
-        if rr > 5e-2 or scale == 0:
-            raise AssertionError(f"{path}: kernel-step delta off the plain "
-                                 f"step's by {rr:.3e} of its max {scale:.3e}")
-
-    walk(params, kp, pp)
-    log(f"  dropout 0 parameter deltas: worst leaf {worst:.3e} of its "
-        f"largest delta (<= 5e-2)")
+    log(f"[train {route}] dropout 0, seq {gate_bucket}: one kernel step "
+        "against one plain step")
+    hold_step(params, outs)
 
     # ---- 30 steps on one fixed micro, dropout on: the loss halves ------ #
     # lr 1e-4 under the trainer's warmup-linear schedule over the 30 steps;
     # bf16: the plain path's curve (its own dropout masks) is printed beside
     fix_kw = dict(lr=1e-4, bert_lr=1e-4, t_total=30)
-    fixed = rng.randint(0, data[64]["input_ids"].shape[0],
-                        (1, TRAIN_MICRO[64]))
+    fixed_bucket = r.get("fixed_bucket", 64)
+    fixed = rng.randint(0, data[fixed_bucket]["input_ids"].shape[0],
+                        (1, TRAIN_MICRO[fixed_bucket]))
     curves = {}
     runs = [("kernels", enc)] + ([("plain", plain_enc)]
                                  if route == "bf16" else [])
@@ -1996,9 +2336,10 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
         g = torch.Generator().manual_seed(5)
         curves[name] = []
         for _ in range(30):
-            state, stats = st(state, data[64], fixed, g)
+            state, stats = st(state, data[fixed_bucket], fixed, g)
             curves[name].append(float(stats["loss"]["total"]))
-        log(f"[train {route}] fixed micro, seq 64, lr 1e-4 warmup-linear, "
+        log(f"[train {route}] fixed micro, seq {fixed_bucket}, lr 1e-4 "
+            "warmup-linear, "
             f"dropout {DROPOUT}, {name}: total loss "
             f"{', '.join(f'{v:.1f}' for v in curves[name])}")
     losses = curves["kernels"]
@@ -2006,6 +2347,169 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
         raise AssertionError(f"loss {losses[0]:.2f} -> {losses[-1]:.2f}: "
                              "not halved in 30 steps")
     return counts, step_ms, peak
+
+
+class flash_and_ffn_on_plain_versions:
+    """Within the block, the encoder's flash attention and FFN block run
+    on their kernels' plain versions (the encoder and multi_head_attention
+    import them at each call)."""
+
+    def __enter__(self):
+        from nbest_asr_tpu_torch.ops import flash_attention as fa
+        from nbest_asr_tpu_torch.ops import fused_ffn as ff
+
+        self.saved = (fa.flash_attention, ff.fused_ffn_block)
+        fa.flash_attention = fa.flash_attention_reference
+        ff.fused_ffn_block = ff.fused_ffn_block_reference
+
+    def __exit__(self, *exc):
+        from nbest_asr_tpu_torch.ops import flash_attention as fa
+        from nbest_asr_tpu_torch.ops import fused_ffn as ff
+
+        fa.flash_attention, ff.fused_ffn_block = self.saved
+
+
+def long_micros(memory, dev, seed: int):
+    """Two micros of LONG_BATCH rows at seq LONG_SEQ on the device:
+    DSTC2-shaped token rows (segment 0, then 1 from half the row's
+    length; 0-3 gold labels, one per top group) padded from random
+    lengths in [768, 1024]; and rows packed (data/packing.py, up to 8
+    segments, position_ids restarting per segment) from utterances of
+    150-400 tokens."""
+    from nbest_asr_tpu_torch.data.packing import pack_train_data
+
+    rng = np.random.RandomState(seed)
+    groups = [sorted(m) for t, m in memory.top2bottom.items() if t > 1]
+
+    def host(n, lo, hi):
+        ids = rng.randint(5, VOCAB, (n, LONG_SEQ)).astype(np.int32)
+        mask = np.zeros((n, LONG_SEQ), np.float32)
+        segs = np.zeros((n, LONG_SEQ), np.int32)
+        labels = np.zeros((n, memory.n_bottom), np.float32)
+        for r in range(n):
+            length = rng.randint(lo, hi + 1)
+            mask[r, :length] = 1.0
+            ids[r, length:] = 0
+            segs[r, length // 2:length] = 1
+            for g in rng.choice(len(groups), size=rng.randint(0, 4),
+                                replace=False):
+                labels[r, groups[g][rng.randint(len(groups[g]))]] = 1.0
+        return {"input_ids": ids, "attn_mask": mask, "segment_ids": segs,
+                "trans_input_ids": ids.copy(), "trans_attn_mask": mask.copy(),
+                "trans_segment_ids": segs.copy(), "labels": labels}
+
+    padded = host(LONG_BATCH, 3 * LONG_SEQ // 4, LONG_SEQ)
+    packed, _ = pack_train_data(host(6 * LONG_BATCH, 150, 400),
+                                capacity=LONG_SEQ, max_segs=8)
+    packed = {k: v[:LONG_BATCH] for k, v in packed.items()}
+    return [{k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+            for d in (padded, packed)]
+
+
+def phase_train_long(dev, card: str, block_ms):
+    """Route B: the JAX trainer's TPU defaults (use_flash_attention,
+    use_fused_attn, use_fused_ffn) at BERT-base widths with max_position
+    1024, seed-0 random weights, one micro of 32 rows at seq 1024: the
+    attention megakernel's seq <= 512 fails and _flash_preferred(32, 1024,
+    12) holds (3 x 32 x 12 x 1024^2 x 2 B = 2.42 GB > 2 GiB), so every
+    layer's attention takes the tiled flash kernels and its FFN the FFN
+    chain.  Two counted steps (the padded micro, then the packed one),
+    counters by PER_LAYER_TRAIN_TILED; at dropout 0 one kernel step
+    against the same step with flash and the FFN block on their kernels'
+    plain versions.  Returns the counts and the step ms."""
+    import dataclasses
+
+    from nbest_asr_tpu_torch.models.encoder import EncoderConfig
+    from nbest_asr_tpu_torch.models.heads import hierarchy_device_arrays
+    from nbest_asr_tpu_torch.models.model import (ModelConfig,
+                                                  init_model_params)
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
+                                                         make_train_step)
+    from nbest_asr_tpu_torch.train.losses import LossConfig
+    from nbest_asr_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                     make_optimizer,
+                                                     tree_map)
+
+    memory = dstc2_like_memory()
+    enc = EncoderConfig.bert_base(
+        vocab_size=VOCAB, compute_dtype="bfloat16", max_position=LONG_SEQ,
+        hidden_dropout=DROPOUT, attn_dropout=DROPOUT,
+        use_flash_attention=True, use_fused_attn=True, use_fused_ffn=True)
+    cfg = ModelConfig(encoder=enc, n_top=memory.n_top,
+                      n_bottom=memory.n_bottom)
+    params = tree_map(lambda a: a.to(dev), init_model_params(
+        torch.Generator().manual_seed(0), cfg))
+    hier = hierarchy_device_arrays(memory.arrays(), dev)
+    micros = long_micros(memory, dev, seed=13)
+    idx = np.arange(LONG_BATCH)[None]
+    gen = torch.Generator().manual_seed(14)
+
+    def new_state(c, **okw):
+        opt = make_optimizer(OptimizerConfig(**okw), params)
+        return (make_train_step(c, LossConfig(), opt, hier, n_accum=1,
+                                dual_stream=False),
+                TrainState(params, opt.init(params), 0))
+
+    step, state = new_state(cfg, lr=5e-4, bert_lr=1e-4,
+                            warmup_proportion=0.1, t_total=100)
+    for micro in micros:                          # warm-up, not counted
+        step(state, micro, idx, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    ms = []
+    for name, micro in zip(("padded 768-1024", "packed"), micros):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, stats = step(state, micro, idx, gen)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        parts = {k: float(v) for k, v in stats["loss"].items()}
+        if not all(np.isfinite(v) for v in parts.values()):
+            raise AssertionError(f"route B {name}: loss {parts}")
+        log(f"[train long] {name} micro ({LONG_BATCH} x {LONG_SEQ}): step "
+            f"{ms[-1]:.2f} ms, {LONG_BATCH / (ms[-1] / 1e3):.1f} rows/s, "
+            f"loss {parts} [{card}]")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = dict(_cuda.launch_counts)
+    want = {k: PER_LAYER_TRAIN_TILED.get(k, 0) * LAYERS * len(micros)
+            for k in counts}
+    log(f"[train long] launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError("route B: launch counts differ from layers x "
+                             "micros x launches per layer")
+    attn = block_ms[("flash_attn_train", LONG_SEQ)]
+    share = LAYERS * attn[0] / np.mean(ms)
+    log(f"[train long] peak memory {peak:.2f} GiB; per layer fwd+bwd: flash "
+        f"attention (tiled) kernels {attn[0]:.3f} ms (plain attention path "
+        f"{attn[1]:.3f}), share of the step {share:.3f} [{card}]")
+
+    no_drop = dataclasses.replace(enc, hidden_dropout=0.0, attn_dropout=0.0)
+    outs = []
+    for which in ("kernel", "plain"):
+        st, s0 = new_state(dataclasses.replace(cfg, encoder=no_drop),
+                           **GATE_OPT)
+        _cuda.reset_launch_counts()
+        if which == "plain":
+            with flash_and_ffn_on_plain_versions():
+                s1, stats = st(s0, micros[0], idx,
+                               torch.Generator().manual_seed(0))
+            if any(_cuda.launch_counts.values()):
+                raise AssertionError("the plain-version step launched "
+                                     f"kernels: {_cuda.launch_counts}")
+        else:
+            s1, stats = st(s0, micros[0], idx,
+                           torch.Generator().manual_seed(0))
+        outs.append((s1.params, {k: float(v)
+                                 for k, v in stats["loss"].items()}))
+    log("[train long] dropout 0, padded micro: one kernel step against the "
+        "same step on the kernels' plain versions")
+    hold_step(params, outs)
+    return counts, ms, peak
 
 
 def ptxas_summary(report):
@@ -2074,6 +2578,12 @@ def main() -> int:
     t_counts, bf16_ms, _ = phase_train(dev, card, t_times, rig, "bf16")
     i_counts, _, _ = phase_train(dev, card, t_times, rig, "int8",
                                  beside=bf16_ms)
+    f_err, f_times, f_bounds = phase_flash_kernels(dev, card)
+    t_times.update(f_times)
+    t_bounds.update(f_bounds)
+    a_counts, _, _ = phase_train(dev, card, t_times, rig, "flash",
+                                 beside=bf16_ms)
+    b_counts, _, _ = phase_train_long(dev, card, t_times)
 
     s_bounds = serving_bounds(BATCH * BUCKETS[-1], BATCH, BUCKETS[-1])
     rows = []
@@ -2083,12 +2593,14 @@ def main() -> int:
             "name": name, "route": "cuda", "source": KERNEL_SOURCES[kernel],
             "replaces": KERNEL_REPLACES[kernel], "launches": launches,
             "max_abs_err": max(max_err.get(kernel, 0.0),
-                               t_err.get(kernel, 0.0)),
+                               t_err.get(kernel, 0.0),
+                               f_err.get(kernel, 0.0)),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": l_ms})
 
     for name in _cuda.KERNELS:
-        launches = counts[name] + t_counts[name] + i_counts[name]
+        launches = (counts[name] + t_counts[name] + i_counts[name]
+                    + a_counts[name] + b_counts[name])
         if name in s_bounds:        # a serving layer's launches
             row(name, name, launches, *times[(name, BUCKETS[-1])],
                 *s_bounds[name])
@@ -2102,20 +2614,24 @@ def main() -> int:
         row(name, kernel, i_counts[kernel], *t_times[name], *t_bounds[name])
     record = {"kernels": rows}
     log("[record] launches: the bf16 serving, int8 serving, bf16 training "
-        "(both blocks on kernels, then one FFN-only step) and int8 training "
-        "(NBEST_BENCH_INT8=2, then one NBEST_BENCH_INT8=1 step) main-path "
+        "(both blocks on kernels, then one FFN-only step), int8 training "
+        "(NBEST_BENCH_INT8=2, then one NBEST_BENCH_INT8=1 step), flash "
+        "route A (--no_fused_attn) and long-sequence route B main-path "
         "runs together, the [train] rows the int8 training runs alone; "
         "ms / plain_ms / library_ms / bound_ms: one encoder layer's "
         f"launches of the kernel -- serving at batch {BATCH} x seq "
         f"{BUCKETS[-1]} for the kernels the serving path runs, training at "
         "8192 rows (batch 32 x seq 256, both blocks) for ffn_bwd_rows, "
         "gemm_dgrad, seg_attention_bwd, quantize_grad_rows, gemm_i8_dgrad "
-        "and the [train] rows (int8 forwards and backwards); BERT-base, "
-        "bf16 activations; library_ms: the PyTorch call for each launch "
-        "(serving_library_calls; torch.matmul for the dgrads; torch._int_mm "
-        "for the int8 GEMMs and dgrads; F.scaled_dot_product_attention "
-        "forward + backward with the boolean segment mask and dropout for "
-        "seg_attention_bwd), null where PyTorch has none")
+        "and the [train] rows (int8 forwards and backwards), route B's "
+        f"layer ({LONG_BATCH} x {LONG_SEQ}, d 64, dropout 0.1) for the "
+        "flash_* rows; BERT-base, bf16 activations; library_ms: the "
+        "PyTorch call for each launch (serving_library_calls; torch.matmul "
+        "for the dgrads; torch._int_mm for the int8 GEMMs and dgrads; "
+        "F.scaled_dot_product_attention with the boolean segment mask and "
+        "dropout: forward for flash_fwd, forward + backward for "
+        "seg_attention_bwd, flash_bwd_dq and flash_bwd_dkv), null where "
+        "PyTorch has none")
     log(json.dumps(record))
     log(card)
     log(json.dumps({"ok": True, "device": {

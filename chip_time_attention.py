@@ -16,8 +16,11 @@ line: ``seg_attention`` ms per call at batch 64 x seq {64, 96, 160, 256}
 ``quantize_rows`` of a (64 x 256, 768) bf16 block input and the four
 int8 serving GEMM launches of a layer at 64 x 256 rows
 (``gemm_i8_bias_act`` QKV and W1 + GELU, ``gemm_i8_bias_residual``
-out-proj and W2); with the card's name and power limit.  CUDA events over ``--iters`` calls after two warm-up calls.
-Run two checkouts alternately (A B B A) in one call to compare them.
+out-proj and W2); where it has the tiled flash kernels, ``flash_fwd``,
+``flash_bwd_dq`` and ``flash_bwd_dkv`` at batch 32 x seq 1024 on q, k, v
+views of one QKV buffer with prob dropout; with the card's name and power
+limit.  CUDA events over ``--iters`` calls after two warm-up calls.  Run
+two checkouts alternately (A B B A) in one call to compare them.
 """
 
 from __future__ import annotations
@@ -115,6 +118,25 @@ def main() -> int:
                 lambda: K.gemm_i8_bias_residual(*x, *wo, r), args.iters),
             "residual_w2": cuda_ms(
                 lambda: K.gemm_i8_bias_residual(*g, *w2, r), args.iters)}
+    if hasattr(K, "flash_fwd"):
+        from nbest_asr_tpu_torch.ops.philox import site
+
+        b, s, d = 32, 1024, H // NH
+        q, k, v = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
+            dev, torch.bfloat16).view(b, s, 3, NH, d).unbind(2)
+        do = (torch.randn(b, s, NH, d, generator=gen) * 0.1).to(
+            dev, torch.bfloat16)
+        mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
+        drop, sc = site(1, 0.1, 3), 1.0 / d ** 0.5
+        o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
+        _, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc, drop)
+        out["flash_ms"] = {
+            "fwd": cuda_ms(lambda: K.flash_fwd(q, k, v, mask, sc, drop),
+                           args.iters),
+            "bwd_dq": cuda_ms(lambda: K.flash_bwd_dq(
+                q, k, v, mask, o, lse, do, sc, drop), args.iters),
+            "bwd_dkv": cuda_ms(lambda: K.flash_bwd_dkv(
+                q, k, v, mask, lse, di, do, sc, drop), args.iters)}
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,8 +1,9 @@
 // Device pieces shared by the attention kernels (seg_attention.cu,
-// seg_attention_bwd.cu): 64-row q / k / v tiles read by column offset
-// from the (n, 3h) QKV buffer, the 16-column chunk products of the
-// mma.sync fragments, and the Philox keep-bit tables of the stream-3
-// prob dropout.
+// seg_attention_bwd.cu, flash_attention.cu, flash_attention_bwd.cu):
+// 64-row q / k / v tiles read by row stride and column offset (from the
+// (n, 3h) QKV buffer, or from (b, s, heads, d) tensors), the scores of a
+// 64-key tile, the 16-column chunk products of the mma.sync fragments,
+// and the Philox keep-bit tables of the stream-3 prob dropout.
 //
 // Chunk products (g = lane / 4, t = lane % 4, as in common.cuh): a warp
 // owns 16 rows of the left operand; a chunk c[j][e], j in {0, 1}, is the
@@ -49,6 +50,51 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
     const bool ok = row < S;
     cp_async_16(dst + r * Tile<D>::LD + col,
                 src + (size_t)(ok ? row : 0) * ld + col, ok);
+  }
+}
+
+// Scaled, masked scores of a warp's 16 query rows (A fragments qf)
+// against the 64 keys k0 .. k0 + 63 in the shared tile sK; sMt[j] is the
+// segment id of key k0 + j, qma / qmb those of the thread's rows (NaN for
+// a row past S: it matches no key).  sc[nt] is the C fragment of keys
+// k0 + 8 nt .. + 7: MASK_VALUE where the segments differ, -inf past S.
+template <int D>
+__device__ __forceinline__ void tile_scores(float (&sc)[8][4],
+                                            const unsigned (&qf)[D / 16][4],
+                                            const bf16* sK, const float* sMt,
+                                            int k0, int S, float qma,
+                                            float qmb, float sm_scale,
+                                            int lane) {
+  constexpr int LD = Tile<D>::LD;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sc[nt][c] = 0.f;
+  // dot_nt16's products with the d-chunk loop outermost (fewer live
+  // registers); each score still accumulates over d in order, so the
+  // bits equal dot_nt16's
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      unsigned kf[4];
+      const int r = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+      const int c = kk * 16 + ((lane >> 3) & 1) * 8;
+      ldmatrix_x4(kf, sK + r * LD + c);
+      mma_bf16(sc[2 * np], qf[kk], kf[0], kf[1]);
+      mma_bf16(sc[2 * np + 1], qf[kk], kf[2], kf[3]);
+    }
+  }
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = nt * 8 + 2 * t4 + (c & 1);
+      const float qm = c < 2 ? qma : qmb;
+      const float v = sc[nt][c] * sm_scale;
+      sc[nt][c] = k0 + j >= S ? -INFINITY : (sMt[j] == qm ? v : MASK_VALUE);
+    }
   }
 }
 

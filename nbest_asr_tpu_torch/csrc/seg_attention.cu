@@ -1,23 +1,32 @@
-// Segment-masked softmax attention per (element, head, 64-query tile),
-// reading q, k and v by column offset straight from the (n, 3h) QKV
-// buffer and writing ctx (n, h) -- no head transposes.  Training adds the
-// Philox prob dropout and each row's softmax statistics.
+// Segment-masked softmax attention per (element, head, 64-query tile):
+// q, k and v are read by row stride and column offset -- the three column
+// blocks of the (n, 3h) QKV buffer, or standalone (b, s, heads, d)
+// tensors -- and ctx is written (n, h), with no head transposes.
+// Training adds the Philox prob dropout and each row's softmax
+// statistics.
 //
 // Replaces the head loop of the TPU attention-block megakernel:
 //   nbest_asr_tpu/ops/fused_attention.py:_fab_fwd_kernel (:167-180),
 //   through `_head_probs` (:103-126), with its prob dropout (:175-178);
-// and the int8 serving megakernel's head loop
-//   nbest_asr_tpu/ops/int8_serving.py:_attn_i8_kernel (:169-189).
+// the int8 serving megakernel's head loop
+//   nbest_asr_tpu/ops/int8_serving.py:_attn_i8_kernel (:169-189);
+// and the single-block flash forward
+//   nbest_asr_tpu/ops/flash_attention.py:_sb_fwd_kernel (:364),
+// which computes the same function (`_sb_probs` :350 is `_head_probs`
+// with a caller's sm_scale), so it maps onto this kernel instead of a
+// second copy of it.
 // Contract kept: SEGMENT-mask semantics (a query attends exactly the
 // keys carrying its own mask value; pads attend pads), masked scores
 // filled with MASK_VALUE (-0.7 * FLT_MAX), a PLAIN softmax in f32 over
 // the whole row (p = exp(s - max) / sum, seq <= 512), then p = keep ? p *
 // f32(1 / (1 - rate)) : 0 in f32, probs rounded to bf16 before P.V, f32
 // accumulation, ctx rounded to bf16.  Keys past the sequence end are
-// excluded outright, which is what the TPU wrapper's -1 mask padding
-// achieves (fused_attention.py:791-797).  The keep bits are Philox
-// stream 3 at row (elem * n_heads + head) * S + q, column k
-// (attention.cuh), so the backward kernels regenerate them.
+// excluded outright, which is what the TPU wrappers' -1 mask padding
+// achieves (fused_attention.py:791-797, flash_attention.py:634-639), so
+// nothing is padded.  The keep bits are Philox stream 3 at row (elem *
+// n_heads + head) * S + q, column k (attention.cuh), so the backward
+// kernels -- and the tiled flash kernels, at any tiling -- regenerate
+// them.
 //
 // Design: the TPU kernel holds the whole (s, s) score matrix in VMEM.
 // Here a warp owns 16 query rows and the row statistics live in
@@ -51,62 +60,23 @@ size_t smem_bytes(int S) {
          (size_t)ROWS * keep_stride(S) * sizeof(unsigned);
 }
 
-// Scaled, masked scores of this warp's 16 query rows against the 64 keys
-// in sK (keys k0 .. k0 + 63).  sc[nt] is the C fragment of keys
-// k0 + 8 nt .. + 7.
-template <int D>
-__device__ __forceinline__ void tile_scores(float (&sc)[8][4],
-                                            const unsigned (&qf)[D / 16][4],
-                                            const bf16* sK, const float* sM,
-                                            int k0, int S, float qma,
-                                            float qmb, float sm_scale,
-                                            int lane) {
-  constexpr int LD = Tile<D>::LD;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) sc[nt][c] = 0.f;
-  // dot_nt16's products with the d-chunk loop outermost (fewer live
-  // registers); each score still accumulates over d in order, so the
-  // bits equal dot_nt16's
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      unsigned kf[4];
-      const int r = np * 16 + (lane & 7) + ((lane >> 4) << 3);
-      const int c = kk * 16 + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4(kf, sK + r * LD + c);
-      mma_bf16(sc[2 * np], qf[kk], kf[0], kf[1]);
-      mma_bf16(sc[2 * np + 1], qf[kk], kf[2], kf[3]);
-    }
-  }
-  const int t4 = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int k = k0 + nt * 8 + 2 * t4 + (c & 1);
-      const float qm = c < 2 ? qma : qmb;
-      const float v = sc[nt][c] * sm_scale;
-      sc[nt][c] = k >= S ? -INFINITY : (sM[k] == qm ? v : MASK_VALUE);
-    }
-  }
-}
-
 // Blocks per SM each instance is built for (registers <= 65536 / (128 x
-// blocks)): the d = 64 instances at 4 (128 registers; the serving one
-// needs 130 unbounded, which cost 20% at seq 256 on the H100), the d =
-// 128 ones where they fall unbounded, the d = 192 and 256 ones at 1 (their
-// q fragments and accumulators alone take 144 and 192 registers).
+// blocks)): the d = 32 and 64 instances at 4 (128 registers; the d = 64
+// serving one needs 130 unbounded, which cost 20% at seq 256 on the
+// H100), the d = 128 ones where they fall unbounded, the d = 192 and 256
+// ones at 1 (their q fragments and accumulators alone take 144 and 192
+// registers).  q, k, v: row 0, column 0 of the head block of each
+// operand, ld its row stride (elements); ctx has rows of n_heads * D.
 template <int D, bool DROP>
-__global__ void __launch_bounds__(THREADS, D == 64    ? 4
+__global__ void __launch_bounds__(THREADS, D <= 64     ? 4
                                            : D == 128 ? (DROP ? 2 : 3)
                                                       : 1)
-    seg_attention_kernel(const bf16* __restrict__ qkv,
+    seg_attention_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, int ld,
                          const float* __restrict__ mask,
                          bf16* __restrict__ ctx, float* __restrict__ stats,
-                         int S, int H, float sm_scale, DropParams drop) {
+                         int S, float sm_scale, DropParams drop) {
   constexpr int LD = Tile<D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -121,10 +91,11 @@ __global__ void __launch_bounds__(THREADS, D == 64    ? 4
   const int n_heads = gridDim.y;
   const size_t row0 = (size_t)elem * S;
   const int prow0 = (elem * n_heads + head) * S;  // Philox row of query 0
-  const int ld = 3 * H;
-  const bf16* q_src = qkv + row0 * ld + head * D;
-  const bf16* k_src = q_src + H;
-  const bf16* v_src = q_src + 2 * H;
+  const int H = n_heads * D;
+  const size_t off = row0 * ld + head * D;
+  const bf16* q_src = q + off;
+  const bf16* k_src = k + off;
+  const bf16* v_src = v + off;
 
   for (int j = threadIdx.x; j < S; j += THREADS) sM[j] = mask[row0 + j];
   load_tile<D>(sQ, q_src, q0, S, ld);
@@ -154,7 +125,8 @@ __global__ void __launch_bounds__(THREADS, D == 64    ? 4
     cp_async_wait<0>();
     __syncthreads();
     float sc[8][4];
-    tile_scores<D>(sc, qf, sK, sM, kt * KT, S, qma, qmb, sm_scale, lane);
+    tile_scores<D>(sc, qf, sK, sM + kt * KT, kt * KT, S, qma, qmb, sm_scale,
+                   lane);
     float ta = -INFINITY, tb = -INFINITY;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -210,7 +182,8 @@ __global__ void __launch_bounds__(THREADS, D == 64    ? 4
     cp_async_wait<0>();
     __syncthreads();
     float sc[8][4];
-    tile_scores<D>(sc, qf, sK, sM, kt * KT, S, qma, qmb, sm_scale, lane);
+    tile_scores<D>(sc, qf, sK, sM + kt * KT, kt * KT, S, qma, qmb, sm_scale,
+                   lane);
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
       float p[2][4];
@@ -222,9 +195,10 @@ __global__ void __launch_bounds__(THREADS, D == 64    ? 4
           p[j][c] = c < 2 ? expf(sc[nt][c] - ma) / la
                           : expf(sc[nt][c] - mb) / lb;
           if (DROP) {
-            const int k = kt * KT + nt * 8 + 2 * t4 + (c & 1);
+            const int key = kt * KT + nt * 8 + 2 * t4 + (c & 1);
             // the table holds keys < S; p is 0 past S anyway
-            p[j][c] = k < S && kept(sKeep, kstride, ra + (c >> 1) * 8, k)
+            p[j][c] = key < S &&
+                              kept(sKeep, kstride, ra + (c >> 1) * 8, key)
                           ? __fmul_rn(p[j][c], drop.inv_keep)
                           : 0.f;
           }
@@ -247,9 +221,10 @@ __global__ void __launch_bounds__(THREADS, D == 64    ? 4
 }
 
 template <int D, bool DROP>
-int launch_kernel(const void* qkv, const float* mask, void* ctx, float* stats,
-                  int B, int S, int H, int n_heads, float sm_scale,
-                  const DropParams& drop, cudaStream_t stream) {
+int launch_kernel(const void* q, const void* k, const void* v, int ld,
+                  const float* mask, void* ctx, float* stats, int B, int S,
+                  int n_heads, float sm_scale, const DropParams& drop,
+                  cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(S);
   cudaError_t e = cudaFuncSetAttribute(
       seg_attention_kernel<D, DROP>,
@@ -257,52 +232,54 @@ int launch_kernel(const void* qkv, const float* mask, void* ctx, float* stats,
   if (e != cudaSuccess) return (int)e;
   dim3 grid((S + ROWS - 1) / ROWS, n_heads, B);
   seg_attention_kernel<D, DROP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(qkv), mask, static_cast<bf16*>(ctx), stats, S,
-      H, sm_scale, drop);
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), ld, mask, static_cast<bf16*>(ctx), stats,
+      S, sm_scale, drop);
   return (int)cudaGetLastError();
 }
 
 // the serving forward (no dropout) compiles without the keep-bit code
 template <int D>
-int launch(const void* qkv, const float* mask, void* ctx, float* stats,
-           int B, int S, int H, int n_heads, float sm_scale,
-           const DropParams& drop, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, int ld,
+           const float* mask, void* ctx, float* stats, int B, int S,
+           int n_heads, float sm_scale, const DropParams& drop,
+           cudaStream_t stream) {
   if (drop.on)
-    return launch_kernel<D, true>(qkv, mask, ctx, stats, B, S, H, n_heads,
-                                  sm_scale, drop, stream);
-  return launch_kernel<D, false>(qkv, mask, ctx, stats, B, S, H, n_heads,
-                                 sm_scale, drop, stream);
+    return launch_kernel<D, true>(q, k, v, ld, mask, ctx, stats, B, S,
+                                  n_heads, sm_scale, drop, stream);
+  return launch_kernel<D, false>(q, k, v, ld, mask, ctx, stats, B, S,
+                                 n_heads, sm_scale, drop, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// qkv (B*S, 3H) bf16 with q | k | v on the column axis, mask (B, S) f32
-// segment ids -> ctx (B*S, H) bf16.  Head dim H / n_heads in {64, 128,
-// 192, 256}, S <= 512.  stats, if not null, is (2, B, n_heads, S) f32 and
-// receives each row's max and sum of exp.  Prob dropout when drop_on (seed,
-// stream, thresh, inv_keep as in philox.cuh).
-int nbk_seg_attention(const void* qkv, const float* mask, void* ctx,
-                      float* stats, int B, int S, int H, int n_heads,
-                      float sm_scale, unsigned long long seed, int stream,
-                      unsigned thresh, float inv_keep, int drop_on,
-                      void* cuda_stream) {
+// q, k, v: (B*S, ld) bf16 row-major with each operand's (n_heads * d)
+// columns starting at its pointer (16-byte aligned, ld % 8 == 0) -- the
+// q | k | v column blocks of one (B*S, 3h) QKV buffer (ld = 3h), or
+// (B, S, n_heads, d) tensors (ld = n_heads * d); mask (B, S) f32 segment
+// ids -> ctx (B*S, n_heads * d) bf16.  d in {32, 64, 128, 192, 256}, S <=
+// 512.  stats, if not null, is (2, B, n_heads, S) f32 and receives each
+// row's max and sum of exp.  Prob dropout when drop_on (seed, stream,
+// thresh, inv_keep as in philox.cuh).
+int nbk_seg_attention(const void* q, const void* k, const void* v, int ld,
+                      const float* mask, void* ctx, float* stats, int B,
+                      int S, int n_heads, int d, float sm_scale,
+                      unsigned long long seed, int stream, unsigned thresh,
+                      float inv_keep, int drop_on, void* cuda_stream) {
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   const DropParams drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
-  const int d = H / n_heads;
-  if (d == 64)
-    return launch<64>(qkv, mask, ctx, stats, B, S, H, n_heads, sm_scale, drop,
-                      s);
-  if (d == 128)
-    return launch<128>(qkv, mask, ctx, stats, B, S, H, n_heads, sm_scale,
-                       drop, s);
-  if (d == 192)
-    return launch<192>(qkv, mask, ctx, stats, B, S, H, n_heads, sm_scale,
-                       drop, s);
-  if (d == 256)
-    return launch<256>(qkv, mask, ctx, stats, B, S, H, n_heads, sm_scale,
-                       drop, s);
+#define NBK_SEG_ATTN(D)                                                   \
+  if (d == D)                                                             \
+    return launch<D>(q, k, v, ld, mask, ctx, stats, B, S, n_heads,        \
+                     sm_scale, drop, s);
+  NBK_SEG_ATTN(32)
+  NBK_SEG_ATTN(64)
+  NBK_SEG_ATTN(128)
+  NBK_SEG_ATTN(192)
+  NBK_SEG_ATTN(256)
+#undef NBK_SEG_ATTN
   return (int)cudaErrorInvalidValue;
 }
 

@@ -36,7 +36,13 @@ to its megakernel: ``use_fused_attn``, the lanes and seq <= 512
 (``attn_train_routes``) -- through ``fused_attention_block_int8_train``
 when ``use_int8_train_attn`` is set (``encoder.py:354-368``), else
 ``fused_attention_block``; otherwise it runs the plain path with
-probability and hidden dropout.  The FFN block routes to ``ops.fused_ffn``
+probability and hidden dropout, whose attention takes the flash route
+(``ops.flash_attention``: ``seg_attention`` / ``seg_attention_bwd`` up to
+seq 512, the tiled flash kernels above) exactly where JAX's
+``multi_head_attention`` takes its flash kernels -- ``use_flash_attention``,
+seq >= the effective ``flash_min_seq`` (``NBEST_FLASH_MIN_SEQ`` wins when
+set) and ``_flash_preferred`` (``ops/attention.py``) -- with the Philox
+stream-3 mask under the site-1 seed.  The FFN block routes to ``ops.fused_ffn``
 when ``use_fused_ffn`` and the lanes hold -- through
 ``fused_ffn_block_int8_train`` when ``use_int8_train`` is set
 (``encoder.py:420-432``), else ``fused_ffn_block`` -- and otherwise runs
@@ -48,20 +54,20 @@ Where JAX would run a kernel the port does not have, the forward raises
 ``NotImplementedError`` rather than run the plain path quietly: the
 attention megakernel at a head dim the port's attention kernels do not
 take (``HEAD_DIMS``; eval and training, ``_refuse_head_dim``), and in
-training flash attention, the fused LN and GELU kernels on the plain
-paths and the fused embedding lookup (``_refuse_unported_training``).
+training the flash route at a head dim outside ``FLASH_HEAD_DIMS``, the
+fused LN and GELU kernels on the plain paths and the fused embedding
+lookup (``_refuse_unported_training``).
 """
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
-from ..ops.attention import multi_head_attention
-from ..ops.kernels import HEAD_DIMS
+from ..ops.attention import flash_routes, multi_head_attention
+from ..ops.kernels import FLASH_HEAD_DIMS, HEAD_DIMS
 from ..ops.layers import dense, dropout, gelu, layer_norm
 from ..ops.philox import fold_in, generator
 from ..ops.quant import dense_int8, is_quantized
@@ -75,9 +81,9 @@ class EncoderConfig:
     """Same fields and defaults as the JAX ``EncoderConfig``.  The port
     reads the sizes, dropout rates, ``compute_dtype``, the routing flags
     ``use_fused_attn``, ``use_fused_attn_eval`` and ``use_fused_ffn``, and
-    in training the int8 flags ``use_int8_train``, ``use_int8_train_attn``
-    and ``use_int8_train_bwd``; ``use_flash_attention`` with
-    ``flash_min_seq``, ``use_fused_ln``, ``use_fused_gelu`` and
+    in training ``use_flash_attention`` with ``flash_min_seq`` and the int8
+    flags ``use_int8_train``, ``use_int8_train_attn`` and
+    ``use_int8_train_bwd``; ``use_fused_ln``, ``use_fused_gelu`` and
     ``use_fused_embedding`` raise where JAX would run those kernels
     (module docstring); ``remat`` and ``scan_unroll`` steer the TPU's scan
     and are kept so one configuration describes both packages."""
@@ -250,29 +256,14 @@ def ffn_kernel_routes(cfg: EncoderConfig) -> bool:
             and cfg.intermediate_size % 128 == 0)
 
 
-# JAX's flash routing (nbest_asr_tpu/ops/attention.py:40-76, :138-140):
-# the flash kernels take a training layer at seq >= the effective
-# flash_min_seq (NBEST_FLASH_MIN_SEQ wins when set), always up to the
-# single-block ceiling of 512, and above it only where the plain path's
-# ~3 (b, heads, s, s) backward buffers would pass 2 GiB
-FLASH_SB_MAX_SEQ = 512
-FLASH_RESIDENCY_BUDGET = 2 * 2 ** 30
-
-
-def effective_flash_min_seq(cfg_value: int) -> int:
-    env = os.environ.get("NBEST_FLASH_MIN_SEQ")
-    return int(env) if env is not None else int(cfg_value)
-
-
 def flash_train_routes(cfg: EncoderConfig, batch: int, seq: int) -> bool:
     """JAX's ``multi_head_attention`` takes the flash kernels for this
     training layer on its plain attention path."""
     itemsize = torch.finfo(cfg.cdtype).bits // 8
-    preferred = (seq <= FLASH_SB_MAX_SEQ or 3 * batch * cfg.num_heads * seq
-                 * seq * itemsize > FLASH_RESIDENCY_BUDGET)
-    return (cfg.use_flash_attention
-            and seq >= effective_flash_min_seq(cfg.flash_min_seq)
-            and preferred)
+    return flash_routes((batch, seq, cfg.num_heads), itemsize,
+                        use_flash=cfg.use_flash_attention,
+                        deterministic=False,
+                        flash_min_seq=cfg.flash_min_seq)
 
 
 _WHERE = "(ROADMAP.md, queue 2)"
@@ -298,11 +289,12 @@ def _refuse_unported_training(cfg: EncoderConfig, batch: int, seq: int,
     alike."""
     attn_routes = attn_train_routes(cfg, seq)
     ffn_routes = ffn_kernel_routes(cfg)
-    if not attn_routes and flash_train_routes(cfg, batch, seq):
+    if (not attn_routes and flash_train_routes(cfg, batch, seq)
+            and cfg.head_dim not in FLASH_HEAD_DIMS):
         raise NotImplementedError(
-            f"training with use_flash_attention at batch {batch} x seq "
-            f"{seq}: JAX routes it to the flash kernels, which are not "
-            f"ported yet {_WHERE}")
+            f"training with use_flash_attention at head dim {cfg.head_dim}: "
+            "JAX routes it to the flash kernels, whose port takes head dims "
+            f"{FLASH_HEAD_DIMS} {_WHERE}")
     if cfg.use_fused_ln and not (attn_routes and ffn_routes):
         raise NotImplementedError(
             "training with use_fused_ln: JAX runs the fused LayerNorm kernel "
@@ -424,7 +416,10 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
                 v.reshape(b, s, nh, hd), attn_mask,
                 dropout_rate=cfg.attn_dropout,
                 gen=gen(lseed, 1) if train else None,
-                deterministic=deterministic).reshape(b, s, h)
+                seed=fold_in(lseed, 1) if train else None,
+                deterministic=deterministic,
+                use_flash=cfg.use_flash_attention,
+                flash_min_seq=cfg.flash_min_seq).reshape(b, s, h)
             ctx = _qdense(ctx, p["attn_out_kernel"], p["attn_out_bias"], cdt)
             if train:
                 ctx = dropout(ctx, hidden_rate, gen(lseed, 2))

@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("gemm_bias_act", "gemm_bias_residual", "layer_norm",
            "seg_attention", "quantize_rows", "gemm_i8_bias_act",
            "gemm_i8_bias_residual", "ffn_bwd_rows", "gemm_dgrad",
-           "seg_attention_bwd", "quantize_grad_rows", "gemm_i8_dgrad")
+           "seg_attention_bwd", "quantize_grad_rows", "gemm_i8_dgrad",
+           "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 launch_counts = {name: 0 for name in KERNELS}
 
 _lib = None
@@ -126,8 +127,15 @@ def lib() -> ctypes.CDLL:
     L.nbk_gemm_dgrad.argtypes = [p, p, p, p, p, p, i, i, i, i, *drop, p]
     L.nbk_layer_norm.argtypes = [p, p, p, p, p, p, i, i, f, p]
     L.nbk_ffn_bwd_rows.argtypes = [p] * 9 + [i, i, *drop, p]
-    L.nbk_seg_attention.argtypes = [p, p, p, p, i, i, i, i, f, *drop, p]
-    L.nbk_seg_attention_bwd.argtypes = [p] * 6 + [i, i, i, i, f, *drop, p]
+    # q, k, v, their row stride (single-block and tiled attention)
+    qkv = [p, p, p, i]
+    L.nbk_seg_attention.argtypes = [*qkv, p, p, p, i, i, i, i, f, *drop, p]
+    L.nbk_seg_attention_bwd.argtypes = [*qkv] + [p] * 7 + [i] * 5 + [
+        f, *drop, p]
+    L.nbk_flash_fwd.argtypes = [*qkv, p, p, p, i, i, i, i, f, *drop, p]
+    L.nbk_flash_bwd_dq.argtypes = [*qkv] + [p] * 6 + [i] * 5 + [f, *drop, p]
+    L.nbk_flash_bwd_dkv.argtypes = [*qkv] + [p] * 6 + [i] * 5 + [f, *drop,
+                                                                 p]
     L.nbk_quantize_rows.argtypes = [p, p, p, i, i, i, p]
     L.nbk_quantize_grad_rows.argtypes = [p, p, p, p, i, i, i, *drop, p]
     L.nbk_gemm_i8_bias_act.argtypes = [p] * 7 + [i, i, i, i, *drop, p]

@@ -43,6 +43,16 @@ The attention block's training chain (``ops/fused_attention.py``) gives
                            forward's row statistics (a dQ kernel, then a
                            dK/dV kernel)
 
+The flash-attention route (``ops/flash_attention.py``) runs the same two
+attention kernels on (b, s, heads, d) operands read by row stride --
+``sb_attention`` and ``sb_attention_bwd``, counted as ``seg_attention``
+and ``seg_attention_bwd`` (the single-block route, s <= 512) -- and adds
+three tiled kernels for any sequence length:
+
+- ``flash_fwd``     -- online-softmax forward: o and the row lse
+- ``flash_bwd_dq``  -- dq, and di = rowsum(dO * O) for the next kernel
+- ``flash_bwd_dkv`` -- dk and dv
+
 The int8 training blocks (``ops/fused_ffn.py``, ``ops/fused_attention.py``,
 ``*_int8_train``) give ``gemm_i8_bias_act`` and ``gemm_i8_bias_residual``
 the same Philox dropout sites and saved residuals, and add two kernels for
@@ -71,14 +81,18 @@ import torch
 
 from . import _cuda
 from .layers import acc_dtype, gelu, gelu_grad, layer_norm_stats
-from .philox import Dropout, threshold
+from .philox import Dropout, keep_mask, threshold
 from .quant import dequant, int_dot, quantize_rows_reference, symmetric_int8
 
 # fill for masked-out scores, as the TPU kernels use
 # (nbest_asr_tpu/ops/flash_attention.py:MASK_VALUE)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_SEQ = 512                 # one-block ceiling, fused_attention.FAB_MAX_SEQ
-HEAD_DIMS = (64, 128, 192, 256)   # head dims the attention kernels take
+HEAD_DIMS = (32, 64, 128, 192, 256)   # head dims seg_attention(_bwd) take
+FLASH_HEAD_DIMS = (32, 64, 128)       # head dims the tiled flash kernels take
+# score elements per chunk of the plain tiled versions (batch elements
+# are taken a chunk at a time, so s = 1024 .. 2048 fit on the card)
+_REF_CHUNK = 2 ** 26
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
@@ -259,72 +273,200 @@ def layer_norm_reference(s, scale, bias, eps: float, out_dtype,
     return (y, mean[:, 0], rstd[:, 0]) if stats else y
 
 
-def _scores(qkv, mask, n_heads: int):
-    """-> (q, k, v as (b, s, n_heads, d) in the accumulation dtype, the
-    scaled segment-masked scores (b, n_heads, s, s), sm_scale)."""
-    b, s = mask.shape
-    d = qkv.shape[1] // 3 // n_heads
-    acc = acc_dtype(qkv.dtype)
-    q, k, v = (t.to(acc) for t in
-               qkv.reshape(b, s, 3, n_heads, d).unbind(2))
-    sm_scale = 1.0 / float(d) ** 0.5
-    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm_scale
+def _seg_scores(q, k, mask, sm_scale: float):
+    """Scaled, segment-masked scores (b, n_heads, s, s) of (b, s,
+    n_heads, d) q and k, in the accumulation dtype: MASK_VALUE where the
+    segment ids differ."""
+    acc = acc_dtype(q.dtype)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * sm_scale
     m = mask.to(acc)
     same = m[:, None, :, None] == m[:, None, None, :]
-    sc = torch.where(same, sc, torch.tensor(MASK_VALUE, dtype=acc,
-                                            device=sc.device))
-    return q, k, v, sc, sm_scale
+    return torch.where(same, sc, torch.tensor(MASK_VALUE, dtype=acc,
+                                              device=sc.device))
 
 
-def _drop_probs(drop, p):
-    """The stream-3 prob dropout of (b, n_heads, s, s) probs: Philox row
-    (elem * n_heads + head) * s + q, column k."""
-    return drop.apply(p.reshape(-1, p.shape[-1])).reshape(p.shape)
+def _qkv_views(qkv, mask, n_heads: int):
+    """q, k, v of the (b*s, 3h) QKV buffer as (b, s, n_heads, d) views
+    (row stride 3h), and 1 / sqrt(d)."""
+    b, s = mask.shape
+    d = qkv.shape[1] // 3 // n_heads
+    q, k, v = qkv.reshape(b, s, 3, n_heads, d).unbind(2)
+    return q, k, v, 1.0 / float(d) ** 0.5
 
 
-def seg_attention_reference(qkv, mask, n_heads: int, drop=None,
-                            stats: bool = False):
-    """ctx = bf16(drop(softmax(scores)) rounded to bf16 @ v); with
-    ``stats`` also the row max and sum of exp, (2, b, n_heads, s)."""
-    n, h3 = qkv.shape
-    _, _, v, sc, _ = _scores(qkv, mask, n_heads)
+def _scores(qkv, mask, n_heads: int):
+    """-> (q, k, v as (b, s, n_heads, d) in the accumulation dtype, the
+    scaled segment-masked scores (b, n_heads, s, s), sm_scale) of the
+    (b*s, 3h) QKV buffer."""
+    q, k, v, sm_scale = _qkv_views(qkv, mask, n_heads)
+    acc = acc_dtype(qkv.dtype)
+    return (q.to(acc), k.to(acc), v.to(acc),
+            _seg_scores(q, k, mask, sm_scale), sm_scale)
+
+
+def _drop_probs(drop, p, elem0: int = 0):
+    """The stream-3 prob dropout of (b, n_heads, s, s) probs of batch
+    elements elem0 .. elem0 + b - 1: Philox row (elem * n_heads + head) *
+    s + q, column k."""
+    b, nh, s, sk = p.shape
+    keep = keep_mask(drop.seed, drop.stream, elem0 * nh * s, b * nh * s, sk,
+                     drop.rate, p.device).reshape(p.shape)
+    scale = torch.tensor(drop.inv_keep, dtype=p.dtype, device=p.device)
+    return torch.where(keep, p * scale, torch.zeros_like(p))
+
+
+def sb_attention_reference(q, k, v, mask, sm_scale: float, drop=None,
+                           stats: bool = False):
+    """o = drop(softmax(scores)) rounded to q's dtype @ v, rounded: (b, s,
+    n_heads, d) q, k, v -> (b, s, n_heads, d); with ``stats`` also the
+    row max and sum of exp, (2, b, n_heads, s)."""
+    sc = _seg_scores(q, k, mask, sm_scale)
     mx = sc.amax(dim=-1, keepdim=True)
     e = torch.exp(sc - mx)
     sm = e.sum(dim=-1, keepdim=True)
     p = e / sm
     if drop is not None:
         p = _drop_probs(drop, p)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", p.to(qkv.dtype).to(p.dtype), v)
-    ctx = ctx.to(qkv.dtype).reshape(n, h3 // 3)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).to(p.dtype),
+                     v.to(p.dtype)).to(q.dtype)
     if stats:
-        return ctx, torch.stack([mx[..., 0], sm[..., 0]])
-    return ctx
+        return o, torch.stack([mx[..., 0], sm[..., 0]])
+    return o
+
+
+def sb_attention_bwd_reference(q, k, v, dout, mask, stats, sm_scale: float,
+                               drop=None):
+    """(dq, dk, dv), (b, s, n_heads, d) each, line by line as
+    ``nbest_asr_tpu/ops/flash_attention.py:_sb_bwd_kernel`` (:380-409)
+    and ``fused_attention.py:_fab_bwd_kernel`` (:240-266), with the probs
+    rebuilt from the forward's row statistics."""
+    sc = _seg_scores(q, k, mask, sm_scale)
+    acc = sc.dtype
+    p = torch.exp(sc - stats[0][..., None].to(acc)) \
+        / stats[1][..., None].to(acc)
+    do = dout.to(acc)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.to(acc))
+    p_v = p
+    if drop is not None:
+        p_v, dp = _drop_probs(drop, p), _drop_probs(drop, dp)
+    p_vc = p_v.to(q.dtype).to(acc)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_vc, do)
+    di = torch.sum(dp * p, dim=-1, keepdim=True)
+    ds_a = (p * (dp - di) * sm_scale).to(q.dtype).to(acc)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds_a, k.to(acc))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds_a, q.to(acc))
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def seg_attention_reference(qkv, mask, n_heads: int, drop=None,
+                            stats: bool = False):
+    """ctx (n, h) = ``sb_attention_reference`` of the QKV buffer's
+    heads at sm_scale 1 / sqrt(d); with ``stats`` also the row max and sum
+    of exp, (2, b, n_heads, s)."""
+    n, h3 = qkv.shape
+    q, k, v, sm_scale = _qkv_views(qkv, mask, n_heads)
+    out = sb_attention_reference(q, k, v, mask, sm_scale, drop, stats)
+    if stats:
+        return out[0].reshape(n, h3 // 3), out[1]
+    return out.reshape(n, h3 // 3)
 
 
 def seg_attention_bwd_reference(qkv, dctx, mask, stats, n_heads: int,
                                 drop=None):
-    """dqkv (n, 3h), q | k | v columns, line by line as
-    ``nbest_asr_tpu/ops/fused_attention.py:_fab_bwd_kernel`` (:240-266),
-    with the probs rebuilt from the forward's row statistics."""
-    n, h3 = qkv.shape
-    b, s = mask.shape
-    q, k, v, sc, sm_scale = _scores(qkv, mask, n_heads)
-    acc = sc.dtype
-    p = torch.exp(sc - stats[0][..., None].to(acc)) \
-        / stats[1][..., None].to(acc)
-    do = dctx.reshape(b, s, n_heads, -1).to(acc)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
-    p_v = p
-    if drop is not None:
-        p_v, dp = _drop_probs(drop, p), _drop_probs(drop, dp)
-    p_vc = p_v.to(qkv.dtype).to(acc)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p_vc, do)
-    di = torch.sum(dp * p, dim=-1, keepdim=True)
-    ds_a = (p * (dp - di) * sm_scale).to(qkv.dtype).to(acc)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds_a, k)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds_a, q)
-    dqkv = torch.stack([dq, dk, dv], dim=2).to(qkv.dtype)
-    return dqkv.reshape(n, h3)
+    """dqkv (n, 3h), q | k | v columns: ``sb_attention_bwd_reference``
+    of the QKV buffer's heads."""
+    q, k, v, sm_scale = _qkv_views(qkv, mask, n_heads)
+    grads = sb_attention_bwd_reference(q, k, v, dctx.reshape(q.shape), mask,
+                                       stats, sm_scale, drop)
+    return torch.stack(grads, dim=2).reshape(qkv.shape)
+
+
+def _batch_chunks(b: int, n_heads: int, s: int):
+    """Batch-element ranges whose (n_heads, s, s) scores stay below
+    _REF_CHUNK elements together."""
+    step = max(1, _REF_CHUNK // (n_heads * s * s))
+    return [(e, min(b, e + step)) for e in range(0, b, step)]
+
+
+def flash_fwd_reference(q, k, v, mask, sm_scale: float, drop=None):
+    """The tiled forward's function: (b, s, n_heads, d) q, k, v -> (o in
+    q's dtype, lse (b, n_heads, s) in the accumulation dtype), o =
+    (round(drop(exp(s - m))) @ v) * (1 / l) for the row max m and sum l
+    of exp, lse = m + log(max(l, 1e-30)) -- the kernel's arithmetic with
+    the final max in place of the running one (the unnormalised probs
+    are rounded to q's dtype before P.V, as on the card)."""
+    b, s, nh, _ = q.shape
+    o, lse = [], []
+    for e0, e1 in _batch_chunks(b, nh, s):
+        sc = _seg_scores(q[e0:e1], k[e0:e1], mask[e0:e1], sm_scale)
+        mx = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp(sc - mx)
+        l = p.sum(dim=-1, keepdim=True)
+        lse.append((mx + torch.log(l.clamp_min(1e-30)))[..., 0])
+        if drop is not None:
+            p = _drop_probs(drop, p, e0)
+        pv = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).to(p.dtype),
+                          v[e0:e1].to(p.dtype))
+        o.append((pv * (1.0 / l).permute(0, 2, 1, 3)).to(q.dtype))
+    return torch.cat(o), torch.cat(lse)
+
+
+def _flash_bwd_parts(q, k, v, mask, lse, di, dout, sm_scale: float, drop,
+                     want_dq: bool):
+    """(dq, None, None) or (None, dk, dv) of the tiled backward from lse
+    and di = rowsum(dout * o) (b, n_heads, s): p = exp(s - lse), dp =
+    drop(dout v^T), ds = round(p * (dp - di) * sm_scale)."""
+    b, s, nh, _ = q.shape
+    acc = acc_dtype(q.dtype)
+    dq, dk, dv = [], [], []
+    for e0, e1 in _batch_chunks(b, nh, s):
+        qc, kc, vc = q[e0:e1], k[e0:e1], v[e0:e1]
+        do = dout[e0:e1].to(acc)
+        p = torch.exp(_seg_scores(qc, kc, mask[e0:e1], sm_scale)
+                      - lse[e0:e1, ..., None].to(acc))
+        dp = torch.einsum("bqhd,bkhd->bhqk", do, vc.to(acc))
+        p_v = p
+        if drop is not None:
+            p_v, dp = _drop_probs(drop, p, e0), _drop_probs(drop, dp, e0)
+        ds = (p * (dp - di[e0:e1, ..., None].to(acc)) * sm_scale).to(
+            q.dtype).to(acc)
+        if want_dq:
+            dq.append(torch.einsum("bhqk,bkhd->bqhd", ds, kc.to(acc)).to(
+                q.dtype))
+        else:
+            dk.append(torch.einsum("bhqk,bqhd->bkhd", ds, qc.to(acc)).to(
+                q.dtype))
+            dv.append(torch.einsum("bhqk,bqhd->bkhd",
+                                   p_v.to(q.dtype).to(acc), do).to(q.dtype))
+    if want_dq:
+        return torch.cat(dq), None, None
+    return None, torch.cat(dk), torch.cat(dv)
+
+
+def flash_bwd_dq_reference(q, k, v, mask, o, lse, dout, sm_scale: float,
+                           drop=None):
+    """(dq, di): di = rowsum(f32(dout) * f32(o)) (b, n_heads, s), then dq
+    (``nbest_asr_tpu/ops/flash_attention.py:_bwd_dq_kernel`` :276)."""
+    acc = acc_dtype(q.dtype)
+    di = torch.einsum("bqhd,bqhd->bhq", o.to(acc), dout.to(acc))
+    return _flash_bwd_parts(q, k, v, mask, lse, di, dout, sm_scale, drop,
+                            True)[0], di
+
+
+def flash_bwd_dkv_reference(q, k, v, mask, lse, di, dout, sm_scale: float,
+                            drop=None):
+    """(dk, dv) (``flash_attention.py:_bwd_dkv_kernel`` :226)."""
+    return _flash_bwd_parts(q, k, v, mask, lse, di, dout, sm_scale, drop,
+                            False)[1:]
+
+
+def flash_bwd_reference(q, k, v, mask, o, lse, dout, sm_scale: float,
+                        drop=None):
+    """(dq, dk, dv) of the tiled backward."""
+    dq, di = flash_bwd_dq_reference(q, k, v, mask, o, lse, dout, sm_scale,
+                                    drop)
+    return (dq, *flash_bwd_dkv_reference(q, k, v, mask, lse, di, dout,
+                                         sm_scale, drop))
 
 
 # --------------------------------------------------------------------- #
@@ -506,32 +648,143 @@ def _attn_dims(name: str, qkv, mask, n_heads: int):
     return b, s, h
 
 
+def _row_stride(name: str, arg: str, t, ld=None) -> int:
+    """The row stride of a (b, s, n_heads, d) operand whose rows are
+    (n_heads * d) contiguous values, ld apart (``ld`` if given); raises on
+    any other layout."""
+    b, s, nh, d = t.shape
+    if ld is None:
+        ld = t.stride(1) if s > 1 else t.stride(0)
+    want = (s * ld, ld, d, 1)
+    if not all(st == w or n == 1 for st, w, n in zip(t.stride(), want,
+                                                     t.shape)):
+        raise ValueError(f"{name}: {arg} has strides {t.stride()}; the "
+                         f"kernel reads rows of {nh} x {d} contiguous values "
+                         f"{ld} apart")
+    return ld
+
+
+def _bshd(name: str, q, k, v, mask, dims, max_seq=None):
+    """Check (b, s, n_heads, d) bf16 q, k, v sharing one row stride ld
+    (ld % 8 == 0, 16-byte aligned: the kernels copy 16 bytes at a time)
+    and the (b, s) f32 mask; returns (b, s, n_heads, d, ld)."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q, k, v {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, nh, d = q.shape
+    if d not in dims:
+        raise ValueError(f"{name}: the kernel takes head dims {dims}, got "
+                         f"{d}")
+    if max_seq is not None and s > max_seq:
+        raise ValueError(f"{name}: seq {s} > {max_seq}")
+    ld = _row_stride(name, "q", q)
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, the kernel takes "
+                            "torch.bfloat16")
+        _row_stride(name, arg, t, ld)
+        if t.data_ptr() % 16 or ld % 8:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned with a "
+                             f"row stride % 8 == 0 (got {ld})")
+    _expect(name, "mask", mask, torch.float32, (b, s))
+    return b, s, nh, d, ld
+
+
+def _launch_seg_attention(qkv_ptrs, ld, mask, out, st, b, s, nh, d,
+                          sm_scale, drop, stream):
+    rc = _cuda.lib().nbk_seg_attention(
+        *qkv_ptrs, ld, mask.data_ptr(), out.data_ptr(), _ptr(st), b, s, nh,
+        d, float(sm_scale), *_drop_args(drop), stream)
+    _cuda.check(rc, "seg_attention")
+    _cuda.launch_counts["seg_attention"] += 1
+
+
+def _launch_seg_attention_bwd(qkv_ptrs, ld, dout, mask, stats, grad_ptrs,
+                              ld_g, b, s, nh, d, sm_scale, drop, stream):
+    di = torch.empty((b, nh, s), dtype=torch.float32, device=mask.device)
+    rc = _cuda.lib().nbk_seg_attention_bwd(
+        *qkv_ptrs, ld, dout.data_ptr(), mask.data_ptr(), stats.data_ptr(),
+        di.data_ptr(), *grad_ptrs, ld_g, b, s, nh, d, float(sm_scale),
+        *_drop_args(drop), stream)
+    _cuda.check(rc, "seg_attention_bwd")
+    _cuda.launch_counts["seg_attention_bwd"] += 1
+
+
+def _column_blocks(t, h: int):
+    """Pointers of the q | k | v column blocks of a (n, 3h) bf16 buffer."""
+    p = t.data_ptr()
+    return p, p + 2 * h, p + 4 * h
+
+
+def sb_attention(q, k, v, mask, sm_scale: float, drop=None,
+                 stats: bool = False):
+    """Single-block segment attention of (b, s, n_heads, d) q, k, v (s <=
+    512; on the card bf16 sharing one row stride: views of the QKV buffer
+    or standalone tensors) and the (b, s) segment mask -> o (b, s,
+    n_heads, d), with the Philox prob dropout ``drop`` (stream 3) applied
+    to the normalised f32 probs before their bf16 rounding; with
+    ``stats`` also ``(o, stats)``, stats (2, b, n_heads, s) f32 = each
+    row's max and sum of exp.  Launches ``seg_attention``."""
+    if not _on_cuda("seg_attention", q, k, v, mask):
+        return sb_attention_reference(q, k, v, mask, sm_scale, drop, stats)
+    b, s, nh, d, ld = _bshd("seg_attention", q, k, v, mask, HEAD_DIMS,
+                            MAX_SEQ)
+    out = torch.empty((b, s, nh, d), dtype=torch.bfloat16, device=q.device)
+    st = torch.empty((2, b, nh, s), dtype=torch.float32,
+                     device=q.device) if stats else None
+    _launch_seg_attention((q.data_ptr(), k.data_ptr(), v.data_ptr()), ld,
+                          mask, out, st, b, s, nh, d, sm_scale, drop,
+                          _stream(q))
+    return (out, st) if stats else out
+
+
+def sb_attention_bwd(q, k, v, dout, mask, stats, sm_scale: float,
+                     drop=None):
+    """The single-block backward: (dq, dk, dv), (b, s, n_heads, d) each,
+    from q, k, v as ``sb_attention`` took them, the bf16 output gradient
+    ``dout`` (b, s, n_heads, d), the mask and ``sb_attention``'s row
+    statistics, regenerating the forward's stream-3 mask (see
+    csrc/seg_attention_bwd.cu).  Launches ``seg_attention_bwd``."""
+    name = "seg_attention_bwd"
+    if not _on_cuda(name, q, k, v, dout, mask, stats):
+        return sb_attention_bwd_reference(q, k, v, dout, mask, stats,
+                                          sm_scale, drop)
+    b, s, nh, d, ld = _bshd(name, q, k, v, mask, HEAD_DIMS, MAX_SEQ)
+    _expect(name, "dout", dout, torch.bfloat16, (b, s, nh, d))
+    _expect(name, "stats", stats, torch.float32, (2, b, nh, s))
+    grads = tuple(torch.empty(q.shape, dtype=torch.bfloat16,
+                              device=q.device) for _ in range(3))
+    _launch_seg_attention_bwd(
+        (q.data_ptr(), k.data_ptr(), v.data_ptr()), ld, dout, mask, stats,
+        tuple(g.data_ptr() for g in grads), nh * d, b, s, nh, d, sm_scale,
+        drop, _stream(q))
+    return grads
+
+
 def seg_attention(qkv, mask, n_heads: int, drop=None, stats: bool = False):
-    """(b*s, 3h) QKV + (b, s) segment mask -> ctx (b*s, h), with the
-    Philox prob dropout ``drop`` (stream 3) applied to the normalised f32
-    probs before their bf16 rounding; with ``stats`` also ``(ctx,
-    stats)``, stats (2, b, n_heads, s) f32 = each row's max and sum of
-    exp, from which ``seg_attention_bwd`` rebuilds the probs."""
+    """(b*s, 3h) QKV + (b, s) segment mask -> ctx (b*s, h): the
+    ``sb_attention`` kernel on the buffer's q | k | v column blocks (row
+    stride 3h) at sm_scale 1 / sqrt(d); with ``stats`` also ``(ctx,
+    stats)``, stats (2, b, n_heads, s) f32, from which
+    ``seg_attention_bwd`` rebuilds the probs."""
     if not _on_cuda("seg_attention", qkv, mask):
         return seg_attention_reference(qkv, mask, n_heads, drop, stats)
     b, s, h = _attn_dims("seg_attention", qkv, mask, n_heads)
     out = torch.empty((b * s, h), dtype=torch.bfloat16, device=qkv.device)
     st = torch.empty((2, b, n_heads, s), dtype=torch.float32,
                      device=qkv.device) if stats else None
-    rc = _cuda.lib().nbk_seg_attention(
-        qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), _ptr(st), b, s, h,
-        int(n_heads), 1.0 / float(h // n_heads) ** 0.5, *_drop_args(drop),
-        _stream(qkv))
-    _cuda.check(rc, "seg_attention")
-    _cuda.launch_counts["seg_attention"] += 1
+    d = h // n_heads
+    _launch_seg_attention(_column_blocks(qkv, h), 3 * h, mask, out, st, b,
+                          s, n_heads, d, 1.0 / float(d) ** 0.5, drop,
+                          _stream(qkv))
     return (out, st) if stats else out
 
 
 def seg_attention_bwd(qkv, dctx, mask, stats, n_heads: int, drop=None):
     """The attention backward from the (b*s, 3h) QKV, the (b*s, h) bf16
     ctx gradient, the mask and ``seg_attention``'s row statistics ->
-    dqkv (b*s, 3h) bf16, regenerating the forward's stream-3 mask (see
-    csrc/seg_attention_bwd.cu)."""
+    dqkv (b*s, 3h) bf16, written by the kernel straight into its q | k |
+    v column blocks."""
     if not _on_cuda("seg_attention_bwd", qkv, dctx, mask, stats):
         return seg_attention_bwd_reference(qkv, dctx, mask, stats, n_heads,
                                            drop)
@@ -540,15 +793,85 @@ def seg_attention_bwd(qkv, dctx, mask, stats, n_heads: int, drop=None):
     _expect("seg_attention_bwd", "stats", stats, torch.float32,
             (2, b, n_heads, s))
     dqkv = torch.empty_like(qkv)
-    di = torch.empty((b, n_heads, s), dtype=torch.float32,
-                     device=qkv.device)
-    rc = _cuda.lib().nbk_seg_attention_bwd(
-        qkv.data_ptr(), dctx.data_ptr(), mask.data_ptr(), stats.data_ptr(),
-        di.data_ptr(), dqkv.data_ptr(), b, s, h, int(n_heads),
-        1.0 / float(h // n_heads) ** 0.5, *_drop_args(drop), _stream(qkv))
-    _cuda.check(rc, "seg_attention_bwd")
-    _cuda.launch_counts["seg_attention_bwd"] += 1
+    d = h // n_heads
+    _launch_seg_attention_bwd(_column_blocks(qkv, h), 3 * h, dctx, mask,
+                              stats, _column_blocks(dqkv, h), 3 * h, b, s,
+                              n_heads, d, 1.0 / float(d) ** 0.5, drop,
+                              _stream(qkv))
     return dqkv
+
+
+def flash_fwd(q, k, v, mask, sm_scale: float, drop=None):
+    """The tiled flash forward of (b, s, n_heads, d) q, k, v (any s; on
+    the card bf16 sharing one row stride, d in FLASH_HEAD_DIMS) and the
+    (b, s) segment mask -> (o (b, s, n_heads, d), lse (b, n_heads, s)
+    f32), with the Philox prob dropout ``drop`` (stream 3)."""
+    if not _on_cuda("flash_fwd", q, k, v, mask):
+        return flash_fwd_reference(q, k, v, mask, sm_scale, drop)
+    b, s, nh, d, ld = _bshd("flash_fwd", q, k, v, mask, FLASH_HEAD_DIMS)
+    o = torch.empty((b, s, nh, d), dtype=torch.bfloat16, device=q.device)
+    lse = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
+    rc = _cuda.lib().nbk_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, mask.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), b, s, nh, d, float(sm_scale),
+        *_drop_args(drop), _stream(q))
+    _cuda.check(rc, "flash_fwd")
+    _cuda.launch_counts["flash_fwd"] += 1
+    return o, lse
+
+
+def _flash_bwd_checks(name, q, k, v, mask, lse, dout, stat2, stat2_name):
+    b, s, nh, d, ld = _bshd(name, q, k, v, mask, FLASH_HEAD_DIMS)
+    _expect(name, "dout", dout, torch.bfloat16, (b, s, nh, d))
+    _expect(name, "lse", lse, torch.float32, (b, nh, s))
+    if stat2_name == "o":
+        _expect(name, "o", stat2, torch.bfloat16, (b, s, nh, d))
+    else:
+        _expect(name, "di", stat2, torch.float32, (b, nh, s))
+    return b, s, nh, d, ld
+
+
+def flash_bwd_dq(q, k, v, mask, o, lse, dout, sm_scale: float, drop=None):
+    """The tiled backward's dQ kernel -> (dq (b, s, n_heads, d), di (b,
+    n_heads, s) f32 = rowsum(dout * o)), from ``flash_fwd``'s inputs, o
+    and lse and the bf16 output gradient ``dout``."""
+    if not _on_cuda("flash_bwd_dq", q, k, v, mask, o, lse, dout):
+        return flash_bwd_dq_reference(q, k, v, mask, o, lse, dout, sm_scale,
+                                      drop)
+    b, s, nh, d, ld = _flash_bwd_checks("flash_bwd_dq", q, k, v, mask, lse,
+                                        dout, o, "o")
+    dq = torch.empty((b, s, nh, d), dtype=torch.bfloat16, device=q.device)
+    di = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
+    rc = _cuda.lib().nbk_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, o.data_ptr(),
+        dout.data_ptr(), mask.data_ptr(), lse.data_ptr(), di.data_ptr(),
+        dq.data_ptr(), nh * d, b, s, nh, d, float(sm_scale),
+        *_drop_args(drop), _stream(q))
+    _cuda.check(rc, "flash_bwd_dq")
+    _cuda.launch_counts["flash_bwd_dq"] += 1
+    return dq, di
+
+
+def flash_bwd_dkv(q, k, v, mask, lse, di, dout, sm_scale: float,
+                  drop=None):
+    """The tiled backward's dK/dV kernel -> (dk, dv), (b, s, n_heads, d)
+    each, from ``flash_fwd``'s inputs, lse, ``flash_bwd_dq``'s di and the
+    bf16 output gradient ``dout``."""
+    if not _on_cuda("flash_bwd_dkv", q, k, v, mask, lse, di, dout):
+        return flash_bwd_dkv_reference(q, k, v, mask, lse, di, dout,
+                                       sm_scale, drop)
+    b, s, nh, d, ld = _flash_bwd_checks("flash_bwd_dkv", q, k, v, mask, lse,
+                                        dout, di, "di")
+    dk = torch.empty((b, s, nh, d), dtype=torch.bfloat16, device=q.device)
+    dv = torch.empty_like(dk)
+    rc = _cuda.lib().nbk_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, dout.data_ptr(),
+        mask.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), nh * d, b, s, nh, d, float(sm_scale),
+        *_drop_args(drop), _stream(q))
+    _cuda.check(rc, "flash_bwd_dkv")
+    _cuda.launch_counts["flash_bwd_dkv"] += 1
+    return dk, dv
 
 
 def quantize_rows(x):
@@ -711,7 +1034,9 @@ def chain_ops(plain: bool) -> SimpleNamespace:
     names = ("quantize_rows", "quantize_grad_rows", "gemm_bias_act",
              "gemm_bias_residual", "gemm_dgrad", "gemm_i8_bias_act",
              "gemm_i8_bias_residual", "gemm_i8_dgrad", "ffn_bwd_rows",
-             "seg_attention", "seg_attention_bwd")
+             "seg_attention", "seg_attention_bwd", "sb_attention",
+             "sb_attention_bwd", "flash_fwd", "flash_bwd_dq",
+             "flash_bwd_dkv")
     g = globals()
     ops = {n: g[f"{n}_reference" if plain else n] for n in names}
     ops["layer_norm_rows"] = layer_norm_reference if plain else \

@@ -19,14 +19,15 @@ streams:
 
 - 1: the FFN block's (n, intermediate) mask;
 - 2: the FFN block's (n, hidden) mask;
-- 3: the attention block's prob mask, element (q, k) of head ``head`` of
-  batch element ``elem`` at row ``(elem * n_heads + head) * s + q`` and
-  column ``k`` -- the (b, n_heads, s, s) probs flattened to rows;
+- 3: the attention prob mask -- of the attention block and of both flash
+  routes (``ops/flash_attention.py``) -- element (q, k) of head ``head``
+  of batch element ``elem`` at row ``(elem * n_heads + head) * s + q`` and
+  column ``k``: the (b, n_heads, s, s) probs flattened to rows;
 - 4: the attention block's (n, hidden) out-proj mask.
 
 ``elem`` and ``s`` are those of the unpadded (b, s) input.  The
-attention forward, its dQ kernel and its dK/dV kernel regenerate the
-same stream-3 mask.
+attention forwards, the dQ kernels and the dK/dV kernels -- single-block
+and tiled, at any tiling -- regenerate the same stream-3 mask.
 
 Philox needs the high 32 bits of a 32 x 32-bit product.  PyTorch has no
 uint32 arithmetic, and on int64 that product overflows the sign bit, so

@@ -88,8 +88,8 @@ def test_wrappers_refuse_and_count(dev):
     with pytest.raises(ValueError, match="N % 128"):
         K.gemm_bias_act(a, w[:, :96].contiguous(), b[:96])
     with pytest.raises(ValueError, match="head dims"):
-        K.seg_attention(_rand(dev, 64, 3 * 96), torch.ones(4, 16,
-                                                           device=dev), 3)
+        K.seg_attention(_rand(dev, 64, 3 * 144), torch.ones(4, 16,
+                                                            device=dev), 3)
     _cuda.reset_launch_counts()
     K.gemm_bias_act(a, w, b)
     K.gemm_bias_act(a, w, b, "gelu")
@@ -581,7 +581,7 @@ def test_attention_train_wrappers_refuse_and_count(dev):
         K.seg_attention_bwd(qkv, qkv[:, :256].contiguous(), mask, st[:, :1],
                             4)
     with pytest.raises(ValueError, match="head dims"):
-        K.seg_attention_bwd(qkv, qkv[:, :256].contiguous(), mask, st, 8)
+        K.seg_attention_bwd(qkv, qkv[:, :256].contiguous(), mask, st, 16)
     with pytest.raises(ValueError, match="no dropout"):
         K.gemm_dgrad(qkv[:, :256].contiguous(), _rand(dev, 256, 256), "none",
                      drop=_drop(0.1, 4))
@@ -817,3 +817,126 @@ def test_seg_attention_wide_heads(dev, s, d):
         _close_rel(got[:, cols], want[:, cols])
     _close(K.seg_attention(qkv, mask, nh), K.seg_attention_reference(
         qkv, mask, nh))
+
+
+# --------------------------------------------------------------------- #
+# the flash route: the widened single-block kernels on (b, s, heads, d)
+# operands (views of one QKV buffer and standalone tensors, d = 32 too)
+# and the tiled kernels, at any s, against their plain versions; the
+# tiled kernels forced at s = 256 draw the single-block kernels' mask.
+# --------------------------------------------------------------------- #
+
+def _bshd_operands(dev, b, s, nh, d, views, seed):
+    if views:                      # split views of one (b*s, 3h) buffer
+        qkv = _rand(dev, b * s, 3 * nh * d, std=0.5, seed=seed)
+        q, k, v = qkv.view(b, s, 3, nh, d).unbind(2)
+    else:
+        q, k, v = (_rand(dev, b, s, nh, d, std=0.5, seed=seed + i)
+                   for i in range(3))
+    return q, k, v, _rand(dev, b, s, nh, d, std=0.1, seed=seed + 3)
+
+
+@pytest.mark.parametrize("views", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_sb_attention_strided(dev, d, views, rate):
+    b, s, nh = 3, 150, 4
+    q, k, v, do = _bshd_operands(dev, b, s, nh, d, views, seed=d + 200)
+    mask = _attn_mask(dev, b, s, packed=True)
+    drop, sc = _drop(rate, 3), 0.3
+    o, st = K.sb_attention(q, k, v, mask, sc, drop, stats=True)
+    grads = K.sb_attention_bwd(q, k, v, do, mask, st, sc, drop)
+    torch.cuda.synchronize()
+    ro, rst = K.sb_attention_reference(q, k, v, mask, sc, drop, stats=True)
+    _close(o, ro)
+    torch.testing.assert_close(st, rst, rtol=1e-5, atol=1e-6)
+    for got, want in zip(grads, K.sb_attention_bwd_reference(
+            q, k, v, do, mask, st, sc, drop)):
+        _close_rel(got, want)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [100, 700])
+def test_flash_tiled_kernels(dev, s, d, packed):
+    b, nh = 2, 4
+    q, k, v, do = _bshd_operands(dev, b, s, nh, d, s == 700, seed=s + d)
+    mask = _attn_mask(dev, b, s, packed)
+    drop, sc = _drop(0.1, 3), 1.0 / d ** 0.5
+    o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
+    dq, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc, drop)
+    dk, dv = K.flash_bwd_dkv(q, k, v, mask, lse, di, do, sc, drop)
+    torch.cuda.synchronize()
+    ro, rlse = K.flash_fwd_reference(q, k, v, mask, sc, drop)
+    _close(o, ro)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    rdq, rdi = K.flash_bwd_dq_reference(q, k, v, mask, o, lse, do, sc, drop)
+    torch.testing.assert_close(di, rdi, rtol=1e-4,
+                               atol=1e-5 * rdi.abs().max().item())
+    _close_rel(dq, rdq)
+    for got, want in zip((dk, dv), K.flash_bwd_dkv_reference(
+            q, k, v, mask, lse, di, do, sc, drop)):
+        _close_rel(got, want)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_tiled_draws_the_single_block_mask(dev, d):
+    """At s = 256 the forced tiled route and the single-block route drop
+    the same probs: with four packed segments of 64 and v one-hot within
+    a segment (d = 64), o != 0 is the stream-3 keep mask on the diagonal
+    blocks for both; at every d both routes' outputs and gradients agree
+    within the kernels' tolerance."""
+    from nbest_asr_tpu_torch.ops.flash_attention import flash_attention
+    from nbest_asr_tpu_torch.ops.philox import keep_mask
+
+    b, s, nh, rate, seed = 2, 256, 2, 0.1, 4321
+    mask = (torch.arange(s, device=dev) // 64 + 1).float()[None].repeat(b, 1)
+    q, k, v, do = _bshd_operands(dev, b, s, nh, d, False, seed=d + 300)
+    if d == 64:
+        eye = torch.eye(64, device=dev, dtype=torch.bfloat16)
+        v = eye.repeat(4, 1)[None, :, None, :].expand(b, s, nh, d)
+    outs = []
+    for kw in ({}, dict(block_q=128, block_k=128)):
+        qq, kk, vv = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        o = flash_attention(qq, kk, vv, mask, dropout_rate=rate, seed=seed,
+                            **kw)
+        o.backward(do)
+        outs.append([o.detach(), qq.grad, kk.grad, vv.grad])
+    torch.cuda.synchronize()
+    for got, want in zip(*outs):
+        _close_rel(got, want)
+    if d == 64:
+        keep = keep_mask(seed, 3, 0, b * nh * s, s, rate, dev).reshape(
+            b, nh, s, s)
+        seg = torch.arange(s, device=dev) // 64
+        cols = seg[:, None] * 64 + torch.arange(64, device=dev)[None]
+        want = torch.gather(keep, 3, cols[None, None].expand(b, nh, s, 64))
+        for o in (outs[0][0], outs[1][0]):
+            assert torch.equal(o.permute(0, 2, 1, 3) != 0, want)
+
+
+def test_flash_wrappers_refuse_and_count(dev):
+    from nbest_asr_tpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v, do = _bshd_operands(dev, 2, 80, 4, 64, True, seed=400)
+    mask = torch.ones(2, 80, device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        K.flash_fwd(*(t[..., :48].contiguous() for t in (q, k, v)), mask,
+                    0.1)
+    with pytest.raises(ValueError, match="strides"):
+        K.flash_fwd(q, k.contiguous(), v, mask, 0.1)
+    with pytest.raises(TypeError):
+        K.flash_fwd(q.float(), k, v, mask, 0.1)
+    with pytest.raises(ValueError, match="seq"):
+        K.sb_attention(*(torch.cat([t] * 7, 1) for t in (q, k, v)),
+                       torch.ones(2, 560, device=dev), 0.1)
+    for kw, want in (({}, {"seg_attention": 1, "seg_attention_bwd": 1}),
+                     (dict(block_k=64), {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                         "flash_bwd_dkv": 1})):
+        qq, kk, vv = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        _cuda.reset_launch_counts()
+        flash_attention(qq, kk, vv, mask, dropout_rate=0.1, seed=1,
+                        **kw).backward(do)
+        assert {n: c for n, c in _cuda.launch_counts.items() if c} == want

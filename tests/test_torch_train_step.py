@@ -2,14 +2,19 @@
 the same bridged parameters, batch and BertAdam settings at dropout 0,
 three steps (step 0 trains at lr 0 under the warmup-linear schedule, so
 one step would compare zero deltas), two accumulated micros per step,
-one with a padding-sentinel row.  Three configurations: a hidden-64
-model on the plain route, a hidden-128 model whose FFN blocks take the
-fused route (``use_fused_ffn=True, use_fused_attn=False``; JAX runs its
-Pallas FFN in interpret mode, the port its kernels' plain versions and
-the FFN autograd Function), and the same model with both blocks fused
+one with a padding-sentinel row.  Configurations: a hidden-64 model on
+the plain route, a hidden-128 model whose FFN blocks take the fused route
+(``use_fused_ffn=True, use_fused_attn=False``; JAX runs its Pallas FFN in
+interpret mode, the port its kernels' plain versions and the FFN
+autograd Function), the same model with both blocks fused
 (``use_fused_attn=True`` as well: JAX's attention megakernel against the
 port's attention Function), each fused configuration also on packed
-micros.
+micros, the int8 training routes, and the flash route
+(``use_flash_attention`` with ``flash_min_seq=16`` so that the tests'
+24-token rows route: JAX's single-block flash kernels against the port's
+``ops/flash_attention.py``) at head dim 64 beside the fused FFN, and at
+head dim 32, where the attention megakernel's lane rule fails and JAX
+takes flash although ``use_fused_attn`` is set.
 
 Tolerances, f32 on both sides: loss parts 1e-5 relative and per-leaf
 parameter deltas 1e-3 of the leaf's largest delta (summation order and
@@ -67,6 +72,12 @@ CONFIGS = {
                                 use_fused_attn=True, use_int8_train=True,
                                 use_int8_train_attn=True,
                                 use_int8_train_bwd=True),
+    "flash": dict(hidden_size=128, num_heads=2, intermediate_size=256,
+                  use_fused_ffn=True, use_fused_attn=False,
+                  use_flash_attention=True, flash_min_seq=16),
+    "flash_d32": dict(hidden_size=128, num_heads=4, intermediate_size=256,
+                      use_fused_attn=True, use_flash_attention=True,
+                      flash_min_seq=16),
 }
 
 
@@ -256,8 +267,9 @@ def _one_step(tiny_memory, seed, **flags):
 def test_eval_step_and_training_refusals(tiny_memory):
     """The eval step runs; training raises exactly where JAX would run a
     kernel the port lacks (each remaining case of
-    ``encoder._refuse_unported_training``), and eval where JAX would run
-    an attention megakernel at a head dim the port's kernels lack."""
+    ``encoder._refuse_unported_training``, among them the flash route at
+    a head dim its kernels lack), and eval where JAX would run an
+    attention megakernel at a head dim the port's kernels lack."""
     jcfg, tcfg = _configs(tiny_memory, "fused_ffn")
     params = from_jax_numpy(jax.device_get(j_init(jax.random.PRNGKey(6),
                                                   jcfg)))
@@ -275,7 +287,10 @@ def test_eval_step_and_training_refusals(tiny_memory):
         tcfg.encoder, use_fused_attn_eval=True, **d320))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_eval_step(ecfg, LossConfig(), hier)(params, data, np.arange(10))
-    refused = [dict(use_flash_attention=True, flash_min_seq=16),
+    refused = [# JAX's flash route at head dim 16; the port's flash
+               # kernels take 32, 64 and 128
+               dict(use_flash_attention=True, flash_min_seq=16,
+                    hidden_size=64, num_heads=4),
                # the attention block takes the plain path here
                dict(use_fused_ln=True),
                dict(use_fused_gelu=True, use_fused_ffn=False),
