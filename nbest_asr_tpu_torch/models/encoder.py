@@ -23,7 +23,17 @@ a multiple of 128 and a head dim a multiple of 64 (``attn_lanes_ok``):
   leaves) or ``ops.fused_ffn`` (tensor leaves) when ``use_fused_ffn`` is
   set and hidden and intermediate are multiples of 128;
 - otherwise the plain path runs, exactly as the JAX XLA path does, with
-  ``qdense`` taking either kind of leaf.
+  ``qdense`` taking either kind of leaf -- with JAX's three fused row
+  kernels where its flags send them, in eval and in training:
+  ``use_fused_ln`` puts both residual LayerNorms of the plain attention and
+  FFN paths on ``ops.fused_ln.fused_residual_layer_norm`` (the residual sum
+  in f32, ``encoder.py:292-301``), ``use_fused_gelu`` computes the plain
+  FFN's first GEMM without its bias, accumulated in f32 and rounded once,
+  and adds the bias in ``ops.fused_gelu.fused_bias_gelu``
+  (``encoder.py:445-450``; a quantized FFN kernel keeps the plain int8
+  dense, which JAX cannot run with this flag), and ``use_fused_embedding``
+  sends the embeddings to ``ops.fused_embed.fused_embed_lookup`` whenever
+  no ``position_ids`` are given (``encoder.py:176-186``).
 
 Training (``deterministic=False``) needs an explicit ``seed``; every
 dropout site takes its own seed from it with ``philox.fold_in`` (per
@@ -54,9 +64,8 @@ Where JAX would run a kernel the port does not have, the forward raises
 ``NotImplementedError`` rather than run the plain path quietly: the
 attention megakernel at a head dim the port's attention kernels do not
 take (``HEAD_DIMS``; eval and training, ``_refuse_head_dim``), and in
-training the flash route at a head dim outside ``FLASH_HEAD_DIMS``, the
-fused LN and GELU kernels on the plain paths and the fused embedding
-lookup (``_refuse_unported_training``).
+training the flash route at a head dim outside ``FLASH_HEAD_DIMS``
+(``_refuse_unported_training``).
 """
 
 from __future__ import annotations
@@ -68,7 +77,7 @@ import torch
 
 from ..ops.attention import flash_routes, multi_head_attention
 from ..ops.kernels import FLASH_HEAD_DIMS, HEAD_DIMS
-from ..ops.layers import dense, dropout, gelu, layer_norm
+from ..ops.layers import acc_dtype, dense, dropout, gelu, layer_norm
 from ..ops.philox import fold_in, generator
 from ..ops.quant import dense_int8, is_quantized
 
@@ -83,10 +92,10 @@ class EncoderConfig:
     ``use_fused_attn``, ``use_fused_attn_eval`` and ``use_fused_ffn``, and
     in training ``use_flash_attention`` with ``flash_min_seq`` and the int8
     flags ``use_int8_train``, ``use_int8_train_attn`` and
-    ``use_int8_train_bwd``; ``use_fused_ln``, ``use_fused_gelu`` and
-    ``use_fused_embedding`` raise where JAX would run those kernels
-    (module docstring); ``remat`` and ``scan_unroll`` steer the TPU's scan
-    and are kept so one configuration describes both packages."""
+    ``use_int8_train_bwd``, and in eval and training ``use_fused_ln``,
+    ``use_fused_gelu`` and ``use_fused_embedding`` (module docstring);
+    ``remat`` and ``scan_unroll`` steer the TPU's scan and are kept so one
+    configuration describes both packages."""
 
     vocab_size: int
     hidden_size: int = 768
@@ -198,25 +207,44 @@ def _embed(params: dict, input_ids: torch.Tensor,
     """Word + position + token-type embeddings, LayerNorm, dropout in
     training (``seed`` set), cast to the compute dtype.  ``position_ids``
     (b, s) overrides the iota positions (example packing restarts them
-    per segment)."""
+    per segment); without them ``use_fused_embedding`` runs the fused
+    lookup."""
     emb = params["embeddings"]
     s = input_ids.shape[1]
-    ids = input_ids.long()
+    has_types = token_type_ids is not None and cfg.type_vocab_size > 0
+    if cfg.use_fused_embedding and position_ids is None:
+        from ..ops.fused_embed import fused_embed_lookup
+
+        off = cfg.position_offset
+        x = fused_embed_lookup(emb["word"], emb["position"][off:off + s],
+                               emb["type"], emb["ln_scale"], emb["ln_bias"],
+                               input_ids, token_type_ids if has_types
+                               else None, s, cfg.layer_norm_eps)
+    else:
+        x = _embed_plain(emb, input_ids.long(),
+                         token_type_ids if has_types else None, cfg,
+                         position_ids)
+    if seed is not None:
+        x = dropout(x, cfg.hidden_dropout,
+                    generator(fold_in(seed, 0xE), x.device))
+    return x.to(cfg.cdtype)
+
+
+def _embed_plain(emb: dict, ids: torch.Tensor,
+                 token_type_ids: Optional[torch.Tensor], cfg: EncoderConfig,
+                 position_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    s = ids.shape[1]
     x = emb["word"][ids]
     if position_ids is None:
         pos = torch.arange(s, device=ids.device) + cfg.position_offset
         x = x + emb["position"][pos][None, :, :]
     else:
         x = x + emb["position"][position_ids.long() + cfg.position_offset]
-    if token_type_ids is not None and cfg.type_vocab_size > 0:
+    if token_type_ids is not None:
         x = x + emb["type"][token_type_ids.long()]
     else:
         x = x + emb["type"][0][None, None, :]
-    x = layer_norm(x, emb["ln_scale"], emb["ln_bias"], cfg.layer_norm_eps)
-    if seed is not None:
-        x = dropout(x, cfg.hidden_dropout,
-                    generator(fold_in(seed, 0xE), x.device))
-    return x.to(cfg.cdtype)
+    return layer_norm(x, emb["ln_scale"], emb["ln_bias"], cfg.layer_norm_eps)
 
 
 def attn_lanes_ok(cfg: EncoderConfig) -> bool:
@@ -280,34 +308,20 @@ def _refuse_head_dim(cfg: EncoderConfig) -> None:
             "attention path")
 
 
-def _refuse_unported_training(cfg: EncoderConfig, batch: int, seq: int,
-                              position_ids) -> None:
+def _refuse_unported_training(cfg: EncoderConfig, batch: int,
+                              seq: int) -> None:
     """Raise exactly where JAX would train through a kernel the port
-    lacks: its routing predicate (``encoder.py:176, 292-301, 322-458``,
-    ``ops/attention.py:138-140``), case by case; the attention
+    lacks: its flash routing predicate (``ops/attention.py:138-140``) at a
+    head dim the port's flash kernels do not take; the attention
     megakernel's head dims are ``_refuse_head_dim``'s, eval and training
     alike."""
-    attn_routes = attn_train_routes(cfg, seq)
-    ffn_routes = ffn_kernel_routes(cfg)
-    if (not attn_routes and flash_train_routes(cfg, batch, seq)
+    if (not attn_train_routes(cfg, seq)
+            and flash_train_routes(cfg, batch, seq)
             and cfg.head_dim not in FLASH_HEAD_DIMS):
         raise NotImplementedError(
             f"training with use_flash_attention at head dim {cfg.head_dim}: "
             "JAX routes it to the flash kernels, whose port takes head dims "
             f"{FLASH_HEAD_DIMS} {_WHERE}")
-    if cfg.use_fused_ln and not (attn_routes and ffn_routes):
-        raise NotImplementedError(
-            "training with use_fused_ln: JAX runs the fused LayerNorm kernel "
-            "on the plain attention and FFN paths, and it is not ported yet "
-            f"{_WHERE}")
-    if cfg.use_fused_gelu and not ffn_routes:
-        raise NotImplementedError(
-            "training with use_fused_gelu: JAX runs the fused GELU kernel on "
-            f"the plain FFN path, and it is not ported yet {_WHERE}")
-    if cfg.use_fused_embedding and position_ids is None:
-        raise NotImplementedError(
-            "training with use_fused_embedding: JAX runs the fused embedding "
-            f"kernel without position_ids, and it is not ported yet {_WHERE}")
 
 
 def _qdense(x: torch.Tensor, kernel, bias: torch.Tensor,
@@ -340,7 +354,7 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
         if seed is None:
             raise ValueError("encoder_forward: deterministic=False requires "
                              "a seed")
-        _refuse_unported_training(cfg, *input_ids.shape, position_ids)
+        _refuse_unported_training(cfg, *input_ids.shape)
     x = _embed(params, input_ids, token_type_ids, cfg,
                position_ids=position_ids, seed=seed if train else None)
     b, s, h = x.shape
@@ -375,6 +389,18 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
         from ..ops.fused_ffn import fused_ffn_block_int8_train
     if "int8" in (attn_route, ffn_route):
         from ..ops.int8_serving import int8_attention_block, int8_ffn_block
+    if cfg.use_fused_ln:
+        from ..ops.fused_ln import fused_residual_layer_norm
+
+        def res_ln(delta, residual, scale, bias):
+            return fused_residual_layer_norm(delta, residual, scale, bias,
+                                             cfg.layer_norm_eps)
+    else:
+        def res_ln(delta, residual, scale, bias):
+            return layer_norm(residual + delta, scale, bias,
+                              cfg.layer_norm_eps)
+    if cfg.use_fused_gelu:
+        from ..ops.fused_gelu import fused_bias_gelu
 
     def gen(lseed: int, site: int):
         return generator(fold_in(lseed, site), x.device)
@@ -423,8 +449,7 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
             ctx = _qdense(ctx, p["attn_out_kernel"], p["attn_out_bias"], cdt)
             if train:
                 ctx = dropout(ctx, hidden_rate, gen(lseed, 2))
-            x = layer_norm(x + ctx, p["attn_ln_scale"], p["attn_ln_bias"],
-                           cfg.layer_norm_eps)
+            x = res_ln(ctx, x, p["attn_ln_scale"], p["attn_ln_bias"])
 
         if ffn_route == "int8":
             w1, w2 = p["ffn_in_kernel"], p["ffn_out_kernel"]
@@ -448,10 +473,15 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
                 seed=fold_in(lseed, 3) if train else None,
                 eps=cfg.layer_norm_eps)
         else:
-            y = gelu(_qdense(x, p["ffn_in_kernel"], p["ffn_in_bias"], cdt))
+            w1 = p["ffn_in_kernel"]
+            if cfg.use_fused_gelu and not is_quantized(w1):
+                acc = acc_dtype(cdt)
+                y = torch.matmul(x.to(acc), w1.to(cdt).to(acc)).to(cdt)
+                y = fused_bias_gelu(y, p["ffn_in_bias"])
+            else:
+                y = gelu(_qdense(x, w1, p["ffn_in_bias"], cdt))
             y = _qdense(y, p["ffn_out_kernel"], p["ffn_out_bias"], cdt)
             if train:
                 y = dropout(y, hidden_rate, gen(lseed, 3))
-            x = layer_norm(x + y, p["ffn_ln_scale"], p["ffn_ln_bias"],
-                           cfg.layer_norm_eps)
+            x = res_ln(y, x, p["ffn_ln_scale"], p["ffn_ln_bias"])
     return x

@@ -35,7 +35,9 @@ KERNELS = ("gemm_bias_act", "gemm_bias_residual", "layer_norm",
            "seg_attention", "quantize_rows", "gemm_i8_bias_act",
            "gemm_i8_bias_residual", "ffn_bwd_rows", "gemm_dgrad",
            "seg_attention_bwd", "quantize_grad_rows", "gemm_i8_dgrad",
-           "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+           "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "residual_layer_norm", "residual_layer_norm_bwd", "bias_gelu",
+           "bias_gelu_bwd", "embed_lookup")
 launch_counts = {name: 0 for name in KERNELS}
 
 _lib = None
@@ -141,6 +143,12 @@ def lib() -> ctypes.CDLL:
     L.nbk_gemm_i8_bias_act.argtypes = [p] * 7 + [i, i, i, i, *drop, p]
     L.nbk_gemm_i8_bias_residual.argtypes = [p] * 8 + [i, i, i, *drop, p]
     L.nbk_gemm_i8_dgrad.argtypes = [p] * 8 + [i, i, i, i, *drop, p]
+    # the row kernels: ..., is_f32 (bf16 or f32 activations), stream
+    L.nbk_residual_layer_norm.argtypes = [p] * 7 + [i, i, f, i, p]
+    L.nbk_residual_layer_norm_bwd.argtypes = [p] * 10 + [i, i, i, i, p]
+    L.nbk_bias_gelu.argtypes = [p, p, p, i, i, i, p]
+    L.nbk_bias_gelu_bwd.argtypes = [p, p, p, p, i, i, i, p]
+    L.nbk_embed_lookup.argtypes = [p] * 8 + [i, i, i, i, i, f, i, p]
     for name in KERNELS:
         getattr(L, f"nbk_{name}").restype = ctypes.c_int
     L.nbk_error_string.argtypes = [i]

@@ -65,6 +65,21 @@ their int8 backwards:
                             (dh in bf16 and f32, the regenerated gd),
                             "residual" and "none" epilogues
 
+The encoder's plain-block route (``use_fused_ln``, ``use_fused_gelu``,
+``use_fused_embedding``; ``ops/fused_ln.py``, ``ops/fused_gelu.py``,
+``ops/fused_embed.py``) adds five row and elementwise kernels, on bf16 or
+f32 activations:
+
+- ``residual_layer_norm``     -- ``LN(x + r)`` with the sum in f32, its row
+                                 mean and rstd (``csrc/layer_norm.cu``)
+- ``residual_layer_norm_bwd`` -- dx, and dscale / dbias as per-block
+                                 partials summed in a fixed order
+- ``bias_gelu``               -- ``gelu(x + b)`` with the A&S 7.1.26 erf
+                                 (``csrc/fused_gelu.cu``)
+- ``bias_gelu_bwd``           -- ``dy * gelu'(x + b)``
+- ``embed_lookup``            -- word + position + type rows, LayerNorm
+                                 (``csrc/fused_embed.cu``)
+
 A wrapper given CPU tensors runs the plain version (``*_reference``).
 Given CUDA tensors it checks dtype, shape and contiguity, raises on what
 the kernel does not take, allocates the output with ``torch.empty``,
@@ -80,7 +95,8 @@ from types import SimpleNamespace
 import torch
 
 from . import _cuda
-from .layers import acc_dtype, gelu, gelu_grad, layer_norm_stats
+from .layers import (INV_SQRT2, INV_SQRT2PI, acc_dtype, gelu,
+                     gelu_grad, layer_norm_stats)
 from .philox import Dropout, keep_mask, threshold
 from .quant import dequant, int_dot, quantize_rows_reference, symmetric_int8
 
@@ -271,6 +287,70 @@ def layer_norm_reference(s, scale, bias, eps: float, out_dtype,
     y, mean, rstd = layer_norm_stats(s, scale, bias, eps)
     y = y.to(s.dtype).to(out_dtype)
     return (y, mean[:, 0], rstd[:, 0]) if stats else y
+
+
+def _erf_as(x):
+    """erf by Abramowitz & Stegun 7.1.26, in the order of
+    ``nbest_asr_tpu/ops/fused_gelu.py:_erf`` -- the function the fused
+    GELU kernels compute, not ``torch.erf``."""
+    a1, a2, a3 = 0.254829592, -0.284496736, 1.421413741
+    a4, a5, p = -1.453152027, 1.061405429, 0.3275911
+    ax = x.abs()
+    t = 1.0 / (1.0 + p * ax)
+    poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t
+    return torch.sign(x) * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def _gelu_cdf(s):
+    return 0.5 * (1.0 + _erf_as(s * INV_SQRT2))
+
+
+def residual_layer_norm_reference(x, r, scale, bias, eps: float):
+    """(y in x's dtype, mean (M,), rstd (M,)) of LN(x + r), the sum and
+    statistics in (at least) f32."""
+    acc = acc_dtype(x.dtype)
+    y, mean, rstd = layer_norm_stats(x.to(acc) + r.to(acc), scale, bias, eps)
+    return y.to(x.dtype), mean[:, 0], rstd[:, 0]
+
+
+def residual_layer_norm_bwd_reference(x, r, dy, scale, mean, rstd):
+    """(dx in x's dtype, dscale, dbias) of LN(x + r) from the forward's
+    statistics, in the order of ``nbest_asr_tpu/ops/fused_ln.py:79``."""
+    acc = acc_dtype(x.dtype)
+    xhat = (x.to(acc) + r.to(acc) - mean[:, None]) * rstd[:, None]
+    d = dy.to(acc)
+    g = d * scale.to(acc)
+    m1 = g.mean(dim=1, keepdim=True)
+    m2 = (g * xhat).mean(dim=1, keepdim=True)
+    dx = (g - m1 - xhat * m2) * rstd[:, None]
+    return dx.to(x.dtype), (d * xhat).sum(dim=0), d.sum(dim=0)
+
+
+def bias_gelu_reference(x, b):
+    """gelu(x + b) with the A&S erf, in (at least) f32, out in x's
+    dtype."""
+    s = x.to(acc_dtype(x.dtype)) + b
+    return (s * _gelu_cdf(s)).to(x.dtype)
+
+
+def bias_gelu_bwd_reference(x, b, dy):
+    """dy * (cdf + s * pdf) at s = x + b, out in x's dtype."""
+    acc = acc_dtype(x.dtype)
+    s = x.to(acc) + b
+    pdf = torch.exp(-0.5 * s * s) * INV_SQRT2PI
+    return (dy.to(acc) * (_gelu_cdf(s) + s * pdf)).to(x.dtype)
+
+
+def embed_lookup_reference(word, pos, type_, scale, bias, ids, type_ids,
+                           seq_len: int, eps: float):
+    """(n, h) in the tables' dtype: LN(word[ids] + pos[t % seq_len] +
+    type[type_ids]) for flat token rows t, the sum and statistics in (at
+    least) f32; ``type_ids`` None reads type row 0."""
+    acc = acc_dtype(word.dtype)
+    rows = torch.arange(ids.shape[0], device=ids.device) % seq_len
+    t = type_[0] if type_ids is None else type_[type_ids.long()]
+    x = word[ids.long()].to(acc) + pos[rows].to(acc) + t.to(acc)
+    return layer_norm_stats(x, scale, bias, eps)[0].to(word.dtype)
 
 
 def _seg_scores(q, k, mask, sm_scale: float):
@@ -1024,6 +1104,169 @@ def gemm_i8_dgrad(gq, gs, wq, epilogue: str, h=None, ds=None, drop=None,
     _cuda.check(rc, "gemm_i8_dgrad")
     _cuda.launch_counts["gemm_i8_dgrad"] += 1
     return (out, dh32, gd) if epilogue == "dgelu" else out
+
+
+# hidden sizes the row kernels take (one warp per row, four columns a lane
+# per 128: csrc/common.cuh:NBK_ROW_WIDTHS)
+ROW_WIDTHS = tuple(range(128, 1025, 128))
+_ACTS = (torch.bfloat16, torch.float32)
+# the row pass of residual_layer_norm_bwd runs at most this many blocks of
+# 8 warps (2 per SM), each writing one partial row of dscale and dbias
+_LN_BWD_BLOCKS = 264
+
+
+def _rows(name: str, t, widths=ROW_WIDTHS):
+    """(M, N) of a 2-D bf16 / f32 activation the row kernels take."""
+    if t.dim() != 2 or t.shape[1] not in widths:
+        raise ValueError(f"{name}: the kernel takes (M, N) rows with N in "
+                         f"{widths}, got {tuple(t.shape)}")
+    if t.dtype not in _ACTS:
+        raise TypeError(f"{name}: {t.dtype}; the kernel takes bf16 or f32")
+    return t.shape
+
+
+def _params(name: str, n: int, *vecs) -> None:
+    for arg, t in vecs:
+        _expect(name, arg, t, torch.float32, (n,))
+
+
+def _aligned(name: str, *tensors) -> None:
+    """The row and GELU kernels read four values at a time."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % (4 * t.element_size()):
+            raise ValueError(f"{name}: an operand is not aligned to four "
+                             "elements (a view at an odd offset?)")
+
+
+def residual_layer_norm(x, r, scale, bias, eps: float):
+    """LN(x + r) over (M, N) rows: (y in x's dtype, mean (M,) f32, rstd
+    (M,) f32); x and r bf16 or f32 alike, scale and bias (N,) f32."""
+    if not _on_cuda("residual_layer_norm", x, r, scale, bias):
+        return residual_layer_norm_reference(x, r, scale, bias, eps)
+    M, N = _rows("residual_layer_norm", x)
+    _expect("residual_layer_norm", "x", x, x.dtype, (M, N))
+    _expect("residual_layer_norm", "r", r, x.dtype, (M, N))
+    _params("residual_layer_norm", N, ("scale", scale), ("bias", bias))
+    _aligned("residual_layer_norm", x, r, scale, bias)
+    y = torch.empty_like(x)
+    mean = torch.empty((M,), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    rc = _cuda.lib().nbk_residual_layer_norm(
+        x.data_ptr(), r.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), M, N, float(eps),
+        int(x.dtype == torch.float32), _stream(x))
+    _cuda.check(rc, "residual_layer_norm")
+    _cuda.launch_counts["residual_layer_norm"] += 1
+    return y, mean, rstd
+
+
+def residual_layer_norm_bwd(x, r, dy, scale, mean, rstd):
+    """(dx in x's dtype, dscale (N,) f32, dbias (N,) f32) of
+    ``residual_layer_norm`` from its statistics; dx is the gradient of
+    both x and r."""
+    if not _on_cuda("residual_layer_norm_bwd", x, r, dy, scale, mean, rstd):
+        return residual_layer_norm_bwd_reference(x, r, dy, scale, mean,
+                                                 rstd)
+    M, N = _rows("residual_layer_norm_bwd", x)
+    for arg, t in (("x", x), ("r", r), ("dy", dy)):
+        _expect("residual_layer_norm_bwd", arg, t, x.dtype, (M, N))
+    _params("residual_layer_norm_bwd", N, ("scale", scale))
+    _params("residual_layer_norm_bwd", M, ("mean", mean), ("rstd", rstd))
+    _aligned("residual_layer_norm_bwd", x, r, dy, scale)
+    dx = torch.empty_like(x)
+    blocks = min(-(-M // 8), _LN_BWD_BLOCKS)
+    part = torch.empty((blocks, 2, N), dtype=torch.float32, device=x.device)
+    dsb = torch.empty((2, N), dtype=torch.float32, device=x.device)
+    rc = _cuda.lib().nbk_residual_layer_norm_bwd(
+        x.data_ptr(), r.data_ptr(), dy.data_ptr(), scale.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), part.data_ptr(),
+        dsb[0].data_ptr(), dsb[1].data_ptr(), M, N, blocks,
+        int(x.dtype == torch.float32), _stream(x))
+    _cuda.check(rc, "residual_layer_norm_bwd")
+    _cuda.launch_counts["residual_layer_norm_bwd"] += 1
+    return dx, dsb[0], dsb[1]
+
+
+def _gelu_operands(name: str, x, b, dy=None):
+    """(M, N) of the GELU kernels' bf16 / f32 (M, N) operands, N % 4 ==
+    0 (groups of four never cross a row)."""
+    if x.dim() != 2 or x.shape[1] % 4:
+        raise ValueError(f"{name}: the kernel takes (M, N) with N % 4 == 0, "
+                         f"got {tuple(x.shape)}")
+    if x.dtype not in _ACTS:
+        raise TypeError(f"{name}: {x.dtype}; the kernel takes bf16 or f32")
+    M, N = x.shape
+    _expect(name, "x", x, x.dtype, (M, N))
+    _params(name, N, ("b", b))
+    if dy is not None:
+        _expect(name, "dy", dy, x.dtype, (M, N))
+    _aligned(name, x, b, dy)
+    return M, N
+
+
+def bias_gelu(x, b):
+    """gelu(x + b) over (M, N), the A&S erf in f32, out in x's dtype (bf16
+    or f32); b (N,) f32."""
+    if not _on_cuda("bias_gelu", x, b):
+        return bias_gelu_reference(x, b)
+    M, N = _gelu_operands("bias_gelu", x, b)
+    y = torch.empty_like(x)
+    rc = _cuda.lib().nbk_bias_gelu(x.data_ptr(), b.data_ptr(), y.data_ptr(),
+                                   M, N, int(x.dtype == torch.float32),
+                                   _stream(x))
+    _cuda.check(rc, "bias_gelu")
+    _cuda.launch_counts["bias_gelu"] += 1
+    return y
+
+
+def bias_gelu_bwd(x, b, dy):
+    """dx = dy * gelu'(x + b) over (M, N), in x's dtype."""
+    if not _on_cuda("bias_gelu_bwd", x, b, dy):
+        return bias_gelu_bwd_reference(x, b, dy)
+    M, N = _gelu_operands("bias_gelu_bwd", x, b, dy)
+    dx = torch.empty_like(x)
+    rc = _cuda.lib().nbk_bias_gelu_bwd(x.data_ptr(), b.data_ptr(),
+                                       dy.data_ptr(), dx.data_ptr(), M, N,
+                                       int(x.dtype == torch.float32),
+                                       _stream(x))
+    _cuda.check(rc, "bias_gelu_bwd")
+    _cuda.launch_counts["bias_gelu_bwd"] += 1
+    return dx
+
+
+def embed_lookup(word, pos, type_, scale, bias, ids, type_ids,
+                 seq_len: int, eps: float):
+    """(n, h) in the tables' dtype: LN(word[ids] + pos[t % seq_len] +
+    type[type_ids]) for the flat (n,) int32 ``ids`` and ``type_ids`` (None:
+    type row 0).  Tables f32 or bf16 alike, scale and bias (h,) f32.  An
+    id outside its table gives a NaN row on the card (the ids are not
+    read on the host)."""
+    tensors = [word, pos, type_, scale, bias, ids] + (
+        [] if type_ids is None else [type_ids])
+    if not _on_cuda("embed_lookup", *tensors):
+        return embed_lookup_reference(word, pos, type_, scale, bias, ids,
+                                      type_ids, seq_len, eps)
+    V, N = _rows("embed_lookup", word)
+    if pos.shape[0] < seq_len or seq_len < 1:
+        raise ValueError(f"embed_lookup: {pos.shape[0]} position rows, "
+                         f"seq_len {seq_len}")
+    _expect("embed_lookup", "pos", pos, word.dtype, (pos.shape[0], N))
+    _expect("embed_lookup", "type_", type_, word.dtype, (type_.shape[0], N))
+    _params("embed_lookup", N, ("scale", scale), ("bias", bias))
+    n = ids.shape[0]
+    _expect("embed_lookup", "ids", ids, torch.int32, (n,))
+    if type_ids is not None:
+        _expect("embed_lookup", "type_ids", type_ids, torch.int32, (n,))
+    _aligned("embed_lookup", word, pos, type_, scale, bias)
+    out = torch.empty((n, N), dtype=word.dtype, device=word.device)
+    rc = _cuda.lib().nbk_embed_lookup(
+        ids.data_ptr(), _ptr(type_ids), word.data_ptr(), pos.data_ptr(),
+        type_.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        n, N, int(seq_len), V, type_.shape[0], float(eps),
+        int(word.dtype == torch.float32), _stream(word))
+    _cuda.check(rc, "embed_lookup")
+    _cuda.launch_counts["embed_lookup"] += 1
+    return out
 
 
 def chain_ops(plain: bool) -> SimpleNamespace:

@@ -154,8 +154,10 @@ class Predictor:
         self._fwd_params = dict(fwd, encoder=dict(fwd["encoder"], layers={
             k: _forward_copy(v, cfg.encoder.cdtype) if k in GEMM_KERNELS
             else v for k, v in fwd["encoder"]["layers"].items()}))
-        if self.device.type == "cuda" and (cfg.encoder.use_fused_attn
-                                           or cfg.encoder.use_fused_ffn):
+        e = cfg.encoder
+        if self.device.type == "cuda" and (
+                e.use_fused_attn or e.use_fused_ffn or e.use_fused_ln
+                or e.use_fused_gelu or e.use_fused_embedding):
             _cuda.lib()         # build now: raises if nvcc or a build fails
         # native (C++) packer when the tokenizer is covered and g++ built
         # it; the Python packer otherwise

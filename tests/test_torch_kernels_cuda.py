@@ -940,3 +940,221 @@ def test_flash_wrappers_refuse_and_count(dev):
         flash_attention(qq, kk, vv, mask, dropout_rate=0.1, seed=1,
                         **kw).backward(do)
         assert {n: c for n, c in _cuda.launch_counts.items() if c} == want
+
+
+# --------------------------------------------------------------------- #
+# the plain-block route's row kernels: residual LayerNorm forward and
+# backward, bias-GELU forward and backward, the embedding lookup.  Outputs
+# in bf16 within one bf16 ulp of the plain version per element, plus
+# 2**-16 of the tensor's largest value (both sides round an f32 value
+# once; a different summation order of the row statistics moves it by a
+# few f32 ulps of the row's magnitude, which shows in bf16 ulps where
+# cancellation leaves an element near 0); f32 outputs and statistics
+# within 1e-5 of the largest value; dscale and dbias within 1e-4 of their
+# largest value (column sums of 8192 rows in another order).
+# --------------------------------------------------------------------- #
+
+ROW_SHAPES = [(8192, 768), (7688, 1024), (60, 256), (1, 128)]
+
+
+def _hold_rows(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if want.dtype == torch.bfloat16:
+        w = want.float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp_min(2.0 ** -126))) - 7)
+        lim = ulp + 2.0 ** -16 * w.abs().max()
+        assert bool(((got.float() - w).abs() <= lim).all())
+    else:
+        d = (got - want).abs().max().item()
+        assert d <= 1e-5 * want.abs().max().item()
+
+
+def _hold_sum(got, want, tol=1e-4):
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+def _ln_operands(dev, m, n, dtype, seed):
+    x = _rand(dev, m, n, dtype=dtype, seed=seed)
+    r = _rand(dev, m, n, dtype=dtype, seed=seed + 1)
+    dy = _rand(dev, m, n, dtype=dtype, seed=seed + 2)
+    g = 1 + _rand(dev, n, std=0.1, dtype=torch.float32, seed=seed + 3)
+    b = _rand(dev, n, std=0.1, dtype=torch.float32, seed=seed + 4)
+    return x, r, dy, g, b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,n", ROW_SHAPES)
+def test_residual_layer_norm(dev, m, n, dtype):
+    x, r, dy, g, b = _ln_operands(dev, m, n, dtype, seed=m + n)
+    y, mean, rstd = K.residual_layer_norm(x, r, g, b, 1e-12)
+    dx, dg, db = K.residual_layer_norm_bwd(x, r, dy, g, mean, rstd)
+    torch.cuda.synchronize()
+    ry, rmean, rrstd = K.residual_layer_norm_reference(x, r, g, b, 1e-12)
+    _hold_rows(y, ry)
+    _hold_rows(mean, rmean)
+    _hold_rows(rstd, rrstd)
+    rdx, rdg, rdb = K.residual_layer_norm_bwd_reference(x, r, dy, g, mean,
+                                                        rstd)
+    _hold_rows(dx, rdx)
+    _hold_sum(dg, rdg)
+    _hold_sum(db, rdb)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,n", [(8192, 3072), (7688, 4096), (60, 36)])
+def test_bias_gelu(dev, m, n, dtype):
+    x = _rand(dev, m, n, std=2.0, dtype=dtype, seed=m)
+    b = _rand(dev, n, dtype=torch.float32, seed=n)
+    dy = _rand(dev, m, n, dtype=dtype, seed=m + 1)
+    y = K.bias_gelu(x, b)
+    dx = K.bias_gelu_bwd(x, b, dy)
+    torch.cuda.synchronize()
+    _hold_rows(y, K.bias_gelu_reference(x, b))
+    _hold_rows(dx, K.bias_gelu_bwd_reference(x, b, dy))
+
+
+def _embed_operands(dev, n, h, dtype, seed, vocab=30522, types=2, s=256):
+    g = torch.Generator().manual_seed(seed)
+    word = _rand(dev, vocab, h, std=0.05, dtype=dtype, seed=seed)
+    pos = _rand(dev, 514, h, std=0.05, dtype=dtype, seed=seed + 1)
+    type_ = _rand(dev, types, h, std=0.05, dtype=dtype, seed=seed + 2)
+    sc = 1 + _rand(dev, h, std=0.1, dtype=torch.float32, seed=seed + 3)
+    bi = _rand(dev, h, std=0.1, dtype=torch.float32, seed=seed + 4)
+    ids = torch.randint(0, vocab, (n,), generator=g).to(dev, torch.int32)
+    tids = torch.randint(0, types, (n,), generator=g).to(dev, torch.int32)
+    return word, pos, type_, sc, bi, ids, tids
+
+
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,s,off", [(8192, 768, 256, 0),
+                                       (7688, 1024, 248, 2), (8, 128, 8, 0)])
+def test_embed_lookup(dev, n, h, s, off, dtype, typed):
+    word, pos, type_, sc, bi, ids, tids = _embed_operands(dev, n, h, dtype,
+                                                          seed=n + h)
+    tids = tids if typed else None
+    p = pos[off:off + s]
+    got = K.embed_lookup(word, p, type_, sc, bi, ids, tids, s, 1e-12)
+    torch.cuda.synchronize()
+    _hold_rows(got, K.embed_lookup_reference(word, p, type_, sc, bi, ids,
+                                             tids, s, 1e-12))
+
+
+def test_embed_lookup_out_of_range_id_gives_nan_row(dev):
+    word, pos, type_, sc, bi, ids, tids = _embed_operands(
+        dev, 16, 768, torch.float32, seed=5)
+    ids[3] = 30522
+    tids[5] = 2
+    got = K.embed_lookup(word, pos[:8], type_, sc, bi, ids, tids, 8, 1e-12)
+    torch.cuda.synchronize()
+    bad = torch.isnan(got).all(dim=1)
+    assert bad.tolist() == [i in (3, 5) for i in range(16)]
+
+
+def test_row_functions_match_plain_autograd(dev):
+    """The three Functions' gradients against torch autograd through the
+    kernels' plain versions, at the smoke's widths."""
+    from nbest_asr_tpu_torch.ops.fused_embed import fused_embed_lookup
+    from nbest_asr_tpu_torch.ops.fused_gelu import fused_bias_gelu
+    from nbest_asr_tpu_torch.ops.fused_ln import fused_residual_layer_norm
+
+    def run(fn, tensors, dy):
+        ts = [t.detach().clone().requires_grad_(True) for t in tensors]
+        out = fn(*ts)
+        out.backward(dy)
+        return [out.detach()] + [t.grad for t in ts]
+
+    x, r, dy, g, b = _ln_operands(dev, 4096, 768, torch.bfloat16, seed=9)
+    got = run(lambda *a: fused_residual_layer_norm(*a), (x, r, g, b), dy)
+    want = run(lambda x_, r_, g_, b_: K.residual_layer_norm_reference(
+        x_, r_, g_, b_, 1e-12)[0], (x, r, g, b), dy)
+    _hold_rows(got[0], want[0])
+    for a, w in zip(got[1:], want[1:]):
+        _close(a, w) if a.dtype == torch.bfloat16 else _hold_sum(a, w, 1e-3)
+
+    h = _rand(dev, 4096, 3072, dtype=torch.bfloat16, seed=10)
+    b1 = _rand(dev, 3072, dtype=torch.float32, seed=11)
+    dh = _rand(dev, 4096, 3072, dtype=torch.bfloat16, seed=12)
+    got = run(fused_bias_gelu, (h, b1), dh)
+    want = run(K.bias_gelu_reference, (h, b1), dh)
+    _hold_rows(got[0], want[0])
+    _close(got[1], want[1])
+    # dbias sums the bf16 dx, as JAX sums it (fused_gelu.py:85); the two
+    # dx differ by a bf16 ulp here and there, so 1e-3 of the largest value
+    _hold_sum(got[2], want[1].float().sum(dim=0), 1e-3)
+
+    word, pos, type_, sc, bi, ids, tids = _embed_operands(
+        dev, 4096, 768, torch.float32, seed=13)
+    s = 256
+    dy = _rand(dev, 16, s, 768, dtype=torch.float32, seed=14)
+
+    def fused(w, p, t, c, e):
+        return fused_embed_lookup(w, p[:s], t, c, e, ids.reshape(16, s),
+                                  tids.reshape(16, s), s)
+
+    def plain(w, p, t, c, e):
+        return K.embed_lookup_reference(w, p[:s], t, c, e, ids, tids, s,
+                                        1e-12).reshape(16, s, 768)
+
+    for a, w in zip(run(fused, (word, pos, type_, sc, bi), dy),
+                    run(plain, (word, pos, type_, sc, bi), dy)):
+        _hold_sum(a, w, 1e-4)
+
+
+def test_row_wrappers_refuse_and_count(dev):
+    x, r, dy, g, b = _ln_operands(dev, 64, 768, torch.bfloat16, seed=20)
+    with pytest.raises(ValueError, match="N in"):
+        K.residual_layer_norm(x[:, :64].contiguous(), r[:, :64].contiguous(),
+                              g[:64], b[:64], 1e-12)
+    with pytest.raises(TypeError):
+        K.residual_layer_norm(x, r.float(), g, b, 1e-12)
+    with pytest.raises(TypeError):
+        K.bias_gelu(x.half(), b)
+    with pytest.raises(ValueError, match="N % 4"):
+        K.bias_gelu(x[:, :766].contiguous(), b[:766])
+    word, pos, type_, sc, bi, ids, tids = _embed_operands(
+        dev, 64, 768, torch.float32, seed=21)
+    with pytest.raises(TypeError):
+        K.embed_lookup(word, pos, type_, sc, bi, ids.long(), tids, 8, 1e-12)
+    _cuda.reset_launch_counts()
+    _, mean, rstd = K.residual_layer_norm(x, r, g, b, 1e-12)
+    K.residual_layer_norm_bwd(x, r, dy, g, mean, rstd)
+    K.bias_gelu(x, b)
+    K.bias_gelu_bwd(x, b, dy)
+    K.embed_lookup(word, pos, type_, sc, bi, ids, None, 8, 1e-12)
+    assert {n: c for n, c in _cuda.launch_counts.items() if c} == {
+        "residual_layer_norm": 1, "residual_layer_norm_bwd": 1,
+        "bias_gelu": 1, "bias_gelu_bwd": 1, "embed_lookup": 1}
+
+
+def test_fused_rows_encoder_forward_counts(dev):
+    """Route C's encoder forward (both megakernels off, the three row
+    flags on) launches the row kernels exactly: per layer two residual
+    LayerNorms and one bias-GELU, one embedding lookup per forward; a
+    training step adds their backwards."""
+    from nbest_asr_tpu_torch.models.encoder import (EncoderConfig,
+                                                    encoder_forward,
+                                                    init_encoder_params)
+
+    cfg = EncoderConfig.bert_base(num_layers=2, compute_dtype="bfloat16",
+                                  use_fused_ln=True, use_fused_gelu=True,
+                                  use_fused_embedding=True)
+    params = init_encoder_params(torch.Generator(dev).manual_seed(0), cfg)
+    ids = torch.randint(0, 30522, (8, 64), device=dev)
+    mask = torch.ones(8, 64, device=dev)
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        y = encoder_forward(params, ids, mask, None, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all()
+    assert {n: c for n, c in _cuda.launch_counts.items() if c} == {
+        "residual_layer_norm": 4, "bias_gelu": 2, "embed_lookup": 1}
+    train = {k: v.requires_grad_(True) for k, v in params["layers"].items()}
+    _cuda.reset_launch_counts()
+    encoder_forward(dict(params, layers=train), ids, mask, None, cfg,
+                    deterministic=False, seed=3).float().sum().backward()
+    torch.cuda.synchronize()
+    assert {n: c for n, c in _cuda.launch_counts.items() if c} == {
+        "residual_layer_norm": 4, "residual_layer_norm_bwd": 4,
+        "bias_gelu": 2, "bias_gelu_bwd": 2, "embed_lookup": 1}

@@ -266,10 +266,10 @@ def _one_step(tiny_memory, seed, **flags):
 
 def test_eval_step_and_training_refusals(tiny_memory):
     """The eval step runs; training raises exactly where JAX would run a
-    kernel the port lacks (each remaining case of
-    ``encoder._refuse_unported_training``, among them the flash route at
-    a head dim its kernels lack), and eval where JAX would run an
-    attention megakernel at a head dim the port's kernels lack."""
+    kernel the port lacks (``encoder._refuse_unported_training``: the
+    flash route at a head dim its kernels lack), and eval and training
+    where JAX would run an attention megakernel at a head dim the port's
+    kernels lack."""
     jcfg, tcfg = _configs(tiny_memory, "fused_ffn")
     params = from_jax_numpy(jax.device_get(j_init(jax.random.PRNGKey(6),
                                                   jcfg)))
@@ -291,11 +291,6 @@ def test_eval_step_and_training_refusals(tiny_memory):
                # kernels take 32, 64 and 128
                dict(use_flash_attention=True, flash_min_seq=16,
                     hidden_size=64, num_heads=4),
-               # the attention block takes the plain path here
-               dict(use_fused_ln=True),
-               dict(use_fused_gelu=True, use_fused_ffn=False),
-               # unpacked rows carry no position_ids
-               dict(use_fused_embedding=True),
                d320]
     for flags in refused:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -313,9 +308,17 @@ def test_eval_step_and_training_refusals(tiny_memory):
     dict(use_int8_train_bwd=True),
     dict(use_int8_train=True),
     dict(use_fused_attn=True, use_int8_train_attn=True),
+    # the plain attention path's residual LayerNorm (and, with
+    # use_fused_ffn=False, the FFN's) on the fused LN Function
+    dict(use_fused_ln=True),
+    # the plain FFN path's bias-GELU on the fused GELU Function
+    dict(use_fused_gelu=True, use_fused_ffn=False),
+    # unpacked rows carry no position_ids: the fused embedding lookup
+    dict(use_fused_embedding=True),
 ], ids=["flash_below_min_seq", "fused_ln_gelu_under_megakernels",
         "fused_embedding_packed", "int8_bwd_alone", "int8_ffn",
-        "int8_attn"])
+        "int8_attn", "fused_ln_plain_blocks", "fused_gelu_plain_ffn",
+        "fused_embedding_unpacked"])
 def test_training_steps_where_jax_has_no_unported_kernel(tiny_memory, flags):
     loss = _one_step(tiny_memory, 7, **flags)
     assert all(np.isfinite(float(v)) for v in loss.values())
