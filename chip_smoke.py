@@ -156,14 +156,14 @@ H, NH, INTER, LAYERS, VOCAB = 768, 12, 3072, 12, 30522
 REQUEST = 256                       # utterances per request
 KERNEL_SOURCES = {
     "gemm_bias_act": "nbest_asr_tpu_torch/csrc/gemm.cu",
-    "gemm_bias_residual": "nbest_asr_tpu_torch/csrc/gemm.cu",
+    "gemm_bias_residual": "nbest_asr_tpu_torch/csrc/gemm_wgmma.cu",
     "layer_norm": "nbest_asr_tpu_torch/csrc/layer_norm.cu",
     "seg_attention": "nbest_asr_tpu_torch/csrc/seg_attention.cu",
     "quantize_rows": "nbest_asr_tpu_torch/csrc/quant_rows.cu",
     "gemm_i8_bias_act": "nbest_asr_tpu_torch/csrc/gemm_i8.cu",
     "gemm_i8_bias_residual": "nbest_asr_tpu_torch/csrc/gemm_i8.cu",
     "ffn_bwd_rows": "nbest_asr_tpu_torch/csrc/ffn_bwd.cu",
-    "gemm_dgrad": "nbest_asr_tpu_torch/csrc/gemm.cu",
+    "gemm_dgrad": "nbest_asr_tpu_torch/csrc/gemm_wgmma.cu",
     "seg_attention_bwd": "nbest_asr_tpu_torch/csrc/seg_attention_bwd.cu",
     "quantize_grad_rows": "nbest_asr_tpu_torch/csrc/quant_rows.cu",
     "gemm_i8_dgrad": "nbest_asr_tpu_torch/csrc/gemm_i8.cu",
@@ -372,6 +372,25 @@ def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
         raise AssertionError(f"device_ms: the host took {host_ms:.1f} ms to "
                              "enqueue, longer than the sleep")
     return e0.elapsed_time(e1) / iters
+
+
+# the wgmma + TMA GEMMs: timed back to back (cuda_ms, the host's issue
+# included) and on the device alone (device_ms); the record takes device
+# time for them, and the log prints the rate each reaches
+DEVICE_TIMED = ("gemm_bias_residual", "gemm_dgrad")
+
+
+def time_gemm(name, tag, fk, fl, flops, b_ms, card):
+    """(kernel ms, library ms), device time, of a device-timed GEMM's
+    launches; logs both timings, the rates and the bound."""
+    k_bb, l_bb = cuda_ms(fk), cuda_ms(fl)
+    k_dev, l_dev = device_ms(fk), device_ms(fl)
+    log(f"  time {name} {tag}: kernel {k_bb:.4f} ms back to back, "
+        f"{k_dev:.4f} ms device ({flops / k_dev / 1e9:.1f} TFLOP/s); "
+        f"library {l_bb:.4f} / {l_dev:.4f} ms ({flops / l_dev / 1e9:.1f} "
+        f"TFLOP/s); bound {b_ms:.4f} ms "
+        f"({flops / b_ms / 1e9:.1f} TFLOP/s) [{card}]")
+    return k_dev, l_dev
 
 
 class Checker:
@@ -677,8 +696,14 @@ def phase_kernels(dev, card: str):
                                     xq, cq, gq)
         bounds = serving_bounds(b * s, b, s)
         for name, (fk, fp) in t.items():
-            times[(name, s)] = (cuda_ms(fk), cuda_ms(fp, iters=3),
-                                cuda_ms(lib[name]) if name in lib else None)
+            if name in DEVICE_TIMED:
+                k_ms, l_ms = time_gemm(
+                    name, f"b{b} s{s}", fk, lib[name],
+                    2.0 * b * s * H * (H + INTER), bounds[name][0], card)
+            else:
+                k_ms = cuda_ms(fk)
+                l_ms = cuda_ms(lib[name]) if name in lib else None
+            times[(name, s)] = (k_ms, cuda_ms(fp, iters=3), l_ms)
         for name in t:
             k_ms, p_ms, l_ms = times[(name, s)]
             lib_s = "" if l_ms is None else f", library {l_ms:.4f} ms"
@@ -1558,6 +1583,8 @@ def phase_train_kernels(dev, card: str):
     check_prob_mask_probe(K, dev)
     log("[train-kernels] attention kernels at head dims 192 and 256")
     check_wide_heads(K, dev, check)
+    bounds = train_layer_bounds(8192, 32, 256)
+    bounds.update(train_int8_layer_bounds(8192))
     for b, s in ((3, 20), (80, 96), (32, 256)):
         n = b * s
         log(f"[train-kernels] n {n} rows ({b} x {s}), dropout {DROPOUT}")
@@ -1757,11 +1784,16 @@ def phase_train_kernels(dev, card: str):
                     a["qkv"], a["dctx"], a["mask"], a["st"], NH, a["da"]),
                 sdpa_fwd_bwd),
         }
+        flops = {"gemm_bias_residual": 2.0 * 8192 * H * (INTER + H),
+                 "gemm_dgrad": 2.0 * 8192 * H * (2 * INTER + H + 3 * H)}
         for name, (fk, fp, fl) in t.items():
-            times[name] = (cuda_ms(fk), cuda_ms(fp, iters=3),
-                           None if fl is None else cuda_ms(fl))
-    bounds = train_layer_bounds(8192, 32, 256)
-    bounds.update(train_int8_layer_bounds(8192))
+            if name in DEVICE_TIMED:
+                k_ms, l_ms = time_gemm(f"train {name}", "n 8192", fk, fl,
+                                       flops[name], bounds[name][0], card)
+            else:
+                k_ms = cuda_ms(fk)
+                l_ms = None if fl is None else cuda_ms(fl)
+            times[name] = (k_ms, cuda_ms(fp, iters=3), l_ms)
     wq_ms = times.pop("weight quantization")
     log(f"  time train weight quantization (4 weights of a layer, q in both "
         f"layouts): {wq_ms:.4f} ms per layer [{card}]")
@@ -2894,6 +2926,14 @@ def main() -> int:
 
     for line in ptxas_summary(_cuda.build_report):
         log(f"[device] ptxas {line}")
+    # ptxas's notes on serialised wgmma or ignored setmaxnreg, if any (a
+    # library built by an earlier process leaves no report)
+    notes = [line for line in _cuda.build_report
+             if any(k in line.partition(": ")[2] for k in _cuda.NOTE_KEYS)]
+    for line in notes:
+        log(f"[device] ptxas note {line}")
+    log(f"[device] ptxas notes on wgmma / setmaxnreg: {len(notes)}"
+        + ("" if _cuda.build_report else " (no build in this process)"))
 
     max_err, times = phase_kernels(dev, card)
     counts = phase_slice(dev)
@@ -2958,8 +2998,9 @@ def main() -> int:
         "and the [train] rows (int8 forwards and backwards), route B's "
         f"layer ({LONG_BATCH} x {LONG_SEQ}, d 64, dropout 0.1) for the "
         "flash_* rows, a training layer at 8192 rows (one micro for "
-        "embed_lookup, f32 tables) for the five row kernels, whose ms and "
-        "library_ms are device time (calls queued behind a sleep); "
+        "embed_lookup, f32 tables) for the five row kernels; ms and "
+        "library_ms are device time (calls queued behind a sleep) for the "
+        "five row kernels, gemm_bias_residual and gemm_dgrad; "
         "BERT-base, "
         "bf16 activations; library_ms: the "
         "PyTorch call for each launch (serving_library_calls; torch.matmul "

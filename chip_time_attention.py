@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels (and its int8 serving GEMMs) of one
-checkout on one NVIDIA GPU, so that two commits can be compared on the
-same card:
+"""Time the port's attention kernels, its int8 serving GEMMs and its bf16
+GEMMs of one checkout on one NVIDIA GPU, so that two commits can be
+compared on the same card:
 
     python3 chip_time_attention.py [--root CHECKOUT] [--iters N]
 
@@ -18,9 +18,18 @@ int8 serving GEMM launches of a layer at 64 x 256 rows
 (``gemm_i8_bias_act`` QKV and W1 + GELU, ``gemm_i8_bias_residual``
 out-proj and W2); where it has the tiled flash kernels, ``flash_fwd``,
 ``flash_bwd_dq`` and ``flash_bwd_dkv`` at batch 32 x seq 1024 on q, k, v
-views of one QKV buffer with prob dropout; with the card's name and power
-limit.  CUDA events over ``--iters`` calls after two warm-up calls.  Run
-two checkouts alternately (A B B A) in one call to compare them.
+views of one QKV buffer with prob dropout; and ``gemm_ms``, each bf16 GEMM
+launch of an encoder layer: the four ``gemm_dgrad`` launches of a training
+layer at 8192 rows (dgelu with dropout, residual, none, residual; and the
+dgelu launch without dropout and with the "none" epilogue), the two
+``gemm_bias_residual`` launches at 8192 rows with dropout and y2d saved and
+at 64 x 256 rows for serving, and ``gemm_bias_act``'s two launches in each
+(the control), each as ``[back to back, device]`` ms: back to back times
+the calls as the host issues them, device queues them behind a sleep so
+that the card runs them without waiting for the host.  With the card's
+name and power limit.  CUDA events over ``--iters`` calls after two
+warm-up calls.  Run two checkouts alternately (A B B A) in one call to
+compare them.
 """
 
 from __future__ import annotations
@@ -48,6 +57,72 @@ def cuda_ms(fn, iters: int) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Per-call device time: the calls queue behind a ~0.1 s sleep, so the
+    card runs them back to back however slowly the host issues them."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def gemm_times(K, dev, gen, iters: int) -> dict:
+    """Each bf16 GEMM launch of a BERT-base layer: training at 8192 rows
+    (dropout 0.1), serving at 64 x 256 rows; [back to back, device] ms."""
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    def rn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen) * std).to(dev, dtype)
+
+    i, h3 = 4 * H, 3 * H
+    w1, w2, wo, wqkv = (rn(H, i, std=0.02), rn(i, H, std=0.02),
+                        rn(H, H, std=0.02), rn(H, h3, std=0.02))
+    b1, b2, bo, bqkv = (rn(n, std=0.02, dtype=torch.float32)
+                        for n in (i, H, H, h3))
+    d1, d2, dh = site(1, 0.1, 1), site(1, 0.1, 2), site(1, 0.1, 4)
+    m = 8192
+    x, dy2, dout = rn(m, H), rn(m, H), rn(m, H)
+    hh, gd, dhh = rn(m, i), rn(m, i), rn(m, i)
+    ctx, dqkv = rn(m, H), rn(m, h3)
+    ds = rn(m, H, dtype=torch.float32)
+    xs, gs, cs = rn(64 * 256, H), rn(64 * 256, i), rn(64 * 256, H)
+    calls = {
+        "dgrad_dgelu": lambda: K.gemm_dgrad(dy2, w2, "dgelu", h=hh,
+                                            drop=d1),
+        # the dgelu launch's epilogue in parts: without dropout, and the
+        # product alone at its shape
+        "dgrad_dgelu_no_dropout": lambda: K.gemm_dgrad(dy2, w2, "dgelu",
+                                                       h=hh),
+        "dgrad_none_w2": lambda: K.gemm_dgrad(dy2, w2, "none"),
+        "dgrad_residual_w1": lambda: K.gemm_dgrad(dhh, w1, "residual",
+                                                  ds=ds),
+        "dgrad_none_wo": lambda: K.gemm_dgrad(dout, wo, "none"),
+        "dgrad_residual_wqkv": lambda: K.gemm_dgrad(dqkv, wqkv, "residual",
+                                                    ds=ds),
+        "residual_w2_train": lambda: K.gemm_bias_residual(
+            gd, w2, b2, x, drop=d2, save_y2d=True),
+        "residual_wo_train": lambda: K.gemm_bias_residual(
+            ctx, wo, bo, x, drop=dh, save_y2d=True),
+        "residual_wo_serve": lambda: K.gemm_bias_residual(cs, wo, bo, xs),
+        "residual_w2_serve": lambda: K.gemm_bias_residual(gs, w2, b2, xs),
+        "act_w1_train": lambda: K.gemm_bias_act(x, w1, b1, "gelu", drop=d1,
+                                                save_h=True),
+        "act_qkv_train": lambda: K.gemm_bias_act(x, wqkv, bqkv),
+        "act_qkv_serve": lambda: K.gemm_bias_act(xs, wqkv, bqkv),
+        "act_w1_serve": lambda: K.gemm_bias_act(xs, w1, b1, "gelu"),
+    }
+    return {name: [cuda_ms(fn, iters), device_ms(fn, iters)]
+            for name, fn in calls.items()}
 
 
 def main() -> int:
@@ -137,6 +212,8 @@ def main() -> int:
                 q, k, v, mask, o, lse, do, sc, drop), args.iters),
             "bwd_dkv": cuda_ms(lambda: K.flash_bwd_dkv(
                 q, k, v, mask, lse, di, do, sc, drop), args.iters)}
+    if hasattr(K, "gemm_dgrad"):
+        out["gemm_ms"] = gemm_times(K, dev, gen, args.iters)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,0 +1,617 @@
+// Hopper GEMMs with fused epilogues for the two weight products that the
+// training step spent most in on the mma.sync mainloop: the backwards'
+// dgrads (gemm_dgrad) and the residual forwards (gemm_bias_residual).
+//
+// Replaces the in-kernel GEMMs of the TPU megakernels:
+//   nbest_asr_tpu/ops/fused_attention.py:_fab_fwd_kernel (:152)
+//     - out-proj `ctx @ wo + bo` (:182)            -> gemm_bias_residual
+//   nbest_asr_tpu/ops/fused_ffn.py:_fwd_kernel (:166)
+//     - `gd @ w2 + b2` (:181-191)                  -> gemm_bias_residual,
+//                                                     dropout 2, y2d saved
+//   nbest_asr_tpu/ops/fused_ffn.py:_bwd_kernel (:224)
+//     - `dy2 @ w2^T`, drop 1, * gelu'(h) (:245-253) -> gemm_dgrad dgelu
+//     - `ds + dh @ w1^T` (:239, :251, :258)          -> gemm_dgrad residual
+//   nbest_asr_tpu/ops/fused_attention.py:_fab_bwd_kernel (:204)
+//     - dctx = `dout @ wo^T` (:232, bf16 per head :243) -> gemm_dgrad none
+//     - `ds + dqkv @ wqkv^T` (:268-269)                 -> gemm_dgrad residual
+// (the QKV and W1 products stay on gemm.cu's mma.sync kernel).
+//
+// What bounds each launch on the H100 (chip_smoke.train_layer_bounds): at
+// BERT-base shapes (M = 8192 rows, N, K in {768, 2304, 3072}) the residual
+// GEMMs and the residual / none dgrads sit far above the bf16 ridge (~295
+// flop/byte), so the tensor cores' rate bounds them; the dgelu dgrad
+// (N = 3072, K = 768) reads h and writes dh and gd, 150 MB against 39 GFLOP,
+// and is bound by bytes.
+//
+// Design, for both: a persistent grid (one block per SM) walks the 192 x
+// 128 output tiles, n fastest, so the blocks in flight share A's row
+// panels in L2.  Four warpgroups: warpgroup 0 is the producer -- one
+// thread issues TMA loads (cp.async.bulk.tensor, 128-byte swizzle, 64 bf16
+// deep) of the A and B tiles into a ring of STAGES slots, each with a full
+// and an empty mbarrier -- and gives its registers up (setmaxnreg) to
+// warpgroups 1-3, the consumers, which own 64 rows x 128 each and run
+// wgmma m64n128k16 (bf16 in, f32 accumulate) from shared memory, one
+// k-block in flight.  Rows past M and depth past K are zero-filled by TMA
+// (N % 128 == 0, the wrappers' contract, so no tile straddles N).  The producer runs ahead into the next tile while
+// the consumers run this tile's epilogue; each consumer thread loads its
+// epilogue operands (h, ds, resid) three passes ahead, the first during
+// the mainloop.  What sets the dgelu launch's time is its epilogue (erff,
+// expf, Philox per element), latency-bound on the consumer warps: three
+// consumer warpgroups (192 x 128 tiles) beat two (128 x 192), and
+// ping-pong warpgroups (one's epilogue beside the other's mainloop) ran
+// 2-8% slower, the epilogue on half the warps (PERF.md, Findings).
+// B's layout is the only difference between the two: the dgrads multiply
+// by w^T with w (N, K) row-major -- K-major B, wgmma's own -- and the
+// residual GEMM by w (K, N) row-major -- MN-major B, the instruction's
+// transpose-B -- so no transposed copy of a weight is ever made.
+//
+// Epilogue: each warp stages its 16 x 64 f32 accumulator chunks through
+// shared memory and reads them back row-contiguous, eight columns a lane,
+// so that every operand load and output store is a 16-byte access.  The
+// numerics are those of the TPU kernels, rounded where gemm.cu's mma.sync
+// epilogue rounds (__fmul_rn / __fadd_rn where nvcc could contract):
+//   residual  : y2 = f32(bf16(acc + bias)); y2 = drop2(y2); [bf16(y2)
+//               saved as y2d]; store y2 + f32(resid) as f32 (the input of
+//               layer_norm.cu) -- the sum uses the unrounded f32 y2
+//   dgelu     : d = drop1(acc); dh = bf16(d * gelu'(f32 h)); [gd =
+//               bf16(drop1(gelu(f32 h))) regenerated and saved for dW2]
+//   dx        : bf16(ds + acc), ds the f32 residual-branch gradient
+//   dnone     : bf16(acc)
+// Dropout bits are Philox keyed on absolute (row, column) (philox.cuh), one
+// call per four columns, so every mask equals the forward's bit for bit.
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include <algorithm>
+
+#include "common.cuh"
+#include "philox.cuh"
+
+namespace {
+
+using namespace nbk;
+
+// A 192 x 128 output tile: three consumer warpgroups of 64 rows each and
+// the producer's (512 threads).  Measured against 128 x 192 with two
+// consumer warpgroups (the epilogue on 8 warps instead of 12), it was 2-12%
+// faster for every launch of a BERT-base layer.
+constexpr int BM = 192, BN = 128, BK = 64;
+constexpr int WGS = BM / 64, THREADS = 128 * (WGS + 1);
+constexpr int REGS = 152;  // per consumer thread after setmaxnreg: the
+                           // producer's 128 x 40 plus 384 x 152 fit 64 K
+constexpr int EPI_LD = 72;               // staging row stride, floats
+constexpr int EPI_WARP = 16 * EPI_LD;    // staging floats per consumer warp
+constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int STAGES = 4;
+// 1024-byte alignment slack, the ring, the staging, 2 barriers a slot:
+// 220,224 bytes of the 232,448 a block may have
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 4 * WGS * EPI_WARP * 4 +
+                     2 * STAGES * 8;
+static_assert(SMEM <= 232448, "shared memory");
+
+enum { EPI_RESIDUAL = 0, EPI_DGELU = 1, EPI_DX = 2, EPI_DNONE = 3 };
+
+// --- mbarriers --------------------------------------------------------- //
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned addr,
+                                              unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// Waits for the phase of parity `parity` to complete.  A phase error would
+// hang the card; after ~2^35 cycles (~20 s) of waiting the kernel traps
+// instead, so the launch fails with an error.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(a, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+// --- TMA and wgmma ----------------------------------------------------- //
+
+// 2-D tile load (c0 the inner coordinate), completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, unsigned lbo,
+                                              unsigned sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
+         ((uint64_t)sbo << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins the accumulators around asynchronous wgmma, so the compiler moves
+// no access to them across an issue or a wait.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N f32, the m64nNk16 fragment) += A (64 x 16, K-major) * B (16 x
+// N; K-major, or MN-major with TRANS_B = 1).  Fragment: thread t of the
+// warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns
+// 8 j + 2 (t % 4) (+ 1) in d[4 j ..], as mma.sync's C fragment.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// --- epilogue ---------------------------------------------------------- //
+
+// Eight bf16 (16 bytes) as f32: a bf16 is the high half of its f32.
+__device__ __forceinline__ void unpack8(const uint4 u, float (&f)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float (&f)[8]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                 pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+// The dropout bits of columns col .. col + 7 (col % 8 == 0) of `row`.
+__device__ __forceinline__ void drop_bits8(const DropParams& d, int row,
+                                           int col, unsigned (&bits)[8]) {
+  const uint4 w0 = philox_group(d, row, col);
+  const uint4 w1 = philox_group(d, row, col + 4);
+  bits[0] = w0.x, bits[1] = w0.y, bits[2] = w0.z, bits[3] = w0.w;
+  bits[4] = w1.x, bits[5] = w1.y, bits[6] = w1.z, bits[7] = w1.w;
+}
+
+// An epilogue operand's eight columns of a row -- resid or h (16 bytes of
+// bf16 in x) or ds (32 bytes of f32 in x, y) -- loaded passes ahead of use.
+struct Opnd {
+  uint4 x, y;
+};
+
+template <int EPI>
+__device__ __forceinline__ Opnd load_opnd(const bf16* __restrict__ resid,
+                                          const bf16* __restrict__ h,
+                                          const float* __restrict__ ds,
+                                          size_t off) {
+  Opnd o = {};
+  if (EPI == EPI_RESIDUAL) o.x = *reinterpret_cast<const uint4*>(resid + off);
+  if (EPI == EPI_DGELU) o.x = *reinterpret_cast<const uint4*>(h + off);
+  if (EPI == EPI_DX) {
+    o.x = *reinterpret_cast<const uint4*>(ds + off);
+    o.y = *reinterpret_cast<const uint4*>(ds + off + 4);
+  }
+  return o;
+}
+
+// Eight consecutive outputs (row, col .. col + 7) from their f32 sums v and
+// the operand o.
+template <int EPI>
+__device__ __forceinline__ void epilogue8(const float* __restrict__ bias,
+                                          bf16* __restrict__ out_bf,
+                                          float* __restrict__ out_f,
+                                          bf16* __restrict__ aux,
+                                          const DropParams& drop, int row,
+                                          int col, int N, const Opnd& o,
+                                          float (&v)[8]) {
+  const size_t off = (size_t)row * N + col;
+  unsigned bits[8];
+  if (EPI != EPI_DX && EPI != EPI_DNONE && drop.on)
+    drop_bits8(drop, row, col, bits);
+  if (EPI == EPI_DNONE) {
+    store8(out_bf + off, v);
+  } else if (EPI == EPI_DX) {
+    const float r[8] = {__uint_as_float(o.x.x), __uint_as_float(o.x.y),
+                        __uint_as_float(o.x.z), __uint_as_float(o.x.w),
+                        __uint_as_float(o.y.x), __uint_as_float(o.y.y),
+                        __uint_as_float(o.y.z), __uint_as_float(o.y.w)};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = __fadd_rn(r[i], v[i]);
+    store8(out_bf + off, v);
+  } else if (EPI == EPI_DGELU) {
+    float hf[8], g[8];
+    unpack8(o.x, hf);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float e = gelu_erf(hf[i]);  // one erff for gelu' and gelu
+      const float d = drop.on ? drop_value(drop, v[i], bits[i]) : v[i];
+      v[i] = __fmul_rn(d, gelu_grad_f32(hf[i], e));
+      g[i] = gelu_f32(hf[i], e);
+      if (drop.on) g[i] = drop_value(drop, g[i], bits[i]);
+    }
+    store8(out_bf + off, v);
+    if (aux) store8(aux + off, g);
+  } else {  // EPI_RESIDUAL
+    float b[8], x[8];
+    load8(bias + col, b);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      v[i] = round_bf16(v[i] + b[i]);
+      if (drop.on) v[i] = drop_value(drop, v[i], bits[i]);
+    }
+    if (aux) store8(aux + off, v);
+    unpack8(o.x, x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = __fadd_rn(v[i], x[i]);
+    *reinterpret_cast<float4*>(out_f + off) =
+        make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(out_f + off + 4) =
+        make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+// --- the kernel -------------------------------------------------------- //
+
+template <int EPI>
+__global__ void __launch_bounds__(THREADS, 1) gemm_tma_kernel(
+    const __grid_constant__ CUtensorMap tma_a,
+    const __grid_constant__ CUtensorMap tma_b, const float* __restrict__ bias,
+    const bf16* __restrict__ resid, const bf16* __restrict__ h,
+    const float* __restrict__ ds, bf16* __restrict__ out_bf,
+    float* __restrict__ out_f, bf16* __restrict__ aux, const DropParams drop,
+    int M, int N, int K) {
+  constexpr bool MN_B = EPI == EPI_RESIDUAL;  // B = w (K, N) row-major
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // 128-byte swizzled tiles need 1024-byte aligned bases
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sA = reinterpret_cast<bf16*>(base);
+  bf16* sB = reinterpret_cast<bf16*>(base + STAGES * A_BYTES);
+  float* sC = reinterpret_cast<float*>(base + STAGES * STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sC + 4 * WGS * EPI_WARP);
+  uint64_t* empty = full + STAGES;
+
+  const int tiles_n = N / BN;  // N % 128 == 0: no tile straddles N
+  const int tiles = (M + BM - 1) / BM * tiles_n;
+  const int kblocks = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive + the TMA bytes
+      mbar_init(&empty[s], 4 * WGS);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps the ring full, tile after tile
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      unsigned phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / tiles_n * BM, n0 = t % tiles_n * BN;
+        for (int kb = 0; kb < kblocks; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          bf16* a = sA + stage * (BM * BK);
+          bf16* b = sB + stage * (BN * BK);
+          mbar_expect_tx(&full[stage], STAGE_BYTES);
+          tma_load(a, &tma_a, &full[stage], kb * BK, m0);
+          if (MN_B) {  // two 64-column boxes of w (K, N)
+            tma_load(b, &tma_b, &full[stage], n0, kb * BK);
+            tma_load(b + 64 * BK, &tma_b, &full[stage], n0 + 64, kb * BK);
+          } else {
+            tma_load(b, &tma_b, &full[stage], kb * BK, n0);
+          }
+          if (++stage == STAGES) stage = 0, phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup w (1 ..) owns rows 64 (w - 1) .. + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+    const int lane = threadIdx.x & 31, cw = threadIdx.x / 32 - 4;
+    float* st = sC + cw * EPI_WARP;
+    float acc[BN / 2];
+    int stage = 0;
+    unsigned phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / tiles_n * BM, n0 = t % tiles_n * BN;
+      // Epilogue pass q (0 .. PASSES - 1) covers 4 rows x 64 columns of the
+      // warp's 16 rows: lane l takes row (q % 4) * 4 + l / 8 and columns
+      // (q / 4) * 64 + (l % 8) * 8 .. + 7.  Its operand is loaded three
+      // passes ahead; the first three load during the mainloop.
+      constexpr int PASSES = BN / 64 * 4;
+      const int row0 = m0 + (wg - 1) * 64 + (cw & 3) * 16 + (lane >> 3);
+      const int col0 = n0 + (lane & 7) * 8;
+      auto prefetch = [&](int q) {
+        const int row = row0 + (q & 3) * 4, col = col0 + (q >> 2) * 64;
+        return EPI != EPI_DNONE && q < PASSES && row < M
+                   ? load_opnd<EPI>(resid, h, ds, (size_t)row * N + col)
+                   : Opnd{};
+      };
+      Opnd o0 = prefetch(0), o1 = prefetch(1), o2 = prefetch(2);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int prev = 0;
+      for (int kb = 0; kb < kblocks; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const bf16* a = sA + stage * (BM * BK) + (wg - 1) * 64 * BK;
+        const bf16* b = sB + stage * (BN * BK);
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          // K-major: a k16 step is 32 bytes along the swizzled 128-byte
+          // row, 8-row groups 1024 bytes apart.  MN-major B: 16 k-rows of
+          // 128 bytes, 64-column boxes 8192 bytes apart.
+          const uint64_t da = smem_desc(a + kk * 16, 1, 64);
+          const uint64_t db = MN_B ? smem_desc(b + kk * 16 * 64, 512, 64)
+                                   : smem_desc(b + kk * 16, 1, 64);
+          wgmma_n128<MN_B ? 1 : 0>(acc, da, db);
+        }
+        wgmma_commit();
+        fence_acc(acc);
+        if (kb > 0) {  // the previous k-block's products are done
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(&empty[prev]);
+        }
+        prev = stage;
+        if (++stage == STAGES) stage = 0, phase ^= 1;
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      fence_acc(acc);
+
+      // epilogue, 64 columns at a time through this warp's staging rows
+      const int g = lane >> 2, t4 = lane & 3;
+      const int hs = (lane >> 2) & 1;  // read order: no bank conflicts
+#pragma unroll
+      for (int c = 0; c < BN / 64; ++c) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = c * 8 + jj;
+          *reinterpret_cast<float2*>(st + g * EPI_LD + jj * 8 + 2 * t4) =
+              make_float2(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<float2*>(st + (g + 8) * EPI_LD + jj * 8 +
+                                     2 * t4) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+        __syncwarp();
+        // one copy of the epilogue's code per 64 columns: unrolled, the
+        // passes overflowed the instruction cache (dgelu 1.2-2.4x slower)
+#pragma unroll 1
+        for (int p = 0; p < 4; ++p) {
+          const int q = c * 4 + p;
+          const Opnd o = o0;
+          o0 = o1;
+          o1 = o2;
+          o2 = prefetch(q + 3);
+          const float* sv = st + (p * 4 + (lane >> 3)) * EPI_LD +
+                            (lane & 7) * 8;
+          const float4 x = *reinterpret_cast<const float4*>(sv + 4 * hs);
+          const float4 y = *reinterpret_cast<const float4*>(sv + 4 - 4 * hs);
+          const float4 lo = hs ? y : x, hi = hs ? x : y;
+          float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+          const int row = row0 + p * 4, col = col0 + c * 64;
+          if (row < M)
+            epilogue8<EPI>(bias, out_bf, out_f, aux, drop, row, col, N, o,
+                           v);
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
+// --- host side --------------------------------------------------------- //
+
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A tensor map of a row-major (outer, inner) bf16 matrix, box (box_outer,
+// box_inner) with box_inner = 64 (128 bytes, the swizzle's width).
+int encode(CUtensorMap* map, const void* ptr, int inner, int outer,
+           int box_outer) {
+  const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (count[dev] == 0)
+    cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev];
+}
+
+struct Operands {
+  const float* bias;
+  const bf16* resid;
+  const bf16* h;
+  const float* ds;
+  bf16* out_bf;
+  float* out_f;
+  bf16* aux;
+};
+
+template <int EPI>
+int launch(const void* a, const void* w, const Operands& o,
+           const DropParams& drop, int M, int N, int K, cudaStream_t s) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_tma_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  CUtensorMap ta, tb;
+  int rc = encode(&ta, a, K, M, BM);
+  if (rc == 0)  // w (K, N) in 64 x 64 boxes, or w (N, K) in BN x 64 boxes
+    rc = EPI == EPI_RESIDUAL ? encode(&tb, w, N, K, BK)
+                             : encode(&tb, w, K, N, BN);
+  if (rc != 0) return rc;
+  const int tiles = (M + BM - 1) / BM * (N / BN);
+  gemm_tma_kernel<EPI><<<std::min(tiles, sm_count()), THREADS, SMEM, s>>>(
+          ta, tb, o.bias, o.resid, o.h, o.ds, o.out_bf, o.out_f, o.aux, drop,
+          M, N, K);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// out (M, N) f32 = y2 + f32(resid (M, N) bf16), y2 = drop(f32(bf16(a @ w
+// + bias))); y2d_out (M, N) bf16, if not null, receives bf16(y2).
+// Requires N % 128 == 0, K % 32 == 0 and 16-byte aligned operands.
+int nbk_gemm_bias_residual(const void* a, const void* w, const float* bias,
+                           const void* resid, float* out, void* y2d_out,
+                           int M, int N, int K, unsigned long long seed,
+                           int stream, unsigned thresh, float inv_keep,
+                           int drop_on, void* cuda_stream) {
+  Operands o = {};
+  o.bias = bias;
+  o.resid = static_cast<const bf16*>(resid);
+  o.out_f = out;
+  o.aux = static_cast<bf16*>(y2d_out);
+  return launch<EPI_RESIDUAL>(
+      a, w, o, make_drop(seed, stream, thresh, inv_keep, drop_on), M, N, K,
+      static_cast<cudaStream_t>(cuda_stream));
+}
+
+// The backwards' dgrads, a (M, K) @ w^T with w (N, K) row-major:
+// epi 0 (dgelu): out = dh (M, N) bf16 = bf16(drop(a @ w^T) * gelu'(h)),
+//   h (M, N) bf16; gd_out (M, N) bf16, if not null, receives
+//   bf16(drop(gelu(h))).
+// epi 1 (residual): out = dx (M, N) bf16 = bf16(ds + a @ w^T), ds (M, N)
+//   f32.
+// epi 2 (none): out (M, N) bf16 = bf16(a @ w^T).
+int nbk_gemm_dgrad(const void* a, const void* w, void* out, const void* h,
+                   void* gd_out, const float* ds, int M, int N, int K,
+                   int epi, unsigned long long seed, int stream,
+                   unsigned thresh, float inv_keep, int drop_on,
+                   void* cuda_stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  const DropParams d = make_drop(seed, stream, thresh, inv_keep, drop_on);
+  Operands o = {};
+  o.h = static_cast<const bf16*>(h);
+  o.ds = ds;
+  o.out_bf = static_cast<bf16*>(out);
+  o.aux = static_cast<bf16*>(gd_out);
+  if (epi == 0) return launch<EPI_DGELU>(a, w, o, d, M, N, K, s);
+  if (epi == 1) return launch<EPI_DX>(a, w, o, d, M, N, K, s);
+  if (epi == 2) return launch<EPI_DNONE>(a, w, o, d, M, N, K, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -7,7 +7,8 @@ of the sources and flags, so an edit rebuilds and an unchanged checkout
 reuses the library in ``build/nbest_asr_tpu_torch/`` (git-ignored).  The
 build runs on first use -- never at import -- and a failure raises with
 nvcc's stderr.  ``-Xptxas -v`` makes ptxas report each kernel instance's
-registers, shared memory and spills; ``build_report`` keeps those lines.
+registers, shared memory and spills; ``build_report`` keeps those lines
+and ptxas's notes on serialised ``wgmma`` and ignored ``setmaxnreg``.
 
 ``launch_counts`` counts, per kernel, the launches made by the wrappers
 in ``ops/kernels.py`` (plain integers, incremented only where a kernel is
@@ -39,6 +40,11 @@ KERNELS = ("gemm_bias_act", "gemm_bias_residual", "layer_norm",
            "residual_layer_norm", "residual_layer_norm_bwd", "bias_gelu",
            "bias_gelu_bwd", "embed_lookup")
 launch_counts = {name: 0 for name in KERNELS}
+# the build's lines worth keeping: ptxas's resources and spills per kernel
+# instance, and its notes on wgmma serialised ("Potential Performance
+# Loss") or setmaxnreg ignored
+NOTE_KEYS = ("wgmma.mma_async", "Performance Loss", "setmaxnreg")
+REPORT_KEYS = ("ptxas info", "spill", *NOTE_KEYS)
 
 _lib = None
 build_seconds = None      # wall time of the nvcc build this process ran
@@ -91,7 +97,7 @@ def build() -> pathlib.Path:
     build_report[:] = [f"{src.name}: {line.strip()}"
                        for src, log in zip(srcs, logs)
                        for line in log.splitlines()
-                       if "ptxas info" in line or "spill" in line]
+                       if any(k in line for k in REPORT_KEYS)]
     _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     for obj in objs:
         obj.unlink()

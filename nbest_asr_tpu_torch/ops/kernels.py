@@ -161,6 +161,15 @@ def _gemm_dims(name: str, a: torch.Tensor, w: torch.Tensor,
     return M, N, K
 
 
+def _aligned16(name: str, **tensors) -> None:
+    """The TMA kernels (csrc/gemm_wgmma.cu) load and store 16 bytes at a
+    time from each operand's base."""
+    for arg, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned, its "
+                             f"address is {t.data_ptr():#x}")
+
+
 def _i8_operands(name: str, xq, xs, wq, ws, bias):
     """Check the int8 GEMM operands; returns (M, N, K)."""
     M, N, K = _gemm_dims(name, xq, wq, k_mult=64)
@@ -594,6 +603,7 @@ def gemm_bias_residual(a, w, bias, resid, drop=None,
     _expect("gemm_bias_residual", "w", w, torch.bfloat16, (K, N))
     _expect("gemm_bias_residual", "bias", bias, torch.float32, (N,))
     _expect("gemm_bias_residual", "resid", resid, torch.bfloat16, (M, N))
+    _aligned16("gemm_bias_residual", a=a, w=w, bias=bias, resid=resid)
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     y2d = torch.empty((M, N), dtype=torch.bfloat16, device=a.device) \
         if save_y2d else None
@@ -638,6 +648,7 @@ def gemm_dgrad(a, w, epilogue: str, h=None, ds=None, drop=None):
         gd = torch.empty_like(out)
     elif epilogue == "residual":
         _expect("gemm_dgrad", "ds", ds, torch.float32, (M, N))
+    _aligned16("gemm_dgrad", a=a, w=w, h=h, ds=ds)
     rc = _cuda.lib().nbk_gemm_dgrad(
         a.data_ptr(), w.data_ptr(), out.data_ptr(), _ptr(h), _ptr(gd),
         _ptr(ds), M, N, K, DGRAD_EPILOGUES[epilogue],

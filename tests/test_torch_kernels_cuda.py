@@ -36,6 +36,21 @@ def _rand(dev, *shape, std=1.0, dtype=torch.bfloat16, seed=0):
     return (torch.randn(*shape, generator=g) * std).to(dev, dtype)
 
 
+def _rand_dev(dev, *shape, std=1.0, dtype=torch.bfloat16, seed=0):
+    """As ``_rand``, drawn on the card (the GEMM cases' large operands)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+
+# The wgmma + TMA GEMMs' cases (gemm_bias_residual, gemm_dgrad): rows from
+# one to 8192, some not a multiple of the 192-row tile; every width N % 128
+# == 0 the encoder configurations reach; depths with K % 64 == 32 (96)
+# beside the encoder's.
+GEMM_M = [1, 60, 7688, 8192]
+GEMM_NK = [(n, k) for n in (384, 768, 1024, 3072, 4096)
+           for k in (96, 768, 2304, 3072)]
+
+
 @pytest.mark.parametrize("act", ["none", "gelu"])
 @pytest.mark.parametrize("m", [1, 60, 300])
 def test_gemm_bias_act(dev, m, act):
@@ -47,16 +62,30 @@ def test_gemm_bias_act(dev, m, act):
     _close(got, K.gemm_bias_act_reference(a, w, b, act))
 
 
-def test_gemm_bias_residual_and_layer_norm(dev):
-    a = _rand(dev, 200, 512, seed=4)
-    w = _rand(dev, 512, 256, std=0.05, seed=5)
-    b = _rand(dev, 256, std=0.1, dtype=torch.float32, seed=6)
-    r = _rand(dev, 200, 256, seed=7)
-    s = K.gemm_bias_residual(a, w, b, r)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n,k", GEMM_NK)
+@pytest.mark.parametrize("m", GEMM_M)
+def test_gemm_bias_residual_and_layer_norm(dev, m, n, k, rate):
+    from nbest_asr_tpu_torch.ops.philox import keep_mask
+
+    a = _rand_dev(dev, m, k, seed=4)
+    w = _rand_dev(dev, k, n, std=0.05, seed=5)
+    b = _rand_dev(dev, n, std=0.1, dtype=torch.float32, seed=6)
+    r = _rand_dev(dev, m, n, seed=7)
+    d2 = _drop(rate, 2)
+    s, y2d = K.gemm_bias_residual(a, w, b, r, drop=d2, save_y2d=True)
     torch.cuda.synchronize()
-    _close(s, K.gemm_bias_residual_reference(a, w, b, r))
-    g = 1 + _rand(dev, 256, std=0.1, dtype=torch.float32, seed=8)
-    bb = _rand(dev, 256, std=0.1, dtype=torch.float32, seed=9)
+    rs, ry2d = K.gemm_bias_residual_reference(a, w, b, r, d2, True)
+    _close(s, rs)
+    _close(y2d, ry2d)
+    if rate > 0:
+        keep = keep_mask(1234, 2, 0, m, n, rate, dev)
+        assert (y2d[~keep] == 0).all()
+        assert torch.equal(s[~keep], r.float()[~keep])
+    if n > 1024:        # layer_norm takes rows of N <= 1024
+        return
+    g = 1 + _rand(dev, n, std=0.1, dtype=torch.float32, seed=8)
+    bb = _rand(dev, n, std=0.1, dtype=torch.float32, seed=9)
     y = K.layer_norm_rows(s, g, bb, 1e-12)
     torch.cuda.synchronize()
     _close(y, K.layer_norm_reference(s, g, bb, 1e-12, torch.bfloat16))
@@ -90,6 +119,15 @@ def test_wrappers_refuse_and_count(dev):
     with pytest.raises(ValueError, match="head dims"):
         K.seg_attention(_rand(dev, 64, 3 * 144), torch.ones(4, 16,
                                                             device=dev), 3)
+    # the TMA kernel refuses an operand off a 16-byte boundary
+    r = _rand(dev, 64, 128)
+    off = _rand(dev, 64 * 256 + 1)[1:].view(64, 256)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_bias_residual(off, w, b, r)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_bias_residual(a, w, b, _rand(dev, 64 * 128 + 1)[1:].view(
+            64, 128))
     _cuda.reset_launch_counts()
     K.gemm_bias_act(a, w, b)
     K.gemm_bias_act(a, w, b, "gelu")
@@ -246,16 +284,19 @@ def _keep_rate_ok(mask, rate):
     assert abs(keep - (1 - rate)) <= 4 * ((rate * (1 - rate) / n) ** 0.5)
 
 
+@pytest.mark.parametrize("m,hid,inter", [(300, 256, 512), (1, 384, 768),
+                                          (60, 1024, 3072),
+                                          (7688, 768, 3072),
+                                          (8192, 4096, 2304)])
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
-def test_dropout_epilogues(dev, rate):
+def test_dropout_epilogues(dev, rate, m, hid, inter):
     from nbest_asr_tpu_torch.ops.philox import keep_mask
 
-    m = 300
-    x = _rand(dev, m, 256, seed=40)
-    w1 = _rand(dev, 256, 512, std=0.05, seed=41)
-    b1 = _rand(dev, 512, std=0.1, dtype=torch.float32, seed=42)
-    w2 = _rand(dev, 512, 256, std=0.05, seed=43)
-    b2 = _rand(dev, 256, std=0.1, dtype=torch.float32, seed=44)
+    x = _rand_dev(dev, m, hid, seed=40)
+    w1 = _rand_dev(dev, hid, inter, std=0.05, seed=41)
+    b1 = _rand_dev(dev, inter, std=0.1, dtype=torch.float32, seed=42)
+    w2 = _rand_dev(dev, inter, hid, std=0.05, seed=43)
+    b2 = _rand_dev(dev, hid, std=0.1, dtype=torch.float32, seed=44)
     d1, d2 = _drop(rate, 1), _drop(rate, 2)
     h, gd = K.gemm_bias_act(x, w1, b1, "gelu", drop=d1, save_h=True)
     s, y2d = K.gemm_bias_residual(gd, w2, b2, x, drop=d2, save_y2d=True)
@@ -267,8 +308,8 @@ def test_dropout_epilogues(dev, rate):
     _close(s, rs)
     _close(y2d, ry2d)
     if rate > 0:
-        k1 = keep_mask(1234, 1, 0, m, 512, rate, dev)
-        k2 = keep_mask(1234, 2, 0, m, 256, rate, dev)
+        k1 = keep_mask(1234, 1, 0, m, inter, rate, dev)
+        k2 = keep_mask(1234, 2, 0, m, hid, rate, dev)
         assert (gd[~k1] == 0).all() and (y2d[~k2] == 0).all()
         _keep_rate_ok(k1, rate)
         _keep_rate_ok(k2, rate)
@@ -318,26 +359,33 @@ def test_ffn_bwd_rows(dev, m, rate):
         assert (dy2[~keep] == 0).all()
 
 
-@pytest.mark.parametrize("epilogue", ["dgelu", "residual"])
-@pytest.mark.parametrize("m", [1, 60, 300, 8192])
-def test_gemm_dgrad(dev, m, epilogue):
-    n_in, n_out = 768, 3072
-    d1 = _drop(0.1, 1)
+@pytest.mark.parametrize("epilogue,rate", [("dgelu", 0.0), ("dgelu", 0.1),
+                                          ("residual", 0.0)])
+@pytest.mark.parametrize("n,k", GEMM_NK)
+@pytest.mark.parametrize("m", GEMM_M)
+def test_gemm_dgrad(dev, m, n, k, epilogue, rate):
+    """a (m, k) @ w.T for w (n, k); the dgelu case's h comes from the
+    forward GEMM (gemm_bias_act with GELU and the same stream-1 dropout),
+    whose gd the backward regenerates bit for bit."""
+    a = _rand_dev(dev, m, k, seed=60)                      # dy2 / dh
+    w = _rand_dev(dev, n, k, std=0.05, seed=61)            # w2 / w1
     if epilogue == "dgelu":
-        a = _rand(dev, m, n_in, seed=60)                   # dy2
-        w = _rand(dev, n_out, n_in, std=0.05, seed=61)     # w2 (3072, 768)
-        h = _rand(dev, m, n_out, seed=62)
+        d1 = _drop(rate, 1)
+        h, gd_fwd = K.gemm_bias_act(
+            _rand_dev(dev, m, 256, seed=62),
+            _rand_dev(dev, 256, n, std=0.1, seed=63),
+            _rand_dev(dev, n, std=0.1, dtype=torch.float32, seed=64),
+            "gelu", drop=d1, save_h=True)
         dh, gd = K.gemm_dgrad(a, w, "dgelu", h=h, drop=d1)
         torch.cuda.synchronize()
         rdh, rgd = K.gemm_dgrad_reference(a, w, "dgelu", h=h, drop=d1)
         _close(dh, rdh)
+        assert torch.equal(gd, gd_fwd)
         assert torch.equal(gd == 0, rgd == 0)
         nz = rgd != 0
         assert _ulps(gd[nz], rgd[nz]) <= 1.0
     else:
-        a = _rand(dev, m, n_out, seed=63)                  # dh
-        w = _rand(dev, n_in, n_out, std=0.05, seed=64)     # w1 (768, 3072)
-        ds = _rand(dev, m, n_in, dtype=torch.float32, seed=65)
+        ds = _rand_dev(dev, m, n, dtype=torch.float32, seed=65)
         dx = K.gemm_dgrad(a, w, "residual", ds=ds)
         torch.cuda.synchronize()
         _close(dx, K.gemm_dgrad_reference(a, w, "residual", ds=ds))
@@ -419,6 +467,13 @@ def test_train_wrappers_refuse_and_count(dev):
         K.gemm_bias_act(a, w2.t().contiguous(), torch.zeros(3072,
                                                             device=dev),
                         drop=_drop(0.1, 1))
+    # the TMA kernel refuses an operand off a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_dgrad(_rand(dev, 64 * 768 + 1)[1:].view(64, 768), w2,
+                     "dgelu", h=h)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_dgrad(a, w2, "dgelu",
+                     h=_rand(dev, 64 * 3072 + 1)[1:].view(64, 3072))
     _cuda.reset_launch_counts()
     K.gemm_dgrad(a, w2, "dgelu", h=h)
     K.ffn_bwd_rows(a, a, a, torch.ones(768, device=dev),
@@ -522,13 +577,14 @@ def test_attention_backward_regenerates_the_forward_prob_mask(dev):
     assert torch.equal(dq, keep)
 
 
-@pytest.mark.parametrize("m", [60, 8192])
-def test_gemm_dgrad_none(dev, m):
-    a = _rand(dev, m, 768, seed=95)
-    w = _rand(dev, 768, 768, std=0.05, seed=96)
+@pytest.mark.parametrize("n,k", GEMM_NK)
+@pytest.mark.parametrize("m", GEMM_M)
+def test_gemm_dgrad_none(dev, m, n, k):
+    a = _rand_dev(dev, m, k, seed=95)
+    w = _rand_dev(dev, n, k, std=0.05, seed=96)
     out = K.gemm_dgrad(a, w, "none")
     torch.cuda.synchronize()
-    assert out.dtype == torch.bfloat16 and out.shape == (m, 768)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
     _close(out, K.gemm_dgrad_reference(a, w, "none"))
 
 
