@@ -47,8 +47,10 @@ Phases, each fatal on failure:
    regenerated gd equal to the forward's bit for bit, GEMM and attention
    outputs within two bf16 ulps of the tensor's largest value; a one-hot
    probe shows the forward, the dQ kernel and the dK/dV kernel dropping
-   exactly the stream-3 probs -- and each whole block, forward and all
-   seven gradients, against torch autograd through the plain block.
+   exactly the stream-3 probs, and with random K that the backward's
+   rebuilt bf16 probs lie within one bf16 ulp of the forward's (the count
+   that differ printed) -- and each whole block, forward and all seven
+   gradients, against torch autograd through the plain block.
    Per training layer: kernel, plain, library and bound ms; each block's
    forward + backward per bucket.  The int8 training chains likewise, on
    the same Philox bits and weights quantized as a training step
@@ -155,7 +157,7 @@ BATCH = 64
 H, NH, INTER, LAYERS, VOCAB = 768, 12, 3072, 12, 30522
 REQUEST = 256                       # utterances per request
 KERNEL_SOURCES = {
-    "gemm_bias_act": "nbest_asr_tpu_torch/csrc/gemm.cu",
+    "gemm_bias_act": "nbest_asr_tpu_torch/csrc/gemm_wgmma.cu",
     "gemm_bias_residual": "nbest_asr_tpu_torch/csrc/gemm_wgmma.cu",
     "layer_norm": "nbest_asr_tpu_torch/csrc/layer_norm.cu",
     "seg_attention": "nbest_asr_tpu_torch/csrc/seg_attention.cu",
@@ -374,22 +376,27 @@ def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-# the wgmma + TMA GEMMs: timed back to back (cuda_ms, the host's issue
-# included) and on the device alone (device_ms); the record takes device
-# time for them, and the log prints the rate each reaches
-DEVICE_TIMED = ("gemm_bias_residual", "gemm_dgrad")
+# the wgmma kernels (the three bf16 GEMMs, seg_attention): timed back to
+# back (cuda_ms, the host's issue included) and on the device alone
+# (device_ms); the record takes device time for them, and the log prints
+# the rate each GEMM reaches
+DEVICE_TIMED = ("gemm_bias_act", "gemm_bias_residual", "gemm_dgrad",
+                "seg_attention")
 
 
-def time_gemm(name, tag, fk, fl, flops, b_ms, card):
-    """(kernel ms, library ms), device time, of a device-timed GEMM's
-    launches; logs both timings, the rates and the bound."""
+def time_device(name, tag, fk, fl, flops, b_ms, card):
+    """(kernel ms, library ms), device time, of a device-timed kernel's
+    launches; logs both timings, the GEMMs' rates and the bound."""
     k_bb, l_bb = cuda_ms(fk), cuda_ms(fl)
     k_dev, l_dev = device_ms(fk), device_ms(fl)
+
+    def rate(ms):
+        return f" ({flops / ms / 1e9:.1f} TFLOP/s)" if flops else ""
+
     log(f"  time {name} {tag}: kernel {k_bb:.4f} ms back to back, "
-        f"{k_dev:.4f} ms device ({flops / k_dev / 1e9:.1f} TFLOP/s); "
-        f"library {l_bb:.4f} / {l_dev:.4f} ms ({flops / l_dev / 1e9:.1f} "
-        f"TFLOP/s); bound {b_ms:.4f} ms "
-        f"({flops / b_ms / 1e9:.1f} TFLOP/s) [{card}]")
+        f"{k_dev:.4f} ms device{rate(k_dev)}; library {l_bb:.4f} / "
+        f"{l_dev:.4f} ms{rate(l_dev)}; bound {b_ms:.4f} ms{rate(b_ms)} "
+        f"[{card}]")
     return k_dev, l_dev
 
 
@@ -695,11 +702,13 @@ def phase_kernels(dev, card: str):
         lib = serving_library_calls(p, q8, x, x2, qkv, pad, ctx, g, sres,
                                     xq, cq, gq)
         bounds = serving_bounds(b * s, b, s)
+        flops = {"gemm_bias_act": 2.0 * b * s * H * (3 * H + INTER),
+                 "gemm_bias_residual": 2.0 * b * s * H * (H + INTER),
+                 "seg_attention": None}
         for name, (fk, fp) in t.items():
             if name in DEVICE_TIMED:
-                k_ms, l_ms = time_gemm(
-                    name, f"b{b} s{s}", fk, lib[name],
-                    2.0 * b * s * H * (H + INTER), bounds[name][0], card)
+                k_ms, l_ms = time_device(name, f"b{b} s{s}", fk, lib[name],
+                                         flops[name], bounds[name][0], card)
             else:
                 k_ms = cuda_ms(fk)
                 l_ms = cuda_ms(lib[name]) if name in lib else None
@@ -1242,41 +1251,58 @@ def check_prob_mask_probe(K, dev):
     transpose, and the dQ kernel's dq for dO = 1 is negative exactly where
     a prob was dropped (a kept prob's ds is p * inv_keep * (1 - kept
     mass) >= 0, about 1e-10 where a whole row is kept; a dropped one's
-    -p * inv_keep * kept mass): each must equal the stream-3 keep bits."""
+    -p * inv_keep * kept mass): each must equal the stream-3 keep bits.
+    Then, with random K (one-hot V), how far the backward's rebuilt bf16
+    probs (mma.sync scores) lie from the forward's (wgmma scores): at
+    most one bf16 ulp; the count that differ is printed."""
     from nbest_asr_tpu_torch.ops.philox import keep_mask, site
 
     b, s, d, seed = 4, 64, H // NH, 4321
     gen = torch.Generator().manual_seed(5)
-    qkv = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
-        dev, torch.bfloat16)
     eye = torch.eye(s, device=dev, dtype=torch.bfloat16)
-    for hd in range(NH):
-        for part in (1, 2):
-            qkv[:, part * H + hd * d:part * H + (hd + 1) * d] = \
-                eye.repeat(b, 1)
     mask = torch.ones(b, s, device=dev)
     drop = site(seed, DROPOUT, 3)
     keep = keep_mask(seed, 3, 0, b * NH * s, s, DROPOUT, dev).reshape(
         b, NH, s, s)
-    ctx, st = K.seg_attention(qkv, mask, NH, drop=drop, stats=True)
-    d_v = K.seg_attention_bwd(qkv, eye.repeat(b, NH).contiguous(), mask, st,
-                              NH, drop=drop)
-    d_q = K.seg_attention_bwd(qkv, torch.ones_like(ctx), mask, st, NH,
-                              drop=drop)
-    torch.cuda.synchronize()
-    seen = {
-        "forward (ctx)": ctx.reshape(b, s, NH, d).permute(0, 2, 1, 3) != 0,
-        "dK/dV kernel (dV)": d_v[:, 2 * H:].reshape(b, s, NH, d).permute(
-            0, 2, 3, 1) != 0,
-        "dQ kernel (dq)": d_q[:, :H].reshape(b, s, NH, d).permute(
-            0, 2, 1, 3).float() > -1e-6}
-    for name, m in seen.items():
-        n_diff = int((m != keep).sum())
-        log(f"  {'ok ' if n_diff == 0 else 'BAD'} prob mask of the {name} "
-            f"vs the stream-3 keep bits: {n_diff} of {keep.numel()} differ")
-        if n_diff:
-            raise AssertionError(f"the {name} does not regenerate the "
-                                 "forward's prob mask")
+    for onehot_k in (True, False):
+        kind = "one-hot" if onehot_k else "random"
+        qkv = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
+            dev, torch.bfloat16)
+        for hd in range(NH):
+            for part in (1, 2) if onehot_k else (2,):
+                qkv[:, part * H + hd * d:part * H + (hd + 1) * d] = \
+                    eye.repeat(b, 1)
+        ctx, st = K.seg_attention(qkv, mask, NH, drop=drop, stats=True)
+        d_v = K.seg_attention_bwd(qkv, eye.repeat(b, NH).contiguous(), mask,
+                                  st, NH, drop=drop)
+        d_q = K.seg_attention_bwd(qkv, torch.ones_like(ctx), mask, st, NH,
+                                  drop=drop)
+        torch.cuda.synchronize()
+        p_fwd = ctx.reshape(b, s, NH, d).permute(0, 2, 1, 3)
+        p_bwd = d_v[:, 2 * H:].reshape(b, s, NH, d).permute(0, 2, 3, 1)
+        seen = {"forward (ctx)": p_fwd != 0, "dK/dV kernel (dV)": p_bwd != 0}
+        if onehot_k:
+            seen["dQ kernel (dq)"] = d_q[:, :H].reshape(b, s, NH, d).permute(
+                0, 2, 1, 3).float() > -1e-6
+        for name, m in seen.items():
+            n_diff = int((m != keep).sum())
+            log(f"  {'ok ' if n_diff == 0 else 'BAD'} prob mask of the {name} "
+                f"vs the stream-3 keep bits ({kind} K): {n_diff} of "
+                f"{keep.numel()} differ")
+            if n_diff:
+                raise AssertionError(f"the {name} does not regenerate the "
+                                     "forward's prob mask")
+        w = p_fwd[keep].float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs())) - 7)
+        ulps = ((p_bwd[keep].float() - w).abs() / ulp).max().item()
+        n_diff = int((p_fwd != p_bwd).sum())
+        ok = ulps <= 1.0
+        log(f"  {'ok ' if ok else 'BAD'} rebuilt probs ({kind} K): {n_diff} "
+            f"of {keep.numel()} bf16 probs differ from the forward's, max "
+            f"{ulps:.0f} bf16 ulp (<= 1)")
+        if not ok:
+            raise AssertionError("the backward's rebuilt probs lie more than "
+                                 "one bf16 ulp from the forward's")
 
 
 def train_int8_weights(p):
@@ -1784,12 +1810,14 @@ def phase_train_kernels(dev, card: str):
                     a["qkv"], a["dctx"], a["mask"], a["st"], NH, a["da"]),
                 sdpa_fwd_bwd),
         }
-        flops = {"gemm_bias_residual": 2.0 * 8192 * H * (INTER + H),
-                 "gemm_dgrad": 2.0 * 8192 * H * (2 * INTER + H + 3 * H)}
+        flops = {"gemm_bias_act": 2.0 * 8192 * H * (INTER + 3 * H),
+                 "gemm_bias_residual": 2.0 * 8192 * H * (INTER + H),
+                 "gemm_dgrad": 2.0 * 8192 * H * (2 * INTER + H + 3 * H),
+                 "seg_attention": None}
         for name, (fk, fp, fl) in t.items():
             if name in DEVICE_TIMED:
-                k_ms, l_ms = time_gemm(f"train {name}", "n 8192", fk, fl,
-                                       flops[name], bounds[name][0], card)
+                k_ms, l_ms = time_device(f"train {name}", "n 8192", fk, fl,
+                                         flops[name], bounds[name][0], card)
             else:
                 k_ms = cuda_ms(fk)
                 l_ms = None if fl is None else cuda_ms(fl)
@@ -3000,7 +3028,8 @@ def main() -> int:
         "flash_* rows, a training layer at 8192 rows (one micro for "
         "embed_lookup, f32 tables) for the five row kernels; ms and "
         "library_ms are device time (calls queued behind a sleep) for the "
-        "five row kernels, gemm_bias_residual and gemm_dgrad; "
+        "five row kernels, gemm_bias_act, gemm_bias_residual, gemm_dgrad "
+        "and seg_attention; "
         "BERT-base, "
         "bf16 activations; library_ms: the "
         "PyTorch call for each launch (serving_library_calls; torch.matmul "

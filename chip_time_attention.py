@@ -12,7 +12,9 @@ its kernels are built into its own ``build/``.  BERT-base widths (hidden
 line: ``seg_attention`` ms per call at batch 64 x seq {64, 96, 160, 256}
 (the serving forward), and, where the checkout has the training kernels,
 ``seg_attention`` with prob dropout and row statistics and
-``seg_attention_bwd`` at 8192 rows (32 x 256); and, where it has them,
+``seg_attention_bwd`` at 8192 rows (32 x 256), and ``seg_attention`` so at
+16 x 512, each as ``[back to back, device]`` ms (below); and, where it has
+them,
 ``quantize_rows`` of a (64 x 256, 768) bf16 block input and the four
 int8 serving GEMM launches of a layer at 64 x 256 rows
 (``gemm_i8_bias_act`` QKV and W1 + GELU, ``gemm_i8_bias_residual``
@@ -23,8 +25,8 @@ launch of an encoder layer: the four ``gemm_dgrad`` launches of a training
 layer at 8192 rows (dgelu with dropout, residual, none, residual; and the
 dgelu launch without dropout and with the "none" epilogue), the two
 ``gemm_bias_residual`` launches at 8192 rows with dropout and y2d saved and
-at 64 x 256 rows for serving, and ``gemm_bias_act``'s two launches in each
-(the control), each as ``[back to back, device]`` ms: back to back times
+at 64 x 256 rows for serving, and ``gemm_bias_act``'s two launches in each,
+each as ``[back to back, device]`` ms: back to back times
 the calls as the host issues them, device queues them behind a sleep so
 that the card runs them without waiting for the host.  With the card's
 name and power limit.  CUDA events over ``--iters`` calls after two
@@ -76,6 +78,11 @@ def device_ms(fn, iters: int) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def both_ms(fn, iters: int) -> list:
+    """[back to back, device] ms per call."""
+    return [cuda_ms(fn, iters), device_ms(fn, iters)]
+
+
 def gemm_times(K, dev, gen, iters: int) -> dict:
     """Each bf16 GEMM launch of a BERT-base layer: training at 8192 rows
     (dropout 0.1), serving at 64 x 256 rows; [back to back, device] ms."""
@@ -121,8 +128,7 @@ def gemm_times(K, dev, gen, iters: int) -> dict:
         "act_qkv_serve": lambda: K.gemm_bias_act(xs, wqkv, bqkv),
         "act_w1_serve": lambda: K.gemm_bias_act(xs, w1, b1, "gelu"),
     }
-    return {name: [cuda_ms(fn, iters), device_ms(fn, iters)]
-            for name, fn in calls.items()}
+    return {name: both_ms(fn, iters) for name, fn in calls.items()}
 
 
 def main() -> int:
@@ -144,8 +150,8 @@ def main() -> int:
         qkv = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
             dev, torch.bfloat16)
         mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
-        out["serving_ms"][s] = cuda_ms(lambda: K.seg_attention(qkv, mask, NH),
-                                       args.iters)
+        out["serving_ms"][s] = both_ms(
+            lambda: K.seg_attention(qkv, mask, NH), args.iters)
     if hasattr(K, "seg_attention_bwd"):
         from nbest_asr_tpu_torch.ops.philox import site
 
@@ -157,11 +163,19 @@ def main() -> int:
         mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
         drop = site(1, 0.1, 3)
         _, st = K.seg_attention(qkv, mask, NH, drop=drop, stats=True)
-        out["train_fwd_ms"] = cuda_ms(
+        out["train_fwd_ms"] = both_ms(
             lambda: K.seg_attention(qkv, mask, NH, drop=drop, stats=True),
             args.iters)
-        out["train_bwd_ms"] = cuda_ms(
+        out["train_bwd_ms"] = both_ms(
             lambda: K.seg_attention_bwd(qkv, dctx, mask, st, NH, drop=drop),
+            args.iters)
+        # seq 512 (two score windows on the wgmma kernel), 8192 rows
+        b, s = 16, 512
+        q5 = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
+            dev, torch.bfloat16)
+        m5 = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
+        out["train_fwd_512_ms"] = both_ms(
+            lambda: K.seg_attention(q5, m5, NH, drop=drop, stats=True),
             args.iters)
     if hasattr(K, "gemm_i8_bias_act"):
         from nbest_asr_tpu_torch.ops.quant import (kernel_layout,

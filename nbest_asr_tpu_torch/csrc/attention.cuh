@@ -3,7 +3,8 @@
 // 64-row q / k / v tiles read by row stride and column offset (from the
 // (n, 3h) QKV buffer, or from (b, s, heads, d) tensors), the scores of a
 // 64-key tile, the 16-column chunk products of the mma.sync fragments,
-// and the Philox keep-bit tables of the stream-3 prob dropout.
+// and the Philox keep-bit tables of the stream-3 prob dropout (which the
+// wgmma forward draws too).
 //
 // Chunk products (g = lane / 4, t = lane % 4, as in common.cuh): a warp
 // owns 16 rows of the left operand; a chunk c[j][e], j in {0, 1}, is the
@@ -160,12 +161,14 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[D / 8][4],
 
 // Keep bits of rows row0 .. row0 + rows - 1 (Philox rows of the prob
 // mask), key columns col0 .. col0 + 32 words - 1, into tab[r * stride +
-// w] (bit b of word w = key col0 + 32 w + b).  All threads of the block
-// take part; the caller synchronises before reading.
+// w] (bit b of word w = key col0 + 32 w + b).  Threads tid of nthreads
+// (by default all of the block's) take part; the caller synchronises
+// before reading.
 __device__ __forceinline__ void build_keep(unsigned* tab, int rows, int words,
                                            int stride, const DropParams& d,
-                                           int row0, int col0) {
-  for (int i = threadIdx.x; i < rows * words; i += THREADS) {
+                                           int row0, int col0, int tid,
+                                           int nthreads) {
+  for (int i = tid; i < rows * words; i += nthreads) {
     const int r = i / words, w = i % words;
     unsigned bits = 0;
 #pragma unroll
@@ -178,6 +181,12 @@ __device__ __forceinline__ void build_keep(unsigned* tab, int rows, int words,
     }
     tab[r * stride + w] = bits;
   }
+}
+
+__device__ __forceinline__ void build_keep(unsigned* tab, int rows, int words,
+                                           int stride, const DropParams& d,
+                                           int row0, int col0) {
+  build_keep(tab, rows, words, stride, d, row0, col0, threadIdx.x, THREADS);
 }
 
 // Keep bit of table row r, key column c (c below the table's 32 * words).

@@ -1,11 +1,15 @@
-// Hopper GEMMs with fused epilogues for the two weight products that the
-// training step spent most in on the mma.sync mainloop: the backwards'
-// dgrads (gemm_dgrad) and the residual forwards (gemm_bias_residual).
+// Hopper GEMMs with fused epilogues: every bf16 weight product of an
+// encoder layer, forward and backward -- the forwards' bias / GELU / dropout
+// products (gemm_bias_act), the residual forwards (gemm_bias_residual) and
+// the backwards' dgrads (gemm_dgrad).
 //
 // Replaces the in-kernel GEMMs of the TPU megakernels:
 //   nbest_asr_tpu/ops/fused_attention.py:_fab_fwd_kernel (:152)
+//     - `_qkv_gemm` (:143)                         -> gemm_bias_act, bias
 //     - out-proj `ctx @ wo + bo` (:182)            -> gemm_bias_residual
 //   nbest_asr_tpu/ops/fused_ffn.py:_fwd_kernel (:166)
+//     - `_gelu_slice` (:153-164)                   -> gemm_bias_act, gelu:
+//                                                     dropout 1, h saved
 //     - `gd @ w2 + b2` (:181-191)                  -> gemm_bias_residual,
 //                                                     dropout 2, y2d saved
 //   nbest_asr_tpu/ops/fused_ffn.py:_bwd_kernel (:224)
@@ -14,16 +18,21 @@
 //   nbest_asr_tpu/ops/fused_attention.py:_fab_bwd_kernel (:204)
 //     - dctx = `dout @ wo^T` (:232, bf16 per head :243) -> gemm_dgrad none
 //     - `ds + dqkv @ wqkv^T` (:268-269)                 -> gemm_dgrad residual
-// (the QKV and W1 products stay on gemm.cu's mma.sync kernel).
+// (the int8 route's bf16-backward recompute of h and qkv runs
+// gemm_bias_act too).
 //
 // What bounds each launch on the H100 (chip_smoke.train_layer_bounds): at
-// BERT-base shapes (M = 8192 rows, N, K in {768, 2304, 3072}) the residual
-// GEMMs and the residual / none dgrads sit far above the bf16 ridge (~295
-// flop/byte), so the tensor cores' rate bounds them; the dgelu dgrad
-// (N = 3072, K = 768) reads h and writes dh and gd, 150 MB against 39 GFLOP,
-// and is bound by bytes.
+// BERT-base shapes (M = 8192 rows, N, K in {768, 2304, 3072}) the QKV
+// product, the residual GEMMs and the residual / none dgrads sit far above
+// the bf16 ridge (~295 flop/byte), so the tensor cores' rate bounds them.
+// The two GELU launches sit near it or below: the forward W1 product (N =
+// 3072, K = 768) writes h and g, 2 x 50 MB beside 39 GFLOP (0.035 ms of
+// bytes against 0.039 ms of operations at 8192 rows); the dgelu dgrad
+// reads h and writes dh and gd, 150 MB against 39 GFLOP, and is bound by
+// bytes.  Both carry an erff (and the dgrad an expf) and, in training, a
+// Philox call per four elements, so their epilogues set their time.
 //
-// Design, for both: a persistent grid (one block per SM) walks the 192 x
+// Design, for all: a persistent grid (one block per SM) walks the 192 x
 // 128 output tiles, n fastest, so the blocks in flight share A's row
 // panels in L2.  Four warpgroups: warpgroup 0 is the producer -- one
 // thread issues TMA loads (cp.async.bulk.tensor, 128-byte swizzle, 64 bf16
@@ -32,24 +41,30 @@
 // warpgroups 1-3, the consumers, which own 64 rows x 128 each and run
 // wgmma m64n128k16 (bf16 in, f32 accumulate) from shared memory, one
 // k-block in flight.  Rows past M and depth past K are zero-filled by TMA
-// (N % 128 == 0, the wrappers' contract, so no tile straddles N).  The producer runs ahead into the next tile while
-// the consumers run this tile's epilogue; each consumer thread loads its
-// epilogue operands (h, ds, resid) three passes ahead, the first during
-// the mainloop.  What sets the dgelu launch's time is its epilogue (erff,
-// expf, Philox per element), latency-bound on the consumer warps: three
-// consumer warpgroups (192 x 128 tiles) beat two (128 x 192), and
-// ping-pong warpgroups (one's epilogue beside the other's mainloop) ran
-// 2-8% slower, the epilogue on half the warps (PERF.md, Findings).
-// B's layout is the only difference between the two: the dgrads multiply
-// by w^T with w (N, K) row-major -- K-major B, wgmma's own -- and the
-// residual GEMM by w (K, N) row-major -- MN-major B, the instruction's
+// (N % 128 == 0, the wrappers' contract, so no tile straddles N; K needs
+// only the 16-byte row pitch TMA takes).  The producer runs ahead into the
+// next tile while the consumers run this tile's epilogue; each consumer
+// thread loads its epilogue operands (bias, h, ds, resid) three passes
+// ahead, the first during the mainloop.  What sets the dgelu launch's time
+// is its epilogue (erff, expf, Philox per element), latency-bound on the
+// consumer warps: three consumer warpgroups (192 x 128 tiles) beat two
+// (128 x 192), and ping-pong warpgroups (one's epilogue beside the other's
+// mainloop) ran 2-8% slower, the epilogue on half the warps (PERF.md,
+// Findings).
+// B's layout is the only difference between the launches: the dgrads
+// multiply by w^T with w (N, K) row-major -- K-major B, wgmma's own -- and
+// the forwards by w (K, N) row-major -- MN-major B, the instruction's
 // transpose-B -- so no transposed copy of a weight is ever made.
 //
 // Epilogue: each warp stages its 16 x 64 f32 accumulator chunks through
 // shared memory and reads them back row-contiguous, eight columns a lane,
 // so that every operand load and output store is a 16-byte access.  The
-// numerics are those of the TPU kernels, rounded where gemm.cu's mma.sync
-// epilogue rounds (__fmul_rn / __fadd_rn where nvcc could contract):
+// numerics are those of the TPU kernels (__fmul_rn / __fadd_rn where nvcc
+// could contract):
+//   bias      : out = bf16(acc + bias)
+//   gelu      : h = bf16(acc + bias); [h saved]; g = gelu(f32 h) in f32
+//               with the exact erff (not the TPU's A&S polynomial); g =
+//               drop1(g) (times f32(1/keep)); store bf16(g)
 //   residual  : y2 = f32(bf16(acc + bias)); y2 = drop2(y2); [bf16(y2)
 //               saved as y2d]; store y2 + f32(resid) as f32 (the input of
 //               layer_norm.cu) -- the sum uses the unrounded f32 y2
@@ -57,8 +72,10 @@
 //               bf16(drop1(gelu(f32 h))) regenerated and saved for dW2]
 //   dx        : bf16(ds + acc), ds the f32 residual-branch gradient
 //   dnone     : bf16(acc)
-// Dropout bits are Philox keyed on absolute (row, column) (philox.cuh), one
-// call per four columns, so every mask equals the forward's bit for bit.
+// gelu and dgelu share one function for drop1(gelu(h)) (gelu_dropped), so
+// the backward's gd is the forward's g bit for bit.  Dropout bits are
+// Philox keyed on absolute (row, column) (philox.cuh), one call per four
+// columns, so every mask equals the forward's bit for bit.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
@@ -66,6 +83,7 @@
 
 #include "common.cuh"
 #include "philox.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -90,7 +108,20 @@ constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 4 * WGS * EPI_WARP * 4 +
                      2 * STAGES * 8;
 static_assert(SMEM <= 232448, "shared memory");
 
-enum { EPI_RESIDUAL = 0, EPI_DGELU = 1, EPI_DX = 2, EPI_DNONE = 3 };
+enum {
+  EPI_RESIDUAL = 0,
+  EPI_DGELU = 1,
+  EPI_DX = 2,
+  EPI_DNONE = 3,
+  EPI_BIAS = 4,
+  EPI_GELU = 5
+};
+
+// B = w (K, N) row-major (the forwards) rather than w (N, K) (the dgrads)
+template <int EPI>
+__host__ __device__ constexpr bool mn_b() {
+  return EPI == EPI_RESIDUAL || EPI == EPI_BIAS || EPI == EPI_GELU;
+}
 
 // --- mbarriers --------------------------------------------------------- //
 
@@ -151,35 +182,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(smem_addr(bar))
       : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, unsigned lbo,
-                                              unsigned sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
-         ((uint64_t)sbo << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pins the accumulators around asynchronous wgmma, so the compiler moves
-// no access to them across an issue or a wait.
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x N f32, the m64nNk16 fragment) += A (64 x 16, K-major) * B (16 x
@@ -251,18 +253,34 @@ __device__ __forceinline__ void drop_bits8(const DropParams& d, int row,
   bits[4] = w1.x, bits[5] = w1.y, bits[6] = w1.z, bits[7] = w1.w;
 }
 
+// drop1(gelu(h)) in f32 from h and e = gelu_erf(h): the forward's g and
+// the dgelu epilogue's regenerated gd, one function so that they agree bit
+// for bit.
+__device__ __forceinline__ float gelu_dropped(const DropParams& drop,
+                                              float h, float e,
+                                              unsigned bits) {
+  const float g = gelu_f32(h, e);
+  return drop.on ? drop_value(drop, g, bits) : g;
+}
+
 // An epilogue operand's eight columns of a row -- resid or h (16 bytes of
-// bf16 in x) or ds (32 bytes of f32 in x, y) -- loaded passes ahead of use.
+// bf16 in x), or ds or, for the bias and gelu epilogues, the bias (32
+// bytes of f32 in x, y) -- loaded passes ahead of use.
 struct Opnd {
   uint4 x, y;
 };
 
 template <int EPI>
-__device__ __forceinline__ Opnd load_opnd(const bf16* __restrict__ resid,
+__device__ __forceinline__ Opnd load_opnd(const float* __restrict__ bias,
+                                          const bf16* __restrict__ resid,
                                           const bf16* __restrict__ h,
                                           const float* __restrict__ ds,
-                                          size_t off) {
+                                          size_t off, int col) {
   Opnd o = {};
+  if (EPI == EPI_BIAS || EPI == EPI_GELU) {
+    o.x = *reinterpret_cast<const uint4*>(bias + col);
+    o.y = *reinterpret_cast<const uint4*>(bias + col + 4);
+  }
   if (EPI == EPI_RESIDUAL) o.x = *reinterpret_cast<const uint4*>(resid + off);
   if (EPI == EPI_DGELU) o.x = *reinterpret_cast<const uint4*>(h + off);
   if (EPI == EPI_DX) {
@@ -270,6 +288,14 @@ __device__ __forceinline__ Opnd load_opnd(const bf16* __restrict__ resid,
     o.y = *reinterpret_cast<const uint4*>(ds + off + 4);
   }
   return o;
+}
+
+__device__ __forceinline__ void floats8(const uint4 a, const uint4 b,
+                                        float (&f)[8]) {
+  f[0] = __uint_as_float(a.x), f[1] = __uint_as_float(a.y);
+  f[2] = __uint_as_float(a.z), f[3] = __uint_as_float(a.w);
+  f[4] = __uint_as_float(b.x), f[5] = __uint_as_float(b.y);
+  f[6] = __uint_as_float(b.z), f[7] = __uint_as_float(b.w);
 }
 
 // Eight consecutive outputs (row, col .. col + 7) from their f32 sums v and
@@ -284,15 +310,14 @@ __device__ __forceinline__ void epilogue8(const float* __restrict__ bias,
                                           float (&v)[8]) {
   const size_t off = (size_t)row * N + col;
   unsigned bits[8];
-  if (EPI != EPI_DX && EPI != EPI_DNONE && drop.on)
+  if ((EPI == EPI_GELU || EPI == EPI_RESIDUAL || EPI == EPI_DGELU) &&
+      drop.on)
     drop_bits8(drop, row, col, bits);
   if (EPI == EPI_DNONE) {
     store8(out_bf + off, v);
   } else if (EPI == EPI_DX) {
-    const float r[8] = {__uint_as_float(o.x.x), __uint_as_float(o.x.y),
-                        __uint_as_float(o.x.z), __uint_as_float(o.x.w),
-                        __uint_as_float(o.y.x), __uint_as_float(o.y.y),
-                        __uint_as_float(o.y.z), __uint_as_float(o.y.w)};
+    float r[8];
+    floats8(o.x, o.y, r);  // ds
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = __fadd_rn(r[i], v[i]);
     store8(out_bf + off, v);
@@ -304,11 +329,22 @@ __device__ __forceinline__ void epilogue8(const float* __restrict__ bias,
       const float e = gelu_erf(hf[i]);  // one erff for gelu' and gelu
       const float d = drop.on ? drop_value(drop, v[i], bits[i]) : v[i];
       v[i] = __fmul_rn(d, gelu_grad_f32(hf[i], e));
-      g[i] = gelu_f32(hf[i], e);
-      if (drop.on) g[i] = drop_value(drop, g[i], bits[i]);
+      g[i] = gelu_dropped(drop, hf[i], e, bits[i]);
     }
     store8(out_bf + off, v);
     if (aux) store8(aux + off, g);
+  } else if (EPI == EPI_BIAS || EPI == EPI_GELU) {
+    float b[8];
+    floats8(o.x, o.y, b);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = round_bf16(v[i] + b[i]);
+    if (EPI == EPI_GELU) {
+      if (aux) store8(aux + off, v);  // h, bf16-exact already
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        v[i] = gelu_dropped(drop, v[i], gelu_erf(v[i]), bits[i]);
+    }
+    store8(out_bf + off, v);
   } else {  // EPI_RESIDUAL
     float b[8], x[8];
     load8(bias + col, b);
@@ -338,7 +374,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tma_kernel(
     const float* __restrict__ ds, bf16* __restrict__ out_bf,
     float* __restrict__ out_f, bf16* __restrict__ aux, const DropParams drop,
     int M, int N, int K) {
-  constexpr bool MN_B = EPI == EPI_RESIDUAL;  // B = w (K, N) row-major
+  constexpr bool MN_B = mn_b<EPI>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // 128-byte swizzled tiles need 1024-byte aligned bases
   unsigned char* base =
@@ -407,7 +443,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tma_kernel(
       auto prefetch = [&](int q) {
         const int row = row0 + (q & 3) * 4, col = col0 + (q >> 2) * 64;
         return EPI != EPI_DNONE && q < PASSES && row < M
-                   ? load_opnd<EPI>(resid, h, ds, (size_t)row * N + col)
+                   ? load_opnd<EPI>(bias, resid, h, ds,
+                                    (size_t)row * N + col, col)
                    : Opnd{};
       };
       Opnd o0 = prefetch(0), o1 = prefetch(1), o2 = prefetch(2);
@@ -557,8 +594,7 @@ int launch(const void* a, const void* w, const Operands& o,
   CUtensorMap ta, tb;
   int rc = encode(&ta, a, K, M, BM);
   if (rc == 0)  // w (K, N) in 64 x 64 boxes, or w (N, K) in BN x 64 boxes
-    rc = EPI == EPI_RESIDUAL ? encode(&tb, w, N, K, BK)
-                             : encode(&tb, w, K, N, BN);
+    rc = mn_b<EPI>() ? encode(&tb, w, N, K, BK) : encode(&tb, w, K, N, BN);
   if (rc != 0) return rc;
   const int tiles = (M + BM - 1) / BM * (N / BN);
   gemm_tma_kernel<EPI><<<std::min(tiles, sm_count()), THREADS, SMEM, s>>>(
@@ -571,9 +607,29 @@ int launch(const void* a, const void* w, const Operands& o,
 
 extern "C" {
 
+// out (M, N) bf16 = act(bf16(a (M, K) @ w (K, N) + bias)); act 0 = none,
+// 1 = erf-GELU followed by Philox dropout when drop_on (stream, thresh,
+// inv_keep as in philox.cuh).  h_out (M, N) bf16, if not null, receives
+// bf16(a @ w + bias) before the GELU.  Requires N % 128 == 0, K % 8 == 0
+// and 16-byte aligned operands.
+int nbk_gemm_bias_act(const void* a, const void* w, const float* bias,
+                      void* out, void* h_out, int M, int N, int K, int act,
+                      unsigned long long seed, int stream, unsigned thresh,
+                      float inv_keep, int drop_on, void* cuda_stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  const DropParams d = make_drop(seed, stream, thresh, inv_keep, drop_on);
+  Operands o = {};
+  o.bias = bias;
+  o.out_bf = static_cast<bf16*>(out);
+  o.aux = static_cast<bf16*>(h_out);
+  if (act == 0) return launch<EPI_BIAS>(a, w, o, d, M, N, K, s);
+  if (act == 1) return launch<EPI_GELU>(a, w, o, d, M, N, K, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // out (M, N) f32 = y2 + f32(resid (M, N) bf16), y2 = drop(f32(bf16(a @ w
 // + bias))); y2d_out (M, N) bf16, if not null, receives bf16(y2).
-// Requires N % 128 == 0, K % 32 == 0 and 16-byte aligned operands.
+// Requires N % 128 == 0, K % 8 == 0 and 16-byte aligned operands.
 int nbk_gemm_bias_residual(const void* a, const void* w, const float* bias,
                            const void* resid, float* out, void* y2d_out,
                            int M, int N, int K, unsigned long long seed,
@@ -612,6 +668,10 @@ int nbk_gemm_dgrad(const void* a, const void* w, void* out, const void* h,
   if (epi == 1) return launch<EPI_DX>(a, w, o, d, M, N, K, s);
   if (epi == 2) return launch<EPI_DNONE>(a, w, o, d, M, N, K, s);
   return (int)cudaErrorInvalidValue;
+}
+
+const char* nbk_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

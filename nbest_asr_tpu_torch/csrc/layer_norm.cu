@@ -1,5 +1,5 @@
 // Row LayerNorm over the f32 residual sums that gemm_bias_residual
-// (gemm.cu) writes: y = (s - mean) * rsqrt(var + eps) * scale + bias,
+// (gemm_wgmma.cu) writes: y = (s - mean) * rsqrt(var + eps) * scale + bias,
 // statistics in f32, output bf16; for training it also writes each row's
 // mean and rstd (f32, (M,)), the residuals the FFN backward's row pass
 // (ffn_bwd.cu) reads.

@@ -1,9 +1,8 @@
-// Segment-masked softmax attention per (element, head, 64-query tile):
-// q, k and v are read by row stride and column offset -- the three column
-// blocks of the (n, 3h) QKV buffer, or standalone (b, s, heads, d)
-// tensors -- and ctx is written (n, h), with no head transposes.
-// Training adds the Philox prob dropout and each row's softmax
-// statistics.
+// Segment-masked softmax attention per (element, head): q, k and v are
+// read by row stride and column offset -- the three column blocks of the
+// (n, 3h) QKV buffer, or standalone (b, s, heads, d) tensors -- and ctx is
+// written (n, h), with no head transposes.  Training adds the Philox prob
+// dropout and each row's softmax statistics.
 //
 // Replaces the head loop of the TPU attention-block megakernel:
 //   nbest_asr_tpu/ops/fused_attention.py:_fab_fwd_kernel (:167-180),
@@ -15,41 +14,544 @@
 // which computes the same function (`_sb_probs` :350 is `_head_probs`
 // with a caller's sm_scale), so it maps onto this kernel instead of a
 // second copy of it.
-// Contract kept: SEGMENT-mask semantics (a query attends exactly the
-// keys carrying its own mask value; pads attend pads), masked scores
-// filled with MASK_VALUE (-0.7 * FLT_MAX), a PLAIN softmax in f32 over
-// the whole row (p = exp(s - max) / sum, seq <= 512), then p = keep ? p *
-// f32(1 / (1 - rate)) : 0 in f32, probs rounded to bf16 before P.V, f32
-// accumulation, ctx rounded to bf16.  Keys past the sequence end are
-// excluded outright, which is what the TPU wrappers' -1 mask padding
-// achieves (fused_attention.py:791-797, flash_attention.py:634-639), so
-// nothing is padded.  The keep bits are Philox stream 3 at row (elem *
-// n_heads + head) * S + q, column k (attention.cuh), so the backward
-// kernels -- and the tiled flash kernels, at any tiling -- regenerate
-// them.
+// Contract kept: SEGMENT-mask semantics (a query attends exactly the keys
+// carrying its own mask value; pads attend pads), masked scores filled
+// with MASK_VALUE (-0.7 * FLT_MAX), a PLAIN softmax in f32 over the whole
+// row (p = exp(s - max) / sum with the row's exact max, seq <= 512), then
+// p = keep ? p * f32(1 / (1 - rate)) : 0 in f32, probs rounded to bf16
+// before P.V, f32 accumulation, ctx rounded to bf16.  Keys past the
+// sequence end are excluded outright (their probs are 0), which is what
+// the TPU wrappers' -1 mask padding achieves (fused_attention.py:791-797,
+// flash_attention.py:634-639), so nothing is padded.  The keep bits are
+// Philox stream 3 at row (elem * n_heads + head) * S + q, column k
+// (attention.cuh), so the backward kernels -- and the tiled flash
+// kernels, at any tiling -- regenerate them.
 //
-// Design: the TPU kernel holds the whole (s, s) score matrix in VMEM.
-// Here a warp owns 16 query rows and the row statistics live in
-// registers: pass 1 sweeps the key tiles for the row max and sum (the
-// sum rescaled as the max grows), pass 2 recomputes the same scores
-// bit for bit, normalises them exactly, drops them, rounds to bf16 and
-// feeds them from registers straight into the P.V tensor-core MMA (the C
-// fragment of S is the A fragment of P).  Recomputing QK^T costs one
-// extra s*s*d MMA per head -- small beside the layer's GEMMs -- and keeps
-// shared memory at three 64-row tiles plus the block's keep bits (64 x S
-// bits), so many blocks fit on an SM.  The max and sum it writes (8
-// bytes a row) let the backward rebuild p without pass 1.
+// Two kernels; nbk_seg_attention picks by (d, S):
+//   d = 64, S <= 512            the wgmma kernel (every BERT-base, -large,
+//                               RoBERTa and XLM-R head)
+//   d = 32, 128, 192, 256       the mma.sync kernel (flash's d = 32
+//                               single-block route, the wide heads)
+// and refuses every other shape (cudaErrorInvalidValue).  d = 128 stays on
+// the mma.sync kernel: its K and V take 128 KB at S = 256, so a block of
+// one warpgroup would hold an SM alone, and warpgroups sharing them are
+// not built yet.
 //
-// What bounds it on the H100: at s <= 512 the per-head work is a few
-// MFLOP on 2*s*d*2 bytes of K and V, so latency of the small tiles and
-// the serial tile loop bound it, not HBM or tensor-core rate; the keep
-// bits add one 10-round Philox call per four probs, drawn once per block.
+// The wgmma kernel.  A block owns one (element, head) and a run of its
+// 64-query tiles; it copies that head's whole K and V (S <= 512 keys, 64
+// columns: <= 128 KB) into 128-byte-swizzled shared memory once (cp.async,
+// rows past S zero-filled), and its consumer warpgroups (one; two at S >
+// 256, each with its own query tiles) share them.  Per tile, one
+// warpgroup runs S = Q K^T as wgmma m64n64k16 (and one m64n32k16 for a
+// key count that is an odd multiple of 32) from shared memory, so each
+// thread holds its two rows' scores for up to 256 keys in registers: the
+// exact row max and sum come from registers in one sweep (one expf and one
+// division a prob), and the probs are normalised, dropped, rounded to
+// bf16 and fed to P.V (wgmma m64n64k16, A from registers, V the MN-major B
+// in shared memory) without passing through memory.  At 256 < S <= 512 a
+// row does not fit one accumulator: the scores of keys 0-255 give a max
+// and sum, those of keys 256-511 are kept, the sums combine
+// (l0 exp(m0 - m) + the kept keys' exps), and keys 0-255's scores are
+// recomputed for their probs (1.5 score products instead of 1; staging
+// the scores in shared memory instead would take 128 KB a warpgroup beside
+// 128 KB of K and V, more than an SM has).  The keep
+// bits of the tile's 64 rows are drawn into shared memory while the score
+// product runs; the next tile's Q is copied while this one computes, and
+// the other blocks resident on the SM overlap a block's K / V copy.  The
+// launch picks the tiles a block takes from the occupancy: fewer K / V
+// reloads against a fuller last wave.
+//
+// The mma.sync kernel.  The TPU kernel holds the whole (s, s) score matrix
+// in VMEM.  Here a warp owns 16 query rows and the row statistics live in
+// registers: pass 1 sweeps the key tiles for the row max and sum (the sum
+// rescaled as the max grows), pass 2 recomputes the same scores bit for
+// bit, normalises them exactly, drops them, rounds to bf16 and feeds them
+// from registers straight into the P.V tensor-core MMA (the C fragment of
+// S is the A fragment of P).  The max and sum it writes (8 bytes a row)
+// let the backward rebuild p without pass 1.
+//
+// What bounds both on the H100: per head a few MFLOP on 2*s*d*2 bytes of
+// K and V, so neither HBM (the bound is bytes: q, k, v read once, ctx
+// written once) nor the tensor cores' rate does.  The wgmma kernel's time
+// is its softmax's instructions -- mask, max, expf, sum, division and
+// dropout, some 25 a score -- issued by one to four warpgroups an SM (the
+// registers hold NK / 2 scores a thread); the mma.sync kernel's is the
+// latency of its serial tile loop and second pass.  The keep bits add one
+// 10-round Philox call per four probs, drawn once per tile.
 #include "attention.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using namespace nbk;
 using namespace nbk::attn;
+
+int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (count[dev] == 0)
+    cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev];
+}
+
+// ---------------------------------------------------------------------- //
+// The wgmma kernel: d = 64, S <= 512
+// ---------------------------------------------------------------------- //
+
+constexpr int WD = 64;             // its head dim
+constexpr int QT = 64;             // query rows of a warpgroup's tile
+constexpr int QTILE = QT * WD * 2;  // bytes of a swizzled 64 x 64 tile
+
+// A block's shape for NK-key score windows (NK a multiple of 32, <= 256;
+// NWIN = 2 windows of 256 keys cover 256 < S <= 512).
+template <int NK, int NWIN>
+struct Shape {
+  static constexpr int KEYS = NK * NWIN;  // rows of sK and sV
+  static constexpr int NWG = NWIN;        // consumer warpgroups
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int WORDS = KEYS / 32;  // keep-table words of a row
+  static constexpr int KSTRIDE = WORDS | 1;  // odd: rows in other banks
+  // 1024-byte alignment slack, K, V, two Q tiles a warpgroup, the key
+  // segment ids, a keep table a warpgroup
+  static constexpr int SMEM = 1024 + 2 * KEYS * 128 + NWG * 2 * QTILE +
+                              KEYS * 4 + NWG * QT * KSTRIDE * 4;
+  // blocks an SM runs: registers (sc NK / 2, o 32 a thread) and the
+  // shared memory above
+  static constexpr int MIN_BLOCKS =
+      NWIN == 2 ? 1 : NK <= 96 ? 4 : NK <= 192 ? 3 : 2;
+};
+
+// d (64 x 64) (+)= A (64 x 16, K-major, shared) * B (16 x 64, K-major,
+// shared); the first k-step of a product passes scale_d = 0.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32) (+)= A (64 x 16, K-major, shared) * B (16 x 32, K-major,
+// shared); the first k-step of a product passes scale_d = 0.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64) (+)= A (64 x 16, four bf16x2 registers a thread: the
+// m16n8k16 A fragment of the warp's 16 rows) * B (16 x 64, MN-major in
+// shared memory, transpose-B).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const unsigned* a,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+// rows r0 .. r0 + rows - 1 of one head's 64 columns (src: row 0, column
+// head * 64 of a row-major matrix with row stride ld) -> a 128-byte-
+// swizzled tile; rows past S are zero-filled.  Threads tid of nthreads.
+__device__ __forceinline__ void copy_rows(unsigned char* dst, const bf16* src,
+                                          int ld, int r0, int rows, int S,
+                                          int tid, int nthreads) {
+  for (int c = tid; c < rows * 8; c += nthreads) {
+    const int r = c >> 3, ch = c & 7, row = r0 + r;
+    const bool ok = row < S;
+    cp_async_16(dst + swizzle128(r, ch),
+                src + (size_t)(ok ? row : 0) * ld + ch * 8, ok);
+  }
+}
+
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// Issues (and commits) the scores of the warpgroup's 64 queries (sQt)
+// against the NK keys of the window at sKw: thread fragment sc[4 jj + e]
+// = (row 16 warp + g + 8 (e >= 2), key 8 jj + 2 t + (e & 1)).
+template <int NK>
+__device__ __forceinline__ void issue_scores(float (&sc)[NK / 2],
+                                             const unsigned char* sQt,
+                                             const unsigned char* sKw) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WD / 16; ++kk) {
+    // a k16 step is 32 bytes along the swizzled 128-byte rows; 8-row
+    // groups 1024 bytes apart; a 64-key chunk of K is 8192 bytes
+    const uint64_t da = smem_desc(sQt + kk * 32, 1, 64);
+#pragma unroll
+    for (int c = 0; c < NK / 64; ++c)
+      wgmma_ss_n64(sc + 32 * c, da, smem_desc(sKw + c * 8192 + kk * 32, 1,
+                                              64), kk);
+    if (NK % 64)
+      wgmma_ss_n32(sc + 32 * (NK / 64), da,
+                   smem_desc(sKw + (NK / 64) * 8192 + kk * 32, 1, 64), kk);
+  }
+  wgmma_commit();
+}
+
+// Scaled, masked scores (MASK_VALUE where the segments differ; sMw: the
+// window's key segment ids, NaN past S) and the row maxima ma, mb.
+template <int NK>
+__device__ __forceinline__ void mask_scores(float (&sc)[NK / 2],
+                                            const float* sMw, float qma,
+                                            float qmb, float sm_scale, int t4,
+                                            float& ma, float& mb) {
+#pragma unroll
+  for (int jj = 0; jj < NK / 8; ++jj) {
+    const float2 km =
+        *reinterpret_cast<const float2*>(sMw + jj * 8 + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = sc[4 * jj + e] * sm_scale;
+      const float s = ((e & 1) ? km.y : km.x) == (e < 2 ? qma : qmb)
+                          ? v
+                          : MASK_VALUE;
+      sc[4 * jj + e] = s;
+      if (e < 2)
+        ma = fmaxf(ma, s);
+      else
+        mb = fmaxf(mb, s);
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// sc = exp(sc - m) a row; la, lb += this thread's part of each row's sum.
+template <int NK>
+__device__ __forceinline__ void exp_scores(float (&sc)[NK / 2], float ma,
+                                           float mb, float& la, float& lb) {
+#pragma unroll
+  for (int i = 0; i < NK / 2; ++i) {
+    sc[i] = expf(sc[i] - ((i & 2) ? mb : ma));
+    if (i & 2)
+      lb += sc[i];
+    else
+      la += sc[i];
+  }
+}
+
+// x / l rounded to nearest for a row's sum l >= 1 and rl = __frcp_rn(l):
+// Markstein's correction of x * rl, which is the IEEE quotient bit for bit
+// (what seg_attention_bwd.cu rebuilds p with) wherever the FMA's remainder
+// is exact, x >= 2^-90; a smaller x is scaled by 2^64 first, so only a
+// subnormal quotient (p < 2^-126) may round twice, by one subnormal ulp.
+// Branch-free: the IEEE division branches to its slow path at every prob,
+// which cut the unrolled softmax into 128 blocks, 4x slower at seq 256 on
+// the H100 (PERF.md).
+__device__ __forceinline__ float div_row(float x, float l, float rl) {
+  const bool tiny = x < 0x1p-90f;
+  const float xs = tiny ? x * 0x1p64f : x;
+  const float q = __fmul_rn(xs, rl);
+  const float p = __fmaf_rn(__fmaf_rn(-q, l, xs), rl, q);
+  return tiny ? p * 0x1p-64f : p;
+}
+
+// p = e / l, dropped (keep: the tile's table, ra this thread's first row,
+// word0 the window's first word), rounded to bf16 in registers -- the A
+// fragments of the NK / 16 k-steps -- times the window's V (sVw): issues
+// and commits o (+)= P V.
+template <int NK, bool DROP>
+__device__ __forceinline__ void probs_times_v(
+    const float (&sc)[NK / 2], float (&o)[32], const unsigned char* sVw,
+    float la, float lb, const unsigned* keep, int kstride, int ra,
+    int word0, const DropParams& drop, int t4, bool accumulate) {
+  const float rla = __frcp_rn(la), rlb = __frcp_rn(lb);
+  unsigned pa[NK / 4];
+#pragma unroll
+  for (int j = 0; j < NK / 16; ++j) {
+    unsigned ka = 0, kb = 0;
+    if (DROP) {  // keys 16 j .. 16 j + 15 lie in word j / 2
+      ka = keep[ra * kstride + word0 + j / 2];
+      kb = keep[(ra + 8) * kstride + word0 + j / 2];
+    }
+    float pf[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float pv = (e & 2) ? div_row(sc[8 * j + e], lb, rlb)
+                         : div_row(sc[8 * j + e], la, rla);
+      if (DROP) {
+        const int bit = 16 * (j & 1) + 8 * (e >> 2) + 2 * t4 + (e & 1);
+        pv = ((((e & 2) ? kb : ka) >> bit) & 1u) ? __fmul_rn(pv,
+                                                             drop.inv_keep)
+                                                 : 0.f;
+      }
+      pf[e] = pv;
+    }
+    pa[4 * j] = pack_bf16x2(pf[0], pf[1]);      // row g, keys 2t ..
+    pa[4 * j + 1] = pack_bf16x2(pf[2], pf[3]);  // row g + 8
+    pa[4 * j + 2] = pack_bf16x2(pf[4], pf[5]);  // row g, keys 8 + 2t ..
+    pa[4 * j + 3] = pack_bf16x2(pf[6], pf[7]);  // row g + 8
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NK / 16; ++j)  // 16 keys of V: 2048 bytes a step
+    wgmma_rs_n64(o, pa + 4 * j, smem_desc(sVw + j * 2048, 512, 64),
+                 accumulate || j > 0);
+  wgmma_commit();
+}
+
+// One block: (element, head) = (blockIdx.z, blockIdx.y), query tiles
+// blockIdx.x * tiles_per_block .. (+ tiles_per_block, at most ceil(S /
+// 64)), warpgroup w taking every NWG-th from the w-th.
+template <int NK, int NWIN, bool DROP>
+__global__ void __launch_bounds__(Shape<NK, NWIN>::THREADS,
+                                  Shape<NK, NWIN>::MIN_BLOCKS)
+    seg_attn_wgmma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, int ld,
+                        const float* __restrict__ mask,
+                        bf16* __restrict__ ctx, float* __restrict__ stats,
+                        int S, int tiles_per_block, float sm_scale,
+                        DropParams drop) {
+  using Sh = Shape<NK, NWIN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // 128-byte swizzled tiles need 1024-byte aligned bases
+  unsigned char* sK =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sV = sK + Sh::KEYS * 128;
+  unsigned char* sQ = sV + Sh::KEYS * 128;
+  float* sM = reinterpret_cast<float*>(sQ + Sh::NWG * 2 * QTILE);
+  unsigned* sKeep = reinterpret_cast<unsigned*>(sM + Sh::KEYS);
+
+  const int head = blockIdx.y, elem = blockIdx.z, n_heads = gridDim.y;
+  const int t_end = min((S + QT - 1) / QT,
+                        (int)(blockIdx.x + 1) * tiles_per_block);
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * n_heads + head) * S;  // Philox row of query 0
+  const int H = n_heads * WD;
+  const size_t off = row0 * ld + head * WD;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  unsigned char* myQ = sQ + wg * 2 * QTILE;
+  unsigned* keep = sKeep + wg * QT * Sh::KSTRIDE;
+  int t = blockIdx.x * tiles_per_block + wg;
+
+  // the head's K and V, the key segment ids (NaN past S: such a key
+  // matches no query, so its score is MASK_VALUE and its prob 0) and each
+  // warpgroup's first Q tile
+  for (int j = threadIdx.x; j < Sh::KEYS; j += Sh::THREADS)
+    sM[j] = j < S ? mask[row0 + j] : __int_as_float(0x7fc00000);
+  copy_rows(sK, k + off, ld, 0, Sh::KEYS, S, threadIdx.x, Sh::THREADS);
+  copy_rows(sV, v + off, ld, 0, Sh::KEYS, S, threadIdx.x, Sh::THREADS);
+  if (t < t_end) copy_rows(myQ, q + off, ld, t * QT, QT, S, tid, 128);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  const int lane = tid & 31, w4 = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int ra = w4 * 16 + g;  // this thread's first row of the tile
+  const size_t bhs = (size_t)gridDim.z * n_heads * S;
+  float sc[NK / 2], o[32];
+  for (int i = 0; t < t_end; ++i, t += Sh::NWG) {
+    const unsigned char* sQt = myQ + (i & 1) * QTILE;
+    const int q0 = t * QT, qa = q0 + ra, qb = qa + 8;
+    // a query row past S matches no key; its output is never stored
+    const float qma = qa < S ? sM[qa] : __int_as_float(0x7fc00000);
+    const float qmb = qb < S ? sM[qb] : __int_as_float(0x7fc00000);
+    float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
+    issue_scores<NK>(sc, sQt, sK);
+    if (DROP)  // the tile's keep bits while the product runs
+      build_keep(keep, QT, Sh::WORDS, Sh::KSTRIDE, drop, prow0 + q0, 0, tid,
+                 128);
+    if (t + Sh::NWG < t_end)  // the next tile's Q into the other buffer
+      copy_rows(myQ + ((i + 1) & 1) * QTILE, q + off, ld,
+                (t + Sh::NWG) * QT, QT, S, tid, 128);
+    cp_async_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    if (DROP) warpgroup_sync(wg);  // the keep table is complete
+    mask_scores<NK>(sc, sM, qma, qmb, sm_scale, t4, ma, mb);
+    ma = quad_max(ma);
+    mb = quad_max(mb);
+    if (NWIN == 2) {
+      // keys 0-255 gave (ma, mb) and their sum; keys 256-511 are kept
+      exp_scores<NK>(sc, ma, mb, la, lb);
+      la = quad_sum(la);
+      lb = quad_sum(lb);
+      issue_scores<NK>(sc, sQt, sK + NK * 128);
+      wgmma_wait<0>();
+      fence_acc(sc);
+      float na = -INFINITY, nb = -INFINITY;
+      mask_scores<NK>(sc, sM + NK, qma, qmb, sm_scale, t4, na, nb);
+      na = fmaxf(ma, quad_max(na));
+      nb = fmaxf(mb, quad_max(nb));
+      la *= expf(ma - na);
+      lb *= expf(mb - nb);
+      ma = na;
+      mb = nb;
+      float ea = 0.f, eb = 0.f;
+      exp_scores<NK>(sc, ma, mb, ea, eb);
+      la += quad_sum(ea);
+      lb += quad_sum(eb);
+      probs_times_v<NK, DROP>(sc, o, sV + NK * 128, la, lb, keep,
+                              Sh::KSTRIDE, ra, NK / 32, drop, t4, false);
+      wgmma_wait<0>();
+      fence_acc(o);
+      // keys 0-255 again, now with the row's max and sum
+      issue_scores<NK>(sc, sQt, sK);
+      wgmma_wait<0>();
+      fence_acc(sc);
+      float xa = -INFINITY, xb = -INFINITY, ya = 0.f, yb = 0.f;  // unused
+      mask_scores<NK>(sc, sM, qma, qmb, sm_scale, t4, xa, xb);
+      exp_scores<NK>(sc, ma, mb, ya, yb);
+      probs_times_v<NK, DROP>(sc, o, sV, la, lb, keep, Sh::KSTRIDE, ra, 0,
+                              drop, t4, true);
+    } else {
+      exp_scores<NK>(sc, ma, mb, la, lb);
+      la = quad_sum(la);
+      lb = quad_sum(lb);
+      probs_times_v<NK, DROP>(sc, o, sV, la, lb, keep, Sh::KSTRIDE, ra, 0,
+                              drop, t4, false);
+    }
+    wgmma_wait<0>();
+    fence_acc(o);
+    if (stats != nullptr && t4 == 0) {
+      if (qa < S) {
+        stats[prow0 + qa] = ma;
+        stats[bhs + prow0 + qa] = la;
+      }
+      if (qb < S) {
+        stats[prow0 + qb] = mb;
+        stats[bhs + prow0 + qb] = lb;
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < WD / 8; ++jj) {
+      const int col = head * WD + jj * 8 + 2 * t4;
+      if (qa < S)
+        *reinterpret_cast<unsigned*>(ctx + (row0 + qa) * H + col) =
+            pack_bf16x2(o[4 * jj], o[4 * jj + 1]);
+      if (qb < S)
+        *reinterpret_cast<unsigned*>(ctx + (row0 + qb) * H + col) =
+            pack_bf16x2(o[4 * jj + 2], o[4 * jj + 3]);
+    }
+    // the next Q tile has landed; this tile's Q buffer and keep table are
+    // free
+    cp_async_wait<0>();
+    fence_proxy_async();
+    warpgroup_sync(wg);
+  }
+}
+
+// Tiles a block takes: the largest count whose estimated time -- full
+// waves of blocks over the SMs' slots, times a block's tiles on one
+// warpgroup plus one more for its K / V copy -- is least.  Against one
+// tile a block and all of a head's tiles, it picked the fastest or within
+// 1% at 64 x {64, 96, 160, 256}, 32 x 256 and 16 x 512 (PERF.md).
+int tiles_per_block(int n_qt, int heads, int slots, int nwg) {
+  int best = n_qt;
+  double best_t = 1e300;
+  for (int tpb = n_qt; tpb >= 1; --tpb) {
+    const long long blocks = (long long)heads * ((n_qt + tpb - 1) / tpb);
+    const double waves = (double)((blocks + slots - 1) / slots);
+    const double t = waves * ((tpb + nwg - 1) / nwg + 1);
+    if (t < best_t) best_t = t, best = tpb;
+  }
+  return best;
+}
+
+template <int NK, int NWIN, bool DROP>
+int launch_wgmma(const void* q, const void* k, const void* v, int ld,
+                 const float* mask, void* ctx, float* stats, int B, int S,
+                 int n_heads, float sm_scale, const DropParams& drop,
+                 cudaStream_t stream) {
+  using Sh = Shape<NK, NWIN>;
+  static int per_sm = 0;  // blocks an SM runs
+  if (per_sm == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        seg_attn_wgmma_kernel<NK, NWIN, DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, seg_attn_wgmma_kernel<NK, NWIN, DROP>, Sh::THREADS,
+          Sh::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int n_qt = (S + QT - 1) / QT;
+  const int tpb = tiles_per_block(n_qt, B * n_heads, per_sm * sm_count(),
+                                  Sh::NWG);
+  dim3 grid((n_qt + tpb - 1) / tpb, n_heads, B);
+  seg_attn_wgmma_kernel<NK, NWIN, DROP><<<grid, Sh::THREADS, Sh::SMEM,
+                                        stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), ld, mask, static_cast<bf16*>(ctx), stats,
+      S, tpb, sm_scale, drop);
+  return (int)cudaGetLastError();
+}
+
+// the window width: S rounded up to 32 (64 at least; 224 to 256), two
+// windows of 256 past 256
+template <bool DROP>
+int launch_wgmma_s(const void* q, const void* k, const void* v, int ld,
+                   const float* mask, void* ctx, float* stats, int B, int S,
+                   int n_heads, float sm_scale, const DropParams& drop,
+                   cudaStream_t st) {
+#define NBK_WGMMA(NK, NWIN)                                                \
+  return launch_wgmma<NK, NWIN, DROP>(q, k, v, ld, mask, ctx, stats, B, S, \
+                                      n_heads, sm_scale, drop, st)
+  if (S <= 64) NBK_WGMMA(64, 1);
+  if (S <= 96) NBK_WGMMA(96, 1);
+  if (S <= 128) NBK_WGMMA(128, 1);
+  if (S <= 160) NBK_WGMMA(160, 1);
+  if (S <= 192) NBK_WGMMA(192, 1);
+  if (S <= 256) NBK_WGMMA(256, 1);
+  if (S <= 512) NBK_WGMMA(256, 2);
+#undef NBK_WGMMA
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------- //
+// The mma.sync kernel: d = 32, 128, 192, 256
+// ---------------------------------------------------------------------- //
 
 constexpr int KT = 64;  // keys per tile
 
@@ -61,14 +563,13 @@ size_t smem_bytes(int S) {
 }
 
 // Blocks per SM each instance is built for (registers <= 65536 / (128 x
-// blocks)): the d = 32 and 64 instances at 4 (128 registers; the d = 64
-// serving one needs 130 unbounded, which cost 20% at seq 256 on the
-// H100), the d = 128 ones where they fall unbounded, the d = 192 and 256
-// ones at 1 (their q fragments and accumulators alone take 144 and 192
-// registers).  q, k, v: row 0, column 0 of the head block of each
+// blocks)): the d = 32 instances at 4 (128 registers: 130 instead cost
+// this kernel 20% at d = 64, seq 256 on the H100), the d = 128 ones where
+// they fall unbounded, the d = 192 and 256 ones at 1 (their q fragments
+// and accumulators alone take 144 and 192 registers).  q, k, v: row 0, column 0 of the head block of each
 // operand, ld its row stride (elements); ctx has rows of n_heads * D.
 template <int D, bool DROP>
-__global__ void __launch_bounds__(THREADS, D <= 64     ? 4
+__global__ void __launch_bounds__(THREADS, D == 32    ? 4
                                            : D == 128 ? (DROP ? 2 : 3)
                                                       : 1)
     seg_attention_kernel(const bf16* __restrict__ q,
@@ -259,10 +760,11 @@ extern "C" {
 // columns starting at its pointer (16-byte aligned, ld % 8 == 0) -- the
 // q | k | v column blocks of one (B*S, 3h) QKV buffer (ld = 3h), or
 // (B, S, n_heads, d) tensors (ld = n_heads * d); mask (B, S) f32 segment
-// ids -> ctx (B*S, n_heads * d) bf16.  d in {32, 64, 128, 192, 256}, S <=
-// 512.  stats, if not null, is (2, B, n_heads, S) f32 and receives each
-// row's max and sum of exp.  Prob dropout when drop_on (seed, stream,
-// thresh, inv_keep as in philox.cuh).
+// ids -> ctx (B*S, n_heads * d) bf16.  d = 64 with S <= 512 (the wgmma
+// kernel), or d in {32, 128, 192, 256} (the mma.sync kernel); any other d
+// or S is refused.  stats, if not null, is (2, B, n_heads, S) f32 and
+// receives each row's max and sum of exp.  Prob dropout when drop_on
+// (seed, stream, thresh, inv_keep as in philox.cuh).
 int nbk_seg_attention(const void* q, const void* k, const void* v, int ld,
                       const float* mask, void* ctx, float* stats, int B,
                       int S, int n_heads, int d, float sm_scale,
@@ -270,12 +772,19 @@ int nbk_seg_attention(const void* q, const void* k, const void* v, int ld,
                       float inv_keep, int drop_on, void* cuda_stream) {
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   const DropParams drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
+  if (S <= 0) return (int)cudaErrorInvalidValue;
+  if (d == WD) {
+    if (drop.on)
+      return launch_wgmma_s<true>(q, k, v, ld, mask, ctx, stats, B, S,
+                                  n_heads, sm_scale, drop, s);
+    return launch_wgmma_s<false>(q, k, v, ld, mask, ctx, stats, B, S,
+                                 n_heads, sm_scale, drop, s);
+  }
 #define NBK_SEG_ATTN(D)                                                   \
   if (d == D)                                                             \
     return launch<D>(q, k, v, ld, mask, ctx, stats, B, S, n_heads,        \
                      sm_scale, drop, s);
   NBK_SEG_ATTN(32)
-  NBK_SEG_ATTN(64)
   NBK_SEG_ATTN(128)
   NBK_SEG_ATTN(192)
   NBK_SEG_ATTN(256)

@@ -16,9 +16,15 @@
 //   di   = rowsum(dp * p)  (undropped p, f32)
 //   ds   = bf16(p * (dp - di) * sm_scale)
 //   dq   = ds k,  dk = ds^T q
-// Here p = exp(s - m) / l from the saved statistics, bit for bit the
-// forward's p in the dQ kernel (same score MMAs, same order); the prob
-// mask is Philox stream 3, regenerated from its counters (attention.cuh).
+// Here p = exp(s - m) / l from the saved statistics.  At head dims other
+// than 64 the dQ kernel's p is the forward's bit for bit (same score MMAs,
+// same order).  At d = 64 the forward takes its scores from wgmma and these
+// kernels from mma.sync, which may round a score differently in its last
+// f32 bit; on the H100 the rebuilt probs, rounded to bf16 as both kernels
+// round them for P.V, equalled the forward's in all 196,608 of the smoke's
+// probe and all 16,384 of the card test (PERF.md, Findings).  The prob
+// mask does not depend on the scores: it is Philox stream 3, regenerated
+// from its counters (attention.cuh), bit for bit at every head dim.
 // di is the TPU kernel's own rowsum(dp * p) in f32 -- not FlashAttention's
 // rowsum(dO * O), which equals it only up to the bf16 rounding of P and O.
 //

@@ -33,6 +33,9 @@ dWo, dbo, dls, dlb                              (outside the kernels, as in
                                                 JAX)
 ==============================================  ==============================
 
+``gemm_bias_act``, ``gemm_bias_residual`` and ``gemm_dgrad`` are epilogues
+of one persistent ``wgmma`` + TMA GEMM (``csrc/gemm_wgmma.cu``).
+
 The TPU kernel keeps wqkv and wo resident in VMEM and a whole batch
 block's QKV on chip; an SM has 227 KB of shared memory, so the chain
 passes QKV (n, 3h) bf16, ctx (n, h) bf16 and the residual sum (n, h) f32

@@ -28,6 +28,9 @@ db2, dls, dlb                                   (outside the kernels, as in
                                                 JAX)
 ==============================================  ==============================
 
+``gemm_bias_act``, ``gemm_bias_residual`` and ``gemm_dgrad`` are epilogues
+of one persistent ``wgmma`` + TMA GEMM (``csrc/gemm_wgmma.cu``).
+
 The TPU kernel keeps w1 and w2 (9.4 MB in bf16 at BERT-base) resident in
 VMEM and never writes the (n, 3072) activations; on the H100 they pass
 through HBM in bf16 between the kernels.  Rounding points are the TPU

@@ -6,7 +6,9 @@ kernels (sources in ``csrc/``):
 
 - ``gemm_bias_act``      -- ``act(bf16(a @ w + bias))``; QKV and FFN-in
 - ``gemm_bias_residual`` -- ``f32(bf16(a @ w + bias)) + f32(resid)``;
-                            out-proj and FFN-out
+                            out-proj and FFN-out (both, and ``gemm_dgrad``
+                            below, on the wgmma + TMA GEMM of
+                            ``csrc/gemm_wgmma.cu``)
 - ``layer_norm``         -- row LayerNorm of that f32 sum, bf16 out
 - ``seg_attention``      -- segment-masked softmax attention from the
                             (n, 3h) QKV buffer to ctx (n, h)
@@ -163,7 +165,7 @@ def _gemm_dims(name: str, a: torch.Tensor, w: torch.Tensor,
 
 def _aligned16(name: str, **tensors) -> None:
     """The TMA kernels (csrc/gemm_wgmma.cu) load and store 16 bytes at a
-    time from each operand's base."""
+    time from each operand's base (the bias too)."""
     for arg, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned, its "
@@ -575,19 +577,24 @@ def gemm_bias_act(a, w, bias, act: str = "none", drop=None,
         raise ValueError("gemm_bias_act: dropout follows the GELU only")
     if not _on_cuda("gemm_bias_act", a, w, bias):
         return gemm_bias_act_reference(a, w, bias, act, drop, save_h)
-    M, N, K = _gemm_dims("gemm_bias_act", a, w)
+    # TMA zero-fills the depth past K; it needs rows of a 16-byte pitch
+    M, N, K = _gemm_dims("gemm_bias_act", a, w, k_mult=8)
     _expect("gemm_bias_act", "a", a, torch.bfloat16, (M, K))
     _expect("gemm_bias_act", "w", w, torch.bfloat16, (K, N))
     _expect("gemm_bias_act", "bias", bias, torch.float32, (N,))
+    _aligned16("gemm_bias_act", a=a, w=w, bias=bias)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
-    h = torch.empty_like(out) if save_h else None
+    gelu_h = save_h and act == "gelu"     # without the GELU, h is out
+    h = torch.empty_like(out) if gelu_h else None
     rc = _cuda.lib().nbk_gemm_bias_act(
         a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
         _ptr(h), M, N, K, 1 if act == "gelu" else 0, *_drop_args(drop),
         _stream(a))
     _cuda.check(rc, "gemm_bias_act")
     _cuda.launch_counts["gemm_bias_act"] += 1
-    return (h, out) if save_h else out
+    if save_h:
+        return (h if gelu_h else out), out
+    return out
 
 
 def gemm_bias_residual(a, w, bias, resid, drop=None,

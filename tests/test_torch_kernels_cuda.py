@@ -51,15 +51,45 @@ GEMM_NK = [(n, k) for n in (384, 768, 1024, 3072, 4096)
            for k in (96, 768, 2304, 3072)]
 
 
-@pytest.mark.parametrize("act", ["none", "gelu"])
-@pytest.mark.parametrize("m", [1, 60, 300])
-def test_gemm_bias_act(dev, m, act):
-    a = _rand(dev, m, 256, seed=1)
-    w = _rand(dev, 256, 384, std=0.05, seed=2)
-    b = _rand(dev, 384, std=0.1, dtype=torch.float32, seed=3)
-    got = K.gemm_bias_act(a, w, b, act)
+# gemm_bias_act's (act, dropout rate) cases: dropout follows the GELU only
+ACT_RATES = [("none", 0.0), ("gelu", 0.0), ("gelu", 0.1)]
+
+
+@pytest.mark.parametrize("save_h", [False, True])
+@pytest.mark.parametrize("act,rate", ACT_RATES)
+@pytest.mark.parametrize("n,k", GEMM_NK)
+@pytest.mark.parametrize("m", GEMM_M)
+def test_gemm_bias_act(dev, m, n, k, act, rate, save_h):
+    """The bias and GELU epilogues against the plain version (out and h by
+    ``_close``: the plain f32 product sums in another order, so a bf16
+    rounding may flip).  The saved h is the bias epilogue's output bit for
+    bit (one mainloop, one rounding), and the GELU output is the plain
+    GELU of the kernel's own h within one bf16 ulp (erff against
+    torch.erf), 0 exactly where the stream-1 keep bits drop."""
+    from nbest_asr_tpu_torch.ops.layers import gelu
+    from nbest_asr_tpu_torch.ops.philox import keep_mask
+
+    a = _rand_dev(dev, m, k, seed=1)
+    w = _rand_dev(dev, k, n, std=0.05, seed=2)
+    b = _rand_dev(dev, n, std=0.1, dtype=torch.float32, seed=3)
+    d1 = _drop(rate, 1)
+    got = K.gemm_bias_act(a, w, b, act, drop=d1, save_h=save_h)
+    h = K.gemm_bias_act(a, w, b)
     torch.cuda.synchronize()
-    _close(got, K.gemm_bias_act_reference(a, w, b, act))
+    want = K.gemm_bias_act_reference(a, w, b, act, d1, save_h)
+    got, want = (got, want) if save_h else ((got,), (want,))
+    for x, y in zip(got, want):
+        assert x.dtype == torch.bfloat16 and x.shape == (m, n)
+        _close(x, y)
+    if save_h:
+        assert torch.equal(got[0], h)
+    if act == "gelu":
+        g = gelu(h.float())
+        if d1 is not None:
+            g = d1.apply(g)
+            assert (got[-1][~keep_mask(1234, 1, 0, m, n, rate, dev)]
+                    == 0).all()
+        assert _ulps(got[-1], g.to(torch.bfloat16)) <= 1.0
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -91,11 +121,18 @@ def test_gemm_bias_residual_and_layer_norm(dev, m, n, k, rate):
     _close(y, K.layer_norm_reference(s, g, bb, 1e-12, torch.bfloat16))
 
 
-@pytest.mark.parametrize("b,s,h,nh", [(3, 20, 256, 4), (2, 130, 256, 2),
-                                      (2, 512, 128, 2)])
+# seg_attention's (seq, head dim) cases: at d = 64 (the wgmma kernel)
+# ragged lengths, the four DSTC2 buckets and past 256 (two score windows);
+# at d = 32 and 128 the mma.sync kernel
+ATTN_SD = ([(s, 64) for s in (20, 64, 96, 130, 160, 256, 300, 512)]
+           + [(s, d) for d in (32, 128) for s in (20, 160, 512)])
+
+
 @pytest.mark.parametrize("packed", [False, True])
-def test_seg_attention(dev, b, s, h, nh, packed):
-    qkv = _rand(dev, b * s, 3 * h, seed=s)
+@pytest.mark.parametrize("s,d", ATTN_SD)
+def test_seg_attention(dev, s, d, packed):
+    b, nh = (3, 4) if s < 256 else (2, 4)
+    qkv = _rand(dev, b * s, 3 * nh * d, seed=s + d)
     if packed:
         mask = torch.zeros(b, s)
         mask[:, : s // 3], mask[:, s // 3: 2 * s // 3] = 1.0, 2.0
@@ -116,6 +153,8 @@ def test_wrappers_refuse_and_count(dev):
         K.gemm_bias_act(a.float(), w, b)
     with pytest.raises(ValueError, match="N % 128"):
         K.gemm_bias_act(a, w[:, :96].contiguous(), b[:96])
+    with pytest.raises(ValueError, match="K % 8"):
+        K.gemm_bias_act(a[:, :250].contiguous(), w[:250].contiguous(), b)
     with pytest.raises(ValueError, match="head dims"):
         K.seg_attention(_rand(dev, 64, 3 * 144), torch.ones(4, 16,
                                                             device=dev), 3)
@@ -128,6 +167,10 @@ def test_wrappers_refuse_and_count(dev):
     with pytest.raises(ValueError, match="16-byte aligned"):
         K.gemm_bias_residual(a, w, b, _rand(dev, 64 * 128 + 1)[1:].view(
             64, 128))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_bias_act(off, w, b)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_bias_act(a, w, torch.zeros(129, device=dev)[1:], "gelu")
     _cuda.reset_launch_counts()
     K.gemm_bias_act(a, w, b)
     K.gemm_bias_act(a, w, b, "gelu")
@@ -508,11 +551,15 @@ def _attn_mask(dev, b, s, packed):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("b,s,h,nh", [(3, 20, 256, 4), (2, 130, 256, 2),
-                                      (2, 512, 768, 12)])
-def test_seg_attention_dropout_and_stats(dev, b, s, h, nh, rate):
-    qkv = _rand(dev, b * s, 3 * h, std=0.5, seed=s)
-    mask = _attn_mask(dev, b, s, packed=True)
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("s,d", ATTN_SD)
+def test_seg_attention_dropout_and_stats(dev, s, d, packed, rate):
+    """ctx held to the plain version's; the statistics to its row max and
+    sum of exp."""
+    b, nh = (3, 4) if s < 256 else (2, 12 if d == 64 else 4)
+    h = nh * d
+    qkv = _rand(dev, b * s, 3 * h, std=0.5, seed=s + d)
+    mask = _attn_mask(dev, b, s, packed)
     drop = _drop(rate, 3)
     ctx, st = K.seg_attention(qkv, mask, nh, drop=drop, stats=True)
     torch.cuda.synchronize()
@@ -542,11 +589,16 @@ def test_seg_attention_bwd(dev, s, d, packed):
         _close_rel(got[:, cols], want[:, cols])
 
 
-def test_attention_backward_regenerates_the_forward_prob_mask(dev):
-    """With one-hot V and K (row k = e_k, s = d = 64) the forward's ctx is
-    the dropped probs, the dK/dV kernel's dV (for one-hot dO) their
-    transpose, and the dQ kernel's dq (for dO = 1) is negative exactly
-    where a prob was dropped: all three equal the stream-3 keep mask."""
+@pytest.mark.parametrize("onehot_k", [True, False])
+def test_attention_backward_regenerates_the_forward_prob_mask(dev, onehot_k):
+    """With one-hot V (row k = e_k, s = d = 64) the forward's ctx is the
+    dropped probs rounded to bf16, and the dK/dV kernel's dV for one-hot
+    dO their transpose as the backward rebuilds them: both are 0 exactly
+    where the stream-3 keep bits drop.  With one-hot K too, the dQ
+    kernel's dq (for dO = 1) is negative exactly where a prob was dropped.
+    With random K the forward (wgmma) and the backward (mma.sync) compute
+    the scores on other instructions: their bf16 probs are held within one
+    bf16 ulp of each other, and the count that differ is printed."""
     from nbest_asr_tpu_torch.ops.philox import keep_mask
 
     b, s, nh, d = 2, 64, 2, 64
@@ -554,7 +606,7 @@ def test_attention_backward_regenerates_the_forward_prob_mask(dev):
     qkv = _rand(dev, b * s, 3 * h, std=0.5, seed=90)
     eye = torch.eye(s, device=dev, dtype=torch.bfloat16)
     for hd in range(nh):
-        for part in (1, 2):
+        for part in (1, 2) if onehot_k else (2,):
             c0 = part * h + hd * d
             qkv[:, c0:c0 + d] = eye.repeat(b, 1)
     mask = torch.ones(b, s, device=dev)
@@ -567,14 +619,21 @@ def test_attention_backward_regenerates_the_forward_prob_mask(dev):
     d_q = K.seg_attention_bwd(qkv, torch.ones_like(ctx), mask, st, nh,
                               drop=drop)
     torch.cuda.synchronize()
-    fwd = ctx.reshape(b, s, nh, d).permute(0, 2, 1, 3) != 0
-    dkv = d_v[:, 2 * h:].reshape(b, s, nh, d).permute(0, 2, 3, 1) != 0
-    # a kept prob's ds is p * inv_keep * (1 - kept mass) >= 0 (~1e-10 where
-    # the whole row is kept), a dropped one's -p * inv_keep * kept mass
-    dq = d_q[:, :h].reshape(b, s, nh, d).permute(0, 2, 1, 3) > -1e-6
-    assert torch.equal(fwd, keep)
-    assert torch.equal(dkv, keep)
-    assert torch.equal(dq, keep)
+    p_fwd = ctx.reshape(b, s, nh, d).permute(0, 2, 1, 3)
+    p_bwd = d_v[:, 2 * h:].reshape(b, s, nh, d).permute(0, 2, 3, 1)
+    assert torch.equal(p_fwd != 0, keep)
+    assert torch.equal(p_bwd != 0, keep)
+    n_diff = int((p_fwd != p_bwd).sum())
+    print(f"rebuilt probs (one-hot K: {onehot_k}): {n_diff} of "
+          f"{keep.numel()} differ in bf16, max "
+          f"{_ulps(p_bwd[keep], p_fwd[keep]):.0f} ulp")
+    assert _ulps(p_bwd[keep], p_fwd[keep]) <= 1.0
+    if onehot_k:
+        # a kept prob's ds is p * inv_keep * (1 - kept mass) >= 0 (~1e-10
+        # where the whole row is kept), a dropped one's -p * inv_keep *
+        # kept mass
+        dq = d_q[:, :h].reshape(b, s, nh, d).permute(0, 2, 1, 3) > -1e-6
+        assert torch.equal(dq, keep)
 
 
 @pytest.mark.parametrize("n,k", GEMM_NK)
