@@ -48,9 +48,12 @@ Phases, each fatal on failure:
    outputs within two bf16 ulps of the tensor's largest value; a one-hot
    probe shows the forward, the dQ kernel and the dK/dV kernel dropping
    exactly the stream-3 probs, and with random K that the backward's
-   rebuilt bf16 probs lie within one bf16 ulp of the forward's (the count
-   that differ printed) -- and each whole block, forward and all seven
-   gradients, against torch autograd through the plain block.
+   rebuilt bf16 probs equal the forward's -- and each whole block,
+   forward and all seven gradients, against torch autograd through the
+   plain block.  ``seg_attention_bwd`` at every bucket's micro (padded and
+   packed masks, dropout 0 and 0.1, the QKV buffer and standalone (b, s,
+   heads, d) tensors), each launch on its wgmma pair, two runs bit-equal;
+   its device ms per bucket beside SDPA's backward alone.
    Per training layer: kernel, plain, library and bound ms; each block's
    forward + backward per bucket.  The int8 training chains likewise, on
    the same Philox bits and weights quantized as a training step
@@ -376,27 +379,30 @@ def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-# the wgmma kernels (the three bf16 GEMMs, seg_attention): timed back to
-# back (cuda_ms, the host's issue included) and on the device alone
-# (device_ms); the record takes device time for them, and the log prints
-# the rate each GEMM reaches
+# the main path's kernels timed back to back (cuda_ms, the host's issue
+# included) and on the device alone (device_ms); the record takes device
+# time for them, and the log prints the rate each GEMM reaches
 DEVICE_TIMED = ("gemm_bias_act", "gemm_bias_residual", "gemm_dgrad",
-                "seg_attention")
+                "seg_attention", "seg_attention_bwd", "layer_norm",
+                "ffn_bwd_rows")
 
 
 def time_device(name, tag, fk, fl, flops, b_ms, card):
     """(kernel ms, library ms), device time, of a device-timed kernel's
-    launches; logs both timings, the GEMMs' rates and the bound."""
-    k_bb, l_bb = cuda_ms(fk), cuda_ms(fl)
-    k_dev, l_dev = device_ms(fk), device_ms(fl)
+    launches (library None where PyTorch has no such call); logs both
+    timings, the GEMMs' rates and the bound."""
+    k_bb, k_dev = cuda_ms(fk), device_ms(fk)
 
     def rate(ms):
         return f" ({flops / ms / 1e9:.1f} TFLOP/s)" if flops else ""
 
+    lib_s, l_dev = "none", None
+    if fl is not None:
+        l_bb, l_dev = cuda_ms(fl), device_ms(fl)
+        lib_s = f"{l_bb:.4f} / {l_dev:.4f} ms{rate(l_dev)}"
     log(f"  time {name} {tag}: kernel {k_bb:.4f} ms back to back, "
-        f"{k_dev:.4f} ms device{rate(k_dev)}; library {l_bb:.4f} / "
-        f"{l_dev:.4f} ms{rate(l_dev)}; bound {b_ms:.4f} ms{rate(b_ms)} "
-        f"[{card}]")
+        f"{k_dev:.4f} ms device{rate(k_dev)}; library {lib_s}; bound "
+        f"{b_ms:.4f} ms{rate(b_ms)} [{card}]")
     return k_dev, l_dev
 
 
@@ -708,7 +714,8 @@ def phase_kernels(dev, card: str):
         for name, (fk, fp) in t.items():
             if name in DEVICE_TIMED:
                 k_ms, l_ms = time_device(name, f"b{b} s{s}", fk, lib[name],
-                                         flops[name], bounds[name][0], card)
+                                         flops.get(name), bounds[name][0],
+                                         card)
             else:
                 k_ms = cuda_ms(fk)
                 l_ms = cuda_ms(lib[name]) if name in lib else None
@@ -1252,9 +1259,9 @@ def check_prob_mask_probe(K, dev):
     a prob was dropped (a kept prob's ds is p * inv_keep * (1 - kept
     mass) >= 0, about 1e-10 where a whole row is kept; a dropped one's
     -p * inv_keep * kept mass): each must equal the stream-3 keep bits.
-    Then, with random K (one-hot V), how far the backward's rebuilt bf16
-    probs (mma.sync scores) lie from the forward's (wgmma scores): at
-    most one bf16 ulp; the count that differ is printed."""
+    Then, with random K (one-hot V), the backward's rebuilt bf16 probs
+    (the wgmma pair issues the forward's own score products) equal the
+    forward's: 0 differ."""
     from nbest_asr_tpu_torch.ops.philox import keep_mask, site
 
     b, s, d, seed = 4, 64, H // NH, 4321
@@ -1296,13 +1303,77 @@ def check_prob_mask_probe(K, dev):
         ulp = torch.exp2(torch.floor(torch.log2(w.abs())) - 7)
         ulps = ((p_bwd[keep].float() - w).abs() / ulp).max().item()
         n_diff = int((p_fwd != p_bwd).sum())
-        ok = ulps <= 1.0
+        ok = n_diff == 0
         log(f"  {'ok ' if ok else 'BAD'} rebuilt probs ({kind} K): {n_diff} "
             f"of {keep.numel()} bf16 probs differ from the forward's, max "
-            f"{ulps:.0f} bf16 ulp (<= 1)")
+            f"{ulps:.0f} bf16 ulp (0 differ allowed)")
         if not ok:
-            raise AssertionError("the backward's rebuilt probs lie more than "
-                                 "one bf16 ulp from the forward's")
+            raise AssertionError("the backward's rebuilt probs differ from "
+                                 "the forward's")
+
+
+def check_attn_bwd_buckets(K, dev, gen, check, card):
+    """seg_attention_bwd at each bucket's training micro (BERT-base
+    heads): on the QKV buffer with padded and packed masks at dropout 0
+    and 0.1, and on standalone (b, s, heads, d) tensors (route A's
+    unpacked operands), against its plain version (``Checker.sums``); a
+    second run bit-equal; each launch on the wgmma pair; then its device
+    ms beside SDPA's backward alone on the same operands."""
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    F = torch.nn.functional
+    d = H // NH
+    for s, b in TRAIN_MICRO.items():
+        dctx = (torch.randn(b * s, H, generator=gen) * 0.5).to(
+            dev, torch.bfloat16)
+        qkv = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
+            dev, torch.bfloat16)
+        for mname, m in zip(("padded", "packed"), masks(b, s, gen, dev)):
+            for rate in (0.0, DROPOUT):
+                tag = f"{b} x {s} {mname} rate {rate}"
+                drop = site(400 + s, rate, 3)
+                _, st = K.seg_attention(qkv, m, NH, drop=drop, stats=True)
+                n0 = K.seg_attention_bwd_wgmma_launches()
+                got = K.seg_attention_bwd(qkv, dctx, m, st, NH, drop=drop)
+                torch.cuda.synchronize()
+                if K.seg_attention_bwd_wgmma_launches() - n0 != 1:
+                    raise AssertionError(f"seg_attention_bwd {tag}: not on "
+                                         "the wgmma pair")
+                want = K.seg_attention_bwd_reference(qkv, dctx, m, st, NH,
+                                                     drop)
+                for i, part in enumerate("qkv"):
+                    cols = slice(i * H, (i + 1) * H)
+                    check.sums(f"seg_attention_bwd d{part} {tag}",
+                               "seg_attention_bwd", got[:, cols],
+                               want[:, cols])
+                if not torch.equal(K.seg_attention_bwd(
+                        qkv, dctx, m, st, NH, drop=drop), got):
+                    raise AssertionError(f"seg_attention_bwd {tag}: two runs "
+                                         "differ")
+        q, k, v, do = (t.contiguous() for t in (
+            *qkv.view(b, s, 3, NH, d).unbind(2), dctx.view(b, s, NH, d)))
+        drop = site(500 + s, DROPOUT, 3)
+        _, st = K.sb_attention(q, k, v, m, d ** -0.5, drop, True)
+        for part, g, r in zip("qkv", K.sb_attention_bwd(
+                q, k, v, do, m, st, d ** -0.5, drop),
+                K.sb_attention_bwd_reference(q, k, v, do, m, st, d ** -0.5,
+                                             drop)):
+            check.sums(f"seg_attention_bwd (b, s, heads, d) d{part} {b} x "
+                       f"{s} packed rate {DROPOUT}", "seg_attention_bwd", g,
+                       r)
+        # times: padded mask, dropout 0.1
+        m = masks(b, s, gen, dev)[0]
+        drop = site(600 + s, DROPOUT, 3)
+        _, st = K.seg_attention(qkv, m, NH, drop=drop, stats=True)
+        k_ms = device_ms(lambda: K.seg_attention_bwd(qkv, dctx, m, st, NH,
+                                                     drop=drop))
+        a = {"qkv": qkv, "mask": m, "dctx": dctx}
+        _, fwd_bwd, bwd = attention_library_calls(a, b, s)
+        b_ms = train_layer_bounds(b * s, b, s)["seg_attention_bwd"][0]
+        log(f"  time seg_attention_bwd b{b} s{s}: kernel {k_ms:.4f} ms "
+            f"device; SDPA backward alone {device_ms(bwd):.4f} ms (forward "
+            f"+ backward {device_ms(fwd_bwd):.4f}); bound {b_ms:.4f} ms "
+            f"[{card}]")
 
 
 def train_int8_weights(p):
@@ -1566,8 +1637,9 @@ def train_int8_layer_bounds(M: int):
 
 def attention_library_calls(a, b, s):
     """F.scaled_dot_product_attention with the boolean segment mask and
-    prob dropout: forward (seg_attention's yardstick) and forward +
-    backward (seg_attention_bwd's); timed, used nowhere in the port."""
+    prob dropout: forward (seg_attention's yardstick), forward + backward,
+    and the backward alone (seg_attention_bwd's: autograd.grad over a
+    retained forward); timed, used nowhere in the port."""
     F = torch.nn.functional
     d = H // NH
     q, k, v = a["qkv"].view(b, s, 3, NH, d).permute(2, 0, 3, 1, 4)
@@ -1580,8 +1652,15 @@ def attention_library_calls(a, b, s):
         F.scaled_dot_product_attention(qq, kk, vv, attn_mask=same,
                                        dropout_p=DROPOUT).backward(go)
 
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=same,
+                                         dropout_p=DROPOUT)
+
+    def bwd():
+        torch.autograd.grad(out, leaves, go, retain_graph=True)
+
     return (lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=same, dropout_p=DROPOUT)), fwd_bwd
+        q, k, v, attn_mask=same, dropout_p=DROPOUT)), fwd_bwd, bwd
 
 
 def phase_train_kernels(dev, card: str):
@@ -1609,6 +1688,8 @@ def phase_train_kernels(dev, card: str):
     check_prob_mask_probe(K, dev)
     log("[train-kernels] attention kernels at head dims 192 and 256")
     check_wide_heads(K, dev, check)
+    log("[train-kernels] the attention backward at every bucket's micro")
+    check_attn_bwd_buckets(K, dev, gen, check, card)
     bounds = train_layer_bounds(8192, 32, 256)
     bounds.update(train_int8_layer_bounds(8192))
     for b, s in ((3, 20), (80, 96), (32, 256)):
@@ -1733,7 +1814,7 @@ def phase_train_kernels(dev, card: str):
                                 (fused_attention_block_reference, True))),
                 ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dls", "dlb"))
         bfb = {k: p[k].to(torch.bfloat16) for k in ("b1", "b2", "bqkv", "bo")}
-        sdpa_fwd, sdpa_fwd_bwd = attention_library_calls(a, b, s)
+        sdpa_fwd, sdpa_fwd_bwd, sdpa_bwd = attention_library_calls(a, b, s)
         # per training layer: every launch of the kernel in both blocks
         t = {
             "gemm_bias_act": (
@@ -1808,7 +1889,7 @@ def phase_train_kernels(dev, card: str):
                                             a["st"], NH, drop=a["da"]),
                 lambda: K.seg_attention_bwd_reference(
                     a["qkv"], a["dctx"], a["mask"], a["st"], NH, a["da"]),
-                sdpa_fwd_bwd),
+                sdpa_bwd),
         }
         flops = {"gemm_bias_act": 2.0 * 8192 * H * (INTER + 3 * H),
                  "gemm_bias_residual": 2.0 * 8192 * H * (INTER + H),
@@ -1817,11 +1898,15 @@ def phase_train_kernels(dev, card: str):
         for name, (fk, fp, fl) in t.items():
             if name in DEVICE_TIMED:
                 k_ms, l_ms = time_device(f"train {name}", "n 8192", fk, fl,
-                                         flops[name], bounds[name][0], card)
+                                         flops.get(name), bounds[name][0],
+                                         card)
             else:
                 k_ms = cuda_ms(fk)
                 l_ms = None if fl is None else cuda_ms(fl)
             times[name] = (k_ms, cuda_ms(fp, iters=3), l_ms)
+        log(f"  time train SDPA forward + backward n 8192 (beside "
+            f"seg_attention_bwd's backward alone): {device_ms(sdpa_fwd_bwd):.4f}"
+            f" ms device [{card}]")
     wq_ms = times.pop("weight quantization")
     log(f"  time train weight quantization (4 weights of a layer, q in both "
         f"layouts): {wq_ms:.4f} ms per layer [{card}]")
@@ -2499,6 +2584,8 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
     import dataclasses
 
     from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.ops.kernels import \
+        seg_attention_bwd_wgmma_launches as wgmma_bwd
     from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
                                                          make_eval_step,
                                                          make_train_step)
@@ -2546,6 +2633,7 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
 
     # ---- main path: 3 steps per bucket, counted and timed -------------- #
     _cuda.reset_launch_counts()
+    wgmma0 = wgmma_bwd()
     step_ms, peaks = {}, {}
     for bucket in BUCKETS:
         torch.cuda.reset_peak_memory_stats()
@@ -2569,6 +2657,13 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
             f"{ {k: float(v) for k, v in stats['counts'].items()} }")
     torch.cuda.synchronize()
     counts = dict(_cuda.launch_counts)
+    # every bucket has head dim 64 and seq <= 256: the wgmma backward
+    wgmma = wgmma_bwd() - wgmma0
+    log(f"[train {route}] seg_attention_bwd launches on the wgmma pair: "
+        f"{wgmma} of {counts['seg_attention_bwd']}")
+    if wgmma != counts["seg_attention_bwd"]:
+        raise AssertionError("seg_attention_bwd did not run its wgmma pair "
+                             "at head dim 64, seq <= 256")
     flags_on = ", ".join(k for k, v in r["flags"].items() if v)
     expect(counts, r["per_layer"],
            {b: TRAIN_STEPS * N_ACCUM for b in BUCKETS},
@@ -3028,15 +3123,16 @@ def main() -> int:
         "flash_* rows, a training layer at 8192 rows (one micro for "
         "embed_lookup, f32 tables) for the five row kernels; ms and "
         "library_ms are device time (calls queued behind a sleep) for the "
-        "five row kernels, gemm_bias_act, gemm_bias_residual, gemm_dgrad "
-        "and seg_attention; "
+        "five row kernels, gemm_bias_act, gemm_bias_residual, gemm_dgrad, "
+        "seg_attention, seg_attention_bwd, layer_norm and ffn_bwd_rows; "
         "BERT-base, "
         "bf16 activations; library_ms: the "
         "PyTorch call for each launch (serving_library_calls; torch.matmul "
         "for the dgrads; torch._int_mm for the int8 GEMMs and dgrads; "
         "F.scaled_dot_product_attention with the boolean segment mask and "
-        "dropout: forward for flash_fwd, forward + backward for "
-        "seg_attention_bwd, flash_bwd_dq and flash_bwd_dkv; F.layer_norm(x "
+        "dropout: forward for flash_fwd, the backward alone (autograd.grad "
+        "over a retained forward) for seg_attention_bwd, forward + backward "
+        "for flash_bwd_dq and flash_bwd_dkv; F.layer_norm(x "
         "+ r) and its autograd backward; F.gelu(x + b) and its autograd "
         "backward; three F.embedding and F.layer_norm), null where "
         "PyTorch has none")

@@ -12,8 +12,12 @@ its kernels are built into its own ``build/``.  BERT-base widths (hidden
 line: ``seg_attention`` ms per call at batch 64 x seq {64, 96, 160, 256}
 (the serving forward), and, where the checkout has the training kernels,
 ``seg_attention`` with prob dropout and row statistics and
-``seg_attention_bwd`` at 8192 rows (32 x 256), and ``seg_attention`` so at
-16 x 512, each as ``[back to back, device]`` ms (below); and, where it has
+``seg_attention_bwd`` at 8192 rows (32 x 256) with dropout and without,
+and ``seg_attention`` so at
+16 x 512, each as ``[back to back, device]`` ms (below); then
+``train_bwd_times``: ``seg_attention_bwd`` at every bucket's training
+micro and on route A's layout, SDPA beside it, the d = 128 attention pair
+and ``layer_norm_rows`` beside ``F.layer_norm``; and, where it has
 them,
 ``quantize_rows`` of a (64 x 256, 768) bf16 block input and the four
 int8 serving GEMM launches of a layer at 64 x 256 rows
@@ -131,6 +135,80 @@ def gemm_times(K, dev, gen, iters: int) -> dict:
     return {name: both_ms(fn, iters) for name, fn in calls.items()}
 
 
+# training micro rows per bucket under the 8192-token budget
+TRAIN_MICRO = {64: 128, 96: 80, 160: 48, 256: 32}
+
+
+def train_bwd_times(K, dev, gen, drop, iters: int) -> dict:
+    """The attention backward per training layer at each bucket's micro
+    (padded mask, dropout 0.1): ``seg_attention_bwd`` on the QKV buffer,
+    on route A's (b, s, heads, d) views (``sb_attention_bwd``, at 160 and
+    256) and beside it SDPA's forward and forward + backward on the same
+    operands (its backward alone is their difference); the d = 128
+    forward and backward at 8192 rows (6 heads); ``layer_norm_rows`` x2
+    with statistics at 8192 x 768 beside ``F.layer_norm`` x2.  Each as
+    [back to back, device] ms."""
+    F = torch.nn.functional
+    out = {"train_bwd_bucket_ms": {}, "route_a_bwd_ms": {},
+           "sdpa_fwd_ms": {}, "sdpa_fwd_bwd_ms": {}}
+    for s, b in TRAIN_MICRO.items():
+        qkv = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
+            dev, torch.bfloat16)
+        dctx = (torch.randn(b * s, H, generator=gen) * 0.5).to(
+            dev, torch.bfloat16)
+        mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
+        mask[:, 0] = 1.0
+        _, st = K.seg_attention(qkv, mask, NH, drop=drop, stats=True)
+        out["train_bwd_bucket_ms"][s] = both_ms(
+            lambda: K.seg_attention_bwd(qkv, dctx, mask, st, NH, drop=drop),
+            iters)
+        d = H // NH
+        q, k, v = qkv.view(b, s, 3, NH, d).unbind(2)
+        do = dctx.view(b, s, NH, d)
+        if s >= 160 and hasattr(K, "sb_attention_bwd"):
+            out["route_a_bwd_ms"][s] = both_ms(
+                lambda: K.sb_attention_bwd(q, k, v, do, mask, st, d ** -0.5,
+                                           drop), iters)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        same = mask[:, None, :, None] == mask[:, None, None, :]
+        go = do.transpose(1, 2)
+
+        def fwd_bwd():
+            qq, kk, vv = (t.detach().requires_grad_(True)
+                          for t in (qt, kt, vt))
+            F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=same, dropout_p=0.1).backward(go)
+
+        out["sdpa_fwd_ms"][s] = both_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=same, dropout_p=0.1), iters)
+        out["sdpa_fwd_bwd_ms"][s] = both_ms(fwd_bwd, iters)
+    # d = 128 (the mma.sync pair): 8192 rows, 6 heads
+    b, s, nh = 32, 256, H // 128
+    qkv = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
+        dev, torch.bfloat16)
+    dctx = (torch.randn(b * s, H, generator=gen) * 0.5).to(dev,
+                                                           torch.bfloat16)
+    mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
+    _, st = K.seg_attention(qkv, mask, nh, drop=drop, stats=True)
+    out["d128_fwd_ms"] = both_ms(
+        lambda: K.seg_attention(qkv, mask, nh, drop=drop, stats=True), iters)
+    out["d128_bwd_ms"] = both_ms(
+        lambda: K.seg_attention_bwd(qkv, dctx, mask, st, nh, drop=drop),
+        iters)
+    # layer_norm x2 with statistics, as a training layer runs it
+    x = (torch.randn(8192, H, generator=gen) * 2).to(dev)
+    ls = (1 + 0.1 * torch.randn(H, generator=gen)).to(dev)
+    lb = (0.1 * torch.randn(H, generator=gen)).to(dev)
+    out["layer_norm_train_ms"] = both_ms(
+        lambda: [K.layer_norm_rows(x, ls, lb, 1e-12, stats=True)
+                 for _ in range(2)], iters)
+    out["f_layer_norm_ms"] = both_ms(
+        lambda: [F.layer_norm(x, (H,), ls, lb, 1e-12) for _ in range(2)],
+        iters)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
@@ -169,6 +247,11 @@ def main() -> int:
         out["train_bwd_ms"] = both_ms(
             lambda: K.seg_attention_bwd(qkv, dctx, mask, st, NH, drop=drop),
             args.iters)
+        # the same without dropout: what the keep bits and drops cost
+        _, st0 = K.seg_attention(qkv, mask, NH, stats=True)
+        out["train_bwd_no_dropout_ms"] = both_ms(
+            lambda: K.seg_attention_bwd(qkv, dctx, mask, st0, NH),
+            args.iters)
         # seq 512 (two score windows on the wgmma kernel), 8192 rows
         b, s = 16, 512
         q5 = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
@@ -177,6 +260,7 @@ def main() -> int:
         out["train_fwd_512_ms"] = both_ms(
             lambda: K.seg_attention(q5, m5, NH, drop=drop, stats=True),
             args.iters)
+        out.update(train_bwd_times(K, dev, gen, drop, args.iters))
     if hasattr(K, "gemm_i8_bias_act"):
         from nbest_asr_tpu_torch.ops.quant import (kernel_layout,
                                                    quantize_weight)

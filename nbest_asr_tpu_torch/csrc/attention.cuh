@@ -3,8 +3,10 @@
 // 64-row q / k / v tiles read by row stride and column offset (from the
 // (n, 3h) QKV buffer, or from (b, s, heads, d) tensors), the scores of a
 // 64-key tile, the 16-column chunk products of the mma.sync fragments,
-// and the Philox keep-bit tables of the stream-3 prob dropout (which the
-// wgmma forward draws too).
+// the Philox keep-bit tables of the stream-3 prob dropout (which the
+// wgmma kernels draw too), and the pieces the wgmma forward and backward
+// share at head dim 64: swizzled tile copies, the score products, the
+// score mask and div_row, the division of a prob by its row's sum.
 //
 // Chunk products (g = lane / 4, t = lane % 4, as in common.cuh): a warp
 // owns 16 rows of the left operand; a chunk c[j][e], j in {0, 1}, is the
@@ -24,6 +26,7 @@
 
 #include "common.cuh"
 #include "philox.cuh"
+#include "wgmma.cuh"
 
 namespace nbk {
 namespace attn {
@@ -199,6 +202,107 @@ __device__ __forceinline__ bool kept(const unsigned* tab, int stride, int r,
 // rows a fragment column reads fall in 8 banks.
 __host__ __device__ __forceinline__ int keep_stride(int S) {
   return ((S + 31) / 32) | 1;
+}
+
+// -------------------------------------------------------------------- //
+// The wgmma kernels' pieces (head dim 64; seg_attention.cu's forward and
+// seg_attention_bwd.cu's backward issue the same score products, so the
+// backward rebuilds the forward's scores bit for bit)
+// -------------------------------------------------------------------- //
+
+constexpr int WD = 64;             // its head dim
+constexpr int QT = 64;             // query rows of a warpgroup's tile
+constexpr int QTILE = QT * WD * 2;  // bytes of a swizzled 64 x 64 tile
+
+
+// rows r0 .. r0 + rows - 1 of one head's 64 columns (src: row 0, column
+// head * 64 of a row-major matrix with row stride ld) -> a 128-byte-
+// swizzled tile; rows past S are zero-filled.  Threads tid of nthreads.
+__device__ __forceinline__ void copy_rows(unsigned char* dst, const bf16* src,
+                                          int ld, int r0, int rows, int S,
+                                          int tid, int nthreads) {
+  for (int c = tid; c < rows * 8; c += nthreads) {
+    const int r = c >> 3, ch = c & 7, row = r0 + r;
+    const bool ok = row < S;
+    cp_async_16(dst + swizzle128(r, ch),
+                src + (size_t)(ok ? row : 0) * ld + ch * 8, ok);
+  }
+}
+
+// Issues (and commits) the scores of the warpgroup's 64 queries (sQt)
+// against the NK keys of the window at sKw: thread fragment sc[4 jj + e]
+// = (row 16 warp + g + 8 (e >= 2), key 8 jj + 2 t + (e & 1)).
+template <int NK>
+__device__ __forceinline__ void issue_scores(float (&sc)[NK / 2],
+                                             const unsigned char* sQt,
+                                             const unsigned char* sKw) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WD / 16; ++kk) {
+    // a k16 step is 32 bytes along the swizzled 128-byte rows; 8-row
+    // groups 1024 bytes apart; a 64-key chunk of K is 8192 bytes
+    const uint64_t da = smem_desc(sQt + kk * 32, 1, 64);
+#pragma unroll
+    for (int c = 0; c < NK / 64; ++c)
+      wgmma_ss_n64(sc + 32 * c, da, smem_desc(sKw + c * 8192 + kk * 32, 1,
+                                              64), kk);
+    if (NK % 64)
+      wgmma_ss_n32(sc + 32 * (NK / 64), da,
+                   smem_desc(sKw + (NK / 64) * 8192 + kk * 32, 1, 64), kk);
+  }
+  wgmma_commit();
+}
+
+// Scaled, masked scores (MASK_VALUE where the segments differ; sMw: the
+// window's key segment ids, NaN past S) and the row maxima ma, mb.
+template <int NK>
+__device__ __forceinline__ void mask_scores(float (&sc)[NK / 2],
+                                            const float* sMw, float qma,
+                                            float qmb, float sm_scale, int t4,
+                                            float& ma, float& mb) {
+#pragma unroll
+  for (int jj = 0; jj < NK / 8; ++jj) {
+    const float2 km =
+        *reinterpret_cast<const float2*>(sMw + jj * 8 + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = sc[4 * jj + e] * sm_scale;
+      const float s = ((e & 1) ? km.y : km.x) == (e < 2 ? qma : qmb)
+                          ? v
+                          : MASK_VALUE;
+      sc[4 * jj + e] = s;
+      if (e < 2)
+        ma = fmaxf(ma, s);
+      else
+        mb = fmaxf(mb, s);
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// x / l rounded to nearest for a row's sum l >= 1 and rl = __frcp_rn(l):
+// Markstein's correction of x * rl, which is the IEEE quotient bit for bit
+// wherever the FMA's remainder
+// is exact, x >= 2^-90; a smaller x is scaled by 2^64 first, so only a
+// subnormal quotient (p < 2^-126) may round twice, by one subnormal ulp.
+// Branch-free: the IEEE division branches to its slow path at every prob,
+// which cut the unrolled softmax into 128 blocks, 4x slower at seq 256 on
+// the H100 (PERF.md).
+__device__ __forceinline__ float div_row(float x, float l, float rl) {
+  const bool tiny = x < 0x1p-90f;
+  const float xs = tiny ? x * 0x1p64f : x;
+  const float q = __fmul_rn(xs, rl);
+  const float p = __fmaf_rn(__fmaf_rn(-q, l, xs), rl, q);
+  return tiny ? p * 0x1p-64f : p;
 }
 
 }  // namespace attn

@@ -79,7 +79,6 @@
 // latency of its serial tile loop and second pass.  The keep bits add one
 // 10-round Philox call per four probs, drawn once per tile.
 #include "attention.cuh"
-#include "wgmma.cuh"
 
 namespace {
 
@@ -100,10 +99,6 @@ int sm_count() {
 // The wgmma kernel: d = 64, S <= 512
 // ---------------------------------------------------------------------- //
 
-constexpr int WD = 64;             // its head dim
-constexpr int QT = 64;             // query rows of a warpgroup's tile
-constexpr int QTILE = QT * WD * 2;  // bytes of a swizzled 64 x 64 tile
-
 // A block's shape for NK-key score windows (NK a multiple of 32, <= 256;
 // NWIN = 2 windows of 256 keys cover 256 < S <= 512).
 template <int NK, int NWIN>
@@ -123,147 +118,6 @@ struct Shape {
       NWIN == 2 ? 1 : NK <= 96 ? 4 : NK <= 192 ? 3 : 2;
 };
 
-// d (64 x 64) (+)= A (64 x 16, K-major, shared) * B (16 x 64, K-major,
-// shared); the first k-step of a product passes scale_d = 0.
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 32) (+)= A (64 x 16, K-major, shared) * B (16 x 32, K-major,
-// shared); the first k-step of a product passes scale_d = 0.
-__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64) (+)= A (64 x 16, four bf16x2 registers a thread: the
-// m16n8k16 A fragment of the warp's 16 rows) * B (16 x 64, MN-major in
-// shared memory, transpose-B).
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const unsigned* a,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// rows r0 .. r0 + rows - 1 of one head's 64 columns (src: row 0, column
-// head * 64 of a row-major matrix with row stride ld) -> a 128-byte-
-// swizzled tile; rows past S are zero-filled.  Threads tid of nthreads.
-__device__ __forceinline__ void copy_rows(unsigned char* dst, const bf16* src,
-                                          int ld, int r0, int rows, int S,
-                                          int tid, int nthreads) {
-  for (int c = tid; c < rows * 8; c += nthreads) {
-    const int r = c >> 3, ch = c & 7, row = r0 + r;
-    const bool ok = row < S;
-    cp_async_16(dst + swizzle128(r, ch),
-                src + (size_t)(ok ? row : 0) * ld + ch * 8, ok);
-  }
-}
-
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-}
-
-// Issues (and commits) the scores of the warpgroup's 64 queries (sQt)
-// against the NK keys of the window at sKw: thread fragment sc[4 jj + e]
-// = (row 16 warp + g + 8 (e >= 2), key 8 jj + 2 t + (e & 1)).
-template <int NK>
-__device__ __forceinline__ void issue_scores(float (&sc)[NK / 2],
-                                             const unsigned char* sQt,
-                                             const unsigned char* sKw) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < WD / 16; ++kk) {
-    // a k16 step is 32 bytes along the swizzled 128-byte rows; 8-row
-    // groups 1024 bytes apart; a 64-key chunk of K is 8192 bytes
-    const uint64_t da = smem_desc(sQt + kk * 32, 1, 64);
-#pragma unroll
-    for (int c = 0; c < NK / 64; ++c)
-      wgmma_ss_n64(sc + 32 * c, da, smem_desc(sKw + c * 8192 + kk * 32, 1,
-                                              64), kk);
-    if (NK % 64)
-      wgmma_ss_n32(sc + 32 * (NK / 64), da,
-                   smem_desc(sKw + (NK / 64) * 8192 + kk * 32, 1, 64), kk);
-  }
-  wgmma_commit();
-}
-
-// Scaled, masked scores (MASK_VALUE where the segments differ; sMw: the
-// window's key segment ids, NaN past S) and the row maxima ma, mb.
-template <int NK>
-__device__ __forceinline__ void mask_scores(float (&sc)[NK / 2],
-                                            const float* sMw, float qma,
-                                            float qmb, float sm_scale, int t4,
-                                            float& ma, float& mb) {
-#pragma unroll
-  for (int jj = 0; jj < NK / 8; ++jj) {
-    const float2 km =
-        *reinterpret_cast<const float2*>(sMw + jj * 8 + 2 * t4);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float v = sc[4 * jj + e] * sm_scale;
-      const float s = ((e & 1) ? km.y : km.x) == (e < 2 ? qma : qmb)
-                          ? v
-                          : MASK_VALUE;
-      sc[4 * jj + e] = s;
-      if (e < 2)
-        ma = fmaxf(ma, s);
-      else
-        mb = fmaxf(mb, s);
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // sc = exp(sc - m) a row; la, lb += this thread's part of each row's sum.
 template <int NK>
 __device__ __forceinline__ void exp_scores(float (&sc)[NK / 2], float ma,
@@ -276,22 +130,6 @@ __device__ __forceinline__ void exp_scores(float (&sc)[NK / 2], float ma,
     else
       la += sc[i];
   }
-}
-
-// x / l rounded to nearest for a row's sum l >= 1 and rl = __frcp_rn(l):
-// Markstein's correction of x * rl, which is the IEEE quotient bit for bit
-// (what seg_attention_bwd.cu rebuilds p with) wherever the FMA's remainder
-// is exact, x >= 2^-90; a smaller x is scaled by 2^64 first, so only a
-// subnormal quotient (p < 2^-126) may round twice, by one subnormal ulp.
-// Branch-free: the IEEE division branches to its slow path at every prob,
-// which cut the unrolled softmax into 128 blocks, 4x slower at seq 256 on
-// the H100 (PERF.md).
-__device__ __forceinline__ float div_row(float x, float l, float rl) {
-  const bool tiny = x < 0x1p-90f;
-  const float xs = tiny ? x * 0x1p64f : x;
-  const float q = __fmul_rn(xs, rl);
-  const float p = __fmaf_rn(__fmaf_rn(-q, l, xs), rl, q);
-  return tiny ? p * 0x1p-64f : p;
 }
 
 // p = e / l, dropped (keep: the tile's table, ra this thread's first row,
@@ -675,6 +513,7 @@ __global__ void __launch_bounds__(THREADS, D == 32    ? 4
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
   const int ra = warp * 16 + g;  // this thread's rows in the keep table
+  const float rla = __frcp_rn(la), rlb = __frcp_rn(lb);
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
     load_tile<D>(sK, k_src, kt * KT, S, ld);
@@ -693,8 +532,8 @@ __global__ void __launch_bounds__(THREADS, D == 32    ? 4
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int nt = 2 * ks + j;
-          p[j][c] = c < 2 ? expf(sc[nt][c] - ma) / la
-                          : expf(sc[nt][c] - mb) / lb;
+          p[j][c] = c < 2 ? div_row(expf(sc[nt][c] - ma), la, rla)
+                          : div_row(expf(sc[nt][c] - mb), lb, rlb);
           if (DROP) {
             const int key = kt * KT + nt * 8 + 2 * t4 + (c & 1);
             // the table holds keys < S; p is 0 past S anyway

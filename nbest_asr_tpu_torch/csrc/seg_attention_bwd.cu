@@ -16,40 +16,59 @@
 //   di   = rowsum(dp * p)  (undropped p, f32)
 //   ds   = bf16(p * (dp - di) * sm_scale)
 //   dq   = ds k,  dk = ds^T q
-// Here p = exp(s - m) / l from the saved statistics.  At head dims other
-// than 64 the dQ kernel's p is the forward's bit for bit (same score MMAs,
-// same order).  At d = 64 the forward takes its scores from wgmma and these
-// kernels from mma.sync, which may round a score differently in its last
-// f32 bit; on the H100 the rebuilt probs, rounded to bf16 as both kernels
-// round them for P.V, equalled the forward's in all 196,608 of the smoke's
-// probe and all 16,384 of the card test (PERF.md, Findings).  The prob
-// mask does not depend on the scores: it is Philox stream 3, regenerated
-// from its counters (attention.cuh), bit for bit at every head dim.
-// di is the TPU kernel's own rowsum(dp * p) in f32 -- not FlashAttention's
-// rowsum(dO * O), which equals it only up to the bf16 rounding of P and O.
+// Here p = exp(s - m) / l from the saved statistics, divided by div_row
+// (attention.cuh) as the forward divides.  di is the TPU kernel's own
+// rowsum(dp * p) in f32 -- not FlashAttention's rowsum(dO * O), which
+// equals it only up to the bf16 rounding of P and O.  The prob mask is
+// Philox stream 3, regenerated from its counters (attention.cuh), bit for
+// bit at every head dim.
 //
-// Design: dK and dV sum over queries, dQ over keys, and blocks run in no
-// order, so the sums are split as in the JAX tiled flash backward, with
-// no atomics and a result that does not depend on scheduling:
-//   1. dq kernel, per (element, head, 64-query tile), keys innermost
-//      (flash_attention.py:276 _bwd_dq_kernel): sweep 1 over the key
-//      tiles sums di for its rows (and stores it), sweep 2 recomputes p
-//      and dp and accumulates dq;
-//   2. dkv kernel, per (element, head, 64-key tile), queries innermost
-//      (flash_attention.py:226 _bwd_dkv_kernel): keys are the warps' rows,
-//      so S^T = K Q^T and dP^T = V dO^T come out as C fragments that are
-//      directly the A fragments of dV += P_v^T dO and dK += dS^T Q; it
-//      reads di from kernel 1.
-// Each warp owns 16 rows and works in 16-column chunks, so registers hold
-// only the row block's fragments and accumulators; the keep bits of the
-// block's (rows x S) slab are drawn once into shared memory.
+// dK and dV sum over queries, dQ over keys, and blocks run in no order,
+// so each pair splits the sums as the JAX tiled flash backward does, with
+// no atomics and a result that does not depend on scheduling: a dq kernel
+// per (element, head, 64-query tile), keys innermost
+// (flash_attention.py:276 _bwd_dq_kernel), which also writes di; then a
+// dkv kernel per (element, head, 64-key tile), queries innermost
+// (flash_attention.py:226 _bwd_dkv_kernel), which reads it.
 //
-// What bounds it on the H100: per head 7-9 s*s*d MMAs (dq recomputes the
-// scores and dp twice) on a few 64-row tiles, so the serial tile loops
-// and shared-memory traffic of these small tiles bound it, not HBM (about
-// 7 n h bytes) or tensor-core rate; the keep bits cost one Philox call
-// per four probs per kernel.
+// Two pairs; nbk_seg_attention_bwd picks by (d, S):
+//   d = 64, S <= 256        the wgmma pair (every DSTC2 bucket: 64, 96,
+//                           160, 256)
+//   d = 64, 256 < S <= 512  the mma.sync pair (a wgmma dq kernel there
+//   d = 32, 128, 192, 256   would need the forward's two key windows)
+//
+// The wgmma pair (section 3).  The dq kernel holds the head's K and V (the
+// forward's NK-key window, NK = S rounded up to 32) and its tile's Q and
+// dO in 128-byte-swizzled shared memory, issues S = Q K^T on the forward's
+// own wgmma sequence (issue_scores: m64n64k16 chunks, an m64n32k16 tail),
+// so the rebuilt scores and probs are the forward's bit for bit, and keeps
+// the row's NK / 2 probs a thread in registers; then per 64-key chunk dP =
+// dO V^T for di, and again for ds, whose bf16 values are packed in
+// registers as the A fragments of dq += ds K.  The dkv kernel holds its
+// 64 keys' K and V and copies the head's Q and dO a tile at a time into
+// two buffers (so three blocks fit an SM); per query tile it issues S and
+// dP the same way with the queries as rows (the forward's orientation),
+// rebuilds p, and stores drop(p) and ds as bf16 tiles in shared memory,
+// which dV += drop(p)^T dO and dK += ds^T Q read transposed (MN-major).
+// The keep bits are drawn into shared memory while the first product
+// runs.  Per head 8 s*s*d products against the function's own 5 (S, dP,
+// dV, dK, dQ): S and dP once more in the dkv kernel, dP once more in the
+// dq kernel because di must be complete before ds.  What bounds it on the
+// H100: not HBM (about 7 n h bytes) nor the tensor cores' rate but the
+// elementwise instructions per (query, key) -- mask, expf, div_row, keep
+// bit, the two drops, di and ds, some 40 a pair in each kernel -- issued
+// by one warpgroup a block, two or three blocks an SM.
+//
+// The mma.sync pair (sections 1 and 2): each warp owns 16 rows and works
+// in 16-column chunks, so registers hold only the row block's fragments
+// and accumulators; the dq kernel sweeps the key tiles twice (di, then
+// dq), recomputing S and dP, and the dkv kernel holds keys as rows, so S^T
+// = K Q^T and dP^T = V dO^T come out as C fragments that are directly the
+// A fragments of dV += P_v^T dO and dK += dS^T Q.  Per head 7-9 s*s*d
+// MMAs on 64-row tiles: the serial tile loops and shared-memory traffic
+// bound it.
 #include "attention.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -66,7 +85,7 @@ size_t dq_smem(int S) {
 template <int D>
 size_t dkv_smem(int S) {
   return (size_t)4 * Tile<D>::ELEMS * sizeof(bf16) +
-         (size_t)(S + 3 * ROWS) * sizeof(float) +
+         (size_t)(S + 4 * ROWS) * sizeof(float) +
          (size_t)S * 2 * sizeof(unsigned);
 }
 
@@ -83,6 +102,7 @@ __device__ __forceinline__ void chunk_probs(float (*sc)[4], float (*dp)[4],
                                             int ra, int key0, int S,
                                             float qma, float qmb, float ma,
                                             float mb, float la, float lb,
+                                            float rla, float rlb,
                                             float sm_scale,
                                             const DropParams& drop, int t4) {
 #pragma unroll
@@ -94,7 +114,8 @@ __device__ __forceinline__ void chunk_probs(float (*sc)[4], float (*dp)[4],
       const float v = sc[j][e] * sm_scale;
       const float s =
           k >= S ? -INFINITY : (sM[k] == (lo ? qma : qmb) ? v : MASK_VALUE);
-      sc[j][e] = lo ? expf(s - ma) / la : expf(s - mb) / lb;
+      sc[j][e] = lo ? div_row(expf(s - ma), la, rla)
+                    : div_row(expf(s - mb), lb, rlb);
       if (drop.on)  // the table holds keys < S; p is 0 past S anyway
         dp[j][e] = k < S && kept(tab, kstride, ra + (e >> 1) * 8, k)
                        ? __fmul_rn(dp[j][e], drop.inv_keep)
@@ -162,6 +183,7 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
   const float mb = qb < S ? stats[prow0 + qb] : 0.f;
   const float la = qa < S ? stats[bhs + prow0 + qa] : 1.f;
   const float lb = qb < S ? stats[bhs + prow0 + qb] : 1.f;
+  const float rla = __frcp_rn(la), rlb = __frcp_rn(lb);
   const int n_kt = (S + ROWS - 1) / ROWS;
 
   // sweep 1: di = rowsum(dp * p)
@@ -179,7 +201,7 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
       dot_nt16<D>(sc, qf, sK + ks * 16 * LD, lane);
       dot_nt16<D>(dp, of, sV + ks * 16 * LD, lane);
       chunk_probs(sc, dp, sM, sKeep, kstride, ra, kt * ROWS + ks * 16, S,
-                  qma, qmb, ma, mb, la, lb, sm_scale, drop, t4);
+                  qma, qmb, ma, mb, la, lb, rla, rlb, sm_scale, drop, t4);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         da = __fadd_rn(da, __fmul_rn(dp[j][0], sc[j][0]));
@@ -218,7 +240,7 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
       dot_nt16<D>(sc, qf, sK + ks * 16 * LD, lane);
       dot_nt16<D>(dp, of, sV + ks * 16 * LD, lane);
       chunk_probs(sc, dp, sM, sKeep, kstride, ra, kt * ROWS + ks * 16, S,
-                  qma, qmb, ma, mb, la, lb, sm_scale, drop, t4);
+                  qma, qmb, ma, mb, la, lb, rla, rlb, sm_scale, drop, t4);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -261,8 +283,8 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
   bf16* sQ = sV + Tile<D>::ELEMS;
   bf16* sO = sQ + Tile<D>::ELEMS;  // dO
   float* sM = reinterpret_cast<float*>(sO + Tile<D>::ELEMS);
-  float* sSt = sM + S;  // per query of the tile: m, l, di
-  unsigned* sKeep = reinterpret_cast<unsigned*>(sSt + 3 * ROWS);
+  float* sSt = sM + S;  // per query of the tile: m, l, di, 1 / l
+  unsigned* sKeep = reinterpret_cast<unsigned*>(sSt + 4 * ROWS);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int k0 = blockIdx.x * ROWS, head = blockIdx.y, elem = blockIdx.z;
@@ -315,6 +337,7 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
       sSt[j] = ok ? stats[prow0 + qr] : 0.f;
       sSt[ROWS + j] = ok ? stats[bhs + prow0 + qr] : 1.f;
       sSt[2 * ROWS + j] = ok ? di[prow0 + qr] : 0.f;
+      sSt[3 * ROWS + j] = __frcp_rn(sSt[ROWS + j]);
     }
     cp_async_wait<0>();
     __syncthreads();
@@ -336,7 +359,8 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
           const float s = (qr >= S || kr >= S)
                               ? -INFINITY
                               : (sM[qr] == (lo ? kma : kmb) ? sv : MASK_VALUE);
-          const float p = expf(s - sSt[ql]) / sSt[ROWS + ql];
+          const float p =
+              div_row(expf(s - sSt[ql]), sSt[ROWS + ql], sSt[3 * ROWS + ql]);
           float pd = p, d = dpt[j][e];
           if (drop.on && !(qr < S && kept(sKeep, 2, qr, kr - k0))) {
             pd = 0.f;
@@ -407,6 +431,473 @@ int launch(const Operands& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// -------------------------------------------------------------------- //
+// 3. The wgmma pair: d = 64, S <= 256
+// -------------------------------------------------------------------- //
+
+template <int NK>
+struct BwdShape {
+  static constexpr int WORDS = NK / 32;      // keep words of a query row
+  static constexpr int KSTRIDE = WORDS | 1;  // odd: rows in other banks
+  static constexpr int NQ = (NK + 63) / 64 * 64;  // query rows, whole tiles
+  // dq: 1024-byte alignment slack, K, V, the Q and dO tiles, the key
+  // segment ids, the tile's keep table
+  static constexpr int DQ_SMEM =
+      1024 + 2 * NK * 128 + 2 * QTILE + NK * 4 + QT * KSTRIDE * 4;
+  // dkv: slack, two Q and two dO tiles, the K, V, P and dS tiles, the
+  // segment ids, each query's m, l, 1 / l and di, the keep table (2 words
+  // a query)
+  static constexpr int DKV_SMEM =
+      1024 + 8 * QTILE + NQ * 4 + 4 * NQ * 4 + NQ * 2 * 4;
+  // dq blocks an SM runs (registers: NK / 2 probs a thread beside the 32
+  // dq sums; shared memory: two at 256); dkv blocks: three
+  static constexpr int DQ_BLOCKS = NK <= 96 ? 3 : 2;
+};
+
+// d = A (64 x 64, K-major, sA) . B^T for the W (64 or 32) rows of B at sB
+// (K-major): issued and committed.  The scores' k-step order, so equal
+// operands give the forward's bits.
+template <int W>
+__device__ __forceinline__ void issue_nt(float* d, const unsigned char* sA,
+                                         const unsigned char* sB) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WD / 16; ++kk) {
+    const uint64_t da = smem_desc(sA + kk * 32, 1, 64);
+    const uint64_t db = smem_desc(sB + kk * 32, 1, 64);
+    if (W == 64)
+      wgmma_ss_n64(d, da, db, kk);
+    else
+      wgmma_ss_n32(d, da, db, kk);
+  }
+  wgmma_commit();
+}
+
+// The prob dropout of a W-key fragment x (thread rows ra, ra + 8 of the
+// keep table; keys c0 + 8 (i / 4) + 2 t + (i & 1), c0 % 64 == 0):
+// x * inv_keep kept, 0 dropped.
+template <int W, bool DROP>
+__device__ __forceinline__ void drop_frag(float* x, const unsigned* keep,
+                                          int kstride, int ra, int c0, int t4,
+                                          float inv_keep) {
+  if (!DROP) return;
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) {
+    const unsigned w =
+        keep[(ra + ((i & 2) ? 8 : 0)) * kstride + (c0 >> 5) + (i >> 4)];
+    const int bit = 8 * ((i >> 2) & 3) + 2 * t4 + (i & 1);
+    x[i] = (w >> bit) & 1u ? __fmul_rn(x[i], inv_keep) : 0.f;
+  }
+}
+
+// p = exp(s - m) / l from the saved statistics: the forward's arithmetic
+// on the forward's scores, so the forward's p bit for bit.
+template <int N>
+__device__ __forceinline__ void rebuild_probs(float* sc, float ma, float mb,
+                                              float la, float lb, float rla,
+                                              float rlb) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    sc[i] = (i & 2) ? div_row(expf(sc[i] - mb), lb, rlb)
+                    : div_row(expf(sc[i] - ma), la, rla);
+}
+
+// dq kernel, sweep 1 over a W-key chunk: di += rowsum(drop(dO V^T) * p).
+template <int W, bool DROP>
+__device__ __forceinline__ void di_chunk(const float* p,
+                                         const unsigned char* sO,
+                                         const unsigned char* sVc,
+                                         const unsigned* keep, int kstride,
+                                         int ra, int c0, int t4,
+                                         float inv_keep, float& da,
+                                         float& db) {
+  float dp[W / 2];
+  issue_nt<W>(dp, sO, sVc);
+  wgmma_wait<0>();
+  fence_acc(dp);
+  drop_frag<W, DROP>(dp, keep, kstride, ra, c0, t4, inv_keep);
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) {
+    if (i & 2)
+      db = fmaf(dp[i], p[i], db);
+    else
+      da = fmaf(dp[i], p[i], da);
+  }
+}
+
+// dq kernel, sweep 2 over a W-key chunk: dP again, ds = bf16(p (dp - di)
+// sm_scale) packed in registers as the A fragments of acc += ds K.  Waits
+// for the product, so the next chunk may reuse the fragment registers.
+template <int W, bool DROP>
+__device__ __forceinline__ void dq_chunk(float (&acc)[32], const float* p,
+                                         const unsigned char* sO,
+                                         const unsigned char* sVc,
+                                         const unsigned char* sKc,
+                                         const unsigned* keep, int kstride,
+                                         int ra, int c0, int t4,
+                                         float inv_keep, float da, float db,
+                                         float sm_scale) {
+  float dp[W / 2];
+  issue_nt<W>(dp, sO, sVc);
+  wgmma_wait<0>();
+  fence_acc(dp);
+  drop_frag<W, DROP>(dp, keep, kstride, ra, c0, t4, inv_keep);
+  unsigned pa[W / 4];
+#pragma unroll
+  for (int i = 0; i < W / 2; i += 2) {
+    const float di = (i & 2) ? db : da;
+    pa[i / 2] = pack_bf16x2(
+        __fmul_rn(__fmul_rn(p[i], __fsub_rn(dp[i], di)), sm_scale),
+        __fmul_rn(__fmul_rn(p[i + 1], __fsub_rn(dp[i + 1], di)), sm_scale));
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < W / 16; ++j)  // 16 keys of K: 2048 bytes a step
+    wgmma_rs_n64(acc, pa + 4 * j, smem_desc(sKc + j * 2048, 512, 64), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+}
+
+// The dq kernel: one block (one warpgroup) per (element, head, 64-query
+// tile).  K and V of the head (the window's NK rows), the tile's Q and dO
+// in 128-byte-swizzled shared memory; S = Q K^T on the forward's own
+// wgmma sequence, p rebuilt in registers (NK / 2 a thread), then over
+// 64-key chunks dP = dO V^T twice: once for di, once for ds and dq += ds K
+// (ds from registers, the A operand's layout).
+template <int NK, bool DROP>
+__global__ void __launch_bounds__(128, BwdShape<NK>::DQ_BLOCKS)
+    dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, int ld,
+                    const bf16* __restrict__ dctx,
+                    const float* __restrict__ mask,
+                    const float* __restrict__ stats, float* __restrict__ di,
+                    bf16* __restrict__ dq, int ld_g, int S, float sm_scale,
+                    DropParams drop) {
+  using Sh = BwdShape<NK>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sK =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sV = sK + NK * 128;
+  unsigned char* sQ = sV + NK * 128;
+  unsigned char* sO = sQ + QTILE;  // dO
+  float* sM = reinterpret_cast<float*>(sO + QTILE);
+  unsigned* keep = reinterpret_cast<unsigned*>(sM + NK);
+
+  const int tid = threadIdx.x, head = blockIdx.y, elem = blockIdx.z;
+  const int n_heads = gridDim.y, H = n_heads * WD, q0 = blockIdx.x * QT;
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * n_heads + head) * S;  // Philox row of query 0
+  const size_t bhs = (size_t)gridDim.z * n_heads * S;
+  const size_t off = row0 * ld + head * WD;
+  const float nan = __int_as_float(0x7fc00000);
+
+  // key segment ids (NaN past S: such a key matches no query); Q and K
+  // first, so the score product starts while dO and V land
+  for (int j = tid; j < NK; j += 128) sM[j] = j < S ? mask[row0 + j] : nan;
+  copy_rows(sQ, q + off, ld, q0, QT, S, tid, 128);
+  copy_rows(sK, k + off, ld, 0, NK, S, tid, 128);
+  cp_async_commit();
+  copy_rows(sO, dctx + row0 * H + head * WD, H, q0, QT, S, tid, 128);
+  copy_rows(sV, v + off, ld, 0, NK, S, tid, 128);
+  cp_async_commit();
+  cp_async_wait<1>();
+  fence_proxy_async();
+  __syncthreads();
+  float sc[NK / 2];
+  issue_scores<NK>(sc, sQ, sK);
+  if (DROP)  // the tile's keep bits while the product runs
+    build_keep(keep, QT, Sh::WORDS, Sh::KSTRIDE, drop, prow0 + q0, 0, tid,
+               128);
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+  wgmma_wait<0>();
+  fence_acc(sc);
+
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ra = (tid >> 5) * 16 + g, qa = q0 + ra, qb = qa + 8;
+  // a query row past S matches no key, and m = 0 makes its p 0
+  const float qma = qa < S ? sM[qa] : nan, qmb = qb < S ? sM[qb] : nan;
+  const float ma = qa < S ? stats[prow0 + qa] : 0.f;
+  const float mb = qb < S ? stats[prow0 + qb] : 0.f;
+  const float la = qa < S ? stats[bhs + prow0 + qa] : 1.f;
+  const float lb = qb < S ? stats[bhs + prow0 + qb] : 1.f;
+  float xa = -INFINITY, xb = -INFINITY;  // row maxima: the saved ones serve
+  mask_scores<NK>(sc, sM, qma, qmb, sm_scale, t4, xa, xb);
+  rebuild_probs<NK / 2>(sc, ma, mb, la, lb, __frcp_rn(la), __frcp_rn(lb));
+
+  // sweep 1: di = rowsum(dp * p)
+  float da = 0.f, db = 0.f;
+#pragma unroll
+  for (int c = 0; c < NK / 64; ++c)
+    di_chunk<64, DROP>(sc + 32 * c, sO, sV + c * 8192, keep, Sh::KSTRIDE,
+                       ra, 64 * c, t4, drop.inv_keep, da, db);
+  if constexpr (NK % 64 != 0)
+    di_chunk<32, DROP>(sc + 32 * (NK / 64), sO, sV + (NK / 64) * 8192, keep,
+                       Sh::KSTRIDE, ra, 64 * (NK / 64), t4, drop.inv_keep, da,
+                       db);
+  da = quad_sum(da);
+  db = quad_sum(db);
+  if (t4 == 0) {
+    if (qa < S) di[prow0 + qa] = da;
+    if (qb < S) di[prow0 + qb] = db;
+  }
+
+  // sweep 2: dq = sum over keys of bf16(p (dp - di) sm_scale) k
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < NK / 64; ++c)
+    dq_chunk<64, DROP>(acc, sc + 32 * c, sO, sV + c * 8192, sK + c * 8192,
+                       keep, Sh::KSTRIDE, ra, 64 * c, t4, drop.inv_keep, da,
+                       db, sm_scale);
+  if constexpr (NK % 64 != 0)
+    dq_chunk<32, DROP>(acc, sc + 32 * (NK / 64), sO, sV + (NK / 64) * 8192,
+                       sK + (NK / 64) * 8192, keep, Sh::KSTRIDE, ra,
+                       64 * (NK / 64), t4, drop.inv_keep, da, db, sm_scale);
+  fence_acc(acc);
+#pragma unroll
+  for (int jj = 0; jj < WD / 8; ++jj) {
+    const int col = head * WD + jj * 8 + 2 * t4;
+    if (qa < S)
+      *reinterpret_cast<unsigned*>(dq + (row0 + qa) * ld_g + col) =
+          pack_bf16x2(acc[4 * jj], acc[4 * jj + 1]);
+    if (qb < S)
+      *reinterpret_cast<unsigned*>(dq + (row0 + qb) * ld_g + col) =
+          pack_bf16x2(acc[4 * jj + 2], acc[4 * jj + 3]);
+  }
+}
+
+// The dkv kernel's loop over the head's query tiles for its W keys (64,
+// or 32 for the window's last 32 when NK % 64 == 32, whose scores the
+// forward takes from an m64n32k16 product).  Per tile: S and dP on the
+// forward's wgmma sequence with the tile's queries as rows, p rebuilt,
+// drop(p) and ds rounded to bf16 into the swizzled sP and sS tiles (query
+// rows, key columns), then dV += drop(p)^T dO and dK += ds^T Q with both
+// operands MN-major in shared memory; the next tile's Q and dO are copied
+// into the other buffer meanwhile.  A key past W only reaches its own
+// output row (never stored), so sP and sS need no clearing.
+template <int W, bool DROP>
+__device__ __forceinline__ void dkv_tiles(
+    float (&dk)[32], float (&dv)[32], const bf16* q_src, int ld,
+    const bf16* o_src, int ld_o, unsigned char* sQ, unsigned char* sO,
+    const unsigned char* sK, const unsigned char* sV, unsigned char* sP,
+    unsigned char* sS, const float* sM, const float* sSt, int nq,
+    const unsigned* keep, int k0, int S, float sm_scale,
+    const DropParams& drop) {
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ra = (tid >> 5) * 16 + g;
+  const float nan = __int_as_float(0x7fc00000);
+  const int n_qt = nq / QT;
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const unsigned char* sQt = sQ + (qt & 1) * QTILE;
+    const unsigned char* sOt = sO + (qt & 1) * QTILE;
+    float s[W / 2], dp[W / 2];
+    issue_nt<W>(s, sQt, sK);
+    issue_nt<W>(dp, sOt, sV);
+    const int qa = qt * QT + ra, qb = qa + 8;
+    const float qma = qa < S ? sM[qa] : nan, qmb = qb < S ? sM[qb] : nan;
+    wgmma_wait<0>();  // also the last tile's dV / dK products
+    fence_acc(s);
+    fence_acc(dp);
+    // every warp's share of the last products (which read sP, sS and the
+    // other Q / dO buffer) is done: copy the next tile there
+    __syncthreads();
+    if (qt + 1 < n_qt) {
+      copy_rows(sQ + ((qt + 1) & 1) * QTILE, q_src, ld, (qt + 1) * QT, QT,
+                S, tid, 128);
+      copy_rows(sO + ((qt + 1) & 1) * QTILE, o_src, ld_o, (qt + 1) * QT, QT,
+                S, tid, 128);
+    }
+    cp_async_commit();
+    float xa = -INFINITY, xb = -INFINITY;  // unused row maxima
+    mask_scores<W>(s, sM + k0, qma, qmb, sm_scale, t4, xa, xb);
+    rebuild_probs<W / 2>(s, sSt[qa], sSt[qb], sSt[nq + qa], sSt[nq + qb],
+                         sSt[2 * nq + qa], sSt[2 * nq + qb]);
+    const float dia = sSt[3 * nq + qa], dib = sSt[3 * nq + qb];
+#pragma unroll
+    for (int jj = 0; jj < W / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int i = 4 * jj + e;
+        const float di = e ? dib : dia;
+        float p0 = s[i], p1 = s[i + 1], d0 = dp[i], d1 = dp[i + 1];
+        if (DROP) {  // keys 8 jj + 2 t, + 1 of rows qa / qb
+          const unsigned w = keep[(qa + (e ? 8 : 0)) * 2 + (jj >> 2)] >>
+                             (8 * (jj & 3) + 2 * t4);
+          p0 = (w & 1u) ? __fmul_rn(p0, drop.inv_keep) : 0.f;
+          d0 = (w & 1u) ? __fmul_rn(d0, drop.inv_keep) : 0.f;
+          p1 = (w & 2u) ? __fmul_rn(p1, drop.inv_keep) : 0.f;
+          d1 = (w & 2u) ? __fmul_rn(d1, drop.inv_keep) : 0.f;
+        }
+        const int off = swizzle128(ra + 4 * e, jj) + 4 * t4;
+        *reinterpret_cast<unsigned*>(sP + off) = pack_bf16x2(p0, p1);
+        *reinterpret_cast<unsigned*>(sS + off) = pack_bf16x2(
+            __fmul_rn(__fmul_rn(s[i], __fsub_rn(d0, di)), sm_scale),
+            __fmul_rn(__fmul_rn(s[i + 1], __fsub_rn(d1, di)), sm_scale));
+      }
+    }
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < QT / 16; ++j)  // 16 queries: 2048 bytes a step
+      wgmma_tt_n64(dv, smem_desc(sP + j * 2048, 512, 64),
+                   smem_desc(sOt + j * 2048, 512, 64), qt > 0 || j > 0);
+#pragma unroll
+    for (int j = 0; j < QT / 16; ++j)
+      wgmma_tt_n64(dk, smem_desc(sS + j * 2048, 512, 64),
+                   smem_desc(sQt + j * 2048, 512, 64), qt > 0 || j > 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_acc(dk);
+  fence_acc(dv);
+}
+
+// The dkv kernel: one block (one warpgroup) per (element, head, 64-key
+// tile), keys as the rows of dK and dV.  The block's K and V tiles and
+// each query's m, l, 1 / l and di (from the dq kernel) are loaded once,
+// the head's Q and dO a tile at a time into two buffers.
+template <int NK, bool DROP>
+__global__ void __launch_bounds__(128, 3)
+    dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, int ld,
+                     const bf16* __restrict__ dctx,
+                     const float* __restrict__ mask,
+                     const float* __restrict__ stats,
+                     const float* __restrict__ di, bf16* __restrict__ dk_out,
+                     bf16* __restrict__ dv_out, int ld_g, int S,
+                     float sm_scale, DropParams drop) {
+  constexpr int NQ = BwdShape<NK>::NQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sQ =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sO = sQ + 2 * QTILE;  // dO
+  unsigned char* sK = sO + 2 * QTILE;
+  unsigned char* sV = sK + QTILE;
+  unsigned char* sP = sV + QTILE;   // drop(p), bf16
+  unsigned char* sS = sP + QTILE;   // ds, bf16
+  float* sM = reinterpret_cast<float*>(sS + QTILE);
+  float* sSt = sM + NQ;  // m, l, 1 / l, di of each query
+  unsigned* keep = reinterpret_cast<unsigned*>(sSt + 4 * NQ);
+
+  const int tid = threadIdx.x, head = blockIdx.y, elem = blockIdx.z;
+  const int n_heads = gridDim.y, H = n_heads * WD, k0 = blockIdx.x * QT;
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * n_heads + head) * S;
+  const size_t bhs = (size_t)gridDim.z * n_heads * S;
+  const size_t off = row0 * ld + head * WD;
+  const int nq = (S + QT - 1) / QT * QT;
+  const bf16* o_src = dctx + row0 * H + head * WD;
+
+  copy_rows(sQ, q + off, ld, 0, QT, S, tid, 128);
+  copy_rows(sO, o_src, H, 0, QT, S, tid, 128);
+  copy_rows(sK, k + off, ld, k0, QT, S, tid, 128);
+  copy_rows(sV, v + off, ld, k0, QT, S, tid, 128);
+  cp_async_commit();
+  // rows past S: m = 0, l = 1, di = 0 (their p is 0, their dO rows 0)
+  for (int j = tid; j < nq; j += 128) {
+    const bool ok = j < S;
+    const float l = ok ? stats[bhs + prow0 + j] : 1.f;
+    sM[j] = ok ? mask[row0 + j] : __int_as_float(0x7fc00000);
+    sSt[j] = ok ? stats[prow0 + j] : 0.f;
+    sSt[nq + j] = l;
+    sSt[2 * nq + j] = __frcp_rn(l);
+    sSt[3 * nq + j] = ok ? di[prow0 + j] : 0.f;
+  }
+  for (int j = nq + tid; j < NQ; j += 128)  // keys of the last key tile
+    sM[j] = __int_as_float(0x7fc00000);
+  // keep bits of every query against this block's 64 keys: row q, word w
+  // = keys k0 + 32 w ..
+  if (DROP) build_keep(keep, S, 2, 2, drop, prow0, k0, tid, 128);
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  float dk[32], dv[32];  // the first query tile's first product sets them
+  const bf16* q_src = q + off;
+#define NBK_DKV_TILES(W)                                                     \
+  dkv_tiles<W, DROP>(dk, dv, q_src, ld, o_src, H, sQ, sO, sK, sV, sP, sS, sM, \
+                     sSt, nq, keep, k0, S, sm_scale, drop)
+  if constexpr (NK % 64 != 0) {
+    if (k0 + QT > NK)
+      NBK_DKV_TILES(32);
+    else
+      NBK_DKV_TILES(64);
+  } else {
+    NBK_DKV_TILES(64);
+  }
+#undef NBK_DKV_TILES
+
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ka = k0 + (tid >> 5) * 16 + g, kb = ka + 8;
+#pragma unroll
+  for (int jj = 0; jj < WD / 8; ++jj) {
+    const int col = head * WD + jj * 8 + 2 * t4;
+    if (ka < S) {
+      const size_t r = (row0 + ka) * ld_g + col;
+      *reinterpret_cast<unsigned*>(dk_out + r) =
+          pack_bf16x2(dk[4 * jj], dk[4 * jj + 1]);
+      *reinterpret_cast<unsigned*>(dv_out + r) =
+          pack_bf16x2(dv[4 * jj], dv[4 * jj + 1]);
+    }
+    if (kb < S) {
+      const size_t r = (row0 + kb) * ld_g + col;
+      *reinterpret_cast<unsigned*>(dk_out + r) =
+          pack_bf16x2(dk[4 * jj + 2], dk[4 * jj + 3]);
+      *reinterpret_cast<unsigned*>(dv_out + r) =
+          pack_bf16x2(dv[4 * jj + 2], dv[4 * jj + 3]);
+    }
+  }
+}
+
+long long wgmma_launches = 0;  // launches of the wgmma pair, host side
+
+template <int NK, bool DROP>
+int launch_wgmma(const Operands& a, cudaStream_t stream) {
+  using Sh = BwdShape<NK>;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        dq_wgmma_kernel<NK, DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::DQ_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(dkv_wgmma_kernel<NK, DROP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Sh::DKV_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  dim3 grid((a.S + QT - 1) / QT, a.n_heads, a.B);
+  dq_wgmma_kernel<NK, DROP><<<grid, 128, Sh::DQ_SMEM, stream>>>(
+      a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dq, a.ld_g, a.S,
+      a.sm_scale, a.drop);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dkv_wgmma_kernel<NK, DROP><<<grid, 128, Sh::DKV_SMEM, stream>>>(
+      a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dk, a.dv, a.ld_g,
+      a.S, a.sm_scale, a.drop);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++wgmma_launches;
+  return (int)e;
+}
+
+// the window: S rounded up to 32 (64 at least; 224 to 256), as the
+// forward's
+template <bool DROP>
+int launch_wgmma_s(const Operands& a, cudaStream_t stream) {
+  if (a.S <= 64) return launch_wgmma<64, DROP>(a, stream);
+  if (a.S <= 96) return launch_wgmma<96, DROP>(a, stream);
+  if (a.S <= 128) return launch_wgmma<128, DROP>(a, stream);
+  if (a.S <= 160) return launch_wgmma<160, DROP>(a, stream);
+  if (a.S <= 192) return launch_wgmma<192, DROP>(a, stream);
+  if (a.S <= 256) return launch_wgmma<256, DROP>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -444,6 +935,10 @@ int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
   a.sm_scale = sm_scale;
   a.drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  if (S <= 0) return (int)cudaErrorInvalidValue;
+  if (d == WD && S <= 256)
+    return a.drop.on ? launch_wgmma_s<true>(a, s)
+                     : launch_wgmma_s<false>(a, s);
   if (d == 32) return launch<32>(a, s);
   if (d == 64) return launch<64>(a, s);
   if (d == 128) return launch<128>(a, s);
@@ -451,5 +946,9 @@ int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
   if (d == 256) return launch<256>(a, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// Launches of the wgmma pair since the library was loaded (a routing
+// check: nbk_seg_attention_bwd runs it exactly for d = 64, S <= 256).
+long long nbk_seg_attention_bwd_wgmma_launches() { return wgmma_launches; }
 
 }  // extern "C"

@@ -157,6 +157,8 @@ def lib() -> ctypes.CDLL:
     L.nbk_embed_lookup.argtypes = [p] * 8 + [i, i, i, i, i, f, i, p]
     for name in KERNELS:
         getattr(L, f"nbk_{name}").restype = ctypes.c_int
+    L.nbk_seg_attention_bwd_wgmma_launches.argtypes = []
+    L.nbk_seg_attention_bwd_wgmma_launches.restype = ctypes.c_longlong
     L.nbk_error_string.argtypes = [i]
     L.nbk_error_string.restype = ctypes.c_char_p
     _lib = L

@@ -808,6 +808,13 @@ def _launch_seg_attention_bwd(qkv_ptrs, ld, dout, mask, stats, grad_ptrs,
     _cuda.launch_counts["seg_attention_bwd"] += 1
 
 
+def seg_attention_bwd_wgmma_launches() -> int:
+    """Launches of ``seg_attention_bwd``'s wgmma pair since the kernels
+    were loaded (csrc/seg_attention_bwd.cu runs it for d = 64, s <= 256;
+    the mma.sync pair elsewhere): the routing behind the counter."""
+    return int(_cuda.lib().nbk_seg_attention_bwd_wgmma_launches())
+
+
 def _column_blocks(t, h: int):
     """Pointers of the q | k | v column blocks of a (n, 3h) bf16 buffer."""
     p = t.data_ptr()
