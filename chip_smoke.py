@@ -165,13 +165,13 @@ KERNEL_SOURCES = {
     "layer_norm": "nbest_asr_tpu_torch/csrc/layer_norm.cu",
     "seg_attention": "nbest_asr_tpu_torch/csrc/seg_attention.cu",
     "quantize_rows": "nbest_asr_tpu_torch/csrc/quant_rows.cu",
-    "gemm_i8_bias_act": "nbest_asr_tpu_torch/csrc/gemm_i8.cu",
+    "gemm_i8_bias_act": "nbest_asr_tpu_torch/csrc/gemm_wgmma.cu",
     "gemm_i8_bias_residual": "nbest_asr_tpu_torch/csrc/gemm_i8.cu",
     "ffn_bwd_rows": "nbest_asr_tpu_torch/csrc/ffn_bwd.cu",
     "gemm_dgrad": "nbest_asr_tpu_torch/csrc/gemm_wgmma.cu",
     "seg_attention_bwd": "nbest_asr_tpu_torch/csrc/seg_attention_bwd.cu",
     "quantize_grad_rows": "nbest_asr_tpu_torch/csrc/quant_rows.cu",
-    "gemm_i8_dgrad": "nbest_asr_tpu_torch/csrc/gemm_i8.cu",
+    "gemm_i8_dgrad": "nbest_asr_tpu_torch/csrc/gemm_wgmma.cu",
     "flash_fwd": "nbest_asr_tpu_torch/csrc/flash_attention.cu",
     "flash_bwd_dq": "nbest_asr_tpu_torch/csrc/flash_attention_bwd.cu",
     "flash_bwd_dkv": "nbest_asr_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -384,17 +384,21 @@ def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
 # time for them, and the log prints the rate each GEMM reaches
 DEVICE_TIMED = ("gemm_bias_act", "gemm_bias_residual", "gemm_dgrad",
                 "seg_attention", "seg_attention_bwd", "layer_norm",
-                "ffn_bwd_rows")
+                "ffn_bwd_rows", "quantize_rows", "gemm_i8_bias_act",
+                "gemm_i8_bias_residual", "quantize_rows [train]",
+                "gemm_i8_bias_act [train]", "gemm_i8_bias_residual [train]",
+                "quantize_grad_rows", "gemm_i8_dgrad")
 
 
 def time_device(name, tag, fk, fl, flops, b_ms, card):
     """(kernel ms, library ms), device time, of a device-timed kernel's
     launches (library None where PyTorch has no such call); logs both
-    timings, the GEMMs' rates and the bound."""
+    timings, the GEMMs' rates (TOP/s for the int8 ones) and the bound."""
     k_bb, k_dev = cuda_ms(fk), device_ms(fk)
+    unit = "TOP/s" if "i8" in name else "TFLOP/s"
 
     def rate(ms):
-        return f" ({flops / ms / 1e9:.1f} TFLOP/s)" if flops else ""
+        return f" ({flops / ms / 1e9:.1f} {unit})" if flops else ""
 
     lib_s, l_dev = "none", None
     if fl is not None:
@@ -709,13 +713,14 @@ def phase_kernels(dev, card: str):
                                     xq, cq, gq)
         bounds = serving_bounds(b * s, b, s)
         flops = {"gemm_bias_act": 2.0 * b * s * H * (3 * H + INTER),
-                 "gemm_bias_residual": 2.0 * b * s * H * (H + INTER),
-                 "seg_attention": None}
+                 "gemm_bias_residual": 2.0 * b * s * H * (H + INTER)}
+        flops["gemm_i8_bias_act"] = flops["gemm_bias_act"]
+        flops["gemm_i8_bias_residual"] = flops["gemm_bias_residual"]
         for name, (fk, fp) in t.items():
             if name in DEVICE_TIMED:
-                k_ms, l_ms = time_device(name, f"b{b} s{s}", fk, lib[name],
-                                         flops.get(name), bounds[name][0],
-                                         card)
+                k_ms, l_ms = time_device(name, f"b{b} s{s}", fk,
+                                         lib.get(name), flops.get(name),
+                                         bounds[name][0], card)
             else:
                 k_ms = cuda_ms(fk)
                 l_ms = cuda_ms(lib[name]) if name in lib else None
@@ -1789,14 +1794,24 @@ def phase_train_kernels(dev, card: str):
                          K.gemm_i8_dgrad_reference(*q["g3"], orr, "none"),
                          K.gemm_i8_dgrad_reference(*q["g4"], ar, "residual",
                                                    ds=q["ds_a"])),
+                # the weights as w.t() views (column-major B): cuBLASLt's
+                # int8 layout, 4.8x faster than a row-major copy made
+                # beforehand (chip_time_attention.py's train_i8_ms)
                 lambda: (torch._int_mm(q["g1"][0], w2r.t()),
                          torch._int_mm(q["g2"][0], w1r.t()),
                          torch._int_mm(q["g3"][0], orr.t()),
                          torch._int_mm(q["g4"][0], ar.t()))),
         }
+        i8_ops = {"gemm_i8_bias_act [train]": 2.0 * 8192 * H * (INTER
+                                                                + 3 * H),
+                  "gemm_i8_bias_residual [train]": 2.0 * 8192 * H * (INTER
+                                                                     + H),
+                  "gemm_i8_dgrad": 2.0 * 8192 * H * (2 * INTER + 4 * H)}
         for name, (fk, fp, fl) in ti8.items():
-            times[name] = (cuda_ms(fk), cuda_ms(fp, iters=3),
-                           None if fl is None else cuda_ms(fl))
+            k_ms, l_ms = time_device(f"train {name}", "n 8192", fk, fl,
+                                     i8_ops.get(name), bounds[name][0],
+                                     card)
+            times[name] = (k_ms, cuda_ms(fp, iters=3), l_ms)
         times["weight quantization"] = cuda_ms(
             lambda: [quantize_train_weight(p[k]) for k in ("wqkv", "wo",
                                                            "w1", "w2")])
@@ -3047,7 +3062,8 @@ def main() -> int:
         f"{_cuda.build_seconds if _cuda.build_seconds is not None else 0:.2f}"
         f" s) -> {_cuda.library_path().name}")
 
-    for line in ptxas_summary(_cuda.build_report):
+    summary = ptxas_summary(_cuda.build_report)
+    for line in summary:
         log(f"[device] ptxas {line}")
     # ptxas's notes on serialised wgmma or ignored setmaxnreg, if any (a
     # library built by an earlier process leaves no report)
@@ -3057,6 +3073,14 @@ def main() -> int:
         log(f"[device] ptxas note {line}")
     log(f"[device] ptxas notes on wgmma / setmaxnreg: {len(notes)}"
         + ("" if _cuda.build_report else " (no build in this process)"))
+    # the wgmma + TMA GEMM's instances (bf16 and s8: gemm_tma_kernel<S8,
+    # EPI, TRAIN>) must build without spills or such notes
+    tma = [line for line in summary if "gemm_tma_kernel" in line]
+    bad = [line for line in tma if "spills 0/0 B" not in line]
+    bad += [line for line in notes if line.startswith("gemm_wgmma.cu")]
+    if _cuda.build_report and (bad or not tma):
+        raise AssertionError("gemm_wgmma.cu: spills or ptxas notes (or no "
+                             f"instance reported): {bad}")
 
     max_err, times = phase_kernels(dev, card)
     counts = phase_slice(dev)
@@ -3124,7 +3148,9 @@ def main() -> int:
         "embed_lookup, f32 tables) for the five row kernels; ms and "
         "library_ms are device time (calls queued behind a sleep) for the "
         "five row kernels, gemm_bias_act, gemm_bias_residual, gemm_dgrad, "
-        "seg_attention, seg_attention_bwd, layer_norm and ffn_bwd_rows; "
+        "seg_attention, seg_attention_bwd, layer_norm, ffn_bwd_rows and "
+        "the int8 kernels (quantize_rows, quantize_grad_rows, the three "
+        "int8 GEMMs, serving and [train]); "
         "BERT-base, "
         "bf16 activations; library_ms: the "
         "PyTorch call for each launch (serving_library_calls; torch.matmul "

@@ -22,7 +22,16 @@ them,
 ``quantize_rows`` of a (64 x 256, 768) bf16 block input and the four
 int8 serving GEMM launches of a layer at 64 x 256 rows
 (``gemm_i8_bias_act`` QKV and W1 + GELU, ``gemm_i8_bias_residual``
-out-proj and W2); where it has the tiled flash kernels, ``flash_fwd``,
+out-proj and W2), each as ``[back to back, device]`` ms, and
+``train_i8_ms``: the int8 training launches of a layer at 8192 rows
+(``gemm_i8_dgrad`` dgelu with dropout, residual, none, residual;
+``gemm_i8_bias_act`` W1 + GELU with dropout and h saved, and QKV), and
+``torch._int_mm`` on the four dgrads' operands, the weight given as the
+transposed view and as a contiguous transpose made beforehand, and
+``encoder_fwd_ms``: the 12-layer BERT-base encoder forward (seed-0
+weights, both megakernel flags) at 64 x 256 in bf16 and in int8, the
+serving forward without the head; where it has the tiled flash kernels,
+``flash_fwd``,
 ``flash_bwd_dq`` and ``flash_bwd_dkv`` at batch 32 x seq 1024 on q, k, v
 views of one QKV buffer with prob dropout; and ``gemm_ms``, each bf16 GEMM
 launch of an encoder layer: the four ``gemm_dgrad`` launches of a training
@@ -133,6 +142,86 @@ def gemm_times(K, dev, gen, iters: int) -> dict:
         "act_w1_serve": lambda: K.gemm_bias_act(xs, w1, b1, "gelu"),
     }
     return {name: both_ms(fn, iters) for name, fn in calls.items()}
+
+
+def train_i8_times(K, dev, gen, iters: int) -> dict:
+    """The int8 training GEMM launches of a BERT-base layer at 8192 rows
+    (``NBEST_BENCH_INT8=2``, dropout 0.1) and ``torch._int_mm`` on the
+    dgrads' operands; [back to back, device] ms."""
+    from nbest_asr_tpu_torch.ops.philox import site
+    from nbest_asr_tpu_torch.ops.quant import quantize_train_weight
+
+    def rn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen) * std).to(dev, dtype)
+
+    i, h3, m = 4 * H, 3 * H, 8192
+    (w1q, w1r, w1s), (w2q, w2r, w2s), (woq, wor, wos), (aq, ar, a_s) = (
+        quantize_train_weight(rn(k, n, std=0.02))
+        for k, n in ((H, i), (i, H), (H, H), (H, h3)))
+    b1, bqkv = rn(i, std=0.02, dtype=torch.float32), rn(
+        h3, std=0.02, dtype=torch.float32)
+    d1, d2, dh = site(1, 0.1, 1), site(1, 0.1, 2), site(1, 0.1, 4)
+    xq = K.quantize_rows(rn(m, H))
+    h = rn(m, i)
+    ds = rn(m, H, dtype=torch.float32)
+    # the gradients each dgrad contracts, quantized with the weight's
+    # scales folded in: drop2(ds) . W2^T, dh . W1^T, drop_h(ds) . Wo^T,
+    # dqkv . Wqkv^T
+    g1 = K.quantize_grad_rows(rn(m, H, std=1e-3, dtype=torch.float32),
+                              w2s, d2)
+    g2 = K.quantize_grad_rows(rn(m, i, std=1e-3, dtype=torch.float32), w1s)
+    g3 = K.quantize_grad_rows(rn(m, H, std=1e-3, dtype=torch.float32),
+                              wos, dh)
+    g4 = K.quantize_grad_rows(rn(m, h3, std=1e-3), a_s)
+    pairs = ((g1, w2r), (g2, w1r), (g3, wor), (g4, ar))
+    contig = [w.t().contiguous() for _, w in pairs]
+    calls = {
+        "dgrad_dgelu": lambda: K.gemm_i8_dgrad(*g1, w2r, "dgelu", h=h,
+                                               drop=d1),
+        "dgrad_residual_w1": lambda: K.gemm_i8_dgrad(*g2, w1r, "residual",
+                                                     ds=ds),
+        "dgrad_none_wo": lambda: K.gemm_i8_dgrad(*g3, wor, "none"),
+        "dgrad_residual_wqkv": lambda: K.gemm_i8_dgrad(*g4, ar, "residual",
+                                                       ds=ds),
+        "act_w1_train": lambda: K.gemm_i8_bias_act(*xq, w1q, w1s, b1,
+                                                   "gelu", drop=d1,
+                                                   save_h=True),
+        "act_qkv_train": lambda: K.gemm_i8_bias_act(*xq, aq, a_s, bqkv),
+        # the dgrads' library yardstick: the weight as w.t() (a column-
+        # major view) or as a row-major copy made outside the timed call
+        "int_mm_dgrads_view": lambda: [torch._int_mm(g[0], w.t())
+                                       for g, w in pairs],
+        "int_mm_dgrads_contiguous": lambda: [
+            torch._int_mm(g[0], wt) for (g, _), wt in zip(pairs, contig)],
+    }
+    return {name: both_ms(fn, iters) for name, fn in calls.items()}
+
+
+def encoder_times(dev, gen, iters: int) -> dict:
+    """The serving encoder forward, 12 BERT-base layers at 64 x 256, with
+    its GEMM weights in bf16 and quantized to int8 (as ``Predictor``
+    prepares them); [back to back, device] ms."""
+    from nbest_asr_tpu_torch.models.encoder import (EncoderConfig,
+                                                    encoder_forward,
+                                                    init_encoder_params)
+    from nbest_asr_tpu_torch.ops.quant import (LAYER_GEMM_KERNELS,
+                                               quantize_encoder_params)
+
+    cfg = EncoderConfig.bert_base(compute_dtype="bfloat16",
+                                  use_fused_attn=True, use_fused_ffn=True,
+                                  use_fused_attn_eval=True)
+    enc = init_encoder_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg)
+    bf = dict(enc, layers={k: v.to(torch.bfloat16)
+                           if k in LAYER_GEMM_KERNELS else v
+                           for k, v in enc["layers"].items()})
+    q8 = quantize_encoder_params({"encoder": enc})["encoder"]
+    ids = torch.randint(1, cfg.vocab_size, (64, 256), generator=gen).to(dev)
+    mask = torch.ones(64, 256, device=dev)
+    segs = torch.zeros_like(ids)
+    return {name: both_ms(lambda: encoder_forward(w, ids, mask, segs, cfg),
+                          iters)
+            for name, w in (("bf16", bf), ("int8", q8))}
 
 
 # training micro rows per bucket under the 8192-token budget
@@ -282,15 +371,19 @@ def main() -> int:
         xb = (torch.randn(64 * 256, H, generator=gen) * 0.5).to(
             dev, torch.bfloat16)
         out["serving_i8_ms"] = {
-            "quantize_rows": cuda_ms(lambda: K.quantize_rows(xb), args.iters),
-            "act_qkv": cuda_ms(lambda: K.gemm_i8_bias_act(*x, *wqkv),
+            "quantize_rows": both_ms(lambda: K.quantize_rows(xb), args.iters),
+            "act_qkv": both_ms(lambda: K.gemm_i8_bias_act(*x, *wqkv),
                                args.iters),
-            "act_w1_gelu": cuda_ms(
+            "act_w1_gelu": both_ms(
                 lambda: K.gemm_i8_bias_act(*x, *w1, "gelu"), args.iters),
-            "residual_wo": cuda_ms(
+            "residual_wo": both_ms(
                 lambda: K.gemm_i8_bias_residual(*x, *wo, r), args.iters),
-            "residual_w2": cuda_ms(
+            "residual_w2": both_ms(
                 lambda: K.gemm_i8_bias_residual(*g, *w2, r), args.iters)}
+        if hasattr(K, "gemm_i8_dgrad"):
+            out["train_i8_ms"] = train_i8_times(K, dev, gen, args.iters)
+            # ~170 launches a forward: 10 calls enqueue within the sleep
+            out["encoder_fwd_ms"] = encoder_times(dev, gen, 10)
     if hasattr(K, "flash_fwd"):
         from nbest_asr_tpu_torch.ops.philox import site
 

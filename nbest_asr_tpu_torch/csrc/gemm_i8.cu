@@ -1,73 +1,47 @@
-// Int8 tensor-core GEMMs with dequantizing epilogues: the four weight
-// products of an encoder layer on the int8 serving and int8 training paths,
-// and the int8 dgrads of the int8 training backwards.
+// The int8 residual GEMM, gemm_i8_bias_residual: the out-proj and W2
+// products of the int8 serving and int8 training layers, with a
+// dequantizing, dropout and residual-sum epilogue.  The other int8
+// products (gemm_i8_bias_act, gemm_i8_dgrad) run on the wgmma + TMA kernel
+// of gemm_wgmma.cu; this one keeps its mma.sync kernel until it is
+// redesigned the same way.
 //
 // Replaces `_dense_i8` / `_dot_i8` (nbest_asr_tpu/ops/int8_serving.py:66-79)
 // inside the two TPU int8 serving megakernels:
-//   _attn_i8_kernel (:157) -- QKV (:168)           -> gemm_i8_bias_act, none
-//                          -- out-proj (:191-193)  -> gemm_i8_bias_residual
-//   _ffn_i8_kernel (:90)   -- W1 + GELU (:94-95)   -> gemm_i8_bias_act, gelu
-//                          -- W2 (:96-97)          -> gemm_i8_bias_residual
-// the `_dense_i8_f32` / `_dense_rows_i8` GEMMs of the int8 training forwards
+//   _attn_i8_kernel (:157) -- out-proj (:191-193)  -> gemm_i8_bias_residual
+//   _ffn_i8_kernel (:90)   -- W2 (:96-97)          -> gemm_i8_bias_residual
+// and the `_dense_i8_f32` / `_dense_rows_i8` GEMMs of the int8 training
+// forwards
 //   nbest_asr_tpu/ops/fused_ffn.py:_fwd_kernel_i8 (:404)
-//     - W1, GELU, drop 1 (:417-422)         -> gemm_i8_bias_act, gelu, h saved
 //     - W2, bf16, drop 2, y2d (:424-431)    -> gemm_i8_bias_residual, y2d
 //                                              saved
 //   nbest_asr_tpu/ops/fused_attention.py:_fab_fwd_kernel_i8 (:436)
-//     - QKV (:454-455)                      -> gemm_i8_bias_act, none
 //     - out-proj, bf16, hidden drop, od (:471-478)
 //                                           -> gemm_i8_bias_residual, od saved
-// and the `_dgrad_rows_i8` products (fused_ffn.py:523-530) of the int8
-// training backwards
-//   fused_ffn.py:_bwd_kernel_i8 (:533)
-//     - dgd = dy2 @ W2^T, drop 1, * gelu'(h) (:562-566) -> gemm_i8_dgrad dgelu
-//     - ds + dh @ W1^T (:548, :568, :575)               -> gemm_i8_dgrad
-//                                                          residual
-//   fused_attention.py:_fab_bwd_kernel_i8 (:565)
-//     - dctx = dout @ Wo^T (:597, bf16 per head :609)   -> gemm_i8_dgrad none
-//     - ds + dqkv @ Wqkv^T (:633-635)                   -> gemm_i8_dgrad
-//                                                          residual
 // The TPU kernels hold the int8 weights resident in VMEM (4.7 MB for the
-// FFN pair); here each GEMM streams 128x64 int8 tiles of the quantized
+// FFN pair); here the GEMM streams 128x64 int8 tiles of the quantized
 // activations and of the weights through a 4-stage cp.async ring and keeps
 // its 128x128 s32 accumulator tile in registers.
 //
-// Operands: A (M, K) int8 row-major, the per-token quantized activations or
-// gradients (quant_rows.cu) with their (M,) f32 scales; Wt (N, K) int8
-// row-major, so that each output column's weights are K-contiguous as mma
-// .row.col wants them (ldmatrix.trans moves 16-bit elements and cannot
-// transpose int8).  The forwards' Wt is the (K, N) JAX-layout weight stored
-// column-major, with (N,) f32 per-output-channel scales.  A dgrad contracts
-// over the weight's OUTPUT axis, so its Wt is the quantized (in, out) weight
-// in its natural row-major layout (N = in, K = out), and the weight scales
-// were folded into the gradient before its quantization (quant_rows.cu's
-// gradient variant).  mma.sync m16n8k32 s8 x s8 -> s32.
+// Operands: A (M, K) int8 row-major, the per-token quantized activations
+// (quant_rows.cu) with their (M,) f32 scales; Wt (N, K) int8 row-major, so
+// that each output column's weights are K-contiguous as mma .row.col wants
+// them (ldmatrix.trans moves 16-bit elements and cannot transpose int8):
+// the (K, N) JAX-layout weight stored column-major, with (N,) f32
+// per-output-channel scales.  mma.sync m16n8k32 s8 x s8 -> s32.
 //
-// What bounds it on the H100: at BERT-base shapes the GEMMs sit far above
-// the int8 ridge, so tensor-core issue rate bounds them.  This first
-// version uses mma.sync (sm_80 instructions); wgmma with s8 and TMA is
-// later work.  The Philox dropout bits cost one 10-round call per pair of
-// output columns in the epilogue.
+// What bounds it on the H100: in serving at BERT-base shapes the GEMM sits
+// above the int8 ridge, so tensor-core issue rate bounds it; in training
+// at 8192 rows the bytes of its epilogue do.  The Philox dropout bits cost
+// one 10-round call per pair of output columns in the epilogue.
 //
-// Epilogue numerics follow the TPU kernels exactly: the forwards' dequant
-// is ((f32(acc) * x_scale) * w_scale) + bias, each operation rounded
+// Epilogue numerics follow the TPU kernels exactly: the dequant is
+// ((f32(acc) * x_scale) * w_scale) + bias, each operation rounded
 // (__fmul_rn / __fadd_rn, so nvcc cannot contract them into an FMA), ONE
-// bf16 rounding (h), then
-//   none     : store bf16
-//   gelu     : [h saved]; g = gelu_erf(f32 h) in f32 (erff); g = drop1(g)
-//              (times f32(1/keep)); store bf16(g)
-//   residual : y2 = drop(f32 h) (stream 2 or 4); [bf16(y2) saved as y2d /
-//              od]; store y2 + f32(residual) as f32, the input of the row
-//              LayerNorm kernel (layer_norm.cu)
-// and the dgrads' dequant is d = f32(acc) * g_scale (`dgrad_int8`), then
-//   dgelu    : d = drop1(d); dh = d * gelu'(f32 h); store bf16(dh) and, if
-//              asked, f32 dh (the next gradient quant's input); [gd =
-//              bf16(drop1(gelu(f32 h))) regenerated for dW2]
-//   dx       : bf16(ds + d), ds the f32 residual-branch gradient
-//   dnone    : bf16(d)
-// The integer dot is exact (|acc| <= 127^2 * K < 2^31 for K <= 133,000),
-// so the kernel equals its plain version bit for bit, up to erff / expf in
-// the GELU epilogues.
+// bf16 rounding, then y2 = drop(f32 h) (stream 2 or 4); [bf16(y2) saved as
+// y2d / od]; store y2 + f32(residual) as f32, the input of the row
+// LayerNorm kernel (layer_norm.cu).  The integer dot is exact (|acc| <=
+// 127^2 * K < 2^31 for K <= 133,000), so the kernel equals its plain
+// version bit for bit.
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -81,24 +55,6 @@ constexpr int LD = BK + 16;  // 80-byte rows: 16-B aligned, ldmatrix
 constexpr int A_STAGE = BM * LD;  // bytes
 constexpr int B_STAGE = BN * LD;
 constexpr int SMEM_BYTES = STAGES * (A_STAGE + B_STAGE);
-
-enum { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_DGELU = 3,
-       EPI_DX = 4, EPI_DNONE = 5 };
-
-// The epilogue's operands, as the C entry points assemble them; the kernel
-// takes each as a __restrict__ argument.
-struct Epi {
-  const float* x_scale;  // (M,) row scales of A
-  const float* w_scale;  // forwards: (N,) weight scales; null for dgrads
-  const float* bias;     // forwards: (N,) f32
-  const bf16* resid;     // residual: (M, N) bf16 block input
-  const float* addf;     // dx: (M, N) f32 residual-branch gradient
-  const bf16* h;         // dgelu: (M, N) bf16 pre-GELU activations
-  bf16* aux;             // gelu: h out; residual: y2d out; dgelu: gd out
-  float* out_f32;        // dgelu: f32 dh out (may be null)
-  void* out;
-  DropParams drop;
-};
 
 // d += a * b, s8 inputs, s32 accumulation.  Fragments (g = lane / 4,
 // t = lane % 4; each register holds 4 consecutive k):
@@ -142,19 +98,18 @@ __device__ __forceinline__ float dequant(int acc, float xs, float ws,
 }
 
 // The epilogue of output columns (col, col + 1) of ``row``; ws / b are the
-// two columns' weight scales and biases (forwards only).  TRAIN compiles in
-// the Philox dropout (e.drop.on) and the saved residual (e.aux): the
-// serving instances are built without them (with both compiled into every
-// instance the serving GEMMs ran 13-40% slower on the H100).  The pointers
-// are the kernel's __restrict__ arguments (from a struct without it, the
-// loads had to wait for the stores before them: 20% slower).
-template <int EPI, bool TRAIN>
+// two columns' weight scales and biases.  TRAIN compiles in the Philox
+// dropout (drop.on) and the saved residual (aux): the serving instance is
+// built without them (with both compiled into every instance the serving
+// GEMMs ran 13-40% slower on the H100).  The pointers are the kernel's
+// __restrict__ arguments (from a struct without it, the loads had to wait
+// for the stores before them: 20% slower).
+template <bool TRAIN>
 __device__ __forceinline__ void epilogue_pair(
     const float* __restrict__ x_scale, const bf16* __restrict__ resid,
-    const float* __restrict__ addf, const bf16* __restrict__ h,
-    bf16* __restrict__ aux, float* __restrict__ out_f32,
-    void* __restrict__ out, const DropParams& drop, int row, int col, int N,
-    int a0, int a1, float ws0, float ws1, float b0, float b1) {
+    bf16* __restrict__ aux, float* __restrict__ out, const DropParams& drop,
+    int row, int col, int N, int a0, int a1, float ws0, float ws1, float b0,
+    float b1) {
   const size_t off = (size_t)row * N + col;
   const float xs = x_scale[row];
   unsigned bits0 = 0xFFFFFFFFu, bits1 = 0xFFFFFFFFu;
@@ -164,87 +119,33 @@ __device__ __forceinline__ void epilogue_pair(
     bits0 = (col & 2) ? w.z : w.x;
     bits1 = (col & 2) ? w.w : w.y;
   }
-  bf16* o16 = static_cast<bf16*>(out);
-  if (EPI == EPI_DGELU || EPI == EPI_DX || EPI == EPI_DNONE) {
-    float d0 = __fmul_rn(__int2float_rn(a0), xs);
-    float d1 = __fmul_rn(__int2float_rn(a1), xs);
-    if (EPI == EPI_DNONE) {
-      *reinterpret_cast<unsigned*>(o16 + off) = pack_bf16x2(d0, d1);
-    } else if (EPI == EPI_DX) {
-      const float2 r = *reinterpret_cast<const float2*>(addf + off);
-      *reinterpret_cast<unsigned*>(o16 + off) =
-          pack_bf16x2(__fadd_rn(r.x, d0), __fadd_rn(r.y, d1));
-    } else {
-      if (dropping) {
-        d0 = drop_value(drop, d0, bits0);
-        d1 = drop_value(drop, d1, bits1);
-      }
-      const __nv_bfloat162 hh =
-          *reinterpret_cast<const __nv_bfloat162*>(h + off);
-      const float h0 = __bfloat162float(hh.x), h1 = __bfloat162float(hh.y);
-      d0 = __fmul_rn(d0, gelu_grad_f32(h0));
-      d1 = __fmul_rn(d1, gelu_grad_f32(h1));
-      *reinterpret_cast<unsigned*>(o16 + off) = pack_bf16x2(d0, d1);
-      if (TRAIN && out_f32)
-        *reinterpret_cast<float2*>(out_f32 + off) = make_float2(d0, d1);
-      if (TRAIN && aux) {
-        float g0 = gelu_f32(h0), g1 = gelu_f32(h1);
-        if (dropping) {
-          g0 = drop_value(drop, g0, bits0);
-          g1 = drop_value(drop, g1, bits1);
-        }
-        *reinterpret_cast<unsigned*>(aux + off) = pack_bf16x2(g0, g1);
-      }
-    }
-    return;
-  }
   float v0 = round_bf16(dequant(a0, xs, ws0, b0));
   float v1 = round_bf16(dequant(a1, xs, ws1, b1));
-  if (EPI == EPI_RESIDUAL) {
-    if (dropping) {
-      v0 = drop_value(drop, v0, bits0);
-      v1 = drop_value(drop, v1, bits1);
-    }
-    if (TRAIN && aux)
-      *reinterpret_cast<unsigned*>(aux + off) = pack_bf16x2(v0, v1);
-    const __nv_bfloat162 x =
-        *reinterpret_cast<const __nv_bfloat162*>(resid + off);
-    float2 s;
-    s.x = __fadd_rn(v0, __bfloat162float(x.x));
-    s.y = __fadd_rn(v1, __bfloat162float(x.y));
-    *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = s;
-    return;
+  if (dropping) {
+    v0 = drop_value(drop, v0, bits0);
+    v1 = drop_value(drop, v1, bits1);
   }
-  if (EPI == EPI_GELU) {
-    if (TRAIN && aux)  // v is bf16-exact: h as the TPU kernel rounds it
-      *reinterpret_cast<unsigned*>(aux + off) = pack_bf16x2(v0, v1);
-    v0 = gelu_f32(v0);
-    v1 = gelu_f32(v1);
-    if (dropping) {
-      v0 = drop_value(drop, v0, bits0);
-      v1 = drop_value(drop, v1, bits1);
-    }
-  }
-  *reinterpret_cast<unsigned*>(o16 + off) = pack_bf16x2(v0, v1);
+  if (TRAIN && aux)
+    *reinterpret_cast<unsigned*>(aux + off) = pack_bf16x2(v0, v1);
+  const __nv_bfloat162 x =
+      *reinterpret_cast<const __nv_bfloat162*>(resid + off);
+  float2 s;
+  s.x = __fadd_rn(v0, __bfloat162float(x.x));
+  s.y = __fadd_rn(v1, __bfloat162float(x.y));
+  *reinterpret_cast<float2*>(out + off) = s;
 }
 
-// Built for 2 blocks per SM (128 registers): unbounded, the dgelu
-// instance (Philox, gelu and gelu' in the epilogue) took 151 on the H100,
-// one block per SM.
-template <int EPI, bool TRAIN>
+// Built for 2 blocks per SM (128 registers).
+template <bool TRAIN>
 __global__ void __launch_bounds__(THREADS, 2)
     gemm_i8_kernel(const int8_t* __restrict__ A,
                    const int8_t* __restrict__ Wt,
                    const float* __restrict__ x_scale,
                    const float* __restrict__ w_scale,
                    const float* __restrict__ bias,
-                   const bf16* __restrict__ resid,
-                   const float* __restrict__ addf, const bf16* __restrict__ h,
-                   bf16* __restrict__ aux, float* __restrict__ out_f32,
-                   void* __restrict__ out, const DropParams drop, int M,
+                   const bf16* __restrict__ resid, bf16* __restrict__ aux,
+                   float* __restrict__ out, const DropParams drop, int M,
                    int N, int K) {
-  constexpr bool DGRAD = EPI == EPI_DGELU || EPI == EPI_DX ||
-                         EPI == EPI_DNONE;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   int8_t* sA = reinterpret_cast<int8_t*>(smem_raw);
   int8_t* sB = sA + STAGES * A_STAGE;
@@ -324,84 +225,49 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int col = n0 + wn * 32 + ni * 8 + 2 * t4;
-    float ws0 = 1.f, ws1 = 1.f, b0 = 0.f, b1 = 0.f;
-    if (!DGRAD) {
-      ws0 = w_scale[col];
-      ws1 = w_scale[col + 1];
-      b0 = bias[col];
-      b1 = bias[col + 1];
-    }
+    const float ws0 = w_scale[col], ws1 = w_scale[col + 1];
+    const float b0 = bias[col], b1 = bias[col + 1];
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = m0 + wm * 64 + mi * 16 + g + half * 8;
         if (row >= M) continue;
-        epilogue_pair<EPI, TRAIN>(x_scale, resid, addf, h, aux, out_f32,
-                                  out, drop, row, col, N,
-                                  acc[mi][ni][2 * half],
-                                  acc[mi][ni][2 * half + 1], ws0, ws1, b0,
-                                  b1);
+        epilogue_pair<TRAIN>(x_scale, resid, aux, out, drop, row, col, N,
+                             acc[mi][ni][2 * half],
+                             acc[mi][ni][2 * half + 1], ws0, ws1, b0, b1);
       }
     }
   }
 }
 
-template <int EPI, bool TRAIN = false>
-int launch(const void* a, const void* wt, const Epi& e, int M, int N, int K,
-           cudaStream_t stream) {
+template <bool TRAIN>
+int launch(const void* a, const void* wt, const float* x_scale,
+           const float* w_scale, const float* bias, const bf16* resid,
+           bf16* aux, float* out, const DropParams& drop, int M, int N,
+           int K, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        gemm_i8_kernel<EPI, TRAIN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        gemm_i8_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   dim3 grid(N / BN, (M + BM - 1) / BM);
-  gemm_i8_kernel<EPI, TRAIN><<<grid, THREADS, SMEM_BYTES, stream>>>(
+  gemm_i8_kernel<TRAIN><<<grid, THREADS, SMEM_BYTES, stream>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(wt),
-      e.x_scale, e.w_scale, e.bias, e.resid, e.addf, e.h, e.aux, e.out_f32,
-      e.out, e.drop, M, N, K);
+      x_scale, w_scale, bias, resid, aux, out, drop, M, N, K);
   return (int)cudaGetLastError();
-}
-
-// the training instance where a dropout or a saved residual is asked for
-template <int EPI>
-int launch_train(const void* a, const void* wt, const Epi& e, int M, int N,
-                 int K, cudaStream_t stream) {
-  return e.drop.on || e.aux ? launch<EPI, true>(a, wt, e, M, N, K, stream)
-                            : launch<EPI, false>(a, wt, e, M, N, K, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// out (M, N) bf16 = act(bf16(dequant(a (M, K) s8 . wt (N, K) s8) + bias));
-// act 0 = none, 1 = erf-GELU followed by Philox dropout when drop_on (seed,
-// stream, thresh, inv_keep as in philox.cuh).  h_out (M, N) bf16, if not
-// null, receives the bf16 value before the GELU.  Requires N % 128 == 0,
-// K % 64 == 0.
-int nbk_gemm_i8_bias_act(const void* a, const float* x_scale, const void* wt,
-                         const float* w_scale, const float* bias, void* out,
-                         void* h_out, int M, int N, int K, int act,
-                         unsigned long long seed, int stream, unsigned thresh,
-                         float inv_keep, int drop_on, void* cuda_stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
-  Epi e = {};
-  e.x_scale = x_scale;
-  e.w_scale = w_scale;
-  e.bias = bias;
-  e.aux = static_cast<bf16*>(h_out);
-  e.out = out;
-  e.drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
-  if (act == 1) return launch_train<EPI_GELU>(a, wt, e, M, N, K, s);
-  return launch<EPI_NONE>(a, wt, e, M, N, K, s);
-}
-
 // out (M, N) f32 = y2 + f32(resid (M, N) bf16), y2 = drop(f32(bf16(dequant(
 // a . wt) + bias))); y2d_out (M, N) bf16, if not null, receives bf16(y2).
+// Requires N % 128 == 0, K % 64 == 0.
 int nbk_gemm_i8_bias_residual(const void* a, const float* x_scale,
                               const void* wt, const float* w_scale,
                               const float* bias, const void* resid,
@@ -409,42 +275,16 @@ int nbk_gemm_i8_bias_residual(const void* a, const float* x_scale,
                               unsigned long long seed, int stream,
                               unsigned thresh, float inv_keep, int drop_on,
                               void* cuda_stream) {
-  Epi e = {};
-  e.x_scale = x_scale;
-  e.w_scale = w_scale;
-  e.bias = bias;
-  e.resid = static_cast<const bf16*>(resid);
-  e.aux = static_cast<bf16*>(y2d_out);
-  e.out = out;
-  e.drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
-  return launch_train<EPI_RESIDUAL>(a, wt, e, M, N, K,
-                                   static_cast<cudaStream_t>(cuda_stream));
-}
-
-// The int8 dgrads, d = f32(a (M, K) s8 . wt (N, K) s8 ^T) * g_scale (M,):
-// epi 0 (dgelu): out = dh (M, N) bf16 = bf16(drop(d) * gelu'(h)), h (M, N)
-//   bf16; dh_f32 (M, N) f32, if not null, receives dh unrounded; gd_out
-//   (M, N) bf16, if not null, receives bf16(drop(gelu(h))).
-// epi 1 (residual): out = dx (M, N) bf16 = bf16(ds + d), ds (M, N) f32.
-// epi 2 (none): out (M, N) bf16 = bf16(d).
-int nbk_gemm_i8_dgrad(const void* a, const float* g_scale, const void* wt,
-                      void* out, float* dh_f32, const void* h, void* gd_out,
-                      const float* ds, int M, int N, int K, int epi,
-                      unsigned long long seed, int stream, unsigned thresh,
-                      float inv_keep, int drop_on, void* cuda_stream) {
+  const DropParams d = make_drop(seed, stream, thresh, inv_keep, drop_on);
+  const bf16* r = static_cast<const bf16*>(resid);
+  bf16* aux = static_cast<bf16*>(y2d_out);
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
-  Epi e = {};
-  e.x_scale = g_scale;
-  e.h = static_cast<const bf16*>(h);
-  e.aux = static_cast<bf16*>(gd_out);
-  e.out_f32 = dh_f32;
-  e.addf = ds;
-  e.out = out;
-  e.drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
-  if (epi == 0) return launch<EPI_DGELU, true>(a, wt, e, M, N, K, s);
-  if (epi == 1) return launch<EPI_DX>(a, wt, e, M, N, K, s);
-  if (epi == 2) return launch<EPI_DNONE>(a, wt, e, M, N, K, s);
-  return (int)cudaErrorInvalidValue;
+  // the training instance where a dropout or a saved residual is asked for
+  return d.on || aux
+             ? launch<true>(a, wt, x_scale, w_scale, bias, r, aux, out, d, M,
+                            N, K, s)
+             : launch<false>(a, wt, x_scale, w_scale, bias, r, aux, out, d,
+                             M, N, K, s);
 }
 
 }  // extern "C"

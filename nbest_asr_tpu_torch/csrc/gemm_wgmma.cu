@@ -1,7 +1,9 @@
 // Hopper GEMMs with fused epilogues: every bf16 weight product of an
 // encoder layer, forward and backward -- the forwards' bias / GELU / dropout
 // products (gemm_bias_act), the residual forwards (gemm_bias_residual) and
-// the backwards' dgrads (gemm_dgrad).
+// the backwards' dgrads (gemm_dgrad) -- and the int8 products of the int8
+// serving and training routes but the residual one (gemm_i8_bias_act, the
+// int8 dgrads gemm_i8_dgrad; gemm_i8_bias_residual is in gemm_i8.cu).
 //
 // Replaces the in-kernel GEMMs of the TPU megakernels:
 //   nbest_asr_tpu/ops/fused_attention.py:_fab_fwd_kernel (:152)
@@ -19,7 +21,25 @@
 //     - dctx = `dout @ wo^T` (:232, bf16 per head :243) -> gemm_dgrad none
 //     - `ds + dqkv @ wqkv^T` (:268-269)                 -> gemm_dgrad residual
 // (the int8 route's bf16-backward recompute of h and qkv runs
-// gemm_bias_act too).
+// gemm_bias_act too), and, in s8, `_dense_i8` / `_dot_i8`
+// (nbest_asr_tpu/ops/int8_serving.py:66-79) and `_dense_i8_f32`
+// (fused_ffn.py:394) in
+//   int8_serving.py:_attn_i8_kernel (:157), QKV (:168) -> gemm_i8_bias_act
+//   int8_serving.py:_ffn_i8_kernel (:90), W1 + GELU (:94-95)
+//                                              -> gemm_i8_bias_act, gelu
+//   fused_ffn.py:_fwd_kernel_i8 (:404), W1, GELU, drop 1, h (:417-422)
+//                                              -> gemm_i8_bias_act, gelu
+//   fused_attention.py:_fab_fwd_kernel_i8 (:436), QKV (:454-455)
+//                                              -> gemm_i8_bias_act
+// and the `_dgrad_rows_i8` products (fused_ffn.py:523-530) of
+//   fused_ffn.py:_bwd_kernel_i8 (:533)
+//     - dgd = dy2 @ W2^T, drop 1, * gelu'(h) (:562-566) -> gemm_i8_dgrad dgelu
+//     - ds + dh @ W1^T (:548, :568, :575)               -> gemm_i8_dgrad
+//                                                          residual
+//   fused_attention.py:_fab_bwd_kernel_i8 (:565)
+//     - dctx = dout @ Wo^T (:597, bf16 per head :609)   -> gemm_i8_dgrad none
+//     - ds + dqkv @ Wqkv^T (:633-635)                   -> gemm_i8_dgrad
+//                                                          residual
 //
 // What bounds each launch on the H100 (chip_smoke.train_layer_bounds): at
 // BERT-base shapes (M = 8192 rows, N, K in {768, 2304, 3072}) the QKV
@@ -30,56 +50,78 @@
 // bytes against 0.039 ms of operations at 8192 rows); the dgelu dgrad
 // reads h and writes dh and gd, 150 MB against 39 GFLOP, and is bound by
 // bytes.  Both carry an erff (and the dgrad an expf) and, in training, a
-// Philox call per four elements, so their epilogues set their time.
+// Philox call per four elements, so their epilogues set their time.  In
+// s8 the tensor cores run twice as fast and the operands are half the
+// bytes, so at 8192 rows every int8 training launch is bound by the bytes
+// of its epilogue (the dgelu dgrad writes dh in bf16 and f32 and gd: 250
+// MB at N = 3072); the serving launches at 16384 rows by operations.
 //
 // Design, for all: a persistent grid (one block per SM) walks the 192 x
 // 128 output tiles, n fastest, so the blocks in flight share A's row
 // panels in L2.  Four warpgroups: warpgroup 0 is the producer -- one
-// thread issues TMA loads (cp.async.bulk.tensor, 128-byte swizzle, 64 bf16
-// deep) of the A and B tiles into a ring of STAGES slots, each with a full
-// and an empty mbarrier -- and gives its registers up (setmaxnreg) to
-// warpgroups 1-3, the consumers, which own 64 rows x 128 each and run
-// wgmma m64n128k16 (bf16 in, f32 accumulate) from shared memory, one
-// k-block in flight.  Rows past M and depth past K are zero-filled by TMA
-// (N % 128 == 0, the wrappers' contract, so no tile straddles N; K needs
-// only the 16-byte row pitch TMA takes).  The producer runs ahead into the
-// next tile while the consumers run this tile's epilogue; each consumer
-// thread loads its epilogue operands (bias, h, ds, resid) three passes
-// ahead, the first during the mainloop.  What sets the dgelu launch's time
-// is its epilogue (erff, expf, Philox per element), latency-bound on the
-// consumer warps: three consumer warpgroups (192 x 128 tiles) beat two
-// (128 x 192), and ping-pong warpgroups (one's epilogue beside the other's
-// mainloop) ran 2-8% slower, the epilogue on half the warps (PERF.md,
-// Findings).
-// B's layout is the only difference between the launches: the dgrads
-// multiply by w^T with w (N, K) row-major -- K-major B, wgmma's own -- and
-// the forwards by w (K, N) row-major -- MN-major B, the instruction's
-// transpose-B -- so no transposed copy of a weight is ever made.
+// thread issues TMA loads (cp.async.bulk.tensor, 128-byte swizzle, 128
+// bytes deep: 64 bf16 or 128 s8) of the A and B tiles into a ring of
+// STAGES slots, each with a full and an empty mbarrier -- and gives its
+// registers up (setmaxnreg) to warpgroups 1-3, the consumers, which own 64
+// rows x 128 each and run wgmma m64n128k16 (bf16 in, f32 accumulate) or
+// m64n128k32 (s8 in, s32 accumulate) from shared memory, one k-block in
+// flight.  A tile row is 128 bytes in either type and a k-step 32 bytes,
+// so the ring, the swizzle and the descriptors are the same in bytes.
+// Rows past M and depth past K are zero-filled by TMA (N % 128 == 0, the
+// wrappers' contract, so no tile straddles N; K needs only the 16-byte row
+// pitch TMA takes; an int8 K = 64 * odd half-fills its last stage).  The
+// producer runs ahead into the next tile while the consumers run this
+// tile's epilogue; each consumer thread loads its epilogue operands (bias,
+// w_scale, h, ds, resid) three passes ahead, the first during the
+// mainloop.  What sets the dgelu launch's time is its epilogue (erff,
+// expf, Philox per element), latency-bound on the consumer warps: three
+// consumer warpgroups (192 x 128 tiles) beat two (128 x 192), and
+// ping-pong warpgroups (one's epilogue beside the other's mainloop) ran
+// 2-8% slower, the epilogue on half the warps (PERF.md, Findings).
+// B's layout: the dgrads multiply by w^T with w (N, K) row-major --
+// K-major B, wgmma's own -- and the bf16 forwards by w (K, N) row-major --
+// MN-major B, the instruction's transpose-B -- so no transposed copy of a
+// weight is ever made.  For 8-bit types wgmma has no transpose, so both
+// s8 operands are K-major: the int8 forwards' weight is (K, N) stored
+// column-major (quant.kernel_layout), the int8 dgrads' the (in, out)
+// weight row-major (N = in, K = out).
 //
 // Epilogue: each warp stages its 16 x 64 f32 accumulator chunks through
 // shared memory and reads them back row-contiguous, eight columns a lane,
-// so that every operand load and output store is a 16-byte access.  The
+// so that every operand load and output store is a 16-byte access.  An s8
+// accumulator is converted once (__int2float_rn) and multiplied by its
+// row's scale (x_scale, or the dgrads' g_scale) as it is staged.  The
 // numerics are those of the TPU kernels (__fmul_rn / __fadd_rn where nvcc
 // could contract):
-//   bias      : out = bf16(acc + bias)
-//   gelu      : h = bf16(acc + bias); [h saved]; g = gelu(f32 h) in f32
-//               with the exact erff (not the TPU's A&S polynomial); g =
-//               drop1(g) (times f32(1/keep)); store bf16(g)
+//   bias      : out = bf16(acc + bias); s8: bf16(((f32(acc) * xs) * ws) +
+//               bias), ws the weight's per-output-channel scale
+//   gelu      : h = bf16(acc + bias) (s8: as bias); [h saved]; g =
+//               gelu(f32 h) in f32 with the exact erff (not the TPU's A&S
+//               polynomial); g = drop1(g) (times f32(1/keep)); store
+//               bf16(g)
 //   residual  : y2 = f32(bf16(acc + bias)); y2 = drop2(y2); [bf16(y2)
 //               saved as y2d]; store y2 + f32(resid) as f32 (the input of
 //               layer_norm.cu) -- the sum uses the unrounded f32 y2
-//   dgelu     : d = drop1(acc); dh = bf16(d * gelu'(f32 h)); [gd =
-//               bf16(drop1(gelu(f32 h))) regenerated and saved for dW2]
+//   dgelu     : d = drop1(acc) (s8: drop1(f32(acc) * g_scale)); dh = d *
+//               gelu'(f32 h), stored in bf16 (and, s8, in f32: the next
+//               gradient quant's input); [gd = bf16(drop1(gelu(f32 h)))
+//               regenerated and saved for dW2]
 //   dx        : bf16(ds + acc), ds the f32 residual-branch gradient
 //   dnone     : bf16(acc)
 // gelu and dgelu share one function for drop1(gelu(h)) (gelu_dropped), so
 // the backward's gd is the forward's g bit for bit.  Dropout bits are
 // Philox keyed on absolute (row, column) (philox.cuh), one call per four
-// columns, so every mask equals the forward's bit for bit.
+// columns, so every mask equals the forward's bit for bit.  The integer
+// dot is exact in any order (|acc| <= 127^2 K < 2^31), so the s8 launches
+// equal their plain versions bit for bit, up to erff / expf in the GELU
+// epilogues.  TRAIN compiles in the Philox dropout and the saved outputs:
+// the int8 serving GELU instance is built without them (compiled in, they
+// cost the mma.sync int8 GEMM's serving launches 13-40%).
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "philox.cuh"
@@ -93,13 +135,15 @@ using namespace nbk;
 // the producer's (512 threads).  Measured against 128 x 192 with two
 // consumer warpgroups (the epilogue on 8 warps instead of 12), it was 2-12%
 // faster for every launch of a BERT-base layer.
-constexpr int BM = 192, BN = 128, BK = 64;
+constexpr int BM = 192, BN = 128;
+constexpr int ROW = 128;  // bytes of a tile row: 64 bf16 or 128 s8, the
+                          // swizzle's width
 constexpr int WGS = BM / 64, THREADS = 128 * (WGS + 1);
 constexpr int REGS = 152;  // per consumer thread after setmaxnreg: the
                            // producer's 128 x 40 plus 384 x 152 fit 64 K
 constexpr int EPI_LD = 72;               // staging row stride, floats
 constexpr int EPI_WARP = 16 * EPI_LD;    // staging floats per consumer warp
-constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
+constexpr int A_BYTES = BM * ROW, B_BYTES = BN * ROW;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int STAGES = 4;
 // 1024-byte alignment slack, the ring, the staging, 2 barriers a slot:
@@ -107,6 +151,12 @@ constexpr int STAGES = 4;
 constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 4 * WGS * EPI_WARP * 4 +
                      2 * STAGES * 8;
 static_assert(SMEM <= 232448, "shared memory");
+
+// depth of a k-block in elements: one 128-byte tile row
+template <bool S8>
+__host__ __device__ constexpr int bk() {
+  return S8 ? ROW : ROW / 2;
+}
 
 enum {
   EPI_RESIDUAL = 0,
@@ -117,10 +167,11 @@ enum {
   EPI_GELU = 5
 };
 
-// B = w (K, N) row-major (the forwards) rather than w (N, K) (the dgrads)
-template <int EPI>
+// B = w (K, N) row-major (the bf16 forwards) rather than w (N, K) (the
+// dgrads, and every s8 product: 8-bit wgmma has no transpose)
+template <bool S8, int EPI>
 __host__ __device__ constexpr bool mn_b() {
-  return EPI == EPI_RESIDUAL || EPI == EPI_BIAS || EPI == EPI_GELU;
+  return !S8 && (EPI == EPI_RESIDUAL || EPI == EPI_BIAS || EPI == EPI_GELU);
 }
 
 // --- mbarriers --------------------------------------------------------- //
@@ -219,6 +270,45 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
 }
 
+// d (64 x N s32, the same fragment) += A (64 x 32 s8, K-major) * B (32 x N
+// s8, K-major): 8-bit wgmma takes no transpose or scale operands.
+__device__ __forceinline__ void wgmma_n128_s8(int (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// An accumulator as the epilogue's f32: a bf16 product's as it is, an s8
+// product's converted once and times its row's scale.
+__device__ __forceinline__ float to_f32(float acc, float) { return acc; }
+__device__ __forceinline__ float to_f32(int acc, float row_scale) {
+  return __fmul_rn(__int2float_rn(acc), row_scale);
+}
+
 // --- epilogue ---------------------------------------------------------- //
 
 // Eight bf16 (16 bytes) as f32: a bf16 is the high half of its f32.
@@ -257,21 +347,23 @@ __device__ __forceinline__ void drop_bits8(const DropParams& d, int row,
 // the dgelu epilogue's regenerated gd, one function so that they agree bit
 // for bit.
 __device__ __forceinline__ float gelu_dropped(const DropParams& drop,
-                                              float h, float e,
-                                              unsigned bits) {
+                                              bool dropping, float h,
+                                              float e, unsigned bits) {
   const float g = gelu_f32(h, e);
-  return drop.on ? drop_value(drop, g, bits) : g;
+  return dropping ? drop_value(drop, g, bits) : g;
 }
 
 // An epilogue operand's eight columns of a row -- resid or h (16 bytes of
 // bf16 in x), or ds or, for the bias and gelu epilogues, the bias (32
-// bytes of f32 in x, y) -- loaded passes ahead of use.
+// bytes of f32 in x, y) and, in s8, the weight scales (z, w) -- loaded
+// passes ahead of use.
 struct Opnd {
-  uint4 x, y;
+  uint4 x, y, z, w;
 };
 
-template <int EPI>
+template <bool S8, int EPI>
 __device__ __forceinline__ Opnd load_opnd(const float* __restrict__ bias,
+                                          const float* __restrict__ ws,
                                           const bf16* __restrict__ resid,
                                           const bf16* __restrict__ h,
                                           const float* __restrict__ ds,
@@ -280,6 +372,10 @@ __device__ __forceinline__ Opnd load_opnd(const float* __restrict__ bias,
   if (EPI == EPI_BIAS || EPI == EPI_GELU) {
     o.x = *reinterpret_cast<const uint4*>(bias + col);
     o.y = *reinterpret_cast<const uint4*>(bias + col + 4);
+    if (S8) {
+      o.z = *reinterpret_cast<const uint4*>(ws + col);
+      o.w = *reinterpret_cast<const uint4*>(ws + col + 4);
+    }
   }
   if (EPI == EPI_RESIDUAL) o.x = *reinterpret_cast<const uint4*>(resid + off);
   if (EPI == EPI_DGELU) o.x = *reinterpret_cast<const uint4*>(h + off);
@@ -298,9 +394,10 @@ __device__ __forceinline__ void floats8(const uint4 a, const uint4 b,
   f[6] = __uint_as_float(b.z), f[7] = __uint_as_float(b.w);
 }
 
-// Eight consecutive outputs (row, col .. col + 7) from their f32 sums v and
-// the operand o.
-template <int EPI>
+// Eight consecutive outputs (row, col .. col + 7) from their f32 sums v
+// (an s8 product's already times its row's scale) and the operand o.
+// Without TRAIN the dropout and the saved outputs (aux) are compiled out.
+template <bool S8, int EPI, bool TRAIN>
 __device__ __forceinline__ void epilogue8(const float* __restrict__ bias,
                                           bf16* __restrict__ out_bf,
                                           float* __restrict__ out_f,
@@ -309,9 +406,10 @@ __device__ __forceinline__ void epilogue8(const float* __restrict__ bias,
                                           int col, int N, const Opnd& o,
                                           float (&v)[8]) {
   const size_t off = (size_t)row * N + col;
+  const bool dropping = TRAIN && drop.on;
   unsigned bits[8];
   if ((EPI == EPI_GELU || EPI == EPI_RESIDUAL || EPI == EPI_DGELU) &&
-      drop.on)
+      dropping)
     drop_bits8(drop, row, col, bits);
   if (EPI == EPI_DNONE) {
     store8(out_bf + off, v);
@@ -327,22 +425,34 @@ __device__ __forceinline__ void epilogue8(const float* __restrict__ bias,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float e = gelu_erf(hf[i]);  // one erff for gelu' and gelu
-      const float d = drop.on ? drop_value(drop, v[i], bits[i]) : v[i];
+      const float d = dropping ? drop_value(drop, v[i], bits[i]) : v[i];
       v[i] = __fmul_rn(d, gelu_grad_f32(hf[i], e));
-      g[i] = gelu_dropped(drop, hf[i], e, bits[i]);
+      g[i] = gelu_dropped(drop, dropping, hf[i], e, bits[i]);
     }
     store8(out_bf + off, v);
-    if (aux) store8(aux + off, g);
+    if (S8 && out_f) {  // dh in f32, the next gradient quant's input
+      *reinterpret_cast<float4*>(out_f + off) =
+          make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(out_f + off + 4) =
+          make_float4(v[4], v[5], v[6], v[7]);
+    }
+    if (TRAIN && aux) store8(aux + off, g);
   } else if (EPI == EPI_BIAS || EPI == EPI_GELU) {
     float b[8];
     floats8(o.x, o.y, b);
+    if (S8) {  // ((f32(acc) * xs) * ws) + bias
+      float w[8];
+      floats8(o.z, o.w, w);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = __fmul_rn(v[i], w[i]);
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = round_bf16(v[i] + b[i]);
     if (EPI == EPI_GELU) {
-      if (aux) store8(aux + off, v);  // h, bf16-exact already
+      if (TRAIN && aux) store8(aux + off, v);  // h, bf16-exact already
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        v[i] = gelu_dropped(drop, v[i], gelu_erf(v[i]), bits[i]);
+        v[i] = gelu_dropped(drop, dropping, v[i], gelu_erf(v[i]), bits[i]);
     }
     store8(out_bf + off, v);
   } else {  // EPI_RESIDUAL
@@ -351,9 +461,9 @@ __device__ __forceinline__ void epilogue8(const float* __restrict__ bias,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       v[i] = round_bf16(v[i] + b[i]);
-      if (drop.on) v[i] = drop_value(drop, v[i], bits[i]);
+      if (dropping) v[i] = drop_value(drop, v[i], bits[i]);
     }
-    if (aux) store8(aux + off, v);
+    if (TRAIN && aux) store8(aux + off, v);
     unpack8(o.x, x);
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = __fadd_rn(v[i], x[i]);
@@ -366,21 +476,26 @@ __device__ __forceinline__ void epilogue8(const float* __restrict__ bias,
 
 // --- the kernel -------------------------------------------------------- //
 
-template <int EPI>
+// S8: s8 operands and s32 accumulators (x_scale / w_scale the int8
+// products' row and column scales), else bf16 and f32.
+template <bool S8, int EPI, bool TRAIN>
 __global__ void __launch_bounds__(THREADS, 1) gemm_tma_kernel(
     const __grid_constant__ CUtensorMap tma_a,
     const __grid_constant__ CUtensorMap tma_b, const float* __restrict__ bias,
+    const float* __restrict__ x_scale, const float* __restrict__ w_scale,
     const bf16* __restrict__ resid, const bf16* __restrict__ h,
     const float* __restrict__ ds, bf16* __restrict__ out_bf,
     float* __restrict__ out_f, bf16* __restrict__ aux, const DropParams drop,
     int M, int N, int K) {
-  constexpr bool MN_B = mn_b<EPI>();
+  constexpr bool MN_B = mn_b<S8, EPI>();
+  constexpr int BK = bk<S8>();
+  using Acc = typename std::conditional<S8, int, float>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // 128-byte swizzled tiles need 1024-byte aligned bases
   unsigned char* base =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  bf16* sA = reinterpret_cast<bf16*>(base);
-  bf16* sB = reinterpret_cast<bf16*>(base + STAGES * A_BYTES);
+  unsigned char* sA = base;
+  unsigned char* sB = base + STAGES * A_BYTES;
   float* sC = reinterpret_cast<float*>(base + STAGES * STAGE_BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(sC + 4 * WGS * EPI_WARP);
   uint64_t* empty = full + STAGES;
@@ -409,13 +524,13 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tma_kernel(
         const int m0 = t / tiles_n * BM, n0 = t % tiles_n * BN;
         for (int kb = 0; kb < kblocks; ++kb) {
           mbar_wait(&empty[stage], phase ^ 1);
-          bf16* a = sA + stage * (BM * BK);
-          bf16* b = sB + stage * (BN * BK);
+          unsigned char* a = sA + stage * A_BYTES;
+          unsigned char* b = sB + stage * B_BYTES;
           mbar_expect_tx(&full[stage], STAGE_BYTES);
           tma_load(a, &tma_a, &full[stage], kb * BK, m0);
           if (MN_B) {  // two 64-column boxes of w (K, N)
             tma_load(b, &tma_b, &full[stage], n0, kb * BK);
-            tma_load(b + 64 * BK, &tma_b, &full[stage], n0 + 64, kb * BK);
+            tma_load(b + BK * ROW, &tma_b, &full[stage], n0 + 64, kb * BK);
           } else {
             tma_load(b, &tma_b, &full[stage], kb * BK, n0);
           }
@@ -428,7 +543,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tma_kernel(
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
     const int lane = threadIdx.x & 31, cw = threadIdx.x / 32 - 4;
     float* st = sC + cw * EPI_WARP;
-    float acc[BN / 2];
+    Acc acc[BN / 2];
     int stage = 0;
     unsigned phase = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -443,29 +558,40 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tma_kernel(
       auto prefetch = [&](int q) {
         const int row = row0 + (q & 3) * 4, col = col0 + (q >> 2) * 64;
         return EPI != EPI_DNONE && q < PASSES && row < M
-                   ? load_opnd<EPI>(bias, resid, h, ds,
-                                    (size_t)row * N + col, col)
+                   ? load_opnd<S8, EPI>(bias, w_scale, resid, h, ds,
+                                        (size_t)row * N + col, col)
                    : Opnd{};
       };
       Opnd o0 = prefetch(0), o1 = prefetch(1), o2 = prefetch(2);
+      // s8: the scales of the two rows (g, g + 8 of the warp's 16) this
+      // thread's accumulators hold
+      float rs0 = 1.f, rs1 = 1.f;
+      if (S8) {
+        const int r = m0 + (wg - 1) * 64 + (cw & 3) * 16 + (lane >> 2);
+        rs0 = r < M ? x_scale[r] : 0.f;
+        rs1 = r + 8 < M ? x_scale[r + 8] : 0.f;
+      }
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
       int prev = 0;
       for (int kb = 0; kb < kblocks; ++kb) {
         mbar_wait(&full[stage], phase);
-        const bf16* a = sA + stage * (BM * BK) + (wg - 1) * 64 * BK;
-        const bf16* b = sB + stage * (BN * BK);
+        const unsigned char* a = sA + stage * A_BYTES + (wg - 1) * 64 * ROW;
+        const unsigned char* b = sB + stage * B_BYTES;
         fence_acc(acc);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          // K-major: a k16 step is 32 bytes along the swizzled 128-byte
-          // row, 8-row groups 1024 bytes apart.  MN-major B: 16 k-rows of
-          // 128 bytes, 64-column boxes 8192 bytes apart.
-          const uint64_t da = smem_desc(a + kk * 16, 1, 64);
-          const uint64_t db = MN_B ? smem_desc(b + kk * 16 * 64, 512, 64)
-                                   : smem_desc(b + kk * 16, 1, 64);
-          wgmma_n128<MN_B ? 1 : 0>(acc, da, db);
+        for (int kk = 0; kk < 4; ++kk) {
+          // K-major: a k-step (k16 bf16, k32 s8) is 32 bytes along the
+          // swizzled 128-byte row, 8-row groups 1024 bytes apart.  MN-major
+          // B: 16 k-rows of 128 bytes, 64-column boxes 8192 bytes apart.
+          const uint64_t da = smem_desc(a + kk * 32, 1, 64);
+          const uint64_t db = MN_B ? smem_desc(b + kk * 16 * ROW, 512, 64)
+                                   : smem_desc(b + kk * 32, 1, 64);
+          if constexpr (S8)
+            wgmma_n128_s8(acc, da, db);
+          else
+            wgmma_n128<MN_B ? 1 : 0>(acc, da, db);
         }
         wgmma_commit();
         fence_acc(acc);
@@ -489,10 +615,12 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tma_kernel(
         for (int jj = 0; jj < 8; ++jj) {
           const int j = c * 8 + jj;
           *reinterpret_cast<float2*>(st + g * EPI_LD + jj * 8 + 2 * t4) =
-              make_float2(acc[4 * j], acc[4 * j + 1]);
+              make_float2(to_f32(acc[4 * j], rs0),
+                          to_f32(acc[4 * j + 1], rs0));
           *reinterpret_cast<float2*>(st + (g + 8) * EPI_LD + jj * 8 +
                                      2 * t4) =
-              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+              make_float2(to_f32(acc[4 * j + 2], rs1),
+                          to_f32(acc[4 * j + 3], rs1));
         }
         __syncwarp();
         // one copy of the epilogue's code per 64 columns: unrolled, the
@@ -512,8 +640,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tma_kernel(
           float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
           const int row = row0 + p * 4, col = col0 + c * 64;
           if (row < M)
-            epilogue8<EPI>(bias, out_bf, out_f, aux, drop, row, col, N, o,
-                           v);
+            epilogue8<S8, EPI, TRAIN>(bias, out_bf, out_f, aux, drop, row,
+                                      col, N, o, v);
         }
         __syncwarp();
       }
@@ -541,18 +669,21 @@ PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// A tensor map of a row-major (outer, inner) bf16 matrix, box (box_outer,
-// box_inner) with box_inner = 64 (128 bytes, the swizzle's width).
+// A tensor map of a row-major (outer, inner) bf16 or s8 matrix, box
+// (box_outer, 128 bytes: the swizzle's width).
+template <bool S8>
 int encode(CUtensorMap* map, const void* ptr, int inner, int outer,
            int box_outer) {
   const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * (S8 ? 1 : 2)};
+  const cuuint32_t box[2] = {(cuuint32_t)bk<S8>(), (cuuint32_t)box_outer};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
+  const CUresult r = fn(map,
+                        S8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        2, const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -572,6 +703,8 @@ int sm_count() {
 
 struct Operands {
   const float* bias;
+  const float* x_scale;
+  const float* w_scale;
   const bf16* resid;
   const bf16* h;
   const float* ds;
@@ -580,26 +713,29 @@ struct Operands {
   bf16* aux;
 };
 
-template <int EPI>
+template <bool S8, int EPI, bool TRAIN = true>
 int launch(const void* a, const void* w, const Operands& o,
            const DropParams& drop, int M, int N, int K, cudaStream_t s) {
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_tma_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM);
+        gemm_tma_kernel<S8, EPI, TRAIN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   CUtensorMap ta, tb;
-  int rc = encode(&ta, a, K, M, BM);
-  if (rc == 0)  // w (K, N) in 64 x 64 boxes, or w (N, K) in BN x 64 boxes
-    rc = mn_b<EPI>() ? encode(&tb, w, N, K, BK) : encode(&tb, w, K, N, BN);
+  int rc = encode<S8>(&ta, a, K, M, BM);
+  if (rc == 0)  // w (K, N) in 64-column boxes BK deep, or w (N, K) in BN-row
+                // boxes 128 bytes deep
+    rc = mn_b<S8, EPI>() ? encode<S8>(&tb, w, N, K, bk<S8>())
+                         : encode<S8>(&tb, w, K, N, BN);
   if (rc != 0) return rc;
   const int tiles = (M + BM - 1) / BM * (N / BN);
-  gemm_tma_kernel<EPI><<<std::min(tiles, sm_count()), THREADS, SMEM, s>>>(
-          ta, tb, o.bias, o.resid, o.h, o.ds, o.out_bf, o.out_f, o.aux, drop,
-          M, N, K);
+  gemm_tma_kernel<S8, EPI, TRAIN>
+      <<<std::min(tiles, sm_count()), THREADS, SMEM, s>>>(
+          ta, tb, o.bias, o.x_scale, o.w_scale, o.resid, o.h, o.ds, o.out_bf,
+          o.out_f, o.aux, drop, M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -622,8 +758,8 @@ int nbk_gemm_bias_act(const void* a, const void* w, const float* bias,
   o.bias = bias;
   o.out_bf = static_cast<bf16*>(out);
   o.aux = static_cast<bf16*>(h_out);
-  if (act == 0) return launch<EPI_BIAS>(a, w, o, d, M, N, K, s);
-  if (act == 1) return launch<EPI_GELU>(a, w, o, d, M, N, K, s);
+  if (act == 0) return launch<false, EPI_BIAS>(a, w, o, d, M, N, K, s);
+  if (act == 1) return launch<false, EPI_GELU>(a, w, o, d, M, N, K, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -640,7 +776,7 @@ int nbk_gemm_bias_residual(const void* a, const void* w, const float* bias,
   o.resid = static_cast<const bf16*>(resid);
   o.out_f = out;
   o.aux = static_cast<bf16*>(y2d_out);
-  return launch<EPI_RESIDUAL>(
+  return launch<false, EPI_RESIDUAL>(
       a, w, o, make_drop(seed, stream, thresh, inv_keep, drop_on), M, N, K,
       static_cast<cudaStream_t>(cuda_stream));
 }
@@ -664,9 +800,62 @@ int nbk_gemm_dgrad(const void* a, const void* w, void* out, const void* h,
   o.ds = ds;
   o.out_bf = static_cast<bf16*>(out);
   o.aux = static_cast<bf16*>(gd_out);
-  if (epi == 0) return launch<EPI_DGELU>(a, w, o, d, M, N, K, s);
-  if (epi == 1) return launch<EPI_DX>(a, w, o, d, M, N, K, s);
-  if (epi == 2) return launch<EPI_DNONE>(a, w, o, d, M, N, K, s);
+  if (epi == 0) return launch<false, EPI_DGELU>(a, w, o, d, M, N, K, s);
+  if (epi == 1) return launch<false, EPI_DX>(a, w, o, d, M, N, K, s);
+  if (epi == 2) return launch<false, EPI_DNONE>(a, w, o, d, M, N, K, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// out (M, N) bf16 = act(bf16(((f32(a (M, K) s8 . wt (N, K) s8) * x_scale)
+// * w_scale) + bias)); act 0 = none, 1 = erf-GELU followed by Philox
+// dropout when drop_on.  h_out (M, N) bf16, if not null, receives the bf16
+// value before the GELU.  Requires N % 128 == 0, K % 16 == 0 and 16-byte
+// aligned operands.
+int nbk_gemm_i8_bias_act(const void* a, const float* x_scale, const void* wt,
+                         const float* w_scale, const float* bias, void* out,
+                         void* h_out, int M, int N, int K, int act,
+                         unsigned long long seed, int stream, unsigned thresh,
+                         float inv_keep, int drop_on, void* cuda_stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  const DropParams d = make_drop(seed, stream, thresh, inv_keep, drop_on);
+  Operands o = {};
+  o.bias = bias;
+  o.x_scale = x_scale;
+  o.w_scale = w_scale;
+  o.out_bf = static_cast<bf16*>(out);
+  o.aux = static_cast<bf16*>(h_out);
+  if (act == 0) return launch<true, EPI_BIAS, false>(a, wt, o, d, M, N, K, s);
+  if (act != 1) return (int)cudaErrorInvalidValue;
+  // serving's GELU launch has neither dropout nor a saved h
+  return drop_on || h_out
+             ? launch<true, EPI_GELU, true>(a, wt, o, d, M, N, K, s)
+             : launch<true, EPI_GELU, false>(a, wt, o, d, M, N, K, s);
+}
+
+// The int8 dgrads, d = f32(a (M, K) s8 . wt (N, K) s8 ^T) * g_scale (M,):
+// epi 0 (dgelu): out = dh (M, N) bf16 = bf16(drop(d) * gelu'(h)), h (M, N)
+//   bf16; dh_f32 (M, N) f32, if not null, receives dh unrounded; gd_out
+//   (M, N) bf16, if not null, receives bf16(drop(gelu(h))).
+// epi 1 (residual): out = dx (M, N) bf16 = bf16(ds + d), ds (M, N) f32.
+// epi 2 (none): out (M, N) bf16 = bf16(d).
+// Requires N % 128 == 0, K % 16 == 0 and 16-byte aligned operands.
+int nbk_gemm_i8_dgrad(const void* a, const float* g_scale, const void* wt,
+                      void* out, float* dh_f32, const void* h, void* gd_out,
+                      const float* ds, int M, int N, int K, int epi,
+                      unsigned long long seed, int stream, unsigned thresh,
+                      float inv_keep, int drop_on, void* cuda_stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  const DropParams d = make_drop(seed, stream, thresh, inv_keep, drop_on);
+  Operands o = {};
+  o.x_scale = g_scale;
+  o.h = static_cast<const bf16*>(h);
+  o.ds = ds;
+  o.out_bf = static_cast<bf16*>(out);
+  o.out_f = dh_f32;
+  o.aux = static_cast<bf16*>(gd_out);
+  if (epi == 0) return launch<true, EPI_DGELU, true>(a, wt, o, d, M, N, K, s);
+  if (epi == 1) return launch<true, EPI_DX, false>(a, wt, o, d, M, N, K, s);
+  if (epi == 2) return launch<true, EPI_DNONE, false>(a, wt, o, d, M, N, K, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -36,12 +36,18 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Pins the accumulators around asynchronous wgmma, so the compiler moves
-// no access to them across an issue or a wait.
+// Pins the accumulators (f32, or an s8 product's s32) around asynchronous
+// wgmma, so the compiler moves no access to them across an issue or a
+// wait.
 template <int R>
 __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Makes this thread's shared-memory writes (st.shared, cp.async) visible

@@ -23,7 +23,9 @@ The two int8 serving megakernels reuse ``seg_attention`` and
 
 where ``dequant(acc) = (f32(acc) * x_scale) * w_scale``, the int8 weight
 ``wq`` (K, N) is stored column-major (``quant.kernel_layout``) and its
-per-output-channel scale ``ws`` is (N,) f32.
+per-output-channel scale ``ws`` is (N,) f32.  ``gemm_i8_bias_act`` runs
+the ``wgmma`` + TMA GEMM of ``csrc/gemm_wgmma.cu`` in s8,
+``gemm_i8_bias_residual`` the ``mma.sync`` GEMM of ``csrc/gemm_i8.cu``.
 
 The FFN block's training chain (``ops/fused_ffn.py``) gives
 ``gemm_bias_act`` and ``gemm_bias_residual`` a Philox dropout site
@@ -65,7 +67,8 @@ their int8 backwards:
 - ``gemm_i8_dgrad``      -- ``f32(gq . wq^T) * g_scale`` for the quantized
                             (in, out) weight row-major, with the "dgelu"
                             (dh in bf16 and f32, the regenerated gd),
-                            "residual" and "none" epilogues
+                            "residual" and "none" epilogues (the s8
+                            ``wgmma`` + TMA GEMM)
 
 The encoder's plain-block route (``use_fused_ln``, ``use_fused_gelu``,
 ``use_fused_embedding``; ``ops/fused_ln.py``, ``ops/fused_gelu.py``,
@@ -164,8 +167,9 @@ def _gemm_dims(name: str, a: torch.Tensor, w: torch.Tensor,
 
 
 def _aligned16(name: str, **tensors) -> None:
-    """The TMA kernels (csrc/gemm_wgmma.cu) load and store 16 bytes at a
-    time from each operand's base (the bias too)."""
+    """The TMA kernels (csrc/gemm_wgmma.cu, bf16 and int8) load and store
+    16 bytes at a time from each operand's base (the bias and scales
+    too)."""
     for arg, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned, its "
@@ -1021,15 +1025,20 @@ def gemm_i8_bias_act(xq, xs, wq, ws, bias, act: str = "none",
         raise TypeError(f"gemm_i8_bias_act: the kernel writes bf16, not "
                         f"{out_dtype}")
     M, N, K = _i8_operands("gemm_i8_bias_act", xq, xs, wq, ws, bias)
+    _aligned16("gemm_i8_bias_act", xq=xq, x_scale=xs, wq=wq, w_scale=ws,
+               bias=bias)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
-    h = torch.empty_like(out) if save_h else None
+    gelu_h = save_h and act == "gelu"     # without the GELU, h is out
+    h = torch.empty_like(out) if gelu_h else None
     rc = _cuda.lib().nbk_gemm_i8_bias_act(
         xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
         bias.data_ptr(), out.data_ptr(), _ptr(h), M, N, K,
         1 if act == "gelu" else 0, *_drop_args(drop), _stream(xq))
     _cuda.check(rc, "gemm_i8_bias_act")
     _cuda.launch_counts["gemm_i8_bias_act"] += 1
-    return (h, out) if save_h else out
+    if save_h:
+        return (h if gelu_h else out), out
+    return out
 
 
 def gemm_i8_bias_residual(xq, xs, wq, ws, bias, resid, drop=None,
@@ -1122,6 +1131,7 @@ def gemm_i8_dgrad(gq, gs, wq, epilogue: str, h=None, ds=None, drop=None,
         gd = torch.empty_like(out)
     elif epilogue == "residual":
         _expect("gemm_i8_dgrad", "ds", ds, torch.float32, (M, N))
+    _aligned16("gemm_i8_dgrad", gq=gq, g_scale=gs, wq=wq, h=h, ds=ds)
     rc = _cuda.lib().nbk_gemm_i8_dgrad(
         gq.data_ptr(), gs.data_ptr(), wq.data_ptr(), out.data_ptr(),
         _ptr(dh32), _ptr(h), _ptr(gd), _ptr(ds), M, N, K,

@@ -81,13 +81,14 @@ def _gather(futures, n: int, width: int, dtype) -> np.ndarray:
 
 # Whether int8 serving beat bf16 on the card in every length bucket:
 # ``predict`` utt/s of Predictor(quantize="int8") against
-# quantize="none", BERT-base, batch 64, requests of 256 utterances.  It
-# did not (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the int8 layer's
-# kernels take 13% less time at seq 256 and int8 serves up to 18% more
-# utt/s at seq 96-256 in most runs, but at seq 64 the forward is bound by
-# host launch overhead, where the int8 chain's four extra launches per
-# layer cost 1.9-2.8 ms of host time per forward, and int8 served 2-26%
-# fewer utt/s there in most runs.
+# quantize="none", BERT-base, batch 64, requests of 256 utterances,
+# alternated A B B A (chip_smoke.py).  It did not (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md): int8 served 9905 / 9991 / 5430 / 4445 utt/s against
+# bf16's 11473 / 11292 / 7206 / 4971 at seq 64 / 96 / 160 / 256, and the
+# int8 encoder forward at 64 x 256 takes 9.64 ms of device time against
+# bf16's 8.07 (chip_time_attention.py).  The int8 residual GEMM, the
+# per-token quant passes and, at seq 64, the host time of the int8
+# chain's four extra launches per layer outweigh the int8 products' gain.
 INT8_FASTER_ON_CUDA = False
 
 

@@ -24,17 +24,21 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from nbest_asr_tpu.ops import fused_ffn as jffn
 from nbest_asr_tpu.ops import quant as jquant
 from nbest_asr_tpu.ops.fused_attention import \
     fused_attention_block_int8_train as jax_attn_i8
 from nbest_asr_tpu.ops.fused_ffn import \
     fused_ffn_block_int8_train as jax_ffn_i8
+from nbest_asr_tpu.ops.int8_serving import _dense_i8 as jax_dense_i8
 from nbest_asr_tpu_torch.ops import _cuda
 from nbest_asr_tpu_torch.ops import fused_attention as fa
 from nbest_asr_tpu_torch.ops import fused_ffn as ff
 from nbest_asr_tpu_torch.ops import kernels as K
 from nbest_asr_tpu_torch.ops.philox import Dropout, keep_mask
-from nbest_asr_tpu_torch.ops.quant import (dgrad_int8, quantize_train_weight,
+from nbest_asr_tpu_torch.ops.quant import (dgrad_int8, kernel_layout,
+                                           quantize_rows_reference,
+                                           quantize_train_weight,
                                            quantize_weight)
 
 H, INTER, NH = 128, 256, 2
@@ -149,6 +153,113 @@ def test_dgrad_int8_matches_jax_and_the_kernel_pair():
     pair = K.gemm_i8_dgrad(*K.quantize_grad_rows(torch.from_numpy(g), ws),
                            wq, "none", out_dtype=torch.float32)
     np.testing.assert_array_equal(pair.numpy(), want)
+
+
+# Rows around the s8 wgmma GEMM's 192-row tile and depths that half-fill
+# its 128-deep stage (K = 64 * odd): the plain versions the card tests hold
+# gemm_i8_bias_act and gemm_i8_dgrad to, against JAX's int8 products at
+# those shapes.  N = 256: two 128-column tiles.
+TILE_M = (1, 191, 193)
+TILE_K = (64, 192, 768)
+TILE_N = 256
+
+
+def _bf16_bits(t):
+    """bf16 values as int16 bit patterns (numpy has no bf16)."""
+    return t.contiguous().view(torch.int16).numpy()
+
+
+def _jax_bf16_bits(a):
+    return torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16).view(torch.int16).numpy()
+
+
+def _bf16_ulps(got, want32):
+    """Largest |got - want| in bf16 ulps of ``want``, f32 arrays."""
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want32), 2.0 ** -126)))
+                  - 7)
+    return float((np.abs(got - want32) / ulp).max())
+
+
+@pytest.mark.parametrize("k", TILE_K)
+@pytest.mark.parametrize("m", TILE_M)
+@pytest.mark.parametrize("act", ["none", "gelu"])
+def test_i8_bias_act_plain_matches_jax_at_tile_edges(act, m, k):
+    """``quantize_rows_reference`` + ``gemm_i8_bias_act_reference`` at
+    dropout 0 against ``int8_serving._dense_i8`` (none) and
+    ``fused_ffn._dense_i8_f32`` (GELU's h): h bit for bit; the GELU output
+    within one bf16 ulp (JAX's A&S erf against the exact one)."""
+    rng = np.random.RandomState(100 * m + k)
+    x = (rng.randn(m, k) * 0.5).astype(np.float32)
+    w = (rng.randn(k, TILE_N) * 0.05).astype(np.float32)
+    b = (rng.randn(TILE_N) * 0.02).astype(np.float32)
+    jq, js = jquant.quantize_weight(jnp.asarray(w), axis_in=-2)
+    q, ws = quantize_weight(torch.from_numpy(w))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    xq, xs = quantize_rows_reference(torch.from_numpy(x))
+    h, y = K.gemm_i8_bias_act_reference(
+        xq, xs, kernel_layout(q), ws.reshape(-1), torch.from_numpy(b), act,
+        save_h=True)
+    jx, jb = jnp.asarray(x), jnp.asarray(b)[None]
+    if act == "none":
+        want_h = jax_dense_i8(jx, jq, js, jb, jnp.bfloat16)
+        np.testing.assert_array_equal(_bf16_bits(y), _jax_bf16_bits(want_h))
+    else:
+        want_h = jffn._dense_i8_f32(jx, jq, js, jb).astype(jnp.bfloat16)
+        want_g = jffn._gelu_f32(want_h.astype(jnp.float32))
+        assert _bf16_ulps(y.float().numpy(), np.asarray(
+            want_g.astype(jnp.bfloat16).astype(jnp.float32))) <= 1.0
+    np.testing.assert_array_equal(_bf16_bits(h), _jax_bf16_bits(want_h))
+
+
+@pytest.mark.parametrize("k", TILE_K)
+@pytest.mark.parametrize("m", TILE_M)
+@pytest.mark.parametrize("epilogue", ["dgelu", "residual", "none"])
+def test_i8_dgrad_plain_matches_jax_at_tile_edges(epilogue, m, k):
+    """``quantize_grad_rows_reference`` + ``gemm_i8_dgrad_reference`` at
+    dropout 0 against ``fused_ffn._dgrad_rows_i8`` and the epilogue
+    arithmetic of JAX's int8 backwards: the product d bit for bit, the
+    residual (``ds + d``) and none outputs bit for bit after their bf16
+    rounding; dgelu's ``d * gelu'(h)`` where JAX's A&S erf meets the
+    exact one -- f32 dh within 1e-6 of its largest value and zero where
+    JAX's is, bf16 dh and the regenerated gd within one bf16 ulp."""
+    rng = np.random.RandomState(100 * m + k + 7)
+    w = (rng.randn(TILE_N, k) * 0.05).astype(np.float32)   # (in, out)
+    g = (rng.randn(m, k) * 1e-3).astype(np.float32)
+    jq, js = jquant.quantize_weight(jnp.asarray(w), axis_in=-2)
+    _, wr, ws = quantize_train_weight(torch.from_numpy(w))
+    want_d = jffn._dgrad_rows_i8(jnp.asarray(g), jq, js)
+    gq, gs = K.quantize_grad_rows_reference(torch.from_numpy(g), ws)
+    d = K.gemm_i8_dgrad_reference(gq, gs, wr, "none",
+                                  out_dtype=torch.float32)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(want_d))
+    if epilogue == "none":
+        np.testing.assert_array_equal(
+            _bf16_bits(K.gemm_i8_dgrad_reference(gq, gs, wr, "none")),
+            _jax_bf16_bits(want_d.astype(jnp.bfloat16)))
+    elif epilogue == "residual":
+        ds = rng.randn(m, TILE_N).astype(np.float32)
+        got = K.gemm_i8_dgrad_reference(gq, gs, wr, "residual",
+                                        ds=torch.from_numpy(ds))
+        np.testing.assert_array_equal(
+            _bf16_bits(got),
+            _jax_bf16_bits((jnp.asarray(ds) + want_d).astype(jnp.bfloat16)))
+    else:
+        h = torch.from_numpy(rng.randn(m, TILE_N).astype(np.float32)).to(
+            torch.bfloat16)
+        dh, dh32, gd = K.gemm_i8_dgrad_reference(gq, gs, wr, "dgelu", h=h)
+        jh = jnp.asarray(h.float().numpy())
+        want_dh = np.array(want_d * jffn._gelu_grad_f32(jh))
+        want_gd = np.asarray(jffn._gelu_f32(jh).astype(jnp.bfloat16).astype(
+            jnp.float32))
+        np.testing.assert_array_equal(dh32.numpy() == 0, want_dh == 0)
+        np.testing.assert_allclose(dh32.numpy(), want_dh, rtol=0,
+                                   atol=1e-6 * np.abs(want_dh).max())
+        nz = want_dh != 0
+        want_dh16 = torch.from_numpy(want_dh).to(torch.bfloat16).float()
+        assert _bf16_ulps(dh.float().numpy()[nz],
+                          want_dh16.numpy()[nz]) <= 1.0
+        assert _bf16_ulps(gd.float().numpy(), want_gd) <= 1.0
 
 
 def test_weights_are_quantized_from_their_bf16_cast(monkeypatch):

@@ -220,19 +220,37 @@ def test_quantize_rows(dev, m, dtype):
         assert (q[1] == 0).all()
 
 
+# The int8 GEMMs' rows: one to 8192, around the s8 wgmma kernel's 192-row
+# tile (193) and off it; depths beside the encoder's: K = 192 half-fills
+# the 128-deep s8 stage.
+I8_M = [1, 60, 193, 300, 8192]
+
+
+def _twice(fn):
+    """The launch's outputs, held bit-equal to a second launch's."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    for a, b in zip(*(o if isinstance(o, tuple) else (o,)
+                      for o in (first, second))):
+        assert torch.equal(a, b)
+    return first
+
+
+@pytest.mark.parametrize("k192", [False, True], ids=["k", "k192"])
 @pytest.mark.parametrize("epi", ["none", "gelu", "residual"])
-@pytest.mark.parametrize("m", [1, 60, 300])
-def test_gemm_i8_epilogues(dev, m, epi):
+@pytest.mark.parametrize("m", I8_M)
+def test_gemm_i8_epilogues(dev, m, epi, k192):
     k, n = (3072, 768) if epi == "residual" else (768, 2304)
+    k = 192 if k192 else k
     xq, xs = K.quantize_rows(_rand(dev, m, k, seed=m + 1))
     wq, ws = _i8_weight(dev, k, n, seed=m + 2)
     b = _rand(dev, n, std=0.1, dtype=torch.float32, seed=m + 3)
     if epi == "residual":
         r = _rand(dev, m, n, seed=m + 4)
-        got = K.gemm_i8_bias_residual(xq, xs, wq, ws, b, r)
+        got = _twice(lambda: K.gemm_i8_bias_residual(xq, xs, wq, ws, b, r))
         want = K.gemm_i8_bias_residual_reference(xq, xs, wq, ws, b, r)
     else:
-        got = K.gemm_i8_bias_act(xq, xs, wq, ws, b, epi)
+        got = _twice(lambda: K.gemm_i8_bias_act(xq, xs, wq, ws, b, epi))
         want = K.gemm_i8_bias_act_reference(xq, xs, wq, ws, b, epi)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -274,6 +292,16 @@ def test_int8_blocks(dev, packed):
     _close(got, int8_ffn_block_reference(*ffn))
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose address is one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
 def test_i8_wrappers_refuse_and_count(dev):
     """Dtypes, shapes and layouts the kernels do not take raise on CUDA
     tensors; nothing falls back to the plain version."""
@@ -298,6 +326,14 @@ def test_i8_wrappers_refuse_and_count(dev):
         K.gemm_i8_bias_act(xq, xs, wq, ws, b, out_dtype=torch.float32)
     with pytest.raises(TypeError):
         K.gemm_i8_bias_residual(xq, xs, wq, ws, b, r.float())
+    # TMA and the 16-byte epilogue loads: operands off a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_i8_bias_act(_misaligned(xq), xs, wq, ws, b)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_i8_bias_act(xq, xs, wq, _misaligned(ws), b)
+    # without the GELU, the saved h is the output itself
+    h, y = K.gemm_i8_bias_act(xq, xs, wq, ws, b, save_h=True)
+    assert h is y
     _cuda.reset_launch_counts()
     K.quantize_rows(x)
     K.gemm_i8_bias_act(xq, xs, wq, ws, b, "gelu")
@@ -762,17 +798,18 @@ def _i8_train_weight(dev, k, n, seed):
     return quantize_train_weight(_rand(dev, k, n, std=0.05, seed=seed))
 
 
+@pytest.mark.parametrize("k", [768, 192])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("m", [1, 60, 300])
-def test_gemm_i8_train_epilogues(dev, m, rate):
+@pytest.mark.parametrize("m", I8_M)
+def test_gemm_i8_train_epilogues(dev, m, rate, k):
     from nbest_asr_tpu_torch.ops.philox import keep_mask
 
-    xq, xs = K.quantize_rows(_rand(dev, m, 768, seed=m + 110))
-    w1q, _, w1s = _i8_train_weight(dev, 768, 3072, m + 111)
+    xq, xs = K.quantize_rows(_rand(dev, m, k, seed=m + 110))
+    w1q, _, w1s = _i8_train_weight(dev, k, 3072, m + 111)
     b1 = _rand(dev, 3072, std=0.1, dtype=torch.float32, seed=m + 112)
     d1, d2 = _drop(rate, 1), _drop(rate, 2)
-    h, gd = K.gemm_i8_bias_act(xq, xs, w1q, w1s, b1, "gelu", drop=d1,
-                               save_h=True)
+    h, gd = _twice(lambda: K.gemm_i8_bias_act(xq, xs, w1q, w1s, b1, "gelu",
+                                              drop=d1, save_h=True))
     torch.cuda.synchronize()
     rh, rgd = K.gemm_i8_bias_act_reference(xq, xs, w1q, w1s, b1, "gelu",
                                            torch.bfloat16, d1, True)
@@ -783,8 +820,8 @@ def test_gemm_i8_train_epilogues(dev, m, rate):
     w2q, _, w2s = _i8_train_weight(dev, 3072, 768, m + 113)
     b2 = _rand(dev, 768, std=0.1, dtype=torch.float32, seed=m + 114)
     x = _rand(dev, m, 768, seed=m + 115)
-    s, y2d = K.gemm_i8_bias_residual(gq, gs, w2q, w2s, b2, x, drop=d2,
-                                     save_y2d=True)
+    s, y2d = _twice(lambda: K.gemm_i8_bias_residual(
+        gq, gs, w2q, w2s, b2, x, drop=d2, save_y2d=True))
     torch.cuda.synchronize()
     rs, ry2d = K.gemm_i8_bias_residual_reference(gq, gs, w2q, w2s, b2, x,
                                                  d2, True)
@@ -811,19 +848,24 @@ def test_quantize_grad_rows(dev, m, k, rate, dtype):
         assert (q[~keep_mask(1234, 4, 0, m, k, rate, dev)] == 0).all()
 
 
-@pytest.mark.parametrize("epilogue", ["dgelu", "residual", "none"])
-@pytest.mark.parametrize("m", [1, 60, 300, 8192])
-def test_gemm_i8_dgrad(dev, m, epilogue):
+@pytest.mark.parametrize("k192", [False, True], ids=["k", "k192"])
+@pytest.mark.parametrize("epilogue,rate", [("dgelu", 0.1), ("dgelu", 0.0),
+                                           ("residual", 0.0),
+                                           ("none", 0.0)])
+@pytest.mark.parametrize("m", I8_M)
+def test_gemm_i8_dgrad(dev, m, epilogue, rate, k192):
     n_in, n_out = {"dgelu": (3072, 768), "residual": (768, 3072),
                    "none": (768, 768)}[epilogue]
+    n_out = 192 if k192 else n_out       # the dgrad's depth K
     _, wr, ws = _i8_train_weight(dev, n_in, n_out, m + 130)
     gq, gs = K.quantize_grad_rows(_rand(dev, m, n_out, std=1e-3,
                                         dtype=torch.float32, seed=m + 131),
                                   ws)
     if epilogue == "dgelu":
         h = _rand(dev, m, n_in, seed=m + 132)
-        d1 = _drop(0.1, 1)
-        dh, dh32, gd = K.gemm_i8_dgrad(gq, gs, wr, "dgelu", h=h, drop=d1)
+        d1 = _drop(rate, 1)
+        dh, dh32, gd = _twice(lambda: K.gemm_i8_dgrad(gq, gs, wr, "dgelu",
+                                                      h=h, drop=d1))
         torch.cuda.synchronize()
         rdh, rdh32, rgd = K.gemm_i8_dgrad_reference(gq, gs, wr, "dgelu", h=h,
                                                     drop=d1)
@@ -837,12 +879,12 @@ def test_gemm_i8_dgrad(dev, m, epilogue):
         assert _ulps(gd[rgd != 0], rgd[rgd != 0]) <= 1.0
     elif epilogue == "residual":
         ds = _rand(dev, m, n_in, dtype=torch.float32, seed=m + 133)
-        dx = K.gemm_i8_dgrad(gq, gs, wr, "residual", ds=ds)
+        dx = _twice(lambda: K.gemm_i8_dgrad(gq, gs, wr, "residual", ds=ds))
         torch.cuda.synchronize()
         assert torch.equal(dx, K.gemm_i8_dgrad_reference(gq, gs, wr,
                                                          "residual", ds=ds))
     else:
-        out = K.gemm_i8_dgrad(gq, gs, wr, "none")
+        out = _twice(lambda: K.gemm_i8_dgrad(gq, gs, wr, "none"))
         torch.cuda.synchronize()
         assert torch.equal(out, K.gemm_i8_dgrad_reference(gq, gs, wr,
                                                           "none"))
@@ -917,6 +959,11 @@ def test_int8_train_wrappers_refuse_and_count(dev):
         K.gemm_i8_dgrad(gq, gs, wr.t().contiguous(), "none")
     with pytest.raises(TypeError, match="bf16"):
         K.gemm_i8_dgrad(gq, gs, wr, "none", out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_i8_dgrad(_misaligned(gq), gs, wr, "none")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_i8_dgrad(gq, gs, wr, "dgelu",
+                        h=_misaligned(_rand(dev, 64, 3072)))
     x = _rand(dev, 2, 32, 768).requires_grad_(True)
     w = [_rand(dev, 768, 3072, std=0.02), torch.zeros(3072, device=dev),
          _rand(dev, 3072, 768, std=0.02), torch.zeros(768, device=dev),
