@@ -1,0 +1,130 @@
+#!/usr/bin/env python3
+"""Probe one checkout's built kernels on an NVIDIA GPU, to compare two
+commits' kernels beyond their times:
+
+    python3 chip_kernel_probe.py --root CHECKOUT sass NAME
+    python3 chip_kernel_probe.py --root CHECKOUT gelu-dump OUT.pt
+    python3 chip_kernel_probe.py compare A.pt B.pt
+
+``--root`` is the root of a checkout of this repository (default: the
+directory of this script); its kernels are built into its own ``build/``.
+``sass`` prints, for each kernel instance whose mangled name contains
+NAME, its SASS instruction count and, for its longest loop (the body from
+a backward branch's target to the branch), the instructions, MUFU
+instructions and branches in it, from ``cuobjdump -sass`` of the built
+library.  ``gelu-dump`` saves ``bias_gelu`` and ``bias_gelu_bwd`` outputs
+on fixed inputs: every bf16 value as x (bias 0, and random), in bf16 and
+widened to f32; 4 M random f32 bit patterns; random operands with special
+values, bf16 and f32, at N % 8 == 0 and N % 8 == 4.  ``compare`` holds two
+dumps bit for bit and names the cases that differ.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import subprocess
+import sys
+
+import torch
+
+SPECIAL = [0.0, -0.0, 1e-30, -1e-30, 1e30, -1e30, float("inf"),
+           float("-inf"), float("nan"), 5.0, -5.0, 12.0, 3.4e38, -3.4e38,
+           1e-45, -1e-45]
+
+
+def sass(name: str) -> None:
+    from nbest_asr_tpu_torch.ops import _cuda
+
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(_cuda.build())],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        fn = block.split("\n", 1)[0].strip()
+        if name not in fn:
+            continue
+        ins = [(int(a, 16), op) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", block)]
+        loop = []
+        for addr, op in ins:
+            m = re.search(r"\bBRA (0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < addr:
+                body = [o for a, o in ins if int(m.group(1), 16) <= a <= addr]
+                loop = max(loop, body, key=len)
+        print(f"{fn}: {len(ins)} instructions; longest loop {len(loop)} "
+              f"(MUFU {sum('MUFU' in o for o in loop)}, branches "
+              f"{sum('BRA' in o for o in loop)})")
+
+
+def gelu_dump(out: str) -> None:
+    from nbest_asr_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(5)
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for m, n in ((8192, 3072), (193, 3076)):
+            x = (torch.randn(m, n, generator=g) * 3).to(dt)
+            x.view(-1)[:len(SPECIAL)] = torch.tensor(SPECIAL).to(dt)
+            b = torch.randn(n, generator=g)
+            b[:len(SPECIAL)] = 0
+            dy = torch.randn(m, n, generator=g).to(dt)
+            x, b, dy = x.to(dev), b.to(dev), dy.to(dev)
+            res[f"fwd {dt} {m} x {n}"] = K.bias_gelu(x, b).cpu()
+            res[f"bwd {dt} {m} x {n}"] = K.bias_gelu_bwd(x, b, dy).cpu()
+    every = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16).reshape(64, 1024).to(dev)
+    for tag, b in (("bias 0", torch.zeros(1024)),
+                   ("bias random", torch.randn(1024, generator=g))):
+        b, dy = b.to(dev), torch.ones_like(every)
+        res[f"every bf16 fwd, {tag}"] = K.bias_gelu(every, b).cpu()
+        res[f"every bf16 bwd, {tag}"] = K.bias_gelu_bwd(every, b, dy).cpu()
+        res[f"every bf16 as f32 bwd, {tag}"] = K.bias_gelu_bwd(
+            every.float(), b, dy.float()).cpu()
+    bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (4096, 1024), generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    x, b0 = bits.view(torch.float32).to(dev), torch.zeros(1024, device=dev)
+    res["f32 bit patterns fwd"] = K.bias_gelu(x, b0).cpu()
+    res["f32 bit patterns bwd"] = K.bias_gelu_bwd(x, b0,
+                                                  torch.ones_like(x)).cpu()
+    torch.save(res, out)
+    print(f"{len(res)} cases -> {out}")
+
+
+def compare(a_path: str, b_path: str) -> int:
+    def bits(t):
+        return t.view({torch.bfloat16: torch.int16,
+                       torch.float32: torch.int32}[t.dtype])
+
+    a, b = torch.load(a_path), torch.load(b_path)
+    differ = [k for k in a if k not in b
+              or not torch.equal(bits(a[k]), bits(b[k]))]
+    print(f"{a_path} vs {b_path}: {len(a)} cases, {len(differ)} differ in "
+          f"a bit: {differ}")
+    return 1 if differ else 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
+        __file__)))
+    ap.add_argument("what", choices=("sass", "gelu-dump", "compare"))
+    ap.add_argument("args", nargs="+")
+    args = ap.parse_args()
+    if args.what == "compare":
+        return compare(*args.args)
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: this script probes the "
+                           "port's kernels on an NVIDIA GPU")
+    sys.path.insert(0, os.path.abspath(args.root))
+    if args.what == "sass":
+        sass(args.args[0])
+    else:
+        gelu_dump(args.args[0])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -123,7 +123,8 @@ Phases, each fatal on failure:
    (``phase_rows_kernels``): ``residual_layer_norm`` and
    ``residual_layer_norm_bwd`` at 8192 x 768 and 7688 x 1024, bf16 and
    f32; ``bias_gelu`` and ``bias_gelu_bwd`` at 8192 x 3072 and 7688 x
-   4096; ``embed_lookup`` at 8192 and 7688 tokens, f32 and bf16 tables,
+   4096, bf16, and 193 x 3076 (their 4-wide instance), bf16 and f32;
+   ``embed_lookup`` at 8192 and 7688 tokens, f32 and bf16 tables,
    offsets 0 and 2, with and without type ids; kernel / plain / library
    / bound ms per training layer at 8192 rows.
 12. Route C's training: ``make_train_step`` on the plain blocks with
@@ -166,7 +167,7 @@ KERNEL_SOURCES = {
     "seg_attention": "nbest_asr_tpu_torch/csrc/seg_attention.cu",
     "quantize_rows": "nbest_asr_tpu_torch/csrc/quant_rows.cu",
     "gemm_i8_bias_act": "nbest_asr_tpu_torch/csrc/gemm_wgmma.cu",
-    "gemm_i8_bias_residual": "nbest_asr_tpu_torch/csrc/gemm_i8.cu",
+    "gemm_i8_bias_residual": "nbest_asr_tpu_torch/csrc/gemm_wgmma.cu",
     "ffn_bwd_rows": "nbest_asr_tpu_torch/csrc/ffn_bwd.cu",
     "gemm_dgrad": "nbest_asr_tpu_torch/csrc/gemm_wgmma.cu",
     "seg_attention_bwd": "nbest_asr_tpu_torch/csrc/seg_attention_bwd.cu",
@@ -2004,8 +2005,9 @@ def flash_bounds(b: int, s: int, nh: int, d: int):
 def flash_library_calls(q, k, v, do, mask):
     """F.scaled_dot_product_attention with the boolean segment mask and
     prob dropout on the same (b, s, nh, d) operands: forward (flash_fwd's
-    yardstick), forward + backward (the backward kernels'); timed, used
-    nowhere in the port."""
+    yardstick), forward + backward, and the backward alone (the backward
+    kernels' yardstick: autograd.grad over a retained forward, as
+    attention_library_calls); timed, used nowhere in the port."""
     F = torch.nn.functional
     same = mask[:, None, :, None] == mask[:, None, None, :]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -2016,8 +2018,15 @@ def flash_library_calls(q, k, v, do, mask):
         F.scaled_dot_product_attention(qq, kk, vv, attn_mask=same,
                                        dropout_p=DROPOUT).backward(go)
 
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=same,
+                                         dropout_p=DROPOUT)
+
+    def bwd():
+        torch.autograd.grad(out, leaves, go, retain_graph=True)
+
     return (lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=same, dropout_p=DROPOUT)), fwd_bwd
+        qt, kt, vt, attn_mask=same, dropout_p=DROPOUT)), fwd_bwd, bwd
 
 
 def check_flash_mask_shared(dev):
@@ -2154,25 +2163,30 @@ def phase_flash_kernels(dev, card: str):
     sc, drop = 1.0 / d ** 0.5, site(300, DROPOUT, 3)
     o, lse = K.flash_fwd(q, k, v, m, sc, drop)
     _, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop)
-    sdpa_fwd, sdpa_fwd_bwd = flash_library_calls(q, k, v, do, m)
+    sdpa_fwd, sdpa_fwd_bwd, sdpa_bwd = flash_library_calls(q, k, v, do, m)
     t = {"flash_fwd": (
              lambda: K.flash_fwd(q, k, v, m, sc, drop),
              lambda: K.flash_fwd_reference(q, k, v, m, sc, drop), sdpa_fwd),
          "flash_bwd_dq": (
              lambda: K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop),
              lambda: K.flash_bwd_dq_reference(q, k, v, m, o, lse, do, sc,
-                                              drop), sdpa_fwd_bwd),
+                                              drop), sdpa_bwd),
          "flash_bwd_dkv": (
              lambda: K.flash_bwd_dkv(q, k, v, m, lse, di, do, sc, drop),
              lambda: K.flash_bwd_dkv_reference(q, k, v, m, lse, di, do, sc,
-                                               drop), sdpa_fwd_bwd)}
+                                               drop), sdpa_bwd)}
     for name, (fk, fp, fl) in t.items():
         times[name] = (cuda_ms(fk), cuda_ms(fp, iters=1, warmup=1),
                        cuda_ms(fl))
+    fwd_bwd_ms = cuda_ms(sdpa_fwd_bwd)
+    pair_ms = times["flash_bwd_dq"][0] + times["flash_bwd_dkv"][0]
     bounds = flash_bounds(b, s, NH, d)
     for name, (k_ms, p_ms, l_ms) in times.items():
+        beside = "" if name == "flash_fwd" else (
+            f" (SDPA's backward alone; its forward + backward "
+            f"{fwd_bwd_ms:.4f} ms; the kernel pair {pair_ms:.4f} ms)")
         log(f"  time {name:<14} {b} x {s} d {d}: kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound "
+            f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms{beside}, bound "
             f"{bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
     del o, lse, di
 
@@ -2290,9 +2304,13 @@ def phase_rows_kernels(dev, card: str):
                       "residual_layer_norm_bwd", dg, rdg, 1e-4)
             check.rel(f"residual_layer_norm_bwd dbias {tag}",
                       "residual_layer_norm_bwd", db, rdb, 1e-4)
-    for m, n in ((8192, INTER), (7688, 4096)):
-        tag = f"{m} x {n}"
-        x, dy = rn(m, n, std=2.0), rn(m, n)
+    # (193, 3076): N % 8 == 4, the kernels' 4-wide instance
+    for m, n, dtype in ((8192, INTER, torch.bfloat16),
+                        (7688, 4096, torch.bfloat16),
+                        (193, 3076, torch.bfloat16),
+                        (193, 3076, torch.float32)):
+        tag = f"{m} x {n} {str(dtype)[6:]}"
+        x, dy = rn(m, n, std=2.0, dtype=dtype), rn(m, n, dtype=dtype)
         b = rn(n, dtype=torch.float32)
         y, dx = K.bias_gelu(x, b), K.bias_gelu_bwd(x, b, dy)
         torch.cuda.synchronize()
@@ -3157,8 +3175,8 @@ def main() -> int:
         "for the dgrads; torch._int_mm for the int8 GEMMs and dgrads; "
         "F.scaled_dot_product_attention with the boolean segment mask and "
         "dropout: forward for flash_fwd, the backward alone (autograd.grad "
-        "over a retained forward) for seg_attention_bwd, forward + backward "
-        "for flash_bwd_dq and flash_bwd_dkv; F.layer_norm(x "
+        "over a retained forward) for seg_attention_bwd, flash_bwd_dq and "
+        "flash_bwd_dkv; F.layer_norm(x "
         "+ r) and its autograd backward; F.gelu(x + b) and its autograd "
         "backward; three F.embedding and F.layer_norm), null where "
         "PyTorch has none")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels, its int8 serving GEMMs and its bf16
-GEMMs of one checkout on one NVIDIA GPU, so that two commits can be
-compared on the same card:
+"""Time the port's attention kernels, its int8 and bf16 GEMMs and its
+bias-GELU kernels of one checkout on one NVIDIA GPU, so that two commits
+can be compared on the same card:
 
     python3 chip_time_attention.py [--root CHECKOUT] [--iters N]
 
@@ -25,9 +25,12 @@ int8 serving GEMM launches of a layer at 64 x 256 rows
 out-proj and W2), each as ``[back to back, device]`` ms, and
 ``train_i8_ms``: the int8 training launches of a layer at 8192 rows
 (``gemm_i8_dgrad`` dgelu with dropout, residual, none, residual;
-``gemm_i8_bias_act`` W1 + GELU with dropout and h saved, and QKV), and
-``torch._int_mm`` on the four dgrads' operands, the weight given as the
-transposed view and as a contiguous transpose made beforehand, and
+``gemm_i8_bias_act`` W1 + GELU with dropout and h saved, and QKV;
+``gemm_i8_bias_residual`` W2 with dropout and y2d saved, and the out-proj
+with the hidden dropout and od saved), ``torch._int_mm`` on the two
+residual launches' operands and on the four dgrads' operands, the weight
+given as the transposed view and as a contiguous transpose made
+beforehand, and
 ``encoder_fwd_ms``: the 12-layer BERT-base encoder forward (seed-0
 weights, both megakernel flags) at 64 x 256 in bf16 and in int8, the
 serving forward without the head; where it has the tiled flash kernels,
@@ -39,7 +42,10 @@ layer at 8192 rows (dgelu with dropout, residual, none, residual; and the
 dgelu launch without dropout and with the "none" epilogue), the two
 ``gemm_bias_residual`` launches at 8192 rows with dropout and y2d saved and
 at 64 x 256 rows for serving, and ``gemm_bias_act``'s two launches in each,
-each as ``[back to back, device]`` ms: back to back times
+each as ``[back to back, device]`` ms; and ``rows_ms``: ``bias_gelu``
+and ``bias_gelu_bwd`` at 8192 x 3072 bf16 beside ``F.gelu(x + b)`` and
+autograd's GELU backward, each as ``[back to back, device]`` ms: back to
+back times
 the calls as the host issues them, device queues them behind a sleep so
 that the card runs them without waiting for the host.  With the card's
 name and power limit.  CUDA events over ``--iters`` calls after two
@@ -160,8 +166,12 @@ def train_i8_times(K, dev, gen, iters: int) -> dict:
         for k, n in ((H, i), (i, H), (H, H), (H, h3)))
     b1, bqkv = rn(i, std=0.02, dtype=torch.float32), rn(
         h3, std=0.02, dtype=torch.float32)
+    b2, bo = (rn(H, std=0.02, dtype=torch.float32) for _ in range(2))
     d1, d2, dh = site(1, 0.1, 1), site(1, 0.1, 2), site(1, 0.1, 4)
     xq = K.quantize_rows(rn(m, H))
+    # the residual launches' quantized inputs (gd, ctx) and residual
+    gq, cq, x = (K.quantize_rows(rn(m, i)), K.quantize_rows(rn(m, H)),
+                 rn(m, H))
     h = rn(m, i)
     ds = rn(m, H, dtype=torch.float32)
     # the gradients each dgrad contracts, quantized with the weight's
@@ -187,6 +197,14 @@ def train_i8_times(K, dev, gen, iters: int) -> dict:
                                                    "gelu", drop=d1,
                                                    save_h=True),
         "act_qkv_train": lambda: K.gemm_i8_bias_act(*xq, aq, a_s, bqkv),
+        "residual_w2_train": lambda: K.gemm_i8_bias_residual(
+            *gq, w2q, w2s, b2, x, drop=d2, save_y2d=True),
+        "residual_wo_train": lambda: K.gemm_i8_bias_residual(
+            *cq, woq, wos, bo, x, drop=dh, save_y2d=True),
+        # the residual launches' library yardstick: the int8 products alone
+        # (the column-major weights are cuBLASLt's int8 layout)
+        "int_mm_residuals": lambda: [torch._int_mm(gq[0], w2q),
+                                     torch._int_mm(cq[0], woq)],
         # the dgrads' library yardstick: the weight as w.t() (a column-
         # major view) or as a row-major copy made outside the timed call
         "int_mm_dgrads_view": lambda: [torch._int_mm(g[0], w.t())
@@ -222,6 +240,26 @@ def encoder_times(dev, gen, iters: int) -> dict:
     return {name: both_ms(lambda: encoder_forward(w, ids, mask, segs, cfg),
                           iters)
             for name, w in (("bf16", bf), ("int8", q8))}
+
+
+def rows_times(K, dev, gen, iters: int) -> dict:
+    """Route C's bias-GELU kernels on a training layer's (8192, 3072) bf16
+    operands, beside ``F.gelu(x + b)`` and autograd's GELU backward (over a
+    retained forward); [back to back, device] ms."""
+    F = torch.nn.functional
+    h = (torch.randn(8192, 4 * H, generator=gen) * 2).to(dev, torch.bfloat16)
+    dh = torch.randn(8192, 4 * H, generator=gen).to(dev, torch.bfloat16)
+    b1 = torch.randn(4 * H, generator=gen).to(dev)
+    hl = h.detach().requires_grad_(True)
+    g_lib = F.gelu(hl + b1.to(torch.bfloat16))
+    calls = {
+        "bias_gelu": lambda: K.bias_gelu(h, b1),
+        "f_gelu": lambda: F.gelu(h + b1.to(torch.bfloat16)),
+        "bias_gelu_bwd": lambda: K.bias_gelu_bwd(h, b1, dh),
+        "gelu_backward": lambda: torch.autograd.grad(g_lib, (hl,), dh,
+                                                     retain_graph=True),
+    }
+    return {name: both_ms(fn, iters) for name, fn in calls.items()}
 
 
 # training micro rows per bucket under the 8192-token budget
@@ -405,6 +443,8 @@ def main() -> int:
                 q, k, v, mask, lse, di, do, sc, drop), args.iters)}
     if hasattr(K, "gemm_dgrad"):
         out["gemm_ms"] = gemm_times(K, dev, gen, args.iters)
+    if hasattr(K, "bias_gelu_bwd"):
+        out["rows_ms"] = rows_times(K, dev, gen, args.iters)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

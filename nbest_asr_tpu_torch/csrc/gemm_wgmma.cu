@@ -1,9 +1,9 @@
 // Hopper GEMMs with fused epilogues: every bf16 weight product of an
 // encoder layer, forward and backward -- the forwards' bias / GELU / dropout
 // products (gemm_bias_act), the residual forwards (gemm_bias_residual) and
-// the backwards' dgrads (gemm_dgrad) -- and the int8 products of the int8
-// serving and training routes but the residual one (gemm_i8_bias_act, the
-// int8 dgrads gemm_i8_dgrad; gemm_i8_bias_residual is in gemm_i8.cu).
+// the backwards' dgrads (gemm_dgrad) -- and every int8 product of the int8
+// serving and training routes (gemm_i8_bias_act, gemm_i8_bias_residual and
+// the int8 dgrads gemm_i8_dgrad).
 //
 // Replaces the in-kernel GEMMs of the TPU megakernels:
 //   nbest_asr_tpu/ops/fused_attention.py:_fab_fwd_kernel (:152)
@@ -25,12 +25,19 @@
 // (nbest_asr_tpu/ops/int8_serving.py:66-79) and `_dense_i8_f32`
 // (fused_ffn.py:394) in
 //   int8_serving.py:_attn_i8_kernel (:157), QKV (:168) -> gemm_i8_bias_act
+//     - out-proj (:191-193)                    -> gemm_i8_bias_residual
 //   int8_serving.py:_ffn_i8_kernel (:90), W1 + GELU (:94-95)
 //                                              -> gemm_i8_bias_act, gelu
+//     - W2 (:96-97)                            -> gemm_i8_bias_residual
 //   fused_ffn.py:_fwd_kernel_i8 (:404), W1, GELU, drop 1, h (:417-422)
 //                                              -> gemm_i8_bias_act, gelu
+//     - W2, bf16, drop 2, y2d (:424-431)       -> gemm_i8_bias_residual,
+//                                                 y2d saved
 //   fused_attention.py:_fab_fwd_kernel_i8 (:436), QKV (:454-455)
 //                                              -> gemm_i8_bias_act
+//     - out-proj, bf16, hidden drop, od (:471-478)
+//                                              -> gemm_i8_bias_residual,
+//                                                 od saved
 // and the `_dgrad_rows_i8` products (fused_ffn.py:523-530) of
 //   fused_ffn.py:_bwd_kernel_i8 (:533)
 //     - dgd = dy2 @ W2^T, drop 1, * gelu'(h) (:562-566) -> gemm_i8_dgrad dgelu
@@ -54,7 +61,8 @@
 // s8 the tensor cores run twice as fast and the operands are half the
 // bytes, so at 8192 rows every int8 training launch is bound by the bytes
 // of its epilogue (the dgelu dgrad writes dh in bf16 and f32 and gd: 250
-// MB at N = 3072); the serving launches at 16384 rows by operations.
+// MB at N = 3072; a residual launch reads resid and writes the f32 sum and
+// y2d, 50 MB at N = 768); the serving launches at 16384 rows by operations.
 //
 // Design, for all: a persistent grid (one block per SM) walks the 192 x
 // 128 output tiles, n fastest, so the blocks in flight share A's row
@@ -72,12 +80,13 @@
 // pitch TMA takes; an int8 K = 64 * odd half-fills its last stage).  The
 // producer runs ahead into the next tile while the consumers run this
 // tile's epilogue; each consumer thread loads its epilogue operands (bias,
-// w_scale, h, ds, resid) three passes ahead, the first during the
-// mainloop.  What sets the dgelu launch's time is its epilogue (erff,
-// expf, Philox per element), latency-bound on the consumer warps: three
-// consumer warpgroups (192 x 128 tiles) beat two (128 x 192), and
-// ping-pong warpgroups (one's epilogue beside the other's mainloop) ran
-// 2-8% slower, the epilogue on half the warps (PERF.md, Findings).
+// w_scale, h, ds, resid; the residual epilogues' bias at use) three
+// passes ahead, the first during the mainloop.  What sets the dgelu
+// launch's time is its epilogue (erff, expf, Philox per element),
+// latency-bound on the consumer warps: three consumer warpgroups (192 x
+// 128 tiles) beat two (128 x 192), and ping-pong warpgroups (one's
+// epilogue beside the other's mainloop) ran 2-8% slower, the epilogue on
+// half the warps (PERF.md, Findings).
 // B's layout: the dgrads multiply by w^T with w (N, K) row-major --
 // K-major B, wgmma's own -- and the bf16 forwards by w (K, N) row-major --
 // MN-major B, the instruction's transpose-B -- so no transposed copy of a
@@ -99,9 +108,10 @@
 //               gelu(f32 h) in f32 with the exact erff (not the TPU's A&S
 //               polynomial); g = drop1(g) (times f32(1/keep)); store
 //               bf16(g)
-//   residual  : y2 = f32(bf16(acc + bias)); y2 = drop2(y2); [bf16(y2)
-//               saved as y2d]; store y2 + f32(resid) as f32 (the input of
-//               layer_norm.cu) -- the sum uses the unrounded f32 y2
+//   residual  : y2 = f32(bf16(acc + bias)) (s8: the dequant as bias);
+//               y2 = drop2(y2); [bf16(y2) saved as y2d]; store y2 +
+//               f32(resid) as f32 (the input of layer_norm.cu) -- the sum
+//               uses the unrounded f32 y2
 //   dgelu     : d = drop1(acc) (s8: drop1(f32(acc) * g_scale)); dh = d *
 //               gelu'(f32 h), stored in bf16 (and, s8, in f32: the next
 //               gradient quant's input); [gd = bf16(drop1(gelu(f32 h)))
@@ -115,8 +125,9 @@
 // dot is exact in any order (|acc| <= 127^2 K < 2^31), so the s8 launches
 // equal their plain versions bit for bit, up to erff / expf in the GELU
 // epilogues.  TRAIN compiles in the Philox dropout and the saved outputs:
-// the int8 serving GELU instance is built without them (compiled in, they
-// cost the mma.sync int8 GEMM's serving launches 13-40%).
+// the int8 serving GELU and residual instances are built without them
+// (compiled in, they cost an earlier mma.sync int8 GEMM's serving launches
+// 13-40%).
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
@@ -355,8 +366,10 @@ __device__ __forceinline__ float gelu_dropped(const DropParams& drop,
 
 // An epilogue operand's eight columns of a row -- resid or h (16 bytes of
 // bf16 in x), or ds or, for the bias and gelu epilogues, the bias (32
-// bytes of f32 in x, y) and, in s8, the weight scales (z, w) -- loaded
-// passes ahead of use.
+// bytes of f32 in x, y) and, in s8, the weight scales (z, w); the s8
+// residual epilogue's resid in x and weight scales in y, z -- loaded
+// passes ahead of use.  (The residual epilogues load their bias at use:
+// prefetched too, it cost the s8 training instance a spill.)
 struct Opnd {
   uint4 x, y, z, w;
 };
@@ -377,7 +390,13 @@ __device__ __forceinline__ Opnd load_opnd(const float* __restrict__ bias,
       o.w = *reinterpret_cast<const uint4*>(ws + col + 4);
     }
   }
-  if (EPI == EPI_RESIDUAL) o.x = *reinterpret_cast<const uint4*>(resid + off);
+  if (EPI == EPI_RESIDUAL) {
+    o.x = *reinterpret_cast<const uint4*>(resid + off);
+    if (S8) {
+      o.y = *reinterpret_cast<const uint4*>(ws + col);
+      o.z = *reinterpret_cast<const uint4*>(ws + col + 4);
+    }
+  }
   if (EPI == EPI_DGELU) o.x = *reinterpret_cast<const uint4*>(h + off);
   if (EPI == EPI_DX) {
     o.x = *reinterpret_cast<const uint4*>(ds + off);
@@ -458,9 +477,15 @@ __device__ __forceinline__ void epilogue8(const float* __restrict__ bias,
   } else {  // EPI_RESIDUAL
     float b[8], x[8];
     load8(bias + col, b);
+    if (S8) {  // ((f32(acc) * xs) * ws) + bias
+      float w[8];
+      floats8(o.y, o.z, w);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = __fmul_rn(v[i], w[i]);
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      v[i] = round_bf16(v[i] + b[i]);
+      v[i] = round_bf16(__fadd_rn(v[i], b[i]));
       if (dropping) v[i] = drop_value(drop, v[i], bits[i]);
     }
     if (TRAIN && aux) store8(aux + off, v);
@@ -691,16 +716,6 @@ int encode(CUtensorMap* map, const void* ptr, int inner, int outer,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-int sm_count() {
-  static int count[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 132;
-  if (count[dev] == 0)
-    cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
-  return count[dev];
-}
-
 struct Operands {
   const float* bias;
   const float* x_scale;
@@ -779,6 +794,32 @@ int nbk_gemm_bias_residual(const void* a, const void* w, const float* bias,
   return launch<false, EPI_RESIDUAL>(
       a, w, o, make_drop(seed, stream, thresh, inv_keep, drop_on), M, N, K,
       static_cast<cudaStream_t>(cuda_stream));
+}
+
+// out (M, N) f32 = y2 + f32(resid (M, N) bf16), y2 = drop(f32(bf16(((f32(
+// a (M, K) s8 . wt (N, K) s8) * x_scale) * w_scale) + bias))); y2d_out (M,
+// N) bf16, if not null, receives bf16(y2).  Requires N % 128 == 0, K % 16
+// == 0 and 16-byte aligned operands.
+int nbk_gemm_i8_bias_residual(const void* a, const float* x_scale,
+                              const void* wt, const float* w_scale,
+                              const float* bias, const void* resid,
+                              float* out, void* y2d_out, int M, int N, int K,
+                              unsigned long long seed, int stream,
+                              unsigned thresh, float inv_keep, int drop_on,
+                              void* cuda_stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  const DropParams d = make_drop(seed, stream, thresh, inv_keep, drop_on);
+  Operands o = {};
+  o.bias = bias;
+  o.x_scale = x_scale;
+  o.w_scale = w_scale;
+  o.resid = static_cast<const bf16*>(resid);
+  o.out_f = out;
+  o.aux = static_cast<bf16*>(y2d_out);
+  // serving's launches have neither dropout nor a saved y2
+  return drop_on || y2d_out
+             ? launch<true, EPI_RESIDUAL, true>(a, wt, o, d, M, N, K, s)
+             : launch<true, EPI_RESIDUAL, false>(a, wt, o, d, M, N, K, s);
 }
 
 // The backwards' dgrads, a (M, K) @ w^T with w (N, K) row-major:

@@ -85,16 +85,6 @@ namespace {
 using namespace nbk;
 using namespace nbk::attn;
 
-int sm_count() {
-  static int count[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 132;
-  if (count[dev] == 0)
-    cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
-  return count[dev];
-}
-
 // ---------------------------------------------------------------------- //
 // The wgmma kernel: d = 64, S <= 512
 // ---------------------------------------------------------------------- //

@@ -23,9 +23,8 @@ The two int8 serving megakernels reuse ``seg_attention`` and
 
 where ``dequant(acc) = (f32(acc) * x_scale) * w_scale``, the int8 weight
 ``wq`` (K, N) is stored column-major (``quant.kernel_layout``) and its
-per-output-channel scale ``ws`` is (N,) f32.  ``gemm_i8_bias_act`` runs
-the ``wgmma`` + TMA GEMM of ``csrc/gemm_wgmma.cu`` in s8,
-``gemm_i8_bias_residual`` the ``mma.sync`` GEMM of ``csrc/gemm_i8.cu``.
+per-output-channel scale ``ws`` is (N,) f32.  Both int8 GEMMs run the
+``wgmma`` + TMA GEMM of ``csrc/gemm_wgmma.cu`` in s8.
 
 The FFN block's training chain (``ops/fused_ffn.py``) gives
 ``gemm_bias_act`` and ``gemm_bias_residual`` a Philox dropout site
@@ -1052,6 +1051,8 @@ def gemm_i8_bias_residual(xq, xs, wq, ws, bias, resid, drop=None,
                                                drop, save_y2d)
     M, N, K = _i8_operands("gemm_i8_bias_residual", xq, xs, wq, ws, bias)
     _expect("gemm_i8_bias_residual", "resid", resid, torch.bfloat16, (M, N))
+    _aligned16("gemm_i8_bias_residual", xq=xq, x_scale=xs, wq=wq,
+               w_scale=ws, bias=bias, resid=resid)
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     y2d = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device) \
         if save_y2d else None

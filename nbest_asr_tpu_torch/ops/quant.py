@@ -20,9 +20,8 @@ Rounding is ``torch.round`` (half to even, as ``jnp.round``), the clip is
 Memory layout: the quantized kernels keep the JAX shape ``(..., in,
 out)`` but are stored column-major -- the transpose view of a contiguous
 ``(..., out, in)`` tensor (``kernel_layout``) -- because the CUDA int8
-GEMMs (``csrc/gemm_wgmma.cu``, ``csrc/gemm_i8.cu``) read each output
-column's weights K-contiguous (8-bit ``wgmma`` and ``ldmatrix`` transpose
-no int8 operand).  Values and shapes are those of the JAX tree; only the
+GEMMs (``csrc/gemm_wgmma.cu``) read each output column's weights
+K-contiguous (8-bit ``wgmma`` transposes no operand).  Values and shapes are those of the JAX tree; only the
 strides differ.  The int8 dgrads read the same values row-major
 (``quantize_train_weight`` returns both layouts).
 """

@@ -331,6 +331,10 @@ def test_i8_wrappers_refuse_and_count(dev):
         K.gemm_i8_bias_act(_misaligned(xq), xs, wq, ws, b)
     with pytest.raises(ValueError, match="16-byte aligned"):
         K.gemm_i8_bias_act(xq, xs, wq, _misaligned(ws), b)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_i8_bias_residual(_misaligned(xq), xs, wq, ws, b, r)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_i8_bias_residual(xq, xs, wq, ws, b, _misaligned(r))
     # without the GELU, the saved h is the output itself
     h, y = K.gemm_i8_bias_act(xq, xs, wq, ws, b, save_h=True)
     assert h is y
@@ -831,6 +835,39 @@ def test_gemm_i8_train_epilogues(dev, m, rate, k):
         assert (y2d[~keep_mask(1234, 2, 0, m, 768, rate, dev)] == 0).all()
 
 
+# gemm_i8_bias_residual's (N, K): the out-proj, W2, and a wider N with K =
+# 192, which half-fills the 128-deep s8 stage
+I8_RESIDUAL_NK = [(768, 768), (768, 3072), (1024, 192)]
+
+
+@pytest.mark.parametrize("save_y2d", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n,k", I8_RESIDUAL_NK)
+@pytest.mark.parametrize("m", I8_M)
+def test_gemm_i8_bias_residual(dev, m, n, k, rate, save_y2d):
+    """The s8 wgmma residual launch bit for bit against its plain version:
+    serving's instance (no dropout, no y2d) and the training one (dropout,
+    y2d or both)."""
+    from nbest_asr_tpu_torch.ops.philox import keep_mask
+
+    xq, xs = K.quantize_rows(_rand_dev(dev, m, k, seed=m + k))
+    wq, ws = _i8_weight(dev, k, n, seed=n + k)
+    b = _rand(dev, n, std=0.1, dtype=torch.float32, seed=n)
+    r = _rand_dev(dev, m, n, seed=m + n + 1)
+    drop = _drop(rate, 2) if rate else None
+    got = _twice(lambda: K.gemm_i8_bias_residual(xq, xs, wq, ws, b, r,
+                                                 drop=drop,
+                                                 save_y2d=save_y2d))
+    want = K.gemm_i8_bias_residual_reference(xq, xs, wq, ws, b, r, drop,
+                                             save_y2d)
+    got, want = ((o if save_y2d else (o,)) for o in (got, want))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    if rate and save_y2d:
+        assert (got[1][~keep_mask(1234, 2, 0, m, n, rate, dev)] == 0).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("m,k", [(1, 768), (60, 3072), (300, 2304)])
@@ -1192,17 +1229,39 @@ def test_residual_layer_norm(dev, m, n, dtype):
     _hold_sum(db, rdb)
 
 
+# (193, 3076) and (60, 36): N % 8 == 4, the 4-wide instance
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m,n", [(8192, 3072), (7688, 4096), (60, 36)])
+@pytest.mark.parametrize("m,n", [(8192, 3072), (7688, 4096), (193, 3076),
+                                 (60, 36)])
 def test_bias_gelu(dev, m, n, dtype):
     x = _rand(dev, m, n, std=2.0, dtype=dtype, seed=m)
     b = _rand(dev, n, dtype=torch.float32, seed=n)
     dy = _rand(dev, m, n, dtype=dtype, seed=m + 1)
-    y = K.bias_gelu(x, b)
-    dx = K.bias_gelu_bwd(x, b, dy)
+    y = _twice(lambda: K.bias_gelu(x, b))
+    dx = _twice(lambda: K.bias_gelu_bwd(x, b, dy))
     torch.cuda.synchronize()
     _hold_rows(y, K.bias_gelu_reference(x, b))
     _hold_rows(dx, K.bias_gelu_bwd_reference(x, b, dy))
+
+
+def test_bias_gelu_instances_agree(dev):
+    """A bf16 operand 8 bytes off a 16-byte boundary takes the 4-wide
+    instance; it equals the 8-wide instance bit for bit."""
+    x = _rand(dev, 300, 3072, std=2.0, seed=40)
+    b = _rand(dev, 3072, dtype=torch.float32, seed=41)
+    dy = _rand(dev, 300, 3072, seed=42)
+
+    def off8(t):
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+        out = buf[4:4 + t.numel()].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 == 8
+        return out
+
+    xo, dyo = off8(x), off8(dy)
+    assert torch.equal(K.bias_gelu(xo, b), K.bias_gelu(x, b))
+    assert torch.equal(K.bias_gelu_bwd(xo, b, dyo), K.bias_gelu_bwd(x, b, dy))
+    assert torch.equal(K.bias_gelu_bwd(x, b, dyo), K.bias_gelu_bwd(x, b, dy))
 
 
 def _embed_operands(dev, n, h, dtype, seed, vocab=30522, types=2, s=256):

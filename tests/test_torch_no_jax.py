@@ -1,5 +1,6 @@
 """The port never imports JAX or the JAX package: every module of the
-port, and what ``chip_smoke.py`` and ``chip_time_attention.py`` import,
+port, and what ``chip_smoke.py``, ``chip_time_attention.py`` and
+``chip_kernel_probe.py`` import,
 loads in a fresh interpreter
 with neither ``jax`` nor any ``nbest_asr_tpu`` module (as distinct from
 ``nbest_asr_tpu_torch``) in ``sys.modules``, as they must on a machine
@@ -22,6 +23,7 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 import chip_time_attention
+import chip_kernel_probe
 chip_smoke.dstc2_like_memory()
 from nbest_asr_tpu_torch import serve
 assert nbest_asr_tpu_torch.Predictor is serve.Predictor
