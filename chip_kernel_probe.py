@@ -11,7 +11,8 @@ directory of this script); its kernels are built into its own ``build/``.
 ``sass`` prints, for each kernel instance whose mangled name contains
 NAME, its SASS instruction count and, for its longest loop (the body from
 a backward branch's target to the branch), the instructions, MUFU
-instructions and branches in it, from ``cuobjdump -sass`` of the built
+instructions, 32 x 32 -> 64-bit integer multiplies (IMAD.WIDE: Philox's)
+and branches in it, from ``cuobjdump -sass`` of the built
 library.  ``gelu-dump`` saves ``bias_gelu`` and ``bias_gelu_bwd`` outputs
 on fixed inputs: every bf16 value as x (bias 0, and random), in bf16 and
 widened to f32; 4 M random f32 bit patterns; random operands with special
@@ -54,7 +55,8 @@ def sass(name: str) -> None:
                 body = [o for a, o in ins if int(m.group(1), 16) <= a <= addr]
                 loop = max(loop, body, key=len)
         print(f"{fn}: {len(ins)} instructions; longest loop {len(loop)} "
-              f"(MUFU {sum('MUFU' in o for o in loop)}, branches "
+              f"(MUFU {sum('MUFU' in o for o in loop)}, IMAD.WIDE "
+              f"{sum('IMAD.WIDE' in o for o in loop)}, branches "
               f"{sum('BRA' in o for o in loop)})")
 
 

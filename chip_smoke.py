@@ -99,12 +99,15 @@ Phases, each fatal on failure:
    64 and standalone tensors at d = 32 and 128, 32 x 256 and 48 x 160)
    and the tiled ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` (32 x
    1024 and 8 x 2048, d = 64 and 128), padded and packed masks, dropout 0
-   and 0.1, checking o, the statistics (row sum, lse, di), dq, dk, dv;
-   the tiled route forced at s = 256 drops exactly the single-block
-   route's probs (a one-hot probe against the stream-3 keep bits) and
-   agrees with it in value.  Kernel / plain / library / bound ms of the
-   tiled kernels at route B's layer, and flash attention forward +
-   backward against the plain attention path at every training shape.
+   and 0.1, checking o, the statistics (row sum, lse, di), dq, dk, dv,
+   and that the backward pair runs on its wgmma + TMA kernels exactly at
+   d = 64 (``flash_bwd_wgmma_launches``); the tiled route forced at s =
+   256 drops exactly the single-block route's probs (a one-hot probe
+   against the stream-3 keep bits) and agrees with it in value.  Kernel
+   (device) / plain / library (device) / bound ms of the tiled kernels at
+   route B's layer, the backward pair beside SDPA's backward alone (and
+   without dropout), and flash attention forward + backward against the
+   plain attention path at every training shape.
 9. Route A, JAX's ``--no_fused_attn``: ``make_train_step`` with
    ``use_flash_attention, use_fused_ffn`` (``use_fused_attn=False``), 3
    steps per bucket: counters by ``PER_LAYER_TRAIN_FLASH_SB`` at 160 and
@@ -116,9 +119,10 @@ Phases, each fatal on failure:
    ``max_position=1024``, ``use_flash_attention, use_fused_attn,
    use_fused_ffn``, one micro of 32 rows; a padded step (lengths
    768-1024) and a packed step (position_ids), counters by
-   ``PER_LAYER_TRAIN_TILED`` (the tiled kernels 12 x per micro); at
-   dropout 0 one kernel step against the same step with flash and the
-   FFN block on their plain versions.
+   ``PER_LAYER_TRAIN_TILED`` (the tiled kernels 12 x per micro, the
+   backward pair's all on its wgmma + TMA kernels); at dropout 0 one
+   kernel step against the same step with flash and the FFN block on
+   their plain versions.
 11. Route C's row kernels against their plain versions
    (``phase_rows_kernels``): ``residual_layer_norm`` and
    ``residual_layer_norm_bwd`` at 8192 x 768 and 7688 x 1024, bf16 and
@@ -2132,9 +2136,15 @@ def phase_flash_kernels(dev, card: str):
                 tag = f"{b} x {s} d {d} {mname} rate {rate}"
                 drop = site(200 + s, rate, 3)
                 o, lse = K.flash_fwd(q, k, v, m, sc, drop)
+                n0 = K.flash_bwd_wgmma_launches()
                 dq, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop)
                 dk, dv = K.flash_bwd_dkv(q, k, v, m, lse, di, do, sc, drop)
                 torch.cuda.synchronize()
+                n1 = K.flash_bwd_wgmma_launches()
+                if any(n1[n] - n0[n] != int(d == 64) for n in n1):
+                    raise AssertionError(
+                        f"flash backward {tag}: wgmma launches {n0} -> {n1}"
+                        "; the wgmma + TMA pair runs exactly at d = 64")
                 ro, rlse = K.flash_fwd_reference(q, k, v, m, sc, drop)
                 check(f"flash_fwd o {tag}", "flash_fwd", o, ro, False)
                 check.rel(f"flash_fwd lse {tag}", "flash_fwd", lse, rlse,
@@ -2164,31 +2174,46 @@ def phase_flash_kernels(dev, card: str):
     o, lse = K.flash_fwd(q, k, v, m, sc, drop)
     _, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop)
     sdpa_fwd, sdpa_fwd_bwd, sdpa_bwd = flash_library_calls(q, k, v, do, m)
+    sdpa_bwd_ms = device_ms(sdpa_bwd)
     t = {"flash_fwd": (
              lambda: K.flash_fwd(q, k, v, m, sc, drop),
-             lambda: K.flash_fwd_reference(q, k, v, m, sc, drop), sdpa_fwd),
+             lambda: K.flash_fwd_reference(q, k, v, m, sc, drop),
+             device_ms(sdpa_fwd)),
          "flash_bwd_dq": (
              lambda: K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop),
              lambda: K.flash_bwd_dq_reference(q, k, v, m, o, lse, do, sc,
-                                              drop), sdpa_bwd),
+                                              drop), sdpa_bwd_ms),
          "flash_bwd_dkv": (
              lambda: K.flash_bwd_dkv(q, k, v, m, lse, di, do, sc, drop),
              lambda: K.flash_bwd_dkv_reference(q, k, v, m, lse, di, do, sc,
-                                               drop), sdpa_bwd)}
-    for name, (fk, fp, fl) in t.items():
-        times[name] = (cuda_ms(fk), cuda_ms(fp, iters=1, warmup=1),
-                       cuda_ms(fl))
-    fwd_bwd_ms = cuda_ms(sdpa_fwd_bwd)
-    pair_ms = times["flash_bwd_dq"][0] + times["flash_bwd_dkv"][0]
+                                               drop), sdpa_bwd_ms)}
+    for name, (fk, fp, l_ms) in t.items():
+        times[name] = (device_ms(fk), cuda_ms(fp, iters=1, warmup=1), l_ms)
+    fwd_bwd_ms = device_ms(sdpa_fwd_bwd)
     bounds = flash_bounds(b, s, NH, d)
     for name, (k_ms, p_ms, l_ms) in times.items():
-        beside = "" if name == "flash_fwd" else (
-            f" (SDPA's backward alone; its forward + backward "
-            f"{fwd_bwd_ms:.4f} ms; the kernel pair {pair_ms:.4f} ms)")
-        log(f"  time {name:<14} {b} x {s} d {d}: kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms{beside}, bound "
-            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
-    del o, lse, di
+        what = "forward" if name == "flash_fwd" else "backward alone"
+        log(f"  time {name:<14} {b} x {s} d {d}: kernel {k_ms:.4f} ms "
+            f"device, plain {p_ms:.4f} ms, library (SDPA's {what}) "
+            f"{l_ms:.4f} ms device, bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]}) [{card}]")
+    # the backward pair against SDPA's backward alone on the same operands,
+    # and without dropout (what the Philox keep bits cost)
+    pair_ms = times["flash_bwd_dq"][0] + times["flash_bwd_dkv"][0]
+    o0, lse0 = K.flash_fwd(q, k, v, m, sc)
+    _, di0 = K.flash_bwd_dq(q, k, v, m, o0, lse0, do, sc)
+    pair0_ms = (device_ms(lambda: K.flash_bwd_dq(q, k, v, m, o0, lse0, do,
+                                                 sc))
+                + device_ms(lambda: K.flash_bwd_dkv(q, k, v, m, lse0, di0,
+                                                    do, sc)))
+    log(f"  time flash backward pair {b} x {s} d {d}, dropout {DROPOUT}: "
+        f"kernels {pair_ms:.4f} ms device ({times['flash_bwd_dq'][0]:.4f} + "
+        f"{times['flash_bwd_dkv'][0]:.4f}), SDPA's backward alone "
+        f"{sdpa_bwd_ms:.4f} ms device ({pair_ms / sdpa_bwd_ms:.3f}x; its "
+        f"forward + backward {fwd_bwd_ms:.4f}); without dropout "
+        f"{pair0_ms:.4f} ms; bounds {bounds['flash_bwd_dq'][0]:.4f} + "
+        f"{bounds['flash_bwd_dkv'][0]:.4f} ms [{card}]")
+    del o, lse, di, o0, lse0, di0
 
     # flash attention forward + backward per layer (q, k, v views of the
     # QKV buffer, prob dropout) against the plain path's attention at the
@@ -2936,6 +2961,7 @@ def phase_train_long(dev, card: str, block_ms):
     from nbest_asr_tpu_torch.models.model import (ModelConfig,
                                                   init_model_params)
     from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.ops.kernels import flash_bwd_wgmma_launches
     from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
                                                          make_train_step)
     from nbest_asr_tpu_torch.train.losses import LossConfig
@@ -2970,6 +2996,7 @@ def phase_train_long(dev, card: str, block_ms):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
+    wgmma0 = flash_bwd_wgmma_launches()
     ms = []
     for name, micro in zip(("padded 768-1024", "packed"), micros):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -2994,6 +3021,12 @@ def phase_train_long(dev, card: str, block_ms):
     if counts != want:
         raise AssertionError("route B: launch counts differ from layers x "
                              "micros x launches per layer")
+    wgmma1 = flash_bwd_wgmma_launches()
+    wgmma = {n: wgmma1[n] - wgmma0[n] for n in wgmma1}
+    log(f"[train long] the backward pair's wgmma + TMA launches {wgmma}")
+    if any(wgmma[n] != want[n] for n in wgmma):
+        raise AssertionError("route B: the tiled backward did not run on "
+                             "its wgmma + TMA kernels at every launch")
     attn = block_ms[("flash_attn_train", LONG_SEQ)]
     share = LAYERS * attn[0] / np.mean(ms)
     log(f"[train long] peak memory {peak:.2f} GiB; per layer fwd+bwd: flash "
@@ -3091,14 +3124,20 @@ def main() -> int:
         log(f"[device] ptxas note {line}")
     log(f"[device] ptxas notes on wgmma / setmaxnreg: {len(notes)}"
         + ("" if _cuda.build_report else " (no build in this process)"))
-    # the wgmma + TMA GEMM's instances (bf16 and s8: gemm_tma_kernel<S8,
-    # EPI, TRAIN>) must build without spills or such notes
-    tma = [line for line in summary if "gemm_tma_kernel" in line]
-    bad = [line for line in tma if "spills 0/0 B" not in line]
-    bad += [line for line in notes if line.startswith("gemm_wgmma.cu")]
-    if _cuda.build_report and (bad or not tma):
-        raise AssertionError("gemm_wgmma.cu: spills or ptxas notes (or no "
-                             f"instance reported): {bad}")
+    # the wgmma + TMA kernels' instances -- the GEMM's (bf16 and s8:
+    # gemm_tma_kernel<S8, EPI, TRAIN>) and the tiled flash backward pair's
+    # (flash_dq_wgmma_kernel, flash_dkv_wgmma_kernel <DROP>) -- must build
+    # without spills or such notes
+    tma_names = ("gemm_tma_kernel", "flash_dq_wgmma_kernel",
+                 "flash_dkv_wgmma_kernel")
+    tma = {n: [line for line in summary if n in line] for n in tma_names}
+    bad = [line for lines in tma.values() for line in lines
+           if "spills 0/0 B" not in line]
+    bad += [line for line in notes
+            if line.startswith(("gemm_wgmma.cu", "flash_attention_bwd.cu"))]
+    if _cuda.build_report and (bad or not all(tma.values())):
+        raise AssertionError("the wgmma + TMA kernels: spills or ptxas notes "
+                             f"(or no instance reported): {bad}")
 
     max_err, times = phase_kernels(dev, card)
     counts = phase_slice(dev)
@@ -3166,9 +3205,9 @@ def main() -> int:
         "embed_lookup, f32 tables) for the five row kernels; ms and "
         "library_ms are device time (calls queued behind a sleep) for the "
         "five row kernels, gemm_bias_act, gemm_bias_residual, gemm_dgrad, "
-        "seg_attention, seg_attention_bwd, layer_norm, ffn_bwd_rows and "
-        "the int8 kernels (quantize_rows, quantize_grad_rows, the three "
-        "int8 GEMMs, serving and [train]); "
+        "seg_attention, seg_attention_bwd, the three flash kernels, "
+        "layer_norm, ffn_bwd_rows and the int8 kernels (quantize_rows, "
+        "quantize_grad_rows, the three int8 GEMMs, serving and [train]); "
         "BERT-base, "
         "bf16 activations; library_ms: the "
         "PyTorch call for each launch (serving_library_calls; torch.matmul "

@@ -34,9 +34,12 @@ beforehand, and
 ``encoder_fwd_ms``: the 12-layer BERT-base encoder forward (seed-0
 weights, both megakernel flags) at 64 x 256 in bf16 and in int8, the
 serving forward without the head; where it has the tiled flash kernels,
-``flash_fwd``,
-``flash_bwd_dq`` and ``flash_bwd_dkv`` at batch 32 x seq 1024 on q, k, v
-views of one QKV buffer with prob dropout; and ``gemm_ms``, each bf16 GEMM
+``flash_ms``: ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at
+batch 32 x seq 1024 on q, k, v views of one QKV buffer with a padded mask
+and prob dropout, the backward pair again without dropout, and SDPA's
+backward alone (autograd.grad over a retained forward, the same operands,
+mask and dropout rate), each as ``[back to back, device]`` ms; and
+``gemm_ms``, each bf16 GEMM
 launch of an encoder layer: the four ``gemm_dgrad`` launches of a training
 layer at 8192 rows (dgelu with dropout, residual, none, residual; and the
 dgelu launch without dropout and with the "none" epilogue), the two
@@ -336,6 +339,47 @@ def train_bwd_times(K, dev, gen, drop, iters: int) -> dict:
     return out
 
 
+def flash_times(K, dev, gen, iters: int) -> dict:
+    """The tiled flash kernels at route B's layer, 32 x 1024, 12 heads of
+    64, q, k, v views of one QKV buffer, a padded mask, prob dropout 0.1:
+    the forward, the backward pair, the pair without dropout, and SDPA's
+    backward alone on the same operands; [back to back, device] ms."""
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    F = torch.nn.functional
+    b, s, d = 32, 1024, H // NH
+    q, k, v = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
+        dev, torch.bfloat16).view(b, s, 3, NH, d).unbind(2)
+    do = (torch.randn(b, s, NH, d, generator=gen) * 0.1).to(
+        dev, torch.bfloat16)
+    mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
+    mask[:, 0] = 1.0
+    drop, sc = site(1, 0.1, 3), 1.0 / d ** 0.5
+    o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
+    _, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc, drop)
+    o0, lse0 = K.flash_fwd(q, k, v, mask, sc)
+    _, di0 = K.flash_bwd_dq(q, k, v, mask, o0, lse0, do, sc)
+    same = mask[:, None, :, None] == mask[:, None, None, :]
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    sdpa_o = F.scaled_dot_product_attention(*leaves, attn_mask=same,
+                                            dropout_p=0.1)
+    go = do.transpose(1, 2)
+    calls = {
+        "fwd": lambda: K.flash_fwd(q, k, v, mask, sc, drop),
+        "bwd_dq": lambda: K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc,
+                                         drop),
+        "bwd_dkv": lambda: K.flash_bwd_dkv(q, k, v, mask, lse, di, do, sc,
+                                           drop),
+        "bwd_dq_no_dropout": lambda: K.flash_bwd_dq(q, k, v, mask, o0, lse0,
+                                                    do, sc),
+        "bwd_dkv_no_dropout": lambda: K.flash_bwd_dkv(q, k, v, mask, lse0,
+                                                      di0, do, sc),
+        "sdpa_bwd": lambda: torch.autograd.grad(sdpa_o, leaves, go,
+                                                retain_graph=True)}
+    return {name: both_ms(fn, iters) for name, fn in calls.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
@@ -423,24 +467,7 @@ def main() -> int:
             # ~170 launches a forward: 10 calls enqueue within the sleep
             out["encoder_fwd_ms"] = encoder_times(dev, gen, 10)
     if hasattr(K, "flash_fwd"):
-        from nbest_asr_tpu_torch.ops.philox import site
-
-        b, s, d = 32, 1024, H // NH
-        q, k, v = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
-            dev, torch.bfloat16).view(b, s, 3, NH, d).unbind(2)
-        do = (torch.randn(b, s, NH, d, generator=gen) * 0.1).to(
-            dev, torch.bfloat16)
-        mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
-        drop, sc = site(1, 0.1, 3), 1.0 / d ** 0.5
-        o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
-        _, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc, drop)
-        out["flash_ms"] = {
-            "fwd": cuda_ms(lambda: K.flash_fwd(q, k, v, mask, sc, drop),
-                           args.iters),
-            "bwd_dq": cuda_ms(lambda: K.flash_bwd_dq(
-                q, k, v, mask, o, lse, do, sc, drop), args.iters),
-            "bwd_dkv": cuda_ms(lambda: K.flash_bwd_dkv(
-                q, k, v, mask, lse, di, do, sc, drop), args.iters)}
+        out["flash_ms"] = flash_times(K, dev, gen, args.iters)
     if hasattr(K, "gemm_dgrad"):
         out["gemm_ms"] = gemm_times(K, dev, gen, args.iters)
     if hasattr(K, "bias_gelu_bwd"):

@@ -11,26 +11,63 @@
 //   ds   = bf16(p * (dp - di) * sm_scale);   dq = ds k,   dk = ds^T q
 // As in the TPU kernels the sums run in two kernels with no atomics, so
 // the result does not depend on block scheduling:
-//   1. the dQ kernel, per (element, head, 64-query tile), keys innermost:
+//   1. the dQ kernel, per (element, head, block of queries), keys innermost:
 //      its prologue computes di for its rows from the O and dO tiles and
 //      stores it for kernel 2;
-//   2. the dK/dV kernel, per (element, head, 64-key tile), queries
+//   2. the dK/dV kernel, per (element, head, block of keys), queries
 //      innermost: keys are the warps' rows, so S^T = K Q^T and dP^T = V
 //      dO^T come out as C fragments that are directly the A fragments of
 //      dV += P_v^T dO and dK += dS^T Q.
 // q, k, v are read by row stride as the forward reads them, dO and O are
 // (b, s, heads, d), dq, dk, dv are written with their own row stride:
-// no transposes, no padding.  Each tile's 64 x 64 keep bits are drawn into
-// a shared bit table (attention.cuh), so both kernels regenerate the
-// forward's mask whatever their loop order.
+// no transposes, no padding.  The keep bits are drawn from their Philox
+// counters (attention.cuh) as each kernel's tiles need them, so both
+// kernels regenerate the forward's mask whatever their loop order.
 //
-// Design: the single-block backward's (seg_attention_bwd.cu) 16-column
-// chunk products, with tile-local segment ids, statistics and keep bits
-// so that shared memory does not grow with S.  What bounds it on the H100:
-// 6 (dQ) and 8 (dK/dV) b h s^2 d tensor-core operations against a few
-// bytes per row -- operations, at the rate mma.sync reaches on 64-row
-// tiles.
+// Two pairs; nbk_flash_bwd_dq / nbk_flash_bwd_dkv pick by head dim:
+//   d = 64 (any S)   the wgmma + TMA pair (section 3)
+//   d = 32, 128      the mma.sync pair (sections 1 and 2)
+// Neither falls back to the other: a pair that does not build or launch
+// makes the call fail.
+//
+// The mma.sync pair: the single-block backward's (seg_attention_bwd.cu)
+// 16-column chunk products, with tile-local segment ids, statistics and
+// keep bits so that shared memory does not grow with S.  Each warp owns 16
+// rows of a 64-row block and reads the whole streamed tile through ldmatrix
+// for each product; every tile is copied, waited for and its keep bits drawn
+// into a shared table before its math.
+//
+// The wgmma + TMA pair at d = 64: a block owns 128 rows (queries in the dQ
+// kernel, keys in the dK/dV kernel) as two consumer warpgroups of 64 rows,
+// plus a producer warpgroup that gives its registers to them (setmaxnreg).
+// The producer's first thread loads the block's resident tiles (Q, dO, O;
+// or K, V) once and then streams the other side's 64-row tiles (K, V; or
+// Q, dO) by TMA (3-D maps: head column, row, batch element, so rows past S
+// are zero-filled within each element) into a ring of STAGES slots with
+// full / empty mbarriers; its threads write each slot's segment ids (and
+// the dK/dV kernel's lse and di).  The consumers issue S and dP on wgmma
+// from shared memory (m64n64k16, K-major, descriptors built once) and,
+// while the products run, draw the tile's Philox keep bits: each warp the
+// bits of its own 16 rows, 8 calls a lane, handed to the lanes that use
+// them by shuffles.  They rebuild p = exp2(s log2e - lse log2e) in
+// registers and pack ds (and the dropped p) into bf16 A fragments, which
+// multiply the slot's tiles read MN-major (dQ += dS K; dV += P_v^T dO, dK
+// += dS^T Q): nothing goes back through shared memory.
+//
+// What bounds it on the H100 (chip_time_attention.py, PERF.md): the
+// tensor cores would take 0.16 ms (dQ, 3 products) and 0.21 ms (dK/dV, 4)
+// at route B's 32 x 1024 x 12 heads.  Without dropout the pair runs at
+// 0.41 and 0.48 ms: per tile a warpgroup waits on its score products,
+// then runs some 350 dependent instructions of masking, exp2 and ds at
+// low IPC, then waits on its last product.  With dropout each kernel adds
+// one Philox call per four (query, key) pairs, 2,048 per 128 x 64 tile,
+// whose 32 x 32 -> 64-bit multiplies (IMAD.WIDE, some 18 a call) take the
+// integer pipe about 1,900 cycles a tile: that, not the tensor cores, sets
+// the pace.  A producer warpgroup drawing the bits (one warp per scheduler)
+// ran 1.2x slower; turns between the consumer warpgroups, or the draws
+// placed beside the elementwise work, gained nothing.
 #include "attention.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -58,7 +95,7 @@ size_t dkv_smem() {
 // 1. dq (and di), per 64-query tile, keys innermost
 // -------------------------------------------------------------------- //
 
-// Blocks per SM: 4 at d <= 64 (128 registers), 1 at d = 128.
+// Blocks per SM: 4 at d = 32 (128 registers), 1 at d = 128.
 template <int D, bool DROP>
 __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
     flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -190,7 +227,7 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
 // 2. dk, dv, per 64-key tile, queries innermost
 // -------------------------------------------------------------------- //
 
-// Blocks per SM: 4 at d <= 64 (128 registers), 1 at d = 128 (the K and V
+// Blocks per SM: 4 at d = 32 (128 registers), 1 at d = 128 (the K and V
 // fragments and both accumulators alone take 192 registers).
 template <int D, bool DROP>
 __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
@@ -315,6 +352,536 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
   }
 }
 
+// -------------------------------------------------------------------- //
+// 3. The wgmma + TMA pair, d = 64 (any S)
+// -------------------------------------------------------------------- //
+
+constexpr int BLOCK = 128;     // rows a block owns: two consumer warpgroups
+constexpr int WTHREADS = 384;  // the producer warpgroup, then the consumers
+constexpr int STAGES = 3;      // ring slots of streamed 64-row tiles
+// registers a thread after setmaxnreg: 128 x 24 + 256 x 240 = 63 K
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit (a result below 2^-126 flushes to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Barrier of the two consumer warpgroups (named barrier 1).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// sum + a . b over the eight bf16 pairs of two 16-byte chunks, in order,
+// each product and sum rounded (the mma.sync kernel's di).
+__device__ __forceinline__ float dot8(float sum, uint4 a, uint4 b) {
+  const unsigned x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    sum = __fadd_rn(sum, __fmul_rn(__uint_as_float(x[i] << 16),
+                                   __uint_as_float(y[i] << 16)));
+    sum = __fadd_rn(sum, __fmul_rn(__uint_as_float(x[i] & 0xffff0000u),
+                                   __uint_as_float(y[i] & 0xffff0000u)));
+  }
+  return sum;
+}
+
+// Keep bits, drawn by the consumer warps: each warp draws the bits of its
+// own 16 rows against the tile's 64 columns (256 Philox calls, 8 a lane)
+// while the tile's score products run, and hands them to the lanes that
+// use them by shuffles.  Bit (jj, e) of a thread's row is its fragment
+// column 8 jj + 2 t + e (t = lane % 4).
+//
+// dQ kernel: lane 2 r + h draws query row r of the warp (Philox row
+// `row`) against keys 8 jj + 4 h .. + 3 of the tile (col = the tile's key
+// 4 h): bit 4 jj + i = key 8 jj + 4 h + i.
+__device__ __forceinline__ unsigned draw_rows(const DropParams& d, int row,
+                                              int col) {
+  unsigned w = 0;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const uint4 v = philox_group(d, row, col + 8 * jj);
+    w |= (unsigned)(v.x >= d.thresh) << (4 * jj) |
+         (unsigned)(v.y >= d.thresh) << (4 * jj + 1) |
+         (unsigned)(v.z >= d.thresh) << (4 * jj + 2) |
+         (unsigned)(v.w >= d.thresh) << (4 * jj + 3);
+  }
+  return w;
+}
+
+// The rows g and g + 8 of a dQ thread, from the lanes that drew them.
+template <bool DROP>
+struct KeepQ {
+  unsigned a = 0, b = 0;
+  __device__ __forceinline__ KeepQ(unsigned w, int lane) {
+    if (!DROP) return;
+    const int g = lane >> 2, t4 = lane & 3;
+    a = __shfl_sync(0xffffffffu, w, 2 * g + (t4 >> 1)) >> (2 * (t4 & 1));
+    b = __shfl_sync(0xffffffffu, w, 2 * g + 16 + (t4 >> 1)) >>
+        (2 * (t4 & 1));
+  }
+  // the bit of fragment row half `hi` (row g + 8 hi), column 8 jj + 2 t + e
+  __device__ __forceinline__ bool operator()(bool hi, int jj, int e) const {
+    return ((hi ? b : a) >> (4 * jj + e)) & 1u;
+  }
+};
+
+// dK/dV kernel, keys as rows: lane 8 c + 2 t + h draws keys 4 c .. + 3 of
+// the warp (col = the first's key) against queries 8 jj + 2 t + e, jj = 4
+// h .. + 3 of the tile (row = the Philox row of query 2 t + 32 h): byte i,
+// bit 2 (jj % 4) + e = key 4 c + i.
+__device__ __forceinline__ unsigned draw_keys(const DropParams& d, int row,
+                                              int col) {
+  unsigned w = 0;
+  // two rounds of four calls: eight in flight beside the in-flight scores
+  // and the dK, dV sums spill
+#pragma unroll 1
+  for (int jh = 0; jh < 8; jh += 4)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int b = jh + i;
+      const uint4 v = philox_group(d, row + 8 * (b >> 1) + (b & 1), col);
+      w |= (unsigned)(v.x >= d.thresh) << b |
+           (unsigned)(v.y >= d.thresh) << (8 + b) |
+           (unsigned)(v.z >= d.thresh) << (16 + b) |
+           (unsigned)(v.w >= d.thresh) << (24 + b);
+    }
+  return w;
+}
+
+// The keys g and g + 8 of a dK/dV thread (16 query bits each, its columns
+// of jj < 4 and jj >= 4), from the lanes that drew them.
+template <bool DROP>
+struct KeepKV {
+  unsigned a0 = 0, a1 = 0, b0 = 0, b1 = 0;
+  __device__ __forceinline__ KeepKV(unsigned w, int lane) {
+    if (!DROP) return;
+    const int g = lane >> 2, t4 = lane & 3, sh = 8 * (g & 3);
+    const int la = 8 * (g >> 2) + 2 * t4;  // key group g / 4, this t
+    a0 = __shfl_sync(0xffffffffu, w, la) >> sh;
+    a1 = __shfl_sync(0xffffffffu, w, la + 1) >> sh;
+    b0 = __shfl_sync(0xffffffffu, w, la + 16) >> sh;  // key group + 2
+    b1 = __shfl_sync(0xffffffffu, w, la + 17) >> sh;
+  }
+  __device__ __forceinline__ bool operator()(bool hi, int jj, int e) const {
+    const unsigned w = hi ? (jj < 4 ? b0 : b1) : (jj < 4 ? a0 : a1);
+    return (w >> (2 * (jj & 3) + e)) & 1u;
+  }
+};
+
+// The dQ kernel's shared memory, offsets from a 1024-byte-aligned base: Q,
+// dO and O of the block's 128 queries (two 64-row boxes each), the ring's
+// K and V tiles, each slot's key segment ids (NaN past S), di of the 128
+// queries, the barriers (full and empty per slot, one for Q, dO, O).
+struct DqSmem {
+  static constexpr int Q = 0, DO = Q + 2 * QTILE, O = DO + 2 * QTILE;
+  static constexpr int K = O + 2 * QTILE, V = K + STAGES * QTILE;
+  static constexpr int IDS = V + STAGES * QTILE;
+  static constexpr int DI = IDS + STAGES * QT * 4;
+  static constexpr int BAR = DI + BLOCK * 4;
+  static constexpr int BYTES = 1024 + BAR + (2 * STAGES + 1) * 8;
+};
+
+// The dK/dV kernel's: K and V of the block's 128 keys, the ring's Q and dO
+// tiles, each slot's query segment ids (NaN past S), per query pair (2 m, 2
+// m + 1) a float4 {lse log2e of 2 m, of 2 m + 1, di of 2 m, of 2 m + 1} (0
+// past S), the barriers.
+struct DkvSmem {
+  static constexpr int K = 0, V = K + 2 * QTILE;
+  static constexpr int Q = V + 2 * QTILE, DO = Q + STAGES * QTILE;
+  static constexpr int IDS = DO + STAGES * QTILE;
+  static constexpr int STAT = IDS + STAGES * QT * 4;
+  static constexpr int BAR = STAT + STAGES * QT * 2 * 4;
+  static constexpr int BYTES = 1024 + BAR + (2 * STAGES + 1) * 8;
+};
+static_assert(DqSmem::BYTES <= 232448 && DkvSmem::BYTES <= 232448,
+              "shared memory");
+
+// Descriptors of 64 x 64 swizzled tiles (wgmma.cuh), built once and
+// offset: the start address is the low field in 16-byte units, and no
+// offset here carries out of it.  K-major (a k-step 32 bytes along the
+// rows) or MN-major (a k-step 16 rows, 2048 bytes).
+__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile) {
+  return smem_desc(tile, 1, 64);
+}
+__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile) {
+  return smem_desc(tile, 512, 64);
+}
+constexpr uint64_t KSTEP = 32 >> 4, MNSTEP = 2048 >> 4,
+                   TILE_DESC = QTILE >> 4;
+
+// Issues (and commits) a = A . B^T and b = C . D^T, 64 x 64 each, from
+// K-major tiles with descriptors da .. dd (m64n64k16, four k-steps).
+__device__ __forceinline__ void issue_two(float (&a)[32], float (&b)[32],
+                                          uint64_t da, uint64_t db,
+                                          uint64_t dc, uint64_t dd) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_n64(a, da + kk * KSTEP, db + kk * KSTEP, kk);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_n64(b, dc + kk * KSTEP, dd + kk * KSTEP, kk);
+  wgmma_commit();
+}
+
+// acc += A (64 x 64: sixteen bf16 A fragments, four k-steps) . B, B the
+// tile of MN-major descriptor db.
+__device__ __forceinline__ void issue_rs(float (&acc)[32],
+                                         const unsigned (&a)[16],
+                                         uint64_t db) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_rs_n64(acc, a + 4 * j, db + j * MNSTEP, 1);
+}
+
+// The dQ kernel: per (element, head, 128 queries), keys innermost.
+// Consumer warpgroup w owns queries 64 w .. + 63 of the block.
+template <bool DROP>
+__global__ void __launch_bounds__(WTHREADS, 1) flash_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_o,
+    const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ mask, const float* __restrict__ lse,
+    float* __restrict__ di, bf16* __restrict__ dq, int ld_g, int S,
+    float sm_scale, DropParams drop) {
+  using L = DqSmem;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* ids = reinterpret_cast<float*>(sm + L::IDS);
+  float* sdi = reinterpret_cast<float*>(sm + L::DI);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* empty = full + STAGES;
+  uint64_t* resident = empty + STAGES;
+
+  const int head = blockIdx.y, elem = blockIdx.z, col = head * WD;
+  const int q0 = blockIdx.x * BLOCK;
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * gridDim.y + head) * S;  // Philox row of query 0
+  const int n_kt = (S + QT - 1) / QT;
+  const float nan = __int_as_float(0x7fc00000);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 129);  // the TMA bytes + the 128 producer threads
+      mbar_init(&empty[s], 8);   // one arrive per consumer warp
+    }
+    mbar_init(resident, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: the resident tiles once, then each key tile's K, V and
+    // segment ids, up to STAGES tiles ahead of the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        PRODUCER_REGS));
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+      mbar_expect_tx(resident, 6 * QTILE);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tma_load(sm + L::Q + h * QTILE, &tm_q, resident, col, q0 + h * QT,
+                 elem);
+        tma_load(sm + L::DO + h * QTILE, &tm_do, resident, col,
+                 q0 + h * QT, elem);
+        tma_load(sm + L::O + h * QTILE, &tm_o, resident, col, q0 + h * QT,
+                 elem);
+      }
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % STAGES, k0 = kt * QT;
+      mbar_wait(&empty[st], ((kt / STAGES) & 1) ^ 1);
+      if (tid == 0) {
+        mbar_expect_tx(&full[st], 2 * QTILE);
+        tma_load(sm + L::K + st * QTILE, &tm_k, &full[st], col, k0, elem);
+        tma_load(sm + L::V + st * QTILE, &tm_v, &full[st], col, k0, elem);
+      }
+      if (tid < QT)
+        ids[st * QT + tid] = k0 + tid < S ? mask[row0 + k0 + tid] : nan;
+      mbar_arrive(&full[st]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int ct = threadIdx.x - 128, cw = ct >> 7;
+  const int lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+  mbar_wait(resident, 0);
+  {  // di = rowsum(f32(dO) * f32(O)): two threads a row, 32 columns each
+    const int r = ct >> 1, c0 = (ct & 1) * 4;
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      sum = dot8(sum,
+                 *reinterpret_cast<const uint4*>(sm + L::DO +
+                                                 swizzle128(r, c0 + c)),
+                 *reinterpret_cast<const uint4*>(sm + L::O +
+                                                 swizzle128(r, c0 + c)));
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((ct & 1) == 0) {
+      sdi[r] = sum;
+      if (q0 + r < S) di[prow0 + q0 + r] = sum;
+    }
+  }
+  consumer_sync();
+
+  const int ra = cw * 64 + ((ct >> 5) & 3) * 16 + g;  // block rows ra, +8
+  const int qa = q0 + ra, qb = qa + 8;
+  // the Philox row this lane draws: row lane / 2 of the warp's 16
+  const int drow = prow0 + q0 + (ra - g) + (lane >> 1);
+  // a query past S matches no key (NaN), so its p is 0 whatever its lse
+  const float qma = qa < S ? mask[row0 + qa] : nan;
+  const float qmb = qb < S ? mask[row0 + qb] : nan;
+  // p sm_scale = 2^(s sm_scale log2e - (lse log2e - log2 sm_scale))
+  const float l2s = log2f(sm_scale);
+  const float la = (qa < S ? lse[prow0 + qa] * LOG2E : 0.f) - l2s;
+  const float lb = (qb < S ? lse[prow0 + qb] * LOG2E : 0.f) - l2s;
+  const float dia = sdi[ra], dib = sdi[ra + 8];
+  const float sc2 = sm_scale * LOG2E, ik = drop.inv_keep;
+  const uint64_t d_q = kmajor(sm + L::Q + cw * QTILE);
+  const uint64_t d_do = kmajor(sm + L::DO + cw * QTILE);
+  const uint64_t d_k = kmajor(sm + L::K), d_v = kmajor(sm + L::V);
+  const uint64_t d_kt = mnmajor(sm + L::K);
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % STAGES;
+    const uint64_t slot = st * TILE_DESC;
+    mbar_wait(&full[st], (kt / STAGES) & 1);
+    float s[32], dp[32];
+    issue_two(s, dp, d_q, d_k + slot, d_do, d_v + slot);
+    // the keep bits while the products run
+    const KeepQ<DROP> keep(
+        DROP ? draw_rows(drop, drow, kt * QT + 4 * (lane & 1)) : 0u, lane);
+    const float* kid = ids + st * QT + 2 * t4;
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    // ds = bf16(p (drop(dp) - di) sm_scale), packed as A fragments
+    unsigned pa[16];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 km = *reinterpret_cast<const float2*>(kid + 8 * jj);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * jj + e;
+        const bool lo = e < 2;
+        const float d_i = lo ? dia : dib;
+        const float x = ((e & 1) ? km.y : km.x) == (lo ? qma : qmb)
+                            ? fmaf(s[i], sc2, -(lo ? la : lb))
+                            : -INFINITY;
+        // drop(dp) - di: dp * (keep ? inv_keep : 0) - di
+        const float dm =
+            DROP ? fmaf(dp[i], keep(!lo, jj, e & 1) ? ik : 0.f, -d_i)
+                 : dp[i] - d_i;
+        v[e] = ex2(x) * dm;
+      }
+      pa[2 * jj] = pack_bf16x2(v[0], v[1]);
+      pa[2 * jj + 1] = pack_bf16x2(v[2], v[3]);
+    }
+    fence_acc(acc);
+    wgmma_fence();
+    issue_rs(acc, pa, d_kt + slot);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int c = col + jj * 8 + 2 * t4;
+    if (qa < S)
+      *reinterpret_cast<unsigned*>(dq + (row0 + qa) * ld_g + c) =
+          pack_bf16x2(acc[4 * jj], acc[4 * jj + 1]);
+    if (qb < S)
+      *reinterpret_cast<unsigned*>(dq + (row0 + qb) * ld_g + c) =
+          pack_bf16x2(acc[4 * jj + 2], acc[4 * jj + 3]);
+  }
+}
+
+// The dK/dV kernel: per (element, head, 128 keys), queries innermost.
+// Consumer warpgroup w owns keys 64 w .. + 63 of the block: S^T = K Q^T and
+// dP^T = V dO^T have the keys as rows, so their C fragments are the A
+// fragments of dV += P_v^T dO and dK += dS^T Q.
+template <bool DROP>
+__global__ void __launch_bounds__(WTHREADS, 1) flash_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ mask, const float* __restrict__ lse,
+    const float* __restrict__ di, bf16* __restrict__ dk_out,
+    bf16* __restrict__ dv_out, int ld_g, int S, float sm_scale,
+    DropParams drop) {
+  using L = DkvSmem;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* ids = reinterpret_cast<float*>(sm + L::IDS);
+  float* stat = reinterpret_cast<float*>(sm + L::STAT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* empty = full + STAGES;
+  uint64_t* resident = empty + STAGES;
+
+  const int head = blockIdx.y, elem = blockIdx.z, col = head * WD;
+  const int k0 = blockIdx.x * BLOCK;
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * gridDim.y + head) * S;  // Philox row of query 0
+  const int n_qt = (S + QT - 1) / QT;
+  const float nan = __int_as_float(0x7fc00000);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 129);  // the TMA bytes + the 128 producer threads
+      mbar_init(&empty[s], 8);   // one arrive per consumer warp
+    }
+    mbar_init(resident, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: K and V once, then each query tile's Q, dO, segment ids,
+    // lse and di, up to STAGES tiles ahead of the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        PRODUCER_REGS));
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+      mbar_expect_tx(resident, 4 * QTILE);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tma_load(sm + L::K + h * QTILE, &tm_k, resident, col, k0 + h * QT,
+                 elem);
+        tma_load(sm + L::V + h * QTILE, &tm_v, resident, col, k0 + h * QT,
+                 elem);
+      }
+    }
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int st = qt % STAGES, q0 = qt * QT;
+      mbar_wait(&empty[st], ((qt / STAGES) & 1) ^ 1);
+      if (tid == 0) {
+        mbar_expect_tx(&full[st], 2 * QTILE);
+        tma_load(sm + L::Q + st * QTILE, &tm_q, &full[st], col, q0, elem);
+        tma_load(sm + L::DO + st * QTILE, &tm_do, &full[st], col, q0, elem);
+      }
+      if (tid < QT) {
+        const int q = q0 + tid;
+        const bool ok = q < S;
+        ids[st * QT + tid] = ok ? mask[row0 + q] : nan;
+        float* p = stat + st * QT * 2 + (tid >> 1) * 4 + (tid & 1);
+        p[0] = ok ? lse[prow0 + q] * LOG2E : 0.f;
+        p[2] = ok ? di[prow0 + q] : 0.f;
+      }
+      mbar_arrive(&full[st]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int ct = threadIdx.x - 128, cw = ct >> 7;
+  const int lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+  const int ra = cw * 64 + ((ct >> 5) & 3) * 16 + g;  // block keys ra, +8
+  const int ka = k0 + ra, kb = ka + 8;
+  // the keys and the Philox row of the first query this lane draws
+  const int dcol = k0 + (ra - g) + 4 * (lane >> 3);
+  const int drow = prow0 + 2 * ((lane >> 1) & 3) + 32 * (lane & 1);
+  // a key past S matches no query (NaN), so its p is 0
+  const float kma = ka < S ? mask[row0 + ka] : nan;
+  const float kmb = kb < S ? mask[row0 + kb] : nan;
+  const float sc2 = sm_scale * LOG2E, ik = drop.inv_keep;
+  const uint64_t d_k = kmajor(sm + L::K + cw * QTILE);
+  const uint64_t d_v = kmajor(sm + L::V + cw * QTILE);
+  const uint64_t d_q = kmajor(sm + L::Q), d_do = kmajor(sm + L::DO);
+  const uint64_t d_qt = mnmajor(sm + L::Q), d_dot = mnmajor(sm + L::DO);
+  mbar_wait(resident, 0);
+
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int st = qt % STAGES;
+    const uint64_t slot = st * TILE_DESC;
+    mbar_wait(&full[st], (qt / STAGES) & 1);
+    float s[32], dp[32];  // S^T, dP^T: rows keys, columns queries
+    issue_two(s, dp, d_k, d_q + slot, d_v, d_do + slot);
+    // the keep bits while the products run
+    const KeepKV<DROP> keep(
+        DROP ? draw_keys(drop, drow + qt * QT, dcol) : 0u, lane);
+    const float* qid = ids + st * QT + 2 * t4;
+    const float4* cst = reinterpret_cast<const float4*>(stat + st * QT * 2) +
+                        t4;
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    // p_v = bf16(drop(p)), ds = bf16(p (drop(dp) - di) sm_scale), packed
+    // as A fragments
+    unsigned pv[16], pd[16];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 qm = *reinterpret_cast<const float2*>(qid + 8 * jj);
+      const float4 cs = cst[4 * jj];  // lse log2e and di of the two columns
+      float a[4], b[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * jj + e;
+        const bool lo = e < 2, odd = e & 1;
+        const float d_i = odd ? cs.w : cs.z;
+        const float x = (lo ? kma : kmb) == (odd ? qm.y : qm.x)
+                            ? fmaf(s[i], sc2, -(odd ? cs.y : cs.x))
+                            : -INFINITY;
+        const float p = ex2(x);
+        const float m = DROP && !keep(!lo, jj, odd) ? 0.f : ik;
+        a[e] = DROP ? p * m : p;
+        b[e] = p * (DROP ? fmaf(dp[i], m, -d_i) : dp[i] - d_i) * sm_scale;
+      }
+      pv[2 * jj] = pack_bf16x2(a[0], a[1]);
+      pv[2 * jj + 1] = pack_bf16x2(a[2], a[3]);
+      pd[2 * jj] = pack_bf16x2(b[0], b[1]);
+      pd[2 * jj + 1] = pack_bf16x2(b[2], b[3]);
+    }
+    fence_acc(dk);
+    fence_acc(dv);
+    wgmma_fence();
+    issue_rs(dv, pv, d_dot + slot);  // dV += P_v^T dO
+    issue_rs(dk, pd, d_qt + slot);   // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dk);
+    fence_acc(dv);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int c = col + jj * 8 + 2 * t4;
+    if (ka < S) {
+      const size_t r = (row0 + ka) * ld_g + c;
+      *reinterpret_cast<unsigned*>(dk_out + r) =
+          pack_bf16x2(dk[4 * jj], dk[4 * jj + 1]);
+      *reinterpret_cast<unsigned*>(dv_out + r) =
+          pack_bf16x2(dv[4 * jj], dv[4 * jj + 1]);
+    }
+    if (kb < S) {
+      const size_t r = (row0 + kb) * ld_g + c;
+      *reinterpret_cast<unsigned*>(dk_out + r) =
+          pack_bf16x2(dk[4 * jj + 2], dk[4 * jj + 3]);
+      *reinterpret_cast<unsigned*>(dv_out + r) =
+          pack_bf16x2(dv[4 * jj + 2], dv[4 * jj + 3]);
+    }
+  }
+}
+
 struct Operands {  // host side only: the kernels take them as arguments
   const bf16 *q, *k, *v, *o, *dout;
   const float *mask, *lse;
@@ -362,10 +929,81 @@ int launch(const Operands& a, bool dkv, cudaStream_t stream) {
                    : launch_dq<D, false>(a, stream);
 }
 
+long long wgmma_launches[2] = {0, 0};  // the wgmma pair's dQ, dK/dV kernels
+
+// The 3-D tensor map of a (b, s, heads, 64) operand's rows (ld values
+// apart): (head column, row, element) in 64 x 64 x 1 boxes.
+int rows_map(CUtensorMap* m, const void* p, int ld, const Operands& a) {
+  return encode<3>(m, false, p,
+                   {(cuuint64_t)a.n_heads * WD, (cuuint64_t)a.S,
+                    (cuuint64_t)a.B},
+                   {(cuuint64_t)ld * 2, (cuuint64_t)a.S * ld * 2},
+                   {(cuuint32_t)WD, (cuuint32_t)QT, 1u});
+}
+
+template <bool DROP>
+int launch_dq_wgmma(const Operands& a, cudaStream_t stream) {
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_dq_wgmma_kernel<DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, DqSmem::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  const int H = a.n_heads * WD;
+  CUtensorMap tq, tk, tv, to, tdo;
+  int rc = rows_map(&tq, a.q, a.ld, a);
+  if (rc == 0) rc = rows_map(&tk, a.k, a.ld, a);
+  if (rc == 0) rc = rows_map(&tv, a.v, a.ld, a);
+  if (rc == 0) rc = rows_map(&to, a.o, H, a);
+  if (rc == 0) rc = rows_map(&tdo, a.dout, H, a);
+  if (rc != 0) return rc;
+  dim3 grid((a.S + BLOCK - 1) / BLOCK, a.n_heads, a.B);
+  flash_dq_wgmma_kernel<DROP><<<grid, WTHREADS, DqSmem::BYTES, stream>>>(
+      tq, tk, tv, to, tdo, a.mask, a.lse, a.di, a.dq, a.ld_g, a.S,
+      a.sm_scale, a.drop);
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++wgmma_launches[0];
+  return (int)e;
+}
+
+template <bool DROP>
+int launch_dkv_wgmma(const Operands& a, cudaStream_t stream) {
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_dkv_wgmma_kernel<DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, DkvSmem::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = rows_map(&tq, a.q, a.ld, a);
+  if (rc == 0) rc = rows_map(&tk, a.k, a.ld, a);
+  if (rc == 0) rc = rows_map(&tv, a.v, a.ld, a);
+  if (rc == 0) rc = rows_map(&tdo, a.dout, a.n_heads * WD, a);
+  if (rc != 0) return rc;
+  dim3 grid((a.S + BLOCK - 1) / BLOCK, a.n_heads, a.B);
+  flash_dkv_wgmma_kernel<DROP><<<grid, WTHREADS, DkvSmem::BYTES, stream>>>(
+      tq, tk, tv, tdo, a.mask, a.lse, a.di, a.dk, a.dv, a.ld_g, a.S,
+      a.sm_scale, a.drop);
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++wgmma_launches[1];
+  return (int)e;
+}
+
+// d = 64: the wgmma + TMA pair; d = 32, 128: the mma.sync pair.
 int dispatch(const Operands& a, int d, bool dkv, void* cuda_stream) {
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  if (d == WD) {
+    if (dkv)
+      return a.drop.on ? launch_dkv_wgmma<true>(a, s)
+                       : launch_dkv_wgmma<false>(a, s);
+    return a.drop.on ? launch_dq_wgmma<true>(a, s)
+                     : launch_dq_wgmma<false>(a, s);
+  }
   if (d == 32) return launch<32>(a, dkv, s);
-  if (d == 64) return launch<64>(a, dkv, s);
   if (d == 128) return launch<128>(a, dkv, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -379,7 +1017,8 @@ extern "C" {
 // f32 from nbk_flash_fwd -> dq bf16 with row stride ld_g (16-byte
 // aligned, ld_g even) and di (B, n_heads, S) f32 = rowsum(dout * o), which
 // nbk_flash_bwd_dkv reads.  d in {32, 64, 128}; the prob dropout as in the
-// forward.
+// forward.  At d = 64 q, k, v, o and dout must be 16-byte aligned with row
+// strides of a multiple of 16 bytes (TMA).
 int nbk_flash_bwd_dq(const void* q, const void* k, const void* v, int ld,
                      const void* o, const void* dout, const float* mask,
                      const float* lse, float* di, void* dq, int ld_g, int B,
@@ -432,6 +1071,13 @@ int nbk_flash_bwd_dkv(const void* q, const void* k, const void* v, int ld,
   a.sm_scale = sm_scale;
   a.drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
   return dispatch(a, d, true, cuda_stream);
+}
+
+// Launches of the wgmma + TMA pair's dQ (dkv = 0) or dK/dV (dkv = 1) kernel
+// since the library was loaded (a routing check: the pair runs exactly at
+// d = 64).
+long long nbk_flash_bwd_wgmma_launches(int dkv) {
+  return wgmma_launches[dkv ? 1 : 0];
 }
 
 }  // extern "C"

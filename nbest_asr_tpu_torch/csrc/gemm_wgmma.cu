@@ -128,14 +128,12 @@
 // the int8 serving GELU and residual instances are built without them
 // (compiled in, they cost an earlier mma.sync int8 GEMM's serving launches
 // 13-40%).
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
 #include "philox.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -185,66 +183,7 @@ __host__ __device__ constexpr bool mn_b() {
   return !S8 && (EPI == EPI_RESIDUAL || EPI == EPI_BIAS || EPI == EPI_GELU);
 }
 
-// --- mbarriers --------------------------------------------------------- //
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(unsigned addr,
-                                              unsigned parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(addr), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// Waits for the phase of parity `parity` to complete.  A phase error would
-// hang the card; after ~2^35 cycles (~20 s) of waiting the kernel traps
-// instead, so the launch fails with an error.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned a = smem_addr(bar);
-  if (mbar_try_wait(a, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(a, parity))
-    if (clock64() - t0 > (1ll << 35)) __trap();
-}
-
-// --- TMA and wgmma ----------------------------------------------------- //
-
-// 2-D tile load (c0 the inner coordinate), completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_addr(bar))
-      : "memory");
-}
+// --- wgmma ------------------------------------------------------------ //
 
 // d (64 x N f32, the m64nNk16 fragment) += A (64 x 16, K-major) * B (16 x
 // N; K-major, or MN-major with TRANS_B = 1).  Fragment: thread t of the
@@ -535,7 +474,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tma_kernel(
       mbar_init(&full[s], 1);   // the producer's arrive + the TMA bytes
       mbar_init(&empty[s], 4 * WGS);  // one arrive per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -676,44 +615,14 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tma_kernel(
 
 // --- host side --------------------------------------------------------- //
 
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
 // A tensor map of a row-major (outer, inner) bf16 or s8 matrix, box
 // (box_outer, 128 bytes: the swizzle's width).
 template <bool S8>
-int encode(CUtensorMap* map, const void* ptr, int inner, int outer,
-           int box_outer) {
-  const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * (S8 ? 1 : 2)};
-  const cuuint32_t box[2] = {(cuuint32_t)bk<S8>(), (cuuint32_t)box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map,
-                        S8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        2, const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+int encode2(CUtensorMap* map, const void* ptr, int inner, int outer,
+            int box_outer) {
+  return encode<2>(map, S8, ptr, {(cuuint64_t)inner, (cuuint64_t)outer},
+                   {(cuuint64_t)inner * (S8 ? 1 : 2)},
+                   {(cuuint32_t)bk<S8>(), (cuuint32_t)box_outer});
 }
 
 struct Operands {
@@ -740,11 +649,11 @@ int launch(const void* a, const void* w, const Operands& o,
     attr_set = true;
   }
   CUtensorMap ta, tb;
-  int rc = encode<S8>(&ta, a, K, M, BM);
+  int rc = encode2<S8>(&ta, a, K, M, BM);
   if (rc == 0)  // w (K, N) in 64-column boxes BK deep, or w (N, K) in BN-row
                 // boxes 128 bytes deep
-    rc = mn_b<S8, EPI>() ? encode<S8>(&tb, w, N, K, bk<S8>())
-                         : encode<S8>(&tb, w, K, N, BN);
+    rc = mn_b<S8, EPI>() ? encode2<S8>(&tb, w, N, K, bk<S8>())
+                         : encode2<S8>(&tb, w, K, N, BN);
   if (rc != 0) return rc;
   const int tiles = (M + BM - 1) / BM * (N / BN);
   gemm_tma_kernel<S8, EPI, TRAIN>

@@ -56,6 +56,9 @@ three tiled kernels for any sequence length:
 - ``flash_bwd_dq``  -- dq, and di = rowsum(dO * O) for the next kernel
 - ``flash_bwd_dkv`` -- dk and dv
 
+(the backward pair on ``wgmma`` + TMA at d = 64, counted also by
+``flash_bwd_wgmma_launches``; on ``mma.sync`` at d = 32 and 128).
+
 The int8 training blocks (``ops/fused_ffn.py``, ``ops/fused_attention.py``,
 ``*_int8_train``) give ``gemm_i8_bias_act`` and ``gemm_i8_bias_residual``
 the same Philox dropout sites and saved residuals, and add two kernels for
@@ -166,9 +169,9 @@ def _gemm_dims(name: str, a: torch.Tensor, w: torch.Tensor,
 
 
 def _aligned16(name: str, **tensors) -> None:
-    """The TMA kernels (csrc/gemm_wgmma.cu, bf16 and int8) load and store
-    16 bytes at a time from each operand's base (the bias and scales
-    too)."""
+    """The TMA kernels (csrc/gemm_wgmma.cu, bf16 and int8; the tiled
+    flash backward at d = 64) load and store 16 bytes at a time from each
+    operand's base (the bias and scales too)."""
     for arg, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned, its "
@@ -934,9 +937,21 @@ def _flash_bwd_checks(name, q, k, v, mask, lse, dout, stat2, stat2_name):
     _expect(name, "lse", lse, torch.float32, (b, nh, s))
     if stat2_name == "o":
         _expect(name, "o", stat2, torch.bfloat16, (b, s, nh, d))
+        _aligned16(name, dout=dout, o=stat2)
     else:
         _expect(name, "di", stat2, torch.float32, (b, nh, s))
+        _aligned16(name, dout=dout)
     return b, s, nh, d, ld
+
+
+def flash_bwd_wgmma_launches() -> dict:
+    """Launches of the tiled backward's wgmma + TMA kernels since the
+    kernels were loaded, per kernel (csrc/flash_attention_bwd.cu runs them
+    at d = 64, the mma.sync pair at d = 32 and 128): the routing behind
+    the ``flash_bwd_dq`` and ``flash_bwd_dkv`` counters."""
+    lib = _cuda.lib()
+    return {"flash_bwd_dq": int(lib.nbk_flash_bwd_wgmma_launches(0)),
+            "flash_bwd_dkv": int(lib.nbk_flash_bwd_wgmma_launches(1))}
 
 
 def flash_bwd_dq(q, k, v, mask, o, lse, dout, sm_scale: float, drop=None):

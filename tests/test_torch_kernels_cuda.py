@@ -1083,18 +1083,37 @@ def test_sb_attention_strided(dev, d, views, rate):
         _close_rel(got, want)
 
 
+# the tiled kernels' cases (s, d, q / k / v as QKV views, dropout rate):
+# d = 64 (the wgmma + TMA backward pair) at four lengths, both layouts,
+# with and without dropout; d = 32 and 128 (the mma.sync pair)
+FLASH_TILED_CASES = [(s, 64, views, rate) for s in (100, 700, 1024, 2048)
+                     for views in (False, True) for rate in (0.0, 0.1)] + [
+    (s, d, s == 700, 0.1) for d in (32, 128) for s in (100, 700)]
+
+
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("s", [100, 700])
-def test_flash_tiled_kernels(dev, s, d, packed):
+@pytest.mark.parametrize("s,d,views,rate", FLASH_TILED_CASES)
+def test_flash_tiled_kernels(dev, s, d, views, rate, packed):
+    """The tiled kernels against their plain versions; the backward pair
+    twice, bit for bit (ordered sums, no atomics), on the wgmma + TMA
+    kernels exactly at d = 64."""
     b, nh = 2, 4
-    q, k, v, do = _bshd_operands(dev, b, s, nh, d, s == 700, seed=s + d)
+    q, k, v, do = _bshd_operands(dev, b, s, nh, d, views, seed=s + d)
     mask = _attn_mask(dev, b, s, packed)
-    drop, sc = _drop(0.1, 3), 1.0 / d ** 0.5
+    drop, sc = _drop(rate, 3), 1.0 / d ** 0.5
     o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
-    dq, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc, drop)
-    dk, dv = K.flash_bwd_dkv(q, k, v, mask, lse, di, do, sc, drop)
+    n0 = K.flash_bwd_wgmma_launches()
+
+    def bwd():
+        dq, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc, drop)
+        return (dq, di, *K.flash_bwd_dkv(q, k, v, mask, lse, di, do, sc,
+                                         drop))
+
+    dq, di, dk, dv = bwd()
     torch.cuda.synchronize()
+    n1 = K.flash_bwd_wgmma_launches()
+    assert {n: n1[n] - n0[n] for n in n1} == {
+        "flash_bwd_dq": int(d == 64), "flash_bwd_dkv": int(d == 64)}
     ro, rlse = K.flash_fwd_reference(q, k, v, mask, sc, drop)
     _close(o, ro)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
@@ -1105,6 +1124,8 @@ def test_flash_tiled_kernels(dev, s, d, packed):
     for got, want in zip((dk, dv), K.flash_bwd_dkv_reference(
             q, k, v, mask, lse, di, do, sc, drop)):
         _close_rel(got, want)
+    for got, again in zip((dq, di, dk, dv), bwd()):
+        assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -1156,6 +1177,18 @@ def test_flash_wrappers_refuse_and_count(dev):
         K.flash_fwd(q, k.contiguous(), v, mask, 0.1)
     with pytest.raises(TypeError):
         K.flash_fwd(q.float(), k, v, mask, 0.1)
+    # TMA reads rows 16 bytes aligned: a row stride of 772 values (a QKV
+    # buffer 4 columns wider) and a dout off a 16-byte boundary are refused
+    o, lse = K.flash_fwd(q, k, v, mask, 0.1)
+    wide = torch.zeros(2 * 80, 3 * 256 + 4, device=dev, dtype=torch.bfloat16)
+    qx, kx, vx = wide[:, :3 * 256].unflatten(1, (3, 4, 64)).unflatten(
+        0, (2, 80)).unbind(2)
+    with pytest.raises(ValueError, match="q must be 16-byte aligned"):
+        K.flash_bwd_dq(qx, kx, vx, mask, o, lse, do, 0.1)
+    do_off = torch.empty(do.numel() + 1, device=dev,
+                         dtype=torch.bfloat16)[1:].view(do.shape)
+    with pytest.raises(ValueError, match="dout must be 16-byte aligned"):
+        K.flash_bwd_dkv(q, k, v, mask, lse, lse, do_off, 0.1)
     with pytest.raises(ValueError, match="seq"):
         K.sb_attention(*(torch.cat([t] * 7, 1) for t in (q, k, v)),
                        torch.ones(2, 560, device=dev), 0.1)
@@ -1165,9 +1198,13 @@ def test_flash_wrappers_refuse_and_count(dev):
         qq, kk, vv = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
         _cuda.reset_launch_counts()
+        n0 = K.flash_bwd_wgmma_launches()
         flash_attention(qq, kk, vv, mask, dropout_rate=0.1, seed=1,
                         **kw).backward(do)
         assert {n: c for n, c in _cuda.launch_counts.items() if c} == want
+        n1 = K.flash_bwd_wgmma_launches()
+        assert {n: n1[n] - n0[n] for n in n1} == {
+            n: want.get(n, 0) for n in n1}
 
 
 # --------------------------------------------------------------------- #
