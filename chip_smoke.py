@@ -26,7 +26,8 @@ Phases, each fatal on failure:
    held to that f32 run.
 3b. The int8 slice: ``Predictor(device="cuda", quantize="int8")`` on the
    same weights serves the same requests.  The int8 kernels' counters
-   rise by exactly layers x batches x launches-per-layer while the bf16
+   rise by exactly layers x batches x launches-per-layer (every
+   ``quantize_rows`` on its row pass, at K = 768 and 3072) while the bf16
    GEMM counters stay at 0; agreement with the int8 plain path on the
    decisions the f32 run resolves must be >= 98%, and the int8 scores
    within 5e-2 of the f32 run (``nbest_asr_tpu/ops/quant.py:31``).
@@ -87,7 +88,8 @@ Phases, each fatal on failure:
 7. The int8 training slice: the same, on JAX's shipped int8 training
    configuration (``NBEST_BENCH_INT8=2``: ``use_int8_train``,
    ``use_int8_train_attn``, ``use_int8_train_bwd`` as well), counters by
-   ``PER_LAYER_TRAIN_I8``, and one counted step without
+   ``PER_LAYER_TRAIN_I8`` (every ``quantize_rows`` on its row pass, at K
+   = 768 and 3072), and one counted step without
    ``use_int8_train_bwd`` (``NBEST_BENCH_INT8=1``) by
    ``PER_LAYER_TRAIN_I8_FWD``; at dropout 0 one kernel step against the
    same step with both int8 blocks on their kernels' plain versions; the
@@ -100,8 +102,8 @@ Phases, each fatal on failure:
    and the tiled ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` (32 x
    1024 and 8 x 2048, d = 64 and 128), padded and packed masks, dropout 0
    and 0.1, checking o, the statistics (row sum, lse, di), dq, dk, dv,
-   and that the backward pair runs on its wgmma + TMA kernels exactly at
-   d = 64 (``flash_bwd_wgmma_launches``); the tiled route forced at s =
+   and that the three run on their wgmma + TMA kernels exactly at d = 64
+   (``flash_wgmma_launches``); the tiled route forced at s =
    256 drops exactly the single-block route's probs (a one-hot probe
    against the stream-3 keep bits) and agrees with it in value.  Kernel
    (device) / plain / library (device) / bound ms of the tiled kernels at
@@ -119,8 +121,8 @@ Phases, each fatal on failure:
    ``max_position=1024``, ``use_flash_attention, use_fused_attn,
    use_fused_ffn``, one micro of 32 rows; a padded step (lengths
    768-1024) and a packed step (position_ids), counters by
-   ``PER_LAYER_TRAIN_TILED`` (the tiled kernels 12 x per micro, the
-   backward pair's all on its wgmma + TMA kernels); at dropout 0 one
+   ``PER_LAYER_TRAIN_TILED`` (the tiled kernels 12 x per micro, every
+   launch on their wgmma + TMA kernels); at dropout 0 one
    kernel step against the same step with flash and the FFN block on
    their plain versions.
 11. Route C's row kernels against their plain versions
@@ -912,6 +914,7 @@ def drive(predictor, reqs, per_layer, per_forward=None):
     predictor.predict(reqs[0][:BATCH])             # warm-up, not counted
     torch.cuda.synchronize()
     _cuda.reset_launch_counts()
+    pass0 = quant_pass_launches()
     labels, scores = [], []
     for req in reqs:
         labels.append(predictor.predict(req))
@@ -928,7 +931,28 @@ def drive(predictor, reqs, per_layer, per_forward=None):
     if counts != want:
         raise AssertionError("kernel launch counts differ from layers x "
                              "batches x launches per layer")
+    hold_quant_pass(f"slice {predictor.quantize}", pass0, counts)
     return labels, scores, counts
+
+
+def quant_pass_launches():
+    from nbest_asr_tpu_torch.ops.kernels import quantize_rows_pass_launches
+
+    return quantize_rows_pass_launches()
+
+
+def hold_quant_pass(what, before, counts):
+    """Every ``quantize_rows`` launch of a counted run took the row pass
+    (csrc/quant_rows.cu), and a run that quantizes did so at the
+    encoder's widths, K = 768 and 3072; ``before``: the row pass's
+    launches by K when the run's counters were set to 0."""
+    after = quant_pass_launches()
+    d = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    n = counts["quantize_rows"]
+    log(f"[{what}] quantize_rows launches on the row pass, by K: {d} of {n}")
+    if sum(d.values()) != n or (n and set(d) != {768, 3072}):
+        raise AssertionError(f"{what}: quantize_rows did not run its row "
+                             "pass at K = 768 and 3072 at every launch")
 
 
 def hold_to_plain(name, kp, pp, fp, reqs, k_labels, k_scores, arrays,
@@ -2135,16 +2159,16 @@ def phase_flash_kernels(dev, card: str):
             for rate in (0.0, DROPOUT):
                 tag = f"{b} x {s} d {d} {mname} rate {rate}"
                 drop = site(200 + s, rate, 3)
+                n0 = K.flash_wgmma_launches()
                 o, lse = K.flash_fwd(q, k, v, m, sc, drop)
-                n0 = K.flash_bwd_wgmma_launches()
                 dq, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop)
                 dk, dv = K.flash_bwd_dkv(q, k, v, m, lse, di, do, sc, drop)
                 torch.cuda.synchronize()
-                n1 = K.flash_bwd_wgmma_launches()
+                n1 = K.flash_wgmma_launches()
                 if any(n1[n] - n0[n] != int(d == 64) for n in n1):
                     raise AssertionError(
-                        f"flash backward {tag}: wgmma launches {n0} -> {n1}"
-                        "; the wgmma + TMA pair runs exactly at d = 64")
+                        f"flash kernels {tag}: wgmma launches {n0} -> {n1}"
+                        "; the wgmma + TMA kernels run exactly at d = 64")
                 ro, rlse = K.flash_fwd_reference(q, k, v, m, sc, drop)
                 check(f"flash_fwd o {tag}", "flash_fwd", o, ro, False)
                 check.rel(f"flash_fwd lse {tag}", "flash_fwd", lse, rlse,
@@ -2692,6 +2716,7 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
     # ---- main path: 3 steps per bucket, counted and timed -------------- #
     _cuda.reset_launch_counts()
     wgmma0 = wgmma_bwd()
+    pass0 = quant_pass_launches()
     step_ms, peaks = {}, {}
     for bucket in BUCKETS:
         torch.cuda.reset_peak_memory_stats()
@@ -2726,6 +2751,7 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
     expect(counts, r["per_layer"],
            {b: TRAIN_STEPS * N_ACCUM for b in BUCKETS},
            f"main path ({flags_on})")
+    hold_quant_pass(f"train {route}", pass0, counts)
     peak = max(peaks.values())
 
     # ---- the second route: one counted step at seq 64 ------------------ #
@@ -2736,11 +2762,13 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
         second(state0, data[64], indices(64), gen)         # warm-up
         torch.cuda.synchronize()
         _cuda.reset_launch_counts()
+        pass0 = quant_pass_launches()
         _, stats = second(state0, data[64], indices(64), gen)
         torch.cuda.synchronize()
         second_counts = dict(_cuda.launch_counts)
         expect(second_counts, second_per_layer, {64: N_ACCUM},
                f"{what}, one step at seq 64")
+        hold_quant_pass(f"train {route}, {what}", pass0, second_counts)
         if not all(np.isfinite(float(v)) for v in stats["loss"].values()):
             raise AssertionError(f"{what}: loss {stats['loss']}")
         counts = {k: counts[k] + second_counts[k] for k in counts}
@@ -2961,7 +2989,7 @@ def phase_train_long(dev, card: str, block_ms):
     from nbest_asr_tpu_torch.models.model import (ModelConfig,
                                                   init_model_params)
     from nbest_asr_tpu_torch.ops import _cuda
-    from nbest_asr_tpu_torch.ops.kernels import flash_bwd_wgmma_launches
+    from nbest_asr_tpu_torch.ops.kernels import flash_wgmma_launches
     from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
                                                          make_train_step)
     from nbest_asr_tpu_torch.train.losses import LossConfig
@@ -2996,7 +3024,7 @@ def phase_train_long(dev, card: str, block_ms):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
-    wgmma0 = flash_bwd_wgmma_launches()
+    wgmma0 = flash_wgmma_launches()
     ms = []
     for name, micro in zip(("padded 768-1024", "packed"), micros):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -3021,12 +3049,12 @@ def phase_train_long(dev, card: str, block_ms):
     if counts != want:
         raise AssertionError("route B: launch counts differ from layers x "
                              "micros x launches per layer")
-    wgmma1 = flash_bwd_wgmma_launches()
+    wgmma1 = flash_wgmma_launches()
     wgmma = {n: wgmma1[n] - wgmma0[n] for n in wgmma1}
-    log(f"[train long] the backward pair's wgmma + TMA launches {wgmma}")
+    log(f"[train long] the tiled kernels' wgmma + TMA launches {wgmma}")
     if any(wgmma[n] != want[n] for n in wgmma):
-        raise AssertionError("route B: the tiled backward did not run on "
-                             "its wgmma + TMA kernels at every launch")
+        raise AssertionError("route B: the tiled kernels did not run on "
+                             "their wgmma + TMA kernels at every launch")
     attn = block_ms[("flash_attn_train", LONG_SEQ)]
     share = LAYERS * attn[0] / np.mean(ms)
     log(f"[train long] peak memory {peak:.2f} GiB; per layer fwd+bwd: flash "
@@ -3125,16 +3153,18 @@ def main() -> int:
     log(f"[device] ptxas notes on wgmma / setmaxnreg: {len(notes)}"
         + ("" if _cuda.build_report else " (no build in this process)"))
     # the wgmma + TMA kernels' instances -- the GEMM's (bf16 and s8:
-    # gemm_tma_kernel<S8, EPI, TRAIN>) and the tiled flash backward pair's
-    # (flash_dq_wgmma_kernel, flash_dkv_wgmma_kernel <DROP>) -- must build
-    # without spills or such notes
-    tma_names = ("gemm_tma_kernel", "flash_dq_wgmma_kernel",
-                 "flash_dkv_wgmma_kernel")
+    # gemm_tma_kernel<S8, EPI, TRAIN>) and the tiled flash kernels'
+    # (flash_fwd_wgmma_kernel, flash_dq_wgmma_kernel,
+    # flash_dkv_wgmma_kernel <DROP>) -- must build without spills or such
+    # notes
+    tma_names = ("gemm_tma_kernel", "flash_fwd_wgmma_kernel",
+                 "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel")
     tma = {n: [line for line in summary if n in line] for n in tma_names}
     bad = [line for lines in tma.values() for line in lines
            if "spills 0/0 B" not in line]
     bad += [line for line in notes
-            if line.startswith(("gemm_wgmma.cu", "flash_attention_bwd.cu"))]
+            if line.startswith(("gemm_wgmma.cu", "flash_attention.cu",
+                                "flash_attention_bwd.cu"))]
     if _cuda.build_report and (bad or not all(tma.values())):
         raise AssertionError("the wgmma + TMA kernels: spills or ptxas notes "
                              f"(or no instance reported): {bad}")

@@ -4,6 +4,7 @@ bias-GELU kernels of one checkout on one NVIDIA GPU, so that two commits
 can be compared on the same card:
 
     python3 chip_time_attention.py [--root CHECKOUT] [--iters N]
+                                   [--only GROUP,...]
 
 ``--root`` is the root of a checkout of this repository (default: the
 directory of this script); its ``nbest_asr_tpu_torch`` is imported and
@@ -19,12 +20,13 @@ and ``seg_attention`` so at
 micro and on route A's layout, SDPA beside it, the d = 128 attention pair
 and ``layer_norm_rows`` beside ``F.layer_norm``; and, where it has
 them,
-``quantize_rows`` of a (64 x 256, 768) bf16 block input and the four
+``quantize_rows`` of a (64 x 256, 768) and a (64 x 256, 3072) bf16 block
+input and its four launches of a layer, and the four
 int8 serving GEMM launches of a layer at 64 x 256 rows
 (``gemm_i8_bias_act`` QKV and W1 + GELU, ``gemm_i8_bias_residual``
 out-proj and W2), each as ``[back to back, device]`` ms, and
 ``train_i8_ms``: the int8 training launches of a layer at 8192 rows
-(``gemm_i8_dgrad`` dgelu with dropout, residual, none, residual;
+(the four ``quantize_rows``; ``gemm_i8_dgrad`` dgelu with dropout, residual, none, residual;
 ``gemm_i8_bias_act`` W1 + GELU with dropout and h saved, and QKV;
 ``gemm_i8_bias_residual`` W2 with dropout and y2d saved, and the out-proj
 with the hidden dropout and od saved), ``torch._int_mm`` on the two
@@ -36,9 +38,10 @@ weights, both megakernel flags) at 64 x 256 in bf16 and in int8, the
 serving forward without the head; where it has the tiled flash kernels,
 ``flash_ms``: ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at
 batch 32 x seq 1024 on q, k, v views of one QKV buffer with a padded mask
-and prob dropout, the backward pair again without dropout, and SDPA's
-backward alone (autograd.grad over a retained forward, the same operands,
-mask and dropout rate), each as ``[back to back, device]`` ms; and
+and prob dropout, the three again without dropout, and SDPA's forward and
+its backward alone (autograd.grad over a retained forward, the same
+operands, mask and dropout rate), each as ``[back to back, device]`` ms;
+and
 ``gemm_ms``, each bf16 GEMM
 launch of an encoder layer: the four ``gemm_dgrad`` launches of a training
 layer at 8192 rows (dgelu with dropout, residual, none, residual; and the
@@ -52,7 +55,8 @@ back times
 the calls as the host issues them, device queues them behind a sleep so
 that the card runs them without waiting for the host.  With the card's
 name and power limit.  CUDA events over ``--iters`` calls after two
-warm-up calls.  Run two checkouts alternately (A B B A) in one call to
+warm-up calls; ``--only`` times some of the groups (GROUPS), as when
+comparing variant checkouts of one kernel.  Run two checkouts alternately (A B B A) in one call to
 compare them.
 """
 
@@ -67,6 +71,10 @@ import sys
 import torch
 
 H, NH = 768, 12
+# the timed groups (--only): the seg_attention launches and the training
+# attention times, the int8 launches and encoder forwards, the tiled flash
+# kernels, the bf16 GEMMs, the bias-GELU pair
+GROUPS = ("attention", "int8", "flash", "gemm", "rows")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -172,6 +180,8 @@ def train_i8_times(K, dev, gen, iters: int) -> dict:
     b2, bo = (rn(H, std=0.02, dtype=torch.float32) for _ in range(2))
     d1, d2, dh = site(1, 0.1, 1), site(1, 0.1, 2), site(1, 0.1, 4)
     xq = K.quantize_rows(rn(m, H))
+    # the four quantize_rows launches of a layer: x, ctx, x, gd
+    xr, cr, gr = rn(m, H), rn(m, H), rn(m, i)
     # the residual launches' quantized inputs (gd, ctx) and residual
     gq, cq, x = (K.quantize_rows(rn(m, i)), K.quantize_rows(rn(m, H)),
                  rn(m, H))
@@ -189,6 +199,8 @@ def train_i8_times(K, dev, gen, iters: int) -> dict:
     pairs = ((g1, w2r), (g2, w1r), (g3, wor), (g4, ar))
     contig = [w.t().contiguous() for _, w in pairs]
     calls = {
+        "quantize_rows_x4": lambda: [K.quantize_rows(t)
+                                     for t in (xr, cr, xr, gr)],
         "dgrad_dgelu": lambda: K.gemm_i8_dgrad(*g1, w2r, "dgelu", h=h,
                                                drop=d1),
         "dgrad_residual_w1": lambda: K.gemm_i8_dgrad(*g2, w1r, "residual",
@@ -342,8 +354,9 @@ def train_bwd_times(K, dev, gen, drop, iters: int) -> dict:
 def flash_times(K, dev, gen, iters: int) -> dict:
     """The tiled flash kernels at route B's layer, 32 x 1024, 12 heads of
     64, q, k, v views of one QKV buffer, a padded mask, prob dropout 0.1:
-    the forward, the backward pair, the pair without dropout, and SDPA's
-    backward alone on the same operands; [back to back, device] ms."""
+    the forward, the backward pair, both without dropout, SDPA's forward
+    and its backward alone on the same operands; [back to back, device]
+    ms."""
     from nbest_asr_tpu_torch.ops.philox import site
 
     F = torch.nn.functional
@@ -371,10 +384,13 @@ def flash_times(K, dev, gen, iters: int) -> dict:
                                          drop),
         "bwd_dkv": lambda: K.flash_bwd_dkv(q, k, v, mask, lse, di, do, sc,
                                            drop),
+        "fwd_no_dropout": lambda: K.flash_fwd(q, k, v, mask, sc),
         "bwd_dq_no_dropout": lambda: K.flash_bwd_dq(q, k, v, mask, o0, lse0,
                                                     do, sc),
         "bwd_dkv_no_dropout": lambda: K.flash_bwd_dkv(q, k, v, mask, lse0,
                                                       di0, do, sc),
+        "sdpa_fwd": lambda: F.scaled_dot_product_attention(
+            *leaves, attn_mask=same, dropout_p=0.1),
         "sdpa_bwd": lambda: torch.autograd.grad(sdpa_o, leaves, go,
                                                 retain_graph=True)}
     return {name: both_ms(fn, iters) for name, fn in calls.items()}
@@ -385,7 +401,13 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups to time, of "
+                    f"{', '.join(GROUPS)} (default: all)")
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(GROUPS):
+        ap.error(f"--only takes groups of {GROUPS}")
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this script times the "
                            "port's kernels on an NVIDIA GPU")
@@ -394,14 +416,16 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
-    out = {"root": args.root, "serving_ms": {}}
+    out = {"root": args.root}
     for b, s in ((64, 64), (64, 96), (64, 160), (64, 256)):
+        if "attention" not in only:
+            break
         qkv = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
             dev, torch.bfloat16)
         mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
-        out["serving_ms"][s] = both_ms(
+        out.setdefault("serving_ms", {})[s] = both_ms(
             lambda: K.seg_attention(qkv, mask, NH), args.iters)
-    if hasattr(K, "seg_attention_bwd"):
+    if "attention" in only and hasattr(K, "seg_attention_bwd"):
         from nbest_asr_tpu_torch.ops.philox import site
 
         b, s = 32, 256
@@ -432,7 +456,7 @@ def main() -> int:
             lambda: K.seg_attention(q5, m5, NH, drop=drop, stats=True),
             args.iters)
         out.update(train_bwd_times(K, dev, gen, drop, args.iters))
-    if hasattr(K, "gemm_i8_bias_act"):
+    if "int8" in only and hasattr(K, "gemm_i8_bias_act"):
         from nbest_asr_tpu_torch.ops.quant import (kernel_layout,
                                                    quantize_weight)
 
@@ -452,8 +476,16 @@ def main() -> int:
                             weight(H, H), weight(4 * H, H))
         xb = (torch.randn(64 * 256, H, generator=gen) * 0.5).to(
             dev, torch.bfloat16)
+        gb = (torch.randn(64 * 256, 4 * H, generator=gen) * 0.5).to(
+            dev, torch.bfloat16)
         out["serving_i8_ms"] = {
             "quantize_rows": both_ms(lambda: K.quantize_rows(xb), args.iters),
+            "quantize_rows_3072": both_ms(lambda: K.quantize_rows(gb),
+                                          args.iters),
+            # the four of a layer: x, ctx, x2, the GELU output
+            "quantize_rows_x4": both_ms(
+                lambda: [K.quantize_rows(t) for t in (xb, xb, xb, gb)],
+                args.iters),
             "act_qkv": both_ms(lambda: K.gemm_i8_bias_act(*x, *wqkv),
                                args.iters),
             "act_w1_gelu": both_ms(
@@ -466,11 +498,11 @@ def main() -> int:
             out["train_i8_ms"] = train_i8_times(K, dev, gen, args.iters)
             # ~170 launches a forward: 10 calls enqueue within the sleep
             out["encoder_fwd_ms"] = encoder_times(dev, gen, 10)
-    if hasattr(K, "flash_fwd"):
+    if "flash" in only and hasattr(K, "flash_fwd"):
         out["flash_ms"] = flash_times(K, dev, gen, args.iters)
-    if hasattr(K, "gemm_dgrad"):
+    if "gemm" in only and hasattr(K, "gemm_dgrad"):
         out["gemm_ms"] = gemm_times(K, dev, gen, args.iters)
-    if hasattr(K, "bias_gelu_bwd"):
+    if "rows" in only and hasattr(K, "bias_gelu_bwd"):
         out["rows_ms"] = rows_times(K, dev, gen, args.iters)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

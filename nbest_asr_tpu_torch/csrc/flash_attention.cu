@@ -1,5 +1,5 @@
-// Tiled flash-attention forward: online softmax over 64-key tiles, one
-// block per (element, head, 64-query tile), for any sequence length.
+// Tiled flash-attention forward: online softmax over 64-key tiles, for any
+// sequence length.
 //
 // Replaces nbest_asr_tpu/ops/flash_attention.py:_fwd_kernel (:99), the
 // TPU's tiled forward over a (b, h, q-block, kv-block) grid, and the
@@ -19,29 +19,71 @@
 // tensors), o is written (b, s, heads, d) and lse (b, heads, s): no
 // transposes and no padding.  Prob dropout is Philox stream 3 at row
 // (elem * n_heads + head) * S + q, column k -- the single-block kernel's
-// mask (seg_attention.cu), whatever the tiling.
+// mask (seg_attention.cu), whatever the tiling.  The P . V product takes P
+// rounded to bf16 unnormalised, as FlashAttention does (the TPU kernel
+// multiplies in f32 at HIGHEST precision).
 //
-// Design (FlashAttention-2 on mma.sync): 4 warps x 16 query rows; the q
-// fragments stay in registers for the whole key sweep; each 64-key tile
-// of K and V arrives by cp.async into one of two shared buffers while the
-// previous tile is computed, with its 64 segment ids and its 64 x 64 keep
-// bits (one Philox call per four probs, drawn once per block into a
-// shared bit table, attention.cuh).  The score C fragments become, after
-// the exp, the A fragments of P . V (P rounded to bf16 unnormalised, as
-// FlashAttention does; the TPU kernel multiplies in f32 at HIGHEST
-// precision).
+// Two kernels; nbk_flash_fwd picks by head dim, and neither falls back to
+// the other:
+//   d = 64 (any S)   the wgmma + TMA kernel (section 2)
+//   d = 32, 128      the mma.sync kernel (section 1)
+//
+// The mma.sync kernel (FlashAttention-2): one block per (element, head,
+// 64-query tile), 4 warps x 16 query rows; the q fragments stay in
+// registers for the whole key sweep; each 64-key tile of K and V arrives
+// by cp.async into one of two shared buffers while the previous tile is
+// computed, with its 64 segment ids and its 64 x 64 keep bits (one Philox
+// call per four probs, drawn once per block into a shared bit table,
+// attention.cuh).  The score C fragments become, after the exp, the A
+// fragments of P . V.
+//
+// The wgmma + TMA kernel at d = 64, on the backward pair's pieces
+// (flash_wgmma.cuh) with an online softmax in place of dP: a block owns
+// 256 queries as four warpgroups of 64, which share each 64-key K and V
+// tile.  The block's Q arrives once by TMA; warp 0 fills a ring of
+// FSTAGES slots two tiles ahead with K and V (TMA, 3-D maps, so keys past
+// S are zero-filled within each element) and each slot's segment ids.
+// Each warpgroup issues S = Q K^T on wgmma from shared memory (m64n64k16,
+// both K-major) and, while it runs, draws its rows' keep bits (8 Philox
+// calls a lane, the bits handed out by shuffles); the softmax stays in
+// registers in log2 units (scores times sm_scale log2 e, exp2 on the
+// special-function unit, row maxima and the rescale by quad shuffles),
+// and the dropped probs, packed as bf16 A fragments, multiply the slot's V
+// read MN-major: O += P V with A from registers.  The mask sentinel is
+// MASK_VALUE itself, taken after the scaling (MASK_VALUE log2 e would
+// overflow to -inf).  lse goes out in natural log, m ln 2 + log(l), the
+// statistic the backward pair reads.
+//
+// Why this shape (chip_time_attention.py's flash rows on variant
+// checkouts, PERF.md): the kernel is paced by instruction issue --
+// some 13 instructions per (query, key) of softmax and, with dropout, the
+// Philox multiplies, which share the FMA pipe -- and by how well its warps
+// hide each other's latencies.  Four warpgroups (four warps a scheduler)
+// ran a sixth faster than two without dropout, 5% with it; a producer
+// warpgroup beside them held all 640 threads to 96 registers, where the
+// Philox draws spilled, so there is none: 512 threads keep 128 registers.
+// Two blocks an SM (80 registers) spilled and serialised the products;
+// issuing the next tile's S before this tile's softmax (FlashAttention-3's
+// overlap, two warpgroups) made ptxas serialise them too.
 //
 // What bounds it on the H100: 4 b h s^2 d tensor-core operations against
 // 8 b s h + 4 b s + 4 b h s bytes -- at s = 1024, d = 64 about 500
-// operations a byte, above the card's 295: the MMA rate bounds it, and
-// mma.sync with a 64 x 64 tile reaches a fraction of it (wgmma with TMA
-// is a later step).
-#include "attention.cuh"
+// operations a byte, above the card's 295: the MMA rate bounds it (0.104
+// ms at route B's 32 x 1024 x 12 heads).  With dropout the Philox keep
+// bits, one call per four (query, key) pairs with some 18 integer
+// multiplies each, take the integer pipe longer than the products take
+// the tensor cores (PERF.md).
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using namespace nbk;
 using namespace nbk::attn;
+using namespace nbk::flash;
+
+// -------------------------------------------------------------------- //
+// 1. The mma.sync kernel, d = 32, 128
+// -------------------------------------------------------------------- //
 
 constexpr int KT = 64;       // keys per tile
 constexpr int KWORDS = 2;    // keep words per query row of a tile
@@ -72,11 +114,11 @@ __device__ __forceinline__ void stage_tile(bf16* sK, bf16* sV, float* sMk,
   if (DROP) build_keep(sKeep, ROWS, KWORDS, KSTRIDE, drop, prow_q0, k0);
 }
 
-// Blocks per SM: 4 at d <= 64 (128 registers, 48 KB of shared memory at
-// d = 64), 2 at d = 128 (87 KB; the fragments and the accumulator take
-// ~96 registers before the scores).
+// Blocks per SM: 4 at d = 32 (128 registers), 2 at d = 128 (87 KB of
+// shared memory; the fragments and the accumulator take ~96 registers
+// before the scores).
 template <int D, bool DROP>
-__global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 2)
+__global__ void __launch_bounds__(THREADS, D == 32 ? 4 : 2)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, int ld,
                      const float* __restrict__ mask, bf16* __restrict__ o,
@@ -247,14 +289,251 @@ int launch(const void* q, const void* k, const void* v, int ld,
                                  sm_scale, drop, stream);
 }
 
+// -------------------------------------------------------------------- //
+// 2. The wgmma + TMA kernel, d = 64 (any S)
+// -------------------------------------------------------------------- //
+
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int FBLOCK = 256;    // queries a block owns: four warpgroups
+constexpr int FTHREADS = 512;  // no producer warpgroup: 128 registers each
+constexpr int FSTAGES = 4;     // ring slots; warp 0 fills two tiles ahead
+
+// Shared memory, offsets from a 1024-byte-aligned base: Q of the block's
+// 256 queries (four 64-row boxes), the ring's K and V tiles, each slot's
+// key segment ids (NaN past S), the barriers (full and empty per slot, one
+// for Q).
+struct FwdSmem {
+  static constexpr int Q = 0, K = Q + 4 * QTILE, V = K + FSTAGES * QTILE;
+  static constexpr int IDS = V + FSTAGES * QTILE;
+  static constexpr int BAR = IDS + FSTAGES * QT * 4;
+  static constexpr int BYTES = 1024 + BAR + (2 * FSTAGES + 1) * 8;
+};
+static_assert(FwdSmem::BYTES <= 232448, "shared memory");
+
+// Per (element, head, 256 queries), keys innermost.  Warpgroup w owns
+// queries 64 w .. + 63 of the block; warp 0 also fills the ring.
+template <bool DROP>
+__global__ void __launch_bounds__(FTHREADS, 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const float* __restrict__ mask, bf16* __restrict__ o,
+    float* __restrict__ lse, int S, float sm_scale, DropParams drop) {
+  using L = FwdSmem;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* ids = reinterpret_cast<float*>(sm + L::IDS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* empty = full + FSTAGES;
+  uint64_t* resident = empty + FSTAGES;
+
+  const int head = blockIdx.y, elem = blockIdx.z, col = head * WD;
+  const int H = gridDim.y * WD;
+  const int q0 = blockIdx.x * FBLOCK;
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * gridDim.y + head) * S;  // Philox row of query 0
+  const int n_kt = (S + QT - 1) / QT;
+  const float nan = __int_as_float(0x7fc00000);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FSTAGES; ++s) {
+      mbar_init(&full[s], 33);   // the TMA bytes + warp 0's 32 lanes
+      mbar_init(&empty[s], 16);  // one arrive per warp
+    }
+    mbar_init(resident, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int ct = threadIdx.x, cw = ct >> 7;
+  const int lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+  const bool loader = ct < 32;  // warp 0 fills the ring
+  // tile kt's K, V (lane 0, by TMA) and segment ids into its slot
+  auto fill = [&](int kt) {
+    const int st = kt % FSTAGES, k0 = kt * QT;
+    if (lane == 0) {
+      mbar_expect_tx(&full[st], 2 * QTILE);
+      tma_load(sm + L::K + st * QTILE, &tm_k, &full[st], col, k0, elem);
+      tma_load(sm + L::V + st * QTILE, &tm_v, &full[st], col, k0, elem);
+    }
+    for (int j = lane; j < QT; j += 32)
+      ids[st * QT + j] = k0 + j < S ? mask[row0 + k0 + j] : nan;
+    mbar_arrive(&full[st]);
+  };
+  if (loader) {
+    if (lane == 0) {
+      mbar_expect_tx(resident, 4 * QTILE);
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        tma_load(sm + L::Q + h * QTILE, &tm_q, resident, col, q0 + h * QT,
+                 elem);
+    }
+    for (int kt = 0; kt < FSTAGES && kt < n_kt; ++kt) fill(kt);
+  }
+  const int ra = cw * 64 + ((ct >> 5) & 3) * 16 + g;  // block rows ra, +8
+  const int qa = q0 + ra, qb = qa + 8;
+  // the Philox row this lane draws: row lane / 2 of the warp's 16
+  const int drow = prow0 + q0 + (ra - g) + (lane >> 1);
+  // a query past S matches no key (NaN); its output is never stored
+  const float qma = qa < S ? mask[row0 + qa] : nan;
+  const float qmb = qb < S ? mask[row0 + qb] : nan;
+  const float sc2 = sm_scale * LOG2E, ik = drop.inv_keep;
+  const uint64_t d_q = kmajor(sm + L::Q + cw * QTILE);
+  const uint64_t d_k = kmajor(sm + L::K), d_vt = mnmajor(sm + L::V);
+  mbar_wait(resident, 0);
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  // the running row maxima (log2 units) and this thread's share of the
+  // row sums
+  float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    // the slot tile kt - 2 held takes tile kt + 2 once every warp is done
+    // with it (rarely a wait: two tiles have passed since)
+    if (loader && kt >= 2 && kt + 2 < n_kt) {
+      mbar_wait(&empty[(kt - 2) % FSTAGES], ((kt - 2) / FSTAGES) & 1);
+      fill(kt + 2);
+    }
+    const int st = kt % FSTAGES;
+    const uint64_t slot = st * TILE_DESC;
+    mbar_wait(&full[st], (kt / FSTAGES) & 1);
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64(s, d_q + kk * KSTEP, d_k + slot + kk * KSTEP, kk);
+    wgmma_commit();
+    // the keep bits while the product runs
+    const KeepQ<DROP> keep(
+        DROP ? draw_rows(drop, drow, kt * QT + 4 * (lane & 1)) : 0u, lane);
+    const float* kid = ids + st * QT + 2 * t4;
+    wgmma_wait<0>();
+    fence_acc(s);
+    // x = s sm_scale log2 e; MASK_VALUE where the segments differ
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 km = *reinterpret_cast<const float2*>(kid + 8 * jj);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * jj + e;
+        s[i] = ((e & 1) ? km.y : km.x) == (e < 2 ? qma : qmb) ? s[i] * sc2
+                                                              : MASK_VALUE;
+      }
+    }
+    if ((kt + 1) * QT > S) {  // the last tile: keys past S are -inf
+      const int n = S - kt * QT;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (8 * (i >> 2) + 2 * t4 + (i & 1) >= n) s[i] = -INFINITY;
+    }
+    float ta = -INFINITY, tb = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      ta = fmaxf(ta, fmaxf(s[4 * jj], s[4 * jj + 1]));
+      tb = fmaxf(tb, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
+    }
+    // every tile holds a key below S, so na and nb are finite; the first
+    // tile's alpha is 2^-inf = 0
+    const float na = fmaxf(ma, quad_max(ta)), nb = fmaxf(mb, quad_max(tb));
+    const float alpha_a = ex2(ma - na), alpha_b = ex2(mb - nb);
+    ma = na;
+    mb = nb;
+    la *= alpha_a;
+    lb *= alpha_b;
+    // p = 2^(x - m'), summed undropped; drop(p) packed as A fragments
+    unsigned pa[16];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool lo = e < 2;
+        const float p = ex2(s[4 * jj + e] - (lo ? na : nb));
+        if (lo)
+          la += p;
+        else
+          lb += p;
+        v[e] = !DROP ? p : keep(!lo, jj, e & 1) ? __fmul_rn(p, ik) : 0.f;
+      }
+      pa[2 * jj] = pack_bf16x2(v[0], v[1]);
+      pa[2 * jj + 1] = pack_bf16x2(v[2], v[3]);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      acc[4 * jj] *= alpha_a;
+      acc[4 * jj + 1] *= alpha_a;
+      acc[4 * jj + 2] *= alpha_b;
+      acc[4 * jj + 3] *= alpha_b;
+    }
+    fence_acc(acc);
+    wgmma_fence();
+    issue_rs(acc, pa, d_vt + slot);  // O += drop(P) V
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  la = quad_sum(la);
+  lb = quad_sum(lb);
+  const float ia = la == 0.f ? 1.f : 1.f / la;
+  const float ib = lb == 0.f ? 1.f : 1.f / lb;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int c = col + jj * 8 + 2 * t4;
+    if (qa < S)
+      *reinterpret_cast<unsigned*>(o + (row0 + qa) * H + c) =
+          pack_bf16x2(acc[4 * jj] * ia, acc[4 * jj + 1] * ia);
+    if (qb < S)
+      *reinterpret_cast<unsigned*>(o + (row0 + qb) * H + c) =
+          pack_bf16x2(acc[4 * jj + 2] * ib, acc[4 * jj + 3] * ib);
+  }
+  // lse in natural log: m ln 2 + log(l)
+  if (t4 == 0) {
+    if (qa < S) lse[prow0 + qa] = ma * LN2 + logf(fmaxf(la, 1e-30f));
+    if (qb < S) lse[prow0 + qb] = mb * LN2 + logf(fmaxf(lb, 1e-30f));
+  }
+}
+
+long long wgmma_launches = 0;  // launches of the wgmma + TMA kernel
+
+template <bool DROP>
+int launch_wgmma(const void* q, const void* k, const void* v, int ld,
+                 const float* mask, void* o, float* lse, int B, int S,
+                 int n_heads, float sm_scale, const DropParams& drop,
+                 cudaStream_t stream) {
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel<DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, FwdSmem::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  CUtensorMap tq, tk, tv;
+  int rc = rows_map(&tq, q, ld, n_heads, S, B);
+  if (rc == 0) rc = rows_map(&tk, k, ld, n_heads, S, B);
+  if (rc == 0) rc = rows_map(&tv, v, ld, n_heads, S, B);
+  if (rc != 0) return rc;
+  dim3 grid((S + FBLOCK - 1) / FBLOCK, n_heads, B);
+  flash_fwd_wgmma_kernel<DROP><<<grid, FTHREADS, FwdSmem::BYTES, stream>>>(
+      tq, tk, tv, mask, static_cast<bf16*>(o), lse, S, sm_scale, drop);
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++wgmma_launches;
+  return (int)e;
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, k, v: (B*S, ld) bf16 row-major, each operand's (n_heads * d) columns
-// starting at its pointer (16-byte aligned, ld % 8 == 0); mask (B, S) f32
-// segment ids -> o (B*S, n_heads * d) bf16 and lse (B, n_heads, S) f32.
-// d in {32, 64, 128}, any S >= 1.  Prob dropout when drop_on (philox.cuh).
+// starting at its pointer (16-byte aligned, ld % 8 == 0: at d = 64 TMA
+// reads them); mask (B, S) f32 segment ids -> o (B*S, n_heads * d) bf16
+// and lse (B, n_heads, S) f32.  d in {32, 64, 128}, any S >= 1.  Prob
+// dropout when drop_on (philox.cuh).
 int nbk_flash_fwd(const void* q, const void* k, const void* v, int ld,
                   const float* mask, void* o, float* lse, int B, int S,
                   int n_heads, int d, float sm_scale,
@@ -265,13 +544,19 @@ int nbk_flash_fwd(const void* q, const void* k, const void* v, int ld,
   if (d == 32)
     return launch<32>(q, k, v, ld, mask, o, lse, B, S, n_heads, sm_scale,
                       drop, s);
-  if (d == 64)
-    return launch<64>(q, k, v, ld, mask, o, lse, B, S, n_heads, sm_scale,
-                      drop, s);
+  if (d == WD)
+    return drop.on ? launch_wgmma<true>(q, k, v, ld, mask, o, lse, B, S,
+                                        n_heads, sm_scale, drop, s)
+                   : launch_wgmma<false>(q, k, v, ld, mask, o, lse, B, S,
+                                         n_heads, sm_scale, drop, s);
   if (d == 128)
     return launch<128>(q, k, v, ld, mask, o, lse, B, S, n_heads, sm_scale,
                        drop, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// Launches of the wgmma + TMA kernel since the library was loaded (a
+// routing check: it runs exactly at d = 64).
+long long nbk_flash_fwd_wgmma_launches() { return wgmma_launches; }
 
 }  // extern "C"

@@ -66,13 +66,13 @@
 // the pace.  A producer warpgroup drawing the bits (one warp per scheduler)
 // ran 1.2x slower; turns between the consumer warpgroups, or the draws
 // placed beside the elementwise work, gained nothing.
-#include "attention.cuh"
-#include "tma.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using namespace nbk;
 using namespace nbk::attn;
+using namespace nbk::flash;
 
 constexpr int KWORDS = 2;   // keep words per row of a 64 x 64 tile
 constexpr int KSTRIDE = 3;  // odd: a fragment column's 8 rows, 8 banks
@@ -361,14 +361,6 @@ constexpr int WTHREADS = 384;  // the producer warpgroup, then the consumers
 constexpr int STAGES = 3;      // ring slots of streamed 64-row tiles
 // registers a thread after setmaxnreg: 128 x 24 + 256 x 240 = 63 K
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x on the special-function unit (a result below 2^-126 flushes to 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Barrier of the two consumer warpgroups (named barrier 1).
 __device__ __forceinline__ void consumer_sync() {
@@ -389,47 +381,8 @@ __device__ __forceinline__ float dot8(float sum, uint4 a, uint4 b) {
   return sum;
 }
 
-// Keep bits, drawn by the consumer warps: each warp draws the bits of its
-// own 16 rows against the tile's 64 columns (256 Philox calls, 8 a lane)
-// while the tile's score products run, and hands them to the lanes that
-// use them by shuffles.  Bit (jj, e) of a thread's row is its fragment
-// column 8 jj + 2 t + e (t = lane % 4).
-//
-// dQ kernel: lane 2 r + h draws query row r of the warp (Philox row
-// `row`) against keys 8 jj + 4 h .. + 3 of the tile (col = the tile's key
-// 4 h): bit 4 jj + i = key 8 jj + 4 h + i.
-__device__ __forceinline__ unsigned draw_rows(const DropParams& d, int row,
-                                              int col) {
-  unsigned w = 0;
-#pragma unroll
-  for (int jj = 0; jj < 8; ++jj) {
-    const uint4 v = philox_group(d, row, col + 8 * jj);
-    w |= (unsigned)(v.x >= d.thresh) << (4 * jj) |
-         (unsigned)(v.y >= d.thresh) << (4 * jj + 1) |
-         (unsigned)(v.z >= d.thresh) << (4 * jj + 2) |
-         (unsigned)(v.w >= d.thresh) << (4 * jj + 3);
-  }
-  return w;
-}
-
-// The rows g and g + 8 of a dQ thread, from the lanes that drew them.
-template <bool DROP>
-struct KeepQ {
-  unsigned a = 0, b = 0;
-  __device__ __forceinline__ KeepQ(unsigned w, int lane) {
-    if (!DROP) return;
-    const int g = lane >> 2, t4 = lane & 3;
-    a = __shfl_sync(0xffffffffu, w, 2 * g + (t4 >> 1)) >> (2 * (t4 & 1));
-    b = __shfl_sync(0xffffffffu, w, 2 * g + 16 + (t4 >> 1)) >>
-        (2 * (t4 & 1));
-  }
-  // the bit of fragment row half `hi` (row g + 8 hi), column 8 jj + 2 t + e
-  __device__ __forceinline__ bool operator()(bool hi, int jj, int e) const {
-    return ((hi ? b : a) >> (4 * jj + e)) & 1u;
-  }
-};
-
-// dK/dV kernel, keys as rows: lane 8 c + 2 t + h draws keys 4 c .. + 3 of
+// Keep bits of the dK/dV kernel, which holds keys as rows (flash_wgmma.cuh
+// draws query rows): lane 8 c + 2 t + h draws keys 4 c .. + 3 of
 // the warp (col = the first's key) against queries 8 jj + 2 t + e, jj = 4
 // h .. + 3 of the tile (row = the Philox row of query 2 t + 32 h): byte i,
 // bit 2 (jj % 4) + e = key 4 c + i.
@@ -500,19 +453,6 @@ struct DkvSmem {
 static_assert(DqSmem::BYTES <= 232448 && DkvSmem::BYTES <= 232448,
               "shared memory");
 
-// Descriptors of 64 x 64 swizzled tiles (wgmma.cuh), built once and
-// offset: the start address is the low field in 16-byte units, and no
-// offset here carries out of it.  K-major (a k-step 32 bytes along the
-// rows) or MN-major (a k-step 16 rows, 2048 bytes).
-__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile) {
-  return smem_desc(tile, 1, 64);
-}
-__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile) {
-  return smem_desc(tile, 512, 64);
-}
-constexpr uint64_t KSTEP = 32 >> 4, MNSTEP = 2048 >> 4,
-                   TILE_DESC = QTILE >> 4;
-
 // Issues (and commits) a = A . B^T and b = C . D^T, 64 x 64 each, from
 // K-major tiles with descriptors da .. dd (m64n64k16, four k-steps).
 __device__ __forceinline__ void issue_two(float (&a)[32], float (&b)[32],
@@ -526,16 +466,6 @@ __device__ __forceinline__ void issue_two(float (&a)[32], float (&b)[32],
   for (int kk = 0; kk < 4; ++kk)
     wgmma_ss_n64(b, dc + kk * KSTEP, dd + kk * KSTEP, kk);
   wgmma_commit();
-}
-
-// acc += A (64 x 64: sixteen bf16 A fragments, four k-steps) . B, B the
-// tile of MN-major descriptor db.
-__device__ __forceinline__ void issue_rs(float (&acc)[32],
-                                         const unsigned (&a)[16],
-                                         uint64_t db) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wgmma_rs_n64(acc, a + 4 * j, db + j * MNSTEP, 1);
 }
 
 // The dQ kernel: per (element, head, 128 queries), keys innermost.
@@ -931,14 +861,8 @@ int launch(const Operands& a, bool dkv, cudaStream_t stream) {
 
 long long wgmma_launches[2] = {0, 0};  // the wgmma pair's dQ, dK/dV kernels
 
-// The 3-D tensor map of a (b, s, heads, 64) operand's rows (ld values
-// apart): (head column, row, element) in 64 x 64 x 1 boxes.
 int rows_map(CUtensorMap* m, const void* p, int ld, const Operands& a) {
-  return encode<3>(m, false, p,
-                   {(cuuint64_t)a.n_heads * WD, (cuuint64_t)a.S,
-                    (cuuint64_t)a.B},
-                   {(cuuint64_t)ld * 2, (cuuint64_t)a.S * ld * 2},
-                   {(cuuint32_t)WD, (cuuint32_t)QT, 1u});
+  return flash::rows_map(m, p, ld, a.n_heads, a.S, a.B);
 }
 
 template <bool DROP>

@@ -159,8 +159,12 @@ def lib() -> ctypes.CDLL:
         getattr(L, f"nbk_{name}").restype = ctypes.c_int
     L.nbk_seg_attention_bwd_wgmma_launches.argtypes = []
     L.nbk_seg_attention_bwd_wgmma_launches.restype = ctypes.c_longlong
+    L.nbk_flash_fwd_wgmma_launches.argtypes = []
+    L.nbk_flash_fwd_wgmma_launches.restype = ctypes.c_longlong
     L.nbk_flash_bwd_wgmma_launches.argtypes = [i]
     L.nbk_flash_bwd_wgmma_launches.restype = ctypes.c_longlong
+    L.nbk_quantize_rows_pass_launches.argtypes = [i]
+    L.nbk_quantize_rows_pass_launches.restype = ctypes.c_longlong
     L.nbk_error_string.argtypes = [i]
     L.nbk_error_string.restype = ctypes.c_char_p
     _lib = L

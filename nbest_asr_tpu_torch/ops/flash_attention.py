@@ -28,10 +28,13 @@ kv blocks
 ``_bwd_dkv_kernel`` (:226)                      ``flash_bwd_dkv``
 ==============================================  ==============================
 
-The tiled backward pair runs on ``wgmma`` + TMA at d = 64 (128-row
-blocks, a producer warpgroup streaming tiles, two consumer warpgroups
-drawing their keep bits while their score products run) and
-on ``mma.sync`` at d = 32 and 128 (``csrc/flash_attention_bwd.cu``).
+The three tiled kernels run on ``wgmma`` + TMA at d = 64 -- the
+backward pair in 128-row blocks (a producer warpgroup streaming 64-row
+tiles to two consumer warpgroups), the forward in 256-query blocks (four
+warpgroups, warp 0 filling the tile ring, the online softmax in
+registers); every warpgroup draws its keep bits while its score products
+run -- and on ``mma.sync`` at d = 32 and 128 (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``).
 
 The single-block bodies compute the function the attention megakernel's
 head loop computes (``_sb_probs`` is ``_head_probs`` with a caller's

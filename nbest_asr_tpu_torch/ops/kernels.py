@@ -16,7 +16,10 @@ kernels (sources in ``csrc/``):
 The two int8 serving megakernels reuse ``seg_attention`` and
 ``layer_norm`` and add three:
 
-- ``quantize_rows``         -- per-token symmetric int8 of (n, K) rows
+- ``quantize_rows``         -- per-token symmetric int8 of (n, K) rows (a
+                               one-read row pass at K = 256 n, n <= 16,
+                               counted also by
+                               ``quantize_rows_pass_launches``)
 - ``gemm_i8_bias_act``      -- ``act(bf16(dequant(xq . wq) + bias))``
 - ``gemm_i8_bias_residual`` -- ``f32(bf16(dequant(xq . wq) + bias)) +
                                f32(resid)``
@@ -56,8 +59,8 @@ three tiled kernels for any sequence length:
 - ``flash_bwd_dq``  -- dq, and di = rowsum(dO * O) for the next kernel
 - ``flash_bwd_dkv`` -- dk and dv
 
-(the backward pair on ``wgmma`` + TMA at d = 64, counted also by
-``flash_bwd_wgmma_launches``; on ``mma.sync`` at d = 32 and 128).
+(all three on ``wgmma`` + TMA at d = 64, counted also by
+``flash_wgmma_launches``; on ``mma.sync`` at d = 32 and 128).
 
 The int8 training blocks (``ops/fused_ffn.py``, ``ops/fused_attention.py``,
 ``*_int8_train``) give ``gemm_i8_bias_act`` and ``gemm_i8_bias_residual``
@@ -170,8 +173,8 @@ def _gemm_dims(name: str, a: torch.Tensor, w: torch.Tensor,
 
 def _aligned16(name: str, **tensors) -> None:
     """The TMA kernels (csrc/gemm_wgmma.cu, bf16 and int8; the tiled
-    flash backward at d = 64) load and store 16 bytes at a time from each
-    operand's base (the bias and scales too)."""
+    flash backward at d = 64) and the row kernels load and store 16 bytes
+    at a time from each operand's base (the bias and scales too)."""
     for arg, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned, its "
@@ -944,13 +947,15 @@ def _flash_bwd_checks(name, q, k, v, mask, lse, dout, stat2, stat2_name):
     return b, s, nh, d, ld
 
 
-def flash_bwd_wgmma_launches() -> dict:
-    """Launches of the tiled backward's wgmma + TMA kernels since the
-    kernels were loaded, per kernel (csrc/flash_attention_bwd.cu runs them
-    at d = 64, the mma.sync pair at d = 32 and 128): the routing behind
-    the ``flash_bwd_dq`` and ``flash_bwd_dkv`` counters."""
+def flash_wgmma_launches() -> dict:
+    """Launches of the tiled kernels' wgmma + TMA instances since the
+    kernels were loaded, per kernel (csrc/flash_attention.cu and
+    csrc/flash_attention_bwd.cu run them at d = 64, their mma.sync kernels
+    at d = 32 and 128): the routing behind the ``flash_fwd``,
+    ``flash_bwd_dq`` and ``flash_bwd_dkv`` counters."""
     lib = _cuda.lib()
-    return {"flash_bwd_dq": int(lib.nbk_flash_bwd_wgmma_launches(0)),
+    return {"flash_fwd": int(lib.nbk_flash_fwd_wgmma_launches()),
+            "flash_bwd_dq": int(lib.nbk_flash_bwd_wgmma_launches(0)),
             "flash_bwd_dkv": int(lib.nbk_flash_bwd_wgmma_launches(1))}
 
 
@@ -997,6 +1002,16 @@ def flash_bwd_dkv(q, k, v, mask, lse, di, dout, sm_scale: float,
     return dk, dv
 
 
+def quantize_rows_pass_launches() -> dict:
+    """Launches of ``quantize_rows``' row pass since the kernels were
+    loaded, by row width K = 256 n, n = 1 .. 16 (csrc/quant_rows.cu; any
+    other K runs its two-pass kernel): the routing behind the
+    ``quantize_rows`` counter."""
+    lib = _cuda.lib()
+    return {256 * n: int(lib.nbk_quantize_rows_pass_launches(n))
+            for n in range(1, 17)}
+
+
 def quantize_rows(x):
     """Per-token symmetric int8 of (M, K) bf16/f32 rows -> (q (M, K)
     int8, scale (M,) f32)."""
@@ -1010,6 +1025,7 @@ def quantize_rows(x):
                         "bf16 or f32")
     M, K = x.shape
     _expect("quantize_rows", "x", x, x.dtype, (M, K))
+    _aligned16("quantize_rows", x=x)
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     scale = torch.empty((M,), dtype=torch.float32, device=x.device)
     rc = _cuda.lib().nbk_quantize_rows(

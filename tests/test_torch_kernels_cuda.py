@@ -201,17 +201,52 @@ def _i8_weight(dev, k, n, seed):
     return kernel_layout(q), s.reshape(-1)
 
 
+# Rows built to stress the row pass's division (csrc/quant_rows.cu,
+# div_scale): per row an abs-max (its scale not a power of two; 381 2^-8
+# makes 127 s exact, so the f32 rows hold exact ties), and in it, for each
+# k, the value nearest (k + 1/2) s in the row's dtype and its neighbours
+# one ulp either side, below the abs-max; the 1e-12 floor (abs-max below
+# and at it), tiny and huge rows, and values under 2^-90 (the division's
+# scaled branch) and subnormal ones.
+STRESS_AMAX = [381 * 2.0 ** -8, 1.5, 0.37e-12, 1e-12, 2.9e-12, 1.3e30,
+               3.0e38]
+
+
+def _stress_row(k, dtype, amax):
+    a = torch.tensor([amax], dtype=dtype)
+    s = (torch.clamp(a.float(), min=1e-12) / torch.full_like(
+        a.float(), 127.0)).double().item()
+    t = torch.tensor([(j + 0.5) * s for j in range(-127, 127)],
+                     dtype=torch.float64).to(dtype)
+    bits = t.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+    near = torch.cat([t, (bits + 1).view(dtype), (bits - 1).view(dtype)])
+    near = near[near.float().abs() < a.float()]
+    tiny = torch.tensor([1e-30, -3e-35, 1e-40, -2.0 ** -100], dtype=dtype)
+    row = torch.cat([a, near, tiny, -near])[:k]
+    return torch.cat([row, torch.zeros(k - row.numel(), dtype=dtype)])
+
+
+# the row pass's widths (K = 256 n) and one it does not take
+QUANT_K = [768, 1024, 3072, 4096, 776]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m", [1, 60, 300])
-def test_quantize_rows(dev, m, dtype):
-    x = _rand(dev, m, 768, dtype=dtype, seed=m)
+@pytest.mark.parametrize("k", QUANT_K)
+@pytest.mark.parametrize("m", [1, 60, 300, 8192])
+def test_quantize_rows(dev, m, k, dtype):
+    x = _rand(dev, m, k, dtype=dtype, seed=m + k)
     if m > 1:
         x[1] = 0.0                        # all-zero row: the 1e-12 floor
         # amax 127 gives scale 1: 2.5 -> 2, 3.5 -> 4, -0.5 -> 0 (half to
         # even), the +-0.5 boundary after scaling
         x[0, :4] = torch.tensor([127.0, 2.5, 3.5, -0.5], dtype=dtype)
-    q, s = K.quantize_rows(x)
-    torch.cuda.synchronize()
+        for i, amax in enumerate(STRESS_AMAX):
+            x[2 + i] = _stress_row(k, dtype, amax).to(dev)
+    n0 = K.quantize_rows_pass_launches()
+    q, s = _twice(lambda: K.quantize_rows(x))
+    n1 = K.quantize_rows_pass_launches()
+    assert {w: n1[w] - n0[w] for w in n1 if n1[w] != n0[w]} == (
+        {k: 2} if k % 256 == 0 else {})
     rq, rs = K.quantize_rows_reference(x)
     assert q.dtype == torch.int8 and s.dtype == torch.float32
     assert torch.equal(q, rq) and torch.equal(s, rs)
@@ -1095,14 +1130,14 @@ FLASH_TILED_CASES = [(s, 64, views, rate) for s in (100, 700, 1024, 2048)
 @pytest.mark.parametrize("s,d,views,rate", FLASH_TILED_CASES)
 def test_flash_tiled_kernels(dev, s, d, views, rate, packed):
     """The tiled kernels against their plain versions; the backward pair
-    twice, bit for bit (ordered sums, no atomics), on the wgmma + TMA
-    kernels exactly at d = 64."""
+    twice, bit for bit (ordered sums, no atomics); all three on their
+    wgmma + TMA kernels exactly at d = 64."""
     b, nh = 2, 4
     q, k, v, do = _bshd_operands(dev, b, s, nh, d, views, seed=s + d)
     mask = _attn_mask(dev, b, s, packed)
     drop, sc = _drop(rate, 3), 1.0 / d ** 0.5
+    n0 = K.flash_wgmma_launches()
     o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
-    n0 = K.flash_bwd_wgmma_launches()
 
     def bwd():
         dq, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc, drop)
@@ -1111,9 +1146,10 @@ def test_flash_tiled_kernels(dev, s, d, views, rate, packed):
 
     dq, di, dk, dv = bwd()
     torch.cuda.synchronize()
-    n1 = K.flash_bwd_wgmma_launches()
+    n1 = K.flash_wgmma_launches()
     assert {n: n1[n] - n0[n] for n in n1} == {
-        "flash_bwd_dq": int(d == 64), "flash_bwd_dkv": int(d == 64)}
+        "flash_fwd": int(d == 64), "flash_bwd_dq": int(d == 64),
+        "flash_bwd_dkv": int(d == 64)}
     ro, rlse = K.flash_fwd_reference(q, k, v, mask, sc, drop)
     _close(o, ro)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
@@ -1178,11 +1214,18 @@ def test_flash_wrappers_refuse_and_count(dev):
     with pytest.raises(TypeError):
         K.flash_fwd(q.float(), k, v, mask, 0.1)
     # TMA reads rows 16 bytes aligned: a row stride of 772 values (a QKV
-    # buffer 4 columns wider) and a dout off a 16-byte boundary are refused
+    # buffer 4 columns wider), and a q or a dout off a 16-byte boundary,
+    # are refused
     o, lse = K.flash_fwd(q, k, v, mask, 0.1)
     wide = torch.zeros(2 * 80, 3 * 256 + 4, device=dev, dtype=torch.bfloat16)
     qx, kx, vx = wide[:, :3 * 256].unflatten(1, (3, 4, 64)).unflatten(
         0, (2, 80)).unbind(2)
+    with pytest.raises(ValueError, match="q must be 16-byte aligned"):
+        K.flash_fwd(qx, kx, vx, mask, 0.1)
+    q_off = torch.empty(q.numel() + 1, device=dev,
+                        dtype=torch.bfloat16)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="q must be 16-byte aligned"):
+        K.flash_fwd(q_off, k.contiguous(), v.contiguous(), mask, 0.1)
     with pytest.raises(ValueError, match="q must be 16-byte aligned"):
         K.flash_bwd_dq(qx, kx, vx, mask, o, lse, do, 0.1)
     do_off = torch.empty(do.numel() + 1, device=dev,
@@ -1198,11 +1241,11 @@ def test_flash_wrappers_refuse_and_count(dev):
         qq, kk, vv = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
         _cuda.reset_launch_counts()
-        n0 = K.flash_bwd_wgmma_launches()
+        n0 = K.flash_wgmma_launches()
         flash_attention(qq, kk, vv, mask, dropout_rate=0.1, seed=1,
                         **kw).backward(do)
         assert {n: c for n, c in _cuda.launch_counts.items() if c} == want
-        n1 = K.flash_bwd_wgmma_launches()
+        n1 = K.flash_wgmma_launches()
         assert {n: n1[n] - n0[n] for n in n1} == {
             n: want.get(n, 0) for n in n1}
 
