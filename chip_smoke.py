@@ -89,7 +89,9 @@ Phases, each fatal on failure:
    configuration (``NBEST_BENCH_INT8=2``: ``use_int8_train``,
    ``use_int8_train_attn``, ``use_int8_train_bwd`` as well), counters by
    ``PER_LAYER_TRAIN_I8`` (every ``quantize_rows`` on its row pass, at K
-   = 768 and 3072), and one counted step without
+   = 768 and 3072, and every ``quantize_grad_rows`` on its gradient row
+   pass, at all four of a layer's widths: 768, 3072, 768, 2304), and one
+   counted step without
    ``use_int8_train_bwd`` (``NBEST_BENCH_INT8=1``) by
    ``PER_LAYER_TRAIN_I8_FWD``; at dropout 0 one kernel step against the
    same step with both int8 blocks on their kernels' plain versions; the
@@ -142,6 +144,20 @@ Phases, each fatal on failure:
    serving runs in phase 3 (``Predictor`` with the three flags, counted
    by ``PER_LAYER_ROWS`` and held by the bf16 gate) and its forward ms in
    phase 4.
+13. The CLI (``phase_cli``): a synthetic dataroot (``memory.json`` from
+   ``dstc2_like_memory``; train / valid / test shards of 1024 / 256 / 256
+   DSTC2-like utterances, seed 0) in a temporary directory, then
+   ``cli.main`` in this process at BERT-base width (12 layers, 12 heads,
+   bf16, dropout 0.1, buckets 64 / 96 / 160 / 256, token budget 8192,
+   batch 32, 2 epochs): the kernels' counters rise by exactly layers x
+   (training micros x ``PER_LAYER_TRAIN`` + eval batches x the FFN
+   block's forward); ``Trainer.train(stop_after_epoch=0)`` and then
+   ``main(... --resume auto)`` end with params, optimizer state, step and
+   ``best.json`` bit-equal to the uninterrupted run's; ``--testing``
+   reproduces the best epoch's valid F1 / Acc; ``load_predictor`` restores
+   ``model.ckpt`` onto the card and serves the valid split.  Prints the
+   epoch and eval seconds and rows / s (three steps an epoch: printed, no
+   benchmark).
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
@@ -936,23 +952,30 @@ def drive(predictor, reqs, per_layer, per_forward=None):
 
 
 def quant_pass_launches():
-    from nbest_asr_tpu_torch.ops.kernels import quantize_rows_pass_launches
+    """The row passes' launches by K: (quantize_rows', quantize_grad_rows')."""
+    from nbest_asr_tpu_torch.ops.kernels import (
+        quantize_grad_rows_pass_launches, quantize_rows_pass_launches)
 
-    return quantize_rows_pass_launches()
+    return quantize_rows_pass_launches(), quantize_grad_rows_pass_launches()
 
 
 def hold_quant_pass(what, before, counts):
-    """Every ``quantize_rows`` launch of a counted run took the row pass
-    (csrc/quant_rows.cu), and a run that quantizes did so at the
-    encoder's widths, K = 768 and 3072; ``before``: the row pass's
-    launches by K when the run's counters were set to 0."""
+    """Every ``quantize_rows`` and ``quantize_grad_rows`` launch of a
+    counted run took its row pass (csrc/quant_rows.cu), and a run that
+    quantizes did so at the encoder's widths: K = 768 and 3072 for the
+    activations, all four of a layer's gradient widths (768, 3072, 768,
+    2304) for the gradients; ``before``: the row passes' launches by K
+    when the run's counters were set to 0."""
     after = quant_pass_launches()
-    d = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    n = counts["quantize_rows"]
-    log(f"[{what}] quantize_rows launches on the row pass, by K: {d} of {n}")
-    if sum(d.values()) != n or (n and set(d) != {768, 3072}):
-        raise AssertionError(f"{what}: quantize_rows did not run its row "
-                             "pass at K = 768 and 3072 at every launch")
+    for kernel, a, b, widths in (
+            ("quantize_rows", after[0], before[0], {768, 3072}),
+            ("quantize_grad_rows", after[1], before[1], {768, 2304, 3072})):
+        d = {k: a[k] - b[k] for k in a if a[k] != b[k]}
+        n = counts[kernel]
+        log(f"[{what}] {kernel} launches on the row pass, by K: {d} of {n}")
+        if sum(d.values()) != n or (n and set(d) != widths):
+            raise AssertionError(f"{what}: {kernel} did not run its row "
+                                 f"pass at K in {widths} at every launch")
 
 
 def hold_to_plain(name, kp, pp, fp, reqs, k_labels, k_scores, arrays,
@@ -3085,6 +3108,227 @@ def phase_train_long(dev, card: str, block_ms):
     return counts, ms, peak
 
 
+CLI_SPLITS = {"train": 1024, "valid": 256, "test": 256}
+CLI_ARGS = ["--dataset", "dstc2", "--n_layers", str(LAYERS), "--n_head",
+            str(NH), "--compute_dtype", "bfloat16", "--bert_dropout", "0.1",
+            "--length_buckets", "64,96,160,256", "--token_budget", "8192",
+            "--batchSize", "32", "--max_epoch", "2", "--checkpoint_every",
+            "1"]
+# the attention and FFN blocks' training kernels, which every train step
+# runs, and the FFN block's forward, which every eval batch runs too (the
+# eval attention is the plain path, as JAX's without use_fused_attn_eval)
+PER_LAYER_EVAL = {"gemm_bias_act": 1, "gemm_bias_residual": 1,
+                  "layer_norm": 1}
+
+
+def write_dataroot(root, memory, seed: int = 0):
+    """``memory.json`` and DSTC2-like train / valid / test shards
+    (``asr \t<=>\t trans \t<=>\t labels``): user turns of lognormal
+    length (median ~60 words, 12-220), a system turn of a sixth of that,
+    one uniformly drawn gold label each -- ``bench.py``'s synthetic split
+    -- and in 70% of the rows also one frequent label ("thankyou"; DSTC2's
+    label counts are as skewed), which two epochs learn to predict, so
+    that an epoch beats F1 0 and writes the best checkpoint."""
+    from nbest_asr_tpu_torch.data.tokenizer import WordVocabTokenizer
+
+    os.makedirs(root, exist_ok=True)
+    memory.save(os.path.join(root, "memory.json"))
+    rng = np.random.RandomState(seed)
+    words = list(WordVocabTokenizer(memory).vocab)[8:200]
+    label_names = [memory.idx2label[i] for i in range(2, memory.n_bottom)]
+    for name, n in CLI_SPLITS.items():
+        with open(os.path.join(root, name), "w") as fp:
+            for _ in range(n):
+                L = int(np.clip(rng.lognormal(4.1, 0.45), 12, 220))
+                sys_part = [words[i] for i in rng.randint(
+                    0, len(words), max(4, L // 6))]
+                usr = [words[i] for i in rng.randint(0, len(words), L)]
+                head = ["[CLS]", "[SYS]", *sys_part, "[USR]"]
+                gold = {label_names[rng.randint(len(label_names))]}
+                if rng.rand() < 0.7:
+                    gold.add("thankyou")
+                fp.write("%s\t<=>\t%s\t<=>\t%s\n" % (
+                    " ".join(head + usr),
+                    " ".join(head + usr[: max(4, L // 3)]),
+                    ";".join(sorted(gold))))
+
+
+def cli_trainer(args, dev):
+    """The Trainer ``cli.main(args)`` builds, built here as main builds it,
+    so that the run can be stopped after an epoch."""
+    from nbest_asr_tpu_torch import cli
+    from nbest_asr_tpu_torch.config import parse_arguments
+    from nbest_asr_tpu_torch.data.tokenizer import WordVocabTokenizer
+    from nbest_asr_tpu_torch.train.loop import Trainer, build_model
+
+    opt = parse_arguments(args)
+    memory = cli.resolve_memory(opt)
+    tok = WordVocabTokenizer(memory)
+    splits = cli.prepare_packed_splits(opt, memory, tok)
+    cfg, params = build_model(opt, memory, tok, dev)
+    return Trainer(opt, memory, cfg, params, splits, device=dev), tok
+
+
+def plan_counts(trainer):
+    """(training micros, eval batches) of one epoch of ``trainer``: its
+    steps x n_accum, and the valid and test splits' eval batches."""
+    opt = trainer.opt
+    micros = trainer._train_steps_per_epoch() * opt.n_accum_steps
+    batches = 0
+    for split in ("valid", "test"):
+        for bucket in trainer.buckets[split]:
+            blen = int(bucket.data["input_ids"].shape[1])
+            b = max(opt.eval_batch or opt.micro_batch,
+                    (opt.token_budget // blen) // 8 * 8)
+            batches += -(-len(bucket) // b)
+    return micros, batches
+
+
+def log_lines(path, tag):
+    with open(path) as fp:
+        return [line.rstrip("\n") for line in fp if line.startswith(tag)]
+
+
+def log_field(line, name):
+    return line.split(f"{name}: ")[1].split("\t")[0]
+
+
+def phase_cli(dev, card: str):
+    """``cli.main`` at BERT-base width on a synthetic dataroot: two epochs
+    with the kernels' counters held to the run's plan, the resume check,
+    ``--testing`` and ``load_predictor``; returns the launch counts of
+    the first run."""
+    import tempfile
+
+    from nbest_asr_tpu_torch import cli
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.serve import load_predictor
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "dataroot")
+        write_dataroot(root, dstc2_like_memory())
+        args = CLI_ARGS + ["--dataroot", root]
+        whole = args + ["--experiment", os.path.join(tmp, "a")]
+        stopped = args + ["--experiment", os.path.join(tmp, "b")]
+
+        # ---- run 1: two epochs, counted ------------------------------- #
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        if cli.main(whole) != 0:
+            raise AssertionError("cli.main returned an error")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = dict(_cuda.launch_counts)
+
+        # the same run's Trainer, stopped after epoch 0, then resumed
+        trainer, tok = cli_trainer(stopped, dev)
+        micros, batches = plan_counts(trainer)
+        epochs = int(CLI_ARGS[CLI_ARGS.index("--max_epoch") + 1])
+        want = {k: LAYERS * epochs * (micros * PER_LAYER_TRAIN.get(k, 0)
+                                      + batches * PER_LAYER_EVAL.get(k, 0))
+                for k in counts}
+        log(f"[cli] run 1 ({' '.join(CLI_ARGS)}): {run_s:.2f} s; "
+            f"{micros} training micros and {batches} eval batches an "
+            f"epoch; launches {counts}, expected {want}")
+        if counts != want or not all(counts[k] for k in PER_LAYER_TRAIN):
+            raise AssertionError("cli: the kernels' launches differ from "
+                                 "layers x (micros x PER_LAYER_TRAIN + eval "
+                                 "batches x PER_LAYER_EVAL)")
+        exp_b = trainer.opt.exp_dir
+        exp_a = os.path.join(tmp, "a", os.path.relpath(
+            exp_b, os.path.join(tmp, "b")))
+        rows = sum(-(-len(b) // trainer._bucket_micro_batch(b))
+                   // trainer.opt.n_accum_steps * trainer.opt.n_accum_steps
+                   * trainer._bucket_micro_batch(b)
+                   for b in trainer.buckets["train"])
+        for tag in ("[Train]", "[Valid]", "[Test]"):
+            for line in log_lines(os.path.join(exp_a, "log.train"), tag):
+                s = float(log_field(line, "Time"))
+                extra = (f", {rows} rows ({micros} micros), "
+                         f"{rows / s:.1f} rows/s" if tag == "[Train]"
+                         else "")
+                log(f"[cli] {tag} epoch {log_field(line, 'Epoch')}: "
+                    f"{s:.2f} s{extra}; loss {log_field(line, 'Loss')} "
+                    f"[{card}]")
+
+        trainer.train(stop_after_epoch=0)
+        del trainer
+        torch.cuda.synchronize()
+        if cli.main(stopped + ["--resume", "auto"]) != 0:
+            raise AssertionError("cli.main --resume auto returned an error")
+        last = f"ckpt_epoch{epochs - 1}"
+        a, b = (torch.load(os.path.join(d, last), map_location="cpu",
+                           weights_only=True) for d in (exp_a, exp_b))
+        diffs = []
+
+        def walk(x, y, path):
+            if isinstance(x, dict):
+                for k in x:
+                    walk(x[k], y[k], f"{path}/{k}")
+            elif isinstance(x, torch.Tensor):
+                if not torch.equal(x, y):
+                    diffs.append(path)
+            elif x != y:
+                diffs.append(path)
+
+        walk(a, b, "")
+        best = []
+        for d in (exp_a, exp_b):
+            with open(os.path.join(d, "best.json")) as fp:
+                best.append(json.load(fp))
+        log(f"[cli] resume: stopped after epoch 0, resumed with --resume "
+            f"auto: {len(diffs)} leaves of params / opt_state / step differ "
+            f"from the uninterrupted run's; best.json {best[1]} against "
+            f"{best[0]}")
+        if diffs or best[0] != best[1]:
+            raise AssertionError(f"cli: the resumed run is not bit-equal "
+                                 f"to the uninterrupted one: {diffs[:8]}")
+
+        # ---- --testing reproduces the best epoch's valid metrics ------ #
+        if cli.main(whole + ["--testing"]) != 0:
+            raise AssertionError("cli.main --testing returned an error")
+        new_best = log_lines(os.path.join(exp_a, "log.train"), "NEW BEST")
+        (tested,) = log_lines(os.path.join(exp_a, "log.test"), "[Valid]")
+        want_fa = new_best[-1].split("valid F1/Acc: ")[1].split("\t")[0]
+        got_fa = "%s/%s" % (log_field(tested, "(p/r/f)").strip("()")
+                            .split("/")[2], log_field(tested, "Acc"))
+        log(f"[cli] --testing: valid F1/Acc {got_fa}, the best epoch's "
+            f"{want_fa}; eval {log_field(tested, 'Time')} s [{card}]")
+        if got_fa != want_fa:
+            raise AssertionError("cli: --testing did not reproduce the best "
+                                 "epoch's valid metrics")
+
+        # ---- load_predictor ------------------------------------------- #
+        from nbest_asr_tpu_torch.config import parse_arguments
+        from nbest_asr_tpu_torch.data.dataset import read_sep_data
+        from nbest_asr_tpu_torch.train.loop import build_model
+
+        opt = parse_arguments(whole)
+        memory = cli.resolve_memory(opt)
+        cfg, _ = build_model(opt, memory, tok, dev)
+        pred = load_predictor(exp_a, memory, cfg, tok, device=dev)
+        saved = torch.load(os.path.join(exp_a, "model.ckpt"),
+                           map_location="cpu", weights_only=True)["params"]
+        diffs = []
+        walk(saved, {k: _cpu_tree(v) for k, v in pred.params.items()}, "")
+        utts = [" ".join(x) for x in read_sep_data(
+            os.path.join(root, "valid")).asr_seqs]
+        labels = pred.predict(utts)
+        log(f"[cli] load_predictor: {len(diffs)} leaves differ from "
+            f"model.ckpt's; predicted {len(labels)} valid utterances, "
+            f"{sum(map(len, labels))} labels")
+        if diffs or len(labels) != len(utts):
+            raise AssertionError("cli: load_predictor did not restore "
+                                 "model.ckpt's params")
+    return counts
+
+
+def _cpu_tree(t):
+    if isinstance(t, dict):
+        return {k: _cpu_tree(v) for k, v in t.items()}
+    return t.cpu()
+
+
 def ptxas_summary(report):
     """One line per kernel instance of this process's nvcc build: source,
     demangled-ish name, registers, spill stores / loads."""
@@ -3156,9 +3400,11 @@ def main() -> int:
     # gemm_tma_kernel<S8, EPI, TRAIN>) and the tiled flash kernels'
     # (flash_fwd_wgmma_kernel, flash_dq_wgmma_kernel,
     # flash_dkv_wgmma_kernel <DROP>) -- must build without spills or such
-    # notes
+    # notes, and so must the gradient row pass's (quant_grad_pass_kernel
+    # <T, N>: a whole folded row in registers)
     tma_names = ("gemm_tma_kernel", "flash_fwd_wgmma_kernel",
-                 "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel")
+                 "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
+                 "quant_grad_pass_kernel")
     tma = {n: [line for line in summary if n in line] for n in tma_names}
     bad = [line for lines in tma.values() for line in lines
            if "spills 0/0 B" not in line]
@@ -3166,8 +3412,9 @@ def main() -> int:
             if line.startswith(("gemm_wgmma.cu", "flash_attention.cu",
                                 "flash_attention_bwd.cu"))]
     if _cuda.build_report and (bad or not all(tma.values())):
-        raise AssertionError("the wgmma + TMA kernels: spills or ptxas notes "
-                             f"(or no instance reported): {bad}")
+        raise AssertionError("the wgmma + TMA kernels or the gradient row "
+                             "pass: spills or ptxas notes (or no instance "
+                             f"reported): {bad}")
 
     max_err, times = phase_kernels(dev, card)
     counts = phase_slice(dev)
@@ -3187,6 +3434,7 @@ def main() -> int:
     t_bounds.update(r_bounds)
     c_counts, _, _ = phase_train(dev, card, t_times, rig, "fused_rows",
                                  beside=bf16_ms)
+    l_counts = phase_cli(dev, card)
 
     s_bounds = serving_bounds(BATCH * BUCKETS[-1], BATCH, BUCKETS[-1])
     rows = []
@@ -3204,7 +3452,8 @@ def main() -> int:
 
     for name in _cuda.KERNELS:
         launches = (counts[name] + t_counts[name] + i_counts[name]
-                    + a_counts[name] + b_counts[name] + c_counts[name])
+                    + a_counts[name] + b_counts[name] + c_counts[name]
+                    + l_counts[name])
         if name in s_bounds:        # a serving layer's launches
             row(name, name, launches, *times[(name, BUCKETS[-1])],
                 *s_bounds[name])
@@ -3223,7 +3472,8 @@ def main() -> int:
         "NBEST_BENCH_INT8=1 step), flash route A (--no_fused_attn), "
         "long-sequence route B and route C (plain blocks, use_fused_ln, "
         "use_fused_gelu, use_fused_embedding) training main-path runs "
-        "together, the [train] rows the int8 training runs alone; "
+        "and the CLI's two epochs together, the [train] rows the int8 "
+        "training runs alone; "
         "ms / plain_ms / library_ms / bound_ms: one encoder layer's "
         f"launches of the kernel -- serving at batch {BATCH} x seq "
         f"{BUCKETS[-1]} for the kernels the serving path runs, training at "

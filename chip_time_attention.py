@@ -26,7 +26,10 @@ int8 serving GEMM launches of a layer at 64 x 256 rows
 (``gemm_i8_bias_act`` QKV and W1 + GELU, ``gemm_i8_bias_residual``
 out-proj and W2), each as ``[back to back, device]`` ms, and
 ``train_i8_ms``: the int8 training launches of a layer at 8192 rows
-(the four ``quantize_rows``; ``gemm_i8_dgrad`` dgelu with dropout, residual, none, residual;
+(the four ``quantize_rows``; the four ``quantize_grad_rows``, together and
+each alone: drop2(ds) and drop_h(ds) f32 at 768 with the stream-2 and
+stream-4 dropout, dh f32 at 3072, dqkv bf16 at 2304; ``gemm_i8_dgrad``
+dgelu with dropout, residual, none, residual;
 ``gemm_i8_bias_act`` W1 + GELU with dropout and h saved, and QKV;
 ``gemm_i8_bias_residual`` W2 with dropout and y2d saved, and the out-proj
 with the hidden dropout and od saved), ``torch._int_mm`` on the two
@@ -190,17 +193,22 @@ def train_i8_times(K, dev, gen, iters: int) -> dict:
     # the gradients each dgrad contracts, quantized with the weight's
     # scales folded in: drop2(ds) . W2^T, dh . W1^T, drop_h(ds) . Wo^T,
     # dqkv . Wqkv^T
-    g1 = K.quantize_grad_rows(rn(m, H, std=1e-3, dtype=torch.float32),
-                              w2s, d2)
-    g2 = K.quantize_grad_rows(rn(m, i, std=1e-3, dtype=torch.float32), w1s)
-    g3 = K.quantize_grad_rows(rn(m, H, std=1e-3, dtype=torch.float32),
-                              wos, dh)
-    g4 = K.quantize_grad_rows(rn(m, h3, std=1e-3), a_s)
+    grads = ((rn(m, H, std=1e-3, dtype=torch.float32), w2s, d2),
+             (rn(m, i, std=1e-3, dtype=torch.float32), w1s, None),
+             (rn(m, H, std=1e-3, dtype=torch.float32), wos, dh),
+             (rn(m, h3, std=1e-3), a_s, None))
+    g1, g2, g3, g4 = (K.quantize_grad_rows(*a) for a in grads)
     pairs = ((g1, w2r), (g2, w1r), (g3, wor), (g4, ar))
     contig = [w.t().contiguous() for _, w in pairs]
     calls = {
         "quantize_rows_x4": lambda: [K.quantize_rows(t)
                                      for t in (xr, cr, xr, gr)],
+        "quantize_grad_rows_x4": lambda: [K.quantize_grad_rows(*a)
+                                          for a in grads],
+        # each of the four alone
+        **{f"quantize_grad_rows_{name}": (lambda a=a: K.quantize_grad_rows(
+            *a)) for name, a in zip(("ds_768_drop", "dh_3072", "ds_768_drop_h",
+                                     "dqkv_2304_bf16"), grads)},
         "dgrad_dgelu": lambda: K.gemm_i8_dgrad(*g1, w2r, "dgelu", h=h,
                                                drop=d1),
         "dgrad_residual_w1": lambda: K.gemm_i8_dgrad(*g2, w1r, "residual",

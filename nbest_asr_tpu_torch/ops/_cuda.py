@@ -165,6 +165,8 @@ def lib() -> ctypes.CDLL:
     L.nbk_flash_bwd_wgmma_launches.restype = ctypes.c_longlong
     L.nbk_quantize_rows_pass_launches.argtypes = [i]
     L.nbk_quantize_rows_pass_launches.restype = ctypes.c_longlong
+    L.nbk_quantize_grad_rows_pass_launches.argtypes = [i]
+    L.nbk_quantize_grad_rows_pass_launches.restype = ctypes.c_longlong
     L.nbk_error_string.argtypes = [i]
     L.nbk_error_string.restype = ctypes.c_char_p
     _lib = L

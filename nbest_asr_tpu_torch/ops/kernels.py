@@ -69,6 +69,8 @@ their int8 backwards:
 
 - ``quantize_grad_rows`` -- per-token int8 of ``drop(g) * ws``, a gradient
                             with the weight's per-output scales folded in
+                            (the same one-read row pass at K = 256 n,
+                            counted by ``quantize_grad_rows_pass_launches``)
 - ``gemm_i8_dgrad``      -- ``f32(gq . wq^T) * g_scale`` for the quantized
                             (in, out) weight row-major, with the "dgelu"
                             (dh in bf16 and f32, the regenerated gd),
@@ -1012,6 +1014,15 @@ def quantize_rows_pass_launches() -> dict:
             for n in range(1, 17)}
 
 
+def quantize_grad_rows_pass_launches() -> dict:
+    """Launches of ``quantize_grad_rows``' row pass since the kernels were
+    loaded, by row width K = 256 n, n = 1 .. 16 (as
+    ``quantize_rows_pass_launches``)."""
+    lib = _cuda.lib()
+    return {256 * n: int(lib.nbk_quantize_grad_rows_pass_launches(n))
+            for n in range(1, 17)}
+
+
 def quantize_rows(x):
     """Per-token symmetric int8 of (M, K) bf16/f32 rows -> (q (M, K)
     int8, scale (M,) f32)."""
@@ -1111,8 +1122,7 @@ def quantize_grad_rows(g, ws, drop=None):
     M, K = g.shape
     _expect("quantize_grad_rows", "g", g, g.dtype, (M, K))
     _expect("quantize_grad_rows", "ws", ws, torch.float32, (K,))
-    if ws.data_ptr() % 16:
-        raise ValueError("quantize_grad_rows: ws must be 16-byte aligned")
+    _aligned16("quantize_grad_rows", g=g, ws=ws)
     q = torch.empty((M, K), dtype=torch.int8, device=g.device)
     scale = torch.empty((M,), dtype=torch.float32, device=g.device)
     rc = _cuda.lib().nbk_quantize_grad_rows(

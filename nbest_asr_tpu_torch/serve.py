@@ -21,13 +21,14 @@ them.  ``quantize=None`` resolves as ``resolve_quantize`` says.
 
 The Predictor runs on the card (``device="cuda"``) unless the caller asks
 for the CPU (``device="cpu"``), where the kernels' plain versions run.
-``load_predictor`` (restoring a Trainer checkpoint) waits for the
-trainer's checkpoint format.
+``load_predictor`` restores the best checkpoint a Trainer wrote
+(``train/loop.py``, ``<exp_dir>/model.ckpt``) and wraps it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Sequence, Union
 
 import numpy as np
@@ -272,3 +273,13 @@ def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def load_predictor(exp_dir: str, memory: Memory, cfg: ModelConfig,
+                   tokenizer: BaseTokenizer, **kw) -> Predictor:
+    """Restore the best checkpoint written by the Trainer and wrap it (the
+    port of ``nbest_asr_tpu/serve.py:load_predictor`` :282); ``kw`` goes
+    to ``Predictor``, which runs on the card unless ``device="cpu"``."""
+    ckpt = torch.load(os.path.join(exp_dir, "model.ckpt"),
+                      map_location="cpu", weights_only=True)
+    return Predictor(ckpt["params"], cfg, memory, tokenizer, **kw)

@@ -903,19 +903,40 @@ def test_gemm_i8_bias_residual(dev, m, n, k, rate, save_y2d):
         assert (got[1][~keep_mask(1234, 2, 0, m, n, rate, dev)] == 0).all()
 
 
+# the widths of a layer's four gradient quantizations (768, 3072, 768,
+# 2304: the row pass) and one the row pass does not take
+@pytest.mark.parametrize("stress", [False, True], ids=["rand", "stress"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("m,k", [(1, 768), (60, 3072), (300, 2304)])
-def test_quantize_grad_rows(dev, m, k, rate, dtype):
+@pytest.mark.parametrize("m,k", [(1, 768), (60, 3072), (300, 2304),
+                                 (8192, 768), (8192, 3072), (300, 776)])
+def test_quantize_grad_rows(dev, m, k, rate, dtype, stress):
+    """q and scale bit-equal to the plain version, with and without the
+    stream-4 dropout; K = 256 n on the gradient row pass (its counter), 776
+    on the two-pass kernel.  ``stress``: ws all ones, so that the folded
+    rows are the stress rows of ``test_quantize_rows`` (quotients on and
+    beside the ties, |x| < 2^-90) and one all-zero row."""
     from nbest_asr_tpu_torch.ops.philox import keep_mask
 
     g = _rand(dev, m, k, std=1e-3, dtype=dtype, seed=m + 120)
     ws = _rand(dev, k, std=1e-3, dtype=torch.float32, seed=m + 121).abs()
+    if stress:
+        ws = torch.ones_like(ws)
+        if m > 1:
+            g[1] = 0.0
+            for i, amax in enumerate(STRESS_AMAX[:m - 2]):
+                g[2 + i] = _stress_row(k, dtype, amax).to(dev)
     drop = _drop(rate, 4)
-    q, s = K.quantize_grad_rows(g, ws, drop)
-    torch.cuda.synchronize()
+    n0 = K.quantize_grad_rows_pass_launches()
+    q, s = _twice(lambda: K.quantize_grad_rows(g, ws, drop))
+    n1 = K.quantize_grad_rows_pass_launches()
+    assert {w: n1[w] - n0[w] for w in n1 if n1[w] != n0[w]} == (
+        {k: 2} if k % 256 == 0 else {})
     rq, rs = K.quantize_grad_rows_reference(g, ws, drop)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
     assert torch.equal(q, rq) and torch.equal(s, rs)
+    if stress and m > 1:
+        assert (q[1] == 0).all()
     if rate > 0:
         assert (q[~keep_mask(1234, 4, 0, m, k, rate, dev)] == 0).all()
 
