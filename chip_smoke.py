@@ -158,6 +158,33 @@ Phases, each fatal on failure:
    ``model.ckpt`` onto the card and serves the valid split.  Prints the
    epoch and eval seconds and rows / s (three steps an epoch: printed, no
    benchmark).
+14. The pretrained path (``phase_pretrained``), bf16 on the blocks'
+   kernels.  (a) MLM at BERT-base width (12 layers, dropout 0.1): a
+   ``vocab.txt`` of the memory's words padded with ``[unusedN]`` to 30522
+   rows and BERT's tokenizer files with ``[SYS]`` / ``[USR]`` added past
+   it, read by ``WordPieceTokenizer``; phase 13's synthetic train shard
+   packed at buckets 64 and 96 (both text sides, default layout, rows
+   over 96 dropped); 20 steps of ``make_mlm_train_step`` (8192-token
+   batches, BertAdam lr 1e-3, warmup 0.1) whose loss must start within 1
+   of ln 30522 and fall by more than 1; launches = 20 x layers x
+   ``PER_LAYER_TRAIN``; the tied f32 decoder timed alone; one step at
+   dropout 0 against the plain route (phase 6's gate).  (b) The export
+   (``export_hf_checkpoint`` with the MLM head) read back by
+   ``load_pretrained_encoder`` exactly; ``cli.main`` with phase 13's
+   flags and ``--tod_pre_trained_model <dir> --require_pretrained`` (TOD
+   layout, the added tokens clamped into the word table): the Trainer's
+   encoder at init equal to the checkpoint's, launches held to the plan,
+   ``--testing`` reproducing the best epoch, ``load_predictor``.  (c)
+   RoBERTa-base (``pytorch_model.bin``, vocab 50265) and XLM-R-base
+   (``model.safetensors`` written byte by byte here, vocab 250002)
+   checkpoints from a seed under ``roberta.``: 514 positions, one type
+   row, eps 1e-5, offset 2; each read back as written, served through
+   ``Predictor`` at 64 x 256 (RoBERTa with segment ids 0 and 1) and held
+   to the plain and f32 Predictors (phase 3's gate), ``embed_lookup`` at
+   its vocab held to its plain version with out-of-range type and word
+   ids; at XLM-R-base two ``Trainer`` steps (``family="xlm-roberta"``,
+   double separator, 4 micros of 32 x 256) with the step time, peak memory
+   and BertAdam's share printed.
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
@@ -3154,19 +3181,21 @@ def write_dataroot(root, memory, seed: int = 0):
 
 
 def cli_trainer(args, dev):
-    """The Trainer ``cli.main(args)`` builds, built here as main builds it,
-    so that the run can be stopped after an epoch."""
+    """The Trainer ``cli.main(args)`` builds, and its tokenizer, built here
+    as main builds them, so that the run can be stopped after an epoch."""
     from nbest_asr_tpu_torch import cli
     from nbest_asr_tpu_torch.config import parse_arguments
-    from nbest_asr_tpu_torch.data.tokenizer import WordVocabTokenizer
+    from nbest_asr_tpu_torch.data.tokenizer import load_tokenizer
     from nbest_asr_tpu_torch.train.loop import Trainer, build_model
 
     opt = parse_arguments(args)
     memory = cli.resolve_memory(opt)
-    tok = WordVocabTokenizer(memory)
+    tok = load_tokenizer(opt.pre_trained_model, opt.tod_pre_trained_model,
+                         memory, require_pretrained=opt.require_pretrained)
     splits = cli.prepare_packed_splits(opt, memory, tok)
     cfg, params = build_model(opt, memory, tok, dev)
-    return Trainer(opt, memory, cfg, params, splits, device=dev), tok
+    return Trainer(opt, memory, cfg, params, splits,
+                   family=opt.pre_trained_model, device=dev), tok
 
 
 def plan_counts(trainer):
@@ -3323,6 +3352,707 @@ def phase_cli(dev, card: str):
     return counts
 
 
+# --------------------------------------------------------------------- #
+# the pretrained path: MLM pretraining, export and fine-tune from the
+# checkpoint, RoBERTa-base and XLM-R-base checkpoints
+# --------------------------------------------------------------------- #
+
+BERT_SPECIALS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+ADDED = ["[SYS]", "[USR]"]
+MLM_BUCKETS, MLM_STEPS, MLM_BUDGET = (64, 96), 20, 8192
+MLM_OPT = dict(lr=1e-3, bert_lr=1e-3, warmup_proportion=0.1,
+               t_total=MLM_STEPS)
+XLMR_VOCAB, ROBERTA_VOCAB, ROBERTA_POSITIONS = 250002, 50265, 514
+
+
+def write_bert_tokenizer(path, memory):
+    """The files ``BertTokenizer.save_pretrained`` writes, for a vocab of
+    ``[PAD] [UNK] [CLS] [SEP] [MASK]``, the memory's words and
+    ``[unusedN]`` rows up to BERT-base's 30522, with ``[SYS]`` and
+    ``[USR]`` added past it (ids 30522 and 30523)."""
+    words = [w for w in memory.word2idx if w.isalnum()]
+    vocab = BERT_SPECIALS + words
+    vocab += [f"[unused{i}]" for i in range(VOCAB - len(vocab))]
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.txt"), "w") as fp:
+        fp.write("\n".join(vocab) + "\n")
+    flags = dict(lstrip=False, normalized=False, rstrip=False,
+                 single_word=False, special=True)
+    decoder = {str(i): dict(content=t, **flags)
+               for i, t in enumerate(BERT_SPECIALS)}
+    decoder.update({str(VOCAB + i): dict(content=t, **flags)
+                    for i, t in enumerate(ADDED)})
+    named = dict(cls_token="[CLS]", mask_token="[MASK]", pad_token="[PAD]",
+                 sep_token="[SEP]", unk_token="[UNK]")
+    files = {
+        "tokenizer_config.json": dict(
+            added_tokens_decoder=decoder, additional_special_tokens=ADDED,
+            do_lower_case=True, strip_accents=None,
+            tokenize_chinese_chars=True, tokenizer_class="BertTokenizer",
+            **named),
+        "special_tokens_map.json": dict(additional_special_tokens=ADDED,
+                                        **named),
+        "added_tokens.json": {t: VOCAB + i for i, t in enumerate(ADDED)}}
+    for name, obj in files.items():
+        with open(os.path.join(path, name), "w") as fp:
+            json.dump(obj, fp, indent=2)
+
+
+def mlm_pool(raw, tok, dev):
+    """Both text sides of ``raw`` in the default layout, ids from ``tok``,
+    in the smallest of MLM_BUCKETS that holds them (longer rows dropped),
+    as device tensors with the maskable positions (real, not special);
+    ``tools/pretrain_mlm.py:pack_mlm_pool``'s packing."""
+    from nbest_asr_tpu_torch.data.input_builder import build_inputs
+
+    rows = []
+    for seqs in (raw.asr_seqs, raw.trans_seqs):
+        built = build_inputs(seqs, tok, "default")
+        rows += [(tok.convert_tokens_to_ids(t), s)
+                 for t, s in zip(built.tokens, built.segment_ids)]
+    special = torch.tensor(tok.convert_tokens_to_ids(BERT_SPECIALS + ADDED),
+                           dtype=torch.int32)
+    out = {}
+    for b in MLM_BUCKETS:
+        mine = [r for r in rows if len(r[0]) <= b
+                and (b == MLM_BUCKETS[0] or len(r[0]) > MLM_BUCKETS[0])]
+        n = len(mine)
+        ids = torch.full((n, b), tok.pad_token_id, dtype=torch.int32)
+        segs = torch.zeros((n, b), dtype=torch.int32)
+        mask = torch.zeros((n, b), dtype=torch.float32)
+        for i, (x, s) in enumerate(mine):
+            ids[i, :len(x)] = torch.tensor(x)
+            segs[i, :len(x)] = torch.tensor(s)
+            mask[i, :len(x)] = 1.0
+        maskable = (mask > 0) & ~torch.isin(ids, special)
+        out[b] = {k: v.to(dev) for k, v in dict(
+            input_ids=ids, segment_ids=segs, attn_mask=mask,
+            maskable=maskable).items()}
+    return out, sum(len(r[0]) > MLM_BUCKETS[-1] for r in rows)
+
+
+def mlm_rig(dev, memory, tok, **enc_kw):
+    """BERT-base sized for ``tok``'s vocab (bf16, dropout 0.1, the blocks'
+    kernels), seed-0 params with the MLM head, on the card."""
+    from nbest_asr_tpu_torch.models.encoder import (EncoderConfig,
+                                                    init_encoder_params)
+    from nbest_asr_tpu_torch.train.mlm import init_mlm_head_params
+    from nbest_asr_tpu_torch.train.optimizer import tree_map
+
+    kw = dict(compute_dtype="bfloat16", hidden_dropout=DROPOUT,
+              attn_dropout=DROPOUT, use_fused_attn=True, use_fused_ffn=True,
+              use_flash_attention=True)
+    kw.update(enc_kw)
+    cfg = EncoderConfig(vocab_size=tok.vocab_size, hidden_size=H,
+                        num_layers=LAYERS, num_heads=NH,
+                        intermediate_size=INTER, **kw)
+    g = torch.Generator().manual_seed(0)
+    params = {"encoder": init_encoder_params(g, cfg),
+              "mlm_head": init_mlm_head_params(g, cfg)}
+    return cfg, tree_map(lambda t: t.to(dev), params)
+
+
+def roberta_checkpoint(path, family, vocab, seed, fmt):
+    """A RoBERTa-base-shaped checkpoint directory from a seed: 12 layers,
+    768 wide, 514 positions, one token-type row, LayerNorm eps 1e-5, pad
+    id 1, every tensor under ``roberta.`` (plus an ``lm_head.bias`` the
+    reader must skip); ``fmt`` "bin" (``torch.save``) or "safetensors"
+    (its bytes written here: header length, JSON header, raw f32).
+    Returns the state dict."""
+    g = torch.Generator().manual_seed(seed)
+
+    def n(*shape, std=0.02):
+        return torch.randn(*shape, generator=g) * std
+
+    p = "roberta."
+    sd = {p + "embeddings.word_embeddings.weight": n(vocab, H),
+          p + "embeddings.position_embeddings.weight": n(ROBERTA_POSITIONS,
+                                                         H),
+          p + "embeddings.token_type_embeddings.weight": n(1, H),
+          p + "embeddings.LayerNorm.weight": 1.0 + n(H, std=0.1),
+          p + "embeddings.LayerNorm.bias": n(H, std=0.1)}
+    for i in range(LAYERS):
+        q = f"{p}encoder.layer.{i}."
+        for name in ("attention.self.query", "attention.self.key",
+                     "attention.self.value", "attention.output.dense"):
+            sd[q + name + ".weight"] = n(H, H)
+            sd[q + name + ".bias"] = n(H)
+        sd[q + "intermediate.dense.weight"] = n(INTER, H)
+        sd[q + "intermediate.dense.bias"] = n(INTER)
+        sd[q + "output.dense.weight"] = n(H, INTER)
+        sd[q + "output.dense.bias"] = n(H)
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[q + ln + ".weight"] = 1.0 + n(H, std=0.1)
+            sd[q + ln + ".bias"] = n(H, std=0.1)
+    sd["lm_head.bias"] = torch.zeros(vocab)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as fp:
+        json.dump(dict(
+            architectures=["XLMRobertaForMaskedLM" if family == "xlm-roberta"
+                           else "RobertaForMaskedLM"],
+            model_type=family, vocab_size=vocab, hidden_size=H,
+            num_hidden_layers=LAYERS, num_attention_heads=NH,
+            intermediate_size=INTER,
+            max_position_embeddings=ROBERTA_POSITIONS, type_vocab_size=1,
+            layer_norm_eps=1e-5, pad_token_id=1, bos_token_id=0,
+            eos_token_id=2, hidden_dropout_prob=0.1,
+            attention_probs_dropout_prob=0.1), fp, indent=2)
+    if fmt == "bin":
+        torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+        return sd
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for k in sorted(sd):
+        nb = sd[k].numel() * 4
+        header[k] = {"dtype": "F32", "shape": list(sd[k].shape),
+                     "data_offsets": [off, off + nb]}
+        off += nb
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(os.path.join(path, "model.safetensors"), "wb") as fp:
+        fp.write(len(head).to_bytes(8, "little"))
+        fp.write(head)
+        for k in sorted(sd):
+            fp.write(sd[k].contiguous().numpy().tobytes())
+    return sd
+
+
+class StandInTokenizer:
+    """RoBERTa's and XLM-R's specials (``<s>`` 0, ``<pad>`` 1, ``</s>``
+    2, ``<unk>`` 3) and one id per memory word: the rows a BPE or
+    SentencePiece tokenizer would give, without ``transformers``."""
+
+    cls_token, pad_token, sep_token, pad_token_id = "<s>", "<pad>", "</s>", 1
+
+    def __init__(self, memory, double_sep: bool):
+        self.double_sep = double_sep
+        self.ids = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+        for w in memory.word2idx:
+            if w.isalnum():
+                self.ids.setdefault(w, len(self.ids))
+        self.vocab_size = len(self.ids)
+
+    def tokenize(self, word):
+        return [word.lower()] if word else []
+
+    def convert_tokens_to_ids(self, tokens):
+        return [self.ids.get(t, 3) for t in tokens]
+
+
+def leaves_equal(a, b):
+    """Paths of the leaves where two param trees differ (device-agnostic)."""
+    bad = []
+
+    def walk(x, y, path):
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k], f"{path}/{k}")
+        elif not torch.equal(x.cpu(), y.cpu()):
+            bad.append(path)
+
+    walk(a, b, "")
+    return bad
+
+
+def serve_held(name, kp, pp, fp, req, arrays, segs: bool):
+    """Predictor ``kp`` (the kernels) against ``pp`` (plain, bf16) and
+    ``fp`` (plain, f32) on one request: agreement on the decisions the f32
+    run resolves (>= 98%) and mean |scores - f32| <= 5e-3, as phase 3's
+    gate; ``segs``: the predictors feed their packed segment ids."""
+    from nbest_asr_tpu_torch.models.model import model_forward
+
+    def outputs(p):
+        pk = p._pack([u.split() for u in req])
+        tops, probs = [], []
+        with torch.inference_mode():
+            for s in range(0, len(req), BATCH):
+                ids = torch.from_numpy(pk.input_ids[s:s + BATCH]).to(dev)
+                sg = torch.from_numpy(pk.segment_ids[s:s + BATCH]).to(dev) \
+                    if segs else torch.zeros_like(ids)
+                mask = torch.from_numpy(pk.attn_mask[s:s + BATCH]).to(dev)
+                top, prob, _, _, _ = model_forward(
+                    p._fwd_params, p.cfg, p.hier, ids, mask, sg)
+                tops.append(top.float().cpu().numpy())
+                probs.append(prob.float().cpu().numpy())
+        return np.concatenate(tops), np.concatenate(probs), pk.max_len
+
+    dev = kp.device
+    (kt, kb, klen), (pt, pb, _), (ft, fb, _) = (outputs(p)
+                                                for p in (kp, pp, fp))
+    tau = 2.0 * max(np.abs(pt - ft).max(), np.abs(pb - fb).max())
+    bad, unresolved = resolvable_disagreements((kt, kb), (pt, pb), (ft, fb),
+                                               arrays, tau)
+    dk = np.abs(kb - fb).mean()
+    rate = 1.0 - bad.mean()
+    log(f"[pretrained] {name} Predictor, {len(req)} utterances in batches "
+        f"of {BATCH} x {klen}: kernel vs "
+        f"plain agreement on resolvable decisions {rate:.4f} (tau "
+        f"{tau:.3e}, {unresolved:.3f} unresolved); |scores kernel - f32| "
+        f"mean {dk:.3e}, plain {np.abs(pb - fb).mean():.3e}")
+    if rate < 0.98 or dk > 5e-3 or not np.isfinite(kb).all():
+        raise AssertionError(f"{name}: the kernel Predictor disagrees with "
+                             "the plain one")
+
+
+def expect_launches(what, got, want):
+    """Fail unless a counted run's launches equal its plan."""
+    log(f"[pretrained] {what}: launches {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"{what}: the kernels' launches differ from "
+                             "the run's plan")
+
+
+def add_counts(total, c):
+    for k in total:
+        total[k] += c[k]
+
+
+def pretrained_mlm(dev, card: str, memory, root, ckpt):
+    """Phase 14 (a): MLM at BERT-base width on ``root``'s train shard with
+    ``ckpt``'s WordPiece tokenizer -- the dropout-0 gate, 20 counted
+    steps, the decoder timed alone -- then the export into ``ckpt`` read
+    back exactly.  Returns (the steps' launch counts, the encoder read
+    back)."""
+    import dataclasses
+    import math
+
+    from nbest_asr_tpu_torch.data.dataset import read_sep_data
+    from nbest_asr_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from nbest_asr_tpu_torch.models.hf_convert import (
+        export_hf_checkpoint, load_pretrained_encoder)
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.train.mlm import (apply_mlm_mask,
+                                               make_mlm_train_step,
+                                               mlm_head_export_state,
+                                               mlm_update)
+    from nbest_asr_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                     make_optimizer,
+                                                     tree_map)
+
+    tok = WordPieceTokenizer(ckpt)
+    mask_id = tok.convert_tokens_to_ids(["[MASK]"])[0]
+    if tok.vocab_size != VOCAB or len(tok) != VOCAB + 2:
+        raise AssertionError("the WordPiece vocab is not 30522 + 2")
+    pool, dropped = mlm_pool(read_sep_data(os.path.join(root, "train")),
+                             tok, dev)
+    rows = {b: min(max(MLM_BUDGET // b, 8), v["input_ids"].shape[0])
+            for b, v in pool.items()}
+    sizes = {b: v["input_ids"].shape[0] for b, v in pool.items()}
+    log(f"[pretrained] MLM corpus: {sizes} rows at buckets "
+        f"{MLM_BUCKETS} ({dropped} longer dropped), "
+        f"{rows} rows a step, WordPiece vocab {tok.vocab_size} + "
+        f"{len(tok) - tok.vocab_size} added")
+    cfg, params = mlm_rig(dev, memory, tok)
+    opt = make_optimizer(OptimizerConfig(**MLM_OPT), params)
+    step = make_mlm_train_step(cfg, opt, mask_id)
+    state = opt.init(params)
+    rng = np.random.RandomState(5)
+    batches = []
+    for i in range(MLM_STEPS):
+        b = MLM_BUCKETS[i % len(MLM_BUCKETS)]
+        sel = torch.from_numpy(rng.choice(pool[b]["input_ids"].shape[0],
+                                          rows[b], replace=False)).to(dev)
+        batches.append({k: v.index_select(0, sel)
+                        for k, v in pool[b].items()})
+    # one step at dropout 0 from the initial params: kernels against the
+    # plain route (phase 6's gate; lr 1: the MLM loss is a mean over
+    # ~1200 masked tokens, its gradients ~1e3 below the summed
+    # classification loss's, and at lr 1e-3 the deltas of unit LN
+    # scales would be a few f32 ulps of the weights)
+    gcfg = dataclasses.replace(cfg, hidden_dropout=0.0, attn_dropout=0.0)
+    pcfg = dataclasses.replace(gcfg, use_fused_attn=False,
+                               use_fused_ffn=False,
+                               use_flash_attention=False)
+    batch = batches[0]
+    masked, labels = apply_mlm_mask(
+        torch.Generator(device=dev).manual_seed(7), batch["input_ids"],
+        batch["maskable"], mask_id, cfg.vocab_size)
+    outs = []
+    for c_ in (gcfg, pcfg):
+        gopt = make_optimizer(OptimizerConfig(**dict(
+            GATE_OPT, lr=1.0, bert_lr=1.0)), params)
+        new, _, loss = mlm_update(params, gopt.init(params), gopt, c_,
+                                  masked, labels, batch["attn_mask"],
+                                  batch["segment_ids"], 0)
+        outs.append((new, {"mlm": float(loss)}))
+    log("[pretrained] MLM, dropout 0: one kernel step against one plain "
+        "step")
+    hold_step(params, outs)
+    del outs
+
+    gen = torch.Generator().manual_seed(6)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for batch in batches:
+        params, state, loss = step(params, state, batch, gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    mlm_s = time.perf_counter() - t0
+    mlm_counts = dict(_cuda.launch_counts)
+    expect_launches("MLM steps", mlm_counts, {
+        k: MLM_STEPS * LAYERS * PER_LAYER_TRAIN.get(k, 0)
+        for k in mlm_counts})
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[pretrained] MLM {MLM_STEPS} steps (rows by bucket {rows}, "
+        f"alternating; lr {MLM_OPT['lr']}): "
+        f"{1e3 * mlm_s / MLM_STEPS:.2f} ms a step, peak {peak:.2f} GiB; "
+        f"loss {' '.join(f'{x:.3f}' for x in losses)}; ln V "
+        f"{math.log(VOCAB):.3f} [{card}]")
+    first, last = losses[0], float(np.mean(losses[-5:]))
+    if not (np.isfinite(losses).all() and abs(first - math.log(VOCAB))
+            < 1.0 and last < first - 1.0):
+        raise AssertionError("MLM: the loss did not fall from ln V")
+
+    # the tied decoder alone: logits, log-softmax, backward, f32
+    h = torch.randn(MLM_BUDGET, H, device=dev, dtype=torch.bfloat16)
+    w = params["encoder"]["embeddings"]["word"].detach()
+    hw = h.float().requires_grad_(True)
+    ww = w.to(torch.bfloat16).float().requires_grad_(True)
+
+    def decoder():
+        lp = torch.log_softmax(hw @ ww.t(), dim=-1)
+        torch.autograd.grad(lp[:, 0].sum(), (hw, ww))
+
+    dec_ms = cuda_ms(decoder, iters=3, warmup=1)
+    log(f"[pretrained] MLM decoder (f32 matmul {MLM_BUDGET} x {H} x "
+        f"{VOCAB}, log-softmax, backward): {dec_ms:.3f} ms [{card}]")
+    del h, hw, ww
+
+    # the export, read back
+    enc = tree_map(lambda t: t.cpu(), params["encoder"])
+    export_hf_checkpoint(cfg, enc, ckpt, extra_state=mlm_head_export_state(
+        params["mlm_head"], enc["embeddings"]["word"]))
+    rcfg, renc = load_pretrained_encoder(ckpt)
+    bad = leaves_equal(enc, renc)
+    log(f"[pretrained] export -> load_pretrained_encoder: {len(bad)} "
+        f"leaves differ; vocab {rcfg.vocab_size}, eps "
+        f"{rcfg.layer_norm_eps}, offset {rcfg.position_offset}")
+    if bad or rcfg.vocab_size != VOCAB:
+        raise AssertionError(f"export round trip: {bad[:4]}")
+    return mlm_counts, renc
+
+
+def pretrained_finetune(dev, card: str, root, ckpt, renc):
+    """Phase 14 (b): ``cli.main`` with phase 13's flags and
+    ``--tod_pre_trained_model ckpt --require_pretrained``: the encoder at
+    init equal to ``renc``, the launches held to the plan, ``--testing``,
+    ``load_predictor``.  Returns the two epochs' launch counts."""
+    import tempfile
+
+    from nbest_asr_tpu_torch import cli
+    from nbest_asr_tpu_torch.data.dataset import read_sep_data
+    from nbest_asr_tpu_torch.data.tokenizer import (WordPieceTokenizer,
+                                                    load_tokenizer)
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.serve import load_predictor
+    from nbest_asr_tpu_torch.train.loop import build_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = CLI_ARGS + ["--dataroot", root, "--tod_pre_trained_model",
+                           ckpt, "--require_pretrained"]
+        whole = args + ["--experiment", os.path.join(tmp, "ft")]
+        trainer, ftok = cli_trainer(whole, dev)
+        if not isinstance(ftok, WordPieceTokenizer) or \
+                trainer.opt.layout != "tod":
+            raise AssertionError("fine-tune: not the checkpoint's tokenizer "
+                                 "and the TOD layout")
+        bad = leaves_equal(trainer.state.params["encoder"], renc)
+        log(f"[pretrained] fine-tune init: {len(bad)} encoder leaves differ "
+            "from the checkpoint's")
+        if bad:
+            raise AssertionError(f"fine-tune init: {bad[:4]}")
+        micros, n_eval = plan_counts(trainer)
+        exp = trainer.opt.exp_dir
+        del trainer
+        epochs = int(CLI_ARGS[CLI_ARGS.index("--max_epoch") + 1])
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        if cli.main(whole) != 0:
+            raise AssertionError("cli.main --tod_pre_trained_model returned "
+                                 "an error")
+        torch.cuda.synchronize()
+        c = dict(_cuda.launch_counts)
+        expect_launches(
+            f"fine-tune, {epochs} epochs ({micros} micros, {n_eval} eval "
+            "batches an epoch)", c,
+            {k: LAYERS * epochs * (micros * PER_LAYER_TRAIN.get(k, 0)
+                                   + n_eval * PER_LAYER_EVAL.get(k, 0))
+             for k in c})
+        for tag in ("[Train]", "[Valid]"):
+            for line in log_lines(os.path.join(exp, "log.train"), tag):
+                log(f"[pretrained] fine-tune {tag} epoch "
+                    f"{log_field(line, 'Epoch')}: {log_field(line, 'Time')} "
+                    f"s; loss {log_field(line, 'Loss')} [{card}]")
+        log(f"[pretrained] fine-tune cli.main: "
+            f"{time.perf_counter() - t0:.2f} s")
+        if cli.main(whole + ["--testing"]) != 0:
+            raise AssertionError("cli.main --testing returned an error")
+        (tested,) = log_lines(os.path.join(exp, "log.test"), "[Valid]")
+        want_fa = log_lines(os.path.join(exp, "log.train"),
+                            "NEW BEST")[-1].split(
+            "valid F1/Acc: ")[1].split("\t")[0]
+        got_fa = "%s/%s" % (log_field(tested, "(p/r/f)").strip("()")
+                            .split("/")[2], log_field(tested, "Acc"))
+        log(f"[pretrained] --testing: valid F1/Acc {got_fa}, best epoch's "
+            f"{want_fa}")
+        if got_fa != want_fa:
+            raise AssertionError("fine-tune: --testing did not reproduce "
+                                 "the best epoch")
+        fopt = cli.parse_arguments(whole)
+        fmem = cli.resolve_memory(fopt)
+        ftok = load_tokenizer(None, ckpt, fmem, require_pretrained=True)
+        fcfg, _ = build_model(fopt, fmem, ftok, dev)
+        pred = load_predictor(exp, fmem, fcfg, ftok, device=dev,
+                              layout="tod")
+        utts = [" ".join(x) for x in read_sep_data(
+            os.path.join(root, "valid")).asr_seqs]
+        n_labels = sum(map(len, pred.predict(utts)))
+        log(f"[pretrained] load_predictor (TOD layout, pad id "
+            f"{ftok.pad_token_id}): {len(utts)} valid utterances, "
+            f"{n_labels} labels")
+        del pred
+    return c
+
+
+def hold_embed_out_of_range(dev, family, vocab, emb):
+    """``embed_lookup`` at a checkpoint's vocab held to its plain version
+    with JAX's out-of-range ids: type id 1 into the one type row and word
+    ids in the table's padding to 8 rows (zero rows), f32 and bf16 tables,
+    eps 1e-5, offset 2; then an id past the padding gives its NaN row and
+    no other row changes."""
+    from nbest_asr_tpu_torch.ops import kernels as K
+
+    e = {k: t.to(dev) for k, t in emb.items()}
+    gen = torch.Generator().manual_seed(10)
+    m, s = 8192, 256
+    ids = torch.randint(0, vocab, (m,), generator=gen)
+    ids[::97] = vocab + torch.arange(0, m, 97) % (-vocab % 8 or 1)
+    tids = torch.randint(0, 2, (m,), generator=gen)
+    for dt in (torch.float32, torch.bfloat16):
+        args_ = (e["word"].to(dt), e["position"][2:2 + s].to(dt),
+                 e["type"].to(dt), e["ln_scale"], e["ln_bias"],
+                 ids.to(dev, torch.int32), tids.to(dev, torch.int32),
+                 s, 1e-5)
+        got = K.embed_lookup(*args_)
+        want = K.embed_lookup_reference(*args_)
+        check = Checker()
+        if dt == torch.bfloat16:
+            check.exact(f"embed_lookup {family} {m} x {H} bf16, "
+                        "out-of-range ids", "embed_lookup", got,
+                        want, bf16_ulps=1, floor=2.0 ** -16)
+        else:
+            check.rel(f"embed_lookup {family} {m} x {H} f32, "
+                      "out-of-range ids", "embed_lookup", got, want,
+                      1e-5)
+    bad_ids = ids.clone()
+    bad_ids[5] = vocab + 8 + (-vocab % 8)
+    got = K.embed_lookup(*args_[:5], bad_ids.to(dev, torch.int32),
+                         *args_[6:])
+    nan_rows = torch.isnan(got.float()).any(dim=1).nonzero().flatten()
+    log(f"[pretrained] embed_lookup {family}: an id past the "
+        f"padding gives NaN rows {nan_rows.tolist()}")
+    if nan_rows.tolist() != [5]:
+        raise AssertionError("embed_lookup: an id past the padding "
+                             "does not give its NaN row alone")
+
+
+def xlmr_trainer_steps(dev, card: str, memory, req, stok, kcfg, params,
+                       tmp):
+    """Two ``Trainer`` steps at XLM-R-base (``family="xlm-roberta"``,
+    double separator, 4 micros of 32 x 256 under the 8192-token budget) on
+    ``req`` packed by ``stok``; prints the step time, the peak memory and
+    BertAdam's share.  Returns the steps' launch counts."""
+    import dataclasses
+
+    from nbest_asr_tpu_torch.config import RunOptions
+    from nbest_asr_tpu_torch.data.dataset import RawSplit
+    from nbest_asr_tpu_torch.data.input_builder import pack_split
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.train.loop import Trainer
+    from nbest_asr_tpu_torch.train.optimizer import apply_updates, tree_map
+
+    seqs = [u.split() for u in req]
+    lab_rng = np.random.RandomState(11)
+    names = [memory.idx2label[i] for i in range(2, memory.n_bottom)]
+    labels = [[names[lab_rng.randint(len(names))]] for _ in seqs]
+    packed = pack_split(RawSplit(seqs, seqs, labels), stok, memory,
+                        max_len=BUCKETS[-1])
+    if int((packed.input_ids == 2).sum(1).max()) < 3:
+        raise AssertionError("xlm-roberta rows lack the double "
+                             "separator")
+    topt = RunOptions(dataset="dstc2", dataroot="unused",
+                      batchSize=32, n_layers=LAYERS, max_epoch=1,
+                      lr=1e-4, bert_lr=1e-4, length_buckets="256",
+                      token_budget=8192,
+                      experiment=os.path.join(tmp, "xlmr"))
+    topt.exp_dir = topt.experiment
+    tcfg = dataclasses.replace(kcfg, encoder=dataclasses.replace(
+        kcfg.encoder, use_fused_attn_eval=False))
+    trainer = Trainer(topt, memory, tcfg, params, {"train": packed},
+                      family="xlm-roberta", device=dev)
+    params.clear()      # the Trainer holds them: free them with its steps
+    bucket = trainer.buckets["train"][0]
+    micro = trainer._bucket_micro_batch(bucket)
+    n_acc = topt.n_accum_steps
+    idx = [torch.arange(i * n_acc * micro, (i + 1) * n_acc * micro,
+                        device=dev).reshape(n_acc, micro)
+           for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    times = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        trainer.state, stats = trainer.train_step(
+            trainer.state, bucket.data, idx[i], trainer._gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    c = dict(_cuda.launch_counts)
+    expect_launches(f"xlm-roberta Trainer, 2 steps of {n_acc} x {micro} "
+                    "rows", c, {k: 2 * n_acc * LAYERS * PER_LAYER_TRAIN.get(
+                        k, 0) for k in c})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = {k: float(v) for k, v in stats["loss"].items()}
+    st = trainer.state
+    zeros = tree_map(torch.zeros_like, st.params)
+
+    def adam():
+        u, _ = trainer.optimizer.update(zeros, st.opt_state,
+                                        st.params)
+        apply_updates(st.params, u)
+
+    adam_ms = cuda_ms(adam, iters=3, warmup=1)
+    log(f"[pretrained] xlm-roberta Trainer step ({n_acc} micros x "
+        f"{micro} x {BUCKETS[-1]}, vocab {XLMR_VOCAB}): "
+        f"{times[1] * 1e3:.2f} ms (first {times[0] * 1e3:.2f}), "
+        f"peak {peak:.2f} GiB, BertAdam {adam_ms:.2f} ms = "
+        f"{adam_ms / (times[1] * 1e3):.1%} of the step; loss "
+        f"{loss} [{card}]")
+    if not all(np.isfinite(v) for v in loss.values()):
+        raise AssertionError("xlm-roberta: a loss part is not finite")
+    return c
+
+
+def pretrained_roberta_xlmr(dev, card: str, memory, tmp):
+    """Phase 14 (c): RoBERTa-base and XLM-R-base checkpoints written into
+    ``tmp`` from a seed, read back, served and held to the plain path,
+    ``embed_lookup`` at their vocabs with out-of-range ids, two XLM-R
+    Trainer steps.  Returns the counted runs' launch counts."""
+    import dataclasses
+
+    from nbest_asr_tpu_torch.models.heads import init_head_params
+    from nbest_asr_tpu_torch.models.hf_convert import load_pretrained_encoder
+    from nbest_asr_tpu_torch.models.model import ModelConfig
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.serve import Predictor
+    from nbest_asr_tpu_torch.train.optimizer import tree_map
+
+    counts = {k: 0 for k in _cuda.KERNELS}
+    arrays = memory.arrays()
+    req = requests(memory, seed=7)[-1]
+    for family, vocab, fmt in (("roberta", ROBERTA_VOCAB, "bin"),
+                               ("xlm-roberta", XLMR_VOCAB,
+                                "safetensors")):
+        path = os.path.join(tmp, family)
+        t0 = time.perf_counter()
+        sd = roberta_checkpoint(path, family, vocab, seed=8, fmt=fmt)
+        w_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ecfg, eparams = load_pretrained_encoder(path)
+        r_s = time.perf_counter() - t0
+        word = eparams["embeddings"]["word"]
+        ok = (torch.equal(word, sd["roberta.embeddings.word_embeddings."
+                                   "weight"])
+              and torch.equal(eparams["layers"]["ffn_out_kernel"][-1],
+                              sd[f"roberta.encoder.layer.{LAYERS - 1}."
+                                 "output.dense.weight"].t()))
+        log(f"[pretrained] {family}: {fmt} written in {w_s:.2f} s, read "
+            f"and converted in {r_s:.2f} s; vocab {ecfg.vocab_size}, "
+            f"positions {ecfg.max_position}, offset "
+            f"{ecfg.position_offset}, types {ecfg.type_vocab_size}, eps "
+            f"{ecfg.layer_norm_eps}; tensors as written: {ok}")
+        if not ok or (ecfg.position_offset, ecfg.type_vocab_size,
+                      ecfg.layer_norm_eps) != (2, 1, 1e-5):
+            raise AssertionError(f"{family}: checkpoint not read as "
+                                 "written")
+        del sd
+        stok = StandInTokenizer(memory, family == "xlm-roberta")
+        kcfg = ModelConfig(
+            encoder=dataclasses.replace(
+                ecfg, compute_dtype="bfloat16", use_fused_attn=True,
+                use_fused_ffn=True, use_fused_attn_eval=True,
+                use_flash_attention=True),
+            n_top=memory.n_top, n_bottom=memory.n_bottom)
+        params = tree_map(lambda t: t.to(dev), {
+            "encoder": eparams,
+            "head": init_head_params(torch.Generator().manual_seed(9), H,
+                                     memory.n_top, memory.n_bottom)})
+        plain = dataclasses.replace(kcfg, encoder=dataclasses.replace(
+            kcfg.encoder, use_fused_attn=False, use_fused_ffn=False,
+            use_fused_attn_eval=False, use_flash_attention=False))
+        f32 = dataclasses.replace(plain, encoder=dataclasses.replace(
+            plain.encoder, compute_dtype="float32"))
+        segs = family == "roberta"     # segment id 1 into one type row
+        kw = dict(device=dev, batch_size=BATCH, max_len=BUCKETS[-1],
+                  quantize="none", use_segments=segs)
+        kp, pp, fp = (Predictor(params, c_, memory, stok, **kw)
+                      for c_ in (kcfg, plain, f32))
+        kp.predict(req[:BATCH])
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        kp.predict(req)
+        torch.cuda.synchronize()
+        p_s = time.perf_counter() - t0
+        c = dict(_cuda.launch_counts)
+        n_b = len(req) // BATCH
+        expect_launches(f"{family} Predictor, {n_b} batches", c,
+                        {k: n_b * LAYERS * PER_LAYER.get(k, 0) for k in c})
+        add_counts(counts, c)
+        log(f"[pretrained] {family} predict {len(req)} utterances: "
+            f"{p_s * 1e3:.2f} ms [{card}]")
+        serve_held(family, kp, pp, fp, req, arrays, segs)
+        del kp, pp, fp
+
+        hold_embed_out_of_range(dev, family, vocab, eparams["embeddings"])
+        if family == "xlm-roberta":
+            add_counts(counts, xlmr_trainer_steps(dev, card, memory, req,
+                                                  stok, kcfg, params, tmp))
+        del params, eparams
+    return counts
+
+
+def phase_pretrained(dev, card: str):
+    """The pretrained path on the card, bf16, the blocks' kernels, in a
+    temporary directory holding phase 13's synthetic dataroot and a BERT
+    tokenizer: (a) MLM at BERT-base width and its export, (b) the export
+    fine-tuned through ``cli.main --tod_pre_trained_model``, (c)
+    RoBERTa-base and XLM-R-base checkpoints read, served and (XLM-R)
+    trained.  Returns the launch counts of its main-path runs (the MLM
+    steps, the CLI's two epochs, the two Predictors' counted requests,
+    the XLM-R Trainer's steps)."""
+    import tempfile
+
+    from nbest_asr_tpu_torch.ops import _cuda
+
+    counts = {k: 0 for k in _cuda.KERNELS}
+    memory = dstc2_like_memory()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "dataroot")
+        write_dataroot(root, memory)
+        ckpt = os.path.join(tmp, "mlm_ckpt")
+        write_bert_tokenizer(ckpt, memory)
+        c, renc = pretrained_mlm(dev, card, memory, root, ckpt)
+        add_counts(counts, c)
+        add_counts(counts, pretrained_finetune(dev, card, root, ckpt, renc))
+        del renc
+        add_counts(counts, pretrained_roberta_xlmr(dev, card, memory, tmp))
+    return counts
+
+
 def _cpu_tree(t):
     if isinstance(t, dict):
         return {k: _cpu_tree(v) for k, v in t.items()}
@@ -3435,6 +4165,7 @@ def main() -> int:
     c_counts, _, _ = phase_train(dev, card, t_times, rig, "fused_rows",
                                  beside=bf16_ms)
     l_counts = phase_cli(dev, card)
+    p_counts = phase_pretrained(dev, card)
 
     s_bounds = serving_bounds(BATCH * BUCKETS[-1], BATCH, BUCKETS[-1])
     rows = []
@@ -3453,7 +4184,7 @@ def main() -> int:
     for name in _cuda.KERNELS:
         launches = (counts[name] + t_counts[name] + i_counts[name]
                     + a_counts[name] + b_counts[name] + c_counts[name]
-                    + l_counts[name])
+                    + l_counts[name] + p_counts[name])
         if name in s_bounds:        # a serving layer's launches
             row(name, name, launches, *times[(name, BUCKETS[-1])],
                 *s_bounds[name])
@@ -3472,7 +4203,10 @@ def main() -> int:
         "NBEST_BENCH_INT8=1 step), flash route A (--no_fused_attn), "
         "long-sequence route B and route C (plain blocks, use_fused_ln, "
         "use_fused_gelu, use_fused_embedding) training main-path runs "
-        "and the CLI's two epochs together, the [train] rows the int8 "
+        "and the CLI's two epochs, and the pretrained phase's runs (MLM "
+        "steps, the fine-tune's two epochs, the RoBERTa and XLM-R "
+        "Predictors' requests, the XLM-R Trainer's steps) together, the "
+        "[train] rows the int8 "
         "training runs alone; "
         "ms / plain_ms / library_ms / bound_ms: one encoder layer's "
         f"launches of the kernel -- serving at batch {BATCH} x seq "

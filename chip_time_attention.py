@@ -53,7 +53,9 @@ dgelu launch without dropout and with the "none" epilogue), the two
 at 64 x 256 rows for serving, and ``gemm_bias_act``'s two launches in each,
 each as ``[back to back, device]`` ms; and ``rows_ms``: ``bias_gelu``
 and ``bias_gelu_bwd`` at 8192 x 3072 bf16 beside ``F.gelu(x + b)`` and
-autograd's GELU backward, each as ``[back to back, device]`` ms: back to
+autograd's GELU backward, and ``embed_lookup`` at 8192 tokens (f32
+tables) at BERT's vocab and at XLM-R's with out-of-range type and word
+ids, each as ``[back to back, device]`` ms: back to
 back times
 the calls as the host issues them, device queues them behind a sleep so
 that the card runs them without waiting for the host.  With the card's
@@ -76,7 +78,7 @@ import torch
 H, NH = 768, 12
 # the timed groups (--only): the seg_attention launches and the training
 # attention times, the int8 launches and encoder forwards, the tiled flash
-# kernels, the bf16 GEMMs, the bias-GELU pair
+# kernels, the bf16 GEMMs, the bias-GELU pair and the embedding lookup
 GROUPS = ("attention", "int8", "flash", "gemm", "rows")
 
 
@@ -282,6 +284,21 @@ def rows_times(K, dev, gen, iters: int) -> dict:
         "gelu_backward": lambda: torch.autograd.grad(g_lib, (hl,), dh,
                                                      retain_graph=True),
     }
+    # embed_lookup at one micro (8192 tokens, seq 256, f32 tables): BERT's
+    # vocab and two type rows; XLM-R's vocab, one type row, type ids 0 and
+    # 1 (the RoBERTa --add_segment_ids rows) and some ids in the padding
+    for name, vocab, n_types, off in (("embed_lookup", 30522, 2, 0),
+                                      ("embed_lookup_xlmr", 250002, 1, 2)):
+        word = (torch.randn(vocab, H, generator=gen) * 0.05).to(dev)
+        pos = (torch.randn(514, H, generator=gen) * 0.05).to(dev)
+        type_ = (torch.randn(n_types, H, generator=gen) * 0.05).to(dev)
+        ids = torch.randint(0, vocab, (8192,), generator=gen)
+        ids[::97] = vocab
+        tids = torch.randint(0, 2, (8192,), generator=gen)
+        args = (word, pos[off:off + 256], type_, torch.ones(H, device=dev),
+                torch.zeros(H, device=dev), ids.to(dev, torch.int32),
+                tids.to(dev, torch.int32), 256, 1e-5)
+        calls[name] = (lambda a: lambda: K.embed_lookup(*a))(args)
     return {name: both_ms(fn, iters) for name, fn in calls.items()}
 
 

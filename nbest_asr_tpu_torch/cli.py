@@ -8,7 +8,11 @@ on the card: ``--deviceId -1`` (the default) is ``cuda:0``, ``--deviceId
 N`` is ``cuda:N``.  The CPU is reached only when a caller passes
 ``device="cpu"`` to ``main``, as the tests do; without CUDA and without
 that, ``main`` raises rather than train on the CPU.  Refused flags
-(``config.unsupported``) return 2 with their message.
+(``config.unsupported``) return 2 with their message.  The tokenizer
+comes from ``data/tokenizer.load_tokenizer``, as at
+``nbest_asr_tpu/cli.py:121-127``: a pretrained checkpoint's when one is
+requested, else the word-vocab tokenizer; a requested checkpoint that
+fails to load under ``--require_pretrained`` returns 2 with the error.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from .config import RunOptions, parse_arguments, unsupported
 from .data.dataset import read_sep_data
 from .data.input_builder import pack_split
-from .data.tokenizer import WordVocabTokenizer
+from .data.tokenizer import load_tokenizer
 from .data.vocab import Memory
 
 
@@ -99,7 +103,13 @@ def main(argv=None, *, device=None) -> int:
     except FileNotFoundError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    tokenizer = WordVocabTokenizer(memory)
+    try:
+        tokenizer = load_tokenizer(
+            opt.pre_trained_model, opt.tod_pre_trained_model, memory,
+            require_pretrained=opt.require_pretrained)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     splits = prepare_packed_splits(opt, memory, tokenizer)
     if "valid" not in splits:
         print("missing valid shard", file=sys.stderr)
@@ -110,7 +120,11 @@ def main(argv=None, *, device=None) -> int:
 
     from .train.loop import Trainer, build_model
 
-    cfg, params = build_model(opt, memory, tokenizer, dev)
+    try:
+        cfg, params = build_model(opt, memory, tokenizer, dev)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     if dev.type == "cuda":
         from .ops import _cuda
 

@@ -18,13 +18,21 @@ Every flag falls into one of three groups on the port:
   ``--sent_repr``, ``--cls_type``, ``--bert_model_name``,
   ``--with_system_act``, ``--init_type``, ``--init_range``) reach the
   experiment directory's name or nothing, exactly as in the JAX package.
+  ``--pre_trained_model bert|roberta|xlm-roberta`` (a directory under
+  ``$NBEST_HF_LOCAL`` named as ``HF_NAMES`` says) and
+  ``--tod_pre_trained_model DIR`` fine-tune from a local checkpoint
+  directory, read without ``transformers`` (``models/hf_convert.py``);
+  a BERT-family directory's tokenizer is the port's ``WordPieceTokenizer``,
+  RoBERTa's and XLM-R's need ``transformers`` (``data/tokenizer.py``).
+  ``--require_pretrained`` turns a checkpoint or tokenizer that fails to
+  load into an error (return code 2) instead of JAX's warning and
+  from-scratch run.
 - **Refused** (``unsupported`` names them; the CLI returns 2 with the
   message), each until the ROADMAP queue-1 item that brings it:
-  ``--pre_trained_model`` / ``--tod_pre_trained_model`` (item 4, the
-  pretrained path), ``--n_model_parallel`` > 1 and ``--data_mode direct``
-  (item 5, multi-process), ``--profile_dir`` (item 6, the tools), and
-  ``--remat``, which the port neither maps to activation checkpointing
-  nor ignores (queued beside item 1's "map or refuse").
+  ``--n_model_parallel`` > 1 and ``--data_mode direct`` (item 5,
+  multi-process), ``--profile_dir`` (item 6, the tools), and ``--remat``,
+  which the port neither maps to activation checkpointing nor ignores
+  (queued beside item 1's "map or refuse").
 - **Accepted and inert**, because the flag only steers TPU machinery:
   ``--prng_impl`` picks JAX's PRNG for dropout masks; the port's masks
   are Philox, keyed on a seed drawn from a ``torch.Generator``.
@@ -33,8 +41,7 @@ Every flag falls into one of three groups on the port:
   shuffle draws and runs a chain as its K steps in order.
   ``--no_native_loader``: the CLI packs with the Python packer, JAX's own
   oracle and fallback (``nbest_asr_tpu/cli.py:34-44``), until the port's
-  ``pack_file_native`` lands (queue 1 item 6); ``--require_pretrained``
-  needs a pretrained flag, which is refused.
+  ``pack_file_native`` lands (queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -166,12 +173,6 @@ def unsupported(opt: RunOptions) -> List[str]:
     """The refused flags that ``opt`` sets, each with the ROADMAP item
     that brings it (module docstring); empty when the port runs ``opt``."""
     out = []
-    for flag, value in (("--pre_trained_model", opt.pre_trained_model),
-                        ("--tod_pre_trained_model",
-                         opt.tod_pre_trained_model)):
-        if value:
-            out.append(f"{flag} is not supported by the port yet: the "
-                       "pretrained path comes with ROADMAP queue 1 item 4")
     if opt.n_model_parallel > 1:
         out.append("--n_model_parallel > 1 is not supported by the port "
                    "yet: multi-process runs come with ROADMAP queue 1 "

@@ -35,6 +35,13 @@ a multiple of 128 and a head dim a multiple of 64 (``attn_lanes_ok``):
   sends the embeddings to ``ops.fused_embed.fused_embed_lookup`` whenever
   no ``position_ids`` are given (``encoder.py:176-186``).
 
+Out-of-range ids follow JAX on each path: the plain embedding gathers as
+XLA does, clamping word, type and position indices into their tables and
+dropping their gradients (``layers.take_rows``); the fused lookup reads a
+zero row for a type id outside its table and for a word id in the
+table's padding to a multiple of 8, as JAX's one-hot selects do
+(``ops/fused_embed.py``).
+
 Training (``deterministic=False``) needs an explicit ``seed``; every
 dropout site takes its own seed from it with ``philox.fold_in`` (per
 layer, then per site: 1 attention probs, 2 attention hidden, 3 FFN, and
@@ -77,7 +84,8 @@ import torch
 
 from ..ops.attention import flash_routes, multi_head_attention
 from ..ops.kernels import FLASH_HEAD_DIMS, HEAD_DIMS
-from ..ops.layers import acc_dtype, dense, dropout, gelu, layer_norm
+from ..ops.layers import (acc_dtype, dense, dropout, gelu, layer_norm,
+                          take_rows)
 from ..ops.philox import fold_in, generator
 from ..ops.quant import dense_int8, is_quantized
 
@@ -215,7 +223,8 @@ def _embed(params: dict, input_ids: torch.Tensor,
     if cfg.use_fused_embedding and position_ids is None:
         from ..ops.fused_embed import fused_embed_lookup
 
-        off = cfg.position_offset
+        # JAX's dynamic_slice_in_dim clamps the start so the slice fits
+        off = max(0, min(cfg.position_offset, emb["position"].shape[0] - s))
         x = fused_embed_lookup(emb["word"], emb["position"][off:off + s],
                                emb["type"], emb["ln_scale"], emb["ln_bias"],
                                input_ids, token_type_ids if has_types
@@ -234,14 +243,19 @@ def _embed_plain(emb: dict, ids: torch.Tensor,
                  token_type_ids: Optional[torch.Tensor], cfg: EncoderConfig,
                  position_ids: Optional[torch.Tensor]) -> torch.Tensor:
     s = ids.shape[1]
-    x = emb["word"][ids]
+    x = take_rows(emb["word"], ids)
     if position_ids is None:
-        pos = torch.arange(s, device=ids.device) + cfg.position_offset
-        x = x + emb["position"][pos][None, :, :]
+        off = cfg.position_offset
+        if off + s <= emb["position"].shape[0]:
+            x = x + emb["position"][off:off + s][None, :, :]
+        else:
+            pos = torch.arange(s, device=ids.device) + off
+            x = x + take_rows(emb["position"], pos)[None, :, :]
     else:
-        x = x + emb["position"][position_ids.long() + cfg.position_offset]
+        x = x + take_rows(emb["position"],
+                          position_ids.long() + cfg.position_offset)
     if token_type_ids is not None:
-        x = x + emb["type"][token_type_ids.long()]
+        x = x + take_rows(emb["type"], token_type_ids)
     else:
         x = x + emb["type"][0][None, None, :]
     return layer_norm(x, emb["ln_scale"], emb["ln_bias"], cfg.layer_norm_eps)

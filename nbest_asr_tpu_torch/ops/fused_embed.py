@@ -13,7 +13,12 @@ JAX passes zeros.
 
 The backward is plain PyTorch, as JAX's is XLA (``_bwd``, :172): the
 LayerNorm backward on the recomputed f32 sum, then scatter-adds into the
-three tables and the column sums for scale and bias.  The scatter-adds
+three tables and the column sums for scale and bias.  Out-of-range ids
+follow JAX on both sides, which disagree: the forward reads a zero row
+for a type id outside its table or a word id in the table's padding to
+a multiple of 8 (its one-hot selects), the backward recomputes with the
+row at the clamped id and drops that id's gradient (XLA's gather and its
+scatter-add).  The scatter-adds
 are ``index_put_(accumulate=True)``, which CUDA sums in a fixed order
 (sorted indices), as the plain path's ``word[ids]`` backward does:
 ``index_add_`` adds with atomics, and its run-to-run noise made the
@@ -28,14 +33,21 @@ from typing import Optional
 import torch
 
 from . import kernels as K
+from .layers import gather_index
 
 BN = 8  # JAX's token rows per grid step: b * s must be a multiple
 
 
 def _embed_grads(word, pos, type_, scale, ids, type_ids, seq_len: int,
                  eps: float, dy):
-    """Gradients of the five tables and LN parameters, in f32."""
+    """Gradients of the five tables and LN parameters, in f32, of JAX's
+    XLA formulation (``_xla_embed``): its gathers read out-of-range ids
+    clamped, its scatter-adds drop their gradients."""
     n = ids.shape[0]
+    ids, w_in = gather_index(ids, word.shape[0])
+    t_in = None
+    if type_ids is not None:
+        type_ids, t_in = gather_index(type_ids, type_.shape[0])
     rows = torch.arange(n, device=ids.device) % seq_len
     t = type_[0] if type_ids is None else type_[type_ids]
     x = word[ids].float() + pos[rows].float() + t.float()
@@ -48,15 +60,17 @@ def _embed_grads(word, pos, type_, scale, ids, type_ids, seq_len: int,
     dx = (g - g.mean(dim=-1, keepdim=True)
           - xhat * (g * xhat).mean(dim=-1, keepdim=True)) * rstd
     f32 = dict(dtype=torch.float32, device=dx.device)
-    dword = torch.zeros(word.shape, **f32).index_put_((ids,), dx,
-                                                      accumulate=True)
+    zero = torch.zeros((), **f32)
+    dword = torch.zeros(word.shape, **f32).index_put_(
+        (ids,), torch.where(w_in[:, None], dx, zero), accumulate=True)
     dpos = torch.zeros(pos.shape, **f32).index_put_((rows,), dx,
                                                     accumulate=True)
     dtype_ = torch.zeros(type_.shape, **f32)
     if type_ids is None:
         dtype_[0] = dx.sum(dim=0)
     else:
-        dtype_.index_put_((type_ids,), dx, accumulate=True)
+        dtype_.index_put_((type_ids,), torch.where(t_in[:, None], dx, zero),
+                          accumulate=True)
     return dword, dpos, dtype_, (d * xhat).sum(dim=0), d.sum(dim=0)
 
 

@@ -367,11 +367,28 @@ def embed_lookup_reference(word, pos, type_, scale, bias, ids, type_ids,
                            seq_len: int, eps: float):
     """(n, h) in the tables' dtype: LN(word[ids] + pos[t % seq_len] +
     type[type_ids]) for flat token rows t, the sum and statistics in (at
-    least) f32; ``type_ids`` None reads type row 0."""
+    least) f32; ``type_ids`` None reads type row 0.  Out-of-range ids
+    read what JAX's lookup reads (``fused_embed.py:48``, interpret mode):
+    a type id outside its table a zero row (its one-hot select), a word
+    id in the table's padding to a multiple of 8 a zero row; a word id
+    below 0 or past that padding raises ``IndexError``, as JAX's DMA of
+    the row group does."""
     acc = acc_dtype(word.dtype)
+    V, ids = word.shape[0], ids.long()
+    if bool(((ids < 0) | (ids >= -(-V // 8) * 8)).any()):
+        raise IndexError(f"embed_lookup: a word id outside [0, {V}) and "
+                         "its padding to a multiple of 8")
     rows = torch.arange(ids.shape[0], device=ids.device) % seq_len
-    t = type_[0] if type_ids is None else type_[type_ids.long()]
-    x = word[ids.long()].to(acc) + pos[rows].to(acc) + t.to(acc)
+    zero = torch.zeros((), dtype=acc, device=word.device)
+    w = torch.where((ids < V)[:, None], word[ids.clamp(max=V - 1)].to(acc),
+                    zero)
+    if type_ids is None:
+        t = type_[0].to(acc)
+    else:
+        T, tids = type_.shape[0], type_ids.long()
+        t = torch.where(((tids >= 0) & (tids < T))[:, None],
+                        type_[tids.clamp(0, T - 1)].to(acc), zero)
+    x = w + pos[rows].to(acc) + t
     return layer_norm_stats(x, scale, bias, eps)[0].to(word.dtype)
 
 
@@ -1315,9 +1332,11 @@ def embed_lookup(word, pos, type_, scale, bias, ids, type_ids,
                  seq_len: int, eps: float):
     """(n, h) in the tables' dtype: LN(word[ids] + pos[t % seq_len] +
     type[type_ids]) for the flat (n,) int32 ``ids`` and ``type_ids`` (None:
-    type row 0).  Tables f32 or bf16 alike, scale and bias (h,) f32.  An
-    id outside its table gives a NaN row on the card (the ids are not
-    read on the host)."""
+    type row 0).  Tables f32 or bf16 alike, scale and bias (h,) f32.  A
+    type id outside its table and a word id in the table's padding to a
+    multiple of 8 read a zero row, as JAX's kernel; a word id where JAX
+    raises (below 0, past the padding) gives a NaN row on the card (the
+    ids are not read on the host)."""
     tensors = [word, pos, type_, scale, bias, ids] + (
         [] if type_ids is None else [type_ids])
     if not _on_cuda("embed_lookup", *tensors):

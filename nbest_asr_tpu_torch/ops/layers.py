@@ -80,3 +80,26 @@ def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def gather_index(idx: torch.Tensor, n: int):
+    """XLA's gather of ``idx`` into a table of n rows -> (the index the
+    forward reads, clamped into [0, n); whether the backward's scatter-add
+    keeps that element's gradient, i.e. the index was inside the table).
+    A negative index counts from the end once, as JAX's indexing does."""
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    return idx.clamp(0, n - 1), (idx >= 0) & (idx < n)
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` as JAX's gather computes it (``gather_index``): an
+    out-of-range id -- a segment id 1 into RoBERTa's one-row type table,
+    an added token past a checkpoint's vocab, a position past the table
+    -- reads the nearest row where torch would raise, and trains
+    nothing."""
+    rows_idx, inside = gather_index(idx, table.shape[0])
+    rows = table[rows_idx]
+    if not rows.requires_grad:
+        return rows
+    return torch.where(inside[..., None], rows, rows.detach())

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 from dataclasses import asdict, dataclass
 from typing import Dict, List, Optional
@@ -53,7 +54,7 @@ import torch
 from ..config import RunOptions
 from ..data.input_builder import PackedSplit
 from ..data.vocab import Memory
-from ..models.heads import hierarchy_device_arrays
+from ..models.heads import hierarchy_device_arrays, init_head_params
 from ..models.model import ModelConfig, init_model_params
 from ..parallel.train_step import (TrainState, make_eval_step,
                                    make_train_step)
@@ -620,21 +621,28 @@ class Trainer:
 
 def build_model(opt: RunOptions, memory: Memory, tokenizer, device
                 ) -> tuple[ModelConfig, dict]:
-    """The encoder config and initial params, from scratch (the pretrained
-    path raises until ROADMAP queue 1 item 4).  The word-vocab tokenizer
-    sizes the embedding; hidden 768, intermediate 3072 and at least 4
-    heads, as JAX's from-scratch model.  The kernel flags' "auto" (None)
-    means the hand-written kernels wherever the device is CUDA -- JAX's
-    TPU rule -- and the int8 training flags' "auto" means off on CUDA
-    (the int8 step is slower than the bf16 one on the H100, PERF.md);
-    explicit flags win.  The params come from a ``torch.Generator``
-    seeded by ``random_seed``, on ``device``."""
-    from ..models.encoder import EncoderConfig
+    """The model config and initial params, as JAX's ``build_model``
+    resolves them (`n_best_asr_bert.py:33-37, 480-487`).
 
-    if opt.pre_trained_model or opt.tod_pre_trained_model:
-        raise RuntimeError("the port trains from scratch only: the "
-                           "pretrained path comes with ROADMAP queue 1 "
-                           "item 4")
+    A requested pretrained checkpoint -- ``--tod_pre_trained_model DIR``,
+    or ``--pre_trained_model bert|roberta|xlm-roberta`` through
+    ``HF_NAMES`` and ``resolve_checkpoint`` -- is read by
+    ``models/hf_convert.load_pretrained_encoder`` with JAX's overrides
+    (dropout from ``--bert_dropout``, the compute dtype, the kernel flags);
+    one that fails to load raises ``RuntimeError`` under
+    ``--require_pretrained`` and otherwise warns on stderr, with JAX's
+    text, and the run trains from scratch.  From scratch, the tokenizer
+    sizes the embedding; hidden 768, intermediate 3072 and at least 4
+    heads, as JAX's.  The kernel flags' "auto" (None) means the
+    hand-written kernels wherever the device is CUDA -- JAX's TPU rule --
+    and the int8 training flags' "auto" means off on CUDA (the int8 step
+    is slower than the bf16 one on the H100, PERF.md); explicit flags win.
+    The params come from a ``torch.Generator`` seeded by ``random_seed``
+    (a checkpoint's encoder replaces the drawn one), on ``device``."""
+    from ..data.tokenizer import HF_NAMES, resolve_checkpoint
+    from ..models.encoder import EncoderConfig
+    from ..models.hf_convert import load_pretrained_encoder
+
     device = torch.device(device)
 
     def resolve_flash(flag):
@@ -643,14 +651,7 @@ def build_model(opt: RunOptions, memory: Memory, tokenizer, device
     def resolve_int8(flag):
         return False if flag is None else bool(flag)
 
-    enc_cfg = EncoderConfig(
-        vocab_size=tokenizer.vocab_size,
-        hidden_size=768,
-        num_layers=opt.n_layers,
-        num_heads=max(opt.n_head, 4),
-        intermediate_size=3072,
-        max_position=512,
-        position_offset=0,
+    common = dict(
         hidden_dropout=opt.bert_dropout, attn_dropout=opt.bert_dropout,
         compute_dtype=opt.compute_dtype,
         use_flash_attention=resolve_flash(opt.use_flash_attention),
@@ -661,8 +662,46 @@ def build_model(opt: RunOptions, memory: Memory, tokenizer, device
         use_int8_train_bwd=resolve_int8(opt.int8_train_bwd),
         flash_min_seq=opt.flash_min_seq,
         remat=opt.remat)
+
+    enc_cfg = enc_params = None
+    name = opt.tod_pre_trained_model or HF_NAMES.get(
+        opt.pre_trained_model or "")
+    if name and not opt.tod_pre_trained_model:
+        name = resolve_checkpoint(name)
+    if name:
+        try:
+            enc_cfg, enc_params = load_pretrained_encoder(name, **common)
+        except Exception as e:
+            msg = (f"could not load pretrained encoder {name!r}: "
+                   f"{type(e).__name__}: {e}")
+            if opt.require_pretrained:
+                raise RuntimeError(
+                    msg + " (--require_pretrained set; refusing the "
+                    "from-scratch fallback)") from e
+            print(
+                "WARNING: %s\nWARNING: training FROM SCRATCH — results "
+                "will not be comparable to the pretrained benchmark. "
+                "Pass --require_pretrained to make this fatal." % msg,
+                file=sys.stderr, flush=True)
+            enc_cfg = None
+
+    if enc_cfg is None:
+        enc_cfg = EncoderConfig(
+            vocab_size=tokenizer.vocab_size,
+            hidden_size=768,
+            num_layers=opt.n_layers,
+            num_heads=max(opt.n_head, 4),
+            intermediate_size=3072,
+            max_position=512,
+            position_offset=0,
+            **common)
     cfg = ModelConfig(encoder=enc_cfg, n_top=memory.n_top,
                       n_bottom=memory.n_bottom, head_dropout=opt.dropout)
     gen = torch.Generator().manual_seed(opt.random_seed)
-    params = _tree_to(init_model_params(gen, cfg), device)
-    return cfg, params
+    if enc_params is None:
+        params = init_model_params(gen, cfg)
+    else:       # no draws for an encoder the checkpoint replaces
+        params = {"encoder": enc_params,
+                  "head": init_head_params(gen, cfg.hidden, cfg.n_top,
+                                           cfg.n_bottom)}
+    return cfg, _tree_to(params, device)

@@ -11,7 +11,10 @@ byte and the classification report (the same text, so the same numbers).
 their log lines have the same formats; the error cases of the JAX CLI's
 tests return the same codes.  (e) ``--testing`` reloads ``model.ckpt`` and
 reproduces the best epoch's valid metrics.  (f) Each refused flag returns
-2 with its message.  (g) ``load_predictor`` restores a Trainer's params
+2 with its message; the pretrained flags are honoured: with no local
+checkpoint both CLIs warn alike and train, or under
+``--require_pretrained`` return 2 with the same message, and a tiny
+``--tod_pre_trained_model`` run matches JAX's epoch by epoch.  (g) ``load_predictor`` restores a Trainer's params
 and predicts as a Predictor built on them."""
 
 import dataclasses
@@ -251,8 +254,6 @@ def test_cli_error_codes_match_jax(case, tiny_memory, tmp_path, capsys):
 
 
 REFUSED = {
-    "pretrained": (["--pre_trained_model", "bert"], "item 4"),
-    "tod_pretrained": (["--tod_pre_trained_model", "/x"], "item 4"),
     "model_parallel": (["--n_model_parallel", "2"], "item 5"),
     "direct": (["--data_mode", "direct"], "item 5"),
     "profile": (["--profile_dir", "/x"], "item 6"),
@@ -269,6 +270,181 @@ def test_cli_refuses_unported_flags(case, dataroot, tmp_path, capsys):
     assert rc == 2
     assert flags[0] in err and item in err
     assert not (tmp_path / "exp").exists()
+
+
+def _warnings(err: str):
+    """The WARNING lines of ``err``, the detail of the encoder's load
+    error masked: JAX's comes from ``transformers``, the port's from its
+    own reader (``hf_convert.load_pretrained_encoder``)."""
+    return [re.sub(r"(pretrained encoder '[^']*': \w+: ).*", r"\1<detail>",
+                   line) for line in err.splitlines()
+            if line.startswith("WARNING")]
+
+
+def _jax_main(argv, capsys, tmp):
+    """JAX's ``cli.main`` -> (rc, stderr), its process-wide PRNG and
+    compile-cache settings put back."""
+    saved = {k: getattr(jax.config, k) for k in (
+        "jax_default_prng_impl", "jax_compilation_cache_dir",
+        "jax_persistent_cache_min_compile_time_secs")}
+    os.environ["NBEST_ASR_TPU_CACHE"] = str(tmp / "jax_cache")
+    try:
+        return _rc_and_err(jcli.main, argv, capsys)
+    finally:
+        del os.environ["NBEST_ASR_TPU_CACHE"]
+        for k, v in saved.items():
+            jax.config.update(k, v)
+
+
+@pytest.mark.parametrize("required", [False, True],
+                         ids=["warns_then_trains", "require_pretrained"])
+def test_cli_pretrained_without_checkpoint_as_jax(required, dataroot,
+                                                  tmp_path, capsys,
+                                                  monkeypatch):
+    """``--pre_trained_model bert`` with no local checkpoint: JAX's CLI
+    warns twice (tokenizer, encoder) and trains from scratch, or under
+    ``--require_pretrained`` returns 2 with the tokenizer's error; the
+    port's does the same, with the same text."""
+    monkeypatch.delenv("NBEST_HF_LOCAL", raising=False)
+    argv = ["--dataset", "dstc2", "--dataroot", dataroot,
+            "--pre_trained_model", "bert", "--n_layers", "1", "--batchSize",
+            "8", "--max_epoch", "1", "--eval_artifacts", "none",
+            "--save_best", "none"] + (["--require_pretrained"]
+                                      if required else [])
+    want = _jax_main(argv + ["--experiment", str(tmp_path / "j")], capsys,
+                     tmp_path)
+    got = _rc_and_err(cli.main, argv + ["--experiment", str(tmp_path / "t")],
+                      capsys, device="cpu")
+    assert got[0] == want[0] == (2 if required else 0)
+    if required:
+        assert got[1] == want[1]
+        assert "--require_pretrained set" in got[1]
+        assert not (tmp_path / "t").exists()
+        return
+    assert _warnings(got[1]) == _warnings(want[1])
+    assert len(_warnings(got[1])) == 4
+    assert "pretrained encoder 'bert-base-uncased': OSError" in got[1]
+    logs = [open(os.path.join(_run_dir(tmp_path / d), "log.train")).read()
+            for d in ("j", "t")]
+    assert all("[Train]" in log and "BEST RESULT" in log for log in logs)
+
+
+BERT_VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+
+
+@pytest.fixture(scope="module")
+def tod_checkpoint(tiny_memory, tmp_path_factory):
+    """A tiny BERT checkpoint directory as ``--tod_pre_trained_model``
+    takes it: ``BertModel.save_pretrained`` (model.safetensors) and
+    ``BertTokenizer.save_pretrained`` with ``[SYS]`` / ``[USR]`` added past
+    ``vocab.txt`` (and so past the word table, where both packages clamp
+    the ids)."""
+    from transformers import BertConfig, BertModel, BertTokenizer
+
+    d = tmp_path_factory.mktemp("tod_ckpt")
+    words = sorted(w for w in tiny_memory.word2idx if w.isalpha())
+    (d / "vocab.txt").write_text("\n".join(BERT_VOCAB + words) + "\n")
+    tok = BertTokenizer(str(d / "vocab.txt"))
+    tok.add_special_tokens({"additional_special_tokens": ["[SYS]", "[USR]"]})
+    tok.save_pretrained(str(d))
+    torch.manual_seed(11)
+    model = BertModel(BertConfig(
+        vocab_size=len(BERT_VOCAB) + len(words), hidden_size=32,
+        num_hidden_layers=2, num_attention_heads=2, intermediate_size=64,
+        max_position_embeddings=128), add_pooling_layer=False)
+    model.save_pretrained(str(d))
+    return str(d)
+
+
+def _record_epochs(monkeypatch, trainer_cls, log):
+    run_train, run_eval = trainer_cls.run_train_epoch, \
+        trainer_cls.run_eval_epoch
+
+    def train_epoch(self):
+        m = run_train(self)
+        log.append(("train", m))
+        return m
+
+    def eval_epoch(self, split, *a, **kw):
+        m, info = run_eval(self, split, *a, **kw)
+        log.append((split, m))
+        return m, info
+
+    monkeypatch.setattr(trainer_cls, "run_train_epoch", train_epoch)
+    monkeypatch.setattr(trainer_cls, "run_eval_epoch", eval_epoch)
+
+
+def test_cli_tod_pretrained_run_matches_jax(tod_checkpoint, dataroot,
+                                            tmp_path, capsys, monkeypatch):
+    """``--tod_pre_trained_model DIR --require_pretrained``, two epochs at
+    dropout 0: the port's CLI (``WordPieceTokenizer``, its own checkpoint
+    reader) and JAX's (``AutoTokenizer``, ``AutoModel``) start from the
+    checkpoint's encoder and, with the head JAX draws (bridged in), agree
+    on every epoch's train / valid / test loss, P, R, F1 and Acc within
+    1e-4 relative; the port's encoder at init is the checkpoint's, and
+    ``load_predictor`` serves its best checkpoint with its tokenizer."""
+    from nbest_asr_tpu.models import heads as jheads
+    from nbest_asr_tpu.train import loop as jloop
+    from nbest_asr_tpu_torch.config import parse_arguments
+    from nbest_asr_tpu_torch.data.tokenizer import (WordPieceTokenizer,
+                                                    load_tokenizer)
+    from nbest_asr_tpu_torch.models.hf_convert import load_pretrained_encoder
+    from nbest_asr_tpu_torch.params_bridge import from_jax_numpy
+    from nbest_asr_tpu_torch.serve import load_predictor
+    from nbest_asr_tpu_torch.train import loop as tloop
+
+    seed = 5
+    argv = ["--dataset", "dstc2", "--dataroot", dataroot,
+            "--tod_pre_trained_model", tod_checkpoint,
+            "--require_pretrained", "--batchSize", "8", "--max_epoch", "2",
+            "--lr", "1e-3", "--bert_lr", "1e-3", "--bert_dropout", "0",
+            "--dropout", "0", "--random_seed", str(seed),
+            "--add_segment_ids"]
+
+    def jax_head(gen, hidden, n_top, n_bottom):
+        # JAX's build_model draws under the CLI's --prng_impl (rbg)
+        saved = jax.config.jax_default_prng_impl
+        jax.config.update("jax_default_prng_impl", "rbg")
+        try:
+            _, k_head = jax.random.split(jax.random.PRNGKey(seed))
+            head = jheads.init_head_params(k_head, hidden, n_top, n_bottom)
+            return from_jax_numpy(jax.device_get(head))
+        finally:
+            jax.config.update("jax_default_prng_impl", saved)
+
+    monkeypatch.setattr(tloop, "init_head_params", jax_head)
+    jlog, tlog = [], []
+    _record_epochs(monkeypatch, jloop.Trainer, jlog)
+    _record_epochs(monkeypatch, tloop.Trainer, tlog)
+    assert _jax_main(argv + ["--experiment", str(tmp_path / "j")], capsys,
+                     tmp_path)[0] == 0
+    targv = argv + ["--experiment", str(tmp_path / "t")]
+    assert cli.main(targv, device="cpu") == 0
+    assert "WARNING" not in capsys.readouterr().err
+    assert [k for k, _ in tlog] == [k for k, _ in jlog] == [
+        "train", "valid", "test"] * 2
+    for (split, tm), (_, jm) in zip(tlog, jlog):
+        got = [tm.mean_loss, tm.precision, tm.recall, tm.f1, tm.acc]
+        want = [jm.mean_loss, jm.precision, jm.recall, jm.f1, jm.acc]
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6,
+                                   err_msg=split)
+
+    opt = parse_arguments(targv)
+    memory = cli.resolve_memory(opt)
+    tok = load_tokenizer(None, tod_checkpoint, memory,
+                         require_pretrained=True)
+    assert isinstance(tok, WordPieceTokenizer)
+    cfg, params = tloop.build_model(opt, memory, tok, "cpu")
+    _, enc = load_pretrained_encoder(tod_checkpoint)
+    for k in enc["embeddings"]:
+        assert torch.equal(params["encoder"]["embeddings"][k],
+                           enc["embeddings"][k])
+    assert cfg.encoder.vocab_size == tok.vocab_size < len(tok)
+    pred = load_predictor(_run_dir(tmp_path / "t"), memory, cfg, tok,
+                          device="cpu", layout="tod", use_segments=True)
+    utts = [" ".join(a) for a in read_sep_data(
+        os.path.join(dataroot, "valid")).asr_seqs]
+    assert len(pred.predict(utts)) == len(utts)
 
 
 def test_cli_needs_cuda_or_an_explicit_device(dataroot, tmp_path,

@@ -1393,14 +1393,23 @@ def test_embed_lookup(dev, n, h, s, off, dtype, typed):
 
 
 def test_embed_lookup_out_of_range_id_gives_nan_row(dev):
+    """Out-of-range ids read what JAX's kernel reads: a type id outside
+    the table and a word id in the table's padding to a multiple of 8
+    (30522 % 8 = 2) a zero row, as the plain version does; a word id past
+    the padding, where JAX's kernel fails, a NaN row."""
     word, pos, type_, sc, bi, ids, tids = _embed_operands(
         dev, 16, 768, torch.float32, seed=5)
     ids[3] = 30522
     tids[5] = 2
+    ids[9] = 30528
     got = K.embed_lookup(word, pos[:8], type_, sc, bi, ids, tids, 8, 1e-12)
     torch.cuda.synchronize()
-    bad = torch.isnan(got).all(dim=1)
-    assert bad.tolist() == [i in (3, 5) for i in range(16)]
+    bad = torch.isnan(got).any(dim=1)
+    assert bad.tolist() == [i == 9 for i in range(16)]
+    ids[9] = 0
+    want = K.embed_lookup_reference(word, pos[:8], type_, sc, bi, ids, tids,
+                                    8, 1e-12)
+    _hold_rows(got[~bad], want[~bad])
 
 
 def test_row_functions_match_plain_autograd(dev):

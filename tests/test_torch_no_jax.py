@@ -4,7 +4,8 @@ port, and what ``chip_smoke.py``, ``chip_time_attention.py`` and
 loads in a fresh interpreter
 with neither ``jax`` nor any ``nbest_asr_tpu`` module (as distinct from
 ``nbest_asr_tpu_torch``) in ``sys.modules``, as they must on a machine
-that has no JAX at all."""
+that has no JAX at all -- and with no ``transformers``, ``tokenizers`` or
+``safetensors``, which the card's machine lacks too."""
 
 import pathlib
 import subprocess
@@ -31,6 +32,9 @@ print("MODULES=" + str(len(mods)))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "nbest_asr_tpu"))
 print("FORBIDDEN=" + ",".join(bad))
+hf = sorted(m for m in sys.modules
+            if m.split(".")[0] in ("transformers", "tokenizers", "safetensors"))
+print("HF=" + ",".join(hf))
 """
 
 
@@ -39,5 +43,8 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "FORBIDDEN=\n" in proc.stdout, proc.stdout
+    # the pretrained path reads checkpoints and BERT's tokenizer itself:
+    # importing it loads no transformers, tokenizers or safetensors
+    assert "HF=\n" in proc.stdout, proc.stdout
     n = int(proc.stdout.split("MODULES=")[1].split()[0])
-    assert n >= 29, proc.stdout     # flash_attention.py among them
+    assert n >= 31, proc.stdout     # models/hf_convert.py, train/mlm.py
