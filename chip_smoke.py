@@ -147,9 +147,10 @@ Phases, each fatal on failure:
 13. The CLI (``phase_cli``): a synthetic dataroot (``memory.json`` from
    ``dstc2_like_memory``; train / valid / test shards of 1024 / 256 / 256
    DSTC2-like utterances, seed 0) in a temporary directory, then
-   ``cli.main`` in this process at BERT-base width (12 layers, 12 heads,
-   bf16, dropout 0.1, buckets 64 / 96 / 160 / 256, token budget 8192,
-   batch 32, 2 epochs): the kernels' counters rise by exactly layers x
+   ``cli.main`` in this process at BERT-base width, 2 layers deep (12
+   heads, bf16, dropout 0.1, buckets 64 / 96 / 160 / 256, token budget
+   8192, batch 32, 2 epochs; phase 14 (b) runs these flags 12 layers
+   deep): the kernels' counters rise by exactly layers x
    (training micros x ``PER_LAYER_TRAIN`` + eval batches x the FFN
    block's forward); ``Trainer.train(stop_after_epoch=0)`` and then
    ``main(... --resume auto)`` end with params, optimizer state, step and
@@ -171,11 +172,12 @@ Phases, each fatal on failure:
    dropout 0 against the plain route (phase 6's gate).  (b) The export
    (``export_hf_checkpoint`` with the MLM head) read back by
    ``load_pretrained_encoder`` exactly; ``cli.main`` with phase 13's
-   flags and ``--tod_pre_trained_model <dir> --require_pretrained`` (TOD
-   layout, the added tokens clamped into the word table): the Trainer's
-   encoder at init equal to the checkpoint's, launches held to the plan,
-   ``--testing`` reproducing the best epoch, ``load_predictor``.  (c)
-   RoBERTa-base (``pytorch_model.bin``, vocab 50265) and XLM-R-base
+   flags (the checkpoint's 12 layers) and ``--tod_pre_trained_model
+   <dir> --require_pretrained`` (TOD layout, the added tokens clamped
+   into the word table): the Trainer's encoder at init equal to the
+   checkpoint's, launches held to the plan, ``--testing`` reproducing
+   the best epoch, ``load_predictor``.  (c) RoBERTa-base
+   (``pytorch_model.bin``, vocab 50265) and XLM-R-base
    (``model.safetensors`` written byte by byte here, vocab 250002)
    checkpoints from a seed under ``roberta.``: 514 positions, one type
    row, eps 1e-5, offset 2; each read back as written, served through
@@ -3136,7 +3138,10 @@ def phase_train_long(dev, card: str, block_ms):
 
 
 CLI_SPLITS = {"train": 1024, "valid": 256, "test": 256}
-CLI_ARGS = ["--dataset", "dstc2", "--n_layers", str(LAYERS), "--n_head",
+# phase 13 runs the from-scratch CLI 2 layers deep, at BERT-base width:
+# phase 14 (b) drives cli.main with these flags at the checkpoint's 12
+CLI_LAYERS = 2
+CLI_ARGS = ["--dataset", "dstc2", "--n_layers", str(CLI_LAYERS), "--n_head",
             str(NH), "--compute_dtype", "bfloat16", "--bert_dropout", "0.1",
             "--length_buckets", "64,96,160,256", "--token_budget", "8192",
             "--batchSize", "32", "--max_epoch", "2", "--checkpoint_every",
@@ -3223,10 +3228,10 @@ def log_field(line, name):
 
 
 def phase_cli(dev, card: str):
-    """``cli.main`` at BERT-base width on a synthetic dataroot: two epochs
-    with the kernels' counters held to the run's plan, the resume check,
-    ``--testing`` and ``load_predictor``; returns the launch counts of
-    the first run."""
+    """``cli.main`` at BERT-base width, CLI_LAYERS deep, on a synthetic
+    dataroot: two epochs with the kernels' counters held to the run's
+    plan, the resume check, ``--testing`` and ``load_predictor``; returns
+    the launch counts of the first run."""
     import tempfile
 
     from nbest_asr_tpu_torch import cli
@@ -3253,8 +3258,8 @@ def phase_cli(dev, card: str):
         trainer, tok = cli_trainer(stopped, dev)
         micros, batches = plan_counts(trainer)
         epochs = int(CLI_ARGS[CLI_ARGS.index("--max_epoch") + 1])
-        want = {k: LAYERS * epochs * (micros * PER_LAYER_TRAIN.get(k, 0)
-                                      + batches * PER_LAYER_EVAL.get(k, 0))
+        want = {k: CLI_LAYERS * epochs * (micros * PER_LAYER_TRAIN.get(k, 0)
+                                          + batches * PER_LAYER_EVAL.get(k, 0))
                 for k in counts}
         log(f"[cli] run 1 ({' '.join(CLI_ARGS)}): {run_s:.2f} s; "
             f"{micros} training micros and {batches} eval batches an "
@@ -4146,26 +4151,41 @@ def main() -> int:
                              "pass: spills or ptxas notes (or no instance "
                              f"reported): {bad}")
 
-    max_err, times = phase_kernels(dev, card)
-    counts = phase_slice(dev)
-    t_err, t_times, t_bounds = phase_train_kernels(dev, card)
-    rig = train_rig(dev)
-    t_counts, bf16_ms, _ = phase_train(dev, card, t_times, rig, "bf16")
-    i_counts, _, _ = phase_train(dev, card, t_times, rig, "int8",
-                                 beside=bf16_ms)
-    f_err, f_times, f_bounds = phase_flash_kernels(dev, card)
+    phase_s = {}
+
+    def timed(name, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[name] = round(time.perf_counter() - t, 2)
+        return out
+
+    max_err, times = timed("kernels", phase_kernels, dev, card)
+    counts = timed("slice", phase_slice, dev)
+    t_err, t_times, t_bounds = timed("train_kernels", phase_train_kernels,
+                                     dev, card)
+    rig = timed("train_rig", train_rig, dev)
+    t_counts, bf16_ms, _ = timed("train_bf16", phase_train, dev, card,
+                                 t_times, rig, "bf16")
+    i_counts, _, _ = timed("train_int8", phase_train, dev, card, t_times,
+                           rig, "int8", beside=bf16_ms)
+    f_err, f_times, f_bounds = timed("flash_kernels", phase_flash_kernels,
+                                     dev, card)
     t_times.update(f_times)
     t_bounds.update(f_bounds)
-    a_counts, _, _ = phase_train(dev, card, t_times, rig, "flash",
-                                 beside=bf16_ms)
-    b_counts, _, _ = phase_train_long(dev, card, t_times)
-    r_err, r_times, r_bounds = phase_rows_kernels(dev, card)
+    a_counts, _, _ = timed("train_flash", phase_train, dev, card, t_times,
+                           rig, "flash", beside=bf16_ms)
+    b_counts, _, _ = timed("train_long", phase_train_long, dev, card,
+                           t_times)
+    r_err, r_times, r_bounds = timed("rows_kernels", phase_rows_kernels,
+                                     dev, card)
     t_times.update(r_times)
     t_bounds.update(r_bounds)
-    c_counts, _, _ = phase_train(dev, card, t_times, rig, "fused_rows",
-                                 beside=bf16_ms)
-    l_counts = phase_cli(dev, card)
-    p_counts = phase_pretrained(dev, card)
+    c_counts, _, _ = timed("train_fused_rows", phase_train, dev, card,
+                           t_times, rig, "fused_rows", beside=bf16_ms)
+    l_counts = timed("cli", phase_cli, dev, card)
+    p_counts = timed("pretrained", phase_pretrained, dev, card)
+    log(f"[time] wall s by phase {phase_s}; from the build's start "
+        f"{time.perf_counter() - t0:.2f} s")
 
     s_bounds = serving_bounds(BATCH * BUCKETS[-1], BATCH, BUCKETS[-1])
     rows = []

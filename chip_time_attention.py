@@ -55,7 +55,10 @@ each as ``[back to back, device]`` ms; and ``rows_ms``: ``bias_gelu``
 and ``bias_gelu_bwd`` at 8192 x 3072 bf16 beside ``F.gelu(x + b)`` and
 autograd's GELU backward, and ``embed_lookup`` at 8192 tokens (f32
 tables) at BERT's vocab and at XLM-R's with out-of-range type and word
-ids, each as ``[back to back, device]`` ms: back to
+ids, each as ``[back to back, device]`` ms; and ``embed_ms``: the plain
+embedding's forward and backward at a training micro of 128 x 64, the
+12-layer encoder's training forward and backward there and its serving
+forward at 64 x 64, each as ``[back to back, device]`` ms: back to
 back times
 the calls as the host issues them, device queues them behind a sleep so
 that the card runs them without waiting for the host.  With the card's
@@ -78,8 +81,9 @@ import torch
 H, NH = 768, 12
 # the timed groups (--only): the seg_attention launches and the training
 # attention times, the int8 launches and encoder forwards, the tiled flash
-# kernels, the bf16 GEMMs, the bias-GELU pair and the embedding lookup
-GROUPS = ("attention", "int8", "flash", "gemm", "rows")
+# kernels, the bf16 GEMMs, the bias-GELU pair and the embedding lookup,
+# the plain embedding and the encoder around it
+GROUPS = ("attention", "int8", "flash", "gemm", "rows", "embed")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -265,6 +269,46 @@ def encoder_times(dev, gen, iters: int) -> dict:
     return {name: both_ms(lambda: encoder_forward(w, ids, mask, segs, cfg),
                           iters)
             for name, w in (("bf16", bf), ("int8", q8))}
+
+
+def embed_times(dev, gen, iters: int) -> dict:
+    """The plain embedding (word, position and type rows, LayerNorm) of
+    BERT-base at a training micro of 128 x 64 (f32 tables, type ids 0 and
+    1), forward and backward; around it, the 12-layer encoder's training
+    forward and backward (both megakernels, bf16, dropout 0.1) at the same
+    micro and its serving forward at 64 x 64; [back to back, device] ms."""
+    from nbest_asr_tpu_torch.models.encoder import (EncoderConfig, _embed,
+                                                    encoder_forward,
+                                                    init_encoder_params)
+
+    cfg = EncoderConfig.bert_base(compute_dtype="bfloat16",
+                                  use_fused_attn=True, use_fused_ffn=True,
+                                  use_fused_attn_eval=True,
+                                  hidden_dropout=0.1, attn_dropout=0.1)
+    enc = init_encoder_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg)
+    for group in enc.values():
+        for t in group.values():
+            t.requires_grad_()
+    ids = torch.randint(1, cfg.vocab_size, (128, 64), generator=gen).to(dev)
+    types = torch.randint(0, 2, (128, 64), generator=gen).to(dev)
+    mask = torch.ones(128, 64, device=dev)
+
+    def embed_fwd_bwd():
+        _embed(enc, ids, types, cfg, seed=1).float().sum().backward()
+
+    def train_fwd_bwd():
+        encoder_forward(enc, ids, mask, types, cfg, deterministic=False,
+                        seed=1).float().sum().backward()
+
+    def serve():
+        with torch.no_grad():
+            encoder_forward(enc, ids[:64], mask[:64], types[:64], cfg)
+
+    # ~400 launches a training step: 10 calls enqueue within the sleep
+    return {"embed_fwd_bwd": both_ms(embed_fwd_bwd, iters),
+            "encoder_train_fwd_bwd": both_ms(train_fwd_bwd, 10),
+            "encoder_serve_fwd_64": both_ms(serve, 10)}
 
 
 def rows_times(K, dev, gen, iters: int) -> dict:
@@ -529,6 +573,8 @@ def main() -> int:
         out["gemm_ms"] = gemm_times(K, dev, gen, args.iters)
     if "rows" in only and hasattr(K, "bias_gelu_bwd"):
         out["rows_ms"] = rows_times(K, dev, gen, args.iters)
+    if "embed" in only:
+        out["embed_ms"] = embed_times(dev, gen, args.iters)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

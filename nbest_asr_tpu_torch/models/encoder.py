@@ -245,12 +245,8 @@ def _embed_plain(emb: dict, ids: torch.Tensor,
     s = ids.shape[1]
     x = take_rows(emb["word"], ids)
     if position_ids is None:
-        off = cfg.position_offset
-        if off + s <= emb["position"].shape[0]:
-            x = x + emb["position"][off:off + s][None, :, :]
-        else:
-            pos = torch.arange(s, device=ids.device) + off
-            x = x + take_rows(emb["position"], pos)[None, :, :]
+        pos = torch.arange(s, device=ids.device) + cfg.position_offset
+        x = x + take_rows(emb["position"], pos)[None, :, :]
     else:
         x = x + take_rows(emb["position"],
                           position_ids.long() + cfg.position_offset)

@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 
 from . import kernels as K
-from .layers import gather_index
+from .layers import gather_index, scatter_rows
 
 BN = 8  # JAX's token rows per grid step: b * s must be a multiple
 
@@ -59,18 +59,16 @@ def _embed_grads(word, pos, type_, scale, ids, type_ids, seq_len: int,
     g = d * scale.float()
     dx = (g - g.mean(dim=-1, keepdim=True)
           - xhat * (g * xhat).mean(dim=-1, keepdim=True)) * rstd
-    f32 = dict(dtype=torch.float32, device=dx.device)
-    zero = torch.zeros((), **f32)
-    dword = torch.zeros(word.shape, **f32).index_put_(
-        (ids,), torch.where(w_in[:, None], dx, zero), accumulate=True)
-    dpos = torch.zeros(pos.shape, **f32).index_put_((rows,), dx,
+    dword = scatter_rows(word.shape[0], ids, w_in, dx)
+    dpos = torch.zeros(pos.shape, dtype=torch.float32,
+                       device=dx.device).index_put_((rows,), dx,
                                                     accumulate=True)
-    dtype_ = torch.zeros(type_.shape, **f32)
     if type_ids is None:
+        dtype_ = torch.zeros(type_.shape, dtype=torch.float32,
+                             device=dx.device)
         dtype_[0] = dx.sum(dim=0)
     else:
-        dtype_.index_put_((type_ids,), torch.where(t_in[:, None], dx, zero),
-                          accumulate=True)
+        dtype_ = scatter_rows(type_.shape[0], type_ids, t_in, dx)
     return dword, dpos, dtype_, (d * xhat).sum(dim=0), d.sum(dim=0)
 
 

@@ -89,7 +89,34 @@ def gather_index(idx: torch.Tensor, n: int):
     A negative index counts from the end once, as JAX's indexing does."""
     idx = idx.long()
     idx = torch.where(idx < 0, idx + n, idx)
-    return idx.clamp(0, n - 1), (idx >= 0) & (idx < n)
+    rows_idx = idx.clamp(0, n - 1)
+    return rows_idx, rows_idx == idx
+
+
+def scatter_rows(n: int, rows_idx: torch.Tensor, inside: torch.Tensor,
+                 g: torch.Tensor) -> torch.Tensor:
+    """XLA's scatter-add of ``g``'s rows into a table of n rows at
+    ``gather_index``'s indices: an out-of-range id's row goes to a spare
+    row past the table and is dropped.  Ordered (``index_put_``), no
+    atomics."""
+    d = g.new_zeros((n + 1,) + g.shape[rows_idx.dim():])
+    d.index_put_((torch.where(inside, rows_idx, n),), g, accumulate=True)
+    return d[:n]
+
+
+class _TakeRows(torch.autograd.Function):
+    """XLA's gather and its transpose: the forward reads the clamped rows,
+    the backward is ``scatter_rows``."""
+
+    @staticmethod
+    def forward(ctx, table, rows_idx, inside):
+        ctx.save_for_backward(rows_idx, inside)
+        ctx.n = table.shape[0]
+        return table[rows_idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_rows(ctx.n, *ctx.saved_tensors, g), None, None
 
 
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -98,8 +125,4 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     an added token past a checkpoint's vocab, a position past the table
     -- reads the nearest row where torch would raise, and trains
     nothing."""
-    rows_idx, inside = gather_index(idx, table.shape[0])
-    rows = table[rows_idx]
-    if not rows.requires_grad:
-        return rows
-    return torch.where(inside[..., None], rows, rows.detach())
+    return _TakeRows.apply(table, *gather_index(idx, table.shape[0]))
