@@ -187,6 +187,32 @@ Phases, each fatal on failure:
    ids; at XLM-R-base two ``Trainer`` steps (``family="xlm-roberta"``,
    double separator, 4 micros of 32 x 256) with the step time, peak memory
    and BertAdam's share printed.
+15. Multi-process training (``phase_multiprocess``).  (a) A one-rank NCCL
+   process group in this process: three ``make_train_step`` steps over
+   its mesh (``parallel/mesh.make_mesh``) beside three without one,
+   BERT-base 12 layers, bf16, both blocks' kernels, dropout 0, n_accum 2
+   at 2 x 128 x 64, in turns A B B A: bit-equal parameters (a one-rank
+   sum is the identity), each run's launches layers x micros x
+   ``PER_LAYER_TRAIN``, the gradient all-reduce's ms a step.  (b) Two
+   ranks sharing the card over gloo, started as ``python3 chip_smoke.py
+   --mp-rank R 2 DIR``
+   (``mp_worker``; each joins its group first, then runs ``cli.main(argv,
+   device="cuda:0")``): phase 13's dataroot at BERT-base width, 2 layers,
+   bf16, both blocks, dropout 0, one epoch, ``--data_mode direct`` (dp =
+   2) at a batch of 512, which holds each length bucket whole, so that
+   each step trains on one process's rows: every epoch metric within 1e-4
+   of the same flags in one process, here; the ranks' parameters
+   bit-equal; each rank's launches by the plan; rank 1 (its own
+   experiment directory) writes nothing, rank 0 the one-process run's
+   files.  (c) The same two ranks at ``--n_model_parallel 2`` (tp = 2, the
+   plain route, f32, batch 32, token budget 8192): no kernel launched,
+   every loss within 2e-5 relative of tp = 1 on the plain route
+   (``--no_fused_attn --no_fused_ffn --no_flash_attention``), the ranks'
+   gathered parameters bit-equal.  (d) With two cards or more, (b) over
+   NCCL, one rank a card; otherwise one line says why not.  Prints each
+   part's wall seconds, the gradient all-reduce's ms a step and one tp
+   all-reduce's, with the card's name and power limit; (b) and (c)'s times
+   are two ranks sharing one card, not a scaling figure.
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
@@ -4058,6 +4084,433 @@ def phase_pretrained(dev, card: str):
     return counts
 
 
+# --------------------------------------------------------------------- #
+# multi-process training (phase 15): NCCL at a world of 1, two ranks
+# sharing the card over gloo (dp = 2 direct, then tp = 2), NCCL across
+# cards where there are two
+# --------------------------------------------------------------------- #
+
+# (b): a batch that holds each length bucket of phase 13's dataroot whole
+# (its largest bucket has ~400 of 1024 rows), so that every step of the
+# direct mode's two ranks trains on the rows of one process's step (a
+# rank's rows of a global micro are its own shard's, process_data.py)
+MP_BASE = ["--dataset", "dstc2", "--n_layers", str(CLI_LAYERS), "--n_head",
+           str(NH), "--bert_dropout", "0", "--dropout", "0",
+           "--length_buckets", "64,96,160,256", "--token_budget", "8192",
+           "--max_epoch", "1"]
+MP_DIRECT = MP_BASE + ["--compute_dtype", "bfloat16", "--batchSize", "512",
+                       "--data_mode", "direct"]
+# (c): f32, where tp = 2 and tp = 1 differ by summation order alone
+MP_TP = MP_BASE + ["--compute_dtype", "float32", "--batchSize", "32"]
+MP_TP_PLAIN = ["--no_fused_attn", "--no_fused_ffn", "--no_flash_attention"]
+MP_TIMEOUT_S = 300
+
+
+class _recorded_cli:
+    """Within the block ``cli.main``'s Trainer records each epoch's
+    metrics in ``epochs`` and itself in ``trainers``."""
+
+    def __init__(self):
+        self.epochs, self.trainers = [], []
+
+    def __enter__(self):
+        from nbest_asr_tpu_torch.train.loop import Trainer
+
+        self.saved = (Trainer.run_train_epoch, Trainer.run_eval_epoch,
+                      Trainer.train)
+        run_train, run_eval, train = self.saved
+        rec = self
+
+        def train_epoch(self):
+            m = run_train(self)
+            rec.epochs.append(("train", mp_metrics(m)))
+            return m
+
+        def eval_epoch(self, split, *a, **kw):
+            m, info = run_eval(self, split, *a, **kw)
+            rec.epochs.append((split, mp_metrics(m)))
+            return m, info
+
+        def record(self, *a, **kw):
+            rec.trainers.append(self)
+            return train(self, *a, **kw)
+
+        Trainer.run_train_epoch, Trainer.run_eval_epoch, Trainer.train = \
+            train_epoch, eval_epoch, record
+        return self
+
+    def __exit__(self, *exc):
+        from nbest_asr_tpu_torch.train.loop import Trainer
+
+        Trainer.run_train_epoch, Trainer.run_eval_epoch, Trainer.train = \
+            self.saved
+
+
+def mp_metrics(m):
+    return [m.mean_loss, m.precision, m.recall, m.f1, m.acc]
+
+
+def mp_digests(params):
+    """sha256 of each leaf's bytes (a flat dict)."""
+    import hashlib
+
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}/{k}")
+        else:
+            out[path] = hashlib.sha256(
+                t.detach().cpu().contiguous().view(torch.uint8).numpy()
+            ).hexdigest()
+
+    walk(params, "")
+    return out
+
+
+def mp_run(argv, dev, counts_too=False):
+    """``cli.main(argv)`` here, recorded: -> (epochs, the Trainer, wall s,
+    launch counts)."""
+    from nbest_asr_tpu_torch import cli
+    from nbest_asr_tpu_torch.ops import _cuda
+
+    _cuda.reset_launch_counts()
+    with _recorded_cli() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if cli.main(argv, device=dev) != 0:
+            raise AssertionError(f"cli.main {argv} returned an error")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return rec.epochs, rec.trainers[-1], wall, dict(_cuda.launch_counts)
+
+
+def mp_worker(rank: int, world: int, d: str) -> int:
+    """One rank of phases 15 (b) to (d), started by ``mp_ranks``: joins
+    the group (``spec.json``: gloo on the one card, or NCCL on card
+    ``rank``), runs each of the spec's ``cli.main`` command lines, and
+    writes its epochs, launch counts, wall seconds, parameter digests and
+    the all-reduce's ms to ``out<rank>.json`` (rank 0: its parameters to
+    ``params<run>.pt`` too)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from nbest_asr_tpu_torch.parallel.mesh import (gather_params,
+                                                   reduce_from_tp)
+    from nbest_asr_tpu_torch.parallel.train_step import all_reduce_grads
+    from nbest_asr_tpu_torch.train.optimizer import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(d, "spec.json")) as fp:
+        spec = json.load(fp)
+    dev = torch.device("cuda", rank if spec["backend"] == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    kw = {"device_id": dev} if spec["backend"] == "nccl" else {}
+    dist.init_process_group(
+        spec["backend"], init_method="file://" + os.path.join(d, "store"),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MP_TIMEOUT_S - 60), **kw)
+    out = {}
+    try:
+        for name, argv in spec["runs"]:
+            argv = argv + spec["rank_argv"].get(f"{name}/{rank}", [])
+            epochs, tr, wall, counts = mp_run(argv, dev)
+            full = gather_params(tr.state.params, tr.mesh,
+                                 tr.cfg.encoder.vocab_size)
+            if rank == 0:
+                torch.save(_cpu_tree(full), os.path.join(d, f"params_{name}"
+                                                         ".pt"))
+            if tr.mesh.tp_size == 1:    # the step's gradient all-reduce
+                grads = [torch.zeros_like(p) for p in
+                         tree_leaves(tr.state.params)]
+                ar_ms = cuda_ms(lambda: all_reduce_grads(
+                    grads, tr.mesh.dp_group), iters=5, warmup=1)
+            else:                       # one tp all-reduce of a micro
+                y = torch.zeros(128 * 64, H, device=dev)
+                ar_ms = cuda_ms(lambda: reduce_from_tp(y, tr.mesh), iters=5,
+                                warmup=1)
+            out[name] = dict(epochs=epochs, counts=counts, wall=wall,
+                             digests=mp_digests(full), ar_ms=ar_ms,
+                             micros=plan_counts(tr)[0],
+                             mesh=[tr.mesh.dp_size, tr.mesh.tp_size])
+            del tr, full
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(d, f"out{rank}.json"), "w") as fp:
+        json.dump(out, fp)
+    return 0
+
+
+def mp_ranks(d: str, world: int, backend: str, runs, rank_argv):
+    """Start ``world`` ranks of this script (``--mp-rank``), wait for all
+    (each must exit 0 within MP_TIMEOUT_S), -> their outputs."""
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "spec.json"), "w") as fp:
+        json.dump(dict(backend=backend, runs=runs, rank_argv=rank_argv), fp)
+    logs = [open(os.path.join(d, f"log{r}"), "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mp-rank", str(r),
+         str(world), d], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    try:
+        rcs = [p.wait(timeout=MP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log_fp in logs:
+            log_fp.close()
+    for r, rc in enumerate(rcs):
+        if rc != 0:
+            with open(os.path.join(d, f"log{r}")) as fp:
+                tail = fp.read()[-4000:]
+            raise AssertionError(f"phase 15: rank {r} of {world} "
+                                 f"({backend}) exited {rc}:\n{tail}")
+    outs = []
+    for r in range(world):
+        with open(os.path.join(d, f"out{r}.json")) as fp:
+            outs.append(json.load(fp))
+    return outs
+
+
+def mp_hold_epochs(what, got, want, rtol, cols=None):
+    """Each epoch line of ``got`` against ``want`` (train / valid / test:
+    loss, P, R, F1, Acc; ``cols`` picks some) within ``rtol``."""
+    worst = 0.0
+    if [k for k, _ in got] != [k for k, _ in want]:
+        raise AssertionError(f"{what}: epochs {got} against {want}")
+    for (split, g), (_, w) in zip(got, want):
+        for i in (cols or range(len(w))):
+            rel = abs(g[i] - w[i]) / max(abs(w[i]), 1e-12)
+            worst = max(worst, rel)
+            if rel > rtol:
+                raise AssertionError(
+                    f"{what}: {split} metric {i} {g[i]!r} against "
+                    f"{w[i]!r} (rel {rel:.2e} > {rtol})")
+    return worst
+
+
+def mp_nccl_world1(dev, card, rig):
+    """(a): three ``make_train_step`` steps over a one-rank NCCL mesh
+    beside three without it (A B B A), BERT-base 12 layers, bf16, both
+    blocks, dropout 0, n_accum 2, bucket 64: bit-equal parameters and the
+    blocks' launches by the plan in each run; the step's gradient
+    all-reduce timed.  -> the first mesh run's launch counts."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.parallel.mesh import make_mesh
+    from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
+                                                         all_reduce_grads,
+                                                         make_train_step)
+    from nbest_asr_tpu_torch.train.losses import LossConfig
+    from nbest_asr_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                     make_optimizer,
+                                                     tree_leaves)
+
+    cfg = rig["cfg"]
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, hidden_dropout=0.0, attn_dropout=0.0,
+        use_fused_ffn=True, use_fused_attn=True))
+    data, micro = rig["data"][64], TRAIN_MICRO[64]
+    idx = np.arange(N_ACCUM * micro).reshape(N_ACCUM, micro) % \
+        data["input_ids"].shape[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            tmp, "store"), rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_mesh(n_data=1, n_model=1)
+            runs = []
+            for name, m in (("no mesh", None), ("NCCL mesh", mesh),
+                            ("NCCL mesh", mesh), ("no mesh", None)):
+                params = rig["params"]
+                opt = make_optimizer(OptimizerConfig(**GATE_OPT), params, m)
+                step = make_train_step(cfg, LossConfig(), opt, rig["hier"],
+                                       n_accum=N_ACCUM, dual_stream=False,
+                                       mesh=m)
+                state = TrainState(params, opt.init(params), 0)
+                gen = torch.Generator().manual_seed(3)
+                _cuda.reset_launch_counts()
+                ms = []
+                for _ in range(TRAIN_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, stats = step(state, data, idx, gen)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                runs.append((name, state.params, dict(_cuda.launch_counts),
+                             ms, float(stats["loss"]["total"])))
+            grads = [torch.zeros_like(p) for p in tree_leaves(rig["params"])]
+            ar_ms = cuda_ms(lambda: all_reduce_grads(grads, mesh.dp_group),
+                            iters=10)
+            numel = sum(g.numel() for g in grads)
+        finally:
+            dist.destroy_process_group()
+    want = {k: TRAIN_STEPS * N_ACCUM * LAYERS * PER_LAYER_TRAIN.get(k, 0)
+            for k in _cuda.KERNELS}
+    d0 = mp_digests(runs[0][1])
+    diffs = []
+    for name, params, c, ms, loss in runs:
+        d = mp_digests(params)
+        diffs += [f"{name}: {k}" for k in d0 if d0[k] != d[k]]
+        if c != want:
+            raise AssertionError(f"phase 15 (a) {name}: launches {c}, "
+                                 f"expected {want}")
+    log(f"[mp] (a) NCCL world 1, {LAYERS} layers bf16 both blocks, "
+        f"{TRAIN_STEPS} steps of {N_ACCUM} x {micro} x 64, runs A B B A: "
+        + "; ".join(f"{name} step ms {[round(x, 2) for x in ms]} loss "
+                    f"{loss:.6f}" for name, _, _, ms, loss in runs)
+        + f"; {len(diffs)} leaves differ from the first run's; launches "
+        f"by the plan in each; gradient all-reduce ({numel} f32 in "
+        f"{-(-numel // 2 ** 25)} buffers, NCCL, one rank) {ar_ms:.3f} ms "
+        f"a step [{card}]")
+    if diffs:
+        raise AssertionError(f"phase 15 (a): the one-rank mesh's params "
+                             f"differ: {diffs[:8]}")
+    return runs[1][2]
+
+
+def phase_multiprocess(dev, card: str, rig):
+    """Phase 15 (module docstring); -> the launch counts of its main-path
+    runs in this process ((a)'s mesh run and (b)'s one-process run)."""
+    import tempfile
+
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.train.optimizer import tree_leaves
+
+    torch.cuda.empty_cache()    # the rank processes share the card
+    t0 = time.perf_counter()
+    counts = mp_nccl_world1(dev, card, rig)
+    wall = {"a": time.perf_counter() - t0}
+    memory = dstc2_like_memory()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "dataroot")
+        write_dataroot(root, memory)
+
+        def argv(base, name, extra=()):
+            return base + list(extra) + ["--dataroot", root, "--experiment",
+                                         os.path.join(tmp, name)]
+
+        # ---- the one-process references, here ------------------------ #
+        t0 = time.perf_counter()
+        b_ref, b_tr, b_wall, b_counts = mp_run(argv(MP_DIRECT, "b1"), dev)
+        add_counts(counts, b_counts)
+        b_params = _cpu_tree(b_tr.state.params)
+        b_files = sorted(os.listdir(b_tr.opt.exp_dir))
+        micros, batches = plan_counts(b_tr)
+        if micros != len(b_tr._shard.buckets):
+            raise AssertionError(f"phase 15 (b): {micros} micros for "
+                                 f"{len(b_tr._shard.buckets)} buckets: a "
+                                 "bucket does not fit one batch")
+        del b_tr
+        c_ref, _, c_wall, c_counts = mp_run(
+            argv(MP_TP, "c1", MP_TP_PLAIN), dev)
+        if any(c_counts.values()):
+            raise AssertionError(f"phase 15 (c) reference: kernels "
+                                 f"launched on the plain route {c_counts}")
+        wall["refs"] = time.perf_counter() - t0
+
+        # ---- (b) and (c): two ranks sharing the card over gloo -------- #
+        t0 = time.perf_counter()
+        d = os.path.join(tmp, "gloo")
+        outs = mp_ranks(d, 2, "gloo", [
+            ("b", argv(MP_DIRECT, "b2")),
+            ("c", argv(MP_TP, "c2", ["--n_model_parallel", "2"]))],
+            {"b/1": ["--experiment", os.path.join(tmp, "b2_rank1")]})
+        wall["b+c"] = time.perf_counter() - t0
+        (b0, c0), (b1, c1) = [(o["b"], o["c"]) for o in outs]
+
+        # (b): dp = 2 direct against one process
+        rank1 = [f for _, _, fs in os.walk(os.path.join(tmp, "b2_rank1"))
+                 for f in fs]
+        (b_exp,) = [dp for dp, _, fs in os.walk(os.path.join(tmp, "b2"))
+                    if "log.train" in fs]
+        worst = max(mp_hold_epochs("phase 15 (b) rank %d" % r, o["epochs"],
+                                   b_ref, 1e-4) for r, o in enumerate(
+                                       (b0, b1)))
+        if b0["digests"] != b1["digests"]:
+            raise AssertionError("phase 15 (b): the two ranks' parameters "
+                                 "differ")
+        full = torch.load(os.path.join(d, "params_b.pt"), weights_only=True)
+        dmax = max((a - b).abs().max().item() for a, b in zip(
+            tree_leaves(full), tree_leaves(b_params)))
+        want = {k: CLI_LAYERS * (micros * PER_LAYER_TRAIN.get(k, 0)
+                                 + batches * PER_LAYER_EVAL.get(k, 0))
+                for k in _cuda.KERNELS}
+        for r, o in enumerate((b0, b1)):
+            if o["counts"] != want or o["mesh"] != [2, 1]:
+                raise AssertionError(
+                    f"phase 15 (b) rank {r}: mesh {o['mesh']}, launches "
+                    f"{o['counts']}, expected {want}")
+        if rank1 or sorted(os.listdir(b_exp)) != b_files:
+            raise AssertionError(f"phase 15 (b): rank 1 wrote {rank1}; rank "
+                                 f"0's artifacts {sorted(os.listdir(b_exp))}"
+                                 f" against one process's {b_files}")
+        log(f"[mp] (b) dp = 2, --data_mode direct, gloo, two ranks sharing "
+            f"one card (not a scaling figure): epoch metrics within "
+            f"{worst:.2e} of one process's (<= 1e-4), the ranks' params "
+            f"bit-equal, max |param - one process's| {dmax:.3e}; {micros} "
+            f"micros of 256 rows a rank, launches a rank "
+            f"{ {k: v for k, v in b0['counts'].items() if v} }; "
+            f"rank 1 wrote nothing, rank 0 the one-process run's "
+            f"{len(b_files)} files; cli.main {b0['wall']:.2f} s (one "
+            f"process {b_wall:.2f} s); gradient all-reduce over gloo "
+            f"{b0['ar_ms']:.3f} ms a step [{card}]")
+
+        # (c): tp = 2 against tp = 1 on the plain route, f32
+        worst = max(mp_hold_epochs("phase 15 (c) rank %d" % r, o["epochs"],
+                                   c_ref, 2e-5, cols=[0])
+                    for r, o in enumerate((c0, c1)))
+        if c0["digests"] != c1["digests"] or c0["mesh"] != [1, 2]:
+            raise AssertionError("phase 15 (c): the tp ranks' gathered "
+                                 "parameters differ")
+        if any(c0["counts"].values()) or any(c1["counts"].values()):
+            raise AssertionError(f"phase 15 (c): a kernel launched under "
+                                 f"tp = 2: {c0['counts']}")
+        log(f"[mp] (c) tp = 2 (plain route, f32), gloo, two ranks sharing "
+            f"one card (not a scaling figure): losses within {worst:.2e} of "
+            f"tp = 1's (<= 2e-5); no kernel launched; cli.main "
+            f"{c0['wall']:.2f} s (tp = 1: {c_wall:.2f} s); one tp "
+            f"all-reduce of 8192 x {H} f32 over gloo {c0['ar_ms']:.3f} ms "
+            f"[{card}]")
+        for split, m in c0["epochs"]:
+            log(f"[mp] (c) {split}: tp = 2 loss {m[0]:.6f} F1 {m[3]:.2f}; "
+                f"tp = 1 {dict(c_ref)[split][0]:.6f} / "
+                f"{dict(c_ref)[split][3]:.2f}")
+
+        # (d): two ranks over NCCL, one a card
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            t0 = time.perf_counter()
+            d0, d1 = [o["d"] for o in mp_ranks(
+                os.path.join(tmp, "nccl"), 2, "nccl",
+                [("d", argv(MP_DIRECT, "d2"))], {})]
+            wall["d"] = time.perf_counter() - t0
+            worst = max(mp_hold_epochs("phase 15 (d)", o["epochs"], b_ref,
+                                       1e-4) for o in (d0, d1))
+            if d0["digests"] != d1["digests"]:
+                raise AssertionError("phase 15 (d): the ranks' parameters "
+                                     "differ")
+            log(f"[mp] (d) dp = 2 direct over NCCL on {n_cards} cards: epoch "
+                f"metrics within {worst:.2e} of one process's; cli.main "
+                f"{d0['wall']:.2f} s; gradient all-reduce {d0['ar_ms']:.3f} "
+                f"ms a step [{card}]")
+        else:
+            log(f"[mp] (d) not run: NCCL refuses two ranks on one device, "
+                f"and this machine's card count is {n_cards}")
+    log(f"[mp] wall s {({k: round(v, 2) for k, v in wall.items()})} "
+        f"[{card}]")
+    return counts
+
+
 def _cpu_tree(t):
     if isinstance(t, dict):
         return {k: _cpu_tree(v) for k, v in t.items()}
@@ -4105,6 +4558,8 @@ def main() -> int:
         raise RuntimeError("CUDA is not available: chip_smoke.py runs the "
                            "port on an NVIDIA GPU and nowhere else")
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--mp-rank"]:      # one rank of phase 15
+        return mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     from nbest_asr_tpu_torch.ops import _cuda
 
     dev = torch.device("cuda", 0)
@@ -4184,6 +4639,7 @@ def main() -> int:
                            t_times, rig, "fused_rows", beside=bf16_ms)
     l_counts = timed("cli", phase_cli, dev, card)
     p_counts = timed("pretrained", phase_pretrained, dev, card)
+    m_counts = timed("multiprocess", phase_multiprocess, dev, card, rig)
     log(f"[time] wall s by phase {phase_s}; from the build's start "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -4204,7 +4660,7 @@ def main() -> int:
     for name in _cuda.KERNELS:
         launches = (counts[name] + t_counts[name] + i_counts[name]
                     + a_counts[name] + b_counts[name] + c_counts[name]
-                    + l_counts[name] + p_counts[name])
+                    + l_counts[name] + p_counts[name] + m_counts[name])
         if name in s_bounds:        # a serving layer's launches
             row(name, name, launches, *times[(name, BUCKETS[-1])],
                 *s_bounds[name])
@@ -4225,7 +4681,9 @@ def main() -> int:
         "use_fused_gelu, use_fused_embedding) training main-path runs "
         "and the CLI's two epochs, and the pretrained phase's runs (MLM "
         "steps, the fine-tune's two epochs, the RoBERTa and XLM-R "
-        "Predictors' requests, the XLM-R Trainer's steps) together, the "
+        "Predictors' requests, the XLM-R Trainer's steps), and the "
+        "multi-process phase's runs in this process (the one-rank NCCL "
+        "mesh's steps, the one-process direct-mode epoch) together, the "
         "[train] rows the int8 "
         "training runs alone; "
         "ms / plain_ms / library_ms / bound_ms: one encoder layer's "

@@ -7,7 +7,22 @@ layout under the experiment directory as the JAX package's CLI.  It runs
 on the card: ``--deviceId -1`` (the default) is ``cuda:0``, ``--deviceId
 N`` is ``cuda:N``.  The CPU is reached only when a caller passes
 ``device="cpu"`` to ``main``, as the tests do; without CUDA and without
-that, ``main`` raises rather than train on the CPU.  Refused flags
+that, ``main`` raises rather than train on the CPU.
+
+Several processes train one model under torchrun::
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m nbest_asr_tpu_torch.cli ... --n_model_parallel T \
+        [--data_mode direct]
+
+With ``WORLD_SIZE`` > 1 each rank runs on ``cuda:<LOCAL_RANK>`` (unless
+the caller passes ``device=``) and joins the process group
+(``parallel/mesh.init_distributed``: NCCL on the card, gloo on the CPU;
+nothing falls back to one process), which ``main`` destroys on its way
+out, after an error too; a caller that set up its own group first keeps
+it.  The ranks form the mesh of N / T data-parallel by T tensor-parallel
+ranks; a world size that T does not divide returns 2.  Rank 0 alone
+writes the experiment directory and prints the metric lines.  Refused flags
 (``config.unsupported``) return 2 with their message.  The tokenizer
 comes from ``data/tokenizer.load_tokenizer``, as at
 ``nbest_asr_tpu/cli.py:121-127``: a pretrained checkpoint's when one is
@@ -24,12 +39,14 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import RunOptions, parse_arguments, unsupported
 from .data.dataset import read_sep_data
 from .data.input_builder import pack_split
 from .data.tokenizer import load_tokenizer
 from .data.vocab import Memory
+from .parallel.mesh import init_distributed, is_coordinator, world_size
 
 
 def resolve_memory(opt: RunOptions) -> Memory:
@@ -74,14 +91,17 @@ def prepare_packed_splits(opt: RunOptions, memory: Memory, tokenizer):
 
 
 def resolve_device(opt: RunOptions, device=None) -> torch.device:
-    """``device`` when the caller gives one; else ``cuda:<deviceId>``
-    (-1: ``cuda:0``), which must exist."""
+    """``device`` when the caller gives one; else ``cuda:<LOCAL_RANK>``
+    under torchrun with more than one rank, else ``cuda:<deviceId>`` (-1:
+    ``cuda:0``), which must exist."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the port's CLI trains on "
                            "an NVIDIA GPU (pass device='cpu' to main() to "
                            "run on the CPU)")
+    if world_size() > 1 and "LOCAL_RANK" in os.environ:
+        return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return torch.device("cuda", max(opt.deviceId, 0))
 
 
@@ -92,8 +112,21 @@ def main(argv=None, *, device=None) -> int:
         for msg in refused:
             print(f"error: {msg}", file=sys.stderr)
         return 2
+    world = world_size()
+    if opt.n_model_parallel < 1 or world % opt.n_model_parallel:
+        print(f"error: --n_model_parallel {opt.n_model_parallel} does not "
+              f"divide the world size {world}", file=sys.stderr)
+        return 2
     dev = resolve_device(opt, device)
+    owned = world > 1 and init_distributed(dev)
+    try:
+        return _run(opt, dev)
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
+
+def _run(opt: RunOptions, dev: torch.device) -> int:
     # global seeding (ref :128-133)
     random.seed(opt.random_seed)
     np.random.seed(opt.random_seed)
@@ -129,7 +162,8 @@ def main(argv=None, *, device=None) -> int:
         from .ops import _cuda
 
         _cuda.lib()         # build now: raises if nvcc or a build fails
-    os.makedirs(opt.exp_dir, exist_ok=True)
+    if is_coordinator():
+        os.makedirs(opt.exp_dir, exist_ok=True)
     trainer = Trainer(opt, memory, cfg, params, splits,
                       family=opt.pre_trained_model, device=dev)
 
@@ -146,7 +180,8 @@ def main(argv=None, *, device=None) -> int:
                  if not p.endswith(".meta.json")),
                 key=os.path.getmtime)
             if ckpts:
-                print(f"resuming from {ckpts[-1]}")
+                if is_coordinator():
+                    print(f"resuming from {ckpts[-1]}")
                 trainer.load_checkpoint(ckpts[-1])
         elif opt.resume:
             trainer.load_checkpoint(opt.resume)

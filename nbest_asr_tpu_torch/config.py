@@ -27,12 +27,14 @@ Every flag falls into one of three groups on the port:
   ``--require_pretrained`` turns a checkpoint or tokenizer that fails to
   load into an error (return code 2) instead of JAX's warning and
   from-scratch run.
+  ``--n_model_parallel T`` and ``--data_mode index|direct`` run the
+  process mesh of ``parallel/mesh.py`` under torchrun (``cli.py``): T
+  must divide the world size.
 - **Refused** (``unsupported`` names them; the CLI returns 2 with the
   message), each until the ROADMAP queue-1 item that brings it:
-  ``--n_model_parallel`` > 1 and ``--data_mode direct`` (item 5,
-  multi-process), ``--profile_dir`` (item 6, the tools), and ``--remat``,
-  which the port neither maps to activation checkpointing nor ignores
-  (queued beside item 1's "map or refuse").
+  ``--profile_dir`` (item 6, the tools), and ``--remat``, which the port
+  neither maps to activation checkpointing nor ignores (queued beside
+  item 1's "map or refuse").
 - **Accepted and inert**, because the flag only steers TPU machinery:
   ``--prng_impl`` picks JAX's PRNG for dropout masks; the port's masks
   are Philox, keyed on a seed drawn from a ``torch.Generator``.
@@ -173,13 +175,6 @@ def unsupported(opt: RunOptions) -> List[str]:
     """The refused flags that ``opt`` sets, each with the ROADMAP item
     that brings it (module docstring); empty when the port runs ``opt``."""
     out = []
-    if opt.n_model_parallel > 1:
-        out.append("--n_model_parallel > 1 is not supported by the port "
-                   "yet: multi-process runs come with ROADMAP queue 1 "
-                   "item 5")
-    if opt.data_mode == "direct":
-        out.append("--data_mode direct is not supported by the port yet: "
-                   "multi-process runs come with ROADMAP queue 1 item 5")
     if opt.profile_dir:
         out.append("--profile_dir is not supported by the port yet: the "
                    "profiling tools come with ROADMAP queue 1 item 6")
@@ -320,7 +315,9 @@ def parse_arguments(argv=None) -> RunOptions:
                    help="max utterances per packed row")
     p.add_argument("--data_mode", default=d.data_mode,
                    choices=["index", "direct"],
-                   help="'direct' is refused by the port (ROADMAP)")
+                   help="direct = per-process data sharding "
+                   "(parallel/process_data.py); index = every rank holds "
+                   "the split (default)")
     p.add_argument("--checkpoint_every", type=int, default=0)
     p.add_argument("--resume", default=None)
     p.add_argument("--profile_dir", default=None)

@@ -85,7 +85,7 @@ import torch
 from ..ops.attention import flash_routes, multi_head_attention
 from ..ops.kernels import FLASH_HEAD_DIMS, HEAD_DIMS
 from ..ops.layers import (acc_dtype, dense, dropout, gelu, layer_norm,
-                          take_rows)
+                          take_rows, take_rows_shard)
 from ..ops.philox import fold_in, generator
 from ..ops.quant import dense_int8, is_quantized
 
@@ -211,16 +211,21 @@ def init_encoder_params(gen: torch.Generator, cfg: EncoderConfig) -> dict:
 def _embed(params: dict, input_ids: torch.Tensor,
            token_type_ids: Optional[torch.Tensor], cfg: EncoderConfig,
            position_ids: Optional[torch.Tensor] = None,
-           seed: Optional[int] = None) -> torch.Tensor:
+           seed: Optional[int] = None, mesh=None) -> torch.Tensor:
     """Word + position + token-type embeddings, LayerNorm, dropout in
     training (``seed`` set), cast to the compute dtype.  ``position_ids``
     (b, s) overrides the iota positions (example packing restarts them
     per segment); without them ``use_fused_embedding`` runs the fused
-    lookup."""
+    lookup.  Under tensor parallelism (``mesh``) the word rows come from
+    the vocab-parallel table."""
     emb = params["embeddings"]
     s = input_ids.shape[1]
     has_types = token_type_ids is not None and cfg.type_vocab_size > 0
-    if cfg.use_fused_embedding and position_ids is None:
+    if mesh is not None:
+        x = _embed_plain(emb, input_ids.long(),
+                         token_type_ids if has_types else None, cfg,
+                         position_ids, mesh)
+    elif cfg.use_fused_embedding and position_ids is None:
         from ..ops.fused_embed import fused_embed_lookup
 
         # JAX's dynamic_slice_in_dim clamps the start so the slice fits
@@ -241,9 +246,18 @@ def _embed(params: dict, input_ids: torch.Tensor,
 
 def _embed_plain(emb: dict, ids: torch.Tensor,
                  token_type_ids: Optional[torch.Tensor], cfg: EncoderConfig,
-                 position_ids: Optional[torch.Tensor]) -> torch.Tensor:
+                 position_ids: Optional[torch.Tensor],
+                 mesh=None) -> torch.Tensor:
     s = ids.shape[1]
-    x = take_rows(emb["word"], ids)
+    if mesh is None:
+        x = take_rows(emb["word"], ids)
+    else:
+        from ..parallel.mesh import reduce_from_tp
+
+        shard = emb["word"]
+        x = reduce_from_tp(take_rows_shard(
+            shard, ids, cfg.vocab_size, mesh.tp_rank * shard.shape[0]),
+            mesh)
     if position_ids is None:
         pos = torch.arange(s, device=ids.device) + cfg.position_offset
         x = x + take_rows(emb["position"], pos)[None, :, :]
@@ -349,28 +363,110 @@ def _layer_slice(leaf, layer: int):
     return leaf[layer]
 
 
+def _tp_row_dense(x: torch.Tensor, kernel: torch.Tensor,
+                  bias: torch.Tensor, cdt: torch.dtype, mesh
+                  ) -> torch.Tensor:
+    """``dense`` of a row-parallel kernel shard: the partial product in
+    f32, one ``all_reduce`` over tp, then the bias, added once after the
+    sum (not on every rank), and one rounding to the compute dtype."""
+    from ..parallel.mesh import reduce_from_tp
+
+    acc = acc_dtype(cdt)
+    y = reduce_from_tp(torch.matmul(x.to(acc), kernel.to(cdt).to(acc)),
+                       mesh)
+    return (y + bias.to(acc)).to(cdt)
+
+
+def _tp_layer(x: torch.Tensor, p: dict, attn_mask: torch.Tensor,
+              cfg: EncoderConfig, mesh, lseed: Optional[int]
+              ) -> torch.Tensor:
+    """One layer on the plain route under tensor parallelism
+    (``parallel/mesh.py``): column-parallel QKV on this rank's heads and
+    W1 on its columns, row-parallel out-proj and W2.  Dropout: the
+    replicated sites (attention out-proj, FFN output) draw the same mask
+    on every tp rank; the attention probs, sharded by head, fold the
+    rank's first global head into their seed."""
+    from ..parallel.mesh import copy_to_tp
+
+    b, s, _ = x.shape
+    cdt, T = cfg.cdtype, mesh.tp_size
+    nhl, hd = cfg.num_heads // T, cfg.head_dim
+    hl = nhl * hd
+    train = lseed is not None
+    rate = cfg.hidden_dropout if train else 0.0
+
+    def gen(*site):
+        return generator(fold_in(lseed, *site), x.device) if train else None
+
+    qkv = dense(copy_to_tp(x, mesh), p["qkv_kernel"].to(cdt), p["qkv_bias"])
+    q, k, v = qkv.split(hl, dim=-1)
+    ctx = multi_head_attention(
+        q.reshape(b, s, nhl, hd), k.reshape(b, s, nhl, hd),
+        v.reshape(b, s, nhl, hd), attn_mask, dropout_rate=cfg.attn_dropout,
+        gen=gen(1, mesh.tp_rank * nhl), deterministic=not train
+    ).reshape(b, s, hl)
+    ctx = _tp_row_dense(ctx, p["attn_out_kernel"], p["attn_out_bias"], cdt,
+                        mesh)
+    if train:
+        ctx = dropout(ctx, rate, gen(2))
+    x = layer_norm(x + ctx, p["attn_ln_scale"], p["attn_ln_bias"],
+                   cfg.layer_norm_eps)
+    y = gelu(dense(copy_to_tp(x, mesh), p["ffn_in_kernel"].to(cdt),
+                   p["ffn_in_bias"]))
+    y = _tp_row_dense(y, p["ffn_out_kernel"], p["ffn_out_bias"], cdt, mesh)
+    if train:
+        y = dropout(y, rate, gen(3))
+    return layer_norm(x + y, p["ffn_ln_scale"], p["ffn_ln_bias"],
+                      cfg.layer_norm_eps)
+
+
 def encoder_forward(params: dict, input_ids: torch.Tensor,
                     attn_mask: torch.Tensor,
                     token_type_ids: Optional[torch.Tensor],
                     cfg: EncoderConfig, *, deterministic: bool = True,
                     seed: Optional[int] = None,
-                    position_ids: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    position_ids: Optional[torch.Tensor] = None,
+                    mesh=None) -> torch.Tensor:
     """Returns the final hidden states (b, s, h) in the compute dtype.
     ``attn_mask`` has SEGMENT semantics (see ``ops/attention.py``).
-    ``deterministic=False`` trains: dropout on, keyed on ``seed``."""
+    ``deterministic=False`` trains: dropout on, keyed on ``seed``.
+
+    ``mesh`` (``parallel/mesh.py``) with tp > 1 takes ``params`` as this
+    rank's shards and runs every layer on the plain route with the
+    Megatron pairing (``_tp_layer``), and the embeddings on the
+    vocab-parallel table: no hand kernel runs, whatever the kernel flags
+    say (ROADMAP queue 1 item 5: they stay off until a sharded kernel
+    test exists)."""
     train = not deterministic
+    if train and seed is None:
+        raise ValueError("encoder_forward: deterministic=False requires "
+                         "a seed")
+    lp = params["layers"]
+    if mesh is not None and mesh.tp_size > 1:
+        T = mesh.tp_size
+        if cfg.num_heads % T or cfg.intermediate_size % T:
+            raise ValueError(
+                f"tensor parallelism {T} needs num_heads "
+                f"({cfg.num_heads}) and intermediate_size "
+                f"({cfg.intermediate_size}) divisible by it")
+        if any(is_quantized(v) for v in lp.values()):
+            raise NotImplementedError("int8-quantized leaves under tensor "
+                                      "parallelism")
+        x = _embed(params, input_ids, token_type_ids, cfg,
+                   position_ids=position_ids, seed=seed if train else None,
+                   mesh=mesh)
+        for layer in range(cfg.num_layers):
+            x = _tp_layer(x, {k: v[layer] for k, v in lp.items()},
+                          attn_mask, cfg, mesh,
+                          fold_in(seed, layer) if train else None)
+        return x
     if train:
-        if seed is None:
-            raise ValueError("encoder_forward: deterministic=False requires "
-                             "a seed")
         _refuse_unported_training(cfg, *input_ids.shape)
     x = _embed(params, input_ids, token_type_ids, cfg,
                position_ids=position_ids, seed=seed if train else None)
     b, s, h = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     cdt = cfg.cdtype
-    lp = params["layers"]
     if train:
         attn_route = None
         if attn_train_routes(cfg, s):

@@ -65,8 +65,8 @@ def model_forward(params: dict, cfg: ModelConfig,
                   position_ids: Optional[torch.Tensor] = None,
                   trans_position_ids: Optional[torch.Tensor] = None,
                   cls_positions: Optional[torch.Tensor] = None,
-                  trans_cls_positions: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                  trans_cls_positions: Optional[torch.Tensor] = None,
+                  mesh=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor, Optional[torch.Tensor]]:
     """-> (top_scores, bottom_probs, final_scores, asr_cls, trans_cls);
     trans_cls is None without the transcript stream.
@@ -74,7 +74,8 @@ def model_forward(params: dict, cfg: ModelConfig,
     EXAMPLE PACKING: ``cls_positions`` (b, n_seg) holds each packed
     segment's [CLS] offset; the per-segment CLS vectors are gathered and
     flattened to (b * n_seg, h), one row per utterance.  Without it the
-    CLS vector is position 0 of each row."""
+    CLS vector is position 0 of each row.  ``mesh`` runs the encoder
+    tensor-parallel (``encoder_forward``); the head is replicated."""
     if not deterministic and seed is None:
         raise ValueError("model_forward: deterministic=False requires a "
                          "seed")
@@ -84,7 +85,7 @@ def model_forward(params: dict, cfg: ModelConfig,
     seq = encoder_forward(params["encoder"], input_ids, attn_mask,
                           token_type_ids, cfg.encoder,
                           deterministic=deterministic, seed=r_asr,
-                          position_ids=position_ids)
+                          position_ids=position_ids, mesh=mesh)
     asr_cls = _take_cls(seq, cls_positions)
     trans_cls = None
     if trans_input_ids is not None:
@@ -92,7 +93,7 @@ def model_forward(params: dict, cfg: ModelConfig,
                                trans_attn_mask, trans_token_type_ids,
                                cfg.encoder, deterministic=deterministic,
                                seed=r_trans,
-                               position_ids=trans_position_ids)
+                               position_ids=trans_position_ids, mesh=mesh)
         trans_cls = _take_cls(tseq, trans_cls_positions)
     feats = trans_cls if (classifier_input_type == "transcript"
                           and trans_cls is not None) else asr_cls

@@ -105,18 +105,22 @@ def scatter_rows(n: int, rows_idx: torch.Tensor, inside: torch.Tensor,
 
 
 class _TakeRows(torch.autograd.Function):
-    """XLA's gather and its transpose: the forward reads the clamped rows,
-    the backward is ``scatter_rows``."""
+    """XLA's gather and its transpose: the forward reads the clamped rows
+    (zero rows where ``read`` is given and false), the backward is
+    ``scatter_rows``."""
 
     @staticmethod
-    def forward(ctx, table, rows_idx, inside):
+    def forward(ctx, table, rows_idx, inside, read=None):
         ctx.save_for_backward(rows_idx, inside)
         ctx.n = table.shape[0]
-        return table[rows_idx]
+        rows = table[rows_idx]
+        if read is not None:
+            rows = torch.where(read[..., None], rows, rows.new_zeros(()))
+        return rows
 
     @staticmethod
     def backward(ctx, g):
-        return scatter_rows(ctx.n, *ctx.saved_tensors, g), None, None
+        return scatter_rows(ctx.n, *ctx.saved_tensors, g), None, None, None
 
 
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -126,3 +130,18 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     -- reads the nearest row where torch would raise, and trains
     nothing."""
     return _TakeRows.apply(table, *gather_index(idx, table.shape[0]))
+
+
+def take_rows_shard(shard: torch.Tensor, idx: torch.Tensor, n: int,
+                    lo: int) -> torch.Tensor:
+    """This rank's part of ``take_rows`` of a table of n rows of which
+    ``shard`` holds rows [lo, lo + len(shard)) (the vocab-parallel word
+    table, ``parallel/mesh.py``): the rows the shard holds, zero rows for
+    the others, so that the sum over the shards is ``take_rows``' result;
+    the backward keeps the gradient of in-range ids in this shard
+    alone."""
+    rows_idx, inside = gather_index(idx, n)
+    local = rows_idx - lo
+    mine = (local >= 0) & (local < shard.shape[0])
+    return _TakeRows.apply(shard, torch.where(mine, local, 0),
+                           inside & mine, mine)

@@ -1,7 +1,7 @@
-"""Training and eval on one device: the epoch loop, checkpoints,
-dumps and logs -- the port of ``nbest_asr_tpu/train/loop.py``
-(``_host_data`` :66, ``_Bucket`` / ``_make_buckets`` :91-118,
-``_epoch_step_indices`` :121, ``EpochMetrics`` :142, ``Trainer`` :150,
+"""Training and eval: the epoch loop, checkpoints, dumps and logs -- the
+port of ``nbest_asr_tpu/train/loop.py`` (``_host_data`` :66,
+``_Bucket`` / ``_make_buckets`` :91-118, ``_epoch_step_indices`` :121,
+``EpochMetrics`` :142, ``Trainer`` :150, the direct epoch :405-420,
 ``build_model`` :795).
 
 As in the JAX package:
@@ -21,11 +21,32 @@ accuracy from the host's string metrics.  The train mean loss divides by
 the fixed micro-batch size times the micros run (by the utterance count
 for packed epochs), the eval mean loss by the real utterance count.
 
+Over a process mesh (``parallel/mesh.py``; ``Trainer(..., mesh=...)``,
+by default ``make_mesh(n_model=opt.n_model_parallel)`` over the process
+group, one rank without one) every rank runs the same epoch loop:
+
+- ``--data_mode index``: every rank holds every split, and the train step
+  takes its dp rows of each global micro.  This is JAX's single-controller
+  index mode, which the port runs at any world size; JAX refuses it with
+  more than one process only because there a process is a host that
+  cannot hold the whole split on its devices.
+- ``--data_mode direct``: each dp rank trains on its strided shard of
+  the train split (``parallel/process_data.ProcessTrainShard``), whose
+  plan with one process is index mode's; the eval splits stay on the
+  index path.  ``--pack_examples`` keeps JAX's refusal there.
+- Rank 0 alone writes (``parallel/mesh.is_coordinator``, JAX's
+  ``_is_coordinator`` :56: several ranks would write the same paths):
+  the dumps, the observability CSVs and reports, ``config.json``,
+  ``best.json``, the log and the checkpoints.  A checkpoint holds the
+  gathered full tree (``gather_params``) and its optimizer moments, in
+  the one-device format, so a tp = 2 checkpoint resumes at tp = 1 and
+  loads in ``serve.load_predictor``; resume reads the full tree and
+  shards it, and takes rank 0's dropout and shuffle states.
+
 What the port does differently:
 
-- one device, one process: no mesh, no replicated global arrays, no
-  direct data mode (``config.unsupported`` refuses ``--data_mode
-  direct`` and ``--n_model_parallel``);
+- no replicated global arrays: each rank computes on its own rows and
+  the step sums gradients and statistics over the dp group;
 - no step chaining: ``run_train_epoch`` builds JAX's plan list with the
   same ``RandomState`` draws, chains of ``steps_per_call`` steps
   included, and runs a chain as its steps in order, so at dropout 0 the
@@ -56,6 +77,8 @@ from ..data.input_builder import PackedSplit
 from ..data.vocab import Memory
 from ..models.heads import hierarchy_device_arrays, init_head_params
 from ..models.model import ModelConfig, init_model_params
+from ..parallel.mesh import (gather_params, is_coordinator, make_mesh,
+                             shard_params)
 from ..parallel.train_step import (TrainState, make_eval_step,
                                    make_train_step)
 from ..train.losses import LossConfig
@@ -63,6 +86,18 @@ from ..train.metrics import compute_f1, host_eval_metrics
 from ..train.optimizer import OptimizerConfig, make_optimizer, tree_map
 from ..utils.logging import make_logger
 from ..utils.observability import EpochInfo, observability_lens
+
+
+def _silent_logger():
+    """The logger of a rank that is not the coordinator: it writes and
+    prints nothing."""
+    import logging
+
+    logger = logging.getLogger("nbest_asr_tpu_torch.rank")
+    logger.propagate = False
+    if not logger.handlers:
+        logger.addHandler(logging.NullHandler())
+    return logger
 
 
 def _host_data(packed: PackedSplit, *, use_asr_segments: bool,
@@ -154,21 +189,24 @@ def _tree_to(tree, device):
     return tree
 
 
-def _state_dict(state) -> dict:
+def _state_dict(state, full=lambda t: t) -> dict:
     """An optimizer state (a NamedTuple of ints and tensor trees) as plain
-    dicts on the CPU, which ``torch.load(weights_only=True)`` reads back."""
-    return {k: _tree_to(v, "cpu") for k, v in state._asdict().items()}
+    dicts on the CPU, which ``torch.load(weights_only=True)`` reads back;
+    ``full`` maps each tree first (the gather of a sharded one)."""
+    return {k: _tree_to(full(v) if isinstance(v, dict) else v, "cpu")
+            for k, v in state._asdict().items()}
 
 
 class Trainer:
     """Owns the train and eval steps, the device data, the optimizer
     state and the epoch loop, on ``device`` (default: the device of
-    ``params``)."""
+    ``params``), on this rank of ``mesh``.  ``params`` is the full tree;
+    under tensor parallelism the Trainer keeps this rank's shards."""
 
     def __init__(self, opt: RunOptions, memory: Memory,
                  model_cfg: ModelConfig, params: dict,
                  packed: Dict[str, PackedSplit], logger=None,
-                 family: Optional[str] = None, device=None):
+                 family: Optional[str] = None, device=None, mesh=None):
         self.opt = opt
         self.memory = memory
         self.cfg = model_cfg
@@ -176,6 +214,8 @@ class Trainer:
         self.family = family or (opt.pre_trained_model or "bert")
         self.device = torch.device(device) if device is not None else \
             params["head"][next(iter(params["head"]))].device
+        self.mesh = mesh if mesh is not None else make_mesh(
+            n_model=opt.n_model_parallel)
         self.logger = logger
         self.hier = hierarchy_device_arrays(memory.arrays(), self.device)
 
@@ -193,12 +233,26 @@ class Trainer:
         if opt.length_buckets:
             bucket_lens = sorted(
                 int(x) for x in opt.length_buckets.split(",") if x)
+        # --data_mode direct: each dp rank trains on its shard of the
+        # train split; the eval splits stay on the index path
+        self.direct_data = opt.data_mode == "direct"
+        self._shard = None
         # example packing (train only; data/packing.py): several
         # utterances per fixed-shape row, one packed "bucket"
         self._packed_train = bool(opt.pack_examples) and "train" in self.data
+        if self._packed_train and self.direct_data:
+            raise ValueError("--pack_examples is an index-mode feature; "
+                             "--data_mode direct packs per process shard "
+                             "(not implemented)")
         self.buckets: Dict[str, List[_Bucket]] = {}
         for name, d in self.data.items():
-            if name == "train" and self._packed_train:
+            if self.direct_data and name == "train":
+                from ..parallel.process_data import ProcessTrainShard
+
+                self._shard = ProcessTrainShard(
+                    d, bucket_lens, process_index=self.mesh.dp_rank,
+                    process_count=self.mesh.dp_size)
+            elif name == "train" and self._packed_train:
                 from ..data.packing import pack_train_data
 
                 pk, bins = pack_train_data(d, opt.pack_capacity,
@@ -242,20 +296,21 @@ class Trainer:
             max_grad_norm=1.0 if opt.optim_choice == "bertadam"
             else opt.max_norm,
             l2=opt.l2, freeze_encoder=opt.fix_bert_model)
-        self.optimizer = make_optimizer(self.opt_cfg, params)
+        params = _tree_to(shard_params(params, self.mesh), self.device)
+        self.optimizer = make_optimizer(self.opt_cfg, params, self.mesh)
 
         # the transcript stream feeds only the optional MSE alignment term
         # (ref :166-170): without --add_l2_loss its pass is skipped
         self.train_step = make_train_step(
             model_cfg, LossConfig(add_l2_loss=opt.add_l2_loss),
             self.optimizer, self.hier, n_accum=opt.n_accum_steps,
-            dual_stream=bool(opt.add_l2_loss))
+            dual_stream=bool(opt.add_l2_loss), mesh=self.mesh,
+            data_mode=opt.data_mode)
         self.steps_per_call = max(1, opt.steps_per_call)
         self.eval_step = make_eval_step(
             model_cfg, LossConfig(add_l2_loss=opt.add_l2_loss), self.hier,
-            dual_stream=False)
+            dual_stream=False, mesh=self.mesh)
 
-        params = _tree_to(params, self.device)
         self.state = TrainState(params=params,
                                 opt_state=self.optimizer.init(params),
                                 step=0)
@@ -277,14 +332,7 @@ class Trainer:
         # globally; a chain runs here as its K steps in order
         plans = []  # ("chain"|"single", bucket, idx)
         n_rows_total = 0
-        for bucket in self.buckets["train"]:
-            micro_b = self._bucket_micro_batch(bucket)
-            perm = self._shuffle_rng.permutation(len(bucket))
-            try:
-                idx = _epoch_step_indices(len(bucket), micro_b,
-                                          opt.n_accum_steps, perm)
-            except ValueError:
-                continue  # bucket smaller than one accumulation group
+        for bucket, micro_b, idx in self._bucket_step_indices():
             n_steps = idx.shape[0]
             n_rows_total += n_steps * opt.n_accum_steps * micro_b
             n_chains = n_steps // K if K > 1 else 0
@@ -297,13 +345,40 @@ class Trainer:
         stats_acc = None
         for kind, bucket, idx_s in plans:
             for idx in (idx_s if kind == "chain" else (idx_s,)):
-                self.state, stats = self.train_step(
-                    self.state, bucket.data,
-                    torch.from_numpy(idx).to(self.device), self._gen)
+                if self.direct_data:    # this rank's rows, then no idx
+                    data, idx = _to_device(
+                        self._shard.local_batch(bucket, idx),
+                        self.device), None
+                else:
+                    data, idx = bucket.data, torch.from_numpy(idx).to(
+                        self.device)
+                self.state, stats = self.train_step(self.state, data, idx,
+                                                    self._gen)
                 stats_acc = stats if stats_acc is None else tree_map(
                     torch.add, stats_acc, stats)
         return self._metrics_from_counts(
             stats_acc, None if self._packed_train else n_rows_total)
+
+    def _bucket_step_indices(self):
+        """[(bucket, micro_b, (n_steps, n_accum, b) indices)] of one
+        epoch, one shuffle permutation drawn per bucket: the index path's
+        buckets and global rows, or in direct mode the shard's bucket ids
+        and this rank's rows (``ProcessTrainShard.epoch_plan``, which
+        draws as the index path does)."""
+        n_accum = self.opt.n_accum_steps
+        if self.direct_data:
+            return self._shard.epoch_plan(
+                self._shuffle_rng, self._micro_batch_for_len, n_accum)
+        out = []
+        for bucket in self.buckets["train"]:
+            micro_b = self._bucket_micro_batch(bucket)
+            perm = self._shuffle_rng.permutation(len(bucket))
+            try:
+                out.append((bucket, micro_b, _epoch_step_indices(
+                    len(bucket), micro_b, n_accum, perm)))
+            except ValueError:
+                continue  # bucket smaller than one accumulation group
+        return out
 
     def _micro_batch_for_len(self, blen: int) -> int:
         """Micro-batch for one bucket length: the parity batch by default;
@@ -322,6 +397,9 @@ class Trainer:
     def _train_steps_per_epoch(self) -> int:
         """Optimizer steps one train epoch will take (independent of the
         shuffle: permutations change row order, never counts)."""
+        if self._shard is not None:
+            return self._shard.steps_per_epoch(self._micro_batch_for_len,
+                                               self.opt.n_accum_steps)
         steps = 0
         for bucket in self.buckets.get("train", []):
             micro_b = self._bucket_micro_batch(bucket)
@@ -374,7 +452,7 @@ class Trainer:
         info = EpochInfo(raw_inputs, pred_strings, golds, matches,
                          mean_loss, p, r, f, acc)
 
-        if dump_prefix is not None:
+        if dump_prefix is not None and is_coordinator():
             self._write_dumps(dump_prefix, packed, pred_strings, golds)
 
         return EpochMetrics(mean_loss, p, r, f, acc), info
@@ -414,10 +492,19 @@ class Trainer:
         JSON sidecar with the epoch cursor, the best-metrics dict and both
         random states -- everything ``train()`` needs to continue a
         stopped run exactly where it stopped.  ``epoch`` is the NEXT epoch
-        to run on resume."""
+        to run on resume.  Every rank gathers the full trees (a
+        collective under tensor parallelism); the coordinator writes."""
         path = os.path.abspath(path)
-        torch.save({"params": _tree_to(self.state.params, "cpu"),
-                    "opt_state": _state_dict(self.state.opt_state),
+
+        def full(tree):
+            return gather_params(tree, self.mesh,
+                                 self.cfg.encoder.vocab_size)
+
+        params = _tree_to(full(self.state.params), "cpu")
+        opt_state = _state_dict(self.state.opt_state, full)
+        if not is_coordinator():
+            return
+        torch.save({"params": params, "opt_state": opt_state,
                     "step": int(self.state.step)}, path)
         mt = self._shuffle_rng.get_state()
         meta = {
@@ -431,16 +518,29 @@ class Trainer:
             json.dump(meta, fp)
 
     def load_checkpoint(self, path: str) -> None:
+        """Every rank reads the full trees and keeps its shards; the
+        sidecar's cursor and random states are rank 0's, broadcast."""
         path = os.path.abspath(path)
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        opt_state = type(self.state.opt_state)(
-            **_tree_to(ckpt["opt_state"], self.device))
-        self.state = TrainState(params=_tree_to(ckpt["params"], self.device),
+
+        def local(tree):
+            return _tree_to(shard_params(tree, self.mesh), self.device)
+
+        opt_state = type(self.state.opt_state)(**{
+            k: local(v) if isinstance(v, dict) else v
+            for k, v in ckpt["opt_state"].items()})
+        self.state = TrainState(params=local(ckpt["params"]),
                                 opt_state=opt_state, step=int(ckpt["step"]))
         meta_path = path + ".meta.json"
-        if os.path.exists(meta_path):
+        meta = None
+        if is_coordinator() and os.path.exists(meta_path):
             with open(meta_path) as fp:
                 meta = json.load(fp)
+        if torch.distributed.is_initialized():
+            box = [meta]
+            torch.distributed.broadcast_object_list(box, src=0)
+            meta = box[0]
+        if meta is not None:
             if meta.get("epoch") is not None:
                 self._start_epoch = int(meta["epoch"])
             if meta.get("best") is not None:
@@ -464,13 +564,15 @@ class Trainer:
         as a SIGTERM would (checkpoint, then return) -- the resume tests'
         preemption."""
         opt = self.opt
-        os.makedirs(opt.exp_dir, exist_ok=True)
-        # full config snapshot: every knob is machine-readable per run
-        snap = {k: v for k, v in asdict(opt).items() if k != "ontology"}
-        with open(os.path.join(opt.exp_dir, "config.json"), "w") as fp:
-            json.dump(snap, fp, indent=1, default=str)
-        logger = self.logger or make_logger(
-            os.path.join(opt.exp_dir, "log.train"))
+        if is_coordinator():
+            os.makedirs(opt.exp_dir, exist_ok=True)
+            # full config snapshot: every knob is machine-readable per run
+            snap = {k: v for k, v in asdict(opt).items() if k != "ontology"}
+            with open(os.path.join(opt.exp_dir, "config.json"), "w") as fp:
+                json.dump(snap, fp, indent=1, default=str)
+        logger = self.logger or (make_logger(
+            os.path.join(opt.exp_dir, "log.train")) if is_coordinator()
+            else _silent_logger())
         logger.info("Training starts at %s" % time.asctime())
 
         # SIGTERM requests a checkpoint at the next epoch boundary; resume
@@ -542,7 +644,7 @@ class Trainer:
                 "(p/r/f): (%.2f/%.2f/%.2f)\tAcc: %.2f" %
                 (i, time.time() - t0, vm.mean_loss, vm.precision,
                  vm.recall, vm.f1, vm.acc))
-            if artifacts:
+            if artifacts and is_coordinator():
                 observability_lens(v_info, i, "valid", opt.exp_dir,
                                    csv_name)
 
@@ -558,7 +660,7 @@ class Trainer:
                     "(p/r/f): (%.2f/%.2f/%.2f)\tAcc: %.2f" %
                     (i, time.time() - t0, tem.mean_loss, tem.precision,
                      tem.recall, tem.f1, tem.acc))
-                if artifacts:
+                if artifacts and is_coordinator():
                     observability_lens(te_info, i, "test", opt.exp_dir,
                                        csv_name)
 
@@ -583,8 +685,9 @@ class Trainer:
             "test F1/Acc: %.2f/%.2f" %
             (best["epoch"], best["vf"], best["v_acc"], best["tef"],
              best["te_acc"]))
-        with open(os.path.join(opt.exp_dir, "best.json"), "w") as fp:
-            json.dump(best, fp)
+        if is_coordinator():
+            with open(os.path.join(opt.exp_dir, "best.json"), "w") as fp:
+                json.dump(best, fp)
         if prev_handler is not None:
             import signal
 
@@ -595,13 +698,14 @@ class Trainer:
         """``--testing``: loads the best checkpoint and evaluates every
         split."""
         opt = self.opt
-        logger = self.logger or make_logger(
-            os.path.join(opt.exp_dir, "log.test"))
+        logger = self.logger or (make_logger(
+            os.path.join(opt.exp_dir, "log.test")) if is_coordinator()
+            else _silent_logger())
         ckpt = os.path.join(opt.exp_dir, "model.ckpt")
         if os.path.exists(ckpt):
             self.load_checkpoint(ckpt)
         results = {}
-        for split in self.buckets:
+        for split in self.buckets:  # in direct mode train has no buckets
             t0 = time.time()
             m, _ = self.run_eval_epoch(
                 split, 0,

@@ -9,7 +9,7 @@
    (NONE), averaged over groups; multi-gold rows generalise as in JAX
    (``losses.py:16-25``);
 4. optional MSE (mean) between the ASR and transcript [CLS] vectors
-   (``add_l2_loss``).
+   (``add_l2_loss``), the one term that is not a sum over rows.
 
 The log terms clamp at -100 as torch's BCELoss does, and the clamp is
 gradient-safe: where it is active the log's input is replaced before the
@@ -57,11 +57,15 @@ def total_loss(top_scores: torch.Tensor, bottom_probs: torch.Tensor,
                hier: Dict[str, torch.Tensor], cfg: LossConfig,
                asr_cls: Optional[torch.Tensor] = None,
                trans_cls: Optional[torch.Tensor] = None,
-               example_mask: Optional[torch.Tensor] = None
+               example_mask: Optional[torch.Tensor] = None,
+               mse_rows: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (total, parts).  ``example_mask`` (b,) zeroes padding rows of
     fixed-shape batches.  Parts stay device scalars: the caller reads
-    them once per epoch, not once per step."""
+    them once per epoch, not once per step.  Every term but the MSE sums
+    over rows; ``mse_rows`` is the number of rows the MSE averages over
+    when this call sees only some of them (a data-parallel rank's rows of
+    a global micro), by default this call's real rows."""
     parts: Dict[str, torch.Tensor] = {}
     em = None if example_mask is None else example_mask.to(torch.float32)
 
@@ -103,6 +107,9 @@ def total_loss(top_scores: torch.Tensor, bottom_probs: torch.Tensor,
         diff = (asr_cls - trans_cls).to(acc)
         if em is not None:
             diff = diff * example_mask[:, None]
+        if mse_rows is not None:
+            denom = torch.clamp(mse_rows.to(acc), min=1.0) * diff.shape[1]
+        elif em is not None:
             denom = torch.clamp(em.sum(), min=1.0) * diff.shape[1]
         else:
             denom = diff.shape[0] * diff.shape[1]

@@ -14,6 +14,10 @@ as optax's, in plain torch (no ``torch.optim``).
   (eps 1e-8); ``adamw``: the clip, then HF AdamW(correct_bias=False) with
   a linear warmup / decay schedule.
 - ``freeze_encoder``: encoder gradients and updates are zeroed.
+- ``mesh`` (``parallel/mesh.py``): on a leaf that tensor parallelism
+  shards, each clip's squared norm is summed over the tp group before the
+  scale is taken (GSPMD does this sum in JAX), so tp = 2 clips by the
+  whole tensor's norm and not each shard by its own.
 
 The step count lives on the host as a Python int, so the schedule costs
 no device sync; the schedule arithmetic runs in float32 as JAX's does.
@@ -22,7 +26,7 @@ no device sync; the schedule arithmetic runs in float32 as JAX's does.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -162,15 +166,35 @@ class BertAdamState(NamedTuple):
     v: Tree
 
 
-def _clip_one(path: str, g: torch.Tensor, max_norm: float) -> torch.Tensor:
+def _tp_sums(params_template: Tree, mesh) -> Tree:
+    """Per leaf: the function that sums a partial squared norm over the
+    tp group where tp shards the leaf, else None."""
+    from ..parallel.mesh import is_tp_sharded
+
+    def one(path, x):
+        if not is_tp_sharded(path, mesh):
+            return None
+
+        def tp_sum(sq):
+            torch.distributed.all_reduce(sq, group=mesh.tp_group)
+            return sq
+        return tp_sum
+
+    return tree_map_with_path(one, params_template)
+
+
+def _clip_one(path: str, g: torch.Tensor, max_norm: float,
+              tp_sum: Optional[Callable] = None) -> torch.Tensor:
     """Per-reference-tensor clip: per layer of a stacked leaf, per q/k/v
-    third of the fused QKV leaves, whole otherwise (optimizer.py:162)."""
+    third of the fused QKV leaves, whole otherwise (optimizer.py:162);
+    ``tp_sum`` completes a sharded leaf's squared norms."""
     if max_norm <= 0:
         return g
     g32 = g.to(torch.promote_types(g.dtype, torch.float32))
 
     def scaled(x, dims):
-        norm = torch.sqrt((x * x).sum(dim=dims, keepdim=True))
+        sq = (x * x).sum(dim=dims, keepdim=True)
+        norm = torch.sqrt(sq if tp_sum is None else tp_sum(sq))
         return x * torch.clamp(max_norm / (norm + 1e-6), max=1.0)
 
     if "layers/" in path:
@@ -185,10 +209,11 @@ def _clip_one(path: str, g: torch.Tensor, max_norm: float) -> torch.Tensor:
     return g32.to(g.dtype)
 
 
-def bert_adam(cfg: OptimizerConfig, params_template: Tree
+def bert_adam(cfg: OptimizerConfig, params_template: Tree, mesh=None
               ) -> GradientTransformation:
     lrs = lr_tree(params_template, cfg)
     wds = wd_tree(params_template, cfg)
+    tp_sums = _tp_sums(params_template, mesh)
     sched = SCHEDULES[cfg.schedule](cfg.warmup_proportion) \
         if cfg.schedule not in (None, "none") else constant_schedule()
 
@@ -201,7 +226,8 @@ def bert_adam(cfg: OptimizerConfig, params_template: Tree
         else:
             mult = _f32(1.0)
         grads = tree_map_with_path(
-            lambda p, g: _clip_one(p, g, cfg.max_grad_norm), grads)
+            lambda p, g, t: _clip_one(p, g, cfg.max_grad_norm, t), grads,
+            tp_sums)
         new_m = tree_map(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g,
                          state.m, grads)
         new_v = tree_map(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * g * g,
@@ -228,13 +254,22 @@ class AdamState(NamedTuple):
     v: Tree
 
 
-def _global_norm_clip(grads: Tree, max_norm: float) -> Tree:
+def _global_norm_clip(grads: Tree, max_norm: float,
+                      tp_sums: Optional[Tree] = None) -> Tree:
     """optax.clip_by_global_norm: unchanged below the norm, else
-    (g / norm) * max_norm."""
+    (g / norm) * max_norm.  The squares of the leaves that ``tp_sums``
+    marks are summed over tp once."""
     if max_norm <= 0:
         return grads
-    norm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum()
-                          for g in tree_leaves(grads)))
+    marks = tree_leaves(tp_sums) if tp_sums is not None else \
+        [None] * len(tree_leaves(grads))
+    pairs = list(zip(tree_leaves(grads), marks))
+    sq = sum((g.to(torch.float32) ** 2).sum() for g, t in pairs if t is None)
+    sharded = [g for g, t in pairs if t is not None]
+    if sharded:
+        sq = sq + next(t for _, t in pairs if t is not None)(
+            sum((g.to(torch.float32) ** 2).sum() for g in sharded))
+    norm = torch.sqrt(sq)
     keep = norm < max_norm
     return tree_map(lambda g: torch.where(keep, g, (g / norm.to(g.dtype))
                                           * max_norm), grads)
@@ -248,7 +283,8 @@ def _moments(grads, state, cfg: OptimizerConfig):
     return new_m, new_v
 
 
-def _plain_adam(cfg: OptimizerConfig) -> GradientTransformation:
+def _plain_adam(cfg: OptimizerConfig, tp_sums: Optional[Tree] = None
+                ) -> GradientTransformation:
     """torch.optim.Adam(lr, betas, eps=1e-8, weight_decay=l2) after the
     global-norm clip (optax: clip, add_decayed_weights, scale_by_adam,
     scale(-lr))."""
@@ -257,7 +293,7 @@ def _plain_adam(cfg: OptimizerConfig) -> GradientTransformation:
         return AdamState(step=0, m=_zeros(params), v=_zeros(params))
 
     def update_fn(grads, state, params):
-        grads = _global_norm_clip(grads, cfg.max_grad_norm)
+        grads = _global_norm_clip(grads, cfg.max_grad_norm, tp_sums)
         if cfg.l2 > 0:
             grads = tree_map(lambda g, p: g + cfg.l2 * p, grads, params)
         m, v = _moments(grads, state, cfg)
@@ -272,8 +308,8 @@ def _plain_adam(cfg: OptimizerConfig) -> GradientTransformation:
     return GradientTransformation(init_fn, update_fn)
 
 
-def _adamw(cfg: OptimizerConfig, params_template: Tree
-           ) -> GradientTransformation:
+def _adamw(cfg: OptimizerConfig, params_template: Tree,
+           tp_sums: Optional[Tree] = None) -> GradientTransformation:
     """HF AdamW(correct_bias=False) + get_linear_schedule_with_warmup,
     grouped lrs / wd, after the global-norm clip."""
     lrs = lr_tree(params_template, cfg)
@@ -291,7 +327,7 @@ def _adamw(cfg: OptimizerConfig, params_template: Tree
         return AdamState(step=0, m=_zeros(params), v=_zeros(params))
 
     def update_fn(grads, state, params):
-        grads = _global_norm_clip(grads, cfg.max_grad_norm)
+        grads = _global_norm_clip(grads, cfg.max_grad_norm, tp_sums)
         mult = lr_mult(state.step)
         m, v = _moments(grads, state, cfg)
 
@@ -305,14 +341,16 @@ def _adamw(cfg: OptimizerConfig, params_template: Tree
     return GradientTransformation(init_fn, update_fn)
 
 
-def make_optimizer(cfg: OptimizerConfig, params_template: Tree
-                   ) -> GradientTransformation:
+def make_optimizer(cfg: OptimizerConfig, params_template: Tree,
+                   mesh=None) -> GradientTransformation:
+    """``params_template``: the tree the optimizer updates (this rank's
+    shards under tensor parallelism, with ``mesh``)."""
     if cfg.optim_choice == "bertadam":
-        tx = bert_adam(cfg, params_template)
+        tx = bert_adam(cfg, params_template, mesh)
     elif cfg.optim_choice == "adam":
-        tx = _plain_adam(cfg)
+        tx = _plain_adam(cfg, _tp_sums(params_template, mesh))
     elif cfg.optim_choice == "adamw":
-        tx = _adamw(cfg, params_template)
+        tx = _adamw(cfg, params_template, _tp_sums(params_template, mesh))
     else:
         raise ValueError(f"unknown optim_choice: {cfg.optim_choice}")
     if cfg.freeze_encoder:

@@ -11,7 +11,8 @@ byte and the classification report (the same text, so the same numbers).
 their log lines have the same formats; the error cases of the JAX CLI's
 tests return the same codes.  (e) ``--testing`` reloads ``model.ckpt`` and
 reproduces the best epoch's valid metrics.  (f) Each refused flag returns
-2 with its message; the pretrained flags are honoured: with no local
+2 with its message, and so does a world size that ``--n_model_parallel``
+does not divide; the pretrained flags are honoured: with no local
 checkpoint both CLIs warn alike and train, or under
 ``--require_pretrained`` return 2 with the same message, and a tiny
 ``--tod_pre_trained_model`` run matches JAX's epoch by epoch.  (g) ``load_predictor`` restores a Trainer's params
@@ -254,8 +255,6 @@ def test_cli_error_codes_match_jax(case, tiny_memory, tmp_path, capsys):
 
 
 REFUSED = {
-    "model_parallel": (["--n_model_parallel", "2"], "item 5"),
-    "direct": (["--data_mode", "direct"], "item 5"),
     "profile": (["--profile_dir", "/x"], "item 6"),
     "remat": (["--remat"], "'map or refuse'"),
 }
@@ -270,6 +269,25 @@ def test_cli_refuses_unported_flags(case, dataroot, tmp_path, capsys):
     assert rc == 2
     assert flags[0] in err and item in err
     assert not (tmp_path / "exp").exists()
+
+
+@pytest.mark.parametrize("world", ["1", "3"])
+def test_cli_refuses_a_world_that_tp_does_not_divide(world, dataroot,
+                                                      tmp_path, capsys,
+                                                      monkeypatch):
+    """``--n_model_parallel 2`` in a world of 1 (no torchrun) or of 3
+    (torchrun's ``WORLD_SIZE``) returns 2 before any process group is
+    made or anything is written."""
+    monkeypatch.setenv("WORLD_SIZE", world)
+    rc, err = _rc_and_err(cli.main, [
+        "--dataset", "dstc2", "--dataroot", dataroot, "--experiment",
+        str(tmp_path / "exp"), "--n_model_parallel", "2"], capsys,
+        device="cpu")
+    assert rc == 2
+    assert f"--n_model_parallel 2 does not divide the world size {world}" \
+        in err
+    assert not (tmp_path / "exp").exists()
+    assert not torch.distributed.is_initialized()
 
 
 def _warnings(err: str):

@@ -29,6 +29,7 @@ chip_smoke.dstc2_like_memory()
 from nbest_asr_tpu_torch import serve
 assert nbest_asr_tpu_torch.Predictor is serve.Predictor
 print("MODULES=" + str(len(mods)))
+print("NAMES=" + ",".join(mods))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "nbest_asr_tpu"))
 print("FORBIDDEN=" + ",".join(bad))
@@ -47,4 +48,8 @@ def test_port_imports_no_jax():
     # importing it loads no transformers, tokenizers or safetensors
     assert "HF=\n" in proc.stdout, proc.stdout
     n = int(proc.stdout.split("MODULES=")[1].split()[0])
-    assert n >= 31, proc.stdout     # models/hf_convert.py, train/mlm.py
+    assert n >= 43, proc.stdout     # models/hf_convert.py, train/mlm.py
+    names = proc.stdout.split("NAMES=")[1].split()[0].split(",")
+    for m in ("parallel.mesh", "parallel.data_sharding",
+              "parallel.process_data", "parallel.train_step"):
+        assert "nbest_asr_tpu_torch." + m in names, m
