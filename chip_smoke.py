@@ -213,6 +213,31 @@ Phases, each fatal on failure:
    part's wall seconds, the gradient all-reduce's ms a step and one tp
    all-reduce's, with the card's name and power limit; (b) and (c)'s times
    are two ranks sharing one card, not a scaling figure.
+16. The offline path (``phase_offline``).  (a) ``write_dstc2_sessions``
+   writes 200 synthetic DSTC2 sessions (compound acts, request and value
+   slots, empty hypotheses, dropped turns) and the port's ``run_etl``
+   turns them into a dataroot: each split holds exactly the turns the
+   drop rule keeps.  (b) ``pretrain_mlm`` on its train shard at BERT-base
+   width (hidden 768, 12 heads, intermediate 3072), 4 layers (JAX's
+   default), bf16, 30 steps at lr 1e-3 with the vocab of the port's
+   WordPiece trainer: the loss from near ln V down by more than 0.3, the
+   launches 30 x 4 x ``PER_LAYER_TRAIN``; step ms (CUDA events, after the
+   first) and peak memory printed.  (c) ``cli.main`` from its export with
+   ``--tod_pre_trained_model --require_pretrained --remat --profile_dir``,
+   2 epochs, every split on the native packer: the launches equal the
+   plan with one more training forward a layer and micro (the
+   recompute), and the profiler's Chrome trace of the traced epoch's
+   training holds, for each set of device kernels (csrc/'s ``__global__``
+   names; the three bf16 GEMM wrappers share ``gemm_tma_kernel``, which the
+   trace cannot tell apart), at least as many events as the wrappers that
+   launch them launched in that epoch.  (d) One 12-layer BERT-base bf16 step at
+   ``N_ACCUM`` x 128 x 64 (dropout 0.1, both blocks) without and with
+   ``remat``, A B B A after a reference step: the loss and every gradient
+   bit-equal, the forward launches doubled and the backward's unchanged,
+   the peak memory over the forwards and backwards lower with remat (the
+   whole step's peak is BertAdam's update, printed beside); step ms and
+   peaks printed, and for one more step each way under ``torch.profiler``
+   the step's span beside its device kernels' summed time.
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
@@ -223,6 +248,7 @@ power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import subprocess
@@ -4511,6 +4537,466 @@ def phase_multiprocess(dev, card: str, rig):
     return counts
 
 
+# --------------------------------------------------------------------- #
+# the offline path: raw DSTC2 logs -> ETL -> MLM pretraining with the
+# port's own WordPiece vocab -> fine-tune under --remat --profile_dir
+# --------------------------------------------------------------------- #
+
+OFFLINE_SESSIONS, OFFLINE_STEPS, OFFLINE_LAYERS = 200, 30, 4
+OFFLINE_ARGS = ["--dataset", "dstc2", "--compute_dtype", "bfloat16",
+                "--bert_dropout", "0.1", "--length_buckets",
+                "64,96,160,256", "--token_budget", "8192", "--batchSize",
+                "32", "--max_epoch", "2", "--eval_artifacts", "none",
+                "--save_best", "none"]
+# a training layer's forward launches on both blocks' kernels, which a
+# --remat recompute launches once more in the backward (= PER_LAYER)
+PER_LAYER_TRAIN_FWD = dict(PER_LAYER)
+# the device kernels each wrapper launches, by their csrc/ ``__global__``
+# names (held to csrc/ by ``csrc_kernel_names``); the three bf16 GEMM
+# wrappers launch one kernel, which a trace cannot tell apart
+DEVICE_KERNELS = {
+    "gemm_bias_act": ("gemm_tma_kernel",),
+    "gemm_bias_residual": ("gemm_tma_kernel",),
+    "gemm_dgrad": ("gemm_tma_kernel",),
+    "layer_norm": ("layer_norm_kernel",),
+    "ffn_bwd_rows": ("ffn_bwd_rows_kernel",),
+    "seg_attention": ("seg_attn_wgmma_kernel", "seg_attention_kernel"),
+    "seg_attention_bwd": ("dq_wgmma_kernel", "dkv_wgmma_kernel",
+                          "dq_kernel", "dkv_kernel"),
+}
+DSTC2_VALUES = {
+    "food": ["chinese", "indian", "thai", "italian", "modern european",
+             "north american", "dontcare"],
+    "area": ["north", "south", "east", "west", "centre", "dontcare"],
+    "pricerange": ["cheap", "moderate", "expensive", "dontcare"],
+    "name": ["the golden wok", "pizza hut", "saigon city"],
+}
+DSTC3_VALUES = {"childrenallowed": ["true", "false"],
+                "hasinternet": ["true", "false"],
+                "hastv": ["true", "false"]}
+DSTC2_REQUESTS = ["phone", "addr", "postcode", "food", "area", "pricerange",
+                  "signature"]
+DSTC2_WORDS = ("i want a restaurant in the part of town serving food what "
+               "is phone number and address thank you goodbye uh um yes "
+               "no looking for something else any how about okay").split()
+
+
+def write_dstc2_sessions(data_dir, n_sessions: int, seed: int,
+                         dstc3: bool = False) -> dict:
+    """DSTC2's raw layout under ``data_dir``: ``scripts/config/
+    dstc2_{train,dev,test}.flist`` (70 / 15 / 15% of the sessions) and
+    ``ori_data/<session>/{log,label}.json``, 1-8 turns a session, from
+    ``seed``.  System turns carry compound acts (``reqalts``, ``reqmore``,
+    ``thankyou``), request slots (``["slot", s]``) and value slots
+    (``addr``, ``pricerange``; DSTC3's ``childrenallowed``, ``hasinternet``,
+    ``hastv`` with ``dstc3``); user turns 0-3 acts (inform, request,
+    confirm, deny, reqalts, thankyou, affirm, negate, bye, ...) over 1-10
+    ASR hypotheses, some empty; about 1 turn in 10 has no user act and 1
+    in 20 an empty system transcript, turns the ETL drops.  -> the turns
+    it keeps per split: {"train": n, "valid": n, "test": n}."""
+    rng = np.random.RandomState(seed)
+    values = dict(DSTC2_VALUES, **(DSTC3_VALUES if dstc3 else {}))
+    slots = sorted(values)
+
+    def words(n):
+        return [DSTC2_WORDS[i] for i in rng.randint(0, len(DSTC2_WORDS), n)]
+
+    def slot_value():
+        s = slots[rng.randint(len(slots))]
+        return s, values[s][rng.randint(len(values[s]))]
+
+    def sys_act():
+        k = rng.randint(7)
+        if k == 0:
+            return {"act": "request", "slots": [["slot", DSTC2_REQUESTS[
+                rng.randint(len(DSTC2_REQUESTS))]]]}
+        if k in (1, 2):
+            return {"act": ["reqmore", "reqalts", "thankyou", "welcomemsg",
+                            "repeat"][rng.randint(5)], "slots": []}
+        if k == 3:
+            return {"act": "inform", "slots": [
+                ["addr", " ".join(words(3))], list(slot_value())]}
+        return {"act": ["offer", "expl-conf", "impl-conf", "canthelp"][
+            rng.randint(4)], "slots": [list(slot_value())]}
+
+    def user_act():
+        k = rng.randint(6)
+        if k < 2:
+            s, v = slot_value()
+            return {"act": ["inform", "confirm", "deny"][rng.randint(3)],
+                    "slots": [[s, v]]}
+        if k == 2:
+            return {"act": "request", "slots": [["slot", DSTC2_REQUESTS[
+                rng.randint(len(DSTC2_REQUESTS))]]]}
+        return {"act": ["reqalts", "thankyou", "affirm", "negate", "bye",
+                        "hello", "reqmore", "ack"][rng.randint(8)],
+                "slots": []}
+
+    names = [f"voip-{seed:04x}{i:05d}" for i in range(n_sessions)]
+    cut = (int(0.7 * n_sessions), int(0.85 * n_sessions))
+    splits = {"train": names[:cut[0]], "dev": names[cut[0]:cut[1]],
+              "test": names[cut[1]:]}
+    os.makedirs(os.path.join(data_dir, "scripts", "config"))
+    kept = {}
+    for split, sessions in splits.items():
+        with open(os.path.join(data_dir, "scripts", "config",
+                               f"dstc2_{split}.flist"), "w") as fp:
+            fp.write("".join(f"Mar13_S0A0/{s}\n" for s in sessions))
+        n_kept = 0
+        for sid in sessions:
+            log_turns, label_turns = [], []
+            for t in range(1 + rng.randint(8)):
+                sys_text = "" if rng.rand() < 0.05 else " ".join(
+                    words(3 + rng.randint(10)))
+                acts = [user_act() for _ in range(
+                    0 if rng.rand() < 0.1 else 1 + rng.randint(3))]
+                said = " ".join(words(2 + rng.randint(8)))
+                hyps = [" " if rng.rand() < 0.15 else " ".join(
+                    said.split()[:1 + rng.randint(8)] + words(
+                        rng.randint(3))) for _ in range(1 + rng.randint(10))]
+                log_turns.append({
+                    "turn-index": t,
+                    "output": {"transcript": sys_text, "dialog-acts": [
+                        sys_act() for _ in range(1 + rng.randint(3))]},
+                    "input": {"batch": {"asr-hyps": [
+                        {"asr-hyp": h, "score": -float(i)}
+                        for i, h in enumerate(hyps)]}}})
+                label_turns.append({"turn-index": t, "transcription": said,
+                                    "semantics": {"json": acts}})
+                n_kept += bool(acts) and bool(sys_text)
+            sdir = os.path.join(data_dir, "ori_data", "Mar13_S0A0", sid)
+            os.makedirs(sdir)
+            with open(os.path.join(sdir, "log.json"), "w") as fp:
+                json.dump({"session-id": sid, "turns": log_turns}, fp)
+            with open(os.path.join(sdir, "label.json"), "w") as fp:
+                json.dump({"session-id": sid, "turns": label_turns}, fp)
+        kept["valid" if split == "dev" else split] = n_kept
+    return kept
+
+
+def csrc_kernel_names() -> set:
+    """The ``__global__`` functions' names in the port's csrc/*.cu."""
+    import re
+
+    names = set()
+    for path in glob.glob(os.path.join(REPO, "nbest_asr_tpu_torch", "csrc",
+                                       "*.cu")):
+        with open(path) as fp:
+            src = fp.read()
+        for m in re.finditer(r"__global__\s+void\s+", src):
+            i = m.end()
+            if src.startswith("__launch_bounds__", i):   # skip its (...)
+                i, depth = src.index("(", i), 0
+                while True:
+                    depth += {"(": 1, ")": -1}.get(src[i], 0)
+                    i += 1
+                    if depth == 0:
+                        break
+            names.add(re.match(r"\s*(\w+)", src[i:]).group(1))
+    return names
+
+
+def trace_kernel_name(event_name: str) -> str:
+    """A trace's demangled kernel name (``void ns::k<...>(...)``) -> ``k``."""
+    import re
+
+    head = re.split(r"[<(]", event_name.replace("(anonymous namespace)::",
+                                                ""), maxsplit=1)[0].split()
+    return head[-1].split("::")[-1] if head else ""
+
+
+def offline_etl(tmp, card: str):
+    """16 (a): the port's ``run_etl`` over OFFLINE_SESSIONS synthetic
+    sessions -> the dataroot it wrote."""
+    from nbest_asr_tpu_torch.data.dataset import read_sep_data
+    from nbest_asr_tpu_torch.data.vocab import Memory
+    from nbest_asr_tpu_torch.tools import run_etl
+
+    raw_dir, out = os.path.join(tmp, "dstc2"), os.path.join(tmp, "etl")
+    kept = write_dstc2_sessions(raw_dir, OFFLINE_SESSIONS, seed=16)
+    t0 = time.perf_counter()
+    if run_etl.main(["--data_dir", raw_dir, "--out_dir", out]) != 0:
+        raise AssertionError("run_etl returned an error")
+    etl_s = time.perf_counter() - t0
+    root = os.path.join(out, "processed_data", "raw")
+    got = {m: len(read_sep_data(os.path.join(root, m)))
+           for m in ("train", "valid", "test")}
+    mem = Memory.load(os.path.join(root, "memory.json"))
+    arrays = mem.arrays()
+    log(f"[offline] (a) run_etl: {OFFLINE_SESSIONS} sessions -> records "
+        f"{got} (turns kept by the drop rule: {kept}); memory: "
+        f"{len(mem.word2idx)} words, {mem.n_bottom} labels, {mem.n_top} "
+        f"top groups ({int(arrays.is_multi_top.sum())} multi-bottom), "
+        f"{len(mem.sysact2idx)} system-act tokens; {etl_s:.2f} s")
+    if got != kept or "request" not in mem.sysact2idx \
+            or "alternative" not in mem.sysact2idx:
+        raise AssertionError("run_etl: the shards do not hold the turns "
+                             "the drop rule keeps, or the compound acts "
+                             "were not split")
+    return root
+
+
+def offline_pretrain(root, ckpt, card: str):
+    """16 (b): ``pretrain_mlm`` at BERT-base width, OFFLINE_LAYERS deep,
+    bf16, on ``root``'s train shard -> its launch counts."""
+    import math
+
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.tools import pretrain_mlm
+
+    args = pretrain_mlm.parse_args([
+        "--dataroot", root, "--out", ckpt, "--hidden", str(H),
+        "--n_heads", str(NH), "--intermediate", str(INTER), "--n_layers",
+        str(OFFLINE_LAYERS), "--steps", str(OFFLINE_STEPS), "--lr", "1e-3",
+        "--log_every", "10"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    out = pretrain_mlm.run(args)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses, vocab = out["losses"], out["cfg"].vocab_size
+    first, last = losses[0], float(np.mean(losses[-5:]))
+    want = {k: OFFLINE_STEPS * OFFLINE_LAYERS * PER_LAYER_TRAIN.get(k, 0)
+            for k in counts}
+    log(f"[offline] (b) pretrain_mlm: vocab {vocab} (the port's WordPiece "
+        f"trainer, padded to 128), batch rows {out['batch_sizes']}, "
+        f"{OFFLINE_STEPS} steps at hidden {H}, {NH} heads, intermediate "
+        f"{INTER}, {OFFLINE_LAYERS} layers, bf16: {out['step_ms']:.3f} ms a "
+        f"step (CUDA events), loss {first:.4f} -> {last:.4f} (the last "
+        f"five's mean; ln V {math.log(vocab):.3f}), peak {peak:.2f} GiB; "
+        f"launches {counts}, expected {want} [{card}]")
+    if counts != want or not all(counts[k] for k in PER_LAYER_TRAIN):
+        raise AssertionError("pretrain_mlm: the kernels' launches differ "
+                             "from steps x layers x PER_LAYER_TRAIN")
+    if not (np.isfinite(losses).all() and abs(first - math.log(vocab)) < 1.0
+            and last < first - 0.3):
+        raise AssertionError("pretrain_mlm: the loss did not fall from ln V")
+    return counts
+
+
+def offline_finetune(dev, tmp, root, ckpt, card: str):
+    """16 (c): ``cli.main`` from the export with --remat and --profile_dir
+    on the native packer -> its launch counts."""
+    from nbest_asr_tpu_torch import cli
+    from nbest_asr_tpu_torch.data import native_loader
+    from nbest_asr_tpu_torch.ops import _cuda
+
+    if not native_loader.native_available():
+        raise AssertionError("the native packer does not build here")
+    packed = []
+    pack = cli.pack_file_native
+
+    def counted(path, *a, **kw):
+        packed.append(os.path.basename(path))
+        return pack(path, *a, **kw)
+
+    prof = os.path.join(tmp, "profile")
+    args = OFFLINE_ARGS + [
+        "--dataroot", root, "--tod_pre_trained_model", ckpt,
+        "--require_pretrained", "--remat", "--profile_dir", prof,
+        "--experiment", os.path.join(tmp, "ft")]
+    cli.pack_file_native = counted
+    try:
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        if cli.main(args) != 0:
+            raise AssertionError("cli.main --remat --profile_dir returned an "
+                                 "error")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        cli.pack_file_native = pack
+    counts = dict(_cuda.launch_counts)
+    trainer, _ = cli_trainer(args, dev)
+    micros, batches = plan_counts(trainer)
+    epochs = int(OFFLINE_ARGS[OFFLINE_ARGS.index("--max_epoch") + 1])
+    want = {k: OFFLINE_LAYERS * epochs * (
+        micros * (PER_LAYER_TRAIN.get(k, 0) + PER_LAYER_TRAIN_FWD.get(k, 0))
+        + batches * PER_LAYER_EVAL.get(k, 0)) for k in counts}
+    del trainer
+    traces = sorted(glob.glob(os.path.join(prof, "*.json")))
+    if len(traces) != 1:
+        raise AssertionError(f"--profile_dir wrote {traces}")
+    with open(traces[0]) as fp:
+        events = json.load(fp)["traceEvents"]
+    kernels = [trace_kernel_name(e["name"]) for e in events
+               if e.get("cat") == "kernel"]
+    csrc_names = csrc_kernel_names()
+    stale = {d for names in DEVICE_KERNELS.values() for d in names} - \
+        csrc_names
+    if stale or set(PER_LAYER_TRAIN) - set(DEVICE_KERNELS):
+        raise AssertionError(f"DEVICE_KERNELS names no csrc kernel {stale}"
+                             f" or misses a wrapper of PER_LAYER_TRAIN")
+    # the traced epoch's training launches, by the set of device kernels
+    # they launch: each launch runs one of its set at least once
+    epoch = {k: OFFLINE_LAYERS * micros * (PER_LAYER_TRAIN.get(k, 0)
+                                           + PER_LAYER_TRAIN_FWD.get(k, 0))
+             for k in counts}
+    by_set = {}
+    for name, dev_names in DEVICE_KERNELS.items():
+        by_set.setdefault(dev_names, []).append(name)
+    seen = {"+".join(names): (sum(k in dev_names for k in kernels),
+                              sum(epoch[n] for n in names))
+            for dev_names, names in by_set.items()}
+    log(f"[offline] (c) cli.main --tod_pre_trained_model --require_pretrained"
+        f" --remat --profile_dir ({' '.join(OFFLINE_ARGS)}): {run_s:.2f} s; "
+        f"native packer on {packed}; {micros} training micros and {batches} "
+        f"eval batches an epoch; launches {counts}, expected {want} (the "
+        f"recompute's forwards counted); trace {os.path.basename(traces[0])}"
+        f" ({os.path.getsize(traces[0])} B, {len(kernels)} kernel events): "
+        f"csrc kernels named {sorted(set(kernels) & csrc_names)}; (events, "
+        f"training launches in the traced epoch) by the wrappers that share"
+        f" device kernels {seen} [{card}]")
+    if sorted(set(packed)) != ["test", "train", "valid"]:
+        raise AssertionError("cli: the splits were not packed natively")
+    if counts != want or not all(counts[k] for k in PER_LAYER_TRAIN):
+        raise AssertionError("cli --remat: the kernels' launches differ "
+                             "from the plan with the recompute")
+    missing = {k: v for k, v in seen.items() if v[0] < v[1]}
+    if missing or sum(epoch.values()) == 0:
+        raise AssertionError(f"--profile_dir: the trace holds fewer kernel "
+                             f"events than launches: {missing}")
+    return counts
+
+
+def offline_remat_step(dev, card: str, rig):
+    """16 (d): one 12-layer BERT-base bf16 step (dropout 0.1, both blocks,
+    N_ACCUM x 128 x 64) without and with ``remat`` from the same params
+    and seed: an unmeasured step without remat gives the reference, then
+    runs A B B A (without, with, with, without): the loss and every
+    gradient bit-equal to the reference's, the forward launches doubled
+    and the backward's unchanged; each step's ms (CUDA events) and its
+    peak memory above what was allocated before it, over the forwards and
+    backwards (read when the optimizer is handed the gradients) and over
+    the whole step (BertAdam's update, whose new trees of the parameters'
+    size remat does not touch, included); the first must fall."""
+    import dataclasses
+
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
+                                                         make_train_step)
+    from nbest_asr_tpu_torch.train.losses import LossConfig
+    from nbest_asr_tpu_torch.train.optimizer import (GradientTransformation,
+                                                     OptimizerConfig,
+                                                     make_optimizer,
+                                                     tree_leaves)
+
+    base = dataclasses.replace(rig["cfg"].encoder, use_fused_ffn=True,
+                               use_fused_attn=True)
+    data, micro = rig["data"][64], TRAIN_MICRO[64]
+    idx = np.arange(N_ACCUM * micro).reshape(N_ACCUM, micro) % \
+        data["input_ids"].shape[0]
+
+    def one_step(remat):
+        cfg = dataclasses.replace(rig["cfg"], encoder=dataclasses.replace(
+            base, remat=remat))
+        opt = make_optimizer(OptimizerConfig(**GATE_OPT), rig["params"])
+        seen = {}
+
+        def update(g, s, p):
+            seen["grads"] = tree_leaves(g)
+            seen["peak"] = torch.cuda.max_memory_allocated()
+            return opt.update(g, s, p)
+
+        step = make_train_step(cfg, LossConfig(), GradientTransformation(
+            opt.init, update), rig["hier"], n_accum=N_ACCUM,
+            dual_stream=False)
+        state = TrainState(rig["params"], opt.init(rig["params"]), 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _cuda.reset_launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        _, stats = step(state, data, idx, torch.Generator().manual_seed(3))
+        ev[1].record()
+        torch.cuda.synchronize()
+        return dict(remat=remat, ms=ev[0].elapsed_time(ev[1]),
+                    fwd_bwd_peak=(seen["peak"] - held) / 2 ** 30,
+                    peak=(torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+                    counts=dict(_cuda.launch_counts),
+                    loss=stats["loss"]["total"].detach().clone(),
+                    grads=seen["grads"])
+
+    ref = one_step(False)
+    runs, diffs = [], []
+    for i, remat in enumerate((False, True, True, False)):
+        r = one_step(remat)
+        diffs += [f"run {i} grad {j}" for j, (a, b) in enumerate(
+            zip(ref["grads"], r.pop("grads"))) if not torch.equal(a, b)]
+        if not torch.equal(ref["loss"], r["loss"]):
+            diffs.append(f"run {i} loss")
+        runs.append(r)
+    fwd_bwd = {k: N_ACCUM * LAYERS * PER_LAYER_TRAIN.get(k, 0)
+               for k in _cuda.KERNELS}
+    with_remat = {k: v + N_ACCUM * LAYERS * PER_LAYER_TRAIN_FWD.get(k, 0)
+                  for k, v in fwd_bwd.items()}
+    log(f"[offline] (d) one step of {N_ACCUM} x {micro} x 64, {LAYERS} "
+        f"layers BERT-base bf16, dropout {DROPOUT}, both blocks, after one "
+        f"unmeasured step without remat, runs A B B A (remat off, on, on, "
+        f"off): " + "; ".join(
+            f"remat {r['remat']}: step {r['ms']:.3f} ms (CUDA events), peak "
+            f"above the held memory {r['fwd_bwd_peak']:.3f} GiB over the "
+            f"forwards and backwards, {r['peak']:.3f} GiB over the step, "
+            f"loss {float(r['loss']):.6f}" for r in runs)
+        + f"; the loss and {len(ref['grads'])} gradients of each run "
+        f"against the reference step's: {len(diffs)} differ; launches "
+        f"without {runs[0]['counts']}, with {runs[1]['counts']} [{card}]")
+    # one more step each way under torch.profiler: the summed durations of
+    # its trace's kernel events (one stream) against the step's (profiled,
+    # so slower) span say how much of remat's cost is device work
+    import tempfile
+
+    split = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for remat in (False, True):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                r = one_step(remat)
+            path = os.path.join(tmp, f"remat_{remat}.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fp:
+                events = json.load(fp)["traceEvents"]
+            split[remat] = (r["ms"], sum(e.get("dur", 0) for e in events
+                                         if e.get("cat") == "kernel") / 1e3)
+    log(f"[offline] (d) profiled steps: " + "; ".join(
+        f"remat {k}: step {ms:.3f} ms, device kernels {dev_ms:.3f} ms"
+        for k, (ms, dev_ms) in split.items())
+        + f"; remat adds {split[True][0] - split[False][0]:.3f} ms of step "
+        f"and {split[True][1] - split[False][1]:.3f} ms of device kernels "
+        f"[{card}]")
+    if diffs:
+        raise AssertionError(f"remat: not bit-equal: {diffs[:8]}")
+    for r in runs:
+        if r["counts"] != (with_remat if r["remat"] else fwd_bwd):
+            raise AssertionError("remat: the forward launches did not "
+                                 "double, or a backward launch changed")
+    if not max(r["fwd_bwd_peak"] for r in runs if r["remat"]) < \
+            min(r["fwd_bwd_peak"] for r in runs if not r["remat"]):
+        raise AssertionError("remat: the forwards' and backwards' peak "
+                             "memory did not fall")
+
+
+def phase_offline(dev, card: str, rig):
+    """Phase 16: ETL -> pretraining -> fine-tune with --remat and
+    --profile_dir, then the remat step; -> the launch counts of the
+    pretraining's and the fine-tune's runs, summed."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = offline_etl(tmp, card)
+        ckpt = os.path.join(tmp, "mlm_ckpt")
+        counts = offline_pretrain(root, ckpt, card)
+        add_counts(counts, offline_finetune(dev, tmp, root, ckpt, card))
+    offline_remat_step(dev, card, rig)
+    log(f"[offline] phase 16: {time.perf_counter() - t0:.2f} s [{card}]")
+    return counts
+
+
 def _cpu_tree(t):
     if isinstance(t, dict):
         return {k: _cpu_tree(v) for k, v in t.items()}
@@ -4640,6 +5126,7 @@ def main() -> int:
     l_counts = timed("cli", phase_cli, dev, card)
     p_counts = timed("pretrained", phase_pretrained, dev, card)
     m_counts = timed("multiprocess", phase_multiprocess, dev, card, rig)
+    o_counts = timed("offline", phase_offline, dev, card, rig)
     log(f"[time] wall s by phase {phase_s}; from the build's start "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -4660,7 +5147,8 @@ def main() -> int:
     for name in _cuda.KERNELS:
         launches = (counts[name] + t_counts[name] + i_counts[name]
                     + a_counts[name] + b_counts[name] + c_counts[name]
-                    + l_counts[name] + p_counts[name] + m_counts[name])
+                    + l_counts[name] + p_counts[name] + m_counts[name]
+                    + o_counts[name])
         if name in s_bounds:        # a serving layer's launches
             row(name, name, launches, *times[(name, BUCKETS[-1])],
                 *s_bounds[name])
@@ -4683,7 +5171,9 @@ def main() -> int:
         "steps, the fine-tune's two epochs, the RoBERTa and XLM-R "
         "Predictors' requests, the XLM-R Trainer's steps), and the "
         "multi-process phase's runs in this process (the one-rank NCCL "
-        "mesh's steps, the one-process direct-mode epoch) together, the "
+        "mesh's steps, the one-process direct-mode epoch), and the offline "
+        "phase's (pretrain_mlm's steps, the --remat fine-tune's two epochs) "
+        "together, the "
         "[train] rows the int8 "
         "training runs alone; "
         "ms / plain_ms / library_ms / bound_ms: one encoder layer's "

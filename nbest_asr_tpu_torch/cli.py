@@ -22,8 +22,7 @@ nothing falls back to one process), which ``main`` destroys on its way
 out, after an error too; a caller that set up its own group first keeps
 it.  The ranks form the mesh of N / T data-parallel by T tensor-parallel
 ranks; a world size that T does not divide returns 2.  Rank 0 alone
-writes the experiment directory and prints the metric lines.  Refused flags
-(``config.unsupported``) return 2 with their message.  The tokenizer
+writes the experiment directory and prints the metric lines.  The tokenizer
 comes from ``data/tokenizer.load_tokenizer``, as at
 ``nbest_asr_tpu/cli.py:121-127``: a pretrained checkpoint's when one is
 requested, else the word-vocab tokenizer; a requested checkpoint that
@@ -36,14 +35,17 @@ import glob
 import os
 import random
 import sys
+import tempfile
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from .config import RunOptions, parse_arguments, unsupported
+from .config import RunOptions, parse_arguments
 from .data.dataset import read_sep_data
 from .data.input_builder import pack_split
+from .data.native_loader import (native_available, native_supported,
+                                 pack_file_native)
 from .data.tokenizer import load_tokenizer
 from .data.vocab import Memory
 from .parallel.mesh import init_distributed, is_coordinator, world_size
@@ -62,31 +64,60 @@ def resolve_memory(opt: RunOptions) -> Memory:
 
 def prepare_packed_splits(opt: RunOptions, memory: Memory, tokenizer):
     """Read, coverage-sample (train only, ref :524-526), tokenize and pack
-    every split present with one shared static max_len, on the Python
-    packer (JAX's oracle and fallback; ``config`` says why)."""
+    every split present with one shared static max_len.  Uses the native
+    (C++) packer (``data/native_loader.pack_file_native``) unless
+    ``--no_native_loader`` is given, for the word-vocab tokenizer and BERT
+    WordPiece, when it builds; the Python packer is the oracle and the
+    fallback for BPE/SentencePiece families.  Coverage sampling stays in
+    Python, its rows written to a temporary shard for the native packer
+    and removed once every split is packed."""
+    use_native = (opt.native_loader and native_supported(tokenizer)
+                  and native_available())
     paths = {
         "train": os.path.join(opt.dataroot, opt.train_file),
         "valid": os.path.join(opt.dataroot, opt.valid_file),
         "test": os.path.join(opt.dataroot, opt.test_file),
     }
-    raw = {}
-    for name, path in paths.items():
-        if os.path.exists(path):  # tolerate missing shards
-            coverage = opt.coverage if name == "train" else None
-            raw[name] = read_sep_data(path, coverage)
+    raw, temps = {}, []
 
     def pack(name, max_len):
+        if use_native:
+            return pack_file_native(paths[name], memory, tokenizer,
+                                    layout=opt.layout, max_len=max_len,
+                                    len_multiple=opt.len_multiple)
         return pack_split(raw[name], tokenizer, memory, layout=opt.layout,
                           max_len=max_len, len_multiple=opt.len_multiple)
 
-    # one static max_len across splits
-    splits = {name: pack(name, opt.max_seq_len) for name in raw}
-    if opt.max_seq_len is None and splits:
-        # unify to the largest packed length, re-pack the shorter ones
-        target = max(p.max_len for p in splits.values())
-        for name, packed in list(splits.items()):
-            if packed.max_len != target:
-                splits[name] = pack(name, target)
+    try:
+        for name, path in list(paths.items()):
+            if not os.path.exists(path):
+                paths.pop(name)     # tolerate missing shards
+                continue
+            coverage = opt.coverage if name == "train" else None
+            if coverage and use_native:
+                sampled = read_sep_data(path, coverage)
+                fd, tmp = tempfile.mkstemp(suffix=".shard")
+                temps.append(tmp)
+                with os.fdopen(fd, "w") as fp:
+                    for a, t, l in zip(sampled.asr_seqs, sampled.trans_seqs,
+                                       sampled.labels):
+                        fp.write("%s\t<=>\t%s\t<=>\t%s\n" % (
+                            " ".join(a), " ".join(t), ";".join(l)))
+                paths[name] = tmp
+            elif not use_native:
+                raw[name] = read_sep_data(path, coverage)
+
+        # one static max_len across splits
+        splits = {name: pack(name, opt.max_seq_len) for name in paths}
+        if opt.max_seq_len is None and splits:
+            # unify to the largest packed length, re-pack the shorter ones
+            target = max(p.max_len for p in splits.values())
+            for name, packed in list(splits.items()):
+                if packed.max_len != target:
+                    splits[name] = pack(name, target)
+    finally:
+        for tmp in temps:
+            os.remove(tmp)
     return splits
 
 
@@ -107,11 +138,6 @@ def resolve_device(opt: RunOptions, device=None) -> torch.device:
 
 def main(argv=None, *, device=None) -> int:
     opt = parse_arguments(argv)
-    refused = unsupported(opt)
-    if refused:
-        for msg in refused:
-            print(f"error: {msg}", file=sys.stderr)
-        return 2
     world = world_size()
     if opt.n_model_parallel < 1 or world % opt.n_model_parallel:
         print(f"error: --n_model_parallel {opt.n_model_parallel} does not "

@@ -3,7 +3,7 @@
 with the same flags and defaults, so that one command line drives either
 package.
 
-Every flag falls into one of three groups on the port:
+Every flag falls into one of two groups on the port:
 
 - **Honoured**, as the JAX package honours it.  ``--deviceId N`` picks
   ``cuda:N`` (-1, the default, is ``cuda:0``); the CPU is reached only by a
@@ -30,20 +30,19 @@ Every flag falls into one of three groups on the port:
   ``--n_model_parallel T`` and ``--data_mode index|direct`` run the
   process mesh of ``parallel/mesh.py`` under torchrun (``cli.py``): T
   must divide the world size.
-- **Refused** (``unsupported`` names them; the CLI returns 2 with the
-  message), each until the ROADMAP queue-1 item that brings it:
-  ``--profile_dir`` (item 6, the tools), and ``--remat``, which the port
-  neither maps to activation checkpointing nor ignores (queued beside
-  item 1's "map or refuse").
+  ``--no_native_loader`` packs the splits with the Python packer instead
+  of the C++ one (``cli.prepare_packed_splits``).
+  ``--remat`` recomputes each encoder layer's forward in the backward
+  (``torch.utils.checkpoint``, ``models/encoder.py``) where JAX wraps the
+  layer in ``jax.checkpoint``.
+  ``--profile_dir DIR`` writes a ``torch.profiler`` trace of one training
+  epoch, the one JAX traces (``train/loop.py``, ``utils/profiling.py``).
 - **Accepted and inert**, because the flag only steers TPU machinery:
   ``--prng_impl`` picks JAX's PRNG for dropout masks; the port's masks
   are Philox, keyed on a seed drawn from a ``torch.Generator``.
   ``--steps_per_call K`` groups JAX's epoch plan into chains of K steps
   compiled as one call; the port builds the same plan with the same
   shuffle draws and runs a chain as its K steps in order.
-  ``--no_native_loader``: the CLI packs with the Python packer, JAX's own
-  oracle and fallback (``nbest_asr_tpu/cli.py:34-44``), until the port's
-  ``pack_file_native`` lands (queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -51,7 +50,7 @@ from __future__ import annotations
 import argparse
 import json
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Optional
 
 
 @dataclass
@@ -171,20 +170,6 @@ class RunOptions:
         return self
 
 
-def unsupported(opt: RunOptions) -> List[str]:
-    """The refused flags that ``opt`` sets, each with the ROADMAP item
-    that brings it (module docstring); empty when the port runs ``opt``."""
-    out = []
-    if opt.profile_dir:
-        out.append("--profile_dir is not supported by the port yet: the "
-                   "profiling tools come with ROADMAP queue 1 item 6")
-    if opt.remat:
-        out.append("--remat is not supported by the port: activation "
-                   "checkpointing is queued (ROADMAP queue 1 item 1, "
-                   "'map or refuse')")
-    return out
-
-
 def parse_arguments(argv=None) -> RunOptions:
     d = RunOptions()
     p = argparse.ArgumentParser(
@@ -293,7 +278,8 @@ def parse_arguments(argv=None) -> RunOptions:
                    help="flash-attention routing threshold (bucketed "
                    "seq >= this trains on the flash kernels)")
     p.add_argument("--remat", action="store_true",
-                   help="refused by the port (ROADMAP)")
+                   help="recompute each encoder layer's forward in the "
+                   "backward instead of keeping its activations")
     p.add_argument("--n_model_parallel", type=int, default=1)
     p.add_argument("--len_multiple", type=int, default=d.len_multiple)
     p.add_argument("--length_buckets", default=d.length_buckets)

@@ -1,7 +1,8 @@
 """ctypes bindings for the native (C++) shard loader/packer -- the port's
-copy of ``nbest_asr_tpu/data/native_loader.py`` (the in-memory
-``pack_lines`` path the Predictor uses; it builds and loads the same
-``native/nbest_loader.cpp`` into the same ``native/build/``).
+copy of ``nbest_asr_tpu/data/native_loader.py`` (``NativePacker`` :141,
+``pack_file`` :230, ``pack_lines`` :244, ``pack_file_native`` :272); it
+builds and loads the same ``native/nbest_loader.cpp``, into a library of
+its own in the same ``native/build/``.
 
 `native/nbest_loader.cpp` implements the offline tokenize+layout+pack pass
 (the work the reference does in Python *per batch per epoch*,
@@ -10,18 +11,23 @@ library.  The Python word-vocab path (`input_builder.pack_split`) remains
 the correctness oracle and the fallback when no C++ toolchain exists; a
 parity test pins the two together.
 
-The persistent `NativePacker` handle serves ``pack_lines``: in-memory
-records -> PackedSplit (serving path; no filesystem touch,
-`nbl_load_buffer`).
+Two entry points share one persistent `NativePacker` handle:
+- ``pack_file``  -- shard file -> PackedSplit (the CLI's packer,
+  ``cli.prepare_packed_splits``)
+- ``pack_lines`` -- in-memory records -> PackedSplit (serving path; no
+  filesystem touch, `nbl_load_buffer`)
 
 Tokenizer scope:
-- ``WordVocabTokenizer`` — whole-word vocab lookup (from-scratch runs);
-- BERT-family WordPiece (a tokenizer adapter whose ``_tok`` is a
-  transformers BertTokenizer / BertTokenizerFast) — native greedy longest-match subword tokenization
+- ``WordVocabTokenizer`` -- whole-word vocab lookup (from-scratch runs);
+- BERT-family WordPiece: the port's own ``WordPieceTokenizer`` (every
+  BERT-family checkpoint directory, no ``transformers``) whose accent
+  stripping follows its lower-casing, as the C++ tokenizer's does, or a
+  tokenizer adapter whose ``_tok`` is a transformers BertTokenizer /
+  BertTokenizerFast -- native greedy longest-match subword tokenization
   with BasicTokenizer clean/lower/strip-accents/punct-split semantics,
   bit-parity-tested against transformers.  This covers the reference's
   primary pretrained path (`utils/bert_xlnet_inputs.py:46-53`) plus the
-  in-repo MLM checkpoints (`tools/pretrain_mlm.py`).
+  in-repo MLM checkpoints (``tools/pretrain_mlm.py``).
 - RoBERTa BPE / XLM-R SentencePiece adapters fall back to the Python
   packer (different sub-token algebras; offline-only paths).
 """
@@ -37,7 +43,8 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .input_builder import PackedSplit, round_up
-from .tokenizer import BaseTokenizer, WordVocabTokenizer
+from .tokenizer import (BaseTokenizer, WordPieceTokenizer,
+                        WordVocabTokenizer)
 from .vocab import Memory
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -50,20 +57,30 @@ _lib_cache: Optional[ctypes.CDLL] = None
 
 def build_library(force: bool = False) -> Optional[str]:
     """Compile the shared library (cached).  Returns the .so path or None
-    when no toolchain is available."""
+    when no toolchain is available.
+
+    Processes that start together (the ranks of one run, test workers)
+    may all build: each compiles to a name of its own and renames it onto
+    the library, so none loads a file that another is still writing."""
     out_dir = os.path.join(_REPO, "native", "build")
-    so_path = os.path.join(out_dir, "libnbest_loader.so")
+    so_path = os.path.join(out_dir, "libnbest_loader_torch.so")
     if os.path.exists(so_path) and not force:
         if (os.path.getmtime(so_path) >= os.path.getmtime(_SRC)):
             return so_path
     os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
     try:
         subprocess.run(
             ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC,
-             "-o", so_path],
+             "-o", tmp],
             check=True, capture_output=True)
+        os.replace(tmp, so_path)
     except (OSError, subprocess.CalledProcessError):
         return None
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
     return so_path
 
 
@@ -113,24 +130,34 @@ def native_available() -> bool:
 
 
 def _bert_wordpiece_info(tokenizer: BaseTokenizer):
-    """(ordered vocab list, do_lower_case) when ``tokenizer`` adapts a
-    BERT WordPiece tokenizer, else None."""
-    tok = getattr(tokenizer, "_tok", None)
-    if tok is None:
-        return None
-    try:
-        from transformers import BertTokenizer, BertTokenizerFast
-    except ImportError:
-        return None
-    if not isinstance(tok, (BertTokenizer, BertTokenizerFast)):
-        return None
-    vocab = tok.get_vocab()
+    """(ordered vocab list, do_lower_case, unk token) when ``tokenizer`` is
+    BERT's WordPiece -- the port's ``WordPieceTokenizer`` with accents
+    stripped exactly when it lower-cases, or an adapter over a BERT
+    tokenizer -- else None."""
+    if isinstance(tokenizer, WordPieceTokenizer):
+        if tokenizer.strip_accents != tokenizer.do_lower_case:
+            return None
+        vocab = tokenizer.ids
+        lower, unk = tokenizer.do_lower_case, tokenizer.unk_token
+    else:
+        tok = getattr(tokenizer, "_tok", None)
+        if tok is None:
+            return None
+        try:
+            from transformers import BertTokenizer, BertTokenizerFast
+        except ImportError:
+            return None
+        if not isinstance(tok, (BertTokenizer, BertTokenizerFast)):
+            return None
+        vocab = tok.get_vocab()
+        lower = bool(getattr(tok, "do_lower_case", True))
+        unk = tok.unk_token
     inv = [None] * (max(vocab.values()) + 1)
     for t, i in vocab.items():
         inv[i] = t
     inv = [t if t is not None else f"[unused_gap{i}]"
            for i, t in enumerate(inv)]
-    return inv, bool(getattr(tok, "do_lower_case", True))
+    return inv, lower, unk
 
 
 def native_supported(tokenizer: BaseTokenizer) -> bool:
@@ -177,12 +204,12 @@ class NativePacker:
                         "BERT WordPiece tokenizers; "
                         f"got {type(tokenizer).__name__} over "
                         f"{type(getattr(tokenizer, '_tok', None)).__name__}")
-                inv, lower = info
+                inv, lower, unk = info
                 vocab_path = os.path.join(td, "vocab.txt")
                 with open(vocab_path, "w") as fp:
                     fp.write("\n".join(inv) + "\n")
                 ids = tokenizer.convert_tokens_to_ids
-                unk_id = ids([getattr(tokenizer._tok, "unk_token")])[0]
+                unk_id = ids([unk])[0]
                 self._h = lib.nbl_create_wordpiece(
                     vocab_path.encode(), label_path.encode(),
                     tokenizer.pad_token_id, unk_id,
@@ -229,6 +256,20 @@ class NativePacker:
             trans_attn_mask=t_mask, labels=labels,
             raw_asr=raw_asr, raw_labels=raw_labels, max_len=max_len)
 
+    def pack_file(self, shard_path: str, max_len: Optional[int] = None,
+                  len_multiple: int = 8) -> PackedSplit:
+        n = self._lib.nbl_load(self._h, shard_path.encode(), self._layout)
+        if n < 0:
+            raise RuntimeError(
+                f"native loader: {self._lib.nbl_error(self._h).decode()}")
+        raw_asr = []
+        with open(shard_path) as fp:
+            for line in fp:
+                parts = line.strip("\n\r").split("\t<=>\t")
+                if len(parts) == 3:
+                    raw_asr.append(parts[0].strip().split(" "))
+        return self._pack_loaded(n, max_len, len_multiple, raw_asr)
+
     def pack_lines(self, asr_seqs: Sequence[Sequence[str]],
                    trans_seqs: Optional[Sequence[Sequence[str]]] = None,
                    labels: Optional[Sequence[Sequence[str]]] = None,
@@ -255,3 +296,13 @@ class NativePacker:
                 "marker or embedded newlines/tabs)")
         return self._pack_loaded(n, max_len, len_multiple,
                                  [list(a) for a in asr_seqs])
+
+
+def pack_file_native(shard_path: str, memory: Memory,
+                     tokenizer: BaseTokenizer,
+                     layout: str = "default",
+                     max_len: Optional[int] = None,
+                     len_multiple: int = 8) -> PackedSplit:
+    """One-shot wrapper (training/CLI path)."""
+    packer = NativePacker(memory, tokenizer, layout)
+    return packer.pack_file(shard_path, max_len, len_multiple)

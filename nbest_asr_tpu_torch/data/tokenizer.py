@@ -153,6 +153,54 @@ def _is_space(ch: str) -> bool:
     return ch in " \t\n\r" or unicodedata.category(ch) in ("Zs", "Zl", "Zp")
 
 
+def bert_normalize(text: str, lower: bool, strip_accents: bool,
+                   chinese: bool = True) -> str:
+    """BERT's normalizer: control characters dropped, whitespace to
+    spaces, spaces around CJK ideographs (``chinese``), accents stripped
+    (NFD, Mn marks dropped), then lower case."""
+    chars = []
+    for ch in text:
+        cp = ord(ch)
+        if cp == 0 or cp == 0xFFFD or (
+                ch not in "\t\n\r"
+                and unicodedata.category(ch).startswith("C")):
+            continue
+        if _is_space(ch):
+            chars.append(" ")
+        elif chinese and _is_chinese(cp):
+            chars.append(f" {ch} ")
+        else:
+            chars.append(ch)
+    text = "".join(chars)
+    if strip_accents:
+        text = "".join(c for c in unicodedata.normalize("NFD", text)
+                       if unicodedata.category(c) != "Mn")
+    if lower:
+        text = text.lower()
+    return text
+
+
+def bert_words(text: str) -> List[str]:
+    """BERT's pre-tokenizer: split on whitespace, each punctuation
+    character a word of its own."""
+    words, cur = [], []
+    for ch in text:
+        if _is_space(ch) or ch.isspace():
+            if cur:
+                words.append("".join(cur))
+                cur = []
+        elif _is_punct(ch):
+            if cur:
+                words.append("".join(cur))
+                cur = []
+            words.append(ch)
+        else:
+            cur.append(ch)
+    if cur:
+        words.append("".join(cur))
+    return words
+
+
 class WordPieceTokenizer(BaseTokenizer):
     """BERT's tokenizer from a checkpoint directory, as ``BertTokenizerFast``
     runs it:
@@ -276,26 +324,8 @@ class WordPieceTokenizer(BaseTokenizer):
         return out
 
     def _normalize(self, text: str) -> str:
-        chars = []
-        for ch in text:
-            cp = ord(ch)
-            if cp == 0 or cp == 0xFFFD or (
-                    ch not in "\t\n\r"
-                    and unicodedata.category(ch).startswith("C")):
-                continue
-            if _is_space(ch):
-                chars.append(" ")
-            elif self.chinese and _is_chinese(cp):
-                chars.append(f" {ch} ")
-            else:
-                chars.append(ch)
-        text = "".join(chars)
-        if self.strip_accents:
-            text = "".join(c for c in unicodedata.normalize("NFD", text)
-                           if unicodedata.category(c) != "Mn")
-        if self.do_lower_case:
-            text = text.lower()
-        return text
+        return bert_normalize(text, self.do_lower_case, self.strip_accents,
+                              self.chinese)
 
     def _wordpiece(self, word: str) -> List[str]:
         if len(word) > self.max_chars:
@@ -317,24 +347,6 @@ class WordPieceTokenizer(BaseTokenizer):
             start = end
         return out
 
-    def _words(self, text: str) -> List[str]:
-        words, cur = [], []
-        for ch in text:
-            if _is_space(ch) or ch.isspace():
-                if cur:
-                    words.append("".join(cur))
-                    cur = []
-            elif _is_punct(ch):
-                if cur:
-                    words.append("".join(cur))
-                    cur = []
-                words.append(ch)
-            else:
-                cur.append(ch)
-        if cur:
-            words.append("".join(cur))
-        return words
-
     def tokenize(self, word: str) -> List[str]:
         out: List[str] = []
         for piece, tok in self._split(word, self._raw_split):
@@ -345,7 +357,7 @@ class WordPieceTokenizer(BaseTokenizer):
                 if t is not None:
                     out.append(t)
                     continue
-                for w in self._words(p):
+                for w in bert_words(p):
                     out += self._wordpiece(w)
         return out
 

@@ -65,7 +65,10 @@ when ``use_fused_ffn`` and the lanes hold -- through
 (``encoder.py:420-432``), else ``fused_ffn_block`` -- and otherwise runs
 the plain FFN with ``layers.dropout``.  ``use_int8_train_bwd`` selects the
 int8-dgrad backward of whichever block took its int8 route, and does
-nothing elsewhere, as in JAX.
+nothing elsewhere, as in JAX.  ``remat`` runs each training layer under a
+non-reentrant ``torch.utils.checkpoint`` (``_run_layer``), on every route
+and under tensor parallelism, as JAX's ``jax.checkpoint`` of its layer
+step.
 
 Where JAX would run a kernel the port does not have, the forward raises
 ``NotImplementedError`` rather than run the plain path quietly: the
@@ -102,8 +105,9 @@ class EncoderConfig:
     flags ``use_int8_train``, ``use_int8_train_attn`` and
     ``use_int8_train_bwd``, and in eval and training ``use_fused_ln``,
     ``use_fused_gelu`` and ``use_fused_embedding`` (module docstring);
-    ``remat`` and ``scan_unroll`` steer the TPU's scan and are kept so one
-    configuration describes both packages."""
+    and in training ``remat`` (``_run_layer``); ``scan_unroll`` steers the
+    TPU's scan and is kept so one configuration describes both
+    packages."""
 
     vocab_size: int
     hidden_size: int = 768
@@ -420,6 +424,27 @@ def _tp_layer(x: torch.Tensor, p: dict, attn_mask: torch.Tensor,
                       cfg.layer_norm_eps)
 
 
+def _run_layer(body, x: torch.Tensor, layer: int, remat: bool
+               ) -> torch.Tensor:
+    """``body(x, layer)``; under ``remat`` inside a non-reentrant
+    ``torch.utils.checkpoint``, which keeps only ``x`` and re-runs the
+    layer's forward in the backward (JAX's ``jax.checkpoint`` of the layer
+    step, ``encoder.py:462-464``).  The recompute draws the same dropout
+    masks: every site's generator is made inside ``body`` from the
+    layer's seed, and the kernels' Philox keep bits are keyed on (seed,
+    element), so nothing depends on a generator's state between the two
+    runs."""
+    if not remat:
+        return body(x, layer)
+    from torch.utils.checkpoint import checkpoint
+
+    # no route draws from the default generators (``layers.dropout``
+    # refuses a missing one), so saving and restoring their states around
+    # each layer's forward and recompute would be work for nothing
+    return checkpoint(body, x, layer, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def encoder_forward(params: dict, input_ids: torch.Tensor,
                     attn_mask: torch.Tensor,
                     token_type_ids: Optional[torch.Tensor],
@@ -455,10 +480,14 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
         x = _embed(params, input_ids, token_type_ids, cfg,
                    position_ids=position_ids, seed=seed if train else None,
                    mesh=mesh)
+
+        def tp_body(x: torch.Tensor, layer: int) -> torch.Tensor:
+            return _tp_layer(x, {k: v[layer] for k, v in lp.items()},
+                             attn_mask, cfg, mesh,
+                             fold_in(seed, layer) if train else None)
+
         for layer in range(cfg.num_layers):
-            x = _tp_layer(x, {k: v[layer] for k, v in lp.items()},
-                          attn_mask, cfg, mesh,
-                          fold_in(seed, layer) if train else None)
+            x = _run_layer(tp_body, x, layer, train and cfg.remat)
         return x
     if train:
         _refuse_unported_training(cfg, *input_ids.shape)
@@ -512,7 +541,10 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
         return generator(fold_in(lseed, site), x.device)
 
     hidden_rate = cfg.hidden_dropout if train else 0.0
-    for layer in range(cfg.num_layers):
+
+    def layer_body(x: torch.Tensor, layer: int) -> torch.Tensor:
+        # the layer's slices and seeds are taken here, so that a
+        # remat recompute takes them again
         p = {k: _layer_slice(v, layer) for k, v in lp.items()}
         lseed = fold_in(seed, layer) if train else None
 
@@ -590,4 +622,8 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
             if train:
                 y = dropout(y, hidden_rate, gen(lseed, 3))
             x = res_ln(y, x, p["ffn_ln_scale"], p["ffn_ln_bias"])
+        return x
+
+    for layer in range(cfg.num_layers):
+        x = _run_layer(layer_body, x, layer, train and cfg.remat)
     return x

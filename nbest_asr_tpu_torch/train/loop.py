@@ -615,9 +615,17 @@ class Trainer:
                     os.path.join(opt.exp_dir, f"ckpt_epoch{i}"),
                     epoch=i + 1, best=best)
 
+        # --profile_dir traces the epoch JAX traces (loop.py:655-662)
+        profile_epoch = min(max(1, start_epoch), opt.max_epoch - 1)
         for i in range(start_epoch, opt.max_epoch):
             t0 = time.time()
-            tr = self.run_train_epoch()
+            if opt.profile_dir and i == profile_epoch:
+                from ..utils.profiling import trace
+
+                with trace(opt.profile_dir, self.device):
+                    tr = self.run_train_epoch()
+            else:
+                tr = self.run_train_epoch()
             logger.info(
                 "[Train]\tEpoch: %02d\tTime: %.2f\tLoss: %.2f\t"
                 "(p/r/f): (%.2f/%.2f/%.2f)\tAcc: %.2f" %

@@ -10,13 +10,15 @@ byte and the classification report (the same text, so the same numbers).
 (the port with ``device="cpu"``), write the same set of artifacts, and
 their log lines have the same formats; the error cases of the JAX CLI's
 tests return the same codes.  (e) ``--testing`` reloads ``model.ckpt`` and
-reproduces the best epoch's valid metrics.  (f) Each refused flag returns
-2 with its message, and so does a world size that ``--n_model_parallel``
-does not divide; the pretrained flags are honoured: with no local
-checkpoint both CLIs warn alike and train, or under
-``--require_pretrained`` return 2 with the same message, and a tiny
-``--tod_pre_trained_model`` run matches JAX's epoch by epoch.  (g) ``load_predictor`` restores a Trainer's params
-and predicts as a Predictor built on them."""
+reproduces the best epoch's valid metrics.  (f) A world size that
+``--n_model_parallel`` does not divide returns 2 with its message; the
+pretrained flags are honoured: with no local checkpoint both CLIs warn
+alike and train, or under ``--require_pretrained`` return 2 with the same
+message, and a tiny ``--tod_pre_trained_model`` run matches JAX's epoch by
+epoch, with ``--remat`` too; the splits the native packer gives equal the
+Python packer's (``--no_native_loader``) and JAX's CLI's.  (g)
+``load_predictor`` restores a Trainer's params and predicts as a Predictor
+built on them."""
 
 import dataclasses
 import os
@@ -254,23 +256,6 @@ def test_cli_error_codes_match_jax(case, tiny_memory, tmp_path, capsys):
         want[1].splitlines()[-1].replace("nbest_asr_tpu", "")
 
 
-REFUSED = {
-    "profile": (["--profile_dir", "/x"], "item 6"),
-    "remat": (["--remat"], "'map or refuse'"),
-}
-
-
-@pytest.mark.parametrize("case", list(REFUSED))
-def test_cli_refuses_unported_flags(case, dataroot, tmp_path, capsys):
-    flags, item = REFUSED[case]
-    rc, err = _rc_and_err(cli.main, [
-        "--dataset", "dstc2", "--dataroot", dataroot, "--experiment",
-        str(tmp_path / "exp"), *flags], capsys, device="cpu")
-    assert rc == 2
-    assert flags[0] in err and item in err
-    assert not (tmp_path / "exp").exists()
-
-
 @pytest.mark.parametrize("world", ["1", "3"])
 def test_cli_refuses_a_world_that_tp_does_not_divide(world, dataroot,
                                                       tmp_path, capsys,
@@ -392,23 +377,15 @@ def _record_epochs(monkeypatch, trainer_cls, log):
     monkeypatch.setattr(trainer_cls, "run_eval_epoch", eval_epoch)
 
 
-def test_cli_tod_pretrained_run_matches_jax(tod_checkpoint, dataroot,
-                                            tmp_path, capsys, monkeypatch):
-    """``--tod_pre_trained_model DIR --require_pretrained``, two epochs at
-    dropout 0: the port's CLI (``WordPieceTokenizer``, its own checkpoint
-    reader) and JAX's (``AutoTokenizer``, ``AutoModel``) start from the
-    checkpoint's encoder and, with the head JAX draws (bridged in), agree
-    on every epoch's train / valid / test loss, P, R, F1 and Acc within
-    1e-4 relative; the port's encoder at init is the checkpoint's, and
-    ``load_predictor`` serves its best checkpoint with its tokenizer."""
+def _tod_runs(tod_checkpoint, dataroot, tmp_path, capsys, monkeypatch,
+              extra=()):
+    """Both CLIs, two epochs from ``tod_checkpoint`` at dropout 0 with the
+    head JAX draws bridged into the port; every epoch's train / valid /
+    test loss, P, R, F1 and Acc within 1e-4 relative.  -> the port's
+    argv."""
     from nbest_asr_tpu.models import heads as jheads
     from nbest_asr_tpu.train import loop as jloop
-    from nbest_asr_tpu_torch.config import parse_arguments
-    from nbest_asr_tpu_torch.data.tokenizer import (WordPieceTokenizer,
-                                                    load_tokenizer)
-    from nbest_asr_tpu_torch.models.hf_convert import load_pretrained_encoder
     from nbest_asr_tpu_torch.params_bridge import from_jax_numpy
-    from nbest_asr_tpu_torch.serve import load_predictor
     from nbest_asr_tpu_torch.train import loop as tloop
 
     seed = 5
@@ -417,7 +394,7 @@ def test_cli_tod_pretrained_run_matches_jax(tod_checkpoint, dataroot,
             "--require_pretrained", "--batchSize", "8", "--max_epoch", "2",
             "--lr", "1e-3", "--bert_lr", "1e-3", "--bert_dropout", "0",
             "--dropout", "0", "--random_seed", str(seed),
-            "--add_segment_ids"]
+            "--add_segment_ids", *extra]
 
     def jax_head(gen, hidden, n_top, n_bottom):
         # JAX's build_model draws under the CLI's --prng_impl (rbg)
@@ -446,7 +423,26 @@ def test_cli_tod_pretrained_run_matches_jax(tod_checkpoint, dataroot,
         want = [jm.mean_loss, jm.precision, jm.recall, jm.f1, jm.acc]
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6,
                                    err_msg=split)
+    return targv
 
+
+def test_cli_tod_pretrained_run_matches_jax(tod_checkpoint, dataroot,
+                                            tmp_path, capsys, monkeypatch):
+    """``--tod_pre_trained_model DIR --require_pretrained``, two epochs at
+    dropout 0: the port's CLI (``WordPieceTokenizer``, its own checkpoint
+    reader) and JAX's (``AutoTokenizer``, ``AutoModel``) start from the
+    checkpoint's encoder and, with the head JAX draws (bridged in), agree
+    on every epoch's train / valid / test loss, P, R, F1 and Acc within
+    1e-4 relative; the port's encoder at init is the checkpoint's, and
+    ``load_predictor`` serves its best checkpoint with its tokenizer."""
+    from nbest_asr_tpu_torch.data.tokenizer import (WordPieceTokenizer,
+                                                    load_tokenizer)
+    from nbest_asr_tpu_torch.models.hf_convert import load_pretrained_encoder
+    from nbest_asr_tpu_torch.serve import load_predictor
+    from nbest_asr_tpu_torch.train import loop as tloop
+
+    targv = _tod_runs(tod_checkpoint, dataroot, tmp_path, capsys,
+                      monkeypatch)
     opt = parse_arguments(targv)
     memory = cli.resolve_memory(opt)
     tok = load_tokenizer(None, tod_checkpoint, memory,
@@ -463,6 +459,73 @@ def test_cli_tod_pretrained_run_matches_jax(tod_checkpoint, dataroot,
     utts = [" ".join(a) for a in read_sep_data(
         os.path.join(dataroot, "valid")).asr_seqs]
     assert len(pred.predict(utts)) == len(utts)
+
+
+def test_cli_remat_run_matches_jax(tod_checkpoint, dataroot, tmp_path,
+                                   capsys, monkeypatch):
+    """``--remat`` in both CLIs (JAX's ``jax.checkpoint`` over its layer
+    scan, the port's ``torch.utils.checkpoint`` over each layer): the
+    same two epochs as without it, within 1e-4 relative of JAX's."""
+    _tod_runs(tod_checkpoint, dataroot, tmp_path, capsys, monkeypatch,
+              extra=["--remat"])
+
+
+def _packed_equal(got, want, what):
+    assert sorted(got) == sorted(want), what
+    for name in want:
+        g, w = got[name], want[name]
+        assert g.max_len == w.max_len, (what, name)
+        for k in ("input_ids", "segment_ids", "attn_mask", "trans_input_ids",
+                  "trans_segment_ids", "trans_attn_mask", "labels"):
+            np.testing.assert_array_equal(getattr(g, k), getattr(w, k),
+                                          err_msg=f"{what} {name} {k}")
+        assert g.raw_asr == w.raw_asr and g.raw_labels == w.raw_labels
+
+
+@pytest.mark.parametrize("case", ["word", "wordpiece", "coverage"])
+def test_cli_native_splits_equal_python_and_jax(case, dataroot,
+                                                tod_checkpoint, tmp_path,
+                                                monkeypatch):
+    """``prepare_packed_splits`` on the native packer (the default) and
+    with ``--no_native_loader``: the word-vocab tokenizer, a WordPiece
+    checkpoint's (TOD layout) and a coverage sample (its temporary shard
+    removed afterwards) give equal splits, equal to JAX's CLI's on its own
+    native packer.  Where g++ is missing only the Python packer runs."""
+    import tempfile
+
+    from nbest_asr_tpu.data.tokenizer import load_tokenizer as j_load
+    from nbest_asr_tpu.data.vocab import Memory as JMemory
+    from nbest_asr_tpu_torch.data.native_loader import native_available
+    from nbest_asr_tpu_torch.data.tokenizer import load_tokenizer
+
+    argv = ["--dataset", "dstc2", "--dataroot", dataroot]
+    argv += {"word": [], "coverage": ["--coverage", "0.5"],
+             "wordpiece": ["--tod_pre_trained_model", tod_checkpoint]}[case]
+    opt = parse_arguments(argv)
+    memory = cli.resolve_memory(opt)
+    tok = load_tokenizer(None, opt.tod_pre_trained_model, memory)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    packed = []
+    pack = cli.pack_file_native
+
+    def counted(path, *a, **kw):
+        packed.append(path)
+        return pack(path, *a, **kw)
+
+    monkeypatch.setattr(cli, "pack_file_native", counted)
+    native = cli.prepare_packed_splits(opt, memory, tok)
+    assert os.listdir(tmp_path) == []
+    assert bool(packed) == native_available()
+    python = cli.prepare_packed_splits(
+        parse_arguments(argv + ["--no_native_loader"]), memory, tok)
+    _packed_equal(native, python, "native against --no_native_loader")
+    jopt = j_parse(argv)
+    jmem = JMemory.load(os.path.join(dataroot, "memory.json"))
+    want = jcli.prepare_packed_splits(
+        jopt, jmem, j_load(None, jopt.tod_pre_trained_model, jmem))
+    _packed_equal(native, want, "against JAX's")
+    if case == "coverage":
+        assert 0 < len(native["train"].raw_asr) < 40
 
 
 def test_cli_needs_cuda_or_an_explicit_device(dataroot, tmp_path,

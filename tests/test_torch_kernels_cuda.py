@@ -1518,3 +1518,60 @@ def test_fused_rows_encoder_forward_counts(dev):
     assert {n: c for n, c in _cuda.launch_counts.items() if c} == {
         "residual_layer_norm": 4, "residual_layer_norm_bwd": 4,
         "bias_gelu": 2, "bias_gelu_bwd": 2, "embed_lookup": 1}
+
+
+# --remat on both megakernels: a 2-layer bf16 training step at hidden 256
+# (four heads of 64), dropout on, with and without remat from the same
+# parameters and seed
+REMAT_ENC = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+                 intermediate_size=1024, compute_dtype="bfloat16",
+                 hidden_dropout=0.1, attn_dropout=0.1, use_fused_attn=True,
+                 use_fused_ffn=True, use_flash_attention=True)
+# a training layer's forward launches (both blocks), which the recompute
+# repeats, and its backward's, which it leaves alone
+REMAT_FWD = {"gemm_bias_act": 2, "gemm_bias_residual": 2, "layer_norm": 2,
+             "seg_attention": 1}
+REMAT_BWD = {"ffn_bwd_rows": 2, "gemm_dgrad": 4, "seg_attention_bwd": 1}
+
+
+def _remat_step(dev, remat):
+    """Loss and every gradient of a 2-layer bf16 encoder's training
+    forward (sum of squares of its output), and the kernels' launches."""
+    from nbest_asr_tpu_torch.models.encoder import (EncoderConfig,
+                                                    encoder_forward,
+                                                    init_encoder_params)
+    from nbest_asr_tpu_torch.train.optimizer import tree_leaves, tree_map
+
+    cfg = EncoderConfig(**REMAT_ENC, remat=remat)
+    params = tree_map(lambda t: t.to(dev), init_encoder_params(
+        torch.Generator().manual_seed(0), cfg))
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 512, (8, 64), generator=g).to(dev)
+    mask = torch.ones(8, 64, device=dev)
+    mask[3, 40:] = 0
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(leaves)
+    live = tree_map(lambda _: next(it), params)
+    _cuda.reset_launch_counts()
+    y = encoder_forward(live, ids, mask, None, cfg, deterministic=False,
+                        seed=123)
+    loss = (y.float() ** 2).sum()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    return loss.detach(), grads, dict(_cuda.launch_counts)
+
+
+def test_remat_step_is_bit_equal_and_doubles_forward_launches(dev):
+    """Bit-equal loss and gradients (the kernels use no atomics, and the
+    recompute redraws the same Philox keep bits); each forward kernel
+    launched twice as often, each backward kernel as often."""
+    loss0, g0, c0 = _remat_step(dev, False)
+    loss1, g1, c1 = _remat_step(dev, True)
+    assert torch.equal(loss0, loss1)
+    for a, b in zip(g0, g1):
+        assert (a is None and b is None) or torch.equal(a, b)
+    layers = REMAT_ENC["num_layers"]
+    for k, n in REMAT_FWD.items():
+        assert c0[k] == layers * n and c1[k] == 2 * layers * n, k
+    for k, n in REMAT_BWD.items():
+        assert c0[k] == c1[k] == layers * n, k

@@ -48,8 +48,10 @@ def test_port_imports_no_jax():
     # importing it loads no transformers, tokenizers or safetensors
     assert "HF=\n" in proc.stdout, proc.stdout
     n = int(proc.stdout.split("MODULES=")[1].split()[0])
-    assert n >= 43, proc.stdout     # models/hf_convert.py, train/mlm.py
+    assert n >= 48, proc.stdout     # the offline path's five modules
     names = proc.stdout.split("NAMES=")[1].split()[0].split(",")
     for m in ("parallel.mesh", "parallel.data_sharding",
-              "parallel.process_data", "parallel.train_step"):
+              "parallel.process_data", "parallel.train_step",
+              "tools.pretrain_mlm", "tools.run_etl", "tools.convert_memory",
+              "data.wordpiece_trainer", "utils.profiling"):
         assert "nbest_asr_tpu_torch." + m in names, m
