@@ -238,6 +238,23 @@ Phases, each fatal on failure:
    whole step's peak is BertAdam's update, printed beside); step ms and
    peaks printed, and for one more step each way under ``torch.profiler``
    the step's span beside its device kernels' summed time.
+17. The tools (``phase_tools``), on a synthetic REF_RAW
+   (``write_ref_raw``: 1000 sessions of ``write_dstc2_sessions`` through
+   the ETL, a reference-format ``memory.pt``, "thankyou" added to 70% of
+   the rows so that an epoch beats F1 0) that each tool's ``REF_RAW`` (or
+   ``perf_probe.MEMORY_PT``) is pointed at: (a) ``gpu_kernel_check
+   --record`` into a temporary directory, every check passing and every
+   ``_cuda.KERNELS`` entry launched by the check its ``COVERAGE`` names
+   (comparison launches, left out of the record's counts); (b)
+   ``serve_bench`` at BERT-base, batch 64, max_len 256, 10 iterations,
+   ``--quantize none`` then ``int8``; (c) ``quality_smoke`` at its widths
+   (768 hidden, 4 layers), 3 epochs; (d) ``serving_quality --epochs 2``,
+   its three arms; (e) ``quality_sweep --seeds 999-1000 --skip_coverage
+   --epochs 1`` (one ``quality_smoke`` subprocess a run, reading the same
+   REF_RAW) and ``quality_aggregate`` on its log; (f) ``perf_probe --what
+   opt,attn,step --fused_attn --fused_ffn`` at 64 x 256.  Each part of
+   (b)-(f) must launch the kernels ``TOOL_KERNELS`` names; prints each
+   tool's line or table, each part's wall seconds and the phase's.
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
@@ -410,13 +427,6 @@ HBM = 3.35e12
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def bound(ops: float, nbytes: float, kind: str):
@@ -1193,6 +1203,8 @@ def phase_slice(dev):
     # forward ms per batch (CUDA events); predict utt/s with bf16 and int8
     # alternating ABBA so that clock drift falls on both alike
     pp = Predictor(params, plain_cfg, memory, tok, quantize="none", **kw)
+    from nbest_asr_tpu_torch.tools.gpu_kernel_check import card_line
+
     card = card_line()
     for bucket, req in zip(BUCKETS, reqs):
         packed = kp._pack([u.split() for u in req[:BATCH]])
@@ -4674,6 +4686,48 @@ def write_dstc2_sessions(data_dir, n_sessions: int, seed: int,
     return kept
 
 
+def write_ref_raw(root, n_sessions: int, seed: int) -> str:
+    """A synthetic stand-in for the reference's processed DSTC2 directory
+    (the tools' ``REF_RAW``): ``n_sessions`` sessions of
+    ``write_dstc2_sessions`` through the port's ETL into
+    ``<root>/processed_data/raw`` (train / valid / test, ``memory.json``),
+    plus the reference-format ``memory.pt`` (a torch pickle of the
+    memory's dicts, ``process_dstc2_with_SEP.py:427``) -> that directory.
+    The sessions' acts are drawn apart from their words, so, as in
+    ``write_dataroot``, 70% of each shard's rows also carry "thankyou"
+    (DSTC2's label counts are as skewed), which a few epochs learn, so
+    that an epoch beats F1 0 and writes the best checkpoint."""
+    from nbest_asr_tpu_torch.data.etl import run_etl
+    from nbest_asr_tpu_torch.data.vocab import Memory
+
+    sessions = os.path.join(root, "sessions")
+    write_dstc2_sessions(sessions, n_sessions, seed=seed)
+    run_etl(sessions, root)
+    raw = os.path.join(root, "processed_data", "raw")
+    rng = np.random.RandomState(seed)
+    for name in ("train", "valid", "test"):
+        path = os.path.join(raw, name)
+        with open(path) as fp:
+            rows = [line.rstrip("\n").split("\t<=>\t") for line in fp]
+        with open(path, "w") as fp:
+            for asr, trans, labels in rows:
+                gold = [x for x in labels.split(";") if x]
+                if rng.rand() < 0.7 and "thankyou" not in gold:
+                    gold.append("thankyou")
+                fp.write("%s\t<=>\t%s\t<=>\t%s\n" % (
+                    asr, trans, ";".join(gold)))
+    mem = Memory.load(os.path.join(raw, "memory.json"))
+    torch.save({
+        "word2idx": mem.word2idx, "label2idx": mem.label2idx,
+        "toplabel2idx": mem.toplabel2idx,
+        "top2bottom_dict": mem.top2bottom, "sysact2idx": mem.sysact2idx,
+        "act2idx": mem.act2idx, "slot2idx": mem.slot2idx,
+        "value2idx": mem.value2idx, "single_acts": mem.single_acts,
+        "double_acts": mem.double_acts, "triple_acts": mem.triple_acts,
+    }, os.path.join(raw, "memory.pt"))
+    return raw
+
+
 def csrc_kernel_names() -> set:
     """The ``__global__`` functions' names in the port's csrc/*.cu."""
     import re
@@ -4997,6 +5051,168 @@ def phase_offline(dev, card: str, rig):
     return counts
 
 
+TOOLS_SESSIONS = 1000
+SERVE_BENCH_ARGS = ["--batch", str(BATCH), "--max_len", "256", "--iters",
+                    "10"]
+PROBE_ARGS = ["--what", "opt,attn,step", "--fused_attn", "--fused_ffn",
+              "--batch", str(BATCH), "--seq", "256"]
+# kernels each tool run of phase 17 must launch: bf16 serving, int8
+# serving, training (quality_smoke, serving_quality, perf_probe's step);
+# the quality tools' encoder has JAX's 8 heads of 96, which the attention
+# kernels' lane rule leaves to the plain attention path, as JAX's does
+TOOL_KERNELS = {
+    "serve_bench none": ("gemm_bias_act", "gemm_bias_residual",
+                         "layer_norm", "seg_attention"),
+    "serve_bench int8": ("quantize_rows", "gemm_i8_bias_act",
+                         "gemm_i8_bias_residual", "layer_norm",
+                         "seg_attention"),
+    "quality_smoke": ("gemm_bias_act", "gemm_bias_residual", "layer_norm",
+                      "ffn_bwd_rows", "gemm_dgrad"),
+    "serving_quality": ("gemm_bias_act", "gemm_bias_residual", "layer_norm",
+                        "ffn_bwd_rows", "gemm_dgrad", "quantize_rows",
+                        "gemm_i8_bias_act", "gemm_i8_bias_residual"),
+    "perf_probe": ("gemm_bias_act", "gemm_bias_residual", "layer_norm",
+                   "ffn_bwd_rows", "gemm_dgrad", "seg_attention",
+                   "seg_attention_bwd"),
+}
+
+
+def sweep_command(raw: str) -> list:
+    """``quality_sweep``'s per-run command with its ``quality_smoke``
+    reading ``raw`` as REF_RAW (the reference's directory, which the
+    tool reads, is not on the card's machine)."""
+    code = ("import sys; from nbest_asr_tpu_torch.tools import "
+            f"quality_smoke as q; q.REF_RAW = {raw!r}; "
+            "sys.exit(q.main(sys.argv[1:]))")
+    return [sys.executable, "-c", code]
+
+
+def tool_run(what: str, card: str, fn, *a):
+    """``fn(*a)`` as phase 17's part ``what``: its wall seconds logged,
+    and every kernel of ``TOOL_KERNELS[what]`` launched by it."""
+    from nbest_asr_tpu_torch.ops import _cuda
+
+    before = dict(_cuda.launch_counts)
+    t0 = time.perf_counter()
+    out = fn(*a)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in _cuda.launch_counts.items()
+                if v != before[k]}
+    log(f"[tools] {what}: {secs:.2f} s; launches {launched} [{card}]")
+    missing = [k for k in TOOL_KERNELS.get(what, ()) if not launched.get(k)]
+    if missing:
+        raise AssertionError(f"{what}: kernels {missing} not launched")
+    return out, secs
+
+
+def phase_tools(dev, card: str):
+    """Phase 17 (module docstring); -> the launch counts of parts (b)-(f)
+    in this process."""
+    import tempfile
+
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.tools import (gpu_kernel_check, perf_probe,
+                                           quality_aggregate, quality_smoke,
+                                           quality_sweep, serve_bench,
+                                           serving_quality)
+
+    t_phase = time.perf_counter()
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) comparisons, not the main path: its launches are not counted
+        rec = os.path.join(tmp, "GPUCHECK.json")
+        t0 = time.perf_counter()
+        rc = gpu_kernel_check.main(["--record", rec])
+        secs["a"] = round(time.perf_counter() - t0, 2)
+        with open(rec) as f:
+            g = json.load(f)
+        log(f"[tools] (a) gpu_kernel_check --record: rc {rc}, n_checks "
+            f"{g['n_checks']}, all_pass {g['all_pass']}, failures "
+            f"{g['failures']}, elapsed_s {g['elapsed_s']} ({secs['a']} s "
+            f"here); launches {g['launch_counts']}; {g['power_limit']}")
+        unlaunched = [k for k in _cuda.KERNELS if g["launch_counts"][k] < 1]
+        if (rc != 0 or not g["all_pass"] or unlaunched or g["n_checks"]
+                != len(gpu_kernel_check.CHECK_NAMES)):
+            raise AssertionError(f"gpu_kernel_check: rc {rc}, failures "
+                                 f"{g['failures']}, not launched "
+                                 f"{unlaunched}")
+
+        raw = write_ref_raw(os.path.join(tmp, "ref"), TOOLS_SESSIONS, 17)
+        for mod in (serve_bench, quality_smoke, serving_quality):
+            mod.REF_RAW = raw
+        perf_probe.MEMORY_PT = os.path.join(raw, "memory.pt")
+        _cuda.reset_launch_counts()
+
+        # (b) serve_bench at BERT-base, bf16 then int8
+        bench = {}
+        for q in ("none", "int8"):
+            bench[q], s_ = tool_run(
+                f"serve_bench {q}", card, serve_bench.run,
+                serve_bench.parse_args(SERVE_BENCH_ARGS + ["--quantize", q]))
+            secs[f"b {q}"] = round(s_, 2)
+            log(f"[tools] (b) serve_bench --quantize {q}: "
+                f"{json.dumps(bench[q])} [{card}]")
+            if bench[q]["quantize"] != q or bench[q]["batch"] != BATCH:
+                raise AssertionError(f"serve_bench {q}: {bench[q]}")
+
+        # (c) quality_smoke at its widths, 3 epochs
+        out = os.path.join(tmp, "qs")
+        rc, secs["c"] = tool_run("quality_smoke", card, quality_smoke.main,
+                                 ["--epochs", "3", "--out", out])
+        best = [json.load(open(os.path.join(d, "best.json")))
+                for d, _, fs in os.walk(os.path.join(out, "exp"))
+                if "best.json" in fs]
+        log(f"[tools] (c) quality_smoke: rc {rc}, best.json {best} "
+            f"[{card}]")
+        if rc != 0 or len(best) != 1 or not all(
+                np.isfinite(best[0][k]) for k in ("vf", "tef")):
+            raise AssertionError(f"quality_smoke: rc {rc}, best {best}")
+
+        # (d) serving_quality on its own 2-epoch run, all three arms
+        out = os.path.join(tmp, "sq")
+        rc, secs["d"] = tool_run("serving_quality", card,
+                                 serving_quality.main,
+                                 ["--epochs", "2", "--out", out])
+        with open(os.path.join(out, "serving_quality.json")) as f:
+            sq = json.load(f)
+        log(f"[tools] (d) serving_quality: rc {rc}, on_gpu {sq['on_gpu']}, "
+            f"{json.dumps(sq['results'])} [{card}]")
+        want = {f"{s_}/{a}" for s_ in ("valid", "test")
+                for a in ("bf16_xla", "int8", "fused_attn_eval")}
+        if rc != 0 or not sq["on_gpu"] or set(sq["results"]) != want:
+            raise AssertionError(f"serving_quality: rc {rc}, {sq}")
+
+        # (e) quality_sweep, one quality_smoke subprocess a run, then
+        # quality_aggregate over its log
+        log_path = os.path.join(tmp, "qsweep", "results.jsonl")
+        saved = quality_sweep.SMOKE
+        quality_sweep.SMOKE = sweep_command(raw)
+        try:
+            rc, secs["e"] = tool_run(
+                "quality_sweep", card, quality_sweep.main,
+                ["--log", log_path, "--seeds", "999-1000", "--skip_coverage",
+                 "--epochs", "1"])
+        finally:
+            quality_sweep.SMOKE = saved
+        with open(log_path) as f:
+            runs = [json.loads(line) for line in f]
+        if rc != 0 or len(runs) != 4 or any(r["rc"] != 0 for r in runs):
+            raise AssertionError(f"quality_sweep: rc {rc}, runs {runs}")
+        if quality_aggregate.main(["--log", log_path]) != 0:
+            raise AssertionError("quality_aggregate returned an error")
+
+        # (f) perf_probe at BERT-base, batch 64 x seq 256
+        probe, secs["f"] = tool_run("perf_probe", card, perf_probe.run,
+                                    perf_probe.parse_args(PROBE_ARGS))
+        log(f"[tools] (f) perf_probe {' '.join(PROBE_ARGS)}: "
+            f"{json.dumps(probe)} ms [{card}]")
+    counts = dict(_cuda.launch_counts)
+    log(f"[tools] phase 17: {time.perf_counter() - t_phase:.2f} s; by part "
+        f"{secs} [{card}]")
+    return counts
+
+
 def _cpu_tree(t):
     if isinstance(t, dict):
         return {k: _cpu_tree(v) for k, v in t.items()}
@@ -5047,6 +5263,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--mp-rank"]:      # one rank of phase 15
         return mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.tools.gpu_kernel_check import card_line
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 GEMMs in f32
@@ -5127,6 +5344,7 @@ def main() -> int:
     p_counts = timed("pretrained", phase_pretrained, dev, card)
     m_counts = timed("multiprocess", phase_multiprocess, dev, card, rig)
     o_counts = timed("offline", phase_offline, dev, card, rig)
+    x_counts = timed("tools", phase_tools, dev, card)
     log(f"[time] wall s by phase {phase_s}; from the build's start "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -5148,7 +5366,7 @@ def main() -> int:
         launches = (counts[name] + t_counts[name] + i_counts[name]
                     + a_counts[name] + b_counts[name] + c_counts[name]
                     + l_counts[name] + p_counts[name] + m_counts[name]
-                    + o_counts[name])
+                    + o_counts[name] + x_counts[name])
         if name in s_bounds:        # a serving layer's launches
             row(name, name, launches, *times[(name, BUCKETS[-1])],
                 *s_bounds[name])
@@ -5172,8 +5390,10 @@ def main() -> int:
         "Predictors' requests, the XLM-R Trainer's steps), and the "
         "multi-process phase's runs in this process (the one-rank NCCL "
         "mesh's steps, the one-process direct-mode epoch), and the offline "
-        "phase's (pretrain_mlm's steps, the --remat fine-tune's two epochs) "
-        "together, the "
+        "phase's (pretrain_mlm's steps, the --remat fine-tune's two epochs), "
+        "and the tools phase's in this process (serve_bench's requests, "
+        "quality_smoke's and serving_quality's training and serving, "
+        "perf_probe's attention and steps) together, the "
         "[train] rows the int8 "
         "training runs alone; "
         "ms / plain_ms / library_ms / bound_ms: one encoder layer's "

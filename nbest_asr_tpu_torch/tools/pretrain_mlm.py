@@ -185,13 +185,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def resolve_device(platform) -> torch.device:
+def resolve_device(platform, tool: str = "pretrain_mlm") -> torch.device:
     """The CPU when ``platform`` is 'cpu', else the card, which must
-    exist."""
+    exist: every tool of the port takes its device from here."""
     if platform == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available: pretrain_mlm runs on an "
+        raise RuntimeError(f"CUDA is not available: {tool} runs on an "
                            "NVIDIA GPU (pass --platform cpu for the CPU)")
     return torch.device("cuda", 0)
 

@@ -48,10 +48,14 @@ def test_port_imports_no_jax():
     # importing it loads no transformers, tokenizers or safetensors
     assert "HF=\n" in proc.stdout, proc.stdout
     n = int(proc.stdout.split("MODULES=")[1].split()[0])
-    assert n >= 48, proc.stdout     # the offline path's five modules
+    assert n >= 55, proc.stdout     # the tools of the JAX package too
     names = proc.stdout.split("NAMES=")[1].split()[0].split(",")
     for m in ("parallel.mesh", "parallel.data_sharding",
               "parallel.process_data", "parallel.train_step",
               "tools.pretrain_mlm", "tools.run_etl", "tools.convert_memory",
-              "data.wordpiece_trainer", "utils.profiling"):
+              "data.wordpiece_trainer", "utils.profiling",
+              "tools.gpu_kernel_check", "tools.serve_bench",
+              "tools.serving_quality", "tools.quality_smoke",
+              "tools.quality_sweep", "tools.quality_aggregate",
+              "tools.perf_probe"):
         assert "nbest_asr_tpu_torch." + m in names, m
