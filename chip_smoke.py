@@ -241,7 +241,9 @@ Phases, each fatal on failure:
 17. The tools (``phase_tools``), on a synthetic REF_RAW
    (``write_ref_raw``: 1000 sessions of ``write_dstc2_sessions`` through
    the ETL, a reference-format ``memory.pt``, "thankyou" added to 70% of
-   the rows so that an epoch beats F1 0) that each tool's ``REF_RAW`` (or
+   the rows so that an epoch beats F1 0, a third of them lengthened to
+   100-240 words so that the tools' training fills the 160 and 256
+   buckets) that each tool's ``REF_RAW`` (or
    ``perf_probe.MEMORY_PT``) is pointed at: (a) ``gpu_kernel_check
    --record`` into a temporary directory, every check passing and every
    ``_cuda.KERNELS`` entry launched by the check its ``COVERAGE`` names
@@ -253,8 +255,32 @@ Phases, each fatal on failure:
    --epochs 1`` (one ``quality_smoke`` subprocess a run, reading the same
    REF_RAW) and ``quality_aggregate`` on its log; (f) ``perf_probe --what
    opt,attn,step --fused_attn --fused_ffn`` at 64 x 256.  Each part of
-   (b)-(f) must launch the kernels ``TOOL_KERNELS`` names; prints each
-   tool's line or table, each part's wall seconds and the phase's.
+   (b)-(f) must launch the kernels ``TOOL_KERNELS`` names (quality_smoke
+   the single-block attention pair, at 8 heads of 96); prints each tool's
+   line or table, each part's wall seconds and the phase's.
+18. Head dims past the wgmma kernels' 64 (``phase_head_dims``, run after
+   phase 10).  (a) The single-block pair at d = 96 (32 x 256 x 8 heads,
+   QKV views) and 48 (its 64-wide instance, 48 x 160 x 16), the tiled
+   trio at d = 96 (32 x 1024 x 8), 192, 256 and 48 (8 x 1024), padded and
+   packed masks, dropout 0 and 0.1, against their plain versions under
+   ``Checker``; none on a wgmma kernel.  (b) Device ms of the five at d =
+   96 (the pair at 32 x 256, the trio at 32 x 1024, 8 heads) beside the
+   plain versions, SDPA's forward or backward alone on the same operands
+   and the bounds.  (c) The quality tools' encoder (hidden 768, 8 heads of
+   96, intermediate 3072, 4 layers, bf16, dropout 0.1, seed-0 weights)
+   with the CLI's "auto" kernel flags on the card (``use_fused_ffn``,
+   ``use_fused_attn``, ``use_flash_attention``): 3 steps at each of the
+   buckets 96, 160, 256 (phase 6's micros), counters by
+   ``PER_LAYER_TRAIN_FFN`` at 96 and ``PER_LAYER_TRAIN_FLASH_SB`` at 160
+   and 256 (the megakernel's lane rule fails at d = 96); at dropout 0 one
+   kernel step against one plain step at 256 (phase 6's gate); 30 steps
+   on a fixed micro at 160 halve the loss; the CLI's from-scratch
+   geometry (4 heads of 192) under ``--no_fused_attn``, one counted step
+   at 256 held to the plain step; the tiled leg, the same encoder at 48 x
+   1024 (max_position 1024; at 32 rows JAX's ``_flash_preferred`` leaves
+   8 heads to the plain path), one counted step on the tiled kernels held
+   to the same step on their plain versions.  Prints step ms and a JSON
+   line of the d = 96 kernels' times, bounds and launches a step.
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
@@ -420,6 +446,18 @@ FLASH_TILED_SHAPES = ((LONG_BATCH, LONG_SEQ, NH, 64), (8, 2048, NH, 64),
 # (nbest_asr_tpu/train/loop.py:430)
 TRAIN_MICRO = {64: 128, 96: 80, 160: 48, 256: 32}
 N_ACCUM, TRAIN_STEPS, DROPOUT = 2, 3, 0.1
+# phase 18: the quality tools' encoder (hidden 768, 8 heads of 96,
+# intermediate 3072, 4 layers) on its buckets; the attention kernels'
+# checks at head dims past the wgmma kernels' 64 -- single-block (b, s,
+# heads, d, QKV views), tiled (b, s, heads, d) -- and the tiled leg's
+# rows: JAX's _flash_preferred(32, 1024, 8) is false (3 x 32 x 8 x 1024^2
+# x 2 B = 1.61 GB < 2 GiB, the plain path), at 48 rows it holds (2.42 GB)
+HD, HD_LAYERS, HD_BUCKETS = 96, 4, (96, 160, 256)
+HD_NH = H // HD
+HD_SB_SHAPES = ((32, 256, HD_NH, HD, True), (48, 160, 16, 48, False))
+HD_TILED_SHAPES = ((LONG_BATCH, LONG_SEQ, HD_NH, HD), (8, 1024, 4, 192),
+                   (8, 1024, 3, 256), (8, 1024, 16, 48))
+HD_LONG_BATCH = 48
 # the H100 SXM's published dense peaks (NVIDIA H100 datasheet)
 PEAK = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}
 HBM = 3.35e12
@@ -2173,6 +2211,80 @@ def flash_library_calls(q, k, v, do, mask):
         qt, kt, vt, attn_mask=same, dropout_p=DROPOUT)), fwd_bwd, bwd
 
 
+def check_sb_pair(K, check, gen, dev, shapes, seed0: int):
+    """The single-block pair (``sb_attention`` / ``sb_attention_bwd``)
+    against its plain versions at each (b, s, heads, d, QKV views) of
+    ``shapes``, padded and packed masks, dropout 0 and 0.1: o, the row
+    sums, dq, dk, dv."""
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    for b, s, nh, d, views in shapes:
+        q, k, v, do = flash_operands(gen, dev, b, s, nh, d, views)
+        sc = 1.0 / d ** 0.5
+        for mname, m in zip(("padded", "packed"), masks(b, s, gen, dev)):
+            for rate in (0.0, DROPOUT):
+                tag = f"{b} x {s} x {nh} d {d} {mname} rate {rate}"
+                drop = site(seed0 + s, rate, 3)
+                o, st = K.sb_attention(q, k, v, m, sc, drop, True)
+                grads = K.sb_attention_bwd(q, k, v, do, m, st, sc, drop)
+                torch.cuda.synchronize()
+                ro, rst = K.sb_attention_reference(q, k, v, m, sc, drop,
+                                                   True)
+                check(f"flash sb o {tag}", "seg_attention", o, ro, False)
+                check.rel(f"flash sb row sum {tag}", "seg_attention", st[1],
+                          rst[1], 1e-5)
+                for part, g, r in zip("qkv", grads,
+                                      K.sb_attention_bwd_reference(
+                                          q, k, v, do, m, st, sc, drop)):
+                    check.sums(f"flash sb d{part} {tag}",
+                               "seg_attention_bwd", g, r)
+
+
+def check_tiled_trio(K, check, gen, dev, shapes, seed0: int):
+    """The tiled kernels (``flash_fwd``, ``flash_bwd_dq``,
+    ``flash_bwd_dkv``) against their plain versions at each (b, s, heads,
+    d) of ``shapes`` (q, k, v views of one QKV buffer), padded and packed
+    masks, dropout 0 and 0.1: o, lse, di, dq, dk, dv; all three on their
+    wgmma + TMA kernels exactly at d = 64."""
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    for b, s, nh, d in shapes:
+        q, k, v, do = flash_operands(gen, dev, b, s, nh, d, True)
+        sc = 1.0 / d ** 0.5
+        for mname, m in zip(("padded", "packed"), masks(b, s, gen, dev)):
+            for rate in (0.0, DROPOUT):
+                tag = f"{b} x {s} x {nh} d {d} {mname} rate {rate}"
+                drop = site(seed0 + s, rate, 3)
+                n0 = K.flash_wgmma_launches()
+                o, lse = K.flash_fwd(q, k, v, m, sc, drop)
+                dq, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop)
+                dk, dv = K.flash_bwd_dkv(q, k, v, m, lse, di, do, sc, drop)
+                torch.cuda.synchronize()
+                n1 = K.flash_wgmma_launches()
+                if any(n1[n] - n0[n] != int(d == 64) for n in n1):
+                    raise AssertionError(
+                        f"flash kernels {tag}: wgmma launches {n0} -> {n1}"
+                        "; the wgmma + TMA kernels run exactly at d = 64")
+                ro, rlse = K.flash_fwd_reference(q, k, v, m, sc, drop)
+                check(f"flash_fwd o {tag}", "flash_fwd", o, ro, False)
+                check.rel(f"flash_fwd lse {tag}", "flash_fwd", lse, rlse,
+                          1e-5)
+                del ro, rlse
+                rdq, rdi = K.flash_bwd_dq_reference(q, k, v, m, o, lse, do,
+                                                    sc, drop)
+                check.rel(f"flash_bwd_dq di {tag}", "flash_bwd_dq", di, rdi,
+                          1e-4)
+                check.sums(f"flash_bwd_dq dq {tag}", "flash_bwd_dq", dq,
+                           rdq)
+                del rdq, rdi
+                for part, g, r in zip("kv", (dk, dv),
+                                      K.flash_bwd_dkv_reference(
+                                          q, k, v, m, lse, di, do, sc,
+                                          drop)):
+                    check.sums(f"flash_bwd_dkv d{part} {tag}",
+                               "flash_bwd_dkv", g, r)
+
+
 def check_flash_mask_shared(dev):
     """At s = 256 the tiled kernels (forced by a block size) draw the
     single-block kernels' prob mask: with four packed segments of 64 and
@@ -2247,62 +2359,9 @@ def phase_flash_kernels(dev, card: str):
     check = Checker()
     times = {}
     log("[flash-kernels] single-block kernels on (b, s, heads, d) operands")
-    for b, s, nh, d, views in FLASH_SB_SHAPES:
-        q, k, v, do = flash_operands(gen, dev, b, s, nh, d, views)
-        sc = 1.0 / d ** 0.5
-        for mname, m in zip(("padded", "packed"), masks(b, s, gen, dev)):
-            for rate in (0.0, DROPOUT):
-                tag = f"{b} x {s} d {d} {mname} rate {rate}"
-                drop = site(100 + s, rate, 3)
-                o, st = K.sb_attention(q, k, v, m, sc, drop, True)
-                grads = K.sb_attention_bwd(q, k, v, do, m, st, sc, drop)
-                torch.cuda.synchronize()
-                ro, rst = K.sb_attention_reference(q, k, v, m, sc, drop,
-                                                   True)
-                check(f"flash sb o {tag}", "seg_attention", o, ro, False)
-                check.rel(f"flash sb row sum {tag}", "seg_attention", st[1],
-                          rst[1], 1e-5)
-                for part, g, r in zip("qkv", grads,
-                                      K.sb_attention_bwd_reference(
-                                          q, k, v, do, m, st, sc, drop)):
-                    check.sums(f"flash sb d{part} {tag}",
-                               "seg_attention_bwd", g, r)
+    check_sb_pair(K, check, gen, dev, FLASH_SB_SHAPES, 100)
     log("[flash-kernels] tiled kernels")
-    for b, s, nh, d in FLASH_TILED_SHAPES:
-        q, k, v, do = flash_operands(gen, dev, b, s, nh, d, True)
-        sc = 1.0 / d ** 0.5
-        for mname, m in zip(("padded", "packed"), masks(b, s, gen, dev)):
-            for rate in (0.0, DROPOUT):
-                tag = f"{b} x {s} d {d} {mname} rate {rate}"
-                drop = site(200 + s, rate, 3)
-                n0 = K.flash_wgmma_launches()
-                o, lse = K.flash_fwd(q, k, v, m, sc, drop)
-                dq, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop)
-                dk, dv = K.flash_bwd_dkv(q, k, v, m, lse, di, do, sc, drop)
-                torch.cuda.synchronize()
-                n1 = K.flash_wgmma_launches()
-                if any(n1[n] - n0[n] != int(d == 64) for n in n1):
-                    raise AssertionError(
-                        f"flash kernels {tag}: wgmma launches {n0} -> {n1}"
-                        "; the wgmma + TMA kernels run exactly at d = 64")
-                ro, rlse = K.flash_fwd_reference(q, k, v, m, sc, drop)
-                check(f"flash_fwd o {tag}", "flash_fwd", o, ro, False)
-                check.rel(f"flash_fwd lse {tag}", "flash_fwd", lse, rlse,
-                          1e-5)
-                del ro, rlse
-                rdq, rdi = K.flash_bwd_dq_reference(q, k, v, m, o, lse, do,
-                                                    sc, drop)
-                check.rel(f"flash_bwd_dq di {tag}", "flash_bwd_dq", di, rdi,
-                          1e-4)
-                check.sums(f"flash_bwd_dq dq {tag}", "flash_bwd_dq", dq,
-                           rdq)
-                del rdq, rdi
-                for part, g, r in zip("kv", (dk, dv),
-                                      K.flash_bwd_dkv_reference(
-                                          q, k, v, m, lse, di, do, sc,
-                                          drop)):
-                    check.sums(f"flash_bwd_dkv d{part} {tag}",
-                               "flash_bwd_dkv", g, r)
+    check_tiled_trio(K, check, gen, dev, FLASH_TILED_SHAPES, 200)
     log("[flash-kernels] forced tiled route against the single-block one")
     check_flash_mask_shared(dev)
 
@@ -2773,6 +2832,64 @@ def hold_step(params, outs):
         f"largest delta (<= 5e-2)")
 
 
+def fixed_micro_halves(tag: str, cfg, runs, plain_enc, params, hier, data,
+                       bucket: int, rng):
+    """30 steps on one fixed micro of ``bucket``, dropout on, for each
+    (name, encoder config) of ``runs`` (the first is the one held): lr
+    1e-4 under the trainer's warmup-linear schedule over the 30 steps.
+    The gate reads the micro's dropout-free loss on the plain path
+    (make_eval_step, every kernel flag off) after each step: the median
+    of the last ten must be under half the loss before the first.  One
+    step's loss under dropout is noisy, and on route C's micro one of the
+    last updates (under 8% of the peak lr) throws the fit off, at a step
+    that varies with rounding, on the plain path as on the kernels
+    (PERF.md, route C)."""
+    import dataclasses
+
+    from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
+                                                         make_eval_step,
+                                                         make_train_step)
+    from nbest_asr_tpu_torch.train.losses import LossConfig
+    from nbest_asr_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                     make_optimizer)
+
+    fix_kw = dict(lr=1e-4, bert_lr=1e-4, t_total=30)
+    fixed = rng.randint(0, data[bucket]["input_ids"].shape[0],
+                        (1, TRAIN_MICRO[bucket]))
+    judge = make_eval_step(dataclasses.replace(cfg, encoder=plain_enc),
+                           LossConfig(), hier, dual_stream=False)
+
+    def eval_loss(p):
+        return float(judge(p, data[bucket], fixed[0])["loss"]["total"])
+
+    before = eval_loss(params)
+    curves, evals = {}, {}
+    for name, c in runs:
+        opt = make_optimizer(OptimizerConfig(**fix_kw), params)
+        st = make_train_step(dataclasses.replace(cfg, encoder=c),
+                             LossConfig(), opt, hier, n_accum=1,
+                             dual_stream=False)
+        state = TrainState(params, opt.init(params), 0)
+        g = torch.Generator().manual_seed(5)
+        curves[name], evals[name] = [], []
+        for _ in range(30):
+            state, stats = st(state, data[bucket], fixed, g)
+            curves[name].append(float(stats["loss"]["total"]))
+            evals[name].append(eval_loss(state.params))
+        log(f"[{tag}] fixed micro, seq {bucket}, lr 1e-4 warmup-linear, "
+            f"dropout {DROPOUT}, {name}: total loss "
+            f"{', '.join(f'{v:.1f}' for v in curves[name])}; dropout-free "
+            f"loss {before:.1f}, then after each step "
+            f"{', '.join(f'{v:.1f}' for v in evals[name])}")
+    late = float(np.median(evals[runs[0][0]][-10:]))
+    log(f"[{tag}] dropout-free loss {before:.1f} -> median of the last ten "
+        f"steps {late:.1f} (< {0.5 * before:.1f})")
+    if not late < 0.5 * before:
+        raise AssertionError(f"dropout-free loss {before:.2f} -> {late:.2f} "
+                             "(median of the last ten steps): not halved "
+                             "in 30 steps")
+
+
 def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
     """The training slice through ``make_train_step`` on ``route``'s
     configuration (TRAIN_ROUTES); returns the launch counts of its
@@ -2785,7 +2902,6 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
     from nbest_asr_tpu_torch.ops.kernels import \
         seg_attention_bwd_wgmma_launches as wgmma_bwd
     from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
-                                                         make_eval_step,
                                                          make_train_step)
     from nbest_asr_tpu_torch.train.losses import LossConfig
     from nbest_asr_tpu_torch.train.optimizer import (OptimizerConfig,
@@ -2980,53 +3096,11 @@ def phase_train(dev, card: str, block_ms, rig, route: str, beside=None):
     hold_step(params, outs)
 
     # ---- 30 steps on one fixed micro, dropout on: the loss halves ------ #
-    # lr 1e-4 under the trainer's warmup-linear schedule over the 30 steps;
-    # bf16 and route C: the plain path's run is printed beside.  The gate
-    # reads the micro's dropout-free loss on the plain path (make_eval_step,
-    # every kernel flag off) after each step: the median of the last ten
-    # must be under half the loss before the first.  One step's loss under
-    # dropout is noisy, and on route C's micro one of the last updates
-    # (under 8% of the peak lr) throws the fit off, at a step that varies
-    # with rounding, on the plain path as on the kernels (PERF.md, PR 8)
-    fix_kw = dict(lr=1e-4, bert_lr=1e-4, t_total=30)
-    fixed_bucket = r.get("fixed_bucket", 64)
-    fixed = rng.randint(0, data[fixed_bucket]["input_ids"].shape[0],
-                        (1, TRAIN_MICRO[fixed_bucket]))
-    judge = make_eval_step(dataclasses.replace(cfg, encoder=plain_enc),
-                           LossConfig(), hier, dual_stream=False)
-
-    def eval_loss(p):
-        return float(judge(p, data[fixed_bucket], fixed[0])["loss"]["total"])
-
-    before = eval_loss(params)
-    curves, evals = {}, {}
+    # bf16 and route C: the plain path's run is printed beside
     runs = [("kernels", enc)] + ([("plain", plain_enc)]
                                  if route in ("bf16", "fused_rows") else [])
-    for name, c in runs:
-        opt = make_optimizer(OptimizerConfig(**fix_kw), params)
-        st = make_train_step(dataclasses.replace(cfg, encoder=c),
-                             LossConfig(), opt, hier, n_accum=1,
-                             dual_stream=False)
-        state = TrainState(params, opt.init(params), 0)
-        g = torch.Generator().manual_seed(5)
-        curves[name], evals[name] = [], []
-        for _ in range(30):
-            state, stats = st(state, data[fixed_bucket], fixed, g)
-            curves[name].append(float(stats["loss"]["total"]))
-            evals[name].append(eval_loss(state.params))
-        log(f"[train {route}] fixed micro, seq {fixed_bucket}, lr 1e-4 "
-            "warmup-linear, "
-            f"dropout {DROPOUT}, {name}: total loss "
-            f"{', '.join(f'{v:.1f}' for v in curves[name])}; dropout-free "
-            f"loss {before:.1f}, then after each step "
-            f"{', '.join(f'{v:.1f}' for v in evals[name])}")
-    late = float(np.median(evals["kernels"][-10:]))
-    log(f"[train {route}] dropout-free loss {before:.1f} -> median of the "
-        f"last ten steps {late:.1f} (< {0.5 * before:.1f})")
-    if not late < 0.5 * before:
-        raise AssertionError(f"dropout-free loss {before:.2f} -> {late:.2f} "
-                             "(median of the last ten steps): not halved "
-                             "in 30 steps")
+    fixed_micro_halves(f"train {route}", cfg, runs, plain_enc, params, hier,
+                       data, r.get("fixed_bucket", 64), rng)
     return counts, step_ms, peak
 
 
@@ -3050,8 +3124,8 @@ class flash_and_ffn_on_plain_versions:
         fa.flash_attention, ff.fused_ffn_block = self.saved
 
 
-def long_micros(memory, dev, seed: int):
-    """Two micros of LONG_BATCH rows at seq LONG_SEQ on the device:
+def long_micros(memory, dev, seed: int, batch: int = LONG_BATCH):
+    """Two micros of ``batch`` rows at seq LONG_SEQ on the device:
     DSTC2-shaped token rows (segment 0, then 1 from half the row's
     length; 0-3 gold labels, one per top group) padded from random
     lengths in [768, 1024]; and rows packed (data/packing.py, up to 8
@@ -3079,12 +3153,55 @@ def long_micros(memory, dev, seed: int):
                 "trans_input_ids": ids.copy(), "trans_attn_mask": mask.copy(),
                 "trans_segment_ids": segs.copy(), "labels": labels}
 
-    padded = host(LONG_BATCH, 3 * LONG_SEQ // 4, LONG_SEQ)
-    packed, _ = pack_train_data(host(6 * LONG_BATCH, 150, 400),
+    padded = host(batch, 3 * LONG_SEQ // 4, LONG_SEQ)
+    packed, _ = pack_train_data(host(6 * batch, 150, 400),
                                 capacity=LONG_SEQ, max_segs=8)
-    packed = {k: v[:LONG_BATCH] for k, v in packed.items()}
+    packed = {k: v[:batch] for k, v in packed.items()}
     return [{k: torch.from_numpy(v).to(dev) for k, v in d.items()}
             for d in (padded, packed)]
+
+
+def gate_step(tag: str, what: str, cfg, hier, params, c_kernel, c_plain,
+              micro, idx, n_accum: int, plain_ctx=None) -> dict:
+    """PERF.md section 2's dropout-0 gate: one kernel step (encoder
+    ``c_kernel``) and one plain step (``c_plain``, under ``plain_ctx``
+    if given) from ``params`` on one micro, GATE_OPT's optimizer; the
+    plain step may launch no kernel.  -> the kernel step's launches."""
+    import dataclasses
+
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
+                                                         make_train_step)
+    from nbest_asr_tpu_torch.train.losses import LossConfig
+    from nbest_asr_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                     make_optimizer)
+
+    outs, launched = [], None
+    for which, c in (("kernel", c_kernel), ("plain", c_plain)):
+        c = dataclasses.replace(c, hidden_dropout=0.0, attn_dropout=0.0)
+        opt = make_optimizer(OptimizerConfig(**GATE_OPT), params)
+        st = make_train_step(dataclasses.replace(cfg, encoder=c),
+                             LossConfig(), opt, hier, n_accum=n_accum,
+                             dual_stream=False)
+        s0 = TrainState(params, opt.init(params), 0)
+        _cuda.reset_launch_counts()
+        if which == "plain" and plain_ctx is not None:
+            with plain_ctx():
+                s1, stats = st(s0, micro, idx,
+                               torch.Generator().manual_seed(0))
+        else:
+            s1, stats = st(s0, micro, idx, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        if which == "kernel":
+            launched = dict(_cuda.launch_counts)
+        elif any(_cuda.launch_counts.values()):
+            raise AssertionError("the plain step launched kernels: "
+                                 f"{_cuda.launch_counts}")
+        outs.append((s1.params, {k: float(v)
+                                 for k, v in stats["loss"].items()}))
+    log(f"[{tag}] dropout 0, {what}: one kernel step against one plain step")
+    hold_step(params, outs)
+    return launched
 
 
 def phase_train_long(dev, card: str, block_ms):
@@ -3098,8 +3215,6 @@ def phase_train_long(dev, card: str, block_ms):
     counters by PER_LAYER_TRAIN_TILED; at dropout 0 one kernel step
     against the same step with flash and the FFN block on their kernels'
     plain versions.  Returns the counts and the step ms."""
-    import dataclasses
-
     from nbest_asr_tpu_torch.models.encoder import EncoderConfig
     from nbest_asr_tpu_torch.models.heads import hierarchy_device_arrays
     from nbest_asr_tpu_torch.models.model import (ModelConfig,
@@ -3177,28 +3292,249 @@ def phase_train_long(dev, card: str, block_ms):
         f"attention (tiled) kernels {attn[0]:.3f} ms (plain attention path "
         f"{attn[1]:.3f}), share of the step {share:.3f} [{card}]")
 
-    no_drop = dataclasses.replace(enc, hidden_dropout=0.0, attn_dropout=0.0)
-    outs = []
-    for which in ("kernel", "plain"):
-        st, s0 = new_state(dataclasses.replace(cfg, encoder=no_drop),
-                           **GATE_OPT)
-        _cuda.reset_launch_counts()
-        if which == "plain":
-            with flash_and_ffn_on_plain_versions():
-                s1, stats = st(s0, micros[0], idx,
-                               torch.Generator().manual_seed(0))
-            if any(_cuda.launch_counts.values()):
-                raise AssertionError("the plain-version step launched "
-                                     f"kernels: {_cuda.launch_counts}")
-        else:
-            s1, stats = st(s0, micros[0], idx,
-                           torch.Generator().manual_seed(0))
-        outs.append((s1.params, {k: float(v)
-                                 for k, v in stats["loss"].items()}))
-    log("[train long] dropout 0, padded micro: one kernel step against the "
-        "same step on the kernels' plain versions")
-    hold_step(params, outs)
+    gate_step("train long", "padded micro, against the same step on the "
+              "kernels' plain versions", cfg, hier, params, enc, enc,
+              micros[0], idx, 1, flash_and_ffn_on_plain_versions)
     return counts, ms, peak
+
+
+# --------------------------------------------------------------------- #
+# phase 18: head dims past the wgmma kernels' 64
+# --------------------------------------------------------------------- #
+
+def sb_bounds(b: int, s: int, nh: int, d: int):
+    """The single-block pair's bounds at (b, s, nh, d), as
+    ``train_layer_bounds`` counts them: q, k, v (and dO) read once, o and
+    the row statistics (or dq, dk, dv) written once; QK^T and PV in the
+    forward, five s x s x d products a head in the backward."""
+    x, st, m = b * s * nh * d * 2, 2 * b * nh * s * 4, b * s * 4
+    prod = 2.0 * b * nh * s * s * d
+    return {"seg_attention": bound(2 * prod, 3 * x + m + x + st, "bf16"),
+            "seg_attention_bwd": bound(5 * prod, 3 * x + x + m + st + 3 * x,
+                                       "bf16")}
+
+
+def head_dim_times(K, dev, gen, card: str):
+    """Device ms of the five attention kernels at d = 96 -- the
+    single-block pair at 32 x 256 x 8 heads, the tiled trio at 32 x 1024 x
+    8 heads (q, k, v views of one QKV buffer, padded mask, dropout 0.1) --
+    beside their plain versions, SDPA's forward or backward alone on the
+    same operands, and their bounds.  -> {kernel: (ms, plain ms, library
+    ms, bound ms, bound by)}."""
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    out = {}
+    for (b, s), names in (((32, 256), ("seg_attention", "seg_attention_bwd")),
+                          ((LONG_BATCH, LONG_SEQ),
+                           ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))):
+        q, k, v, do = flash_operands(gen, dev, b, s, HD_NH, HD, True)
+        m = masks(b, s, gen, dev)[0]
+        sc, drop = 1.0 / HD ** 0.5, site(400, DROPOUT, 3)
+        sdpa_fwd, _, sdpa_bwd = flash_library_calls(q, k, v, do, m)
+        lib_fwd, lib_bwd = device_ms(sdpa_fwd), device_ms(sdpa_bwd)
+        if s <= 512:
+            _, st = K.sb_attention(q, k, v, m, sc, drop, True)
+            fns = {"seg_attention": (
+                       lambda: K.sb_attention(q, k, v, m, sc, drop, True),
+                       lambda: K.sb_attention_reference(q, k, v, m, sc, drop,
+                                                        True), lib_fwd),
+                   "seg_attention_bwd": (
+                       lambda: K.sb_attention_bwd(q, k, v, do, m, st, sc,
+                                                  drop),
+                       lambda: K.sb_attention_bwd_reference(
+                           q, k, v, do, m, st, sc, drop), lib_bwd)}
+            bounds = sb_bounds(b, s, HD_NH, HD)
+        else:
+            o, lse = K.flash_fwd(q, k, v, m, sc, drop)
+            _, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop)
+            fns = {"flash_fwd": (
+                       lambda: K.flash_fwd(q, k, v, m, sc, drop),
+                       lambda: K.flash_fwd_reference(q, k, v, m, sc, drop),
+                       lib_fwd),
+                   "flash_bwd_dq": (
+                       lambda: K.flash_bwd_dq(q, k, v, m, o, lse, do, sc,
+                                              drop),
+                       lambda: K.flash_bwd_dq_reference(q, k, v, m, o, lse,
+                                                        do, sc, drop),
+                       lib_bwd),
+                   "flash_bwd_dkv": (
+                       lambda: K.flash_bwd_dkv(q, k, v, m, lse, di, do, sc,
+                                               drop),
+                       lambda: K.flash_bwd_dkv_reference(
+                           q, k, v, m, lse, di, do, sc, drop), lib_bwd)}
+            bounds = flash_bounds(b, s, HD_NH, HD)
+        for name in names:
+            fk, fp, l_ms = fns[name]
+            out[name] = (device_ms(fk), cuda_ms(fp, iters=1, warmup=1), l_ms,
+                         *bounds[name])
+            k_ms, p_ms, _, b_ms, b_by = out[name]
+            what = "forward" if name in ("seg_attention", "flash_fwd") \
+                else "backward alone"
+            log(f"  time {name:<17} {b} x {s} x {HD_NH} d {HD}: kernel "
+                f"{k_ms:.4f} ms device, plain {p_ms:.4f} ms, library "
+                f"(SDPA's {what}) {l_ms:.4f} ms device, bound {b_ms:.4f} ms "
+                f"({b_by}), {b_ms / k_ms:.3f} of it [{card}]")
+        del q, k, v, do, fns
+    return out
+
+
+def phase_head_dims(dev, card: str, rig):
+    """Phase 18 (module docstring).  -> the launch counts of its
+    main-path runs (the steps at 96 / 160 / 256, the d = 192 step and
+    the tiled leg)."""
+    import dataclasses
+
+    from nbest_asr_tpu_torch.models.model import init_model_params
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.ops import kernels as K
+    from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
+                                                         make_train_step)
+    from nbest_asr_tpu_torch.train.losses import LossConfig
+    from nbest_asr_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                     make_optimizer,
+                                                     tree_map)
+
+    gen = torch.Generator().manual_seed(18)
+    check = Checker()
+    log(f"[head dims] single-block kernels at d = {HD} and 48")
+    check_sb_pair(K, check, gen, dev, HD_SB_SHAPES, 400)
+    log(f"[head dims] tiled kernels at d = {HD}, 192, 256 and 48")
+    check_tiled_trio(K, check, gen, dev, HD_TILED_SHAPES, 500)
+    log(f"[head dims] device times at d = {HD}")
+    times = head_dim_times(K, dev, gen, card)
+
+    # the quality tools' encoder with the kernel flags the CLI's "auto"
+    # gives on the card (train/loop.py): the attention megakernel's lane
+    # rule (d % 64) fails, so the plain attention path runs, on the
+    # single-block flash kernels from flash_min_seq 160 on
+    base, hier, data, rng = rig["cfg"], rig["hier"], rig["data"], rig["rng"]
+    auto = dict(use_fused_ffn=True, use_fused_attn=True,
+                use_flash_attention=True)
+    enc = dataclasses.replace(base.encoder, num_heads=HD_NH,
+                              num_layers=HD_LAYERS, **auto)
+    plain_enc = dataclasses.replace(base.encoder, num_heads=HD_NH,
+                                    num_layers=HD_LAYERS)
+    cfg = dataclasses.replace(base, encoder=enc)
+    params = tree_map(lambda a: a.to(dev), init_model_params(
+        torch.Generator().manual_seed(0), cfg))
+
+    def per_layer(bucket):
+        return PER_LAYER_TRAIN_FLASH_SB if bucket >= 160 \
+            else PER_LAYER_TRAIN_FFN
+
+    def new_state(c, **okw):
+        opt = make_optimizer(OptimizerConfig(**okw), params)
+        return (make_train_step(dataclasses.replace(cfg, encoder=c),
+                                LossConfig(), opt, hier, n_accum=N_ACCUM,
+                                dual_stream=False),
+                TrainState(params, opt.init(params), 0))
+
+    def indices(bucket):
+        n_rows = data[bucket]["input_ids"].shape[0]
+        return rng.randint(0, n_rows, (N_ACCUM, TRAIN_MICRO[bucket]))
+
+    def hold_counts(what, counts, want):
+        log(f"[head dims] {what}: launches {counts}, expected {want}")
+        if counts != want:
+            raise AssertionError(f"{what}: launch counts differ from layers "
+                                 "x micros x launches per layer")
+
+    okw = dict(lr=5e-4, bert_lr=1e-4, warmup_proportion=0.1, t_total=100)
+    step, state0 = new_state(enc, **okw)
+    for bucket in HD_BUCKETS:                   # warm-up, not counted
+        step(state0, data[bucket], indices(bucket), gen)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    wgmma0 = (K.seg_attention_bwd_wgmma_launches(), K.flash_wgmma_launches())
+    step_ms = {}
+    for bucket in HD_BUCKETS:
+        state, ms = state0, []
+        for _ in range(TRAIN_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, stats = step(state, data[bucket], indices(bucket), gen)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            parts = {k: float(v) for k, v in stats["loss"].items()}
+            if not all(np.isfinite(v) for v in parts.values()):
+                raise AssertionError(f"bucket {bucket}: loss {parts}")
+        step_ms[bucket] = ms
+    torch.cuda.synchronize()
+    counts = dict(_cuda.launch_counts)
+    hold_counts(f"hidden {H}, {HD_NH} heads of {HD}, {HD_LAYERS} layers, "
+                f"buckets {HD_BUCKETS}, {TRAIN_STEPS} steps each",
+                counts, {k: sum(per_layer(b).get(k, 0) * HD_LAYERS
+                                * TRAIN_STEPS * N_ACCUM for b in HD_BUCKETS)
+                         for k in counts})
+    wgmma1 = (K.seg_attention_bwd_wgmma_launches(), K.flash_wgmma_launches())
+    if wgmma1 != wgmma0:
+        raise AssertionError(f"d = {HD} ran a wgmma kernel: {wgmma0} -> "
+                             f"{wgmma1}")
+    for bucket in HD_BUCKETS:
+        ms = step_ms[bucket]
+        mean = sum(ms) / len(ms)
+        log(f"[head dims] bucket {bucket} (micro {TRAIN_MICRO[bucket]} x "
+            f"{N_ACCUM}): step ms {', '.join(f'{v:.2f}' for v in ms)} (mean "
+            f"{mean:.2f}), {N_ACCUM * TRAIN_MICRO[bucket] / (mean / 1e3):.1f}"
+            f" utt/s; the attention: "
+            + ("single-block flash kernels, "
+               f"{HD_LAYERS * N_ACCUM} seg_attention and as many "
+               "seg_attention_bwd launches a step" if bucket >= 160
+               else "plain path (seq < flash_min_seq 160)") + f" [{card}]")
+
+    idx = indices(256)
+    got = gate_step("head dims", f"d {HD}, seq 256", cfg, hier, params, enc,
+                    plain_enc, data[256], idx, N_ACCUM)
+    if got["seg_attention_bwd"] != HD_LAYERS * N_ACCUM:
+        raise AssertionError(f"the d = {HD} gate step did not train through "
+                             f"the single-block flash kernels: {got}")
+    fixed_micro_halves("head dims", cfg, [("kernels", enc)], plain_enc,
+                       params, hier, data, 160, rng)
+
+    # the repair: the CLI's from-scratch geometry (768 hidden, --n_head 4:
+    # d = 192) under --no_fused_attn, at bucket 256
+    enc192 = dataclasses.replace(enc, num_heads=4, use_fused_attn=False)
+    got = gate_step("head dims", "d 192 (--n_head 4 --no_fused_attn), seq "
+                    "256", cfg, hier, params, enc192,
+                    dataclasses.replace(plain_enc, num_heads=4), data[256],
+                    idx, N_ACCUM)
+    hold_counts("d 192, one step at seq 256", got,
+                {k: PER_LAYER_TRAIN_FLASH_SB.get(k, 0) * HD_LAYERS * N_ACCUM
+                 for k in got})
+    counts = {k: counts[k] + got[k] for k in counts}
+
+    # the tiled leg: the same encoder at 48 x 1024 (max_position 1024)
+    enc_long = dataclasses.replace(enc, max_position=LONG_SEQ)
+    cfg_long = dataclasses.replace(cfg, encoder=enc_long)
+    p_long = tree_map(lambda a: a.to(dev), init_model_params(
+        torch.Generator().manual_seed(0), cfg_long))
+    micro = long_micros(dstc2_like_memory(), dev, seed=19,
+                        batch=HD_LONG_BATCH)[0]
+    lidx = np.arange(HD_LONG_BATCH)[None]
+    wgmma0 = K.flash_wgmma_launches()
+    got = gate_step("head dims", f"d {HD}, {HD_LONG_BATCH} x {LONG_SEQ} "
+                    "(tiled), against the same step on the kernels' plain "
+                    "versions", cfg_long, hier, p_long, enc_long, enc_long,
+                    micro, lidx, 1, flash_and_ffn_on_plain_versions)
+    hold_counts(f"the tiled leg, one step at {HD_LONG_BATCH} x {LONG_SEQ}",
+                got, {k: PER_LAYER_TRAIN_TILED.get(k, 0) * HD_LAYERS
+                      for k in got})
+    if K.flash_wgmma_launches() != wgmma0:
+        raise AssertionError(f"d = {HD} ran the tiled wgmma kernels")
+    counts = {k: counts[k] + got[k] for k in counts}
+    log("[head dims] d 96 kernels " + json.dumps({
+        name: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by"), t),
+                   launches_a_step=(HD_LAYERS * N_ACCUM
+                                    if name.startswith("seg") else HD_LAYERS),
+                   at=("32 x 256 x 8 heads, step at bucket 256"
+                       if name.startswith("seg")
+                       else f"{LONG_BATCH} x {LONG_SEQ} x 8 heads, step at "
+                            f"{HD_LONG_BATCH} x {LONG_SEQ}"))
+        for name, t in times.items()}) + f" [{card}]")
+    return counts, check.max_err
 
 
 CLI_SPLITS = {"train": 1024, "valid": 256, "test": 256}
@@ -4696,7 +5032,11 @@ def write_ref_raw(root, n_sessions: int, seed: int) -> str:
     The sessions' acts are drawn apart from their words, so, as in
     ``write_dataroot``, 70% of each shard's rows also carry "thankyou"
     (DSTC2's label counts are as skewed), which a few epochs learn, so
-    that an epoch beats F1 0 and writes the best checkpoint."""
+    that an epoch beats F1 0 and writes the best checkpoint.  A third of
+    the rows get more hypotheses in their ASR n-best list (of their own
+    words), up to 100-240 words, as DSTC2's longer 10-best lists run, so
+    that the tools' training fills the 160 and 256 buckets, where their
+    attention takes the flash kernels."""
     from nbest_asr_tpu_torch.data.etl import run_etl
     from nbest_asr_tpu_torch.data.vocab import Memory
 
@@ -4705,6 +5045,7 @@ def write_ref_raw(root, n_sessions: int, seed: int) -> str:
     run_etl(sessions, root)
     raw = os.path.join(root, "processed_data", "raw")
     rng = np.random.RandomState(seed)
+    longer = np.random.RandomState(seed + 1)
     for name in ("train", "valid", "test"):
         path = os.path.join(raw, name)
         with open(path) as fp:
@@ -4714,6 +5055,16 @@ def write_ref_raw(root, n_sessions: int, seed: int) -> str:
                 gold = [x for x in labels.split(";") if x]
                 if rng.rand() < 0.7 and "thankyou" not in gold:
                     gold.append("thankyou")
+                if longer.rand() < 1 / 3:
+                    head, _, hyps = asr.partition(" [USR] ")
+                    parts = hyps.split(" [SEP] ")
+                    words = hyps.replace("[SEP]", " ").split() or ["okay"]
+                    n, target = len(asr.split()), longer.randint(100, 241)
+                    while n < target:
+                        parts.append(" ".join(longer.choice(
+                            words, min(target - n, 2 + longer.randint(9)))))
+                        n += 1 + len(parts[-1].split())
+                    asr = f"{head} [USR] {' [SEP] '.join(parts)}"
                 fp.write("%s\t<=>\t%s\t<=>\t%s\n" % (
                     asr, trans, ";".join(gold)))
     mem = Memory.load(os.path.join(raw, "memory.json"))
@@ -5059,7 +5410,9 @@ PROBE_ARGS = ["--what", "opt,attn,step", "--fused_attn", "--fused_ffn",
 # kernels each tool run of phase 17 must launch: bf16 serving, int8
 # serving, training (quality_smoke, serving_quality, perf_probe's step);
 # the quality tools' encoder has JAX's 8 heads of 96, which the attention
-# kernels' lane rule leaves to the plain attention path, as JAX's does
+# megakernel's lane rule leaves to the plain attention path, as JAX's
+# does, and its training there to the single-block flash kernels at the
+# 160 and 256 buckets
 TOOL_KERNELS = {
     "serve_bench none": ("gemm_bias_act", "gemm_bias_residual",
                          "layer_norm", "seg_attention"),
@@ -5067,7 +5420,8 @@ TOOL_KERNELS = {
                          "gemm_i8_bias_residual", "layer_norm",
                          "seg_attention"),
     "quality_smoke": ("gemm_bias_act", "gemm_bias_residual", "layer_norm",
-                      "ffn_bwd_rows", "gemm_dgrad"),
+                      "ffn_bwd_rows", "gemm_dgrad", "seg_attention",
+                      "seg_attention_bwd"),
     "serving_quality": ("gemm_bias_act", "gemm_bias_residual", "layer_norm",
                         "ffn_bwd_rows", "gemm_dgrad", "quantize_rows",
                         "gemm_i8_bias_act", "gemm_i8_bias_residual"),
@@ -5334,6 +5688,7 @@ def main() -> int:
                            rig, "flash", beside=bf16_ms)
     b_counts, _, _ = timed("train_long", phase_train_long, dev, card,
                            t_times)
+    h_counts, h_err = timed("head_dims", phase_head_dims, dev, card, rig)
     r_err, r_times, r_bounds = timed("rows_kernels", phase_rows_kernels,
                                      dev, card)
     t_times.update(r_times)
@@ -5358,13 +5713,15 @@ def main() -> int:
             "max_abs_err": max(max_err.get(kernel, 0.0),
                                t_err.get(kernel, 0.0),
                                f_err.get(kernel, 0.0),
+                               h_err.get(kernel, 0.0),
                                r_err.get(kernel, 0.0)),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": l_ms})
 
     for name in _cuda.KERNELS:
         launches = (counts[name] + t_counts[name] + i_counts[name]
-                    + a_counts[name] + b_counts[name] + c_counts[name]
+                    + a_counts[name] + b_counts[name] + h_counts[name]
+                    + c_counts[name]
                     + l_counts[name] + p_counts[name] + m_counts[name]
                     + o_counts[name] + x_counts[name])
         if name in s_bounds:        # a serving layer's launches
@@ -5383,7 +5740,9 @@ def main() -> int:
         "serving, bf16 training (both blocks on kernels, then one FFN-only "
         "step), int8 training (NBEST_BENCH_INT8=2, then one "
         "NBEST_BENCH_INT8=1 step), flash route A (--no_fused_attn), "
-        "long-sequence route B and route C (plain blocks, use_fused_ln, "
+        "long-sequence route B, the head-dim phase's steps (8 heads of 96 "
+        "at 96 / 160 / 256 and 48 x 1024, 4 heads of 192 at 256) "
+        "and route C (plain blocks, use_fused_ln, "
         "use_fused_gelu, use_fused_embedding) training main-path runs "
         "and the CLI's two epochs, and the pretrained phase's runs (MLM "
         "steps, the fine-tune's two epochs, the RoBERTa and XLM-R "

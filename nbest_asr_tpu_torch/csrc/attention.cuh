@@ -41,19 +41,37 @@ struct Tile {
   static constexpr int ELEMS = ROWS * LD;
 };
 
-// rows [r0, r0 + 64) of one head's columns (src points at row 0, column
-// head * D of a row-major matrix with leading dimension ld) -> shared
-// tile; rows past S are zero-filled.
+// The mma.sync instance a head dim d runs on: the narrowest of 32, 64,
+// 96, 128, 192 and 256 at least d wide; 0 where d is refused (d > 256, or
+// d % 8 != 0: the head's columns would leave the 16-byte boundaries the
+// tile copies need).  A head narrower than its instance has its columns
+// past d zero-filled on load (load_tile) and never stored: zero columns
+// of q and k add nothing to a score, zero columns of v and dO nothing to
+// an output, dP or di, and the gradient columns past d are not written.
+__host__ __device__ constexpr int instance_width(int d) {
+  return d <= 0 || d % 8 || d > 256 ? 0
+         : d <= 32                  ? 32
+         : d <= 64                  ? 64
+         : d <= 96                  ? 96
+         : d <= 128                 ? 128
+         : d <= 192                 ? 192
+                                    : 256;
+}
+
+// rows [r0, r0 + 64) of one head's dh columns (src points at row 0, column
+// head * dh of a row-major matrix with leading dimension ld) -> shared
+// tile of D columns; rows past S and columns past dh (dh <= D, dh % 8 ==
+// 0) are zero-filled.
 template <int D>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
-                                          int S, int ld) {
+                                          int S, int ld, int dh) {
   constexpr int CPR = D / 8;
   for (int c = threadIdx.x; c < ROWS * CPR; c += THREADS) {
     const int r = c / CPR, col = (c % CPR) * 8;
     const int row = r0 + r;
-    const bool ok = row < S;
+    const bool ok = row < S && col < dh;
     cp_async_16(dst + r * Tile<D>::LD + col,
-                src + (size_t)(ok ? row : 0) * ld + col, ok);
+                src + (ok ? (size_t)row * ld + col : 0), ok);
   }
 }
 

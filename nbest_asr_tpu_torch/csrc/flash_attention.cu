@@ -25,8 +25,14 @@
 //
 // Two kernels; nbk_flash_fwd picks by head dim, and neither falls back to
 // the other:
-//   d = 64 (any S)   the wgmma + TMA kernel (section 2)
-//   d = 32, 128      the mma.sync kernel (section 1)
+//   d = 64 (any S)        the wgmma + TMA kernel (section 2)
+//   every other d <= 256  the mma.sync kernel (section 1), on its
+//   with d % 8 == 0       instance of width 32, 64, 96, 128, 192 or 256
+//                         (attention.cuh, instance_width: a d between two
+//                         widths runs on the wider, its columns past d
+//                         zero-filled on load and never stored; d = 40 ..
+//                         56 on the 64-wide instance, which runs only
+//                         such padded heads)
 //
 // The mma.sync kernel (FlashAttention-2): one block per (element, head,
 // 64-query tile), 4 warps x 16 query rows; the q fragments stay in
@@ -82,7 +88,7 @@ using namespace nbk::attn;
 using namespace nbk::flash;
 
 // -------------------------------------------------------------------- //
-// 1. The mma.sync kernel, d = 32, 128
+// 1. The mma.sync kernel, every d <= 256, d % 8 == 0, but 64
 // -------------------------------------------------------------------- //
 
 constexpr int KT = 64;       // keys per tile
@@ -104,25 +110,32 @@ __device__ __forceinline__ void stage_tile(bf16* sK, bf16* sV, float* sMk,
                                            const bf16* k_src,
                                            const bf16* v_src, int ld,
                                            const float* mrow, int k0, int S,
-                                           const DropParams& drop,
+                                           int dh, const DropParams& drop,
                                            int prow_q0) {
-  load_tile<D>(sK, k_src, k0, S, ld);
-  load_tile<D>(sV, v_src, k0, S, ld);
+  load_tile<D>(sK, k_src, k0, S, ld, dh);
+  load_tile<D>(sV, v_src, k0, S, ld, dh);
   cp_async_commit();
   for (int j = threadIdx.x; j < KT; j += THREADS)
     sMk[j] = k0 + j < S ? mrow[k0 + j] : 0.f;
   if (DROP) build_keep(sKeep, ROWS, KWORDS, KSTRIDE, drop, prow_q0, k0);
 }
 
-// Blocks per SM: 4 at d = 32 (128 registers), 2 at d = 128 (87 KB of
-// shared memory; the fragments and the accumulator take ~96 registers
-// before the scores).
+// Blocks per SM: 4 at d = 32 and 64 (128 registers), 3 at d = 96 (67 KB of
+// shared memory; 168 registers, where the dropout instance spills 12
+// bytes: 9% faster than 2 blocks at 32 x 1024 x 8 heads on the H100), 2 at
+// d = 128 (87 KB; the fragments and the accumulator take ~96 registers
+// before the scores), 1 at d = 192 and 256 (128 and 169 KB).  The head is
+// dh <= D columns wide (columns past dh are zeros in the tiles); o has rows
+// of n_heads * dh.
 template <int D, bool DROP>
-__global__ void __launch_bounds__(THREADS, D == 32 ? 4 : 2)
+__global__ void __launch_bounds__(THREADS, D <= 64    ? 4
+                                           : D == 96  ? 3
+                                           : D == 128 ? 2
+                                                      : 1)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, int ld,
                      const float* __restrict__ mask, bf16* __restrict__ o,
-                     float* __restrict__ lse, int S, float sm_scale,
+                     float* __restrict__ lse, int S, int dh, float sm_scale,
                      DropParams drop) {
   constexpr int LD = Tile<D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -135,18 +148,18 @@ __global__ void __launch_bounds__(THREADS, D == 32 ? 4 : 2)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * ROWS, head = blockIdx.y, elem = blockIdx.z;
   const int n_heads = gridDim.y;
-  const int H = n_heads * D;
+  const int H = n_heads * dh;
   const size_t row0 = (size_t)elem * S;
   const int prow0 = (elem * n_heads + head) * S;  // Philox row of query 0
-  const size_t off = row0 * ld + head * D;
+  const size_t off = row0 * ld + head * dh;
   const bf16* k_src = k + off;
   const bf16* v_src = v + off;
   const float* mrow = mask + row0;
 
-  load_tile<D>(sQ, q + off, q0, S, ld);
+  load_tile<D>(sQ, q + off, q0, S, ld, dh);
   cp_async_commit();
-  stage_tile<D, DROP>(sK, sV, sMk, sKeep, k_src, v_src, ld, mrow, 0, S, drop,
-                      prow0 + q0);
+  stage_tile<D, DROP>(sK, sV, sMk, sKeep, k_src, v_src, ld, mrow, 0, S, dh,
+                      drop, prow0 + q0);
 
   const int g = lane >> 2, t4 = lane & 3;
   const int ra = warp * 16 + g;  // this thread's rows in the keep table
@@ -171,7 +184,7 @@ __global__ void __launch_bounds__(THREADS, D == 32 ? 4 : 2)
       stage_tile<D, DROP>(sK + (b ^ 1) * Tile<D>::ELEMS,
                           sV + (b ^ 1) * Tile<D>::ELEMS, sMk + (b ^ 1) * KT,
                           sKeep + (b ^ 1) * ROWS * KSTRIDE, k_src, v_src, ld,
-                          mrow, (kt + 1) * KT, S, drop, prow0 + q0);
+                          mrow, (kt + 1) * KT, S, dh, drop, prow0 + q0);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -246,7 +259,8 @@ __global__ void __launch_bounds__(THREADS, D == 32 ? 4 : 2)
   const float ib = lb == 0.f ? 1.f : 1.f / lb;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = head * D + dt * 8 + 2 * t4;
+    if (dt * 8 >= dh) continue;  // a padded head's zero columns
+    const int col = head * dh + dt * 8 + 2 * t4;
     if (qa < S)
       *reinterpret_cast<unsigned*>(o + (row0 + qa) * H + col) =
           pack_bf16x2(acc[dt][0] * ia, acc[dt][1] * ia);
@@ -263,7 +277,7 @@ __global__ void __launch_bounds__(THREADS, D == 32 ? 4 : 2)
 template <int D, bool DROP>
 int launch_kernel(const void* q, const void* k, const void* v, int ld,
                   const float* mask, void* o, float* lse, int B, int S,
-                  int n_heads, float sm_scale, const DropParams& drop,
+                  int n_heads, int dh, float sm_scale, const DropParams& drop,
                   cudaStream_t stream) {
   const size_t smem = fwd_smem<D>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -274,19 +288,20 @@ int launch_kernel(const void* q, const void* k, const void* v, int ld,
   flash_fwd_kernel<D, DROP><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), ld, mask, static_cast<bf16*>(o), lse, S,
-      sm_scale, drop);
+      dh, sm_scale, drop);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, int ld,
            const float* mask, void* o, float* lse, int B, int S, int n_heads,
-           float sm_scale, const DropParams& drop, cudaStream_t stream) {
+           int dh, float sm_scale, const DropParams& drop,
+           cudaStream_t stream) {
   if (drop.on)
     return launch_kernel<D, true>(q, k, v, ld, mask, o, lse, B, S, n_heads,
-                                  sm_scale, drop, stream);
+                                  dh, sm_scale, drop, stream);
   return launch_kernel<D, false>(q, k, v, ld, mask, o, lse, B, S, n_heads,
-                                 sm_scale, drop, stream);
+                                 dh, sm_scale, drop, stream);
 }
 
 // -------------------------------------------------------------------- //
@@ -532,8 +547,8 @@ extern "C" {
 // q, k, v: (B*S, ld) bf16 row-major, each operand's (n_heads * d) columns
 // starting at its pointer (16-byte aligned, ld % 8 == 0: at d = 64 TMA
 // reads them); mask (B, S) f32 segment ids -> o (B*S, n_heads * d) bf16
-// and lse (B, n_heads, S) f32.  d in {32, 64, 128}, any S >= 1.  Prob
-// dropout when drop_on (philox.cuh).
+// and lse (B, n_heads, S) f32.  d <= 256 with d % 8 == 0, any S >= 1.
+// Prob dropout when drop_on (philox.cuh).
 int nbk_flash_fwd(const void* q, const void* k, const void* v, int ld,
                   const float* mask, void* o, float* lse, int B, int S,
                   int n_heads, int d, float sm_scale,
@@ -541,17 +556,24 @@ int nbk_flash_fwd(const void* q, const void* k, const void* v, int ld,
                   float inv_keep, int drop_on, void* cuda_stream) {
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   const DropParams drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
-  if (d == 32)
-    return launch<32>(q, k, v, ld, mask, o, lse, B, S, n_heads, sm_scale,
-                      drop, s);
   if (d == WD)
     return drop.on ? launch_wgmma<true>(q, k, v, ld, mask, o, lse, B, S,
                                         n_heads, sm_scale, drop, s)
                    : launch_wgmma<false>(q, k, v, ld, mask, o, lse, B, S,
                                          n_heads, sm_scale, drop, s);
-  if (d == 128)
-    return launch<128>(q, k, v, ld, mask, o, lse, B, S, n_heads, sm_scale,
-                       drop, s);
+#define NBK_FLASH_FWD(D)                                                  \
+  case D:                                                                 \
+    return launch<D>(q, k, v, ld, mask, o, lse, B, S, n_heads, d,         \
+                     sm_scale, drop, s);
+  switch (instance_width(d)) {
+    NBK_FLASH_FWD(32)
+    NBK_FLASH_FWD(64)
+    NBK_FLASH_FWD(96)
+    NBK_FLASH_FWD(128)
+    NBK_FLASH_FWD(192)
+    NBK_FLASH_FWD(256)
+  }
+#undef NBK_FLASH_FWD
   return (int)cudaErrorInvalidValue;
 }
 

@@ -25,8 +25,14 @@
 // kernels regenerate the forward's mask whatever their loop order.
 //
 // Two pairs; nbk_flash_bwd_dq / nbk_flash_bwd_dkv pick by head dim:
-//   d = 64 (any S)   the wgmma + TMA pair (section 3)
-//   d = 32, 128      the mma.sync pair (sections 1 and 2)
+//   d = 64 (any S)        the wgmma + TMA pair (section 3)
+//   every other d <= 256  the mma.sync pair (sections 1 and 2), on its
+//   with d % 8 == 0       instance of width 32, 64, 96, 128, 192 or 256
+//                         (attention.cuh, instance_width: a d between two
+//                         widths runs on the wider, its columns past d
+//                         zero-filled on load and never stored; d = 40 ..
+//                         56 on the 64-wide pair, which runs only such
+//                         padded heads)
 // Neither falls back to the other: a pair that does not build or launch
 // makes the call fail.
 //
@@ -35,7 +41,10 @@
 // keep bits so that shared memory does not grow with S.  Each warp owns 16
 // rows of a 64-row block and reads the whole streamed tile through ldmatrix
 // for each product; every tile is copied, waited for and its keep bits drawn
-// into a shared table before its math.
+// into a shared table before its math.  The dK/dV kernel holds its keys'
+// K and V fragments and both accumulators in registers, 3 d / 2 a thread:
+// at d = 192 and 256 more than a thread has, so those instances spill
+// (ptxas's report; a correct first version, not yet a fast one).
 //
 // The wgmma + TMA pair at d = 64: a block owns 128 rows (queries in the dQ
 // kernel, keys in the dK/dV kernel) as two consumer warpgroups of 64 rows,
@@ -95,16 +104,18 @@ size_t dkv_smem() {
 // 1. dq (and di), per 64-query tile, keys innermost
 // -------------------------------------------------------------------- //
 
-// Blocks per SM: 4 at d = 32 (128 registers), 1 at d = 128.
+// Blocks per SM: 4 at d = 32 and 64 (128 registers), 2 at d = 96, 1 at d
+// >= 128.  The head is dh <= D columns wide (columns past dh are zeros in
+// the tiles); o and dout have rows of n_heads * dh.
 template <int D, bool DROP>
-__global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : D == 96 ? 2 : 1)
     flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, int ld,
                     const bf16* __restrict__ o, const bf16* __restrict__ dout,
                     const float* __restrict__ mask,
                     const float* __restrict__ lse, float* __restrict__ di,
-                    bf16* __restrict__ dq, int ld_g, int S, float sm_scale,
-                    DropParams drop) {
+                    bf16* __restrict__ dq, int ld_g, int S, int dh,
+                    float sm_scale, DropParams drop) {
   constexpr int LD = Tile<D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -119,18 +130,18 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * ROWS, head = blockIdx.y, elem = blockIdx.z;
   const int n_heads = gridDim.y;
-  const int H = n_heads * D;
+  const int H = n_heads * dh;
   const size_t row0 = (size_t)elem * S;
   const int prow0 = (elem * n_heads + head) * S;
-  const size_t off = row0 * ld + head * D;
-  const size_t off_h = row0 * H + head * D;
+  const size_t off = row0 * ld + head * dh;
+  const size_t off_h = row0 * H + head * dh;
   const bf16* k_src = k + off;
   const bf16* v_src = v + off;
   const float* mrow = mask + row0;
 
-  load_tile<D>(sQ, q + off, q0, S, ld);
-  load_tile<D>(sO, dout + off_h, q0, S, H);
-  load_tile<D>(sOut, o + off_h, q0, S, H);
+  load_tile<D>(sQ, q + off, q0, S, ld, dh);
+  load_tile<D>(sO, dout + off_h, q0, S, H, dh);
+  load_tile<D>(sOut, o + off_h, q0, S, H, dh);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -174,8 +185,8 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * ROWS;
     __syncthreads();
-    load_tile<D>(sK, k_src, k0, S, ld);
-    load_tile<D>(sV, v_src, k0, S, ld);
+    load_tile<D>(sK, k_src, k0, S, ld, dh);
+    load_tile<D>(sV, v_src, k0, S, ld, dh);
     cp_async_commit();
     for (int j = threadIdx.x; j < ROWS; j += THREADS)
       sMk[j] = k0 + j < S ? mrow[k0 + j] : 0.f;
@@ -213,7 +224,8 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
 
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = head * D + dt * 8 + 2 * t4;
+    if (dt * 8 >= dh) continue;  // a padded head's zero columns
+    const int col = head * dh + dt * 8 + 2 * t4;
     if (qa < S)
       *reinterpret_cast<unsigned*>(dq + (row0 + qa) * ld_g + col) =
           pack_bf16x2(acc[dt][0], acc[dt][1]);
@@ -227,17 +239,18 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
 // 2. dk, dv, per 64-key tile, queries innermost
 // -------------------------------------------------------------------- //
 
-// Blocks per SM: 4 at d = 32 (128 registers), 1 at d = 128 (the K and V
-// fragments and both accumulators alone take 192 registers).
+// Blocks per SM: 4 at d = 32 and 64 (128 registers), 2 at d = 96 (the K
+// and V fragments and both accumulators take 144 registers), 1 at d >=
+// 128 (192 registers at d = 128).
 template <int D, bool DROP>
-__global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : D == 96 ? 2 : 1)
     flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, int ld,
                      const bf16* __restrict__ dout,
                      const float* __restrict__ mask,
                      const float* __restrict__ lse,
                      const float* __restrict__ di, bf16* __restrict__ dk_out,
-                     bf16* __restrict__ dv_out, int ld_g, int S,
+                     bf16* __restrict__ dv_out, int ld_g, int S, int dh,
                      float sm_scale, DropParams drop) {
   constexpr int LD = Tile<D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -251,16 +264,16 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int k0 = blockIdx.x * ROWS, head = blockIdx.y, elem = blockIdx.z;
   const int n_heads = gridDim.y;
-  const int H = n_heads * D;
+  const int H = n_heads * dh;
   const size_t row0 = (size_t)elem * S;
   const int prow0 = (elem * n_heads + head) * S;
-  const size_t off = row0 * ld + head * D;
+  const size_t off = row0 * ld + head * dh;
   const bf16* q_src = q + off;
-  const bf16* o_src = dout + row0 * H + head * D;
+  const bf16* o_src = dout + row0 * H + head * dh;
   const float* mrow = mask + row0;
 
-  load_tile<D>(sK, k + off, k0, S, ld);
-  load_tile<D>(sV, v + off, k0, S, ld);
+  load_tile<D>(sK, k + off, k0, S, ld, dh);
+  load_tile<D>(sV, v + off, k0, S, ld, dh);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -284,8 +297,8 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
   for (int qt = 0; qt < n_qt; ++qt) {
     const int qt0 = qt * ROWS;
     __syncthreads();
-    load_tile<D>(sQ, q_src, qt0, S, ld);
-    load_tile<D>(sO, o_src, qt0, S, H);
+    load_tile<D>(sQ, q_src, qt0, S, ld, dh);
+    load_tile<D>(sO, o_src, qt0, S, H, dh);
     cp_async_commit();
     for (int j = threadIdx.x; j < ROWS; j += THREADS) {
       const int qr = qt0 + j;
@@ -334,7 +347,8 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
 
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = head * D + dt * 8 + 2 * t4;
+    if (dt * 8 >= dh) continue;  // a padded head's zero columns
+    const int col = head * dh + dt * 8 + 2 * t4;
     if (ka < S) {
       const size_t r = (row0 + ka) * ld_g + col;
       *reinterpret_cast<unsigned*>(dk_out + r) =
@@ -817,7 +831,7 @@ struct Operands {  // host side only: the kernels take them as arguments
   const float *mask, *lse;
   float* di;
   bf16 *dq, *dk, *dv;
-  int ld, ld_g, B, S, n_heads;
+  int ld, ld_g, B, S, n_heads, dh;
   float sm_scale;
   DropParams drop;
 };
@@ -832,7 +846,7 @@ int launch_dq(const Operands& a, cudaStream_t stream) {
   dim3 grid((a.S + ROWS - 1) / ROWS, a.n_heads, a.B);
   flash_dq_kernel<D, DROP><<<grid, THREADS, smem, stream>>>(
       a.q, a.k, a.v, a.ld, a.o, a.dout, a.mask, a.lse, a.di, a.dq, a.ld_g,
-      a.S, a.sm_scale, a.drop);
+      a.S, a.dh, a.sm_scale, a.drop);
   return (int)cudaGetLastError();
 }
 
@@ -846,7 +860,7 @@ int launch_dkv(const Operands& a, cudaStream_t stream) {
   dim3 grid((a.S + ROWS - 1) / ROWS, a.n_heads, a.B);
   flash_dkv_kernel<D, DROP><<<grid, THREADS, smem, stream>>>(
       a.q, a.k, a.v, a.ld, a.dout, a.mask, a.lse, a.di, a.dk, a.dv, a.ld_g,
-      a.S, a.sm_scale, a.drop);
+      a.S, a.dh, a.sm_scale, a.drop);
   return (int)cudaGetLastError();
 }
 
@@ -917,8 +931,9 @@ int launch_dkv_wgmma(const Operands& a, cudaStream_t stream) {
   return (int)e;
 }
 
-// d = 64: the wgmma + TMA pair; d = 32, 128: the mma.sync pair.
-int dispatch(const Operands& a, int d, bool dkv, void* cuda_stream) {
+// d = 64: the wgmma + TMA pair; every other d <= 256 with d % 8 == 0: the
+// mma.sync pair, instance_width(d) wide.
+int dispatch(Operands a, int d, bool dkv, void* cuda_stream) {
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   if (d == WD) {
     if (dkv)
@@ -927,8 +942,15 @@ int dispatch(const Operands& a, int d, bool dkv, void* cuda_stream) {
     return a.drop.on ? launch_dq_wgmma<true>(a, s)
                      : launch_dq_wgmma<false>(a, s);
   }
-  if (d == 32) return launch<32>(a, dkv, s);
-  if (d == 128) return launch<128>(a, dkv, s);
+  a.dh = d;
+  switch (instance_width(d)) {
+    case 32: return launch<32>(a, dkv, s);
+    case 64: return launch<64>(a, dkv, s);
+    case 96: return launch<96>(a, dkv, s);
+    case 128: return launch<128>(a, dkv, s);
+    case 192: return launch<192>(a, dkv, s);
+    case 256: return launch<256>(a, dkv, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -940,8 +962,8 @@ extern "C" {
 // and dout (B*S, n_heads * d) bf16, mask (B, S) f32, lse (B, n_heads, S)
 // f32 from nbk_flash_fwd -> dq bf16 with row stride ld_g (16-byte
 // aligned, ld_g even) and di (B, n_heads, S) f32 = rowsum(dout * o), which
-// nbk_flash_bwd_dkv reads.  d in {32, 64, 128}; the prob dropout as in the
-// forward.  At d = 64 q, k, v, o and dout must be 16-byte aligned with row
+// nbk_flash_bwd_dkv reads.  d <= 256 with d % 8 == 0; the prob dropout as
+// in the forward.  At d = 64 q, k, v, o and dout must be 16-byte aligned with row
 // strides of a multiple of 16 bytes (TMA).
 int nbk_flash_bwd_dq(const void* q, const void* k, const void* v, int ld,
                      const void* o, const void* dout, const float* mask,

@@ -30,8 +30,16 @@
 // Two kernels; nbk_seg_attention picks by (d, S):
 //   d = 64, S <= 512            the wgmma kernel (every BERT-base, -large,
 //                               RoBERTa and XLM-R head)
-//   d = 32, 128, 192, 256       the mma.sync kernel (flash's d = 32
-//                               single-block route, the wide heads)
+//   every other d <= 256 with   the mma.sync kernel, on its instance of
+//   d % 8 == 0                  width 32, 64, 96, 128, 192 or 256 (flash's
+//                               d = 32 single-block route, the quality
+//                               tools' d = 96, the wide heads); a d
+//                               between two widths runs on the wider,
+//                               its columns past d zero-filled on load
+//                               and never stored (attention.cuh,
+//                               instance_width): d = 40 .. 56 on the
+//                               64-wide instance, which runs only such
+//                               padded heads
 // and refuses every other shape (cudaErrorInvalidValue).  d = 128 stays on
 // the mma.sync kernel: its K and V take 128 KB at S = 256, so a block of
 // one warpgroup would hold an SM alone, and warpgroups sharing them are
@@ -378,7 +386,7 @@ int launch_wgmma_s(const void* q, const void* k, const void* v, int ld,
 }
 
 // ---------------------------------------------------------------------- //
-// The mma.sync kernel: d = 32, 128, 192, 256
+// The mma.sync kernel: every d <= 256, d % 8 == 0, but 64
 // ---------------------------------------------------------------------- //
 
 constexpr int KT = 64;  // keys per tile
@@ -391,13 +399,19 @@ size_t smem_bytes(int S) {
 }
 
 // Blocks per SM each instance is built for (registers <= 65536 / (128 x
-// blocks)): the d = 32 instances at 4 (128 registers: 130 instead cost
-// this kernel 20% at d = 64, seq 256 on the H100), the d = 128 ones where
-// they fall unbounded, the d = 192 and 256 ones at 1 (their q fragments
-// and accumulators alone take 144 and 192 registers).  q, k, v: row 0, column 0 of the head block of each
-// operand, ld its row stride (elements); ctx has rows of n_heads * D.
+// blocks)): the d = 32 and 64 instances at 4 (128 registers: 130 instead
+// cost this kernel 20% at d = 64, seq 256 on the H100), the d = 96 ones
+// at 3 (168 registers: the q fragments, the accumulator and a tile's
+// scores take 104, and 3 blocks of 43 KB fit the SM's shared memory at
+// seq 256; 2 blocks ran 22% slower at 32 x 256 x 8 heads with dropout on
+// the H100), the d = 128 ones where they fall unbounded, the d = 192 and
+// 256 ones at 1 (their q fragments and accumulators alone take 144 and
+// 192 registers).  q, k, v: row 0, column 0 of the head block of each
+// operand, ld its row stride (elements); the head is dh <= D columns wide
+// (columns past dh are zeros in the tiles); ctx has rows of n_heads * dh.
 template <int D, bool DROP>
-__global__ void __launch_bounds__(THREADS, D == 32    ? 4
+__global__ void __launch_bounds__(THREADS, D <= 64     ? 4
+                                           : D == 96  ? 3
                                            : D == 128 ? (DROP ? 2 : 3)
                                                       : 1)
     seg_attention_kernel(const bf16* __restrict__ q,
@@ -405,7 +419,7 @@ __global__ void __launch_bounds__(THREADS, D == 32    ? 4
                          const bf16* __restrict__ v, int ld,
                          const float* __restrict__ mask,
                          bf16* __restrict__ ctx, float* __restrict__ stats,
-                         int S, float sm_scale, DropParams drop) {
+                         int S, int dh, float sm_scale, DropParams drop) {
   constexpr int LD = Tile<D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -420,14 +434,14 @@ __global__ void __launch_bounds__(THREADS, D == 32    ? 4
   const int n_heads = gridDim.y;
   const size_t row0 = (size_t)elem * S;
   const int prow0 = (elem * n_heads + head) * S;  // Philox row of query 0
-  const int H = n_heads * D;
-  const size_t off = row0 * ld + head * D;
+  const int H = n_heads * dh;
+  const size_t off = row0 * ld + head * dh;
   const bf16* q_src = q + off;
   const bf16* k_src = k + off;
   const bf16* v_src = v + off;
 
   for (int j = threadIdx.x; j < S; j += THREADS) sM[j] = mask[row0 + j];
-  load_tile<D>(sQ, q_src, q0, S, ld);
+  load_tile<D>(sQ, q_src, q0, S, ld, dh);
   cp_async_commit();
   if (DROP)
     build_keep(sKeep, ROWS, (S + 31) / 32, kstride, drop, prow0 + q0, 0);
@@ -449,7 +463,7 @@ __global__ void __launch_bounds__(THREADS, D == 32    ? 4
   float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
-    load_tile<D>(sK, k_src, kt * KT, S, ld);
+    load_tile<D>(sK, k_src, kt * KT, S, ld, dh);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -506,8 +520,8 @@ __global__ void __launch_bounds__(THREADS, D == 32    ? 4
   const float rla = __frcp_rn(la), rlb = __frcp_rn(lb);
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
-    load_tile<D>(sK, k_src, kt * KT, S, ld);
-    load_tile<D>(sV, v_src, kt * KT, S, ld);
+    load_tile<D>(sK, k_src, kt * KT, S, ld, dh);
+    load_tile<D>(sV, v_src, kt * KT, S, ld, dh);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -540,7 +554,8 @@ __global__ void __launch_bounds__(THREADS, D == 32    ? 4
 
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = head * D + dt * 8 + 2 * t4;
+    if (dt * 8 >= dh) continue;  // a padded head's zero columns
+    const int col = head * dh + dt * 8 + 2 * t4;
     if (qa < S)
       *reinterpret_cast<unsigned*>(ctx + (row0 + qa) * H + col) =
           pack_bf16x2(acc[dt][0], acc[dt][1]);
@@ -553,7 +568,7 @@ __global__ void __launch_bounds__(THREADS, D == 32    ? 4
 template <int D, bool DROP>
 int launch_kernel(const void* q, const void* k, const void* v, int ld,
                   const float* mask, void* ctx, float* stats, int B, int S,
-                  int n_heads, float sm_scale, const DropParams& drop,
+                  int n_heads, int dh, float sm_scale, const DropParams& drop,
                   cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(S);
   cudaError_t e = cudaFuncSetAttribute(
@@ -564,7 +579,7 @@ int launch_kernel(const void* q, const void* k, const void* v, int ld,
   seg_attention_kernel<D, DROP><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), ld, mask, static_cast<bf16*>(ctx), stats,
-      S, sm_scale, drop);
+      S, dh, sm_scale, drop);
   return (int)cudaGetLastError();
 }
 
@@ -572,13 +587,13 @@ int launch_kernel(const void* q, const void* k, const void* v, int ld,
 template <int D>
 int launch(const void* q, const void* k, const void* v, int ld,
            const float* mask, void* ctx, float* stats, int B, int S,
-           int n_heads, float sm_scale, const DropParams& drop,
+           int n_heads, int dh, float sm_scale, const DropParams& drop,
            cudaStream_t stream) {
   if (drop.on)
     return launch_kernel<D, true>(q, k, v, ld, mask, ctx, stats, B, S,
-                                  n_heads, sm_scale, drop, stream);
+                                  n_heads, dh, sm_scale, drop, stream);
   return launch_kernel<D, false>(q, k, v, ld, mask, ctx, stats, B, S,
-                                 n_heads, sm_scale, drop, stream);
+                                 n_heads, dh, sm_scale, drop, stream);
 }
 
 }  // namespace
@@ -590,9 +605,10 @@ extern "C" {
 // q | k | v column blocks of one (B*S, 3h) QKV buffer (ld = 3h), or
 // (B, S, n_heads, d) tensors (ld = n_heads * d); mask (B, S) f32 segment
 // ids -> ctx (B*S, n_heads * d) bf16.  d = 64 with S <= 512 (the wgmma
-// kernel), or d in {32, 128, 192, 256} (the mma.sync kernel); any other d
-// or S is refused.  stats, if not null, is (2, B, n_heads, S) f32 and
-// receives each row's max and sum of exp.  Prob dropout when drop_on
+// kernel), or any other d <= 256 with d % 8 == 0 (the mma.sync kernel,
+// instance_width(d) wide); any other d or S is refused.  stats, if not
+// null, is (2, B, n_heads, S) f32 and receives each row's max and sum of
+// exp.  Prob dropout when drop_on
 // (seed, stream, thresh, inv_keep as in philox.cuh).
 int nbk_seg_attention(const void* q, const void* k, const void* v, int ld,
                       const float* mask, void* ctx, float* stats, int B,
@@ -610,13 +626,17 @@ int nbk_seg_attention(const void* q, const void* k, const void* v, int ld,
                                  n_heads, sm_scale, drop, s);
   }
 #define NBK_SEG_ATTN(D)                                                   \
-  if (d == D)                                                             \
-    return launch<D>(q, k, v, ld, mask, ctx, stats, B, S, n_heads,        \
+  case D:                                                                 \
+    return launch<D>(q, k, v, ld, mask, ctx, stats, B, S, n_heads, d,     \
                      sm_scale, drop, s);
-  NBK_SEG_ATTN(32)
-  NBK_SEG_ATTN(128)
-  NBK_SEG_ATTN(192)
-  NBK_SEG_ATTN(256)
+  switch (instance_width(d)) {
+    NBK_SEG_ATTN(32)
+    NBK_SEG_ATTN(64)
+    NBK_SEG_ATTN(96)
+    NBK_SEG_ATTN(128)
+    NBK_SEG_ATTN(192)
+    NBK_SEG_ATTN(256)
+  }
 #undef NBK_SEG_ATTN
   return (int)cudaErrorInvalidValue;
 }

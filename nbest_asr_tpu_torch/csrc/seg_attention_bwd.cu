@@ -35,7 +35,13 @@
 //   d = 64, S <= 256        the wgmma pair (every DSTC2 bucket: 64, 96,
 //                           160, 256)
 //   d = 64, 256 < S <= 512  the mma.sync pair (a wgmma dq kernel there
-//   d = 32, 128, 192, 256   would need the forward's two key windows)
+//                           would need the forward's two key windows)
+//   every other d <= 256    the mma.sync pair, on its instance of width
+//   with d % 8 == 0         32, 64, 96, 128, 192 or 256 (attention.cuh,
+//                           instance_width: a d between two widths runs
+//                           on the wider, its columns past d zero-filled
+//                           on load and never stored; d = 40 .. 56 on the
+//                           64-wide pair)
 //
 // The wgmma pair (section 3).  The dq kernel holds the head's K and V (the
 // forward's NK-key window, NK = S rounded up to 32) and its tile's Q and
@@ -126,18 +132,21 @@ __device__ __forceinline__ void chunk_probs(float (*sc)[4], float (*dp)[4],
 
 // Both kernels are built for 4 blocks per SM at d = 32 and 64 (128
 // registers; at d = 64 unbounded they take 161 and 169, and the bounded
-// pair, spills and all, ran 18% faster at 32 x 256 on the H100); the d =
-// 192 and 256 instances spill their fragments and accumulators to local
-// memory.  q, k, v (row stride ld) and dq, dk, dv (row stride ld_g): row
-// 0, column 0 of each operand's head block; dctx has rows of n_heads * D.
+// pair, spills and all, ran 18% faster at 32 x 256 on the H100), for 2 at
+// d = 96 (the dK/dV kernel's K and V fragments and dK and dV accumulators
+// take 144 registers); the d = 192 and 256 instances spill their
+// fragments and accumulators to local memory.  q, k, v (row stride ld) and
+// dq, dk, dv (row stride ld_g): row 0, column 0 of each operand's head
+// block, dh <= D columns wide (columns past dh are zeros in the tiles);
+// dctx has rows of n_heads * dh.
 template <int D>
-__global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : D == 96 ? 2 : 1)
     dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, int ld,
               const bf16* __restrict__ dctx, const float* __restrict__ mask,
               const float* __restrict__ stats, float* __restrict__ di,
-              bf16* __restrict__ dq, int ld_g, int S, float sm_scale,
-              DropParams drop) {
+              bf16* __restrict__ dq, int ld_g, int S, int dh,
+              float sm_scale, DropParams drop) {
   constexpr int LD = Tile<D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -151,18 +160,18 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * ROWS, head = blockIdx.y, elem = blockIdx.z;
   const int n_heads = gridDim.y;
-  const int H = n_heads * D;
+  const int H = n_heads * dh;
   const size_t row0 = (size_t)elem * S;
   const int prow0 = (elem * n_heads + head) * S;
   const size_t bhs = (size_t)gridDim.z * n_heads * S;
-  const size_t off = row0 * ld + head * D;
+  const size_t off = row0 * ld + head * dh;
   const bf16* q_src = q + off;
   const bf16* k_src = k + off;
   const bf16* v_src = v + off;
 
   for (int j = threadIdx.x; j < S; j += THREADS) sM[j] = mask[row0 + j];
-  load_tile<D>(sQ, q_src, q0, S, ld);
-  load_tile<D>(sO, dctx + row0 * H + head * D, q0, S, H);
+  load_tile<D>(sQ, q_src, q0, S, ld, dh);
+  load_tile<D>(sO, dctx + row0 * H + head * dh, q0, S, H, dh);
   cp_async_commit();
   if (drop.on)
     build_keep(sKeep, ROWS, (S + 31) / 32, kstride, drop, prow0 + q0, 0);
@@ -190,8 +199,8 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
   float da = 0.f, db = 0.f;
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
-    load_tile<D>(sK, k_src, kt * ROWS, S, ld);
-    load_tile<D>(sV, v_src, kt * ROWS, S, ld);
+    load_tile<D>(sK, k_src, kt * ROWS, S, ld, dh);
+    load_tile<D>(sV, v_src, kt * ROWS, S, ld, dh);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -229,8 +238,8 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
     for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
-    load_tile<D>(sK, k_src, kt * ROWS, S, ld);
-    load_tile<D>(sV, v_src, kt * ROWS, S, ld);
+    load_tile<D>(sK, k_src, kt * ROWS, S, ld, dh);
+    load_tile<D>(sV, v_src, kt * ROWS, S, ld, dh);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -254,7 +263,8 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
 
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = head * D + dt * 8 + 2 * t4;
+    if (dt * 8 >= dh) continue;  // a padded head's zero columns
+    const int col = head * dh + dt * 8 + 2 * t4;
     if (qa < S)
       *reinterpret_cast<unsigned*>(dq + (row0 + qa) * ld_g + col) =
           pack_bf16x2(acc[dt][0], acc[dt][1]);
@@ -269,13 +279,13 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
 // -------------------------------------------------------------------- //
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : D == 96 ? 2 : 1)
     dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, int ld,
                const bf16* __restrict__ dctx, const float* __restrict__ mask,
                const float* __restrict__ stats, const float* __restrict__ di,
                bf16* __restrict__ dk_out, bf16* __restrict__ dv_out,
-               int ld_g, int S, float sm_scale, DropParams drop) {
+               int ld_g, int S, int dh, float sm_scale, DropParams drop) {
   constexpr int LD = Tile<D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
@@ -289,19 +299,19 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int k0 = blockIdx.x * ROWS, head = blockIdx.y, elem = blockIdx.z;
   const int n_heads = gridDim.y;
-  const int H = n_heads * D;
+  const int H = n_heads * dh;
   const size_t row0 = (size_t)elem * S;
   const int prow0 = (elem * n_heads + head) * S;
   const size_t bhs = (size_t)gridDim.z * n_heads * S;
-  const size_t off = row0 * ld + head * D;
+  const size_t off = row0 * ld + head * dh;
   const bf16* q_src = q + off;
   const bf16* k_src = k + off;
   const bf16* v_src = v + off;
-  const bf16* o_src = dctx + row0 * H + head * D;
+  const bf16* o_src = dctx + row0 * H + head * dh;
 
   for (int j = threadIdx.x; j < S; j += THREADS) sM[j] = mask[row0 + j];
-  load_tile<D>(sK, k_src, k0, S, ld);
-  load_tile<D>(sV, v_src, k0, S, ld);
+  load_tile<D>(sK, k_src, k0, S, ld, dh);
+  load_tile<D>(sV, v_src, k0, S, ld, dh);
   cp_async_commit();
   // keep bits of every query row against this block's 64 keys: table row
   // q, word w = keys k0 + 32 w ..
@@ -328,8 +338,8 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
   for (int qt = 0; qt < n_qt; ++qt) {
     const int qt0 = qt * ROWS;
     __syncthreads();
-    load_tile<D>(sQ, q_src, qt0, S, ld);
-    load_tile<D>(sO, o_src, qt0, S, H);
+    load_tile<D>(sQ, q_src, qt0, S, ld, dh);
+    load_tile<D>(sO, o_src, qt0, S, H, dh);
     cp_async_commit();
     for (int j = threadIdx.x; j < ROWS; j += THREADS) {
       const int qr = qt0 + j;
@@ -381,7 +391,8 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 1)
 
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = head * D + dt * 8 + 2 * t4;
+    if (dt * 8 >= dh) continue;  // a padded head's zero columns
+    const int col = head * dh + dt * 8 + 2 * t4;
     if (ka < S) {
       const size_t r = (row0 + ka) * ld_g + col;
       *reinterpret_cast<unsigned*>(dk_out + r) =
@@ -404,7 +415,7 @@ struct Operands {  // host side only: the kernels take them as arguments
   const float *mask, *stats;
   float* di;
   bf16 *dq, *dk, *dv;
-  int ld, ld_g, B, S, n_heads;
+  int ld, ld_g, B, S, n_heads, dh;
   float sm_scale;
   DropParams drop;
 };
@@ -422,12 +433,12 @@ int launch(const Operands& a, cudaStream_t stream) {
   dim3 grid((a.S + ROWS - 1) / ROWS, a.n_heads, a.B);
   dq_kernel<D><<<grid, THREADS, s1, stream>>>(
       a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dq, a.ld_g, a.S,
-      a.sm_scale, a.drop);
+      a.dh, a.sm_scale, a.drop);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   dkv_kernel<D><<<grid, THREADS, s2, stream>>>(
       a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dk, a.dv, a.ld_g,
-      a.S, a.sm_scale, a.drop);
+      a.S, a.dh, a.sm_scale, a.drop);
   return (int)cudaGetLastError();
 }
 
@@ -907,7 +918,7 @@ extern "C" {
 // nbk_seg_attention -> dq, dk, dv bf16 with row stride ld_g (16-byte
 // aligned, ld_g even: the q | k | v column blocks of one (B*S, 3h)
 // buffer, or (B, S, n_heads, d) tensors); di (B, n_heads, S) f32 is
-// scratch (rowsum(dp * p)).  d in {32, 64, 128, 192, 256}, S <= 512; the
+// scratch (rowsum(dp * p)).  d <= 256 with d % 8 == 0, S <= 512; the
 // prob dropout as in the forward.
 int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
                           int ld, const void* dctx, const float* mask,
@@ -932,6 +943,7 @@ int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
   a.B = B;
   a.S = S;
   a.n_heads = n_heads;
+  a.dh = d;
   a.sm_scale = sm_scale;
   a.drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
@@ -939,11 +951,14 @@ int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
   if (d == WD && S <= 256)
     return a.drop.on ? launch_wgmma_s<true>(a, s)
                      : launch_wgmma_s<false>(a, s);
-  if (d == 32) return launch<32>(a, s);
-  if (d == 64) return launch<64>(a, s);
-  if (d == 128) return launch<128>(a, s);
-  if (d == 192) return launch<192>(a, s);
-  if (d == 256) return launch<256>(a, s);
+  switch (instance_width(d)) {
+    case 32: return launch<32>(a, s);
+    case 64: return launch<64>(a, s);
+    case 96: return launch<96>(a, s);
+    case 128: return launch<128>(a, s);
+    case 192: return launch<192>(a, s);
+    case 256: return launch<256>(a, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

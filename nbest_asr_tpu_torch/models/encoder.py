@@ -72,10 +72,11 @@ step.
 
 Where JAX would run a kernel the port does not have, the forward raises
 ``NotImplementedError`` rather than run the plain path quietly: the
-attention megakernel at a head dim the port's attention kernels do not
-take (``HEAD_DIMS``; eval and training, ``_refuse_head_dim``), and in
-training the flash route at a head dim outside ``FLASH_HEAD_DIMS``
-(``_refuse_unported_training``).
+attention megakernel (eval and training, ``_refuse_head_dim``) and, in
+training, the flash route (``_refuse_unported_training``) at a head dim
+the port's attention kernels do not take.  Both ask
+``ops.kernels.attn_head_dim_ok``, the predicate the kernel wrappers check:
+d <= 256 with d % 8 == 0, on both flash routes alike.
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ from typing import Optional
 import torch
 
 from ..ops.attention import flash_routes, multi_head_attention
-from ..ops.kernels import FLASH_HEAD_DIMS, HEAD_DIMS
+from ..ops.kernels import HEAD_DIM_RULE, attn_head_dim_ok
 from ..ops.layers import (acc_dtype, dense, dropout, gelu, layer_norm,
                           take_rows, take_rows_shard)
 from ..ops.philox import fold_in, generator
@@ -284,7 +285,7 @@ def attn_lanes_ok(cfg: EncoderConfig) -> bool:
 def attn_kernels_take(cfg: EncoderConfig) -> bool:
     """The lanes hold and the port's attention kernels take the head
     dim."""
-    return attn_lanes_ok(cfg) and cfg.head_dim in HEAD_DIMS
+    return attn_lanes_ok(cfg) and attn_head_dim_ok(cfg.head_dim)
 
 
 def attn_train_routes(cfg: EncoderConfig, seq: int) -> bool:
@@ -328,28 +329,28 @@ _WHERE = "(ROADMAP.md, queue 2)"
 def _refuse_head_dim(cfg: EncoderConfig) -> None:
     """Raise if the port's attention kernels lack the head dim of a layer
     that JAX sends to an attention megakernel."""
-    if cfg.head_dim not in HEAD_DIMS:
+    if not attn_head_dim_ok(cfg.head_dim):
         raise NotImplementedError(
             f"use_fused_attn at head dim {cfg.head_dim}: JAX routes it to "
-            "an attention megakernel, whose port takes head dims "
-            f"{HEAD_DIMS} {_WHERE}; set use_fused_attn=False for the plain "
-            "attention path")
+            f"an attention megakernel, whose port takes {HEAD_DIM_RULE} "
+            f"{_WHERE}; set use_fused_attn=False for the plain attention "
+            "path")
 
 
 def _refuse_unported_training(cfg: EncoderConfig, batch: int,
                               seq: int) -> None:
     """Raise exactly where JAX would train through a kernel the port
     lacks: its flash routing predicate (``ops/attention.py:138-140``) at a
-    head dim the port's flash kernels do not take; the attention
-    megakernel's head dims are ``_refuse_head_dim``'s, eval and training
-    alike."""
+    head dim the port's flash kernels do not take (the single-block and
+    the tiled route take the same ones); the attention megakernel's head
+    dims are ``_refuse_head_dim``'s, eval and training alike."""
     if (not attn_train_routes(cfg, seq)
             and flash_train_routes(cfg, batch, seq)
-            and cfg.head_dim not in FLASH_HEAD_DIMS):
+            and not attn_head_dim_ok(cfg.head_dim)):
         raise NotImplementedError(
             f"training with use_flash_attention at head dim {cfg.head_dim}: "
-            "JAX routes it to the flash kernels, whose port takes head dims "
-            f"{FLASH_HEAD_DIMS} {_WHERE}")
+            "JAX routes it to the flash kernels, whose port takes "
+            f"{HEAD_DIM_RULE} {_WHERE}")
 
 
 def _qdense(x: torch.Tensor, kernel, bias: torch.Tensor,
@@ -460,7 +461,7 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
     rank's shards and runs every layer on the plain route with the
     Megatron pairing (``_tp_layer``), and the embeddings on the
     vocab-parallel table: no hand kernel runs, whatever the kernel flags
-    say (ROADMAP queue 1 item 5: they stay off until a sharded kernel
+    say (ROADMAP queue 2 item 2: they stay off until a sharded kernel
     test exists)."""
     train = not deterministic
     if train and seed is None:

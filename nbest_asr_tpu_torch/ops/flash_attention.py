@@ -33,8 +33,13 @@ backward pair in 128-row blocks (a producer warpgroup streaming 64-row
 tiles to two consumer warpgroups), the forward in 256-query blocks (four
 warpgroups, warp 0 filling the tile ring, the online softmax in
 registers); every warpgroup draws its keep bits while its score products
-run -- and on ``mma.sync`` at d = 32 and 128 (``csrc/flash_attention.cu``,
-``csrc/flash_attention_bwd.cu``).
+run -- and on ``mma.sync`` at every other head dim
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).  Both
+routes take every head dim d <= 256 with d % 8 == 0
+(``kernels.attn_head_dim_ok``): 32, 96, 128, 192 and 256 on instances of
+their own (64 on the ``wgmma`` kernels), any other d on the narrowest
+instance at least d wide, its columns past d zero-filled on load and
+never stored.
 
 The single-block bodies compute the function the attention megakernel's
 head loop computes (``_sb_probs`` is ``_head_probs`` with a caller's
@@ -161,8 +166,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(b, s, heads, d) q, k, v + (b, s) SEGMENT mask -> (b, s, heads, d)
     in q's dtype.  ``dropout_rate > 0`` drops the attention probs with
     the Philox mask of ``seed`` (required then).  CUDA tensors (bf16, head
-    dims 32, 64, 128 on the tiled route) run the kernels; CPU tensors
-    their plain versions."""
+    dims d <= 256 with d % 8 == 0 on both routes) run the kernels; CPU
+    tensors their plain versions."""
     return _flash(q, k, v, attn_mask, sm_scale, block_q, block_k,
                   dropout_rate, seed, plain=False)
 

@@ -60,7 +60,14 @@ three tiled kernels for any sequence length:
 - ``flash_bwd_dkv`` -- dk and dv
 
 (all three on ``wgmma`` + TMA at d = 64, counted also by
-``flash_wgmma_launches``; on ``mma.sync`` at d = 32 and 128).
+``flash_wgmma_launches``; on ``mma.sync`` at every other head dim).
+
+Every attention kernel takes the head dims ``attn_head_dim_ok`` admits,
+d <= 256 with d % 8 == 0: each runs on the narrowest ``mma.sync``
+instance of width 32, 64, 96, 128, 192 or 256 at least d wide, its
+columns past d zero-filled on load and never stored
+(``csrc/attention.cuh``, ``instance_width``), or at d = 64 on the
+``wgmma`` kernels.
 
 The int8 training blocks (``ops/fused_ffn.py``, ``ops/fused_attention.py``,
 ``*_int8_train``) give ``gemm_i8_bias_act`` and ``gemm_i8_bias_residual``
@@ -116,11 +123,20 @@ from .quant import dequant, int_dot, quantize_rows_reference, symmetric_int8
 # (nbest_asr_tpu/ops/flash_attention.py:MASK_VALUE)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_SEQ = 512                 # one-block ceiling, fused_attention.FAB_MAX_SEQ
-HEAD_DIMS = (32, 64, 128, 192, 256)   # head dims seg_attention(_bwd) take
-FLASH_HEAD_DIMS = (32, 64, 128)       # head dims the tiled flash kernels take
+MAX_HEAD_DIM = 256            # the widest attention kernel instance
+HEAD_DIM_RULE = f"head dims d <= {MAX_HEAD_DIM} with d % 8 == 0"
 # score elements per chunk of the plain tiled versions (batch elements
 # are taken a chunk at a time, so s = 1024 .. 2048 fit on the card)
 _REF_CHUNK = 2 ** 26
+
+
+def attn_head_dim_ok(d: int) -> bool:
+    """The head dims every attention kernel takes (``seg_attention``,
+    ``seg_attention_bwd``, ``flash_fwd``, ``flash_bwd_dq``,
+    ``flash_bwd_dkv``): d <= 256 with d % 8 == 0, so that a head's
+    columns start on a 16-byte boundary.  The wrappers' checks and the
+    encoder's refusals all ask this one predicate."""
+    return 0 < d <= MAX_HEAD_DIM and d % 8 == 0
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
@@ -764,9 +780,9 @@ def _attn_dims(name: str, qkv, mask, n_heads: int):
                          f"{tuple(mask.shape)}")
     b, s = mask.shape
     h = qkv.shape[1] // 3
-    if h % n_heads or h // n_heads not in HEAD_DIMS:
-        raise ValueError(f"{name}: the kernel takes head dims {HEAD_DIMS}, "
-                         f"got {h}/{n_heads}")
+    if h % n_heads or not attn_head_dim_ok(h // n_heads):
+        raise ValueError(f"{name}: the kernel takes {HEAD_DIM_RULE}, got "
+                         f"{h}/{n_heads}")
     if s > MAX_SEQ:
         raise ValueError(f"{name}: seq {s} > {MAX_SEQ}")
     _expect(name, "qkv", qkv, torch.bfloat16, (b * s, 3 * h))
@@ -790,7 +806,7 @@ def _row_stride(name: str, arg: str, t, ld=None) -> int:
     return ld
 
 
-def _bshd(name: str, q, k, v, mask, dims, max_seq=None):
+def _bshd(name: str, q, k, v, mask, max_seq=None):
     """Check (b, s, n_heads, d) bf16 q, k, v sharing one row stride ld
     (ld % 8 == 0, 16-byte aligned: the kernels copy 16 bytes at a time)
     and the (b, s) f32 mask; returns (b, s, n_heads, d, ld)."""
@@ -798,8 +814,8 @@ def _bshd(name: str, q, k, v, mask, dims, max_seq=None):
         raise ValueError(f"{name}: q, k, v {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, s, nh, d = q.shape
-    if d not in dims:
-        raise ValueError(f"{name}: the kernel takes head dims {dims}, got "
+    if not attn_head_dim_ok(d):
+        raise ValueError(f"{name}: the kernel takes {HEAD_DIM_RULE}, got "
                          f"{d}")
     if max_seq is not None and s > max_seq:
         raise ValueError(f"{name}: seq {s} > {max_seq}")
@@ -860,8 +876,7 @@ def sb_attention(q, k, v, mask, sm_scale: float, drop=None,
     row's max and sum of exp.  Launches ``seg_attention``."""
     if not _on_cuda("seg_attention", q, k, v, mask):
         return sb_attention_reference(q, k, v, mask, sm_scale, drop, stats)
-    b, s, nh, d, ld = _bshd("seg_attention", q, k, v, mask, HEAD_DIMS,
-                            MAX_SEQ)
+    b, s, nh, d, ld = _bshd("seg_attention", q, k, v, mask, MAX_SEQ)
     out = torch.empty((b, s, nh, d), dtype=torch.bfloat16, device=q.device)
     st = torch.empty((2, b, nh, s), dtype=torch.float32,
                      device=q.device) if stats else None
@@ -882,7 +897,7 @@ def sb_attention_bwd(q, k, v, dout, mask, stats, sm_scale: float,
     if not _on_cuda(name, q, k, v, dout, mask, stats):
         return sb_attention_bwd_reference(q, k, v, dout, mask, stats,
                                           sm_scale, drop)
-    b, s, nh, d, ld = _bshd(name, q, k, v, mask, HEAD_DIMS, MAX_SEQ)
+    b, s, nh, d, ld = _bshd(name, q, k, v, mask, MAX_SEQ)
     _expect(name, "dout", dout, torch.bfloat16, (b, s, nh, d))
     _expect(name, "stats", stats, torch.float32, (2, b, nh, s))
     grads = tuple(torch.empty(q.shape, dtype=torch.bfloat16,
@@ -936,12 +951,12 @@ def seg_attention_bwd(qkv, dctx, mask, stats, n_heads: int, drop=None):
 
 def flash_fwd(q, k, v, mask, sm_scale: float, drop=None):
     """The tiled flash forward of (b, s, n_heads, d) q, k, v (any s; on
-    the card bf16 sharing one row stride, d in FLASH_HEAD_DIMS) and the
+    the card bf16 sharing one row stride, ``attn_head_dim_ok(d)``) and the
     (b, s) segment mask -> (o (b, s, n_heads, d), lse (b, n_heads, s)
     f32), with the Philox prob dropout ``drop`` (stream 3)."""
     if not _on_cuda("flash_fwd", q, k, v, mask):
         return flash_fwd_reference(q, k, v, mask, sm_scale, drop)
-    b, s, nh, d, ld = _bshd("flash_fwd", q, k, v, mask, FLASH_HEAD_DIMS)
+    b, s, nh, d, ld = _bshd("flash_fwd", q, k, v, mask)
     o = torch.empty((b, s, nh, d), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
     rc = _cuda.lib().nbk_flash_fwd(
@@ -954,7 +969,7 @@ def flash_fwd(q, k, v, mask, sm_scale: float, drop=None):
 
 
 def _flash_bwd_checks(name, q, k, v, mask, lse, dout, stat2, stat2_name):
-    b, s, nh, d, ld = _bshd(name, q, k, v, mask, FLASH_HEAD_DIMS)
+    b, s, nh, d, ld = _bshd(name, q, k, v, mask)
     _expect(name, "dout", dout, torch.bfloat16, (b, s, nh, d))
     _expect(name, "lse", lse, torch.float32, (b, nh, s))
     if stat2_name == "o":
@@ -970,7 +985,7 @@ def flash_wgmma_launches() -> dict:
     """Launches of the tiled kernels' wgmma + TMA instances since the
     kernels were loaded, per kernel (csrc/flash_attention.cu and
     csrc/flash_attention_bwd.cu run them at d = 64, their mma.sync kernels
-    at d = 32 and 128): the routing behind the ``flash_fwd``,
+    at every other head dim): the routing behind the ``flash_fwd``,
     ``flash_bwd_dq`` and ``flash_bwd_dkv`` counters."""
     lib = _cuda.lib()
     return {"flash_fwd": int(lib.nbk_flash_fwd_wgmma_launches()),

@@ -37,15 +37,17 @@ the attention probs, constant biases for the FFN and out-projection
 epilogues) from its kernels' forward and backward outputs, and holds it
 to the mask ``ops/philox.py`` regenerates, keyed as the kernels key it;
 the "extracted-mask oracle" is the plain version, which draws that same
-Philox mask.  The port's head dims differ from JAX's in one place: the
-tiled flash dropout suite runs at d = 64 (the ``wgmma`` kernels), since
-the tiled kernels take d in (32, 64, 128) and JAX's runs at d = s = 256;
-its mask is read in four 64-column chunks of V.
+Philox mask.  The flash dropout suites run at JAX's head dims, d = s =
+128 single-block and d = s = 256 tiled.
 
 Checks by the port's own names (``PORT_CHECKS``): the extracted masks
-against Philox, and, on the card, that each kernel of ``_cuda.KERNELS``
-was launched by the check ``COVERAGE`` names for it.  No JAX check is left
-out (``OMITTED`` is empty).
+against Philox; the flash route at every head dim of ``HEAD_DIM_CHECKS``
+-- each ``mma.sync`` instance width and head dims between them, which run
+on the next wider instance with zero columns -- forward and gradients
+with prob dropout against the plain versions, per route; and, on the
+card, that each kernel of ``_cuda.KERNELS`` was launched by the check
+``COVERAGE`` names for it.  No JAX check is left out (``OMITTED`` is
+empty).
 """
 
 from __future__ import annotations
@@ -78,6 +80,8 @@ CHECK_NAMES = (
     "flash_dropout (tiled) fwd vs masked oracle",
     "flash_dropout (tiled) dq", "flash_dropout (tiled) dk",
     "flash_dropout (tiled) dv",
+    "flash_attention head dims (single-block)",
+    "flash_attention head dims (tiled)",
     "fused_ln fwd", "fused_ln dx", "fused_gelu fwd", "fused_gelu dx",
     "fused_embed fwd",
     "fused_ffn fwd", "fused_ffn dx (bf16)", "fused_ffn dw1 (bf16)",
@@ -129,12 +133,19 @@ CHECK_NAMES = (
 )
 PORT_CHECKS = ("flash_dropout mask equals Philox",
                "flash_dropout (tiled) mask equals Philox",
+               "flash_attention head dims (single-block)",
+               "flash_attention head dims (tiled)",
                "fused_ffn fwd/bwd masks equal Philox",
                "fused_attn masks equal Philox",
                "every kernel launched by its check")
 CUDA_ONLY = ("every kernel launched by its check",)
 OMITTED: dict = {}      # JAX check name -> why the port has none
 JAX_CHECKS = tuple(n for n in CHECK_NAMES if n not in PORT_CHECKS)
+# the port's head-dim checks: the mma.sync instances' widths (32, 96, 128,
+# 192, 256; 64 is the wgmma kernels', which JAX's checks cover) and head
+# dims between them (16 on the 32-wide instance, 48 on 64, 80 on 96, 136
+# on 192, 224 on 256)
+HEAD_DIM_CHECKS = (16, 32, 48, 80, 96, 128, 136, 192, 224, 256)
 
 # each kernel of _cuda.KERNELS -> the check whose run launches it first
 COVERAGE = {
@@ -299,7 +310,40 @@ def _flash_checks(c: Checks, rng, dev) -> None:
             c.check(f"flash_dropout{tag} d{nm}", a, b_, 2e-3)
 
     dropout_suite("", 128, 128, {})
-    dropout_suite(" (tiled)", 256, 64, tiled)
+    dropout_suite(" (tiled)", 256, 256, tiled)
+
+    # every head dim of HEAD_DIM_CHECKS on each route, prob dropout 0.1:
+    # the output and dq, dk, dv against the plain versions, each within
+    # check()'s bf16 limit (atol 5e-5 forward, 2e-3 gradients); the value
+    # is the worst ratio of a difference to its limit
+    def held(got, want, atol):
+        lim = atol + BF16_ALLOWANCE * float(want.float().abs().max())
+        ok = bool(torch.isfinite(got.float()).all())
+        return float((got.float() - want.float()).abs().max()) / lim, ok
+
+    for route, kw, sh in (("single-block", {}, 160), ("tiled", tiled, 320)):
+        worst, finite = 0.0, True
+        for dh in HEAD_DIM_CHECKS:
+            qh, kh, vh = (t(rng.randn(2, sh, 2, dh)) for _ in range(3))
+            mh = torch.ones((2, sh), dtype=torch.float32, device=dev)
+            mh[1, 2 * sh // 3:] = 2.0
+
+            def fh(q_, k_, v_, fn=flash_attention):
+                return fn(q_, k_, v_, mh, dropout_rate=0.1, seed=11 + dh,
+                          **kw)
+
+            pairs = [(fh(qh, kh, vh), fh(qh, kh, vh,
+                                         flash_attention_reference), 5e-5)]
+            pairs += [(a, b_, 2e-3) for a, b_ in zip(
+                _grads(fh, qh, kh, vh),
+                _grads(lambda *a: fh(*a, fn=flash_attention_reference),
+                       qh, kh, vh))]
+            for got_, want_, atol in pairs:
+                r, ok = held(got_, want_, atol)
+                worst, finite = max(worst, r), finite and ok
+        c.flag(f"flash_attention head dims ({route})", worst <= 1.0 and finite,
+               worst, f": worst {worst:.3f} of the limit over d in "
+               f"{HEAD_DIM_CHECKS}, s {sh}")
 
 
 def _row_checks(c: Checks, rng, dev) -> None:

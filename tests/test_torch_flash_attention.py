@@ -5,6 +5,10 @@ port's (whose kernels run their plain versions on CPU tensors).  Both
 routes: single-block (s <= 512, no block size) and tiled (a block size
 given, or s > 512).
 
+Head dims: 64, 32, and those the port's kernels take beside them -- 96
+(the quality tools' 768 / 8 heads), 192 (the CLI's 768 / 4 heads) and 48,
+which the card pads to its 64-wide instance -- on both routes.
+
 Tolerances are the JAX package's own flash tests' (tests/
 test_flash_attention.py): f32 forward atol 2e-5 / rtol 1e-4, f32
 gradients atol 5e-4 / rtol 1e-3, bf16 outputs within 0.05.  JAX's TPU
@@ -91,7 +95,8 @@ def test_single_block_forward_matches_jax(s):
     _hold(_inputs(2, s, 4, 64, seed=0), fwd_only=True)
 
 
-@pytest.mark.parametrize("s,d", [(128, 64), (100, 32)])
+@pytest.mark.parametrize("s,d", [(128, 64), (100, 32), (160, 96), (100, 48),
+                                 (64, 192)])
 def test_single_block_gradients_match_jax(s, d):
     """s = 100: JAX pads q rows to 112 and kv rows to 128 with mask -1;
     the port pads nothing."""
@@ -102,11 +107,14 @@ def test_packed_masks_match_jax():
     _hold(_inputs(3, 96, 2, 64, seed=2, packed=True))
 
 
-@pytest.mark.parametrize("s", [256, 640])
-def test_tiled_route_matches_jax(s):
+@pytest.mark.parametrize("s,d", [pytest.param(256, 64, id="256"),
+                                 pytest.param(640, 64, id="640"),
+                                 pytest.param(256, 96, id="256-d96"),
+                                 pytest.param(128, 192, id="128-d192")])
+def test_tiled_route_matches_jax(s, d):
     """block_q = block_k = 128 forces JAX's tiled kernels (and the port's
     tiled route); s = 640 also pads JAX's tiles to 768."""
-    _hold(_inputs(2, s, 2, 64, seed=3, packed=s == 256), block_q=128,
+    _hold(_inputs(2, s, 2, d, seed=3, packed=s == 256), block_q=128,
           block_k=128)
 
 
@@ -263,7 +271,14 @@ def test_multi_head_attention_routes_as_jax(monkeypatch, env, dtype):
     # head dim 32 fails its lane rule: flash, as in JAX
     (dict(use_flash_attention=True, flash_min_seq=16, use_fused_attn=True,
           num_heads=4), 24, 2),
-], ids=["routes", "below_min_seq", "flag_off", "megakernel", "d32"])
+    # head dim 96 (the quality tools' geometry) fails it too
+    (dict(use_flash_attention=True, flash_min_seq=16, use_fused_attn=True,
+          hidden_size=192), 24, 2),
+    # head dim 192 with the megakernel off (the CLI's --no_fused_attn)
+    (dict(use_flash_attention=True, flash_min_seq=16, hidden_size=384),
+     24, 2),
+], ids=["routes", "below_min_seq", "flag_off", "megakernel", "d32", "d96",
+        "d192"])
 def test_encoder_trains_through_flash_where_jax_does(monkeypatch, flags, seq,
                                                      calls):
     """Two training layers call ``flash_attention`` once each exactly where
@@ -292,3 +307,35 @@ def test_encoder_trains_through_flash_where_jax_does(monkeypatch, flags, seq,
                         seed=None if det else 9)
         assert len(seen) == (0 if det else calls)
     assert len(set(seen)) == len(seen)     # one prob-mask seed per layer
+
+
+def test_one_head_dim_predicate_decides_every_refusal():
+    """For every head dim 1 .. 400 the kernel wrappers' checks (the
+    (n, 3h) buffer's and the (b, s, heads, d) operands'), the encoder's
+    megakernel refusal and its flash-training refusal agree with
+    ``attn_head_dim_ok``: d <= 256 with d % 8 == 0."""
+    from nbest_asr_tpu_torch.models import encoder as E
+
+    mask = torch.ones(1, 2)
+    taken = []
+    for d in range(1, 401):
+        ok = K.attn_head_dim_ok(d)
+        assert ok == (d <= 256 and d % 8 == 0)
+        qkv = torch.zeros(2, 3 * d, dtype=torch.bfloat16)
+        q = torch.zeros(1, 2, 1, d, dtype=torch.bfloat16)
+        cfg = E.EncoderConfig.tiny(50, hidden_size=d, num_heads=1,
+                                   use_flash_attention=True, flash_min_seq=16)
+        verdicts = []
+        for check in (lambda: K._attn_dims("seg_attention", qkv, mask, 1),
+                      lambda: K._bshd("flash_fwd", q, q, q, mask),
+                      lambda: E._refuse_head_dim(cfg),
+                      lambda: E._refuse_unported_training(cfg, 2, 64)):
+            try:
+                check()
+                verdicts.append(True)
+            except (ValueError, NotImplementedError) as e:
+                assert "head dim" in str(e), e
+                verdicts.append(False)
+        assert verdicts == [ok] * 4, (d, verdicts)
+        taken.append(ok)
+    assert sum(taken) == 32

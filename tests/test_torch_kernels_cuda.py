@@ -155,9 +155,12 @@ def test_wrappers_refuse_and_count(dev):
         K.gemm_bias_act(a, w[:, :96].contiguous(), b[:96])
     with pytest.raises(ValueError, match="K % 8"):
         K.gemm_bias_act(a[:, :250].contiguous(), w[:250].contiguous(), b)
-    with pytest.raises(ValueError, match="head dims"):
-        K.seg_attention(_rand(dev, 64, 3 * 144), torch.ones(4, 16,
-                                                            device=dev), 3)
+    # head dims 12 (d % 8 != 0) and 264 (> 256)
+    for h, nh in ((36, 3), (528, 2)):
+        with pytest.raises(ValueError, match="head dims"):
+            K.seg_attention(_rand(dev, 64, 3 * h), torch.ones(4, 16,
+                                                               device=dev),
+                            nh)
     # the TMA kernel refuses an operand off a 16-byte boundary
     r = _rand(dev, 64, 128)
     off = _rand(dev, 64 * 256 + 1)[1:].view(64, 256)
@@ -648,7 +651,7 @@ def test_seg_attention_dropout_and_stats(dev, s, d, packed, rate):
 @pytest.mark.parametrize("layout", ["qkv", "bshd"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 96])
 @pytest.mark.parametrize("s", [20, 64, 96, 160, 256, 512])
 def test_seg_attention_bwd(dev, s, d, packed, rate, layout):
     """dq, dk, dv against the plain backward, on the (n, 3h) QKV buffer's
@@ -800,7 +803,7 @@ def test_attention_train_wrappers_refuse_and_count(dev):
         K.seg_attention_bwd(qkv, qkv[:, :256].contiguous(), mask, st[:, :1],
                             4)
     with pytest.raises(ValueError, match="head dims"):
-        K.seg_attention_bwd(qkv, qkv[:, :256].contiguous(), mask, st, 16)
+        K.seg_attention_bwd(qkv, qkv[:, :256].contiguous(), mask, st, 64)
     with pytest.raises(ValueError, match="no dropout"):
         K.gemm_dgrad(qkv[:, :256].contiguous(), _rand(dev, 256, 256), "none",
                      drop=_drop(0.1, 4))
@@ -1077,12 +1080,20 @@ def test_int8_train_wrappers_refuse_and_count(dev):
         assert {k: v for k, v in _cuda.launch_counts.items() if v} == want
 
 
-@pytest.mark.parametrize("d", [192, 256])
+# the mma.sync instances beyond 32, 64 and 128: 96 (the quality tools'
+# 768 / 8 heads), 192 and 256 (JAX's megakernel head dims, e.g. hidden 384
+# with 2 heads), and head dims between instance widths, which run on the
+# next wider instance with their columns past d zero-filled (8 and 16 on
+# 32, 48 on 64, 80 on 96, 136 on 192, 224 on 256)
+HEAD_DIM_CASES = [192, 256, 96, 8, 16, 48, 80, 136, 224]
+
+
+@pytest.mark.parametrize("d", HEAD_DIM_CASES)
 @pytest.mark.parametrize("s", [20, 130])
 def test_seg_attention_wide_heads(dev, s, d):
-    """The d = 192 and 256 instances (head dims JAX sends to its
-    megakernels, e.g. hidden 384 with 2 heads) against their plain
-    versions, forward with dropout and statistics, and backward."""
+    """The single-block pair's instances past d = 32, 64 and 128, and
+    padded head dims, against their plain versions, forward with dropout
+    and statistics, and backward."""
     b, nh = 2, 2
     h = nh * d
     qkv = _rand(dev, b * s, 3 * h, std=0.5, seed=s + d + 170)
@@ -1121,7 +1132,7 @@ def _bshd_operands(dev, b, s, nh, d, views, seed):
 
 
 @pytest.mark.parametrize("views", [False, True])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 96, 48])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_sb_attention_strided(dev, d, views, rate):
     b, s, nh = 3, 150, 4
@@ -1141,10 +1152,14 @@ def test_sb_attention_strided(dev, d, views, rate):
 
 # the tiled kernels' cases (s, d, q / k / v as QKV views, dropout rate):
 # d = 64 (the wgmma + TMA backward pair) at four lengths, both layouts,
-# with and without dropout; d = 32 and 128 (the mma.sync pair)
+# with and without dropout; the mma.sync pair's instances (32, 96, 128,
+# 192, 256) and padded head dims (16 on 32, 48 on 64, 136 on 192, 224 on
+# 256); d = 96 also without dropout and at 1024
 FLASH_TILED_CASES = [(s, 64, views, rate) for s in (100, 700, 1024, 2048)
                      for views in (False, True) for rate in (0.0, 0.1)] + [
-    (s, d, s == 700, 0.1) for d in (32, 128) for s in (100, 700)]
+    (s, d, s == 700, 0.1) for d in (32, 128) for s in (100, 700)] + [
+    (s, d, s == 700, 0.1) for d in (96, 192, 256, 16, 48, 136, 224)
+    for s in (100, 700)] + [(1024, 96, True, 0.0)]
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -1185,7 +1200,7 @@ def test_flash_tiled_kernels(dev, s, d, views, rate, packed):
         assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 96, 192])
 def test_flash_tiled_draws_the_single_block_mask(dev, d):
     """At s = 256 the forced tiled route and the single-block route drop
     the same probs: with four packed segments of 64 and v one-hot within
@@ -1227,9 +1242,15 @@ def test_flash_wrappers_refuse_and_count(dev):
 
     q, k, v, do = _bshd_operands(dev, 2, 80, 4, 64, True, seed=400)
     mask = torch.ones(2, 80, device=dev)
+    # head dims 12 (d % 8 != 0) and 320 (> 256)
     with pytest.raises(ValueError, match="head dims"):
-        K.flash_fwd(*(t[..., :48].contiguous() for t in (q, k, v)), mask,
+        K.flash_fwd(*(t[..., :12].contiguous() for t in (q, k, v)), mask,
                     0.1)
+    with pytest.raises(ValueError, match="head dims"):
+        K.flash_fwd(*(torch.cat([t] * 5, -1) for t in (q, k, v)), mask, 0.1)
+    with pytest.raises(ValueError, match="head dims"):
+        K.sb_attention(*(torch.cat([t] * 5, -1) for t in (q, k, v)), mask,
+                       0.1)
     with pytest.raises(ValueError, match="strides"):
         K.flash_fwd(q, k.contiguous(), v, mask, 0.1)
     with pytest.raises(TypeError):

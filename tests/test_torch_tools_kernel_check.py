@@ -45,7 +45,7 @@ def test_check_names_are_jax_s_plus_the_port_s():
                                     if n not in gkc.OMITTED]
     assert set(gkc.PORT_CHECKS) <= set(gkc.CHECK_NAMES)
     assert not set(gkc.PORT_CHECKS) & set(jax_names)
-    assert len(set(gkc.CHECK_NAMES)) == len(gkc.CHECK_NAMES) == 85
+    assert len(set(gkc.CHECK_NAMES)) == len(gkc.CHECK_NAMES) == 87
     assert set(gkc.CUDA_ONLY) <= set(gkc.PORT_CHECKS)
 
 

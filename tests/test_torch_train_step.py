@@ -12,9 +12,11 @@ port's attention Function), each fused configuration also on packed
 micros, the int8 training routes, and the flash route
 (``use_flash_attention`` with ``flash_min_seq=16`` so that the tests'
 24-token rows route: JAX's single-block flash kernels against the port's
-``ops/flash_attention.py``) at head dim 64 beside the fused FFN, and at
+``ops/flash_attention.py``) at head dim 64 beside the fused FFN, at
 head dim 32, where the attention megakernel's lane rule fails and JAX
-takes flash although ``use_fused_attn`` is set.
+takes flash although ``use_fused_attn`` is set, and at head dim 192 with
+the megakernel off (hidden 384, 2 heads: the CLI's 768 / 4 heads under
+``--no_fused_attn``, halved).
 
 Tolerances, f32 on both sides: loss parts 1e-5 relative and per-leaf
 parameter deltas 1e-3 of the leaf's largest delta (summation order and
@@ -78,6 +80,9 @@ CONFIGS = {
     "flash_d32": dict(hidden_size=128, num_heads=4, intermediate_size=256,
                       use_fused_attn=True, use_flash_attention=True,
                       flash_min_seq=16),
+    "flash_d192": dict(hidden_size=384, num_heads=2, intermediate_size=256,
+                       use_fused_attn=False, use_flash_attention=True,
+                       flash_min_seq=16),
 }
 
 
@@ -242,10 +247,13 @@ def test_dropout_step_is_seeded(tiny_memory):
 
 def _one_step(tiny_memory, seed, **flags):
     """One port train step on the fused-FFN configuration with ``flags``
-    (packed micros if ``packed``); returns its loss parts."""
+    (packed micros if ``packed``; parameters of the widths the flags
+    set); returns its loss parts."""
     flags = dict(flags)
     packed = flags.pop("packed", False)
     jcfg, tcfg = _configs(tiny_memory, "fused_ffn")
+    jcfg = dataclasses.replace(jcfg, encoder=dataclasses.replace(
+        jcfg.encoder, **flags))
     params = from_jax_numpy(jax.device_get(j_init(jax.random.PRNGKey(seed),
                                                   jcfg)))
     host = _host_data(tiny_memory, 9, seed=seed)
@@ -267,9 +275,9 @@ def _one_step(tiny_memory, seed, **flags):
 def test_eval_step_and_training_refusals(tiny_memory):
     """The eval step runs; training raises exactly where JAX would run a
     kernel the port lacks (``encoder._refuse_unported_training``: the
-    flash route at a head dim its kernels lack), and eval and training
-    where JAX would run an attention megakernel at a head dim the port's
-    kernels lack."""
+    flash route at a head dim its kernels lack, 12 (d % 8 != 0) and 320
+    (> 256)), and eval and training where JAX would run an attention
+    megakernel at a head dim the port's kernels lack."""
     jcfg, tcfg = _configs(tiny_memory, "fused_ffn")
     params = from_jax_numpy(jax.device_get(j_init(jax.random.PRNGKey(6),
                                                   jcfg)))
@@ -281,16 +289,19 @@ def test_eval_step_and_training_refusals(tiny_memory):
     assert ev["pred"].shape == (10, tiny_memory.n_bottom)
     assert float(ev["counts"]["total"]) == 9.0
     # JAX routes head dim 320 to its megakernels; the port's attention
-    # kernels take 64, 128, 192 and 256
+    # kernels take d <= 256 with d % 8 == 0 (of the megakernels' d % 64:
+    # 64, 128, 192 and 256)
     d320 = dict(use_fused_attn=True, hidden_size=640, num_heads=2)
     ecfg = dataclasses.replace(tcfg, encoder=dataclasses.replace(
         tcfg.encoder, use_fused_attn_eval=True, **d320))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_eval_step(ecfg, LossConfig(), hier)(params, data, np.arange(10))
-    refused = [# JAX's flash route at head dim 16; the port's flash
-               # kernels take 32, 64 and 128
+    refused = [# JAX's flash route at head dims 12 and 320; the port's
+               # flash kernels take d <= 256 with d % 8 == 0
                dict(use_flash_attention=True, flash_min_seq=16,
-                    hidden_size=64, num_heads=4),
+                    hidden_size=48, num_heads=4),
+               dict(use_flash_attention=True, flash_min_seq=16,
+                    hidden_size=640, num_heads=2),
                d320]
     for flags in refused:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -315,10 +326,14 @@ def test_eval_step_and_training_refusals(tiny_memory):
     dict(use_fused_gelu=True, use_fused_ffn=False),
     # unpacked rows carry no position_ids: the fused embedding lookup
     dict(use_fused_embedding=True),
+    # JAX's flash route at head dim 16: the port's 32-wide instance,
+    # its columns past 16 zeros
+    dict(use_flash_attention=True, flash_min_seq=16, hidden_size=64,
+         num_heads=4),
 ], ids=["flash_below_min_seq", "fused_ln_gelu_under_megakernels",
         "fused_embedding_packed", "int8_bwd_alone", "int8_ffn",
         "int8_attn", "fused_ln_plain_blocks", "fused_gelu_plain_ffn",
-        "fused_embedding_unpacked"])
+        "fused_embedding_unpacked", "flash_d16"])
 def test_training_steps_where_jax_has_no_unported_kernel(tiny_memory, flags):
     loss = _one_step(tiny_memory, 7, **flags)
     assert all(np.isfinite(float(v)) for v in loss.values())
