@@ -3,7 +3,9 @@
 commits' kernels beyond their times:
 
     python3 chip_kernel_probe.py --root CHECKOUT sass NAME
+    python3 chip_kernel_probe.py --root CHECKOUT ptxas NAME
     python3 chip_kernel_probe.py --root CHECKOUT gelu-dump OUT.pt
+    python3 chip_kernel_probe.py --root CHECKOUT attn-dump OUT.pt
     python3 chip_kernel_probe.py compare A.pt B.pt
 
 ``--root`` is the root of a checkout of this repository (default: the
@@ -13,11 +15,20 @@ NAME, its SASS instruction count and, for its longest loop (the body from
 a backward branch's target to the branch), the instructions, MUFU
 instructions, 32 x 32 -> 64-bit integer multiplies (IMAD.WIDE: Philox's)
 and branches in it, from ``cuobjdump -sass`` of the built
-library.  ``gelu-dump`` saves ``bias_gelu`` and ``bias_gelu_bwd`` outputs
+library.  ``ptxas`` builds the checkout's kernels afresh (it refuses a
+checkout whose library is already built) and prints ptxas's registers
+and spill bytes for each kernel instance whose mangled name contains NAME,
+as ``chip_smoke.py`` reports them.  ``gelu-dump`` saves ``bias_gelu`` and ``bias_gelu_bwd`` outputs
 on fixed inputs: every bf16 value as x (bias 0, and random), in bf16 and
 widened to f32; 4 M random f32 bit patterns; random operands with special
-values, bf16 and f32, at N % 8 == 0 and N % 8 == 4.  ``compare`` holds two
-dumps bit for bit and names the cases that differ.
+values, bf16 and f32, at N % 8 == 0 and N % 8 == 4.  ``attn-dump`` saves
+``seg_attention`` (ctx and the row statistics, with and without the prob
+dropout) and ``seg_attention_bwd`` (dqkv) on fixed inputs at the shapes
+whose kernels a change to the d = 96 instances must leave alone: d = 64 at
+every bucket, ragged lengths and past 256, on the QKV buffer and on (b, s,
+heads, d) tensors; the mma.sync instances at d = 32, 80, 128, 192 and at d
+= 96 past 256.  ``compare`` holds two dumps bit for bit and names the
+cases that differ.
 """
 
 from __future__ import annotations
@@ -60,6 +71,25 @@ def sass(name: str) -> None:
               f"{sum('BRA' in o for o in loop)})")
 
 
+def ptxas(name: str) -> None:
+    import importlib.util
+
+    from nbest_asr_tpu_torch.ops import _cuda
+
+    if _cuda.library_path().exists():
+        raise RuntimeError(f"{_cuda.library_path()} exists: ptxas reports "
+                           "only on a fresh build")
+    _cuda.build()
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for line in smoke.ptxas_summary(_cuda.build_report):
+        if name in line:
+            print(line)
+
+
 def gelu_dump(out: str) -> None:
     from nbest_asr_tpu_torch.ops import kernels as K
 
@@ -95,6 +125,54 @@ def gelu_dump(out: str) -> None:
     print(f"{len(res)} cases -> {out}")
 
 
+# attn-dump's cases: (head dim, heads, batch, seq, layout)
+ATTN_CASES = ([(64, 12, 4, s, "qkv") for s in (64, 96, 130, 160, 256, 300,
+                                               512)]
+              + [(64, 12, 4, s, "bshd") for s in (160, 256)]
+              + [(96, 8, 4, s, "qkv") for s in (300, 512)]
+              + [(32, 8, 4, 160, "bshd"), (80, 8, 4, 160, "qkv"),
+                 (128, 6, 4, 256, "qkv"), (192, 4, 4, 256, "qkv")])
+
+
+def attn_dump(out: str) -> None:
+    from nbest_asr_tpu_torch.ops import kernels as K
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(6)
+    res = {}
+    for d, nh, b, s, layout in ATTN_CASES:
+        h = nh * d
+        qkv = (torch.randn(b * s, 3 * h, generator=g) * 0.5).to(
+            dev, torch.bfloat16)
+        dctx = (torch.randn(b * s, h, generator=g) * 0.1).to(
+            dev, torch.bfloat16)
+        mask = torch.ones(b, s)
+        mask[:, s // 3: 2 * s // 3], mask[0, s - s // 4:] = 2.0, 0.0
+        mask = mask.to(dev)
+        for rate in (0.0, 0.1):
+            tag = f"d {d} x {nh} {b} x {s} {layout} rate {rate}"
+            drop = site(77, rate, 3) if rate else None
+            if layout == "qkv":
+                ctx, st = K.seg_attention(qkv, mask, nh, drop=drop,
+                                          stats=True)
+                grads = (K.seg_attention_bwd(qkv, dctx, mask, st, nh,
+                                             drop=drop),)
+            else:
+                q, k, v = (t.contiguous() for t in
+                           qkv.view(b, s, 3, nh, d).unbind(2))
+                sc = d ** -0.5
+                ctx, st = K.sb_attention(q, k, v, mask, sc, drop, True)
+                grads = K.sb_attention_bwd(q, k, v, dctx.view(b, s, nh, d),
+                                           mask, st, sc, drop)
+            res[f"fwd {tag}"] = ctx.cpu()
+            res[f"stats {tag}"] = st.cpu()
+            for i, gr in enumerate(grads):
+                res[f"bwd {tag} {i}"] = gr.cpu()
+    torch.save(res, out)
+    print(f"{len(res)} cases -> {out}")
+
+
 def compare(a_path: str, b_path: str) -> int:
     def bits(t):
         return t.view({torch.bfloat16: torch.int16,
@@ -112,7 +190,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
-    ap.add_argument("what", choices=("sass", "gelu-dump", "compare"))
+    ap.add_argument("what", choices=("sass", "ptxas", "gelu-dump",
+                                     "attn-dump", "compare"))
     ap.add_argument("args", nargs="+")
     args = ap.parse_args()
     if args.what == "compare":
@@ -123,6 +202,10 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     if args.what == "sass":
         sass(args.args[0])
+    elif args.what == "ptxas":
+        ptxas(args.args[0])
+    elif args.what == "attn-dump":
+        attn_dump(args.args[0])
     else:
         gelu_dump(args.args[0])
     return 0

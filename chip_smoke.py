@@ -258,29 +258,39 @@ Phases, each fatal on failure:
    (b)-(f) must launch the kernels ``TOOL_KERNELS`` names (quality_smoke
    the single-block attention pair, at 8 heads of 96); prints each tool's
    line or table, each part's wall seconds and the phase's.
-18. Head dims past the wgmma kernels' 64 (``phase_head_dims``, run after
-   phase 10).  (a) The single-block pair at d = 96 (32 x 256 x 8 heads,
-   QKV views) and 48 (its 64-wide instance, 48 x 160 x 16), the tiled
-   trio at d = 96 (32 x 1024 x 8), 192, 256 and 48 (8 x 1024), padded and
-   packed masks, dropout 0 and 0.1, against their plain versions under
-   ``Checker``; none on a wgmma kernel.  (b) Device ms of the five at d =
-   96 (the pair at 32 x 256, the trio at 32 x 1024, 8 heads) beside the
-   plain versions, SDPA's forward or backward alone on the same operands
-   and the bounds.  (c) The quality tools' encoder (hidden 768, 8 heads of
-   96, intermediate 3072, 4 layers, bf16, dropout 0.1, seed-0 weights)
-   with the CLI's "auto" kernel flags on the card (``use_fused_ffn``,
-   ``use_fused_attn``, ``use_flash_attention``): 3 steps at each of the
-   buckets 96, 160, 256 (phase 6's micros), counters by
-   ``PER_LAYER_TRAIN_FFN`` at 96 and ``PER_LAYER_TRAIN_FLASH_SB`` at 160
-   and 256 (the megakernel's lane rule fails at d = 96); at dropout 0 one
-   kernel step against one plain step at 256 (phase 6's gate); 30 steps
-   on a fixed micro at 160 halve the loss; the CLI's from-scratch
-   geometry (4 heads of 192) under ``--no_fused_attn``, one counted step
-   at 256 held to the plain step; the tiled leg, the same encoder at 48 x
-   1024 (max_position 1024; at 32 rows JAX's ``_flash_preferred`` leaves
-   8 heads to the plain path), one counted step on the tiled kernels held
+18. Head dims past 64 (``phase_head_dims``, run after phase 10).  (a) The
+   single-block pair at d = 96 (8 heads) at each training micro of the
+   8192-token budget (128 x 64, 80 x 96, 48 x 160, 32 x 256, QKV views),
+   at 4 x 200 (standalone tensors) and 8 x 512, and at d = 48, 80 and 88
+   (the padded 64- and 96-wide mma.sync instances); the tiled trio at d =
+   96 (32 x 1024 x 8), 192, 256 and 48 (8 x 1024); padded and packed
+   masks, dropout 0 and 0.1, against their plain versions under
+   ``Checker``.  Each single-block launch runs on the instance
+   ``kernels.attn_instance`` names: the d = 96 pair on its wgmma
+   kernels at s <= 256, with ``seg_attention_wgmma_launches(96)`` and
+   ``seg_attention_bwd_wgmma_launches(96)`` rising by exactly its
+   launches, and on mma.sync at 512 and at d = 48, 80, 88; the tiled
+   trio on no wgmma kernel.  (b) Device ms of the five at d = 96 (the
+   pair at 32 x 256, the trio at 32 x 1024, 8 heads) and of the pair at
+   d = 192 (32 x 256 x 4 heads) beside the plain versions, SDPA's
+   forward or backward alone on the same operands and the bounds.  (c)
+   The quality tools' encoder (hidden 768, 8 heads of 96, intermediate
+   3072, 4 layers, bf16, dropout 0.1, seed-0 weights) with the CLI's
+   "auto" kernel flags on the card (``use_fused_ffn``, ``use_fused_attn``,
+   ``use_flash_attention``): 3 steps at each of the buckets 96, 160, 256
+   (phase 6's micros), counters by ``PER_LAYER_TRAIN_FFN`` at 96 and
+   ``PER_LAYER_TRAIN_FLASH_SB`` at 160 and 256 (the megakernel's lane rule
+   fails at d = 96), every single-block launch also on the d = 96 wgmma
+   counters; at dropout 0 one kernel step against one plain step at 256
+   (phase 6's gate); 30 steps on a fixed micro at 160 halve the loss; the
+   CLI's from-scratch geometry (4 heads of 192) under ``--no_fused_attn``,
+   one counted step at 256 held to the plain step, and its default itself
+   (6 layers, both megakernels, one micro a step), likewise, on no wgmma
+   attention kernel; the tiled leg, the same encoder at 48 x 1024
+   (max_position 1024; at 32 rows JAX's ``_flash_preferred`` leaves 8
+   heads to the plain path), one counted step on the tiled kernels held
    to the same step on their plain versions.  Prints step ms and a JSON
-   line of the d = 96 kernels' times, bounds and launches a step.
+   line of the d = 96 and 192 kernels' times, bounds and launches a step.
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
@@ -454,7 +464,19 @@ N_ACCUM, TRAIN_STEPS, DROPOUT = 2, 3, 0.1
 # x 2 B = 1.61 GB < 2 GiB, the plain path), at 48 rows it holds (2.42 GB)
 HD, HD_LAYERS, HD_BUCKETS = 96, 4, (96, 160, 256)
 HD_NH = H // HD
-HD_SB_SHAPES = ((32, 256, HD_NH, HD, True), (48, 160, 16, 48, False))
+# the single-block pair at d = 96 on its wgmma instances (each training
+# micro of the 8192-token budget, a ragged length on standalone tensors)
+# and on its mma.sync instance past 256; d = 48, 80 and 88 on the padded
+# 64- and 96-wide mma.sync instances
+HD_SB_SHAPES = ((128, 64, HD_NH, HD, True), (80, 96, HD_NH, HD, True),
+                (48, 160, HD_NH, HD, True), (32, 256, HD_NH, HD, True),
+                (4, 200, HD_NH, HD, False), (8, 512, HD_NH, HD, True),
+                (48, 160, 16, 48, False), (48, 160, HD_NH, 80, True),
+                (32, 256, HD_NH, 88, False))
+# the CLI's from-scratch geometry: hidden 768, --n_head 4 (d = 192), 6
+# layers (config.py's defaults), one micro a step (n_accum 1 below 12
+# layers)
+CLI_D, CLI_NH, CLI_LAYERS_DEFAULT = 192, 4, 6
 HD_TILED_SHAPES = ((LONG_BATCH, LONG_SEQ, HD_NH, HD), (8, 1024, 4, 192),
                    (8, 1024, 3, 256), (8, 1024, 16, 48))
 HD_LONG_BATCH = 48
@@ -2211,23 +2233,58 @@ def flash_library_calls(q, k, v, do, mask):
         qt, kt, vt, attn_mask=same, dropout_p=DROPOUT)), fwd_bwd, bwd
 
 
+def attn_wgmma_counts(K) -> dict:
+    """The attention kernels' wgmma launch counters: the single-block
+    pair's by head dim and the tiled trio's."""
+    return {"seg_attention": {w: K.seg_attention_wgmma_launches(w)
+                              for w in (64, 96)},
+            "seg_attention_bwd": {w: K.seg_attention_bwd_wgmma_launches(w)
+                                  for w in (64, 96)},
+            "flash": K.flash_wgmma_launches()}
+
+
+def attn_wgmma_delta(K, before: dict) -> dict:
+    """The single-block pair's launches by head dim since ``before`` (an
+    ``attn_wgmma_counts``), and whether the tiled trio's are unchanged."""
+    after = attn_wgmma_counts(K)
+    out = {k: {w: after[k][w] - before[k][w] for w in (64, 96)}
+           for k in ("seg_attention", "seg_attention_bwd")}
+    out["flash_unchanged"] = after["flash"] == before["flash"]
+    return out
+
+
 def check_sb_pair(K, check, gen, dev, shapes, seed0: int):
     """The single-block pair (``sb_attention`` / ``sb_attention_bwd``)
     against its plain versions at each (b, s, heads, d, QKV views) of
     ``shapes``, padded and packed masks, dropout 0 and 0.1: o, the row
-    sums, dq, dk, dv."""
+    sums, dq, dk, dv; each launch on the instance ``attn_instance``
+    names (the wgmma counters at its d rise by exactly one where it names
+    the wgmma kernels, by nothing elsewhere)."""
     from nbest_asr_tpu_torch.ops.philox import site
 
     for b, s, nh, d, views in shapes:
         q, k, v, do = flash_operands(gen, dev, b, s, nh, d, views)
         sc = 1.0 / d ** 0.5
+        inst = (K.attn_instance(d, s), K.attn_instance(d, s, backward=True))
+        log(f"  {b} x {s} x {nh} d {d}: forward on {inst[0]}, backward on "
+            f"{inst[1]}")
         for mname, m in zip(("padded", "packed"), masks(b, s, gen, dev)):
             for rate in (0.0, DROPOUT):
                 tag = f"{b} x {s} x {nh} d {d} {mname} rate {rate}"
                 drop = site(seed0 + s, rate, 3)
+                n0 = attn_wgmma_counts(K)
                 o, st = K.sb_attention(q, k, v, m, sc, drop, True)
                 grads = K.sb_attention_bwd(q, k, v, do, m, st, sc, drop)
                 torch.cuda.synchronize()
+                got = attn_wgmma_delta(K, n0)
+                want = {name: {w: int(i == "wgmma" and w == d)
+                               for w in (64, 96)}
+                        for name, i in zip(("seg_attention",
+                                            "seg_attention_bwd"), inst)}
+                want["flash_unchanged"] = True
+                if got != want:
+                    raise AssertionError(f"single-block pair {tag}: wgmma "
+                                         f"launches {got}, expected {want}")
                 ro, rst = K.sb_attention_reference(q, k, v, m, sc, drop,
                                                    True)
                 check(f"flash sb o {tag}", "seg_attention", o, ro, False)
@@ -3318,18 +3375,23 @@ def head_dim_times(K, dev, gen, card: str):
     """Device ms of the five attention kernels at d = 96 -- the
     single-block pair at 32 x 256 x 8 heads, the tiled trio at 32 x 1024 x
     8 heads (q, k, v views of one QKV buffer, padded mask, dropout 0.1) --
-    beside their plain versions, SDPA's forward or backward alone on the
-    same operands, and their bounds.  -> {kernel: (ms, plain ms, library
-    ms, bound ms, bound by)}."""
+    and of the single-block pair at the CLI's from-scratch d = 192 (32 x
+    256 x 4 heads), beside their plain versions, SDPA's forward or
+    backward alone on the same operands, and their bounds.  -> {kernel,
+    with " d192" for the d = 192 pair: (ms, plain ms, library ms, bound
+    ms, bound by)}."""
     from nbest_asr_tpu_torch.ops.philox import site
 
     out = {}
-    for (b, s), names in (((32, 256), ("seg_attention", "seg_attention_bwd")),
-                          ((LONG_BATCH, LONG_SEQ),
-                           ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))):
-        q, k, v, do = flash_operands(gen, dev, b, s, HD_NH, HD, True)
+    for (b, s, nh, d), names in (
+            ((32, 256, HD_NH, HD), ("seg_attention", "seg_attention_bwd")),
+            ((LONG_BATCH, LONG_SEQ, HD_NH, HD),
+             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+            ((32, 256, CLI_NH, CLI_D),
+             ("seg_attention", "seg_attention_bwd"))):
+        q, k, v, do = flash_operands(gen, dev, b, s, nh, d, True)
         m = masks(b, s, gen, dev)[0]
-        sc, drop = 1.0 / HD ** 0.5, site(400, DROPOUT, 3)
+        sc, drop = 1.0 / d ** 0.5, site(400, DROPOUT, 3)
         sdpa_fwd, _, sdpa_bwd = flash_library_calls(q, k, v, do, m)
         lib_fwd, lib_bwd = device_ms(sdpa_fwd), device_ms(sdpa_bwd)
         if s <= 512:
@@ -3343,7 +3405,7 @@ def head_dim_times(K, dev, gen, card: str):
                                                   drop),
                        lambda: K.sb_attention_bwd_reference(
                            q, k, v, do, m, st, sc, drop), lib_bwd)}
-            bounds = sb_bounds(b, s, HD_NH, HD)
+            bounds = sb_bounds(b, s, nh, d)
         else:
             o, lse = K.flash_fwd(q, k, v, m, sc, drop)
             _, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop)
@@ -3362,15 +3424,16 @@ def head_dim_times(K, dev, gen, card: str):
                                                drop),
                        lambda: K.flash_bwd_dkv_reference(
                            q, k, v, m, lse, di, do, sc, drop), lib_bwd)}
-            bounds = flash_bounds(b, s, HD_NH, HD)
+            bounds = flash_bounds(b, s, nh, d)
         for name in names:
             fk, fp, l_ms = fns[name]
-            out[name] = (device_ms(fk), cuda_ms(fp, iters=1, warmup=1), l_ms,
-                         *bounds[name])
-            k_ms, p_ms, _, b_ms, b_by = out[name]
+            key = name if d == HD else f"{name} d{d}"
+            out[key] = (device_ms(fk), cuda_ms(fp, iters=1, warmup=1), l_ms,
+                        *bounds[name])
+            k_ms, p_ms, _, b_ms, b_by = out[key]
             what = "forward" if name in ("seg_attention", "flash_fwd") \
                 else "backward alone"
-            log(f"  time {name:<17} {b} x {s} x {HD_NH} d {HD}: kernel "
+            log(f"  time {name:<17} {b} x {s} x {nh} d {d}: kernel "
                 f"{k_ms:.4f} ms device, plain {p_ms:.4f} ms, library "
                 f"(SDPA's {what}) {l_ms:.4f} ms device, bound {b_ms:.4f} ms "
                 f"({b_by}), {b_ms / k_ms:.3f} of it [{card}]")
@@ -3396,11 +3459,11 @@ def phase_head_dims(dev, card: str, rig):
 
     gen = torch.Generator().manual_seed(18)
     check = Checker()
-    log(f"[head dims] single-block kernels at d = {HD} and 48")
+    log(f"[head dims] single-block kernels at d = {HD}, 48, 80 and 88")
     check_sb_pair(K, check, gen, dev, HD_SB_SHAPES, 400)
     log(f"[head dims] tiled kernels at d = {HD}, 192, 256 and 48")
     check_tiled_trio(K, check, gen, dev, HD_TILED_SHAPES, 500)
-    log(f"[head dims] device times at d = {HD}")
+    log(f"[head dims] device times at d = {HD} and {CLI_D}")
     times = head_dim_times(K, dev, gen, card)
 
     # the quality tools' encoder with the kernel flags the CLI's "auto"
@@ -3445,7 +3508,7 @@ def phase_head_dims(dev, card: str, rig):
         step(state0, data[bucket], indices(bucket), gen)
     torch.cuda.synchronize()
     _cuda.reset_launch_counts()
-    wgmma0 = (K.seg_attention_bwd_wgmma_launches(), K.flash_wgmma_launches())
+    wgmma0 = attn_wgmma_counts(K)
     step_ms = {}
     for bucket in HD_BUCKETS:
         state, ms = state0, []
@@ -3468,10 +3531,17 @@ def phase_head_dims(dev, card: str, rig):
                 counts, {k: sum(per_layer(b).get(k, 0) * HD_LAYERS
                                 * TRAIN_STEPS * N_ACCUM for b in HD_BUCKETS)
                          for k in counts})
-    wgmma1 = (K.seg_attention_bwd_wgmma_launches(), K.flash_wgmma_launches())
-    if wgmma1 != wgmma0:
-        raise AssertionError(f"d = {HD} ran a wgmma kernel: {wgmma0} -> "
-                             f"{wgmma1}")
+    # every single-block launch of these steps is at d = 96, s <= 256:
+    # the wgmma pair's, each counted once at its width
+    got = attn_wgmma_delta(K, wgmma0)
+    want = {"seg_attention": {64: 0, 96: counts["seg_attention"]},
+            "seg_attention_bwd": {64: 0, 96: counts["seg_attention_bwd"]},
+            "flash_unchanged": True}
+    log(f"[head dims] wgmma launches of these steps: {got}")
+    if got != want:
+        raise AssertionError(f"d = {HD}: the single-block launches are not "
+                             f"all on the d = {HD} wgmma pair: {got}, "
+                             f"expected {want}")
     for bucket in HD_BUCKETS:
         ms = step_ms[bucket]
         mean = sum(ms) / len(ms)
@@ -3495,15 +3565,40 @@ def phase_head_dims(dev, card: str, rig):
 
     # the repair: the CLI's from-scratch geometry (768 hidden, --n_head 4:
     # d = 192) under --no_fused_attn, at bucket 256
-    enc192 = dataclasses.replace(enc, num_heads=4, use_fused_attn=False)
+    enc192 = dataclasses.replace(enc, num_heads=CLI_NH, use_fused_attn=False)
+    w0 = attn_wgmma_counts(K)
     got = gate_step("head dims", "d 192 (--n_head 4 --no_fused_attn), seq "
                     "256", cfg, hier, params, enc192,
-                    dataclasses.replace(plain_enc, num_heads=4), data[256],
-                    idx, N_ACCUM)
+                    dataclasses.replace(plain_enc, num_heads=CLI_NH),
+                    data[256], idx, N_ACCUM)
     hold_counts("d 192, one step at seq 256", got,
                 {k: PER_LAYER_TRAIN_FLASH_SB.get(k, 0) * HD_LAYERS * N_ACCUM
                  for k in got})
     counts = {k: counts[k] + got[k] for k in counts}
+    # the CLI's from-scratch default itself: 6 layers of 4 heads of 192
+    # on both megakernels, one micro a step (the single-block pair on its
+    # 192-wide mma.sync instances)
+    enc_cli = dataclasses.replace(enc, num_heads=CLI_NH,
+                                  num_layers=CLI_LAYERS_DEFAULT)
+    cfg_cli = dataclasses.replace(cfg, encoder=enc_cli)
+    p_cli = tree_map(lambda a: a.to(dev), init_model_params(
+        torch.Generator().manual_seed(0), cfg_cli))
+    got = gate_step("head dims", "the CLI's from-scratch default (768 / 4 "
+                    f"heads of {CLI_D}, {CLI_LAYERS_DEFAULT} layers, both "
+                    "megakernels), seq 256", cfg_cli, hier, p_cli, enc_cli,
+                    dataclasses.replace(plain_enc, num_heads=CLI_NH,
+                                        num_layers=CLI_LAYERS_DEFAULT),
+                    data[256], idx[:1], 1)
+    hold_counts(f"d {CLI_D}, {CLI_LAYERS_DEFAULT} layers, one step at seq "
+                "256", got, {k: PER_LAYER_TRAIN.get(k, 0) * CLI_LAYERS_DEFAULT
+                             for k in got})
+    cli_step = {k: got[k] for k in ("seg_attention", "seg_attention_bwd")}
+    counts = {k: counts[k] + got[k] for k in counts}
+    got = attn_wgmma_delta(K, w0)
+    if got != {"seg_attention": {64: 0, 96: 0},
+               "seg_attention_bwd": {64: 0, 96: 0}, "flash_unchanged": True}:
+        raise AssertionError(f"d = {CLI_D} ran a wgmma kernel: {got}")
+    del p_cli
 
     # the tiled leg: the same encoder at 48 x 1024 (max_position 1024)
     enc_long = dataclasses.replace(enc, max_position=LONG_SEQ)
@@ -3524,15 +3619,25 @@ def phase_head_dims(dev, card: str, rig):
     if K.flash_wgmma_launches() != wgmma0:
         raise AssertionError(f"d = {HD} ran the tiled wgmma kernels")
     counts = {k: counts[k] + got[k] for k in counts}
-    log("[head dims] d 96 kernels " + json.dumps({
+    def launches_a_step(name):
+        if name.endswith(f" d{CLI_D}"):
+            return cli_step[name.split()[0]]
+        return HD_LAYERS * N_ACCUM if name.startswith("seg") else HD_LAYERS
+
+    def at(name):
+        if name.endswith(f" d{CLI_D}"):
+            return (f"32 x 256 x {CLI_NH} heads, a step of the CLI's "
+                    f"from-scratch default ({CLI_LAYERS_DEFAULT} layers, one "
+                    "micro)")
+        if name.startswith("seg"):
+            return "32 x 256 x 8 heads, step at bucket 256"
+        return (f"{LONG_BATCH} x {LONG_SEQ} x 8 heads, step at "
+                f"{HD_LONG_BATCH} x {LONG_SEQ}")
+
+    log("[head dims] d 96 and 192 kernels " + json.dumps({
         name: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
                         "bound_by"), t),
-                   launches_a_step=(HD_LAYERS * N_ACCUM
-                                    if name.startswith("seg") else HD_LAYERS),
-                   at=("32 x 256 x 8 heads, step at bucket 256"
-                       if name.startswith("seg")
-                       else f"{LONG_BATCH} x {LONG_SEQ} x 8 heads, step at "
-                            f"{HD_LONG_BATCH} x {LONG_SEQ}"))
+                   launches_a_step=launches_a_step(name), at=at(name))
         for name, t in times.items()}) + f" [{card}]")
     return counts, check.max_err
 
@@ -5646,22 +5751,34 @@ def main() -> int:
     # the wgmma + TMA kernels' instances -- the GEMM's (bf16 and s8:
     # gemm_tma_kernel<S8, EPI, TRAIN>) and the tiled flash kernels'
     # (flash_fwd_wgmma_kernel, flash_dq_wgmma_kernel,
-    # flash_dkv_wgmma_kernel <DROP>) -- must build without spills or such
-    # notes, and so must the gradient row pass's (quant_grad_pass_kernel
-    # <T, N>: a whole folded row in registers)
+    # flash_dkv_wgmma_kernel <DROP>) -- and the single-block pair's wgmma
+    # instances (seg_attn_wgmma_kernel <NK, NWIN, D, DROP>,
+    # dq_wgmma_kernel and dq96_wgmma_kernel <NK, DROP>, dkv_wgmma_kernel
+    # <NK, D, DROP>) must build without spills or such notes, and so must
+    # the gradient row pass's (quant_grad_pass_kernel <T, N>: a whole
+    # folded row in registers); but for two d = 64 instances that spilled
+    # by the same bytes before the d = 96 ones were added (PERF.md section
+    # 6 records them: the two-window forward at 256 < S <= 512, the
+    # dropout dq kernel at 96 keys)
     tma_names = ("gemm_tma_kernel", "flash_fwd_wgmma_kernel",
                  "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
-                 "quant_grad_pass_kernel")
+                 "quant_grad_pass_kernel", "seg_attn_wgmma_kernel",
+                 "dq_wgmma_kernel", "dq96_wgmma_kernel", "dkv_wgmma_kernel")
+    known_spills = ("seg_attn_wgmma_kernelILi256ELi2ELi64E",
+                    "dq_wgmma_kernelILi96ELb1EE")
     tma = {n: [line for line in summary if n in line] for n in tma_names}
     bad = [line for lines in tma.values() for line in lines
-           if "spills 0/0 B" not in line]
+           if "spills 0/0 B" not in line
+           and not any(k in line for k in known_spills)]
     bad += [line for line in notes
             if line.startswith(("gemm_wgmma.cu", "flash_attention.cu",
-                                "flash_attention_bwd.cu"))]
+                                "flash_attention_bwd.cu", "seg_attention.cu",
+                                "seg_attention_bwd.cu"))]
     if _cuda.build_report and (bad or not all(tma.values())):
-        raise AssertionError("the wgmma + TMA kernels or the gradient row "
-                             "pass: spills or ptxas notes (or no instance "
-                             f"reported): {bad}")
+        raise AssertionError("the wgmma + TMA kernels, the single-block "
+                             "attention pair's wgmma instances or the "
+                             "gradient row pass: spills or ptxas notes (or "
+                             f"no instance reported): {bad}")
 
     phase_s = {}
 

@@ -18,7 +18,11 @@ and ``seg_attention`` so at
 16 x 512, each as ``[back to back, device]`` ms (below); then
 ``train_bwd_times``: ``seg_attention_bwd`` at every bucket's training
 micro and on route A's layout, SDPA beside it, the d = 128 attention pair
-and ``layer_norm_rows`` beside ``F.layer_norm``; and, where it has
+and ``layer_norm_rows`` beside ``F.layer_norm``; ``head_dim_times``: the
+single-block pair at d = 96 (8 heads) at every bucket's training micro
+and at d = 192 (4 heads) at 32 x 256, with dropout and statistics, SDPA's
+forward and backward alone beside it (``d96_ms``, ``d192_ms``); and,
+where it has
 them,
 ``quantize_rows`` of a (64 x 256, 768) and a (64 x 256, 3072) bf16 block
 input and its four launches of a layer, and the four
@@ -420,6 +424,49 @@ def train_bwd_times(K, dev, gen, drop, iters: int) -> dict:
     return out
 
 
+def head_dim_times(K, dev, gen, iters: int) -> dict:
+    """The single-block pair at the quality tools' head dim (8 heads of
+    96) at each bucket's training micro, and at the CLI's from-scratch d
+    = 192 (4 heads) at 32 x 256: ``sb_attention`` with prob dropout 0.1
+    and row statistics, ``sb_attention_bwd``, SDPA's forward and its
+    backward alone (autograd.grad over a retained forward) on the same q,
+    k, v views of one QKV buffer, padded mask and dropout rate; [back to
+    back, device] ms, keyed "d96_ms" / "d192_ms" and then by seq."""
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    F = torch.nn.functional
+    out = {"d96_ms": {}, "d192_ms": {}}
+    cases = [(96, H // 96, b, s) for s, b in TRAIN_MICRO.items()] + [
+        (192, H // 192, 32, 256)]
+    for d, nh, b, s in cases:
+        q, k, v = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
+            dev, torch.bfloat16).view(b, s, 3, nh, d).unbind(2)
+        do = (torch.randn(b, s, nh, d, generator=gen) * 0.1).to(
+            dev, torch.bfloat16)
+        mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
+        mask[:, 0] = 1.0
+        drop, sc = site(1, 0.1, 3), 1.0 / d ** 0.5
+        _, st = K.sb_attention(q, k, v, mask, sc, drop, True)
+        same = mask[:, None, :, None] == mask[:, None, None, :]
+        leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v)]
+        sdpa_o = F.scaled_dot_product_attention(*leaves, attn_mask=same,
+                                                dropout_p=0.1)
+        go = do.transpose(1, 2)
+        calls = {
+            "fwd": lambda: K.sb_attention(q, k, v, mask, sc, drop, True),
+            "bwd": lambda: K.sb_attention_bwd(q, k, v, do, mask, st, sc,
+                                              drop),
+            "sdpa_fwd": lambda: F.scaled_dot_product_attention(
+                *leaves, attn_mask=same, dropout_p=0.1),
+            "sdpa_bwd": lambda: torch.autograd.grad(sdpa_o, leaves, go,
+                                                    retain_graph=True)}
+        out[f"d{d}_ms"][s] = {name: both_ms(fn, iters)
+                              for name, fn in calls.items()}
+        del sdpa_o, leaves
+    return out
+
+
 def flash_times(K, dev, gen, iters: int) -> dict:
     """The tiled flash kernels at route B's layer, 32 x 1024, 12 heads of
     64, q, k, v views of one QKV buffer, a padded mask, prob dropout 0.1:
@@ -525,6 +572,8 @@ def main() -> int:
             lambda: K.seg_attention(q5, m5, NH, drop=drop, stats=True),
             args.iters)
         out.update(train_bwd_times(K, dev, gen, drop, args.iters))
+        if hasattr(K, "sb_attention_bwd"):
+            out.update(head_dim_times(K, dev, gen, args.iters))
     if "int8" in only and hasattr(K, "gemm_i8_bias_act"):
         from nbest_asr_tpu_torch.ops.quant import (kernel_layout,
                                                    quantize_weight)

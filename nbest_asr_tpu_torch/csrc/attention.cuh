@@ -5,8 +5,9 @@
 // 64-key tile, the 16-column chunk products of the mma.sync fragments,
 // the Philox keep-bit tables of the stream-3 prob dropout (which the
 // wgmma kernels draw too), and the pieces the wgmma forward and backward
-// share at head dim 64: swizzled tile copies, the score products, the
-// score mask and div_row, the division of a prob by its row's sum.
+// share at head dims 64 and 96: swizzled tile copies, the score products,
+// the score mask, div_row (the division of a prob by its row's sum) and
+// the launch's tiles per block.
 //
 // Chunk products (g = lane / 4, t = lane % 4, as in common.cuh): a warp
 // owns 16 rows of the left operand; a chunk c[j][e], j in {0, 1}, is the
@@ -223,19 +224,39 @@ __host__ __device__ __forceinline__ int keep_stride(int S) {
 }
 
 // -------------------------------------------------------------------- //
-// The wgmma kernels' pieces (head dim 64; seg_attention.cu's forward and
-// seg_attention_bwd.cu's backward issue the same score products, so the
-// backward rebuilds the forward's scores bit for bit)
+// The wgmma kernels' pieces (head dims 64 and 96; seg_attention.cu's
+// forward and seg_attention_bwd.cu's backward issue the same score
+// products, so the backward rebuilds the forward's scores bit for bit)
 // -------------------------------------------------------------------- //
 
-constexpr int WD = 64;             // its head dim
+constexpr int WD = 64;             // the 128-byte panel's columns
 constexpr int QT = 64;             // query rows of a warpgroup's tile
 constexpr int QTILE = QT * WD * 2;  // bytes of a swizzled 64 x 64 tile
 
+// A tile of R rows of a head's D columns (D = 64 or 96) lies in shared
+// memory as panels: columns 0-63 128-byte-swizzled (R * 128 bytes), then
+// at D = 96 columns 64-95 64-byte-swizzled (R * 64 bytes).  A 96-column
+// row is 192 bytes, which no one swizzle mode spans; a second 128-byte
+// panel with 32 zero columns would take a third more shared memory (K
+// and V at S = 256: 128 KB against 96 KB, which would leave no room for
+// the second consumer warpgroup's Q tiles), while the 64-byte panel costs
+// one more descriptor mode and an m64n32 product beside each m64n64.
 
-// rows r0 .. r0 + rows - 1 of one head's 64 columns (src: row 0, column
-// head * 64 of a row-major matrix with row stride ld) -> a 128-byte-
-// swizzled tile; rows past S are zero-filled.  Threads tid of nthreads.
+// p, made opaque to the compiler: the wgmma descriptors built from it
+// are computed where they are used instead of once for a whole tile loop
+// or for two sweeps, where dozens of them held in registers beside a
+// thread's probs would spill.
+__device__ __forceinline__ const unsigned char* fresh(
+    const unsigned char* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+// rows r0 .. r0 + rows - 1 of one head's D columns (src: row 0, column
+// head * D of a row-major matrix with row stride ld) -> the tile's panels
+// at dst (rows rows); rows past S are zero-filled.  Threads tid of
+// nthreads.
+template <int D = WD>
 __device__ __forceinline__ void copy_rows(unsigned char* dst, const bf16* src,
                                           int ld, int r0, int rows, int S,
                                           int tid, int nthreads) {
@@ -245,15 +266,29 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, const bf16* src,
     cp_async_16(dst + swizzle128(r, ch),
                 src + (size_t)(ok ? row : 0) * ld + ch * 8, ok);
   }
+  if constexpr (D == 96) {
+    unsigned char* dst1 = dst + rows * 128;
+    for (int c = tid; c < rows * 4; c += nthreads) {
+      const int r = c >> 2, ch = c & 3, row = r0 + r;
+      const bool ok = row < S;
+      cp_async_16(dst1 + swizzle64(r, ch),
+                  src + (size_t)(ok ? row : 0) * ld + WD + ch * 8, ok);
+    }
+  }
 }
 
-// Issues (and commits) the scores of the warpgroup's 64 queries (sQt)
-// against the NK keys of the window at sKw: thread fragment sc[4 jj + e]
-// = (row 16 warp + g + 8 (e >= 2), key 8 jj + 2 t + (e & 1)).
-template <int NK>
-__device__ __forceinline__ void issue_scores(float (&sc)[NK / 2],
-                                             const unsigned char* sQt,
-                                             const unsigned char* sKw) {
+// Issues (and commits) the scores of the warpgroup's 64 queries (sQt, a
+// 64-row tile) against the NK keys of the window at sKw (panel 0; sKw1
+// its panel 1 at D = 96): thread fragment sc[4 jj + e] = (row 16 warp + g
+// + 8 (e >= 2), key 8 jj + 2 t + (e & 1)).  Per 64-key chunk (and a
+// 32-key tail) the k16 steps run in column order, 4 on panel 0 then 2 on
+// panel 1.  seg_attention_bwd.cu issues its S and dP products through it
+// too (W = 64 or 32 keys at a time, or a warpgroup's share of a window),
+// so each 64-key chunk's scores are the forward's bit for bit.
+template <int NK, int D = WD>
+__device__ __forceinline__ void issue_scores(
+    float (&sc)[NK / 2], const unsigned char* sQt, const unsigned char* sKw,
+    const unsigned char* sKw1 = nullptr) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < WD / 16; ++kk) {
@@ -267,6 +302,21 @@ __device__ __forceinline__ void issue_scores(float (&sc)[NK / 2],
     if (NK % 64)
       wgmma_ss_n32(sc + 32 * (NK / 64), da,
                    smem_desc(sKw + (NK / 64) * 8192 + kk * 32, 1, 64), kk);
+  }
+  if constexpr (D == 96) {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      // 64-byte rows: 8-row groups 512 bytes apart, a 64-key chunk 4096
+      const uint64_t da = smem_desc64(sQt + QT * 128 + kk * 32, 1, 32);
+#pragma unroll
+      for (int c = 0; c < NK / 64; ++c)
+        wgmma_ss_n64(sc + 32 * c, da,
+                     smem_desc64(sKw1 + c * 4096 + kk * 32, 1, 32), 1);
+      if (NK % 64)
+        wgmma_ss_n32(sc + 32 * (NK / 64), da,
+                     smem_desc64(sKw1 + (NK / 64) * 4096 + kk * 32, 1, 32),
+                     1);
+    }
   }
   wgmma_commit();
 }
@@ -321,6 +371,24 @@ __device__ __forceinline__ float div_row(float x, float l, float rl) {
   const float q = __fmul_rn(xs, rl);
   const float p = __fmaf_rn(__fmaf_rn(-q, l, xs), rl, q);
   return tiny ? p * 0x1p-64f : p;
+}
+
+// Query tiles a block takes (its consumer warpgroups nwg share the head's
+// K and V): the largest count whose estimated time -- full waves of
+// blocks over the SMs' slots, times a block's tiles on one warpgroup plus
+// one more for its K / V copy -- is least.  Against one tile a block and
+// all of a head's tiles, it picked the fastest or within 1% at 64 x {64,
+// 96, 160, 256}, 32 x 256 and 16 x 512 at d = 64 (PERF.md).
+inline int tiles_per_block(int n_qt, int heads, int slots, int nwg) {
+  int best = n_qt;
+  double best_t = 1e300;
+  for (int tpb = n_qt; tpb >= 1; --tpb) {
+    const long long blocks = (long long)heads * ((n_qt + tpb - 1) / tpb);
+    const double waves = (double)((blocks + slots - 1) / slots);
+    const double t = waves * ((tpb + nwg - 1) / nwg + 1);
+    if (t < best_t) best_t = t, best = tpb;
+  }
+  return best;
 }
 
 }  // namespace attn

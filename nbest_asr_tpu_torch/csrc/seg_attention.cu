@@ -27,36 +27,46 @@
 // (attention.cuh), so the backward kernels -- and the tiled flash
 // kernels, at any tiling -- regenerate them.
 //
-// Two kernels; nbk_seg_attention picks by (d, S):
+// Two kernels; the caller names the instance (ops/kernels.py,
+// attn_instance: the one rule) and nbk_seg_attention runs it or refuses:
 //   d = 64, S <= 512            the wgmma kernel (every BERT-base, -large,
 //                               RoBERTa and XLM-R head)
+//   d = 96, S <= 256            the wgmma kernel (the quality tools' 8
+//                               heads of 96, every DSTC2 bucket)
 //   every other d <= 256 with   the mma.sync kernel, on its instance of
 //   d % 8 == 0                  width 32, 64, 96, 128, 192 or 256 (flash's
-//                               d = 32 single-block route, the quality
-//                               tools' d = 96, the wide heads); a d
-//                               between two widths runs on the wider,
-//                               its columns past d zero-filled on load
-//                               and never stored (attention.cuh,
-//                               instance_width): d = 40 .. 56 on the
-//                               64-wide instance, which runs only such
-//                               padded heads
-// and refuses every other shape (cudaErrorInvalidValue).  d = 128 stays on
-// the mma.sync kernel: its K and V take 128 KB at S = 256, so a block of
-// one warpgroup would hold an SM alone, and warpgroups sharing them are
-// not built yet.
+//                               d = 32 single-block route, d = 96 past
+//                               256, the wide heads); a d between two
+//                               widths runs on the wider, its columns
+//                               past d zero-filled on load and never
+//                               stored (attention.cuh, instance_width):
+//                               d = 40 .. 56 on the 64-wide instance and
+//                               d = 72 .. 88 on the 96-wide one, which
+//                               run only such padded heads (and d = 96
+//                               at 256 < S <= 512, where its K and V
+//                               would take 192 KB)
+// and refuses every other shape, and an instance that cannot run the
+// shape (cudaErrorInvalidValue).  d = 128 and 192
+// stay on the mma.sync kernel: their K and V take 128 and 192 KB at S =
+// 256, so they need a design that streams the keys.
 //
 // The wgmma kernel.  A block owns one (element, head) and a run of its
-// 64-query tiles; it copies that head's whole K and V (S <= 512 keys, 64
-// columns: <= 128 KB) into 128-byte-swizzled shared memory once (cp.async,
-// rows past S zero-filled), and its consumer warpgroups (one; two at S >
-// 256, each with its own query tiles) share them.  Per tile, one
-// warpgroup runs S = Q K^T as wgmma m64n64k16 (and one m64n32k16 for a
-// key count that is an odd multiple of 32) from shared memory, so each
-// thread holds its two rows' scores for up to 256 keys in registers: the
-// exact row max and sum come from registers in one sweep (one expf and one
-// division a prob), and the probs are normalised, dropped, rounded to
-// bf16 and fed to P.V (wgmma m64n64k16, A from registers, V the MN-major B
-// in shared memory) without passing through memory.  At 256 < S <= 512 a
+// 64-query tiles; it copies that head's whole K and V (S <= 512 keys at d
+// = 64, <= 128 KB; S <= 256 at d = 96, <= 96 KB) into swizzled shared
+// memory once (cp.async, rows past S zero-filled), and its consumer
+// warpgroups (one; two at S > 256 or d = 96, each with its own query
+// tiles) share them.  A 96-column row is a 128-byte-swizzled panel of
+// columns 0-63 and a 64-byte-swizzled panel of columns 64-95
+// (attention.cuh: the smaller of the two layouts that wgmma reads, which
+// leaves room for the second warpgroup).  Per tile, one warpgroup runs S
+// = Q K^T as wgmma m64n64k16 (and one m64n32k16 for a key count that is
+// an odd multiple of 32) from shared memory, 4 k16 steps on panel 0 and 2
+// on panel 1 at d = 96, so each thread holds its two rows' scores for up
+// to 256 keys in registers: the exact row max and sum come from registers
+// in one sweep (one expf and one division a prob), and the probs are
+// normalised, dropped, rounded to bf16 and fed to P.V (wgmma m64n64k16,
+// and m64n32k16 for panel 1, A from registers, V the MN-major B in shared
+// memory) without passing through memory.  At 256 < S <= 512 (d = 64) a
 // row does not fit one accumulator: the scores of keys 0-255 give a max
 // and sum, those of keys 256-511 are kept, the sums combine
 // (l0 exp(m0 - m) + the kept keys' exps), and keys 0-255's scores are
@@ -94,26 +104,31 @@ using namespace nbk;
 using namespace nbk::attn;
 
 // ---------------------------------------------------------------------- //
-// The wgmma kernel: d = 64, S <= 512
+// The wgmma kernel: d = 64, S <= 512; d = 96, S <= 256
 // ---------------------------------------------------------------------- //
 
 // A block's shape for NK-key score windows (NK a multiple of 32, <= 256;
-// NWIN = 2 windows of 256 keys cover 256 < S <= 512).
-template <int NK, int NWIN>
+// NWIN = 2 windows of 256 keys cover 256 < S <= 512 at d = 64) at head
+// dim D (64 or 96).
+template <int NK, int NWIN, int D>
 struct Shape {
   static constexpr int KEYS = NK * NWIN;  // rows of sK and sV
-  static constexpr int NWG = NWIN;        // consumer warpgroups
+  // consumer warpgroups: one a window at d = 64; two at d = 96, whose K
+  // and V (96 KB at S = 256) leave room for one block an SM
+  static constexpr int NWG = D == 96 ? 2 : NWIN;
   static constexpr int THREADS = 128 * NWG;
   static constexpr int WORDS = KEYS / 32;  // keep-table words of a row
   static constexpr int KSTRIDE = WORDS | 1;  // odd: rows in other banks
+  static constexpr int ROWB = D * 2;        // bytes of a row, both panels
+  static constexpr int QTB = QT * ROWB;     // bytes of a Q tile
   // 1024-byte alignment slack, K, V, two Q tiles a warpgroup, the key
   // segment ids, a keep table a warpgroup
-  static constexpr int SMEM = 1024 + 2 * KEYS * 128 + NWG * 2 * QTILE +
+  static constexpr int SMEM = 1024 + 2 * KEYS * ROWB + NWG * 2 * QTB +
                               KEYS * 4 + NWG * QT * KSTRIDE * 4;
-  // blocks an SM runs: registers (sc NK / 2, o 32 a thread) and the
+  // blocks an SM runs: registers (sc NK / 2, o D / 2 a thread) and the
   // shared memory above
   static constexpr int MIN_BLOCKS =
-      NWIN == 2 ? 1 : NK <= 96 ? 4 : NK <= 192 ? 3 : 2;
+      NWG == 2 ? 1 : NK <= 96 ? 4 : NK <= 192 ? 3 : 2;
 };
 
 // sc = exp(sc - m) a row; la, lb += this thread's part of each row's sum.
@@ -132,13 +147,15 @@ __device__ __forceinline__ void exp_scores(float (&sc)[NK / 2], float ma,
 
 // p = e / l, dropped (keep: the tile's table, ra this thread's first row,
 // word0 the window's first word), rounded to bf16 in registers -- the A
-// fragments of the NK / 16 k-steps -- times the window's V (sVw): issues
-// and commits o (+)= P V.
-template <int NK, bool DROP>
+// fragments of the NK / 16 k-steps -- times the window's V (sVw, and sVw1
+// its panel 1 at D = 96): issues and commits o (+)= P V, o's columns 0-63
+// as m64n64k16, 64-95 as m64n32k16.
+template <int NK, int D, bool DROP>
 __device__ __forceinline__ void probs_times_v(
-    const float (&sc)[NK / 2], float (&o)[32], const unsigned char* sVw,
-    float la, float lb, const unsigned* keep, int kstride, int ra,
-    int word0, const DropParams& drop, int t4, bool accumulate) {
+    const float (&sc)[NK / 2], float (&o)[D / 2], const unsigned char* sVw,
+    const unsigned char* sVw1, float la, float lb, const unsigned* keep,
+    int kstride, int ra, int word0, const DropParams& drop, int t4,
+    bool accumulate) {
   const float rla = __frcp_rn(la), rlb = __frcp_rn(lb);
   unsigned pa[NK / 4];
 #pragma unroll
@@ -171,15 +188,21 @@ __device__ __forceinline__ void probs_times_v(
   for (int j = 0; j < NK / 16; ++j)  // 16 keys of V: 2048 bytes a step
     wgmma_rs_n64(o, pa + 4 * j, smem_desc(sVw + j * 2048, 512, 64),
                  accumulate || j > 0);
+  if constexpr (D == 96) {
+#pragma unroll
+    for (int j = 0; j < NK / 16; ++j)  // panel 1: 1024 bytes a step
+      wgmma_rs_n32(o + 32, pa + 4 * j, smem_desc64(sVw1 + j * 1024, 1, 32),
+                   accumulate || j > 0);
+  }
   wgmma_commit();
 }
 
 // One block: (element, head) = (blockIdx.z, blockIdx.y), query tiles
 // blockIdx.x * tiles_per_block .. (+ tiles_per_block, at most ceil(S /
 // 64)), warpgroup w taking every NWG-th from the w-th.
-template <int NK, int NWIN, bool DROP>
-__global__ void __launch_bounds__(Shape<NK, NWIN>::THREADS,
-                                  Shape<NK, NWIN>::MIN_BLOCKS)
+template <int NK, int NWIN, int D, bool DROP>
+__global__ void __launch_bounds__(Shape<NK, NWIN, D>::THREADS,
+                                  Shape<NK, NWIN, D>::MIN_BLOCKS)
     seg_attn_wgmma_kernel(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
                         const bf16* __restrict__ v, int ld,
@@ -187,25 +210,28 @@ __global__ void __launch_bounds__(Shape<NK, NWIN>::THREADS,
                         bf16* __restrict__ ctx, float* __restrict__ stats,
                         int S, int tiles_per_block, float sm_scale,
                         DropParams drop) {
-  using Sh = Shape<NK, NWIN>;
+  using Sh = Shape<NK, NWIN, D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // 128-byte swizzled tiles need 1024-byte aligned bases
   unsigned char* sK =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* sV = sK + Sh::KEYS * 128;
-  unsigned char* sQ = sV + Sh::KEYS * 128;
-  float* sM = reinterpret_cast<float*>(sQ + Sh::NWG * 2 * QTILE);
+  unsigned char* sV = sK + Sh::KEYS * Sh::ROWB;
+  unsigned char* sQ = sV + Sh::KEYS * Sh::ROWB;
+  float* sM = reinterpret_cast<float*>(sQ + Sh::NWG * 2 * Sh::QTB);
   unsigned* sKeep = reinterpret_cast<unsigned*>(sM + Sh::KEYS);
+  // panel 1 of K and V (d = 96)
+  const unsigned char* sK1 = sK + Sh::KEYS * 128;
+  const unsigned char* sV1 = sV + Sh::KEYS * 128;
 
   const int head = blockIdx.y, elem = blockIdx.z, n_heads = gridDim.y;
   const int t_end = min((S + QT - 1) / QT,
                         (int)(blockIdx.x + 1) * tiles_per_block);
   const size_t row0 = (size_t)elem * S;
   const int prow0 = (elem * n_heads + head) * S;  // Philox row of query 0
-  const int H = n_heads * WD;
-  const size_t off = row0 * ld + head * WD;
+  const int H = n_heads * D;
+  const size_t off = row0 * ld + head * D;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
-  unsigned char* myQ = sQ + wg * 2 * QTILE;
+  unsigned char* myQ = sQ + wg * 2 * Sh::QTB;
   unsigned* keep = sKeep + wg * QT * Sh::KSTRIDE;
   int t = blockIdx.x * tiles_per_block + wg;
 
@@ -214,9 +240,9 @@ __global__ void __launch_bounds__(Shape<NK, NWIN>::THREADS,
   // warpgroup's first Q tile
   for (int j = threadIdx.x; j < Sh::KEYS; j += Sh::THREADS)
     sM[j] = j < S ? mask[row0 + j] : __int_as_float(0x7fc00000);
-  copy_rows(sK, k + off, ld, 0, Sh::KEYS, S, threadIdx.x, Sh::THREADS);
-  copy_rows(sV, v + off, ld, 0, Sh::KEYS, S, threadIdx.x, Sh::THREADS);
-  if (t < t_end) copy_rows(myQ, q + off, ld, t * QT, QT, S, tid, 128);
+  copy_rows<D>(sK, k + off, ld, 0, Sh::KEYS, S, threadIdx.x, Sh::THREADS);
+  copy_rows<D>(sV, v + off, ld, 0, Sh::KEYS, S, threadIdx.x, Sh::THREADS);
+  if (t < t_end) copy_rows<D>(myQ, q + off, ld, t * QT, QT, S, tid, 128);
   cp_async_commit();
   cp_async_wait<0>();
   fence_proxy_async();
@@ -225,21 +251,21 @@ __global__ void __launch_bounds__(Shape<NK, NWIN>::THREADS,
   const int lane = tid & 31, w4 = tid >> 5, g = lane >> 2, t4 = lane & 3;
   const int ra = w4 * 16 + g;  // this thread's first row of the tile
   const size_t bhs = (size_t)gridDim.z * n_heads * S;
-  float sc[NK / 2], o[32];
+  float sc[NK / 2], o[D / 2];
   for (int i = 0; t < t_end; ++i, t += Sh::NWG) {
-    const unsigned char* sQt = myQ + (i & 1) * QTILE;
+    const unsigned char* sQt = myQ + (i & 1) * Sh::QTB;
     const int q0 = t * QT, qa = q0 + ra, qb = qa + 8;
     // a query row past S matches no key; its output is never stored
     const float qma = qa < S ? sM[qa] : __int_as_float(0x7fc00000);
     const float qmb = qb < S ? sM[qb] : __int_as_float(0x7fc00000);
     float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
-    issue_scores<NK>(sc, sQt, sK);
+    issue_scores<NK, D>(sc, sQt, sK, sK1);
     if (DROP)  // the tile's keep bits while the product runs
       build_keep(keep, QT, Sh::WORDS, Sh::KSTRIDE, drop, prow0 + q0, 0, tid,
                  128);
     if (t + Sh::NWG < t_end)  // the next tile's Q into the other buffer
-      copy_rows(myQ + ((i + 1) & 1) * QTILE, q + off, ld,
-                (t + Sh::NWG) * QT, QT, S, tid, 128);
+      copy_rows<D>(myQ + ((i + 1) & 1) * Sh::QTB, q + off, ld,
+                   (t + Sh::NWG) * QT, QT, S, tid, 128);
     cp_async_commit();
     wgmma_wait<0>();
     fence_acc(sc);
@@ -247,7 +273,7 @@ __global__ void __launch_bounds__(Shape<NK, NWIN>::THREADS,
     mask_scores<NK>(sc, sM, qma, qmb, sm_scale, t4, ma, mb);
     ma = quad_max(ma);
     mb = quad_max(mb);
-    if (NWIN == 2) {
+    if constexpr (NWIN == 2) {
       // keys 0-255 gave (ma, mb) and their sum; keys 256-511 are kept
       exp_scores<NK>(sc, ma, mb, la, lb);
       la = quad_sum(la);
@@ -267,8 +293,8 @@ __global__ void __launch_bounds__(Shape<NK, NWIN>::THREADS,
       exp_scores<NK>(sc, ma, mb, ea, eb);
       la += quad_sum(ea);
       lb += quad_sum(eb);
-      probs_times_v<NK, DROP>(sc, o, sV + NK * 128, la, lb, keep,
-                              Sh::KSTRIDE, ra, NK / 32, drop, t4, false);
+      probs_times_v<NK, D, DROP>(sc, o, sV + NK * 128, nullptr, la, lb, keep,
+                                 Sh::KSTRIDE, ra, NK / 32, drop, t4, false);
       wgmma_wait<0>();
       fence_acc(o);
       // keys 0-255 again, now with the row's max and sum
@@ -278,14 +304,14 @@ __global__ void __launch_bounds__(Shape<NK, NWIN>::THREADS,
       float xa = -INFINITY, xb = -INFINITY, ya = 0.f, yb = 0.f;  // unused
       mask_scores<NK>(sc, sM, qma, qmb, sm_scale, t4, xa, xb);
       exp_scores<NK>(sc, ma, mb, ya, yb);
-      probs_times_v<NK, DROP>(sc, o, sV, la, lb, keep, Sh::KSTRIDE, ra, 0,
-                              drop, t4, true);
+      probs_times_v<NK, D, DROP>(sc, o, sV, nullptr, la, lb, keep,
+                                 Sh::KSTRIDE, ra, 0, drop, t4, true);
     } else {
       exp_scores<NK>(sc, ma, mb, la, lb);
       la = quad_sum(la);
       lb = quad_sum(lb);
-      probs_times_v<NK, DROP>(sc, o, sV, la, lb, keep, Sh::KSTRIDE, ra, 0,
-                              drop, t4, false);
+      probs_times_v<NK, D, DROP>(sc, o, sV, sV1, la, lb, keep, Sh::KSTRIDE,
+                                 ra, 0, drop, t4, false);
     }
     wgmma_wait<0>();
     fence_acc(o);
@@ -299,9 +325,11 @@ __global__ void __launch_bounds__(Shape<NK, NWIN>::THREADS,
         stats[bhs + prow0 + qb] = lb;
       }
     }
+    // o[4 jj + e]: columns 8 jj + 2 t (+ 1), panel 0's m64n64 accumulator
+    // then panel 1's m64n32
 #pragma unroll
-    for (int jj = 0; jj < WD / 8; ++jj) {
-      const int col = head * WD + jj * 8 + 2 * t4;
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const int col = head * D + jj * 8 + 2 * t4;
       if (qa < S)
         *reinterpret_cast<unsigned*>(ctx + (row0 + qa) * H + col) =
             pack_bf16x2(o[4 * jj], o[4 * jj + 1]);
@@ -317,37 +345,22 @@ __global__ void __launch_bounds__(Shape<NK, NWIN>::THREADS,
   }
 }
 
-// Tiles a block takes: the largest count whose estimated time -- full
-// waves of blocks over the SMs' slots, times a block's tiles on one
-// warpgroup plus one more for its K / V copy -- is least.  Against one
-// tile a block and all of a head's tiles, it picked the fastest or within
-// 1% at 64 x {64, 96, 160, 256}, 32 x 256 and 16 x 512 (PERF.md).
-int tiles_per_block(int n_qt, int heads, int slots, int nwg) {
-  int best = n_qt;
-  double best_t = 1e300;
-  for (int tpb = n_qt; tpb >= 1; --tpb) {
-    const long long blocks = (long long)heads * ((n_qt + tpb - 1) / tpb);
-    const double waves = (double)((blocks + slots - 1) / slots);
-    const double t = waves * ((tpb + nwg - 1) / nwg + 1);
-    if (t < best_t) best_t = t, best = tpb;
-  }
-  return best;
-}
+long long wgmma_launches[2] = {0, 0};  // at d = 64, 96; host side
 
-template <int NK, int NWIN, bool DROP>
+template <int NK, int NWIN, int D, bool DROP>
 int launch_wgmma(const void* q, const void* k, const void* v, int ld,
                  const float* mask, void* ctx, float* stats, int B, int S,
                  int n_heads, float sm_scale, const DropParams& drop,
                  cudaStream_t stream) {
-  using Sh = Shape<NK, NWIN>;
+  using Sh = Shape<NK, NWIN, D>;
   static int per_sm = 0;  // blocks an SM runs
   if (per_sm == 0) {
     cudaError_t e = cudaFuncSetAttribute(
-        seg_attn_wgmma_kernel<NK, NWIN, DROP>,
+        seg_attn_wgmma_kernel<NK, NWIN, D, DROP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, seg_attn_wgmma_kernel<NK, NWIN, DROP>, Sh::THREADS,
+          &per_sm, seg_attn_wgmma_kernel<NK, NWIN, D, DROP>, Sh::THREADS,
           Sh::SMEM);
     if (e != cudaSuccess) return (int)e;
     if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
@@ -356,37 +369,41 @@ int launch_wgmma(const void* q, const void* k, const void* v, int ld,
   const int tpb = tiles_per_block(n_qt, B * n_heads, per_sm * sm_count(),
                                   Sh::NWG);
   dim3 grid((n_qt + tpb - 1) / tpb, n_heads, B);
-  seg_attn_wgmma_kernel<NK, NWIN, DROP><<<grid, Sh::THREADS, Sh::SMEM,
-                                        stream>>>(
+  seg_attn_wgmma_kernel<NK, NWIN, D, DROP><<<grid, Sh::THREADS, Sh::SMEM,
+                                             stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), ld, mask, static_cast<bf16*>(ctx), stats,
       S, tpb, sm_scale, drop);
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++wgmma_launches[D == 96];
+  return (int)e;
 }
 
 // the window width: S rounded up to 32 (64 at least; 224 to 256), two
-// windows of 256 past 256
-template <bool DROP>
+// windows of 256 past 256 (d = 64 only)
+template <int D, bool DROP>
 int launch_wgmma_s(const void* q, const void* k, const void* v, int ld,
                    const float* mask, void* ctx, float* stats, int B, int S,
                    int n_heads, float sm_scale, const DropParams& drop,
                    cudaStream_t st) {
-#define NBK_WGMMA(NK, NWIN)                                                \
-  return launch_wgmma<NK, NWIN, DROP>(q, k, v, ld, mask, ctx, stats, B, S, \
-                                      n_heads, sm_scale, drop, st)
+#define NBK_WGMMA(NK, NWIN)                                                   \
+  return launch_wgmma<NK, NWIN, D, DROP>(q, k, v, ld, mask, ctx, stats, B, S, \
+                                         n_heads, sm_scale, drop, st)
   if (S <= 64) NBK_WGMMA(64, 1);
   if (S <= 96) NBK_WGMMA(96, 1);
   if (S <= 128) NBK_WGMMA(128, 1);
   if (S <= 160) NBK_WGMMA(160, 1);
   if (S <= 192) NBK_WGMMA(192, 1);
   if (S <= 256) NBK_WGMMA(256, 1);
-  if (S <= 512) NBK_WGMMA(256, 2);
+  if constexpr (D == 64)
+    if (S <= 512) NBK_WGMMA(256, 2);
 #undef NBK_WGMMA
   return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------- //
-// The mma.sync kernel: every d <= 256, d % 8 == 0, but 64
+// The mma.sync kernel: every d <= 256, d % 8 == 0, but 64 (and 96 at S
+// <= 256)
 // ---------------------------------------------------------------------- //
 
 constexpr int KT = 64;  // keys per tile
@@ -604,32 +621,41 @@ extern "C" {
 // columns starting at its pointer (16-byte aligned, ld % 8 == 0) -- the
 // q | k | v column blocks of one (B*S, 3h) QKV buffer (ld = 3h), or
 // (B, S, n_heads, d) tensors (ld = n_heads * d); mask (B, S) f32 segment
-// ids -> ctx (B*S, n_heads * d) bf16.  d = 64 with S <= 512 (the wgmma
-// kernel), or any other d <= 256 with d % 8 == 0 (the mma.sync kernel,
-// instance_width(d) wide); any other d or S is refused.  stats, if not
-// null, is (2, B, n_heads, S) f32 and receives each row's max and sum of
-// exp.  Prob dropout when drop_on
-// (seed, stream, thresh, inv_keep as in philox.cuh).
+// ids -> ctx (B*S, n_heads * d) bf16, on the instance the caller names:
+// 0, the wgmma kernel (d = 64 with S <= 512, d = 96 with S <= 256), or
+// the width of a mma.sync instance (32, 64, 96, 128, 192 or 256, at least
+// d, any d % 8 == 0); any other instance, d or S is refused.  stats, if
+// not null, is (2, B, n_heads, S) f32 and receives
+// each row's max and sum of exp.  Prob dropout when drop_on (seed,
+// stream, thresh, inv_keep as in philox.cuh).
 int nbk_seg_attention(const void* q, const void* k, const void* v, int ld,
                       const float* mask, void* ctx, float* stats, int B,
-                      int S, int n_heads, int d, float sm_scale,
-                      unsigned long long seed, int stream, unsigned thresh,
-                      float inv_keep, int drop_on, void* cuda_stream) {
+                      int S, int n_heads, int d, int instance,
+                      float sm_scale, unsigned long long seed, int stream,
+                      unsigned thresh, float inv_keep, int drop_on,
+                      void* cuda_stream) {
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   const DropParams drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
-  if (S <= 0) return (int)cudaErrorInvalidValue;
-  if (d == WD) {
-    if (drop.on)
-      return launch_wgmma_s<true>(q, k, v, ld, mask, ctx, stats, B, S,
-                                  n_heads, sm_scale, drop, s);
-    return launch_wgmma_s<false>(q, k, v, ld, mask, ctx, stats, B, S,
-                                 n_heads, sm_scale, drop, s);
+  if (S <= 0 || d <= 0 || d % 8) return (int)cudaErrorInvalidValue;
+#define NBK_WGMMA_S(D)                                                   \
+  return drop.on ? launch_wgmma_s<D, true>(q, k, v, ld, mask, ctx, stats, \
+                                           B, S, n_heads, sm_scale, drop, \
+                                           s)                            \
+                 : launch_wgmma_s<D, false>(q, k, v, ld, mask, ctx,      \
+                                            stats, B, S, n_heads,        \
+                                            sm_scale, drop, s)
+  if (instance == 0) {  // S past the kernel's windows is refused there
+    if (d == WD) NBK_WGMMA_S(64);
+    if (d == 96) NBK_WGMMA_S(96);
+    return (int)cudaErrorInvalidValue;
   }
+#undef NBK_WGMMA_S
+  if (d > instance) return (int)cudaErrorInvalidValue;
 #define NBK_SEG_ATTN(D)                                                   \
   case D:                                                                 \
     return launch<D>(q, k, v, ld, mask, ctx, stats, B, S, n_heads, d,     \
                      sm_scale, drop, s);
-  switch (instance_width(d)) {
+  switch (instance) {
     NBK_SEG_ATTN(32)
     NBK_SEG_ATTN(64)
     NBK_SEG_ATTN(96)
@@ -639,6 +665,15 @@ int nbk_seg_attention(const void* q, const void* k, const void* v, int ld,
   }
 #undef NBK_SEG_ATTN
   return (int)cudaErrorInvalidValue;
+}
+
+// Launches of the wgmma kernel since the library was loaded, at head dim
+// d (64 or 96; 0: both; -1 for any other d): which instance ran.
+long long nbk_seg_attention_wgmma_launches(int d) {
+  return d == 64 ? wgmma_launches[0]
+         : d == 96 ? wgmma_launches[1]
+         : d == 0  ? wgmma_launches[0] + wgmma_launches[1]
+                   : -1;
 }
 
 }  // extern "C"

@@ -31,39 +31,54 @@
 // dkv kernel per (element, head, 64-key tile), queries innermost
 // (flash_attention.py:226 _bwd_dkv_kernel), which reads it.
 //
-// Two pairs; nbk_seg_attention_bwd picks by (d, S):
-//   d = 64, S <= 256        the wgmma pair (every DSTC2 bucket: 64, 96,
+// Two pairs; the caller names the instance (ops/kernels.py,
+// attn_instance: the one rule) and nbk_seg_attention_bwd runs it or
+// refuses:
+//   d = 64 or 96, S <= 256  the wgmma pair (every DSTC2 bucket: 64, 96,
 //                           160, 256)
-//   d = 64, 256 < S <= 512  the mma.sync pair (a wgmma dq kernel there
-//                           would need the forward's two key windows)
+//   d = 64 or 96,           the mma.sync pair (a wgmma dq kernel there
+//   256 < S <= 512          would need the forward's two key windows; at
+//                           d = 96 K and V would take 192 KB)
 //   every other d <= 256    the mma.sync pair, on its instance of width
 //   with d % 8 == 0         32, 64, 96, 128, 192 or 256 (attention.cuh,
 //                           instance_width: a d between two widths runs
 //                           on the wider, its columns past d zero-filled
 //                           on load and never stored; d = 40 .. 56 on the
-//                           64-wide pair)
+//                           64-wide pair, 72 .. 88 on the 96-wide one)
 //
 // The wgmma pair (section 3).  The dq kernel holds the head's K and V (the
 // forward's NK-key window, NK = S rounded up to 32) and its tile's Q and
-// dO in 128-byte-swizzled shared memory, issues S = Q K^T on the forward's
-// own wgmma sequence (issue_scores: m64n64k16 chunks, an m64n32k16 tail),
-// so the rebuilt scores and probs are the forward's bit for bit, and keeps
-// the row's NK / 2 probs a thread in registers; then per 64-key chunk dP =
-// dO V^T for di, and again for ds, whose bf16 values are packed in
-// registers as the A fragments of dq += ds K.  The dkv kernel holds its
-// 64 keys' K and V and copies the head's Q and dO a tile at a time into
-// two buffers (so three blocks fit an SM); per query tile it issues S and
-// dP the same way with the queries as rows (the forward's orientation),
-// rebuilds p, and stores drop(p) and ds as bf16 tiles in shared memory,
-// which dV += drop(p)^T dO and dK += ds^T Q read transposed (MN-major).
+// dO in swizzled shared memory (at d = 96 a 128-byte panel of columns
+// 0-63 and a 64-byte panel of columns 64-95, as the forward's:
+// attention.cuh), issues S = Q K^T on the forward's own wgmma sequence
+// (issue_scores: m64n64k16 chunks, an m64n32k16 tail), so the rebuilt
+// scores and probs are the forward's bit for bit, and keeps the row's NK
+// / 2 probs a thread in registers; then per 64-key chunk dP = dO V^T for
+// di, and again for ds, whose bf16 values are packed in registers as the
+// A fragments of dq += ds K (per chunk at d = 64; at d = 96 all chunks'
+// ds first, then one product).  At d = 64 a block is one warpgroup and
+// one query tile; at d = 96, where K and V take 96 KB at S = 256, a block
+// is one (element, head) and a run of its query tiles (double-buffered Q
+// and dO), with two warpgroups that share K and V and split each tile's
+// keys, adding their halves of di and dq through shared memory: a thread
+// then holds half a window's probs and dP, where a whole window's probs
+// alone (one warpgroup a tile) spilled at 256 keys.  The
+// dkv kernel holds its 64 keys' K and V and copies the head's Q and dO a
+// tile at a time into two buffers (so three blocks fit an SM at d = 64,
+// two at 96); per query tile it issues S and dP the same way with the
+// queries as rows (the forward's orientation), rebuilds p, and stores
+// drop(p) and ds as bf16 tiles in shared memory, which dV += drop(p)^T dO
+// and dK += ds^T Q read transposed (MN-major; at d = 96 m64n64k16 on
+// panel 0 and m64n32k16 on panel 1, 2 x 48 f32 accumulators a thread).
 // The keep bits are drawn into shared memory while the first product
-// runs.  Per head 8 s*s*d products against the function's own 5 (S, dP,
-// dV, dK, dQ): S and dP once more in the dkv kernel, dP once more in the
-// dq kernel because di must be complete before ds.  What bounds it on the
+// runs.  Per head 8 s*s*d products at d = 64 against the function's own 5
+// (S, dP, dV, dK, dQ): S and dP once more in the dkv kernel, dP once more
+// in the dq kernel because di must be complete before ds; 7 at d = 96,
+// whose dq kernel keeps dP in registers for ds.  What bounds it on the
 // H100: not HBM (about 7 n h bytes) nor the tensor cores' rate but the
 // elementwise instructions per (query, key) -- mask, expf, div_row, keep
 // bit, the two drops, di and ds, some 40 a pair in each kernel -- issued
-// by one warpgroup a block, two or three blocks an SM.
+// by one or two warpgroups a block, one to three blocks an SM.
 //
 // The mma.sync pair (sections 1 and 2): each warp owns 16 rows and works
 // in 16-column chunks, so registers hold only the row block's fragments
@@ -443,49 +458,41 @@ int launch(const Operands& a, cudaStream_t stream) {
 }
 
 // -------------------------------------------------------------------- //
-// 3. The wgmma pair: d = 64, S <= 256
+// 3. The wgmma pair: d = 64 and 96, S <= 256
 // -------------------------------------------------------------------- //
 
-template <int NK>
+template <int NK, int D>
 struct BwdShape {
   static constexpr int WORDS = NK / 32;      // keep words of a query row
   static constexpr int KSTRIDE = WORDS | 1;  // odd: rows in other banks
   static constexpr int NQ = (NK + 63) / 64 * 64;  // query rows, whole tiles
-  // dq: 1024-byte alignment slack, K, V, the Q and dO tiles, the key
-  // segment ids, the tile's keep table
+  static constexpr int ROWB = D * 2;              // bytes of a row
+  static constexpr int QTB = QT * ROWB;           // bytes of a 64-row tile
+  // dq at d = 64 (one warpgroup a query tile): 1024-byte alignment slack,
+  // K, V, the Q and dO tiles, the key segment ids, the tile's keep table
   static constexpr int DQ_SMEM =
       1024 + 2 * NK * 128 + 2 * QTILE + NK * 4 + QT * KSTRIDE * 4;
-  // dkv: slack, two Q and two dO tiles, the K, V, P and dS tiles, the
-  // segment ids, each query's m, l, 1 / l and di, the keep table (2 words
-  // a query)
-  static constexpr int DKV_SMEM =
-      1024 + 8 * QTILE + NQ * 4 + 4 * NQ * 4 + NQ * 2 * 4;
-  // dq blocks an SM runs (registers: NK / 2 probs a thread beside the 32
-  // dq sums; shared memory: two at 256); dkv blocks: three
+  // dq at d = 96 (two warpgroups, a run of query tiles): slack, K, V, two
+  // Q and two dO tiles, the key segment ids, the warpgroups' di halves and
+  // the dq sums they hand each other (24 f32 a thread), the tile's keep
+  // table
+  static constexpr int DQ2_SMEM = 1024 + 2 * NK * ROWB + 4 * QTB + NK * 4 +
+                                  2 * QT * 4 + 48 * 128 * 4 +
+                                  QT * KSTRIDE * 4;
+  // dkv: slack, two Q and two dO tiles, the K and V tiles, the P and dS
+  // tiles (64 x 64), the segment ids, each query's m, l, 1 / l and di, the
+  // keep table (2 words a query)
+  static constexpr int DKV_SMEM = 1024 + 6 * QTB + 2 * QTILE + NQ * 4 +
+                                  4 * NQ * 4 + NQ * 2 * 4;
+  // dq blocks an SM runs at d = 64 (registers: NK / 2 probs a thread
+  // beside the 32 dq sums; shared memory: two at 256); dkv blocks: three
+  // at d = 64, two at 96 (its accumulators, 2 x 48 a thread)
   static constexpr int DQ_BLOCKS = NK <= 96 ? 3 : 2;
+  static constexpr int DKV_BLOCKS = D == 96 ? 2 : 3;
 };
 
-// d = A (64 x 64, K-major, sA) . B^T for the W (64 or 32) rows of B at sB
-// (K-major): issued and committed.  The scores' k-step order, so equal
-// operands give the forward's bits.
-template <int W>
-__device__ __forceinline__ void issue_nt(float* d, const unsigned char* sA,
-                                         const unsigned char* sB) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < WD / 16; ++kk) {
-    const uint64_t da = smem_desc(sA + kk * 32, 1, 64);
-    const uint64_t db = smem_desc(sB + kk * 32, 1, 64);
-    if (W == 64)
-      wgmma_ss_n64(d, da, db, kk);
-    else
-      wgmma_ss_n32(d, da, db, kk);
-  }
-  wgmma_commit();
-}
-
 // The prob dropout of a W-key fragment x (thread rows ra, ra + 8 of the
-// keep table; keys c0 + 8 (i / 4) + 2 t + (i & 1), c0 % 64 == 0):
+// keep table; keys c0 + 8 (i / 4) + 2 t + (i & 1), c0 % W == 0):
 // x * inv_keep kept, 0 dropped.
 template <int W, bool DROP>
 __device__ __forceinline__ void drop_frag(float* x, const unsigned* keep,
@@ -523,7 +530,7 @@ __device__ __forceinline__ void di_chunk(const float* p,
                                          float inv_keep, float& da,
                                          float& db) {
   float dp[W / 2];
-  issue_nt<W>(dp, sO, sVc);
+  issue_scores<W>(dp, sO, sVc);
   wgmma_wait<0>();
   fence_acc(dp);
   drop_frag<W, DROP>(dp, keep, kstride, ra, c0, t4, inv_keep);
@@ -549,7 +556,7 @@ __device__ __forceinline__ void dq_chunk(float (&acc)[32], const float* p,
                                          float inv_keep, float da, float db,
                                          float sm_scale) {
   float dp[W / 2];
-  issue_nt<W>(dp, sO, sVc);
+  issue_scores<W>(dp, sO, sVc);
   wgmma_wait<0>();
   fence_acc(dp);
   drop_frag<W, DROP>(dp, keep, kstride, ra, c0, t4, inv_keep);
@@ -569,14 +576,14 @@ __device__ __forceinline__ void dq_chunk(float (&acc)[32], const float* p,
   wgmma_wait<0>();
 }
 
-// The dq kernel: one block (one warpgroup) per (element, head, 64-query
-// tile).  K and V of the head (the window's NK rows), the tile's Q and dO
-// in 128-byte-swizzled shared memory; S = Q K^T on the forward's own
-// wgmma sequence, p rebuilt in registers (NK / 2 a thread), then over
+// The dq kernel at d = 64: one block (one warpgroup) per (element, head,
+// 64-query tile).  K and V of the head (the window's NK rows), the tile's
+// Q and dO in 128-byte-swizzled shared memory; S = Q K^T on the forward's
+// own wgmma sequence, p rebuilt in registers (NK / 2 a thread), then over
 // 64-key chunks dP = dO V^T twice: once for di, once for ds and dq += ds K
 // (ds from registers, the A operand's layout).
 template <int NK, bool DROP>
-__global__ void __launch_bounds__(128, BwdShape<NK>::DQ_BLOCKS)
+__global__ void __launch_bounds__(128, BwdShape<NK, 64>::DQ_BLOCKS)
     dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, int ld,
                     const bf16* __restrict__ dctx,
@@ -584,7 +591,7 @@ __global__ void __launch_bounds__(128, BwdShape<NK>::DQ_BLOCKS)
                     const float* __restrict__ stats, float* __restrict__ di,
                     bf16* __restrict__ dq, int ld_g, int S, float sm_scale,
                     DropParams drop) {
-  using Sh = BwdShape<NK>;
+  using Sh = BwdShape<NK, 64>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sK =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -680,33 +687,263 @@ __global__ void __launch_bounds__(128, BwdShape<NK>::DQ_BLOCKS)
   }
 }
 
+// Barrier of a d = 96 dq block's two warpgroups (named barrier 3, 256
+// threads), which they reach from their own code paths.
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
+// One warpgroup's share of a d = 96 dq tile: the keys K0 .. K0 + KW - 1
+// (whole 64-key chunks of the forward's window from K0, and its 32-key
+// tail), so its scores are the forward's bits; KW = 0 (a 64-key window
+// leaves the second warpgroup none) only keeps the barriers and the keep
+// table's half.  Both warpgroups draw the tile's keep bits while their
+// score products run; each issues dP = dO V^T for its keys while it
+// rebuilds their probs, keeps both in registers (KW / 2 each a thread:
+// half a window, so dP is computed once, not again for ds as the d = 64
+// kernel must), and the halves of di = rowsum(dp * p) meet in sDi (half 0
+// + half 1, in that order in both warpgroups); then ds of each of its
+// keys is packed in registers before one dq half = ds K (m64n64k16 on
+// panel 0, m64n32k16 on panel 1), and the halves meet in sRed: each
+// warpgroup sums and stores 48 of dq's 96 columns.
+template <int KW, int K0, bool DROP>
+__device__ __forceinline__ void dq96_tile(
+    const unsigned char* sQt, const unsigned char* sOt,
+    const unsigned char* sK, const unsigned char* sK1,
+    const unsigned char* sV, const unsigned char* sV1, const float* sM,
+    unsigned* keep, int kstride, int words, float* sDi, float* sRed,
+    const float* __restrict__ stats, float* __restrict__ di,
+    bf16* __restrict__ dq, size_t row0, int prow0, size_t bhs, int ld_g,
+    int col0, int q0, int S, float sm_scale, const DropParams& drop) {
+  // D, this warpgroup's index (the second's keys start past 0), its
+  // probs and dP a thread
+  constexpr int D = 96, WG = K0 > 0, N = KW > 0 ? KW / 2 : 1;
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ra = (tid >> 5) * 16 + g, qa = q0 + ra, qb = qa + 8;
+  const float nan = __int_as_float(0x7fc00000);
+  float sc[N], dp[N], acc[D / 2];
+  if constexpr (KW > 0)
+    issue_scores<KW, D>(sc, sQt, fresh(sK) + K0 * 128, fresh(sK1) + K0 * 64);
+  if (DROP)  // the tile's keep bits while the products run
+    build_keep(keep, QT, words, kstride, drop, prow0 + q0, 0, threadIdx.x,
+               256);
+  // a query row past S matches no key, and m = 0 makes its p 0
+  const float qma = qa < S ? sM[qa] : nan, qmb = qb < S ? sM[qb] : nan;
+  const float ma = qa < S ? stats[prow0 + qa] : 0.f;
+  const float mb = qb < S ? stats[prow0 + qb] : 0.f;
+  const float la = qa < S ? stats[bhs + prow0 + qa] : 1.f;
+  const float lb = qb < S ? stats[bhs + prow0 + qb] : 1.f;
+  float da = 0.f, db = 0.f;
+  if constexpr (KW > 0) {
+    wgmma_wait<0>();
+    fence_acc(sc);
+    // dP = dO V^T for these keys, on the scores' chunks, while p is
+    // rebuilt
+    issue_scores<KW, D>(dp, sOt, fresh(sV) + K0 * 128, fresh(sV1) + K0 * 64);
+    float xa = -INFINITY, xb = -INFINITY;  // row maxima: the saved ones
+    mask_scores<KW>(sc, sM + K0, qma, qmb, sm_scale, t4, xa, xb);
+    rebuild_probs<KW / 2>(sc, ma, mb, la, lb, __frcp_rn(la), __frcp_rn(lb));
+  }
+  pair_sync();  // the keep table is complete
+  if constexpr (KW > 0) {
+    wgmma_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int c = 0; c < KW / 64; ++c)
+      drop_frag<64, DROP>(dp + 32 * c, keep, kstride, ra, K0 + 64 * c, t4,
+                          drop.inv_keep);
+    if constexpr (KW % 64 != 0)
+      drop_frag<32, DROP>(dp + 32 * (KW / 64), keep, kstride, ra,
+                          K0 + KW - 32, t4, drop.inv_keep);
+#pragma unroll
+    for (int i = 0; i < KW / 2; ++i) {
+      if (i & 2)
+        db = fmaf(dp[i], sc[i], db);
+      else
+        da = fmaf(dp[i], sc[i], da);
+    }
+    da = quad_sum(da);
+    db = quad_sum(db);
+  }
+  if (t4 == 0) {
+    sDi[WG * QT + ra] = da;
+    sDi[WG * QT + ra + 8] = db;
+  }
+  pair_sync();
+  da = sDi[ra] + sDi[QT + ra];
+  db = sDi[ra + 8] + sDi[QT + ra + 8];
+  if (WG == 0 && t4 == 0) {
+    if (qa < S) di[prow0 + qa] = da;
+    if (qb < S) di[prow0 + qb] = db;
+  }
+  if constexpr (KW > 0) {
+    // ds = bf16(p (dp - di) sm_scale) of every key, packed as the A
+    // fragments of the dq half = ds K
+    unsigned dsa[KW / 4];
+#pragma unroll
+    for (int i = 0; i < KW / 2; i += 2) {
+      const float dd = (i & 2) ? db : da;
+      dsa[i / 2] = pack_bf16x2(
+          __fmul_rn(__fmul_rn(sc[i], __fsub_rn(dp[i], dd)), sm_scale),
+          __fmul_rn(__fmul_rn(sc[i + 1], __fsub_rn(dp[i + 1], dd)),
+                    sm_scale));
+    }
+    const unsigned char* sKp = fresh(sK) + K0 * 128;
+    const unsigned char* sK1p = fresh(sK1) + K0 * 64;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < KW / 16; ++j)  // 16 keys of K: 2048 bytes a step
+      wgmma_rs_n64(acc, dsa + 4 * j, smem_desc(sKp + j * 2048, 512, 64), j);
+#pragma unroll
+    for (int j = 0; j < KW / 16; ++j)  // panel 1: 1024 bytes a step
+      wgmma_rs_n32(acc + 32, dsa + 4 * j,
+                   smem_desc64(sK1p + j * 1024, 1, 32), j);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+  } else {
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  }
+  // the halves meet: each warpgroup hands the other the dq sums of the
+  // columns it does not store (the first stores columns 0-47, the second
+  // 48-95) and adds the other's to its own (a + b: the same bits either
+  // way round)
+  constexpr int HALF = D / 4;  // 24 sums a thread: columns 0-47 or 48-95
+  constexpr int mine = WG * HALF, theirs = HALF - mine;
+#pragma unroll
+  for (int j = 0; j < HALF; ++j)
+    sRed[(WG * HALF + j) * 128 + tid] = acc[theirs + j];
+  pair_sync();
+#pragma unroll
+  for (int j = 0; j < HALF; ++j)
+    acc[mine + j] += sRed[((1 - WG) * HALF + j) * 128 + tid];
+#pragma unroll
+  for (int jj = 0; jj < D / 16; ++jj) {
+    const int j4 = mine + 4 * jj;
+    const int col = col0 + 2 * j4 + 2 * t4;
+    if (qa < S)
+      *reinterpret_cast<unsigned*>(dq + (row0 + qa) * ld_g + col) =
+          pack_bf16x2(acc[j4], acc[j4 + 1]);
+    if (qb < S)
+      *reinterpret_cast<unsigned*>(dq + (row0 + qb) * ld_g + col) =
+          pack_bf16x2(acc[j4 + 2], acc[j4 + 3]);
+  }
+}
+
+// The dq kernel at d = 96: one block per (element, head) and a run of its
+// 64-query tiles, its two warpgroups sharing the head's K and V (NK rows,
+// both panels: 96 KB at S = 256, so one block an SM, which then issues
+// the elementwise work from 8 warps) and each tile, whose keys they split
+// (dq96_tile: the first warpgroup the first half of the window's 64-key
+// chunks).  The next tile's Q and dO are copied into the other buffers
+// while this one computes.
+template <int NK, bool DROP>
+__global__ void __launch_bounds__(256, 1)
+    dq96_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, int ld,
+                      const bf16* __restrict__ dctx,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ stats, float* __restrict__ di,
+                      bf16* __restrict__ dq, int ld_g, int S, int tpb,
+                      float sm_scale, DropParams drop) {
+  constexpr int D = 96;
+  using Sh = BwdShape<NK, D>;
+  // the first warpgroup's keys: the first half of the 64-key chunks
+  // (rounded up), the second's the rest and the 32-key tail
+  constexpr int KW0 = (NK / 64 + 1) / 2 * 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sK =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sV = sK + NK * Sh::ROWB;
+  unsigned char* sQ = sV + NK * Sh::ROWB;  // Q, Q, dO, dO
+  unsigned char* sO = sQ + 2 * Sh::QTB;
+  float* sM = reinterpret_cast<float*>(sO + 2 * Sh::QTB);
+  float* sDi = sM + NK;          // each warpgroup's half of di, per row
+  float* sRed = sDi + 2 * QT;    // the dq sums they hand each other
+  unsigned* keep = reinterpret_cast<unsigned*>(sRed + (D / 2) * 128);
+
+  const int head = blockIdx.y, elem = blockIdx.z, n_heads = gridDim.y;
+  const int H = n_heads * D;
+  const int t_end = min((S + QT - 1) / QT, (int)(blockIdx.x + 1) * tpb);
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * n_heads + head) * S;  // Philox row of query 0
+  const size_t bhs = (size_t)gridDim.z * n_heads * S;
+  const size_t off = row0 * ld + head * D;
+  const bf16* o_src = dctx + row0 * H + head * D;
+  int t = blockIdx.x * tpb;
+
+  // key segment ids (NaN past S: such a key matches no query), K, V and
+  // the first tile's Q and dO
+  for (int j = threadIdx.x; j < NK; j += 256)
+    sM[j] = j < S ? mask[row0 + j] : __int_as_float(0x7fc00000);
+  copy_rows<D>(sK, k + off, ld, 0, NK, S, threadIdx.x, 256);
+  copy_rows<D>(sV, v + off, ld, 0, NK, S, threadIdx.x, 256);
+  copy_rows<D>(sQ, q + off, ld, t * QT, QT, S, threadIdx.x, 256);
+  copy_rows<D>(sO, o_src, H, t * QT, QT, S, threadIdx.x, 256);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  for (int i = 0; t < t_end; ++i, ++t) {
+    const unsigned char* sQt = sQ + (i & 1) * Sh::QTB;
+    const unsigned char* sOt = sO + (i & 1) * Sh::QTB;
+    if (t + 1 < t_end) {  // the next tile's Q and dO into the other buffers
+      copy_rows<D>(sQ + ((i + 1) & 1) * Sh::QTB, q + off, ld, (t + 1) * QT,
+                   QT, S, threadIdx.x, 256);
+      copy_rows<D>(sO + ((i + 1) & 1) * Sh::QTB, o_src, H, (t + 1) * QT, QT,
+                   S, threadIdx.x, 256);
+    }
+    cp_async_commit();
+#define NBK_DQ96_TILE(KW, K0)                                                 \
+  dq96_tile<KW, K0, DROP>(sQt, sOt, sK, sK + NK * 128, sV, sV + NK * 128, sM, \
+                          keep, Sh::KSTRIDE, Sh::WORDS, sDi, sRed, stats, di, \
+                          dq, row0, prow0, bhs, ld_g, head * D, t * QT, S,    \
+                          sm_scale, drop)
+    if (threadIdx.x < 128)
+      NBK_DQ96_TILE(KW0, 0);
+    else
+      NBK_DQ96_TILE(NK - KW0, KW0);
+#undef NBK_DQ96_TILE
+    // the next tile's Q and dO have landed; this tile's buffers, keep
+    // table, sDi and sRed are free
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+  }
+}
+
 // The dkv kernel's loop over the head's query tiles for its W keys (64,
 // or 32 for the window's last 32 when NK % 64 == 32, whose scores the
 // forward takes from an m64n32k16 product).  Per tile: S and dP on the
 // forward's wgmma sequence with the tile's queries as rows, p rebuilt,
 // drop(p) and ds rounded to bf16 into the swizzled sP and sS tiles (query
 // rows, key columns), then dV += drop(p)^T dO and dK += ds^T Q with both
-// operands MN-major in shared memory; the next tile's Q and dO are copied
+// operands MN-major in shared memory (at D = 96 columns 64-95 as m64n32k16
+// from the tiles' 64-byte panels); the next tile's Q and dO are copied
 // into the other buffer meanwhile.  A key past W only reaches its own
 // output row (never stored), so sP and sS need no clearing.
-template <int W, bool DROP>
+template <int W, int D, bool DROP>
 __device__ __forceinline__ void dkv_tiles(
-    float (&dk)[32], float (&dv)[32], const bf16* q_src, int ld,
+    float (&dk)[D / 2], float (&dv)[D / 2], const bf16* q_src, int ld,
     const bf16* o_src, int ld_o, unsigned char* sQ, unsigned char* sO,
     const unsigned char* sK, const unsigned char* sV, unsigned char* sP,
     unsigned char* sS, const float* sM, const float* sSt, int nq,
     const unsigned* keep, int k0, int S, float sm_scale,
     const DropParams& drop) {
+  constexpr int QTB = BwdShape<64, D>::QTB;
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int ra = (tid >> 5) * 16 + g;
   const float nan = __int_as_float(0x7fc00000);
   const int n_qt = nq / QT;
   for (int qt = 0; qt < n_qt; ++qt) {
-    const unsigned char* sQt = sQ + (qt & 1) * QTILE;
-    const unsigned char* sOt = sO + (qt & 1) * QTILE;
+    const unsigned char* sQt = sQ + (qt & 1) * QTB;
+    const unsigned char* sOt = sO + (qt & 1) * QTB;
     float s[W / 2], dp[W / 2];
-    issue_nt<W>(s, sQt, sK);
-    issue_nt<W>(dp, sOt, sV);
+    issue_scores<W, D>(s, sQt, sK, sK + QT * 128);
+    issue_scores<W, D>(dp, sOt, sV, sV + QT * 128);
     const int qa = qt * QT + ra, qb = qa + 8;
     const float qma = qa < S ? sM[qa] : nan, qmb = qb < S ? sM[qb] : nan;
     wgmma_wait<0>();  // also the last tile's dV / dK products
@@ -716,10 +953,10 @@ __device__ __forceinline__ void dkv_tiles(
     // other Q / dO buffer) is done: copy the next tile there
     __syncthreads();
     if (qt + 1 < n_qt) {
-      copy_rows(sQ + ((qt + 1) & 1) * QTILE, q_src, ld, (qt + 1) * QT, QT,
-                S, tid, 128);
-      copy_rows(sO + ((qt + 1) & 1) * QTILE, o_src, ld_o, (qt + 1) * QT, QT,
-                S, tid, 128);
+      copy_rows<D>(sQ + ((qt + 1) & 1) * QTB, q_src, ld, (qt + 1) * QT, QT,
+                   S, tid, 128);
+      copy_rows<D>(sO + ((qt + 1) & 1) * QTB, o_src, ld_o, (qt + 1) * QT,
+                   QT, S, tid, 128);
     }
     cp_async_commit();
     float xa = -INFINITY, xb = -INFINITY;  // unused row maxima
@@ -757,10 +994,24 @@ __device__ __forceinline__ void dkv_tiles(
     for (int j = 0; j < QT / 16; ++j)  // 16 queries: 2048 bytes a step
       wgmma_tt_n64(dv, smem_desc(sP + j * 2048, 512, 64),
                    smem_desc(sOt + j * 2048, 512, 64), qt > 0 || j > 0);
+    if constexpr (D == 96) {
+#pragma unroll
+      for (int j = 0; j < QT / 16; ++j)  // panel 1: 1024 bytes a step
+        wgmma_tt_n32(dv + 32, smem_desc(sP + j * 2048, 512, 64),
+                     smem_desc64(sOt + QT * 128 + j * 1024, 1, 32),
+                     qt > 0 || j > 0);
+    }
 #pragma unroll
     for (int j = 0; j < QT / 16; ++j)
       wgmma_tt_n64(dk, smem_desc(sS + j * 2048, 512, 64),
                    smem_desc(sQt + j * 2048, 512, 64), qt > 0 || j > 0);
+    if constexpr (D == 96) {
+#pragma unroll
+      for (int j = 0; j < QT / 16; ++j)
+        wgmma_tt_n32(dk + 32, smem_desc(sS + j * 2048, 512, 64),
+                     smem_desc64(sQt + QT * 128 + j * 1024, 1, 32),
+                     qt > 0 || j > 0);
+    }
     wgmma_commit();
   }
   wgmma_wait<0>();
@@ -772,8 +1023,8 @@ __device__ __forceinline__ void dkv_tiles(
 // tile), keys as the rows of dK and dV.  The block's K and V tiles and
 // each query's m, l, 1 / l and di (from the dq kernel) are loaded once,
 // the head's Q and dO a tile at a time into two buffers.
-template <int NK, bool DROP>
-__global__ void __launch_bounds__(128, 3)
+template <int NK, int D, bool DROP>
+__global__ void __launch_bounds__(128, BwdShape<NK, D>::DKV_BLOCKS)
     dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, int ld,
                      const bf16* __restrict__ dctx,
@@ -782,32 +1033,33 @@ __global__ void __launch_bounds__(128, 3)
                      const float* __restrict__ di, bf16* __restrict__ dk_out,
                      bf16* __restrict__ dv_out, int ld_g, int S,
                      float sm_scale, DropParams drop) {
-  constexpr int NQ = BwdShape<NK>::NQ;
+  using Sh = BwdShape<NK, D>;
+  constexpr int NQ = Sh::NQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sQ =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* sO = sQ + 2 * QTILE;  // dO
-  unsigned char* sK = sO + 2 * QTILE;
-  unsigned char* sV = sK + QTILE;
-  unsigned char* sP = sV + QTILE;   // drop(p), bf16
-  unsigned char* sS = sP + QTILE;   // ds, bf16
+  unsigned char* sO = sQ + 2 * Sh::QTB;  // dO
+  unsigned char* sK = sO + 2 * Sh::QTB;
+  unsigned char* sV = sK + Sh::QTB;
+  unsigned char* sP = sV + Sh::QTB;   // drop(p), bf16
+  unsigned char* sS = sP + QTILE;     // ds, bf16
   float* sM = reinterpret_cast<float*>(sS + QTILE);
   float* sSt = sM + NQ;  // m, l, 1 / l, di of each query
   unsigned* keep = reinterpret_cast<unsigned*>(sSt + 4 * NQ);
 
   const int tid = threadIdx.x, head = blockIdx.y, elem = blockIdx.z;
-  const int n_heads = gridDim.y, H = n_heads * WD, k0 = blockIdx.x * QT;
+  const int n_heads = gridDim.y, H = n_heads * D, k0 = blockIdx.x * QT;
   const size_t row0 = (size_t)elem * S;
   const int prow0 = (elem * n_heads + head) * S;
   const size_t bhs = (size_t)gridDim.z * n_heads * S;
-  const size_t off = row0 * ld + head * WD;
+  const size_t off = row0 * ld + head * D;
   const int nq = (S + QT - 1) / QT * QT;
-  const bf16* o_src = dctx + row0 * H + head * WD;
+  const bf16* o_src = dctx + row0 * H + head * D;
 
-  copy_rows(sQ, q + off, ld, 0, QT, S, tid, 128);
-  copy_rows(sO, o_src, H, 0, QT, S, tid, 128);
-  copy_rows(sK, k + off, ld, k0, QT, S, tid, 128);
-  copy_rows(sV, v + off, ld, k0, QT, S, tid, 128);
+  copy_rows<D>(sQ, q + off, ld, 0, QT, S, tid, 128);
+  copy_rows<D>(sO, o_src, H, 0, QT, S, tid, 128);
+  copy_rows<D>(sK, k + off, ld, k0, QT, S, tid, 128);
+  copy_rows<D>(sV, v + off, ld, k0, QT, S, tid, 128);
   cp_async_commit();
   // rows past S: m = 0, l = 1, di = 0 (their p is 0, their dO rows 0)
   for (int j = tid; j < nq; j += 128) {
@@ -828,11 +1080,12 @@ __global__ void __launch_bounds__(128, 3)
   fence_proxy_async();
   __syncthreads();
 
-  float dk[32], dv[32];  // the first query tile's first product sets them
+  float dk[D / 2], dv[D / 2];  // the first query tile's first product sets
+                               // them
   const bf16* q_src = q + off;
-#define NBK_DKV_TILES(W)                                                     \
-  dkv_tiles<W, DROP>(dk, dv, q_src, ld, o_src, H, sQ, sO, sK, sV, sP, sS, sM, \
-                     sSt, nq, keep, k0, S, sm_scale, drop)
+#define NBK_DKV_TILES(W)                                                    \
+  dkv_tiles<W, D, DROP>(dk, dv, q_src, ld, o_src, H, sQ, sO, sK, sV, sP, sS, \
+                        sM, sSt, nq, keep, k0, S, sm_scale, drop)
   if constexpr (NK % 64 != 0) {
     if (k0 + QT > NK)
       NBK_DKV_TILES(32);
@@ -846,8 +1099,8 @@ __global__ void __launch_bounds__(128, 3)
   const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int ka = k0 + (tid >> 5) * 16 + g, kb = ka + 8;
 #pragma unroll
-  for (int jj = 0; jj < WD / 8; ++jj) {
-    const int col = head * WD + jj * 8 + 2 * t4;
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = head * D + jj * 8 + 2 * t4;
     if (ka < S) {
       const size_t r = (row0 + ka) * ld_g + col;
       *reinterpret_cast<unsigned*>(dk_out + r) =
@@ -865,47 +1118,70 @@ __global__ void __launch_bounds__(128, 3)
   }
 }
 
-long long wgmma_launches = 0;  // launches of the wgmma pair, host side
+long long wgmma_launches[2] = {0, 0};  // the wgmma pair at d = 64, 96
 
-template <int NK, bool DROP>
+template <int NK, int D, bool DROP>
 int launch_wgmma(const Operands& a, cudaStream_t stream) {
-  using Sh = BwdShape<NK>;
+  using Sh = BwdShape<NK, D>;
+  static int dq_per_sm = 0;  // dq blocks an SM runs (d = 96)
   static bool ready = false;
   if (!ready) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dq_wgmma_kernel<NK, DROP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::DQ_SMEM);
+    cudaError_t e;
+    if constexpr (D == 64) {
+      e = cudaFuncSetAttribute(dq_wgmma_kernel<NK, DROP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Sh::DQ_SMEM);
+    } else {
+      e = cudaFuncSetAttribute(dq96_wgmma_kernel<NK, DROP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Sh::DQ2_SMEM);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &dq_per_sm, dq96_wgmma_kernel<NK, DROP>, 256, Sh::DQ2_SMEM);
+      if (e == cudaSuccess && dq_per_sm == 0)
+        e = cudaErrorInvalidConfiguration;
+    }
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(dkv_wgmma_kernel<NK, DROP>,
+      e = cudaFuncSetAttribute(dkv_wgmma_kernel<NK, D, DROP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Sh::DKV_SMEM);
     if (e != cudaSuccess) return (int)e;
     ready = true;
   }
-  dim3 grid((a.S + QT - 1) / QT, a.n_heads, a.B);
-  dq_wgmma_kernel<NK, DROP><<<grid, 128, Sh::DQ_SMEM, stream>>>(
-      a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dq, a.ld_g, a.S,
-      a.sm_scale, a.drop);
+  const int n_qt = (a.S + QT - 1) / QT;
+  dim3 grid(n_qt, a.n_heads, a.B);
+  if constexpr (D == 64) {
+    dq_wgmma_kernel<NK, DROP><<<grid, 128, Sh::DQ_SMEM, stream>>>(
+        a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dq, a.ld_g,
+        a.S, a.sm_scale, a.drop);
+  } else {
+    const int tpb = tiles_per_block(n_qt, a.B * a.n_heads,
+                                    dq_per_sm * sm_count(), 2);
+    dim3 dq_grid((n_qt + tpb - 1) / tpb, a.n_heads, a.B);
+    dq96_wgmma_kernel<NK, DROP><<<dq_grid, 256, Sh::DQ2_SMEM, stream>>>(
+        a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dq, a.ld_g,
+        a.S, tpb, a.sm_scale, a.drop);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dkv_wgmma_kernel<NK, DROP><<<grid, 128, Sh::DKV_SMEM, stream>>>(
+  dkv_wgmma_kernel<NK, D, DROP><<<grid, 128, Sh::DKV_SMEM, stream>>>(
       a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dk, a.dv, a.ld_g,
       a.S, a.sm_scale, a.drop);
   e = cudaGetLastError();
-  if (e == cudaSuccess) ++wgmma_launches;
+  if (e == cudaSuccess) ++wgmma_launches[D == 96];
   return (int)e;
 }
 
 // the window: S rounded up to 32 (64 at least; 224 to 256), as the
 // forward's
-template <bool DROP>
+template <int D, bool DROP>
 int launch_wgmma_s(const Operands& a, cudaStream_t stream) {
-  if (a.S <= 64) return launch_wgmma<64, DROP>(a, stream);
-  if (a.S <= 96) return launch_wgmma<96, DROP>(a, stream);
-  if (a.S <= 128) return launch_wgmma<128, DROP>(a, stream);
-  if (a.S <= 160) return launch_wgmma<160, DROP>(a, stream);
-  if (a.S <= 192) return launch_wgmma<192, DROP>(a, stream);
-  if (a.S <= 256) return launch_wgmma<256, DROP>(a, stream);
+  if (a.S <= 64) return launch_wgmma<64, D, DROP>(a, stream);
+  if (a.S <= 96) return launch_wgmma<96, D, DROP>(a, stream);
+  if (a.S <= 128) return launch_wgmma<128, D, DROP>(a, stream);
+  if (a.S <= 160) return launch_wgmma<160, D, DROP>(a, stream);
+  if (a.S <= 192) return launch_wgmma<192, D, DROP>(a, stream);
+  if (a.S <= 256) return launch_wgmma<256, D, DROP>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -918,15 +1194,19 @@ extern "C" {
 // nbk_seg_attention -> dq, dk, dv bf16 with row stride ld_g (16-byte
 // aligned, ld_g even: the q | k | v column blocks of one (B*S, 3h)
 // buffer, or (B, S, n_heads, d) tensors); di (B, n_heads, S) f32 is
-// scratch (rowsum(dp * p)).  d <= 256 with d % 8 == 0, S <= 512; the
-// prob dropout as in the forward.
+// scratch (rowsum(dp * p)).  d <= 256 with d % 8 == 0, S <= 512, on
+// the instance the caller names: 0, the wgmma pair (d = 64 or 96, S <=
+// 256), or the width of a mma.sync pair (32, 64, 96, 128, 192 or 256, at
+// least d); any other instance, d or S is refused.  The prob dropout as
+// in the forward.
 int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
                           int ld, const void* dctx, const float* mask,
                           const float* stats, float* di, void* dq, void* dk,
                           void* dv, int ld_g, int B, int S, int n_heads,
-                          int d, float sm_scale, unsigned long long seed,
-                          int stream, unsigned thresh, float inv_keep,
-                          int drop_on, void* cuda_stream) {
+                          int d, int instance, float sm_scale,
+                          unsigned long long seed, int stream,
+                          unsigned thresh, float inv_keep, int drop_on,
+                          void* cuda_stream) {
   Operands a;
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -947,11 +1227,18 @@ int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
   a.sm_scale = sm_scale;
   a.drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
-  if (S <= 0) return (int)cudaErrorInvalidValue;
-  if (d == WD && S <= 256)
-    return a.drop.on ? launch_wgmma_s<true>(a, s)
-                     : launch_wgmma_s<false>(a, s);
-  switch (instance_width(d)) {
+  if (S <= 0 || d <= 0 || d % 8) return (int)cudaErrorInvalidValue;
+  if (instance == 0) {  // S > 256 is refused by launch_wgmma_s
+    if (d == WD)
+      return a.drop.on ? launch_wgmma_s<64, true>(a, s)
+                       : launch_wgmma_s<64, false>(a, s);
+    if (d == 96)
+      return a.drop.on ? launch_wgmma_s<96, true>(a, s)
+                       : launch_wgmma_s<96, false>(a, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (d > instance) return (int)cudaErrorInvalidValue;
+  switch (instance) {
     case 32: return launch<32>(a, s);
     case 64: return launch<64>(a, s);
     case 96: return launch<96>(a, s);
@@ -962,8 +1249,13 @@ int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// Launches of the wgmma pair since the library was loaded (a routing
-// check: nbk_seg_attention_bwd runs it exactly for d = 64, S <= 256).
-long long nbk_seg_attention_bwd_wgmma_launches() { return wgmma_launches; }
+// Launches of the wgmma pair since the library was loaded, at head dim d
+// (64 or 96; 0: both; -1 for any other d): which instance ran.
+long long nbk_seg_attention_bwd_wgmma_launches(int d) {
+  return d == 64 ? wgmma_launches[0]
+         : d == 96 ? wgmma_launches[1]
+         : d == 0  ? wgmma_launches[0] + wgmma_launches[1]
+                   : -1;
+}
 
 }  // extern "C"

@@ -137,8 +137,10 @@ def lib() -> ctypes.CDLL:
     L.nbk_ffn_bwd_rows.argtypes = [p] * 9 + [i, i, *drop, p]
     # q, k, v, their row stride (single-block and tiled attention)
     qkv = [p, p, p, i]
-    L.nbk_seg_attention.argtypes = [*qkv, p, p, p, i, i, i, i, f, *drop, p]
-    L.nbk_seg_attention_bwd.argtypes = [*qkv] + [p] * 7 + [i] * 5 + [
+    # ..., d, the instance (0: wgmma, else the mma.sync width), sm_scale
+    L.nbk_seg_attention.argtypes = [*qkv, p, p, p, i, i, i, i, i, f, *drop,
+                                    p]
+    L.nbk_seg_attention_bwd.argtypes = [*qkv] + [p] * 7 + [i] * 6 + [
         f, *drop, p]
     L.nbk_flash_fwd.argtypes = [*qkv, p, p, p, i, i, i, i, f, *drop, p]
     L.nbk_flash_bwd_dq.argtypes = [*qkv] + [p] * 6 + [i] * 5 + [f, *drop, p]
@@ -157,7 +159,9 @@ def lib() -> ctypes.CDLL:
     L.nbk_embed_lookup.argtypes = [p] * 8 + [i, i, i, i, i, f, i, p]
     for name in KERNELS:
         getattr(L, f"nbk_{name}").restype = ctypes.c_int
-    L.nbk_seg_attention_bwd_wgmma_launches.argtypes = []
+    L.nbk_seg_attention_wgmma_launches.argtypes = [i]
+    L.nbk_seg_attention_wgmma_launches.restype = ctypes.c_longlong
+    L.nbk_seg_attention_bwd_wgmma_launches.argtypes = [i]
     L.nbk_seg_attention_bwd_wgmma_launches.restype = ctypes.c_longlong
     L.nbk_flash_fwd_wgmma_launches.argtypes = []
     L.nbk_flash_fwd_wgmma_launches.restype = ctypes.c_longlong

@@ -66,8 +66,13 @@ Every attention kernel takes the head dims ``attn_head_dim_ok`` admits,
 d <= 256 with d % 8 == 0: each runs on the narrowest ``mma.sync``
 instance of width 32, 64, 96, 128, 192 or 256 at least d wide, its
 columns past d zero-filled on load and never stored
-(``csrc/attention.cuh``, ``instance_width``), or at d = 64 on the
-``wgmma`` kernels.
+(``csrc/attention.cuh``, ``instance_width``), or on a ``wgmma`` kernel:
+the tiled trio at d = 64, ``seg_attention`` at d = 64 (s <= 512) and 96
+(s <= 256), ``seg_attention_bwd`` at d = 64 and 96 (s <= 256), counted
+also by ``seg_attention_wgmma_launches`` and
+``seg_attention_bwd_wgmma_launches``.  ``attn_instance`` is the one rule
+that picks the single-block pair's instance: the wrappers pass its choice
+to the library, which runs that instance or refuses.
 
 The int8 training blocks (``ops/fused_ffn.py``, ``ops/fused_attention.py``,
 ``*_int8_train``) give ``gemm_i8_bias_act`` and ``gemm_i8_bias_residual``
@@ -137,6 +142,30 @@ def attn_head_dim_ok(d: int) -> bool:
     columns start on a 16-byte boundary.  The wrappers' checks and the
     encoder's refusals all ask this one predicate."""
     return 0 < d <= MAX_HEAD_DIM and d % 8 == 0
+
+
+def attn_instance(d: int, s: int, backward: bool = False):
+    """The instance ``seg_attention`` (``backward``: ``seg_attention_bwd``)
+    runs at head dim d and sequence length s: ``"wgmma"`` at d = 64 (the
+    forward to s = 512, the backward to 256) and d = 96 (s <= 256), else
+    the width of its ``mma.sync`` instance, the narrowest of 32, 64, 96,
+    128, 192 and 256 at least d wide; None where the wrappers refuse (d
+    outside ``attn_head_dim_ok``, s outside 1 .. 512).  The wrappers pass
+    this choice to the library (``csrc/seg_attention.cu``,
+    ``csrc/seg_attention_bwd.cu``), whose launch counters show that it
+    ran."""
+    if not attn_head_dim_ok(d) or not 0 < s <= MAX_SEQ:
+        return None
+    if (d == 64 and (s <= 256 or not backward)) or (d == 96 and s <= 256):
+        return "wgmma"
+    return next(w for w in (32, 64, 96, 128, 192, 256) if w >= d)
+
+
+def _instance_arg(d: int, s: int, backward: bool) -> int:
+    """``attn_instance`` as the C interface takes it: 0 for the wgmma
+    kernels, else the mma.sync instance's width."""
+    inst = attn_instance(d, s, backward)
+    return 0 if inst == "wgmma" else inst
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
@@ -836,7 +865,8 @@ def _launch_seg_attention(qkv_ptrs, ld, mask, out, st, b, s, nh, d,
                           sm_scale, drop, stream):
     rc = _cuda.lib().nbk_seg_attention(
         *qkv_ptrs, ld, mask.data_ptr(), out.data_ptr(), _ptr(st), b, s, nh,
-        d, float(sm_scale), *_drop_args(drop), stream)
+        d, _instance_arg(d, s, False), float(sm_scale), *_drop_args(drop),
+        stream)
     _cuda.check(rc, "seg_attention")
     _cuda.launch_counts["seg_attention"] += 1
 
@@ -846,17 +876,33 @@ def _launch_seg_attention_bwd(qkv_ptrs, ld, dout, mask, stats, grad_ptrs,
     di = torch.empty((b, nh, s), dtype=torch.float32, device=mask.device)
     rc = _cuda.lib().nbk_seg_attention_bwd(
         *qkv_ptrs, ld, dout.data_ptr(), mask.data_ptr(), stats.data_ptr(),
-        di.data_ptr(), *grad_ptrs, ld_g, b, s, nh, d, float(sm_scale),
-        *_drop_args(drop), stream)
+        di.data_ptr(), *grad_ptrs, ld_g, b, s, nh, d,
+        _instance_arg(d, s, True), float(sm_scale), *_drop_args(drop),
+        stream)
     _cuda.check(rc, "seg_attention_bwd")
     _cuda.launch_counts["seg_attention_bwd"] += 1
 
 
-def seg_attention_bwd_wgmma_launches() -> int:
+def _wgmma_head_dim(d: int) -> None:
+    if d and attn_instance(d, 1) != "wgmma":
+        raise ValueError(f"the single-block pair has no wgmma instance at "
+                         f"head dim {d}")
+
+
+def seg_attention_wgmma_launches(d: int = 0) -> int:
+    """Launches of ``seg_attention``'s wgmma kernel since the kernels were
+    loaded, at head dim ``d`` (64 or 96; 0: both; any other d raises):
+    which instance ran (``attn_instance``)."""
+    _wgmma_head_dim(d)
+    return int(_cuda.lib().nbk_seg_attention_wgmma_launches(d))
+
+
+def seg_attention_bwd_wgmma_launches(d: int = 0) -> int:
     """Launches of ``seg_attention_bwd``'s wgmma pair since the kernels
-    were loaded (csrc/seg_attention_bwd.cu runs it for d = 64, s <= 256;
-    the mma.sync pair elsewhere): the routing behind the counter."""
-    return int(_cuda.lib().nbk_seg_attention_bwd_wgmma_launches())
+    were loaded, at head dim ``d`` (64 or 96; 0: both; any other d
+    raises): which instance ran (``attn_instance``)."""
+    _wgmma_head_dim(d)
+    return int(_cuda.lib().nbk_seg_attention_bwd_wgmma_launches(d))
 
 
 def _column_blocks(t, h: int):

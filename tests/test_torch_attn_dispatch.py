@@ -1,0 +1,110 @@
+"""``ops.kernels.attn_instance``, the one rule that picks the single-block
+attention pair's instance, over every head dim 1 .. 256 and sequence
+length 1 .. 512, and the wrappers that hand its choice to the library
+(``csrc/seg_attention.cu:nbk_seg_attention``,
+``csrc/seg_attention_bwd.cu:nbk_seg_attention_bwd``); the card tests
+(``tests/test_torch_kernels_cuda.py``) and ``chip_smoke.py`` phase 18
+hold the kernels' launch counters to it."""
+
+import pytest
+import torch
+
+from nbest_asr_tpu_torch.ops import _cuda
+from nbest_asr_tpu_torch.ops import kernels as K
+
+# the instance table: (d, s) -> (forward, backward)
+TABLE = {(64, 20): ("wgmma", "wgmma"), (64, 256): ("wgmma", "wgmma"),
+         (64, 257): ("wgmma", 64), (64, 512): ("wgmma", 64),
+         (96, 1): ("wgmma", "wgmma"), (96, 256): ("wgmma", "wgmma"),
+         (96, 257): (96, 96), (96, 512): (96, 96),
+         (48, 160): (64, 64), (72, 160): (96, 96), (80, 256): (96, 96),
+         (88, 64): (96, 96), (8, 64): (32, 32), (32, 160): (32, 32),
+         (128, 256): (128, 128), (192, 256): (192, 192),
+         (256, 512): (256, 256), (12, 64): (None, None),
+         (264, 64): (None, None), (64, 513): (None, None),
+         (96, 0): (None, None)}
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_attn_instance_over_every_head_dim_and_length(backward):
+    seen = {}
+    for d in range(1, 257):
+        left_wgmma = False
+        for s in range(0, 514):
+            got = K.attn_instance(d, s, backward)
+            seen[got] = seen.get(got, 0) + 1
+            # refused exactly where the wrappers refuse
+            assert (got is None) == (not K.attn_head_dim_ok(d)
+                                     or not 1 <= s <= 512), (d, s, got)
+            if got is None:
+                continue
+            if got == "wgmma":
+                # one window of lengths from 1, at the two wgmma head dims
+                assert d in (64, 96) and not left_wgmma, (d, s)
+            else:
+                # a mma.sync instance at least d wide, padding < 64 columns
+                assert d <= got < d + 64 and got % 32 == 0, (d, s, got)
+                left_wgmma = True
+    # every instance is reached
+    assert set(seen) == {None, "wgmma", 32, 64, 96, 128, 192, 256}
+    for (d, s), want in TABLE.items():
+        assert K.attn_instance(d, s, backward) == want[backward], (d, s)
+
+
+class _FakeLib:
+    """Records the instance each launch names (the argument after d)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def nbk_seg_attention(self, *a):
+        self.calls.append(("fwd", a[10], a[11]))      # ..., d, instance
+        return 0
+
+    def nbk_seg_attention_bwd(self, *a):
+        self.calls.append(("bwd", a[15], a[16]))
+        return 0
+
+
+@pytest.mark.parametrize("layout", ["qkv", "bshd"])
+@pytest.mark.parametrize("d,s", [(64, 300), (96, 256), (96, 257), (88, 160),
+                                 (128, 64)])
+def test_wrappers_pass_attn_instance_to_the_kernels(monkeypatch, layout, d,
+                                                    s):
+    """The four wrappers hand the library ``attn_instance``'s choice (0
+    for wgmma, else the mma.sync width): the forward's to
+    ``nbk_seg_attention``, the backward's to ``nbk_seg_attention_bwd``."""
+    fake = _FakeLib()
+    monkeypatch.setattr(_cuda, "lib", lambda: fake)
+    monkeypatch.setattr(K, "_on_cuda", lambda name, *t: True)
+    monkeypatch.setattr(K, "_stream", lambda t: 0)
+    b, nh = 1, 2
+    h = nh * d
+    mask = torch.ones(b, s)
+    if layout == "qkv":
+        qkv = torch.zeros(b * s, 3 * h, dtype=torch.bfloat16)
+        _, st = K.seg_attention(qkv, mask, nh, stats=True)
+        K.seg_attention_bwd(qkv, torch.zeros(b * s, h, dtype=torch.bfloat16),
+                            mask, st, nh)
+    else:
+        q, k, v, do = (torch.zeros(b, s, nh, d, dtype=torch.bfloat16)
+                       for _ in range(4))
+        _, st = K.sb_attention(q, k, v, mask, 0.1, stats=True)
+        K.sb_attention_bwd(q, k, v, do, mask, st, 0.1)
+
+    def arg(inst):
+        return 0 if inst == "wgmma" else inst
+
+    assert fake.calls == [("fwd", d, arg(K.attn_instance(d, s))),
+                          ("bwd", d, arg(K.attn_instance(d, s, True)))]
+
+
+def test_wgmma_counters_refuse_head_dims_without_a_wgmma_instance():
+    """A per-width count at a head dim with no wgmma instance would read
+    0 whatever ran, so the counters refuse it (before reaching the
+    library)."""
+    for d in (32, 48, 80, 88, 128, 192, 256):
+        with pytest.raises(ValueError, match="no wgmma instance"):
+            K.seg_attention_wgmma_launches(d)
+        with pytest.raises(ValueError, match="no wgmma instance"):
+            K.seg_attention_bwd_wgmma_launches(d)

@@ -123,9 +123,11 @@ def test_gemm_bias_residual_and_layer_norm(dev, m, n, k, rate):
 
 # seg_attention's (seq, head dim) cases: at d = 64 (the wgmma kernel)
 # ragged lengths, the four DSTC2 buckets and past 256 (two score windows);
-# at d = 32 and 128 the mma.sync kernel
+# at d = 96 the same (the wgmma kernel to 256, its mma.sync instance
+# past); at d = 32 and 128 the mma.sync kernel
 ATTN_SD = ([(s, 64) for s in (20, 64, 96, 130, 160, 256, 300, 512)]
-           + [(s, d) for d in (32, 128) for s in (20, 160, 512)])
+           + [(s, d) for d in (32, 128) for s in (20, 160, 512)]
+           + [(s, 96) for s in (20, 64, 96, 130, 160, 200, 256, 300, 512)])
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -648,52 +650,89 @@ def test_seg_attention_dropout_and_stats(dev, s, d, packed, rate):
     assert torch.equal(K.seg_attention(qkv, mask, nh, drop=drop), ctx)
 
 
+# the backward's (batch, seq, heads, d) cases: 2 elements of 4 heads at
+# d = 64, 128, 96 and ragged lengths, the four buckets and past 256; at d
+# = 96 also each DSTC2 training micro of the 8192-token budget at the
+# quality tools' 8 heads (128 x 64, 80 x 96, 48 x 160, 32 x 256), ragged
+# 130 and 200, and 300 (past the wgmma pair)
+BWD_CASES = ([pytest.param(2, s, 4, d, id=f"{s}-{d}")
+              for s in (20, 64, 96, 160, 256, 512) for d in (64, 128, 96)]
+             + [pytest.param(b, s, 8, 96, id=f"{b}x{s}-96x8")
+                for b, s in ((128, 64), (80, 96), (48, 160), (32, 256),
+                             (3, 130), (3, 200), (2, 300))])
+
+
 @pytest.mark.parametrize("layout", ["qkv", "bshd"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("d", [64, 128, 96])
-@pytest.mark.parametrize("s", [20, 64, 96, 160, 256, 512])
-def test_seg_attention_bwd(dev, s, d, packed, rate, layout):
-    """dq, dk, dv against the plain backward, on the (n, 3h) QKV buffer's
-    column blocks or on route A's standalone (b, s, heads, d) tensors;
-    two runs give bit-equal gradients (ordered sums, no atomics); d = 64
-    at s <= 256 runs the wgmma pair, every other shape the mma.sync
-    pair."""
-    b, nh = 2, 4
+@pytest.mark.parametrize("b,s,nh,d", BWD_CASES)
+def test_seg_attention_bwd(dev, b, s, nh, d, packed, rate, layout):
+    """The forward (ctx, the row statistics) and dq, dk, dv against their
+    plain versions, on the (n, 3h) QKV buffer's column blocks or on route
+    A's standalone (b, s, heads, d) tensors; two runs give bit-equal
+    gradients (ordered sums, no atomics).  Each launch runs on the
+    instance ``attn_instance`` names: the wgmma counters, of all widths
+    and of d's own where d has a wgmma instance, rise by exactly one for
+    each launch it sends there and by nothing for the others."""
     h = nh * d
     mask = _attn_mask(dev, b, s, packed)
     drop = _drop(rate, 3)
     if layout == "qkv":
         qkv = _rand(dev, b * s, 3 * h, std=0.5, seed=s + d)
         dctx = _rand(dev, b * s, h, std=0.1, seed=s + d + 1)
-        _, st = K.seg_attention(qkv, mask, nh, drop=drop, stats=True)
 
-        def run():
+        def fwd():
+            return K.seg_attention(qkv, mask, nh, drop=drop, stats=True)
+
+        def ref_fwd():
+            return K.seg_attention_reference(qkv, mask, nh, drop, stats=True)
+
+        def run(st):
             return K.seg_attention_bwd(qkv, dctx, mask, st, nh, drop=drop)
 
-        def want():
+        def want(st):
             w = K.seg_attention_bwd_reference(qkv, dctx, mask, st, nh, drop)
             return [w[:, i * h:(i + 1) * h] for i in range(3)]
     else:
         q, k, v, do = _bshd_operands(dev, b, s, nh, d, False, seed=s + d)
         sc = 1.0 / d ** 0.5
-        _, st = K.sb_attention(q, k, v, mask, sc, drop, stats=True)
 
-        def run():
+        def fwd():
+            o, st = K.sb_attention(q, k, v, mask, sc, drop, stats=True)
+            return o.reshape(b * s, h), st
+
+        def ref_fwd():
+            o, st = K.sb_attention_reference(q, k, v, mask, sc, drop,
+                                             stats=True)
+            return o.reshape(b * s, h), st
+
+        def run(st):
             return torch.cat([g.reshape(b * s, h) for g in K.sb_attention_bwd(
                 q, k, v, do, mask, st, sc, drop)], dim=1)
 
-        def want():
-            return K.sb_attention_bwd_reference(q, k, v, do, mask, st, sc,
-                                                drop)
-    n0 = K.seg_attention_bwd_wgmma_launches()
-    got = run()
+        def want(st):
+            return [g.reshape(b * s, h) for g in K.sb_attention_bwd_reference(
+                q, k, v, do, mask, st, sc, drop)]
+
+    def counts():
+        widths = (0, d) if K.attn_instance(d, 1) == "wgmma" else (0,)
+        return [(K.seg_attention_wgmma_launches(w),
+                 K.seg_attention_bwd_wgmma_launches(w)) for w in widths]
+
+    n0 = counts()
+    ctx, st = fwd()
+    got = run(st)
     torch.cuda.synchronize()
-    assert K.seg_attention_bwd_wgmma_launches() - n0 == int(
-        d == 64 and s <= 256)
-    for part, w in enumerate(want()):              # dq, dk, dv
-        _close_rel(got[:, part * h:(part + 1) * h], w.reshape(b * s, h))
-    assert torch.equal(run(), got)
+    rise = (int(K.attn_instance(d, s) == "wgmma"),
+            int(K.attn_instance(d, s, backward=True) == "wgmma"))
+    assert [(f - f0, g - g0) for (f, g), (f0, g0) in zip(counts(), n0)] == (
+        [rise] * len(n0))
+    rctx, rst = ref_fwd()
+    _close(ctx, rctx)
+    torch.testing.assert_close(st, rst, rtol=1e-5, atol=1e-6)
+    for part, w in enumerate(want(st)):            # dq, dk, dv
+        _close_rel(got[:, part * h:(part + 1) * h], w)
+    assert torch.equal(run(st), got)
 
 
 @pytest.mark.parametrize("onehot_k", [True, False])
@@ -706,9 +745,22 @@ def test_attention_backward_regenerates_the_forward_prob_mask(dev, onehot_k):
     With random K too, the backward (the wgmma pair at d = 64) rebuilds
     the forward's scores on the forward's own products: its bf16 probs
     equal the forward's, with no element that differs."""
+    _mask_regenerated(dev, 64, onehot_k)
+
+
+@pytest.mark.parametrize("onehot_k", [True, False])
+def test_d96_backward_regenerates_the_forward_prob_mask(dev, onehot_k):
+    """The same at s = d = 96: the d = 96 wgmma pair rebuilds the d = 96
+    wgmma forward's keep bits and probs, bit for bit."""
+    assert K.attn_instance(96, 96, backward=True) == "wgmma"
+    _mask_regenerated(dev, 96, onehot_k)
+
+
+def _mask_regenerated(dev, d, onehot_k):
+    """One-hot V (and K) at s = d; see the d = 64 test."""
     from nbest_asr_tpu_torch.ops.philox import keep_mask
 
-    b, s, nh, d = 2, 64, 2, 64
+    b, s, nh = 2, d, 2
     h = nh * d
     qkv = _rand(dev, b * s, 3 * h, std=0.5, seed=90)
     eye = torch.eye(s, device=dev, dtype=torch.bfloat16)
