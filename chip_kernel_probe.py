@@ -24,10 +24,11 @@ widened to f32; 4 M random f32 bit patterns; random operands with special
 values, bf16 and f32, at N % 8 == 0 and N % 8 == 4.  ``attn-dump`` saves
 ``seg_attention`` (ctx and the row statistics, with and without the prob
 dropout) and ``seg_attention_bwd`` (dqkv) on fixed inputs at the shapes
-whose kernels a change to the d = 96 instances must leave alone: d = 64 at
-every bucket, ragged lengths and past 256, on the QKV buffer and on (b, s,
-heads, d) tensors; the mma.sync instances at d = 32, 80, 128, 192 and at d
-= 96 past 256.  ``compare`` holds two dumps bit for bit and names the
+whose kernels a change to the d = 192 instances must leave alone: d = 64
+at every bucket, ragged lengths and past 256, on the QKV buffer and on (b,
+s, heads, d) tensors; d = 96 at every bucket (its wgmma pair); the
+mma.sync instances at d = 32, 80, 128, 136 (on the 192-wide instance) and
+at d = 96 and 192 past 256.  ``compare`` holds two dumps bit for bit and names the
 cases that differ.
 """
 
@@ -129,9 +130,11 @@ def gelu_dump(out: str) -> None:
 ATTN_CASES = ([(64, 12, 4, s, "qkv") for s in (64, 96, 130, 160, 256, 300,
                                                512)]
               + [(64, 12, 4, s, "bshd") for s in (160, 256)]
-              + [(96, 8, 4, s, "qkv") for s in (300, 512)]
+              + [(96, 8, 4, s, "qkv") for s in (64, 96, 160, 256, 300,
+                                                512)]
+              + [(96, 8, 4, 256, "bshd"), (192, 4, 4, 300, "qkv")]
               + [(32, 8, 4, 160, "bshd"), (80, 8, 4, 160, "qkv"),
-                 (128, 6, 4, 256, "qkv"), (192, 4, 4, 256, "qkv")])
+                 (128, 6, 4, 256, "qkv"), (136, 4, 4, 256, "qkv")])
 
 
 def attn_dump(out: str) -> None:

@@ -65,7 +65,8 @@ Phases, each fatal on failure:
    1e-6 of its largest value), the backward's regenerated gd equal to the
    forward's; each int8 block on both backwards, forward and seven
    gradients, against the same Function on the kernels' plain versions;
-   the d = 192 and 256 attention instances against their plain versions.
+   the d = 192 and 256 attention instances against their plain versions
+   (d = 192 at 8 x 160 on its wgmma pair, held to the counters).
 6. The training slice: ``make_train_step`` on seed-0 BERT-base weights
    (bf16 compute, f32 masters, dropout 0.1, ``use_fused_ffn=True``,
    ``use_fused_attn=True``) over the synthetic hierarchy, n_accum 2,
@@ -261,15 +262,17 @@ Phases, each fatal on failure:
 18. Head dims past 64 (``phase_head_dims``, run after phase 10).  (a) The
    single-block pair at d = 96 (8 heads) at each training micro of the
    8192-token budget (128 x 64, 80 x 96, 48 x 160, 32 x 256, QKV views),
-   at 4 x 200 (standalone tensors) and 8 x 512, and at d = 48, 80 and 88
-   (the padded 64- and 96-wide mma.sync instances); the tiled trio at d =
-   96 (32 x 1024 x 8), 192, 256 and 48 (8 x 1024); padded and packed
-   masks, dropout 0 and 0.1, against their plain versions under
-   ``Checker``.  Each single-block launch runs on the instance
-   ``kernels.attn_instance`` names: the d = 96 pair on its wgmma
-   kernels at s <= 256, with ``seg_attention_wgmma_launches(96)`` and
-   ``seg_attention_bwd_wgmma_launches(96)`` rising by exactly its
-   launches, and on mma.sync at 512 and at d = 48, 80, 88; the tiled
+   at 4 x 200 (standalone tensors) and 8 x 512, at d = 48, 80 and 88
+   (the padded 64- and 96-wide mma.sync instances), and at d = 192 (the
+   CLI's 4 heads) at each training micro (QKV views and standalone
+   tensors) and at 4 x 300; the tiled trio at d = 96 (32 x 1024 x 8),
+   192, 256 and 48 (8 x 1024); padded and packed masks, dropout 0 and
+   0.1, against their plain versions under ``Checker``.  Each
+   single-block launch runs on the instance ``kernels.attn_instance``
+   names: the d = 96 and d = 192 pairs on their wgmma kernels at s <=
+   256, with ``seg_attention_wgmma_launches(d)`` and
+   ``seg_attention_bwd_wgmma_launches(d)`` rising by exactly their
+   launches, and on mma.sync past 256 and at d = 48, 80, 88; the tiled
    trio on no wgmma kernel.  (b) Device ms of the five at d = 96 (the
    pair at 32 x 256, the trio at 32 x 1024, 8 heads) and of the pair at
    d = 192 (32 x 256 x 4 heads) beside the plain versions, SDPA's
@@ -285,8 +288,9 @@ Phases, each fatal on failure:
    (phase 6's gate); 30 steps on a fixed micro at 160 halve the loss; the
    CLI's from-scratch geometry (4 heads of 192) under ``--no_fused_attn``,
    one counted step at 256 held to the plain step, and its default itself
-   (6 layers, both megakernels, one micro a step), likewise, on no wgmma
-   attention kernel; the tiled leg, the same encoder at 48 x 1024
+   (6 layers, both megakernels, one micro a step), likewise, every
+   single-block launch of both on the d = 192 wgmma counters; the tiled
+   leg, the same encoder at 48 x 1024
    (max_position 1024; at 32 rows JAX's ``_flash_preferred`` leaves 8
    heads to the plain path), one counted step on the tiled kernels held
    to the same step on their plain versions.  Prints step ms and a JSON
@@ -464,19 +468,23 @@ N_ACCUM, TRAIN_STEPS, DROPOUT = 2, 3, 0.1
 # x 2 B = 1.61 GB < 2 GiB, the plain path), at 48 rows it holds (2.42 GB)
 HD, HD_LAYERS, HD_BUCKETS = 96, 4, (96, 160, 256)
 HD_NH = H // HD
-# the single-block pair at d = 96 on its wgmma instances (each training
-# micro of the 8192-token budget, a ragged length on standalone tensors)
-# and on its mma.sync instance past 256; d = 48, 80 and 88 on the padded
-# 64- and 96-wide mma.sync instances
-HD_SB_SHAPES = ((128, 64, HD_NH, HD, True), (80, 96, HD_NH, HD, True),
-                (48, 160, HD_NH, HD, True), (32, 256, HD_NH, HD, True),
-                (4, 200, HD_NH, HD, False), (8, 512, HD_NH, HD, True),
-                (48, 160, 16, 48, False), (48, 160, HD_NH, 80, True),
-                (32, 256, HD_NH, 88, False))
 # the CLI's from-scratch geometry: hidden 768, --n_head 4 (d = 192), 6
 # layers (config.py's defaults), one micro a step (n_accum 1 below 12
 # layers)
 CLI_D, CLI_NH, CLI_LAYERS_DEFAULT = 192, 4, 6
+# the single-block pair at d = 96 on its wgmma instances (each training
+# micro of the 8192-token budget, a ragged length on standalone tensors)
+# and on its mma.sync instance past 256; d = 48, 80 and 88 on the padded
+# 64- and 96-wide mma.sync instances; d = 192 on its wgmma instances
+# (each training micro, both layouts) and its mma.sync instance past 256
+HD_SB_SHAPES = ((128, 64, HD_NH, HD, True), (80, 96, HD_NH, HD, True),
+                (48, 160, HD_NH, HD, True), (32, 256, HD_NH, HD, True),
+                (4, 200, HD_NH, HD, False), (8, 512, HD_NH, HD, True),
+                (48, 160, 16, 48, False), (48, 160, HD_NH, 80, True),
+                (32, 256, HD_NH, 88, False),
+                (128, 64, CLI_NH, CLI_D, True), (80, 96, CLI_NH, CLI_D, False),
+                (48, 160, CLI_NH, CLI_D, True),
+                (32, 256, CLI_NH, CLI_D, False), (4, 300, CLI_NH, CLI_D, True))
 HD_TILED_SHAPES = ((LONG_BATCH, LONG_SEQ, HD_NH, HD), (8, 1024, 4, 192),
                    (8, 1024, 3, 256), (8, 1024, 16, 48))
 HD_LONG_BATCH = 48
@@ -1719,7 +1727,8 @@ def check_wide_heads(K, dev, check):
     """The attention kernels' d = 192 and 256 instances (head dims JAX
     sends to its megakernels, e.g. hidden 384 with 2 heads) against their
     plain versions: forward with prob dropout and statistics, and the
-    backward."""
+    backward; at 8 x 160 the d = 192 pair runs on its wgmma kernels, the
+    d = 256 pair on its mma.sync ones (the wgmma counters say so)."""
     from nbest_asr_tpu_torch.ops.philox import site
 
     gen = torch.Generator().manual_seed(8)
@@ -1732,9 +1741,17 @@ def check_wide_heads(K, dev, check):
             dev, torch.bfloat16)
         mask = masks(b, s, gen, dev)[1]
         drop = site(99, DROPOUT, 3)
+        n0 = attn_wgmma_counts(K)
         ctx, st = K.seg_attention(qkv, mask, nh, drop=drop, stats=True)
         dqkv = K.seg_attention_bwd(qkv, dctx, mask, st, nh, drop=drop)
         torch.cuda.synchronize()
+        got = attn_wgmma_delta(K, n0)
+        want = {k: {w: int(w == d) for w in WGMMA_HEAD_DIMS}
+                for k in ("seg_attention", "seg_attention_bwd")}
+        want["flash_unchanged"] = True
+        if got != want:
+            raise AssertionError(f"d = {d} at {b} x {s}: wgmma launches "
+                                 f"{got}, expected {want}")
         rctx, rst = K.seg_attention_reference(qkv, mask, nh, drop, True)
         check(f"seg_attention d {d}", "seg_attention", ctx, rctx, False)
         check.rel(f"seg_attention d {d} row sum", "seg_attention", st[1],
@@ -2233,13 +2250,17 @@ def flash_library_calls(q, k, v, do, mask):
         qt, kt, vt, attn_mask=same, dropout_p=DROPOUT)), fwd_bwd, bwd
 
 
+# the head dims of the single-block pair's wgmma instances
+WGMMA_HEAD_DIMS = (64, 96, 192)
+
+
 def attn_wgmma_counts(K) -> dict:
     """The attention kernels' wgmma launch counters: the single-block
     pair's by head dim and the tiled trio's."""
     return {"seg_attention": {w: K.seg_attention_wgmma_launches(w)
-                              for w in (64, 96)},
+                              for w in WGMMA_HEAD_DIMS},
             "seg_attention_bwd": {w: K.seg_attention_bwd_wgmma_launches(w)
-                                  for w in (64, 96)},
+                                  for w in WGMMA_HEAD_DIMS},
             "flash": K.flash_wgmma_launches()}
 
 
@@ -2247,7 +2268,7 @@ def attn_wgmma_delta(K, before: dict) -> dict:
     """The single-block pair's launches by head dim since ``before`` (an
     ``attn_wgmma_counts``), and whether the tiled trio's are unchanged."""
     after = attn_wgmma_counts(K)
-    out = {k: {w: after[k][w] - before[k][w] for w in (64, 96)}
+    out = {k: {w: after[k][w] - before[k][w] for w in WGMMA_HEAD_DIMS}
            for k in ("seg_attention", "seg_attention_bwd")}
     out["flash_unchanged"] = after["flash"] == before["flash"]
     return out
@@ -2278,7 +2299,7 @@ def check_sb_pair(K, check, gen, dev, shapes, seed0: int):
                 torch.cuda.synchronize()
                 got = attn_wgmma_delta(K, n0)
                 want = {name: {w: int(i == "wgmma" and w == d)
-                               for w in (64, 96)}
+                               for w in WGMMA_HEAD_DIMS}
                         for name, i in zip(("seg_attention",
                                             "seg_attention_bwd"), inst)}
                 want["flash_unchanged"] = True
@@ -3443,8 +3464,10 @@ def head_dim_times(K, dev, gen, card: str):
 
 def phase_head_dims(dev, card: str, rig):
     """Phase 18 (module docstring).  -> the launch counts of its
-    main-path runs (the steps at 96 / 160 / 256, the d = 192 step and
-    the tiled leg)."""
+    main-path runs (the steps at 96 / 160 / 256, the d = 192 steps and
+    the tiled leg), the largest errors, and the d = 192 pair's {name: (ms,
+    plain ms, library ms, bound ms, bound by, launches of the d = 192
+    runs)}."""
     import dataclasses
 
     from nbest_asr_tpu_torch.models.model import init_model_params
@@ -3459,7 +3482,8 @@ def phase_head_dims(dev, card: str, rig):
 
     gen = torch.Generator().manual_seed(18)
     check = Checker()
-    log(f"[head dims] single-block kernels at d = {HD}, 48, 80 and 88")
+    log(f"[head dims] single-block kernels at d = {HD}, 48, 80, 88 and "
+        f"{CLI_D}")
     check_sb_pair(K, check, gen, dev, HD_SB_SHAPES, 400)
     log(f"[head dims] tiled kernels at d = {HD}, 192, 256 and 48")
     check_tiled_trio(K, check, gen, dev, HD_TILED_SHAPES, 500)
@@ -3534,8 +3558,9 @@ def phase_head_dims(dev, card: str, rig):
     # every single-block launch of these steps is at d = 96, s <= 256:
     # the wgmma pair's, each counted once at its width
     got = attn_wgmma_delta(K, wgmma0)
-    want = {"seg_attention": {64: 0, 96: counts["seg_attention"]},
-            "seg_attention_bwd": {64: 0, 96: counts["seg_attention_bwd"]},
+    want = {"seg_attention": {64: 0, 96: counts["seg_attention"], 192: 0},
+            "seg_attention_bwd": {64: 0, 96: counts["seg_attention_bwd"],
+                                  192: 0},
             "flash_unchanged": True}
     log(f"[head dims] wgmma launches of these steps: {got}")
     if got != want:
@@ -3567,6 +3592,7 @@ def phase_head_dims(dev, card: str, rig):
     # d = 192) under --no_fused_attn, at bucket 256
     enc192 = dataclasses.replace(enc, num_heads=CLI_NH, use_fused_attn=False)
     w0 = attn_wgmma_counts(K)
+    w0_counts = dict(counts)
     got = gate_step("head dims", "d 192 (--n_head 4 --no_fused_attn), seq "
                     "256", cfg, hier, params, enc192,
                     dataclasses.replace(plain_enc, num_heads=CLI_NH),
@@ -3576,8 +3602,7 @@ def phase_head_dims(dev, card: str, rig):
                  for k in got})
     counts = {k: counts[k] + got[k] for k in counts}
     # the CLI's from-scratch default itself: 6 layers of 4 heads of 192
-    # on both megakernels, one micro a step (the single-block pair on its
-    # 192-wide mma.sync instances)
+    # on both megakernels, one micro a step
     enc_cli = dataclasses.replace(enc, num_heads=CLI_NH,
                                   num_layers=CLI_LAYERS_DEFAULT)
     cfg_cli = dataclasses.replace(cfg, encoder=enc_cli)
@@ -3594,10 +3619,18 @@ def phase_head_dims(dev, card: str, rig):
                              for k in got})
     cli_step = {k: got[k] for k in ("seg_attention", "seg_attention_bwd")}
     counts = {k: counts[k] + got[k] for k in counts}
+    # every single-block launch of both d = 192 runs (s = 256) is the d =
+    # 192 wgmma pair's, each counted once at its width
     got = attn_wgmma_delta(K, w0)
-    if got != {"seg_attention": {64: 0, 96: 0},
-               "seg_attention_bwd": {64: 0, 96: 0}, "flash_unchanged": True}:
-        raise AssertionError(f"d = {CLI_D} ran a wgmma kernel: {got}")
+    n192 = {k: v - w0_counts[k] for k, v in counts.items()
+            if k in ("seg_attention", "seg_attention_bwd")}
+    want = {k: {64: 0, 96: 0, CLI_D: n192[k]} for k in n192}
+    want["flash_unchanged"] = True
+    log(f"[head dims] wgmma launches of the d = {CLI_D} runs: {got}")
+    if got != want or not all(n192.values()):
+        raise AssertionError(f"d = {CLI_D}: the single-block launches are "
+                             f"not all on the d = {CLI_D} wgmma pair: {got}, "
+                             f"expected {want}")
     del p_cli
 
     # the tiled leg: the same encoder at 48 x 1024 (max_position 1024)
@@ -3639,7 +3672,11 @@ def phase_head_dims(dev, card: str, rig):
                         "bound_by"), t),
                    launches_a_step=launches_a_step(name), at=at(name))
         for name, t in times.items()}) + f" [{card}]")
-    return counts, check.max_err
+    # the d = 192 pair's rows of the kernels' record: its time at 32 x 256
+    # x 4 heads and its launches in this phase's two d = 192 runs
+    rows192 = {name: (*times[name], n192[name.split()[0]])
+               for name in times if name.endswith(f" d{CLI_D}")}
+    return counts, check.max_err, rows192
 
 
 CLI_SPLITS = {"train": 1024, "valid": 256, "test": 256}
@@ -5013,9 +5050,11 @@ DEVICE_KERNELS = {
     "gemm_dgrad": ("gemm_tma_kernel",),
     "layer_norm": ("layer_norm_kernel",),
     "ffn_bwd_rows": ("ffn_bwd_rows_kernel",),
-    "seg_attention": ("seg_attn_wgmma_kernel", "seg_attention_kernel"),
-    "seg_attention_bwd": ("dq_wgmma_kernel", "dkv_wgmma_kernel",
-                          "dq_kernel", "dkv_kernel"),
+    "seg_attention": ("seg_attn_wgmma_kernel", "seg_attn192_wgmma_kernel",
+                      "seg_attention_kernel"),
+    "seg_attention_bwd": ("dq_wgmma_kernel", "dq96_wgmma_kernel",
+                          "dkv_wgmma_kernel", "dq192_wgmma_kernel",
+                          "dkv192_wgmma_kernel", "dq_kernel", "dkv_kernel"),
 }
 DSTC2_VALUES = {
     "food": ["chinese", "indian", "thai", "italian", "modern european",
@@ -5754,7 +5793,9 @@ def main() -> int:
     # flash_dkv_wgmma_kernel <DROP>) -- and the single-block pair's wgmma
     # instances (seg_attn_wgmma_kernel <NK, NWIN, D, DROP>,
     # dq_wgmma_kernel and dq96_wgmma_kernel <NK, DROP>, dkv_wgmma_kernel
-    # <NK, D, DROP>) must build without spills or such notes, and so must
+    # <NK, D, DROP>; at d = 192 seg_attn192_wgmma_kernel, dq192_wgmma_kernel
+    # and dkv192_wgmma_kernel <NK, DROP>) must build without spills or such
+    # notes, and so must
     # the gradient row pass's (quant_grad_pass_kernel <T, N>: a whole
     # folded row in registers); but for two d = 64 instances that spilled
     # by the same bytes before the d = 96 ones were added (PERF.md section
@@ -5763,7 +5804,9 @@ def main() -> int:
     tma_names = ("gemm_tma_kernel", "flash_fwd_wgmma_kernel",
                  "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
                  "quant_grad_pass_kernel", "seg_attn_wgmma_kernel",
-                 "dq_wgmma_kernel", "dq96_wgmma_kernel", "dkv_wgmma_kernel")
+                 "dq_wgmma_kernel", "dq96_wgmma_kernel", "dkv_wgmma_kernel",
+                 "seg_attn192_wgmma_kernel", "dq192_wgmma_kernel",
+                 "dkv192_wgmma_kernel")
     known_spills = ("seg_attn_wgmma_kernelILi256ELi2ELi64E",
                     "dq_wgmma_kernelILi96ELb1EE")
     tma = {n: [line for line in summary if n in line] for n in tma_names}
@@ -5805,7 +5848,8 @@ def main() -> int:
                            rig, "flash", beside=bf16_ms)
     b_counts, _, _ = timed("train_long", phase_train_long, dev, card,
                            t_times)
-    h_counts, h_err = timed("head_dims", phase_head_dims, dev, card, rig)
+    h_counts, h_err, h_rows = timed("head_dims", phase_head_dims, dev,
+                                    card, rig)
     r_err, r_times, r_bounds = timed("rows_kernels", phase_rows_kernels,
                                      dev, card)
     t_times.update(r_times)
@@ -5846,6 +5890,10 @@ def main() -> int:
                 *s_bounds[name])
         else:                       # a training layer's launches
             row(name, name, launches, *t_times[name], *t_bounds[name])
+    # the d = 192 pair (phase 18): device ms at 32 x 256 x 4 heads, dropout
+    # 0.1; launches: phase 18's d = 192 runs alone
+    for name, (k_ms, p_ms, l_ms, b_ms, b_by, n) in h_rows.items():
+        row(name, name.split()[0], n, k_ms, p_ms, l_ms, b_ms, b_by)
     # the int8 training epilogues of the int8 serving kernels, timed in an
     # int8 training layer; launches: the int8 training runs alone
     for kernel in ("quantize_rows", "gemm_i8_bias_act",
@@ -5871,7 +5919,8 @@ def main() -> int:
         "quality_smoke's and serving_quality's training and serving, "
         "perf_probe's attention and steps) together, the "
         "[train] rows the int8 "
-        "training runs alone; "
+        "training runs alone, the d192 rows phase 18's two d = 192 runs "
+        "(--no_fused_attn and the CLI's from-scratch default) alone; "
         "ms / plain_ms / library_ms / bound_ms: one encoder layer's "
         f"launches of the kernel -- serving at batch {BATCH} x seq "
         f"{BUCKETS[-1]} for the kernels the serving path runs, training at "
@@ -5880,7 +5929,8 @@ def main() -> int:
         "and the [train] rows (int8 forwards and backwards), route B's "
         f"layer ({LONG_BATCH} x {LONG_SEQ}, d 64, dropout 0.1) for the "
         "flash_* rows, a training layer at 8192 rows (one micro for "
-        "embed_lookup, f32 tables) for the five row kernels; ms and "
+        "embed_lookup, f32 tables) for the five row kernels, 32 x 256 x 4 "
+        "heads of 192 (dropout 0.1) for the d192 rows; ms and "
         "library_ms are device time (calls queued behind a sleep) for the "
         "five row kernels, gemm_bias_act, gemm_bias_residual, gemm_dgrad, "
         "seg_attention, seg_attention_bwd, the three flash kernels, "

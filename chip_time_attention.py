@@ -19,8 +19,8 @@ and ``seg_attention`` so at
 ``train_bwd_times``: ``seg_attention_bwd`` at every bucket's training
 micro and on route A's layout, SDPA beside it, the d = 128 attention pair
 and ``layer_norm_rows`` beside ``F.layer_norm``; ``head_dim_times``: the
-single-block pair at d = 96 (8 heads) at every bucket's training micro
-and at d = 192 (4 heads) at 32 x 256, with dropout and statistics, SDPA's
+single-block pair at d = 96 (8 heads) and at d = 192 (4 heads) at every
+bucket's training micro, with dropout and statistics, SDPA's
 forward and backward alone beside it (``d96_ms``, ``d192_ms``); and,
 where it has
 them,
@@ -426,8 +426,8 @@ def train_bwd_times(K, dev, gen, drop, iters: int) -> dict:
 
 def head_dim_times(K, dev, gen, iters: int) -> dict:
     """The single-block pair at the quality tools' head dim (8 heads of
-    96) at each bucket's training micro, and at the CLI's from-scratch d
-    = 192 (4 heads) at 32 x 256: ``sb_attention`` with prob dropout 0.1
+    96) and at the CLI's from-scratch d = 192 (4 heads), each at every
+    bucket's training micro: ``sb_attention`` with prob dropout 0.1
     and row statistics, ``sb_attention_bwd``, SDPA's forward and its
     backward alone (autograd.grad over a retained forward) on the same q,
     k, v views of one QKV buffer, padded mask and dropout rate; [back to
@@ -436,8 +436,8 @@ def head_dim_times(K, dev, gen, iters: int) -> dict:
 
     F = torch.nn.functional
     out = {"d96_ms": {}, "d192_ms": {}}
-    cases = [(96, H // 96, b, s) for s, b in TRAIN_MICRO.items()] + [
-        (192, H // 192, 32, 256)]
+    cases = [(d, H // d, b, s) for d in (96, 192)
+             for s, b in TRAIN_MICRO.items()]
     for d, nh, b, s in cases:
         q, k, v = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
             dev, torch.bfloat16).view(b, s, 3, nh, d).unbind(2)

@@ -5,7 +5,7 @@
 // 64-key tile, the 16-column chunk products of the mma.sync fragments,
 // the Philox keep-bit tables of the stream-3 prob dropout (which the
 // wgmma kernels draw too), and the pieces the wgmma forward and backward
-// share at head dims 64 and 96: swizzled tile copies, the score products,
+// share at head dims 64, 96 and 192: swizzled tile copies, the score products,
 // the score mask, div_row (the division of a prob by its row's sum) and
 // the launch's tiles per block.
 //
@@ -224,7 +224,7 @@ __host__ __device__ __forceinline__ int keep_stride(int S) {
 }
 
 // -------------------------------------------------------------------- //
-// The wgmma kernels' pieces (head dims 64 and 96; seg_attention.cu's
+// The wgmma kernels' pieces (head dims 64, 96 and 192; seg_attention.cu's
 // forward and seg_attention_bwd.cu's backward issue the same score
 // products, so the backward rebuilds the forward's scores bit for bit)
 // -------------------------------------------------------------------- //
@@ -233,9 +233,11 @@ constexpr int WD = 64;             // the 128-byte panel's columns
 constexpr int QT = 64;             // query rows of a warpgroup's tile
 constexpr int QTILE = QT * WD * 2;  // bytes of a swizzled 64 x 64 tile
 
-// A tile of R rows of a head's D columns (D = 64 or 96) lies in shared
-// memory as panels: columns 0-63 128-byte-swizzled (R * 128 bytes), then
-// at D = 96 columns 64-95 64-byte-swizzled (R * 64 bytes).  A 96-column
+// A tile of R rows of a head's D columns (D = 64, 96 or 192) lies in
+// shared memory as panels: columns 0-63 128-byte-swizzled (R * 128 bytes),
+// then at D = 96 columns 64-95 64-byte-swizzled (R * 64 bytes), at D = 192
+// columns 64-127 and 128-191 as two more 128-byte-swizzled panels (a
+// 384-byte row is three whole swizzle atoms).  A 96-column
 // row is 192 bytes, which no one swizzle mode spans; a second 128-byte
 // panel with 32 zero columns would take a third more shared memory (K
 // and V at S = 256: 128 KB against 96 KB, which would leave no room for
@@ -275,20 +277,31 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, const bf16* src,
                   src + (size_t)(ok ? row : 0) * ld + WD + ch * 8, ok);
     }
   }
+  if constexpr (D == 192) {  // panels 1 and 2: 16 more chunks a row
+    for (int c = tid; c < rows * 16; c += nthreads) {
+      const int r = c >> 4, p = 1 + ((c >> 3) & 1), ch = c & 7;
+      const int row = r0 + r;
+      const bool ok = row < S;
+      cp_async_16(dst + p * rows * 128 + swizzle128(r, ch),
+                  src + (size_t)(ok ? row : 0) * ld + p * WD + ch * 8, ok);
+    }
+  }
 }
 
 // Issues (and commits) the scores of the warpgroup's 64 queries (sQt, a
 // 64-row tile) against the NK keys of the window at sKw (panel 0; sKw1
-// its panel 1 at D = 96): thread fragment sc[4 jj + e] = (row 16 warp + g
-// + 8 (e >= 2), key 8 jj + 2 t + (e & 1)).  Per 64-key chunk (and a
-// 32-key tail) the k16 steps run in column order, 4 on panel 0 then 2 on
-// panel 1.  seg_attention_bwd.cu issues its S and dP products through it
-// too (W = 64 or 32 keys at a time, or a warpgroup's share of a window),
-// so each 64-key chunk's scores are the forward's bit for bit.
+// its panel 1 at D = 96; at D = 192 the keys' panels lie kpanel bytes
+// apart): thread fragment sc[4 jj + e] = (row 16 warp + g + 8 (e >= 2),
+// key 8 jj + 2 t + (e & 1)).  Per 64-key chunk (and a 32-key tail) the
+// k16 steps run in column order, 4 on panel 0 then 2 on panel 1 (D = 96)
+// or 4 on panel 1 and 4 on panel 2 (D = 192).  seg_attention_bwd.cu
+// issues its S and dP products through it too (W = 64 or 32 keys at a
+// time, or a warpgroup's share of a window), so each 64-key chunk's
+// scores are the forward's bit for bit.
 template <int NK, int D = WD>
 __device__ __forceinline__ void issue_scores(
     float (&sc)[NK / 2], const unsigned char* sQt, const unsigned char* sKw,
-    const unsigned char* sKw1 = nullptr) {
+    const unsigned char* sKw1 = nullptr, int kpanel = 0) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < WD / 16; ++kk) {
@@ -316,6 +329,22 @@ __device__ __forceinline__ void issue_scores(
         wgmma_ss_n32(sc + 32 * (NK / 64), da,
                      smem_desc64(sKw1 + (NK / 64) * 4096 + kk * 32, 1, 32),
                      1);
+    }
+  }
+  if constexpr (D == 192) {
+#pragma unroll
+    for (int p = 1; p < 3; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < WD / 16; ++kk) {
+        const uint64_t da = smem_desc(sQt + p * QT * 128 + kk * 32, 1, 64);
+        const unsigned char* kp = sKw + p * kpanel + kk * 32;
+#pragma unroll
+        for (int c = 0; c < NK / 64; ++c)
+          wgmma_ss_n64(sc + 32 * c, da, smem_desc(kp + c * 8192, 1, 64), 1);
+        if (NK % 64)
+          wgmma_ss_n32(sc + 32 * (NK / 64), da,
+                       smem_desc(kp + (NK / 64) * 8192, 1, 64), 1);
+      }
     }
   }
   wgmma_commit();

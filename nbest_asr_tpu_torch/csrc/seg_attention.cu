@@ -27,28 +27,38 @@
 // (attention.cuh), so the backward kernels -- and the tiled flash
 // kernels, at any tiling -- regenerate them.
 //
-// Two kernels; the caller names the instance (ops/kernels.py,
+// Three kernels; the caller names the instance (ops/kernels.py,
 // attn_instance: the one rule) and nbk_seg_attention runs it or refuses:
 //   d = 64, S <= 512            the wgmma kernel (every BERT-base, -large,
 //                               RoBERTa and XLM-R head)
 //   d = 96, S <= 256            the wgmma kernel (the quality tools' 8
 //                               heads of 96, every DSTC2 bucket)
+//   d = 192, S <= 256           the d = 192 wgmma kernel (the CLI's
+//                               from-scratch 4 heads of 192, every DSTC2
+//                               bucket)
 //   every other d <= 256 with   the mma.sync kernel, on its instance of
 //   d % 8 == 0                  width 32, 64, 96, 128, 192 or 256 (flash's
-//                               d = 32 single-block route, d = 96 past
-//                               256, the wide heads); a d between two
-//                               widths runs on the wider, its columns
+//                               d = 32 single-block route, d = 96 and 192
+//                               past 256, the wide heads); a d between
+//                               two widths runs on the wider, its columns
 //                               past d zero-filled on load and never
 //                               stored (attention.cuh, instance_width):
-//                               d = 40 .. 56 on the 64-wide instance and
-//                               d = 72 .. 88 on the 96-wide one, which
-//                               run only such padded heads (and d = 96
-//                               at 256 < S <= 512, where its K and V
-//                               would take 192 KB)
+//                               d = 40 .. 56 on the 64-wide instance, d =
+//                               72 .. 88 on the 96-wide one and d = 136 ..
+//                               184 on the 192-wide one
 // and refuses every other shape, and an instance that cannot run the
-// shape (cudaErrorInvalidValue).  d = 128 and 192
-// stay on the mma.sync kernel: their K and V take 128 and 192 KB at S =
-// 256, so they need a design that streams the keys.
+// shape (cudaErrorInvalidValue).  Shared memory bounds the wgmma rows: a
+// block keeps its head's K and V, which at S = 512 take 128 KB at d = 64
+// but 192 KB at d = 96 and 384 KB at d = 192 (and at S = 256 already 192
+// KB at d = 192, beside which one Q tile fits, not two a warpgroup); d =
+// 128 stays on the mma.sync kernel (no DSTC2 configuration runs it).
+//
+// The d = 192 wgmma kernel is the same per tile, on three 128-byte-
+// swizzled panels (columns 0-63, 64-127, 128-191: 12 k16 steps a score,
+// 3 m64n64k16 P.V products a k16 step), with K and V resident (192 KB at
+// S = 256) and one Q buffer that the block's two warpgroups take turns on
+// (seg_attn192_wgmma_kernel): one block of eight warps an SM, whose
+// softmax instructions' latency, not their count, sets its pace.
 //
 // The wgmma kernel.  A block owns one (element, head) and a run of its
 // 64-query tiles; it copies that head's whole K and V (S <= 512 keys at d
@@ -149,7 +159,8 @@ __device__ __forceinline__ void exp_scores(float (&sc)[NK / 2], float ma,
 // word0 the window's first word), rounded to bf16 in registers -- the A
 // fragments of the NK / 16 k-steps -- times the window's V (sVw, and sVw1
 // its panel 1 at D = 96): issues and commits o (+)= P V, o's columns 0-63
-// as m64n64k16, 64-95 as m64n32k16.
+// as m64n64k16, 64-95 as m64n32k16; at D = 192 columns 64-127 and 128-191
+// as m64n64k16 on the panels NK * 128 bytes on.
 template <int NK, int D, bool DROP>
 __device__ __forceinline__ void probs_times_v(
     const float (&sc)[NK / 2], float (&o)[D / 2], const unsigned char* sVw,
@@ -193,6 +204,15 @@ __device__ __forceinline__ void probs_times_v(
     for (int j = 0; j < NK / 16; ++j)  // panel 1: 1024 bytes a step
       wgmma_rs_n32(o + 32, pa + 4 * j, smem_desc64(sVw1 + j * 1024, 1, 32),
                    accumulate || j > 0);
+  }
+  if constexpr (D == 192) {
+#pragma unroll
+    for (int p = 1; p < 3; ++p)
+#pragma unroll
+      for (int j = 0; j < NK / 16; ++j)
+        wgmma_rs_n64(o + 32 * p, pa + 4 * j,
+                     smem_desc(sVw + p * NK * 128 + j * 2048, 512, 64),
+                     accumulate || j > 0);
   }
   wgmma_commit();
 }
@@ -345,7 +365,7 @@ __global__ void __launch_bounds__(Shape<NK, NWIN, D>::THREADS,
   }
 }
 
-long long wgmma_launches[2] = {0, 0};  // at d = 64, 96; host side
+long long wgmma_launches[3] = {0, 0, 0};  // at d = 64, 96, 192; host side
 
 template <int NK, int NWIN, int D, bool DROP>
 int launch_wgmma(const void* q, const void* k, const void* v, int ld,
@@ -398,6 +418,196 @@ int launch_wgmma_s(const void* q, const void* k, const void* v, int ld,
   if constexpr (D == 64)
     if (S <= 512) NBK_WGMMA(256, 2);
 #undef NBK_WGMMA
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------- //
+// The wgmma kernel at d = 192, S <= 256
+// ---------------------------------------------------------------------- //
+
+// A d = 192 block's shape for NK-key windows (NK a multiple of 32, <= 256):
+// 1024-byte alignment slack, K and V (three 128-byte-swizzled panels
+// each), one Q tile the two warpgroups take turns on, the key segment ids,
+// a keep table a warpgroup: 222.5 KB at NK = 256, one block an SM.
+template <int NK>
+struct Shape192 {
+  static constexpr int ROWB = 192 * 2;   // bytes of a row, three panels
+  static constexpr int QTB = QT * ROWB;  // bytes of a Q tile
+  static constexpr int WORDS = NK / 32;
+  static constexpr int KSTRIDE = WORDS | 1;
+  static constexpr int SMEM =
+      1024 + 2 * NK * ROWB + QTB + NK * 4 + 2 * QT * KSTRIDE * 4;
+};
+
+// The Q buffer's hand-over between the two warpgroups, which take the
+// block's query tiles in turn: the warpgroup whose score product has read
+// the buffer arrives at the other's barrier (named barrier 3 + the
+// other's index), the other waits there before it fills the buffer.  One
+// barrier a direction, so that a warpgroup's next arrival can never count
+// toward a hand-over the other has not yet waited for.
+__device__ __forceinline__ void q_free_arrive(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - wg) : "memory");
+}
+__device__ __forceinline__ void q_free_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory");
+}
+
+// One block: (element, head) = (blockIdx.z, blockIdx.y), query tiles t0 =
+// blockIdx.x * tpb .. (+ tpb, at most ceil(S / 64)); warpgroup w takes
+// tiles t0 + w, t0 + w + 2, ...  K and V of the head stay in shared
+// memory; the tiles' Q pass through one buffer (K, V and two Q tiles a
+// warpgroup, as at d = 96, would take 288 KB): a warpgroup copies its
+// tile's Q once the other's score product is done with the previous one,
+// so the two run half a tile apart, one's softmax beside the other's
+// products.
+template <int NK, bool DROP>
+__global__ void __launch_bounds__(256, 1)
+    seg_attn192_wgmma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, int ld,
+                             const float* __restrict__ mask,
+                             bf16* __restrict__ ctx,
+                             float* __restrict__ stats, int S, int tpb,
+                             float sm_scale, DropParams drop) {
+  constexpr int D = 192;
+  using Sh = Shape192<NK>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sK =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sV = sK + NK * Sh::ROWB;
+  unsigned char* sQ = sV + NK * Sh::ROWB;
+  float* sM = reinterpret_cast<float*>(sQ + Sh::QTB);
+  unsigned* sKeep = reinterpret_cast<unsigned*>(sM + NK);
+
+  const int head = blockIdx.y, elem = blockIdx.z, n_heads = gridDim.y;
+  const int t0 = blockIdx.x * tpb;
+  const int t_end = min((S + QT - 1) / QT, t0 + tpb);
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * n_heads + head) * S;  // Philox row of query 0
+  const int H = n_heads * D;
+  const size_t off = row0 * ld + head * D;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  unsigned* keep = sKeep + wg * QT * Sh::KSTRIDE;
+
+  // the key segment ids (NaN past S: such a key matches no query), K, V
+  // and the first tile's Q
+  for (int j = threadIdx.x; j < NK; j += 256)
+    sM[j] = j < S ? mask[row0 + j] : __int_as_float(0x7fc00000);
+  copy_rows<D>(sK, k + off, ld, 0, NK, S, threadIdx.x, 256);
+  copy_rows<D>(sV, v + off, ld, 0, NK, S, threadIdx.x, 256);
+  copy_rows<D>(sQ, q + off, ld, t0 * QT, QT, S, threadIdx.x, 256);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  const int lane = tid & 31, w4 = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int ra = w4 * 16 + g;  // this thread's first row of the tile
+  const size_t bhs = (size_t)gridDim.z * n_heads * S;
+  float sc[NK / 2], o[D / 2];
+  for (int t = t0 + wg; t < t_end; t += 2) {
+    if (t > t0) {  // the other warpgroup's product has read tile t - 1
+      q_free_wait(wg);
+      copy_rows<D>(sQ, q + off, ld, t * QT, QT, S, tid, 128);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      warpgroup_sync(wg);
+    }
+    const int q0 = t * QT, qa = q0 + ra, qb = qa + 8;
+    // a query row past S matches no key; its output is never stored
+    const float qma = qa < S ? sM[qa] : __int_as_float(0x7fc00000);
+    const float qmb = qb < S ? sM[qb] : __int_as_float(0x7fc00000);
+    float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
+    // fresh bases: the tile loop would otherwise hold the products' loop-
+    // invariant descriptors in registers beside the scores
+    issue_scores<NK, D>(sc, fresh(sQ), fresh(sK), nullptr, NK * 128);
+    if (DROP)  // the tile's keep bits while the product runs
+      build_keep(keep, QT, Sh::WORDS, Sh::KSTRIDE, drop, prow0 + q0, 0, tid,
+                 128);
+    wgmma_wait<0>();
+    fence_acc(sc);
+    if (t + 1 < t_end) q_free_arrive(wg);  // the Q buffer is the other's
+    if (DROP) warpgroup_sync(wg);          // the keep table is complete
+    mask_scores<NK>(sc, sM, qma, qmb, sm_scale, t4, ma, mb);
+    ma = quad_max(ma);
+    mb = quad_max(mb);
+    exp_scores<NK>(sc, ma, mb, la, lb);
+    la = quad_sum(la);
+    lb = quad_sum(lb);
+    probs_times_v<NK, D, DROP>(sc, o, fresh(sV), nullptr, la, lb, keep,
+                               Sh::KSTRIDE, ra, 0, drop, t4, false);
+    wgmma_wait<0>();
+    fence_acc(o);
+    if (stats != nullptr && t4 == 0) {
+      if (qa < S) {
+        stats[prow0 + qa] = ma;
+        stats[bhs + prow0 + qa] = la;
+      }
+      if (qb < S) {
+        stats[prow0 + qb] = mb;
+        stats[bhs + prow0 + qb] = lb;
+      }
+    }
+    // o[4 jj + e]: columns 8 jj + 2 t (+ 1), the three panels' m64n64
+    // accumulators in order
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const int col = head * D + jj * 8 + 2 * t4;
+      if (qa < S)
+        *reinterpret_cast<unsigned*>(ctx + (row0 + qa) * H + col) =
+            pack_bf16x2(o[4 * jj], o[4 * jj + 1]);
+      if (qb < S)
+        *reinterpret_cast<unsigned*>(ctx + (row0 + qb) * H + col) =
+            pack_bf16x2(o[4 * jj + 2], o[4 * jj + 3]);
+    }
+  }
+}
+
+template <int NK, bool DROP>
+int launch_wgmma192(const void* q, const void* k, const void* v, int ld,
+                    const float* mask, void* ctx, float* stats, int B, int S,
+                    int n_heads, float sm_scale, const DropParams& drop,
+                    cudaStream_t stream) {
+  using Sh = Shape192<NK>;
+  static int per_sm = 0;  // blocks an SM runs
+  if (per_sm == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        seg_attn192_wgmma_kernel<NK, DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, seg_attn192_wgmma_kernel<NK, DROP>, 256, Sh::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int n_qt = (S + QT - 1) / QT;
+  const int tpb = tiles_per_block(n_qt, B * n_heads, per_sm * sm_count(), 2);
+  dim3 grid((n_qt + tpb - 1) / tpb, n_heads, B);
+  seg_attn192_wgmma_kernel<NK, DROP><<<grid, 256, Sh::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), ld, mask, static_cast<bf16*>(ctx), stats,
+      S, tpb, sm_scale, drop);
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++wgmma_launches[2];
+  return (int)e;
+}
+
+template <bool DROP>
+int launch_wgmma192_s(const void* q, const void* k, const void* v, int ld,
+                      const float* mask, void* ctx, float* stats, int B,
+                      int S, int n_heads, float sm_scale,
+                      const DropParams& drop, cudaStream_t st) {
+#define NBK_WGMMA192(NK)                                                  \
+  return launch_wgmma192<NK, DROP>(q, k, v, ld, mask, ctx, stats, B, S,    \
+                                   n_heads, sm_scale, drop, st)
+  if (S <= 64) NBK_WGMMA192(64);
+  if (S <= 96) NBK_WGMMA192(96);
+  if (S <= 128) NBK_WGMMA192(128);
+  if (S <= 160) NBK_WGMMA192(160);
+  if (S <= 192) NBK_WGMMA192(192);
+  if (S <= 256) NBK_WGMMA192(256);
+#undef NBK_WGMMA192
   return (int)cudaErrorInvalidValue;
 }
 
@@ -622,11 +832,11 @@ extern "C" {
 // q | k | v column blocks of one (B*S, 3h) QKV buffer (ld = 3h), or
 // (B, S, n_heads, d) tensors (ld = n_heads * d); mask (B, S) f32 segment
 // ids -> ctx (B*S, n_heads * d) bf16, on the instance the caller names:
-// 0, the wgmma kernel (d = 64 with S <= 512, d = 96 with S <= 256), or
-// the width of a mma.sync instance (32, 64, 96, 128, 192 or 256, at least
-// d, any d % 8 == 0); any other instance, d or S is refused.  stats, if
-// not null, is (2, B, n_heads, S) f32 and receives
-// each row's max and sum of exp.  Prob dropout when drop_on (seed,
+// 0, the wgmma kernel (d = 64 with S <= 512, d = 96 or 192 with S <=
+// 256), or the width of a mma.sync instance (32, 64, 96, 128, 192 or 256,
+// at least d, any d % 8 == 0); any other instance, d or S is refused.
+// stats, if not null, is (2, B, n_heads, S) f32 and receives each row's
+// max and sum of exp.  Prob dropout when drop_on (seed,
 // stream, thresh, inv_keep as in philox.cuh).
 int nbk_seg_attention(const void* q, const void* k, const void* v, int ld,
                       const float* mask, void* ctx, float* stats, int B,
@@ -647,6 +857,13 @@ int nbk_seg_attention(const void* q, const void* k, const void* v, int ld,
   if (instance == 0) {  // S past the kernel's windows is refused there
     if (d == WD) NBK_WGMMA_S(64);
     if (d == 96) NBK_WGMMA_S(96);
+    if (d == 192)
+      return drop.on ? launch_wgmma192_s<true>(q, k, v, ld, mask, ctx, stats,
+                                               B, S, n_heads, sm_scale, drop,
+                                               s)
+                     : launch_wgmma192_s<false>(q, k, v, ld, mask, ctx,
+                                                stats, B, S, n_heads,
+                                                sm_scale, drop, s);
     return (int)cudaErrorInvalidValue;
   }
 #undef NBK_WGMMA_S
@@ -667,13 +884,14 @@ int nbk_seg_attention(const void* q, const void* k, const void* v, int ld,
   return (int)cudaErrorInvalidValue;
 }
 
-// Launches of the wgmma kernel since the library was loaded, at head dim
-// d (64 or 96; 0: both; -1 for any other d): which instance ran.
+// Launches of the wgmma kernels since the library was loaded, at head dim
+// d (64, 96 or 192; 0: all three; -1 for any other d): which instance ran.
 long long nbk_seg_attention_wgmma_launches(int d) {
-  return d == 64 ? wgmma_launches[0]
-         : d == 96 ? wgmma_launches[1]
-         : d == 0  ? wgmma_launches[0] + wgmma_launches[1]
-                   : -1;
+  return d == 64    ? wgmma_launches[0]
+         : d == 96  ? wgmma_launches[1]
+         : d == 192 ? wgmma_launches[2]
+         : d == 0   ? wgmma_launches[0] + wgmma_launches[1] + wgmma_launches[2]
+                    : -1;
 }
 
 }  // extern "C"

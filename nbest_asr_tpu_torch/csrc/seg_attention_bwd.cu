@@ -31,20 +31,24 @@
 // dkv kernel per (element, head, 64-key tile), queries innermost
 // (flash_attention.py:226 _bwd_dkv_kernel), which reads it.
 //
-// Two pairs; the caller names the instance (ops/kernels.py,
+// Three pairs; the caller names the instance (ops/kernels.py,
 // attn_instance: the one rule) and nbk_seg_attention_bwd runs it or
 // refuses:
 //   d = 64 or 96, S <= 256  the wgmma pair (every DSTC2 bucket: 64, 96,
 //                           160, 256)
-//   d = 64 or 96,           the mma.sync pair (a wgmma dq kernel there
+//   d = 192, S <= 256       the d = 192 wgmma pair (section 4; the CLI's
+//                           from-scratch heads, every DSTC2 bucket)
+//   d = 64, 96 or 192,      the mma.sync pair (a wgmma dq kernel there
 //   256 < S <= 512          would need the forward's two key windows; at
-//                           d = 96 K and V would take 192 KB)
+//                           d = 96 K and V would take 192 KB, at d = 192
+//                           K alone 192 KB)
 //   every other d <= 256    the mma.sync pair, on its instance of width
 //   with d % 8 == 0         32, 64, 96, 128, 192 or 256 (attention.cuh,
 //                           instance_width: a d between two widths runs
 //                           on the wider, its columns past d zero-filled
 //                           on load and never stored; d = 40 .. 56 on the
-//                           64-wide pair, 72 .. 88 on the 96-wide one)
+//                           64-wide pair, 72 .. 88 on the 96-wide one,
+//                           136 .. 184 on the 192-wide one)
 //
 // The wgmma pair (section 3).  The dq kernel holds the head's K and V (the
 // forward's NK-key window, NK = S rounded up to 32) and its tile's Q and
@@ -79,6 +83,22 @@
 // elementwise instructions per (query, key) -- mask, expf, div_row, keep
 // bit, the two drops, di and ds, some 40 a pair in each kernel -- issued
 // by one or two warpgroups a block, one to three blocks an SM.
+//
+// The d = 192 pair (section 4): three 128-byte-swizzled panels a row
+// (384 bytes), two warpgroups a block in both kernels, one block an SM.
+// The dq kernel keeps the head's K (96 KB at S = 256) but not V -- K, V,
+// Q and dO would take 240 KB -- so each warpgroup streams its half of the
+// keys' V through a 64-key slot, and keeps its half's probs and dP in
+// registers as the d = 96 kernel does (S, dP and dq here; S, dP, dV and
+// dK in the dkv kernel: 7 s*s*d products a head).  The dkv
+// kernel splits the work by accumulator, not by rows: one warpgroup
+// issues S, rebuilds p and accumulates dV, the other issues dP, forms ds
+// and accumulates dK (96 f32 registers each, where one warpgroup holding
+// both spills), p passing between them through shared memory.  One block
+// of eight warps an SM leaves the elementwise instructions' latency, and
+// each tile's copies issued on the warpgroups' own paths, to bound both
+// kernels: the dkv kernel's dS warpgroup issues the next tile's copies
+// while the other rebuilds p (16-23% off the dkv kernel on the H100).
 //
 // The mma.sync pair (sections 1 and 2): each warp owns 16 rows and works
 // in 16-column chunks, so registers hold only the row block's fragments
@@ -687,8 +707,9 @@ __global__ void __launch_bounds__(128, BwdShape<NK, 64>::DQ_BLOCKS)
   }
 }
 
-// Barrier of a d = 96 dq block's two warpgroups (named barrier 3, 256
-// threads), which they reach from their own code paths.
+// Barrier of the two warpgroups of a d = 96 dq block or a d = 192 block
+// (named barrier 3, 256 threads), which they reach from their own code
+// paths.
 __device__ __forceinline__ void pair_sync() {
   asm volatile("bar.sync 3, 256;\n" ::: "memory");
 }
@@ -1118,7 +1139,477 @@ __global__ void __launch_bounds__(128, BwdShape<NK, D>::DKV_BLOCKS)
   }
 }
 
-long long wgmma_launches[2] = {0, 0};  // the wgmma pair at d = 64, 96
+// -------------------------------------------------------------------- //
+// 4. The wgmma pair at d = 192, S <= 256
+// -------------------------------------------------------------------- //
+
+template <int NK>
+struct Bwd192 {
+  static constexpr int D = 192;
+  static constexpr int ROWB = D * 2;          // bytes of a row, 3 panels
+  static constexpr int QTB = QT * ROWB;       // bytes of a 64-row tile
+  static constexpr int NQ = (NK + 63) / 64 * 64;
+  static constexpr int WORDS = NK / 32;       // keep words of a query row
+  static constexpr int KSTRIDE = WORDS | 1;   // odd: rows in other banks
+  // the dq kernel's first warpgroup's keys: the first half of the
+  // window's 64-key chunks (rounded up); the second takes the rest and
+  // the 32-key tail
+  static constexpr int KW0 = (NK / 64 + 1) / 2 * 64;
+  // dq: 1024-byte alignment slack, K, the Q and dO tiles, a 64-key V slot
+  // a warpgroup (which then carry the dq sums the warpgroups hand each
+  // other, 48 f32 a thread), the key segment ids, the di halves, the
+  // tile's keep table: 196.75 KB at NK = 256
+  static constexpr int DQ_SMEM = 1024 + NK * ROWB + 4 * QTB + NK * 4 +
+                                 2 * QT * 4 + QT * KSTRIDE * 4;
+  // dkv: slack, two Q and two dO tiles, the K and V tiles, the P and dS
+  // tiles (bf16 64 x 64), p (f32 64 x 64), the segment ids, each query's
+  // m, l, 1 / l and di, the keep table (2 words a query): 184 KB
+  static constexpr int DKV_SMEM = 1024 + 6 * QTB + 2 * QTILE + QT * QT * 4 +
+                                  NQ * 4 + 4 * NQ * 4 + NQ * 2 * 4;
+};
+
+// One warpgroup's part of a d = 192 dq block (WG 0: keys 0 .. KW0 - 1,
+// WG 1: KW0 .. NK - 1; whole 64-key chunks of the forward's window from
+// its first key, and the 32-key tail, so its scores are the forward's
+// bits), over the block's query tiles t0 .. t_end - 1.  Per tile: S = Q
+// K^T for its keys from the resident K, p rebuilt in registers; dP = dO
+// V^T through its 64-key V slot, one piece of at most 64 keys at a time
+// (the first copied while the last tile ended), dropped, kept in
+// registers beside p (half a window each: KW / 2 + KW / 2 a thread), so
+// dP is computed once; the halves of di = rowsum(dp * p) meet in sDi
+// (half 0 + half 1 in both warpgroups); ds packed in registers is the A
+// operand of this half's dq = ds K (three m64n64k16 a k16 step, one a
+// panel), and the halves meet in sRed, over both V slots: each warpgroup
+// sums and stores 96 of dq's 192 columns.  The next tile's Q is copied
+// once both score products are done, its dO once both dP products are,
+// its first V piece once the sums are read.
+template <int NK, int WG, bool DROP>
+__device__ __forceinline__ void dq192_role(
+    const bf16* __restrict__ q_src, const bf16* __restrict__ v_src,
+    const bf16* __restrict__ o_src, int ld, int H, unsigned char* sQ,
+    unsigned char* sO, const unsigned char* sK, unsigned char* sVs,
+    const float* sM, unsigned* keep, float* sDi,
+    const float* __restrict__ stats, float* __restrict__ di,
+    bf16* __restrict__ dq, size_t row0, int prow0, size_t bhs, int ld_g,
+    int col0, int t0, int t_end, int S, float sm_scale,
+    const DropParams& drop) {
+  using Sh = Bwd192<NK>;
+  constexpr int D = 192;
+  constexpr int K0 = WG ? Sh::KW0 : 0, KW = WG ? NK - Sh::KW0 : Sh::KW0;
+  // the V pieces' keys (KW <= 128), this thread's probs and dP
+  constexpr int W0 = KW < 64 ? KW : 64, W1 = KW - W0;
+  constexpr int N = KW > 0 ? KW / 2 : 1;
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ra = (tid >> 5) * 16 + g;
+  const float nan = __int_as_float(0x7fc00000);
+  unsigned char* slot = sVs + WG * Sh::QTB;
+  float* sRed = reinterpret_cast<float*>(sVs);
+  for (int t = t0; t < t_end; ++t) {
+    const int q0 = t * QT, qa = q0 + ra, qb = qa + 8;
+    float sc[N], dp[N], acc[D / 2];
+    if constexpr (KW > 0)
+      issue_scores<KW, D>(sc, sQ, fresh(sK) + K0 * 128, nullptr, NK * 128);
+    if (DROP)  // the tile's keep bits while the products run
+      build_keep(keep, QT, Sh::WORDS, Sh::KSTRIDE, drop, prow0 + q0, 0,
+                 threadIdx.x, 256);
+    // a query row past S matches no key, and m = 0 makes its p 0
+    const float qma = qa < S ? sM[qa] : nan, qmb = qb < S ? sM[qb] : nan;
+    const float ma = qa < S ? stats[prow0 + qa] : 0.f;
+    const float mb = qb < S ? stats[prow0 + qb] : 0.f;
+    const float la = qa < S ? stats[bhs + prow0 + qa] : 1.f;
+    const float lb = qb < S ? stats[bhs + prow0 + qb] : 1.f;
+    if constexpr (KW > 0) {
+      wgmma_wait<0>();
+      fence_acc(sc);
+    }
+    pair_sync();  // both score products are done; the keep table is full
+    if (t + 1 < t_end)
+      copy_rows<D>(sQ, q_src, ld, (t + 1) * QT, QT, S, threadIdx.x, 256);
+    cp_async_commit();
+    float da = 0.f, db = 0.f;
+    if constexpr (KW > 0) {
+      float xa = -INFINITY, xb = -INFINITY;  // row maxima: the saved ones
+      mask_scores<KW>(sc, sM + K0, qma, qmb, sm_scale, t4, xa, xb);
+      rebuild_probs<KW / 2>(sc, ma, mb, la, lb, __frcp_rn(la), __frcp_rn(lb));
+      cp_async_wait<1>();  // the first V piece has landed
+      fence_proxy_async();
+      warpgroup_sync(WG);
+      issue_scores<W0, D>(*reinterpret_cast<float(*)[W0 / 2]>(dp), sO,
+                          fresh(slot), nullptr, QT * 128);
+      wgmma_wait<0>();
+      if constexpr (W1 > 0) {
+        warpgroup_sync(WG);  // every warp's product has read the slot
+        copy_rows<D>(slot, v_src, ld, K0 + 64, QT, S, tid, 128);
+        cp_async_commit();
+        cp_async_wait<0>();
+        fence_proxy_async();
+        warpgroup_sync(WG);
+        issue_scores<W1, D>(*reinterpret_cast<float(*)[W1 / 2]>(dp + 32), sO,
+                            fresh(slot), nullptr, QT * 128);
+        wgmma_wait<0>();
+      }
+      fence_acc(dp);
+      drop_frag<W0, DROP>(dp, keep, Sh::KSTRIDE, ra, K0, t4, drop.inv_keep);
+      if constexpr (W1 > 0)
+        drop_frag<W1, DROP>(dp + 32, keep, Sh::KSTRIDE, ra, K0 + 64, t4,
+                            drop.inv_keep);
+#pragma unroll
+      for (int i = 0; i < KW / 2; ++i) {
+        if (i & 2)
+          db = fmaf(dp[i], sc[i], db);
+        else
+          da = fmaf(dp[i], sc[i], da);
+      }
+      da = quad_sum(da);
+      db = quad_sum(db);
+    }
+    if (t4 == 0) {
+      sDi[WG * QT + ra] = da;
+      sDi[WG * QT + ra + 8] = db;
+    }
+    pair_sync();  // di's halves are written; both dP products are done
+    da = sDi[ra] + sDi[QT + ra];
+    db = sDi[ra + 8] + sDi[QT + ra + 8];
+    if (WG == 0 && t4 == 0) {
+      if (qa < S) di[prow0 + qa] = da;
+      if (qb < S) di[prow0 + qb] = db;
+    }
+    if (t + 1 < t_end)
+      copy_rows<D>(sO, o_src, H, (t + 1) * QT, QT, S, threadIdx.x, 256);
+    cp_async_commit();
+    if constexpr (KW > 0) {
+      // ds = bf16(p (dp - di) sm_scale) of every key, packed as the A
+      // fragments of this half's dq = ds K
+      unsigned dsa[KW / 4];
+#pragma unroll
+      for (int i = 0; i < KW / 2; i += 2) {
+        const float dd = (i & 2) ? db : da;
+        dsa[i / 2] = pack_bf16x2(
+            __fmul_rn(__fmul_rn(sc[i], __fsub_rn(dp[i], dd)), sm_scale),
+            __fmul_rn(__fmul_rn(sc[i + 1], __fsub_rn(dp[i + 1], dd)),
+                      sm_scale));
+      }
+      const unsigned char* sKp = fresh(sK) + K0 * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int j = 0; j < KW / 16; ++j)  // 16 keys of K: 2048 bytes
+          wgmma_rs_n64(acc + 32 * p, dsa + 4 * j,
+                       smem_desc(sKp + p * NK * 128 + j * 2048, 512, 64), j);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    }
+    // the halves meet: each warpgroup hands the other the dq sums of the
+    // columns it does not store (the first stores columns 0-95, the
+    // second 96-191) and adds the other's to its own (a + b: the same
+    // bits either way round)
+    constexpr int HALF = D / 4;  // 48 sums a thread
+    constexpr int mine = WG * HALF, theirs = HALF - mine;
+#pragma unroll
+    for (int j = 0; j < HALF; ++j)
+      sRed[(WG * HALF + j) * 128 + tid] = acc[theirs + j];
+    pair_sync();
+#pragma unroll
+    for (int j = 0; j < HALF; ++j)
+      acc[mine + j] += sRed[((1 - WG) * HALF + j) * 128 + tid];
+#pragma unroll
+    for (int jj = 0; jj < D / 16; ++jj) {
+      const int j4 = mine + 4 * jj;
+      const int col = col0 + 2 * j4 + 2 * t4;
+      if (qa < S)
+        *reinterpret_cast<unsigned*>(dq + (row0 + qa) * ld_g + col) =
+            pack_bf16x2(acc[j4], acc[j4 + 1]);
+      if (qb < S)
+        *reinterpret_cast<unsigned*>(dq + (row0 + qb) * ld_g + col) =
+            pack_bf16x2(acc[j4 + 2], acc[j4 + 3]);
+    }
+    pair_sync();  // the sums are read: the V slots are free
+    if (KW > 0 && t + 1 < t_end)
+      copy_rows<D>(slot, v_src, ld, K0, QT, S, tid, 128);
+    cp_async_commit();
+    cp_async_wait<1>();  // the next tile's Q and dO have landed
+    fence_proxy_async();
+    pair_sync();
+  }
+}
+
+// The dq kernel at d = 192: one block per (element, head) and a run of its
+// 64-query tiles; its two warpgroups keep the head's K (96 KB at S = 256)
+// and split each tile's keys (dq192_role).  K and V resident, as at d =
+// 96, and a Q and a dO tile would take 240 KB: V passes through a 64-key
+// slot a warpgroup instead, read once a tile.
+template <int NK, bool DROP>
+__global__ void __launch_bounds__(256, 1)
+    dq192_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, int ld,
+                       const bf16* __restrict__ dctx,
+                       const float* __restrict__ mask,
+                       const float* __restrict__ stats,
+                       float* __restrict__ di, bf16* __restrict__ dq,
+                       int ld_g, int S, int tpb, float sm_scale,
+                       DropParams drop) {
+  constexpr int D = 192;
+  using Sh = Bwd192<NK>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sK =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = sK + NK * Sh::ROWB;
+  unsigned char* sO = sQ + Sh::QTB;  // dO
+  unsigned char* sVs = sO + Sh::QTB;  // the warpgroups' V slots
+  float* sM = reinterpret_cast<float*>(sVs + 2 * Sh::QTB);
+  float* sDi = sM + NK;  // each warpgroup's half of di, per row
+  unsigned* keep = reinterpret_cast<unsigned*>(sDi + 2 * QT);
+
+  const int head = blockIdx.y, elem = blockIdx.z, n_heads = gridDim.y;
+  const int H = n_heads * D;
+  const int t0 = blockIdx.x * tpb;
+  const int t_end = min((S + QT - 1) / QT, t0 + tpb);
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * n_heads + head) * S;  // Philox row of query 0
+  const size_t bhs = (size_t)gridDim.z * n_heads * S;
+  const size_t off = row0 * ld + head * D;
+  const bf16* o_src = dctx + row0 * H + head * D;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+
+  // key segment ids (NaN past S: such a key matches no query), K, the
+  // first tile's Q and dO; then each warpgroup's first V piece
+  for (int j = threadIdx.x; j < NK; j += 256)
+    sM[j] = j < S ? mask[row0 + j] : __int_as_float(0x7fc00000);
+  copy_rows<D>(sK, k + off, ld, 0, NK, S, threadIdx.x, 256);
+  copy_rows<D>(sQ, q + off, ld, t0 * QT, QT, S, threadIdx.x, 256);
+  copy_rows<D>(sO, o_src, H, t0 * QT, QT, S, threadIdx.x, 256);
+  cp_async_commit();
+  if (wg == 0 || NK > Sh::KW0)
+    copy_rows<D>(sVs + wg * Sh::QTB, v + off, ld, wg * Sh::KW0, QT, S, tid,
+                 128);
+  cp_async_commit();
+  cp_async_wait<1>();
+  fence_proxy_async();
+  __syncthreads();
+#define NBK_DQ192_ROLE(WG)                                                   \
+  dq192_role<NK, WG, DROP>(q + off, v + off, o_src, ld, H, sQ, sO, sK, sVs, \
+                           sM, keep, sDi, stats, di, dq, row0, prow0, bhs,  \
+                           ld_g, head * D, t0, t_end, S, sm_scale, drop)
+  if (wg == 0)
+    NBK_DQ192_ROLE(0);
+  else
+    NBK_DQ192_ROLE(1);
+#undef NBK_DQ192_ROLE
+}
+
+// One warpgroup's part of a d = 192 dkv block, over the head's query
+// tiles for the block's W keys (64, or 32 for the window's last 32 when
+// NK % 64 == 32): the first (WG 0) issues S = Q K^T and rebuilds p, hands
+// p over in sPf (f32, in its fragment order) and writes drop(p) as bf16
+// into sP, then accumulates dV += drop(p)^T dO; the second issues dP =
+// dO V^T, drops it, and with the first's p writes ds as bf16 into sS, then
+// accumulates dK += ds^T Q (both on the forward's wgmma sequence with the
+// tile's queries as rows; the dV and dK products read both operands
+// MN-major from shared memory, three m64n64k16 a k16 step).  Each keeps
+// one 64 x 192 f32 accumulator, 96 registers a thread, where one
+// warpgroup holding both (the 192-wide mma.sync kernel's design) spills.
+// The second copies the next tile's Q and dO into the other buffers while
+// the first rebuilds p.
+template <int WG, int W, bool DROP>
+__device__ __forceinline__ void dkv192_role(
+    const bf16* __restrict__ q_src, int ld, const bf16* __restrict__ o_src,
+    int ld_o, unsigned char* sQ, unsigned char* sO, const unsigned char* sK,
+    const unsigned char* sV, unsigned char* sP, unsigned char* sS,
+    float* sPf, const float* sM, const float* sSt, int nq,
+    const unsigned* keep, int k0, int S, float sm_scale,
+    const DropParams& drop, bf16* __restrict__ out, size_t row0, int ld_g,
+    int col0) {
+  constexpr int D = 192, QTB = Bwd192<64>::QTB;
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ra = (tid >> 5) * 16 + g;
+  const float nan = __int_as_float(0x7fc00000);
+  const int n_qt = nq / QT;
+  float acc[D / 2];  // the first query tile's first product sets it
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const unsigned char* sQt = sQ + (qt & 1) * QTB;
+    const unsigned char* sOt = sO + (qt & 1) * QTB;
+    float x[W / 2];  // S (WG 0) or dP (WG 1)
+    if constexpr (WG == 0)
+      issue_scores<W, D>(x, sQt, fresh(sK), nullptr, QT * 128);
+    else
+      issue_scores<W, D>(x, sOt, fresh(sV), nullptr, QT * 128);
+    const int qa = qt * QT + ra, qb = qa + 8;
+    wgmma_wait<0>();  // also the last tile's dV / dK product
+    fence_acc(x);
+    // both warpgroups' last products (which read sP, sS and the other Q /
+    // dO buffer) are done: copy the next tile there -- the dS warpgroup,
+    // which waits for p meanwhile
+    pair_sync();
+    if (WG == 1 && qt + 1 < n_qt) {
+      copy_rows<D>(sQ + ((qt + 1) & 1) * QTB, q_src, ld, (qt + 1) * QT, QT,
+                   S, tid, 128);
+      copy_rows<D>(sO + ((qt + 1) & 1) * QTB, o_src, ld_o, (qt + 1) * QT,
+                   QT, S, tid, 128);
+    }
+    cp_async_commit();
+    if constexpr (WG == 0) {
+      const float qma = qa < S ? sM[qa] : nan, qmb = qb < S ? sM[qb] : nan;
+      float xa = -INFINITY, xb = -INFINITY;  // unused row maxima
+      mask_scores<W>(x, sM + k0, qma, qmb, sm_scale, t4, xa, xb);
+      rebuild_probs<W / 2>(x, sSt[qa], sSt[qb], sSt[nq + qa], sSt[nq + qb],
+                           sSt[2 * nq + qa], sSt[2 * nq + qb]);
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i) sPf[i * 128 + tid] = x[i];
+    }
+    pair_sync();  // p is in sPf
+#pragma unroll
+    for (int jj = 0; jj < W / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int i = 4 * jj + e;
+        const float p0 = WG == 0 ? x[i] : sPf[i * 128 + tid];
+        const float p1 = WG == 0 ? x[i + 1] : sPf[(i + 1) * 128 + tid];
+        bool k0b = true, k1b = true;
+        if (DROP) {  // keys 8 jj + 2 t, + 1 of rows qa / qb
+          const unsigned w = keep[(qa + (e ? 8 : 0)) * 2 + (jj >> 2)] >>
+                             (8 * (jj & 3) + 2 * t4);
+          k0b = w & 1u;
+          k1b = w & 2u;
+        }
+        const int off = swizzle128(ra + 4 * e, jj) + 4 * t4;
+        if constexpr (WG == 0) {
+          *reinterpret_cast<unsigned*>(sP + off) = pack_bf16x2(
+              !DROP ? p0 : k0b ? __fmul_rn(p0, drop.inv_keep) : 0.f,
+              !DROP ? p1 : k1b ? __fmul_rn(p1, drop.inv_keep) : 0.f);
+        } else {
+          const float di = sSt[3 * nq + (e ? qb : qa)];
+          const float d0 =
+              !DROP ? x[i] : k0b ? __fmul_rn(x[i], drop.inv_keep) : 0.f;
+          const float d1 = !DROP    ? x[i + 1]
+                           : k1b    ? __fmul_rn(x[i + 1], drop.inv_keep)
+                                    : 0.f;
+          *reinterpret_cast<unsigned*>(sS + off) = pack_bf16x2(
+              __fmul_rn(__fmul_rn(p0, __fsub_rn(d0, di)), sm_scale),
+              __fmul_rn(__fmul_rn(p1, __fsub_rn(d1, di)), sm_scale));
+        }
+      }
+    }
+    cp_async_wait<0>();
+    fence_proxy_async();
+    pair_sync();  // sP and sS are written; the next tile has landed
+    const unsigned char* sA = WG == 0 ? sP : sS;    // drop(p) or ds
+    const unsigned char* sB = WG == 0 ? sOt : sQt;  // dO or Q
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int j = 0; j < QT / 16; ++j)  // 16 queries: 2048 bytes a step
+        wgmma_tt_n64(acc + 32 * p, smem_desc(sA + j * 2048, 512, 64),
+                     smem_desc(sB + p * QT * 128 + j * 2048, 512, 64),
+                     qt > 0 || j > 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  const int ka = k0 + ra, kb = ka + 8;
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = col0 + jj * 8 + 2 * t4;
+    if (ka < S)
+      *reinterpret_cast<unsigned*>(out + (row0 + ka) * ld_g + col) =
+          pack_bf16x2(acc[4 * jj], acc[4 * jj + 1]);
+    if (kb < S)
+      *reinterpret_cast<unsigned*>(out + (row0 + kb) * ld_g + col) =
+          pack_bf16x2(acc[4 * jj + 2], acc[4 * jj + 3]);
+  }
+}
+
+// The dkv kernel at d = 192: one block per (element, head, 64-key tile),
+// its two warpgroups on the two accumulators (dkv192_role).  The block's K
+// and V tiles and each query's m, l, 1 / l and di are loaded once, the
+// head's Q and dO a tile at a time into two buffers.
+template <int NK, bool DROP>
+__global__ void __launch_bounds__(256, 1)
+    dkv192_wgmma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, int ld,
+                        const bf16* __restrict__ dctx,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ stats,
+                        const float* __restrict__ di,
+                        bf16* __restrict__ dk_out, bf16* __restrict__ dv_out,
+                        int ld_g, int S, float sm_scale, DropParams drop) {
+  constexpr int D = 192;
+  using Sh = Bwd192<NK>;
+  constexpr int NQ = Sh::NQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sQ =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sO = sQ + 2 * Sh::QTB;  // dO
+  unsigned char* sK = sO + 2 * Sh::QTB;
+  unsigned char* sV = sK + Sh::QTB;
+  unsigned char* sP = sV + Sh::QTB;  // drop(p), bf16
+  unsigned char* sS = sP + QTILE;    // ds, bf16
+  float* sPf = reinterpret_cast<float*>(sS + QTILE);  // p, f32
+  float* sM = sPf + QT * QT;
+  float* sSt = sM + NQ;  // m, l, 1 / l, di of each query
+  unsigned* keep = reinterpret_cast<unsigned*>(sSt + 4 * NQ);
+
+  const int head = blockIdx.y, elem = blockIdx.z;
+  const int n_heads = gridDim.y, H = n_heads * D, k0 = blockIdx.x * QT;
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * n_heads + head) * S;
+  const size_t bhs = (size_t)gridDim.z * n_heads * S;
+  const size_t off = row0 * ld + head * D;
+  const int nq = (S + QT - 1) / QT * QT;
+  const bf16* o_src = dctx + row0 * H + head * D;
+
+  copy_rows<D>(sQ, q + off, ld, 0, QT, S, threadIdx.x, 256);
+  copy_rows<D>(sO, o_src, H, 0, QT, S, threadIdx.x, 256);
+  copy_rows<D>(sK, k + off, ld, k0, QT, S, threadIdx.x, 256);
+  copy_rows<D>(sV, v + off, ld, k0, QT, S, threadIdx.x, 256);
+  cp_async_commit();
+  // rows past S: m = 0, l = 1, di = 0 (their p is 0, their dO rows 0)
+  for (int j = threadIdx.x; j < nq; j += 256) {
+    const bool ok = j < S;
+    const float l = ok ? stats[bhs + prow0 + j] : 1.f;
+    sM[j] = ok ? mask[row0 + j] : __int_as_float(0x7fc00000);
+    sSt[j] = ok ? stats[prow0 + j] : 0.f;
+    sSt[nq + j] = l;
+    sSt[2 * nq + j] = __frcp_rn(l);
+    sSt[3 * nq + j] = ok ? di[prow0 + j] : 0.f;
+  }
+  for (int j = nq + threadIdx.x; j < NQ; j += 256)  // keys of the last tile
+    sM[j] = __int_as_float(0x7fc00000);
+  // keep bits of every query against this block's 64 keys: row q, word w
+  // = keys k0 + 32 w ..
+  if (DROP) build_keep(keep, S, 2, 2, drop, prow0, k0, threadIdx.x, 256);
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+#define NBK_DKV192_ROLE(WG, W, OUT)                                         \
+  dkv192_role<WG, W, DROP>(q + off, ld, o_src, H, sQ, sO, sK, sV, sP, sS,   \
+                           sPf, sM, sSt, nq, keep, k0, S, sm_scale, drop,   \
+                           OUT, row0, ld_g, head * D)
+  const bool tail = NK % 64 != 0 && k0 + QT > NK;
+  if (threadIdx.x < 128) {
+    if (tail)
+      NBK_DKV192_ROLE(0, 32, dv_out);
+    else
+      NBK_DKV192_ROLE(0, 64, dv_out);
+  } else {
+    if (tail)
+      NBK_DKV192_ROLE(1, 32, dk_out);
+    else
+      NBK_DKV192_ROLE(1, 64, dk_out);
+  }
+#undef NBK_DKV192_ROLE
+}
+
+long long wgmma_launches[3] = {0, 0, 0};  // the wgmma pairs at d = 64, 96, 192
 
 template <int NK, int D, bool DROP>
 int launch_wgmma(const Operands& a, cudaStream_t stream) {
@@ -1172,6 +1663,43 @@ int launch_wgmma(const Operands& a, cudaStream_t stream) {
   return (int)e;
 }
 
+template <int NK, bool DROP>
+int launch_wgmma192(const Operands& a, cudaStream_t stream) {
+  using Sh = Bwd192<NK>;
+  static int dq_per_sm = 0;  // dq blocks an SM runs
+  if (dq_per_sm == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        dq192_wgmma_kernel<NK, DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::DQ_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(dkv192_wgmma_kernel<NK, DROP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Sh::DKV_SMEM);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &dq_per_sm, dq192_wgmma_kernel<NK, DROP>, 256, Sh::DQ_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (dq_per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int n_qt = (a.S + QT - 1) / QT;
+  // a dq block's tiles run one after another, each on both warpgroups
+  const int tpb = tiles_per_block(n_qt, a.B * a.n_heads,
+                                  dq_per_sm * sm_count(), 1);
+  dim3 dq_grid((n_qt + tpb - 1) / tpb, a.n_heads, a.B);
+  dq192_wgmma_kernel<NK, DROP><<<dq_grid, 256, Sh::DQ_SMEM, stream>>>(
+      a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dq, a.ld_g, a.S,
+      tpb, a.sm_scale, a.drop);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(n_qt, a.n_heads, a.B);
+  dkv192_wgmma_kernel<NK, DROP><<<grid, 256, Sh::DKV_SMEM, stream>>>(
+      a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dk, a.dv, a.ld_g,
+      a.S, a.sm_scale, a.drop);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++wgmma_launches[2];
+  return (int)e;
+}
+
 // the window: S rounded up to 32 (64 at least; 224 to 256), as the
 // forward's
 template <int D, bool DROP>
@@ -1185,6 +1713,17 @@ int launch_wgmma_s(const Operands& a, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+template <bool DROP>
+int launch_wgmma192_s(const Operands& a, cudaStream_t stream) {
+  if (a.S <= 64) return launch_wgmma192<64, DROP>(a, stream);
+  if (a.S <= 96) return launch_wgmma192<96, DROP>(a, stream);
+  if (a.S <= 128) return launch_wgmma192<128, DROP>(a, stream);
+  if (a.S <= 160) return launch_wgmma192<160, DROP>(a, stream);
+  if (a.S <= 192) return launch_wgmma192<192, DROP>(a, stream);
+  if (a.S <= 256) return launch_wgmma192<256, DROP>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1195,8 +1734,8 @@ extern "C" {
 // aligned, ld_g even: the q | k | v column blocks of one (B*S, 3h)
 // buffer, or (B, S, n_heads, d) tensors); di (B, n_heads, S) f32 is
 // scratch (rowsum(dp * p)).  d <= 256 with d % 8 == 0, S <= 512, on
-// the instance the caller names: 0, the wgmma pair (d = 64 or 96, S <=
-// 256), or the width of a mma.sync pair (32, 64, 96, 128, 192 or 256, at
+// the instance the caller names: 0, the wgmma pair (d = 64, 96 or 192, S
+// <= 256), or the width of a mma.sync pair (32, 64, 96, 128, 192 or 256, at
 // least d); any other instance, d or S is refused.  The prob dropout as
 // in the forward.
 int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
@@ -1235,6 +1774,9 @@ int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
     if (d == 96)
       return a.drop.on ? launch_wgmma_s<96, true>(a, s)
                        : launch_wgmma_s<96, false>(a, s);
+    if (d == 192)
+      return a.drop.on ? launch_wgmma192_s<true>(a, s)
+                       : launch_wgmma192_s<false>(a, s);
     return (int)cudaErrorInvalidValue;
   }
   if (d > instance) return (int)cudaErrorInvalidValue;
@@ -1249,13 +1791,14 @@ int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// Launches of the wgmma pair since the library was loaded, at head dim d
-// (64 or 96; 0: both; -1 for any other d): which instance ran.
+// Launches of the wgmma pairs since the library was loaded, at head dim d
+// (64, 96 or 192; 0: all three; -1 for any other d): which instance ran.
 long long nbk_seg_attention_bwd_wgmma_launches(int d) {
-  return d == 64 ? wgmma_launches[0]
-         : d == 96 ? wgmma_launches[1]
-         : d == 0  ? wgmma_launches[0] + wgmma_launches[1]
-                   : -1;
+  return d == 64    ? wgmma_launches[0]
+         : d == 96  ? wgmma_launches[1]
+         : d == 192 ? wgmma_launches[2]
+         : d == 0   ? wgmma_launches[0] + wgmma_launches[1] + wgmma_launches[2]
+                    : -1;
 }
 
 }  // extern "C"

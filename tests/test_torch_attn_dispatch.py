@@ -19,7 +19,9 @@ TABLE = {(64, 20): ("wgmma", "wgmma"), (64, 256): ("wgmma", "wgmma"),
          (96, 257): (96, 96), (96, 512): (96, 96),
          (48, 160): (64, 64), (72, 160): (96, 96), (80, 256): (96, 96),
          (88, 64): (96, 96), (8, 64): (32, 32), (32, 160): (32, 32),
-         (128, 256): (128, 128), (192, 256): (192, 192),
+         (128, 256): (128, 128), (192, 256): ("wgmma", "wgmma"),
+         (192, 64): ("wgmma", "wgmma"), (192, 257): (192, 192),
+         (160, 256): (192, 192),
          (256, 512): (256, 256), (12, 64): (None, None),
          (264, 64): (None, None), (64, 513): (None, None),
          (96, 0): (None, None)}
@@ -39,8 +41,8 @@ def test_attn_instance_over_every_head_dim_and_length(backward):
             if got is None:
                 continue
             if got == "wgmma":
-                # one window of lengths from 1, at the two wgmma head dims
-                assert d in (64, 96) and not left_wgmma, (d, s)
+                # one window of lengths from 1, at the wgmma head dims
+                assert d in (64, 96, 192) and not left_wgmma, (d, s)
             else:
                 # a mma.sync instance at least d wide, padding < 64 columns
                 assert d <= got < d + 64 and got % 32 == 0, (d, s, got)
@@ -51,11 +53,30 @@ def test_attn_instance_over_every_head_dim_and_length(backward):
         assert K.attn_instance(d, s, backward) == want[backward], (d, s)
 
 
-class _FakeLib:
-    """Records the instance each launch names (the argument after d)."""
+@pytest.fixture
+def keep_launch_counts():
+    """Puts ``_cuda.launch_counts`` back as it was after a test whose
+    wrappers launch through a fake library (and so count), so that the
+    faked launches do not reach other tests of the same process."""
+    saved = dict(_cuda.launch_counts)
+    yield
+    _cuda.launch_counts.clear()
+    _cuda.launch_counts.update(saved)
 
-    def __init__(self):
+
+class _FakeLib:
+    """Records the instance each launch names (the argument after d);
+    the wgmma counters read ``launches[d]``."""
+
+    def __init__(self, launches=None):
         self.calls = []
+        self.launches = launches or {}
+
+    def nbk_seg_attention_wgmma_launches(self, d):
+        return self.launches[d]
+
+    def nbk_seg_attention_bwd_wgmma_launches(self, d):
+        return -self.launches[d]
 
     def nbk_seg_attention(self, *a):
         self.calls.append(("fwd", a[10], a[11]))      # ..., d, instance
@@ -66,9 +87,10 @@ class _FakeLib:
         return 0
 
 
+@pytest.mark.usefixtures("keep_launch_counts")
 @pytest.mark.parametrize("layout", ["qkv", "bshd"])
 @pytest.mark.parametrize("d,s", [(64, 300), (96, 256), (96, 257), (88, 160),
-                                 (128, 64)])
+                                 (128, 64), (192, 256), (192, 300)])
 def test_wrappers_pass_attn_instance_to_the_kernels(monkeypatch, layout, d,
                                                     s):
     """The four wrappers hand the library ``attn_instance``'s choice (0
@@ -99,11 +121,18 @@ def test_wrappers_pass_attn_instance_to_the_kernels(monkeypatch, layout, d,
                           ("bwd", d, arg(K.attn_instance(d, s, True)))]
 
 
-def test_wgmma_counters_refuse_head_dims_without_a_wgmma_instance():
+def test_wgmma_counters_refuse_head_dims_without_a_wgmma_instance(
+        monkeypatch):
     """A per-width count at a head dim with no wgmma instance would read
     0 whatever ran, so the counters refuse it (before reaching the
-    library)."""
-    for d in (32, 48, 80, 88, 128, 192, 256):
+    library); at the wgmma head dims, and 0 for all of them, they read the
+    library's count."""
+    fake = _FakeLib({0: 6, 64: 1, 96: 2, 192: 3})
+    monkeypatch.setattr(_cuda, "lib", lambda: fake)
+    for d in (0, 64, 96, 192):
+        assert K.seg_attention_wgmma_launches(d) == fake.launches[d]
+        assert K.seg_attention_bwd_wgmma_launches(d) == -fake.launches[d]
+    for d in (32, 48, 80, 88, 128, 136, 256):
         with pytest.raises(ValueError, match="no wgmma instance"):
             K.seg_attention_wgmma_launches(d)
         with pytest.raises(ValueError, match="no wgmma instance"):

@@ -123,11 +123,12 @@ def test_gemm_bias_residual_and_layer_norm(dev, m, n, k, rate):
 
 # seg_attention's (seq, head dim) cases: at d = 64 (the wgmma kernel)
 # ragged lengths, the four DSTC2 buckets and past 256 (two score windows);
-# at d = 96 the same (the wgmma kernel to 256, its mma.sync instance
-# past); at d = 32 and 128 the mma.sync kernel
+# at d = 96 and 192 the same (the wgmma kernels to 256, their mma.sync
+# instances past); at d = 32 and 128 the mma.sync kernel
 ATTN_SD = ([(s, 64) for s in (20, 64, 96, 130, 160, 256, 300, 512)]
            + [(s, d) for d in (32, 128) for s in (20, 160, 512)]
-           + [(s, 96) for s in (20, 64, 96, 130, 160, 200, 256, 300, 512)])
+           + [(s, d) for d in (96, 192)
+              for s in (20, 64, 96, 130, 160, 200, 256, 300, 512)])
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -654,10 +655,12 @@ def test_seg_attention_dropout_and_stats(dev, s, d, packed, rate):
 # d = 64, 128, 96 and ragged lengths, the four buckets and past 256; at d
 # = 96 also each DSTC2 training micro of the 8192-token budget at the
 # quality tools' 8 heads (128 x 64, 80 x 96, 48 x 160, 32 x 256), ragged
-# 130 and 200, and 300 (past the wgmma pair)
+# 130 and 200, and 300 (past the wgmma pair); the same at d = 192 at the
+# CLI's from-scratch 4 heads
 BWD_CASES = ([pytest.param(2, s, 4, d, id=f"{s}-{d}")
               for s in (20, 64, 96, 160, 256, 512) for d in (64, 128, 96)]
-             + [pytest.param(b, s, 8, 96, id=f"{b}x{s}-96x8")
+             + [pytest.param(b, s, nh, d, id=f"{b}x{s}-{d}x{nh}")
+                for d, nh in ((96, 8), (192, 4))
                 for b, s in ((128, 64), (80, 96), (48, 160), (32, 256),
                              (3, 130), (3, 200), (2, 300))])
 
@@ -754,6 +757,14 @@ def test_d96_backward_regenerates_the_forward_prob_mask(dev, onehot_k):
     wgmma forward's keep bits and probs, bit for bit."""
     assert K.attn_instance(96, 96, backward=True) == "wgmma"
     _mask_regenerated(dev, 96, onehot_k)
+
+
+@pytest.mark.parametrize("onehot_k", [True, False])
+def test_d192_backward_regenerates_the_forward_prob_mask(dev, onehot_k):
+    """The same at s = d = 192: the d = 192 wgmma pair rebuilds the d =
+    192 wgmma forward's keep bits and probs, bit for bit."""
+    assert K.attn_instance(192, 192, backward=True) == "wgmma"
+    _mask_regenerated(dev, 192, onehot_k)
 
 
 def _mask_regenerated(dev, d, onehot_k):

@@ -85,6 +85,7 @@ def test_remat_is_bit_equal_to_no_remat(route):
     ids, mask, segs = _inputs(1)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)    # CPU torch sums in thread order
+    _cuda.reset_launch_counts()
     try:
         y0, l0, g0 = _port_grads(params, cfg, ids, mask, segs)
         y1, l1, g1 = _port_grads(
