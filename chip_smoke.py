@@ -51,10 +51,13 @@ Phases, each fatal on failure:
    exactly the stream-3 probs, and with random K that the backward's
    rebuilt bf16 probs equal the forward's -- and each whole block,
    forward and all seven gradients, against torch autograd through the
-   plain block.  ``seg_attention_bwd`` at every bucket's micro (padded and
-   packed masks, dropout 0 and 0.1, the QKV buffer and standalone (b, s,
-   heads, d) tensors), each launch on its wgmma pair, two runs bit-equal;
-   its device ms per bucket beside SDPA's backward alone.
+   plain block.  ``seg_attention_bwd`` at every bucket's micro and past
+   256 keys at 16 x 512 and 24 x 300 (padded and packed masks, dropout 0
+   and 0.1, the QKV buffer and standalone (b, s, heads, d) tensors), each
+   launch on the d = 64 wgmma pair, two runs bit-equal; its device ms per
+   shape beside SDPA's backward alone; past 256 keys a chunked one-hot
+   probe (s = 300 and 512) shows the backward rebuilding the two-window
+   forward's bf16 probs bit for bit on both sides of key 256.
    Per training layer: kernel, plain, library and bound ms; each block's
    forward + backward per bucket.  The int8 training chains likewise, on
    the same Philox bits and weights quantized as a training step
@@ -128,6 +131,13 @@ Phases, each fatal on failure:
    launch on their wgmma + TMA kernels); at dropout 0 one
    kernel step against the same step with flash and the FFN block on
    their plain versions.
+10b. BERT-base at seq 512 (``phase_train_512``): 12 layers, bf16,
+   dropout 0.1, both megakernels, BertAdam, one micro of 16 x 512 a step
+   (padded 384-512, then packed rows): counters by ``PER_LAYER_TRAIN``,
+   every ``seg_attention_bwd`` launch on the d = 64 wgmma pair past 256
+   keys (``seg_attention_bwd_wgmma_launches(64)``); at dropout 0 one
+   kernel step against the same step with both blocks on their kernels'
+   plain versions; step ms, rows / s and peak memory.
 11. Route C's row kernels against their plain versions
    (``phase_rows_kernels``): ``residual_layer_norm`` and
    ``residual_layer_norm_bwd`` at 8192 x 768 and 7688 x 1024, bf16 and
@@ -459,6 +469,11 @@ FLASH_TILED_SHAPES = ((LONG_BATCH, LONG_SEQ, NH, 64), (8, 2048, NH, 64),
 # training micro rows per bucket under the 8192-token budget
 # (nbest_asr_tpu/train/loop.py:430)
 TRAIN_MICRO = {64: 128, 96: 80, 160: 48, 256: 32}
+# the attention backward past 256 keys at d = 64 (BERT's 512 positions, a
+# length bucket or a packed capacity past 256): (seq, rows) -- one micro
+# of the 8192-token budget at 512, and a length past the forward's first
+# score window
+LONG_BWD_MICRO = {512: 16, 300: 24}
 N_ACCUM, TRAIN_STEPS, DROPOUT = 2, 3, 0.1
 # phase 18: the quality tools' encoder (hidden 768, 8 heads of 96,
 # intermediate 3072, 4 layers) on its buckets; the attention kernels'
@@ -1530,18 +1545,94 @@ def check_prob_mask_probe(K, dev):
                                  "the forward's")
 
 
+def check_long_prob_mask_probe(K, dev):
+    """Past 256 keys (d = 64, s = 300 and 512, 12 heads, a padded row)
+    the forward splits each score row into two 256-key windows and the
+    dQ kernel's two warpgroups into halves of s rounded up to 128: the
+    backward must still rebuild the forward's bf16 probs bit for bit on
+    both sides of key 256.  V one-hot on one 64-key chunk at a time (key
+    64 c + j has row e_j, the other keys' V 0) makes the forward's ctx that
+    chunk's dropped probs; dO one-hot on one 64-query chunk at a time makes
+    the dK/dV kernel's dV those queries' rebuilt probs for every key.  Both
+    must be 0 exactly where the stream-3 keep bits drop (or the segments
+    differ), equal to each other everywhere, and every launch on the d =
+    64 wgmma kernels."""
+    from nbest_asr_tpu_torch.ops.philox import keep_mask, site
+
+    b, d, seed = 2, H // NH, 4321
+    gen = torch.Generator().manual_seed(7)
+    drop = site(seed, DROPOUT, 3)
+    for s in LONG_BWD_MICRO:
+        mask = torch.ones(b, s, device=dev)
+        mask[1, s - s // 5:] = 0.0
+        keep = keep_mask(seed, 3, 0, b * NH * s, s, DROPOUT, dev).reshape(
+            b, NH, s, s) & (mask[:, None, :, None] == mask[:, None, None, :])
+        qkv = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
+            dev, torch.bfloat16)
+        n_c = (s + 63) // 64
+        p_fwd = torch.zeros(b, NH, s, 64 * n_c, device=dev,
+                            dtype=torch.bfloat16)
+        p_bwd = torch.zeros(b, NH, 64 * n_c, s, device=dev,
+                            dtype=torch.bfloat16)
+        n0 = (K.seg_attention_wgmma_launches(d),
+              K.seg_attention_bwd_wgmma_launches(d))
+        rows = torch.arange(s, device=dev)
+        for c in range(n_c):
+            inside = (rows >= 64 * c) & (rows < 64 * c + 64)
+            onehot = torch.zeros(s, d, device=dev, dtype=torch.bfloat16)
+            onehot[inside, rows[inside] - 64 * c] = 1.0
+            qkv[:, 2 * H:] = onehot.repeat(b, NH)
+            ctx, st = K.seg_attention(qkv, mask, NH, drop=drop, stats=True)
+            p_fwd[..., 64 * c:64 * c + 64] = ctx.reshape(
+                b, s, NH, d).permute(0, 2, 1, 3)
+            d_v = K.seg_attention_bwd(qkv, onehot.repeat(b, NH).contiguous(),
+                                      mask, st, NH, drop=drop)
+            p_bwd[:, :, 64 * c:64 * c + 64] = d_v[:, 2 * H:].reshape(
+                b, s, NH, d).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        runs = (K.seg_attention_wgmma_launches(d) - n0[0],
+                K.seg_attention_bwd_wgmma_launches(d) - n0[1])
+        p_fwd, p_bwd = p_fwd[..., :s], p_bwd[:, :, :s]
+        seen = {"forward (ctx)": int(((p_fwd != 0) != keep).sum()),
+                "dK/dV kernel (dV)": int(((p_bwd != 0) != keep).sum()),
+                "rebuilt against the forward's": int((p_fwd != p_bwd).sum())}
+        ok = runs == (n_c, n_c) and not any(seen.values())
+        log(f"  {'ok ' if ok else 'BAD'} s {s}: probs that differ of "
+            f"{keep.numel()} (0 allowed) {seen}; wgmma launches (forward, "
+            f"backward) {runs}, expected ({n_c}, {n_c})")
+        if not ok:
+            raise AssertionError(f"s {s}: the backward does not rebuild the "
+                                 "forward's probs past 256 keys on the "
+                                 "wgmma kernels")
+
+
 def check_attn_bwd_buckets(K, dev, gen, check, card):
-    """seg_attention_bwd at each bucket's training micro (BERT-base
-    heads): on the QKV buffer with padded and packed masks at dropout 0
-    and 0.1, and on standalone (b, s, heads, d) tensors (route A's
-    unpacked operands), against its plain version (``Checker.sums``); a
-    second run bit-equal; each launch on the wgmma pair; then its device
-    ms beside SDPA's backward alone on the same operands."""
+    """seg_attention_bwd at each bucket's training micro and at
+    LONG_BWD_MICRO's shapes past 256 keys (BERT-base heads): on the QKV
+    buffer with padded and packed masks at dropout 0 and 0.1, and on
+    standalone (b, s, heads, d) tensors (route A's unpacked operands),
+    against its plain version (``Checker.sums``); a second run bit-equal;
+    each launch on the d = 64 wgmma pair; then its device ms beside SDPA's
+    backward alone on the same operands.  Returns the record's row of the
+    pair past 256 keys at 16 x 512: {name: ((kernel, plain, library ms),
+    (bound ms, bound by))}."""
     from nbest_asr_tpu_torch.ops.philox import site
 
-    F = torch.nn.functional
     d = H // NH
-    for s, b in TRAIN_MICRO.items():
+    rows = {}
+
+    def on_wgmma(tag, fn):
+        n0 = K.seg_attention_bwd_wgmma_launches(d)
+        out = fn()
+        torch.cuda.synchronize()
+        if K.seg_attention_bwd_wgmma_launches(d) - n0 != 1:
+            raise AssertionError(f"seg_attention_bwd {tag}: not on the d = "
+                                 f"{d} wgmma pair")
+        if not all(torch.equal(x, y) for x, y in zip(out, fn())):
+            raise AssertionError(f"seg_attention_bwd {tag}: two runs differ")
+        return out
+
+    for s, b in {**TRAIN_MICRO, **LONG_BWD_MICRO}.items():
         dctx = (torch.randn(b * s, H, generator=gen) * 0.5).to(
             dev, torch.bfloat16)
         qkv = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
@@ -1551,12 +1642,8 @@ def check_attn_bwd_buckets(K, dev, gen, check, card):
                 tag = f"{b} x {s} {mname} rate {rate}"
                 drop = site(400 + s, rate, 3)
                 _, st = K.seg_attention(qkv, m, NH, drop=drop, stats=True)
-                n0 = K.seg_attention_bwd_wgmma_launches()
-                got = K.seg_attention_bwd(qkv, dctx, m, st, NH, drop=drop)
-                torch.cuda.synchronize()
-                if K.seg_attention_bwd_wgmma_launches() - n0 != 1:
-                    raise AssertionError(f"seg_attention_bwd {tag}: not on "
-                                         "the wgmma pair")
+                got, = on_wgmma(tag, lambda: (K.seg_attention_bwd(
+                    qkv, dctx, m, st, NH, drop=drop),))
                 want = K.seg_attention_bwd_reference(qkv, dctx, m, st, NH,
                                                      drop)
                 for i, part in enumerate("qkv"):
@@ -1564,21 +1651,17 @@ def check_attn_bwd_buckets(K, dev, gen, check, card):
                     check.sums(f"seg_attention_bwd d{part} {tag}",
                                "seg_attention_bwd", got[:, cols],
                                want[:, cols])
-                if not torch.equal(K.seg_attention_bwd(
-                        qkv, dctx, m, st, NH, drop=drop), got):
-                    raise AssertionError(f"seg_attention_bwd {tag}: two runs "
-                                         "differ")
         q, k, v, do = (t.contiguous() for t in (
             *qkv.view(b, s, 3, NH, d).unbind(2), dctx.view(b, s, NH, d)))
         drop = site(500 + s, DROPOUT, 3)
         _, st = K.sb_attention(q, k, v, m, d ** -0.5, drop, True)
-        for part, g, r in zip("qkv", K.sb_attention_bwd(
-                q, k, v, do, m, st, d ** -0.5, drop),
+        tag = f"(b, s, heads, d) {b} x {s} packed rate {DROPOUT}"
+        for part, g, r in zip("qkv", on_wgmma(tag, lambda: K.sb_attention_bwd(
+                q, k, v, do, m, st, d ** -0.5, drop)),
                 K.sb_attention_bwd_reference(q, k, v, do, m, st, d ** -0.5,
                                              drop)):
-            check.sums(f"seg_attention_bwd (b, s, heads, d) d{part} {b} x "
-                       f"{s} packed rate {DROPOUT}", "seg_attention_bwd", g,
-                       r)
+            check.sums(f"seg_attention_bwd {tag} d{part}",
+                       "seg_attention_bwd", g, r)
         # times: padded mask, dropout 0.1
         m = masks(b, s, gen, dev)[0]
         drop = site(600 + s, DROPOUT, 3)
@@ -1587,11 +1670,18 @@ def check_attn_bwd_buckets(K, dev, gen, check, card):
                                                      drop=drop))
         a = {"qkv": qkv, "mask": m, "dctx": dctx}
         _, fwd_bwd, bwd = attention_library_calls(a, b, s)
-        b_ms = train_layer_bounds(b * s, b, s)["seg_attention_bwd"][0]
+        l_ms = device_ms(bwd)
+        b_ms, b_by = train_layer_bounds(b * s, b, s)["seg_attention_bwd"]
         log(f"  time seg_attention_bwd b{b} s{s}: kernel {k_ms:.4f} ms "
-            f"device; SDPA backward alone {device_ms(bwd):.4f} ms (forward "
+            f"device; SDPA backward alone {l_ms:.4f} ms (forward "
             f"+ backward {device_ms(fwd_bwd):.4f}); bound {b_ms:.4f} ms "
             f"[{card}]")
+        if s == 512:
+            p_ms = cuda_ms(lambda: K.seg_attention_bwd_reference(
+                qkv, dctx, m, st, NH, drop), iters=3)
+            rows[f"seg_attention_bwd [d64 s{s}]"] = ((k_ms, p_ms, l_ms),
+                                                     (b_ms, b_by))
+    return rows
 
 
 def train_int8_weights(p):
@@ -1915,10 +2005,20 @@ def phase_train_kernels(dev, card: str):
     check_prob_mask_probe(K, dev)
     log("[train-kernels] attention kernels at head dims 192 and 256")
     check_wide_heads(K, dev, check)
-    log("[train-kernels] the attention backward at every bucket's micro")
-    check_attn_bwd_buckets(K, dev, gen, check, card)
+    log("[train-kernels] the backward's prob mask past 256 keys")
+    check_long_prob_mask_probe(K, dev)
+    log("[train-kernels] the attention backward at every bucket's micro "
+        "and past 256 keys")
+    long_rows = check_attn_bwd_buckets(K, dev, gen, check, card)
+    log("[train-kernels] the single-block pair past 256 keys at d = 64 and "
+        "at d = 128, beside SDPA")
+    pair_times(K, dev, gen, card, ((16, 512, NH, H // NH),
+                                   (24, 300, NH, H // NH),
+                                   (32, 256, H // 128, 128)))
     bounds = train_layer_bounds(8192, 32, 256)
     bounds.update(train_int8_layer_bounds(8192))
+    for name, (t, bd) in long_rows.items():
+        times[name], bounds[name] = t, bd
     for b, s in ((3, 20), (80, 96), (32, 256)):
         n = b * s
         log(f"[train-kernels] n {n} rows ({b} x {s}), dropout {DROPOUT}")
@@ -3202,22 +3302,43 @@ class flash_and_ffn_on_plain_versions:
         fa.flash_attention, ff.fused_ffn_block = self.saved
 
 
-def long_micros(memory, dev, seed: int, batch: int = LONG_BATCH):
-    """Two micros of ``batch`` rows at seq LONG_SEQ on the device:
+class blocks_on_plain_versions:
+    """Within the block, the encoder's attention and FFN training blocks
+    run on their kernels' plain versions (the encoder imports them at each
+    call)."""
+
+    def __enter__(self):
+        from nbest_asr_tpu_torch.ops import fused_attention as fa
+        from nbest_asr_tpu_torch.ops import fused_ffn as ff
+
+        self.saved = (fa.fused_attention_block, ff.fused_ffn_block)
+        fa.fused_attention_block = fa.fused_attention_block_reference
+        ff.fused_ffn_block = ff.fused_ffn_block_reference
+
+    def __exit__(self, *exc):
+        from nbest_asr_tpu_torch.ops import fused_attention as fa
+        from nbest_asr_tpu_torch.ops import fused_ffn as ff
+
+        fa.fused_attention_block, ff.fused_ffn_block = self.saved
+
+
+def long_micros(memory, dev, seed: int, batch: int = LONG_BATCH,
+                seq: int = LONG_SEQ):
+    """Two micros of ``batch`` rows at ``seq`` on the device:
     DSTC2-shaped token rows (segment 0, then 1 from half the row's
     length; 0-3 gold labels, one per top group) padded from random
-    lengths in [768, 1024]; and rows packed (data/packing.py, up to 8
-    segments, position_ids restarting per segment) from utterances of
-    150-400 tokens."""
+    lengths in [3 seq / 4, seq] ([768, 1024] at LONG_SEQ); and rows packed
+    (data/packing.py, up to 8 segments, position_ids restarting per
+    segment) from utterances of 150-400 tokens."""
     from nbest_asr_tpu_torch.data.packing import pack_train_data
 
     rng = np.random.RandomState(seed)
     groups = [sorted(m) for t, m in memory.top2bottom.items() if t > 1]
 
     def host(n, lo, hi):
-        ids = rng.randint(5, VOCAB, (n, LONG_SEQ)).astype(np.int32)
-        mask = np.zeros((n, LONG_SEQ), np.float32)
-        segs = np.zeros((n, LONG_SEQ), np.int32)
+        ids = rng.randint(5, VOCAB, (n, seq)).astype(np.int32)
+        mask = np.zeros((n, seq), np.float32)
+        segs = np.zeros((n, seq), np.int32)
         labels = np.zeros((n, memory.n_bottom), np.float32)
         for r in range(n):
             length = rng.randint(lo, hi + 1)
@@ -3231,9 +3352,9 @@ def long_micros(memory, dev, seed: int, batch: int = LONG_BATCH):
                 "trans_input_ids": ids.copy(), "trans_attn_mask": mask.copy(),
                 "trans_segment_ids": segs.copy(), "labels": labels}
 
-    padded = host(batch, 3 * LONG_SEQ // 4, LONG_SEQ)
+    padded = host(batch, 3 * seq // 4, seq)
     packed, _ = pack_train_data(host(6 * batch, 150, 400),
-                                capacity=LONG_SEQ, max_segs=8)
+                                capacity=seq, max_segs=8)
     packed = {k: v[:batch] for k, v in packed.items()}
     return [{k: torch.from_numpy(v).to(dev) for k, v in d.items()}
             for d in (padded, packed)]
@@ -3376,6 +3497,94 @@ def phase_train_long(dev, card: str, block_ms):
     return counts, ms, peak
 
 
+def phase_train_512(dev, card: str):
+    """BERT-base at seq 512 (BERT's 512 positions), bf16, dropout 0.1, both
+    megakernels (``use_fused_attn``, ``use_fused_ffn``), BertAdam, one
+    micro of 16 x 512 a step (the 8192-token budget): the attention
+    megakernel's seq <= 512 holds, so every layer trains its attention on
+    ``seg_attention``'s two score windows and ``seg_attention_bwd``'s d =
+    64 wgmma pair past 256 keys.  Two counted steps (rows padded from
+    lengths 384-512, then packed rows), counters by PER_LAYER_TRAIN, every
+    ``seg_attention_bwd`` launch also on
+    ``seg_attention_bwd_wgmma_launches(64)`` and every ``seg_attention``
+    on its d = 64 counter; at dropout 0 one kernel step against the same
+    step with both blocks on their kernels' plain versions (gate_step).
+    Prints step ms, rows / s and the peak memory; returns the counts."""
+    from nbest_asr_tpu_torch.models.encoder import EncoderConfig
+    from nbest_asr_tpu_torch.models.heads import hierarchy_device_arrays
+    from nbest_asr_tpu_torch.models.model import (ModelConfig,
+                                                  init_model_params)
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.ops import kernels as K
+    from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
+                                                         make_train_step)
+    from nbest_asr_tpu_torch.train.losses import LossConfig
+    from nbest_asr_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                     make_optimizer,
+                                                     tree_map)
+
+    b, s = LONG_BWD_MICRO[512], 512
+    memory = dstc2_like_memory()
+    enc = EncoderConfig.bert_base(
+        vocab_size=VOCAB, compute_dtype="bfloat16", hidden_dropout=DROPOUT,
+        attn_dropout=DROPOUT, use_fused_attn=True, use_fused_ffn=True)
+    cfg = ModelConfig(encoder=enc, n_top=memory.n_top,
+                      n_bottom=memory.n_bottom)
+    params = tree_map(lambda a: a.to(dev), init_model_params(
+        torch.Generator().manual_seed(0), cfg))
+    hier = hierarchy_device_arrays(memory.arrays(), dev)
+    micros = long_micros(memory, dev, seed=15, batch=b, seq=s)
+    idx = np.arange(b)[None]
+    gen = torch.Generator().manual_seed(16)
+    opt = make_optimizer(OptimizerConfig(lr=5e-4, bert_lr=1e-4,
+                                         warmup_proportion=0.1,
+                                         t_total=100), params)
+    step = make_train_step(cfg, LossConfig(), opt, hier, n_accum=1,
+                           dual_stream=False)
+    state = TrainState(params, opt.init(params), 0)
+    for micro in micros:                          # warm-up, not counted
+        step(state, micro, idx, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    w0 = (K.seg_attention_wgmma_launches(64),
+          K.seg_attention_bwd_wgmma_launches(64))
+    ms = []
+    for name, micro in zip((f"padded {3 * s // 4}-{s}", "packed"), micros):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, stats = step(state, micro, idx, gen)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        parts = {k: float(v) for k, v in stats["loss"].items()}
+        if not all(np.isfinite(v) for v in parts.values()):
+            raise AssertionError(f"seq {s} {name}: loss {parts}")
+        log(f"[train 512] {name} micro ({b} x {s}): step {ms[-1]:.2f} ms, "
+            f"{b / (ms[-1] / 1e3):.1f} rows/s, loss {parts} [{card}]")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = dict(_cuda.launch_counts)
+    want = {k: PER_LAYER_TRAIN.get(k, 0) * LAYERS * len(micros)
+            for k in counts}
+    wgmma = (K.seg_attention_wgmma_launches(64) - w0[0],
+             K.seg_attention_bwd_wgmma_launches(64) - w0[1])
+    log(f"[train 512] launches {counts}, expected {want}; seg_attention / "
+        f"seg_attention_bwd on their d = 64 wgmma kernels {wgmma}")
+    if counts != want:
+        raise AssertionError(f"seq {s}: launch counts differ from layers x "
+                             "micros x launches per layer")
+    if wgmma != (want["seg_attention"], want["seg_attention_bwd"]):
+        raise AssertionError(f"seq {s}: an attention launch did not run on "
+                             "the d = 64 wgmma kernels")
+    log(f"[train 512] step ms {', '.join(f'{m:.2f}' for m in ms)} (mean "
+        f"{np.mean(ms):.2f}); peak memory {peak:.2f} GiB [{card}]")
+    gate_step("train 512", "padded micro, against the same step with both "
+              "blocks on their kernels' plain versions", cfg, hier, params,
+              enc, enc, micros[0], idx, 1, blocks_on_plain_versions)
+    return counts
+
+
 # --------------------------------------------------------------------- #
 # phase 18: head dims past the wgmma kernels' 64
 # --------------------------------------------------------------------- #
@@ -3390,6 +3599,42 @@ def sb_bounds(b: int, s: int, nh: int, d: int):
     return {"seg_attention": bound(2 * prod, 3 * x + m + x + st, "bf16"),
             "seg_attention_bwd": bound(5 * prod, 3 * x + x + m + st + 3 * x,
                                        "bf16")}
+
+
+def pair_times(K, dev, gen, card: str, shapes):
+    """Device ms of the single-block pair at each (b, s, heads, d) of
+    ``shapes`` (q, k, v views of one QKV buffer, padded mask, dropout
+    0.1), beside its plain versions, SDPA's forward or backward alone on
+    the same operands and the bounds: logged, the instances past the
+    record's rows (at d = 64 the two score windows and the backward past
+    256 keys, the d = 128 pair)."""
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    for b, s, nh, d in shapes:
+        q, k, v, do = flash_operands(gen, dev, b, s, nh, d, True)
+        m = masks(b, s, gen, dev)[0]
+        sc, drop = 1.0 / d ** 0.5, site(410, DROPOUT, 3)
+        sdpa_fwd, _, sdpa_bwd = flash_library_calls(q, k, v, do, m)
+        _, st = K.sb_attention(q, k, v, m, sc, drop, True)
+        bounds = sb_bounds(b, s, nh, d)
+        for name, fk, fp, fl in (
+                ("seg_attention",
+                 lambda: K.sb_attention(q, k, v, m, sc, drop, True),
+                 lambda: K.sb_attention_reference(q, k, v, m, sc, drop,
+                                                  True), sdpa_fwd),
+                ("seg_attention_bwd",
+                 lambda: K.sb_attention_bwd(q, k, v, do, m, st, sc, drop),
+                 lambda: K.sb_attention_bwd_reference(q, k, v, do, m, st, sc,
+                                                      drop), sdpa_bwd)):
+            k_ms, p_ms = device_ms(fk), cuda_ms(fp, iters=1, warmup=1)
+            l_ms, (b_ms, b_by) = device_ms(fl), bounds[name]
+            log(f"  time {name:<17} {b} x {s} x {nh} d {d} "
+                f"({K.attn_instance(d, s, name.endswith('bwd'))}): kernel "
+                f"{k_ms:.4f} ms device, plain {p_ms:.4f} ms, library (SDPA's "
+                f"{'backward alone' if name.endswith('bwd') else 'forward'})"
+                f" {l_ms:.4f} ms device, bound {b_ms:.4f} ms ({b_by}), "
+                f"{b_ms / k_ms:.3f} of it [{card}]")
+        del q, k, v, do
 
 
 def head_dim_times(K, dev, gen, card: str):
@@ -5792,7 +6037,8 @@ def main() -> int:
     # (flash_fwd_wgmma_kernel, flash_dq_wgmma_kernel,
     # flash_dkv_wgmma_kernel <DROP>) -- and the single-block pair's wgmma
     # instances (seg_attn_wgmma_kernel <NK, NWIN, D, DROP>,
-    # dq_wgmma_kernel and dq96_wgmma_kernel <NK, DROP>, dkv_wgmma_kernel
+    # dq_wgmma_kernel, dq96_wgmma_kernel and dq64x2_wgmma_kernel <NK,
+    # DROP>, dkv_wgmma_kernel
     # <NK, D, DROP>; at d = 192 seg_attn192_wgmma_kernel, dq192_wgmma_kernel
     # and dkv192_wgmma_kernel <NK, DROP>) must build without spills or such
     # notes, and so must
@@ -5804,7 +6050,8 @@ def main() -> int:
     tma_names = ("gemm_tma_kernel", "flash_fwd_wgmma_kernel",
                  "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
                  "quant_grad_pass_kernel", "seg_attn_wgmma_kernel",
-                 "dq_wgmma_kernel", "dq96_wgmma_kernel", "dkv_wgmma_kernel",
+                 "dq_wgmma_kernel", "dq96_wgmma_kernel",
+                 "dq64x2_wgmma_kernel", "dkv_wgmma_kernel",
                  "seg_attn192_wgmma_kernel", "dq192_wgmma_kernel",
                  "dkv192_wgmma_kernel")
     known_spills = ("seg_attn_wgmma_kernelILi256ELi2ELi64E",
@@ -5848,6 +6095,7 @@ def main() -> int:
                            rig, "flash", beside=bf16_ms)
     b_counts, _, _ = timed("train_long", phase_train_long, dev, card,
                            t_times)
+    s_counts = timed("train_512", phase_train_512, dev, card)
     h_counts, h_err, h_rows = timed("head_dims", phase_head_dims, dev,
                                     card, rig)
     r_err, r_times, r_bounds = timed("rows_kernels", phase_rows_kernels,
@@ -5881,7 +6129,8 @@ def main() -> int:
 
     for name in _cuda.KERNELS:
         launches = (counts[name] + t_counts[name] + i_counts[name]
-                    + a_counts[name] + b_counts[name] + h_counts[name]
+                    + a_counts[name] + b_counts[name] + s_counts[name]
+                    + h_counts[name]
                     + c_counts[name]
                     + l_counts[name] + p_counts[name] + m_counts[name]
                     + o_counts[name] + x_counts[name])
@@ -5894,6 +6143,12 @@ def main() -> int:
     # 0.1; launches: phase 18's d = 192 runs alone
     for name, (k_ms, p_ms, l_ms, b_ms, b_by, n) in h_rows.items():
         row(name, name.split()[0], n, k_ms, p_ms, l_ms, b_ms, b_by)
+    # the d = 64 pair past 256 keys: device ms at 16 x 512, dropout 0.1;
+    # launches: phase 10b's steps at seq 512 alone
+    for name in [n for n in t_times if str(n).startswith(
+            "seg_attention_bwd [")]:
+        row(name, "seg_attention_bwd", s_counts["seg_attention_bwd"],
+            *t_times[name], *t_bounds[name])
     # the int8 training epilogues of the int8 serving kernels, timed in an
     # int8 training layer; launches: the int8 training runs alone
     for kernel in ("quantize_rows", "gemm_i8_bias_act",
@@ -5905,7 +6160,8 @@ def main() -> int:
         "serving, bf16 training (both blocks on kernels, then one FFN-only "
         "step), int8 training (NBEST_BENCH_INT8=2, then one "
         "NBEST_BENCH_INT8=1 step), flash route A (--no_fused_attn), "
-        "long-sequence route B, the head-dim phase's steps (8 heads of 96 "
+        "long-sequence route B, the seq-512 BERT-base steps, the "
+        "head-dim phase's steps (8 heads of 96 "
         "at 96 / 160 / 256 and 48 x 1024, 4 heads of 192 at 256) "
         "and route C (plain blocks, use_fused_ln, "
         "use_fused_gelu, use_fused_embedding) training main-path runs "
@@ -5920,7 +6176,8 @@ def main() -> int:
         "perf_probe's attention and steps) together, the "
         "[train] rows the int8 "
         "training runs alone, the d192 rows phase 18's two d = 192 runs "
-        "(--no_fused_attn and the CLI's from-scratch default) alone; "
+        "(--no_fused_attn and the CLI's from-scratch default) alone, the "
+        "[d64 s512] row the seq-512 BERT-base steps alone; "
         "ms / plain_ms / library_ms / bound_ms: one encoder layer's "
         f"launches of the kernel -- serving at batch {BATCH} x seq "
         f"{BUCKETS[-1]} for the kernels the serving path runs, training at "
@@ -5930,7 +6187,8 @@ def main() -> int:
         f"layer ({LONG_BATCH} x {LONG_SEQ}, d 64, dropout 0.1) for the "
         "flash_* rows, a training layer at 8192 rows (one micro for "
         "embed_lookup, f32 tables) for the five row kernels, 32 x 256 x 4 "
-        "heads of 192 (dropout 0.1) for the d192 rows; ms and "
+        "heads of 192 (dropout 0.1) for the d192 rows, 16 x 512 (d 64, "
+        "dropout 0.1) for the [d64 s512] row; ms and "
         "library_ms are device time (calls queued behind a sleep) for the "
         "five row kernels, gemm_bias_act, gemm_bias_residual, gemm_dgrad, "
         "seg_attention, seg_attention_bwd, the three flash kernels, "

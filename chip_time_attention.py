@@ -17,8 +17,10 @@ line: ``seg_attention`` ms per call at batch 64 x seq {64, 96, 160, 256}
 and ``seg_attention`` so at
 16 x 512, each as ``[back to back, device]`` ms (below); then
 ``train_bwd_times``: ``seg_attention_bwd`` at every bucket's training
-micro and on route A's layout, SDPA beside it, the d = 128 attention pair
-and ``layer_norm_rows`` beside ``F.layer_norm``; ``head_dim_times``: the
+micro, on route A's layout and past 256 keys (16 x 512, 24 x 300, 21 x
+384), SDPA
+beside it, the d = 128 attention pair with SDPA beside it and
+``layer_norm_rows`` beside ``F.layer_norm``; ``head_dim_times``: the
 single-block pair at d = 96 (8 heads) and at d = 192 (4 heads) at every
 bucket's training micro, with dropout and statistics, SDPA's
 forward and backward alone beside it (``d96_ms``, ``d192_ms``); and,
@@ -352,52 +354,76 @@ def rows_times(K, dev, gen, iters: int) -> dict:
 
 # training micro rows per bucket under the 8192-token budget
 TRAIN_MICRO = {64: 128, 96: 80, 160: 48, 256: 32}
+# d = 64 past 256 keys: one micro of the token budget at BERT's 512
+# positions, and lengths past the forward's first 256-key score window
+LONG_MICRO = {512: 16, 300: 24, 384: 21}
+
+
+def sdpa_times(qkv, dctx, mask, nh: int, iters: int) -> dict:
+    """SDPA's forward and forward + backward (its backward alone is their
+    difference) on the q, k, v of a QKV buffer, the gradient dctx, the
+    boolean segment mask and prob dropout 0.1: {"fwd", "fwd_bwd"}, each
+    [back to back, device] ms."""
+    F = torch.nn.functional
+    n, h = dctx.shape
+    b, d = mask.shape[0], h // nh
+    s = n // b
+    qt, kt, vt = qkv.view(b, s, 3, nh, d).permute(2, 0, 3, 1, 4)
+    same = mask[:, None, :, None] == mask[:, None, None, :]
+    go = dctx.view(b, s, nh, d).transpose(1, 2)
+
+    def fwd_bwd():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=same, dropout_p=0.1).backward(go)
+
+    return {"fwd": both_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=same, dropout_p=0.1), iters),
+            "fwd_bwd": both_ms(fwd_bwd, iters)}
 
 
 def train_bwd_times(K, dev, gen, drop, iters: int) -> dict:
     """The attention backward per training layer at each bucket's micro
-    (padded mask, dropout 0.1): ``seg_attention_bwd`` on the QKV buffer,
-    on route A's (b, s, heads, d) views (``sb_attention_bwd``, at 160 and
-    256) and beside it SDPA's forward and forward + backward on the same
-    operands (its backward alone is their difference); the d = 128
-    forward and backward at 8192 rows (6 heads); ``layer_norm_rows`` x2
-    with statistics at 8192 x 768 beside ``F.layer_norm`` x2.  Each as
-    [back to back, device] ms."""
+    (a random two-segment mask, dropout 0.1): ``seg_attention_bwd`` on the
+    QKV buffer, on route A's (b, s, heads, d) views (``sb_attention_bwd``,
+    at 160 and 256) and beside it SDPA's forward and forward + backward on
+    the same operands (its backward alone is their difference); the same
+    past 256 keys at d = 64 (16 x 512, 24 x 300, 21 x 384, a padded mask:
+    rows of 3 s / 4 to s real tokens), keyed ``train_bwd_long_ms`` (and
+    ``sdpa_fwd_ms`` / ``sdpa_fwd_bwd_ms`` by seq); the d = 128 forward and
+    backward at 8192 rows (6 heads) with SDPA's beside them
+    (``d128_sdpa_ms``); ``layer_norm_rows`` x2 with statistics at 8192 x
+    768 beside ``F.layer_norm`` x2.  Each as [back to back, device]
+    ms."""
     F = torch.nn.functional
     out = {"train_bwd_bucket_ms": {}, "route_a_bwd_ms": {},
-           "sdpa_fwd_ms": {}, "sdpa_fwd_bwd_ms": {}}
-    for s, b in TRAIN_MICRO.items():
+           "train_bwd_long_ms": {}, "sdpa_fwd_ms": {}, "sdpa_fwd_bwd_ms": {}}
+    for s, b in list(TRAIN_MICRO.items()) + list(LONG_MICRO.items()):
         qkv = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
             dev, torch.bfloat16)
         dctx = (torch.randn(b * s, H, generator=gen) * 0.5).to(
             dev, torch.bfloat16)
-        mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
-        mask[:, 0] = 1.0
+        if s in LONG_MICRO:
+            lengths = torch.randint(3 * s // 4, s + 1, (b, 1), generator=gen)
+            mask = (torch.arange(s)[None] < lengths).float().to(dev)
+        else:
+            mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
+            mask[:, 0] = 1.0
         _, st = K.seg_attention(qkv, mask, NH, drop=drop, stats=True)
-        out["train_bwd_bucket_ms"][s] = both_ms(
+        key = "train_bwd_long_ms" if s in LONG_MICRO else "train_bwd_bucket_ms"
+        out[key][s] = both_ms(
             lambda: K.seg_attention_bwd(qkv, dctx, mask, st, NH, drop=drop),
             iters)
         d = H // NH
         q, k, v = qkv.view(b, s, 3, NH, d).unbind(2)
         do = dctx.view(b, s, NH, d)
-        if s >= 160 and hasattr(K, "sb_attention_bwd"):
+        if 160 <= s <= 256 and hasattr(K, "sb_attention_bwd"):
             out["route_a_bwd_ms"][s] = both_ms(
                 lambda: K.sb_attention_bwd(q, k, v, do, mask, st, d ** -0.5,
                                            drop), iters)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        same = mask[:, None, :, None] == mask[:, None, None, :]
-        go = do.transpose(1, 2)
-
-        def fwd_bwd():
-            qq, kk, vv = (t.detach().requires_grad_(True)
-                          for t in (qt, kt, vt))
-            F.scaled_dot_product_attention(
-                qq, kk, vv, attn_mask=same, dropout_p=0.1).backward(go)
-
-        out["sdpa_fwd_ms"][s] = both_ms(
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=same, dropout_p=0.1), iters)
-        out["sdpa_fwd_bwd_ms"][s] = both_ms(fwd_bwd, iters)
+        sd = sdpa_times(qkv, dctx, mask, NH, iters)
+        out["sdpa_fwd_ms"][s], out["sdpa_fwd_bwd_ms"][s] = (sd["fwd"],
+                                                           sd["fwd_bwd"])
     # d = 128 (the mma.sync pair): 8192 rows, 6 heads
     b, s, nh = 32, 256, H // 128
     qkv = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
@@ -411,6 +437,7 @@ def train_bwd_times(K, dev, gen, drop, iters: int) -> dict:
     out["d128_bwd_ms"] = both_ms(
         lambda: K.seg_attention_bwd(qkv, dctx, mask, st, nh, drop=drop),
         iters)
+    out["d128_sdpa_ms"] = sdpa_times(qkv, dctx, mask, nh, iters)
     # layer_norm x2 with statistics, as a training layer runs it
     x = (torch.randn(8192, H, generator=gen) * 2).to(dev)
     ls = (1 + 0.1 * torch.randn(H, generator=gen)).to(dev)

@@ -34,14 +34,13 @@
 // Three pairs; the caller names the instance (ops/kernels.py,
 // attn_instance: the one rule) and nbk_seg_attention_bwd runs it or
 // refuses:
-//   d = 64 or 96, S <= 256  the wgmma pair (every DSTC2 bucket: 64, 96,
-//                           160, 256)
+//   d = 64, S <= 512        the wgmma pair (every DSTC2 bucket: 64, 96,
+//   d = 96, S <= 256        160, 256; at d = 64 BERT's 512 positions,
+//                           long length buckets and packed rows too)
 //   d = 192, S <= 256       the d = 192 wgmma pair (section 4; the CLI's
 //                           from-scratch heads, every DSTC2 bucket)
-//   d = 64, 96 or 192,      the mma.sync pair (a wgmma dq kernel there
-//   256 < S <= 512          would need the forward's two key windows; at
-//                           d = 96 K and V would take 192 KB, at d = 192
-//                           K alone 192 KB)
+//   d = 96 or 192,          the mma.sync pair (at d = 96 K and V would
+//   256 < S <= 512          take 192 KB, at d = 192 K alone 192 KB)
 //   every other d <= 256    the mma.sync pair, on its instance of width
 //   with d % 8 == 0         32, 64, 96, 128, 192 or 256 (attention.cuh,
 //                           instance_width: a d between two widths runs
@@ -60,16 +59,24 @@
 // / 2 probs a thread in registers; then per 64-key chunk dP = dO V^T for
 // di, and again for ds, whose bf16 values are packed in registers as the
 // A fragments of dq += ds K (per chunk at d = 64; at d = 96 all chunks'
-// ds first, then one product).  At d = 64 a block is one warpgroup and
-// one query tile; at d = 96, where K and V take 96 KB at S = 256, a block
+// ds first, then one product).  At d = 64 and S <= 256 a block is one
+// warpgroup and one query tile; at d = 96, where K and V take 96 KB at S
+// = 256, and at d = 64 past 256 keys (K and V 128 KB at S = 512), a block
 // is one (element, head) and a run of its query tiles (double-buffered Q
 // and dO), with two warpgroups that share K and V and split each tile's
 // keys, adding their halves of di and dq through shared memory: a thread
-// then holds half a window's probs and dP, where a whole window's probs
-// alone (one warpgroup a tile) spilled at 256 keys.  The
+// then holds half a window's probs (and at d = 96 its dP), where a whole
+// window's probs alone (one warpgroup a tile) spilled at 256 keys at d =
+// 96 and could not be held at 512 at d = 64.  Past 256 keys the forward
+// splits a row into two 256-key windows, but each window's scores are
+// m64n64k16 chunks from a multiple of 64, so any split into whole 64-key
+// chunks rebuilds them bit for bit: the d = 64 dq kernel's warpgroups take
+// halves of S rounded up to 128 (dq64x2_wgmma_kernel).  The
 // dkv kernel holds its 64 keys' K and V and copies the head's Q and dO a
-// tile at a time into two buffers (so three blocks fit an SM at d = 64,
-// two at 96); per query tile it issues S and dP the same way with the
+// tile at a time into two buffers (so three blocks fit an SM at d = 64
+// and S <= 256; two at 96, and past 256 keys, where each query's
+// statistics and keep bits take 14 KB at S = 512); per query tile it
+// issues S and dP the same way with the
 // queries as rows (the forward's orientation), rebuilds p, and stores
 // drop(p) and ds as bf16 tiles in shared memory, which dV += drop(p)^T dO
 // and dK += ds^T Q read transposed (MN-major; at d = 96 m64n64k16 on
@@ -478,7 +485,7 @@ int launch(const Operands& a, cudaStream_t stream) {
 }
 
 // -------------------------------------------------------------------- //
-// 3. The wgmma pair: d = 64 and 96, S <= 256
+// 3. The wgmma pair: d = 64, S <= 512; d = 96, S <= 256
 // -------------------------------------------------------------------- //
 
 template <int NK, int D>
@@ -499,16 +506,29 @@ struct BwdShape {
   static constexpr int DQ2_SMEM = 1024 + 2 * NK * ROWB + 4 * QTB + NK * 4 +
                                   2 * QT * 4 + 48 * 128 * 4 +
                                   QT * KSTRIDE * 4;
+  // dq at d = 64 past 256 keys (two warpgroups, a run of query tiles):
+  // slack, K, V, a Q and two dO tiles, the key segment ids, the di halves,
+  // the probs each thread parks (NK / 8 f32 from 64-key chunks, rounded
+  // down; then the 16 dq sums the warpgroups hand each other), the tile's
+  // keep table: 223.75 KB at NK = 512
+  static constexpr int DQ64X2_SMEM = 1024 + 2 * NK * 128 + 3 * QTILE +
+                                     NK * 4 + 2 * QT * 4 +
+                                     2 * (NK / 256) * 32 * 128 * 4 +
+                                     QT * KSTRIDE * 4;
   // dkv: slack, two Q and two dO tiles, the K and V tiles, the P and dS
   // tiles (64 x 64), the segment ids, each query's m, l, 1 / l and di, the
   // keep table (2 words a query)
   static constexpr int DKV_SMEM = 1024 + 6 * QTB + 2 * QTILE + NQ * 4 +
                                   4 * NQ * 4 + NQ * 2 * 4;
-  // dq blocks an SM runs at d = 64 (registers: NK / 2 probs a thread
-  // beside the 32 dq sums; shared memory: two at 256); dkv blocks: three
-  // at d = 64, two at 96 (its accumulators, 2 x 48 a thread)
+  // dq blocks an SM runs at d = 64, S <= 256 (registers: NK / 2 probs a
+  // thread beside the 32 dq sums; shared memory: two at 256); dkv blocks:
+  // as many as an SM's 228 KB holds (1 KB reserved a block), at most three
+  // (170 registers a thread at d = 64): three at d = 64 and S <= 256, two
+  // at 96 and past 256 keys (79 KB at NK = 512)
   static constexpr int DQ_BLOCKS = NK <= 96 ? 3 : 2;
-  static constexpr int DKV_BLOCKS = D == 96 ? 2 : 3;
+  static constexpr int DKV_BLOCKS =
+      228 * 1024 / (DKV_SMEM + 1024) < 3 ? 228 * 1024 / (DKV_SMEM + 1024)
+                                         : 3;
 };
 
 // The prob dropout of a W-key fragment x (thread rows ra, ra + 8 of the
@@ -540,8 +560,10 @@ __device__ __forceinline__ void rebuild_probs(float* sc, float ma, float mb,
                     : div_row(expf(sc[i] - ma), la, rla);
 }
 
-// dq kernel, sweep 1 over a W-key chunk: di += rowsum(drop(dO V^T) * p).
-template <int W, bool DROP>
+// dq kernel, sweep 1 over a W-key chunk: di += rowsum(drop(dO V^T) * p),
+// p[i * PS] the chunk's probs (in registers, or parked in shared memory
+// 128 floats apart).
+template <int W, bool DROP, int PS = 1>
 __device__ __forceinline__ void di_chunk(const float* p,
                                          const unsigned char* sO,
                                          const unsigned char* sVc,
@@ -557,16 +579,17 @@ __device__ __forceinline__ void di_chunk(const float* p,
 #pragma unroll
   for (int i = 0; i < W / 2; ++i) {
     if (i & 2)
-      db = fmaf(dp[i], p[i], db);
+      db = fmaf(dp[i], p[i * PS], db);
     else
-      da = fmaf(dp[i], p[i], da);
+      da = fmaf(dp[i], p[i * PS], da);
   }
 }
 
 // dq kernel, sweep 2 over a W-key chunk: dP again, ds = bf16(p (dp - di)
-// sm_scale) packed in registers as the A fragments of acc += ds K.  Waits
-// for the product, so the next chunk may reuse the fragment registers.
-template <int W, bool DROP>
+// sm_scale) packed in registers as the A fragments of acc += ds K; p[i *
+// PS] as in di_chunk.  Waits for the product, so the next chunk may reuse
+// the fragment registers.
+template <int W, bool DROP, int PS = 1>
 __device__ __forceinline__ void dq_chunk(float (&acc)[32], const float* p,
                                          const unsigned char* sO,
                                          const unsigned char* sVc,
@@ -585,8 +608,9 @@ __device__ __forceinline__ void dq_chunk(float (&acc)[32], const float* p,
   for (int i = 0; i < W / 2; i += 2) {
     const float di = (i & 2) ? db : da;
     pa[i / 2] = pack_bf16x2(
-        __fmul_rn(__fmul_rn(p[i], __fsub_rn(dp[i], di)), sm_scale),
-        __fmul_rn(__fmul_rn(p[i + 1], __fsub_rn(dp[i + 1], di)), sm_scale));
+        __fmul_rn(__fmul_rn(p[i * PS], __fsub_rn(dp[i], di)), sm_scale),
+        __fmul_rn(__fmul_rn(p[(i + 1) * PS], __fsub_rn(dp[i + 1], di)),
+                  sm_scale));
   }
   wgmma_fence();
 #pragma unroll
@@ -929,7 +953,207 @@ __global__ void __launch_bounds__(256, 1)
       NBK_DQ96_TILE(NK - KW0, KW0);
 #undef NBK_DQ96_TILE
     // the next tile's Q and dO have landed; this tile's buffers, keep
-    // table, sDi and sRed are free
+    // table, sDi and sPk are free
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+  }
+}
+
+// The dq kernel at d = 64 past 256 keys (NK = 384 or 512: S rounded up
+// to 128): one block per (element, head) and a run of its 64-query tiles,
+// its two warpgroups sharing the head's K and V (NK rows, 128 KB at S =
+// 512, so one block an SM, which then issues the elementwise work from 8
+// warps) and each tile, whose keys they split in halves of whole 64-key
+// chunks: warpgroup w takes keys w NK / 2 .. (w + 1) NK / 2 - 1, NK / 4
+// probs a thread, what the one-warpgroup kernel holds at 256 keys.  It
+// keeps the first of its chunks' probs in registers and parks the last
+// half of its chunks (rounded down) in shared memory (sPk): those are
+// rebuilt first, from their own score product, and the sweeps read them
+// from there in their turn.  Per 64-key chunk it issues dP twice, for di
+// and then for ds and dq += ds K (di_chunk, dq_chunk), as the
+// one-warpgroup kernel does.  Register pressure set this shape: at 512
+// keys, with every prob in registers or one chunk parked, ptxas spilled
+// the dropout instance (and serialized its wgmma); half parked, it takes
+// 234 registers.  Q is read by the score products alone, so one Q buffer,
+// refilled once both warpgroups' products are done, leaves room for the
+// parked probs (223.75 KB at 512 keys); the dO tiles stay double-buffered.
+// The halves of di meet in sDi, those of dq in the parking slots (the
+// first warpgroup sums and stores columns 0-31, the second 32-63).  Both
+// warpgroups run one code path: a half is an offset into K, V, the
+// segment ids and the keep table, not a template argument, so no wgmma is
+// issued on a divergent path.
+template <int NK, bool DROP>
+__global__ void __launch_bounds__(256, 1)
+    dq64x2_wgmma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, int ld,
+                        const bf16* __restrict__ dctx,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ stats,
+                        float* __restrict__ di, bf16* __restrict__ dq,
+                        int ld_g, int S, int tpb, float sm_scale,
+                        DropParams drop) {
+  using Sh = BwdShape<NK, WD>;
+  // a warpgroup's keys, its 64-key chunks whose probs stay in registers,
+  // and those it parks (the last, half of them rounded down)
+  constexpr int KW = NK / 2, PC = KW / 128, RC = KW / 64 - PC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sK =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sV = sK + NK * 128;
+  unsigned char* sQ = sV + NK * 128;  // Q, then dO, dO
+  unsigned char* sO = sQ + QTILE;
+  float* sM = reinterpret_cast<float*>(sO + 2 * QTILE);
+  float* sDi = sM + NK;        // each warpgroup's half of di, per row
+  float* sPk = sDi + 2 * QT;   // parked probs: 32 PC a thread, j * 128 + tid
+  unsigned* keep = reinterpret_cast<unsigned*>(sPk + 2 * 32 * PC * 128);
+
+  const int head = blockIdx.y, elem = blockIdx.z, n_heads = gridDim.y;
+  const int H = n_heads * WD;
+  const int t_end = min((S + QT - 1) / QT, (int)(blockIdx.x + 1) * tpb);
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * n_heads + head) * S;  // Philox row of query 0
+  const size_t bhs = (size_t)gridDim.z * n_heads * S;
+  const size_t off = row0 * ld + head * WD;
+  const bf16* o_src = dctx + row0 * H + head * WD;
+  const float nan = __int_as_float(0x7fc00000);
+  int t = blockIdx.x * tpb;
+
+  // key segment ids (NaN past S: such a key matches no query), K, V and
+  // the first tile's Q and dO
+  for (int j = threadIdx.x; j < NK; j += 256)
+    sM[j] = j < S ? mask[row0 + j] : nan;
+  copy_rows(sK, k + off, ld, 0, NK, S, threadIdx.x, 256);
+  copy_rows(sV, v + off, ld, 0, NK, S, threadIdx.x, 256);
+  copy_rows(sQ, q + off, ld, t * QT, QT, S, threadIdx.x, 256);
+  copy_rows(sO, o_src, H, t * QT, QT, S, threadIdx.x, 256);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ra = (tid >> 5) * 16 + g;
+  const int k0 = wg * KW;  // this warpgroup's first key
+  const int kp = k0 + 64 * RC;  // its first parked key
+  // this thread's parking slots (which later carry the dq sums it hands
+  // its partner)
+  float* park = sPk + wg * 32 * PC * 128 + tid;
+  for (int i = 0; t < t_end; ++i, ++t) {
+    const unsigned char* sOt = sO + (i & 1) * QTILE;
+    if (t + 1 < t_end)  // the next tile's dO into the other buffer
+      copy_rows(sO + ((i + 1) & 1) * QTILE, o_src, H, (t + 1) * QT, QT, S,
+                threadIdx.x, 256);
+    cp_async_commit();
+    const int q0 = t * QT, qa = q0 + ra, qb = qa + 8;
+    // a query row past S matches no key, and m = 0 makes its p 0
+    const float qma = qa < S ? sM[qa] : nan, qmb = qb < S ? sM[qb] : nan;
+    const float ma = qa < S ? stats[prow0 + qa] : 0.f;
+    const float mb = qb < S ? stats[prow0 + qb] : 0.f;
+    const float la = qa < S ? stats[bhs + prow0 + qa] : 1.f;
+    const float lb = qb < S ? stats[bhs + prow0 + qb] : 1.f;
+    const float rla = __frcp_rn(la), rlb = __frcp_rn(lb);
+    {  // the parked chunks' probs, first
+      float sp[32 * PC];
+      issue_scores<64 * PC>(sp, sQ, fresh(sK) + kp * 128);
+      if (DROP)  // the tile's keep bits while the product runs
+        build_keep(keep, QT, Sh::WORDS, Sh::KSTRIDE, drop, prow0 + q0, 0,
+                   threadIdx.x, 256);
+      wgmma_wait<0>();
+      fence_acc(sp);
+      float xa = -INFINITY, xb = -INFINITY;  // row maxima: the saved ones
+      mask_scores<64 * PC>(sp, sM + kp, qma, qmb, sm_scale, t4, xa, xb);
+      rebuild_probs<32 * PC>(sp, ma, mb, la, lb, rla, rlb);
+#pragma unroll
+      for (int j = 0; j < 32 * PC; ++j) park[j * 128] = sp[j];
+    }
+    float sc[32 * RC];
+    issue_scores<64 * RC>(sc, sQ, fresh(sK) + k0 * 128);
+    wgmma_wait<0>();
+    fence_acc(sc);
+    float xa = -INFINITY, xb = -INFINITY;
+    mask_scores<64 * RC>(sc, sM + k0, qma, qmb, sm_scale, t4, xa, xb);
+    rebuild_probs<32 * RC>(sc, ma, mb, la, lb, rla, rlb);
+    __syncthreads();  // the keep table is complete; Q is read
+    if (t + 1 < t_end)  // the next tile's Q
+      copy_rows(sQ, q + off, ld, (t + 1) * QT, QT, S, threadIdx.x, 256);
+    cp_async_commit();
+
+    // sweep 1: this half of di = rowsum(dp * p)
+    float da = 0.f, db = 0.f;
+#pragma unroll
+    for (int c = 0; c < RC; ++c)
+      di_chunk<64, DROP>(sc + 32 * c, sOt, fresh(sV) + (k0 + 64 * c) * 128,
+                         keep, Sh::KSTRIDE, ra, k0 + 64 * c, t4,
+                         drop.inv_keep, da, db);
+#pragma unroll
+    for (int c = 0; c < PC; ++c)
+      di_chunk<64, DROP, 128>(park + 32 * c * 128, sOt,
+                              fresh(sV) + (kp + 64 * c) * 128, keep,
+                              Sh::KSTRIDE, ra, kp + 64 * c, t4,
+                              drop.inv_keep, da, db);
+    da = quad_sum(da);
+    db = quad_sum(db);
+    if (t4 == 0) {
+      sDi[wg * QT + ra] = da;
+      sDi[wg * QT + ra + 8] = db;
+    }
+    __syncthreads();
+    da = sDi[ra] + sDi[QT + ra];
+    db = sDi[ra + 8] + sDi[QT + ra + 8];
+    if (wg == 0 && t4 == 0) {
+      if (qa < S) di[prow0 + qa] = da;
+      if (qb < S) di[prow0 + qb] = db;
+    }
+
+    // sweep 2: this half of dq = sum over its keys of bf16(p (dp - di)
+    // sm_scale) k
+    float acc[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < RC; ++c)
+      dq_chunk<64, DROP>(acc, sc + 32 * c, sOt,
+                         fresh(sV) + (k0 + 64 * c) * 128,
+                         fresh(sK) + (k0 + 64 * c) * 128, keep, Sh::KSTRIDE,
+                         ra, k0 + 64 * c, t4, drop.inv_keep, da, db,
+                         sm_scale);
+#pragma unroll
+    for (int c = 0; c < PC; ++c)
+      dq_chunk<64, DROP, 128>(acc, park + 32 * c * 128, sOt,
+                              fresh(sV) + (kp + 64 * c) * 128,
+                              fresh(sK) + (kp + 64 * c) * 128, keep,
+                              Sh::KSTRIDE, ra, kp + 64 * c, t4,
+                              drop.inv_keep, da, db, sm_scale);
+    fence_acc(acc);
+    // the halves meet: each thread hands its partner in the other
+    // warpgroup (the same fragment) the sums of the columns it does not
+    // store -- acc[4 jj + e] is column 8 jj + 2 t (+ 1) -- in its own
+    // parking slots, and adds the partner's to its own (a + b: the same
+    // bits either way round); selects, not an index by wg, keep acc in
+    // registers
+#pragma unroll
+    for (int j = 0; j < 16; ++j) park[j * 128] = wg ? acc[j] : acc[16 + j];
+    __syncthreads();
+    const float* theirs = sPk + (1 - wg) * 32 * PC * 128 + tid;
+    float mine[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mine[j] = (wg ? acc[16 + j] : acc[j]) + theirs[j * 128];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = head * WD + (4 * wg + jj) * 8 + 2 * t4;
+      if (qa < S)
+        *reinterpret_cast<unsigned*>(dq + (row0 + qa) * ld_g + col) =
+            pack_bf16x2(mine[4 * jj], mine[4 * jj + 1]);
+      if (qb < S)
+        *reinterpret_cast<unsigned*>(dq + (row0 + qb) * ld_g + col) =
+            pack_bf16x2(mine[4 * jj + 2], mine[4 * jj + 3]);
+    }
+    // the next tile's Q and dO have landed; this tile's dO buffer, keep
+    // table, sDi and sPk are free
     cp_async_wait<0>();
     fence_proxy_async();
     __syncthreads();
@@ -1611,27 +1835,39 @@ __global__ void __launch_bounds__(256, 1)
 
 long long wgmma_launches[3] = {0, 0, 0};  // the wgmma pairs at d = 64, 96, 192
 
+// Makes dynamic shared memory of smem bytes available to a two-warpgroup
+// dq kernel and reads how many of its blocks an SM runs into per_sm.
+template <typename Kernel>
+cudaError_t prepare_dq2(Kernel kernel, int smem, int* per_sm) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, 256,
+                                                      smem);
+  return e == cudaSuccess && *per_sm == 0 ? cudaErrorInvalidConfiguration
+                                          : e;
+}
+
 template <int NK, int D, bool DROP>
 int launch_wgmma(const Operands& a, cudaStream_t stream) {
   using Sh = BwdShape<NK, D>;
-  static int dq_per_sm = 0;  // dq blocks an SM runs (d = 96)
+  // the dq kernel: one warpgroup a query tile at d = 64 and S <= 256; two
+  // warpgroups a block and a run of query tiles at d = 96
+  // (dq96_wgmma_kernel) and at d = 64 past 256 keys (dq64x2_wgmma_kernel)
+  constexpr bool ONE = D == 64 && NK <= 256;
+  static int dq_per_sm = 0;  // dq blocks an SM runs (two warpgroups)
   static bool ready = false;
   if (!ready) {
     cudaError_t e;
-    if constexpr (D == 64) {
+    if constexpr (ONE)
       e = cudaFuncSetAttribute(dq_wgmma_kernel<NK, DROP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Sh::DQ_SMEM);
-    } else {
-      e = cudaFuncSetAttribute(dq96_wgmma_kernel<NK, DROP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Sh::DQ2_SMEM);
-      if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &dq_per_sm, dq96_wgmma_kernel<NK, DROP>, 256, Sh::DQ2_SMEM);
-      if (e == cudaSuccess && dq_per_sm == 0)
-        e = cudaErrorInvalidConfiguration;
-    }
+    else if constexpr (D == 64)
+      e = prepare_dq2(dq64x2_wgmma_kernel<NK, DROP>, Sh::DQ64X2_SMEM,
+                      &dq_per_sm);
+    else
+      e = prepare_dq2(dq96_wgmma_kernel<NK, DROP>, Sh::DQ2_SMEM, &dq_per_sm);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(dkv_wgmma_kernel<NK, D, DROP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1641,17 +1877,24 @@ int launch_wgmma(const Operands& a, cudaStream_t stream) {
   }
   const int n_qt = (a.S + QT - 1) / QT;
   dim3 grid(n_qt, a.n_heads, a.B);
-  if constexpr (D == 64) {
+  if constexpr (ONE) {
     dq_wgmma_kernel<NK, DROP><<<grid, 128, Sh::DQ_SMEM, stream>>>(
         a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dq, a.ld_g,
         a.S, a.sm_scale, a.drop);
   } else {
+    // a tile runs on both warpgroups, each over half the keys
     const int tpb = tiles_per_block(n_qt, a.B * a.n_heads,
                                     dq_per_sm * sm_count(), 2);
     dim3 dq_grid((n_qt + tpb - 1) / tpb, a.n_heads, a.B);
-    dq96_wgmma_kernel<NK, DROP><<<dq_grid, 256, Sh::DQ2_SMEM, stream>>>(
-        a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dq, a.ld_g,
-        a.S, tpb, a.sm_scale, a.drop);
+    if constexpr (D == 64)
+      dq64x2_wgmma_kernel<NK, DROP><<<dq_grid, 256, Sh::DQ64X2_SMEM,
+                                      stream>>>(
+          a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dq, a.ld_g,
+          a.S, tpb, a.sm_scale, a.drop);
+    else
+      dq96_wgmma_kernel<NK, DROP><<<dq_grid, 256, Sh::DQ2_SMEM, stream>>>(
+          a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dq, a.ld_g,
+          a.S, tpb, a.sm_scale, a.drop);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -1701,7 +1944,9 @@ int launch_wgmma192(const Operands& a, cudaStream_t stream) {
 }
 
 // the window: S rounded up to 32 (64 at least; 224 to 256), as the
-// forward's
+// forward's; past 256 keys (d = 64) S rounded up to 128, so that each dq
+// warpgroup takes whole 64-key chunks (the forward's two 256-key windows:
+// any whole chunks give its scores)
 template <int D, bool DROP>
 int launch_wgmma_s(const Operands& a, cudaStream_t stream) {
   if (a.S <= 64) return launch_wgmma<64, D, DROP>(a, stream);
@@ -1710,6 +1955,10 @@ int launch_wgmma_s(const Operands& a, cudaStream_t stream) {
   if (a.S <= 160) return launch_wgmma<160, D, DROP>(a, stream);
   if (a.S <= 192) return launch_wgmma<192, D, DROP>(a, stream);
   if (a.S <= 256) return launch_wgmma<256, D, DROP>(a, stream);
+  if constexpr (D == WD) {
+    if (a.S <= 384) return launch_wgmma<384, D, DROP>(a, stream);
+    if (a.S <= 512) return launch_wgmma<512, D, DROP>(a, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1734,10 +1983,10 @@ extern "C" {
 // aligned, ld_g even: the q | k | v column blocks of one (B*S, 3h)
 // buffer, or (B, S, n_heads, d) tensors); di (B, n_heads, S) f32 is
 // scratch (rowsum(dp * p)).  d <= 256 with d % 8 == 0, S <= 512, on
-// the instance the caller names: 0, the wgmma pair (d = 64, 96 or 192, S
-// <= 256), or the width of a mma.sync pair (32, 64, 96, 128, 192 or 256, at
-// least d); any other instance, d or S is refused.  The prob dropout as
-// in the forward.
+// the instance the caller names: 0, the wgmma pair (d = 64; d = 96 or
+// 192, S <= 256), or the width of a mma.sync pair (32, 64, 96, 128, 192
+// or 256, at least d); any other instance, d or S is refused.  The prob
+// dropout as in the forward.
 int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
                           int ld, const void* dctx, const float* mask,
                           const float* stats, float* di, void* dq, void* dk,
@@ -1767,7 +2016,7 @@ int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
   a.drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   if (S <= 0 || d <= 0 || d % 8) return (int)cudaErrorInvalidValue;
-  if (instance == 0) {  // S > 256 is refused by launch_wgmma_s
+  if (instance == 0) {  // S > 256 at d = 96 or 192 is refused below
     if (d == WD)
       return a.drop.on ? launch_wgmma_s<64, true>(a, s)
                        : launch_wgmma_s<64, false>(a, s);

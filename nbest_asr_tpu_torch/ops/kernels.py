@@ -67,9 +67,8 @@ d <= 256 with d % 8 == 0: each runs on the narrowest ``mma.sync``
 instance of width 32, 64, 96, 128, 192 or 256 at least d wide, its
 columns past d zero-filled on load and never stored
 (``csrc/attention.cuh``, ``instance_width``), or on a ``wgmma`` kernel:
-the tiled trio at d = 64, ``seg_attention`` at d = 64 (s <= 512), 96 and
-192 (s <= 256), ``seg_attention_bwd`` at d = 64, 96 and 192 (s <= 256),
-counted
+the tiled trio at d = 64, ``seg_attention`` and ``seg_attention_bwd`` at
+d = 64 (s <= 512), 96 and 192 (s <= 256), counted
 also by ``seg_attention_wgmma_launches`` and
 ``seg_attention_bwd_wgmma_launches``.  ``attn_instance`` is the one rule
 that picks the single-block pair's instance: the wrappers pass its choice
@@ -147,9 +146,8 @@ def attn_head_dim_ok(d: int) -> bool:
 
 def attn_instance(d: int, s: int, backward: bool = False):
     """The instance ``seg_attention`` (``backward``: ``seg_attention_bwd``)
-    runs at head dim d and sequence length s: ``"wgmma"`` at d = 64 (the
-    forward to s = 512, the backward to 256), d = 96 and d = 192 (s <=
-    256), else
+    runs at head dim d and sequence length s: ``"wgmma"`` at d = 64 (both
+    to s = 512), d = 96 and d = 192 (s <= 256), else
     the width of its ``mma.sync`` instance, the narrowest of 32, 64, 96,
     128, 192 and 256 at least d wide; None where the wrappers refuse (d
     outside ``attn_head_dim_ok``, s outside 1 .. 512).  The wrappers pass
@@ -158,7 +156,7 @@ def attn_instance(d: int, s: int, backward: bool = False):
     ran."""
     if not attn_head_dim_ok(d) or not 0 < s <= MAX_SEQ:
         return None
-    if d == 64 and not backward or d in (64, 96, 192) and s <= 256:
+    if d == 64 or d in (96, 192) and s <= 256:
         return "wgmma"
     return next(w for w in (32, 64, 96, 128, 192, 256) if w >= d)
 

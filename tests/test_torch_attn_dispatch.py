@@ -14,7 +14,7 @@ from nbest_asr_tpu_torch.ops import kernels as K
 
 # the instance table: (d, s) -> (forward, backward)
 TABLE = {(64, 20): ("wgmma", "wgmma"), (64, 256): ("wgmma", "wgmma"),
-         (64, 257): ("wgmma", 64), (64, 512): ("wgmma", 64),
+         (64, 257): ("wgmma", "wgmma"), (64, 512): ("wgmma", "wgmma"),
          (96, 1): ("wgmma", "wgmma"), (96, 256): ("wgmma", "wgmma"),
          (96, 257): (96, 96), (96, 512): (96, 96),
          (48, 160): (64, 64), (72, 160): (96, 96), (80, 256): (96, 96),
@@ -89,8 +89,9 @@ class _FakeLib:
 
 @pytest.mark.usefixtures("keep_launch_counts")
 @pytest.mark.parametrize("layout", ["qkv", "bshd"])
-@pytest.mark.parametrize("d,s", [(64, 300), (96, 256), (96, 257), (88, 160),
-                                 (128, 64), (192, 256), (192, 300)])
+@pytest.mark.parametrize("d,s", [(64, 300), (64, 512), (96, 256), (96, 257),
+                                 (88, 160), (128, 64), (192, 256),
+                                 (192, 300)])
 def test_wrappers_pass_attn_instance_to_the_kernels(monkeypatch, layout, d,
                                                     s):
     """The four wrappers hand the library ``attn_instance``'s choice (0

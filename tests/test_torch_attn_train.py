@@ -65,7 +65,8 @@ def _torch_grads(fn, args, mask, **kw):
 
 
 @pytest.mark.parametrize("b,s,kind", [(2, 64, "padded"), (3, 20, "padded"),
-                                      (2, 48, "packed")])
+                                      (2, 48, "packed"), (1, 300, "padded"),
+                                      (1, 512, "packed")])
 def test_forward_and_all_gradients_match_pallas(b, s, kind):
     args, mask = _inputs(b, s, kind, seed=b * 100 + s)
 

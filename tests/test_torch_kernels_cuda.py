@@ -652,13 +652,16 @@ def test_seg_attention_dropout_and_stats(dev, s, d, packed, rate):
 
 
 # the backward's (batch, seq, heads, d) cases: 2 elements of 4 heads at
-# d = 64, 128, 96 and ragged lengths, the four buckets and past 256; at d
+# d = 64, 128, 96 and ragged lengths, the four buckets and past 256 (at d
+# = 64 also 300 and 400, the wgmma pair's two instances past 256: S
+# rounded up to 384 and 512); at d
 # = 96 also each DSTC2 training micro of the 8192-token budget at the
 # quality tools' 8 heads (128 x 64, 80 x 96, 48 x 160, 32 x 256), ragged
 # 130 and 200, and 300 (past the wgmma pair); the same at d = 192 at the
 # CLI's from-scratch 4 heads
 BWD_CASES = ([pytest.param(2, s, 4, d, id=f"{s}-{d}")
               for s in (20, 64, 96, 160, 256, 512) for d in (64, 128, 96)]
+             + [pytest.param(2, s, 4, 64, id=f"{s}-64") for s in (300, 400)]
              + [pytest.param(b, s, nh, d, id=f"{b}x{s}-{d}x{nh}")
                 for d, nh in ((96, 8), (192, 4))
                 for b, s in ((128, 64), (80, 96), (48, 160), (32, 256),
@@ -765,6 +768,66 @@ def test_d192_backward_regenerates_the_forward_prob_mask(dev, onehot_k):
     192 wgmma forward's keep bits and probs, bit for bit."""
     assert K.attn_instance(192, 192, backward=True) == "wgmma"
     _mask_regenerated(dev, 192, onehot_k)
+
+
+@pytest.mark.parametrize("s", [300, 512])
+def test_long_backward_regenerates_the_forward_prob_mask(dev, s):
+    """Past 256 keys at d = 64 the forward splits each row into two
+    256-key score windows and the backward's dQ warpgroups into halves of
+    S rounded up to 128: the rebuilt probs must equal the forward's on
+    both sides of key 256.  V one-hot on one 64-key chunk at a time (key
+    64 c + j has row e_j, every other key's V is 0) makes the forward's
+    ctx that chunk's dropped probs rounded to bf16; dO one-hot on one
+    64-query chunk at a time makes the dK/dV kernel's dV those queries'
+    probs as the backward rebuilds them, for every key.  Both are 0
+    exactly where the stream-3 keep bits drop, and equal, with no element
+    that differs; every launch runs on the d = 64 wgmma kernels."""
+    from nbest_asr_tpu_torch.ops.philox import keep_mask
+
+    b, nh, d = 2, 2, 64
+    h = nh * d
+    assert K.attn_instance(d, s, backward=True) == "wgmma"
+    qkv = _rand(dev, b * s, 3 * h, std=0.5, seed=s)
+    mask = torch.ones(b, s, device=dev)
+    mask[1, s - s // 5:] = 0.0           # pads attend pads
+    drop = _drop(0.1, 3, seed=4321)
+    keep = keep_mask(4321, 3, 0, b * nh * s, s, 0.1, dev).reshape(b, nh, s,
+                                                                    s)
+    n_chunks = (s + 63) // 64
+    p_fwd = torch.zeros(b, nh, s, n_chunks * 64, device=dev,
+                        dtype=torch.bfloat16)
+    p_bwd = torch.zeros(b, nh, n_chunks * 64, s, device=dev,
+                        dtype=torch.bfloat16)
+    n0 = (K.seg_attention_wgmma_launches(d),
+          K.seg_attention_bwd_wgmma_launches(d))
+    st = None
+    for c in range(n_chunks):
+        rows = torch.arange(s, device=dev)
+        inside = (rows >= 64 * c) & (rows < 64 * c + 64)
+        onehot = torch.zeros(s, d, device=dev, dtype=torch.bfloat16)
+        onehot[inside, rows[inside] - 64 * c] = 1.0
+        for hd in range(nh):
+            c0 = 2 * h + hd * d
+            qkv[:, c0:c0 + d] = onehot.repeat(b, 1)
+        ctx, st = K.seg_attention(qkv, mask, nh, drop=drop, stats=True)
+        p_fwd[..., 64 * c:64 * c + 64] = ctx.reshape(b, s, nh, d).permute(
+            0, 2, 1, 3)
+        d_v = K.seg_attention_bwd(qkv, onehot.repeat(b, nh).contiguous(),
+                                  mask, st, nh, drop=drop)
+        p_bwd[:, :, 64 * c:64 * c + 64] = d_v[:, 2 * h:].reshape(
+            b, s, nh, d).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    assert (K.seg_attention_wgmma_launches(d) - n0[0],
+            K.seg_attention_bwd_wgmma_launches(d) - n0[1]) == (n_chunks,
+                                                              n_chunks)
+    p_fwd, p_bwd = p_fwd[..., :s], p_bwd[:, :, :s]
+    same = (mask[:, None, :, None] == mask[:, None, None, :])
+    assert torch.equal(p_fwd != 0, keep & same)
+    assert torch.equal(p_bwd != 0, keep & same)
+    n_diff = int((p_fwd != p_bwd).sum())
+    print(f"rebuilt probs at s = {s}: {n_diff} of {keep.numel()} differ in "
+          f"bf16")
+    assert n_diff == 0
 
 
 def _mask_regenerated(dev, d, onehot_k):
