@@ -28,8 +28,11 @@ whose kernels a change to the d = 192 instances must leave alone: d = 64
 at every bucket, ragged lengths and past 256, on the QKV buffer and on (b,
 s, heads, d) tensors; d = 96 at every bucket (its wgmma pair); the
 mma.sync instances at d = 32, 80, 128, 136 (on the 192-wide instance) and
-at d = 96 and 192 past 256.  ``compare`` holds two dumps bit for bit and names the
-cases that differ.
+at d = 96 and 192 past 256; and the tiled trio (``flash_fwd``: o and
+lse; ``flash_bwd_dq``: dq and di; ``flash_bwd_dkv``: dk and dv) at s =
+700 and 1024 on q, k, v views of one QKV buffer at d = 64 and 96 (their
+wgmma + TMA instances), 32, 128, 192, 256 and the padded 48 and 80.
+``compare`` holds two dumps bit for bit and names the cases that differ.
 """
 
 from __future__ import annotations
@@ -137,6 +140,11 @@ ATTN_CASES = ([(64, 12, 4, s, "qkv") for s in (64, 96, 130, 160, 256, 300,
                  (128, 6, 4, 256, "qkv"), (136, 4, 4, 256, "qkv")])
 
 
+# attn-dump's tiled cases: (head dim, heads, batch, seq)
+TILED_CASES = [(d, 4, 2, s) for d in (64, 96) for s in (700, 1024)] + [
+    (d, 4, 2, 700) for d in (32, 128, 192, 256, 48, 80)]
+
+
 def attn_dump(out: str) -> None:
     from nbest_asr_tpu_torch.ops import kernels as K
     from nbest_asr_tpu_torch.ops.philox import site
@@ -172,6 +180,25 @@ def attn_dump(out: str) -> None:
             res[f"stats {tag}"] = st.cpu()
             for i, gr in enumerate(grads):
                 res[f"bwd {tag} {i}"] = gr.cpu()
+    for d, nh, b, s in TILED_CASES:
+        h = nh * d
+        q, k, v = (torch.randn(b * s, 3 * h, generator=g) * 0.5).to(
+            dev, torch.bfloat16).view(b, s, 3, nh, d).unbind(2)
+        do = (torch.randn(b, s, nh, d, generator=g) * 0.1).to(
+            dev, torch.bfloat16)
+        mask = torch.ones(b, s)
+        mask[:, s // 3: 2 * s // 3], mask[0, s - s // 4:] = 2.0, 0.0
+        mask = mask.to(dev)
+        sc = d ** -0.5
+        for rate in (0.0, 0.1):
+            tag = f"tiled d {d} x {nh} {b} x {s} rate {rate}"
+            drop = site(78, rate, 3) if rate else None
+            o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
+            dq, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc, drop)
+            dk, dv = K.flash_bwd_dkv(q, k, v, mask, lse, di, do, sc, drop)
+            for name, t in zip(("o", "lse", "dq", "di", "dk", "dv"),
+                               (o, lse, dq, di, dk, dv)):
+                res[f"{name} {tag}"] = t.cpu()
     torch.save(res, out)
     print(f"{len(res)} cases -> {out}")
 

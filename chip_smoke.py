@@ -108,8 +108,9 @@ Phases, each fatal on failure:
    and the tiled ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` (32 x
    1024 and 8 x 2048, d = 64 and 128), padded and packed masks, dropout 0
    and 0.1, checking o, the statistics (row sum, lse, di), dq, dk, dv,
-   and that the three run on their wgmma + TMA kernels exactly at d = 64
-   (``flash_wgmma_launches``); the tiled route forced at s =
+   and that each runs on its wgmma + TMA kernel exactly where
+   ``kernels.FLASH_WGMMA`` names one (here at d = 64;
+   ``flash_wgmma_launches`` by head dim); the tiled route forced at s =
    256 drops exactly the single-block route's probs (a one-hot probe
    against the stream-3 keep bits) and agrees with it in value.  Kernel
    (device) / plain / library (device) / bound ms of the tiled kernels at
@@ -283,10 +284,15 @@ Phases, each fatal on failure:
    256, with ``seg_attention_wgmma_launches(d)`` and
    ``seg_attention_bwd_wgmma_launches(d)`` rising by exactly their
    launches, and on mma.sync past 256 and at d = 48, 80, 88; the tiled
-   trio on no wgmma kernel.  (b) Device ms of the five at d = 96 (the
-   pair at 32 x 256, the trio at 32 x 1024, 8 heads) and of the pair at
-   d = 192 (32 x 256 x 4 heads) beside the plain versions, SDPA's
-   forward or backward alone on the same operands and the bounds.  (c)
+   backward pair on its wgmma + TMA kernels at d = 96
+   (``flash_wgmma_launches(96)`` rising by one launch each), the tiled
+   forward and every other tiled head dim on no wgmma kernel.  (b) Device
+   ms of the five at d = 96 (the pair at 32 x 256, the trio at 32 x 1024,
+   8 heads) and of the pair at d = 192 (32 x 256 x 4 heads), and of the
+   instances (a) checks that no configuration runs -- the trio at d = 192
+   and 256 (8 x 1024), the pair at d = 96 past 256 keys (8 x 512) and at
+   d = 192 (4 x 300) -- beside the plain versions, SDPA's forward or
+   backward alone on the same operands and the bounds.  (c)
    The quality tools' encoder (hidden 768, 8 heads of 96, intermediate
    3072, 4 layers, bf16, dropout 0.1, seed-0 weights) with the CLI's
    "auto" kernel flags on the card (``use_fused_ffn``, ``use_fused_attn``,
@@ -303,8 +309,11 @@ Phases, each fatal on failure:
    leg, the same encoder at 48 x 1024
    (max_position 1024; at 32 rows JAX's ``_flash_preferred`` leaves 8
    heads to the plain path), one counted step on the tiled kernels held
-   to the same step on their plain versions.  Prints step ms and a JSON
-   line of the d = 96 and 192 kernels' times, bounds and launches a step.
+   to the same step on their plain versions, its backward pair on the d =
+   96 wgmma + TMA kernels (``flash_wgmma_launches(96)`` rising by exactly
+   4 launches each, ``flash_fwd``'s by none).  Prints step ms and a JSON
+   line of the d = 96 and 192 kernels' times, bounds and launches a step
+   ("none" for the instances no configuration runs).
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
@@ -2364,6 +2373,28 @@ def attn_wgmma_counts(K) -> dict:
             "flash": K.flash_wgmma_launches()}
 
 
+def flash_wgmma_counts(K) -> dict:
+    """The tiled trio's wgmma launch counters, all (0) and by head dim."""
+    return {w: K.flash_wgmma_launches(w) for w in (0, 64, 96)}
+
+
+def flash_wgmma_delta(K, before: dict) -> dict:
+    """The tiled trio's wgmma launches since ``before`` (a
+    ``flash_wgmma_counts``)."""
+    after = flash_wgmma_counts(K)
+    return {w: {n: after[w][n] - before[w][n] for n in after[w]}
+            for w in after}
+
+
+def flash_wgmma_rise(K, d: int, n: int = 1) -> dict:
+    """What ``flash_wgmma_delta`` reads after n launches of each tiled
+    kernel at head dim d: n where ``kernels.FLASH_WGMMA`` names a wgmma
+    instance at d, at d's own width and at 0, else 0."""
+    return {w: {name: n * int(d in dims and w in (0, d))
+                for name, dims in K.FLASH_WGMMA.items()}
+            for w in (0, 64, 96)}
+
+
 def attn_wgmma_delta(K, before: dict) -> dict:
     """The single-block pair's launches by head dim since ``before`` (an
     ``attn_wgmma_counts``), and whether the tiled trio's are unchanged."""
@@ -2422,8 +2453,10 @@ def check_tiled_trio(K, check, gen, dev, shapes, seed0: int):
     """The tiled kernels (``flash_fwd``, ``flash_bwd_dq``,
     ``flash_bwd_dkv``) against their plain versions at each (b, s, heads,
     d) of ``shapes`` (q, k, v views of one QKV buffer), padded and packed
-    masks, dropout 0 and 0.1: o, lse, di, dq, dk, dv; all three on their
-    wgmma + TMA kernels exactly at d = 64."""
+    masks, dropout 0 and 0.1: o, lse, di, dq, dk, dv; each on its wgmma +
+    TMA kernel exactly at the head dims ``kernels.FLASH_WGMMA`` names (all
+    three at d = 64, the backward pair at d = 96), counted at d's own
+    width."""
     from nbest_asr_tpu_torch.ops.philox import site
 
     for b, s, nh, d in shapes:
@@ -2433,16 +2466,17 @@ def check_tiled_trio(K, check, gen, dev, shapes, seed0: int):
             for rate in (0.0, DROPOUT):
                 tag = f"{b} x {s} x {nh} d {d} {mname} rate {rate}"
                 drop = site(seed0 + s, rate, 3)
-                n0 = K.flash_wgmma_launches()
+                n0 = flash_wgmma_counts(K)
                 o, lse = K.flash_fwd(q, k, v, m, sc, drop)
                 dq, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop)
                 dk, dv = K.flash_bwd_dkv(q, k, v, m, lse, di, do, sc, drop)
                 torch.cuda.synchronize()
-                n1 = K.flash_wgmma_launches()
-                if any(n1[n] - n0[n] != int(d == 64) for n in n1):
+                got = flash_wgmma_delta(K, n0)
+                want = flash_wgmma_rise(K, d)
+                if got != want:
                     raise AssertionError(
-                        f"flash kernels {tag}: wgmma launches {n0} -> {n1}"
-                        "; the wgmma + TMA kernels run exactly at d = 64")
+                        f"flash kernels {tag}: wgmma launches {got}, "
+                        f"expected {want} (kernels.FLASH_WGMMA)")
                 ro, rlse = K.flash_fwd_reference(q, k, v, m, sc, drop)
                 check(f"flash_fwd o {tag}", "flash_fwd", o, ro, False)
                 check.rel(f"flash_fwd lse {tag}", "flash_fwd", lse, rlse,
@@ -3637,24 +3671,33 @@ def pair_times(K, dev, gen, card: str, shapes):
         del q, k, v, do
 
 
+# phase 18 (b)'s timed shapes (b, s, heads, d) and the name suffix of
+# their rows: the d = 96 five and the d = 192 pair where configurations
+# run them, then the instances phase 18 (a) checks that none runs
+HD_TIMED = (((32, 256, HD_NH, HD), f" d{HD}"),
+            ((LONG_BATCH, LONG_SEQ, HD_NH, HD), f" d{HD}"),
+            ((32, 256, CLI_NH, CLI_D), f" d{CLI_D}"),
+            ((8, 1024, 4, 192), " d192 8x1024"),
+            ((8, 1024, 3, 256), " d256 8x1024"),
+            ((8, 512, HD_NH, HD), f" d{HD} 8x512"),
+            ((4, 300, CLI_NH, CLI_D), f" d{CLI_D} 4x300"))
+
+
 def head_dim_times(K, dev, gen, card: str):
     """Device ms of the five attention kernels at d = 96 -- the
     single-block pair at 32 x 256 x 8 heads, the tiled trio at 32 x 1024 x
     8 heads (q, k, v views of one QKV buffer, padded mask, dropout 0.1) --
-    and of the single-block pair at the CLI's from-scratch d = 192 (32 x
-    256 x 4 heads), beside their plain versions, SDPA's forward or
-    backward alone on the same operands, and their bounds.  -> {kernel,
-    with " d192" for the d = 192 pair: (ms, plain ms, library ms, bound
-    ms, bound by)}."""
+    of the single-block pair at the CLI's from-scratch d = 192 (32 x 256 x
+    4 heads), and of the instances no configuration runs (``HD_TIMED``),
+    beside their plain versions, SDPA's forward or backward alone on the
+    same operands, and their bounds.  -> {kernel + its ``HD_TIMED``
+    suffix: (ms, plain ms, library ms, bound ms, bound by)}."""
     from nbest_asr_tpu_torch.ops.philox import site
 
     out = {}
-    for (b, s, nh, d), names in (
-            ((32, 256, HD_NH, HD), ("seg_attention", "seg_attention_bwd")),
-            ((LONG_BATCH, LONG_SEQ, HD_NH, HD),
-             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-            ((32, 256, CLI_NH, CLI_D),
-             ("seg_attention", "seg_attention_bwd"))):
+    for (b, s, nh, d), suffix in HD_TIMED:
+        names = (("seg_attention", "seg_attention_bwd") if s <= 512 else
+                 ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
         q, k, v, do = flash_operands(gen, dev, b, s, nh, d, True)
         m = masks(b, s, gen, dev)[0]
         sc, drop = 1.0 / d ** 0.5, site(400, DROPOUT, 3)
@@ -3693,7 +3736,7 @@ def head_dim_times(K, dev, gen, card: str):
             bounds = flash_bounds(b, s, nh, d)
         for name in names:
             fk, fp, l_ms = fns[name]
-            key = name if d == HD else f"{name} d{d}"
+            key = name + suffix
             out[key] = (device_ms(fk), cuda_ms(fp, iters=1, warmup=1), l_ms,
                         *bounds[name])
             k_ms, p_ms, _, b_ms, b_by = out[key]
@@ -3710,9 +3753,10 @@ def head_dim_times(K, dev, gen, card: str):
 def phase_head_dims(dev, card: str, rig):
     """Phase 18 (module docstring).  -> the launch counts of its
     main-path runs (the steps at 96 / 160 / 256, the d = 192 steps and
-    the tiled leg), the largest errors, and the d = 192 pair's {name: (ms,
-    plain ms, library ms, bound ms, bound by, launches of the d = 192
-    runs)}."""
+    the tiled leg), the largest errors, and the kernels' record rows of
+    the d = 192 pair and the d = 96 tiled trio {name: (ms, plain ms,
+    library ms, bound ms, bound by, launches of the d = 192 runs or of the
+    tiled leg)}."""
     import dataclasses
 
     from nbest_asr_tpu_torch.models.model import init_model_params
@@ -3886,7 +3930,7 @@ def phase_head_dims(dev, card: str, rig):
     micro = long_micros(dstc2_like_memory(), dev, seed=19,
                         batch=HD_LONG_BATCH)[0]
     lidx = np.arange(HD_LONG_BATCH)[None]
-    wgmma0 = K.flash_wgmma_launches()
+    wgmma0 = flash_wgmma_counts(K)
     got = gate_step("head dims", f"d {HD}, {HD_LONG_BATCH} x {LONG_SEQ} "
                     "(tiled), against the same step on the kernels' plain "
                     "versions", cfg_long, hier, p_long, enc_long, enc_long,
@@ -3894,34 +3938,51 @@ def phase_head_dims(dev, card: str, rig):
     hold_counts(f"the tiled leg, one step at {HD_LONG_BATCH} x {LONG_SEQ}",
                 got, {k: PER_LAYER_TRAIN_TILED.get(k, 0) * HD_LAYERS
                       for k in got})
-    if K.flash_wgmma_launches() != wgmma0:
-        raise AssertionError(f"d = {HD} ran the tiled wgmma kernels")
+    # one kernel step: each layer's tiled backward pair on its d = 96
+    # wgmma + TMA kernels, its forward on mma.sync
+    leg = flash_wgmma_delta(K, wgmma0)
+    log(f"[head dims] tiled wgmma launches of the leg's step: {leg}")
+    if leg != flash_wgmma_rise(K, HD, HD_LAYERS):
+        raise AssertionError(f"d = {HD}, the tiled leg: wgmma launches "
+                             f"{leg}, expected "
+                             f"{flash_wgmma_rise(K, HD, HD_LAYERS)}")
+    leg_counts = {k: got[k] for k in K.FLASH_WGMMA}
     counts = {k: counts[k] + got[k] for k in counts}
     def launches_a_step(name):
+        if len(name.split()) > 2:
+            return "none"           # no configuration runs these
         if name.endswith(f" d{CLI_D}"):
             return cli_step[name.split()[0]]
         return HD_LAYERS * N_ACCUM if name.startswith("seg") else HD_LAYERS
 
     def at(name):
-        if name.endswith(f" d{CLI_D}"):
-            return (f"32 x 256 x {CLI_NH} heads, a step of the CLI's "
-                    f"from-scratch default ({CLI_LAYERS_DEFAULT} layers, one "
-                    "micro)")
+        (b, s, nh, d), _ = next(
+            c for c in HD_TIMED if name.endswith(c[1])
+            and (c[0][1] > 512) == name.startswith("flash"))
+        shape = f"{b} x {s} x {nh} heads of {d}"
+        if len(name.split()) > 2:
+            return shape
+        if d == CLI_D:
+            return (f"{shape}, a step of the CLI's from-scratch default "
+                    f"({CLI_LAYERS_DEFAULT} layers, one micro)")
         if name.startswith("seg"):
-            return "32 x 256 x 8 heads, step at bucket 256"
-        return (f"{LONG_BATCH} x {LONG_SEQ} x 8 heads, step at "
-                f"{HD_LONG_BATCH} x {LONG_SEQ}")
+            return f"{shape}, step at bucket 256"
+        return f"{shape}, step at {HD_LONG_BATCH} x {LONG_SEQ}"
 
     log("[head dims] d 96 and 192 kernels " + json.dumps({
         name: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
                         "bound_by"), t),
                    launches_a_step=launches_a_step(name), at=at(name))
         for name, t in times.items()}) + f" [{card}]")
-    # the d = 192 pair's rows of the kernels' record: its time at 32 x 256
-    # x 4 heads and its launches in this phase's two d = 192 runs
-    rows192 = {name: (*times[name], n192[name.split()[0]])
-               for name in times if name.endswith(f" d{CLI_D}")}
-    return counts, check.max_err, rows192
+    # rows of the kernels' record: the d = 192 pair's time at 32 x 256 x 4
+    # heads and its launches in this phase's two d = 192 runs; the d = 96
+    # tiled trio's at 32 x 1024 x 8 heads and its launches in the tiled leg
+    rows = {name: (*times[name], n192[name.split()[0]])
+            for name in times if name.endswith(f" d{CLI_D}")}
+    rows.update({name: (*times[name], leg_counts[name.split()[0]])
+                 for name in times if name.startswith("flash")
+                 and name.endswith(f" d{HD}")})
+    return counts, check.max_err, rows
 
 
 CLI_SPLITS = {"train": 1024, "valid": 256, "test": 256}
@@ -6035,7 +6096,8 @@ def main() -> int:
     # the wgmma + TMA kernels' instances -- the GEMM's (bf16 and s8:
     # gemm_tma_kernel<S8, EPI, TRAIN>) and the tiled flash kernels'
     # (flash_fwd_wgmma_kernel, flash_dq_wgmma_kernel,
-    # flash_dkv_wgmma_kernel <DROP>) -- and the single-block pair's wgmma
+    # flash_dkv_wgmma_kernel, and at d = 96 flash_dq96_wgmma_kernel and
+    # flash_dkv96_wgmma_kernel <DROP>) -- and the single-block pair's wgmma
     # instances (seg_attn_wgmma_kernel <NK, NWIN, D, DROP>,
     # dq_wgmma_kernel, dq96_wgmma_kernel and dq64x2_wgmma_kernel <NK,
     # DROP>, dkv_wgmma_kernel
@@ -6049,6 +6111,7 @@ def main() -> int:
     # dropout dq kernel at 96 keys)
     tma_names = ("gemm_tma_kernel", "flash_fwd_wgmma_kernel",
                  "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
+                 "flash_dq96_wgmma_kernel", "flash_dkv96_wgmma_kernel",
                  "quant_grad_pass_kernel", "seg_attn_wgmma_kernel",
                  "dq_wgmma_kernel", "dq96_wgmma_kernel",
                  "dq64x2_wgmma_kernel", "dkv_wgmma_kernel",
@@ -6139,8 +6202,9 @@ def main() -> int:
                 *s_bounds[name])
         else:                       # a training layer's launches
             row(name, name, launches, *t_times[name], *t_bounds[name])
-    # the d = 192 pair (phase 18): device ms at 32 x 256 x 4 heads, dropout
-    # 0.1; launches: phase 18's d = 192 runs alone
+    # the d = 192 pair and the d = 96 tiled trio (phase 18): device ms at
+    # 32 x 256 x 4 heads and 32 x 1024 x 8 heads, dropout 0.1; launches:
+    # phase 18's d = 192 runs alone, its tiled leg alone
     for name, (k_ms, p_ms, l_ms, b_ms, b_by, n) in h_rows.items():
         row(name, name.split()[0], n, k_ms, p_ms, l_ms, b_ms, b_by)
     # the d = 64 pair past 256 keys: device ms at 16 x 512, dropout 0.1;
@@ -6177,6 +6241,7 @@ def main() -> int:
         "[train] rows the int8 "
         "training runs alone, the d192 rows phase 18's two d = 192 runs "
         "(--no_fused_attn and the CLI's from-scratch default) alone, the "
+        "flash d96 rows phase 18's tiled leg (48 x 1024) alone, the "
         "[d64 s512] row the seq-512 BERT-base steps alone; "
         "ms / plain_ms / library_ms / bound_ms: one encoder layer's "
         f"launches of the kernel -- serving at batch {BATCH} x seq "
@@ -6187,7 +6252,8 @@ def main() -> int:
         f"layer ({LONG_BATCH} x {LONG_SEQ}, d 64, dropout 0.1) for the "
         "flash_* rows, a training layer at 8192 rows (one micro for "
         "embed_lookup, f32 tables) for the five row kernels, 32 x 256 x 4 "
-        "heads of 192 (dropout 0.1) for the d192 rows, 16 x 512 (d 64, "
+        "heads of 192 (dropout 0.1) for the d192 rows, 32 x 1024 x 8 heads "
+        "of 96 (dropout 0.1) for the flash d96 rows, 16 x 512 (d 64, "
         "dropout 0.1) for the [d64 s512] row; ms and "
         "library_ms are device time (calls queued behind a sleep) for the "
         "five row kernels, gemm_bias_act, gemm_bias_residual, gemm_dgrad, "

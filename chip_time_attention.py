@@ -49,7 +49,9 @@ serving forward without the head; where it has the tiled flash kernels,
 batch 32 x seq 1024 on q, k, v views of one QKV buffer with a padded mask
 and prob dropout, the three again without dropout, and SDPA's forward and
 its backward alone (autograd.grad over a retained forward, the same
-operands, mask and dropout rate), each as ``[back to back, device]`` ms;
+operands, mask and dropout rate), each as ``[back to back, device]`` ms,
+and ``flash_d96_ms``: the same at 8 heads of 96 at 32 x 1024 and 48 x
+1024 (the quality tools' encoder);
 and
 ``gemm_ms``, each bf16 GEMM
 launch of an encoder layer: the four ``gemm_dgrad`` launches of a training
@@ -87,8 +89,8 @@ import torch
 H, NH = 768, 12
 # the timed groups (--only): the seg_attention launches and the training
 # attention times, the int8 launches and encoder forwards, the tiled flash
-# kernels, the bf16 GEMMs, the bias-GELU pair and the embedding lookup,
-# the plain embedding and the encoder around it
+# kernels (d = 64 and 96), the bf16 GEMMs, the bias-GELU pair and the
+# embedding lookup, the plain embedding and the encoder around it
 GROUPS = ("attention", "int8", "flash", "gemm", "rows", "embed")
 
 
@@ -494,19 +496,21 @@ def head_dim_times(K, dev, gen, iters: int) -> dict:
     return out
 
 
-def flash_times(K, dev, gen, iters: int) -> dict:
-    """The tiled flash kernels at route B's layer, 32 x 1024, 12 heads of
-    64, q, k, v views of one QKV buffer, a padded mask, prob dropout 0.1:
-    the forward, the backward pair, both without dropout, SDPA's forward
-    and its backward alone on the same operands; [back to back, device]
-    ms."""
+def flash_times(K, dev, gen, iters: int, d: int = H // NH,
+                b: int = 32) -> dict:
+    """The tiled flash kernels at b x 1024, hidden 768 in heads of d (route
+    B's layer: 32 x 1024, 12 heads of 64; the quality tools' encoder: 8
+    heads of 96), q, k, v views of one QKV buffer, a padded mask, prob
+    dropout 0.1: the forward, the backward pair, both without dropout,
+    SDPA's forward and its backward alone on the same operands; [back to
+    back, device] ms."""
     from nbest_asr_tpu_torch.ops.philox import site
 
     F = torch.nn.functional
-    b, s, d = 32, 1024, H // NH
+    s, nh = 1024, H // d
     q, k, v = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
-        dev, torch.bfloat16).view(b, s, 3, NH, d).unbind(2)
-    do = (torch.randn(b, s, NH, d, generator=gen) * 0.1).to(
+        dev, torch.bfloat16).view(b, s, 3, nh, d).unbind(2)
+    do = (torch.randn(b, s, nh, d, generator=gen) * 0.1).to(
         dev, torch.bfloat16)
     mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
     mask[:, 0] = 1.0
@@ -645,6 +649,11 @@ def main() -> int:
             out["encoder_fwd_ms"] = encoder_times(dev, gen, 10)
     if "flash" in only and hasattr(K, "flash_fwd"):
         out["flash_ms"] = flash_times(K, dev, gen, args.iters)
+        # the quality tools' encoder: 8 heads of 96, at phase 18's 32 x
+        # 1024 and at its tiled leg's 48 x 1024
+        out["flash_d96_ms"] = {f"{b}x1024": flash_times(K, dev, gen,
+                                                        args.iters, 96, b)
+                               for b in (32, 48)}
     if "gemm" in only and hasattr(K, "gemm_dgrad"):
         out["gemm_ms"] = gemm_times(K, dev, gen, args.iters)
     if "rows" in only and hasattr(K, "bias_gelu_bwd"):

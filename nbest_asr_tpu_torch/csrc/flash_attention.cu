@@ -577,8 +577,11 @@ int nbk_flash_fwd(const void* q, const void* k, const void* v, int ld,
   return (int)cudaErrorInvalidValue;
 }
 
-// Launches of the wgmma + TMA kernel since the library was loaded (a
-// routing check: it runs exactly at d = 64).
-long long nbk_flash_fwd_wgmma_launches() { return wgmma_launches; }
+// Launches of the wgmma + TMA kernel since the library was loaded, at head
+// dim d (64, or 0 for all; any other d: 0) -- a routing check: it runs
+// exactly at d = 64.
+long long nbk_flash_fwd_wgmma_launches(int d) {
+  return d == WD || d == 0 ? wgmma_launches : 0;
+}
 
 }  // extern "C"

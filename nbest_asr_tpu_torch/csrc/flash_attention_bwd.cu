@@ -24,15 +24,16 @@
 // counters (attention.cuh) as each kernel's tiles need them, so both
 // kernels regenerate the forward's mask whatever their loop order.
 //
-// Two pairs; nbk_flash_bwd_dq / nbk_flash_bwd_dkv pick by head dim:
+// Three pairs; nbk_flash_bwd_dq / nbk_flash_bwd_dkv pick by head dim:
 //   d = 64 (any S)        the wgmma + TMA pair (section 3)
+//   d = 96 (any S)        its twin on 96-column rows (section 4)
 //   every other d <= 256  the mma.sync pair (sections 1 and 2), on its
 //   with d % 8 == 0       instance of width 32, 64, 96, 128, 192 or 256
 //                         (attention.cuh, instance_width: a d between two
 //                         widths runs on the wider, its columns past d
 //                         zero-filled on load and never stored; d = 40 ..
-//                         56 on the 64-wide pair, which runs only such
-//                         padded heads)
+//                         56 on the 64-wide pair, 72 .. 88 on the 96-wide
+//                         one, which run only such padded heads)
 // Neither falls back to the other: a pair that does not build or launch
 // makes the call fail.
 //
@@ -75,6 +76,16 @@
 // the pace.  A producer warpgroup drawing the bits (one warp per scheduler)
 // ran 1.2x slower; turns between the consumer warpgroups, or the draws
 // placed beside the elementwise work, gained nothing.
+//
+// The d = 96 pair (section 4) is the same design on 96-column tiles; at
+// the quality encoder's 32 x 1024 x 8 heads it runs at 0.61 / 0.82 ms
+// (0.37 / 0.57 without dropout) against the tensor cores' 0.16 / 0.21
+// (PERF.md): per (query, key) pair the same elementwise and Philox work
+// as at d = 64, on half as many again products.  Its dK/dV kernel needs
+// 230 registers a thread, more than a 384-thread block leaves, so it
+// runs two warpgroups and fills its ring from warp 0; the dQ kernel
+// fits 168 and keeps the producer warpgroup (filled from warp 0 it ran
+// 16% slower).
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -400,15 +411,17 @@ __device__ __forceinline__ float dot8(float sum, uint4 a, uint4 b) {
 // the warp (col = the first's key) against queries 8 jj + 2 t + e, jj = 4
 // h .. + 3 of the tile (row = the Philox row of query 2 t + 32 h): byte i,
 // bit 2 (jj % 4) + e = key 4 c + i.
+template <int ROUND = 4>
 __device__ __forceinline__ unsigned draw_keys(const DropParams& d, int row,
                                               int col) {
   unsigned w = 0;
-  // two rounds of four calls: eight in flight beside the in-flight scores
-  // and the dK, dV sums spill
+  // rounds of ROUND calls: at d = 64 two rounds of four (eight in flight
+  // beside the in-flight scores and the dK, dV sums spill), at d = 96
+  // four of two
 #pragma unroll 1
-  for (int jh = 0; jh < 8; jh += 4)
+  for (int jh = 0; jh < 8; jh += ROUND)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < ROUND; ++i) {
       const int b = jh + i;
       const uint4 v = philox_group(d, row + 8 * (b >> 1) + (b & 1), col);
       w |= (unsigned)(v.x >= d.thresh) << b |
@@ -826,6 +839,460 @@ __global__ void __launch_bounds__(WTHREADS, 1) flash_dkv_wgmma_kernel(
   }
 }
 
+// -------------------------------------------------------------------- //
+// 4. The wgmma + TMA pair, d = 96 (any S)
+// -------------------------------------------------------------------- //
+
+// Section 3's kernels with a 96-column row as two swizzled panels, as the
+// single-block d = 96 pair lays it out (seg_attention_bwd.cu, attention.cuh):
+// a 64-row tile is columns 0-63 128-byte-swizzled (8 KB), then columns
+// 64-95 64-byte-swizzled (4 KB), each panel arriving through its own
+// tensor map (boxes of 64 and 32 columns).  S and dP run 4 k16 steps on
+// panel 0 and 2 on panel 1 into one m64n64 accumulator; dQ, dV and dK (96
+// columns) are an m64n64k16 product on panel 0 and an m64n32k16 one on
+// panel 1, 48 f32 a thread each.  A dK/dV thread then holds dK and dV
+// (96), S and dP (64) and the packed P_v and dS fragments (32): more than
+// the 168 registers ptxas gives a thread of a 384-thread block, so the
+// dK/dV kernel has no producer warpgroup (its warp 0 fills the ring);
+// the dQ kernel (dQ 48, S and dP 64, dS 16) keeps section 3's.  One block
+// runs an SM, so shared memory has room for a ring of four slots.  The
+// descriptors are built at each use from 32-bit shared addresses
+// (desc_at): the twelve a kernel would hold spilled it.
+constexpr int T96 = QTILE + QTILE / 2;  // bytes of a 64-row tile
+constexpr int STAGES96 = 4;
+
+// The two panels' tensor maps of one operand (boxes of 64 and 32 columns).
+struct PanelMaps {
+  CUtensorMap p0, p1;
+};
+
+// TMA of rows row .. + 63 of a head's 96 columns (from column col) into
+// the tile at dst, completing on bar.
+__device__ __forceinline__ void tma_tile96(unsigned char* dst,
+                                           const PanelMaps& m, uint64_t* bar,
+                                           int col, int row, int elem) {
+  tma_load(dst, &m.p0, bar, col, row, elem);
+  tma_load(dst + QTILE, &m.p1, bar, col + WD, row, elem);
+}
+
+// a, made opaque to the compiler, so that the descriptors built from a
+// tile's address in a loop are built at each use instead of hoisted and
+// held (attention.cuh's fresh, on a 32-bit shared address).
+__device__ __forceinline__ unsigned opaque(unsigned a) {
+  asm volatile("" : "+r"(a));
+  return a;
+}
+
+// acc (64 x 64) = A . B^T over 96 columns, A and B the K-major tiles at
+// shared addresses a and b: panel 0's four k16 steps (32 bytes along its
+// rows), then panel 1's two.
+__device__ __forceinline__ void issue_nt96(float (&acc)[32], unsigned a,
+                                           unsigned b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_n64(acc, desc_at<KMAJOR128>(a + kk * 32),
+                 desc_at<KMAJOR128>(b + kk * 32), kk);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    wgmma_ss_n64(acc, desc_at<PANEL64>(a + QTILE + kk * 32),
+                 desc_at<PANEL64>(b + QTILE + kk * 32), 1);
+}
+
+// (acc, acc1) (64 x 96) += A (64 x 64, sixteen bf16 A fragments) . B, B
+// the tile at shared address b read MN-major: panel 0's columns into acc
+// (m64n64k16), panel 1's into acc1 (m64n32k16), four k16 steps each.
+__device__ __forceinline__ void issue_rs96(float (&acc)[32],
+                                           float (&acc1)[16],
+                                           const unsigned (&a)[16],
+                                           unsigned b) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_rs_n64(acc, a + 4 * j, desc_at<MNMAJOR128>(b + j * 2048), 1);
+  issue_rs(acc1, a, b + QTILE);
+}
+
+// Stores the fragment row half `hi` (row g + 8 hi) of a 96-column sum (c0:
+// columns 0-63, c1: 64-95) as bf16 at out + r + col.
+__device__ __forceinline__ void store96(bf16* out, size_t r, int col,
+                                        int t4, bool hi, const float* c0,
+                                        const float* c1) {
+  const int e = hi ? 2 : 0;
+#pragma unroll
+  for (int jj = 0; jj < 12; ++jj) {
+    const float* c = jj < 8 ? c0 + 4 * jj : c1 + 4 * (jj - 8);
+    *reinterpret_cast<unsigned*>(out + r + col + jj * 8 + 2 * t4) =
+        pack_bf16x2(c[e], c[e + 1]);
+  }
+}
+
+// The dQ kernel's shared memory at d = 96: DqSmem's with 96-column tiles
+// and four ring slots.
+struct Dq96Smem {
+  static constexpr int Q = 0, DO = Q + 2 * T96, O = DO + 2 * T96;
+  static constexpr int K = O + 2 * T96, V = K + STAGES96 * T96;
+  static constexpr int IDS = V + STAGES96 * T96;
+  static constexpr int DI = IDS + STAGES96 * QT * 4;
+  static constexpr int BAR = DI + BLOCK * 4;
+  static constexpr int BYTES = 1024 + BAR + (2 * STAGES96 + 1) * 8;
+};
+
+// The dK/dV kernel's: DkvSmem's with 96-column tiles and four slots.
+struct Dkv96Smem {
+  static constexpr int K = 0, V = K + 2 * T96;
+  static constexpr int Q = V + 2 * T96, DO = Q + STAGES96 * T96;
+  static constexpr int IDS = DO + STAGES96 * T96;
+  static constexpr int STAT = IDS + STAGES96 * QT * 4;
+  static constexpr int BAR = STAT + STAGES96 * QT * 2 * 4;
+  static constexpr int BYTES = 1024 + BAR + (2 * STAGES96 + 1) * 8;
+};
+static_assert(Dq96Smem::BYTES <= 232448 && Dkv96Smem::BYTES <= 232448,
+              "shared memory");
+
+// The dQ kernel at d = 96: per (element, head, 128 queries), keys
+// innermost; consumer warpgroup w owns queries 64 w .. + 63 of the block.
+template <bool DROP>
+__global__ void __launch_bounds__(WTHREADS, 1) flash_dq96_wgmma_kernel(
+    const __grid_constant__ PanelMaps tm_q,
+    const __grid_constant__ PanelMaps tm_k,
+    const __grid_constant__ PanelMaps tm_v,
+    const __grid_constant__ PanelMaps tm_o,
+    const __grid_constant__ PanelMaps tm_do,
+    const float* __restrict__ mask, const float* __restrict__ lse,
+    float* __restrict__ di, bf16* __restrict__ dq, int ld_g, int S,
+    float sm_scale, DropParams drop) {
+  using L = Dq96Smem;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* ids = reinterpret_cast<float*>(sm + L::IDS);
+  float* sdi = reinterpret_cast<float*>(sm + L::DI);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* empty = full + STAGES96;
+  uint64_t* resident = empty + STAGES96;
+
+  const int head = blockIdx.y, elem = blockIdx.z, col = head * 96;
+  const int q0 = blockIdx.x * BLOCK;
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * gridDim.y + head) * S;  // Philox row of query 0
+  const int n_kt = (S + QT - 1) / QT;
+  const float nan = __int_as_float(0x7fc00000);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES96; ++s) {
+      mbar_init(&full[s], 129);  // the TMA bytes + the 128 producer threads
+      mbar_init(&empty[s], 8);   // one arrive per consumer warp
+    }
+    mbar_init(resident, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: the resident tiles once, then each key tile's K, V and
+    // segment ids, up to STAGES96 tiles ahead of the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        PRODUCER_REGS));
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+      mbar_expect_tx(resident, 6 * T96);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tma_tile96(sm + L::Q + h * T96, tm_q, resident, col, q0 + h * QT,
+                   elem);
+        tma_tile96(sm + L::DO + h * T96, tm_do, resident, col, q0 + h * QT,
+                   elem);
+        tma_tile96(sm + L::O + h * T96, tm_o, resident, col, q0 + h * QT,
+                   elem);
+      }
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % STAGES96, k0 = kt * QT;
+      mbar_wait(&empty[st], ((kt / STAGES96) & 1) ^ 1);
+      if (tid == 0) {
+        mbar_expect_tx(&full[st], 2 * T96);
+        tma_tile96(sm + L::K + st * T96, tm_k, &full[st], col, k0, elem);
+        tma_tile96(sm + L::V + st * T96, tm_v, &full[st], col, k0, elem);
+      }
+      if (tid < QT)
+        ids[st * QT + tid] = k0 + tid < S ? mask[row0 + k0 + tid] : nan;
+      mbar_arrive(&full[st]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int ct = threadIdx.x - 128, cw = ct >> 7;
+  const int lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+  mbar_wait(resident, 0);
+  {  // di = rowsum(f32(dO) * f32(O)): two threads a row, columns 0-47 and
+     // 48-95 (16-byte chunks 0-5 and 6-11, of which 8-11 lie in panel 1)
+    const int r = ct >> 1, rr = r & 63, c0 = (ct & 1) * 6;
+    const unsigned char* tdo = sm + L::DO + (r >> 6) * T96;
+    const unsigned char* to = sm + L::O + (r >> 6) * T96;
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      const int ch = c0 + c;
+      const int off =
+          ch < 8 ? swizzle128(rr, ch) : QTILE + swizzle64(rr, ch - 8);
+      sum = dot8(sum, *reinterpret_cast<const uint4*>(tdo + off),
+                 *reinterpret_cast<const uint4*>(to + off));
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((ct & 1) == 0) {
+      sdi[r] = sum;
+      if (q0 + r < S) di[prow0 + q0 + r] = sum;
+    }
+  }
+  consumer_sync();
+
+  const int ra = cw * 64 + ((ct >> 5) & 3) * 16 + g;  // block rows ra, +8
+  const int qa = q0 + ra, qb = qa + 8;
+  // the Philox row this lane draws: row lane / 2 of the warp's 16
+  const int drow = prow0 + q0 + (ra - g) + (lane >> 1);
+  // a query past S matches no key (NaN), so its p is 0 whatever its lse
+  const float qma = qa < S ? mask[row0 + qa] : nan;
+  const float qmb = qb < S ? mask[row0 + qb] : nan;
+  // p sm_scale = 2^(s sm_scale log2e - (lse log2e - log2 sm_scale))
+  const float l2s = log2f(sm_scale);
+  const float la = (qa < S ? lse[prow0 + qa] * LOG2E : 0.f) - l2s;
+  const float lb = (qb < S ? lse[prow0 + qb] * LOG2E : 0.f) - l2s;
+  const float dia = sdi[ra], dib = sdi[ra + 8];
+  const float sc2 = sm_scale * LOG2E, ik = drop.inv_keep;
+  const unsigned base = smem_addr(sm), a_q = base + L::Q + cw * T96;
+
+  float acc[32], acc1[16];  // dq columns 0-63, 64-95
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc1[i] = 0.f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % STAGES96;
+    const unsigned a_k = base + L::K + st * T96, a_qo = opaque(a_q);
+    mbar_wait(&full[st], (kt / STAGES96) & 1);
+    float s[32], dp[32];
+    wgmma_fence();
+    issue_nt96(s, a_qo, a_k);
+    issue_nt96(dp, a_qo + (L::DO - L::Q), a_k + (L::V - L::K));
+    wgmma_commit();
+    // the keep bits while the products run
+    const KeepQ<DROP> keep(
+        DROP ? draw_rows(drop, drow, kt * QT + 4 * (lane & 1)) : 0u, lane);
+    const float* kid = ids + st * QT + 2 * t4;
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    // ds = bf16(p (drop(dp) - di) sm_scale), packed as A fragments
+    unsigned pa[16];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 km = *reinterpret_cast<const float2*>(kid + 8 * jj);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * jj + e;
+        const bool lo = e < 2;
+        const float d_i = lo ? dia : dib;
+        const float x = ((e & 1) ? km.y : km.x) == (lo ? qma : qmb)
+                            ? fmaf(s[i], sc2, -(lo ? la : lb))
+                            : -INFINITY;
+        // drop(dp) - di: dp * (keep ? inv_keep : 0) - di
+        const float dm =
+            DROP ? fmaf(dp[i], keep(!lo, jj, e & 1) ? ik : 0.f, -d_i)
+                 : dp[i] - d_i;
+        v[e] = ex2(x) * dm;
+      }
+      pa[2 * jj] = pack_bf16x2(v[0], v[1]);
+      pa[2 * jj + 1] = pack_bf16x2(v[2], v[3]);
+    }
+    fence_acc(acc);
+    fence_acc(acc1);
+    wgmma_fence();
+    issue_rs96(acc, acc1, pa, a_k);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_acc(acc1);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  if (qa < S) store96(dq, (row0 + qa) * ld_g, col, t4, false, acc, acc1);
+  if (qb < S) store96(dq, (row0 + qb) * ld_g, col, t4, true, acc, acc1);
+}
+
+// The dK/dV kernel at d = 96: per (element, head, 128 keys), queries
+// innermost; warpgroup w owns keys 64 w .. + 63 of the block, and warp 0
+// also fills the ring, as flash_attention.cu's forward does: ptxas holds
+// every thread of a block to the registers its thread count leaves (168
+// at 384 threads, whatever setmaxnreg gives at run time), and a thread
+// here needs more (dK, dV, S, dP, P_v, dS: 224; 260 B spilled at 384).
+template <bool DROP>
+__global__ void __launch_bounds__(256, 1) flash_dkv96_wgmma_kernel(
+    const __grid_constant__ PanelMaps tm_q,
+    const __grid_constant__ PanelMaps tm_k,
+    const __grid_constant__ PanelMaps tm_v,
+    const __grid_constant__ PanelMaps tm_do,
+    const float* __restrict__ mask, const float* __restrict__ lse,
+    const float* __restrict__ di, bf16* __restrict__ dk_out,
+    bf16* __restrict__ dv_out, int ld_g, int S, float sm_scale,
+    DropParams drop) {
+  using L = Dkv96Smem;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* ids = reinterpret_cast<float*>(sm + L::IDS);
+  float* stat = reinterpret_cast<float*>(sm + L::STAT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* empty = full + STAGES96;
+  uint64_t* resident = empty + STAGES96;
+
+  const int head = blockIdx.y, elem = blockIdx.z, col = head * 96;
+  const int k0 = blockIdx.x * BLOCK;
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * gridDim.y + head) * S;  // Philox row of query 0
+  const int n_qt = (S + QT - 1) / QT;
+  const float nan = __int_as_float(0x7fc00000);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES96; ++s) {
+      mbar_init(&full[s], 33);  // the TMA bytes + warp 0's 32 lanes
+      mbar_init(&empty[s], 8);  // one arrive per warp
+    }
+    mbar_init(resident, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int ct = threadIdx.x, cw = ct >> 7;
+  const int lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+  const bool loader = ct < 32;  // warp 0 fills the ring
+  // query tile qt's Q, dO (lane 0, by TMA), segment ids, lse and di into
+  // its slot
+  auto fill = [&](int qt) {
+    const int st = qt % STAGES96, q0 = qt * QT;
+    if (lane == 0) {
+      mbar_expect_tx(&full[st], 2 * T96);
+      tma_tile96(sm + L::Q + st * T96, tm_q, &full[st], col, q0, elem);
+      tma_tile96(sm + L::DO + st * T96, tm_do, &full[st], col, q0, elem);
+    }
+    for (int j = lane; j < QT; j += 32) {
+      const int q = q0 + j;
+      const bool ok = q < S;
+      ids[st * QT + j] = ok ? mask[row0 + q] : nan;
+      float* p = stat + st * QT * 2 + (j >> 1) * 4 + (j & 1);
+      p[0] = ok ? lse[prow0 + q] * LOG2E : 0.f;
+      p[2] = ok ? di[prow0 + q] : 0.f;
+    }
+    mbar_arrive(&full[st]);
+  };
+  if (loader) {
+    if (lane == 0) {
+      mbar_expect_tx(resident, 4 * T96);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tma_tile96(sm + L::K + h * T96, tm_k, resident, col, k0 + h * QT,
+                   elem);
+        tma_tile96(sm + L::V + h * T96, tm_v, resident, col, k0 + h * QT,
+                   elem);
+      }
+    }
+    for (int qt = 0; qt < STAGES96 && qt < n_qt; ++qt) fill(qt);
+  }
+  const int ra = cw * 64 + ((ct >> 5) & 3) * 16 + g;  // block keys ra, +8
+  const int ka = k0 + ra, kb = ka + 8;
+  // the keys and the Philox row of the first query this lane draws
+  const int dcol = k0 + (ra - g) + 4 * (lane >> 3);
+  const int drow = prow0 + 2 * ((lane >> 1) & 3) + 32 * (lane & 1);
+  // a key past S matches no query (NaN), so its p is 0
+  const float kma = ka < S ? mask[row0 + ka] : nan;
+  const float kmb = kb < S ? mask[row0 + kb] : nan;
+  const float sc2 = sm_scale * LOG2E, ik = drop.inv_keep;
+  const unsigned base = smem_addr(sm), a_k = base + L::K + cw * T96;
+  mbar_wait(resident, 0);
+
+  float dk[32], dk1[16], dv[32], dv1[16];  // columns 0-63, 64-95
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dk1[i] = dv1[i] = 0.f;
+  for (int qt = 0; qt < n_qt; ++qt) {
+    // the slot tile qt - 2 held takes tile qt + 2 once every warp is done
+    // with it (rarely a wait: two tiles have passed since)
+    if (loader && qt >= 2 && qt + 2 < n_qt) {
+      mbar_wait(&empty[(qt - 2) % STAGES96], ((qt - 2) / STAGES96) & 1);
+      fill(qt + 2);
+    }
+    const int st = qt % STAGES96;
+    const unsigned a_q = base + L::Q + st * T96, a_ko = opaque(a_k);
+    mbar_wait(&full[st], (qt / STAGES96) & 1);
+    float s[32], dp[32];  // S^T, dP^T: rows keys, columns queries
+    wgmma_fence();
+    issue_nt96(s, a_ko, a_q);
+    issue_nt96(dp, a_ko + (L::V - L::K), a_q + (L::DO - L::Q));
+    wgmma_commit();
+    // the keep bits while the products run
+    const KeepKV<DROP> keep(
+        DROP ? draw_keys<2>(drop, drow + qt * QT, dcol) : 0u, lane);
+    const float* qid = ids + st * QT + 2 * t4;
+    const float4* cst = reinterpret_cast<const float4*>(stat + st * QT * 2) +
+                        t4;
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    // p_v = bf16(drop(p)), ds = bf16(p (drop(dp) - di) sm_scale), packed
+    // as A fragments
+    unsigned pv[16], pd[16];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 qm = *reinterpret_cast<const float2*>(qid + 8 * jj);
+      const float4 cs = cst[4 * jj];  // lse log2e and di of the two columns
+      float a[4], b[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * jj + e;
+        const bool lo = e < 2, odd = e & 1;
+        const float d_i = odd ? cs.w : cs.z;
+        const float x = (lo ? kma : kmb) == (odd ? qm.y : qm.x)
+                            ? fmaf(s[i], sc2, -(odd ? cs.y : cs.x))
+                            : -INFINITY;
+        const float p = ex2(x);
+        const float m = DROP && !keep(!lo, jj, odd) ? 0.f : ik;
+        a[e] = DROP ? p * m : p;
+        b[e] = p * (DROP ? fmaf(dp[i], m, -d_i) : dp[i] - d_i) * sm_scale;
+      }
+      pv[2 * jj] = pack_bf16x2(a[0], a[1]);
+      pv[2 * jj + 1] = pack_bf16x2(a[2], a[3]);
+      pd[2 * jj] = pack_bf16x2(b[0], b[1]);
+      pd[2 * jj + 1] = pack_bf16x2(b[2], b[3]);
+    }
+    fence_acc(dk);
+    fence_acc(dk1);
+    fence_acc(dv);
+    fence_acc(dv1);
+    wgmma_fence();
+    issue_rs96(dv, dv1, pv, a_q + (L::DO - L::Q));  // dV += P_v^T dO
+    issue_rs96(dk, dk1, pd, a_q);                   // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dk);
+    fence_acc(dk1);
+    fence_acc(dv);
+    fence_acc(dv1);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  if (ka < S) {
+    const size_t r = (row0 + ka) * ld_g;
+    store96(dk_out, r, col, t4, false, dk, dk1);
+    store96(dv_out, r, col, t4, false, dv, dv1);
+  }
+  if (kb < S) {
+    const size_t r = (row0 + kb) * ld_g;
+    store96(dk_out, r, col, t4, true, dk, dk1);
+    store96(dv_out, r, col, t4, true, dv, dv1);
+  }
+}
+
 struct Operands {  // host side only: the kernels take them as arguments
   const bf16 *q, *k, *v, *o, *dout;
   const float *mask, *lse;
@@ -873,7 +1340,8 @@ int launch(const Operands& a, bool dkv, cudaStream_t stream) {
                    : launch_dq<D, false>(a, stream);
 }
 
-long long wgmma_launches[2] = {0, 0};  // the wgmma pair's dQ, dK/dV kernels
+// launches of the wgmma pairs' dQ and dK/dV kernels, at d = 64 and 96
+long long wgmma_launches[2][2] = {{0, 0}, {0, 0}};
 
 int rows_map(CUtensorMap* m, const void* p, int ld, const Operands& a) {
   return flash::rows_map(m, p, ld, a.n_heads, a.S, a.B);
@@ -902,7 +1370,7 @@ int launch_dq_wgmma(const Operands& a, cudaStream_t stream) {
       tq, tk, tv, to, tdo, a.mask, a.lse, a.di, a.dq, a.ld_g, a.S,
       a.sm_scale, a.drop);
   const cudaError_t e = cudaGetLastError();
-  if (e == cudaSuccess) ++wgmma_launches[0];
+  if (e == cudaSuccess) ++wgmma_launches[0][0];
   return (int)e;
 }
 
@@ -927,12 +1395,72 @@ int launch_dkv_wgmma(const Operands& a, cudaStream_t stream) {
       tq, tk, tv, tdo, a.mask, a.lse, a.di, a.dk, a.dv, a.ld_g, a.S,
       a.sm_scale, a.drop);
   const cudaError_t e = cudaGetLastError();
-  if (e == cudaSuccess) ++wgmma_launches[1];
+  if (e == cudaSuccess) ++wgmma_launches[0][1];
   return (int)e;
 }
 
-// d = 64: the wgmma + TMA pair; every other d <= 256 with d % 8 == 0: the
-// mma.sync pair, instance_width(d) wide.
+// The two panels' maps of a (b, s, heads, 96) operand with row stride ld.
+int panel_maps(PanelMaps* m, const void* p, int ld, const Operands& a) {
+  const int rc = flash::rows_map(&m->p0, p, ld, a.n_heads, a.S, a.B, 96);
+  return rc != 0 ? rc
+                 : flash::rows_map(&m->p1, p, ld, a.n_heads, a.S, a.B, 96,
+                                   32);
+}
+
+template <bool DROP>
+int launch_dq96_wgmma(const Operands& a, cudaStream_t stream) {
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_dq96_wgmma_kernel<DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Dq96Smem::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  const int H = a.n_heads * 96;
+  PanelMaps tq, tk, tv, to, tdo;
+  int rc = panel_maps(&tq, a.q, a.ld, a);
+  if (rc == 0) rc = panel_maps(&tk, a.k, a.ld, a);
+  if (rc == 0) rc = panel_maps(&tv, a.v, a.ld, a);
+  if (rc == 0) rc = panel_maps(&to, a.o, H, a);
+  if (rc == 0) rc = panel_maps(&tdo, a.dout, H, a);
+  if (rc != 0) return rc;
+  dim3 grid((a.S + BLOCK - 1) / BLOCK, a.n_heads, a.B);
+  flash_dq96_wgmma_kernel<DROP><<<grid, WTHREADS, Dq96Smem::BYTES, stream>>>(
+      tq, tk, tv, to, tdo, a.mask, a.lse, a.di, a.dq, a.ld_g, a.S,
+      a.sm_scale, a.drop);
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++wgmma_launches[1][0];
+  return (int)e;
+}
+
+template <bool DROP>
+int launch_dkv96_wgmma(const Operands& a, cudaStream_t stream) {
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_dkv96_wgmma_kernel<DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Dkv96Smem::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  PanelMaps tq, tk, tv, tdo;
+  int rc = panel_maps(&tq, a.q, a.ld, a);
+  if (rc == 0) rc = panel_maps(&tk, a.k, a.ld, a);
+  if (rc == 0) rc = panel_maps(&tv, a.v, a.ld, a);
+  if (rc == 0) rc = panel_maps(&tdo, a.dout, a.n_heads * 96, a);
+  if (rc != 0) return rc;
+  dim3 grid((a.S + BLOCK - 1) / BLOCK, a.n_heads, a.B);
+  flash_dkv96_wgmma_kernel<DROP><<<grid, 256, Dkv96Smem::BYTES, stream>>>(
+          tq, tk, tv, tdo, a.mask, a.lse, a.di, a.dk, a.dv, a.ld_g, a.S,
+          a.sm_scale, a.drop);
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++wgmma_launches[1][1];
+  return (int)e;
+}
+
+// d = 64 and d = 96: the wgmma + TMA pairs; every other d <= 256 with d %
+// 8 == 0: the mma.sync pair, instance_width(d) wide.
 int dispatch(Operands a, int d, bool dkv, void* cuda_stream) {
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   if (d == WD) {
@@ -941,6 +1469,13 @@ int dispatch(Operands a, int d, bool dkv, void* cuda_stream) {
                        : launch_dkv_wgmma<false>(a, s);
     return a.drop.on ? launch_dq_wgmma<true>(a, s)
                      : launch_dq_wgmma<false>(a, s);
+  }
+  if (d == 96) {
+    if (dkv)
+      return a.drop.on ? launch_dkv96_wgmma<true>(a, s)
+                       : launch_dkv96_wgmma<false>(a, s);
+    return a.drop.on ? launch_dq96_wgmma<true>(a, s)
+                     : launch_dq96_wgmma<false>(a, s);
   }
   a.dh = d;
   switch (instance_width(d)) {
@@ -963,8 +1498,8 @@ extern "C" {
 // f32 from nbk_flash_fwd -> dq bf16 with row stride ld_g (16-byte
 // aligned, ld_g even) and di (B, n_heads, S) f32 = rowsum(dout * o), which
 // nbk_flash_bwd_dkv reads.  d <= 256 with d % 8 == 0; the prob dropout as
-// in the forward.  At d = 64 q, k, v, o and dout must be 16-byte aligned with row
-// strides of a multiple of 16 bytes (TMA).
+// in the forward.  At d = 64 and 96 q, k, v, o and dout must be 16-byte
+// aligned with row strides of a multiple of 16 bytes (TMA).
 int nbk_flash_bwd_dq(const void* q, const void* k, const void* v, int ld,
                      const void* o, const void* dout, const float* mask,
                      const float* lse, float* di, void* dq, int ld_g, int B,
@@ -1019,11 +1554,16 @@ int nbk_flash_bwd_dkv(const void* q, const void* k, const void* v, int ld,
   return dispatch(a, d, true, cuda_stream);
 }
 
-// Launches of the wgmma + TMA pair's dQ (dkv = 0) or dK/dV (dkv = 1) kernel
-// since the library was loaded (a routing check: the pair runs exactly at
-// d = 64).
-long long nbk_flash_bwd_wgmma_launches(int dkv) {
-  return wgmma_launches[dkv ? 1 : 0];
+// Launches of the wgmma + TMA pairs' dQ (dkv = 0) or dK/dV (dkv = 1)
+// kernel since the library was loaded, at head dim d (64 or 96; 0: both;
+// any other d: 0) -- a routing check: the pairs run exactly at d = 64
+// and 96.
+long long nbk_flash_bwd_wgmma_launches(int dkv, int d) {
+  const int k = dkv ? 1 : 0;
+  return d == 64   ? wgmma_launches[0][k]
+         : d == 96 ? wgmma_launches[1][k]
+         : d == 0  ? wgmma_launches[0][k] + wgmma_launches[1][k]
+                   : 0;
 }
 
 }  // extern "C"

@@ -1,10 +1,11 @@
-// The pieces the tiled flash kernels' wgmma + TMA instances share at head
-// dim 64 (flash_attention.cu's forward, flash_attention_bwd.cu's dQ and
-// dK/dV kernels): exp2, the Philox keep bits a warp draws for its own 16
-// query rows while its score products run (draw_rows, KeepQ), the
-// descriptors of 64 x 64 swizzled tiles, the product with A from
-// registers, and, host side, the 3-D tensor map of a (b, s, heads, 64)
-// operand.
+// The pieces the tiled flash kernels' wgmma + TMA instances share
+// (flash_attention.cu's forward at head dim 64, flash_attention_bwd.cu's
+// dQ and dK/dV kernels at 64 and 96): exp2, the Philox keep bits a warp
+// draws for its own 16 query rows while its score products run
+// (draw_rows, KeepQ), the descriptors of 64-row swizzled panels (64
+// columns, 128-byte swizzle; 32 columns, 64-byte swizzle), the products
+// with A from registers, and, host side, the 3-D tensor map of a (b, s,
+// heads, d) operand's panel.
 #pragma once
 
 #include "attention.cuh"
@@ -77,6 +78,22 @@ __device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile) {
 constexpr uint64_t KSTEP = 32 >> 4, MNSTEP = 2048 >> 4,
                    TILE_DESC = QTILE >> 4;
 
+// The same built where they are used, from a panel's 32-bit shared
+// address a (bytes): the fields a descriptor's kind fixes | a / 16.  The
+// 96-column kernels take them so: twelve 64-bit descriptors held across
+// a tile loop would take 24 registers a thread, and the dK/dV kernel
+// spilled with them.  Kinds: a 64-column panel K-major or MN-major
+// (128-byte swizzle, as kmajor, mnmajor), a 32-column panel either way
+// (64-byte swizzle: 8-row groups 512 bytes apart; an MN-major k-step is
+// 16 rows, 1024 bytes).
+constexpr uint64_t KMAJOR128 = (1ull << 16) | (64ull << 32) | (1ull << 62);
+constexpr uint64_t MNMAJOR128 = (512ull << 16) | (64ull << 32) | (1ull << 62);
+constexpr uint64_t PANEL64 = (1ull << 16) | (32ull << 32) | (2ull << 62);
+template <uint64_t KIND>
+__device__ __forceinline__ uint64_t desc_at(unsigned a) {
+  return KIND | (a >> 4);
+}
+
 // acc += A (64 x 64: sixteen bf16 A fragments, four k-steps) . B, B the
 // tile of MN-major descriptor db.
 __device__ __forceinline__ void issue_rs(float (&acc)[32],
@@ -87,15 +104,29 @@ __device__ __forceinline__ void issue_rs(float (&acc)[32],
     wgmma_rs_n64(acc, a + 4 * j, db + j * MNSTEP, 1);
 }
 
-// The 3-D tensor map of a (b, s, heads, 64) operand's rows (ld values
-// apart): (head column, row, element) in 64 x 64 x 1 boxes, so a box
-// reaching past s is zero-filled within its element.
+// acc (64 x 32) += A (as above) . B, B the 32-column panel at shared
+// address b, MN-major (64-byte swizzle).
+__device__ __forceinline__ void issue_rs(float (&acc)[16],
+                                         const unsigned (&a)[16],
+                                         unsigned b) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_rs_n32(acc, a + 4 * j, desc_at<PANEL64>(b + j * 1024), 1);
+}
+
+// The 3-D tensor map of a (b, s, heads, D) operand's rows (ld values
+// apart): (head column, row, element) in box x 64 x 1 boxes, so a box
+// reaching past s is zero-filled within its element.  A box is one
+// swizzled panel: 64 columns (128-byte swizzle) or, the last 32 of a
+// 96-column head, 32 (64-byte swizzle).
 inline int rows_map(CUtensorMap* m, const void* p, int ld, int n_heads,
-                    int S, int B) {
+                    int S, int B, int D = WD, int box = WD) {
   return encode<3>(m, false, p,
-                   {(cuuint64_t)n_heads * WD, (cuuint64_t)S, (cuuint64_t)B},
+                   {(cuuint64_t)n_heads * D, (cuuint64_t)S, (cuuint64_t)B},
                    {(cuuint64_t)ld * 2, (cuuint64_t)S * ld * 2},
-                   {(cuuint32_t)WD, (cuuint32_t)QT, 1u});
+                   {(cuuint32_t)box, (cuuint32_t)QT, 1u},
+                   box == WD ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 }  // namespace flash

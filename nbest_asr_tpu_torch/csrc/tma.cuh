@@ -5,10 +5,12 @@
 // work on sm_90 too).
 //
 // Tensor maps come from cuTensorMapEncodeTiled, fetched through
-// cudaGetDriverEntryPointByVersion, so nothing links against libcuda.  Every
-// map here has a 128-byte inner box (64 bf16 or 128 s8: the swizzle's width)
-// and the 128-byte swizzle, which is what wgmma.cuh's descriptors read; a
-// box that reaches past a dimension's end is zero-filled.
+// cudaGetDriverEntryPointByVersion, so nothing links against libcuda.  A
+// map's inner box is the swizzle's width: 128 bytes (64 bf16 or 128 s8)
+// with the 128-byte swizzle, or 64 bytes with the 64-byte swizzle (the
+// last 32 columns of a 96-column flash head), which is what wgmma.cuh's
+// descriptors read; a box that reaches past a dimension's end is
+// zero-filled.
 #pragma once
 
 #include <cuda.h>
@@ -121,12 +123,13 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
 
 // A tensor map of a RANK-dimensional bf16 or s8 tensor (dims[0] the
 // contiguous one; strides[i] the byte stride of dimension i + 1, a multiple
-// of 16) in boxes of box[0] x ... values, box[0] 128 bytes wide.
+// of 16) in boxes of box[0] x ... values, box[0] the swizzle's width.
 template <int RANK>
 int encode(CUtensorMap* map, bool s8, const void* ptr,
            const cuuint64_t (&dims)[RANK],
            const cuuint64_t (&strides)[RANK - 1],
-           const cuuint32_t (&box)[RANK]) {
+           const cuuint32_t (&box)[RANK],
+           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   cuuint32_t elem[RANK];
@@ -135,8 +138,7 @@ int encode(CUtensorMap* map, bool s8, const void* ptr,
                         s8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                         RANK, const_cast<void*>(ptr), dims, strides, box,
-                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -163,9 +163,9 @@ def lib() -> ctypes.CDLL:
     L.nbk_seg_attention_wgmma_launches.restype = ctypes.c_longlong
     L.nbk_seg_attention_bwd_wgmma_launches.argtypes = [i]
     L.nbk_seg_attention_bwd_wgmma_launches.restype = ctypes.c_longlong
-    L.nbk_flash_fwd_wgmma_launches.argtypes = []
+    L.nbk_flash_fwd_wgmma_launches.argtypes = [i]
     L.nbk_flash_fwd_wgmma_launches.restype = ctypes.c_longlong
-    L.nbk_flash_bwd_wgmma_launches.argtypes = [i]
+    L.nbk_flash_bwd_wgmma_launches.argtypes = [i, i]
     L.nbk_flash_bwd_wgmma_launches.restype = ctypes.c_longlong
     L.nbk_quantize_rows_pass_launches.argtypes = [i]
     L.nbk_quantize_rows_pass_launches.restype = ctypes.c_longlong

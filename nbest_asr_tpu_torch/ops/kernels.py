@@ -59,15 +59,17 @@ three tiled kernels for any sequence length:
 - ``flash_bwd_dq``  -- dq, and di = rowsum(dO * O) for the next kernel
 - ``flash_bwd_dkv`` -- dk and dv
 
-(all three on ``wgmma`` + TMA at d = 64, counted also by
-``flash_wgmma_launches``; on ``mma.sync`` at every other head dim).
+(all three on ``wgmma`` + TMA at d = 64, the backward pair also at d =
+96, as ``FLASH_WGMMA`` lists, counted also by ``flash_wgmma_launches``;
+on ``mma.sync`` at every other head dim).
 
 Every attention kernel takes the head dims ``attn_head_dim_ok`` admits,
 d <= 256 with d % 8 == 0: each runs on the narrowest ``mma.sync``
 instance of width 32, 64, 96, 128, 192 or 256 at least d wide, its
 columns past d zero-filled on load and never stored
 (``csrc/attention.cuh``, ``instance_width``), or on a ``wgmma`` kernel:
-the tiled trio at d = 64, ``seg_attention`` and ``seg_attention_bwd`` at
+the tiled trio at d = 64, the tiled backward pair at d = 96,
+``seg_attention`` and ``seg_attention_bwd`` at
 d = 64 (s <= 512), 96 and 192 (s <= 256), counted
 also by ``seg_attention_wgmma_launches`` and
 ``seg_attention_bwd_wgmma_launches``.  ``attn_instance`` is the one rule
@@ -220,7 +222,7 @@ def _gemm_dims(name: str, a: torch.Tensor, w: torch.Tensor,
 
 def _aligned16(name: str, **tensors) -> None:
     """The TMA kernels (csrc/gemm_wgmma.cu, bf16 and int8; the tiled
-    flash backward at d = 64) and the row kernels load and store 16 bytes
+    flash kernels at d = 64 and 96) and the row kernels load and store 16 bytes
     at a time from each operand's base (the bias and scales too)."""
     for arg, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
@@ -1028,16 +1030,27 @@ def _flash_bwd_checks(name, q, k, v, mask, lse, dout, stat2, stat2_name):
     return b, s, nh, d, ld
 
 
-def flash_wgmma_launches() -> dict:
+# the head dims at which each tiled kernel runs its wgmma + TMA instance
+# (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu); the mma.sync
+# kernels take every other head dim
+FLASH_WGMMA = {"flash_fwd": (64,), "flash_bwd_dq": (64, 96),
+               "flash_bwd_dkv": (64, 96)}
+
+
+def flash_wgmma_launches(d: int = 0) -> dict:
     """Launches of the tiled kernels' wgmma + TMA instances since the
-    kernels were loaded, per kernel (csrc/flash_attention.cu and
-    csrc/flash_attention_bwd.cu run them at d = 64, their mma.sync kernels
-    at every other head dim): the routing behind the ``flash_fwd``,
-    ``flash_bwd_dq`` and ``flash_bwd_dkv`` counters."""
+    kernels were loaded, per kernel, at head dim ``d`` (64 or 96, where
+    ``FLASH_WGMMA`` names an instance; 0: all; any other d raises, as a
+    count there would read 0 whatever ran): the routing behind the
+    ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` counters.
+    ``flash_fwd`` reads 0 at d = 96, where it runs on mma.sync."""
+    if d and not any(d in dims for dims in FLASH_WGMMA.values()):
+        raise ValueError(f"the tiled kernels have no wgmma instance at head "
+                         f"dim {d}")
     lib = _cuda.lib()
-    return {"flash_fwd": int(lib.nbk_flash_fwd_wgmma_launches()),
-            "flash_bwd_dq": int(lib.nbk_flash_bwd_wgmma_launches(0)),
-            "flash_bwd_dkv": int(lib.nbk_flash_bwd_wgmma_launches(1))}
+    return {"flash_fwd": int(lib.nbk_flash_fwd_wgmma_launches(d)),
+            "flash_bwd_dq": int(lib.nbk_flash_bwd_wgmma_launches(0, d)),
+            "flash_bwd_dkv": int(lib.nbk_flash_bwd_wgmma_launches(1, d))}
 
 
 def flash_bwd_dq(q, k, v, mask, o, lse, dout, sm_scale: float, drop=None):

@@ -2,9 +2,12 @@
 attention pair's instance, over every head dim 1 .. 256 and sequence
 length 1 .. 512, and the wrappers that hand its choice to the library
 (``csrc/seg_attention.cu:nbk_seg_attention``,
-``csrc/seg_attention_bwd.cu:nbk_seg_attention_bwd``); the card tests
-(``tests/test_torch_kernels_cuda.py``) and ``chip_smoke.py`` phase 18
-hold the kernels' launch counters to it."""
+``csrc/seg_attention_bwd.cu:nbk_seg_attention_bwd``); the tiled trio's
+wrappers, which hand the library the caller's head dim (the library
+picks the instance: ``kernels.FLASH_WGMMA``), and the wgmma counters by
+head dim of both.  The card tests (``tests/test_torch_kernels_cuda.py``)
+and ``chip_smoke.py`` phase 18 hold the kernels' launch counters to
+them."""
 
 import pytest
 import torch
@@ -65,8 +68,9 @@ def keep_launch_counts():
 
 
 class _FakeLib:
-    """Records the instance each launch names (the argument after d);
-    the wgmma counters read ``launches[d]``."""
+    """Records the instance each launch names (the argument after d), and
+    the head dim each tiled launch names; the wgmma counters read
+    ``launches[d]`` (the tiled ones ``launches[(kernel, d)]``)."""
 
     def __init__(self, launches=None):
         self.calls = []
@@ -77,6 +81,25 @@ class _FakeLib:
 
     def nbk_seg_attention_bwd_wgmma_launches(self, d):
         return -self.launches[d]
+
+    def nbk_flash_fwd_wgmma_launches(self, d):
+        return self.launches[("flash_fwd", d)]
+
+    def nbk_flash_bwd_wgmma_launches(self, dkv, d):
+        return self.launches[("flash_bwd_dkv" if dkv else "flash_bwd_dq",
+                              d)]
+
+    def nbk_flash_fwd(self, *a):
+        self.calls.append(("flash_fwd", a[10]))       # ..., n_heads, d
+        return 0
+
+    def nbk_flash_bwd_dq(self, *a):
+        self.calls.append(("flash_bwd_dq", a[14]))
+        return 0
+
+    def nbk_flash_bwd_dkv(self, *a):
+        self.calls.append(("flash_bwd_dkv", a[14]))
+        return 0
 
     def nbk_seg_attention(self, *a):
         self.calls.append(("fwd", a[10], a[11]))      # ..., d, instance
@@ -138,3 +161,54 @@ def test_wgmma_counters_refuse_head_dims_without_a_wgmma_instance(
             K.seg_attention_wgmma_launches(d)
         with pytest.raises(ValueError, match="no wgmma instance"):
             K.seg_attention_bwd_wgmma_launches(d)
+
+
+@pytest.mark.usefixtures("keep_launch_counts")
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_tiled_wrappers_pass_the_head_dim(monkeypatch, d):
+    """The tiled trio's wrappers hand the library the caller's head dim at
+    every d the kernels take (d <= 256, d % 8 == 0), on q, k, v views of
+    one QKV buffer at a length past the single-block route's: the library
+    picks the instance (csrc/flash_attention.cu, flash_attention_bwd.cu),
+    wgmma + TMA where ``FLASH_WGMMA`` names one, else the mma.sync
+    instance at least d wide, and its counters show which ran."""
+    fake = _FakeLib()
+    monkeypatch.setattr(_cuda, "lib", lambda: fake)
+    monkeypatch.setattr(K, "_on_cuda", lambda name, *t: True)
+    monkeypatch.setattr(K, "_stream", lambda t: 0)
+    b, s, nh = 1, 600, 2
+    q, k, v = torch.zeros(b * s, 3 * nh * d, dtype=torch.bfloat16).view(
+        b, s, 3, nh, d).unbind(2)
+    do = torch.zeros(b, s, nh, d, dtype=torch.bfloat16)
+    mask = torch.ones(b, s)
+    o, lse = K.flash_fwd(q, k, v, mask, 0.1)
+    _, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, 0.1)
+    K.flash_bwd_dkv(q, k, v, mask, lse, di, do, 0.1)
+    assert fake.calls == [("flash_fwd", d), ("flash_bwd_dq", d),
+                          ("flash_bwd_dkv", d)]
+    assert {n: _cuda.launch_counts[n] for n in K.FLASH_WGMMA} == {
+        n: 1 for n in K.FLASH_WGMMA}
+
+
+def test_tiled_wgmma_counters_by_head_dim(monkeypatch):
+    """The tiled trio's wgmma counters read the library's count per kernel
+    at d = 64, at d = 96 (where only the backward pair has a wgmma
+    instance: ``flash_fwd`` reads the library's 0) and at 0 for all; a
+    head dim with no tiled wgmma instance is refused before the library
+    is asked, as its count would read 0 whatever ran."""
+    assert K.FLASH_WGMMA == {"flash_fwd": (64,), "flash_bwd_dq": (64, 96),
+                             "flash_bwd_dkv": (64, 96)}
+    launches = {("flash_fwd", 0): 7, ("flash_fwd", 64): 7,
+                ("flash_fwd", 96): 0, ("flash_bwd_dq", 0): 9,
+                ("flash_bwd_dq", 64): 4, ("flash_bwd_dq", 96): 5,
+                ("flash_bwd_dkv", 0): 11, ("flash_bwd_dkv", 64): 5,
+                ("flash_bwd_dkv", 96): 6}
+    fake = _FakeLib(launches)
+    monkeypatch.setattr(_cuda, "lib", lambda: fake)
+    for d in (0, 64, 96):
+        assert K.flash_wgmma_launches(d) == {
+            n: launches[(n, d)] for n in K.FLASH_WGMMA}
+    assert K.flash_wgmma_launches() == K.flash_wgmma_launches(0)
+    for d in (32, 48, 80, 88, 128, 136, 192, 256):
+        with pytest.raises(ValueError, match="no wgmma instance"):
+            K.flash_wgmma_launches(d)

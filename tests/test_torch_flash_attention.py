@@ -110,11 +110,15 @@ def test_packed_masks_match_jax():
 @pytest.mark.parametrize("s,d", [pytest.param(256, 64, id="256"),
                                  pytest.param(640, 64, id="640"),
                                  pytest.param(256, 96, id="256-d96"),
+                                 pytest.param(700, 96, id="700-d96"),
                                  pytest.param(128, 192, id="128-d192")])
 def test_tiled_route_matches_jax(s, d):
     """block_q = block_k = 128 forces JAX's tiled kernels (and the port's
-    tiled route); s = 640 also pads JAX's tiles to 768."""
-    _hold(_inputs(2, s, 2, d, seed=3, packed=s == 256), block_q=128,
+    tiled route); s = 640 also pads JAX's tiles to 768.  s = 700 at d = 96
+    (the quality tools' head dim, whose tiled backward pair runs on wgmma
+    on the card) is no multiple of 64 or 128: JAX pads it to 768, the port
+    pads nothing; packed masks at 256 and 700.  FWD_TOL / GRAD_TOL, f32."""
+    _hold(_inputs(2, s, 2, d, seed=3, packed=s in (256, 700)), block_q=128,
           block_k=128)
 
 

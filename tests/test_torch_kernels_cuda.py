@@ -1277,28 +1277,46 @@ def test_sb_attention_strided(dev, d, views, rate):
 
 
 # the tiled kernels' cases (s, d, q / k / v as QKV views, dropout rate):
-# d = 64 (the wgmma + TMA backward pair) at four lengths, both layouts,
-# with and without dropout; the mma.sync pair's instances (32, 96, 128,
-# 192, 256) and padded head dims (16 on 32, 48 on 64, 136 on 192, 224 on
-# 256); d = 96 also without dropout and at 1024
-FLASH_TILED_CASES = [(s, 64, views, rate) for s in (100, 700, 1024, 2048)
-                     for views in (False, True) for rate in (0.0, 0.1)] + [
+# d = 64 and 96 (the wgmma + TMA backward pairs) at four lengths, both
+# layouts, with and without dropout; the mma.sync pair's instances (32,
+# 128, 192, 256) and padded head dims (16 on 32, 48 on 64, 136 on 192,
+# 224 on 256)
+FLASH_TILED_CASES = [(s, d, views, rate) for d in (64, 96)
+                     for s in (100, 700, 1024, 2048)
+                     for views in (False, True) for rate in (0.0, 0.1)
+                     if d == 64 or s > 700] + [
     (s, d, s == 700, 0.1) for d in (32, 128) for s in (100, 700)] + [
     (s, d, s == 700, 0.1) for d in (96, 192, 256, 16, 48, 136, 224)
-    for s in (100, 700)] + [(1024, 96, True, 0.0)]
+    for s in (100, 700)]
+
+
+def _flash_wgmma_counts():
+    """The tiled kernels' wgmma launch counters, all and per head dim."""
+    return {w: K.flash_wgmma_launches(w) for w in (0, 64, 96)}
+
+
+def _flash_wgmma_rise(d: int, n: int = 1) -> dict:
+    """What ``_flash_wgmma_counts`` rises by for n launches of each tiled
+    kernel at head dim d: n where ``FLASH_WGMMA`` names a wgmma instance
+    at d, at d's own width and at 0, and 0 elsewhere."""
+    return {w: {name: n * int(d in dims and w in (0, d))
+                for name, dims in K.FLASH_WGMMA.items()}
+            for w in (0, 64, 96)}
 
 
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("s,d,views,rate", FLASH_TILED_CASES)
 def test_flash_tiled_kernels(dev, s, d, views, rate, packed):
     """The tiled kernels against their plain versions; the backward pair
-    twice, bit for bit (ordered sums, no atomics); all three on their
-    wgmma + TMA kernels exactly at d = 64."""
+    twice, bit for bit (ordered sums, no atomics); each kernel on its
+    wgmma + TMA instance exactly at the head dims ``FLASH_WGMMA`` names
+    (all three at d = 64, the backward pair at d = 96), counted at d's
+    own width."""
     b, nh = 2, 4
     q, k, v, do = _bshd_operands(dev, b, s, nh, d, views, seed=s + d)
     mask = _attn_mask(dev, b, s, packed)
     drop, sc = _drop(rate, 3), 1.0 / d ** 0.5
-    n0 = K.flash_wgmma_launches()
+    n0 = _flash_wgmma_counts()
     o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
 
     def bwd():
@@ -1308,10 +1326,9 @@ def test_flash_tiled_kernels(dev, s, d, views, rate, packed):
 
     dq, di, dk, dv = bwd()
     torch.cuda.synchronize()
-    n1 = K.flash_wgmma_launches()
-    assert {n: n1[n] - n0[n] for n in n1} == {
-        "flash_fwd": int(d == 64), "flash_bwd_dq": int(d == 64),
-        "flash_bwd_dkv": int(d == 64)}
+    n1 = _flash_wgmma_counts()
+    assert {w: {n: n1[w][n] - n0[w][n] for n in n1[w]} for w in n1} == (
+        _flash_wgmma_rise(d))
     ro, rlse = K.flash_fwd_reference(q, k, v, mask, sc, drop)
     _close(o, ro)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
@@ -1361,6 +1378,59 @@ def test_flash_tiled_draws_the_single_block_mask(dev, d):
         want = torch.gather(keep, 3, cols[None, None].expand(b, nh, s, 64))
         for o in (outs[0][0], outs[1][0]):
             assert torch.equal(o.permute(0, 2, 1, 3) != 0, want)
+
+
+def test_flash_d96_backward_regenerates_the_forward_prob_mask(dev):
+    """The d = 96 tiled backward pair (wgmma + TMA) rebuilds the
+    forward's stream-3 keep bits.  s = 288: three 96-key chunks, 4.5
+    64-row tiles; element 1 padded from key 138 on.  K and V one-hot on one
+    chunk at a time (key 96 c + j has row e_j, every other key 0): the
+    forward's o is that chunk's dropped probs, 0 exactly where a bit
+    drops; with dO one-hot on the same chunk of queries the dK/dV
+    kernel's dV is those queries' dropped probs as it rebuilds them, for
+    every key; with dO = 1 the dQ kernel's dq is the chunk's ds, p (keep /
+    (1 - rate) - di) sm_scale: > 0 exactly where a bit is kept (di, the
+    chunk's kept mass, stays below 1 / (1 - rate)).  Every backward launch
+    runs on the d = 96 wgmma pair."""
+    from nbest_asr_tpu_torch.ops.philox import keep_mask
+
+    b, nh, d, s, rate = 2, 2, 96, 288, 0.1
+    q = _rand(dev, b, s, nh, d, std=0.5, seed=96)
+    mask = torch.ones(b, s, device=dev)
+    mask[1, 138:] = 0.0                  # pads attend pads
+    drop, sc = _drop(rate, 3, seed=4321), 1.0 / d ** 0.5
+    keep = keep_mask(4321, 3, 0, b * nh * s, s, rate, dev).reshape(b, nh, s,
+                                                                    s)
+    same = mask[:, None, :, None] == mask[:, None, None, :]
+    got = {n: torch.zeros(b, nh, s, s, dtype=torch.bool, device=dev)
+           for n in ("o", "dv", "dq")}
+    n0 = _flash_wgmma_counts()
+    rows = torch.arange(s, device=dev)
+    for c in range(s // d):
+        cols = slice(d * c, d * c + d)
+        inside = (rows >= d * c) & (rows < d * c + d)
+        onehot = torch.zeros(s, d, device=dev, dtype=torch.bfloat16)
+        onehot[inside, rows[inside] - d * c] = 1.0
+        kv = onehot[None, :, None, :].expand(b, s, nh, d).contiguous()
+        o, lse = K.flash_fwd(q, kv, kv, mask, sc, drop)
+        got["o"][..., cols] = o.permute(0, 2, 1, 3) != 0
+        dq, _ = K.flash_bwd_dq(q, kv, kv, mask, o, lse, torch.ones_like(o),
+                               sc, drop)
+        got["dq"][..., cols] = dq.permute(0, 2, 1, 3) > 0
+        _, di = K.flash_bwd_dq(q, kv, kv, mask, o, lse, kv, sc, drop)
+        _, dv = K.flash_bwd_dkv(q, kv, kv, mask, lse, di, kv, sc, drop)
+        # dv[b, key, h, j] -> prob (query 96 c + j, key)
+        got["dv"][:, :, cols] = dv.permute(0, 2, 3, 1) != 0
+    torch.cuda.synchronize()
+    n1 = _flash_wgmma_counts()
+    n_chunks = s // d
+    assert {n: n1[96][n] - n0[96][n] for n in n1[96]} == {
+        "flash_fwd": 0, "flash_bwd_dq": 2 * n_chunks,
+        "flash_bwd_dkv": n_chunks}
+    for name, g in got.items():
+        n_diff = int((g != (keep & same)).sum())
+        print(f"{name}: {n_diff} of {keep.numel()} differ from the keep bits")
+        assert n_diff == 0, name
 
 
 def test_flash_wrappers_refuse_and_count(dev):
