@@ -29,9 +29,11 @@ at every bucket, ragged lengths and past 256, on the QKV buffer and on (b,
 s, heads, d) tensors; d = 96 at every bucket (its wgmma pair); the
 mma.sync instances at d = 32, 80, 128, 136 (on the 192-wide instance) and
 at d = 96 and 192 past 256; and the tiled trio (``flash_fwd``: o and
-lse; ``flash_bwd_dq``: dq and di; ``flash_bwd_dkv``: dk and dv) at s =
-700 and 1024 on q, k, v views of one QKV buffer at d = 64 and 96 (their
-wgmma + TMA instances), 32, 128, 192, 256 and the padded 48 and 80.
+lse; ``flash_bwd_dq``: dq and di; ``flash_bwd_dkv``: dk and dv, and
+the pair again on the plain forward's o and lse, so that a change of the
+forward leaves the pair's inputs alone) at s = 700 and 1024 on q, k, v
+views of one QKV buffer at d = 64 and 96 (their wgmma + TMA instances),
+32, 128, 192, 256 and the padded 48 and 80.
 ``compare`` holds two dumps bit for bit and names the cases that differ.
 """
 
@@ -199,6 +201,13 @@ def attn_dump(out: str) -> None:
             for name, t in zip(("o", "lse", "dq", "di", "dk", "dv"),
                                (o, lse, dq, di, dk, dv)):
                 res[f"{name} {tag}"] = t.cpu()
+            # the backward pair on the plain forward's o and lse: the same
+            # inputs whichever forward kernel the checkout has
+            o, lse = K.flash_fwd_reference(q, k, v, mask, sc, drop)
+            dq, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc, drop)
+            dk, dv = K.flash_bwd_dkv(q, k, v, mask, lse, di, do, sc, drop)
+            for name, t in zip(("dq", "di", "dk", "dv"), (dq, di, dk, dv)):
+                res[f"{name} {tag} on the plain forward"] = t.cpu()
     torch.save(res, out)
     print(f"{len(res)} cases -> {out}")
 

@@ -277,16 +277,17 @@ Phases, each fatal on failure:
    (the padded 64- and 96-wide mma.sync instances), and at d = 192 (the
    CLI's 4 heads) at each training micro (QKV views and standalone
    tensors) and at 4 x 300; the tiled trio at d = 96 (32 x 1024 x 8),
-   192, 256 and 48 (8 x 1024); padded and packed masks, dropout 0 and
+   192, 256 and 48 (8 x 1024) and 88 (2 x 1024 x 8, on the 96-wide
+   mma.sync trio); padded and packed masks, dropout 0 and
    0.1, against their plain versions under ``Checker``.  Each
    single-block launch runs on the instance ``kernels.attn_instance``
    names: the d = 96 and d = 192 pairs on their wgmma kernels at s <=
    256, with ``seg_attention_wgmma_launches(d)`` and
    ``seg_attention_bwd_wgmma_launches(d)`` rising by exactly their
    launches, and on mma.sync past 256 and at d = 48, 80, 88; the tiled
-   backward pair on its wgmma + TMA kernels at d = 96
-   (``flash_wgmma_launches(96)`` rising by one launch each), the tiled
-   forward and every other tiled head dim on no wgmma kernel.  (b) Device
+   trio on its wgmma + TMA kernels at d = 96 (``flash_wgmma_launches(96)``
+   rising by one launch each), every other tiled head dim (the padded 88
+   on the 96-wide mma.sync trio among them) on no wgmma kernel.  (b) Device
    ms of the five at d = 96 (the pair at 32 x 256, the trio at 32 x 1024,
    8 heads) and of the pair at d = 192 (32 x 256 x 4 heads), and of the
    instances (a) checks that no configuration runs -- the trio at d = 192
@@ -309,11 +310,12 @@ Phases, each fatal on failure:
    leg, the same encoder at 48 x 1024
    (max_position 1024; at 32 rows JAX's ``_flash_preferred`` leaves 8
    heads to the plain path), one counted step on the tiled kernels held
-   to the same step on their plain versions, its backward pair on the d =
-   96 wgmma + TMA kernels (``flash_wgmma_launches(96)`` rising by exactly
-   4 launches each, ``flash_fwd``'s by none).  Prints step ms and a JSON
-   line of the d = 96 and 192 kernels' times, bounds and launches a step
-   ("none" for the instances no configuration runs).
+   to the same step on their plain versions, all three tiled kernels on
+   the d = 96 wgmma + TMA kernels (``flash_wgmma_launches(96)`` rising by
+   exactly 4 launches each).  Prints step ms and a JSON line of the d = 96
+   and 192 kernels' times, bounds and launches a step ("none" for the
+   instances no configuration runs), and the d = 96 tiled forward's
+   registers and spills beside its time.
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
@@ -510,7 +512,8 @@ HD_SB_SHAPES = ((128, 64, HD_NH, HD, True), (80, 96, HD_NH, HD, True),
                 (48, 160, CLI_NH, CLI_D, True),
                 (32, 256, CLI_NH, CLI_D, False), (4, 300, CLI_NH, CLI_D, True))
 HD_TILED_SHAPES = ((LONG_BATCH, LONG_SEQ, HD_NH, HD), (8, 1024, 4, 192),
-                   (8, 1024, 3, 256), (8, 1024, 16, 48))
+                   (8, 1024, 3, 256), (8, 1024, 16, 48),
+                   (2, 1024, HD_NH, 88))
 HD_LONG_BATCH = 48
 # the H100 SXM's published dense peaks (NVIDIA H100 datasheet)
 PEAK = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}
@@ -2455,8 +2458,7 @@ def check_tiled_trio(K, check, gen, dev, shapes, seed0: int):
     d) of ``shapes`` (q, k, v views of one QKV buffer), padded and packed
     masks, dropout 0 and 0.1: o, lse, di, dq, dk, dv; each on its wgmma +
     TMA kernel exactly at the head dims ``kernels.FLASH_WGMMA`` names (all
-    three at d = 64, the backward pair at d = 96), counted at d's own
-    width."""
+    three at d = 64 and 96), counted at d's own width."""
     from nbest_asr_tpu_torch.ops.philox import site
 
     for b, s, nh, d in shapes:
@@ -3692,6 +3694,7 @@ def head_dim_times(K, dev, gen, card: str):
     beside their plain versions, SDPA's forward or backward alone on the
     same operands, and their bounds.  -> {kernel + its ``HD_TIMED``
     suffix: (ms, plain ms, library ms, bound ms, bound by)}."""
+    from nbest_asr_tpu_torch.ops import _cuda
     from nbest_asr_tpu_torch.ops.philox import site
 
     out = {}
@@ -3746,6 +3749,11 @@ def head_dim_times(K, dev, gen, card: str):
                 f"{k_ms:.4f} ms device, plain {p_ms:.4f} ms, library "
                 f"(SDPA's {what}) {l_ms:.4f} ms device, bound {b_ms:.4f} ms "
                 f"({b_by}), {b_ms / k_ms:.3f} of it [{card}]")
+            if name == "flash_fwd" and d == HD:
+                # the d = 96 wgmma + TMA forward's registers and spills
+                for line in ptxas_summary(_cuda.build_report):
+                    if "flash_fwd96_wgmma_kernel" in line:
+                        log(f"  ptxas {line}")
         del q, k, v, do, fns
     return out
 
@@ -3938,8 +3946,8 @@ def phase_head_dims(dev, card: str, rig):
     hold_counts(f"the tiled leg, one step at {HD_LONG_BATCH} x {LONG_SEQ}",
                 got, {k: PER_LAYER_TRAIN_TILED.get(k, 0) * HD_LAYERS
                       for k in got})
-    # one kernel step: each layer's tiled backward pair on its d = 96
-    # wgmma + TMA kernels, its forward on mma.sync
+    # one kernel step: each layer's tiled trio on its d = 96 wgmma + TMA
+    # kernels
     leg = flash_wgmma_delta(K, wgmma0)
     log(f"[head dims] tiled wgmma launches of the leg's step: {leg}")
     if leg != flash_wgmma_rise(K, HD, HD_LAYERS):
@@ -6096,8 +6104,9 @@ def main() -> int:
     # the wgmma + TMA kernels' instances -- the GEMM's (bf16 and s8:
     # gemm_tma_kernel<S8, EPI, TRAIN>) and the tiled flash kernels'
     # (flash_fwd_wgmma_kernel, flash_dq_wgmma_kernel,
-    # flash_dkv_wgmma_kernel, and at d = 96 flash_dq96_wgmma_kernel and
-    # flash_dkv96_wgmma_kernel <DROP>) -- and the single-block pair's wgmma
+    # flash_dkv_wgmma_kernel, and at d = 96 flash_fwd96_wgmma_kernel,
+    # flash_dq96_wgmma_kernel and flash_dkv96_wgmma_kernel <DROP>) -- and
+    # the single-block pair's wgmma
     # instances (seg_attn_wgmma_kernel <NK, NWIN, D, DROP>,
     # dq_wgmma_kernel, dq96_wgmma_kernel and dq64x2_wgmma_kernel <NK,
     # DROP>, dkv_wgmma_kernel
@@ -6111,6 +6120,7 @@ def main() -> int:
     # dropout dq kernel at 96 keys)
     tma_names = ("gemm_tma_kernel", "flash_fwd_wgmma_kernel",
                  "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
+                 "flash_fwd96_wgmma_kernel",
                  "flash_dq96_wgmma_kernel", "flash_dkv96_wgmma_kernel",
                  "quant_grad_pass_kernel", "seg_attn_wgmma_kernel",
                  "dq_wgmma_kernel", "dq96_wgmma_kernel",

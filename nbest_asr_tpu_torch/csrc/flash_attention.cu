@@ -23,16 +23,19 @@
 // rounded to bf16 unnormalised, as FlashAttention does (the TPU kernel
 // multiplies in f32 at HIGHEST precision).
 //
-// Two kernels; nbk_flash_fwd picks by head dim, and neither falls back to
-// the other:
+// Three kernels; nbk_flash_fwd picks by head dim, and none falls back to
+// another:
 //   d = 64 (any S)        the wgmma + TMA kernel (section 2)
+//   d = 96 (any S)        its twin on 96-column tiles (section 3)
 //   every other d <= 256  the mma.sync kernel (section 1), on its
 //   with d % 8 == 0       instance of width 32, 64, 96, 128, 192 or 256
 //                         (attention.cuh, instance_width: a d between two
 //                         widths runs on the wider, its columns past d
 //                         zero-filled on load and never stored; d = 40 ..
-//                         56 on the 64-wide instance, which runs only
-//                         such padded heads)
+//                         56 on the 64-wide instance and 72 .. 88 on the
+//                         96-wide one, which run only such padded heads:
+//                         a TMA box as wide as the instance would read
+//                         the next head's columns)
 //
 // The mma.sync kernel (FlashAttention-2): one block per (element, head,
 // 64-query tile), 4 warps x 16 query rows; the q fragments stay in
@@ -43,7 +46,8 @@
 // attention.cuh).  The score C fragments become, after the exp, the A
 // fragments of P . V.
 //
-// The wgmma + TMA kernel at d = 64, on the backward pair's pieces
+// The wgmma + TMA kernel at d = 64 (at 96 the same on 96-column tiles),
+// on the backward pair's pieces
 // (flash_wgmma.cuh) with an online softmax in place of dP: a block owns
 // 256 queries as four warpgroups of 64, which share each 64-key K and V
 // tile.  The block's Q arrives once by TMA; warp 0 fills a ring of
@@ -75,10 +79,11 @@
 // What bounds it on the H100: 4 b h s^2 d tensor-core operations against
 // 8 b s h + 4 b s + 4 b h s bytes -- at s = 1024, d = 64 about 500
 // operations a byte, above the card's 295: the MMA rate bounds it (0.104
-// ms at route B's 32 x 1024 x 12 heads).  With dropout the Philox keep
-// bits, one call per four (query, key) pairs with some 18 integer
-// multiplies each, take the integer pipe longer than the products take
-// the tensor cores (PERF.md).
+// ms at route B's 32 x 1024 x 12 heads, and at the quality encoder's 32 x
+// 1024 x 8 heads of 96, where section 3 takes 0.57 ms, 0.30 without
+// dropout).  With dropout the Philox keep bits, one call per four (query,
+// key) pairs with some 18 integer multiplies each, take the integer pipe
+// longer than the products take the tensor cores (PERF.md).
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -88,7 +93,7 @@ using namespace nbk::attn;
 using namespace nbk::flash;
 
 // -------------------------------------------------------------------- //
-// 1. The mma.sync kernel, every d <= 256, d % 8 == 0, but 64
+// 1. The mma.sync kernel, every d <= 256, d % 8 == 0, but 64 and 96
 // -------------------------------------------------------------------- //
 
 constexpr int KT = 64;       // keys per tile
@@ -122,7 +127,8 @@ __device__ __forceinline__ void stage_tile(bf16* sK, bf16* sV, float* sMk,
 
 // Blocks per SM: 4 at d = 32 and 64 (128 registers), 3 at d = 96 (67 KB of
 // shared memory; 168 registers, where the dropout instance spills 12
-// bytes: 9% faster than 2 blocks at 32 x 1024 x 8 heads on the H100), 2 at
+// bytes: 9% faster than 2 blocks at 32 x 1024 x 8 heads on the H100, when
+// it ran d = 96 itself; it runs the padded d = 72 .. 88 now), 2 at
 // d = 128 (87 KB; the fragments and the accumulator take ~96 registers
 // before the scores), 1 at d = 192 and 256 (128 and 169 KB).  The head is
 // dh <= D columns wide (columns past dh are zeros in the tiles); o has rows
@@ -313,6 +319,96 @@ constexpr int FBLOCK = 256;    // queries a block owns: four warpgroups
 constexpr int FTHREADS = 512;  // no producer warpgroup: 128 registers each
 constexpr int FSTAGES = 4;     // ring slots; warp 0 fills two tiles ahead
 
+// One key tile of the online softmax for a thread's rows g and g + 8 of
+// its warp (segment ids qma, qmb; kid: the tile's key segment ids from
+// the thread's first fragment column; n: the tile's keys below S).  The
+// scores s (C fragments) become x = s sm_scale log2 e (sc2), MASK_VALUE
+// where the segments differ, -inf past S; the row maxima ma, mb (log2
+// units) and this thread's share of the row sums la, lb take the tile in,
+// p = 2^(x - m') summed undropped, and drop(p) is packed into pa as bf16
+// A fragments.  -> the rows' rescale factors 2^(m - m').
+template <bool DROP>
+__device__ __forceinline__ float2 softmax_tile(
+    float (&s)[32], unsigned (&pa)[16], const float* kid, float qma,
+    float qmb, int n, float sc2, float ik, const KeepQ<DROP>& keep, int t4,
+    float& ma, float& mb, float& la, float& lb) {
+  // x = s sm_scale log2 e; MASK_VALUE where the segments differ
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const float2 km = *reinterpret_cast<const float2*>(kid + 8 * jj);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * jj + e;
+      s[i] = ((e & 1) ? km.y : km.x) == (e < 2 ? qma : qmb) ? s[i] * sc2
+                                                            : MASK_VALUE;
+    }
+  }
+  if (n < QT) {  // the last tile: keys past S are -inf
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (8 * (i >> 2) + 2 * t4 + (i & 1) >= n) s[i] = -INFINITY;
+  }
+  float ta = -INFINITY, tb = -INFINITY;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    ta = fmaxf(ta, fmaxf(s[4 * jj], s[4 * jj + 1]));
+    tb = fmaxf(tb, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
+  }
+  // every tile holds a key below S, so na and nb are finite; the first
+  // tile's alpha is 2^-inf = 0
+  const float na = fmaxf(ma, quad_max(ta)), nb = fmaxf(mb, quad_max(tb));
+  const float2 alpha = make_float2(ex2(ma - na), ex2(mb - nb));
+  ma = na;
+  mb = nb;
+  la *= alpha.x;
+  lb *= alpha.y;
+  // p = 2^(x - m'), summed undropped; drop(p) packed as A fragments
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool lo = e < 2;
+      const float p = ex2(s[4 * jj + e] - (lo ? na : nb));
+      if (lo)
+        la += p;
+      else
+        lb += p;
+      v[e] = !DROP ? p : keep(!lo, jj, e & 1) ? __fmul_rn(p, ik) : 0.f;
+    }
+    pa[2 * jj] = pack_bf16x2(v[0], v[1]);
+    pa[2 * jj + 1] = pack_bf16x2(v[2], v[3]);
+  }
+  return alpha;
+}
+
+// Scales a thread's accumulator rows g (by f.x) and g + 8 (by f.y).
+template <int R>
+__device__ __forceinline__ void scale_rows(float (&acc)[R], float2 f) {
+#pragma unroll
+  for (int jj = 0; jj < R / 4; ++jj) {
+    acc[4 * jj] *= f.x;
+    acc[4 * jj + 1] *= f.x;
+    acc[4 * jj + 2] *= f.y;
+    acc[4 * jj + 3] *= f.y;
+  }
+}
+
+// The rows' end: their sums over the quad, lse in natural log (m ln 2 +
+// log(l)) at lse[qa] and lse[qa + 8] (rows below S).  -> the factors that
+// normalise o, 1 / l (1 where l = 0).
+__device__ __forceinline__ float2 finish_rows(float ma, float mb, float la,
+                                              float lb, float* lse, int qa,
+                                              int S, int t4) {
+  la = quad_sum(la);
+  lb = quad_sum(lb);
+  if (t4 == 0) {
+    if (qa < S) lse[qa] = ma * LN2 + logf(fmaxf(la, 1e-30f));
+    if (qa + 8 < S) lse[qa + 8] = mb * LN2 + logf(fmaxf(lb, 1e-30f));
+  }
+  return make_float2(la == 0.f ? 1.f : 1.f / la, lb == 0.f ? 1.f : 1.f / lb);
+}
+
 // Shared memory, offsets from a 1024-byte-aligned base: Q of the block's
 // 256 queries (four 64-row boxes), the ring's K and V tiles, each slot's
 // key segment ids (NaN past S), the barriers (full and empty per slot, one
@@ -426,62 +522,11 @@ __global__ void __launch_bounds__(FTHREADS, 1) flash_fwd_wgmma_kernel(
     const float* kid = ids + st * QT + 2 * t4;
     wgmma_wait<0>();
     fence_acc(s);
-    // x = s sm_scale log2 e; MASK_VALUE where the segments differ
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const float2 km = *reinterpret_cast<const float2*>(kid + 8 * jj);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * jj + e;
-        s[i] = ((e & 1) ? km.y : km.x) == (e < 2 ? qma : qmb) ? s[i] * sc2
-                                                              : MASK_VALUE;
-      }
-    }
-    if ((kt + 1) * QT > S) {  // the last tile: keys past S are -inf
-      const int n = S - kt * QT;
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        if (8 * (i >> 2) + 2 * t4 + (i & 1) >= n) s[i] = -INFINITY;
-    }
-    float ta = -INFINITY, tb = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      ta = fmaxf(ta, fmaxf(s[4 * jj], s[4 * jj + 1]));
-      tb = fmaxf(tb, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
-    }
-    // every tile holds a key below S, so na and nb are finite; the first
-    // tile's alpha is 2^-inf = 0
-    const float na = fmaxf(ma, quad_max(ta)), nb = fmaxf(mb, quad_max(tb));
-    const float alpha_a = ex2(ma - na), alpha_b = ex2(mb - nb);
-    ma = na;
-    mb = nb;
-    la *= alpha_a;
-    lb *= alpha_b;
-    // p = 2^(x - m'), summed undropped; drop(p) packed as A fragments
     unsigned pa[16];
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lo = e < 2;
-        const float p = ex2(s[4 * jj + e] - (lo ? na : nb));
-        if (lo)
-          la += p;
-        else
-          lb += p;
-        v[e] = !DROP ? p : keep(!lo, jj, e & 1) ? __fmul_rn(p, ik) : 0.f;
-      }
-      pa[2 * jj] = pack_bf16x2(v[0], v[1]);
-      pa[2 * jj + 1] = pack_bf16x2(v[2], v[3]);
-    }
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      acc[4 * jj] *= alpha_a;
-      acc[4 * jj + 1] *= alpha_a;
-      acc[4 * jj + 2] *= alpha_b;
-      acc[4 * jj + 3] *= alpha_b;
-    }
+    const float2 alpha = softmax_tile<DROP>(s, pa, kid, qma, qmb,
+                                            S - kt * QT, sc2, ik, keep, t4,
+                                            ma, mb, la, lb);
+    scale_rows(acc, alpha);
     fence_acc(acc);
     wgmma_fence();
     issue_rs(acc, pa, d_vt + slot);  // O += drop(P) V
@@ -491,28 +536,171 @@ __global__ void __launch_bounds__(FTHREADS, 1) flash_fwd_wgmma_kernel(
     if (lane == 0) mbar_arrive(&empty[st]);
   }
 
-  la = quad_sum(la);
-  lb = quad_sum(lb);
-  const float ia = la == 0.f ? 1.f : 1.f / la;
-  const float ib = lb == 0.f ? 1.f : 1.f / lb;
+  const float2 inv = finish_rows(ma, mb, la, lb, lse + prow0, qa, S, t4);
 #pragma unroll
   for (int jj = 0; jj < 8; ++jj) {
     const int c = col + jj * 8 + 2 * t4;
     if (qa < S)
       *reinterpret_cast<unsigned*>(o + (row0 + qa) * H + c) =
-          pack_bf16x2(acc[4 * jj] * ia, acc[4 * jj + 1] * ia);
+          pack_bf16x2(acc[4 * jj] * inv.x, acc[4 * jj + 1] * inv.x);
     if (qb < S)
       *reinterpret_cast<unsigned*>(o + (row0 + qb) * H + c) =
-          pack_bf16x2(acc[4 * jj + 2] * ib, acc[4 * jj + 3] * ib);
-  }
-  // lse in natural log: m ln 2 + log(l)
-  if (t4 == 0) {
-    if (qa < S) lse[prow0 + qa] = ma * LN2 + logf(fmaxf(la, 1e-30f));
-    if (qb < S) lse[prow0 + qb] = mb * LN2 + logf(fmaxf(lb, 1e-30f));
+          pack_bf16x2(acc[4 * jj + 2] * inv.y, acc[4 * jj + 3] * inv.y);
   }
 }
 
-long long wgmma_launches = 0;  // launches of the wgmma + TMA kernel
+// -------------------------------------------------------------------- //
+// 3. The wgmma + TMA kernel, d = 96 (any S)
+// -------------------------------------------------------------------- //
+
+// Section 2's kernel on 96-column tiles (flash_wgmma.cuh's, as the d = 96
+// backward pair lays them: a 128-byte- and a 64-byte-swizzled panel, each
+// by its own TMA map).  S = Q K^T takes 4 + 2 k16 steps (issue_nt96); O
+// += drop(P) V an m64n64 and an m64n32 product with P from registers
+// (issue_rs96), 32 + 16 accumulators a thread; the softmax and the keep
+// bits are section 2's, the same work per (query, key) pair.  A thread
+// holds 16 registers more than at d = 64 (the second panel's
+// accumulators) within the same 128, so the descriptors are built at each
+// use from 32-bit shared addresses, as the backward pair's are: 128
+// registers, no spill.  Three warpgroups a block (168 registers) ran 18%
+// slower on the H100 (PERF.md).
+
+// Shared memory, offsets from a 1024-byte-aligned base: FwdSmem's with
+// 96-column tiles.
+struct Fwd96Smem {
+  static constexpr int Q = 0, K = Q + 4 * T96, V = K + FSTAGES * T96;
+  static constexpr int IDS = V + FSTAGES * T96;
+  static constexpr int BAR = IDS + FSTAGES * QT * 4;
+  static constexpr int BYTES = 1024 + BAR + (2 * FSTAGES + 1) * 8;
+};
+static_assert(Fwd96Smem::BYTES <= 232448, "shared memory");
+
+// Per (element, head, 256 queries), keys innermost.  Warpgroup w owns
+// queries 64 w .. + 63 of the block; warp 0 also fills the ring.
+template <bool DROP>
+__global__ void __launch_bounds__(FTHREADS, 1) flash_fwd96_wgmma_kernel(
+    const __grid_constant__ PanelMaps tm_q,
+    const __grid_constant__ PanelMaps tm_k,
+    const __grid_constant__ PanelMaps tm_v,
+    const float* __restrict__ mask, bf16* __restrict__ o,
+    float* __restrict__ lse, int S, float sm_scale, DropParams drop) {
+  using L = Fwd96Smem;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* ids = reinterpret_cast<float*>(sm + L::IDS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* empty = full + FSTAGES;
+  uint64_t* resident = empty + FSTAGES;
+
+  const int head = blockIdx.y, elem = blockIdx.z, col = head * 96;
+  const int H = gridDim.y * 96;
+  const int q0 = blockIdx.x * FBLOCK;
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * gridDim.y + head) * S;  // Philox row of query 0
+  const int n_kt = (S + QT - 1) / QT;
+  const float nan = __int_as_float(0x7fc00000);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FSTAGES; ++s) {
+      mbar_init(&full[s], 33);   // the TMA bytes + warp 0's 32 lanes
+      mbar_init(&empty[s], 16);  // one arrive per warp
+    }
+    mbar_init(resident, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int ct = threadIdx.x, cw = ct >> 7;
+  const int lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+  const bool loader = ct < 32;  // warp 0 fills the ring
+  // tile kt's K, V (lane 0, by TMA) and segment ids into its slot
+  auto fill = [&](int kt) {
+    const int st = kt % FSTAGES, k0 = kt * QT;
+    if (lane == 0) {
+      mbar_expect_tx(&full[st], 2 * T96);
+      tma_tile96(sm + L::K + st * T96, tm_k, &full[st], col, k0, elem);
+      tma_tile96(sm + L::V + st * T96, tm_v, &full[st], col, k0, elem);
+    }
+    for (int j = lane; j < QT; j += 32)
+      ids[st * QT + j] = k0 + j < S ? mask[row0 + k0 + j] : nan;
+    mbar_arrive(&full[st]);
+  };
+  if (loader) {
+    if (lane == 0) {
+      mbar_expect_tx(resident, 4 * T96);
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        tma_tile96(sm + L::Q + h * T96, tm_q, resident, col, q0 + h * QT,
+                   elem);
+    }
+    for (int kt = 0; kt < FSTAGES && kt < n_kt; ++kt) fill(kt);
+  }
+  const int ra = cw * 64 + ((ct >> 5) & 3) * 16 + g;  // block rows ra, +8
+  const int qa = q0 + ra, qb = qa + 8;
+  // the Philox row this lane draws: row lane / 2 of the warp's 16
+  const int drow = prow0 + q0 + (ra - g) + (lane >> 1);
+  // a query past S matches no key (NaN); its output is never stored
+  const float qma = qa < S ? mask[row0 + qa] : nan;
+  const float qmb = qb < S ? mask[row0 + qb] : nan;
+  const float sc2 = sm_scale * LOG2E, ik = drop.inv_keep;
+  const unsigned base = smem_addr(sm), a_q = base + L::Q + cw * T96;
+  mbar_wait(resident, 0);
+
+  float acc[32], acc1[16];  // o columns 0-63, 64-95
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc1[i] = 0.f;
+  // the running row maxima (log2 units) and this thread's share of the
+  // row sums
+  float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    // the slot tile kt - 2 held takes tile kt + 2 once every warp is done
+    // with it (rarely a wait: two tiles have passed since)
+    if (loader && kt >= 2 && kt + 2 < n_kt) {
+      mbar_wait(&empty[(kt - 2) % FSTAGES], ((kt - 2) / FSTAGES) & 1);
+      fill(kt + 2);
+    }
+    const int st = kt % FSTAGES;
+    const unsigned a_k = base + L::K + st * T96, a_qo = opaque(a_q);
+    mbar_wait(&full[st], (kt / FSTAGES) & 1);
+    float s[32];
+    wgmma_fence();
+    issue_nt96(s, a_qo, a_k);
+    wgmma_commit();
+    // the keep bits while the product runs
+    const KeepQ<DROP> keep(
+        DROP ? draw_rows(drop, drow, kt * QT + 4 * (lane & 1)) : 0u, lane);
+    const float* kid = ids + st * QT + 2 * t4;
+    wgmma_wait<0>();
+    fence_acc(s);
+    unsigned pa[16];
+    const float2 alpha = softmax_tile<DROP>(s, pa, kid, qma, qmb,
+                                            S - kt * QT, sc2, ik, keep, t4,
+                                            ma, mb, la, lb);
+    scale_rows(acc, alpha);
+    scale_rows(acc1, alpha);
+    fence_acc(acc);
+    fence_acc(acc1);
+    wgmma_fence();
+    issue_rs96(acc, acc1, pa, a_k + (L::V - L::K));  // O += drop(P) V
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_acc(acc1);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  const float2 inv = finish_rows(ma, mb, la, lb, lse + prow0, qa, S, t4);
+  scale_rows(acc, inv);
+  scale_rows(acc1, inv);
+  if (qa < S) store96(o, (row0 + qa) * H, col, t4, false, acc, acc1);
+  if (qb < S) store96(o, (row0 + qb) * H, col, t4, true, acc, acc1);
+}
+
+// launches of the wgmma + TMA kernels, at d = 64 and 96
+long long wgmma_launches[2] = {0, 0};
 
 template <bool DROP>
 int launch_wgmma(const void* q, const void* k, const void* v, int ld,
@@ -536,7 +724,34 @@ int launch_wgmma(const void* q, const void* k, const void* v, int ld,
   flash_fwd_wgmma_kernel<DROP><<<grid, FTHREADS, FwdSmem::BYTES, stream>>>(
       tq, tk, tv, mask, static_cast<bf16*>(o), lse, S, sm_scale, drop);
   const cudaError_t e = cudaGetLastError();
-  if (e == cudaSuccess) ++wgmma_launches;
+  if (e == cudaSuccess) ++wgmma_launches[0];
+  return (int)e;
+}
+
+
+template <bool DROP>
+int launch_wgmma96(const void* q, const void* k, const void* v, int ld,
+                   const float* mask, void* o, float* lse, int B, int S,
+                   int n_heads, float sm_scale, const DropParams& drop,
+                   cudaStream_t stream) {
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd96_wgmma_kernel<DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Fwd96Smem::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  PanelMaps tq, tk, tv;
+  int rc = panel_maps(&tq, q, ld, n_heads, S, B);
+  if (rc == 0) rc = panel_maps(&tk, k, ld, n_heads, S, B);
+  if (rc == 0) rc = panel_maps(&tv, v, ld, n_heads, S, B);
+  if (rc != 0) return rc;
+  dim3 grid((S + FBLOCK - 1) / FBLOCK, n_heads, B);
+  flash_fwd96_wgmma_kernel<DROP><<<grid, FTHREADS, Fwd96Smem::BYTES, stream>>>(
+      tq, tk, tv, mask, static_cast<bf16*>(o), lse, S, sm_scale, drop);
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++wgmma_launches[1];
   return (int)e;
 }
 
@@ -545,8 +760,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, int ld,
 extern "C" {
 
 // q, k, v: (B*S, ld) bf16 row-major, each operand's (n_heads * d) columns
-// starting at its pointer (16-byte aligned, ld % 8 == 0: at d = 64 TMA
-// reads them); mask (B, S) f32 segment ids -> o (B*S, n_heads * d) bf16
+// starting at its pointer (16-byte aligned, ld % 8 == 0: at d = 64 and
+// 96 TMA reads them); mask (B, S) f32 segment ids -> o (B*S, n_heads * d) bf16
 // and lse (B, n_heads, S) f32.  d <= 256 with d % 8 == 0, any S >= 1.
 // Prob dropout when drop_on (philox.cuh).
 int nbk_flash_fwd(const void* q, const void* k, const void* v, int ld,
@@ -561,6 +776,11 @@ int nbk_flash_fwd(const void* q, const void* k, const void* v, int ld,
                                         n_heads, sm_scale, drop, s)
                    : launch_wgmma<false>(q, k, v, ld, mask, o, lse, B, S,
                                          n_heads, sm_scale, drop, s);
+  if (d == 96)
+    return drop.on ? launch_wgmma96<true>(q, k, v, ld, mask, o, lse, B, S,
+                                          n_heads, sm_scale, drop, s)
+                   : launch_wgmma96<false>(q, k, v, ld, mask, o, lse, B, S,
+                                           n_heads, sm_scale, drop, s);
 #define NBK_FLASH_FWD(D)                                                  \
   case D:                                                                 \
     return launch<D>(q, k, v, ld, mask, o, lse, B, S, n_heads, d,         \
@@ -577,11 +797,14 @@ int nbk_flash_fwd(const void* q, const void* k, const void* v, int ld,
   return (int)cudaErrorInvalidValue;
 }
 
-// Launches of the wgmma + TMA kernel since the library was loaded, at head
-// dim d (64, or 0 for all; any other d: 0) -- a routing check: it runs
-// exactly at d = 64.
+// Launches of the wgmma + TMA kernels since the library was loaded, at
+// head dim d (64 or 96; 0: both; any other d: 0) -- a routing check: they
+// run exactly at d = 64 and 96.
 long long nbk_flash_fwd_wgmma_launches(int d) {
-  return d == WD || d == 0 ? wgmma_launches : 0;
+  return d == WD   ? wgmma_launches[0]
+         : d == 96 ? wgmma_launches[1]
+         : d == 0  ? wgmma_launches[0] + wgmma_launches[1]
+                   : 0;
 }
 
 }  // extern "C"

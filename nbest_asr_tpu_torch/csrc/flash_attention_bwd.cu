@@ -77,7 +77,9 @@
 // ran 1.2x slower; turns between the consumer warpgroups, or the draws
 // placed beside the elementwise work, gained nothing.
 //
-// The d = 96 pair (section 4) is the same design on 96-column tiles; at
+// The d = 96 pair (section 4) is the same design on 96-column tiles (two
+// swizzled panels, the pieces flash_wgmma.cuh shares with the d = 96
+// forward, flash_attention.cu section 3); at
 // the quality encoder's 32 x 1024 x 8 heads it runs at 0.61 / 0.82 ms
 // (0.37 / 0.57 without dropout) against the tensor cores' 0.16 / 0.21
 // (PERF.md): per (query, key) pair the same elementwise and Philox work
@@ -843,87 +845,18 @@ __global__ void __launch_bounds__(WTHREADS, 1) flash_dkv_wgmma_kernel(
 // 4. The wgmma + TMA pair, d = 96 (any S)
 // -------------------------------------------------------------------- //
 
-// Section 3's kernels with a 96-column row as two swizzled panels, as the
-// single-block d = 96 pair lays it out (seg_attention_bwd.cu, attention.cuh):
-// a 64-row tile is columns 0-63 128-byte-swizzled (8 KB), then columns
-// 64-95 64-byte-swizzled (4 KB), each panel arriving through its own
-// tensor map (boxes of 64 and 32 columns).  S and dP run 4 k16 steps on
-// panel 0 and 2 on panel 1 into one m64n64 accumulator; dQ, dV and dK (96
-// columns) are an m64n64k16 product on panel 0 and an m64n32k16 one on
-// panel 1, 48 f32 a thread each.  A dK/dV thread then holds dK and dV
+// Section 3's kernels on 96-column tiles (flash_wgmma.cuh's, which the
+// d = 96 forward shares: a 128-byte- and a 64-byte-swizzled panel, each
+// by its own tensor map).  S and dP run 4 k16 steps on panel 0 and 2 on
+// panel 1 into one m64n64 accumulator; dQ, dV and dK (96 columns) are an
+// m64n64k16 product on panel 0 and an m64n32k16 one on panel 1, 48 f32 a
+// thread each.  A dK/dV thread then holds dK and dV
 // (96), S and dP (64) and the packed P_v and dS fragments (32): more than
 // the 168 registers ptxas gives a thread of a 384-thread block, so the
 // dK/dV kernel has no producer warpgroup (its warp 0 fills the ring);
 // the dQ kernel (dQ 48, S and dP 64, dS 16) keeps section 3's.  One block
-// runs an SM, so shared memory has room for a ring of four slots.  The
-// descriptors are built at each use from 32-bit shared addresses
-// (desc_at): the twelve a kernel would hold spilled it.
-constexpr int T96 = QTILE + QTILE / 2;  // bytes of a 64-row tile
+// runs an SM, so shared memory has room for a ring of four slots.
 constexpr int STAGES96 = 4;
-
-// The two panels' tensor maps of one operand (boxes of 64 and 32 columns).
-struct PanelMaps {
-  CUtensorMap p0, p1;
-};
-
-// TMA of rows row .. + 63 of a head's 96 columns (from column col) into
-// the tile at dst, completing on bar.
-__device__ __forceinline__ void tma_tile96(unsigned char* dst,
-                                           const PanelMaps& m, uint64_t* bar,
-                                           int col, int row, int elem) {
-  tma_load(dst, &m.p0, bar, col, row, elem);
-  tma_load(dst + QTILE, &m.p1, bar, col + WD, row, elem);
-}
-
-// a, made opaque to the compiler, so that the descriptors built from a
-// tile's address in a loop are built at each use instead of hoisted and
-// held (attention.cuh's fresh, on a 32-bit shared address).
-__device__ __forceinline__ unsigned opaque(unsigned a) {
-  asm volatile("" : "+r"(a));
-  return a;
-}
-
-// acc (64 x 64) = A . B^T over 96 columns, A and B the K-major tiles at
-// shared addresses a and b: panel 0's four k16 steps (32 bytes along its
-// rows), then panel 1's two.
-__device__ __forceinline__ void issue_nt96(float (&acc)[32], unsigned a,
-                                           unsigned b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss_n64(acc, desc_at<KMAJOR128>(a + kk * 32),
-                 desc_at<KMAJOR128>(b + kk * 32), kk);
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-    wgmma_ss_n64(acc, desc_at<PANEL64>(a + QTILE + kk * 32),
-                 desc_at<PANEL64>(b + QTILE + kk * 32), 1);
-}
-
-// (acc, acc1) (64 x 96) += A (64 x 64, sixteen bf16 A fragments) . B, B
-// the tile at shared address b read MN-major: panel 0's columns into acc
-// (m64n64k16), panel 1's into acc1 (m64n32k16), four k16 steps each.
-__device__ __forceinline__ void issue_rs96(float (&acc)[32],
-                                           float (&acc1)[16],
-                                           const unsigned (&a)[16],
-                                           unsigned b) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wgmma_rs_n64(acc, a + 4 * j, desc_at<MNMAJOR128>(b + j * 2048), 1);
-  issue_rs(acc1, a, b + QTILE);
-}
-
-// Stores the fragment row half `hi` (row g + 8 hi) of a 96-column sum (c0:
-// columns 0-63, c1: 64-95) as bf16 at out + r + col.
-__device__ __forceinline__ void store96(bf16* out, size_t r, int col,
-                                        int t4, bool hi, const float* c0,
-                                        const float* c1) {
-  const int e = hi ? 2 : 0;
-#pragma unroll
-  for (int jj = 0; jj < 12; ++jj) {
-    const float* c = jj < 8 ? c0 + 4 * jj : c1 + 4 * (jj - 8);
-    *reinterpret_cast<unsigned*>(out + r + col + jj * 8 + 2 * t4) =
-        pack_bf16x2(c[e], c[e + 1]);
-  }
-}
 
 // The dQ kernel's shared memory at d = 96: DqSmem's with 96-column tiles
 // and four ring slots.
@@ -1347,6 +1280,10 @@ int rows_map(CUtensorMap* m, const void* p, int ld, const Operands& a) {
   return flash::rows_map(m, p, ld, a.n_heads, a.S, a.B);
 }
 
+int panel_maps(PanelMaps* m, const void* p, int ld, const Operands& a) {
+  return flash::panel_maps(m, p, ld, a.n_heads, a.S, a.B);
+}
+
 template <bool DROP>
 int launch_dq_wgmma(const Operands& a, cudaStream_t stream) {
   static bool ready = false;
@@ -1397,14 +1334,6 @@ int launch_dkv_wgmma(const Operands& a, cudaStream_t stream) {
   const cudaError_t e = cudaGetLastError();
   if (e == cudaSuccess) ++wgmma_launches[0][1];
   return (int)e;
-}
-
-// The two panels' maps of a (b, s, heads, 96) operand with row stride ld.
-int panel_maps(PanelMaps* m, const void* p, int ld, const Operands& a) {
-  const int rc = flash::rows_map(&m->p0, p, ld, a.n_heads, a.S, a.B, 96);
-  return rc != 0 ? rc
-                 : flash::rows_map(&m->p1, p, ld, a.n_heads, a.S, a.B, 96,
-                                   32);
 }
 
 template <bool DROP>

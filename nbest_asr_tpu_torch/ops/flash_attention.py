@@ -28,18 +28,18 @@ kv blocks
 ``_bwd_dkv_kernel`` (:226)                      ``flash_bwd_dkv``
 ==============================================  ==============================
 
-The three tiled kernels run on ``wgmma`` + TMA at d = 64 -- the
-backward pair in 128-row blocks (a producer warpgroup streaming 64-row
-tiles to two consumer warpgroups), the forward in 256-query blocks (four
-warpgroups, warp 0 filling the tile ring, the online softmax in
-registers); every warpgroup draws its keep bits while its score products
-run -- and on ``mma.sync`` at every other head dim
+The three tiled kernels run on ``wgmma`` + TMA at d = 64 and 96 -- the
+backward pair in 128-row blocks (two warpgroups fed 64-row tiles by a
+producer warpgroup, or by warp 0 in the d = 96 dK/dV kernel), the forward
+in 256-query blocks (four warpgroups, warp 0 filling the tile ring, the
+online softmax in registers); every warpgroup draws its keep bits while
+its score products run -- and on ``mma.sync`` at every other head dim
 (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).  Both
 routes take every head dim d <= 256 with d % 8 == 0
 (``kernels.attn_head_dim_ok``): 32, 96, 128, 192 and 256 on instances of
-their own (64 on the ``wgmma`` kernels), any other d on the narrowest
-instance at least d wide, its columns past d zero-filled on load and
-never stored.
+their own (the tiled kernels' 64 and 96 on ``wgmma``), any other d on the
+narrowest instance at least d wide, its columns past d zero-filled on
+load and never stored.
 
 The single-block bodies compute the function the attention megakernel's
 head loop computes (``_sb_probs`` is ``_head_probs`` with a caller's

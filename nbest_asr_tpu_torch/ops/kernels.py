@@ -59,16 +59,16 @@ three tiled kernels for any sequence length:
 - ``flash_bwd_dq``  -- dq, and di = rowsum(dO * O) for the next kernel
 - ``flash_bwd_dkv`` -- dk and dv
 
-(all three on ``wgmma`` + TMA at d = 64, the backward pair also at d =
-96, as ``FLASH_WGMMA`` lists, counted also by ``flash_wgmma_launches``;
-on ``mma.sync`` at every other head dim).
+(all three on ``wgmma`` + TMA at d = 64 and 96, as ``FLASH_WGMMA``
+lists, counted also by ``flash_wgmma_launches``; on ``mma.sync`` at
+every other head dim).
 
 Every attention kernel takes the head dims ``attn_head_dim_ok`` admits,
 d <= 256 with d % 8 == 0: each runs on the narrowest ``mma.sync``
 instance of width 32, 64, 96, 128, 192 or 256 at least d wide, its
 columns past d zero-filled on load and never stored
 (``csrc/attention.cuh``, ``instance_width``), or on a ``wgmma`` kernel:
-the tiled trio at d = 64, the tiled backward pair at d = 96,
+the tiled trio at d = 64 and 96,
 ``seg_attention`` and ``seg_attention_bwd`` at
 d = 64 (s <= 512), 96 and 192 (s <= 256), counted
 also by ``seg_attention_wgmma_launches`` and
@@ -1033,7 +1033,7 @@ def _flash_bwd_checks(name, q, k, v, mask, lse, dout, stat2, stat2_name):
 # the head dims at which each tiled kernel runs its wgmma + TMA instance
 # (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu); the mma.sync
 # kernels take every other head dim
-FLASH_WGMMA = {"flash_fwd": (64,), "flash_bwd_dq": (64, 96),
+FLASH_WGMMA = {"flash_fwd": (64, 96), "flash_bwd_dq": (64, 96),
                "flash_bwd_dkv": (64, 96)}
 
 
@@ -1043,7 +1043,8 @@ def flash_wgmma_launches(d: int = 0) -> dict:
     ``FLASH_WGMMA`` names an instance; 0: all; any other d raises, as a
     count there would read 0 whatever ran): the routing behind the
     ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` counters.
-    ``flash_fwd`` reads 0 at d = 96, where it runs on mma.sync."""
+    The padded head dims 72 .. 88 run on the mma.sync 96 instance and
+    count nowhere here."""
     if d and not any(d in dims for dims in FLASH_WGMMA.values()):
         raise ValueError(f"the tiled kernels have no wgmma instance at head "
                          f"dim {d}")

@@ -192,14 +192,13 @@ def test_tiled_wrappers_pass_the_head_dim(monkeypatch, d):
 
 def test_tiled_wgmma_counters_by_head_dim(monkeypatch):
     """The tiled trio's wgmma counters read the library's count per kernel
-    at d = 64, at d = 96 (where only the backward pair has a wgmma
-    instance: ``flash_fwd`` reads the library's 0) and at 0 for all; a
-    head dim with no tiled wgmma instance is refused before the library
-    is asked, as its count would read 0 whatever ran."""
-    assert K.FLASH_WGMMA == {"flash_fwd": (64,), "flash_bwd_dq": (64, 96),
+    at d = 64, at d = 96 and at 0 for all; a head dim with no tiled wgmma
+    instance is refused before the library is asked, as its count would
+    read 0 whatever ran."""
+    assert K.FLASH_WGMMA == {"flash_fwd": (64, 96), "flash_bwd_dq": (64, 96),
                              "flash_bwd_dkv": (64, 96)}
-    launches = {("flash_fwd", 0): 7, ("flash_fwd", 64): 7,
-                ("flash_fwd", 96): 0, ("flash_bwd_dq", 0): 9,
+    launches = {("flash_fwd", 0): 10, ("flash_fwd", 64): 7,
+                ("flash_fwd", 96): 3, ("flash_bwd_dq", 0): 9,
                 ("flash_bwd_dq", 64): 4, ("flash_bwd_dq", 96): 5,
                 ("flash_bwd_dkv", 0): 11, ("flash_bwd_dkv", 64): 5,
                 ("flash_bwd_dkv", 96): 6}
@@ -210,5 +209,34 @@ def test_tiled_wgmma_counters_by_head_dim(monkeypatch):
             n: launches[(n, d)] for n in K.FLASH_WGMMA}
     assert K.flash_wgmma_launches() == K.flash_wgmma_launches(0)
     for d in (32, 48, 80, 88, 128, 136, 192, 256):
+        with pytest.raises(ValueError, match="no wgmma instance"):
+            K.flash_wgmma_launches(d)
+
+
+@pytest.mark.usefixtures("keep_launch_counts")
+@pytest.mark.parametrize("d", [72, 80, 88, 96])
+def test_tiled_forward_hands_d96_to_wgmma(monkeypatch, d):
+    """The tiled forward runs on its wgmma + TMA instance at d = 96, as the
+    backward pair does, and the padded head dims 72 .. 88 stay on the
+    mma.sync 96 instance (a TMA box 96 columns wide would read the next
+    head's): ``FLASH_WGMMA`` names 96 and none of 72 .. 88 for every tiled
+    kernel; ``flash_fwd`` hands the library the caller's d, counts the
+    launch, and its wgmma counter reads the library's d = 96 count, while
+    a count at 72 .. 88 is refused."""
+    assert all((d in dims) == (d == 96) for dims in K.FLASH_WGMMA.values())
+    fake = _FakeLib({(n, 96): 1 for n in K.FLASH_WGMMA})
+    monkeypatch.setattr(_cuda, "lib", lambda: fake)
+    monkeypatch.setattr(K, "_on_cuda", lambda name, *t: True)
+    monkeypatch.setattr(K, "_stream", lambda t: 0)
+    b, s, nh = 1, 600, 2
+    q, k, v = torch.zeros(b * s, 3 * nh * d, dtype=torch.bfloat16).view(
+        b, s, 3, nh, d).unbind(2)
+    n0 = _cuda.launch_counts["flash_fwd"]
+    K.flash_fwd(q, k, v, torch.ones(b, s), 0.1)
+    assert fake.calls == [("flash_fwd", d)]
+    assert _cuda.launch_counts["flash_fwd"] == n0 + 1
+    if d == 96:
+        assert K.flash_wgmma_launches(d)["flash_fwd"] == 1
+    else:
         with pytest.raises(ValueError, match="no wgmma instance"):
             K.flash_wgmma_launches(d)
