@@ -317,6 +317,39 @@ Phases, each fatal on failure:
    instances no configuration runs), and the d = 96 tiled forward's
    registers and spills beside its time.
 
+19. The chunked attention family's head dims (``phase_chunked_heads``,
+   run after phase 18): d > 256 and d % 8 != 0, which no fixed-width
+   instance takes.  (a) ``chunked_fwd``, ``chunked_bwd_dq`` and
+   ``chunked_bwd_dkv`` (``csrc/attention_chunked.cu``) through both
+   wrapper contracts -- the single-block pair (``sb_attention`` /
+   ``sb_attention_bwd``) at s = 1, 77, 256, 512 and the tiled trio at s =
+   700, 1024 -- at d = 3, 6, 12, 20, 100, 258, 260, 320, 384, 768 (every
+   copy width: 2 bytes at d = 3, 4 at 6 and 258, 8 at 12, 20, 100 and
+   260, 16 at 320, 384, 768), padded masks on
+   QKV views and packed masks on standalone tensors, dropout 0 and 0.1,
+   each run launching each chunked kernel once, the backward fed the
+   kernels' own o and statistics, against the plain versions under
+   ``Checker``; a one-hot probe on both contracts at every d shows each
+   kernel dropping exactly the stream-3 keep bits; then each kernel's
+   device ms at (b)'s and (c)'s shapes beside its plain version, SDPA's
+   forward or backward alone (and the backend SDPA took there) and its
+   bound.  (b) BERT-base width with 2 heads of 384 (JAX's megakernel
+   route): 2 ``make_train_step`` steps (dropout 0.1, BertAdam, 2 micros
+   of 32 x 256, both megakernels), counters by ``PER_LAYER_TRAIN``, a
+   dropout-0 kernel step held to the plain step; ``Predictor`` in bf16
+   and int8 over phase 3's four requests (buckets 64 / 96 / 160 / 256),
+   counters by ``PER_LAYER`` / ``PER_LAYER_I8``, decisions held to the f32
+   run as phase 3 holds them.  (c) The CLI's ``--n_head 64`` geometry
+   (hidden 768, 64 heads of 12, 12 layers, the CLI's "auto" flags: the
+   flash route from ``flash_min_seq`` 160): 2 steps at bucket 256
+   (single-block), counters by ``PER_LAYER_TRAIN_FLASH_SB``, a dropout-0
+   step held to the plain step, and one 32 x 1024 tiled micro (route B's
+   shape, max_position 1024) held to the same step with flash and the FFN
+   block on their plain versions.  Every run's chunked launches
+   (``kernels.attn_chunked_launches``) equal what its wrappers' counts
+   imply and are above 0.  Prints the phase's seconds and a JSON line of
+   the chunked kernels' times, bounds and launches.
+
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
 H100's dense peak for their type; and the time of a PyTorch call that
@@ -362,6 +395,9 @@ KERNEL_SOURCES = {
     "bias_gelu": "nbest_asr_tpu_torch/csrc/fused_gelu.cu",
     "bias_gelu_bwd": "nbest_asr_tpu_torch/csrc/fused_gelu.cu",
     "embed_lookup": "nbest_asr_tpu_torch/csrc/fused_embed.cu",
+    "chunked_fwd": "nbest_asr_tpu_torch/csrc/attention_chunked.cu",
+    "chunked_bwd_dq": "nbest_asr_tpu_torch/csrc/attention_chunked.cu",
+    "chunked_bwd_dkv": "nbest_asr_tpu_torch/csrc/attention_chunked.cu",
 }
 FAB = "nbest_asr_tpu/ops/fused_attention.py:152"
 FFN = "nbest_asr_tpu/ops/fused_ffn.py:166"
@@ -416,6 +452,20 @@ KERNEL_REPLACES.update({
     "bias_gelu": "nbest_asr_tpu/ops/fused_gelu.py:41 (_fwd_kernel)",
     "bias_gelu_bwd": "nbest_asr_tpu/ops/fused_gelu.py:47 (_bwd_kernel)",
     "embed_lookup": "nbest_asr_tpu/ops/fused_embed.py:48 (_embed_kernel)"})
+# the chunked family: the same TPU bodies at the head dims no fixed-width
+# instance takes (d > 256, d % 8 != 0)
+KERNEL_REPLACES.update({
+    "chunked_fwd": f"{FAB} (head loop :167-180) + {FAI8} (:454-471) + {I8A} "
+                   f"(head loop :169-189) + {FLASH}:364 (_sb_fwd_kernel) + "
+                   f"{FLASH}:99 (_fwd_kernel), at d > 256 or d % 8 != 0",
+    "chunked_bwd_dq": f"{FAB_B} (head loop: dp, di, ds, dq :235-266) + "
+                      f"{FAI8_B} (:601-631) + {FLASH}:380 (_sb_bwd_kernel) "
+                      f"+ {FLASH}:276 (_bwd_dq_kernel), at d > 256 or d % 8 "
+                      "!= 0",
+    "chunked_bwd_dkv": f"{FAB_B} (head loop: dv, dk :235-266) + {FAI8_B} "
+                       f"(:601-631) + {FLASH}:380 (_sb_bwd_kernel) + "
+                       f"{FLASH}:226 (_bwd_dkv_kernel), at d > 256 or d % 8 "
+                       "!= 0"})
 KERNEL_REPLACES["quantize_rows"] += (f" + {FFI8} (_quant_rows_f32 on x, gd "
                                      f":417, :424) + {FAI8} (on x, ctx :454, "
                                      ":471)")
@@ -1105,17 +1155,20 @@ def resolvable_disagreements(a, b, ref, arrays, tau: float):
     return bad, 1.0 - res_top.sum() / n_dec
 
 
-def drive(predictor, reqs, per_layer, per_forward=None):
+def drive(predictor, reqs, per_layer, per_forward=None, after_reset=None):
     """The main path: every request through ``predict``,
     ``predict_async`` and ``scores``, with the launch counters set to 0
-    just before and read just after.  Fails unless each kernel launched
-    exactly layers x forwards x its launches per layer plus forwards x its
-    launches per forward (0 if absent)."""
+    just before (``after_reset``, if given, is called then) and read just
+    after.  Fails unless each kernel launched exactly layers x forwards x
+    its launches per layer plus forwards x its launches per forward (0 if
+    absent)."""
     from nbest_asr_tpu_torch.ops import _cuda
 
     predictor.predict(reqs[0][:BATCH])             # warm-up, not counted
     torch.cuda.synchronize()
     _cuda.reset_launch_counts()
+    if after_reset is not None:
+        after_reset()
     pass0 = quant_pass_launches()
     labels, scores = [], []
     for req in reqs:
@@ -3993,6 +4046,552 @@ def phase_head_dims(dev, card: str, rig):
     return counts, check.max_err, rows
 
 
+# --------------------------------------------------------------------- #
+# phase 19: the chunked attention family's head dims
+# --------------------------------------------------------------------- #
+
+# (a): the head dims, single-block and tiled lengths the kernels are held
+# at; the head dims take every copy width of load_chunk (2 bytes at odd d,
+# 4 at d % 4 == 2, 8 at d % 8 == 4, 16 at d % 8 == 0 past 256)
+CH_DIMS = (3, 6, 12, 20, 100, 258, 260, 320, 384, 768)
+CH_SB_S, CH_TILED_S = (1, 77, 256, 512), (700, 1024)
+MAX_SB_SEQ = 512      # the single-block route's ceiling (flash SB_MAX_SEQ)
+# (b): BERT-base width with 2 heads of 384, JAX's megakernel route
+CH_NH = 2
+CH_D = H // CH_NH
+# (c): the CLI's --n_head 64 at hidden 768 (num_heads = max(n_head, 4),
+# nbest_asr_tpu/train/loop.py:863-870): 64 heads of 12, the flash route
+CLI64_NH = 64
+CLI64_D = H // CLI64_NH
+
+
+def chunked_delta(K, before: dict) -> dict:
+    """The chunked kernels' launches since ``before`` (an
+    ``attn_chunked_launches``)."""
+    after = K.attn_chunked_launches()
+    return {n: after[n] - before[n] for n in after}
+
+
+def chunked_mask_probe(K, dev, d: int, tiled: bool, rate=DROPOUT,
+                       seed=2468) -> dict:
+    """Which (query, key) probs each chunked kernel keeps, read off its
+    outputs, against the stream-3 keep bits.  Packed segments of L = min(d,
+    64) keys, s = 4 L; K and V one-hot within a segment (key k's row is
+    e_(k mod L)), so the forward's o[q, c] is the dropped prob of key L
+    seg(q) + c; with dO one-hot too, the dK/dV kernel's dv[k, c] is the
+    dropped prob of query L seg(k) + c as it rebuilds it; with dO = 1 on
+    the first L columns, the dQ kernel's dq[q, c] is key L seg(q) + c's ds
+    = p (keep / (1 - rate) - di) sm_scale, > 0 exactly where a bit is kept
+    in every row whose segment keeps some key but not all.  The backward
+    is fed the forward's own statistics (``tiled``: the tiled wrappers'
+    o and lse, else the single-block pair's row max and sum).  -> {kernel
+    output: (differing bits, bits compared)}."""
+    from nbest_asr_tpu_torch.ops.philox import keep_mask, site
+
+    L = min(d, 64)
+    b, nh, s = 2, 2, 4 * L
+    seg = torch.arange(s, device=dev) // L
+    mask = (seg + 1).float()[None].repeat(b, 1)
+    q = (torch.randn(b, s, nh, d, generator=torch.Generator().manual_seed(d))
+         * 0.5).to(dev, torch.bfloat16)
+    onehot = torch.zeros(s, d, device=dev, dtype=torch.bfloat16)
+    onehot[torch.arange(s), torch.arange(s) % L] = 1.0
+    kv = onehot[None, :, None, :].expand(b, s, nh, d).contiguous()
+    ones = torch.zeros_like(kv)
+    ones[..., :L] = 1.0
+    drop, sc = site(seed, rate, 3), 1.0 / d ** 0.5
+    keep = keep_mask(seed, 3, 0, b * nh * s, s, rate, dev).reshape(b, nh, s,
+                                                                    s)
+    cols = seg[:, None] * L + torch.arange(L, device=dev)[None]
+    want = torch.gather(keep, 3, cols[None, None].expand(b, nh, s, L))
+    if tiled:
+        o, lse = K.flash_fwd(q, kv, kv, mask, sc, drop)
+        dq, _ = K.flash_bwd_dq(q, kv, kv, mask, o, lse, ones, sc, drop)
+        _, di = K.flash_bwd_dq(q, kv, kv, mask, o, lse, kv, sc, drop)
+        _, dv = K.flash_bwd_dkv(q, kv, kv, mask, lse, di, kv, sc, drop)
+    else:
+        o, st = K.sb_attention(q, kv, kv, mask, sc, drop, stats=True)
+        dq, _, _ = K.sb_attention_bwd(q, kv, kv, ones, mask, st, sc, drop)
+        _, _, dv = K.sb_attention_bwd(q, kv, kv, kv, mask, st, sc, drop)
+    torch.cuda.synchronize()
+    # the keep bits of (key k, query L seg(k) + c) at [b, h, k, c]
+    want_t = torch.gather(keep.transpose(2, 3), 3,
+                          cols[None, None].expand(b, nh, s, L))
+    some = want.any(-1, keepdim=True) & ~want.all(-1, keepdim=True)
+    got = {"o": (o[..., :L].permute(0, 2, 1, 3) != 0, want),
+           "dv": (dv[..., :L].permute(0, 2, 1, 3) != 0, want_t),
+           "dq": ((dq[..., :L].permute(0, 2, 1, 3) > 0) & some, want & some)}
+    return {name: (int((g != w).sum()), w.numel())
+            for name, (g, w) in got.items()}
+
+
+def hold_zero_grads(tag, q, k, v, do, dq, dk, sc: float, rate: float):
+    """At s = 1 (one key a row, p = 1) dq and dk are 0 but for rounding,
+    which no relative check can hold: ds = p (dp - di) sm_scale with dp
+    and di f32 sums of the same d products dout * v (dropped: times 1 / (1
+    - rate)), each within d 2^-24 of the sum of their magnitudes, and dq
+    and dk are ds times the one row of k and q (1% for two bf16
+    roundings)."""
+    d = q.shape[-1]
+    ds_max = 2 * d * 2.0 ** -24 * sc / (1 - rate) * (
+        do.float() * v.float()).abs().sum(-1, keepdim=True)
+    for name, got, other in (("dq", dq, k), ("dk", dk, q)):
+        lim = 1.01 * ds_max * other.float().abs()
+        ok = bool((got.float().abs() <= lim).all())
+        log(f"  {'ok ' if ok else 'BAD'} chunked {name} {tag}: max "
+            f"{got.float().abs().max().item():.3e} within the rounding "
+            f"bound of a zero gradient (max {lim.max().item():.3e})")
+        if not ok:
+            raise AssertionError(f"chunked {name} {tag}: off zero by more "
+                                 "than rounding")
+
+
+def check_chunked_kernels(K, check, gen, dev):
+    """Phase 19 (a): the three chunked kernels through both wrapper
+    contracts against their plain versions at every (d, s) of CH_DIMS x
+    (CH_SB_S + CH_TILED_S): padded masks on views of one QKV buffer,
+    packed masks on standalone tensors (s = 1: one padded row), dropout 0
+    and 0.1, the backward fed the kernels' own forward outputs; each run
+    launches each chunked kernel exactly once; then the stream-3 mask
+    probe on both contracts at every d."""
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    for d in CH_DIMS:
+        nh, b = (4 if d < 64 else 2), 2
+        sc = 1.0 / d ** 0.5
+        for s in CH_SB_S + CH_TILED_S:
+            ms = masks(b, s, gen, dev) if s >= 4 else (
+                torch.ones(b, s, device=dev),)
+            for mi, m in enumerate(ms):
+                views = mi == 0
+                q, k, v, do = flash_operands(gen, dev, b, s, nh, d, views)
+                for rate in (0.0, DROPOUT):
+                    tag = (f"d {d}, {b} x {s} x {nh}, "
+                           f"{('padded views', 'packed tensors')[mi]}, rate "
+                           f"{rate}")
+                    drop = site(600 + d + s, rate, 3)
+                    n0 = K.attn_chunked_launches()
+                    if s > MAX_SB_SEQ:
+                        o, lse = K.flash_fwd(q, k, v, m, sc, drop)
+                        dq, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc,
+                                                drop)
+                        dk, dv = K.flash_bwd_dkv(q, k, v, m, lse, di, do, sc,
+                                                 drop)
+                    else:
+                        o, st = K.sb_attention(q, k, v, m, sc, drop, True)
+                        dq, dk, dv = K.sb_attention_bwd(q, k, v, do, m, st,
+                                                        sc, drop)
+                    torch.cuda.synchronize()
+                    got = chunked_delta(K, n0)
+                    if got != {n: 1 for n in K.CHUNKED}:
+                        raise AssertionError(f"chunked {tag}: launches {got}")
+                    if s > MAX_SB_SEQ:
+                        ro, rlse = K.flash_fwd_reference(q, k, v, m, sc, drop)
+                        check.rel(f"chunked_fwd lse {tag}", "chunked_fwd",
+                                  lse, rlse, 1e-5)
+                        rdq, rdi = K.flash_bwd_dq_reference(
+                            q, k, v, m, o, lse, do, sc, drop)
+                        check.rel(f"chunked_bwd_dq di {tag}",
+                                  "chunked_bwd_dq", di, rdi, 1e-4)
+                        rdk, rdv = K.flash_bwd_dkv_reference(
+                            q, k, v, m, lse, di, do, sc, drop)
+                    else:
+                        ro, rst = K.sb_attention_reference(q, k, v, m, sc,
+                                                           drop, True)
+                        check.rel(f"chunked_fwd row max {tag}",
+                                  "chunked_fwd", st[0], rst[0], 1e-5)
+                        check.rel(f"chunked_fwd row sum {tag}",
+                                  "chunked_fwd", st[1], rst[1], 1e-5)
+                        rdq, rdk, rdv = K.sb_attention_bwd_reference(
+                            q, k, v, do, m, st, sc, drop)
+                    check(f"chunked_fwd o {tag}", "chunked_fwd", o, ro,
+                          False)
+                    if s == 1:
+                        hold_zero_grads(tag, q, k, v, do, dq, dk, sc, rate)
+                    else:
+                        check.sums(f"chunked_bwd_dq dq {tag}",
+                                   "chunked_bwd_dq", dq, rdq)
+                        check.sums(f"chunked_bwd_dkv dk {tag}",
+                                   "chunked_bwd_dkv", dk, rdk)
+                    check.sums(f"chunked_bwd_dkv dv {tag}",
+                               "chunked_bwd_dkv", dv, rdv)
+        for tiled in (False, True):
+            got = chunked_mask_probe(K, dev, d, tiled)
+            ok = all(n == 0 for n, _ in got.values())
+            log(f"  {'ok ' if ok else 'BAD'} chunked mask probe d {d} "
+                f"({'tiled' if tiled else 'single-block'} contract): "
+                f"differing / compared keep bits {got}")
+            if not ok:
+                raise AssertionError(f"chunked kernels at d {d} do not draw "
+                                     "the stream-3 prob mask")
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend F.scaled_dot_product_attention picks for the (b, s, nh,
+    d) operands with the boolean segment mask and dropout, as
+    ``flash_library_calls`` calls it."""
+    same = mask[:, None, :, None] == mask[:, None, None, :]
+    try:
+        from torch.nn.attention import SDPBackend
+
+        i = torch._fused_sdp_choice(*(t.transpose(1, 2) for t in (q, k, v)),
+                                    same, DROPOUT, False)
+        return SDPBackend(i).name
+    except Exception as e:                  # an older or newer torch
+        return f"unknown ({type(e).__name__})"
+
+
+def chunked_sb_bounds(b: int, s: int, nh: int, d: int):
+    """The chunked kernels' bounds on the single-block contract at (b, s,
+    nh, d), counted as ``flash_bounds`` counts the tiled trio's (the
+    attention's own products, not the recompute), from what each kernel
+    of this contract moves: the forward reads q, k, v and the mask and
+    writes o and two statistic planes (row max and sum); the dQ kernel
+    reads q, k, v, dO, the mask and both planes and writes dq and di (it
+    reads no o: di = rowsum(dp p)); the dK/dV kernel reads q, k, v, dO,
+    the mask, both planes and di and writes dk and dv."""
+    x, st, m = b * s * nh * d * 2, b * nh * s * 4, b * s * 4
+    prod = 2.0 * b * nh * s * s * d
+    return {"flash_fwd": bound(2 * prod, 3 * x + m + x + 2 * st, "bf16"),
+            "flash_bwd_dq": bound(3 * prod, 4 * x + m + 2 * st + x + st,
+                                  "bf16"),
+            "flash_bwd_dkv": bound(4 * prod, 4 * x + m + 3 * st + 2 * x,
+                                   "bf16")}
+
+
+def chunked_times(K, dev, gen, card: str):
+    """Item 6 of phase 19: device ms of each chunked kernel at (b)'s and
+    (c)'s shapes -- the single-block pair at 32 x 256 x 2 heads of 384
+    and x 64 heads of 12, the tiled trio at 32 x 1024 x 64 heads of 12
+    (views of one QKV buffer, padded mask, dropout 0.1) -- beside its plain
+    version, SDPA's forward or backward alone on the same operands (and
+    the backend SDPA took) and its bound by ``flash_bounds`` (tiled) or
+    ``chunked_sb_bounds`` (single-block): the attention's own products,
+    not the recompute.  The single-block dQ
+    and dK/dV kernels are timed apart through the library (the wrapper
+    launches both).  -> {row name: (ms, plain ms, library ms, bound ms,
+    bound by)}."""
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.ops.kernels import _drop_args
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    out = {}
+    for (b, s, nh, d), suffix in (((32, 256, CH_NH, CH_D), ""),
+                                  ((32, 256, CLI64_NH, CLI64_D),
+                                   f" [d{CLI64_D} s256]"),
+                                  ((LONG_BATCH, LONG_SEQ, CLI64_NH, CLI64_D),
+                                   f" [d{CLI64_D} {LONG_BATCH}x{LONG_SEQ}]")):
+        q, k, v, do = flash_operands(gen, dev, b, s, nh, d, True)
+        m = masks(b, s, gen, dev)[0]
+        sc, drop = 1.0 / d ** 0.5, site(700, DROPOUT, 3)
+        sdpa_fwd, _, sdpa_bwd = flash_library_calls(q, k, v, do, m)
+        lib_fwd, lib_bwd = device_ms(sdpa_fwd), device_ms(sdpa_bwd)
+        backend = sdpa_backend(q, k, v, m)
+        bounds = (chunked_sb_bounds if s <= MAX_SB_SEQ else flash_bounds)(
+            b, s, nh, d)
+        ld, lib = 3 * nh * d, _cuda.lib()
+        if s <= MAX_SB_SEQ:
+            _, st = K.sb_attention(q, k, v, m, sc, drop, True)
+            di = torch.empty(b, nh, s, device=dev)
+            dq, dk, dv = (torch.empty_like(do) for _ in range(3))
+            stp = (st.data_ptr(), st.data_ptr() + 4 * b * nh * s)
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), ld)
+            strm = torch.cuda.current_stream().cuda_stream
+
+            def sb_dq():
+                _cuda.check(lib.nbk_chunked_bwd_dq(
+                    *ptrs, None, do.data_ptr(), m.data_ptr(), *stp,
+                    di.data_ptr(), dq.data_ptr(), nh * d, b, s, nh, d, sc,
+                    *_drop_args(drop), strm), "chunked_bwd_dq")
+
+            def sb_dkv():
+                _cuda.check(lib.nbk_chunked_bwd_dkv(
+                    *ptrs, do.data_ptr(), m.data_ptr(), *stp, di.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), nh * d, b, s, nh, d, sc,
+                    *_drop_args(drop), strm), "chunked_bwd_dkv")
+
+            sb_dq()
+            fns = {"chunked_fwd": (
+                       lambda: K.sb_attention(q, k, v, m, sc, drop, True),
+                       lambda: K.sb_attention_reference(q, k, v, m, sc, drop,
+                                                        True), lib_fwd,
+                       "flash_fwd"),
+                   "chunked_bwd_dq": (
+                       sb_dq, lambda: K.sb_attention_bwd_reference(
+                           q, k, v, do, m, st, sc, drop), lib_bwd,
+                       "flash_bwd_dq"),
+                   "chunked_bwd_dkv": (
+                       sb_dkv, lambda: K.sb_attention_bwd_reference(
+                           q, k, v, do, m, st, sc, drop), lib_bwd,
+                       "flash_bwd_dkv")}
+        else:
+            o, lse = K.flash_fwd(q, k, v, m, sc, drop)
+            _, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc, drop)
+            fns = {"chunked_fwd": (
+                       lambda: K.flash_fwd(q, k, v, m, sc, drop),
+                       lambda: K.flash_fwd_reference(q, k, v, m, sc, drop),
+                       lib_fwd, "flash_fwd"),
+                   "chunked_bwd_dq": (
+                       lambda: K.flash_bwd_dq(q, k, v, m, o, lse, do, sc,
+                                              drop),
+                       lambda: K.flash_bwd_dq_reference(q, k, v, m, o, lse,
+                                                        do, sc, drop),
+                       lib_bwd, "flash_bwd_dq"),
+                   "chunked_bwd_dkv": (
+                       lambda: K.flash_bwd_dkv(q, k, v, m, lse, di, do, sc,
+                                               drop),
+                       lambda: K.flash_bwd_dkv_reference(
+                           q, k, v, m, lse, di, do, sc, drop), lib_bwd,
+                       "flash_bwd_dkv")}
+        for name, (fk, fp, l_ms, bname) in fns.items():
+            out[name + suffix] = (device_ms(fk, iters=10),
+                                  cuda_ms(fp, iters=1, warmup=1), l_ms,
+                                  *bounds[bname])
+            k_ms, p_ms, _, b_ms, b_by = out[name + suffix]
+            what = "forward" if name == "chunked_fwd" else "backward alone"
+            log(f"  time {name:<15} {b} x {s} x {nh} d {d}"
+                f"{' (single-block)' if s <= MAX_SB_SEQ else ' (tiled)'}: "
+                f"kernel {k_ms:.4f} ms device, plain {p_ms:.4f} ms, library "
+                f"(SDPA's {what}, backend {backend}) {l_ms:.4f} ms device, "
+                f"bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.4f} of it "
+                f"[{card}]")
+        del q, k, v, do, fns
+    return out
+
+
+def phase_chunked_heads(dev, card: str, rig):
+    """Phase 19 (module docstring).  -> the launch counts of its
+    main-path runs, the largest errors, and the kernels' record rows
+    {name: (ms, plain ms, library ms, bound ms, bound by, launches)}."""
+    import dataclasses
+
+    from nbest_asr_tpu_torch.data.tokenizer import WordVocabTokenizer
+    from nbest_asr_tpu_torch.models.model import init_model_params
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.ops import kernels as K
+    from nbest_asr_tpu_torch.parallel.train_step import (TrainState,
+                                                         make_train_step)
+    from nbest_asr_tpu_torch.serve import Predictor
+    from nbest_asr_tpu_torch.train.losses import LossConfig
+    from nbest_asr_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                     make_optimizer,
+                                                     tree_map)
+
+    gen = torch.Generator().manual_seed(19)
+    check = Checker()
+    t0 = time.perf_counter()
+    log(f"[chunked] (a) the chunked kernels at d = {CH_DIMS}, single-block "
+        f"s = {CH_SB_S}, tiled s = {CH_TILED_S}")
+    check_chunked_kernels(K, check, gen, dev)
+    for line in ptxas_summary(_cuda.build_report):
+        if "chunked_" in line:
+            log(f"  ptxas {line}")
+    log("[chunked] device times at (b)'s and (c)'s shapes")
+    times = chunked_times(K, dev, gen, card)
+    t_a = time.perf_counter() - t0
+
+    def hold_counts(what, counts, want, chunked, want_chunked):
+        log(f"[chunked] {what}: launches {counts}, expected {want}; chunked "
+            f"kernels {chunked}, expected {want_chunked}")
+        if counts != want or chunked != want_chunked or not chunked[
+                "chunked_fwd"]:
+            raise AssertionError(f"{what}: launch counts differ from layers "
+                                 "x micros x launches per layer, or an "
+                                 "attention launch did not run the chunked "
+                                 "kernels")
+
+    def on_chunked(counts):
+        """The chunked launches the wrappers' counts imply."""
+        n_bwd = counts.get("seg_attention_bwd", 0) + counts.get(
+            "flash_bwd_dq", 0)
+        return {"chunked_fwd": counts.get("seg_attention", 0)
+                + counts.get("flash_fwd", 0), "chunked_bwd_dq": n_bwd,
+                "chunked_bwd_dkv": n_bwd}
+
+    def add(total, c):
+        return {k: total.get(k, 0) + c[k] for k in c}
+
+    base, hier, data, rng = rig["cfg"], rig["hier"], rig["data"], rig["rng"]
+    params = rig["params"]
+    okw = dict(lr=5e-4, bert_lr=1e-4, warmup_proportion=0.1, t_total=100)
+
+    def train_steps(what, cfg, bucket, per_layer, n_steps=2):
+        opt = make_optimizer(OptimizerConfig(**okw), params)
+        step = make_train_step(cfg, LossConfig(), opt, hier, n_accum=N_ACCUM,
+                               dual_stream=False)
+        state = TrainState(params, opt.init(params), 0)
+        n_rows = data[bucket]["input_ids"].shape[0]
+
+        def idx():
+            return rng.randint(0, n_rows, (N_ACCUM, TRAIN_MICRO[bucket]))
+
+        step(state, data[bucket], idx(), gen)       # warm-up, not counted
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        c0 = K.attn_chunked_launches()
+        ms = []
+        for _ in range(n_steps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, stats = step(state, data[bucket], idx(), gen)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            parts = {k: float(v) for k, v in stats["loss"].items()}
+            if not all(np.isfinite(v) for v in parts.values()):
+                raise AssertionError(f"{what}: loss {parts}")
+        counts = dict(_cuda.launch_counts)
+        ch = chunked_delta(K, c0)
+        hold_counts(what, counts, {k: per_layer.get(k, 0) * LAYERS * N_ACCUM
+                                   * n_steps for k in counts}, ch,
+                    on_chunked(counts))
+        log(f"[chunked] {what}: step ms {', '.join(f'{v:.2f}' for v in ms)}"
+            f", {N_ACCUM * TRAIN_MICRO[bucket] / (np.mean(ms) / 1e3):.1f} "
+            f"utt/s, loss {parts} [{card}]")
+        return counts, ch
+
+    def gate(what, cfg, p, c_kernel, c_plain, micro, idx, n_accum,
+             per_layer, plain_ctx=None):
+        c0 = K.attn_chunked_launches()
+        got = gate_step("chunked", what, cfg, hier, p, c_kernel, c_plain,
+                        micro, idx, n_accum, plain_ctx)
+        ch = chunked_delta(K, c0)
+        hold_counts(f"{what}, the kernel step", got,
+                    {k: per_layer.get(k, 0) * c_kernel.num_layers * n_accum
+                     for k in got}, ch, on_chunked(got))
+        return got, ch
+
+    # ---- (b) BERT-base width with 2 heads of 384: training --------------- #
+    t1 = time.perf_counter()
+    enc_b = dataclasses.replace(base.encoder, num_heads=CH_NH,
+                                use_fused_attn=True, use_fused_ffn=True)
+    plain_b = dataclasses.replace(base.encoder, num_heads=CH_NH)
+    cfg_b = dataclasses.replace(base, encoder=enc_b)
+    counts_b, ch_b = train_steps(f"(b) {CH_NH} heads of {CH_D}, both "
+                                 f"megakernels, seq 256, {N_ACCUM} micros "
+                                 f"of {TRAIN_MICRO[256]}", cfg_b, 256,
+                                 PER_LAYER_TRAIN)
+    idx = rng.randint(0, data[256]["input_ids"].shape[0],
+                      (N_ACCUM, TRAIN_MICRO[256]))
+    got, ch = gate(f"(b) d {CH_D}, seq 256", cfg_b, params, enc_b, plain_b,
+                   data[256], idx, N_ACCUM, PER_LAYER_TRAIN)
+    counts_b, ch_b = add(counts_b, got), add(ch_b, ch)
+
+    # ---- (b) serving, bf16 and int8, decisions held to f32 ------------- #
+    memory = dstc2_like_memory()
+    tok = WordVocabTokenizer(memory)
+    scfg = dataclasses.replace(base, encoder=dataclasses.replace(
+        base.encoder, num_heads=CH_NH, hidden_dropout=0.0, attn_dropout=0.0,
+        use_fused_attn=True, use_fused_ffn=True, use_fused_attn_eval=True))
+    splain = dataclasses.replace(scfg, encoder=dataclasses.replace(
+        scfg.encoder, use_fused_attn=False, use_fused_ffn=False,
+        use_fused_attn_eval=False))
+    sf32 = dataclasses.replace(splain, encoder=dataclasses.replace(
+        splain.encoder, compute_dtype="float32"))
+    kw = dict(device=dev, batch_size=BATCH, max_len=BUCKETS[-1])
+    reqs = requests(memory, seed=0)
+    arrays = memory.arrays()
+    fp = Predictor(params, sf32, memory, tok, quantize="none", **kw)
+    for quantize, per_layer, max_mean, max_abs in (
+            ("none", PER_LAYER, 5e-3, None),
+            ("int8", PER_LAYER_I8, 5e-2, 5e-2)):
+        kp = Predictor(params, scfg, memory, tok, quantize=quantize, **kw)
+        pp = Predictor(params, splain, memory, tok, quantize=quantize, **kw)
+        c0 = {}
+        labels, scores, counts = drive(
+            kp, reqs, per_layer,
+            after_reset=lambda: c0.update(K.attn_chunked_launches()))
+        ch = chunked_delta(K, c0)
+        hold_counts(f"(b) serving {quantize}, {CH_NH} heads of {CH_D}",
+                    counts, counts, ch, on_chunked(counts))
+        hold_to_plain(f"chunked d{CH_D} {quantize}", kp, pp, fp, reqs,
+                      labels, scores, arrays, max_mean=max_mean,
+                      max_abs=max_abs)
+        counts_b, ch_b = add(counts_b, counts), add(ch_b, ch)
+        del kp, pp
+    del fp
+    t_b = time.perf_counter() - t1
+
+    # ---- (c) the CLI's --n_head 64: 64 heads of 12 on the flash route -- #
+    t2 = time.perf_counter()
+    auto = dict(use_fused_ffn=True, use_fused_attn=True,
+                use_flash_attention=True)
+    enc_c = dataclasses.replace(base.encoder, num_heads=CLI64_NH, **auto)
+    plain_c = dataclasses.replace(base.encoder, num_heads=CLI64_NH)
+    cfg_c = dataclasses.replace(base, encoder=enc_c)
+    counts_c, ch_c = train_steps(f"(c) {CLI64_NH} heads of {CLI64_D}, the "
+                                 f"CLI's auto flags, seq 256",
+                                 cfg_c, 256, PER_LAYER_TRAIN_FLASH_SB)
+    got, ch = gate(f"(c) d {CLI64_D}, seq 256", cfg_c, params, enc_c, plain_c,
+                   data[256], idx, N_ACCUM, PER_LAYER_TRAIN_FLASH_SB)
+    counts_c, ch_c = add(counts_c, got), add(ch_c, ch)
+    # the tiled micro: route B's 32 x 1024 (max_position 1024): one counted
+    # step with dropout, then the dropout-0 gate against the same step with
+    # flash and the FFN block on their plain versions, 2 layers deep (the
+    # plain tiled versions take ~4 s a layer at 64 heads of 12)
+    enc_l = dataclasses.replace(enc_c, max_position=LONG_SEQ)
+    cfg_l = dataclasses.replace(cfg_c, encoder=enc_l)
+    p_long = tree_map(lambda a: a.to(dev), init_model_params(
+        torch.Generator().manual_seed(0), cfg_l))
+    micro = long_micros(memory, dev, seed=20)[0]
+    lidx = np.arange(LONG_BATCH)[None]
+    opt = make_optimizer(OptimizerConfig(**okw), p_long)
+    step = make_train_step(cfg_l, LossConfig(), opt, hier, n_accum=1,
+                           dual_stream=False)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    c0 = K.attn_chunked_launches()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    _, stats = step(TrainState(p_long, opt.init(p_long), 0), micro, lidx,
+                    gen)
+    e1.record()
+    e1.synchronize()
+    got, ch_l = dict(_cuda.launch_counts), chunked_delta(K, c0)
+    parts = {k: float(v) for k, v in stats["loss"].items()}
+    if not all(np.isfinite(v) for v in parts.values()):
+        raise AssertionError(f"(c) tiled step: loss {parts}")
+    hold_counts(f"(c) d {CLI64_D}, one step at {LONG_BATCH} x {LONG_SEQ} "
+                "(tiled)", got, {k: PER_LAYER_TRAIN_TILED.get(k, 0) * LAYERS
+                                 for k in got}, ch_l, on_chunked(got))
+    log(f"[chunked] (c) tiled step {e0.elapsed_time(e1):.2f} ms (first "
+        f"call, not warmed), loss {parts} [{card}]")
+    counts_c = add(counts_c, got)
+    gate_layers = 2
+    enc_l2 = dataclasses.replace(enc_l, num_layers=gate_layers)
+    p_l2 = dict(p_long, encoder=dict(p_long["encoder"], layers={
+        k: v[:gate_layers] for k, v in p_long["encoder"]["layers"].items()}))
+    got, ch = gate(f"(c) d {CLI64_D}, {LONG_BATCH} x {LONG_SEQ} (tiled), "
+                   f"{gate_layers} layers, against the same step on the "
+                   "kernels' plain versions",
+                   dataclasses.replace(cfg_l, encoder=enc_l2), p_l2, enc_l2,
+                   enc_l2, micro, lidx, 1, PER_LAYER_TRAIN_TILED,
+                   flash_and_ffn_on_plain_versions)
+    ch_l = add(ch_l, ch)
+    del p_long, p_l2
+    counts_c = add(counts_c, got)
+    t_c = time.perf_counter() - t2
+    counts = {k: counts_b.get(k, 0) + counts_c.get(k, 0)
+              for k in _cuda.KERNELS}
+    log(f"[chunked] phase 19 s: (a) {t_a:.2f}, (b) {t_b:.2f}, (c) "
+        f"{t_c:.2f}; chunked launches of the main-path runs: (b) {ch_b}, "
+        f"(c) at seq 256 {ch_c}, (c) tiled {ch_l}")
+    # the record's rows: each kernel's time at (b)'s shape with the
+    # launches of (b)'s runs, at (c)'s two shapes with those of (c)'s
+    # runs there
+    launches = {"": ch_b, f" [d{CLI64_D} s256]": ch_c,
+                f" [d{CLI64_D} {LONG_BATCH}x{LONG_SEQ}]": ch_l}
+    rows = {name: (*t, launches[name[len(name.split()[0]):]][
+        name.split()[0]]) for name, t in times.items()}
+    log("[chunked] chunked kernels " + json.dumps({
+        name: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by", "launches"), r))
+        for name, r in rows.items()}) + f" [{card}]")
+    return counts, check.max_err, rows
+
+
 CLI_SPLITS = {"train": 1024, "valid": 256, "test": 256}
 # phase 13 runs the from-scratch CLI 2 layers deep, at BERT-base width:
 # phase 14 (b) drives cli.main with these flags at the checkpoint's 12
@@ -6171,6 +6770,8 @@ def main() -> int:
     s_counts = timed("train_512", phase_train_512, dev, card)
     h_counts, h_err, h_rows = timed("head_dims", phase_head_dims, dev,
                                     card, rig)
+    ch_counts, ch_err, ch_rows = timed("chunked_heads", phase_chunked_heads,
+                                       dev, card, rig)
     r_err, r_times, r_bounds = timed("rows_kernels", phase_rows_kernels,
                                      dev, card)
     t_times.update(r_times)
@@ -6196,6 +6797,7 @@ def main() -> int:
                                t_err.get(kernel, 0.0),
                                f_err.get(kernel, 0.0),
                                h_err.get(kernel, 0.0),
+                               ch_err.get(kernel, 0.0),
                                r_err.get(kernel, 0.0)),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": l_ms})
@@ -6203,7 +6805,7 @@ def main() -> int:
     for name in _cuda.KERNELS:
         launches = (counts[name] + t_counts[name] + i_counts[name]
                     + a_counts[name] + b_counts[name] + s_counts[name]
-                    + h_counts[name]
+                    + h_counts[name] + ch_counts[name]
                     + c_counts[name]
                     + l_counts[name] + p_counts[name] + m_counts[name]
                     + o_counts[name] + x_counts[name])
@@ -6216,6 +6818,11 @@ def main() -> int:
     # 32 x 256 x 4 heads and 32 x 1024 x 8 heads, dropout 0.1; launches:
     # phase 18's d = 192 runs alone, its tiled leg alone
     for name, (k_ms, p_ms, l_ms, b_ms, b_by, n) in h_rows.items():
+        row(name, name.split()[0], n, k_ms, p_ms, l_ms, b_ms, b_by)
+    # the chunked family (phase 19): device ms at 32 x 256 x 2 heads of
+    # 384 (single-block) with the launches of (b)'s runs, at 32 x 256 and
+    # 32 x 1024 x 64 heads of 12 with those of (c)'s runs at each
+    for name, (k_ms, p_ms, l_ms, b_ms, b_by, n) in ch_rows.items():
         row(name, name.split()[0], n, k_ms, p_ms, l_ms, b_ms, b_by)
     # the d = 64 pair past 256 keys: device ms at 16 x 512, dropout 0.1;
     # launches: phase 10b's steps at seq 512 alone
@@ -6252,7 +6859,10 @@ def main() -> int:
         "training runs alone, the d192 rows phase 18's two d = 192 runs "
         "(--no_fused_attn and the CLI's from-scratch default) alone, the "
         "flash d96 rows phase 18's tiled leg (48 x 1024) alone, the "
-        "[d64 s512] row the seq-512 BERT-base steps alone; "
+        "[d64 s512] row the seq-512 BERT-base steps alone, the chunked_* "
+        "rows phase 19's runs at their shape alone (2 heads of 384: (b)'s "
+        "training steps and serving; [d12 s256]: (c)'s steps at seq 256; "
+        "[d12 32x1024]: (c)'s tiled step); "
         "ms / plain_ms / library_ms / bound_ms: one encoder layer's "
         f"launches of the kernel -- serving at batch {BATCH} x seq "
         f"{BUCKETS[-1]} for the kernels the serving path runs, training at "
@@ -6264,7 +6874,10 @@ def main() -> int:
         "embed_lookup, f32 tables) for the five row kernels, 32 x 256 x 4 "
         "heads of 192 (dropout 0.1) for the d192 rows, 32 x 1024 x 8 heads "
         "of 96 (dropout 0.1) for the flash d96 rows, 16 x 512 (d 64, "
-        "dropout 0.1) for the [d64 s512] row; ms and "
+        "dropout 0.1) for the [d64 s512] row, 32 x 256 x 2 heads of 384, "
+        "32 x 256 and 32 x 1024 x 64 heads of 12 (dropout 0.1; bound: the "
+        "attention's own products, not the recompute) for the chunked_* "
+        "rows; ms and "
         "library_ms are device time (calls queued behind a sleep) for the "
         "five row kernels, gemm_bias_act, gemm_bias_residual, gemm_dgrad, "
         "seg_attention, seg_attention_bwd, the three flash kernels, "

@@ -23,8 +23,8 @@
 // rounded to bf16 unnormalised, as FlashAttention does (the TPU kernel
 // multiplies in f32 at HIGHEST precision).
 //
-// Three kernels; nbk_flash_fwd picks by head dim, and none falls back to
-// another:
+// Three kernels here and the chunked family; nbk_flash_fwd picks by head
+// dim, and none falls back to another:
 //   d = 64 (any S)        the wgmma + TMA kernel (section 2)
 //   d = 96 (any S)        its twin on 96-column tiles (section 3)
 //   every other d <= 256  the mma.sync kernel (section 1), on its
@@ -36,6 +36,8 @@
 //                         96-wide one, which run only such padded heads:
 //                         a TMA box as wide as the instance would read
 //                         the next head's columns)
+//   d > 256, d % 8 != 0   chunked_fwd (attention_chunked.cu), the head dim
+//                         in 64-column chunks at any alignment
 //
 // The mma.sync kernel (FlashAttention-2): one block per (element, head,
 // 64-query tile), 4 warps x 16 query rows; the q fragments stay in
@@ -84,6 +86,7 @@
 // dropout).  With dropout the Philox keep bits, one call per four (query,
 // key) pairs with some 18 integer multiplies each, take the integer pipe
 // longer than the products take the tensor cores (PERF.md).
+#include "attention_chunked.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -761,14 +764,18 @@ extern "C" {
 
 // q, k, v: (B*S, ld) bf16 row-major, each operand's (n_heads * d) columns
 // starting at its pointer (16-byte aligned, ld % 8 == 0: at d = 64 and
-// 96 TMA reads them); mask (B, S) f32 segment ids -> o (B*S, n_heads * d) bf16
-// and lse (B, n_heads, S) f32.  d <= 256 with d % 8 == 0, any S >= 1.
-// Prob dropout when drop_on (philox.cuh).
+// 96 TMA reads them; any alignment at the chunked head dims); mask (B, S)
+// f32 segment ids -> o (B*S, n_heads * d) bf16 and lse (B, n_heads, S)
+// f32.  Any d >= 1, any S >= 1.  Prob dropout when drop_on (philox.cuh).
 int nbk_flash_fwd(const void* q, const void* k, const void* v, int ld,
                   const float* mask, void* o, float* lse, int B, int S,
                   int n_heads, int d, float sm_scale,
                   unsigned long long seed, int stream, unsigned thresh,
                   float inv_keep, int drop_on, void* cuda_stream) {
+  if (chunked_head_dim(d))
+    return nbk_chunked_fwd(q, k, v, ld, mask, o, lse, nullptr, 1, B, S,
+                           n_heads, d, sm_scale, seed, stream, thresh,
+                           inv_keep, drop_on, cuda_stream);
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   const DropParams drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
   if (d == WD)

@@ -24,7 +24,8 @@
 // counters (attention.cuh) as each kernel's tiles need them, so both
 // kernels regenerate the forward's mask whatever their loop order.
 //
-// Three pairs; nbk_flash_bwd_dq / nbk_flash_bwd_dkv pick by head dim:
+// Three pairs here and the chunked family; nbk_flash_bwd_dq /
+// nbk_flash_bwd_dkv pick by head dim:
 //   d = 64 (any S)        the wgmma + TMA pair (section 3)
 //   d = 96 (any S)        its twin on 96-column rows (section 4)
 //   every other d <= 256  the mma.sync pair (sections 1 and 2), on its
@@ -34,6 +35,8 @@
 //                         zero-filled on load and never stored; d = 40 ..
 //                         56 on the 64-wide pair, 72 .. 88 on the 96-wide
 //                         one, which run only such padded heads)
+//   d > 256, d % 8 != 0   chunked_bwd_dq / chunked_bwd_dkv
+//                         (attention_chunked.cu), at any alignment
 // Neither falls back to the other: a pair that does not build or launch
 // makes the call fail.
 //
@@ -88,6 +91,7 @@
 // runs two warpgroups and fills its ring from warp 0; the dQ kernel
 // fits 168 and keeps the producer warpgroup (filled from warp 0 it ran
 // 16% slower).
+#include "attention_chunked.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -1426,15 +1430,20 @@ extern "C" {
 // and dout (B*S, n_heads * d) bf16, mask (B, S) f32, lse (B, n_heads, S)
 // f32 from nbk_flash_fwd -> dq bf16 with row stride ld_g (16-byte
 // aligned, ld_g even) and di (B, n_heads, S) f32 = rowsum(dout * o), which
-// nbk_flash_bwd_dkv reads.  d <= 256 with d % 8 == 0; the prob dropout as
-// in the forward.  At d = 64 and 96 q, k, v, o and dout must be 16-byte
-// aligned with row strides of a multiple of 16 bytes (TMA).
+// nbk_flash_bwd_dkv reads.  Any d >= 1; the prob dropout as in the
+// forward.  At d = 64 and 96 q, k, v, o and dout must be 16-byte aligned
+// with row strides of a multiple of 16 bytes (TMA); at the chunked head
+// dims any alignment goes.
 int nbk_flash_bwd_dq(const void* q, const void* k, const void* v, int ld,
                      const void* o, const void* dout, const float* mask,
                      const float* lse, float* di, void* dq, int ld_g, int B,
                      int S, int n_heads, int d, float sm_scale,
                      unsigned long long seed, int stream, unsigned thresh,
                      float inv_keep, int drop_on, void* cuda_stream) {
+  if (chunked_head_dim(d))
+    return nbk_chunked_bwd_dq(q, k, v, ld, o, dout, mask, lse, nullptr, di,
+                              dq, ld_g, B, S, n_heads, d, sm_scale, seed,
+                              stream, thresh, inv_keep, drop_on, cuda_stream);
   Operands a = {};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -1463,6 +1472,11 @@ int nbk_flash_bwd_dkv(const void* q, const void* k, const void* v, int ld,
                       int S, int n_heads, int d, float sm_scale,
                       unsigned long long seed, int stream, unsigned thresh,
                       float inv_keep, int drop_on, void* cuda_stream) {
+  if (chunked_head_dim(d))
+    return nbk_chunked_bwd_dkv(q, k, v, ld, dout, mask, lse, nullptr, di, dk,
+                               dv, ld_g, B, S, n_heads, d, sm_scale, seed,
+                               stream, thresh, inv_keep, drop_on,
+                               cuda_stream);
   Operands a = {};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);

@@ -70,13 +70,11 @@ non-reentrant ``torch.utils.checkpoint`` (``_run_layer``), on every route
 and under tensor parallelism, as JAX's ``jax.checkpoint`` of its layer
 step.
 
-Where JAX would run a kernel the port does not have, the forward raises
-``NotImplementedError`` rather than run the plain path quietly: the
-attention megakernel (eval and training, ``_refuse_head_dim``) and, in
-training, the flash route (``_refuse_unported_training``) at a head dim
-the port's attention kernels do not take.  Both ask
-``ops.kernels.attn_head_dim_ok``, the predicate the kernel wrappers check:
-d <= 256 with d % 8 == 0, on both flash routes alike.
+The attention kernels take every head dim JAX runs (d >= 1): the
+megakernel route and both flash routes run the fixed-width instances at
+d <= 256 with d % 8 == 0 and the chunked family at every other d
+(``ops.kernels.chunked_head_dim``), so the port refuses no head dim that
+JAX trains or serves.
 """
 
 from __future__ import annotations
@@ -87,7 +85,6 @@ from typing import Optional
 import torch
 
 from ..ops.attention import flash_routes, multi_head_attention
-from ..ops.kernels import HEAD_DIM_RULE, attn_head_dim_ok
 from ..ops.layers import (acc_dtype, dense, dropout, gelu, layer_norm,
                           take_rows, take_rows_shard)
 from ..ops.philox import fold_in, generator
@@ -282,12 +279,6 @@ def attn_lanes_ok(cfg: EncoderConfig) -> bool:
     return cfg.hidden_size % 128 == 0 and cfg.head_dim % 64 == 0
 
 
-def attn_kernels_take(cfg: EncoderConfig) -> bool:
-    """The lanes hold and the port's attention kernels take the head
-    dim."""
-    return attn_lanes_ok(cfg) and attn_head_dim_ok(cfg.head_dim)
-
-
 def attn_train_routes(cfg: EncoderConfig, seq: int) -> bool:
     """JAX trains this layer's attention block through its megakernel."""
     from ..ops.fused_attention import FAB_MAX_SEQ
@@ -321,36 +312,6 @@ def flash_train_routes(cfg: EncoderConfig, batch: int, seq: int) -> bool:
                         use_flash=cfg.use_flash_attention,
                         deterministic=False,
                         flash_min_seq=cfg.flash_min_seq)
-
-
-_WHERE = "(ROADMAP.md, queue 2)"
-
-
-def _refuse_head_dim(cfg: EncoderConfig) -> None:
-    """Raise if the port's attention kernels lack the head dim of a layer
-    that JAX sends to an attention megakernel."""
-    if not attn_head_dim_ok(cfg.head_dim):
-        raise NotImplementedError(
-            f"use_fused_attn at head dim {cfg.head_dim}: JAX routes it to "
-            f"an attention megakernel, whose port takes {HEAD_DIM_RULE} "
-            f"{_WHERE}; set use_fused_attn=False for the plain attention "
-            "path")
-
-
-def _refuse_unported_training(cfg: EncoderConfig, batch: int,
-                              seq: int) -> None:
-    """Raise exactly where JAX would train through a kernel the port
-    lacks: its flash routing predicate (``ops/attention.py:138-140``) at a
-    head dim the port's flash kernels do not take (the single-block and
-    the tiled route take the same ones); the attention megakernel's head
-    dims are ``_refuse_head_dim``'s, eval and training alike."""
-    if (not attn_train_routes(cfg, seq)
-            and flash_train_routes(cfg, batch, seq)
-            and not attn_head_dim_ok(cfg.head_dim)):
-        raise NotImplementedError(
-            f"training with use_flash_attention at head dim {cfg.head_dim}: "
-            "JAX routes it to the flash kernels, whose port takes "
-            f"{HEAD_DIM_RULE} {_WHERE}")
 
 
 def _qdense(x: torch.Tensor, kernel, bias: torch.Tensor,
@@ -490,8 +451,6 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
         for layer in range(cfg.num_layers):
             x = _run_layer(tp_body, x, layer, train and cfg.remat)
         return x
-    if train:
-        _refuse_unported_training(cfg, *input_ids.shape)
     x = _embed(params, input_ids, token_type_ids, cfg,
                position_ids=position_ids, seed=seed if train else None)
     b, s, h = x.shape
@@ -505,8 +464,6 @@ def encoder_forward(params: dict, input_ids: torch.Tensor,
         attn_route = "int8" if int8_attn_kernel_routes(cfg, s) else None
     else:
         attn_route = "bf16" if attn_kernel_routes(cfg, s) else None
-    if attn_route is not None:
-        _refuse_head_dim(cfg)
     ffn_route = None
     if ffn_kernel_routes(cfg):
         if is_quantized(lp["ffn_in_kernel"]):

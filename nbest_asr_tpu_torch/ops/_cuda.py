@@ -146,6 +146,20 @@ def lib() -> ctypes.CDLL:
     L.nbk_flash_bwd_dq.argtypes = [*qkv] + [p] * 6 + [i] * 5 + [f, *drop, p]
     L.nbk_flash_bwd_dkv.argtypes = [*qkv] + [p] * 6 + [i] * 5 + [f, *drop,
                                                                  p]
+    # the chunked family (any head dim; the single-block wrappers call it,
+    # the tiled entry points above hand it the chunked head dims
+    # themselves): ..., st0, st1, tiled, B, S, n_heads, d, sm_scale; the
+    # backward pair's o (dq) or dout first
+    L.nbk_chunked_fwd.argtypes = [*qkv, p, p, p, p] + [i] * 5 + [f, *drop,
+                                                                p]
+    L.nbk_chunked_bwd_dq.argtypes = [*qkv] + [p] * 7 + [i] * 5 + [
+        f, *drop, p]
+    L.nbk_chunked_bwd_dkv.argtypes = [*qkv] + [p] * 7 + [i] * 5 + [
+        f, *drop, p]
+    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+        getattr(L, f"nbk_chunked_{name}").restype = ctypes.c_int
+    L.nbk_chunked_launches.argtypes = [i]
+    L.nbk_chunked_launches.restype = ctypes.c_longlong
     L.nbk_quantize_rows.argtypes = [p, p, p, i, i, i, p]
     L.nbk_quantize_grad_rows.argtypes = [p, p, p, p, i, i, i, *drop, p]
     L.nbk_gemm_i8_bias_act.argtypes = [p] * 7 + [i, i, i, i, *drop, p]

@@ -35,11 +35,13 @@ in 256-query blocks (four warpgroups, warp 0 filling the tile ring, the
 online softmax in registers); every warpgroup draws its keep bits while
 its score products run -- and on ``mma.sync`` at every other head dim
 (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).  Both
-routes take every head dim d <= 256 with d % 8 == 0
-(``kernels.attn_head_dim_ok``): 32, 96, 128, 192 and 256 on instances of
-their own (the tiled kernels' 64 and 96 on ``wgmma``), any other d on the
+routes take every head dim d >= 1, as JAX's ``flash_attention`` does: at
+d <= 256 with d % 8 == 0 32, 96, 128, 192 and 256 on instances of their
+own (the tiled kernels' 64 and 96 on ``wgmma``), any other such d on the
 narrowest instance at least d wide, its columns past d zero-filled on
-load and never stored.
+load and never stored; d > 256 and d % 8 != 0 on the chunked family
+(``csrc/attention_chunked.cu``, ``kernels.chunked_head_dim``), the head
+dim in 64-column chunks at any alignment.
 
 The single-block bodies compute the function the attention megakernel's
 head loop computes (``_sb_probs`` is ``_head_probs`` with a caller's
@@ -165,9 +167,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     seed: Optional[int] = None) -> torch.Tensor:
     """(b, s, heads, d) q, k, v + (b, s) SEGMENT mask -> (b, s, heads, d)
     in q's dtype.  ``dropout_rate > 0`` drops the attention probs with
-    the Philox mask of ``seed`` (required then).  CUDA tensors (bf16, head
-    dims d <= 256 with d % 8 == 0 on both routes) run the kernels; CPU
-    tensors their plain versions."""
+    the Philox mask of ``seed`` (required then).  CUDA tensors (bf16, any
+    head dim d >= 1 on both routes; d > 256 and d % 8 != 0 on the chunked
+    family) run the kernels; CPU tensors their plain versions."""
     return _flash(q, k, v, attn_mask, sm_scale, block_q, block_k,
                   dropout_rate, seed, plain=False)
 

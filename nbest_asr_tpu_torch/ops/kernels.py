@@ -63,18 +63,22 @@ three tiled kernels for any sequence length:
 lists, counted also by ``flash_wgmma_launches``; on ``mma.sync`` at
 every other head dim).
 
-Every attention kernel takes the head dims ``attn_head_dim_ok`` admits,
-d <= 256 with d % 8 == 0: each runs on the narrowest ``mma.sync``
-instance of width 32, 64, 96, 128, 192 or 256 at least d wide, its
-columns past d zero-filled on load and never stored
-(``csrc/attention.cuh``, ``instance_width``), or on a ``wgmma`` kernel:
-the tiled trio at d = 64 and 96,
-``seg_attention`` and ``seg_attention_bwd`` at
-d = 64 (s <= 512), 96 and 192 (s <= 256), counted
-also by ``seg_attention_wgmma_launches`` and
-``seg_attention_bwd_wgmma_launches``.  ``attn_instance`` is the one rule
-that picks the single-block pair's instance: the wrappers pass its choice
-to the library, which runs that instance or refuses.
+Every attention kernel wrapper takes every head dim d >= 1.  At d <= 256
+with d % 8 == 0 each runs on the narrowest ``mma.sync`` instance of width
+32, 64, 96, 128, 192 or 256 at least d wide, its columns past d
+zero-filled on load and never stored (``csrc/attention.cuh``,
+``instance_width``), or on a ``wgmma`` kernel: the tiled trio at d = 64
+and 96, ``seg_attention`` and ``seg_attention_bwd`` at d = 64 (s <= 512),
+96 and 192 (s <= 256), counted also by ``seg_attention_wgmma_launches``
+and ``seg_attention_bwd_wgmma_launches``.  Every other head dim -- d >
+256, and d % 8 != 0, whose heads leave the 16-byte boundaries those
+instances copy on -- runs the chunked family (``csrc/attention_chunked.cu``:
+``chunked_fwd``, ``chunked_bwd_dq``, ``chunked_bwd_dkv``, the head dim in
+64-column chunks, at any alignment), for both the single-block pair and
+the tiled trio, counted also by ``attn_chunked_launches``.
+``attn_instance`` is the one rule that picks the single-block pair's
+instance: the wrappers pass its choice to the library, which runs that
+instance or refuses.
 
 The int8 training blocks (``ops/fused_ffn.py``, ``ops/fused_attention.py``,
 ``*_int8_train``) give ``gemm_i8_bias_act`` and ``gemm_i8_bias_residual``
@@ -130,34 +134,33 @@ from .quant import dequant, int_dot, quantize_rows_reference, symmetric_int8
 # (nbest_asr_tpu/ops/flash_attention.py:MASK_VALUE)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_SEQ = 512                 # one-block ceiling, fused_attention.FAB_MAX_SEQ
-MAX_HEAD_DIM = 256            # the widest attention kernel instance
-HEAD_DIM_RULE = f"head dims d <= {MAX_HEAD_DIM} with d % 8 == 0"
 # score elements per chunk of the plain tiled versions (batch elements
 # are taken a chunk at a time, so s = 1024 .. 2048 fit on the card)
 _REF_CHUNK = 2 ** 26
 
 
-def attn_head_dim_ok(d: int) -> bool:
-    """The head dims every attention kernel takes (``seg_attention``,
-    ``seg_attention_bwd``, ``flash_fwd``, ``flash_bwd_dq``,
-    ``flash_bwd_dkv``): d <= 256 with d % 8 == 0, so that a head's
-    columns start on a 16-byte boundary.  The wrappers' checks and the
-    encoder's refusals all ask this one predicate."""
-    return 0 < d <= MAX_HEAD_DIM and d % 8 == 0
+def chunked_head_dim(d: int) -> bool:
+    """The head dims the chunked attention family runs, for the
+    single-block pair and the tiled trio alike: d > 256 (past the widest
+    fixed-width instance) or d % 8 != 0 (a head's columns off the 16-byte
+    boundaries the other instances copy on)."""
+    return d > 256 or d % 8 != 0
 
 
 def attn_instance(d: int, s: int, backward: bool = False):
     """The instance ``seg_attention`` (``backward``: ``seg_attention_bwd``)
-    runs at head dim d and sequence length s: ``"wgmma"`` at d = 64 (both
-    to s = 512), d = 96 and d = 192 (s <= 256), else
-    the width of its ``mma.sync`` instance, the narrowest of 32, 64, 96,
-    128, 192 and 256 at least d wide; None where the wrappers refuse (d
-    outside ``attn_head_dim_ok``, s outside 1 .. 512).  The wrappers pass
-    this choice to the library (``csrc/seg_attention.cu``,
-    ``csrc/seg_attention_bwd.cu``), whose launch counters show that it
-    ran."""
-    if not attn_head_dim_ok(d) or not 0 < s <= MAX_SEQ:
+    runs at head dim d and sequence length s: ``"chunked"`` where
+    ``chunked_head_dim`` holds, ``"wgmma"`` at d = 64 (both to s = 512),
+    d = 96 and d = 192 (s <= 256), else the width of its ``mma.sync``
+    instance, the narrowest of 32, 64, 96, 128, 192 and 256 at least d
+    wide; None where the wrappers refuse (d < 1, s outside 1 .. 512).  The
+    wrappers pass this choice to the library (``csrc/seg_attention.cu``,
+    ``csrc/seg_attention_bwd.cu``, ``csrc/attention_chunked.cu``), whose
+    launch counters show that it ran."""
+    if d < 1 or not 0 < s <= MAX_SEQ:
         return None
+    if chunked_head_dim(d):
+        return "chunked"
     if d == 64 or d in (96, 192) and s <= 256:
         return "wgmma"
     return next(w for w in (32, 64, 96, 128, 192, 256) if w >= d)
@@ -811,9 +814,9 @@ def _attn_dims(name: str, qkv, mask, n_heads: int):
                          f"{tuple(mask.shape)}")
     b, s = mask.shape
     h = qkv.shape[1] // 3
-    if h % n_heads or not attn_head_dim_ok(h // n_heads):
-        raise ValueError(f"{name}: the kernel takes {HEAD_DIM_RULE}, got "
-                         f"{h}/{n_heads}")
+    if n_heads < 1 or h < n_heads or h % n_heads:
+        raise ValueError(f"{name}: {h} columns do not split into {n_heads} "
+                         "heads")
     if s > MAX_SEQ:
         raise ValueError(f"{name}: seq {s} > {MAX_SEQ}")
     _expect(name, "qkv", qkv, torch.bfloat16, (b * s, 3 * h))
@@ -839,15 +842,16 @@ def _row_stride(name: str, arg: str, t, ld=None) -> int:
 
 def _bshd(name: str, q, k, v, mask, max_seq=None):
     """Check (b, s, n_heads, d) bf16 q, k, v sharing one row stride ld
-    (ld % 8 == 0, 16-byte aligned: the kernels copy 16 bytes at a time)
-    and the (b, s) f32 mask; returns (b, s, n_heads, d, ld)."""
+    and the (b, s) f32 mask; returns (b, s, n_heads, d, ld).  The
+    fixed-width instances copy 16 bytes at a time, so they need ld % 8 ==
+    0 and 16-byte aligned operands; the chunked family (``chunked_head_dim``)
+    copies at whatever width the operands allow."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k, v {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, s, nh, d = q.shape
-    if not attn_head_dim_ok(d):
-        raise ValueError(f"{name}: the kernel takes {HEAD_DIM_RULE}, got "
-                         f"{d}")
+    if d < 1:
+        raise ValueError(f"{name}: head dim {d}")
     if max_seq is not None and s > max_seq:
         raise ValueError(f"{name}: seq {s} > {max_seq}")
     ld = _row_stride(name, "q", q)
@@ -856,15 +860,31 @@ def _bshd(name: str, q, k, v, mask, max_seq=None):
             raise TypeError(f"{name}: {arg} is {t.dtype}, the kernel takes "
                             "torch.bfloat16")
         _row_stride(name, arg, t, ld)
-        if t.data_ptr() % 16 or ld % 8:
+        if not chunked_head_dim(d) and (t.data_ptr() % 16 or ld % 8):
             raise ValueError(f"{name}: {arg} must be 16-byte aligned with a "
                              f"row stride % 8 == 0 (got {ld})")
     _expect(name, "mask", mask, torch.float32, (b, s))
     return b, s, nh, d, ld
 
 
+def _stat_rows(st, b: int, nh: int, s: int):
+    """Pointers of the row max and sum planes of (2, b, nh, s) f32
+    statistics (None, None without them)."""
+    if st is None:
+        return None, None
+    return st.data_ptr(), st.data_ptr() + 4 * b * nh * s
+
+
 def _launch_seg_attention(qkv_ptrs, ld, mask, out, st, b, s, nh, d,
                           sm_scale, drop, stream):
+    if attn_instance(d, s) == "chunked":
+        rc = _cuda.lib().nbk_chunked_fwd(
+            *qkv_ptrs, ld, mask.data_ptr(), out.data_ptr(),
+            *_stat_rows(st, b, nh, s), 0, b, s, nh, d, float(sm_scale),
+            *_drop_args(drop), stream)
+        _cuda.check(rc, "seg_attention")
+        _cuda.launch_counts["seg_attention"] += 1
+        return
     rc = _cuda.lib().nbk_seg_attention(
         *qkv_ptrs, ld, mask.data_ptr(), out.data_ptr(), _ptr(st), b, s, nh,
         d, _instance_arg(d, s, False), float(sm_scale), *_drop_args(drop),
@@ -876,6 +896,22 @@ def _launch_seg_attention(qkv_ptrs, ld, mask, out, st, b, s, nh, d,
 def _launch_seg_attention_bwd(qkv_ptrs, ld, dout, mask, stats, grad_ptrs,
                               ld_g, b, s, nh, d, sm_scale, drop, stream):
     di = torch.empty((b, nh, s), dtype=torch.float32, device=mask.device)
+    if attn_instance(d, s, True) == "chunked":
+        # the dQ kernel's first sweep writes di = rowsum(dp * p), which
+        # the dK/dV kernel reads
+        lib, st = _cuda.lib(), _stat_rows(stats, b, nh, s)
+        rc = lib.nbk_chunked_bwd_dq(
+            *qkv_ptrs, ld, None, dout.data_ptr(), mask.data_ptr(), *st,
+            di.data_ptr(), grad_ptrs[0], ld_g, b, s, nh, d, float(sm_scale),
+            *_drop_args(drop), stream)
+        _cuda.check(rc, "seg_attention_bwd")
+        rc = lib.nbk_chunked_bwd_dkv(
+            *qkv_ptrs, ld, dout.data_ptr(), mask.data_ptr(), *st,
+            di.data_ptr(), *grad_ptrs[1:], ld_g, b, s, nh, d,
+            float(sm_scale), *_drop_args(drop), stream)
+        _cuda.check(rc, "seg_attention_bwd")
+        _cuda.launch_counts["seg_attention_bwd"] += 1
+        return
     rc = _cuda.lib().nbk_seg_attention_bwd(
         *qkv_ptrs, ld, dout.data_ptr(), mask.data_ptr(), stats.data_ptr(),
         di.data_ptr(), *grad_ptrs, ld_g, b, s, nh, d,
@@ -906,6 +942,21 @@ def seg_attention_bwd_wgmma_launches(d: int = 0) -> int:
     d raises): which instance ran (``attn_instance``)."""
     _wgmma_head_dim(d)
     return int(_cuda.lib().nbk_seg_attention_bwd_wgmma_launches(d))
+
+
+# the chunked family's kernels, in the order of nbk_chunked_launches
+CHUNKED = ("chunked_fwd", "chunked_bwd_dq", "chunked_bwd_dkv")
+
+
+def attn_chunked_launches() -> dict:
+    """Launches of the chunked family's kernels since the kernels were
+    loaded, per kernel: the routing behind the ``seg_attention``,
+    ``seg_attention_bwd`` and tiled counters at the head dims
+    ``chunked_head_dim`` names (a single-block backward launches
+    ``chunked_bwd_dq`` and ``chunked_bwd_dkv`` once each)."""
+    lib = _cuda.lib()
+    return {name: int(lib.nbk_chunked_launches(i))
+            for i, name in enumerate(CHUNKED)}
 
 
 def _column_blocks(t, h: int):
@@ -1000,9 +1051,10 @@ def seg_attention_bwd(qkv, dctx, mask, stats, n_heads: int, drop=None):
 
 def flash_fwd(q, k, v, mask, sm_scale: float, drop=None):
     """The tiled flash forward of (b, s, n_heads, d) q, k, v (any s; on
-    the card bf16 sharing one row stride, ``attn_head_dim_ok(d)``) and the
-    (b, s) segment mask -> (o (b, s, n_heads, d), lse (b, n_heads, s)
-    f32), with the Philox prob dropout ``drop`` (stream 3)."""
+    the card bf16 sharing one row stride) and the (b, s) segment mask ->
+    (o (b, s, n_heads, d), lse (b, n_heads, s) f32), with the Philox prob
+    dropout ``drop`` (stream 3).  The library picks the kernel by d: the
+    chunked family's ``chunked_fwd`` where ``chunked_head_dim(d)`` holds."""
     if not _on_cuda("flash_fwd", q, k, v, mask):
         return flash_fwd_reference(q, k, v, mask, sm_scale, drop)
     b, s, nh, d, ld = _bshd("flash_fwd", q, k, v, mask)
@@ -1023,16 +1075,18 @@ def _flash_bwd_checks(name, q, k, v, mask, lse, dout, stat2, stat2_name):
     _expect(name, "lse", lse, torch.float32, (b, nh, s))
     if stat2_name == "o":
         _expect(name, "o", stat2, torch.bfloat16, (b, s, nh, d))
-        _aligned16(name, dout=dout, o=stat2)
     else:
         _expect(name, "di", stat2, torch.float32, (b, nh, s))
-        _aligned16(name, dout=dout)
+    if not chunked_head_dim(d):
+        _aligned16(name, dout=dout, **({"o": stat2} if stat2_name == "o"
+                                       else {}))
     return b, s, nh, d, ld
 
 
 # the head dims at which each tiled kernel runs its wgmma + TMA instance
 # (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu); the mma.sync
-# kernels take every other head dim
+# kernels take every other head dim but those ``chunked_head_dim`` names,
+# which the same entry points hand to the chunked family
 FLASH_WGMMA = {"flash_fwd": (64, 96), "flash_bwd_dq": (64, 96),
                "flash_bwd_dkv": (64, 96)}
 

@@ -40,7 +40,7 @@ from .data.native_loader import (NativePacker, native_available,
                                  native_supported)
 from .data.tokenizer import BaseTokenizer
 from .data.vocab import Memory
-from .models.encoder import (GEMM_KERNELS, attn_kernels_take,
+from .models.encoder import (GEMM_KERNELS, attn_lanes_ok,
                              ffn_kernel_routes)
 from .models.heads import hierarchy_device_arrays
 from .models.model import ModelConfig, model_forward
@@ -105,7 +105,7 @@ def resolve_quantize(quantize, cfg: ModelConfig, device: torch.device) -> str:
     if quantize is not None:
         return quantize
     enc = cfg.encoder
-    kernels_take_it = (enc.use_fused_attn and attn_kernels_take(enc)
+    kernels_take_it = (enc.use_fused_attn and attn_lanes_ok(enc)
                        and ffn_kernel_routes(enc))
     return "int8" if (device.type == "cuda" and kernels_take_it
                       and INT8_FASTER_ON_CUDA) else "none"

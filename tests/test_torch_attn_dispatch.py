@@ -1,13 +1,19 @@
 """``ops.kernels.attn_instance``, the one rule that picks the single-block
-attention pair's instance, over every head dim 1 .. 256 and sequence
+attention pair's instance, over every head dim 1 .. 800 and sequence
 length 1 .. 512, and the wrappers that hand its choice to the library
 (``csrc/seg_attention.cu:nbk_seg_attention``,
-``csrc/seg_attention_bwd.cu:nbk_seg_attention_bwd``); the tiled trio's
-wrappers, which hand the library the caller's head dim (the library
-picks the instance: ``kernels.FLASH_WGMMA``), and the wgmma counters by
-head dim of both.  The card tests (``tests/test_torch_kernels_cuda.py``)
+``csrc/seg_attention_bwd.cu:nbk_seg_attention_bwd``, and at the head dims
+``chunked_head_dim`` names the chunked family of
+``csrc/attention_chunked.cu``); the tiled trio's wrappers, which hand the
+library the caller's head dim (the library picks the instance:
+``kernels.FLASH_WGMMA``, and the chunked family at the chunked head
+dims); the wgmma counters by head dim of both, and the chunked family's
+counters.  The card tests (``tests/test_torch_kernels_cuda.py``)
 and ``chip_smoke.py`` phase 18 hold the kernels' launch counters to
 them."""
+
+import pathlib
+import re
 
 import pytest
 import torch
@@ -25,23 +31,30 @@ TABLE = {(64, 20): ("wgmma", "wgmma"), (64, 256): ("wgmma", "wgmma"),
          (128, 256): (128, 128), (192, 256): ("wgmma", "wgmma"),
          (192, 64): ("wgmma", "wgmma"), (192, 257): (192, 192),
          (160, 256): (192, 192),
-         (256, 512): (256, 256), (12, 64): (None, None),
-         (264, 64): (None, None), (64, 513): (None, None),
-         (96, 0): (None, None)}
+         (256, 512): (256, 256), (12, 64): ("chunked", "chunked"),
+         (264, 64): ("chunked", "chunked"), (3, 1): ("chunked", "chunked"),
+         (320, 512): ("chunked", "chunked"),
+         (768, 256): ("chunked", "chunked"), (64, 513): (None, None),
+         (96, 0): (None, None), (0, 64): (None, None),
+         (320, 513): (None, None)}
 
 
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
 def test_attn_instance_over_every_head_dim_and_length(backward):
     seen = {}
-    for d in range(1, 257):
+    for d in range(1, 801):
         left_wgmma = False
         for s in range(0, 514):
             got = K.attn_instance(d, s, backward)
             seen[got] = seen.get(got, 0) + 1
-            # refused exactly where the wrappers refuse
-            assert (got is None) == (not K.attn_head_dim_ok(d)
-                                     or not 1 <= s <= 512), (d, s, got)
+            # refused exactly where the wrappers refuse: lengths outside
+            # the single block, at no head dim
+            assert (got is None) == (not 1 <= s <= 512), (d, s, got)
             if got is None:
+                continue
+            # the chunked family exactly at d > 256 or d % 8 != 0
+            assert (got == "chunked") == (d > 256 or d % 8 != 0), (d, s)
+            if got == "chunked":
                 continue
             if got == "wgmma":
                 # one window of lengths from 1, at the wgmma head dims
@@ -51,7 +64,8 @@ def test_attn_instance_over_every_head_dim_and_length(backward):
                 assert d <= got < d + 64 and got % 32 == 0, (d, s, got)
                 left_wgmma = True
     # every instance is reached
-    assert set(seen) == {None, "wgmma", 32, 64, 96, 128, 192, 256}
+    assert set(seen) == {None, "chunked", "wgmma", 32, 64, 96, 128, 192,
+                         256}
     for (d, s), want in TABLE.items():
         assert K.attn_instance(d, s, backward) == want[backward], (d, s)
 
@@ -109,12 +123,30 @@ class _FakeLib:
         self.calls.append(("bwd", a[15], a[16]))
         return 0
 
+    def nbk_chunked_fwd(self, *a):
+        # ..., st0, st1, tiled, B, S, n_heads, d
+        self.calls.append(("chunked_fwd", a[12], a[8]))
+        return 0
+
+    def nbk_chunked_bwd_dq(self, *a):
+        # ..., o (None: the single-block di), ..., B, S, n_heads, d
+        self.calls.append(("chunked_bwd_dq", a[15], a[4] is not None))
+        return 0
+
+    def nbk_chunked_bwd_dkv(self, *a):
+        self.calls.append(("chunked_bwd_dkv", a[15]))
+        return 0
+
+    def nbk_chunked_launches(self, kernel):
+        return self.launches[("chunked", kernel)]
+
 
 @pytest.mark.usefixtures("keep_launch_counts")
 @pytest.mark.parametrize("layout", ["qkv", "bshd"])
 @pytest.mark.parametrize("d,s", [(64, 300), (64, 512), (96, 256), (96, 257),
                                  (88, 160), (128, 64), (192, 256),
-                                 (192, 300)])
+                                 (192, 300), (12, 160), (3, 77),
+                                 (320, 256), (768, 512)])
 def test_wrappers_pass_attn_instance_to_the_kernels(monkeypatch, layout, d,
                                                     s):
     """The four wrappers hand the library ``attn_instance``'s choice (0
@@ -141,8 +173,16 @@ def test_wrappers_pass_attn_instance_to_the_kernels(monkeypatch, layout, d,
     def arg(inst):
         return 0 if inst == "wgmma" else inst
 
-    assert fake.calls == [("fwd", d, arg(K.attn_instance(d, s))),
-                          ("bwd", d, arg(K.attn_instance(d, s, True)))]
+    if K.chunked_head_dim(d):
+        # the single-block contract (tiled 0, di from the dQ kernel's key
+        # sweep): the forward, then the dQ and the dK/dV kernels
+        assert fake.calls == [("chunked_fwd", d, 0),
+                              ("chunked_bwd_dq", d, False),
+                              ("chunked_bwd_dkv", d)]
+    else:
+        assert fake.calls == [("fwd", d, arg(K.attn_instance(d, s))),
+                              ("bwd", d, arg(K.attn_instance(d, s, True)))]
+    assert _cuda.launch_counts["seg_attention"] >= 1
 
 
 def test_wgmma_counters_refuse_head_dims_without_a_wgmma_instance(
@@ -188,6 +228,52 @@ def test_tiled_wrappers_pass_the_head_dim(monkeypatch, d):
                           ("flash_bwd_dkv", d)]
     assert {n: _cuda.launch_counts[n] for n in K.FLASH_WGMMA} == {
         n: 1 for n in K.FLASH_WGMMA}
+
+
+@pytest.mark.usefixtures("keep_launch_counts")
+def test_tiled_wrappers_hand_every_head_dim_to_the_library(monkeypatch):
+    """At every head dim 1 .. 800 the tiled trio's wrappers take the
+    operands -- at the chunked head dims views of one QKV buffer at any
+    alignment -- and hand the library's tiled entry points the caller's
+    d, each counting one launch; the library hands the head dims
+    ``chunked_head_dim`` names to the chunked family by the same rule
+    (``csrc/attention_chunked.cuh``, read here)."""
+    src = (pathlib.Path(K.__file__).parent.parent / "csrc" /
+           "attention_chunked.cuh").read_text()
+    rule = re.search(r"bool chunked_head_dim\(int d\) \{ return (.*?); \}",
+                     src).group(1)
+    fake = _FakeLib()
+    monkeypatch.setattr(_cuda, "lib", lambda: fake)
+    monkeypatch.setattr(K, "_on_cuda", lambda name, *t: True)
+    monkeypatch.setattr(K, "_stream", lambda t: 0)
+    b, s, nh = 1, 3, 2
+    mask = torch.ones(b, s)
+    for d in range(1, 801):
+        assert eval(rule.replace("||", "or"), {"d": d}) == (
+            K.chunked_head_dim(d)) == (d > 256 or d % 8 != 0), d
+        fake.calls.clear()
+        _cuda.reset_launch_counts()
+        q, k, v = torch.zeros(b * s, 3 * nh * d, dtype=torch.bfloat16).view(
+            b, s, 3, nh, d).unbind(2)
+        do = torch.zeros(b, s, nh, d, dtype=torch.bfloat16)
+        o, lse = K.flash_fwd(q, k, v, mask, 0.1)
+        _, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, 0.1)
+        K.flash_bwd_dkv(q, k, v, mask, lse, di, do, 0.1)
+        assert fake.calls == [("flash_fwd", d), ("flash_bwd_dq", d),
+                              ("flash_bwd_dkv", d)], d
+        assert {n: _cuda.launch_counts[n] for n in K.FLASH_WGMMA} == {
+            n: 1 for n in K.FLASH_WGMMA}, d
+
+
+def test_chunked_counters_read_the_library_per_kernel(monkeypatch):
+    """``attn_chunked_launches`` reads the library's count of each chunked
+    kernel (0 forward, 1 dQ, 2 dK/dV)."""
+    fake = _FakeLib({("chunked", i): 10 + i for i in range(3)})
+    monkeypatch.setattr(_cuda, "lib", lambda: fake)
+    assert K.attn_chunked_launches() == {"chunked_fwd": 10,
+                                         "chunked_bwd_dq": 11,
+                                         "chunked_bwd_dkv": 12}
+    assert K.CHUNKED == tuple(K.attn_chunked_launches())
 
 
 def test_tiled_wgmma_counters_by_head_dim(monkeypatch):

@@ -314,32 +314,39 @@ def test_encoder_trains_through_flash_where_jax_does(monkeypatch, flags, seq,
 
 
 def test_one_head_dim_predicate_decides_every_refusal():
-    """For every head dim 1 .. 400 the kernel wrappers' checks (the
-    (n, 3h) buffer's and the (b, s, heads, d) operands'), the encoder's
-    megakernel refusal and its flash-training refusal agree with
-    ``attn_head_dim_ok``: d <= 256 with d % 8 == 0."""
+    """For every head dim 1 .. 800 the kernel wrappers' checks (the (n,
+    3h) buffer's and the (b, s, heads, d) operands') pass, the encoder
+    raises nothing on the megakernel route in eval nor on the flash route
+    in training, and ``chunked_head_dim`` -- which sends a head dim to the
+    chunked family -- holds exactly at d > 256 or d % 8 != 0."""
     from nbest_asr_tpu_torch.models import encoder as E
 
     mask = torch.ones(1, 2)
-    taken = []
-    for d in range(1, 401):
-        ok = K.attn_head_dim_ok(d)
-        assert ok == (d <= 256 and d % 8 == 0)
+    chunked = []
+    for d in range(1, 801):
         qkv = torch.zeros(2, 3 * d, dtype=torch.bfloat16)
         q = torch.zeros(1, 2, 1, d, dtype=torch.bfloat16)
-        cfg = E.EncoderConfig.tiny(50, hidden_size=d, num_heads=1,
-                                   use_flash_attention=True, flash_min_seq=16)
-        verdicts = []
-        for check in (lambda: K._attn_dims("seg_attention", qkv, mask, 1),
-                      lambda: K._bshd("flash_fwd", q, q, q, mask),
-                      lambda: E._refuse_head_dim(cfg),
-                      lambda: E._refuse_unported_training(cfg, 2, 64)):
-            try:
-                check()
-                verdicts.append(True)
-            except (ValueError, NotImplementedError) as e:
-                assert "head dim" in str(e), e
-                verdicts.append(False)
-        assert verdicts == [ok] * 4, (d, verdicts)
-        taken.append(ok)
-    assert sum(taken) == 32
+        assert K._attn_dims("seg_attention", qkv, mask, 1) == (1, 2, d)
+        assert K._bshd("flash_fwd", q, q, q, mask)[3] == d
+        assert K.chunked_head_dim(d) == (d > 256 or d % 8 != 0)
+        chunked.append(K.chunked_head_dim(d))
+    assert sum(chunked) == 800 - 32
+    # the encoder at head dims the port once refused: 2 heads of 12 on
+    # the flash route in training (d % 8 != 0), 1 head of 320 on the
+    # megakernel route in eval and of 264 on the flash route in training
+    ids = torch.randint(1, 50, (2, 24), generator=torch.Generator()
+                        .manual_seed(0))
+    for d, nh, train, flags in (
+            (12, 2, True, dict(use_flash_attention=True, flash_min_seq=16)),
+            (320, 1, False, dict(use_fused_attn=True,
+                                 use_fused_attn_eval=True)),
+            (264, 1, True, dict(use_flash_attention=True,
+                                flash_min_seq=16))):
+        cfg = E.EncoderConfig.tiny(50, hidden_size=d * nh, num_heads=nh,
+                                   intermediate_size=64, **flags)
+        params = E.init_encoder_params(torch.Generator().manual_seed(d),
+                                       cfg)
+        out = E.encoder_forward(params, ids, torch.ones(2, 24), None, cfg,
+                                deterministic=not train,
+                                seed=3 if train else None)
+        assert out.shape == (2, 24, d * nh) and torch.isfinite(out).all()

@@ -158,12 +158,16 @@ def test_wrappers_refuse_and_count(dev):
         K.gemm_bias_act(a, w[:, :96].contiguous(), b[:96])
     with pytest.raises(ValueError, match="K % 8"):
         K.gemm_bias_act(a[:, :250].contiguous(), w[:250].contiguous(), b)
-    # head dims 12 (d % 8 != 0) and 264 (> 256)
+    # head dims 12 (d % 8 != 0) and 264 (> 256): the chunked family's
+    # forward, counted as seg_attention
+    n0 = K.attn_chunked_launches()["chunked_fwd"]
     for h, nh in ((36, 3), (528, 2)):
-        with pytest.raises(ValueError, match="head dims"):
-            K.seg_attention(_rand(dev, 64, 3 * h), torch.ones(4, 16,
-                                                               device=dev),
-                            nh)
+        _cuda.reset_launch_counts()
+        K.seg_attention(_rand(dev, 64, 3 * h), torch.ones(4, 16, device=dev),
+                        nh)
+        assert _cuda.launch_counts["seg_attention"] == 1
+    torch.cuda.synchronize()
+    assert K.attn_chunked_launches()["chunked_fwd"] == n0 + 2
     # the TMA kernel refuses an operand off a 16-byte boundary
     r = _rand(dev, 64, 128)
     off = _rand(dev, 64 * 256 + 1)[1:].view(64, 256)
@@ -928,7 +932,8 @@ def test_attention_train_wrappers_refuse_and_count(dev):
     with pytest.raises(ValueError, match="shape"):
         K.seg_attention_bwd(qkv, qkv[:, :256].contiguous(), mask, st[:, :1],
                             4)
-    with pytest.raises(ValueError, match="head dims"):
+    # 64 heads of 4 (the chunked family) need statistics of 64 heads
+    with pytest.raises(ValueError, match="shape"):
         K.seg_attention_bwd(qkv, qkv[:, :256].contiguous(), mask, st, 64)
     with pytest.raises(ValueError, match="no dropout"):
         K.gemm_dgrad(qkv[:, :256].contiguous(), _rand(dev, 256, 256), "none",
@@ -1455,15 +1460,13 @@ def test_flash_wrappers_refuse_and_count(dev):
 
     q, k, v, do = _bshd_operands(dev, 2, 80, 4, 64, True, seed=400)
     mask = torch.ones(2, 80, device=dev)
-    # head dims 12 (d % 8 != 0) and 320 (> 256)
-    with pytest.raises(ValueError, match="head dims"):
-        K.flash_fwd(*(t[..., :12].contiguous() for t in (q, k, v)), mask,
-                    0.1)
-    with pytest.raises(ValueError, match="head dims"):
-        K.flash_fwd(*(torch.cat([t] * 5, -1) for t in (q, k, v)), mask, 0.1)
-    with pytest.raises(ValueError, match="head dims"):
-        K.sb_attention(*(torch.cat([t] * 5, -1) for t in (q, k, v)), mask,
-                       0.1)
+    # head dims 12 (d % 8 != 0) and 320 (> 256): the chunked family
+    n0 = K.attn_chunked_launches()["chunked_fwd"]
+    K.flash_fwd(*(t[..., :12].contiguous() for t in (q, k, v)), mask, 0.1)
+    K.flash_fwd(*(torch.cat([t] * 5, -1) for t in (q, k, v)), mask, 0.1)
+    K.sb_attention(*(torch.cat([t] * 5, -1) for t in (q, k, v)), mask, 0.1)
+    torch.cuda.synchronize()
+    assert K.attn_chunked_launches()["chunked_fwd"] == n0 + 3
     with pytest.raises(ValueError, match="strides"):
         K.flash_fwd(q, k.contiguous(), v, mask, 0.1)
     with pytest.raises(TypeError):
@@ -1809,3 +1812,105 @@ def test_remat_step_is_bit_equal_and_doubles_forward_launches(dev):
         assert c0[k] == layers * n and c1[k] == 2 * layers * n, k
     for k, n in REMAT_BWD.items():
         assert c0[k] == c1[k] == layers * n, k
+
+
+# --------------------------------------------------------------------- #
+# the chunked attention family (csrc/attention_chunked.cu): the head dims
+# no fixed-width instance takes, d > 256 and d % 8 != 0, on both wrapper
+# contracts; select with -k chunked
+# --------------------------------------------------------------------- #
+
+CHUNKED_DIMS = [3, 6, 12, 20, 100, 258, 260, 320, 384, 768]
+
+
+def _chunked_delta(before):
+    after = K.attn_chunked_launches()
+    return {n: after[n] - before[n] for n in after}
+
+
+def _chunked_heads(d):
+    return 4 if d < 64 else 2
+
+
+@pytest.mark.parametrize("views", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("s", [1, 77, 256, 512])
+@pytest.mark.parametrize("d", CHUNKED_DIMS)
+def test_chunked_single_block_pair(dev, d, s, rate, views):
+    """``sb_attention`` / ``sb_attention_bwd`` at a chunked head dim on
+    the chunked kernels (one launch each, the backward's dQ and dK/dV),
+    against their plain versions: o, the row statistics, and dq, dk, dv
+    from the kernel's own statistics; packed masks, the QKV buffer's views
+    and standalone tensors."""
+    b, nh = 2, _chunked_heads(d)
+    q, k, v, do = _bshd_operands(dev, b, s, nh, d, views, seed=d + s + 300)
+    mask = _attn_mask(dev, b, s, packed=True)
+    drop, sc = _drop(rate, 3), 1.0 / d ** 0.5
+    n0 = K.attn_chunked_launches()
+    o, st = K.sb_attention(q, k, v, mask, sc, drop, stats=True)
+    grads = K.sb_attention_bwd(q, k, v, do, mask, st, sc, drop)
+    torch.cuda.synchronize()
+    assert _chunked_delta(n0) == {n: 1 for n in K.CHUNKED}
+    ro, rst = K.sb_attention_reference(q, k, v, mask, sc, drop, stats=True)
+    _close(o, ro)
+    torch.testing.assert_close(st, rst, rtol=1e-5, atol=1e-6)
+    want = K.sb_attention_bwd_reference(q, k, v, do, mask, st, sc, drop)
+    if s == 1:
+        # one key a row, p = 1: dq and dk are 0 but for rounding, which no
+        # relative check can hold (the plain version rebuilds p from its
+        # own scores, 1 within a few ulps): ds = p (dp - di) sm_scale with
+        # dp and di f32 sums of the same d products dout * v (dropped:
+        # times 1 / (1 - rate)), each within d 2^-24 of the sum of their
+        # magnitudes, and dq and dk are ds times the one row of k and q
+        # (1% for two bf16 roundings)
+        ds_max = 2 * d * 2.0 ** -24 * sc / (1 - rate) * (
+            do.float() * v.float()).abs().sum(-1, keepdim=True)
+        for got, other in ((grads[0], k), (grads[1], q)):
+            assert (got.float().abs()
+                    <= 1.01 * ds_max * other.float().abs()).all()
+        _close_rel(grads[2], want[2])
+    else:
+        for got, w in zip(grads, want):
+            _close_rel(got, w)
+
+
+@pytest.mark.parametrize("views", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("s", [700, 1024])
+@pytest.mark.parametrize("d", CHUNKED_DIMS)
+def test_chunked_tiled_trio(dev, d, s, rate, views):
+    """``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` at a chunked
+    head dim on the chunked kernels, against their plain versions: o,
+    lse, di, dq, dk, dv, the backward fed the kernel's own o and lse."""
+    b, nh = 2, _chunked_heads(d)
+    q, k, v, do = _bshd_operands(dev, b, s, nh, d, views, seed=d + s + 400)
+    mask = _attn_mask(dev, b, s, packed=True)
+    drop, sc = _drop(rate, 3), 1.0 / d ** 0.5
+    n0 = K.attn_chunked_launches()
+    o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
+    dq, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc, drop)
+    dk, dv = K.flash_bwd_dkv(q, k, v, mask, lse, di, do, sc, drop)
+    torch.cuda.synchronize()
+    assert _chunked_delta(n0) == {n: 1 for n in K.CHUNKED}
+    ro, rlse = K.flash_fwd_reference(q, k, v, mask, sc, drop)
+    _close(o, ro)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    rdq, rdi = K.flash_bwd_dq_reference(q, k, v, mask, o, lse, do, sc, drop)
+    torch.testing.assert_close(di, rdi, rtol=1e-4, atol=1e-5)
+    _close_rel(dq, rdq)
+    for got, want in zip((dk, dv), K.flash_bwd_dkv_reference(
+            q, k, v, mask, lse, di, do, sc, drop)):
+        _close_rel(got, want)
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["sb", "tiled"])
+@pytest.mark.parametrize("d", CHUNKED_DIMS)
+def test_chunked_kernels_draw_the_stream3_mask(dev, d, tiled):
+    """Every chunked kernel drops exactly the stream-3 keep bits, on both
+    contracts: ``chip_smoke.chunked_mask_probe``, the one-hot probe smoke
+    phase 19 (a) runs (run from the repository's root)."""
+    from chip_smoke import chunked_mask_probe
+
+    got = chunked_mask_probe(K, dev, d, tiled)
+    print(got)
+    assert all(n == 0 for n, _ in got.values()), got

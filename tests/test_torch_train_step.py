@@ -40,6 +40,8 @@ from nbest_asr_tpu.models.model import ModelConfig as JModelConfig
 from nbest_asr_tpu.models.model import init_model_params as j_init
 from nbest_asr_tpu.parallel.train_step import TrainState as JTrainState
 from nbest_asr_tpu.parallel.train_step import \
+    make_eval_step as j_make_eval_step
+from nbest_asr_tpu.parallel.train_step import \
     make_train_step as j_make_train_step
 from nbest_asr_tpu.train.losses import LossConfig as JLossConfig
 from nbest_asr_tpu.train.optimizer import OptimizerConfig as JOptConfig
@@ -272,12 +274,87 @@ def _one_step(tiny_memory, seed, **flags):
                 torch.Generator().manual_seed(0))[1]["loss"]
 
 
+# one step at a constant lr (step 0 of warmup-linear trains at lr 0),
+# eps = 1 (BertAdam's first update linear in the gradient) and no weight
+# decay, as chip_smoke.py's dropout-0 gate steps
+ONE_STEP_OPT = dict(optim_choice="bertadam", lr=1e-3, bert_lr=1e-3,
+                    schedule="none", eps=1.0, weight_decay=0.0)
+# the head dims the port once refused, which the chunked attention family
+# serves: JAX's attention megakernel route at d = 320 (hidden 640, 2
+# heads; eval too), its flash route at d = 12 (hidden 48, 4 heads; d % 8
+# != 0), both at the tests' 24-token rows
+CHUNKED_HEADS = {"megakernel_d320": dict(use_fused_attn=True,
+                                         use_fused_attn_eval=True,
+                                         hidden_size=640, num_heads=2),
+                 "flash_d12": dict(use_flash_attention=True,
+                                   flash_min_seq=16, hidden_size=48,
+                                   num_heads=4)}
+
+
+def _eval_and_one_step_match_jax(memory, flags, seed):
+    """An eval step and one training step of JAX's and the port's on the
+    same bridged parameters and micro: loss parts within 1e-2 relative,
+    every leaf's parameter delta within 5e-2 of JAX's largest for that
+    leaf (PERF.md section 2)."""
+    jcfg, tcfg = _configs(memory, "fused_ffn")
+    jcfg = dataclasses.replace(jcfg, encoder=dataclasses.replace(
+        jcfg.encoder, **flags))
+    tcfg = dataclasses.replace(tcfg, encoder=dataclasses.replace(
+        tcfg.encoder, **flags))
+    params = jax.device_get(j_init(jax.random.PRNGKey(seed), jcfg))
+    host = _host_data(memory, 9, seed=seed)
+    idx = np.arange(8, dtype=np.int32).reshape(2, 4)
+    jdata = {k: jnp.asarray(v) for k, v in host.items()}
+    tdata = {k: torch.from_numpy(v) for k, v in host.items()}
+    jopt = j_make_opt(JOptConfig(**ONE_STEP_OPT), params)
+    jstep = j_make_train_step(jcfg, JLossConfig(), jopt,
+                              j_hier(memory.arrays()), n_accum=2,
+                              dual_stream=False, donate=False)
+    with pltpu.force_tpu_interpret_mode(), \
+            jax.default_matmul_precision("highest"):
+        jev = j_make_eval_step(jcfg, JLossConfig(), j_hier(memory.arrays()))(
+            params, jdata, jnp.asarray(np.arange(9)))
+        jstate, jstats = jstep(
+            JTrainState(params=params, opt_state=jopt.init(params),
+                        step=jnp.zeros([], jnp.int32)),
+            jdata, jnp.asarray(idx), jax.random.PRNGKey(0))
+    tparams = from_jax_numpy(params)
+    hier = hierarchy_device_arrays(memory.arrays())
+    topt = make_optimizer(OptimizerConfig(**ONE_STEP_OPT), tparams)
+    _cuda.reset_launch_counts()
+    tev = make_eval_step(tcfg, LossConfig(), hier)(tparams, tdata,
+                                                   np.arange(9))
+    tstate, tstats = make_train_step(tcfg, LossConfig(), topt, hier,
+                                     n_accum=2, dual_stream=False)(
+        TrainState(tparams, topt.init(tparams), 0), tdata, idx,
+        torch.Generator().manual_seed(0))
+    assert all(v == 0 for v in _cuda.launch_counts.values())
+    for what, js, ts in (("eval", jev, tev), ("train", jstats, tstats)):
+        for k, v in js["loss"].items():
+            np.testing.assert_allclose(float(ts["loss"][k]), float(v),
+                                       rtol=1e-2, err_msg=f"{what} {k}")
+    got = to_numpy(tstate.params)
+
+    def walk(a, b, c, path=""):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], c[k], f"{path}/{k}")
+            return
+        dj = np.asarray(b, np.float64) - np.asarray(a, np.float64)
+        dt = np.asarray(c, np.float64) - np.asarray(a, np.float64)
+        scale = np.abs(dj).max()
+        assert scale > 0, f"{path}: no update"
+        assert np.abs(dt - dj).max() <= 5e-2 * scale, path
+
+    walk(params, jax.device_get(jstate.params), got)
+
+
 def test_eval_step_and_training_refusals(tiny_memory):
-    """The eval step runs; training raises exactly where JAX would run a
-    kernel the port lacks (``encoder._refuse_unported_training``: the
-    flash route at a head dim its kernels lack, 12 (d % 8 != 0) and 320
-    (> 256)), and eval and training where JAX would run an attention
-    megakernel at a head dim the port's kernels lack."""
+    """The eval step runs; and where the port once refused -- JAX's
+    attention megakernel at head dim 320 and its flash route at head dim
+    12, whose heads the chunked attention family now serves -- the port
+    refuses nothing: an eval step and one training step at each match
+    JAX's (``_eval_and_one_step_match_jax``)."""
     jcfg, tcfg = _configs(tiny_memory, "fused_ffn")
     params = from_jax_numpy(jax.device_get(j_init(jax.random.PRNGKey(6),
                                                   jcfg)))
@@ -288,24 +365,8 @@ def test_eval_step_and_training_refusals(tiny_memory):
                                                   np.arange(10))
     assert ev["pred"].shape == (10, tiny_memory.n_bottom)
     assert float(ev["counts"]["total"]) == 9.0
-    # JAX routes head dim 320 to its megakernels; the port's attention
-    # kernels take d <= 256 with d % 8 == 0 (of the megakernels' d % 64:
-    # 64, 128, 192 and 256)
-    d320 = dict(use_fused_attn=True, hidden_size=640, num_heads=2)
-    ecfg = dataclasses.replace(tcfg, encoder=dataclasses.replace(
-        tcfg.encoder, use_fused_attn_eval=True, **d320))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_eval_step(ecfg, LossConfig(), hier)(params, data, np.arange(10))
-    refused = [# JAX's flash route at head dims 12 and 320; the port's
-               # flash kernels take d <= 256 with d % 8 == 0
-               dict(use_flash_attention=True, flash_min_seq=16,
-                    hidden_size=48, num_heads=4),
-               dict(use_flash_attention=True, flash_min_seq=16,
-                    hidden_size=640, num_heads=2),
-               d320]
-    for flags in refused:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _one_step(tiny_memory, 6, **flags)
+    for seed, flags in enumerate(CHUNKED_HEADS.values()):
+        _eval_and_one_step_match_jax(tiny_memory, flags, 6 + seed)
 
 
 @pytest.mark.parametrize("flags", [
