@@ -7,6 +7,7 @@ commits' kernels beyond their times:
     python3 chip_kernel_probe.py --root CHECKOUT gelu-dump OUT.pt
     python3 chip_kernel_probe.py --root CHECKOUT attn-dump OUT.pt
     python3 chip_kernel_probe.py compare A.pt B.pt
+    python3 chip_kernel_probe.py --root CHECKOUT chunked-variants A.cu ...
 
 ``--root`` is the root of a checkout of this repository (default: the
 directory of this script); its kernels are built into its own ``build/``.
@@ -33,8 +34,20 @@ lse; ``flash_bwd_dq``: dq and di; ``flash_bwd_dkv``: dk and dv, and
 the pair again on the plain forward's o and lse, so that a change of the
 forward leaves the pair's inputs alone) at s = 700 and 1024 on q, k, v
 views of one QKV buffer at d = 64 and 96 (their wgmma + TMA instances),
-32, 128, 192, 256 and the padded 48 and 80.
+32, 128, 192, 256 and the padded 48 and 80; and the chunked family at d =
+12, 258 and 384 (``CHUNKED_CASES``: single-block at s = 77 and 256, tiled
+at 700), its backward kernels fed the plain forward's statistics (bit for
+bit) and ``chunked_fwd`` held to its plain version by the card tests'
+tolerance (a flag in the dump).
 ``compare`` holds two dumps bit for bit and names the cases that differ.
+``chunked-variants`` builds each given copy of ``csrc/attention_chunked.cu``
+alone (nvcc, about 30 s, all at once; the checkout's ``csrc`` headers on
+the include path) and times its ``chunked_fwd`` at
+``chip_time_attention.CHUNKED_SHAPES``, dropout 0.1 and 0, the variants
+in turn twice over (A B B A for two), with the largest difference from
+the plain version; a variant that exports ``nbk_prof_read(unsigned long
+long[8])`` (per-phase ``clock64`` sums of each block's first thread)
+also prints those sums per block.
 """
 
 from __future__ import annotations
@@ -146,6 +159,19 @@ ATTN_CASES = ([(64, 12, 4, s, "qkv") for s in (64, 96, 130, 160, 256, 300,
 TILED_CASES = [(d, 4, 2, s) for d in (64, 96) for s in (700, 1024)] + [
     (d, 4, 2, 700) for d in (32, 128, 192, 256, 48, 80)]
 
+# attn-dump's chunked cases (the chunked family's head dims: d > 256 or d %
+# 8 != 0): (head dim, heads, batch, seq); single-block to 512, tiled past
+CHUNKED_CASES = [(d, nh, 2, s) for d, nh in ((12, 8), (258, 2), (384, 2))
+                 for s in (77, 256, 700)]
+
+
+def _held(got, want) -> bool:
+    """The card tests' tolerance for an attention output (two bf16 ulps
+    of the largest value at most, 1e-3 on average)."""
+    diff = (got.float() - want.float()).abs()
+    return (diff.max().item() <= 2.0 ** -6 * want.float().abs().max().item()
+            and diff.mean().item() <= 1e-3)
+
 
 def attn_dump(out: str) -> None:
     from nbest_asr_tpu_torch.ops import kernels as K
@@ -208,14 +234,149 @@ def attn_dump(out: str) -> None:
             dk, dv = K.flash_bwd_dkv(q, k, v, mask, lse, di, do, sc, drop)
             for name, t in zip(("dq", "di", "dk", "dv"), (dq, di, dk, dv)):
                 res[f"{name} {tag} on the plain forward"] = t.cpu()
+    for d, nh, b, s in CHUNKED_CASES:
+        # chunked_fwd held to its plain version by tolerance (its bits are
+        # a design's own); the backward pair fed the plain forward's
+        # statistics, bit for bit
+        q, k, v = (torch.randn(b * s, 3 * nh * d, generator=g) * 0.5).to(
+            dev, torch.bfloat16).view(b, s, 3, nh, d).unbind(2)
+        do = (torch.randn(b, s, nh, d, generator=g) * 0.1).to(
+            dev, torch.bfloat16)
+        mask = torch.ones(b, s)
+        mask[:, s // 3: 2 * s // 3], mask[0, s - s // 4:] = 2.0, 0.0
+        mask = mask.to(dev)
+        sc = d ** -0.5
+        for rate in (0.0, 0.1):
+            tag = f"chunked d {d} x {nh} {b} x {s} rate {rate}"
+            drop = site(79, rate, 3) if rate else None
+            if s <= K.MAX_SEQ:
+                o, st = K.sb_attention(q, k, v, mask, sc, drop, True)
+                ro, rst = K.sb_attention_reference(q, k, v, mask, sc, drop,
+                                                   True)
+                held = _held(o, ro) and torch.allclose(st, rst, rtol=1e-5,
+                                                       atol=1e-6)
+                grads = K.sb_attention_bwd(q, k, v, do, mask, rst, sc, drop)
+                names = ("dq", "dk", "dv")
+            else:
+                o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
+                ro, rlse = K.flash_fwd_reference(q, k, v, mask, sc, drop)
+                held = _held(o, ro) and torch.allclose(lse, rlse, rtol=1e-5,
+                                                       atol=1e-5)
+                dq, di = K.flash_bwd_dq(q, k, v, mask, ro, rlse, do, sc, drop)
+                grads = (dq, di, *K.flash_bwd_dkv(q, k, v, mask, rlse, di, do,
+                                                  sc, drop))
+                names = ("dq", "di", "dk", "dv")
+            print(f"chunked_fwd {tag}: {'held' if held else 'NOT held'} to "
+                  "its plain version")
+            res[f"chunked_fwd held to the plain version {tag}"] = (
+                torch.tensor(held))
+            for name, t in zip(names, grads):
+                res[f"{name} {tag} on the plain forward"] = t.cpu()
     torch.save(res, out)
     print(f"{len(res)} cases -> {out}")
+
+
+def chunked_variants(sources) -> None:
+    import ctypes
+    import json
+    import tempfile
+
+    from chip_time_attention import CHUNKED_SHAPES, H
+    from nbest_asr_tpu_torch.ops import _cuda
+    from nbest_asr_tpu_torch.ops import kernels as K
+    from nbest_asr_tpu_torch.ops.kernels import _drop_args
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    out_dir = tempfile.mkdtemp(prefix="chunked_variants_")
+    libs = [os.path.join(out_dir, f"v{i}.so") for i in range(len(sources))]
+    procs = [subprocess.Popen(
+        [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", str(_cuda.CSRC),
+         "-o", so, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for so, src in zip(libs, sources)]
+    for src, pr in zip(sources, procs):
+        log = pr.communicate()[0]
+        if pr.returncode:
+            raise RuntimeError(f"nvcc {src}:\n{log[-4000:]}")
+        spills = re.findall(r"([1-9]\d*) bytes spill stores", log)
+        print(f"{src}: {log.count('Performance Loss')} wgmma notes, spill "
+              f"stores {spills} B")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fns = []
+    for so in libs:
+        lib = ctypes.CDLL(so)
+        lib.nbk_chunked_fwd.argtypes = [p, p, p, i, p, p, p, p] + [i] * 5 + [
+            f, ctypes.c_uint64, i, ctypes.c_uint32, f, i, p]
+        fns.append(lib)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(0)
+    for b, s, nh, d in CHUNKED_SHAPES:
+        q, k, v = (torch.randn(b * s, 3 * H, generator=g) * 0.5).to(
+            dev, torch.bfloat16).view(b, s, 3, nh, d).unbind(2)
+        lengths = torch.randint(3 * s // 4, s + 1, (b, 1), generator=g)
+        mask = (torch.arange(s)[None] < lengths).float().to(dev)
+        o = torch.empty(b, s, nh, d, dtype=torch.bfloat16, device=dev)
+        st = torch.empty(2, b, nh, s, device=dev)
+        tiled, sc = s > K.MAX_SEQ, d ** -0.5
+        for rate in (0.1, 0.0):
+            drop = site(1, rate, 3) if rate else None
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def call(lib):
+                _cuda.check(lib.nbk_chunked_fwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), 3 * H,
+                    mask.data_ptr(), o.data_ptr(), st.data_ptr(),
+                    None if tiled else st.data_ptr() + 4 * b * nh * s,
+                    int(tiled), b, s, nh, d, sc, *_drop_args(drop), stream),
+                    "chunked_fwd")
+
+            want = (K.flash_fwd_reference if tiled else
+                    K.sb_attention_reference)(q, k, v, mask, sc, drop)
+            want = want[0] if isinstance(want, tuple) else want
+            row = {src: {"ms": []} for src in sources}
+            order = ([0, 1, 1, 0] if len(fns) == 2
+                     else list(range(len(fns))) * 2)
+            for j in order:
+                row[sources[j]]["ms"].append(round(
+                    _device_ms(lambda: call(fns[j])), 4))
+            for src, lib in zip(sources, fns):
+                if hasattr(lib, "nbk_prof_read"):
+                    sums = (ctypes.c_ulonglong * 8)()
+                    lib.nbk_prof_read(sums)
+                call(lib)
+                torch.cuda.synchronize()
+                row[src]["max_abs_err"] = round(
+                    (o.float() - want.float()).abs().max().item(), 5)
+                if hasattr(lib, "nbk_prof_read"):
+                    lib.nbk_prof_read(sums)
+                    blocks = b * nh * -(-s // 64)
+                    row[src]["clocks_per_block"] = [
+                        round(x / blocks) for x in sums]
+            print(json.dumps({"shape": f"{b}x{s}x{nh}x{d}", "rate": rate,
+                              "variants": row}), flush=True)
+        del q, k, v, o, st
+
+
+def _device_ms(fn, iters: int = 20) -> float:
+    """Per-call device time of fn, queued behind a sleep (as
+    chip_time_attention.device_ms)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
 
 
 def compare(a_path: str, b_path: str) -> int:
     def bits(t):
         return t.view({torch.bfloat16: torch.int16,
-                       torch.float32: torch.int32}[t.dtype])
+                       torch.float32: torch.int32}.get(t.dtype, t.dtype))
 
     a, b = torch.load(a_path), torch.load(b_path)
     differ = [k for k in a if k not in b
@@ -230,7 +391,8 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
     ap.add_argument("what", choices=("sass", "ptxas", "gelu-dump",
-                                     "attn-dump", "compare"))
+                                     "attn-dump", "compare",
+                                     "chunked-variants"))
     ap.add_argument("args", nargs="+")
     args = ap.parse_args()
     if args.what == "compare":
@@ -245,6 +407,8 @@ def main() -> int:
         ptxas(args.args[0])
     elif args.what == "attn-dump":
         attn_dump(args.args[0])
+    elif args.what == "chunked-variants":
+        chunked_variants(args.args)
     else:
         gelu_dump(args.args[0])
     return 0

@@ -323,11 +323,15 @@ Phases, each fatal on failure:
    ``chunked_bwd_dkv`` (``csrc/attention_chunked.cu``) through both
    wrapper contracts -- the single-block pair (``sb_attention`` /
    ``sb_attention_bwd``) at s = 1, 77, 256, 512 and the tiled trio at s =
-   700, 1024 -- at d = 3, 6, 12, 20, 100, 258, 260, 320, 384, 768 (every
-   copy width: 2 bytes at d = 3, 4 at 6 and 258, 8 at 12, 20, 100 and
-   260, 16 at 320, 384, 768), padded masks on
+   700, 1024 -- at d = 3, 6, 12, 20, 44, 100, 150, 202, 258, 260, 320,
+   384, 768 (every copy width: 2 bytes at d = 3, 4 at 6, 150, 202 and
+   258, 8 at 12, 20, 44, 100 and 260, 16 at 320, 384, 768; every
+   ``chunked_fwd`` instance, ``kernels.CHUNKED_FWD_INSTANCES``: its
+   32-, 64-, 128-, 192- and 384-column slabs with Q resident, and at 768
+   Q streamed), padded masks on
    QKV views and packed masks on standalone tensors, dropout 0 and 0.1,
-   each run launching each chunked kernel once, the backward fed the
+   each run launching each chunked kernel once (the forward on the
+   instance ``kernels.chunked_fwd_instance`` names), the backward fed the
    kernels' own o and statistics, against the plain versions under
    ``Checker``; a one-hot probe on both contracts at every d shows each
    kernel dropping exactly the stream-3 keep bits; then each kernel's
@@ -347,8 +351,9 @@ Phases, each fatal on failure:
    shape, max_position 1024) held to the same step with flash and the FFN
    block on their plain versions.  Every run's chunked launches
    (``kernels.attn_chunked_launches``) equal what its wrappers' counts
-   imply and are above 0.  Prints the phase's seconds and a JSON line of
-   the chunked kernels' times, bounds and launches.
+   imply and are above 0.  Prints the registers and spills of each
+   ``chunked_fwd`` instance, the phase's seconds and a JSON line of the
+   chunked kernels' times, bounds and launches.
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over HBM's 3.35 TB/s and its operations over the
@@ -4051,9 +4056,10 @@ def phase_head_dims(dev, card: str, rig):
 # --------------------------------------------------------------------- #
 
 # (a): the head dims, single-block and tiled lengths the kernels are held
-# at; the head dims take every copy width of load_chunk (2 bytes at odd d,
-# 4 at d % 4 == 2, 8 at d % 8 == 4, 16 at d % 8 == 0 past 256)
-CH_DIMS = (3, 6, 12, 20, 100, 258, 260, 320, 384, 768)
+# at; the head dims take every copy width (2 bytes at odd d, 4 at d % 4 ==
+# 2, 8 at d % 8 == 4, 16 at d % 8 == 0 past 256) and every chunked_fwd
+# instance
+CH_DIMS = (3, 6, 12, 20, 44, 100, 150, 202, 258, 260, 320, 384, 768)
 CH_SB_S, CH_TILED_S = (1, 77, 256, 512), (700, 1024)
 MAX_SB_SEQ = 512      # the single-block route's ceiling (flash SB_MAX_SEQ)
 # (b): BERT-base width with 2 heads of 384, JAX's megakernel route
@@ -4171,6 +4177,7 @@ def check_chunked_kernels(K, check, gen, dev):
                            f"{rate}")
                     drop = site(600 + d + s, rate, 3)
                     n0 = K.attn_chunked_launches()
+                    i0 = K.chunked_fwd_instance_launches()
                     if s > MAX_SB_SEQ:
                         o, lse = K.flash_fwd(q, k, v, m, sc, drop)
                         dq, di = K.flash_bwd_dq(q, k, v, m, o, lse, do, sc,
@@ -4185,6 +4192,12 @@ def check_chunked_kernels(K, check, gen, dev):
                     got = chunked_delta(K, n0)
                     if got != {n: 1 for n in K.CHUNKED}:
                         raise AssertionError(f"chunked {tag}: launches {got}")
+                    inst = K.chunked_fwd_instance_launches()
+                    inst = {n: inst[n] - i0[n] for n in inst}
+                    if inst != {n: int(n == K.chunked_fwd_instance(d))
+                                for n in inst}:
+                        raise AssertionError(f"chunked {tag}: chunked_fwd "
+                                             f"instances {inst}")
                     if s > MAX_SB_SEQ:
                         ro, rlse = K.flash_fwd_reference(q, k, v, m, sc, drop)
                         check.rel(f"chunked_fwd lse {tag}", "chunked_fwd",
@@ -4386,6 +4399,8 @@ def phase_chunked_heads(dev, card: str, rig):
     for line in ptxas_summary(_cuda.build_report):
         if "chunked_" in line:
             log(f"  ptxas {line}")
+    log(f"[chunked] chunked_fwd launches by instance of (a): "
+        f"{K.chunked_fwd_instance_launches()}")
     log("[chunked] device times at (b)'s and (c)'s shapes")
     times = chunked_times(K, dev, gen, card)
     t_a = time.perf_counter() - t0
@@ -6710,8 +6725,9 @@ def main() -> int:
     # dq_wgmma_kernel, dq96_wgmma_kernel and dq64x2_wgmma_kernel <NK,
     # DROP>, dkv_wgmma_kernel
     # <NK, D, DROP>; at d = 192 seg_attn192_wgmma_kernel, dq192_wgmma_kernel
-    # and dkv192_wgmma_kernel <NK, DROP>) must build without spills or such
-    # notes, and so must
+    # and dkv192_wgmma_kernel <NK, DROP>; the chunked forward's
+    # chunked_fwd_kernel <NWG, PW, NC, QRES, DROP, TILED>) must build
+    # without spills or such notes, and so must
     # the gradient row pass's (quant_grad_pass_kernel <T, N>: a whole
     # folded row in registers); but for two d = 64 instances that spilled
     # by the same bytes before the d = 96 ones were added (PERF.md section
@@ -6725,7 +6741,7 @@ def main() -> int:
                  "dq_wgmma_kernel", "dq96_wgmma_kernel",
                  "dq64x2_wgmma_kernel", "dkv_wgmma_kernel",
                  "seg_attn192_wgmma_kernel", "dq192_wgmma_kernel",
-                 "dkv192_wgmma_kernel")
+                 "dkv192_wgmma_kernel", "chunked_fwd_kernel")
     known_spills = ("seg_attn_wgmma_kernelILi256ELi2ELi64E",
                     "dq_wgmma_kernelILi96ELb1EE")
     tma = {n: [line for line in summary if n in line] for n in tma_names}
@@ -6735,7 +6751,8 @@ def main() -> int:
     bad += [line for line in notes
             if line.startswith(("gemm_wgmma.cu", "flash_attention.cu",
                                 "flash_attention_bwd.cu", "seg_attention.cu",
-                                "seg_attention_bwd.cu"))]
+                                "seg_attention_bwd.cu",
+                                "attention_chunked.cu"))]
     if _cuda.build_report and (bad or not all(tma.values())):
         raise AssertionError("the wgmma + TMA kernels, the single-block "
                              "attention pair's wgmma instances or the "

@@ -66,7 +66,10 @@ tables) at BERT's vocab and at XLM-R's with out-of-range type and word
 ids, each as ``[back to back, device]`` ms; and ``embed_ms``: the plain
 embedding's forward and backward at a training micro of 128 x 64, the
 12-layer encoder's training forward and backward there and its serving
-forward at 64 x 64, each as ``[back to back, device]`` ms: back to
+forward at 64 x 64, each as ``[back to back, device]`` ms; and
+``chunked_ms``: the chunked family at 32 x 256 x 2 heads of 384 and at
+32 x 256 and 32 x 1024 x 64 heads of 12 (``CHUNKED_SHAPES``), its
+forward and backward beside SDPA's forward: back to
 back times
 the calls as the host issues them, device queues them behind a sleep so
 that the card runs them without waiting for the host.  With the card's
@@ -90,8 +93,9 @@ H, NH = 768, 12
 # the timed groups (--only): the seg_attention launches and the training
 # attention times, the int8 launches and encoder forwards, the tiled flash
 # kernels (d = 64 and 96), the bf16 GEMMs, the bias-GELU pair and the
-# embedding lookup, the plain embedding and the encoder around it
-GROUPS = ("attention", "int8", "flash", "gemm", "rows", "embed")
+# embedding lookup, the plain embedding and the encoder around it, the
+# chunked family at the head dims no fixed-width instance takes
+GROUPS = ("attention", "int8", "flash", "gemm", "rows", "embed", "chunked")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -543,6 +547,59 @@ def flash_times(K, dev, gen, iters: int, d: int = H // NH,
     return {name: both_ms(fn, iters) for name, fn in calls.items()}
 
 
+# the chunked family's shapes (b, s, heads, d): smoke phase 19's (b), BERT-base
+# width in 2 heads of 384 at 32 x 256 (single-block), and (c), the CLI's
+# --n_head 64 at hidden 768 (64 heads of 12), at 32 x 256 (single-block)
+# and 32 x 1024 (tiled)
+CHUNKED_SHAPES = ((32, 256, 2, 384), (32, 256, 64, 12), (32, 1024, 64, 12))
+
+
+def chunked_times(K, dev, gen, iters: int) -> dict:
+    """The chunked family at ``CHUNKED_SHAPES``: q, k, v views of one QKV
+    buffer, a padded mask, prob dropout 0.1; at s <= 512 the single-block
+    pair (``sb_attention`` with row statistics: ``chunked_fwd``, and
+    ``sb_attention_bwd``: ``chunked_bwd_dq`` and ``chunked_bwd_dkv``),
+    past it the tiled trio (``flash_fwd``, ``flash_bwd_dq``,
+    ``flash_bwd_dkv``), and SDPA's forward on the same operands, mask and
+    dropout rate; [back to back, device] ms, keyed "b x s x heads x d"."""
+    from nbest_asr_tpu_torch.ops.philox import site
+
+    F = torch.nn.functional
+    out = {}
+    for b, s, nh, d in CHUNKED_SHAPES:
+        q, k, v = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
+            dev, torch.bfloat16).view(b, s, 3, nh, d).unbind(2)
+        do = (torch.randn(b, s, nh, d, generator=gen) * 0.1).to(
+            dev, torch.bfloat16)
+        lengths = torch.randint(3 * s // 4, s + 1, (b, 1), generator=gen)
+        mask = (torch.arange(s)[None] < lengths).float().to(dev)
+        drop, sc = site(1, 0.1, 3), 1.0 / d ** 0.5
+        if s <= K.MAX_SEQ:
+            _, st = K.sb_attention(q, k, v, mask, sc, drop, True)
+            calls = {
+                "fwd": lambda: K.sb_attention(q, k, v, mask, sc, drop, True),
+                "bwd": lambda: K.sb_attention_bwd(q, k, v, do, mask, st, sc,
+                                                  drop)}
+        else:
+            o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
+            _, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc, drop)
+            calls = {
+                "fwd": lambda: K.flash_fwd(q, k, v, mask, sc, drop),
+                "bwd_dq": lambda: K.flash_bwd_dq(q, k, v, mask, o, lse, do,
+                                                 sc, drop),
+                "bwd_dkv": lambda: K.flash_bwd_dkv(q, k, v, mask, lse, di, do,
+                                                   sc, drop)}
+        same = mask[:, None, :, None] == mask[:, None, None, :]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        calls["sdpa_fwd"] = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=same, dropout_p=0.1)
+        out[f"{b}x{s}x{nh}x{d}"] = {name: both_ms(fn, iters)
+                                    for name, fn in calls.items()}
+        del q, k, v, do, calls, same, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
@@ -660,6 +717,8 @@ def main() -> int:
         out["rows_ms"] = rows_times(K, dev, gen, args.iters)
     if "embed" in only:
         out["embed_ms"] = embed_times(dev, gen, args.iters)
+    if "chunked" in only and hasattr(K, "attn_chunked_launches"):
+        out["chunked_ms"] = chunked_times(K, dev, gen, args.iters)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -160,6 +160,8 @@ def lib() -> ctypes.CDLL:
         getattr(L, f"nbk_chunked_{name}").restype = ctypes.c_int
     L.nbk_chunked_launches.argtypes = [i]
     L.nbk_chunked_launches.restype = ctypes.c_longlong
+    L.nbk_chunked_fwd_instance_launches.argtypes = [i]
+    L.nbk_chunked_fwd_instance_launches.restype = ctypes.c_longlong
     L.nbk_quantize_rows.argtypes = [p, p, p, i, i, i, p]
     L.nbk_quantize_grad_rows.argtypes = [p, p, p, p, i, i, i, *drop, p]
     L.nbk_gemm_i8_bias_act.argtypes = [p] * 7 + [i, i, i, i, *drop, p]

@@ -73,9 +73,13 @@ and 96, ``seg_attention`` and ``seg_attention_bwd`` at d = 64 (s <= 512),
 and ``seg_attention_bwd_wgmma_launches``.  Every other head dim -- d >
 256, and d % 8 != 0, whose heads leave the 16-byte boundaries those
 instances copy on -- runs the chunked family (``csrc/attention_chunked.cu``:
-``chunked_fwd``, ``chunked_bwd_dq``, ``chunked_bwd_dkv``, the head dim in
-64-column chunks, at any alignment), for both the single-block pair and
-the tiled trio, counted also by ``attn_chunked_launches``.
+``chunked_fwd``, which keeps a slab of up to 384 output columns in
+``wgmma`` accumulators and builds each score once per key tile for all
+of them, its instance by ``chunked_fwd_instance``; ``chunked_bwd_dq``,
+``chunked_bwd_dkv``, the head dim in 64-column chunks; any alignment),
+for both the single-block pair and the tiled trio, counted also by
+``attn_chunked_launches`` (and the forward by
+``chunked_fwd_instance_launches``).
 ``attn_instance`` is the one rule that picks the single-block pair's
 instance: the wrappers pass its choice to the library, which runs that
 instance or refuses.
@@ -957,6 +961,36 @@ def attn_chunked_launches() -> dict:
     lib = _cuda.lib()
     return {name: int(lib.nbk_chunked_launches(i))
             for i, name in enumerate(CHUNKED)}
+
+
+# chunked_fwd's instances (csrc/attention_chunked.cu, fwd_instance), in the
+# order of nbk_chunked_fwd_instance_launches: the columns of the output
+# slab a block keeps in registers, Q resident in shared memory but in the
+# last, which streams Q's panels beside K's and takes its slabs in turn
+CHUNKED_FWD_INSTANCES = ("slab32", "slab64", "slab128", "slab192",
+                         "slab384", "slab384_streamed_q")
+
+
+def chunked_fwd_instance(d: int) -> str:
+    """The ``chunked_fwd`` instance that head dim d (>= 1) runs: the
+    narrowest slab of 32, 64, 128, 192 or 384 columns at least
+    ceil16(d) wide (one warpgroup to 192, two at 384), Q resident; wider
+    heads on the 384-column slab with Q streamed.  The library's own rule
+    (``fwd_instance``), mirrored so that ``chunked_fwd_instance_launches``
+    can be read per head dim."""
+    if d < 1:
+        raise ValueError(f"chunked_fwd: head dim {d}")
+    d16 = -(-d // 16) * 16
+    return next((f"slab{w}" for w in (32, 64, 128, 192, 384) if d16 <= w),
+                "slab384_streamed_q")
+
+
+def chunked_fwd_instance_launches() -> dict:
+    """Launches of ``chunked_fwd`` since the kernels were loaded, per
+    instance of ``CHUNKED_FWD_INSTANCES``: which one ran."""
+    lib = _cuda.lib()
+    return {name: int(lib.nbk_chunked_fwd_instance_launches(i))
+            for i, name in enumerate(CHUNKED_FWD_INSTANCES)}
 
 
 def _column_blocks(t, h: int):

@@ -140,6 +140,9 @@ class _FakeLib:
     def nbk_chunked_launches(self, kernel):
         return self.launches[("chunked", kernel)]
 
+    def nbk_chunked_fwd_instance_launches(self, inst):
+        return self.launches[("chunked_fwd", inst)]
+
 
 @pytest.mark.usefixtures("keep_launch_counts")
 @pytest.mark.parametrize("layout", ["qkv", "bshd"])
@@ -326,3 +329,64 @@ def test_tiled_forward_hands_d96_to_wgmma(monkeypatch, d):
     else:
         with pytest.raises(ValueError, match="no wgmma instance"):
             K.flash_wgmma_launches(d)
+
+
+def _chunked_source() -> str:
+    return (pathlib.Path(K.__file__).parent.parent / "csrc" /
+            "attention_chunked.cu").read_text()
+
+
+def test_chunked_fwd_instance_over_every_head_dim():
+    """``chunked_fwd_instance``, the library's instance rule
+    (``csrc/attention_chunked.cu:fwd_instance``, read here) over every
+    head dim 1 .. 800: the narrowest slab at least ceil16(d) wide with Q
+    resident, and past 384 columns the streamed-Q instance, which takes
+    its 384-column slabs in turn; every instance is reached, and each
+    launch case of ``nbk_chunked_fwd`` is the slab its name says."""
+    src = _chunked_source()
+    body = re.search(r"int fwd_instance\(int d\) \{(.*?)\n\}", src,
+                     re.S).group(1)
+    bounds = [(int(w), int(i)) for w, i in
+              re.findall(r"d16 <= (\d+)\s*\?\s*(\d)", body)]
+    last = int(re.search(r":\s*(\d);", body).group(1))
+    cases = {int(i): (int(nwg), int(pw), int(nc), qres == "true")
+             for i, nwg, pw, nc, qres in re.findall(
+                 r"NBK_CHUNKED_FWD\((\d), (\d), (\d+), (\d), (true|false)\)",
+                 src)}
+    assert sorted(cases) == list(range(len(K.CHUNKED_FWD_INSTANCES)))
+    for i, (nwg, pw, nc, qres) in cases.items():
+        name = K.CHUNKED_FWD_INSTANCES[i]
+        assert name.startswith(f"slab{nwg * pw * nc}"), (i, name)
+        assert qres == (name != "slab384_streamed_q"), (i, name)
+    seen = set()
+    for d in range(1, 801):
+        got = K.chunked_fwd_instance(d)
+        seen.add(got)
+        d16 = -(-d // 16) * 16
+        c_inst = next((i for w, i in bounds if d16 <= w), last)
+        assert got == K.CHUNKED_FWD_INSTANCES[c_inst], d
+        if got == "slab384_streamed_q":
+            assert d16 > 384, d
+        else:
+            w = int(got[4:])
+            # the narrowest slab that holds the head's k16 steps
+            assert d16 <= w and all(d16 > v for v in (32, 64, 128, 192, 384)
+                                    if v < w), d
+    assert seen == set(K.CHUNKED_FWD_INSTANCES)
+    for d, want in ((3, "slab32"), (12, "slab32"), (20, "slab32"),
+                    (44, "slab64"), (100, "slab128"), (150, "slab192"),
+                    (202, "slab384"), (258, "slab384"), (384, "slab384"),
+                    (385, "slab384_streamed_q"),
+                    (768, "slab384_streamed_q")):
+        assert K.chunked_fwd_instance(d) == want, d
+    with pytest.raises(ValueError):
+        K.chunked_fwd_instance(0)
+
+
+def test_chunked_fwd_instance_counters_read_the_library(monkeypatch):
+    """``chunked_fwd_instance_launches`` reads the library's count of each
+    ``chunked_fwd`` instance, in ``CHUNKED_FWD_INSTANCES`` order."""
+    fake = _FakeLib({("chunked_fwd", i): 20 + i for i in range(6)})
+    monkeypatch.setattr(_cuda, "lib", lambda: fake)
+    assert K.chunked_fwd_instance_launches() == {
+        name: 20 + i for i, name in enumerate(K.CHUNKED_FWD_INSTANCES)}

@@ -1820,7 +1820,10 @@ def test_remat_step_is_bit_equal_and_doubles_forward_launches(dev):
 # contracts; select with -k chunked
 # --------------------------------------------------------------------- #
 
-CHUNKED_DIMS = [3, 6, 12, 20, 100, 258, 260, 320, 384, 768]
+# every chunked_fwd instance (kernels.CHUNKED_FWD_INSTANCES): slab32 at 3 ..
+# 20, slab64 at 44, slab128 at 100, slab192 at 150, slab384 at 202 (two
+# of its six panels past d) .. 384, the streamed Q at 768
+CHUNKED_DIMS = [3, 6, 12, 20, 44, 100, 150, 202, 258, 260, 320, 384, 768]
 
 
 def _chunked_delta(before):
@@ -1830,6 +1833,15 @@ def _chunked_delta(before):
 
 def _chunked_heads(d):
     return 4 if d < 64 else 2
+
+
+def _fwd_instance_delta(before, d, n=1):
+    """Assert that ``chunked_fwd`` ran n times since ``before``, all on
+    the instance ``kernels.chunked_fwd_instance(d)`` names."""
+    after = K.chunked_fwd_instance_launches()
+    want = K.chunked_fwd_instance(d)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: n if k == want else 0 for k in after}, (d, want)
 
 
 @pytest.mark.parametrize("views", [False, True])
@@ -1846,11 +1858,12 @@ def test_chunked_single_block_pair(dev, d, s, rate, views):
     q, k, v, do = _bshd_operands(dev, b, s, nh, d, views, seed=d + s + 300)
     mask = _attn_mask(dev, b, s, packed=True)
     drop, sc = _drop(rate, 3), 1.0 / d ** 0.5
-    n0 = K.attn_chunked_launches()
+    n0, i0 = K.attn_chunked_launches(), K.chunked_fwd_instance_launches()
     o, st = K.sb_attention(q, k, v, mask, sc, drop, stats=True)
     grads = K.sb_attention_bwd(q, k, v, do, mask, st, sc, drop)
     torch.cuda.synchronize()
     assert _chunked_delta(n0) == {n: 1 for n in K.CHUNKED}
+    _fwd_instance_delta(i0, d)
     ro, rst = K.sb_attention_reference(q, k, v, mask, sc, drop, stats=True)
     _close(o, ro)
     torch.testing.assert_close(st, rst, rtol=1e-5, atol=1e-6)
@@ -1886,12 +1899,13 @@ def test_chunked_tiled_trio(dev, d, s, rate, views):
     q, k, v, do = _bshd_operands(dev, b, s, nh, d, views, seed=d + s + 400)
     mask = _attn_mask(dev, b, s, packed=True)
     drop, sc = _drop(rate, 3), 1.0 / d ** 0.5
-    n0 = K.attn_chunked_launches()
+    n0, i0 = K.attn_chunked_launches(), K.chunked_fwd_instance_launches()
     o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
     dq, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc, drop)
     dk, dv = K.flash_bwd_dkv(q, k, v, mask, lse, di, do, sc, drop)
     torch.cuda.synchronize()
     assert _chunked_delta(n0) == {n: 1 for n in K.CHUNKED}
+    _fwd_instance_delta(i0, d)
     ro, rlse = K.flash_fwd_reference(q, k, v, mask, sc, drop)
     _close(o, ro)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
@@ -1914,3 +1928,75 @@ def test_chunked_kernels_draw_the_stream3_mask(dev, d, tiled):
     got = chunked_mask_probe(K, dev, d, tiled)
     print(got)
     assert all(n == 0 for n, _ in got.values()), got
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("s", [77, 300, 700])
+@pytest.mark.parametrize("d", [400, 768])
+def test_chunked_fwd_streams_q_past_384_columns(dev, d, s, rate):
+    """Past 384 columns Q does not stay in shared memory: ``chunked_fwd``
+    runs its ``slab384_streamed_q`` instance (Q's panels in the ring
+    beside K's, the block's 384-column slabs in turn: d = 400 ends on a
+    slab of one panel), held to the plain version on both contracts (s
+    <= 512 single-block, with the row statistics; 700 tiled, with lse)."""
+    b, nh = 2, 2
+    assert K.chunked_fwd_instance(d) == "slab384_streamed_q"
+    q, k, v, _ = _bshd_operands(dev, b, s, nh, d, True, seed=d + s + 500)
+    mask = _attn_mask(dev, b, s, packed=True)
+    drop, sc = _drop(rate, 3), 1.0 / d ** 0.5
+    i0 = K.chunked_fwd_instance_launches()
+    if s <= K.MAX_SEQ:
+        o, st = K.sb_attention(q, k, v, mask, sc, drop, stats=True)
+        ro, rst = K.sb_attention_reference(q, k, v, mask, sc, drop,
+                                           stats=True)
+        torch.testing.assert_close(st, rst, rtol=1e-5, atol=1e-6)
+    else:
+        o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
+        ro, rlse = K.flash_fwd_reference(q, k, v, mask, sc, drop)
+        torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    _fwd_instance_delta(i0, d)
+    _close(o, ro)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d,s", [(384, 256), (384, 700), (320, 77),
+                                 (768, 130), (264, 700)])
+def test_chunked_fwd_takes_heads_off_16_byte_boundaries(dev, d, s, rate):
+    """Heads at d % 8 == 0 but off every 16-byte boundary -- q, k, v views
+    of one QKV buffer that starts one element past an aligned address --
+    on the wide instances: the copies go two bytes at a time (the kernel
+    has no TMA path, whose tensor maps need 16-byte aligned rows), held
+    to the plain version on both contracts, the backward pair too."""
+    b, nh = 2, 2
+    h = nh * d
+    buf = _rand(dev, b * s * 3 * h + 8, std=0.5, seed=d + s + 600)
+    q, k, v = buf[1:1 + b * s * 3 * h].view(b, s, 3, nh, d).unbind(2)
+    assert q.data_ptr() % 16 == 2
+    do = _rand(dev, b, s, nh, d, std=0.1, seed=d + s + 601)
+    mask = _attn_mask(dev, b, s, packed=True)
+    drop, sc = _drop(rate, 3), 1.0 / d ** 0.5
+    i0 = K.chunked_fwd_instance_launches()
+    if s <= K.MAX_SEQ:
+        o, st = K.sb_attention(q, k, v, mask, sc, drop, stats=True)
+        grads = K.sb_attention_bwd(q, k, v, do, mask, st, sc, drop)
+        ro, rst = K.sb_attention_reference(q, k, v, mask, sc, drop,
+                                           stats=True)
+        torch.testing.assert_close(st, rst, rtol=1e-5, atol=1e-6)
+        want = K.sb_attention_bwd_reference(q, k, v, do, mask, st, sc,
+                                            drop)
+    else:
+        o, lse = K.flash_fwd(q, k, v, mask, sc, drop)
+        dq, di = K.flash_bwd_dq(q, k, v, mask, o, lse, do, sc, drop)
+        grads = (dq, *K.flash_bwd_dkv(q, k, v, mask, lse, di, do, sc, drop))
+        ro, rlse = K.flash_fwd_reference(q, k, v, mask, sc, drop)
+        torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+        rdq, rdi = K.flash_bwd_dq_reference(q, k, v, mask, o, lse, do, sc,
+                                            drop)
+        want = (rdq, *K.flash_bwd_dkv_reference(q, k, v, mask, lse, di, do,
+                                                sc, drop))
+    torch.cuda.synchronize()
+    _fwd_instance_delta(i0, d)
+    _close(o, ro)
+    for got, w in zip(grads, want):
+        _close_rel(got, w)
