@@ -150,7 +150,8 @@ ATTN_CASES = ([(64, 12, 4, s, "qkv") for s in (64, 96, 130, 160, 256, 300,
               + [(64, 12, 4, s, "bshd") for s in (160, 256)]
               + [(96, 8, 4, s, "qkv") for s in (64, 96, 160, 256, 300,
                                                 512)]
-              + [(96, 8, 4, 256, "bshd"), (192, 4, 4, 300, "qkv")]
+              + [(96, 8, 4, 256, "bshd"), (192, 4, 4, 256, "qkv"),
+                 (184, 4, 4, 300, "qkv")]
               + [(32, 8, 4, 160, "bshd"), (80, 8, 4, 160, "qkv"),
                  (128, 6, 4, 256, "qkv"), (136, 4, 4, 256, "qkv")])
 

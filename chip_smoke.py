@@ -276,23 +276,28 @@ Phases, each fatal on failure:
    at 4 x 200 (standalone tensors) and 8 x 512, at d = 48, 80 and 88
    (the padded 64- and 96-wide mma.sync instances), and at d = 192 (the
    CLI's 4 heads) at each training micro (QKV views and standalone
-   tensors) and at 4 x 300; the tiled trio at d = 96 (32 x 1024 x 8),
+   tensors) and at 4 x 300 and 16 x 512; the tiled trio at d = 96 (32 x
+   1024 x 8),
    192, 256 and 48 (8 x 1024) and 88 (2 x 1024 x 8, on the 96-wide
    mma.sync trio); padded and packed masks, dropout 0 and
    0.1, against their plain versions under ``Checker``.  Each
    single-block launch runs on the instance ``kernels.attn_instance``
-   names: the d = 96 and d = 192 pairs on their wgmma kernels at s <=
-   256, with ``seg_attention_wgmma_launches(d)`` and
+   names: the d = 96 pair on its wgmma kernels at s <= 256 and the d =
+   192 pair at every s (past 256 keys its streaming instance), with
+   ``seg_attention_wgmma_launches(d)`` and
    ``seg_attention_bwd_wgmma_launches(d)`` rising by exactly their
-   launches, and on mma.sync past 256 and at d = 48, 80, 88; the tiled
+   launches, and on mma.sync at d = 96 past 256, at d = 48, 80, 88 and at
+   d = 184 past 256 (the zero-padded 192-wide instance); the tiled
    trio on its wgmma + TMA kernels at d = 96 (``flash_wgmma_launches(96)``
    rising by one launch each), every other tiled head dim (the padded 88
    on the 96-wide mma.sync trio among them) on no wgmma kernel.  (b) Device
    ms of the five at d = 96 (the pair at 32 x 256, the trio at 32 x 1024,
-   8 heads) and of the pair at d = 192 (32 x 256 x 4 heads), and of the
-   instances (a) checks that no configuration runs -- the trio at d = 192
-   and 256 (8 x 1024), the pair at d = 96 past 256 keys (8 x 512) and at
-   d = 192 (4 x 300) -- beside the plain versions, SDPA's forward or
+   8 heads) and of the pair at d = 192 (32 x 256 x 4 heads; past 256
+   keys 16 x 512, 24 x 300 and 4 x 300), and of the instances (a) checks
+   that no configuration runs -- the trio at d = 192 and 256 (8 x 1024),
+   the pair at d = 96 past 256 keys (8 x 512), the pair at d = 184 past
+   256 keys (4 x 300 x 4 heads) -- beside the plain
+   versions, SDPA's forward or
    backward alone on the same operands and the bounds.  (c)
    The quality tools' encoder (hidden 768, 8 heads of 96, intermediate
    3072, 4 layers, bf16, dropout 0.1, seed-0 weights) with the CLI's
@@ -306,16 +311,22 @@ Phases, each fatal on failure:
    CLI's from-scratch geometry (4 heads of 192) under ``--no_fused_attn``,
    one counted step at 256 held to the plain step, and its default itself
    (6 layers, both megakernels, one micro a step), likewise, every
-   single-block launch of both on the d = 192 wgmma counters; the tiled
+   single-block launch of both on the d = 192 wgmma counters; that
+   default on packed 512-token rows (one 16 x 512 packed micro a step,
+   dropout 0.1: every single-block launch on the d = 192 wgmma pair past
+   256 keys, which streams K and V), then at dropout 0 held to the same
+   step with both blocks on their kernels' plain versions; the tiled
    leg, the same encoder at 48 x 1024
    (max_position 1024; at 32 rows JAX's ``_flash_preferred`` leaves 8
    heads to the plain path), one counted step on the tiled kernels held
    to the same step on their plain versions, all three tiled kernels on
    the d = 96 wgmma + TMA kernels (``flash_wgmma_launches(96)`` rising by
    exactly 4 launches each).  Prints step ms and a JSON line of the d = 96
-   and 192 kernels' times, bounds and launches a step ("none" for the
-   instances no configuration runs), and the d = 96 tiled forward's
-   registers and spills beside its time.
+   and 192 kernels' times, bounds and launches a step (the d = 192 pair
+   at 16 x 512: the packed step's; "none" for the shapes no step of this
+   phase runs: the d = 192 pair at 24 x 300 and 4 x 300, and the
+   instances no configuration runs, d = 184 past 256 keys among them),
+   and the d = 96 tiled forward's registers and spills beside its time.
 
 19. The chunked attention family's head dims (``phase_chunked_heads``,
    run after phase 18): d > 256 and d % 8 != 0, which no fixed-width
@@ -557,7 +568,9 @@ CLI_D, CLI_NH, CLI_LAYERS_DEFAULT = 192, 4, 6
 # micro of the 8192-token budget, a ragged length on standalone tensors)
 # and on its mma.sync instance past 256; d = 48, 80 and 88 on the padded
 # 64- and 96-wide mma.sync instances; d = 192 on its wgmma instances
-# (each training micro, both layouts) and its mma.sync instance past 256
+# (each training micro, both layouts) and past 256 keys on its streaming
+# wgmma pair (4 x 300, and the packed rows' 16 x 512 micro); d = 184 past
+# 256 keys on the zero-padded 192-wide mma.sync instance (d = 136 - 184)
 HD_SB_SHAPES = ((128, 64, HD_NH, HD, True), (80, 96, HD_NH, HD, True),
                 (48, 160, HD_NH, HD, True), (32, 256, HD_NH, HD, True),
                 (4, 200, HD_NH, HD, False), (8, 512, HD_NH, HD, True),
@@ -565,7 +578,9 @@ HD_SB_SHAPES = ((128, 64, HD_NH, HD, True), (80, 96, HD_NH, HD, True),
                 (32, 256, HD_NH, 88, False),
                 (128, 64, CLI_NH, CLI_D, True), (80, 96, CLI_NH, CLI_D, False),
                 (48, 160, CLI_NH, CLI_D, True),
-                (32, 256, CLI_NH, CLI_D, False), (4, 300, CLI_NH, CLI_D, True))
+                (32, 256, CLI_NH, CLI_D, False), (4, 300, CLI_NH, CLI_D, True),
+                (LONG_BWD_MICRO[512], 512, CLI_NH, CLI_D, True),
+                (4, 300, CLI_NH, 184, True))
 HD_TILED_SHAPES = ((LONG_BATCH, LONG_SEQ, HD_NH, HD), (8, 1024, 4, 192),
                    (8, 1024, 3, 256), (8, 1024, 16, 48),
                    (2, 1024, HD_NH, 88))
@@ -3733,14 +3748,23 @@ def pair_times(K, dev, gen, card: str, shapes):
 
 # phase 18 (b)'s timed shapes (b, s, heads, d) and the name suffix of
 # their rows: the d = 96 five and the d = 192 pair where configurations
-# run them, then the instances phase 18 (a) checks that none runs
+# run them (the d = 192 pair past 256 keys, the streaming instance, at
+# the packed rows' 16 x 512 micro, 24 x 300 and 4 x 300), then the
+# instances phase 18 (a) checks that none runs (d = 184 past 256 keys is
+# the 192-wide mma.sync instance)
 HD_TIMED = (((32, 256, HD_NH, HD), f" d{HD}"),
             ((LONG_BATCH, LONG_SEQ, HD_NH, HD), f" d{HD}"),
             ((32, 256, CLI_NH, CLI_D), f" d{CLI_D}"),
+            ((LONG_BWD_MICRO[512], 512, CLI_NH, CLI_D), f" d{CLI_D} 16x512"),
+            ((LONG_BWD_MICRO[300], 300, CLI_NH, CLI_D), f" d{CLI_D} 24x300"),
+            ((4, 300, CLI_NH, CLI_D), f" d{CLI_D} 4x300"),
             ((8, 1024, 4, 192), " d192 8x1024"),
             ((8, 1024, 3, 256), " d256 8x1024"),
             ((8, 512, HD_NH, HD), f" d{HD} 8x512"),
-            ((4, 300, CLI_NH, CLI_D), f" d{CLI_D} 4x300"))
+            ((4, 300, CLI_NH, 184), " d184 4x300"))
+# the row of the d = 192 pair past 256 keys that a step runs: the packed
+# 16 x 512 micro's
+HD_STEP512 = f" d{CLI_D} 16x512"
 
 
 def head_dim_times(K, dev, gen, card: str):
@@ -3837,8 +3861,8 @@ def phase_head_dims(dev, card: str, rig):
 
     gen = torch.Generator().manual_seed(18)
     check = Checker()
-    log(f"[head dims] single-block kernels at d = {HD}, 48, 80, 88 and "
-        f"{CLI_D}")
+    log(f"[head dims] single-block kernels at d = {HD}, 48, 80, 88, 184 "
+        f"and {CLI_D}")
     check_sb_pair(K, check, gen, dev, HD_SB_SHAPES, 400)
     log(f"[head dims] tiled kernels at d = {HD}, 192, 256 and 48")
     check_tiled_trio(K, check, gen, dev, HD_TILED_SHAPES, 500)
@@ -3986,7 +4010,60 @@ def phase_head_dims(dev, card: str, rig):
         raise AssertionError(f"d = {CLI_D}: the single-block launches are "
                              f"not all on the d = {CLI_D} wgmma pair: {got}, "
                              f"expected {want}")
-    del p_cli
+    # the same default on packed 512-token rows (--pack_examples
+    # --pack_capacity 512): one 16 x 512 packed micro a step, dropout 0.1,
+    # every single-block launch on the d = 192 wgmma pair past 256 keys
+    # (K and V streamed); at dropout 0 the same micro against the step
+    # with both blocks on their kernels' plain versions
+    b512 = LONG_BWD_MICRO[512]
+    micro512 = long_micros(dstc2_like_memory(), dev, seed=20, batch=b512,
+                           seq=512)[1]
+    idx512 = np.arange(b512)[None]
+    opt = make_optimizer(OptimizerConfig(**okw), p_cli)
+    step512 = make_train_step(cfg_cli, LossConfig(), opt, hier, n_accum=1,
+                              dual_stream=False)
+    state512 = TrainState(p_cli, opt.init(p_cli), 0)
+    step512(state512, micro512, idx512, gen)    # warm-up, not counted
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    w512 = attn_wgmma_counts(K)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    _, stats = step512(state512, micro512, idx512, gen)
+    e1.record()
+    e1.synchronize()
+    parts = {k: float(v) for k, v in stats["loss"].items()}
+    if not all(np.isfinite(v) for v in parts.values()):
+        raise AssertionError(f"d = {CLI_D}, packed {b512} x 512: loss "
+                             f"{parts}")
+    got = dict(_cuda.launch_counts)
+    hold_counts(f"d {CLI_D}, {CLI_LAYERS_DEFAULT} layers, one packed "
+                f"{b512} x 512 micro at dropout {DROPOUT}", got,
+                {k: PER_LAYER_TRAIN.get(k, 0) * CLI_LAYERS_DEFAULT
+                 for k in got})
+    step512_counts = {k: got[k] for k in ("seg_attention",
+                                          "seg_attention_bwd")}
+    counts = {k: counts[k] + got[k] for k in counts}
+    d512 = attn_wgmma_delta(K, w512)
+    want = {k: {64: 0, 96: 0, CLI_D: step512_counts[k]}
+            for k in step512_counts}
+    want["flash_unchanged"] = True
+    log(f"[head dims] the CLI's from-scratch default, packed {b512} x 512: "
+        f"step {e0.elapsed_time(e1):.2f} ms, "
+        f"{b512 / (e0.elapsed_time(e1) / 1e3):.1f} rows/s, loss {parts}; "
+        f"wgmma launches {d512} [{card}]")
+    if d512 != want or not all(step512_counts.values()):
+        raise AssertionError(f"d = {CLI_D}, packed {b512} x 512: the "
+                             "single-block launches are not all on the d = "
+                             f"{CLI_D} wgmma pair: {d512}, expected {want}")
+    got = gate_step("head dims", f"d {CLI_D}, the packed {b512} x 512 "
+                    "micro, against the same step with both blocks on "
+                    "their kernels' plain versions", cfg_cli, hier, p_cli,
+                    enc_cli, enc_cli, micro512, idx512, 1,
+                    blocks_on_plain_versions)
+    counts = {k: counts[k] + got[k] for k in counts}
+    del p_cli, state512, step512, opt
 
     # the tiled leg: the same encoder at 48 x 1024 (max_position 1024)
     enc_long = dataclasses.replace(enc, max_position=LONG_SEQ)
@@ -4015,8 +4092,10 @@ def phase_head_dims(dev, card: str, rig):
     leg_counts = {k: got[k] for k in K.FLASH_WGMMA}
     counts = {k: counts[k] + got[k] for k in counts}
     def launches_a_step(name):
+        if name.endswith(HD_STEP512):
+            return step512_counts[name.split()[0]]
         if len(name.split()) > 2:
-            return "none"           # no configuration runs these
+            return "none"           # no step of this phase runs these
         if name.endswith(f" d{CLI_D}"):
             return cli_step[name.split()[0]]
         return HD_LAYERS * N_ACCUM if name.startswith("seg") else HD_LAYERS
@@ -4026,6 +4105,9 @@ def phase_head_dims(dev, card: str, rig):
             c for c in HD_TIMED if name.endswith(c[1])
             and (c[0][1] > 512) == name.startswith("flash"))
         shape = f"{b} x {s} x {nh} heads of {d}"
+        if name.endswith(HD_STEP512):
+            return (f"{shape}, a step of the CLI's from-scratch default on "
+                    f"one packed micro")
         if len(name.split()) > 2:
             return shape
         if d == CLI_D:
@@ -4045,6 +4127,11 @@ def phase_head_dims(dev, card: str, rig):
     # tiled trio's at 32 x 1024 x 8 heads and its launches in the tiled leg
     rows = {name: (*times[name], n192[name.split()[0]])
             for name in times if name.endswith(f" d{CLI_D}")}
+    # the d = 192 pair past 256 keys: its time at the packed rows' 16 x
+    # 512 micro, its launches in that run
+    rows.update({name: (*times[name], step512_counts[name.split()[0]])
+                 for name in times
+                 if name.endswith(HD_STEP512)})
     rows.update({name: (*times[name], leg_counts[name.split()[0]])
                  for name in times if name.startswith("flash")
                  and name.endswith(f" d{HD}")})
@@ -5979,10 +6066,11 @@ DEVICE_KERNELS = {
     "layer_norm": ("layer_norm_kernel",),
     "ffn_bwd_rows": ("ffn_bwd_rows_kernel",),
     "seg_attention": ("seg_attn_wgmma_kernel", "seg_attn192_wgmma_kernel",
-                      "seg_attention_kernel"),
+                      "seg_attn192_long_kernel", "seg_attention_kernel"),
     "seg_attention_bwd": ("dq_wgmma_kernel", "dq96_wgmma_kernel",
                           "dkv_wgmma_kernel", "dq192_wgmma_kernel",
-                          "dkv192_wgmma_kernel", "dq_kernel", "dkv_kernel"),
+                          "dq192_long_kernel", "dkv192_wgmma_kernel",
+                          "dq_kernel", "dkv_kernel"),
 }
 DSTC2_VALUES = {
     "food": ["chinese", "indian", "thai", "italian", "modern european",
@@ -6725,7 +6813,9 @@ def main() -> int:
     # dq_wgmma_kernel, dq96_wgmma_kernel and dq64x2_wgmma_kernel <NK,
     # DROP>, dkv_wgmma_kernel
     # <NK, D, DROP>; at d = 192 seg_attn192_wgmma_kernel, dq192_wgmma_kernel
-    # and dkv192_wgmma_kernel <NK, DROP>; the chunked forward's
+    # and dkv192_wgmma_kernel <NK, DROP>, past 256 keys
+    # seg_attn192_long_kernel and dq192_long_kernel <DROP>; the chunked
+    # forward's
     # chunked_fwd_kernel <NWG, PW, NC, QRES, DROP, TILED>) must build
     # without spills or such notes, and so must
     # the gradient row pass's (quant_grad_pass_kernel <T, N>: a whole
@@ -6741,7 +6831,8 @@ def main() -> int:
                  "dq_wgmma_kernel", "dq96_wgmma_kernel",
                  "dq64x2_wgmma_kernel", "dkv_wgmma_kernel",
                  "seg_attn192_wgmma_kernel", "dq192_wgmma_kernel",
-                 "dkv192_wgmma_kernel", "chunked_fwd_kernel")
+                 "dkv192_wgmma_kernel", "seg_attn192_long_kernel",
+                 "dq192_long_kernel", "chunked_fwd_kernel")
     known_spills = ("seg_attn_wgmma_kernelILi256ELi2ELi64E",
                     "dq_wgmma_kernelILi96ELb1EE")
     tma = {n: [line for line in summary if n in line] for n in tma_names}
@@ -6875,6 +6966,8 @@ def main() -> int:
         "[train] rows the int8 "
         "training runs alone, the d192 rows phase 18's two d = 192 runs "
         "(--no_fused_attn and the CLI's from-scratch default) alone, the "
+        "d192 16x512 rows phase 18's packed 16 x 512 step of the CLI's "
+        "from-scratch default alone, the "
         "flash d96 rows phase 18's tiled leg (48 x 1024) alone, the "
         "[d64 s512] row the seq-512 BERT-base steps alone, the chunked_* "
         "rows phase 19's runs at their shape alone (2 heads of 384: (b)'s "
@@ -6889,7 +6982,8 @@ def main() -> int:
         f"layer ({LONG_BATCH} x {LONG_SEQ}, d 64, dropout 0.1) for the "
         "flash_* rows, a training layer at 8192 rows (one micro for "
         "embed_lookup, f32 tables) for the five row kernels, 32 x 256 x 4 "
-        "heads of 192 (dropout 0.1) for the d192 rows, 32 x 1024 x 8 heads "
+        "heads of 192 (dropout 0.1) for the d192 rows, 16 x 512 x 4 heads "
+        "of 192 (dropout 0.1) for the d192 16x512 rows, 32 x 1024 x 8 heads "
         "of 96 (dropout 0.1) for the flash d96 rows, 16 x 512 (d 64, "
         "dropout 0.1) for the [d64 s512] row, 32 x 256 x 2 heads of 384, "
         "32 x 256 and 32 x 1024 x 64 heads of 12 (dropout 0.1; bound: the "

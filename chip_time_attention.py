@@ -23,7 +23,8 @@ beside it, the d = 128 attention pair with SDPA beside it and
 ``layer_norm_rows`` beside ``F.layer_norm``; ``head_dim_times``: the
 single-block pair at d = 96 (8 heads) and at d = 192 (4 heads) at every
 bucket's training micro, with dropout and statistics, SDPA's
-forward and backward alone beside it (``d96_ms``, ``d192_ms``); and,
+forward and backward alone beside it (``d96_ms``, ``d192_ms``; at d = 192
+also past 256 keys: 16 x 512 padded and packed, 24 x 300, 4 x 300); and,
 where it has
 them,
 ``quantize_rows`` of a (64 x 256, 768) and a (64 x 256, 3072) bf16 block
@@ -363,6 +364,26 @@ TRAIN_MICRO = {64: 128, 96: 80, 160: 48, 256: 32}
 # d = 64 past 256 keys: one micro of the token budget at BERT's 512
 # positions, and lengths past the forward's first 256-key score window
 LONG_MICRO = {512: 16, 300: 24, 384: 21}
+# d = 192 past 256 keys (the CLI's from-scratch default on packed 512-token
+# rows, long buckets, long N-best rows): LONG_MICRO's 512 and 300 micros,
+# padded (rows of 3 s / 4 to s real tokens) and at 512 packed (three
+# segments a row), and 4 x 300 -> (b, s, mask kind, key)
+LONG_D192 = ((LONG_MICRO[512], 512, "padded", "16x512"),
+             (LONG_MICRO[512], 512, "packed", "16x512 packed"),
+             (LONG_MICRO[300], 300, "padded", "24x300"),
+             (4, 300, "padded", "4x300"))
+
+
+def long_mask(b: int, s: int, kind: str, gen, dev):
+    """(b, s) segment ids: padded rows of 3 s / 4 to s real tokens, or
+    packed rows of three segments cut at random points."""
+    if kind == "padded":
+        lengths = torch.randint(3 * s // 4, s + 1, (b, 1), generator=gen)
+        return (torch.arange(s)[None] < lengths).float().to(dev)
+    cuts = torch.sort(torch.randint(1, s, (b, 2), generator=gen)).values
+    pos = torch.arange(s)[None]
+    return (1.0 + (pos >= cuts[:, :1]).float()
+            + (pos >= cuts[:, 1:]).float()).to(dev)
 
 
 def sdpa_times(qkv, dctx, mask, nh: int, iters: int) -> dict:
@@ -410,8 +431,7 @@ def train_bwd_times(K, dev, gen, drop, iters: int) -> dict:
         dctx = (torch.randn(b * s, H, generator=gen) * 0.5).to(
             dev, torch.bfloat16)
         if s in LONG_MICRO:
-            lengths = torch.randint(3 * s // 4, s + 1, (b, 1), generator=gen)
-            mask = (torch.arange(s)[None] < lengths).float().to(dev)
+            mask = long_mask(b, s, "padded", gen, dev)
         else:
             mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
             mask[:, 0] = 1.0
@@ -464,20 +484,27 @@ def head_dim_times(K, dev, gen, iters: int) -> dict:
     and row statistics, ``sb_attention_bwd``, SDPA's forward and its
     backward alone (autograd.grad over a retained forward) on the same q,
     k, v views of one QKV buffer, padded mask and dropout rate; [back to
-    back, device] ms, keyed "d96_ms" / "d192_ms" and then by seq."""
+    back, device] ms, keyed "d96_ms" / "d192_ms" and then by seq; the d =
+    192 pair past 256 keys (``LONG_D192``) keyed "16x512", "16x512
+    packed", "24x300", "4x300"."""
     from nbest_asr_tpu_torch.ops.philox import site
 
     F = torch.nn.functional
     out = {"d96_ms": {}, "d192_ms": {}}
-    cases = [(d, H // d, b, s) for d in (96, 192)
-             for s, b in TRAIN_MICRO.items()]
-    for d, nh, b, s in cases:
+    cases = ([(d, H // d, b, s, None, s) for d in (96, 192)
+              for s, b in TRAIN_MICRO.items()]
+             + [(192, H // 192, b, s, kind, key)
+                for b, s, kind, key in LONG_D192])
+    for d, nh, b, s, kind, key in cases:
         q, k, v = (torch.randn(b * s, 3 * H, generator=gen) * 0.5).to(
             dev, torch.bfloat16).view(b, s, 3, nh, d).unbind(2)
         do = (torch.randn(b, s, nh, d, generator=gen) * 0.1).to(
             dev, torch.bfloat16)
-        mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
-        mask[:, 0] = 1.0
+        if kind is None:
+            mask = (torch.rand(b, s, generator=gen) > 0.2).float().to(dev)
+            mask[:, 0] = 1.0
+        else:
+            mask = long_mask(b, s, kind, gen, dev)
         drop, sc = site(1, 0.1, 3), 1.0 / d ** 0.5
         _, st = K.sb_attention(q, k, v, mask, sc, drop, True)
         same = mask[:, None, :, None] == mask[:, None, None, :]
@@ -494,8 +521,8 @@ def head_dim_times(K, dev, gen, iters: int) -> dict:
                 *leaves, attn_mask=same, dropout_p=0.1),
             "sdpa_bwd": lambda: torch.autograd.grad(sdpa_o, leaves, go,
                                                     retain_graph=True)}
-        out[f"d{d}_ms"][s] = {name: both_ms(fn, iters)
-                              for name, fn in calls.items()}
+        out[f"d{d}_ms"][key] = {name: both_ms(fn, iters)
+                                for name, fn in calls.items()}
         del sdpa_o, leaves
     return out
 

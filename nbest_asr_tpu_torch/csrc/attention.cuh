@@ -244,6 +244,16 @@ constexpr int QTILE = QT * WD * 2;  // bytes of a swizzled 64 x 64 tile
 // the second consumer warpgroup's Q tiles), while the 64-byte panel costs
 // one more descriptor mode and an m64n32 product beside each m64n64.
 
+// The d = 192 pair past 256 keys (seg_attention.cu's forward and
+// seg_attention_bwd.cu's dq kernel) streams K and V a 64-row tile (three
+// 128-byte-swizzled panels) at a time; the forward's keep table and the
+// dq kernel's, which rebuilds the forward's bits, share one row stride.
+struct Long192 {
+  static constexpr int MAXK = 512;            // keys a row holds at most
+  static constexpr int TB = QT * 192 * 2;     // bytes of a 64-row tile
+  static constexpr int KSTRIDE = MAXK / 32 | 1;
+};
+
 // p, made opaque to the compiler: the wgmma descriptors built from it
 // are computed where they are used instead of once for a whole tile loop
 // or for two sweeps, where dozens of them held in registers beside a

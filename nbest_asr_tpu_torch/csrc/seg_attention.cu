@@ -36,10 +36,13 @@
 //   d = 192, S <= 256           the d = 192 wgmma kernel (the CLI's
 //                               from-scratch 4 heads of 192, every DSTC2
 //                               bucket)
+//   d = 192, 256 < S <= 512     the d = 192 streaming wgmma kernel (that
+//                               default on packed 512-token rows, long
+//                               buckets and N-best rows)
 //   every other d <= 256 with   the mma.sync kernel, on its instance of
 //   d % 8 == 0                  width 32, 64, 96, 128, 192 or 256 (flash's
-//                               d = 32 single-block route, d = 96 and 192
-//                               past 256, the wide heads); a d between
+//                               d = 32 single-block route, d = 96 past
+//                               256, the wide heads); a d between
 //                               two widths runs on the wider, its columns
 //                               past d zero-filled on load and never
 //                               stored (attention.cuh, instance_width):
@@ -50,15 +53,20 @@
 // shape (cudaErrorInvalidValue).  Shared memory bounds the wgmma rows: a
 // block keeps its head's K and V, which at S = 512 take 128 KB at d = 64
 // but 192 KB at d = 96 and 384 KB at d = 192 (and at S = 256 already 192
-// KB at d = 192, beside which one Q tile fits, not two a warpgroup); d =
-// 128 stays on the mma.sync kernel (no DSTC2 configuration runs it).
+// KB at d = 192, beside which one Q tile fits, not two a warpgroup), so
+// past 256 keys the d = 192 kernel streams them instead; d = 128 stays on
+// the mma.sync kernel (no DSTC2 configuration runs it).
 //
 // The d = 192 wgmma kernel is the same per tile, on three 128-byte-
 // swizzled panels (columns 0-63, 64-127, 128-191: 12 k16 steps a score,
 // 3 m64n64k16 P.V products a k16 step), with K and V resident (192 KB at
 // S = 256) and one Q buffer that the block's two warpgroups take turns on
 // (seg_attn192_wgmma_kernel): one block of eight warps an SM, whose
-// softmax instructions' latency, not their count, sets its pace.
+// softmax instructions' latency, not their count, sets its pace.  Past
+// 256 keys (seg_attn192_long_kernel) a block is one warpgroup that keeps
+// only its Q tile and streams K and V a 64-key tile at a time through a
+// two-slot K ring and a V slot, sweeping the keys twice (the row max and
+// sum, then the probs and P.V), two blocks an SM.
 //
 // The wgmma kernel.  A block owns one (element, head) and a run of its
 // 64-query tiles; it copies that head's whole K and V (S <= 512 keys at d
@@ -593,6 +601,182 @@ int launch_wgmma192(const void* q, const void* k, const void* v, int ld,
   return (int)e;
 }
 
+// ---------------------------------------------------------------------- //
+// The wgmma kernel at d = 192, 256 < S <= 512: K and V streamed
+// ---------------------------------------------------------------------- //
+
+// A block's shared memory past 256 keys: 1024-byte alignment slack, the Q
+// tile, a ring of two 64-key K tiles, one V tile (each 64 rows of three
+// 128-byte-swizzled panels, 24 KB), the key segment ids, the tile's keep
+// table: 103.25 KB, two blocks an SM.
+constexpr int LONG192_SMEM = 1024 + 4 * Long192::TB + Long192::MAXK * 4 +
+                             QT * Long192::KSTRIDE * 4;
+
+// One block (one warpgroup): (element, head) = (blockIdx.z, blockIdx.y),
+// query tiles blockIdx.x * tpb .. (+ tpb, at most ceil(S / 64)).  K and V
+// (384 KB at S = 512) stay in global memory and pass through shared memory
+// a 64-key tile at a time, each read twice a query tile.  Sweep 1 issues
+// S = Q K^T per 64-key chunk (issue_scores at W = 64: the 12 k16 steps of
+// the S <= 256 kernel's chunk, whose bits the backward rebuilds) and
+// reduces the row max and sum across chunks, the sum rescaled as the max
+// grows (l exp(m0 - m) + the chunk's exps); the chunk's keep bits are
+// drawn while its product runs.  Sweep 2 issues each chunk's scores
+// again, normalises them with the row's max and sum, drops them, rounds
+// them to bf16 and feeds them from registers to o += P V (probs_times_v).
+// A step's next K tile (and in sweep 2 its V tile) is copied while its
+// score product runs; the SM's other block fills the waits.  A step's
+// barrier covers the ring: each step waits for its products, so every
+// slot a copy refills was read in the step before.
+template <bool DROP>
+__global__ void __launch_bounds__(128, 2)
+    seg_attn192_long_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, int ld,
+                            const float* __restrict__ mask,
+                            bf16* __restrict__ ctx, float* __restrict__ stats,
+                            int S, int tpb, float sm_scale, DropParams drop) {
+  constexpr int D = 192;
+  using Sh = Long192;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sQ =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sQ + Sh::TB;  // two slots
+  unsigned char* sV = sK + 2 * Sh::TB;
+  float* sM = reinterpret_cast<float*>(sV + Sh::TB);
+  unsigned* keep = reinterpret_cast<unsigned*>(sM + Sh::MAXK);
+
+  const int head = blockIdx.y, elem = blockIdx.z, n_heads = gridDim.y;
+  const int t0 = blockIdx.x * tpb;
+  const int t_end = min((S + QT - 1) / QT, t0 + tpb);
+  const int n_kt = (S + QT - 1) / QT;
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * n_heads + head) * S;  // Philox row of query 0
+  const int H = n_heads * D;
+  const size_t off = row0 * ld + head * D;
+  const bf16* k_src = k + off;
+  const bf16* v_src = v + off;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ra = (tid >> 5) * 16 + g;  // this thread's first row of a tile
+  const size_t bhs = (size_t)gridDim.z * n_heads * S;
+
+  // the key segment ids (NaN past S: such a key matches no query)
+  for (int j = tid; j < n_kt * QT; j += 128)
+    sM[j] = j < S ? mask[row0 + j] : __int_as_float(0x7fc00000);
+  float sc[QT / 2], o[D / 2];
+  for (int t = t0; t < t_end; ++t) {
+    const int q0 = t * QT, qa = q0 + ra, qb = qa + 8;
+    copy_rows<D>(sQ, q + off, ld, q0, QT, S, tid, 128);
+    copy_rows<D>(sK, k_src, ld, 0, QT, S, tid, 128);
+    cp_async_commit();
+    float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
+    float qma = 0.f, qmb = 0.f;
+    for (int u = 0; u < 2 * n_kt; ++u) {
+      const bool second = u >= n_kt;
+      const int c = second ? u - n_kt : u;
+      // K of step u has landed, and every thread is past step u - 1
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+      if (u == 0) {  // a query row past S matches no key; never stored
+        qma = qa < S ? sM[qa] : __int_as_float(0x7fc00000);
+        qmb = qb < S ? sM[qb] : __int_as_float(0x7fc00000);
+      }
+      if (second)  // this chunk's V, read after the softmax
+        copy_rows<D>(sV, v_src, ld, c * QT, QT, S, tid, 128);
+      cp_async_commit();
+      if (u + 1 < 2 * n_kt)  // the next step's K into the other slot
+        copy_rows<D>(sK + ((u + 1) & 1) * Sh::TB, k_src, ld,
+                     (u + 1 < n_kt ? u + 1 : u + 1 - n_kt) * QT, QT, S, tid,
+                     128);
+      cp_async_commit();
+      issue_scores<QT, D>(sc, fresh(sQ), fresh(sK) + (u & 1) * Sh::TB,
+                          nullptr, QT * 128);
+      if (DROP && !second)  // the chunk's keep bits while the product runs
+        build_keep(keep + 2 * c, QT, 2, Sh::KSTRIDE, drop, prow0 + q0, c * QT,
+                   tid, 128);
+      wgmma_wait<0>();
+      fence_acc(sc);
+      if (!second) {
+        float ca = -INFINITY, cb = -INFINITY;
+        mask_scores<QT>(sc, sM + c * QT, qma, qmb, sm_scale, t4, ca, cb);
+        ca = fmaxf(ma, quad_max(ca));
+        cb = fmaxf(mb, quad_max(cb));
+        la *= expf(ma - ca);  // 0 at the first chunk (m = -inf, l = 0)
+        lb *= expf(mb - cb);
+        ma = ca;
+        mb = cb;
+        exp_scores<QT>(sc, ma, mb, la, lb);
+        if (c + 1 == n_kt) {
+          la = quad_sum(la);
+          lb = quad_sum(lb);
+        }
+      } else {
+        float xa = -INFINITY, xb = -INFINITY;  // unused row maxima
+        float ya = 0.f, yb = 0.f;              // unused sums
+        mask_scores<QT>(sc, sM + c * QT, qma, qmb, sm_scale, t4, xa, xb);
+        exp_scores<QT>(sc, ma, mb, ya, yb);
+        cp_async_wait<1>();  // V has landed (the next K may not have)
+        fence_proxy_async();
+        __syncthreads();
+        probs_times_v<QT, D, DROP>(sc, o, fresh(sV), nullptr, la, lb, keep,
+                                   Sh::KSTRIDE, ra, 2 * c, drop, t4, c > 0);
+        wgmma_wait<0>();
+        fence_acc(o);
+      }
+    }
+    if (stats != nullptr && t4 == 0) {
+      if (qa < S) {
+        stats[prow0 + qa] = ma;
+        stats[bhs + prow0 + qa] = la;
+      }
+      if (qb < S) {
+        stats[prow0 + qb] = mb;
+        stats[bhs + prow0 + qb] = lb;
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const int col = head * D + jj * 8 + 2 * t4;
+      if (qa < S)
+        *reinterpret_cast<unsigned*>(ctx + (row0 + qa) * H + col) =
+            pack_bf16x2(o[4 * jj], o[4 * jj + 1]);
+      if (qb < S)
+        *reinterpret_cast<unsigned*>(ctx + (row0 + qb) * H + col) =
+            pack_bf16x2(o[4 * jj + 2], o[4 * jj + 3]);
+    }
+    __syncthreads();  // every product of the tile is done: Q, K, V free
+  }
+}
+
+template <bool DROP>
+int launch_long192(const void* q, const void* k, const void* v, int ld,
+                   const float* mask, void* ctx, float* stats, int B, int S,
+                   int n_heads, float sm_scale, const DropParams& drop,
+                   cudaStream_t stream) {
+  static int per_sm = 0;  // blocks an SM runs
+  if (per_sm == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        seg_attn192_long_kernel<DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, LONG192_SMEM);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, seg_attn192_long_kernel<DROP>, 128, LONG192_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int n_qt = (S + QT - 1) / QT;
+  const int tpb = tiles_per_block(n_qt, B * n_heads, per_sm * sm_count(), 1);
+  dim3 grid((n_qt + tpb - 1) / tpb, n_heads, B);
+  seg_attn192_long_kernel<DROP><<<grid, 128, LONG192_SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), ld, mask, static_cast<bf16*>(ctx), stats,
+      S, tpb, sm_scale, drop);
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++wgmma_launches[2];
+  return (int)e;
+}
+
 template <bool DROP>
 int launch_wgmma192_s(const void* q, const void* k, const void* v, int ld,
                       const float* mask, void* ctx, float* stats, int B,
@@ -608,6 +792,9 @@ int launch_wgmma192_s(const void* q, const void* k, const void* v, int ld,
   if (S <= 192) NBK_WGMMA192(192);
   if (S <= 256) NBK_WGMMA192(256);
 #undef NBK_WGMMA192
+  if (S <= Long192::MAXK)
+    return launch_long192<DROP>(q, k, v, ld, mask, ctx, stats, B, S, n_heads,
+                                sm_scale, drop, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -832,7 +1019,7 @@ extern "C" {
 // q | k | v column blocks of one (B*S, 3h) QKV buffer (ld = 3h), or
 // (B, S, n_heads, d) tensors (ld = n_heads * d); mask (B, S) f32 segment
 // ids -> ctx (B*S, n_heads * d) bf16, on the instance the caller names:
-// 0, the wgmma kernel (d = 64 with S <= 512, d = 96 or 192 with S <=
+// 0, the wgmma kernel (d = 64 or 192 with S <= 512, d = 96 with S <=
 // 256), or the width of a mma.sync instance (32, 64, 96, 128, 192 or 256,
 // at least d, any d % 8 == 0); any other instance, d or S is refused.
 // stats, if not null, is (2, B, n_heads, S) f32 and receives each row's

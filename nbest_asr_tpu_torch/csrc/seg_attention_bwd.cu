@@ -39,8 +39,10 @@
 //                           long length buckets and packed rows too)
 //   d = 192, S <= 256       the d = 192 wgmma pair (section 4; the CLI's
 //                           from-scratch heads, every DSTC2 bucket)
-//   d = 96 or 192,          the mma.sync pair (at d = 96 K and V would
-//   256 < S <= 512          take 192 KB, at d = 192 K alone 192 KB)
+//   d = 192,                the streaming dq kernel and section 4's dkv
+//   256 < S <= 512          kernel (section 5; that default on packed
+//                           512-token rows, long buckets and N-best rows)
+//   d = 96, 256 < S <= 512  the mma.sync pair (K and V would take 192 KB)
 //   every other d <= 256    the mma.sync pair, on its instance of width
 //   with d % 8 == 0         32, 64, 96, 128, 192 or 256 (attention.cuh,
 //                           instance_width: a d between two widths runs
@@ -106,6 +108,14 @@
 // each tile's copies issued on the warpgroups' own paths, to bound both
 // kernels: the dkv kernel's dS warpgroup issues the next tile's copies
 // while the other rebuilds p (16-23% off the dkv kernel on the H100).
+//
+// Past 256 keys at d = 192 (section 5) K alone would take 192 KB, so the
+// dq kernel keeps only its tile's Q and dO: its two warpgroups take
+// alternate 64-key chunks and stream each chunk's K and V twice (S and dP
+// for di, then S, dP and dq += ds K: 5 s*s*d products a head, beside the
+// dkv kernel's 4), each holding a whole 64 x 192 partial dq; the dkv
+// kernel, which streams Q and dO and holds only its 64 keys, runs
+// unchanged at NK = 512.
 //
 // The mma.sync pair (sections 1 and 2): each warp owns 16 rows and works
 // in 16-column chunks, so registers hold only the row block's fragments
@@ -1833,6 +1843,208 @@ __global__ void __launch_bounds__(256, 1)
 #undef NBK_DKV192_ROLE
 }
 
+// -------------------------------------------------------------------- //
+// 5. The wgmma pair at d = 192, 256 < S <= 512: K and V streamed
+// -------------------------------------------------------------------- //
+
+// The dq kernel's shared memory past 256 keys: 1024-byte alignment slack,
+// the tile's Q and dO, a ring of two 64-key K tiles and a V tile a
+// warpgroup (each 64 rows of three 128-byte-swizzled panels, 24 KB; at
+// the tile's end each warpgroup's first K slot carries the dq sums it
+// hands the other), the key segment ids, the tile's keep table, the di
+// halves: 199.75 KB, one block an SM.  The dkv kernel is section 4's at
+// NK = 512 (191 KB: its per-query arrays sized for 512 queries, its
+// loops over the run's own S).
+constexpr int LONG192_DQ_SMEM = 1024 + 8 * Long192::TB + Long192::MAXK * 4 +
+                                QT * Long192::KSTRIDE * 4 + 2 * QT * 4;
+
+// The dq kernel at d = 192 past 256 keys: one block per (element, head)
+// and a run of its 64-query tiles, two warpgroups that split each tile's
+// 64-key chunks (warpgroup w takes chunks w, w + 2, ...: whole chunks from
+// a multiple of 64, so S and dP are the forward's products bit for bit)
+// and stream their K and V tiles through their own slots.  di must be
+// complete before ds, so each warpgroup sweeps its chunks twice: sweep 1
+// issues S = Q K^T and dP = dO V^T, rebuilds p from the saved statistics,
+// drops dP and sums dp p (the chunk's keep bits drawn while its products
+// run); the halves of di meet in sDi; sweep 2 issues S and dP again and
+// packs ds = bf16(p (dp - di) sm_scale) in registers as the A operand of
+// dq += ds K (three m64n64k16 a k16 step, the K tile read MN-major).  Each
+// warpgroup holds a whole 64 x 192 f32 partial dq (96 registers a thread
+// beside a chunk's 32 scores and 32 dP); the partials meet at the tile's
+// end, each warpgroup summing and storing 96 of the 192 columns (a + b:
+// the same bits either way round).  A step copies its next K tile while
+// its products run and its next V tile once dP is done; both warpgroups
+// run one code path, their chunks an offset.
+template <bool DROP>
+__global__ void __launch_bounds__(256, 1)
+    dq192_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, int ld,
+                      const bf16* __restrict__ dctx,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ stats, float* __restrict__ di,
+                      bf16* __restrict__ dq, int ld_g, int S, int tpb,
+                      float sm_scale, DropParams drop) {
+  constexpr int D = 192;
+  using Sh = Long192;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sQ =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sO = sQ + Sh::TB;  // dO
+  float* sM = reinterpret_cast<float*>(sO + 7 * Sh::TB);
+  unsigned* keep = reinterpret_cast<unsigned*>(sM + Sh::MAXK);
+  float* sDi = reinterpret_cast<float*>(keep + QT * Sh::KSTRIDE);
+
+  const int head = blockIdx.y, elem = blockIdx.z, n_heads = gridDim.y;
+  const int H = n_heads * D;
+  const int t0 = blockIdx.x * tpb;
+  const int t_end = min((S + QT - 1) / QT, t0 + tpb);
+  const int n_kt = (S + QT - 1) / QT;
+  const size_t row0 = (size_t)elem * S;
+  const int prow0 = (elem * n_heads + head) * S;  // Philox row of query 0
+  const size_t bhs = (size_t)gridDim.z * n_heads * S;
+  const size_t off = row0 * ld + head * D;
+  const bf16* k_src = k + off;
+  const bf16* v_src = v + off;
+  const bf16* o_src = dctx + row0 * H + head * D;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ra = (tid >> 5) * 16 + g;
+  const float nan = __int_as_float(0x7fc00000);
+  // this warpgroup's K ring (two slots) and V slot; its chunks
+  unsigned char* sKw = sO + Sh::TB + wg * 3 * Sh::TB;
+  unsigned char* sVw = sKw + 2 * Sh::TB;
+  const int m = (n_kt - wg + 1) / 2;  // S > 256: at least two each
+  float* sRed = reinterpret_cast<float*>(sKw);
+
+  for (int j = threadIdx.x; j < n_kt * QT; j += 256)
+    sM[j] = j < S ? mask[row0 + j] : nan;
+  float sc[QT / 2], dp[QT / 2], acc[D / 2];
+  for (int t = t0; t < t_end; ++t) {
+    const int q0 = t * QT, qa = q0 + ra, qb = qa + 8;
+    copy_rows<D>(sQ, q + off, ld, q0, QT, S, threadIdx.x, 256);
+    copy_rows<D>(sO, o_src, H, q0, QT, S, threadIdx.x, 256);
+    copy_rows<D>(sKw, k_src, ld, wg * QT, QT, S, tid, 128);
+    copy_rows<D>(sVw, v_src, ld, wg * QT, QT, S, tid, 128);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    // a query row past S matches no key, and m = 0 makes its p 0
+    const float qma = qa < S ? sM[qa] : nan, qmb = qb < S ? sM[qb] : nan;
+    const float ma = qa < S ? stats[prow0 + qa] : 0.f;
+    const float mb = qb < S ? stats[prow0 + qb] : 0.f;
+    const float la = qa < S ? stats[bhs + prow0 + qa] : 1.f;
+    const float lb = qb < S ? stats[bhs + prow0 + qb] : 1.f;
+    const float rla = __frcp_rn(la), rlb = __frcp_rn(lb);
+    float da = 0.f, db = 0.f;
+    for (int u = 0; u < 2 * m; ++u) {
+      const bool second = u >= m;
+      const int i = second ? u - m : u, c = wg + 2 * i;
+      const unsigned char* sKc = fresh(sKw) + (u & 1) * Sh::TB;
+      if (u > 0) {  // this step's K and V have landed
+        cp_async_wait<0>();
+        fence_proxy_async();
+        warpgroup_sync(wg);
+      }
+      issue_scores<QT, D>(sc, fresh(sQ), sKc, nullptr, QT * 128);
+      issue_scores<QT, D>(dp, fresh(sO), fresh(sVw), nullptr, QT * 128);
+      if (u + 1 < 2 * m) {  // the next step's K, into the other slot
+        const int cn = wg + 2 * (u + 1 < m ? u + 1 : u + 1 - m);
+        copy_rows<D>(sKw + ((u + 1) & 1) * Sh::TB, k_src, ld, cn * QT, QT, S,
+                     tid, 128);
+      }
+      cp_async_commit();
+      if (DROP && !second)  // the chunk's keep bits while the products run
+        build_keep(keep + 2 * c, QT, 2, Sh::KSTRIDE, drop, prow0 + q0, c * QT,
+                   tid, 128);
+      wgmma_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+      warpgroup_sync(wg);  // every warp's dP has read the V slot
+      if (u + 1 < 2 * m) {
+        const int cn = wg + 2 * (u + 1 < m ? u + 1 : u + 1 - m);
+        copy_rows<D>(sVw, v_src, ld, cn * QT, QT, S, tid, 128);
+      }
+      cp_async_commit();
+      float xa = -INFINITY, xb = -INFINITY;  // row maxima: the saved ones
+      mask_scores<QT>(sc, sM + c * QT, qma, qmb, sm_scale, t4, xa, xb);
+      rebuild_probs<QT / 2>(sc, ma, mb, la, lb, rla, rlb);
+      drop_frag<QT, DROP>(dp, keep, Sh::KSTRIDE, ra, c * QT, t4,
+                          drop.inv_keep);
+      if (!second) {
+#pragma unroll
+        for (int e = 0; e < QT / 2; ++e) {
+          if (e & 2)
+            db = fmaf(dp[e], sc[e], db);
+          else
+            da = fmaf(dp[e], sc[e], da);
+        }
+        if (i + 1 == m) {  // di's halves meet: half 0 + half 1 in both
+          da = quad_sum(da);
+          db = quad_sum(db);
+          if (t4 == 0) {
+            sDi[wg * QT + ra] = da;
+            sDi[wg * QT + ra + 8] = db;
+          }
+          pair_sync();
+          da = sDi[ra] + sDi[QT + ra];
+          db = sDi[ra + 8] + sDi[QT + ra + 8];
+          if (wg == 0 && t4 == 0) {
+            if (qa < S) di[prow0 + qa] = da;
+            if (qb < S) di[prow0 + qb] = db;
+          }
+        }
+      } else {
+        unsigned dsa[QT / 4];
+#pragma unroll
+        for (int e = 0; e < QT / 2; e += 2) {
+          const float dd = (e & 2) ? db : da;
+          dsa[e / 2] = pack_bf16x2(
+              __fmul_rn(__fmul_rn(sc[e], __fsub_rn(dp[e], dd)), sm_scale),
+              __fmul_rn(__fmul_rn(sc[e + 1], __fsub_rn(dp[e + 1], dd)),
+                        sm_scale));
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int j = 0; j < QT / 16; ++j)  // 16 keys of K: 2048 bytes
+            wgmma_rs_n64(acc + 32 * p, dsa + 4 * j,
+                         smem_desc(sKc + p * QT * 128 + j * 2048, 512, 64),
+                         i > 0 || j > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(acc);
+      }
+    }
+    // the partials meet: each warpgroup hands the other the dq sums of the
+    // columns it does not store (the first stores columns 0-95, the second
+    // 96-191) in its first K slot, and adds the other's to its own
+    constexpr int HALF = D / 4;  // 48 sums a thread
+    const float* theirs = reinterpret_cast<const float*>(
+        sO + Sh::TB + (1 - wg) * 3 * Sh::TB);
+#pragma unroll
+    for (int j = 0; j < HALF; ++j)
+      sRed[j * 128 + tid] = wg ? acc[j] : acc[HALF + j];
+    pair_sync();
+    float mine[HALF];
+#pragma unroll
+    for (int j = 0; j < HALF; ++j)
+      mine[j] = (wg ? acc[HALF + j] : acc[j]) + theirs[j * 128 + tid];
+#pragma unroll
+    for (int jj = 0; jj < HALF / 4; ++jj) {
+      const int col = head * D + wg * (D / 2) + jj * 8 + 2 * t4;
+      if (qa < S)
+        *reinterpret_cast<unsigned*>(dq + (row0 + qa) * ld_g + col) =
+            pack_bf16x2(mine[4 * jj], mine[4 * jj + 1]);
+      if (qb < S)
+        *reinterpret_cast<unsigned*>(dq + (row0 + qb) * ld_g + col) =
+            pack_bf16x2(mine[4 * jj + 2], mine[4 * jj + 3]);
+    }
+    __syncthreads();  // the sums are read: every slot is free
+  }
+}
+
 long long wgmma_launches[3] = {0, 0, 0};  // the wgmma pairs at d = 64, 96, 192
 
 // Makes dynamic shared memory of smem bytes available to a two-warpgroup
@@ -1943,6 +2155,44 @@ int launch_wgmma192(const Operands& a, cudaStream_t stream) {
   return (int)e;
 }
 
+// Past 256 keys at d = 192: the streaming dq kernel, then section 4's dkv
+// kernel at NK = 512.
+template <bool DROP>
+int launch_long192(const Operands& a, cudaStream_t stream) {
+  using Sh = Bwd192<Long192::MAXK>;
+  static int dq_per_sm = 0;  // dq blocks an SM runs
+  if (dq_per_sm == 0) {
+    cudaError_t e = prepare_dq2(dq192_long_kernel<DROP>, LONG192_DQ_SMEM,
+                                &dq_per_sm);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(dkv192_wgmma_kernel<Long192::MAXK, DROP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Sh::DKV_SMEM);
+    if (e != cudaSuccess) {
+      dq_per_sm = 0;
+      return (int)e;
+    }
+  }
+  const int n_qt = (a.S + QT - 1) / QT;
+  // a dq block's tiles run one after another, each on both warpgroups
+  const int tpb = tiles_per_block(n_qt, a.B * a.n_heads,
+                                  dq_per_sm * sm_count(), 1);
+  dim3 dq_grid((n_qt + tpb - 1) / tpb, a.n_heads, a.B);
+  dq192_long_kernel<DROP><<<dq_grid, 256, LONG192_DQ_SMEM, stream>>>(
+      a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dq, a.ld_g, a.S,
+      tpb, a.sm_scale, a.drop);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(n_qt, a.n_heads, a.B);
+  dkv192_wgmma_kernel<Long192::MAXK, DROP><<<grid, 256, Sh::DKV_SMEM,
+                                             stream>>>(
+      a.q, a.k, a.v, a.ld, a.dctx, a.mask, a.stats, a.di, a.dk, a.dv, a.ld_g,
+      a.S, a.sm_scale, a.drop);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++wgmma_launches[2];
+  return (int)e;
+}
+
 // the window: S rounded up to 32 (64 at least; 224 to 256), as the
 // forward's; past 256 keys (d = 64) S rounded up to 128, so that each dq
 // warpgroup takes whole 64-key chunks (the forward's two 256-key windows:
@@ -1970,6 +2220,7 @@ int launch_wgmma192_s(const Operands& a, cudaStream_t stream) {
   if (a.S <= 160) return launch_wgmma192<160, DROP>(a, stream);
   if (a.S <= 192) return launch_wgmma192<192, DROP>(a, stream);
   if (a.S <= 256) return launch_wgmma192<256, DROP>(a, stream);
+  if (a.S <= Long192::MAXK) return launch_long192<DROP>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1983,8 +2234,8 @@ extern "C" {
 // aligned, ld_g even: the q | k | v column blocks of one (B*S, 3h)
 // buffer, or (B, S, n_heads, d) tensors); di (B, n_heads, S) f32 is
 // scratch (rowsum(dp * p)).  d <= 256 with d % 8 == 0, S <= 512, on
-// the instance the caller names: 0, the wgmma pair (d = 64; d = 96 or
-// 192, S <= 256), or the width of a mma.sync pair (32, 64, 96, 128, 192
+// the instance the caller names: 0, the wgmma pair (d = 64 or 192; d =
+// 96, S <= 256), or the width of a mma.sync pair (32, 64, 96, 128, 192
 // or 256, at least d); any other instance, d or S is refused.  The prob
 // dropout as in the forward.
 int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
@@ -2016,7 +2267,7 @@ int nbk_seg_attention_bwd(const void* q, const void* k, const void* v,
   a.drop = make_drop(seed, stream, thresh, inv_keep, drop_on);
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   if (S <= 0 || d <= 0 || d % 8) return (int)cudaErrorInvalidValue;
-  if (instance == 0) {  // S > 256 at d = 96 or 192 is refused below
+  if (instance == 0) {  // S > 256 at d = 96 is refused below
     if (d == WD)
       return a.drop.on ? launch_wgmma_s<64, true>(a, s)
                        : launch_wgmma_s<64, false>(a, s);

@@ -68,8 +68,9 @@ with d % 8 == 0 each runs on the narrowest ``mma.sync`` instance of width
 32, 64, 96, 128, 192 or 256 at least d wide, its columns past d
 zero-filled on load and never stored (``csrc/attention.cuh``,
 ``instance_width``), or on a ``wgmma`` kernel: the tiled trio at d = 64
-and 96, ``seg_attention`` and ``seg_attention_bwd`` at d = 64 (s <= 512),
-96 and 192 (s <= 256), counted also by ``seg_attention_wgmma_launches``
+and 96, ``seg_attention`` and ``seg_attention_bwd`` at d = 64 and 192
+(s <= 512; at d = 192 past 256 keys K and V streamed) and 96 (s <= 256),
+counted also by ``seg_attention_wgmma_launches``
 and ``seg_attention_bwd_wgmma_launches``.  Every other head dim -- d >
 256, and d % 8 != 0, whose heads leave the 16-byte boundaries those
 instances copy on -- runs the chunked family (``csrc/attention_chunked.cu``:
@@ -154,8 +155,8 @@ def chunked_head_dim(d: int) -> bool:
 def attn_instance(d: int, s: int, backward: bool = False):
     """The instance ``seg_attention`` (``backward``: ``seg_attention_bwd``)
     runs at head dim d and sequence length s: ``"chunked"`` where
-    ``chunked_head_dim`` holds, ``"wgmma"`` at d = 64 (both to s = 512),
-    d = 96 and d = 192 (s <= 256), else the width of its ``mma.sync``
+    ``chunked_head_dim`` holds, ``"wgmma"`` at d = 64 and d = 192 (both
+    to s = 512) and d = 96 (s <= 256), else the width of its ``mma.sync``
     instance, the narrowest of 32, 64, 96, 128, 192 and 256 at least d
     wide; None where the wrappers refuse (d < 1, s outside 1 .. 512).  The
     wrappers pass this choice to the library (``csrc/seg_attention.cu``,
@@ -165,7 +166,7 @@ def attn_instance(d: int, s: int, backward: bool = False):
         return None
     if chunked_head_dim(d):
         return "chunked"
-    if d == 64 or d in (96, 192) and s <= 256:
+    if d in (64, 192) or d == 96 and s <= 256:
         return "wgmma"
     return next(w for w in (32, 64, 96, 128, 192, 256) if w >= d)
 

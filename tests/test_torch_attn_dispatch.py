@@ -29,7 +29,8 @@ TABLE = {(64, 20): ("wgmma", "wgmma"), (64, 256): ("wgmma", "wgmma"),
          (48, 160): (64, 64), (72, 160): (96, 96), (80, 256): (96, 96),
          (88, 64): (96, 96), (8, 64): (32, 32), (32, 160): (32, 32),
          (128, 256): (128, 128), (192, 256): ("wgmma", "wgmma"),
-         (192, 64): ("wgmma", "wgmma"), (192, 257): (192, 192),
+         (192, 64): ("wgmma", "wgmma"), (192, 257): ("wgmma", "wgmma"),
+         (192, 512): ("wgmma", "wgmma"), (184, 300): (192, 192),
          (160, 256): (192, 192),
          (256, 512): (256, 256), (12, 64): ("chunked", "chunked"),
          (264, 64): ("chunked", "chunked"), (3, 1): ("chunked", "chunked"),

@@ -45,21 +45,21 @@ def _mask(rng, b, s, kind):
     return m
 
 
-def _inputs(b, s, kind, seed=0):
+def _inputs(b, s, kind, seed=0, h=H):
     rng = np.random.RandomState(seed)
-    args = [(rng.randn(b, s, H) * 0.5).astype(np.float32),
-            (rng.randn(H, 3 * H) * 0.05).astype(np.float32),
-            (rng.randn(3 * H) * 0.02).astype(np.float32),
-            (rng.randn(H, H) * 0.05).astype(np.float32),
-            (rng.randn(H) * 0.02).astype(np.float32),
-            (1.0 + 0.1 * rng.randn(H)).astype(np.float32),
-            (0.1 * rng.randn(H)).astype(np.float32)]
+    args = [(rng.randn(b, s, h) * 0.5).astype(np.float32),
+            (rng.randn(h, 3 * h) * 0.05).astype(np.float32),
+            (rng.randn(3 * h) * 0.02).astype(np.float32),
+            (rng.randn(h, h) * 0.05).astype(np.float32),
+            (rng.randn(h) * 0.02).astype(np.float32),
+            (1.0 + 0.1 * rng.randn(h)).astype(np.float32),
+            (0.1 * rng.randn(h)).astype(np.float32)]
     return args, _mask(rng, b, s, kind)
 
 
-def _torch_grads(fn, args, mask, **kw):
+def _torch_grads(fn, args, mask, n_heads=NH, **kw):
     ts = [torch.from_numpy(a.copy()).requires_grad_(True) for a in args]
-    y = fn(*ts, torch.from_numpy(mask), n_heads=NH, eps=EPS, **kw)
+    y = fn(*ts, torch.from_numpy(mask), n_heads=n_heads, eps=EPS, **kw)
     (y * y).sum().backward()
     return y.detach(), [t.grad for t in ts]
 
@@ -68,20 +68,29 @@ def _torch_grads(fn, args, mask, **kw):
                                       (2, 48, "packed"), (1, 300, "padded"),
                                       (1, 512, "packed")])
 def test_forward_and_all_gradients_match_pallas(b, s, kind):
-    args, mask = _inputs(b, s, kind, seed=b * 100 + s)
+    _hold_to_pallas(*_inputs(b, s, kind, seed=b * 100 + s), NH)
 
+
+@pytest.mark.parametrize("b,s,kind", [(1, 300, "padded"), (1, 512, "packed")])
+def test_d192_heads_past_256_keys_match_pallas(b, s, kind):
+    """h = 384 in 2 heads of 192, past 256 keys: the head dim and lengths
+    that the card runs on its streaming d = 192 wgmma pair."""
+    _hold_to_pallas(*_inputs(b, s, kind, seed=b * 100 + s, h=384), 2)
+
+
+def _hold_to_pallas(args, mask, n_heads):
     def loss(*a):
-        out = jax_fab(*a, jnp.asarray(mask), n_heads=NH, eps=EPS)
+        out = jax_fab(*a, jnp.asarray(mask), n_heads=n_heads, eps=EPS)
         return jnp.sum(out * out)
 
     with pltpu.force_tpu_interpret_mode(), \
             jax.default_matmul_precision("highest"):
         ja = [jnp.asarray(a) for a in args]
-        want_y = np.asarray(jax_fab(*ja, jnp.asarray(mask), n_heads=NH,
+        want_y = np.asarray(jax_fab(*ja, jnp.asarray(mask), n_heads=n_heads,
                                     eps=EPS))
         want_g = jax.grad(loss, argnums=tuple(range(7)))(*ja)
     _cuda.reset_launch_counts()
-    y, grads = _torch_grads(fused_attention_block, args, mask)
+    y, grads = _torch_grads(fused_attention_block, args, mask, n_heads)
     assert all(v == 0 for v in _cuda.launch_counts.values())
     np.testing.assert_allclose(y.numpy(), want_y, atol=2e-5, rtol=1e-4)
     for g, w, name in zip(grads, want_g, NAMES):

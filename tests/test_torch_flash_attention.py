@@ -95,12 +95,16 @@ def test_single_block_forward_matches_jax(s):
     _hold(_inputs(2, s, 4, 64, seed=0), fwd_only=True)
 
 
-@pytest.mark.parametrize("s,d", [(128, 64), (100, 32), (160, 96), (100, 48),
-                                 (64, 192)])
-def test_single_block_gradients_match_jax(s, d):
+@pytest.mark.parametrize("s,d,packed", [
+    pytest.param(s, d, False, id=f"{s}-{d}")
+    for s, d in ((128, 64), (100, 32), (160, 96), (100, 48), (64, 192),
+                 (300, 192))] + [pytest.param(512, 192, True,
+                                              id="512-192-packed")])
+def test_single_block_gradients_match_jax(s, d, packed):
     """s = 100: JAX pads q rows to 112 and kv rows to 128 with mask -1;
-    the port pads nothing."""
-    _hold(_inputs(2, s, 2, d, seed=1))
+    the port pads nothing.  d = 192 past 256 keys (the card's streaming
+    wgmma pair): s = 300 padded, s = 512 packed."""
+    _hold(_inputs(2, s, 2, d, seed=1, packed=packed))
 
 
 def test_packed_masks_match_jax():

@@ -123,12 +123,14 @@ def test_gemm_bias_residual_and_layer_norm(dev, m, n, k, rate):
 
 # seg_attention's (seq, head dim) cases: at d = 64 (the wgmma kernel)
 # ragged lengths, the four DSTC2 buckets and past 256 (two score windows);
-# at d = 96 and 192 the same (the wgmma kernels to 256, their mma.sync
-# instances past); at d = 32 and 128 the mma.sync kernel
+# at d = 96 and 192 the same (the wgmma kernels to 256; past 256 the
+# mma.sync instance at d = 96, the streaming wgmma kernel at d = 192, also
+# at 257 and 384); at d = 32 and 128 the mma.sync kernel
 ATTN_SD = ([(s, 64) for s in (20, 64, 96, 130, 160, 256, 300, 512)]
            + [(s, d) for d in (32, 128) for s in (20, 160, 512)]
            + [(s, d) for d in (96, 192)
-              for s in (20, 64, 96, 130, 160, 200, 256, 300, 512)])
+              for s in (20, 64, 96, 130, 160, 200, 256, 300, 512)]
+           + [(s, 192) for s in (257, 384)])
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -662,14 +664,17 @@ def test_seg_attention_dropout_and_stats(dev, s, d, packed, rate):
 # = 96 also each DSTC2 training micro of the 8192-token budget at the
 # quality tools' 8 heads (128 x 64, 80 x 96, 48 x 160, 32 x 256), ragged
 # 130 and 200, and 300 (past the wgmma pair); the same at d = 192 at the
-# CLI's from-scratch 4 heads
+# CLI's from-scratch 4 heads, and past 256 keys at 257, 384 and 512 (the
+# streaming wgmma pair)
 BWD_CASES = ([pytest.param(2, s, 4, d, id=f"{s}-{d}")
               for s in (20, 64, 96, 160, 256, 512) for d in (64, 128, 96)]
              + [pytest.param(2, s, 4, 64, id=f"{s}-64") for s in (300, 400)]
              + [pytest.param(b, s, nh, d, id=f"{b}x{s}-{d}x{nh}")
                 for d, nh in ((96, 8), (192, 4))
                 for b, s in ((128, 64), (80, 96), (48, 160), (32, 256),
-                             (3, 130), (3, 200), (2, 300))])
+                             (3, 130), (3, 200), (2, 300))]
+             + [pytest.param(2, s, 4, 192, id=f"2x{s}-192x4")
+                for s in (257, 384, 512)])
 
 
 @pytest.mark.parametrize("layout", ["qkv", "bshd"])
@@ -786,9 +791,24 @@ def test_long_backward_regenerates_the_forward_prob_mask(dev, s):
     probs as the backward rebuilds them, for every key.  Both are 0
     exactly where the stream-3 keep bits drop, and equal, with no element
     that differs; every launch runs on the d = 64 wgmma kernels."""
+    _long_mask_regenerated(dev, s, 64)
+
+
+@pytest.mark.parametrize("s", [300, 512])
+def test_d192_long_backward_regenerates_the_forward_prob_mask(dev, s):
+    """The same at d = 192 past 256 keys: the streaming forward sums a
+    row's exps chunk by chunk and the dQ kernel's warpgroups take
+    alternate 64-key chunks, but each chunk's scores come from the same
+    products, so the d = 192 wgmma pair rebuilds the forward's keep bits
+    and probs bit for bit on every chunk."""
+    _long_mask_regenerated(dev, s, 192)
+
+
+def _long_mask_regenerated(dev, s, d):
+    """One-hot V and dO a 64-key chunk at a time; see the d = 64 test."""
     from nbest_asr_tpu_torch.ops.philox import keep_mask
 
-    b, nh, d = 2, 2, 64
+    b, nh = 2, 2
     h = nh * d
     assert K.attn_instance(d, s, backward=True) == "wgmma"
     qkv = _rand(dev, b * s, 3 * h, std=0.5, seed=s)
@@ -814,12 +834,13 @@ def test_long_backward_regenerates_the_forward_prob_mask(dev, s):
             c0 = 2 * h + hd * d
             qkv[:, c0:c0 + d] = onehot.repeat(b, 1)
         ctx, st = K.seg_attention(qkv, mask, nh, drop=drop, stats=True)
+        # columns past 64 of V and dO are 0, and so those of ctx and dV
         p_fwd[..., 64 * c:64 * c + 64] = ctx.reshape(b, s, nh, d).permute(
-            0, 2, 1, 3)
+            0, 2, 1, 3)[..., :64]
         d_v = K.seg_attention_bwd(qkv, onehot.repeat(b, nh).contiguous(),
                                   mask, st, nh, drop=drop)
         p_bwd[:, :, 64 * c:64 * c + 64] = d_v[:, 2 * h:].reshape(
-            b, s, nh, d).permute(0, 2, 3, 1)
+            b, s, nh, d).permute(0, 2, 3, 1)[:, :, :64]
     torch.cuda.synchronize()
     assert (K.seg_attention_wgmma_launches(d) - n0[0],
             K.seg_attention_bwd_wgmma_launches(d) - n0[1]) == (n_chunks,
